@@ -6,19 +6,29 @@ Phases (each fails loudly; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``torchao_tpu_torch/csrc`` (``nvcc``, sm_90a);
-3. Llama-3-8B at full width (32 layers, random weights from a seeded
-   ``torch.Generator`` on the card), int4 weight-only g=32 through the
-   port's quantize handler, leaf by leaf;
-4. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with its time (CUDA events, median, L2 flushed), its
-   bound, the plain version's time and one PyTorch library call's time;
-5. the main path: prefill 128 tokens, decode 128 at batch 1, top-k 200 at
-   temperature 0.6, through the int4 split-flat KV cache; one warm-up and
-   one timed run. The launch counts of the timed run are asserted, the
-   tokens must be in range and the logits finite;
-6. a 2-layer slice of the same weights in bf16 on the card (kernels) and on
-   the CPU (plain versions), each held against a float32 run on the CPU:
-   the card must come as close to it as the CPU does (``check_against_cpu``).
+3. five sections, one per configuration, each on Llama-3-8B at full width
+   and depth (32 layers, random weights from a seeded ``torch.Generator``
+   on the card, quantized through the port's quantize handler, leaf by
+   leaf; each section frees its model before the next):
+
+   - int4 weight-only g=32 with the packed-int4 split-flat KV cache;
+   - int8 weight-only with the int8 split-flat KV cache;
+   - int8 dynamic activations x int8 weights with the bf16 KV cache;
+   - float8 weight-only with the bf16 KV cache;
+   - float8 dynamic activations (per row) x float8 weights, bf16 KV cache.
+
+   In each: every kernel of the configuration against its plain PyTorch
+   version on the card at the main path's shapes, with its time (CUDA
+   events, median, L2 flushed), its bound, the plain version's time and one
+   PyTorch library call's time (for the fp8 sections also the unstacked
+   head's plain-torch route against K8 on it); the main path — prefill 128
+   tokens, decode 128 at batch 1, top-k 200 at temperature 0.6, one warm-up
+   and one timed run, the launch counts of the timed run asserted, the
+   tokens in range and the logits finite; and a 2-layer slice of the same
+   weights in bf16 on
+   the card (kernels) and on the CPU (plain versions), each held against a
+   float32 run on the CPU: the card must come as close to it as the CPU
+   does (``check_against_cpu``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -28,6 +38,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -38,23 +49,41 @@ import time
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_mixed_matmul_plain
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul, int4_dq_matmul_plain
+from torchao_tpu_torch.kernels.int8_matmul import (
+    int8_scaled_matmul,
+    int8_scaled_matmul_plain,
+    int8wo_mixed_matmul,
+    int8wo_mixed_matmul_plain,
+)
 from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write,
     fused_smajor_token_write_plain,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
+    _kv_values,
     quantized_kv_decode_attention,
     quantized_kv_decode_attention_bdq,
     quantized_kv_decode_attention_bdq_plain,
     quantized_kv_decode_attention_plain,
-    unpack_int4_kv,
 )
 from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
+from torchao_tpu_torch.ops.qlinear import linear
+from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
+from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
 from torchao_tpu_torch.qtypes.intx import IntxArray
-from torchao_tpu_torch.quantization.quant_api import Int4WeightOnlyConfig
+from torchao_tpu_torch.quantization.granularity import PerRow
+from torchao_tpu_torch.quantization.quant_api import (
+    Float8DynamicActivationFloat8WeightConfig,
+    Float8WeightOnlyConfig,
+    Int4WeightOnlyConfig,
+    Int8DynamicActivationInt8WeightConfig,
+    Int8WeightOnlyConfig,
+)
+from torchao_tpu_torch.quantization.quant_primitives import quantize_activation_per_token_absmax
 from torchao_tpu_torch.utils import compute_error
 
 MODEL = "Llama-3-8B"
@@ -62,21 +91,35 @@ GROUP = 32
 PROMPT, DECODE, TOP_K, TEMPERATURE = 128, 128, 200, 0.6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, the same source
+INT8_FP8_OPS = 1979e12     # dense int8 / fp8 tensor-core peak, the same source
 REPS = 25
 TOL_SQNR_DB = 35.0  # kernel vs plain version: fp32 vs bf16 rounding of weights, K, V, P
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
 
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+_QA = "torchao_tpu_torch/csrc/quantized_attention.cu"
+_QMM = "torchao_tpu_torch/csrc/qmatmul.cu"
+KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "int4_dq_matmul_gemv": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                             "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                              "torchao_tpu/kernels/int4_matmul.py:723"),
     "fused_smajor_token_write": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
                                  "torchao_tpu/kernels/kv_cache_write.py:166"),
-    "quantized_kv_decode_attention_bdq": ("torchao_tpu_torch/csrc/quantized_attention.cu",
-                                          "torchao_tpu/kernels/quantized_attention.py:931"),
-    "quantized_kv_decode_attention": ("torchao_tpu_torch/csrc/quantized_attention.cu",
-                                      "torchao_tpu/kernels/quantized_attention.py:337"),
+    "quantized_kv_decode_attention_bdq": (_QA, "torchao_tpu/kernels/quantized_attention.py:931"),
+    "quantized_kv_decode_attention": (_QA, "torchao_tpu/kernels/quantized_attention.py:337"),
+    "int8wo_mixed_matmul_gemv": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
+    "int8wo_mixed_matmul_tiled": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
+    "fused_smajor_token_write_int8": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
+                                      "torchao_tpu/kernels/kv_cache_write.py:166"),
+    "quantized_kv_decode_attention_bdq_int8": (
+        _QA, "torchao_tpu/kernels/quantized_attention.py:959"),
+    "quantized_kv_decode_attention_int8": (_QA, "torchao_tpu/kernels/quantized_attention.py:337"),
+    "int8_scaled_matmul_gemv": (_QMM, "torchao_tpu/kernels/int8_matmul.py:104"),
+    "int8_scaled_matmul_tiled": (_QMM, "torchao_tpu/kernels/int8_matmul.py:104"),
+    "fp8_mixed_matmul_gemv": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp8_mixed_matmul_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp8_mixed_matmul_e4m3_gemv": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp8_mixed_matmul_e4m3_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
 }
 
 
@@ -118,18 +161,19 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    """Least time for the work: bytes over HBM rate or flops over the bf16
-    peak, whichever is larger (ms, and which one)."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """Least time for the work: bytes over HBM rate or operations over the
+    tensor-core peak of their type (bf16, or int8/fp8), whichever is larger
+    (ms, and which one)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 class Tally:
     """One kernel's row: summed over the launches of one main-path step."""
 
-    def __init__(self, name, work):
-        self.name, self.work = name, work
+    def __init__(self, name, work, peak=BF16_FLOPS):
+        self.name, self.work, self.peak = name, work, peak
         self.ms = self.plain_ms = self.bytes = self.flops = 0.0
         self.library_ms = 0.0
         self.has_library = False
@@ -146,7 +190,7 @@ class Tally:
             self.library_ms += count * library_ms
 
     def row(self, launches):
-        b, by = bound(self.bytes, self.flops)
+        b, by = bound(self.bytes, self.flops, self.peak)
         src, rep = KERNELS[self.name]
         return {"name": self.name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches, "max_abs_err": self.max_abs_err, "ms": self.ms,
@@ -176,18 +220,21 @@ def compare(name, got, want, exact=False):
 # ------------------------------------------------------------ kernels --
 
 
+def _weights(params):
+    lw = params["layers"]
+    return [("wqkv", lw["attention"]["wqkv"], 0), ("wo", lw["attention"]["wo"], 0),
+            ("w13", lw["feed_forward"]["w13"], 0), ("w2", lw["feed_forward"]["w2"], 0),
+            ("output", params["output"]["weight"], None)]
+
+
 def check_int4(params, args, gen):
     """K1 (M=1, decode) and K5 (M=128, prefill) on the model's own weights."""
     L = args.n_layer
-    lw = params["layers"]
-    shapes = [("wqkv", lw["attention"]["wqkv"], 0), ("wo", lw["attention"]["wo"], 0),
-              ("w13", lw["feed_forward"]["w13"], 0), ("w2", lw["feed_forward"]["w2"], 0),
-              ("output", params["output"]["weight"], None)]
     rows = []
     for name, M in (("int4_dq_matmul_gemv", 1), ("int4_dq_matmul_tiled", PROMPT)):
         t = Tally(name, f"one {'decode step' if M == 1 else 'prefill'}: "
                         f"{L} x (wqkv, wo, w13, w2) + output head at M={M}")
-        for wname, w, l in shapes:
+        for wname, w, l in _weights(params):
             N, K = w.shape[-2:]
             x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
             a = (x, w.qdata, w.scale, w.zero_point)
@@ -210,32 +257,128 @@ def check_int4(params, args, gen):
     return rows
 
 
-def random_cache(gen, L, B, H, Dh, S):
-    X = H * Dh // 2
-    u8 = lambda *s: torch.randint(0, 256, s, generator=gen, dtype=torch.uint8, device="cuda")
-    sc = lambda: (torch.rand((L, B, H, S), generator=gen, device="cuda") * 0.1 + 0.01).bfloat16()
-    return {"k_q": u8(L, B, X, S), "k_scale": sc(), "v_q": u8(L, B, S, X), "v_scale": sc()}
+def _stacked_scale(w, l, N):
+    return w.scale.reshape(-1, N) if l is not None else w.scale.reshape(N)
 
 
-def check_kv_write(args, gen):
-    """K3 at positions 0, 127 and 255 of the main path's [32, 1, 512, 256] cache."""
+def _int8wo_call(x, w, l):
+    N, K = w.shape[-2:]
+    a, kw = (x, w.qdata, _stacked_scale(w, l, N)), dict(layer_idx=l)
+    M = x.shape[0]
+    return (lambda: int8wo_mixed_matmul(*a, **kw), lambda: int8wo_mixed_matmul_plain(*a, **kw),
+            N * K + N * 2 + M * K * 2 + M * N * 2)
+
+
+def _int8dq_call(x, w, l):
+    inner = w.original_weight
+    N, K = inner.shape[-2:]
+    x_q, xs = quantize_activation_per_token_absmax(x)
+    a = (x_q, inner.qdata, xs.reshape(-1), _stacked_scale(inner, l, N), torch.bfloat16)
+    kw = dict(layer_idx=l)
+    M = x.shape[0]
+    return (lambda: int8_scaled_matmul(*a, **kw), lambda: int8_scaled_matmul_plain(*a, **kw),
+            N * K + N * 2 + M * K + M * 2 + M * N * 2)
+
+
+def _fp8_call(x, w, l):
+    N, K = w.shape[-2:]
+    ws = w.scale.reshape(w.qdata.shape[0], -1)
+    M = x.shape[0]
+    if w.act_quant_spec is None:
+        a, nx = (x, w.qdata, ws, None, torch.bfloat16), M * K * 2
+    else:
+        x_q, xs = quantize_activation_float8(x, w.act_quant_spec)
+        a, nx = (x_q, w.qdata, ws, xs.reshape(-1), torch.bfloat16), M * K + M * 4
+    kw = dict(layer_idx=l)
+    return (lambda: fp8_mixed_matmul(*a, **kw), lambda: fp8_mixed_matmul_plain(*a, **kw),
+            N * K + N * 4 + nx + M * N * 2)
+
+
+def check_qmm(name, params, args, gen, call, peak, head):
+    """K6 / K7 / K8 at M=1 (gemv, decode) and M=128 (tiled, prefill) on
+    layer 0 of each stacked weight (and the head where the kernel runs it),
+    against its plain version; ``call(x, w, layer)`` gives the kernel call,
+    the plain call and the bytes the function must move."""
+    L = args.n_layer
+    shapes = [s for s in _weights(params) if head or s[2] is not None]
+    rows = []
+    for form, M in (("gemv", 1), ("tiled", PROMPT)):
+        t = Tally(f"{name}_{form}", f"one {'decode step' if M == 1 else 'prefill'}: "
+                  f"{L} x (wqkv, wo, w13, w2){' + output head' if head else ''} at M={M}",
+                  peak)
+        for wname, w, l in shapes:
+            N, K = w.shape[-2:]
+            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+            kernel, plain, nbytes = call(x, w, l)
+            err = compare(f"{t.name} {wname} M={M} N={N} K={K}", kernel(), plain())
+            wl = w.take_layer(l) if l is not None else w
+            wd = wl.dequantize(torch.bfloat16).T.contiguous()  # [K, N] bf16, for the library call
+            ms, plain_ms = time_ms(kernel), time_ms(plain)
+            lib_ms = time_ms(lambda: torch.matmul(x, wd))
+            del wd
+            b, by = bound(nbytes, 2 * M * K * N, peak)
+            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={b:.4f} ({by})")
+            t.add(L if l is not None else 1, ms, plain_ms, nbytes, 2 * M * K * N, err, lib_ms)
+        rows.append(t)
+    return rows
+
+
+def time_fp8_head(params, gen):
+    """The unstacked fp8 head: the route the port takes (plain torch, the
+    JAX package's default) against K8 on the same weight, at M=1 and
+    M=128, for the open head decision (ROADMAP Queue B). Returns ms."""
+    w = params["output"]["weight"]
+    N, K = w.shape
+    out = {}
+    for M in (1, PROMPT):
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        kernel, _, _ = _fp8_call(x, dataclasses.replace(
+            w, qdata=w.qdata[None], scale=w.scale[None]), 0)
+        out[f"head_plain_torch_ms_M{M}"] = time_ms(lambda: linear(x, w))
+        out[f"head_k8_ms_M{M}"] = time_ms(kernel)
+    log(f"  fp8 head [{N}, {K}]: " + ", ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
+def random_cache(gen, L, B, H, Dh, S, int8):
+    """A split-flat cache of random codes: packed int4 (uint8) or int8."""
+    if int8:
+        X = H * Dh
+        q = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda").to(torch.int8)
+    else:
+        X = H * Dh // 2
+        q = lambda *s: torch.randint(0, 256, s, generator=gen, dtype=torch.uint8, device="cuda")
+    lo = 0.001 if int8 else 0.01  # |int8 code| runs to 127, |int4| to 8
+    sc = lambda: (torch.rand((L, B, H, S), generator=gen, device="cuda") * 10 * lo + lo).bfloat16()
+    return {"k_q": q(L, B, X, S), "k_scale": sc(), "v_q": q(L, B, S, X), "v_scale": sc()}
+
+
+def _suffix(int8):
+    return "_int8" if int8 else ""
+
+
+def check_kv_write(args, gen, int8=False):
+    """K3 at positions 0, 127 and 255 of the main path's cache
+    ([32, 1, 512, 256] packed int4, or [32, 1, 1024, 256] int8)."""
     L, H, Dh, S = args.n_layer, args.n_local_heads, args.head_dim, PROMPT + DECODE
-    X = H * Dh // 2
-    c = random_cache(gen, L, 1, H, Dh, S)
+    c = random_cache(gen, L, 1, H, Dh, S, int8)
+    X = c["k_q"].shape[2]
     caches = (c["k_q"], c["v_q"], c["k_scale"], c["v_scale"])
-    u8 = lambda: torch.randint(0, 256, (1, X), generator=gen, dtype=torch.uint8, device="cuda")
+    new_q = lambda: random_cache(gen, 1, 1, H, Dh, 1, int8)["v_q"].reshape(1, X)
     sc = lambda: torch.rand((1, H), generator=gen, device="cuda").bfloat16()
-    t = Tally("fused_smajor_token_write", f"one decode step: {L} launches")
+    name = "fused_smajor_token_write" + _suffix(int8)
+    t = Tally(name, f"one decode step: {L} launches")
     for p in (0, 127, 255):
-        new = (u8(), u8(), sc(), sc())
+        new = (new_q(), new_q(), sc(), sc())
         pos = torch.tensor([p], dtype=torch.int32, device="cuda")
         got = fused_smajor_token_write(*(a.clone() for a in caches), *new, pos, 5)
         want = fused_smajor_token_write_plain(*(a.clone() for a in caches), *new, pos, 5)
-        err = max(compare(f"fused_smajor_token_write {n} pos={p}", g, w, exact=True)
+        err = max(compare(f"{name} {n} pos={p}", g, w, exact=True)
                   for n, g, w in zip(("k_q", "v_q", "k_scale", "v_scale"), got, want))
         ms = time_ms(lambda: fused_smajor_token_write(*caches, *new, pos, 5))
         plain_ms = time_ms(lambda: fused_smajor_token_write_plain(*caches, *new, pos, 5))
-        nbytes = 2 * (2 * X + 2 * H * 2) + 4
+        nbytes = 2 * (X + 2 * H * 2) + 4
         log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound(nbytes, 0)[0]:.6f}")
         if p == 127:
             t.add(L, ms, plain_ms, nbytes, 0, err)
@@ -248,26 +391,28 @@ def _sdpa(q, k, v, causal):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
 
-def check_decode_attention(args, gen):
-    """K2 at S=256 with pos 0, 128, 255, and at S=8192 with pos 8191."""
+def check_decode_attention(args, gen, int8=False):
+    """K2 / K2′ at S=256 with pos 0, 128, 255, and at S=8192 with pos 8191."""
     L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
-    G, X = H // Hkv, Hkv * Dh // 2
-    t = Tally("quantized_kv_decode_attention_bdq",
-              f"one decode step at S={PROMPT + DECODE}, pos=255: {L} launches")
+    G = H // Hkv
+    name = "quantized_kv_decode_attention_bdq" + _suffix(int8)
+    t = Tally(name, f"one decode step at S={PROMPT + DECODE}, pos=255: {L} launches")
     for S, positions in ((PROMPT + DECODE, (0, 128, 255)), (8192, (8191,))):
-        c = random_cache(gen, L, 1, Hkv, Dh, S)
+        c = random_cache(gen, L, 1, Hkv, Dh, S, int8)
+        X = c["k_q"].shape[2]
+        Db = X // Hkv
         a = (c["k_q"], c["k_scale"], c["v_q"], c["v_scale"])
         q = torch.randn((1, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
         for p in positions:
             pos = torch.tensor([p], dtype=torch.int32, device="cuda")
             got = quantized_kv_decode_attention_bdq(q, *a, pos, layer_idx=7)
             want = quantized_kv_decode_attention_bdq_plain(q, *a, pos, layer_idx=7)
-            err = compare(f"quantized_kv_decode_attention_bdq S={S} pos={p}", got, want)
+            err = compare(f"{name} S={S} pos={p}", got, want)
             # SDPA over the visible keys of the pre-dequantized layer, heads expanded
             n = p + 1
-            kd = (unpack_int4_kv(c["k_q"][7].reshape(1, Hkv, Dh // 2, S)[..., :n].transpose(2, 3))
+            kd = (_kv_values(c["k_q"][7].reshape(1, Hkv, Db, S)[..., :n].transpose(2, 3))
                   * c["k_scale"][7][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
-            vd = (unpack_int4_kv(c["v_q"][7][:, :n].reshape(1, n, Hkv, Dh // 2).transpose(1, 2))
+            vd = (_kv_values(c["v_q"][7][:, :n].reshape(1, n, Hkv, Db).transpose(1, 2))
                   * c["v_scale"][7][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
             qs = q.reshape(1, H, 1, Dh)
             ms = time_ms(lambda: quantized_kv_decode_attention_bdq(q, *a, pos, layer_idx=7))
@@ -287,32 +432,35 @@ def check_decode_attention(args, gen):
     return t
 
 
-def check_prefill_attention(args, gen):
-    """K4 at T=128, S=256, pos=0 over head-major views of a split-flat layer."""
+def check_prefill_attention(args, gen, int8=False):
+    """K4 (or its int8 form) at T=128, S=256, pos=0 over head-major views
+    of a split-flat layer."""
     L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
     G, S, T = H // Hkv, PROMPT + DECODE, PROMPT
-    c = random_cache(gen, 1, 1, Hkv, Dh, S)
-    views = (c["k_q"][0].reshape(1, Hkv, Dh // 2, S).transpose(2, 3), c["k_scale"][0][..., None],
-             c["v_q"][0].reshape(1, S, Hkv, Dh // 2).transpose(1, 2), c["v_scale"][0][..., None])
+    c = random_cache(gen, 1, 1, Hkv, Dh, S, int8)
+    Db = c["k_q"].shape[2] // Hkv
+    views = (c["k_q"][0].reshape(1, Hkv, Db, S).transpose(2, 3), c["k_scale"][0][..., None],
+             c["v_q"][0].reshape(1, S, Hkv, Db).transpose(1, 2), c["v_scale"][0][..., None])
     q = torch.randn((1, Hkv, T * G, Dh), generator=gen, device="cuda").bfloat16()
     pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    name = "quantized_kv_decode_attention" + _suffix(int8)
     got = quantized_kv_decode_attention(q, *views, pos, rows_per_t=G)
     want = quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G)
-    err = compare(f"quantized_kv_decode_attention T={T} S={S}", got, want)
-    kd = (unpack_int4_kv(views[0][..., :T, :]) * views[1][..., :T, :].float()).bfloat16()
-    vd = (unpack_int4_kv(views[2][..., :T, :]) * views[3][..., :T, :].float()).bfloat16()
+    err = compare(f"{name} T={T} S={S}", got, want)
+    kd = (_kv_values(views[0][..., :T, :]) * views[1][..., :T, :].float()).bfloat16()
+    vd = (_kv_values(views[2][..., :T, :]) * views[3][..., :T, :].float()).bfloat16()
     qs = q.reshape(1, Hkv, T, G, Dh).transpose(2, 3).reshape(1, H, T, Dh).contiguous()
     kd, vd = kd.repeat_interleave(G, 1), vd.repeat_interleave(G, 1)
     ms = time_ms(lambda: quantized_kv_decode_attention(q, *views, pos, rows_per_t=G))
     plain_ms = time_ms(lambda: quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G))
     lib_ms = time_ms(lambda: _sdpa(qs, kd, vd, True))
     pairs = sum(min(S, r // G + 1) for r in range(T * G))  # visible (row, key) pairs per head
-    nbytes = Hkv * (T * G * Dh * (2 + 4) + T * (Dh + 2 * 2))
+    nbytes = Hkv * (T * G * Dh * (2 + 4) + T * (2 * Db + 2 * 2))
     flops = 4 * Hkv * pairs * Dh
     b, by = bound(nbytes, flops)
     log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
         f"bound_ms={b:.5f} ({by})")
-    t = Tally("quantized_kv_decode_attention", f"one prefill (T={T}, S={S}): {L} launches")
+    t = Tally(name, f"one prefill (T={T}, S={S}): {L} launches")
     t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
     return t
 
@@ -323,10 +471,15 @@ def check_prefill_attention(args, gen):
 def first_layers(tree, n):
     """The first ``n`` layers of the stacked layer weights (views)."""
     def cut(v):
+        if isinstance(v, LinearActivationQuantizedArray):
+            return dataclasses.replace(v, original_weight=cut(v.original_weight))
         if isinstance(v, IntxArray):
+            zp = None if v.zero_point is None else v.zero_point[:n]
             return dataclasses.replace(
-                v, qdata=v.qdata[:n], scale=v.scale[:n], zero_point=v.zero_point[:n],
+                v, qdata=v.qdata[:n], scale=v.scale[:n], zero_point=zp,
                 logical_shape=(n,) + tuple(v.logical_shape[1:]))
+        if isinstance(v, Float8Array):
+            return dataclasses.replace(v, qdata=v.qdata[:n], scale=v.scale[:n])
         if isinstance(v, dict):
             return {k: cut(x) for k, x in v.items()}
         return v[:n]
@@ -334,27 +487,32 @@ def first_layers(tree, n):
 
 
 def to_device(tree, device, dtype=None):
-    """Move a params tree; with ``dtype``, its float tensors (and the
-    scales and zeros of quantized arrays) are cast too."""
+    """Move a params tree; with ``dtype``, its float tensors (and the float
+    qparams of quantized arrays) are cast too."""
     if isinstance(tree, dict):
         return {k: to_device(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, IntxArray):
+    if isinstance(tree, LinearActivationQuantizedArray):
+        return dataclasses.replace(tree, original_weight=to_device(tree.original_weight,
+                                                                   device, dtype))
+    if isinstance(tree, (IntxArray, Float8Array)):
         tree = tree.to(device)
         if dtype is None:
             return tree
-        return dataclasses.replace(tree, scale=tree.scale.to(dtype),
-                                   zero_point=tree.zero_point.to(dtype), activation_dtype=dtype)
+        cast = {n: getattr(tree, n).to(dtype) for n in ("scale", "zero_point")
+                if getattr(tree, n, None) is not None and getattr(tree, n).is_floating_point()}
+        return dataclasses.replace(tree, activation_dtype=dtype, **cast)
     return tree.to(device, dtype) if dtype is not None else tree.to(device)
 
 
-def check_against_cpu(params, gen):
+def check_against_cpu(params, gen, kv):
     """A 2-layer slice at full width, teacher-forced over a 16-token prefill
     and 3 decode steps, three times: bf16 on the card (kernels), bf16 on the
     CPU (plain versions) and float32 on the CPU (plain versions, the
-    reference). The int4 KV cache turns a rounding difference into whole
-    code steps wherever a value lies near a rounding edge, so two correct
-    bf16 runs differ far more than one ulp: the card must come as close to
-    the float32 reference as the CPU's bf16 run does, within E2E_MARGIN_DB."""
+    reference). A quantized KV cache or quantized activations turn a
+    rounding difference into whole code steps wherever a value lies near a
+    rounding edge, so two correct bf16 runs differ far more than one ulp:
+    the card must come as close to the float32 reference as the CPU's bf16
+    run does, within E2E_MARGIN_DB."""
     args = ModelArgs.from_name(MODEL)
     args.n_layer = 2
     small = first_layers(params, 2)
@@ -368,7 +526,7 @@ def check_against_cpu(params, gen):
     steps = [(toks[:, :16], 0)] + [(toks[:, 16 + i:17 + i], 16 + i) for i in range(3)]
     logits = {}
     for name, (model, p) in runs.items():
-        cache = model.setup_caches(1, 64)
+        cache = model.setup_caches(1, 64, quantize=kv)
         out = []
         for tk, pos in steps:
             lg, cache = model(p, tk.to(model.device), pos, cache)
@@ -383,6 +541,127 @@ def check_against_cpu(params, gen):
     if not sqnr["card bf16"] >= sqnr["CPU bf16"] - E2E_MARGIN_DB:
         raise AssertionError("the card's forward is further from the float32 reference "
                              "than the CPU's bf16 plain versions")
+    return sqnr
+
+
+# ------------------------------------------------------------ sections --
+
+
+def _want_int4(L):
+    return {"int4_dq_matmul_gemv": (4 * L + 1) * DECODE, "int4_dq_matmul_tiled": 4 * L + 1,
+            "fused_smajor_token_write": L * DECODE,
+            "quantized_kv_decode_attention_bdq": L * DECODE,
+            "quantized_kv_decode_attention": L}
+
+
+def _want_int8wo(L):
+    return {"int8wo_mixed_matmul_gemv": (4 * L + 1) * DECODE,
+            "int8wo_mixed_matmul_tiled": 4 * L + 1,
+            "fused_smajor_token_write_int8": L * DECODE,
+            "quantized_kv_decode_attention_bdq_int8": L * DECODE,
+            "quantized_kv_decode_attention_int8": L}
+
+
+def _want_matmul_only(name, per_forward):
+    return lambda L: {f"{name}_gemv": per_forward(L) * DECODE, f"{name}_tiled": per_forward(L)}
+
+
+def _int4_kernels(params, args, gen):
+    tallies = check_int4(params, args, gen)
+    tallies += [check_kv_write(args, gen), check_decode_attention(args, gen),
+                check_prefill_attention(args, gen)]
+    return tallies
+
+
+def _int8wo_kernels(params, args, gen):
+    tallies = check_qmm("int8wo_mixed_matmul", params, args, gen, _int8wo_call, BF16_FLOPS, True)
+    tallies += [check_kv_write(args, gen, True), check_decode_attention(args, gen, True),
+                check_prefill_attention(args, gen, True)]
+    return tallies
+
+
+# name -> (config, KV cache, kernel checks, expected launches of the timed run)
+SECTIONS = {
+    f"int4wo-{GROUP}": (Int4WeightOnlyConfig(group_size=GROUP), "int4_smajor", _int4_kernels,
+                        _want_int4),
+    "int8wo": (Int8WeightOnlyConfig(), "int8", _int8wo_kernels, _want_int8wo),
+    "int8dq": (Int8DynamicActivationInt8WeightConfig(), False,
+               lambda p, a, g: check_qmm("int8_scaled_matmul", p, a, g, _int8dq_call,
+                                         INT8_FP8_OPS, True),
+               _want_matmul_only("int8_scaled_matmul", lambda L: 4 * L + 1)),
+    "float8wo": (Float8WeightOnlyConfig(), False,
+                 lambda p, a, g: check_qmm("fp8_mixed_matmul", p, a, g, _fp8_call,
+                                           BF16_FLOPS, False),
+                 _want_matmul_only("fp8_mixed_matmul", lambda L: 4 * L)),
+    "float8dq-row": (Float8DynamicActivationFloat8WeightConfig(granularity=PerRow()), False,
+                     lambda p, a, g: check_qmm("fp8_mixed_matmul_e4m3", p, a, g, _fp8_call,
+                                               INT8_FP8_OPS, False),
+                     _want_matmul_only("fp8_mixed_matmul_e4m3", lambda L: 4 * L)),
+}
+
+
+def run_section(name, gen):
+    """One configuration: quantize, check its kernels, drive the main path,
+    check it against the CPU. Returns (kernel rows, end-to-end numbers)."""
+    config, kv, kernel_checks, want_fn = SECTIONS[name]
+    log(f"== {MODEL}, {name}, KV cache {kv or 'bf16'}: random weights")
+    t0 = time.perf_counter()
+    model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
+    params = init_quantized_params(model, config, default_linear_filter, seed=0)
+    torch.cuda.synchronize()
+    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
+
+    log("  -- kernels against their plain versions (main-path shapes)")
+    tallies = kernel_checks(params, model.args, gen)
+    head = {}
+    if isinstance(params["output"]["weight"], Float8Array):
+        head = time_fp8_head(params, gen)
+    torch.cuda.empty_cache()
+
+    log(f"  -- main path: prefill {PROMPT}, decode {DECODE}, batch 1, top-k {TOP_K}, "
+        f"temperature {TEMPERATURE}")
+    torch.cuda.reset_peak_memory_stats()
+
+    def on_run(i):
+        if i == 1:  # the timed run: count only its launches
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+
+    res = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
+                           kv_cache_quantization=kv, temperature=TEMPERATURE, top_k=TOP_K,
+                           warmup=1, iters=1, on_run=on_run)
+    counts = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
+           "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, **head}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
+        f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
+        f"peak_GB={peak_gb:.3f}")
+    log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    want = want_fn(model.args.n_layer)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    tokens = res["tokens"]
+    if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
+                                           int(tokens.max()) < model.args.vocab_size):
+        raise AssertionError(f"tokens out of range: {tokens}")
+    cache = model.setup_caches(1, PROMPT + DECODE, quantize=kv)
+    prompt = torch.zeros((1, PROMPT), dtype=torch.long, device="cuda")
+    logits, _ = model(params, prompt, 0, cache)
+    if logits.shape != (1, PROMPT, model.args.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError("prefill logits are not finite or have the wrong shape")
+    del logits, cache
+    log("  tokens in range, logits finite")
+
+    log("  -- the card's forward against the CPU's plain versions")
+    sqnr = check_against_cpu(params, gen, kv)
+    e2e.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [t.row(counts[t.name]) for t in tallies], e2e
 
 
 def main() -> int:
@@ -398,63 +677,16 @@ def main() -> int:
     lib = _build.library()
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s")
 
-    log(f"== {MODEL}: random weights, int4 weight-only g={GROUP}")
-    t0 = time.perf_counter()
-    model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
-    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
-                                   default_linear_filter, seed=0)
-    torch.cuda.synchronize()
-    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
-
     gen = torch.Generator(device="cuda").manual_seed(1)
-    log("== kernels against their plain versions (main-path shapes)")
-    tallies = check_int4(params, model.args, gen)
-    tallies.append(check_kv_write(model.args, gen))
-    tallies.append(check_decode_attention(model.args, gen))
-    tallies.append(check_prefill_attention(model.args, gen))
-    torch.cuda.empty_cache()
+    rows, e2e = [], []
+    for name in SECTIONS:
+        r, e = run_section(name, gen)
+        rows += r
+        e2e.append(e)
+        log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
 
-    log(f"== main path: prefill {PROMPT}, decode {DECODE}, batch 1, top-k {TOP_K}, "
-        f"temperature {TEMPERATURE}, int4_smajor KV cache")
-    torch.cuda.reset_peak_memory_stats()
-
-    def on_run(i):
-        if i == 1:  # the timed run: count only its launches
-            torch.cuda.synchronize()
-            _build.reset_launch_counts()
-
-    res = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
-                           temperature=TEMPERATURE, top_k=TOP_K, warmup=1, iters=1,
-                           on_run=on_run)
-    counts = dict(_build.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
-        f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
-        f"peak_GB={peak_gb:.3f}")
-    log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
-    L = model.args.n_layer
-    want = {"int4_dq_matmul_gemv": (4 * L + 1) * DECODE, "int4_dq_matmul_tiled": 4 * L + 1,
-            "fused_smajor_token_write": L * DECODE,
-            "quantized_kv_decode_attention_bdq": L * DECODE,
-            "quantized_kv_decode_attention": L}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
-    tokens = res["tokens"]
-    if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
-                                           int(tokens.max()) < model.args.vocab_size):
-        raise AssertionError(f"tokens out of range: {tokens}")
-    cache = model.setup_caches(1, PROMPT + DECODE)
-    prompt = torch.zeros((1, PROMPT), dtype=torch.long, device="cuda")
-    logits, _ = model(params, prompt, 0, cache)
-    if logits.shape != (1, PROMPT, model.args.vocab_size) or not torch.isfinite(logits).all():
-        raise AssertionError("prefill logits are not finite or have the wrong shape")
-    log(f"  tokens in range, logits finite; total {time.perf_counter() - t_start:.1f} s")
-
-    log("== the card's forward against the CPU's plain versions")
-    check_against_cpu(params, gen)
-
-    print(json.dumps({"kernels": [t.row(counts[t.name]) for t in tallies]}))
+    print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

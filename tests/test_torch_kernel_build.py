@@ -17,7 +17,14 @@ import pytest
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_mixed_matmul_plain
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul, int4_dq_matmul_plain
+from torchao_tpu_torch.kernels.int8_matmul import (
+    int8_scaled_matmul,
+    int8_scaled_matmul_plain,
+    int8wo_mixed_matmul,
+    int8wo_mixed_matmul_plain,
+)
 from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write,
     fused_smajor_token_write_plain,
@@ -68,6 +75,14 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
         quantized_kv_decode_attention(q, *([q] * 4), torch.empty(1, device=m))
     with pytest.raises(ValueError, match="unsupported device"):
         fused_smajor_token_write(*([torch.empty(1, device=m)] * 9), 0)
+    w8 = torch.empty((16, 64), dtype=torch.int8, device=m)
+    s = torch.empty((16,), dtype=torch.bfloat16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8wo_mixed_matmul(x, w8, s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_scaled_matmul(x.to(torch.int8), w8, s[:1], s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fp8_mixed_matmul(x, w8.to(torch.float8_e4m3fn), s.float())
 
 
 # --------------------------------------------------------------- on a card --
@@ -151,6 +166,102 @@ def test_kv_write_kernel_matches_plain(cuda):
     got = fused_smajor_token_write(*(t.clone() for t in (k_q, v_q, k_s, v_s)), *new, pos, 1)
     want = fused_smajor_token_write_plain(*(t.clone() for t in (k_q, v_q, k_s, v_s)), *new,
                                           pos, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _qmm_operands(gen, L, M, N, K, x_dtype, w_dtype, dev):
+    x = torch.randn((M, K), generator=gen, device=dev)
+    if x_dtype == torch.int8:
+        x = torch.randint(-127, 128, (M, K), generator=gen, device=dev).to(torch.int8)
+    else:
+        x = x.to(x_dtype)
+    w = torch.randint(-127, 128, (L, N, K), generator=gen, device=dev).to(torch.int8)
+    if w_dtype == torch.float8_e4m3fn:
+        w = (torch.randn((L, N, K), generator=gen, device=dev) * 50).to(w_dtype)
+    return x, w
+
+
+# M = 1, 4 and 16 run the gemv form (K split over blocks), 128 the tiled one;
+# N = 4096 + 48 leaves a ragged edge for both forms' column tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 128])
+def test_int8_and_fp8_kernels_match_plain(cuda, M):
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    L, N, K = 2, 4096 + 48, 1536
+    rows = lambda n: (torch.rand((L, n), generator=gen, device=cuda) * 0.02 + 0.001)
+    x, w8 = _qmm_operands(gen, L, M, N, K, torch.bfloat16, torch.int8, cuda)
+    ws = rows(N).bfloat16()
+    got = int8wo_mixed_matmul(x, w8, ws, layer_idx=1)
+    want = int8wo_mixed_matmul_plain(x, w8, ws, layer_idx=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+    xq, _ = _qmm_operands(gen, L, M, N, K, torch.int8, torch.int8, cuda)
+    xs = (torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001).bfloat16()
+    got = int8_scaled_matmul(xq, w8, xs, ws, layer_idx=1)
+    want = int8_scaled_matmul_plain(xq, w8, xs, ws, layer_idx=1)
+    torch.cuda.synchronize()
+    # exact int32 sums and one rounding on both sides: equal up to the
+    # order of the two f32 scale products
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-3)
+
+    _, wf = _qmm_operands(gen, L, M, N, K, torch.bfloat16, torch.float8_e4m3fn, cuda)
+    for wsf in (rows(N)[..., None], rows(1)):  # per row [L, N, 1], per layer [L, 1]
+        got = fp8_mixed_matmul(x, wf, wsf, layer_idx=0)
+        want = fp8_mixed_matmul_plain(x, wf, wsf, layer_idx=0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    xe = (torch.randn((M, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+    xsf = torch.rand((M,), generator=gen, device=cuda) * 0.01 + 0.001
+    wsf = rows(N)[..., None]
+    got = fp8_mixed_matmul(xe, wf, wsf, xsf, layer_idx=1)
+    want = fp8_mixed_matmul_plain(xe, wf, wsf, xsf, layer_idx=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def _int8_split_flat_cache(gen, L, B, H, Dh, S, dev):
+    X = H * Dh
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=gen, device=dev).to(torch.int8)
+    sc = lambda: (torch.rand((L, B, H, S), generator=gen, device=dev) * 0.01 + 0.001).bfloat16()
+    return i8(L, B, X, S), sc(), i8(L, B, S, X), sc()
+
+
+@pytest.mark.cuda
+def test_int8_kv_kernels_match_plain(cuda):
+    """K2′ (decode), K4's int8 form (prefill over head-major views) and K3
+    over an int8 cache."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    L, B, H, G, Dh, S = 2, 2, 2, 4, 128, 300
+    cache = _int8_split_flat_cache(gen, L, B, H, Dh, S, cuda)
+    q = torch.randn((B, H, G, Dh), generator=gen, device=cuda).bfloat16()
+    pos = torch.tensor([0, S - 1], dtype=torch.int32, device=cuda)
+    got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1)
+    want = quantized_kv_decode_attention_bdq_plain(q, *cache, pos, layer_idx=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+    kq, ks, vq, vs = (a[0, :1] for a in cache)
+    views = (kq.reshape(1, H, Dh, S).transpose(2, 3), ks[..., None],
+             vq.reshape(1, S, H, Dh).transpose(1, 2), vs[..., None])
+    T = 40
+    qp = torch.randn((1, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
+    p7 = torch.tensor([7], dtype=torch.int32, device=cuda)
+    got = quantized_kv_decode_attention(qp, *views, p7, rows_per_t=G)
+    want = quantized_kv_decode_attention_plain(qp, *views, p7, rows_per_t=G)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+    k_q, k_s, v_q, v_s = cache
+    i8 = lambda: torch.randint(-127, 128, (B, H * Dh), generator=gen, device=cuda).to(torch.int8)
+    new = (i8(), i8(), torch.rand((B, H), generator=gen, device=cuda).bfloat16(),
+           torch.rand((B, H), generator=gen, device=cuda).bfloat16())
+    pw = torch.tensor([17, S + 5], dtype=torch.int32, device=cuda)
+    got = fused_smajor_token_write(*(t.clone() for t in (k_q, v_q, k_s, v_s)), *new, pw, 1)
+    want = fused_smajor_token_write_plain(*(t.clone() for t in (k_q, v_q, k_s, v_s)), *new,
+                                          pw, 1)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

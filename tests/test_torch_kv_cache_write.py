@@ -1,6 +1,8 @@
 """K3: the port's fused KV-cache token write (plain version on the CPU)
 against the JAX package's ``fused_smajor_token_write(interpret=True)`` —
-bit-exact, at positions 0, mid, S−1 and one past the end that clamps."""
+bit-exact, at positions 0, mid, S−1 and one past the end that clamps — for
+the packed-int4 (uint8) and the int8 cache; and the model's T = 1 cache
+update for both."""
 
 import os
 
@@ -17,21 +19,30 @@ L, B, Hkv, Dh, S = 2, 4, 8, 32, 256
 X = Hkv * Dh // 2
 
 
-def _np_caches(rs, sdtype):
+def _bytes(rs, shape, int8):
+    if int8:
+        return rs.randint(-128, 128, shape).astype(np.int8)
+    return rs.randint(0, 256, shape).astype(np.uint8)
+
+
+def _np_caches(rs, sdtype, int8=False):
+    x = 2 * X if int8 else X
     return (
-        rs.randint(0, 256, (L, B, X, S)).astype(np.uint8),
-        rs.randint(0, 256, (L, B, S, X)).astype(np.uint8),
+        _bytes(rs, (L, B, x, S), int8),
+        _bytes(rs, (L, B, S, x), int8),
         rs.rand(L, B, Hkv, S).astype(sdtype),
         rs.rand(L, B, Hkv, S).astype(sdtype),
     )
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
 @pytest.mark.parametrize("sdtype", ["bfloat16", "float32"])
-def test_fused_write_bit_exact(sdtype):
+def test_fused_write_bit_exact(sdtype, int8):
     rs = np.random.RandomState(0)
-    caches = _np_caches(rs, np.float32)
-    kf = rs.randint(0, 256, (B, X)).astype(np.uint8)
-    vf = rs.randint(0, 256, (B, X)).astype(np.uint8)
+    caches = _np_caches(rs, np.float32, int8)
+    x = caches[0].shape[2]
+    kf = _bytes(rs, (B, x), int8)
+    vf = _bytes(rs, (B, x), int8)
     ks = rs.rand(B, Hkv).astype(np.float32)
     vs = rs.rand(B, Hkv).astype(np.float32)
     pos = np.array([0, S // 2 - 1, S - 1, S + 44], np.int32)  # last one clamps to S-1
@@ -55,9 +66,11 @@ def test_fused_write_bit_exact(sdtype):
     np.testing.assert_array_equal(tc[0][0].numpy(), caches[0][0])
 
 
-def test_model_decode_update_matches_jax(monkeypatch):
-    """The model's T=1 cache update (int4 KV quantization + fused write)
-    equals the JAX package's ``_smajor_update`` through its fused kernel."""
+@pytest.mark.parametrize("kv", ["int4_smajor", "int8"])
+def test_model_decode_update_matches_jax(monkeypatch, kv):
+    """The model's T=1 cache update (int4 or int8 KV quantization + fused
+    write) equals the JAX package's ``_smajor_update`` through its fused
+    kernel."""
     import torchao_tpu.models.llama.model as JM
     import torchao_tpu_torch.models.llama.model as TM
 
@@ -68,11 +81,11 @@ def test_model_decode_update_matches_jax(monkeypatch):
     k = rs.randn(B, Hkv, 1, Dh).astype(np.float32)
     v = rs.randn(B, Hkv, 1, Dh).astype(np.float32)
     pos = rs.randint(0, S, (B,)).astype(np.int32)
-    jc = JM.init_kv_cache(args_j, B, S, quantize="int4_smajor")
+    jc = JM.init_kv_cache(args_j, B, S, quantize=kv)
     # compiled, as the model runs it (see test_torch_llama's KV quantization test)
     want = jax.jit(lambda c, k, v, p: JM._smajor_update(c, k, v, p, l=jnp.int32(1)))(
         jc, jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), jnp.asarray(pos))
-    tc = TM.init_kv_cache(args_t, B, S, device="cpu")
+    tc = TM.init_kv_cache(args_t, B, S, quantize=kv, device="cpu")
     TM._smajor_update(tc, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
                       torch.from_numpy(pos), 1)
     for name in ("k_q", "v_q", "k_scale", "v_scale"):

@@ -47,7 +47,7 @@ def _run_jax(dtype):
 
 def _run_port(params, prompt, dtype):
     model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=dtype, device="cpu")
-    cache = model.setup_caches(1, PROMPT + STEPS)
+    cache = model.setup_caches(1, PROMPT + STEPS, quantize="int4_smajor")
     logits, cache = model(params, torch.from_numpy(prompt).long(), 0, cache)
     all_logits, tokens = [logits[:, -1].float().numpy()], []
     for i in range(STEPS):

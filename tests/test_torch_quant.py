@@ -38,11 +38,25 @@ def t_np(t: torch.Tensor):
 
 def jax_to_numpy(tree):
     """Flatten a JAX-package params tree for ``params_from_jax_numpy``:
-    arrays to numpy, IntxArrays to a dict of arrays + static fields."""
+    arrays to numpy, quantized arrays to a dict of arrays + static fields."""
+    import dataclasses
+
+    from torchao_tpu.qtypes.composition import LinearActivationQuantizedArray as JLaqt
+    from torchao_tpu.qtypes.float8 import Float8Array as JF8
     from torchao_tpu.qtypes.intx import IntxArray as JIntx
 
     if isinstance(tree, dict):
         return {k: jax_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, JLaqt):
+        return {"original_weight": jax_to_numpy(tree.original_weight),
+                "input_quant_name": tree.input_quant_name,
+                "quant_kwargs": tuple(tree.quant_kwargs)}
+    if isinstance(tree, JF8):
+        spec = tree.act_quant_spec
+        return {"qdata": np.asarray(tree.qdata), "scale": np.asarray(tree.scale),
+                "block_size": tuple(tree.block_size), "float8_dtype": tree.float8_dtype,
+                "act_quant_spec": None if spec is None else dataclasses.asdict(spec),
+                "fast_accum": tree.fast_accum, "activation_dtype": tree.activation_dtype}
     if isinstance(tree, JIntx):
         return {
             "qdata": np.asarray(tree.qdata),
@@ -228,5 +242,147 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 15
+    assert int(res.stdout.strip().splitlines()[-1]) >= 34  # the slice-2 modules included
 
+
+
+# ------------------------------------------------- int8 and fp8 (slice 2) --
+
+
+def _jax_and_port_configs():
+    from torchao_tpu.quantization import quant_api as JQ
+    from torchao_tpu.quantization.granularity import PerRow as JPerRow
+    from torchao_tpu_torch.quantization import quant_api as TQ
+    from torchao_tpu_torch.quantization.granularity import PerRow
+
+    return {
+        "int8wo": (JQ.Int8WeightOnlyConfig(), TQ.Int8WeightOnlyConfig()),
+        "int8dq": (JQ.Int8DynamicActivationInt8WeightConfig(),
+                   TQ.Int8DynamicActivationInt8WeightConfig()),
+        "int8dq_prefill_wo_decode": (
+            JQ.Int8DynamicActivationInt8WeightConfig(weight_only_decode=True),
+            TQ.Int8DynamicActivationInt8WeightConfig(weight_only_decode=True)),
+        "float8wo": (JQ.Float8WeightOnlyConfig(), TQ.Float8WeightOnlyConfig()),
+        "float8dq-row": (JQ.Float8DynamicActivationFloat8WeightConfig(granularity=JPerRow()),
+                         TQ.Float8DynamicActivationFloat8WeightConfig(granularity=PerRow())),
+    }
+
+
+def _bits(t: torch.Tensor):
+    """A tensor as an exact numpy array: fp8 as its bytes, bf16 as f32."""
+    return t.view(torch.uint8).numpy() if t.dtype == torch.float8_e4m3fn else t_np(t)
+
+
+@pytest.mark.parametrize("name", ["int8wo", "int8dq", "float8wo", "float8dq-row"])
+def test_int8_and_fp8_from_hp_bit_exact(name):
+    """Codes and scales of a bf16 ``[L, N, K]`` weight, handler by handler."""
+    from torchao_tpu.quantization.transform_module import get_quantize_handler as jget
+    from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
+
+    jcfg, tcfg = _jax_and_port_configs()[name]
+    wj, wt = _pair((3, 96, 256), "bfloat16", seed=8, scale=0.05)
+    aj, at = jget(jcfg)(wj, jcfg), get_quantize_handler(tcfg)(wt, tcfg)
+    conv = params_from_jax_numpy({"w": jax_to_numpy(aj)}, device="cpu")["w"]
+    assert type(conv) is type(at)
+    tj, tt = list(conv.tensors()), list(at.tensors())
+    assert len(tj) == len(tt)
+    for x, y in zip(tj, tt):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    if name.startswith("int8"):
+        inner = getattr(at, "original_weight", at)
+        assert inner.qdata.dtype == torch.int8 and inner.scale.shape == (3, 96)
+        assert (inner.zero_point is None) == (name == "int8dq")
+    else:
+        assert at.qdata.dtype == torch.float8_e4m3fn and at.scale.shape == (3, 96, 1)
+    for out in (torch.float32, torch.bfloat16):
+        want = to_np(aj.dequantize(jnp.float32 if out == torch.float32 else jnp.bfloat16))
+        np.testing.assert_array_equal(t_np(at.dequantize(out)), want)
+    l2 = at.take_layer(2)
+    assert l2.shape == (96, 256)
+    np.testing.assert_array_equal(t_np(l2.dequantize(torch.float32)),
+                                  to_np(aj.take_layer(2).dequantize(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_activation_quantizers_against_compiled_jax(dtype):
+    """Per-token int8 and per-row e4m3 activations against the JAX
+    functions as the model runs them: compiled. bf16 is bit-exact for both.
+    float32: the e4m3 codes and scales are bit-exact (the port multiplies
+    by float32(1/448), as XLA compiles ``/ 448``); the int8 codes are
+    exact and the int8 scales within one f32 ulp (XLA multiplies by
+    float32(1/127); the port divides, as the JAX function run eagerly
+    does and as the int8 weights need)."""
+    from torchao_tpu.qtypes.float8 import Float8ActQuantSpec as JSpec
+    from torchao_tpu.qtypes.float8 import quantize_activation_float8 as jfp8
+    from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, quantize_activation_float8
+
+    rs = np.random.RandomState(9)
+    x = (rs.randn(512, 256) * rs.rand(512, 1) * 5).astype(np.float32)
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    qj, sj = jax.jit(jqp.quantize_activation_per_token_absmax)(xj)
+    qt, st = tqp.quantize_activation_per_token_absmax(xt)
+    np.testing.assert_array_equal(np.asarray(qj), qt.numpy())
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(to_np(sj), t_np(st))
+    else:
+        np.testing.assert_allclose(t_np(st), to_np(sj), rtol=2 ** -23, atol=0)
+    q8j, s8j = jax.jit(lambda a: jfp8(a, JSpec()))(xj)
+    q8t, s8t = quantize_activation_float8(xt, Float8ActQuantSpec())
+    np.testing.assert_array_equal(np.asarray(q8j).view(np.uint8), q8t.view(torch.uint8).numpy())
+    np.testing.assert_array_equal(np.asarray(s8j), s8t.numpy())
+    assert q8t.shape == (512, 256) and s8t.shape == (512, 1)
+
+
+def test_fp8_cast_matches_jax_at_rounding_edges():
+    """torch's cast to float8_e4m3fn and JAX's give the same codes after the
+    ±448 clip, at and around every midpoint between neighbouring codes."""
+    codes = np.arange(256, dtype=np.uint8)
+    vals = np.asarray(jnp.asarray(codes.view(jnp.float8_e4m3fn)).astype(jnp.float32))
+    vals = np.sort(vals[np.isfinite(vals)])
+    mid = (vals[:-1] + vals[1:]) / 2
+    xs = np.concatenate([vals, mid, np.nextafter(mid, -np.inf), np.nextafter(mid, np.inf),
+                         [500.0, -500.0, 1e-9, -1e-9]]).astype(np.float32)
+    scale = np.float32(1.0)
+    jq = jqp.quantize_affine_float8(jnp.asarray(xs), jnp.asarray(scale))
+    tq = tqp.quantize_affine_float8(torch.from_numpy(xs), torch.tensor(scale))
+    np.testing.assert_array_equal(np.asarray(jq).view(np.uint8), tq.view(torch.uint8).numpy())
+    np.testing.assert_array_equal(
+        to_np(jqp.dequantize_affine_float8(jq, jnp.asarray(np.float32(0.5)))),
+        tqp.dequantize_affine_float8(tq, torch.tensor(np.float32(0.5))).numpy())
+
+
+@pytest.mark.parametrize("name", ["int8wo", "int8dq", "int8dq_prefill_wo_decode",
+                                  "float8wo", "float8dq-row"])
+def test_int8_and_fp8_config_json_identical(name):
+    from torchao_tpu.core.config import config_to_json as jjson
+    from torchao_tpu_torch.core.config import config_from_json, config_to_json
+
+    jcfg, tcfg = _jax_and_port_configs()[name]
+    s = config_to_json(tcfg)
+    assert json.loads(s) == json.loads(jjson(jcfg))
+    assert config_from_json(s) == tcfg
+
+
+def test_converter_round_trip_int8_and_fp8():
+    """Converted int8dq and float8dq arrays keep their types, metadata and
+    bytes, on the CPU, and dequantize as the JAX arrays do."""
+    from torchao_tpu.quantization.quant_api import quantize_ as jquantize
+    from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
+    from torchao_tpu_torch.qtypes.float8 import Float8Array
+
+    cfgs = _jax_and_port_configs()
+    w = jnp.asarray(np.random.RandomState(10).randn(2, 64, 128) * 0.1, jnp.bfloat16)
+    for name, cls in (("int8dq_prefill_wo_decode", LinearActivationQuantizedArray),
+                      ("float8dq-row", Float8Array)):
+        jw = jquantize({"w": w}, cfgs[name][0], lambda p, leaf: True)["w"]
+        tw = params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+        assert isinstance(tw, cls) and tw.shape == tuple(jw.shape)
+        if cls is Float8Array:
+            assert tw.act_quant_spec.granularity == "per_row" and tw.block_size == (1, 1, 128)
+        else:
+            assert tw.input_quant_name == "int8_per_token_sym_noop_decode"
+            assert tw.original_weight.zero_point is None
+        np.testing.assert_array_equal(t_np(tw.dequantize(torch.float32)),
+                                      to_np(jw.dequantize(jnp.float32)))

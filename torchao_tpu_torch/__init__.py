@@ -6,18 +6,24 @@ NVIDIA Hopper card (``sm_90a``). Every Pallas kernel on the ported path is
 replaced by a hand-written CUDA C++ kernel under ``csrc/``, built at first
 use with ``nvcc`` into one shared library (``kernels/_build.py``).
 
-Slice 1 (the main path of ``bench.py``): Llama-3-8B, int4 weight-only
-quantization at group size 32, packed-int4 split-flat KV cache, prefill +
-batch-1 decode with top-k sampling.
+Ported: Llama-3-8B prefill + batch-1 decode with top-k sampling under
+int4 weight-only (group 32; slice 1, the main path of ``bench.py``), int8
+weight-only, int8 dynamic activation x int8 weight, float8 weight-only and
+float8 dynamic activation (per row) x float8 weight (slice 2), with a bf16,
+int8 split-flat or packed-int4 split-flat KV cache.
 
 Layer map:
   kernels/                      — ctypes wrappers of the CUDA kernels, each
                                   beside its plain PyTorch version
-  quantization/quant_primitives — affine qparam math, bit-exact with JAX
-  qtypes/                       — IntxArray (int4 half-split nibbles)
+  quantization/quant_primitives — affine and float8 qparam math, bit-exact
+                                  with JAX
+  qtypes/                       — IntxArray (int4 half-split nibbles, PLAIN
+                                  int8), Float8Array, LinearActivation-
+                                  QuantizedArray
   ops/                          — qlinear dispatch, embedding, sampling
-  quantization/quant_api        — Int4WeightOnlyConfig + quantize_
-  models/llama/                 — Llama decoder, quantized init, generate
+  quantization/quant_api        — the ported configs + quantize_
+  models/llama/                 — Llama decoder, quantized init, generate,
+                                  recipe strings (cli.config_from_recipe)
   convert.py                    — JAX-package parameters → port parameters
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -3,16 +3,22 @@
 ``params_from_jax_numpy(tree)`` takes a nested dict of numpy arrays (the
 JAX package's params, flattened on the JAX side so the port never sees a
 JAX type) and returns the port's params on ``device``. A quantized array
-arrives as a dict of its arrays plus its static fields::
+arrives as a dict of its arrays plus its static fields:
 
-    {"qdata", "scale", "zero_point",            # numpy arrays
-     "block_size", "quant_min", "quant_max",
-     "zero_point_domain", "nibbles_xored", "logical_shape",
-     # optional: "target_dtype", "packing_format", "activation_dtype"}
+- ``IntxArray``: ``{"qdata", "scale", "zero_point" (None in the NONE
+  domain), "block_size", "quant_min", "quant_max", "zero_point_domain",
+  "nibbles_xored", "logical_shape"}``, optionally ``"target_dtype"``,
+  ``"packing_format"``, ``"activation_dtype"``;
+- ``Float8Array``: ``{"qdata", "scale", "block_size", "float8_dtype"}``,
+  optionally ``"act_quant_spec"`` (a dict of ``Float8ActQuantSpec``'s
+  fields), ``"fast_accum"``, ``"activation_dtype"``;
+- ``LinearActivationQuantizedArray``: ``{"original_weight": <one of the
+  above>, "input_quant_name"}``, optionally ``"quant_kwargs"``.
 
 Storage is copied byte for byte (K-major half-split nibbles, XOR 0x80,
-``[.., K/g, N]`` qparams), so both packages compute the same thing. bf16
-arrays (numpy dtype name ``bfloat16``) are carried over bit-exactly.
+``[.., K/g, N]`` qparams; PLAIN int8), so both packages compute the same
+thing. bf16 arrays (numpy dtype name ``bfloat16``) and e4m3 arrays
+(``float8_e4m3fn``, viewed as bytes) are carried over bit-exactly.
 """
 
 from __future__ import annotations
@@ -23,17 +29,22 @@ import numpy as np
 import torch
 
 from torchao_tpu_torch.qtypes.base import PackingFormat
+from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
+from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
 from torchao_tpu_torch.utils import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+_BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    if a.dtype.name in _BITCAST:
+        np_bits, dtype = _BITCAST[a.dtype.name]
+        return torch.from_numpy(a.view(np_bits).copy()).view(dtype).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -66,14 +77,40 @@ def _intx_from_dict(d: Dict[str, Any], device) -> IntxArray:
     )
 
 
+def _float8_from_dict(d: Dict[str, Any], device) -> Float8Array:
+    spec = d.get("act_quant_spec")
+    act = d.get("activation_dtype")
+    return Float8Array(
+        qdata=tensor_from_numpy(d["qdata"], device),
+        scale=tensor_from_numpy(d["scale"], device),
+        block_size=tuple(int(b) for b in d["block_size"]),
+        float8_dtype=str(d["float8_dtype"]),
+        act_quant_spec=None if spec is None else Float8ActQuantSpec(**spec),
+        fast_accum=bool(d.get("fast_accum", True)),
+        activation_dtype=_DTYPES[act] if act else torch.bfloat16,
+    )
+
+
+def _quantized_from_dict(d: Dict[str, Any], device):
+    if "original_weight" in d:
+        return LinearActivationQuantizedArray(
+            original_weight=_quantized_from_dict(d["original_weight"], device),
+            input_quant_name=str(d["input_quant_name"]),
+            quant_kwargs=tuple(d.get("quant_kwargs", ())),
+        )
+    if "float8_dtype" in d:
+        return _float8_from_dict(d, device)
+    return _intx_from_dict(d, device)
+
+
 def params_from_jax_numpy(tree, device=None):
     """Convert a flattened JAX-package params tree (see module docstring)."""
     dev = resolve_device(device)
 
     def walk(node):
         if isinstance(node, dict):
-            if "qdata" in node and "block_size" in node:
-                return _intx_from_dict(node, dev)
+            if "original_weight" in node or ("qdata" in node and "block_size" in node):
+                return _quantized_from_dict(node, dev)
             return {k: walk(v) for k, v in node.items()}
         return tensor_from_numpy(node, dev)
 

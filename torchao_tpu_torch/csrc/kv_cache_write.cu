@@ -4,14 +4,15 @@
 // (pallas_call at kv_cache_write.py:166, body _kernel at :61): one launch
 // per layer-step writes each slot's new quantized token, in place, into the
 // four stacked split-flat cache arrays of layer l:
-//   k_q     [L, B, X, S]   uint8  column pos[b]   (K is D-major)
-//   v_q     [L, B, S, X]   uint8  row    pos[b]   (V is S-major)
+//   k_q     [L, B, X, S]   bytes  column pos[b]   (K is D-major)
+//   v_q     [L, B, S, X]   bytes  row    pos[b]   (V is S-major)
 //   k_scale [L, B, H, S]   bf16   column pos[b]
 //   v_scale [L, B, H, S]   bf16   column pos[b]
 // Positions are clamped to [0, S-1] as dynamic_update_slice does (the JAX
 // kernel clamps the top at kv_cache_write.py:72; valid positions are never
 // negative). The new scales arrive in the cache's bf16, so the scale write
-// is a plain copy of 2-byte elements.
+// is a plain copy of 2-byte elements. The kernel copies bytes, so it serves
+// both caches: packed int4 (uint8, X = Hkv*Dh/2) and int8 (X = Hkv*Dh).
 //
 // What bounds it on an H100: nothing but launch latency — it moves
 // 2 * (X + 2 * H) bytes per slot (~1 KB at Llama-3-8B). One block per

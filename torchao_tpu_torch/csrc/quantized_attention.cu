@@ -1,8 +1,11 @@
-// Attention over the packed-int4 KV cache for Hopper (sm_90a), SIMT, fp32.
+// Attention over the quantized KV cache for Hopper (sm_90a), SIMT, fp32.
 //
 // Int4 KV layout (models/llama/model.py::_quantize_kv_int4): per token and
 // head, byte d holds elements d and d + Dh/2 as offset-binary nibbles,
 // q_lo = (b & 0xF) - 8, q_hi = (b >> 4) - 8, and one scale per token.
+// Int8 KV layout (model.py::_quantize_kv): one int8 per element, one scale
+// per token. Each kernel below has an int4 and an int8 instantiation (the
+// I8 template flag); "bytes per key and head" is Dh/2 or Dh.
 //
 // tt_bdq_decode (K2) replaces
 //   torchao_tpu/kernels/quantized_attention.py::quantized_kv_decode_attention_bdq,
@@ -19,6 +22,11 @@
 //   matrix-unit device) is not carried over.
 //   Bound on an H100: bytes — the cache bytes of keys <= pos (Dh bytes per
 //   key and head for K and V together, plus scales).
+// tt_bdq_decode_i8 (K2') is the same kernel over the int8 split-flat cache —
+//   K D-major [B, Hkv*Dh, S], V S-major [B, S, Hkv*Dh] — and replaces the
+//   int8 variant of the same function (pallas_call at quantized_attention.py:959,
+//   body _kernel_bdq at :518). Bound: bytes, 2 * Dh bytes per visible key
+//   and head plus scales, twice the int4 form's.
 //
 // tt_flash_prefill (K4) replaces
 //   quantized_attention.py::quantized_kv_decode_attention, int4 prefill form
@@ -33,6 +41,8 @@
 //   scales, the bf16 q and the f32 out, read or written once (~0.001 ms per
 //   launch at 3.35 TB/s, against ~0.00014 ms for its 2 * 2 * rows * keys * Dh
 //   flops at the bf16 tensor-core peak); this SIMT kernel is far from both.
+// tt_flash_prefill_i8 is its int8 form (the same pallas_call with an int8
+//   cache): a [B, Hkv, S, Dh] int8 view, one byte per element.
 #include "common.cuh"
 
 #include <math.h>
@@ -41,9 +51,9 @@ namespace {
 
 // ------------------------------------------------------------- decode --
 constexpr int DEC_CHUNK = 128;  // keys per block; also threads per block
-constexpr int DEC_DH2_MAX = 128;
+constexpr int DEC_DB_MAX = 128;  // bytes per key and head: Dh/2 (int4) or Dh (int8)
 
-template <int G>
+template <int G, bool I8>
 __global__ void __launch_bounds__(DEC_CHUNK)
 bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ kq,
                    const __nv_bfloat16* __restrict__ ksc, const uint8_t* __restrict__ vq,
@@ -53,7 +63,7 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int split = blockIdx.y, nsplit = gridDim.y;
   const int s0 = split * DEC_CHUNK;
-  const int Dh2 = Dh / 2, X = H * Dh2;
+  const int DB = I8 ? Dh : Dh / 2, X = H * DB;
   const int t = threadIdx.x;
   const size_t wsi = (size_t)bh * nsplit + split;
   const int p = pos[b];
@@ -65,25 +75,25 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
   }
   const int n = min(DEC_CHUNK, key_end - s0);
 
-  __shared__ float qs[G][2 * DEC_DH2_MAX];
+  __shared__ float qs[G][2 * DEC_DB_MAX];
   __shared__ float ps[G][DEC_CHUNK];
-  __shared__ uint8_t kt[DEC_DH2_MAX][DEC_CHUNK];
-  __shared__ uint8_t vt[DEC_CHUNK][DEC_DH2_MAX];
+  __shared__ uint8_t kt[DEC_DB_MAX][DEC_CHUNK];
+  __shared__ uint8_t vt[DEC_CHUNK][DEC_DB_MAX];
   __shared__ float red[G][DEC_CHUNK / 32];
 
-  const uint8_t* kq_b = kq + (size_t)b * X * S + (size_t)h * Dh2 * S;
-  const uint8_t* vq_b = vq + (size_t)b * S * X + (size_t)h * Dh2;
+  const uint8_t* kq_b = kq + (size_t)b * X * S + (size_t)h * DB * S;
+  const uint8_t* vq_b = vq + (size_t)b * S * X + (size_t)h * DB;
   const __nv_bfloat16* ks_b = ksc + ((size_t)b * H + h) * S;
   const __nv_bfloat16* vs_b = vsc + ((size_t)b * H + h) * S;
   const __nv_bfloat16* q_b = q + (size_t)bh * G * Dh;
 
   for (int i = t; i < G * Dh; i += DEC_CHUNK) qs[i / Dh][i % Dh] = __bfloat162float(q_b[i]) * scale;
-  for (int e = t; e < Dh2 * DEC_CHUNK; e += DEC_CHUNK) {
+  for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
     const int d = e / DEC_CHUNK, s = e % DEC_CHUNK;
     kt[d][s] = s < n ? kq_b[(size_t)d * S + s0 + s] : 0;
   }
-  for (int e = t; e < Dh2 * DEC_CHUNK; e += DEC_CHUNK) {
-    const int s = e / Dh2, d = e % Dh2;
+  for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
+    const int s = e / DB, d = e % DB;
     vt[s][d] = s < n ? vq_b[(size_t)(s0 + s) * X + d] : 0;
   }
   __syncthreads();
@@ -92,11 +102,17 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
 #pragma unroll
   for (int g = 0; g < G; ++g) sc[g] = 0.f;
   if (t < n) {
-    for (int d = 0; d < Dh2; ++d) {
-      const int byte = kt[d][t];
-      const float lo = (float)((byte & 0xF) - 8), hi = (float)((byte >> 4) - 8);
+    for (int d = 0; d < DB; ++d) {
+      if constexpr (I8) {
+        const float kv = (float)(int8_t)kt[d][t];
 #pragma unroll
-      for (int g = 0; g < G; ++g) sc[g] = fmaf(qs[g][d], lo, fmaf(qs[g][d + Dh2], hi, sc[g]));
+        for (int g = 0; g < G; ++g) sc[g] = fmaf(qs[g][d], kv, sc[g]);
+      } else {
+        const int byte = kt[d][t];
+        const float lo = (float)((byte & 0xF) - 8), hi = (float)((byte >> 4) - 8);
+#pragma unroll
+        for (int g = 0; g < G; ++g) sc[g] = fmaf(qs[g][d], lo, fmaf(qs[g][d + DB], hi, sc[g]));
+      }
     }
     const float kscale = __bfloat162float(ks_b[s0 + t]);
 #pragma unroll
@@ -135,18 +151,24 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
     for (int w = 0; w < DEC_CHUNK / 32; ++w) l[g] += red[g][w];
   }
 
-  for (int idx = t; idx < G * Dh2; idx += DEC_CHUNK) {
-    const int g = idx / Dh2, d = idx % Dh2;
-    float alo = 0.f, ahi = 0.f;
-    for (int s = 0; s < n; ++s) {
-      const float w = ps[g][s];
-      const int byte = vt[s][d];
-      alo = fmaf(w, (float)((byte & 0xF) - 8), alo);
-      ahi = fmaf(w, (float)((byte >> 4) - 8), ahi);
-    }
+  for (int idx = t; idx < G * DB; idx += DEC_CHUNK) {
+    const int g = idx / DB, d = idx % DB;
     float* acc = ws_acc + (wsi * G + g) * Dh;
-    acc[d] = alo;
-    acc[d + Dh2] = ahi;
+    if constexpr (I8) {
+      float a = 0.f;
+      for (int s = 0; s < n; ++s) a = fmaf(ps[g][s], (float)(int8_t)vt[s][d], a);
+      acc[d] = a;
+    } else {
+      float alo = 0.f, ahi = 0.f;
+      for (int s = 0; s < n; ++s) {
+        const float w = ps[g][s];
+        const int byte = vt[s][d];
+        alo = fmaf(w, (float)((byte & 0xF) - 8), alo);
+        ahi = fmaf(w, (float)((byte >> 4) - 8), ahi);
+      }
+      acc[d] = alo;
+      acc[d + DB] = ahi;
+    }
   }
   if (t < G) {
 #pragma unroll
@@ -189,27 +211,31 @@ struct KvView {  // element (b, h, s, d) of a [B, H, S, Dh/2] uint8 view
   long long cb, ch, cs;
 };
 
-template <int DH>
+template <int DH, bool I8>
 __device__ __forceinline__ void load_kv_tile(float* tile, const KvView& v, int b, int h, int k0,
                                              int S) {
-  constexpr int DH2 = DH / 2;
-  for (int e = threadIdx.x; e < FK * DH2; e += F_THREADS) {
+  constexpr int DB = I8 ? DH : DH / 2;  // bytes per key
+  for (int e = threadIdx.x; e < FK * DB; e += F_THREADS) {
     int s, d;
-    if (v.sd == 1) { s = e / DH2; d = e % DH2; } else { d = e / FK; s = e % FK; }
+    if (v.sd == 1) { s = e / DB; d = e % DB; } else { d = e / FK; s = e % FK; }
     const int key = k0 + s;
     float lo = 0.f, hi = 0.f;
     if (key < S) {
       const int byte = v.q[b * v.sb + h * v.sh + key * v.ss + d * v.sd];
       const float scl = __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]);
-      lo = (float)((byte & 0xF) - 8) * scl;
-      hi = (float)((byte >> 4) - 8) * scl;
+      if constexpr (I8) {
+        lo = (float)(int8_t)byte * scl;
+      } else {
+        lo = (float)((byte & 0xF) - 8) * scl;
+        hi = (float)((byte >> 4) - 8) * scl;
+      }
     }
     tile[s * (DH + 4) + d] = lo;
-    tile[s * (DH + 4) + d + DH2] = hi;
+    if constexpr (!I8) tile[s * (DH + 4) + d + DB] = hi;
   }
 }
 
-template <int DH>
+template <int DH, bool I8>
 __global__ void __launch_bounds__(F_THREADS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
                      const int* __restrict__ pos, float* __restrict__ out, int H, int R, int S,
@@ -242,8 +268,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
 
   for (int k0 = 0; k0 < key_end; k0 += FK) {
     __syncthreads();  // previous tile fully consumed (and q tile written)
-    load_kv_tile<DH>(kt, kv, b, h, k0, S);
-    load_kv_tile<DH>(vt, vv, b, h, k0, S);
+    load_kv_tile<DH, I8>(kt, kv, b, h, k0, S);
+    load_kv_tile<DH, I8>(vt, vv, b, h, k0, S);
     __syncthreads();
 
     float sc[FK / 4];
@@ -305,36 +331,29 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
   }
 }
 
-template <int DH>
+template <int DH, bool I8>
 int launch_prefill(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* out,
                    int B, int H, int R, int S, int G, float scale, cudaStream_t st) {
   const size_t smem = (size_t)(FQ * (DH + 4) + 2 * FK * (DH + 4) + FQ * (FK + 1)) * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH>,
+    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH, I8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid(B * H, (R + FQ - 1) / FQ);
-  flash_prefill_kernel<DH><<<grid, F_THREADS, smem, st>>>(
+  flash_prefill_kernel<DH, I8><<<grid, F_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), kv, vv, static_cast<const int*>(pos),
       static_cast<float*>(out), H, R, S, G, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q [B, H, G, Dh] bf16; kq [B, H*Dh/2, S] u8; ks [B, H, S] bf16;
-// vq [B, S, H*Dh/2] u8; vs [B, H, S] bf16 (all at layer l); pos [B] int32;
-// scratch ws_m, ws_l [B*H*nsplit*G], ws_acc [B*H*nsplit*G*Dh] fp32;
-// out [B, H, G, Dh] fp32.
-TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const void* vq,
-                            const void* vs, const void* pos, void* ws_m, void* ws_l,
-                            void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
-                            int nsplit, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh % 2 || Dh / 2 > DEC_DH2_MAX) return cudaErrorInvalidValue;
+template <bool I8>
+int launch_decode(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+                  const void* pos, void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
+                  int G, int Dh, int S, int nsplit, float scale, cudaStream_t st) {
+  if (I8 ? Dh > DEC_DB_MAX : (Dh % 2 || Dh / 2 > DEC_DB_MAX)) return cudaErrorInvalidValue;
   dim3 grid(B * H, nsplit);
   auto qb = static_cast<const __nv_bfloat16*>(q);
   auto k8 = static_cast<const uint8_t*>(kq);
@@ -346,10 +365,10 @@ TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const
   auto wl = static_cast<float*>(ws_l);
   auto wa = static_cast<float*>(ws_acc);
   switch (G) {
-    case 1: bdq_partial_kernel<1><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 2: bdq_partial_kernel<2><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 4: bdq_partial_kernel<4><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 8: bdq_partial_kernel<8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 1: bdq_partial_kernel<1, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 2: bdq_partial_kernel<2, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 4: bdq_partial_kernel<4, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 8: bdq_partial_kernel<8, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
@@ -358,8 +377,43 @@ TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const
   return cudaGetLastError();
 }
 
-// q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 views with element strides
-// (b, h, s, d); ks/vs: bf16 views with strides (b, h, s); out [B, H, R, Dh].
+template <bool I8>
+int launch_prefill_dh(const void* q, const KvView& kv, const KvView& vv, const void* pos,
+                      void* out, int B, int H, int R, int S, int G, int Dh, float scale,
+                      cudaStream_t st) {
+  switch (Dh) {
+    case 64: return launch_prefill<64, I8>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
+    case 128: return launch_prefill<128, I8>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q [B, H, G, Dh] bf16; kq [B, H*Dh/2, S] u8 (int8: [B, H*Dh, S] i8);
+// ks [B, H, S] bf16; vq [B, S, H*Dh/2] u8 (int8: [B, S, H*Dh] i8);
+// vs [B, H, S] bf16 (all at layer l); pos [B] int32;
+// scratch ws_m, ws_l [B*H*nsplit*G], ws_acc [B*H*nsplit*G*Dh] fp32;
+// out [B, H, G, Dh] fp32.
+TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const void* vq,
+                            const void* vs, const void* pos, void* ws_m, void* ws_l,
+                            void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
+                            int nsplit, float scale, void* stream) {
+  return launch_decode<false>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh, S,
+                              nsplit, scale, static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_bdq_decode_i8(const void* q, const void* kq, const void* ks, const void* vq,
+                               const void* vs, const void* pos, void* ws_m, void* ws_l,
+                               void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
+                               int nsplit, float scale, void* stream) {
+  return launch_decode<true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh, S,
+                             nsplit, scale, static_cast<cudaStream_t>(stream));
+}
+
+// q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views with
+// element strides (b, h, s, d); ks/vs: bf16 views with strides (b, h, s);
+// out [B, H, R, Dh].
 TT_EXPORT int tt_flash_prefill(const void* q, const void* kq, long long ksb, long long ksh,
                                long long kss, long long ksd, const void* ks, long long kcb,
                                long long kch, long long kcs, const void* vq, long long vsb,
@@ -367,14 +421,25 @@ TT_EXPORT int tt_flash_prefill(const void* q, const void* kq, long long ksb, lon
                                long long vcb, long long vch, long long vcs, const void* pos,
                                void* out, int B, int H, int R, int S, int G, int Dh, float scale,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
                   static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
   const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
                   static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
-  switch (Dh) {
-    case 64: return launch_prefill<64>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
-    case 128: return launch_prefill<128>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_prefill_dh<false>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_flash_prefill_i8(const void* q, const void* kq, long long ksb, long long ksh,
+                                  long long kss, long long ksd, const void* ks, long long kcb,
+                                  long long kch, long long kcs, const void* vq, long long vsb,
+                                  long long vsh, long long vss, long long vsd, const void* vs,
+                                  long long vcb, long long vch, long long vcs, const void* pos,
+                                  void* out, int B, int H, int R, int S, int G, int Dh,
+                                  float scale, void* stream) {
+  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
+                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
+  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
+                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
+  return launch_prefill_dh<true>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale,
+                                 static_cast<cudaStream_t>(stream));
 }

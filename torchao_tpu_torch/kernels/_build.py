@@ -72,16 +72,24 @@ c_float = ctypes.c_float
 # ``float`` c_float (tests/test_torch_kernel_build.py holds this table
 # against the sources). ctypes does not check a call's argument count, so
 # :meth:`KernelLibrary.launch` does.
+_BDQ = [c_ptr] * 10 + [c_int] * 6 + [c_float, c_ptr]
+_FLASH = (
+    [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
+    + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
+    + [c_ptr] * 2 + [c_int] * 6 + [c_float, c_ptr]
+)
+# kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
+_QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 SIGNATURES = {
     "tt_int4_gemv": [c_ptr] * 6 + [c_int] * 5 + [c_ptr],
     "tt_int4_tiled": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     "tt_kv_cache_write": [c_ptr] * 9 + [c_int] * 5 + [c_ptr],
-    "tt_bdq_decode": [c_ptr] * 10 + [c_int] * 6 + [c_float, c_ptr],
-    "tt_flash_prefill": (
-        [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-        + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-        + [c_ptr] * 2 + [c_int] * 6 + [c_float, c_ptr]
-    ),
+    "tt_bdq_decode": _BDQ,
+    "tt_bdq_decode_i8": _BDQ,
+    "tt_flash_prefill": _FLASH,
+    "tt_flash_prefill_i8": _FLASH,
+    "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
+    "tt_qmm_tiled": _QMM + [c_ptr] + [c_int] * 3 + [c_ptr],
 }
 
 

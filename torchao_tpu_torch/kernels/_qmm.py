@@ -1,0 +1,95 @@
+"""Launcher shared by the K6, K7 and K8 wrappers (``csrc/qmatmul.cu``).
+
+``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]`` in one templated
+weight-streaming kernel with two launch shapes: ``gemv`` for M ≤ 32 (K
+split over blocks until about ``_TARGET_BLOCKS`` are in flight) and
+``tiled`` for larger M. Each wrapper counts its launches in
+``_build.LAUNCHES`` under ``<name>_gemv`` or ``<name>_tiled``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.utils import cdiv
+
+GEMV_MAX_M = 32
+K_STEP = 32          # tiled k step (csrc TK); K must be a multiple
+_CHUNK = 16          # k per lane per gemv step (csrc CH)
+_GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
+_TARGET_BLOCKS = 1024
+
+# csrc Kind
+K6_BF16_I8, K7_I8_I8, K8_BF16_E4M3, K8_E4M3_E4M3 = range(4)
+_X_DTYPE = {K6_BF16_I8: torch.bfloat16, K7_I8_I8: torch.int8,
+            K8_BF16_E4M3: torch.bfloat16, K8_E4M3_E4M3: torch.float8_e4m3fn}
+_W_DTYPE = {K6_BF16_I8: torch.int8, K7_I8_I8: torch.int8,
+            K8_BF16_E4M3: torch.float8_e4m3fn, K8_E4M3_E4M3: torch.float8_e4m3fn}
+_SCALE_KIND = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def layer(layer_idx: Optional[int], *ts):
+    """Layer ``layer_idx`` of each stacked tensor (views), or the tensors."""
+    if layer_idx is None:
+        return ts
+    for t in ts:
+        if t.ndim < 1 or not 0 <= layer_idx < t.shape[0]:
+            raise IndexError(f"layer_idx {layer_idx} out of range for {tuple(t.shape)}")
+    return tuple(t[layer_idx] for t in ts)
+
+
+def _scale_arg(s: Optional[torch.Tensor], sizes, what: str):
+    """(pointer, kind, stride) of a scale with one of ``sizes`` elements
+    (stride 0 for a single scale shared by all rows), or of no scale."""
+    if s is None:
+        return 0, 0, 0
+    if s.dtype not in _SCALE_KIND or not s.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous bf16 or f32 tensor")
+    if s.numel() not in sizes:
+        raise ValueError(f"{what} has {s.numel()} elements, want one of {sizes}")
+    return s.data_ptr(), _SCALE_KIND[s.dtype], int(s.numel() != 1)
+
+
+def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
+        x_scale: Optional[torch.Tensor], w_scale: torch.Tensor,
+        out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch kernel ``kind`` on CUDA tensors ``x [M, K]``, ``w [N, K]``
+    (one layer: a view of a stacked weight is fine if contiguous)."""
+    M, K = x.shape
+    N = w.shape[0]
+    checks = (
+        (x.dtype == _X_DTYPE[kind], f"x must be {_X_DTYPE[kind]}"),
+        (w.dtype == _W_DTYPE[kind], f"w must be {_W_DTYPE[kind]}"),
+        (out_dtype == torch.bfloat16, "the output must be bf16"),
+        (w.ndim == 2 and w.shape[1] == K, f"w {tuple(w.shape)} does not match x {tuple(x.shape)}"),
+        (K % K_STEP == 0, f"K={K} must be a multiple of {K_STEP} (no partial K block)"),
+        (x.is_contiguous() and w.is_contiguous(), "x and w must be contiguous"),
+        (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, "x and w must be 16-byte aligned"),
+    )
+    for ok, what in checks:
+        if not ok:
+            raise ValueError(f"{name}: {what}")
+    for t in (w, x_scale, w_scale):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: tensors must share one device")
+    xs = _scale_arg(x_scale, (M,), "x_scale")   # the kernel reads xs[m]
+    ws = _scale_arg(w_scale, (1, N), "w_scale")
+    lib = _build.library()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    stream = _build.stream_handle(x.device)
+    if M <= GEMV_MAX_M:
+        chunks = K // _CHUNK
+        ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
+        acc = torch.int32 if kind == K7_I8_I8 else torch.float32
+        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=acc, device=x.device)
+        lib.launch("tt_qmm_gemv", kind, x.data_ptr(), w.data_ptr(), xs[0], xs[1], ws[0], ws[1],
+                   ws[2], work.data_ptr(), out.data_ptr(), M, K, N, ksplit, stream)
+        _build.LAUNCHES[f"{name}_gemv"] += 1
+    else:
+        lib.launch("tt_qmm_tiled", kind, x.data_ptr(), w.data_ptr(), xs[0], xs[1], ws[0], ws[1],
+                   ws[2], out.data_ptr(), M, K, N, stream)
+        _build.LAUNCHES[f"{name}_tiled"] += 1
+    return out

@@ -1,0 +1,72 @@
+"""int8 matmuls: CUDA kernel wrappers + plain versions.
+
+Port of two functions of ``torchao_tpu/kernels/int8_matmul.py`` (CUDA
+source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
+
+- :func:`int8wo_mixed_matmul` (K6, int8 weight-only): bf16 x times an int8
+  weight ``[(L,) N, K]``, f32 accumulation, per-channel scale epilogue;
+  replaces ``int8wo_mixed_matmul`` (pallas_call at ``int8_matmul.py:255``,
+  body ``_wo_kernel`` at :185).
+- :func:`int8_scaled_matmul` (K7, int8dq): per-token int8 x times the int8
+  weight, exact int32 accumulation, epilogue ``acc·f32(xs)·f32(ws)``
+  rounded once; replaces ``int8_scaled_matmul`` (pallas_call at :104,
+  body ``_kernel`` at :24).
+
+A stacked weight is addressed by ``layer_idx`` (``w_q[l]`` is a view: no
+copy). A CUDA tensor launches the kernel (or raises); only a CPU tensor
+takes the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from torchao_tpu_torch.kernels import _qmm
+
+
+def int8wo_mixed_matmul_plain(x, w_q, w_scale, *, layer_idx=None):
+    """Plain PyTorch version of ``_wo_kernel``'s math: ``x · w_qᵀ`` in f32,
+    times the f32 per-channel scale, rounded once to ``x.dtype``."""
+    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    acc = x.float() @ w_q.float().T
+    return (acc * w_scale.float().reshape(1, -1)).to(x.dtype)
+
+
+def int8wo_mixed_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
+                        layer_idx: Optional[int] = None) -> torch.Tensor:
+    """``x [M, K]`` times ``w_q [(L,) N, K]`` int8 with ``w_scale [(L,) N]``;
+    returns ``[M, N]`` in x.dtype."""
+    if x.device.type == "cpu":
+        return int8wo_mixed_matmul_plain(x, w_q, w_scale, layer_idx=layer_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    return _qmm.qmm("int8wo_mixed_matmul", _qmm.K6_BF16_I8, x, w_q, None, w_scale, x.dtype)
+
+
+def int8_scaled_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16, *,
+                             layer_idx=None):
+    """Plain PyTorch version of ``int8_scaled_matmul_reference``: the exact
+    integer product (f64 holds it exactly), converted to f32, times
+    ``f32(x_scale)`` then ``f32(w_scale)``, rounded once."""
+    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    acc = (x_q.double() @ w_q.double().T).float()
+    out = acc * x_scale.float().reshape(-1, 1) * w_scale.float().reshape(1, -1)
+    return out.to(out_dtype)
+
+
+def int8_scaled_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                       w_scale: torch.Tensor, out_dtype=torch.bfloat16, *,
+                       layer_idx: Optional[int] = None) -> torch.Tensor:
+    """``x_q [M, K]`` int8 with ``x_scale [M]`` times ``w_q [(L,) N, K]``
+    int8 with ``w_scale [(L,) N]``; returns ``[M, N]`` in ``out_dtype``."""
+    if x_q.device.type == "cpu":
+        return int8_scaled_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype,
+                                        layer_idx=layer_idx)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_q.device}")
+    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    return _qmm.qmm("int8_scaled_matmul", _qmm.K7_I8_I8, x_q, w_q, x_scale.reshape(-1),
+                    w_scale, out_dtype)

@@ -6,14 +6,17 @@ layer-step writes each slot's new quantized token at its own position into
 the four stacked split-flat cache arrays, IN PLACE (the JAX kernel aliases
 its outputs onto the caches; here the tensors are mutated and returned):
 
-  k_q     [L, B, X, S]   uint8 (packed int4) — column ``pos[b]``
-  v_q     [L, B, S, X]   uint8               — row ``pos[b]``
+  k_q     [L, B, X, S]   uint8 (packed int4, X = Hkv·Dh/2)
+                         or int8 (X = Hkv·Dh) — column ``pos[b]``
+  v_q     [L, B, S, X]   the same dtype      — row ``pos[b]``
   k_scale [L, B, Hkv, S] — column ``pos[b]``
   v_scale [L, B, Hkv, S] — column ``pos[b]``
 
 Positions clamp to ``[0, S-1]`` like ``dynamic_update_slice``. The kernel
 takes bf16 scales, as a bf16 model's cache holds them; the plain version
-also takes the float32 caches of the CPU parity tests.
+also takes the float32 caches of the CPU parity tests. The kernel copies
+bytes, so both caches take the same launch; an int8 cache's launches
+count as ``fused_smajor_token_write_int8``.
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ def fused_smajor_token_write(k_q, v_q, k_scale, v_scale, kf, vf, ks, vs, pos, la
         (kf.shape == (B, X) and vf.shape == (B, X), "kf/vf shape"),
         (ks.shape == (B, H) and vs.shape == (B, H), "ks/vs shape"),
         (pos.shape == (B,) and pos.dtype == torch.int32, "pos must be int32 [B]"),
-        (k_q.dtype == torch.uint8 and v_q.dtype == torch.uint8, "caches must be uint8"),
-        (kf.dtype == torch.uint8 and vf.dtype == torch.uint8, "kf/vf must be uint8"),
+        (k_q.dtype in (torch.uint8, torch.int8) and v_q.dtype == k_q.dtype,
+         "caches must be uint8 (packed int4) or int8"),
+        (kf.dtype == k_q.dtype and vf.dtype == k_q.dtype, "kf/vf must have the caches' dtype"),
         (k_scale.dtype == v_scale.dtype == ks.dtype == vs.dtype == torch.bfloat16,
          "scales must be bf16"),
         (0 <= layer_idx < L, "layer_idx out of range"),
@@ -72,5 +76,6 @@ def fused_smajor_token_write(k_q, v_q, k_scale, v_scale, kf, vf, ks, vs, pos, la
         pos.data_ptr(), int(layer_idx), B, X, S, H,
         _build.stream_handle(k_q.device),
     )
-    _build.LAUNCHES["fused_smajor_token_write"] += 1
+    int8 = k_q.dtype == torch.int8
+    _build.LAUNCHES["fused_smajor_token_write" + ("_int8" if int8 else "")] += 1
     return k_q, v_q, k_scale, v_scale

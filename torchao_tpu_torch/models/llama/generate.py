@@ -63,10 +63,12 @@ def decode_n_tokens(model: Transformer, params, first_token: torch.Tensor, cache
 
 
 def generate(model: Transformer, params, prompt: torch.Tensor, max_new_tokens: int, *,
-             temperature: float = 0.6, top_k: Optional[int] = 200, seed: int = 0):
-    """Returns ``[B, T_prompt + max_new_tokens]`` tokens."""
+             temperature: float = 0.6, top_k: Optional[int] = 200,
+             kv_cache_quantization=False, seed: int = 0):
+    """Returns ``[B, T_prompt + max_new_tokens]`` tokens.
+    ``kv_cache_quantization`` is ``setup_caches``' ``quantize``."""
     B, T = prompt.shape
-    cache = model.setup_caches(B, T + max_new_tokens)
+    cache = model.setup_caches(B, T + max_new_tokens, quantize=kv_cache_quantization)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     first, cache = prefill(model, params, prompt, cache, gen, temperature, top_k)
@@ -76,12 +78,14 @@ def generate(model: Transformer, params, prompt: torch.Tensor, max_new_tokens: i
 
 
 def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: int = 1,
-                     prompt_len: int = 128, num_tokens: int = 128, temperature: float = 0.6,
+                     prompt_len: int = 128, num_tokens: int = 128,
+                     kv_cache_quantization=False, temperature: float = 0.6,
                      top_k: Optional[int] = 200, warmup: int = 1, iters: int = 1,
                      on_run=None) -> Dict[str, float]:
     """Decode tok/s and time to first token on the card: each run sets up a
     cache, prefills ``prompt_len`` tokens (timed as ttft), then decodes
-    ``num_tokens`` (timed as decode). Only CUDA is measured: a time taken
+    ``num_tokens`` (timed as decode), with the KV cache that
+    ``kv_cache_quantization`` names. Only CUDA is measured: a time taken
     on the CPU is not a device number. ``on_run(i)`` is called before run
     ``i`` (warm-up runs first), e.g. to reset launch counts."""
     if model.device.type != "cuda":
@@ -94,7 +98,8 @@ def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: 
         if on_run is not None:
             on_run(i)
         gen.manual_seed(0)
-        cache = model.setup_caches(batch_size, prompt_len + num_tokens)
+        cache = model.setup_caches(batch_size, prompt_len + num_tokens,
+                                   quantize=kv_cache_quantization)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         first, cache = prefill(model, params, prompt, cache, gen, temperature, top_k)

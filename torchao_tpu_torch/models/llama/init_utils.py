@@ -3,7 +3,10 @@
 Port of ``torchao_tpu/models/llama/init_utils.py::init_quantized_params``:
 weights are drawn and quantized ONE piece at a time (one layer of a
 stacked weight, or one out-feature chunk of a 2-D weight), so peak memory
-stays near the quantized model plus one piece in high precision. Random
+stays near the quantized model plus one piece in high precision (every
+quantized type stacks per layer and concatenates along out-features;
+per-row and per-channel scales are the same whichever way a weight is cut,
+so the pieces quantize exactly as the whole leaf would). Random
 numbers come from an explicit ``torch.Generator`` on the target device;
 they are not the JAX package's numbers (its tests feed both sides the same
 numpy inputs instead).
@@ -15,7 +18,7 @@ import math
 
 import torch
 
-from torchao_tpu_torch.qtypes.intx import IntxArray
+from torchao_tpu_torch.qtypes.base import QuantizedArray
 from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
 
 _CHUNK_ELEMS = 150_000_000
@@ -49,15 +52,15 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
         shape, fan_in = shapes[name]
         if len(shape) == 3:
             layers = [piece(name, shape[1:], fan_in) for _ in range(shape[0])]
-            if isinstance(layers[0], IntxArray):
-                return IntxArray.stack_layers(layers)
+            if isinstance(layers[0], QuantizedArray):
+                return type(layers[0]).stack_layers(layers)
             return torch.stack(layers)
         n_chunks = 1
         while shape[0] * shape[1] // n_chunks > _CHUNK_ELEMS and shape[0] % (2 * n_chunks) == 0:
             n_chunks *= 2
         parts = [piece(name, (shape[0] // n_chunks, shape[1]), fan_in) for _ in range(n_chunks)]
-        if isinstance(parts[0], IntxArray):
-            return IntxArray.concat_out_features(parts)
+        if isinstance(parts[0], QuantizedArray):
+            return type(parts[0]).concat_out_features(parts)
         return torch.cat(parts)
 
     tied = args.tie_word_embeddings

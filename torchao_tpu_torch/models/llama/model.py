@@ -1,19 +1,29 @@
 """Llama decoder (gpt-fast style) in PyTorch.
 
-Port of the slice-1 path of ``torchao_tpu/models/llama/model.py``:
+Port of the ported paths of ``torchao_tpu/models/llama/model.py``:
 stacked layer weights (leading ``n_layer`` axis) indexed per layer in a
-Python loop, every matmul through ``ops.linear``, and the packed-int4
-split-flat KV cache (``int4_smajor``) updated in place:
+Python loop, every matmul through ``ops.linear``, and three KV caches
+(``setup_caches(quantize=...)``), updated in place:
 
-  k_q     [L, B, Hkv·Dh/2, S] uint8  — K D-major
-  v_q     [L, B, S, Hkv·Dh/2] uint8  — V S-major
-  k_scale [L, B, Hkv, S], v_scale [L, B, Hkv, S] in the model dtype
+- ``False``: bf16 (model dtype) ``{"k", "v": [L, B, Hkv, S, Dh]}``;
+  attention is plain ``torch.einsum`` and softmax in the JAX package's
+  order (its XLA route), not a kernel.
+- ``True`` / ``"int8"`` / ``"int8_smajor"``: int8 split-flat;
+  ``"int4_smajor"``: packed int4 split-flat (2 per byte within heads)::
 
-Decode (T = 1) writes the token with ``fused_smajor_token_write`` (K3) and
-attends with ``quantized_kv_decode_attention_bdq`` (K2); prefill writes
-with indexed assignment and attends with ``quantized_kv_decode_attention``
-(K4) over a head-major VIEW of the cache (no transpose copy). Positions
-are an int32 ``[B]`` tensor on the device, so decoding needs no host sync.
+    k_q     [L, B, Hkv·Db, S] int8 | uint8  — K D-major (Db = Dh | Dh/2)
+    v_q     [L, B, S, Hkv·Db]               — V S-major
+    k_scale [L, B, Hkv, S], v_scale [L, B, Hkv, S] in the model dtype
+
+  Decode (T = 1) writes the token with ``fused_smajor_token_write`` (K3)
+  and attends with ``quantized_kv_decode_attention_bdq`` (K2 / K2′);
+  prefill writes with indexed assignment and attends with
+  ``quantized_kv_decode_attention`` (K4) over a head-major VIEW of the
+  cache (no transpose copy).
+
+With ``cache=None`` the forward attends over the current tokens only
+(causal), as the JAX forward does. Positions are an int32 ``[B]`` tensor
+on the device, so decoding needs no host sync.
 
 Weight layout is ``[out_features, in_features]``.
 """
@@ -34,6 +44,7 @@ from torchao_tpu_torch.kernels.quantized_attention import (
 )
 from torchao_tpu_torch.ops.embedding import embedding
 from torchao_tpu_torch.ops.qlinear import linear
+from torchao_tpu_torch.quantization.quant_primitives import quantize_activation_per_token_absmax
 from torchao_tpu_torch.utils import find_multiple, resolve_device
 
 
@@ -176,32 +187,45 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# KV cache (int4_smajor)
+# KV caches
 # ---------------------------------------------------------------------------
 
 
 def init_kv_cache(args: ModelArgs, batch_size: int, max_seq_len: int,
-                  dtype=torch.bfloat16, quantize="int4_smajor", device=None):
-    """Packed-int4 split-flat KV cache with a leading layer axis. Caches
-    longer than 1024 round S up to a multiple of 1024, as in the JAX
-    package (the causal mask never reads the padded tail). Only the
-    ``int4_smajor`` layout is ported."""
-    if quantize not in ("int4_smajor", "int4smajor"):
-        raise NotImplementedError(f"KV cache {quantize!r} is not ported yet")
-    if args.head_dim % 2:
-        raise ValueError("int4 KV packing needs an even head_dim")
+                  dtype=torch.bfloat16, quantize=False, device=None):
+    """KV cache with a leading layer axis (see the module docstring).
+    Caches longer than 1024 round S up to a multiple of 1024, as in the
+    JAX package (the causal mask never reads the padded tail). The JAX
+    package's head-major int8/int4 layouts are not ported."""
     if max_seq_len > 1024:
         max_seq_len = -(-max_seq_len // 1024) * 1024
     dev = resolve_device(device)
     L, B, S = args.n_layer, batch_size, max_seq_len
-    X = args.n_local_heads * args.head_dim // 2
-    H = args.n_local_heads
+    H, Dh = args.n_local_heads, args.head_dim
+    if not quantize:
+        return {"k": torch.zeros((L, B, H, S, Dh), dtype=dtype, device=dev),
+                "v": torch.zeros((L, B, H, S, Dh), dtype=dtype, device=dev)}
+    if quantize in (True, "int8", "int8_smajor", "smajor"):
+        X, qdtype = H * Dh, torch.int8
+    elif quantize in ("int4_smajor", "int4smajor"):
+        if Dh % 2:
+            raise ValueError("int4 KV packing needs an even head_dim")
+        X, qdtype = H * Dh // 2, torch.uint8
+    else:
+        raise NotImplementedError(f"KV cache {quantize!r} is not ported yet")
     return {
-        "k_q": torch.zeros((L, B, X, S), dtype=torch.uint8, device=dev),
-        "v_q": torch.zeros((L, B, S, X), dtype=torch.uint8, device=dev),
+        "k_q": torch.zeros((L, B, X, S), dtype=qdtype, device=dev),
+        "v_q": torch.zeros((L, B, S, X), dtype=qdtype, device=dev),
         "k_scale": torch.zeros((L, B, H, S), dtype=dtype, device=dev),
         "v_scale": torch.zeros((L, B, H, S), dtype=dtype, device=dev),
     }
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Per-token absmax int8 over head_dim: ``x [B, H, T, Dh]`` → (int8
+    values, scales ``[B, H, T, 1]`` in x.dtype)."""
+    q, scale = quantize_activation_per_token_absmax(x)
+    return q, scale[..., None].to(x.dtype)
 
 
 _ONE_SEVENTH = float(np.float32(1.0 / 7.0))
@@ -223,14 +247,16 @@ def _quantize_kv_int4(x: torch.Tensor):
 
 
 def _smajor_update(cache, k, v, pos: torch.Tensor, l: int) -> None:
-    """Quantize new k/v ``[B, Hkv, T, Dh]`` per token and write them into
-    layer ``l`` of the split-flat cache, in place. T = 1 rides the fused
-    token-write kernel; longer writes follow ``dynamic_update_slice``
-    semantics (start clamped to ``[0, S - T]``)."""
+    """Quantize new k/v ``[B, Hkv, T, Dh]`` per token (int8, or packed int4
+    for a uint8 cache) and write them into layer ``l`` of the split-flat
+    cache, in place. T = 1 rides the fused token-write kernel; longer
+    writes follow ``dynamic_update_slice`` semantics (start clamped to
+    ``[0, S - T]``)."""
     B, Hkv, T, Dh = k.shape
-    k_q, k_s = _quantize_kv_int4(k)  # [B, Hkv, T, Dh/2], [B, Hkv, T, 1]
-    v_q, v_s = _quantize_kv_int4(v)
-    X = Hkv * Dh // 2
+    qfn = _quantize_kv_int4 if cache["k_q"].dtype == torch.uint8 else _quantize_kv
+    k_q, k_s = qfn(k)  # [B, Hkv, T, Db], [B, Hkv, T, 1]
+    v_q, v_s = qfn(v)
+    X = Hkv * k_q.shape[-1]
     if T == 1:
         sdt = cache["k_scale"].dtype
         fused_smajor_token_write(
@@ -251,20 +277,50 @@ def _smajor_update(cache, k, v, pos: torch.Tensor, l: int) -> None:
     cache["v_scale"][l][bidx, :, idx] = v_s[..., 0].transpose(1, 2).to(cache["v_scale"].dtype)
 
 
+def _cache_write(cache, k, v, pos: torch.Tensor, l: int) -> None:
+    """Write new k/v ``[B, Hkv, T, Dh]`` into layer ``l`` of the bf16 cache
+    ``[L, B, Hkv, S, Dh]`` at each slot's position, in place, with
+    ``dynamic_update_slice`` semantics (start clamped to ``[0, S - T]``)."""
+    B, _, T, _ = k.shape
+    S = cache["k"].shape[3]
+    start = pos.to(torch.long).clamp(0, S - T)
+    idx = start[:, None] + torch.arange(T, device=pos.device)[None]  # [B, T]
+    bidx = torch.arange(B, device=pos.device)[:, None]
+    cache["k"][l][bidx, :, idx] = k.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][l][bidx, :, idx] = v.transpose(1, 2).to(cache["v"].dtype)
+
+
 def _smajor_to_hmajor(cache, Hkv: int, Dh: int, l: int):
     """Head-major VIEWS of layer ``l`` of the split-flat cache:
-    ``[B, Hkv, S, Dh/2]`` uint8 and ``[B, Hkv, S, 1]`` scales. The JAX
-    package transposes with XLA here; PyTorch returns strided views, which
-    the K4 kernel reads through their strides."""
+    ``[B, Hkv, S, Db]`` (int8 ``Db = Dh``, packed int4 ``Db = Dh/2``) and
+    ``[B, Hkv, S, 1]`` scales. The JAX package transposes with XLA here;
+    PyTorch returns strided views, which the K4 kernel reads through their
+    strides."""
     kq, ks, vq, vs = (cache[n][l] for n in ("k_q", "k_scale", "v_q", "v_scale"))
     B, S, _ = vq.shape
-    Dh2 = Dh // 2
+    Db = Dh if kq.dtype == torch.int8 else Dh // 2
     return (
-        kq.reshape(B, Hkv, Dh2, S).transpose(2, 3),
+        kq.reshape(B, Hkv, Db, S).transpose(2, 3),
         ks[..., None],
-        vq.reshape(B, S, Hkv, Dh2).transpose(1, 2),
+        vq.reshape(B, S, Hkv, Db).transpose(1, 2),
         vs[..., None],
     )
+
+
+def _plain_attention(q, k, v, mask, out_dtype):
+    """GQA softmax attention as the JAX package's XLA route computes it:
+    ``q [B, H, T, Dh]`` against ``k, v [B, Hkv, S, Dh]``; scores in f32
+    divided by sqrt(Dh), ``mask [T, S]`` or ``[B, T, S]`` (True = visible),
+    softmax in f32, probabilities rounded to v's dtype, P·V in f32, rounded
+    to ``out_dtype``. Returns ``[B, T, H·Dh]``."""
+    B, H, T, Dh = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, T, Dh)
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qg.float(), k.float()) / math.sqrt(Dh)
+    visible = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    probs = torch.softmax(scores.masked_fill(~visible, float("-inf")), dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs.to(v.dtype).float(), v.float()).to(out_dtype)
+    return out.reshape(B, H, T, Dh).transpose(1, 2).reshape(B, T, H * Dh)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +328,10 @@ def _smajor_to_hmajor(cache, Hkv: int, Dh: int, l: int):
 # ---------------------------------------------------------------------------
 
 
-def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: ModelArgs, l: int):
-    """wqkv → RoPE → cache update → GQA attention → wo, for layer ``l``."""
+def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: ModelArgs, l: int,
+               mask: Optional[torch.Tensor]):
+    """wqkv → RoPE → cache update → GQA attention → wo, for layer ``l``.
+    ``mask`` serves the bf16 cache and ``cache=None`` (plain attention)."""
     B, T, _ = x.shape
     H, Hkv, Dh = args.n_head, args.n_local_heads, args.head_dim
     g = H // Hkv
@@ -282,6 +340,11 @@ def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: Mod
     q = apply_rotary_emb(q.reshape(B, T, H, Dh), freqs).transpose(1, 2)   # [B, H, T, Dh]
     k = apply_rotary_emb(k.reshape(B, T, Hkv, Dh), freqs).transpose(1, 2)
     v = v.reshape(B, T, Hkv, Dh).transpose(1, 2)
+    if cache is None or "k" in cache:
+        if cache is not None:
+            _cache_write(cache, k, v, pos, l)
+            k, v = cache["k"][l], cache["v"][l]
+        return linear(_plain_attention(q, k, v, mask, x.dtype), lw["wo"], layer_idx=l)
     _smajor_update(cache, k, v, pos, l)
     if T == 1:
         attn = quantized_kv_decode_attention_bdq(
@@ -315,7 +378,8 @@ def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
                         args: ModelArgs):
     """Full forward over ``tokens [B, T]`` starting at ``input_pos`` (an
     int, or an int32 ``[B]`` tensor of per-slot positions). Returns
-    ``(logits [B, T, V], cache)``; the cache is updated in place."""
+    ``(logits [B, T, V], cache)``; the cache (or None) is updated in
+    place."""
     B, T = tokens.shape
     dev = tokens.device
     if isinstance(input_pos, torch.Tensor):
@@ -323,12 +387,18 @@ def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
     else:
         pos = torch.full((B,), int(input_pos), dtype=torch.int32, device=dev)
     x = embedding(params["tok_embeddings"]["weight"], tokens)
-    freqs = freqs_full[pos.to(torch.long)[:, None] + torch.arange(T, device=dev)[None]]
+    t_pos = pos.to(torch.long)[:, None] + torch.arange(T, device=dev)[None]  # [B, T]
+    freqs = freqs_full[t_pos]
+    mask = None
+    if cache is None:
+        mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    elif "k" in cache:  # slot s is visible to token t iff s <= input_pos + t
+        mask = torch.arange(cache["k"].shape[3], device=dev)[None, None, :] <= t_pos[..., None]
     lws = params["layers"]
     for l in range(args.n_layer):
         x = x + _attention(
             rms_norm(x, lws["attention_norm"]["weight"][l], args.norm_eps),
-            lws["attention"], freqs, cache, pos, args, l,
+            lws["attention"], freqs, cache, pos, args, l, mask,
         )
         x = x + _feed_forward(
             rms_norm(x, lws["ffn_norm"]["weight"][l], args.norm_eps), lws["feed_forward"], l
@@ -365,12 +435,10 @@ class Transformer:
     def from_name(cls, name: str, dtype=torch.bfloat16, device=None):
         return cls(ModelArgs.from_name(name), dtype, device)
 
-    def setup_caches(self, batch_size: int, max_seq_len: int, quantize="int4_smajor"):
+    def setup_caches(self, batch_size: int, max_seq_len: int, quantize=False):
         max_seq_len = min(max_seq_len, self.args.block_size)
         return init_kv_cache(self.args, batch_size, max_seq_len, self.dtype, quantize,
                              device=self.device)
 
     def __call__(self, params, tokens, input_pos=0, cache=None):
-        if cache is None:
-            raise NotImplementedError("the port's forward needs an int4_smajor KV cache")
         return transformer_forward(params, tokens, input_pos, cache, self.freqs, self.args)

@@ -1,31 +1,88 @@
 """Quantized linear dispatch.
 
-Port of the int4wo route of ``torchao_tpu/ops/qlinear.py``. Weight
-convention is torch's: ``w`` is ``[out_features, in_features]`` and
-``linear(x, w) = x @ w.T (+ bias)``.
+Port of the ported configs' routes of ``torchao_tpu/ops/qlinear.py``.
+Weight convention is torch's: ``w`` is ``[out_features, in_features]`` and
+``linear(x, w) = x @ w.T (+ bias)``. A stacked ``[L, N, K]`` weight is
+passed whole with ``layer_idx`` (``qdata[l]`` is a free view in PyTorch,
+so the TPU's scalar-prefetch trick has no counterpart). Each kernel
+wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+version for a CPU tensor.
 
-- An int4 TILED_NIBBLES weight (FLOAT zero-point domain) goes to
-  ``kernels.int4_matmul.int4_dq_matmul`` for every M: the CUDA kernel for
-  a CUDA tensor, its plain version for a CPU tensor. A stacked ``[L, N, K]``
-  weight is passed whole with ``layer_idx`` (``qdata[l]`` is a free view in
-  PyTorch, so the TPU's scalar-prefetch trick has no counterpart). The JAX
-  package's ``M >= 4096`` switch to dequant + XLA matmul was a TPU
-  measurement and is not carried over; where that line lies on an H100 is
-  an open decision (ROADMAP.md).
+- int4 TILED_NIBBLES (FLOAT zero-point domain) → ``int4_dq_matmul`` (K1/K5)
+  at every M. The JAX package's ``M >= 4096`` switch to dequant + XLA
+  matmul was a TPU measurement and is not carried over; where that line
+  lies on an H100 is an open decision (ROADMAP.md).
+- int8 PLAIN per-channel (int8wo) → ``int8wo_mixed_matmul`` (K6), the
+  unstacked head included. Like the JAX package, the route ignores the
+  (symmetric, zero) zero point.
+- int8dq (``LinearActivationQuantizedArray`` over int8 NONE-domain) →
+  per-token int8 activations, then ``int8_scaled_matmul`` (K7), the head and
+  decode at M = 1 included; the ``_noop_decode`` form takes K6 for T = 1.
+- float8 stacked (per-row or per-layer weight scales) →
+  ``fp8_mixed_matmul`` (K8) with bf16 x (float8wo), or with per-row e4m3
+  activations quantized first in plain torch (float8dq-row), as the JAX
+  package does in XLA. The unstacked fp8 head follows the JAX package's
+  default route, XLA there and plain torch here: float8wo dequantizes and
+  calls ``torch.matmul``; float8dq takes the f32 product of the upcast e4m3
+  operands times both scales. (Whether the head should take K8 or K9 on
+  the H100 is an open decision, ROADMAP.md.)
 - Any other quantized weight is dequantized and multiplied on the CPU only;
   on a CUDA tensor it raises, because no kernel is ported for it yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul
+from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
+from torchao_tpu_torch.qtypes.composition import (
+    LinearActivationQuantizedArray,
+    register_act_quant,
+)
+from torchao_tpu_torch.qtypes.float8 import (
+    Float8ActQuantSpec,
+    Float8Array,
+    quantize_activation_float8,
+)
 from torchao_tpu_torch.qtypes.intx import IntxArray
+from torchao_tpu_torch.quantization import quant_primitives as qp
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
+
+# ---------------------------------------------------------------------------
+# activation quantizers (registry keys referenced by configs)
+# ---------------------------------------------------------------------------
+
+
+@register_act_quant("int8_per_token_sym")
+def _int8_per_token_sym(x: torch.Tensor):
+    """Per-token symmetric int8, range ±127; the scale keeps x's dtype."""
+    return qp.quantize_activation_per_token_absmax(x)
+
+
+@register_act_quant("int8_per_token_sym_noop_decode")
+def _int8_per_token_sym_noop_decode(x: torch.Tensor):
+    """The prefill path of ``weight_only_decode`` (the decode-time no-op
+    is the dispatch's)."""
+    return qp.quantize_activation_per_token_absmax(x)
+
+
+@register_act_quant("fp8_per_row")
+def _fp8_per_row(x: torch.Tensor, hp_value_ub=None):
+    """Per-row e4m3 activations; the scale squeezed to ``x.shape[:-1]``."""
+    q, scale = quantize_activation_float8(
+        x, Float8ActQuantSpec(granularity="per_row", hp_value_ub=hp_value_ub))
+    return q, scale.reshape(x.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
+# routes
+# ---------------------------------------------------------------------------
 
 
 def _is_int4_tiled(w) -> bool:
@@ -37,6 +94,76 @@ def _is_int4_tiled(w) -> bool:
     )
 
 
+def _is_int8_per_channel(w) -> bool:
+    return (
+        isinstance(w, IntxArray)
+        and w.target_dtype == "int8"
+        and w.packing_format is PackingFormat.PLAIN
+        and w.zero_point_domain in (ZeroPointDomain.INT, ZeroPointDomain.NONE)
+        and w.scale.numel() == math.prod(w.shape[:-1])
+    )
+
+
+def _is_int8dq(w) -> bool:
+    return (
+        isinstance(w, LinearActivationQuantizedArray)
+        and w.input_quant_name in ("int8_per_token_sym", "int8_per_token_sym_noop_decode")
+        and _is_int8_per_channel(w.original_weight)
+    )
+
+
+def _is_fp8_stacked(w, layer_idx) -> bool:
+    """K8 takes a stacked e4m3 weight with per-row or per-layer scales (a
+    per-tensor scale over all layers is declined, as in the JAX package)."""
+    if not isinstance(w, Float8Array) or layer_idx is None or w.qdata.ndim != 3:
+        return False
+    L, N = w.qdata.shape[:2]
+    spec = w.act_quant_spec
+    return (w.float8_dtype == "float8_e4m3fn" and w.scale.numel() in (L, L * N)
+            and (spec is None or spec.granularity in ("per_row", "per_tensor")))
+
+
+def _int8wo(x2, w: IntxArray, layer_idx):
+    N, K = w.shape[-2:]
+    scale = w.scale.reshape(-1, N) if layer_idx is not None else w.scale.reshape(N)
+    return int8wo_mixed_matmul(x2, w.qdata, scale, layer_idx=layer_idx)
+
+
+def _int8dq(x, x2, w: LinearActivationQuantizedArray, layer_idx):
+    inner = w.original_weight
+    if w.input_quant_name.endswith("_noop_decode") and x.ndim >= 2 and x.shape[-2] == 1:
+        return _int8wo(x2, inner, layer_idx)  # weight-only decode
+    N, K = inner.shape[-2:]
+    x_q, x_scale = w.quantize_input(x2)
+    scale = inner.scale.reshape(-1, N) if layer_idx is not None else inner.scale.reshape(N)
+    return int8_scaled_matmul(x_q, inner.qdata, x_scale.reshape(-1), scale, x.dtype,
+                              layer_idx=layer_idx)
+
+
+def _fp8_stacked(x2, w: Float8Array, layer_idx, out_dtype):
+    L = w.qdata.shape[0]
+    ws = w.scale.reshape(L, -1)
+    if w.act_quant_spec is None:
+        return fp8_mixed_matmul(x2, w.qdata, ws, None, out_dtype, layer_idx=layer_idx)
+    x_q, x_scale = quantize_activation_float8(x2, w.act_quant_spec)
+    return fp8_mixed_matmul(x_q, w.qdata, ws, x_scale.reshape(-1), out_dtype,
+                            layer_idx=layer_idx)
+
+
+def _fp8_head(x, w: Float8Array):
+    """The JAX package's XLA route for an unstacked fp8 weight, in plain
+    torch (per-row or per-tensor weight scales)."""
+    if w.act_quant_spec is None:
+        return torch.matmul(x, w.dequantize(x.dtype).T)
+    if w.scale.numel() not in (1, w.shape[0]):
+        raise NotImplementedError("blockwise fp8 weight scales are not ported yet")
+    x_q, x_scale = quantize_activation_float8(x, w.act_quant_spec)
+    K = x.shape[-1]
+    acc = x_q.reshape(-1, K).float() @ w.qdata.float().T
+    out = acc * x_scale.float().reshape(-1, 1) * w.scale.float().reshape(1, -1)
+    return out.reshape(*x.shape[:-1], w.shape[0]).to(x.dtype)
+
+
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
            layer_idx: Optional[int] = None) -> torch.Tensor:
     """``x @ w.T + bias`` for a plain or quantized ``w``; with
@@ -45,14 +172,23 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
         if layer_idx is not None:
             w = w[layer_idx]
         out = torch.matmul(x, w.T)
-    elif _is_int4_tiled(w):
-        N, K = w.shape[-2:]
+        return out + bias if bias is not None else out
+    N, K = w.shape[-2:]
+    x2 = x.reshape(-1, K).contiguous()
+    if _is_int4_tiled(w):
         mid = (w.quant_max + w.quant_min + 1) / 2 - w.quant_min
         out = int4_dq_matmul(
-            x.reshape(-1, K).contiguous(), w.qdata, w.scale, w.zero_point,
-            group_size=w.block_size[-1], mid=mid, layer_idx=layer_idx,
-            xored=w.nibbles_xored,
-        ).reshape(*x.shape[:-1], N)
+            x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1], mid=mid,
+            layer_idx=layer_idx, xored=w.nibbles_xored,
+        )
+    elif _is_int8_per_channel(w):
+        out = _int8wo(x2, w, layer_idx)
+    elif _is_int8dq(w):
+        out = _int8dq(x, x2, w, layer_idx)
+    elif _is_fp8_stacked(w, layer_idx):
+        out = _fp8_stacked(x2, w, layer_idx, x.dtype)
+    elif isinstance(w, Float8Array) and layer_idx is None and w.qdata.ndim == 2:
+        out = _fp8_head(x, w)
     elif x.device.type == "cpu":
         if layer_idx is not None:
             w = w.take_layer(layer_idx)
@@ -62,4 +198,5 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
             f"no CUDA kernel is ported for {type(w).__name__} "
             f"({getattr(w, 'packing_format', None)}) yet"
         )
+    out = out.reshape(*x.shape[:-1], N)
     return out + bias if bias is not None else out

@@ -11,10 +11,13 @@ events (kernels, copies, memsets) back:
 - ``idle_share``: ``1 - busy / wall``, how far the host holds the card back;
 - ``kernels``: device time and launches per step, by kernel name.
 
-Run it on the card (Llama-3-8B, int4 weight-only g=32, int4 KV cache,
-random weights, 16 decode steps; the chrome trace goes to ``--trace``)::
+Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
+each of the ported configurations with its KV cache (``CONFIGS``), each in
+a fresh process (a finished ``torch.profiler`` session leaves the host
+slower for the rest of its process); with ``--trace PREFIX`` each
+configuration's chrome trace goes to ``PREFIX.<recipe>.json``::
 
-    python -m torchao_tpu_torch.profiler --trace decode_trace.json
+    python -m torchao_tpu_torch.profiler --trace decode_trace
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import multiprocessing
 import os
 import tempfile
 import time
@@ -35,6 +39,9 @@ PROMPT_LEN = 128
 STEPS = 16
 TEMPERATURE = 0.6
 TOP_K = 200
+# recipe (models/llama/cli.py) -> KV cache, as chip_smoke.py runs them
+CONFIGS = {"int4wo-32": "int4_smajor", "int8wo": "int8", "int8dq": False, "float8wo": False,
+           "float8dq-row": False}
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 
@@ -48,10 +55,11 @@ def _busy_us(intervals):
     return busy
 
 
-def profile_decode(model, params, trace_path=None):
+def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
     """Trace ``STEPS`` batch-1 decode steps (top-k ``TOP_K`` at
-    ``TEMPERATURE``) after a ``PROMPT_LEN`` prefill, after an untraced
-    warm-up pass and an untraced timed pass; returns the breakdown above."""
+    ``TEMPERATURE``) after a ``PROMPT_LEN`` prefill, with the KV cache that
+    ``kv_cache_quantization`` names, after an untraced warm-up pass and an
+    untraced timed pass; returns the breakdown above."""
     from torch.profiler import ProfilerActivity, profile
 
     if model.device.type != "cuda":
@@ -60,7 +68,7 @@ def profile_decode(model, params, trace_path=None):
     prompt = torch.zeros((1, PROMPT_LEN), dtype=torch.long, device=model.device)
 
     def run(prof=None):
-        cache = model.setup_caches(1, PROMPT_LEN + STEPS)
+        cache = model.setup_caches(1, PROMPT_LEN + STEPS, quantize=kv_cache_quantization)
         first, cache = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -111,31 +119,44 @@ def profile_decode(model, params, trace_path=None):
     }
 
 
-def main():
+def _profile_recipe(recipe, kv, trace_path):
+    """Quantize Llama-3-8B with ``recipe`` and profile its decode step."""
+    from torchao_tpu_torch.models.llama.cli import config_from_recipe
     from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
     from torchao_tpu_torch.models.llama.model import Transformer, default_linear_filter
-    from torchao_tpu_torch.quantization.quant_api import Int4WeightOnlyConfig
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--trace", default=None, help="where to write the chrome trace")
-    a = ap.parse_args()
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
-    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=32),
-                                   default_linear_filter, seed=0)
+    params = init_quantized_params(model, config_from_recipe(recipe), default_linear_filter,
+                                   seed=0)
+    res = profile_decode(model, params, trace_path=trace_path, kv_cache_quantization=kv)
+    return {"device": torch.cuda.get_device_name(0), **res}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace", default=None,
+                    help="write each configuration's chrome trace to PREFIX.<recipe>.json")
+    a = ap.parse_args()
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
-    res = profile_decode(model, params, trace_path=a.trace)
-    print(f"{torch.cuda.get_device_name(0)}; decode step: wall {res['wall_ms_per_step']:.3f} ms "
-          f"(traced {res['traced_wall_ms_per_step']:.3f} ms), device busy "
-          f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}")
-    launches = sum(k["launches_per_step"] for k in res["kernels"])
-    print(f"  {launches:.1f} device launches per step; by device time:")
-    for k in res["kernels"][:25]:
-        print(f"  {k['ms_per_step']:9.4f} ms  {k['launches_per_step']:7.1f}x  {k['name']}")
-    print("  host ops by self time:")
-    for op in res["host_ops"]:
-        print(f"  {op['self_ms_per_step']:9.4f} ms  {op['calls_per_step']:7.1f}x  {op['name']}")
-    print(json.dumps({**res, "kernels": res["kernels"][:25]}))
+    ctx = multiprocessing.get_context("spawn")
+    for recipe, kv in CONFIGS.items():
+        trace = f"{a.trace}.{recipe}.json" if a.trace else None
+        with ctx.Pool(1) as pool:
+            res = pool.apply(_profile_recipe, (recipe, kv, trace))
+        print(f"{res['device']}; {recipe}, KV cache {kv or 'bf16'}; decode step: "
+              f"wall {res['wall_ms_per_step']:.3f} ms (traced "
+              f"{res['traced_wall_ms_per_step']:.3f} ms), device busy "
+              f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}")
+        launches = sum(k["launches_per_step"] for k in res["kernels"])
+        print(f"  {launches:.1f} device launches per step; by device time:")
+        for k in res["kernels"][:25]:
+            print(f"  {k['ms_per_step']:9.4f} ms  {k['launches_per_step']:7.1f}x  {k['name']}")
+        print("  host ops by self time:")
+        for op in res["host_ops"]:
+            print(f"  {op['self_ms_per_step']:9.4f} ms  {op['calls_per_step']:7.1f}x  {op['name']}")
+        print(json.dumps({"recipe": recipe, "kv_cache": kv or "bf16", **res,
+                          "kernels": res["kernels"][:25]}))
 
 
 if __name__ == "__main__":

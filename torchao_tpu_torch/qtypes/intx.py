@@ -1,14 +1,18 @@
 """IntxArray — integer affine-quantized weights.
 
-Port of ``torchao_tpu/qtypes/intx.py`` for the slice-1 path: the tinygemm
+Port of ``torchao_tpu/qtypes/intx.py`` for the ported configs: the tinygemm
 FLOAT zero-point scheme with TILED_NIBBLES packing (and PLAIN storage for
-odd K). Storage is the JAX package's, byte for byte:
+odd K), and PLAIN int8 in the INT zero-point domain with the zero preserved
+(int8wo) or in the NONE domain, no zero point stored (int8dq). Storage is
+the JAX package's, byte for byte:
 
 - TILED_NIBBLES is K-major: ``qdata [.., K/2, N]`` uint8 (byte k holds
   elements k and k + K/2), ``scale``/``zero_point [.., K/g, N]`` in the
   weight dtype; the logical shape stays ``[.., N, K]``.
 - Nibble bytes are stored XORed with 0x80 (``nibbles_xored``): the low
   nibble is unchanged and the high nibble is ``(byte ^ 0x80) >> 4``.
+- PLAIN is ``qdata [.., N, K]`` int8 with per-channel ``scale [.., N]``
+  (``zero_point [.., N]`` int32 in the INT domain, None in NONE).
 
 The JAX package's ``qparams_eff`` (a chunked block-major qparams copy
 laid out for the TPU's DMA) is not carried: the CUDA kernel reads
@@ -78,23 +82,44 @@ class IntxArray(QuantizedArray):
         preserve_zero: bool = True,
         packing_format: PackingFormat = PackingFormat.PLAIN,
     ) -> "IntxArray":
-        """Quantize a high-precision weight ``[.., N, K]`` with the tinygemm
-        scheme (FLOAT zero-point domain, zero not preserved), the one
-        ``Int4WeightOnlyConfig`` uses. The JAX package's other branches are
-        not ported yet."""
-        if zero_point_domain is not ZeroPointDomain.FLOAT or preserve_zero:
+        """Quantize a high-precision weight ``[.., N, K]``:
+
+        - FLOAT domain, zero not preserved: tinygemm (``Int4WeightOnlyConfig``);
+        - NONE domain: symmetric, no zero point stored (int8dq);
+        - INT domain, zero preserved: standard affine (int8wo).
+
+        The JAX package's INT-without-preserved-zero branch is not ported."""
+        quant_min, quant_max = qp.qmin_qmax(target_dtype, quant_min, quant_max)
+        if zero_point_domain is ZeroPointDomain.FLOAT and not preserve_zero:
+            scale, zero_point = qp.choose_qparams_affine_tinygemm(
+                w, mapping_type, block_size, target_dtype, quant_min,
+                quant_max, eps, scale_dtype, zero_point_dtype,
+            )
+            qdata = qp.quantize_affine_tinygemm(
+                w, block_size, scale, zero_point, target_dtype, quant_min, quant_max,
+            )
+        elif zero_point_domain is ZeroPointDomain.NONE:
+            scale, _ = qp.choose_qparams_affine(
+                w, mapping_type, block_size, target_dtype, quant_min,
+                quant_max, eps, scale_dtype, zero_point_dtype,
+            )
+            zero_point = None
+            qdata = qp.quantize_affine_no_zero_point(
+                w, block_size, scale, None, target_dtype, quant_min, quant_max,
+            )
+        elif zero_point_domain is ZeroPointDomain.INT and preserve_zero:
+            scale, zero_point = qp.choose_qparams_affine(
+                w, mapping_type, block_size, target_dtype, quant_min,
+                quant_max, eps, scale_dtype, zero_point_dtype,
+            )
+            qdata = qp.quantize_affine(
+                w, block_size, scale, zero_point, target_dtype, quant_min, quant_max,
+            )
+        else:
             raise NotImplementedError(
                 f"zero_point_domain={zero_point_domain}, "
                 f"preserve_zero={preserve_zero} is not ported yet"
             )
-        quant_min, quant_max = qp.qmin_qmax(target_dtype, quant_min, quant_max)
-        scale, zero_point = qp.choose_qparams_affine_tinygemm(
-            w, mapping_type, block_size, target_dtype, quant_min,
-            quant_max, eps, scale_dtype, zero_point_dtype,
-        )
-        qdata = qp.quantize_affine_tinygemm(
-            w, block_size, scale, zero_point, target_dtype, quant_min, quant_max,
-        )
 
         if packing_format is PackingFormat.TILED_NIBBLES:
             assert quant_max - quant_min <= 15, (quant_min, quant_max)
@@ -131,12 +156,14 @@ class IntxArray(QuantizedArray):
     @classmethod
     def concat_out_features(cls, parts) -> "IntxArray":
         """Concatenate along out-features (N): the last axis of every
-        TILED_NIBBLES field, the second-to-last of PLAIN qdata."""
+        TILED_NIBBLES field; for PLAIN, the second-to-last axis of qdata and
+        of qparams of qdata's rank (groups), else their last axis."""
         a = parts[0]
         if a.packing_format is PackingFormat.TILED_NIBBLES:
             axes = {"qdata": -1, "scale": -1, "zero_point": -1}
         else:
-            axes = {"qdata": -2, "scale": -2, "zero_point": -2}
+            axes = {name: -2 if getattr(a, name).ndim == a.qdata.ndim else -1
+                    for name in a._tensor_fields if getattr(a, name) is not None}
         kw = {
             name: torch.cat([getattr(p, name) for p in parts], dim=ax)
             for name, ax in axes.items()

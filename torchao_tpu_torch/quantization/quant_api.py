@@ -1,13 +1,22 @@
-"""Top-level quantization API: ``Int4WeightOnlyConfig`` + ``quantize_``.
+"""Top-level quantization API: the ported configs + ``quantize_``.
 
-Port of the slice-1 part of ``torchao_tpu/quantization/quant_api.py``.
-``quantize_`` walks a nested dict of tensors (the port's params) and
-returns a new dict whose selected weights are replaced by quantized
-arrays; the trailing underscore is kept for API parity.
+Port of part of ``torchao_tpu/quantization/quant_api.py``. ``quantize_``
+walks a nested dict of tensors (the port's params) and returns a new dict
+whose selected weights are replaced by quantized arrays; the trailing
+underscore is kept for API parity.
 
-``Int4WeightOnlyConfig(group_size)``: ASYMMETRIC, qmin=0/qmax=15,
-eps=1e-6, FLOAT zero-point domain (tinygemm), preserve_zero=False,
-scale/zero in the weight dtype. The HQQ branch is not ported yet.
+- ``Int4WeightOnlyConfig(group_size)``: ASYMMETRIC, qmin=0/qmax=15,
+  eps=1e-6, FLOAT zero-point domain (tinygemm), preserve_zero=False,
+  scale/zero in the weight dtype. The HQQ branch is not ported yet.
+- ``Int8WeightOnlyConfig()``: SYMMETRIC int8 per channel, eps = f32 eps,
+  int32 zero point (0), PLAIN.
+- ``Int8DynamicActivationInt8WeightConfig()``: the same weight in the NONE
+  zero-point domain, wrapped with the per-token int8 activation quantizer
+  (``weight_only_decode`` picks its ``_noop_decode`` form).
+- ``Float8WeightOnlyConfig()``: e4m3 per row.
+- ``Float8DynamicActivationFloat8WeightConfig(granularity)``: e4m3 weight
+  with an activation spec; PerRow (and None) is per row, PerTensor one
+  scale.
 """
 
 from __future__ import annotations
@@ -19,7 +28,10 @@ import torch
 
 from torchao_tpu_torch.core.config import AOBaseConfig
 from torchao_tpu_torch.qtypes.base import PackingFormat
+from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
+from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
 from torchao_tpu_torch.qtypes.intx import IntxArray
+from torchao_tpu_torch.quantization.granularity import Granularity, PerRow, PerTensor
 from torchao_tpu_torch.quantization.quant_primitives import (
     MappingType,
     ZeroPointDomain,
@@ -29,7 +41,16 @@ from torchao_tpu_torch.quantization.transform_module import (
     register_quantize_module_handler,
 )
 
-__all__ = ["quantize_", "Int4WeightOnlyConfig"]
+__all__ = [
+    "quantize_",
+    "Int4WeightOnlyConfig",
+    "Int8WeightOnlyConfig",
+    "Int8DynamicActivationInt8WeightConfig",
+    "Float8WeightOnlyConfig",
+    "Float8DynamicActivationFloat8WeightConfig",
+]
+
+_F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
 @dataclasses.dataclass
@@ -69,6 +90,90 @@ def _int4_weight_only_transform(w: torch.Tensor, config: Int4WeightOnlyConfig):
         preserve_zero=False,
         packing_format=packing_format,
     )
+
+
+@dataclasses.dataclass
+class Int8WeightOnlyConfig(AOBaseConfig):
+    """int8 weight-only, symmetric per channel."""
+
+    group_size: Optional[int] = None
+    version: int = 1
+
+
+@dataclasses.dataclass
+class Int8DynamicActivationInt8WeightConfig(AOBaseConfig):
+    """int8 per-token dynamic activations x int8 per-channel weights."""
+
+    act_mapping_type: MappingType = MappingType.SYMMETRIC
+    weight_only_decode: bool = False
+    version: int = 1
+
+
+@dataclasses.dataclass
+class Float8WeightOnlyConfig(AOBaseConfig):
+    """fp8 weight-only, per row."""
+
+    weight_dtype: str = "float8_e4m3fn"
+    version: int = 2
+
+
+@dataclasses.dataclass
+class Float8DynamicActivationFloat8WeightConfig(AOBaseConfig):
+    """fp8 dynamic activations x fp8 weights; ``granularity`` applies to
+    both."""
+
+    activation_dtype: str = "float8_e4m3fn"
+    weight_dtype: str = "float8_e4m3fn"
+    granularity: Optional[Granularity] = None
+    activation_value_lb: Optional[float] = None
+    activation_value_ub: Optional[float] = None
+    fast_accum: bool = True
+    version: int = 2
+
+
+@register_quantize_module_handler(Int8WeightOnlyConfig)
+def _int8_weight_only_transform(w: torch.Tensor, config: Int8WeightOnlyConfig):
+    group_size = w.shape[-1] if config.group_size is None else config.group_size
+    block_size = tuple([1] * (w.ndim - 1) + [group_size])
+    return IntxArray.from_hp(w, MappingType.SYMMETRIC, block_size, "int8", eps=_F32_EPS,
+                             zero_point_dtype=torch.int32)
+
+
+@register_quantize_module_handler(Int8DynamicActivationInt8WeightConfig)
+def _int8_dyn_act_int8_weight_transform(w: torch.Tensor,
+                                        config: Int8DynamicActivationInt8WeightConfig):
+    if w.shape[-1] <= 16:  # tiny in_features stay unquantized, as in the JAX package
+        return w
+    if config.act_mapping_type is not MappingType.SYMMETRIC:
+        raise NotImplementedError("asymmetric int8 activations are not ported yet")
+    block_size = tuple([1] * (w.ndim - 1) + [w.shape[-1]])
+    inner = IntxArray.from_hp(w, MappingType.SYMMETRIC, block_size, "int8", eps=_F32_EPS,
+                              zero_point_domain=ZeroPointDomain.NONE)
+    act = "int8_per_token_sym" + ("_noop_decode" if config.weight_only_decode else "")
+    return LinearActivationQuantizedArray(original_weight=inner, input_quant_name=act)
+
+
+@register_quantize_module_handler(Float8WeightOnlyConfig)
+def _float8_weight_only_transform(w: torch.Tensor, config: Float8WeightOnlyConfig):
+    return Float8Array.from_hp(w, float8_dtype=config.weight_dtype)
+
+
+@register_quantize_module_handler(Float8DynamicActivationFloat8WeightConfig)
+def _float8_dyn_act_float8_weight_transform(
+    w: torch.Tensor, config: Float8DynamicActivationFloat8WeightConfig
+):
+    g = config.granularity
+    if g is None or isinstance(g, PerRow):
+        block_size, gname = tuple([1] * (w.ndim - 1) + [w.shape[-1]]), "per_row"
+    elif isinstance(g, PerTensor):
+        block_size, gname = tuple(w.shape), "per_tensor"
+    else:
+        block_size, gname = g.block_size(w.shape), "per_row"
+    spec = Float8ActQuantSpec(float8_dtype=config.activation_dtype, granularity=gname,
+                              hp_value_lb=config.activation_value_lb,
+                              hp_value_ub=config.activation_value_ub)
+    return Float8Array.from_hp(w, block_size=block_size, float8_dtype=config.weight_dtype,
+                               act_quant_spec=spec, fast_accum=config.fast_accum)
 
 
 def _default_filter(path: str, leaf) -> bool:

@@ -10,7 +10,13 @@ qparams are bit-exact with the JAX package on the CPU:
   ``scale = (max - min) / (qmax - qmin)``, ``zp = min + scale * mid``)
 - ``quantize_affine`` / ``quantize_affine_tinygemm`` / ``dequantize_affine``
   / ``dequantize_affine_tinygemm``
+- ``quantize_affine_no_zero_point`` / ``dequantize_affine_no_zero_point``
+  (NONE zero-point domain: ``q = clamp(round(x · (1/scale)))``)
 - ``quantize_activation_per_token_absmax`` (symmetric int8, range ±127)
+- float8: ``choose_scale_float8`` (``amax / 448`` in f32),
+  ``quantize_affine_float8`` (``clip(x / scale, ±448)`` cast to e4m3; the
+  cast rounds to nearest even, as ml_dtypes' does),
+  ``dequantize_affine_float8``, ``_expand_scale_to_tensor_shape``
 """
 
 from __future__ import annotations
@@ -30,8 +36,13 @@ __all__ = [
     "quantize_affine_tinygemm",
     "dequantize_affine",
     "dequantize_affine_tinygemm",
+    "quantize_affine_no_zero_point",
+    "dequantize_affine_no_zero_point",
     "quantize_activation_per_token_absmax",
     "per_token_block_size",
+    "choose_scale_float8",
+    "quantize_affine_float8",
+    "dequantize_affine_float8",
 ]
 
 
@@ -288,6 +299,20 @@ def quantize_affine_tinygemm(
     return q.reshape(original_shape).to(storage_dtype(output_dtype))
 
 
+def quantize_affine_no_zero_point(
+    input: torch.Tensor,
+    block_size: Sequence[int],
+    scale: torch.Tensor,
+    zero_point: None,
+    output_dtype: Union[str, torch.dtype],
+    quant_min: Optional[int] = None,
+    quant_max: Optional[int] = None,
+) -> torch.Tensor:
+    """NONE zero-point domain: ``q = clamp(round(x * (1 / scale)), qmin, qmax)``."""
+    del zero_point
+    return quantize_affine(input, block_size, scale, None, output_dtype, quant_min, quant_max)
+
+
 def dequantize_affine(
     input: torch.Tensor,
     block_size: Sequence[int],
@@ -305,6 +330,19 @@ def dequantize_affine(
     if zp_v is not None:
         q = q - zp_v.to(output_dtype)
     return (q * scale_v).reshape(original_shape).to(output_dtype)
+
+
+def dequantize_affine_no_zero_point(
+    input: torch.Tensor,
+    block_size: Sequence[int],
+    scale: torch.Tensor,
+    zero_point: None = None,
+    *,
+    output_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """NONE zero-point domain: ``x = q * scale``."""
+    del zero_point
+    return dequantize_affine(input, block_size, scale, None, output_dtype=output_dtype)
 
 
 def dequantize_affine_tinygemm(
@@ -348,3 +386,75 @@ def quantize_activation_per_token_absmax(
     )
     q = quantize_affine(t, block_size, scale, zero_point, "int8", -127, 127)
     return q, scale
+
+
+# ---------------------------------------------------------------------------
+# float8
+# ---------------------------------------------------------------------------
+
+_FLOAT8_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+def _fp8_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    return _FLOAT8_DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def _expand_scale_to_tensor_shape(scale: torch.Tensor, target_shape: Sequence[int]):
+    """Expand a blockwise scale so that it broadcasts against the full
+    tensor shape: blocked axes are repeated, axes of size 1 are left to
+    broadcasting (the JAX package repeats those too; the values are the
+    same, without a tensor-sized copy)."""
+    if tuple(scale.shape) == tuple(target_shape) or scale.numel() == 1:
+        return scale
+    assert scale.ndim == len(target_shape), (scale.shape, target_shape)
+    expanded = scale
+    for i, (t, s) in enumerate(zip(target_shape, scale.shape)):
+        assert t % s == 0, (target_shape, scale.shape)
+        if 1 < s < t:
+            expanded = expanded.repeat_interleave(t // s, dim=i)
+    return expanded
+
+
+def choose_scale_float8(
+    tensor: torch.Tensor,
+    block_size: Sequence[int] = (),
+    float8_dtype: Union[str, torch.dtype] = torch.float8_e4m3fn,
+    hp_value_lb: Optional[float] = None,
+    hp_value_ub: Optional[float] = None,
+) -> torch.Tensor:
+    """Per-tensor (``block_size=()``) or per-block float8 scale
+    ``amax / fp8_max`` in f32, in the blocked shape (tensor shape //
+    block_size), or a 0-d tensor per tensor."""
+    quant_max = float(torch.finfo(_fp8_dtype(float8_dtype)).max)
+    t32 = tensor.float()
+    if len(block_size) == 0:
+        max_abs = t32.abs().amax()
+    else:
+        shape_for_reduction, reduction_dims = get_reduction_params(block_size, tensor.shape)
+        max_abs = t32.reshape(shape_for_reduction).abs().amax(dim=reduction_dims)
+    if hp_value_lb is not None or hp_value_ub is not None:
+        max_abs = torch.clamp(max_abs, hp_value_lb, hp_value_ub)
+    scale = max_abs / quant_max
+    if len(block_size):
+        scale = scale.reshape([t // b for t, b in zip(tensor.shape, block_size)])
+    return scale
+
+
+def quantize_affine_float8(
+    tensor: torch.Tensor,
+    scale: torch.Tensor,
+    float8_dtype: Union[str, torch.dtype] = torch.float8_e4m3fn,
+) -> torch.Tensor:
+    """``clip(x / scale, -fp8_max, fp8_max)`` cast to fp8."""
+    dt = _fp8_dtype(float8_dtype)
+    max_value = float(torch.finfo(dt).max)
+    scale_e = _expand_scale_to_tensor_shape(scale.float(), tensor.shape)
+    return torch.clamp(tensor.float() / scale_e, -max_value, max_value).to(dt)
+
+
+def dequantize_affine_float8(
+    tensor: torch.Tensor, scale: torch.Tensor, output_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """``q.float() * scale``, cast to ``output_dtype``."""
+    scale_e = _expand_scale_to_tensor_shape(scale.float(), tensor.shape)
+    return (tensor.float() * scale_e).to(output_dtype)
