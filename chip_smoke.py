@@ -6,22 +6,29 @@ Phases (each fails loudly; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``torchao_tpu_torch/csrc`` (``nvcc``, sm_90a);
-3. five sections, one per configuration, each on Llama-3-8B at full width
-   and depth (32 layers, random weights from a seeded ``torch.Generator``
-   on the card, quantized through the port's quantize handler, leaf by
-   leaf; each section frees its model before the next):
+3. eight sections, one per configuration, each on Llama-3-8B at full
+   width and depth (32 layers, random weights from a seeded
+   ``torch.Generator`` on the card, quantized through the port's quantize
+   handler, leaf by leaf; each section frees its model before the next):
 
    - int4 weight-only g=32 with the packed-int4 split-flat KV cache;
    - int8 weight-only with the int8 split-flat KV cache;
    - int8 dynamic activations x int8 weights with the bf16 KV cache;
    - float8 weight-only with the bf16 KV cache;
-   - float8 dynamic activations (per row) x float8 weights, bf16 KV cache.
+   - float8 dynamic activations (per row) x float8 weights, bf16 KV cache
+     (the head through K9);
+   - fp6 (e3m2) weight-only in its dual-plane form (K11 at decode; the
+     head's planes and prefill through zero-free K1/K5 and K6), bf16 cache;
+   - fp6 in its packed 6-bit form (K12 at decode; prefill dequantizes and
+     calls ``torch.matmul``), bf16 cache;
+   - 8da4w g=32 (asymmetric int8 activations, centred, through zero-free
+     K1/K5), bf16 cache.
 
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes, with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
-   head's plain-torch route against K8 on it); the main path — prefill 128
+   head's plain-torch route, K8 and the route it takes); the main path — prefill 128
    tokens, decode 128 at batch 1, top-k 200 at temperature 0.6, one warm-up
    and one timed run, the launch counts of the timed run asserted, the
    tokens in range and the logits finite; and a 2-layer slice of the same
@@ -49,7 +56,18 @@ import time
 import torch
 
 from torchao_tpu_torch.kernels import _build
-from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_mixed_matmul_plain
+from torchao_tpu_torch.kernels.fp6_matmul import (
+    fp6_dq_matmul,
+    fp6_dq_matmul_plain,
+    fp6_dual_matmul,
+    fp6_dual_matmul_plain,
+)
+from torchao_tpu_torch.kernels.fp8_matmul import (
+    fp8_mixed_matmul,
+    fp8_mixed_matmul_plain,
+    fp8_rowwise_matmul,
+    fp8_rowwise_matmul_plain,
+)
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul, int4_dq_matmul_plain
 from torchao_tpu_torch.kernels.int8_matmul import (
     int8_scaled_matmul,
@@ -71,15 +89,19 @@ from torchao_tpu_torch.kernels.quantized_attention import (
 from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
-from torchao_tpu_torch.ops.qlinear import linear
+from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
+from torchao_tpu_torch.qtypes.base import QuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
+from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization.granularity import PerRow
 from torchao_tpu_torch.quantization.quant_api import (
     Float8DynamicActivationFloat8WeightConfig,
     Float8WeightOnlyConfig,
+    FPXWeightOnlyConfig,
     Int4WeightOnlyConfig,
+    Int8DynamicActivationInt4WeightConfig,
     Int8DynamicActivationInt8WeightConfig,
     Int8WeightOnlyConfig,
 )
@@ -98,6 +120,7 @@ E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_ag
 
 _QA = "torchao_tpu_torch/csrc/quantized_attention.cu"
 _QMM = "torchao_tpu_torch/csrc/qmatmul.cu"
+_FP6 = "torchao_tpu_torch/csrc/fp6_matmul.cu"
 KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "int4_dq_matmul_gemv": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                             "torchao_tpu/kernels/int4_matmul.py:877"),
@@ -120,6 +143,14 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "fp8_mixed_matmul_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
     "fp8_mixed_matmul_e4m3_gemv": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
     "fp8_mixed_matmul_e4m3_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp8_rowwise_matmul_gemv": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:79"),
+    "fp8_rowwise_matmul_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:79"),
+    "fp6_dual_matmul": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:428"),
+    "fp6_dq_matmul": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:189"),
+    "int4_dq_matmul_zero_free_gemv": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                      "torchao_tpu/kernels/int4_matmul.py:877"),
+    "int4_dq_matmul_zero_free_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                       "torchao_tpu/kernels/int4_matmul.py:723"),
 }
 
 
@@ -227,34 +258,25 @@ def _weights(params):
             ("output", params["output"]["weight"], None)]
 
 
+FORMS = (("gemv", 1), ("tiled", PROMPT))  # decode and prefill
+
+
+def _int4_call(x, w, l):
+    """K1/K5 on an int4 weight, with its zero or zero-free (fp6's A plane,
+    the 8da4w weight)."""
+    N, K = w.shape[-2:]
+    M, g = x.shape[0], w.block_size[-1]
+    args = (x, w.qdata, w.scale, w.zero_point)
+    kw = dict(group_size=g, layer_idx=l, xored=True)
+    qparams = (1 if w.zero_point is None else 2) * (K // g) * N * 2
+    return (lambda: int4_dq_matmul(*args, **kw), lambda: int4_dq_matmul_plain(*args, **kw),
+            K // 2 * N + qparams + M * K * 2 + M * N * 2, 2 * M * N * K)
+
+
 def check_int4(params, args, gen):
     """K1 (M=1, decode) and K5 (M=128, prefill) on the model's own weights."""
-    L = args.n_layer
-    rows = []
-    for name, M in (("int4_dq_matmul_gemv", 1), ("int4_dq_matmul_tiled", PROMPT)):
-        t = Tally(name, f"one {'decode step' if M == 1 else 'prefill'}: "
-                        f"{L} x (wqkv, wo, w13, w2) + output head at M={M}")
-        for wname, w, l in _weights(params):
-            N, K = w.shape[-2:]
-            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-            a = (x, w.qdata, w.scale, w.zero_point)
-            kw = dict(group_size=GROUP, layer_idx=l, xored=True)
-            got = int4_dq_matmul(*a, **kw)
-            want = int4_dq_matmul_plain(*a, **kw)
-            err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want)
-            wl = w.take_layer(l) if l is not None else w
-            wd = wl.dequantize(torch.bfloat16).T.contiguous()  # [K, N] bf16, for the library call
-            ms = time_ms(lambda: int4_dq_matmul(*a, **kw))
-            plain_ms = time_ms(lambda: int4_dq_matmul_plain(*a, **kw))
-            lib_ms = time_ms(lambda: torch.matmul(x, wd))
-            del wd
-            nbytes = K // 2 * N + 2 * (K // GROUP) * N * 2 + M * K * 2 + M * N * 2
-            b, by = bound(nbytes, 2 * M * K * N)
-            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={b:.4f} ({by})")
-            t.add(L if l is not None else 1, ms, plain_ms, nbytes, 2 * M * K * N, err, lib_ms)
-        rows.append(t)
-    return rows
+    return [check_shapes(f"int4_dq_matmul_{form}", _cases(params, args.n_layer, True), M,
+                         _int4_call, gen) for form, M in FORMS]
 
 
 def _stacked_scale(w, l, N):
@@ -266,7 +288,7 @@ def _int8wo_call(x, w, l):
     a, kw = (x, w.qdata, _stacked_scale(w, l, N)), dict(layer_idx=l)
     M = x.shape[0]
     return (lambda: int8wo_mixed_matmul(*a, **kw), lambda: int8wo_mixed_matmul_plain(*a, **kw),
-            N * K + N * 2 + M * K * 2 + M * N * 2)
+            N * K + N * 2 + M * K * 2 + M * N * 2, 2 * M * N * K)
 
 
 def _int8dq_call(x, w, l):
@@ -277,7 +299,7 @@ def _int8dq_call(x, w, l):
     kw = dict(layer_idx=l)
     M = x.shape[0]
     return (lambda: int8_scaled_matmul(*a, **kw), lambda: int8_scaled_matmul_plain(*a, **kw),
-            N * K + N * 2 + M * K + M * 2 + M * N * 2)
+            N * K + N * 2 + M * K + M * 2 + M * N * 2, 2 * M * N * K)
 
 
 def _fp8_call(x, w, l):
@@ -291,52 +313,32 @@ def _fp8_call(x, w, l):
         a, nx = (x_q, w.qdata, ws, xs.reshape(-1), torch.bfloat16), M * K + M * 4
     kw = dict(layer_idx=l)
     return (lambda: fp8_mixed_matmul(*a, **kw), lambda: fp8_mixed_matmul_plain(*a, **kw),
-            N * K + N * 4 + nx + M * N * 2)
+            N * K + N * 4 + nx + M * N * 2, 2 * M * N * K)
 
 
 def check_qmm(name, params, args, gen, call, peak, head):
     """K6 / K7 / K8 at M=1 (gemv, decode) and M=128 (tiled, prefill) on
-    layer 0 of each stacked weight (and the head where the kernel runs it),
-    against its plain version; ``call(x, w, layer)`` gives the kernel call,
-    the plain call and the bytes the function must move."""
-    L = args.n_layer
-    shapes = [s for s in _weights(params) if head or s[2] is not None]
-    rows = []
-    for form, M in (("gemv", 1), ("tiled", PROMPT)):
-        t = Tally(f"{name}_{form}", f"one {'decode step' if M == 1 else 'prefill'}: "
-                  f"{L} x (wqkv, wo, w13, w2){' + output head' if head else ''} at M={M}",
-                  peak)
-        for wname, w, l in shapes:
-            N, K = w.shape[-2:]
-            x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-            kernel, plain, nbytes = call(x, w, l)
-            err = compare(f"{t.name} {wname} M={M} N={N} K={K}", kernel(), plain())
-            wl = w.take_layer(l) if l is not None else w
-            wd = wl.dequantize(torch.bfloat16).T.contiguous()  # [K, N] bf16, for the library call
-            ms, plain_ms = time_ms(kernel), time_ms(plain)
-            lib_ms = time_ms(lambda: torch.matmul(x, wd))
-            del wd
-            b, by = bound(nbytes, 2 * M * K * N, peak)
-            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={b:.4f} ({by})")
-            t.add(L if l is not None else 1, ms, plain_ms, nbytes, 2 * M * K * N, err, lib_ms)
-        rows.append(t)
-    return rows
+    layer 0 of each stacked weight (and the head where the kernel runs
+    it), against its plain version."""
+    return [check_shapes(f"{name}_{form}", _cases(params, args.n_layer, head), M, call, gen,
+                         peak) for form, M in FORMS]
 
 
 def time_fp8_head(params, gen):
-    """The unstacked fp8 head: the route the port takes (plain torch, the
-    JAX package's default) against K8 on the same weight, at M=1 and
-    M=128, for the open head decision (ROADMAP Queue B). Returns ms."""
+    """The unstacked fp8 head: the plain-torch route (the JAX package's
+    default), K8 on the same weight and the route the port takes (plain
+    torch for float8wo, K9 for float8dq-row), at M=1 and M=128. Returns
+    ms."""
     w = params["output"]["weight"]
     N, K = w.shape
     out = {}
     for M in (1, PROMPT):
         x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-        kernel, _, _ = _fp8_call(x, dataclasses.replace(
-            w, qdata=w.qdata[None], scale=w.scale[None]), 0)
-        out[f"head_plain_torch_ms_M{M}"] = time_ms(lambda: linear(x, w))
+        kernel = _fp8_call(x, dataclasses.replace(
+            w, qdata=w.qdata[None], scale=w.scale[None]), 0)[0]
+        out[f"head_plain_torch_ms_M{M}"] = time_ms(lambda: _fp8_head(x, w))
         out[f"head_k8_ms_M{M}"] = time_ms(kernel)
+        out[f"head_route_ms_M{M}"] = time_ms(lambda: linear(x, w))
     log(f"  fp8 head [{N}, {K}]: " + ", ".join(f"{k}={v:.4f}" for k, v in out.items()))
     return out
 
@@ -465,6 +467,134 @@ def check_prefill_attention(args, gen, int8=False):
     return t
 
 
+# ------------------------------------------------------------ slice 3 --
+
+
+def _fp6_dual_call(x, w, l):
+    a, b = w.a_plane, w.b_plane
+    N, K = w.shape[-2:]
+    M = x.shape[0]
+    args, kw = (x, a.qdata, b.qdata, a.scale[..., 0, :]), dict(layer_idx=l)
+    return (lambda: fp6_dual_matmul(*args, **kw), lambda: fp6_dual_matmul_plain(*args, **kw),
+            K // 2 * N + N * K + N * 2 + M * K * 2 + M * N * 2, 4 * M * N * K)
+
+
+def _fp6_packed_call(x, w, l):
+    N, K = w.shape[-2:]
+    M = x.shape[0]
+    args, kw = (x, w.qdata, w.qdata2, w.scale), dict(layer_idx=l)
+    return (lambda: fp6_dq_matmul(*args, **kw), lambda: fp6_dq_matmul_plain(*args, **kw),
+            K // 2 * N + K // 4 * N + N * 2 + M * K * 2 + M * N * 2, 2 * M * N * K)
+
+
+def _fp8_row_call(x, w, l):
+    N, K = w.shape
+    M = x.shape[0]
+    x_q, xs = quantize_activation_float8(x, w.act_quant_spec)
+    args = (x_q, w.qdata, xs.reshape(-1), w.scale.reshape(-1))
+    return (lambda: fp8_rowwise_matmul(*args), lambda: fp8_rowwise_matmul_plain(*args),
+            N * K + N * 4 + M * K + M * 4 + M * N * 2, 2 * M * N * K)
+
+
+def _fp8_row_library(x, w, l):
+    """``torch._scaled_mm`` with row-wise scales on K9's inputs, where this
+    PyTorch takes them at this shape (it asks for dimensions divisible by
+    16); otherwise None and the bf16 matmul stands in."""
+    x_q, xs = quantize_activation_float8(x, w.act_quant_spec)
+    call = lambda: torch._scaled_mm(x_q, w.qdata.t(), scale_a=xs.reshape(-1, 1).float(),
+                                    scale_b=w.scale.reshape(1, -1).float(),
+                                    out_dtype=torch.bfloat16)
+    try:
+        call()
+    except Exception as e:  # the yardstick only: the port never calls it
+        log(f"    torch._scaled_mm declines M={x.shape[0]}: {str(e).splitlines()[0][:120]}")
+        return None
+    return call
+
+
+def _centred(x):
+    """The 8da4w route's input to K1/K5: per-token asymmetric int8 codes
+    minus their zero point, in bf16 (exact)."""
+    q, _, zp = _int8_per_token_asym(x)
+    return (q.to(torch.int32) - zp.to(torch.int32).reshape(-1, 1)).bfloat16()
+
+
+def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None):
+    """One kernel form at M on each (weight name, weight, layer, launches per
+    forward) of ``cases``, against its plain version. ``call(x, w, layer)``
+    gives the kernel call, the plain call, the bytes the function must move
+    and its operations; the library call is ``library(x, w, layer)``'s, or
+    a bf16 ``torch.matmul`` on the dequantized weight."""
+    t = Tally(name, f"one {'decode step' if M <= 16 else 'prefill'} at M={M}: "
+              + ", ".join(f"{n} x{c}" for n, _, _, c in cases), peak)
+    for wname, w, l, count in cases:
+        N, K = w.shape[-2:]
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        if make_x is not None:
+            x = make_x(x)
+        kernel, plain, nbytes, flops = call(x, w, l)
+        err = compare(f"{name} {wname} M={M} N={N} K={K}", kernel(), plain())
+        lib = library(x, w, l) if library is not None else None
+        if lib is None:
+            wl = w.take_layer(l) if l is not None else w
+            wd = wl.dequantize(torch.bfloat16).T.contiguous()  # [K, N] bf16
+            lib = lambda: torch.matmul(x, wd)
+        ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(lib)
+        del lib
+        b, by = bound(nbytes, flops, peak)
+        log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b:.4f} ({by})")
+        t.add(count, ms, plain_ms, nbytes, flops, err, lib_ms)
+    return t
+
+
+def _cases(params, L, head, pick=lambda w: w):
+    """(name, weight, layer, launches per forward): layer 0 of each stacked
+    weight, and the head if ``head``."""
+    return [(n, pick(w), l, L if l is not None else 1) for n, w, l in _weights(params)
+            if head or l is not None]
+
+
+def _fp6_kernels(params, args, gen):
+    """K11 on every stacked weight at M=1; the head's planes at M=1 (K1
+    zero-free, g=128, and K6); at M=128 every A plane (K5 zero-free) and B
+    plane (K6)."""
+    L = args.n_layer
+    a_planes = _cases(params, L, True, lambda w: w.a_plane)
+    b_planes = _cases(params, L, True, lambda w: w.b_plane)
+    return [
+        check_shapes("fp6_dual_matmul", _cases(params, L, False), 1, _fp6_dual_call, gen),
+        check_shapes("int4_dq_matmul_zero_free_gemv", a_planes[-1:], 1, _int4_call, gen),
+        check_shapes("int8wo_mixed_matmul_gemv", b_planes[-1:], 1, _int8wo_call, gen),
+        check_shapes("int4_dq_matmul_zero_free_tiled", a_planes, PROMPT, _int4_call, gen),
+        check_shapes("int8wo_mixed_matmul_tiled", b_planes, PROMPT, _int8wo_call, gen),
+    ]
+
+
+def _fp6_packed_kernels(params, args, gen):
+    """K12 on every stacked weight and the head at M=1."""
+    return [check_shapes("fp6_dq_matmul", _cases(params, args.n_layer, True), 1,
+                         _fp6_packed_call, gen)]
+
+
+def _8da4w_kernels(params, args, gen):
+    """Zero-free K1 (M=1) and K5 (M=128), g=32, on centred int8
+    activations, every stacked weight and the head."""
+    cases = _cases(params, args.n_layer, True, lambda w: w.original_weight)
+    return [check_shapes(f"int4_dq_matmul_zero_free_{form}", cases, M, _int4_call, gen,
+                         make_x=_centred) for form, M in FORMS]
+
+
+def _float8dq_row_kernels(params, args, gen):
+    """K8 (e4m3 x) on the layers, and K9 on the head at M=1 and M=128."""
+    tallies = check_qmm("fp8_mixed_matmul_e4m3", params, args, gen, _fp8_call, INT8_FP8_OPS,
+                        False)
+    head = _cases(params, args.n_layer, True)[-1:]
+    tallies += [check_shapes(f"fp8_rowwise_matmul_{form}", head, M, _fp8_row_call, gen,
+                             INT8_FP8_OPS, library=_fp8_row_library) for form, M in FORMS]
+    return tallies
+
+
 # ---------------------------------------------------------- the model --
 
 
@@ -473,13 +603,14 @@ def first_layers(tree, n):
     def cut(v):
         if isinstance(v, LinearActivationQuantizedArray):
             return dataclasses.replace(v, original_weight=cut(v.original_weight))
-        if isinstance(v, IntxArray):
-            zp = None if v.zero_point is None else v.zero_point[:n]
-            return dataclasses.replace(
-                v, qdata=v.qdata[:n], scale=v.scale[:n], zero_point=zp,
-                logical_shape=(n,) + tuple(v.logical_shape[1:]))
-        if isinstance(v, Float8Array):
-            return dataclasses.replace(v, qdata=v.qdata[:n], scale=v.scale[:n])
+        if isinstance(v, Fp6DualArray):
+            return dataclasses.replace(v, a_plane=cut(v.a_plane), b_plane=cut(v.b_plane),
+                                       logical_shape=(n,) + tuple(v.logical_shape[1:]))
+        if isinstance(v, QuantizedArray):
+            kw = {f: getattr(v, f)[:n] for f in v._tensor_fields if getattr(v, f) is not None}
+            if hasattr(v, "logical_shape"):
+                kw["logical_shape"] = (n,) + tuple(v.logical_shape[1:])
+            return dataclasses.replace(v, **kw)
         if isinstance(v, dict):
             return {k: cut(x) for k, x in v.items()}
         return v[:n]
@@ -494,7 +625,11 @@ def to_device(tree, device, dtype=None):
     if isinstance(tree, LinearActivationQuantizedArray):
         return dataclasses.replace(tree, original_weight=to_device(tree.original_weight,
                                                                    device, dtype))
-    if isinstance(tree, (IntxArray, Float8Array)):
+    if isinstance(tree, Fp6DualArray):
+        return dataclasses.replace(tree, a_plane=to_device(tree.a_plane, device, dtype),
+                                   b_plane=to_device(tree.b_plane, device, dtype),
+                                   activation_dtype=dtype or tree.activation_dtype)
+    if isinstance(tree, (IntxArray, Float8Array, FloatxArray)):
         tree = tree.to(device)
         if dtype is None:
             return tree
@@ -594,9 +729,20 @@ SECTIONS = {
                                            BF16_FLOPS, False),
                  _want_matmul_only("fp8_mixed_matmul", lambda L: 4 * L)),
     "float8dq-row": (Float8DynamicActivationFloat8WeightConfig(granularity=PerRow()), False,
-                     lambda p, a, g: check_qmm("fp8_mixed_matmul_e4m3", p, a, g, _fp8_call,
-                                               INT8_FP8_OPS, False),
-                     _want_matmul_only("fp8_mixed_matmul_e4m3", lambda L: 4 * L)),
+                     _float8dq_row_kernels,
+                     lambda L: {**_want_matmul_only("fp8_mixed_matmul_e4m3", lambda L: 4 * L)(L),
+                                **_want_matmul_only("fp8_rowwise_matmul", lambda L: 1)(L)}),
+    "fp6": (FPXWeightOnlyConfig(ebits=3, mbits=2), False, _fp6_kernels,
+            lambda L: {"fp6_dual_matmul": 4 * L * DECODE,
+                       # the head's two planes at decode, every plane at prefill
+                       "int4_dq_matmul_zero_free_gemv": DECODE, "int8wo_mixed_matmul_gemv": DECODE,
+                       "int4_dq_matmul_zero_free_tiled": 4 * L + 1,
+                       "int8wo_mixed_matmul_tiled": 4 * L + 1}),
+    "fp6-packed": (FPXWeightOnlyConfig(ebits=3, mbits=2, runtime="packed"), False,
+                   _fp6_packed_kernels, lambda L: {"fp6_dq_matmul": (4 * L + 1) * DECODE}),
+    f"8da4w-{GROUP}": (Int8DynamicActivationInt4WeightConfig(group_size=GROUP), False,
+                       _8da4w_kernels,
+                       _want_matmul_only("int4_dq_matmul_zero_free", lambda L: 4 * L + 1)),
 }
 
 
@@ -661,7 +807,7 @@ def run_section(name, gen):
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    return [t.row(counts[t.name]) for t in tallies], e2e
+    return [{**t.row(counts[t.name]), "section": name} for t in tallies], e2e
 
 
 def main() -> int:

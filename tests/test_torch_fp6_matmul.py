@@ -1,0 +1,134 @@
+"""K11 and K12: the port's fp6 matmuls (plain versions on the CPU) against
+the JAX package's ``fp6_dual_matmul`` and ``fp6_dq_matmul`` (Pallas,
+interpret mode on the CPU), stacked with ``layer_idx`` and unstacked, at
+M in {1, 8, 16}; and the fp6 routes of ``ops.linear``.
+
+The weights are the JAX package's fp6 quantization of ``N(0, 1/K)`` values
+(the model's init scale; ``FloatxArray.from_hp``, then ``to_dual_planes``
+for K11), carried over byte for byte, and x is ``N(0, 1)``, so outputs are
+O(1). Tolerances: bf16 outputs SQNR >= 40 dB (the two sides sum in
+another order and round once to bf16); float32 outputs ``rtol=atol=1e-5``
+(K12 with float32 x; K11's JAX kernel takes bf16 x, so it is held in bf16).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_quant import jax_to_numpy
+from torchao_tpu.kernels.fp6_matmul import fp6_dq_matmul as j_fp6
+from torchao_tpu.kernels.fp6_matmul import fp6_dual_matmul as j_dual
+from torchao_tpu.qtypes.floatx import FloatxArray as JFloatx
+from torchao_tpu_torch.convert import params_from_jax_numpy
+from torchao_tpu_torch.kernels.fp6_matmul import (
+    fp6_dq_matmul,
+    fp6_dq_matmul_plain,
+    fp6_dual_matmul,
+    fp6_dual_supported,
+    fp6_dq_supported,
+)
+from torchao_tpu_torch.utils import compute_error
+
+L, N, K = 2, 256, 1024
+
+
+def _packed(seed, dtype=jnp.bfloat16):
+    """A stacked [L, N, K] fp6 weight, quantized by the JAX package."""
+    w = (np.random.RandomState(seed).randn(L, N, K) / np.sqrt(K)).astype(np.float32)
+    jw = JFloatx.from_hp(jnp.asarray(w, dtype), 3, 2)
+    return jw, params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+
+
+def _x(M, seed):
+    return np.random.RandomState(seed).randn(M, K).astype(np.float32)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_fp6_dual_plain_matches_jax_kernel(M, stacked):
+    jw, tw = _packed(seed=M)
+    ja, jb = jw.to_dual_planes(), tw.to_dual_planes()
+    x = _x(M, seed=100 + M)
+    l = 1 if stacked else None
+    ja_args = (ja.a_plane.qdata, ja.b_plane.qdata, ja.a_plane.scale[..., :1, :])
+    tb_args = (jb.a_plane.qdata, jb.b_plane.qdata, jb.a_plane.scale[..., 0, :])
+    if not stacked:
+        ja_args = tuple(a[1] for a in ja_args)
+        tb_args = tuple(a[1] for a in tb_args)
+    want = j_dual(jnp.asarray(x, jnp.bfloat16), *ja_args, layer_idx=l, interpret=True)
+    got = fp6_dual_matmul(torch.from_numpy(x).bfloat16(), *tb_args, layer_idx=l)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert compute_error(torch.from_numpy(np.asarray(want.astype(jnp.float32))), got) >= 40
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fp6_dq_plain_matches_jax_kernel(M, stacked, dtype):
+    jw, tw = _packed(seed=10 + M)
+    x = _x(M, seed=200 + M)
+    l = 1 if stacked else None
+    jargs = (jw.qdata, jw.qdata2, jw.scale)
+    targs = (tw.qdata, tw.qdata2, tw.scale)
+    if not stacked:
+        jargs, targs = tuple(a[1] for a in jargs), tuple(a[1] for a in targs)
+    want = j_fp6(jnp.asarray(x, getattr(jnp, dtype)), *jargs, layer_idx=l, interpret=True)
+    got = fp6_dq_matmul(torch.from_numpy(x).to(getattr(torch, dtype)), *targs, layer_idx=l)
+    assert got.shape == (M, N) and got.dtype == getattr(torch, dtype)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        assert compute_error(torch.from_numpy(want), got) >= 40
+
+
+def test_fp6_dq_plain_equals_dequantized_matmul():
+    """In float32 the plain K12 is the dequantize-then-matmul (exact fp6
+    values, power-of-two scales)."""
+    _, tw = _packed(seed=3, dtype=jnp.float32)
+    x = torch.from_numpy(_x(4, seed=4))
+    got = fp6_dq_matmul_plain(x, tw.qdata, tw.qdata2, tw.scale, layer_idx=0)
+    want = x.double() @ tw.take_layer(0).dequantize(torch.float32).double().T
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_guards_follow_the_jax_package():
+    """K11 and K12 take M <= 16 on aligned shapes, as the JAX probes do."""
+    from torchao_tpu.kernels.fp6_matmul import fp6_dq_matmul_available, fp6_dual_matmul_available
+
+    for (n, k) in ((256, 1024), (256, 512), (192, 1024), (256, 768)):
+        w = jnp.asarray(np.random.RandomState(n + k).randn(2, n, k), jnp.bfloat16)
+        packed = JFloatx.from_hp(w, 3, 2)
+        dual = packed.to_dual_planes()
+        for m in (1, 16, 17):
+            x = jnp.ones((m, k), jnp.bfloat16)
+            assert fp6_dq_supported(m, k, n) == (
+                fp6_dq_matmul_available(x, packed, layer_idx=0) is not None), (m, n, k)
+            assert fp6_dual_supported(m, k, n) == (
+                fp6_dual_matmul_available(x, dual, layer_idx=0) is not None), (m, n, k)
+
+
+@pytest.mark.parametrize("runtime", ["dual", "packed"])
+@pytest.mark.parametrize("M", [1, 32])
+def test_linear_fp6_routes_match_jax(runtime, M):
+    """``ops.linear`` on a stacked and an unstacked fp6 weight against the
+    JAX package's ``ops.linear`` (its CPU route) on the same weight; M = 32
+    takes the planes (dual) or dequantize + matmul (packed)."""
+    from torchao_tpu import ops as jops
+    from torchao_tpu.quantization.quant_api import FPXWeightOnlyConfig as JCfg
+    from torchao_tpu.quantization.transform_module import get_quantize_handler
+    from torchao_tpu_torch.ops.qlinear import linear
+
+    w = jnp.asarray(np.random.RandomState(M).randn(L, N, K) * 0.05, jnp.bfloat16)
+    cfg = JCfg(runtime=runtime)
+    jw = get_quantize_handler(cfg)(w, cfg)
+    tw = params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+    x = _x(M, seed=300 + M)
+    for l, jl, tl in ((1, jw.take_layer(1), tw), (None, jw.take_layer(0), tw.take_layer(0))):
+        want = jops.linear(jnp.asarray(x, jnp.bfloat16), jl)
+        got = linear(torch.from_numpy(x).bfloat16(), tl, layer_idx=l)
+        assert got.shape == (M, N)
+        assert compute_error(torch.from_numpy(np.asarray(want.astype(jnp.float32))), got) >= 40
+    jax.clear_caches()

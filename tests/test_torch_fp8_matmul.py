@@ -5,6 +5,7 @@ stacked with ``layer_idx`` and unstacked, at M in {1, 16, 128}; K = 1536 is
 not a multiple of the default K block. ``rtol=2e-2, atol=1e-3``, as
 tests/test_kernels.py holds the JAX kernel to its oracle."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,3 +50,66 @@ def test_fp8_mixed_matmul_matches_jax_kernel(M, K, x_kind, w_scale):
         assert got.shape == (M, N) and got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
                                    rtol=2e-2, atol=1e-3)
+
+
+# ----------------------------------------------------- K9 (slice 3) --
+
+
+@pytest.mark.parametrize("M", [1, 32, 128])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_fp8_rowwise_matmul_matches_jax_kernel(M, out_dtype):
+    """K9 against the JAX package's ``fp8_rowwise_matmul`` (interpret mode),
+    unstacked e4m3 x and w with f32 per-row scales, as tests/test_kernels.py
+    calls it. bf16 out: SQNR >= 40 dB; float32 out: ``rtol=atol=1e-5``."""
+    from torchao_tpu.kernels.fp8_matmul import fp8_rowwise_matmul as j_row
+    from torchao_tpu_torch.kernels.fp8_matmul import fp8_rowwise_matmul
+    from torchao_tpu_torch.utils import compute_error
+
+    rs = np.random.RandomState(M)
+    K = 512
+    xj, xt = _e4m3(rs, (M, K))
+    wj, wt = _e4m3(rs, (N, K))
+    xs = (rs.rand(M) * 0.02 + 0.001).astype(np.float32)
+    ws = (rs.rand(N) * 0.02 + 0.001).astype(np.float32)
+    odt = getattr(jnp, out_dtype)
+    want = np.asarray(j_row(xj, wj, jnp.asarray(xs), jnp.asarray(ws), odt, bn=128, bk=256,
+                            interpret=True).astype(jnp.float32))
+    got = fp8_rowwise_matmul(xt, wt, torch.from_numpy(xs), torch.from_numpy(ws),
+                             getattr(torch, out_dtype))
+    assert got.shape == (M, N) and got.dtype == getattr(torch, out_dtype)
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        assert compute_error(torch.from_numpy(want), got) >= 40
+
+
+def test_float8dq_row_head_takes_k9():
+    """``ops.linear`` on an unstacked float8dq-row weight (the head) routes
+    to K9 with per-row e4m3 activations, equal to the JAX package's XLA head
+    route on the CPU (the same f32 math)."""
+    from torchao_tpu import ops as jops
+    from torchao_tpu.quantization.granularity import PerRow as JPerRow
+    from torchao_tpu.quantization.quant_api import Float8DynamicActivationFloat8WeightConfig as J
+    from torchao_tpu.quantization.quant_api import quantize_ as jquantize
+    from torchao_tpu_torch.convert import params_from_jax_numpy
+    from torchao_tpu_torch.kernels import fp8_matmul
+    from torchao_tpu_torch.ops import qlinear
+    from test_torch_quant import jax_to_numpy
+
+    rs = np.random.RandomState(21)
+    w = jnp.asarray(rs.randn(256, 512) * 0.05, jnp.float32)
+    jw = jquantize({"w": w}, J(granularity=JPerRow()), lambda p, l: True)["w"]
+    tw = params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+    x = rs.randn(3, 512).astype(np.float32)
+    assert qlinear._is_fp8_row_head(tw, None) and not qlinear._is_fp8_row_head(tw, 0)
+    calls = []
+    real = qlinear.fp8_rowwise_matmul
+    qlinear.fp8_rowwise_matmul = lambda *a: calls.append(a) or real(*a)
+    try:
+        got = qlinear.linear(torch.from_numpy(x), tw)
+    finally:
+        qlinear.fp8_rowwise_matmul = real
+    assert len(calls) == 1 and calls[0][0].dtype == torch.float8_e4m3fn
+    assert fp8_matmul.fp8_rowwise_matmul is real
+    want = jax.jit(jops.linear)(jnp.asarray(x), jw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -89,3 +89,95 @@ def test_linear_routes_stacked_int4_weight():
     assert out.shape == (3, 5, 64)
     want = x @ qw.take_layer(1).dequantize(torch.float32).T
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------- zero-free form (slice 3) --
+
+
+def _zero_free_inputs(M, g, seed):
+    """A symmetric TILED int4 weight (the 8da4w handler's: codes −8..7 stored
+    as q + 8, no zero point) and activations."""
+    from torchao_tpu.quantization.quant_api import Int8DynamicActivationInt4WeightConfig as JCfg
+    from torchao_tpu.quantization.transform_module import get_quantize_handler
+
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(M, 2048) * 0.5).astype(np.float32)
+    w = jnp.asarray(rs.randn(L, N, 2048) / np.sqrt(2048), jnp.bfloat16)
+    inner = get_quantize_handler(JCfg(g))(w, JCfg(g)).original_weight
+    assert inner.zero_point is None and inner.nibbles_xored
+    return x, np.asarray(inner.qdata), np.asarray(inner.scale.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("M", [1, 16, 128])
+def test_zero_free_plain_matches_jax_kernel(g, M):
+    """``zero=None`` (z = 0, mid = 8) against the JAX kernel fed the zeros
+    that its dispatch makes for a symmetric weight."""
+    x, wp, scale = _zero_free_inputs(M, g, seed=g + M)
+    want = j_int4(_jax(x), jnp.asarray(wp), _jax(scale), jnp.zeros(scale.shape, jnp.bfloat16),
+                  group_size=g, xored=True, layer_idx=2, interpret=True)
+    got = int4_dq_matmul(_torch(x), torch.from_numpy(wp), _torch(scale), None, group_size=g,
+                         layer_idx=2, xored=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    with_zero = int4_dq_matmul_plain(_torch(x), torch.from_numpy(wp), _torch(scale),
+                                     torch.zeros(scale.shape, dtype=torch.bfloat16),
+                                     group_size=g, layer_idx=2, xored=True)
+    assert torch.equal(got, with_zero)
+
+
+@pytest.mark.parametrize("act", ["ASYMMETRIC", "SYMMETRIC"])
+def test_8da4w_centred_route_matches_jax_pallas_route(act):
+    """``ops.linear`` on an 8da4w weight (centred int8 activations through
+    the zero-free int4 plain version, per-token scale after) against the JAX
+    package's ``ops.linear`` with ``KernelPreference.PALLAS`` (the same
+    centred route through its int4 kernel in interpret mode), both
+    activation mappings, unstacked and stacked. Both feed bf16 centred
+    codes and round the int4 output to bf16: SQNR >= 40 dB."""
+    from torchao_tpu import ops as jops
+    from torchao_tpu.qtypes.base import KernelPreference
+    from torchao_tpu.quantization.quant_api import Int8DynamicActivationInt4WeightConfig as JCfg
+    from torchao_tpu.quantization.quant_api import quantize_ as jquantize
+    from torchao_tpu.quantization.quant_primitives import MappingType
+    from torchao_tpu_torch.convert import params_from_jax_numpy
+    from torchao_tpu_torch.ops.qlinear import linear
+    from torchao_tpu_torch.utils import compute_error
+    from test_torch_quant import jax_to_numpy
+
+    rs = np.random.RandomState(13)
+    w = jnp.asarray(rs.randn(2, 128, 512) * 0.1, jnp.bfloat16)
+    x = rs.randn(4, 512).astype(np.float32)
+    cfg = JCfg(group_size=32, act_mapping_type=getattr(MappingType, act))
+    jw = jquantize({"w": w}, cfg, filter_fn=lambda p, l: True)["w"]
+    tw = params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+    want = jops.linear(jnp.asarray(x, jnp.bfloat16), jw.take_layer(1),
+                       kernel_preference=KernelPreference.PALLAS)
+    for got in (linear(torch.from_numpy(x).bfloat16(), tw, layer_idx=1),
+                linear(torch.from_numpy(x).bfloat16(), tw.take_layer(1))):
+        assert got.shape == (4, 128) and got.dtype == torch.bfloat16
+        err = compute_error(torch.from_numpy(np.asarray(want.astype(jnp.float32))), got)
+        assert err >= 40, (act, err)
+
+
+def test_plain_8da4w_weight_quantizes_activations_on_the_cpu():
+    """An 8da4w weight that cannot pack TILED (K/2 % max(8g, 128) != 0)
+    stays PLAIN; on the CPU it takes the JAX package's generic route,
+    activations quantized and dequantized, then the inner weight, equal to
+    the JAX package's CPU route in float32."""
+    from torchao_tpu import ops as jops
+    from torchao_tpu.quantization.quant_api import Int8DynamicActivationInt4WeightConfig as JCfg
+    from torchao_tpu.quantization.quant_api import quantize_ as jquantize
+    from torchao_tpu_torch.convert import params_from_jax_numpy
+    from torchao_tpu_torch.ops.qlinear import linear
+    from test_torch_quant import jax_to_numpy
+
+    rs = np.random.RandomState(14)
+    w = jnp.asarray(rs.randn(64, 128) * 0.1, jnp.float32)
+    x = rs.randn(3, 128).astype(np.float32)
+    jw = jquantize({"w": w}, JCfg(group_size=32), filter_fn=lambda p, l: True)["w"]
+    tw = params_from_jax_numpy({"w": jax_to_numpy(jw)}, device="cpu")["w"]
+    assert tw.original_weight.packing_format.value == "plain"
+    want = np.asarray(jops.linear(jnp.asarray(x), jw))
+    np.testing.assert_allclose(linear(torch.from_numpy(x), tw).numpy(), want, rtol=1e-5,
+                               atol=1e-5)

@@ -17,7 +17,18 @@ import pytest
 import torch
 
 from torchao_tpu_torch.kernels import _build
-from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_mixed_matmul_plain
+from torchao_tpu_torch.kernels.fp6_matmul import (
+    fp6_dq_matmul,
+    fp6_dq_matmul_plain,
+    fp6_dual_matmul,
+    fp6_dual_matmul_plain,
+)
+from torchao_tpu_torch.kernels.fp8_matmul import (
+    fp8_mixed_matmul,
+    fp8_mixed_matmul_plain,
+    fp8_rowwise_matmul,
+    fp8_rowwise_matmul_plain,
+)
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul, int4_dq_matmul_plain
 from torchao_tpu_torch.kernels.int8_matmul import (
     int8_scaled_matmul,
@@ -83,6 +94,16 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
         int8_scaled_matmul(x.to(torch.int8), w8, s[:1], s)
     with pytest.raises(ValueError, match="unsupported device"):
         fp8_mixed_matmul(x, w8.to(torch.float8_e4m3fn), s.float())
+    u8 = lambda *shape: torch.empty(shape, dtype=torch.uint8, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):  # the zero-free form
+        int4_dq_matmul(x, u8(32, 16), s[:2, None].expand(2, 16), None, group_size=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fp6_dual_matmul(x, u8(32, 16), w8, s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fp6_dq_matmul(x, u8(32, 16), u8(16, 16), s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fp8_rowwise_matmul(x.to(torch.float8_e4m3fn), w8.to(torch.float8_e4m3fn), s[:1].float(),
+                           s.float())
 
 
 # --------------------------------------------------------------- on a card --
@@ -265,3 +286,71 @@ def test_int8_kv_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ slice 3 on a card --
+
+
+def _sqnr_ok(got, want, db=40.0):
+    from torchao_tpu_torch.utils import compute_error
+
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert compute_error(want, got) >= db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("M", [1, 4, 128])
+def test_zero_free_int4_kernel_matches_plain(cuda, g, M):
+    """K1 (M = 1, 4) and K5 (M = 128) with ``zero=None``: z = 0, mid = 8."""
+    gen = torch.Generator(device=cuda).manual_seed(M + g)
+    L, K, N = 2, 2048, 4096 + 16
+    wp, scale, _ = _int4_weight(gen, L, K, N, g, cuda)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    got = int4_dq_matmul(x, wp, scale, None, group_size=g, layer_idx=1, xored=True)
+    want = int4_dq_matmul_plain(x, wp, scale, None, group_size=g, layer_idx=1, xored=True)
+    _sqnr_ok(got, want)
+
+
+def _fp6_weight(gen, L, N, K, dev):
+    from torchao_tpu_torch.quantization.quant_api import FPXWeightOnlyConfig
+    from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
+
+    w = (torch.randn((L, N, K), generator=gen, device=dev) / K ** 0.5).bfloat16()
+    packed = get_quantize_handler(FPXWeightOnlyConfig(runtime="packed"))(
+        w, FPXWeightOnlyConfig(runtime="packed"))
+    return packed, packed.to_dual_planes()
+
+
+# N = 4096 + 128 leaves a partial last group of column tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_fp6_kernels_match_plain(cuda, M):
+    """K11 and K12, stacked and unstacked, against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    L, N, K = 2, 4096 + 128, 2048
+    packed, dual = _fp6_weight(gen, L, N, K, cuda)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    a, b = dual.a_plane, dual.b_plane
+    for l in (1, None):
+        args = (a.qdata, b.qdata, a.scale[:, 0, :].contiguous())
+        pargs = (packed.qdata, packed.qdata2, packed.scale)
+        if l is None:
+            args, pargs = tuple(t[0] for t in args), tuple(t[0] for t in pargs)
+        _sqnr_ok(fp6_dual_matmul(x, *args, layer_idx=l),
+                 fp6_dual_matmul_plain(x, *args, layer_idx=l))
+        _sqnr_ok(fp6_dq_matmul(x, *pargs, layer_idx=l), fp6_dq_matmul_plain(x, *pargs, layer_idx=l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 128])
+def test_fp8_rowwise_kernel_matches_plain(cuda, M):
+    """K9, gemv (M = 1, 4) and tiled (M = 128), ragged N."""
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    N, K = 4096 + 48, 1536
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+    w = (torch.randn((N, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+    xs = torch.rand((M,), generator=gen, device=cuda) * 0.01 + 0.001
+    ws = torch.rand((N,), generator=gen, device=cuda) * 0.01 + 0.001
+    _sqnr_ok(fp8_rowwise_matmul(x, w, xs, ws), fp8_rowwise_matmul_plain(x, w, xs, ws))

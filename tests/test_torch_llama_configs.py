@@ -1,16 +1,33 @@
-"""The slice as a whole for the int8 and fp8 configs: a tiny Llama, JAX
-package vs port.
+"""The slices as a whole for the int8, fp8, fp6 and 8da4w configs: a tiny
+Llama, JAX package vs port.
 
-For each of int8wo with the int8 split-flat KV cache, int8dq, float8wo and
-float8dq-row with the bf16 cache, the JAX side makes and quantizes the
-params and ``params_from_jax_numpy`` carries them across. A 16-token
-prefill and 8 greedy decode steps run on both sides (the JAX package
-compiled, through its XLA route on the CPU; the port through its plain
-versions): in float32 the logits agree within ``rtol=atol=1e-3`` and the
-greedy tokens are identical; in bf16, with the port fed the JAX package's
-greedy tokens, the logits agree to SQNR >= 30 dB.
+For each of int8wo with the int8 split-flat KV cache, int8dq, float8wo,
+float8dq-row, fp6 (dual planes), fp6-packed and 8da4w-32 with the bf16
+cache, the JAX side makes and quantizes the params and
+``params_from_jax_numpy`` carries them across. A 16-token prefill and 8
+greedy decode steps run on both sides (the JAX package compiled, through its
+XLA route on the CPU; the port through its plain versions, on the routes it
+takes on the card): in float32 the logits agree within ``rtol=atol=1e-3``
+and the greedy tokens are identical; in bf16, with the port fed the JAX
+package's greedy tokens, the logits agree to SQNR >= 30 dB.
 
-Two exceptions, both float8dq-row:
+The fp6 and 8da4w configs run a wider model (``WIDE_ARGS``: dim 512, FFN
+1024, 8 heads over 2 KV heads), wide enough that K11's and K12's guards hold
+(K/2 % 256 == 0 and N % 128 == 0, K % 512 == 0), so that the port's CPU
+route goes through their plain versions at decode; the JAX package's CPU
+route takes the planes (fp6) or dequantizes (fp6-packed).
+
+8da4w: the JAX package's CPU route quantizes and dequantizes the
+activations and multiplies in the model's dtype (``_impl_laqt_generic``);
+the port takes its card's route, centred int8 activations through K1/K5's
+plain version and the per-token scale after. Measured: float32 logits within
+2.4e-6 of the JAX package's, identical greedy tokens; in bf16, 26.7-28.7 dB
+against the JAX package's bf16 logits, which is the bf16 noise of per-token
+int8 activations (the JAX package's own bf16 run lies 25.8-28.9 dB from its
+float32 run of the same weights). So 8da4w's bf16 logits are held against a
+float32 run, as float8dq-row's are (below).
+
+Two exceptions for float8dq-row:
 
 - The JAX package's compiled decode step (T = 1) for float8dq-row on the
   CPU disagrees with its own cache-free forward over the same tokens (up to
@@ -46,6 +63,7 @@ from torchao_tpu_torch.utils import compute_error
 
 ARGS = dict(block_size=64, vocab_size=512, n_layer=2, n_head=4, n_local_heads=2,
             dim=256, intermediate_size=512)  # Dh = 64, GQA 2:1
+WIDE_ARGS = dict(ARGS, n_head=8, dim=512, intermediate_size=1024)  # Dh = 64, GQA 4:1
 PROMPT, STEPS = 16, 8
 
 # name -> (JAX config, port config, KV cache)
@@ -57,14 +75,26 @@ CONFIGS = {
     "float8dq-row-bf16kv": (JQ.Float8DynamicActivationFloat8WeightConfig(granularity=JPerRow()),
                             TQ.Float8DynamicActivationFloat8WeightConfig(granularity=PerRow()),
                             False),
+    "fp6": (JQ.FPXWeightOnlyConfig(ebits=3, mbits=2), TQ.FPXWeightOnlyConfig(ebits=3, mbits=2),
+            False),
+    "fp6-packed": (JQ.FPXWeightOnlyConfig(ebits=3, mbits=2, runtime="packed"),
+                   TQ.FPXWeightOnlyConfig(ebits=3, mbits=2, runtime="packed"), False),
+    "8da4w-32": (JQ.Int8DynamicActivationInt4WeightConfig(group_size=32),
+                 TQ.Int8DynamicActivationInt4WeightConfig(group_size=32), False),
 }
+WIDE = {"fp6", "fp6-packed", "8da4w-32"}
 WEIGHTS = (("layers", "attention", "wqkv"), ("layers", "attention", "wo"),
            ("layers", "feed_forward", "w13"), ("layers", "feed_forward", "w2"),
            ("output", "weight"))
 
 
 FULL_FORWARD_REFERENCE = {"float8dq-row-bf16kv"}
+BF16_AGAINST_FLOAT32 = FULL_FORWARD_REFERENCE | {"8da4w-32"}
 MARGIN_DB = 3.0
+
+
+def _args(name):
+    return WIDE_ARGS if name in WIDE else ARGS
 
 
 def _full_forward_logits(model, params, toks):
@@ -75,7 +105,7 @@ def _full_forward_logits(model, params, toks):
 
 def _run_jax(name, dtype):
     cfg, _, kv = CONFIGS[name]
-    model = JM.Transformer(JM.ModelArgs(**ARGS), dtype=dtype)
+    model = JM.Transformer(JM.ModelArgs(**_args(name)), dtype=dtype)
     params = JQ.quantize_(model.init_params(jax.random.PRNGKey(0)), cfg, JM.default_linear_filter)
     toks = jnp.asarray(np.random.RandomState(0).randint(0, 512, (1, PROMPT)), jnp.int32)
     if name in FULL_FORWARD_REFERENCE:
@@ -100,9 +130,9 @@ def _run_jax(name, dtype):
     return params, np.asarray(toks), all_logits, tokens
 
 
-def _run_port(params, prompt, kv, dtype, feed=None):
+def _run_port(params, prompt, kv, dtype, feed=None, args=ARGS):
     """Prefill + STEPS decode steps; greedy, or fed the tokens ``feed``."""
-    model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=dtype, device="cpu")
+    model = TM.Transformer(TM.ModelArgs(**args), dtype=dtype, device="cpu")
     cache = model.setup_caches(1, PROMPT + STEPS, quantize=kv)
     logits, cache = model(params, torch.from_numpy(prompt.copy()).long(), 0, cache)
     all_logits, tokens = [logits[:, -1].float().numpy()], []
@@ -126,24 +156,26 @@ def _jax_run(name, dtype):
 def test_float32_logits_and_greedy_tokens_match(name):
     jparams, prompt, jlogits, jtokens = _jax_run(name, "float32")
     params = params_from_jax_numpy(jax_to_numpy(jparams), device="cpu")
-    logits, tokens = _run_port(params, prompt, CONFIGS[name][2], torch.float32)
+    logits, tokens = _run_port(params, prompt, CONFIGS[name][2], torch.float32,
+                               args=_args(name))
     assert tokens == jtokens
     for step, (a, b) in enumerate(zip(logits, jlogits)):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3, err_msg=f"step {step}")
 
 
-@pytest.mark.parametrize("name", sorted(set(CONFIGS) - FULL_FORWARD_REFERENCE))
+@pytest.mark.parametrize("name", sorted(set(CONFIGS) - BF16_AGAINST_FLOAT32))
 def test_bfloat16_logits_sqnr(name):
     jparams, prompt, jlogits, jtokens = _jax_run(name, "bfloat16")
     params = params_from_jax_numpy(jax_to_numpy(jparams), device="cpu")
     # fed the JAX package's greedy tokens, both sides see the same inputs
-    logits, _ = _run_port(params, prompt, CONFIGS[name][2], torch.bfloat16, feed=jtokens)
+    logits, _ = _run_port(params, prompt, CONFIGS[name][2], torch.bfloat16, feed=jtokens,
+                          args=_args(name))
     for step, (a, b) in enumerate(zip(logits, jlogits)):
         err = compute_error(torch.from_numpy(b), torch.from_numpy(a))
         assert err >= 30, (step, err)
 
 
-@pytest.mark.parametrize("name", sorted(FULL_FORWARD_REFERENCE))
+@pytest.mark.parametrize("name", sorted(BF16_AGAINST_FLOAT32))
 def test_bfloat16_logits_against_float32(name):
     """bf16 port and bf16 JAX package, each against a float32 JAX run of
     the same (bf16-quantized) weights over the same tokens."""
@@ -151,12 +183,14 @@ def test_bfloat16_logits_against_float32(name):
     toks = jnp.asarray(np.concatenate([prompt, [jtokens]], axis=1), jnp.int32)
     ref_params = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a, jparams)
-    ref = _full_forward_logits(JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.float32),
+    args = _args(name)
+    ref = _full_forward_logits(JM.Transformer(JM.ModelArgs(**args), dtype=jnp.float32),
                                ref_params, toks)
-    jbf16 = _full_forward_logits(JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.bfloat16),
+    jbf16 = _full_forward_logits(JM.Transformer(JM.ModelArgs(**args), dtype=jnp.bfloat16),
                                  jparams, toks)
     params = params_from_jax_numpy(jax_to_numpy(jparams), device="cpu")
-    logits, _ = _run_port(params, prompt, CONFIGS[name][2], torch.bfloat16, feed=jtokens)
+    logits, _ = _run_port(params, prompt, CONFIGS[name][2], torch.bfloat16, feed=jtokens,
+                          args=args)
     for step, got in enumerate(logits):
         want = torch.from_numpy(ref[:, PROMPT - 1 + step])
         port = compute_error(want, torch.from_numpy(got))
@@ -169,7 +203,7 @@ def test_port_quantize_equals_converted_params(name):
     """quantize_ in the port, applied to the JAX model's bf16 weights,
     reproduces the converted quantized params exactly."""
     jparams = _jax_run(name, "bfloat16")[0]
-    model = JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.bfloat16)
+    model = JM.Transformer(JM.ModelArgs(**_args(name)), dtype=jnp.bfloat16)
     raw = params_from_jax_numpy(jax_to_numpy(model.init_params(jax.random.PRNGKey(0))),
                                 device="cpu")
     mine = TQ.quantize_(raw, CONFIGS[name][1], TM.default_linear_filter)
@@ -227,8 +261,8 @@ def test_config_from_recipe_matches_jax():
     from torchao_tpu_torch.models.llama.cli import config_from_recipe
 
     for q in ("int8wo", "int8dq", "int8dq_prefill_wo_decode", "float8wo", "float8dq-row",
-              "float8dq", "int4wo-32", "int4wo-128"):
+              "float8dq", "int4wo-32", "int4wo-128", "fp6", "8da4w", "8da4w-32", "8da4w-128"):
         assert config_to_json(config_from_recipe(q)) == jjson(jrecipe(q)), q
-    for q in ("fp6", "8da4w", "float8dq-tensor", "int4wo-64-hqq"):
+    for q in ("float8dq-tensor", "int4wo-64-hqq", "int4dq-8"):
         with pytest.raises(NotImplementedError):
             config_from_recipe(q)

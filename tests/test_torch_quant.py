@@ -43,10 +43,23 @@ def jax_to_numpy(tree):
 
     from torchao_tpu.qtypes.composition import LinearActivationQuantizedArray as JLaqt
     from torchao_tpu.qtypes.float8 import Float8Array as JF8
+    from torchao_tpu.qtypes.floatx import FloatxArray as JFx
+    from torchao_tpu.qtypes.floatx import Fp6DualArray as JDual
     from torchao_tpu.qtypes.intx import IntxArray as JIntx
 
     if isinstance(tree, dict):
         return {k: jax_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, JDual):
+        return {"a_plane": jax_to_numpy(tree.a_plane), "b_plane": jax_to_numpy(tree.b_plane),
+                "logical_shape": tuple(tree.logical_shape),
+                "activation_dtype": tree.activation_dtype}
+    if isinstance(tree, JFx):
+        return {"qdata": np.asarray(tree.qdata), "scale": np.asarray(tree.scale),
+                "qdata2": np.asarray(tree.qdata2),
+                "qdata3": None if tree.qdata3 is None else np.asarray(tree.qdata3),
+                "ebits": tree.ebits, "mbits": tree.mbits, "kmajor": tree.kmajor,
+                "logical_shape": tuple(tree.logical_shape),
+                "activation_dtype": tree.activation_dtype}
     if isinstance(tree, JLaqt):
         return {"original_weight": jax_to_numpy(tree.original_weight),
                 "input_quant_name": tree.input_quant_name,
@@ -386,3 +399,211 @@ def test_converter_round_trip_int8_and_fp8():
             assert tw.original_weight.zero_point is None
         np.testing.assert_array_equal(t_np(tw.dequantize(torch.float32)),
                                       to_np(jw.dequantize(jnp.float32)))
+
+
+# ------------------------------------------------------ fp6 and 8da4w (slice 3) --
+
+
+def _floatx_weights(dtype):
+    """Rows of many magnitudes, and rows whose ``amax / 28`` lies at and
+    within three ulps of a power of two (where ``floor(log2)`` is decided)."""
+    rs = np.random.RandomState(11)
+    w = (rs.randn(96, 256) * 2.0 ** rs.randint(-10, 6, (96, 1))).astype(np.float32)
+    for i, k in enumerate(range(-6, 7)):
+        for j, steps in enumerate((0, -1, -2, -3, 1, 2)):
+            v = np.float32(28.0) * np.float32(2.0) ** k
+            for _ in range(abs(steps)):
+                v = np.nextafter(v, np.float32(np.inf) if steps > 0 else np.float32(0))
+            r = 6 * i + j
+            w[r] = w[r] / np.abs(w[r]).max() * np.float32(2.0) ** (k - 1)
+            w[r, 0] = v
+    w[95] = 0.0  # an all-zero row takes the smallest scale
+    return jnp.asarray(w, getattr(jnp, dtype)), torch.from_numpy(w).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_floatx_primitives_bit_exact(dtype):
+    """choose_qparams / quantize / encode / decode / dequantize for fp6
+    (e3m2), run eagerly as ``quantize_`` runs them, are bit-exact."""
+    wj, wt = _floatx_weights(dtype)
+    sj, st = jqp.choose_qparams_affine_floatx(wj, 3, 2), tqp.choose_qparams_affine_floatx(wt, 3, 2)
+    assert st.dtype == wt.dtype
+    np.testing.assert_array_equal(to_np(sj), t_np(st))
+    gj, gt = jqp.quantize_affine_floatx(wj, sj, 3, 2), tqp.quantize_affine_floatx(wt, st, 3, 2)
+    np.testing.assert_array_equal(np.asarray(gj), gt.numpy())
+    cj, ct = jqp.exmy_encode(gj, 3, 2), tqp.exmy_encode(gt, 3, 2)
+    assert ct.dtype == torch.uint8
+    np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
+    dj, dt = jqp.exmy_decode(cj, 3, 2), tqp.exmy_decode(ct, 3, 2)
+    np.testing.assert_array_equal(np.asarray(dj), dt.numpy())
+    for out in ("float32", "bfloat16"):
+        a = jqp.dequantize_affine_floatx(dj, sj, 3, 2, output_dtype=getattr(jnp, out))
+        b = tqp.dequantize_affine_floatx(dt, st, 3, 2, output_dtype=getattr(torch, out))
+        np.testing.assert_array_equal(to_np(a), t_np(b))
+
+
+def test_floor_log2_matches_jax_at_powers_of_two():
+    """``floor(jnp.log2(x))`` is not the exact exponent on the CPU (XLA's
+    log is approximate: log2(2**13) floors to 12, and values a few ulps
+    from a power of two fall either way); the port's ``_floor_log2``
+    reproduces it, at every power of two in the float32 normal range, one to
+    eight ulps either side of each, and at random values."""
+    ps = np.float32(2.0) ** np.arange(-126, 128).astype(np.float32)
+    vals = [ps]
+    for direction in (np.float32(0), np.float32(np.inf)):
+        v = ps
+        for _ in range(8):
+            v = np.nextafter(v, direction)
+            vals.append(v)
+    rs = np.random.RandomState(12)
+    vals.append((rs.rand(100_000) * 2.0 ** rs.randint(-30, 10, 100_000)).astype(np.float32))
+    x = np.concatenate(vals).astype(np.float32)
+    x = x[np.isfinite(x) & (x > 0)]
+    want = np.asarray(jnp.floor(jnp.log2(jnp.asarray(x))))
+    np.testing.assert_array_equal(tqp._floor_log2(torch.from_numpy(x)).numpy(), want)
+    exact = (np.frexp(x)[1] - 1).astype(np.float32)
+    assert (want != exact).any()  # the case the emulation exists for
+
+
+def test_pack_fp6_kmajor_bit_exact():
+    from torchao_tpu.kernels.fp6_matmul import pack_fp6_kmajor as jpack
+    from torchao_tpu_torch.kernels.fp6_matmul import pack_fp6_kmajor
+
+    codes = np.random.RandomState(14).randint(0, 64, (2, 48, 64)).astype(np.uint8)
+    s4, s2 = pack_fp6_kmajor(torch.from_numpy(codes))
+    assert s4.shape == (2, 32, 48) and s2.shape == (2, 16, 48)
+    for l in range(2):
+        j4, j2 = jpack(jnp.asarray(codes[l]))
+        np.testing.assert_array_equal(np.asarray(j4), s4[l].numpy())
+        np.testing.assert_array_equal(np.asarray(j2), s2[l].numpy())
+
+
+def _jax_fp6(w, runtime):
+    from torchao_tpu.quantization.quant_api import FPXWeightOnlyConfig as JCfg
+    from torchao_tpu.quantization.transform_module import get_quantize_handler
+
+    cfg = JCfg(runtime=runtime)
+    return get_quantize_handler(cfg)(w, cfg)
+
+
+def _port_handler(cfg, w):
+    from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
+
+    return get_quantize_handler(cfg)(w, cfg)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_floatx_from_hp_and_dual_planes_bit_exact(dtype):
+    """FloatxArray (packed) and Fp6DualArray (dual) from the port's handler
+    equal the JAX package's, field by field, and the converter carries the
+    JAX arrays over to the same bytes; both dequantize as the JAX arrays do
+    (the two forms to the same values), per layer too."""
+    from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
+    from torchao_tpu_torch.quantization.quant_api import FPXWeightOnlyConfig
+
+    wj, wt = _pair((3, 96, 512), dtype, seed=15, scale=0.05)
+    for runtime, cls in (("packed", FloatxArray), ("dual", Fp6DualArray)):
+        aj = _jax_fp6(wj, runtime)
+        at = _port_handler(FPXWeightOnlyConfig(runtime=runtime), wt)
+        conv = params_from_jax_numpy({"w": jax_to_numpy(aj)}, device="cpu")["w"]
+        assert type(at) is cls and type(conv) is cls and at.shape == (3, 96, 512)
+        tj, tt = list(conv.tensors()), list(at.tensors())
+        assert len(tj) == len(tt) == (3 if runtime == "packed" else 4)
+        for x, y in zip(tj, tt):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(t_np(x), t_np(y))
+        for out in (torch.float32, torch.bfloat16):
+            want = to_np(aj.dequantize(jnp.float32 if out == torch.float32 else jnp.bfloat16))
+            np.testing.assert_array_equal(t_np(at.dequantize(out)), want)
+        np.testing.assert_array_equal(t_np(at.take_layer(2).dequantize(torch.float32)),
+                                      to_np(aj.take_layer(2).dequantize(jnp.float32)))
+    packed = _port_handler(FPXWeightOnlyConfig(runtime="packed"), wt)
+    dual = _port_handler(FPXWeightOnlyConfig(), wt)
+    # the kernels take contiguous operands (JAX arrays always are)
+    assert all(t.is_contiguous() for q in (packed, dual) for t in q.tensors())
+    np.testing.assert_array_equal(t_np(packed.dequantize(torch.float32)),
+                                  t_np(dual.dequantize(torch.float32)))
+    a = dual.a_plane
+    assert a.zero_point is None and a.block_size == (1, 1, 128) and a.scale.shape == (3, 4, 96)
+    assert a.scale.dtype == torch.bfloat16 and dual.b_plane.qdata.dtype == torch.int8
+
+
+def test_floatx_slice_concat_stack_round_trip():
+    from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
+    from torchao_tpu_torch.quantization.quant_api import FPXWeightOnlyConfig
+
+    _, wt = _pair((2, 96, 256), "bfloat16", seed=16, scale=0.05)
+    for runtime, cls in (("packed", FloatxArray), ("dual", Fp6DualArray)):
+        q = _port_handler(FPXWeightOnlyConfig(runtime=runtime), wt)
+        back = cls.concat_out_features([q.slice_out_features(0, 32),
+                                        q.slice_out_features(32, 64)])
+        assert back.shape == q.shape
+        assert torch.equal(back.dequantize(torch.float32), q.dequantize(torch.float32))
+        layers = [_port_handler(FPXWeightOnlyConfig(runtime=runtime), wt[l]) for l in range(2)]
+        stacked = cls.stack_layers(layers)
+        for x, y in zip(stacked.tensors(), q.tensors()):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("act", ["ASYMMETRIC", "SYMMETRIC"])
+@pytest.mark.parametrize("shape", [(3, 64, 512), (64, 128)])
+def test_8da4w_from_hp_bit_exact(act, shape):
+    """The 8da4w handler: TILED zero-free int4 where K/2 % max(8g, 128) == 0
+    (here K = 512), PLAIN int4 storage otherwise (K = 128), bit-exact."""
+    from torchao_tpu.quantization.quant_api import Int8DynamicActivationInt4WeightConfig as JCfg
+    from torchao_tpu.quantization.quant_primitives import MappingType as JMT
+    from torchao_tpu.quantization.transform_module import get_quantize_handler as jget
+    from torchao_tpu_torch.quantization.quant_api import Int8DynamicActivationInt4WeightConfig
+
+    wj, wt = _pair(shape, "bfloat16", seed=17, scale=0.05)
+    jcfg = JCfg(group_size=32, act_mapping_type=getattr(JMT, act))
+    tcfg = Int8DynamicActivationInt4WeightConfig(
+        group_size=32, act_mapping_type=getattr(tqp.MappingType, act))
+    aj, at = jget(jcfg)(wj, jcfg), _port_handler(tcfg, wt)
+    assert at.input_quant_name == aj.input_quant_name
+    conv = params_from_jax_numpy({"w": jax_to_numpy(aj)}, device="cpu")["w"]
+    inner, cinner = at.original_weight, conv.original_weight
+    assert inner.packing_format is cinner.packing_format
+    assert inner.packing_format.value == ("tiled_nibbles" if shape[-1] == 512 else "plain")
+    for x, y in zip(list(cinner.tensors()), list(inner.tensors())):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(t_np(x), t_np(y))
+    assert len(list(inner.tensors())) == len(list(cinner.tensors()))
+    assert all(t.is_contiguous() for t in inner.tensors())
+    np.testing.assert_array_equal(t_np(at.dequantize(torch.float32)),
+                                  to_np(aj.dequantize(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_per_token_asym_bit_exact(dtype):
+    from torchao_tpu.ops.qlinear import _int8_per_token_asym as jasym
+    from torchao_tpu_torch.ops.qlinear import _int8_per_token_asym
+
+    xj, xt = _pair((2, 5, 256), dtype, seed=18, scale=3.0)
+    (qj, sj, zj), (qt, st, zt) = jasym(xj), _int8_per_token_asym(xt)
+    np.testing.assert_array_equal(np.asarray(qj), qt.numpy())
+    np.testing.assert_array_equal(to_np(sj), t_np(st))
+    np.testing.assert_array_equal(np.asarray(zj), zt.numpy())
+
+
+@pytest.mark.parametrize("name", ["fp6", "fp6-packed", "8da4w", "8da4w-sym-act"])
+def test_fp6_and_8da4w_config_json_identical(name):
+    from torchao_tpu.core.config import config_to_json as jjson
+    from torchao_tpu.quantization import quant_api as JQ
+    from torchao_tpu.quantization.quant_primitives import MappingType as JMT
+    from torchao_tpu_torch.core.config import config_from_json, config_to_json
+    from torchao_tpu_torch.quantization import quant_api as TQ
+
+    jcfg, tcfg = {
+        "fp6": (JQ.FPXWeightOnlyConfig(3, 2), TQ.FPXWeightOnlyConfig(3, 2)),
+        "fp6-packed": (JQ.FPXWeightOnlyConfig(3, 2, runtime="packed"),
+                       TQ.FPXWeightOnlyConfig(3, 2, runtime="packed")),
+        "8da4w": (JQ.Int8DynamicActivationInt4WeightConfig(group_size=32),
+                  TQ.Int8DynamicActivationInt4WeightConfig(group_size=32)),
+        "8da4w-sym-act": (
+            JQ.Int8DynamicActivationInt4WeightConfig(act_mapping_type=JMT.SYMMETRIC),
+            TQ.Int8DynamicActivationInt4WeightConfig(act_mapping_type=tqp.MappingType.SYMMETRIC)),
+    }[name]
+    s = config_to_json(tcfg)
+    assert json.loads(s) == json.loads(jjson(jcfg))
+    assert config_from_json(s) == tcfg

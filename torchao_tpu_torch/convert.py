@@ -13,10 +13,15 @@ arrives as a dict of its arrays plus its static fields:
   optionally ``"act_quant_spec"`` (a dict of ``Float8ActQuantSpec``'s
   fields), ``"fast_accum"``, ``"activation_dtype"``;
 - ``LinearActivationQuantizedArray``: ``{"original_weight": <one of the
-  above>, "input_quant_name"}``, optionally ``"quant_kwargs"``.
+  above>, "input_quant_name"}``, optionally ``"quant_kwargs"``;
+- ``FloatxArray`` (K-major fp6 only): ``{"qdata" (s4), "qdata2" (s2),
+  "scale", "ebits", "mbits", "logical_shape", "kmajor"}``, optionally
+  ``"qdata3"`` (must be None) and ``"activation_dtype"``;
+- ``Fp6DualArray``: ``{"a_plane": <IntxArray>, "b_plane": <IntxArray>,
+  "logical_shape"}``, optionally ``"activation_dtype"``.
 
 Storage is copied byte for byte (K-major half-split nibbles, XOR 0x80,
-``[.., K/g, N]`` qparams; PLAIN int8), so both packages compute the same
+``[.., K/g, N]`` qparams; PLAIN int8; the fp6 shards), so both packages compute the same
 thing. bf16 arrays (numpy dtype name ``bfloat16``) and e4m3 arrays
 (``float8_e4m3fn``, viewed as bytes) are carried over bit-exactly.
 """
@@ -31,6 +36,7 @@ import torch
 from torchao_tpu_torch.qtypes.base import PackingFormat
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
+from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
 from torchao_tpu_torch.utils import resolve_device
@@ -91,7 +97,34 @@ def _float8_from_dict(d: Dict[str, Any], device) -> Float8Array:
     )
 
 
+def _act_dtype(d, default):
+    act = d.get("activation_dtype")
+    return _DTYPES[act] if act else default
+
+
+def _floatx_from_dict(d: Dict[str, Any], device) -> FloatxArray:
+    if not d.get("kmajor") or d.get("qdata3") is not None:
+        raise NotImplementedError("only the K-major fp6 FloatxArray is ported")
+    scale = tensor_from_numpy(d["scale"], device)
+    return FloatxArray(
+        qdata=tensor_from_numpy(d["qdata"], device),
+        scale=scale,
+        qdata2=tensor_from_numpy(d["qdata2"], device),
+        ebits=int(d["ebits"]),
+        mbits=int(d["mbits"]),
+        logical_shape=tuple(int(s) for s in d["logical_shape"]),
+        activation_dtype=_act_dtype(d, scale.dtype),
+    )
+
+
 def _quantized_from_dict(d: Dict[str, Any], device):
+    if "a_plane" in d:
+        a = _intx_from_dict(d["a_plane"], device)
+        return Fp6DualArray(a_plane=a, b_plane=_intx_from_dict(d["b_plane"], device),
+                            logical_shape=tuple(int(s) for s in d["logical_shape"]),
+                            activation_dtype=_act_dtype(d, a.activation_dtype))
+    if "ebits" in d:
+        return _floatx_from_dict(d, device)
     if "original_weight" in d:
         return LinearActivationQuantizedArray(
             original_weight=_quantized_from_dict(d["original_weight"], device),
@@ -109,7 +142,8 @@ def params_from_jax_numpy(tree, device=None):
 
     def walk(node):
         if isinstance(node, dict):
-            if "original_weight" in node or ("qdata" in node and "block_size" in node):
+            if ("original_weight" in node or "a_plane" in node
+                    or ("qdata" in node and ("block_size" in node or "ebits" in node))):
                 return _quantized_from_dict(node, dev)
             return {k: walk(v) for k, v in node.items()}
         return tensor_from_numpy(node, dev)

@@ -24,6 +24,10 @@
 // plain shared-memory SIMT GEMM in fp32 (tensor cores come in a later
 // change). Both accumulate in fp32.
 //
+// Zero-free form: a null `zr` means z = 0 (the symmetric 8da4w weight and
+// fp6's A plane: dq = (q - 8) * s). The kernels are templated on it, so that
+// form reads no zero and does no sum of x.
+//
 // No partial K blocks: the GEMV walks whole runs of RUN packed rows that
 // lie inside one group, and the tiled form whole steps of TKP rows; the
 // host wrapper checks K/2 % g == 0, g % RUN == 0 and K/2 % TKP == 0. The
@@ -40,20 +44,10 @@ constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
 constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
 constexpr int RUN = 8;                                     // packed rows per run
 
-__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
 // grid: (ceil(N / 128), ksplit, ceil(M / MT)); block: 256 threads.
 // Thread (lane, chunk) handles 16 columns and every 32nd run of its split.
 // Partial sums go to ws[ksplit, M, N] (fp32); tt_int4_reduce finishes.
-template <int MT>
+template <int MT, bool HAS_Z>
 __global__ void __launch_bounds__(GEMV_THREADS)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
@@ -87,12 +81,14 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
         const uint4* p;
         p = reinterpret_cast<const uint4*>(sc + (size_t)glo * N + n0);
         bf16x8_to_float(__ldg(p), s_lo); bf16x8_to_float(__ldg(p + 1), s_lo + 8);
-        p = reinterpret_cast<const uint4*>(zr + (size_t)glo * N + n0);
-        bf16x8_to_float(__ldg(p), z_lo); bf16x8_to_float(__ldg(p + 1), z_lo + 8);
         p = reinterpret_cast<const uint4*>(sc + (size_t)ghi * N + n0);
         bf16x8_to_float(__ldg(p), s_hi); bf16x8_to_float(__ldg(p + 1), s_hi + 8);
-        p = reinterpret_cast<const uint4*>(zr + (size_t)ghi * N + n0);
-        bf16x8_to_float(__ldg(p), z_hi); bf16x8_to_float(__ldg(p + 1), z_hi + 8);
+        if constexpr (HAS_Z) {
+          p = reinterpret_cast<const uint4*>(zr + (size_t)glo * N + n0);
+          bf16x8_to_float(__ldg(p), z_lo); bf16x8_to_float(__ldg(p + 1), z_lo + 8);
+          p = reinterpret_cast<const uint4*>(zr + (size_t)ghi * N + n0);
+          bf16x8_to_float(__ldg(p), z_hi); bf16x8_to_float(__ldg(p + 1), z_hi + 8);
+        }
       }
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
@@ -122,8 +118,12 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
           }
         }
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c)
-          acc[m][c] += s_lo[c] * pl[c] + z_lo[c] * sxl + s_hi[c] * ph[c] + z_hi[c] * sxh;
+        for (int c = 0; c < GEMV_COLS; ++c) {
+          if constexpr (HAS_Z)
+            acc[m][c] += s_lo[c] * pl[c] + z_lo[c] * sxl + s_hi[c] * ph[c] + z_hi[c] * sxh;
+          else
+            acc[m][c] += s_lo[c] * pl[c] + s_hi[c] * ph[c];
+        }
       }
     }
   }
@@ -181,6 +181,7 @@ constexpr int TKP = 16;          // packed rows per step (32 values of k)
 constexpr int TK = 2 * TKP;
 
 // grid: (ceil(N / 64), ceil(M / 64)); block 256 threads, each a 4x4 tile.
+template <bool HAS_Z>
 __global__ void __launch_bounds__(T_THREADS)
 int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                   const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
@@ -220,8 +221,10 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const size_t clo = (size_t)glo * N + n0 + wc + j, chi = (size_t)ghi * N + n0 + wc + j;
-          lo[j] = fmaf(nib_minus8(lo4, j), __bfloat162float(sc[clo]), __bfloat162float(zr[clo]));
-          hi[j] = fmaf(nib_minus8(hi4, j), __bfloat162float(sc[chi]), __bfloat162float(zr[chi]));
+          const float zlo = HAS_Z ? __bfloat162float(zr[clo]) : 0.f;
+          const float zhi = HAS_Z ? __bfloat162float(zr[chi]) : 0.f;
+          lo[j] = fmaf(nib_minus8(lo4, j), __bfloat162float(sc[clo]), zlo);
+          hi[j] = fmaf(nib_minus8(hi4, j), __bfloat162float(sc[chi]), zhi);
         }
       } else {
 #pragma unroll
@@ -258,7 +261,8 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
 }  // namespace
 
 // x [M, K] bf16; wp [K/2, N] u8; sc, zr [K/g, N] bf16 (layer already
-// offset by the caller); ws [ksplit, M, N] fp32 scratch; out [M, N] bf16.
+// offset by the caller; zr null: the zero-free form); ws [ksplit, M, N] fp32
+// scratch; out [M, N] bf16.
 TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const void* zr,
                            void* ws, void* out, int M, int K, int N, int g, int ksplit,
                            void* stream) {
@@ -270,10 +274,14 @@ TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const 
   auto s = static_cast<const __nv_bfloat16*>(sc);
   auto z = static_cast<const __nv_bfloat16*>(zr);
   auto wsf = static_cast<float*>(ws);
-  if (mt == 1)
-    int4_gemv_kernel<1><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
+  if (mt == 1 && z)
+    int4_gemv_kernel<1, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
+  else if (mt == 1)
+    int4_gemv_kernel<1, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
+  else if (z)
+    int4_gemv_kernel<4, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
   else
-    int4_gemv_kernel<4><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
+    int4_gemv_kernel<4, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long MN = (long long)M * N;
@@ -285,9 +293,15 @@ TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const 
 TT_EXPORT int tt_int4_tiled(const void* x, const void* wp, const void* sc, const void* zr,
                             void* out, int M, int K, int N, int g, void* stream) {
   dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  int4_tiled_kernel<<<grid, T_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
-      static_cast<__nv_bfloat16*>(out), M, K, N, g);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto w8 = static_cast<const uint8_t*>(wp);
+  auto s = static_cast<const __nv_bfloat16*>(sc);
+  auto z = static_cast<const __nv_bfloat16*>(zr);
+  auto o = static_cast<__nv_bfloat16*>(out);
+  if (z)
+    int4_tiled_kernel<true><<<grid, T_THREADS, 0, st>>>(xb, w8, s, z, o, M, K, N, g);
+  else
+    int4_tiled_kernel<false><<<grid, T_THREADS, 0, st>>>(xb, w8, s, z, o, M, K, N, g);
   return cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Weight-streaming quantized matmul for Hopper (sm_90a), SIMT: K6, K7, K8.
+// Weight-streaming quantized matmul for Hopper (sm_90a), SIMT: K6, K7, K8, K9.
 //
 //   out[m, n] = (sum_k x[m, k] * w[n, k]) * xs[m] * ws[n]     (f32 epilogue,
 //                                                              one rounding)
@@ -11,7 +11,11 @@
 //      int8_matmul.py::int8_scaled_matmul (pallas_call at :104, _kernel at :24);
 //   K8 (bf16 or e4m3 x, e4m3 w, f32 accumulation) replaces
 //      torchao_tpu/kernels/fp8_matmul.py::fp8_mixed_matmul
-//      (pallas_call at fp8_matmul.py:218, body _mixed_kernel at :129).
+//      (pallas_call at fp8_matmul.py:218, body _mixed_kernel at :129);
+//   K9 (e4m3 x, e4m3 w, f32 accumulation, f32 per-row x and w scales, the
+//      unstacked float8dq-row head) replaces fp8_matmul.py::fp8_rowwise_matmul
+//      (pallas_call at :79, body _kernel at :24); its own entry points,
+//      tt_fp8_rowwise_gemv and tt_fp8_rowwise_tiled, run the same loops.
 // The weight is [N, K] row-major (K contiguous), as the JAX package stores
 // it; a stacked [L, N, K] weight is addressed by the caller with a pointer
 // offset, so no per-layer copy is made. Scales are per row of x (or none)
@@ -42,12 +46,12 @@
 
 namespace {
 
-enum Kind { K6_BF16_I8 = 0, K7_I8_I8 = 1, K8_BF16_E4M3 = 2, K8_E4M3_E4M3 = 3 };
+enum Kind { K6_BF16_I8 = 0, K7_I8_I8 = 1, K8_BF16_E4M3 = 2, K8_E4M3_E4M3 = 3, K9_E4M3_ROW = 4 };
 
 template <int KIND> struct Traits {
   static constexpr bool kIntAcc = KIND == K7_I8_I8;
   static constexpr bool kXBf16 = KIND == K6_BF16_I8 || KIND == K8_BF16_E4M3;
-  static constexpr bool kWE4m3 = KIND == K8_BF16_E4M3 || KIND == K8_E4M3_E4M3;
+  static constexpr bool kWE4m3 = KIND == K8_BF16_E4M3 || KIND == K8_E4M3_E4M3 || KIND == K9_E4M3_ROW;
   static constexpr int kXBytes = kXBf16 ? 2 : 1;
   using Acc = typename std::conditional<kIntAcc, int, float>::type;
 };
@@ -56,12 +60,6 @@ __device__ __forceinline__ float load_scale(const void* p, int kind, long long i
   if (kind == 0) return 1.f;
   if (kind == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
   return static_cast<const float*>(p)[i];
-}
-
-// int8 byte j of `v4` (already XORed with 0x80808080, i.e. offset binary) as
-// float, exactly: the byte goes into the mantissa of 2^23.
-__device__ __forceinline__ float sbyte(uint32_t v4x, int j) {
-  return __uint_as_float(__byte_perm(v4x, 0x4B000000u, 0x7540u | j)) - 8388736.0f;
 }
 
 __device__ __forceinline__ float2 e4m3x2(uint32_t v, int half) {
@@ -80,16 +78,6 @@ __device__ __forceinline__ void bytes4_to_float(uint32_t v, float* f) {
     const uint32_t vx = v ^ 0x80808080u;
 #pragma unroll
     for (int j = 0; j < 4; ++j) f[j] = sbyte(vx, j);
-  }
-}
-
-__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
   }
 }
 
@@ -391,4 +379,22 @@ TT_EXPORT int tt_qmm_tiled(int kind, const void* x, const void* w, const void* x
     case K8_E4M3_E4M3: return launch_tiled<K8_E4M3_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K9. x [M, K] e4m3; w [N, K] e4m3; xs [M] and ws [N] f32; work [ksplit, M, N]
+// f32 scratch when ksplit > 1; out [M, N] bf16. K % 32 == 0, x and w 16-byte
+// aligned.
+TT_EXPORT int tt_fp8_rowwise_gemv(const void* x, const void* w, const void* xs, const void* ws,
+                                  void* work, void* out, int M, int K, int N, int ksplit,
+                                  void* stream) {
+  if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
+  return launch_gemv<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, work, out, M, K, N, ksplit,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_fp8_rowwise_tiled(const void* x, const void* w, const void* xs, const void* ws,
+                                   void* out, int M, int K, int N, void* stream) {
+  if (K % TK) return cudaErrorInvalidValue;
+  return launch_tiled<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, out, M, K, N,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -80,7 +80,10 @@ _FLASH = (
 )
 # kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
+# x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream
+_GEMV6 = [c_ptr] * 6 + [c_int] * 4 + [c_ptr]
 SIGNATURES = {
+    # the zero pointer (4th) may be null: the zero-free form
     "tt_int4_gemv": [c_ptr] * 6 + [c_int] * 5 + [c_ptr],
     "tt_int4_tiled": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     "tt_kv_cache_write": [c_ptr] * 9 + [c_int] * 5 + [c_ptr],
@@ -90,6 +93,10 @@ SIGNATURES = {
     "tt_flash_prefill_i8": _FLASH,
     "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_tiled": _QMM + [c_ptr] + [c_int] * 3 + [c_ptr],
+    "tt_fp8_rowwise_gemv": _GEMV6,
+    "tt_fp8_rowwise_tiled": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    "tt_fp6_dual_gemv": _GEMV6,
+    "tt_fp6_gemv": _GEMV6,
 }
 
 

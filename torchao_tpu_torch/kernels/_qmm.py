@@ -1,10 +1,13 @@
-"""Launcher shared by the K6, K7 and K8 wrappers (``csrc/qmatmul.cu``).
+"""Launcher shared by the K6, K7, K8 and K9 wrappers (``csrc/qmatmul.cu``).
 
 ``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]`` in one templated
 weight-streaming kernel with two launch shapes: ``gemv`` for M ≤ 32 (K
 split over blocks until about ``_TARGET_BLOCKS`` are in flight) and
-``tiled`` for larger M. Each wrapper counts its launches in
-``_build.LAUNCHES`` under ``<name>_gemv`` or ``<name>_tiled``.
+``tiled`` for larger M. K9 has its own C entry points
+(``tt_fp8_rowwise_{gemv,tiled}``, f32 scales per row of x and of w); the
+others share ``tt_qmm_{gemv,tiled}``, which take the kind. Each wrapper
+counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
+``<name>_tiled``.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ _GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
 _TARGET_BLOCKS = 1024
 
 # csrc Kind
-K6_BF16_I8, K7_I8_I8, K8_BF16_E4M3, K8_E4M3_E4M3 = range(4)
+K6_BF16_I8, K7_I8_I8, K8_BF16_E4M3, K8_E4M3_E4M3, K9_E4M3_ROW = range(5)
 _X_DTYPE = {K6_BF16_I8: torch.bfloat16, K7_I8_I8: torch.int8,
-            K8_BF16_E4M3: torch.bfloat16, K8_E4M3_E4M3: torch.float8_e4m3fn}
+            K8_BF16_E4M3: torch.bfloat16, K8_E4M3_E4M3: torch.float8_e4m3fn,
+            K9_E4M3_ROW: torch.float8_e4m3fn}
 _W_DTYPE = {K6_BF16_I8: torch.int8, K7_I8_I8: torch.int8,
-            K8_BF16_E4M3: torch.float8_e4m3fn, K8_E4M3_E4M3: torch.float8_e4m3fn}
+            K8_BF16_E4M3: torch.float8_e4m3fn, K8_E4M3_E4M3: torch.float8_e4m3fn,
+            K9_E4M3_ROW: torch.float8_e4m3fn}
 _SCALE_KIND = {torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -77,6 +82,12 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name}: tensors must share one device")
     xs = _scale_arg(x_scale, (M,), "x_scale")   # the kernel reads xs[m]
     ws = _scale_arg(w_scale, (1, N), "w_scale")
+    if kind == K9_E4M3_ROW:
+        if xs[1] != 2 or ws[1] != 2 or w_scale.numel() != N:
+            raise ValueError(f"{name}: x_scale [M] and w_scale [N] must be f32")
+        entry, args = "tt_fp8_rowwise", (x.data_ptr(), w.data_ptr(), xs[0], ws[0])
+    else:
+        entry, args = "tt_qmm", (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
     lib = _build.library()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = _build.stream_handle(x.device)
@@ -85,11 +96,10 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
         ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
         acc = torch.int32 if kind == K7_I8_I8 else torch.float32
         work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=acc, device=x.device)
-        lib.launch("tt_qmm_gemv", kind, x.data_ptr(), w.data_ptr(), xs[0], xs[1], ws[0], ws[1],
-                   ws[2], work.data_ptr(), out.data_ptr(), M, K, N, ksplit, stream)
+        lib.launch(f"{entry}_gemv", *args, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                   stream)
         _build.LAUNCHES[f"{name}_gemv"] += 1
     else:
-        lib.launch("tt_qmm_tiled", kind, x.data_ptr(), w.data_ptr(), xs[0], xs[1], ws[0], ws[1],
-                   ws[2], out.data_ptr(), M, K, N, stream)
+        lib.launch(f"{entry}_tiled", *args, out.data_ptr(), M, K, N, stream)
         _build.LAUNCHES[f"{name}_tiled"] += 1
     return out

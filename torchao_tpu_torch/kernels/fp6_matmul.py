@@ -1,0 +1,183 @@
+"""fp6 (e3m2) weight-only matmuls: CUDA kernel wrappers + plain versions.
+
+Port of two functions of ``torchao_tpu/kernels/fp6_matmul.py`` (CUDA source
+``csrc/fp6_matmul.cu``), both decode GEMVs for M <= 16 that return x's
+dtype:
+
+- :func:`fp6_dual_matmul` (K11): the fp6 weight as its two exact integer
+  planes, ``v32 = A + 16·B`` with A XORed K-major nibbles ``[(L,) K/2, N]``
+  (−8..7) and B int8 ``[(L,) N, K]`` (−56..56);
+  ``out = (x@A + 16·x@B) · s32[n]`` with ``s32 = scale / 32``. Replaces
+  ``fp6_dual_matmul`` (pallas_call at ``fp6_matmul.py:428``, body
+  ``_kernel_dual`` at :317). Counts its launches as ``fp6_dual_matmul``.
+- :func:`fp6_dq_matmul` (K12): the packed 6-bit shards, s4 ``[(L,) K/2,
+  N]`` (half-split nibbles ``m | e0<<2 | e1<<3``) and s2 ``[(L,) K/4, N]``
+  (quarter-split 2-bit fields ``e2 | s<<1``);
+  ``out = (Σ_k x·v32(k, n)) · scale[n] / 32``. Replaces ``fp6_dq_matmul``
+  (pallas_call at :189, body ``_kernel_fp6`` at :72). Counts its launches
+  as ``fp6_dq_matmul``.
+
+:func:`pack_fp6_kmajor` is the port's copy of the JAX package's packing of
+6-bit codes into those two shards. ``*_supported`` are the JAX package's
+guards (``fp6_dual_matmul_available``, ``fp6_dq_matmul_available``) on
+shapes. A stacked weight is addressed by ``layer_idx`` (a view: nothing is
+copied). A CUDA tensor launches the kernel (or raises); only a CPU tensor
+takes the plain version, which also takes float32 x (the kernels take bf16).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels._qmm import layer
+from torchao_tpu_torch.utils import cdiv
+
+GEMV_MAX_M = 16
+_TN = 128            # columns per block (csrc TN)
+_RUN = 8             # K11: packed A rows per run (csrc RUN)
+_RUN6 = 4            # K12: s2 rows per run (csrc RUN6)
+_TARGET_BLOCKS = 1024
+
+
+def pack_fp6_kmajor(codes: torch.Tensor):
+    """``[.., N, K]`` 6-bit codes (``s<<5 | e<<2 | m``) → (s4 ``[.., K/2,
+    N]``, s2 ``[.., K/4, N]``) uint8, the kernels' K-major layout."""
+    c = codes.to(torch.uint8).transpose(-1, -2)          # [.., K, N]
+    m, e, s = c & 3, (c >> 2) & 7, (c >> 5) & 1
+    f4 = m | ((e & 3) << 2)                              # m | e0<<2 | e1<<3
+    f2 = ((e >> 2) & 1) | (s << 1)                       # e2 | s<<1
+    K = c.shape[-2]
+    Q = K // 4
+    s4 = f4[..., : K // 2, :] | (f4[..., K // 2:, :] << 4)
+    s2 = (f2[..., :Q, :] | (f2[..., Q:2 * Q, :] << 2) | (f2[..., 2 * Q:3 * Q, :] << 4)
+          | (f2[..., 3 * Q:, :] << 6))
+    return s4.contiguous(), s2.contiguous()
+
+
+# fp6 · 32 of every 6-bit code s<<5 | e<<2 | m: sign·((4+m)·[e>0] + 2m·[e=0])·2^e
+_V32 = [(-1 if c & 32 else 1) * ((4 + (c & 3)) if (c >> 2) & 7 else 2 * (c & 3)) << ((c >> 2) & 7)
+        for c in range(64)]
+
+
+def code_v32(codes: torch.Tensor) -> torch.Tensor:
+    """fp6 codes → ``fp6 · 32`` in f32 (integers, exact)."""
+    return torch.tensor(_V32, dtype=torch.float32, device=codes.device)[codes.int()]
+
+
+def fp6_v32(s4: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """The shards of one layer as ``fp6 · 32``, ``[K, N]`` f32."""
+    f4 = torch.cat([s4 & 0xF, s4 >> 4], dim=-2)
+    f2 = torch.cat([(s2 >> (2 * q)) & 3 for q in range(4)], dim=-2)
+    return code_v32(f4 | (f2 << 4))
+
+
+# ------------------------------------------------------------------- K11 --
+
+
+def fp6_dual_supported(M: int, K: int, N: int) -> bool:
+    """The JAX package's guard: K/2 % 256 == 0, N % 128 == 0, M <= 16."""
+    return M <= GEMV_MAX_M and (K // 2) % 256 == 0 and K % 2 == 0 and N % 128 == 0
+
+
+def fp6_dual_matmul_plain(x, wa, wb, s32, *, layer_idx=None):
+    """Plain PyTorch version of ``_kernel_dual``'s math: both planes
+    contracted in f32 into one sum, times the f32 ``s32``, rounded once."""
+    wa, wb, s32 = layer(layer_idx, wa, wb, s32)
+    Kp = wa.shape[0]
+    qd = wa ^ 0x80
+    a_lo = (qd & 0xF).float() - 8.0
+    a_hi = (qd >> 4).float() - 8.0
+    xf = x.float()
+    acc = xf[:, :Kp] @ a_lo + xf[:, Kp:] @ a_hi + 16.0 * (xf @ wb.float().T)
+    return (acc * s32.float().reshape(1, -1)).to(x.dtype)
+
+
+def _check(name, x, tensors, dtypes):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} on CUDA takes bf16 x")
+    for (what, t), dt in zip(tensors, dtypes):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {what} must be {dt}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous on {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be contiguous and 16-byte aligned")
+
+
+def fp6_dual_matmul(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor, s32: torch.Tensor, *,
+                    layer_idx: Optional[int] = None) -> torch.Tensor:
+    """``x [M, K]`` times the dual-plane fp6 weight: A ``[(L,) K/2, N]`` u8,
+    B ``[(L,) N, K]`` int8, ``s32 [(L,) N]``; returns ``[M, N]``."""
+    if x.device.type == "cpu":
+        return fp6_dual_matmul_plain(x, wa, wb, s32, layer_idx=layer_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    wa, wb, s32 = layer(layer_idx, wa, wb, s32)
+    M, K = x.shape
+    Kp, N = wa.shape
+    if wb.shape != (N, K) or Kp * 2 != K or s32.numel() != N:
+        raise ValueError(f"fp6_dual_matmul: shape mismatch x {tuple(x.shape)}, "
+                         f"A {tuple(wa.shape)}, B {tuple(wb.shape)}, s32 {tuple(s32.shape)}")
+    if not fp6_dual_supported(M, K, N):
+        raise ValueError(f"fp6_dual_matmul: unsupported shape M={M}, K={K}, N={N}")
+    _check("fp6_dual_matmul", x, (("A", wa), ("B", wb), ("s32", s32)),
+           (torch.uint8, torch.int8, torch.bfloat16))
+    runs = Kp // _RUN
+    ksplit = max(1, min(runs // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _TN))))
+    ws = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
+                     device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.library().launch("tt_fp6_dual_gemv", x.data_ptr(), wa.data_ptr(), wb.data_ptr(),
+                            s32.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                            _build.stream_handle(x.device))
+    _build.LAUNCHES["fp6_dual_matmul"] += 1
+    return out
+
+
+# ------------------------------------------------------------------- K12 --
+
+
+def fp6_dq_supported(M: int, K: int, N: int) -> bool:
+    """The JAX package's guard: K % 512 == 0, N % 128 == 0, M <= 16."""
+    return M <= GEMV_MAX_M and K % 512 == 0 and N % 128 == 0
+
+
+def fp6_dq_matmul_plain(x, s4, s2, scale, *, layer_idx=None):
+    """Plain PyTorch version of ``fp6_dq_matmul``, rounding where it rounds:
+    ``Σ x·v32`` in f32, rounded to x.dtype, times ``scale/32`` in x.dtype."""
+    s4, s2, scale = layer(layer_idx, s4, s2, scale)
+    acc = x.float() @ fp6_v32(s4, s2)
+    return acc.to(x.dtype) * (scale.float() / 32.0).to(x.dtype).reshape(1, -1)
+
+
+def fp6_dq_matmul(x: torch.Tensor, s4: torch.Tensor, s2: torch.Tensor, scale: torch.Tensor, *,
+                  layer_idx: Optional[int] = None) -> torch.Tensor:
+    """``x [M, K]`` times the packed fp6 weight: s4 ``[(L,) K/2, N]``, s2
+    ``[(L,) K/4, N]`` u8, ``scale [(L,) N]``; returns ``[M, N]``."""
+    if x.device.type == "cpu":
+        return fp6_dq_matmul_plain(x, s4, s2, scale, layer_idx=layer_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    s4, s2, scale = layer(layer_idx, s4, s2, scale)
+    M, K = x.shape
+    N = s4.shape[-1]
+    if s4.shape != (K // 2, N) or s2.shape != (K // 4, N) or scale.numel() != N:
+        raise ValueError(f"fp6_dq_matmul: shape mismatch x {tuple(x.shape)}, s4 "
+                         f"{tuple(s4.shape)}, s2 {tuple(s2.shape)}, scale {tuple(scale.shape)}")
+    if not fp6_dq_supported(M, K, N):
+        raise ValueError(f"fp6_dq_matmul: unsupported shape M={M}, K={K}, N={N}")
+    _check("fp6_dq_matmul", x, (("s4", s4), ("s2", s2), ("scale", scale)),
+           (torch.uint8, torch.uint8, torch.bfloat16))
+    runs = K // 4 // _RUN6
+    ksplit = max(1, min(runs // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _TN))))
+    ws = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
+                     device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.library().launch("tt_fp6_gemv", x.data_ptr(), s4.data_ptr(), s2.data_ptr(),
+                            scale.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                            _build.stream_handle(x.device))
+    _build.LAUNCHES["fp6_dq_matmul"] += 1
+    return out

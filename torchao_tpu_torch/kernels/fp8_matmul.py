@@ -1,17 +1,25 @@
-"""fp8 mixed matmul: CUDA kernel wrapper + plain version.
+"""fp8 matmuls: CUDA kernel wrappers + plain versions.
 
-Port of ``torchao_tpu/kernels/fp8_matmul.py::fp8_mixed_matmul`` (K8; CUDA
-source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``; replaces
-the pallas_call at ``fp8_matmul.py:218``, body ``_mixed_kernel`` at :129):
-``out = (x · w_qᵀ) · xs[m] · ws[n]`` with an e4m3 weight ``[(L,) N, K]``,
-and x in bf16 (float8wo, no x scale) or e4m3 (float8dq, per-row x scales),
-f32 accumulation. Weight scales are per row (``[(L,) N]`` or
-``[(L,) N, 1]``) or one per layer (``[(L,) 1]``).
+Port of two functions of ``torchao_tpu/kernels/fp8_matmul.py`` (CUDA source
+``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
 
-The kernel counts its launches as ``fp8_mixed_matmul_{gemv,tiled}`` with
-bf16 x and ``fp8_mixed_matmul_e4m3_{gemv,tiled}`` with e4m3 x. A CUDA
-tensor launches the kernel (or raises); only a CPU tensor takes the plain
-version.
+- :func:`fp8_mixed_matmul` (K8; replaces the pallas_call at
+  ``fp8_matmul.py:218``, body ``_mixed_kernel`` at :129):
+  ``out = (x · w_qᵀ) · xs[m] · ws[n]`` with a stacked e4m3 weight
+  ``[(L,) N, K]``, and x in bf16 (float8wo, no x scale) or e4m3 (float8dq,
+  per-row x scales), f32 accumulation. Weight scales are per row
+  (``[(L,) N]`` or ``[(L,) N, 1]``) or one per layer (``[(L,) 1]``). It
+  counts its launches as ``fp8_mixed_matmul_{gemv,tiled}`` with bf16 x and
+  ``fp8_mixed_matmul_e4m3_{gemv,tiled}`` with e4m3 x.
+- :func:`fp8_rowwise_matmul` (K9; replaces the pallas_call at :79, body
+  ``_kernel`` at :24): e4m3 x ``[M, K]`` times an unstacked e4m3 weight
+  ``[N, K]``, f32 accumulation, epilogue ``acc · xs[m] · ws[n]`` with f32
+  per-row scales (the float8dq-row head). A gemv form for M <= 32 (the head
+  at decode) and a tiled form above (the head at prefill), counted as
+  ``fp8_rowwise_matmul_{gemv,tiled}``.
+
+A CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
+plain version.
 """
 
 from __future__ import annotations
@@ -58,3 +66,24 @@ def fp8_mixed_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError("fp8_mixed_matmul: bf16 x takes no x_scale")
     return _qmm.qmm("fp8_mixed_matmul", _qmm.K8_BF16_E4M3, x, w_q, None, w_scale.reshape(-1),
                     out_dtype)
+
+
+def fp8_rowwise_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of ``fp8_rowwise_matmul_reference``: both
+    operands upcast exactly, contracted in f32, times the f32 scales (x's,
+    then w's), rounded once."""
+    acc = x_q.float() @ w_q.float().T
+    out = acc * x_scale.float().reshape(-1, 1) * w_scale.float().reshape(1, -1)
+    return out.to(out_dtype)
+
+
+def fp8_rowwise_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                       w_scale: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x_q [M, K]`` e4m3 with ``x_scale [M]`` times ``w_q [N, K]`` e4m3
+    with ``w_scale [N]`` (both f32); returns ``[M, N]`` in ``out_dtype``."""
+    if x_q.device.type == "cpu":
+        return fp8_rowwise_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_q.device}")
+    return _qmm.qmm("fp8_rowwise_matmul", _qmm.K9_E4M3_ROW, x_q, w_q, x_scale.reshape(-1),
+                    w_scale.reshape(-1), out_dtype)

@@ -2,9 +2,10 @@
 
 Port of ``config_from_recipe`` of ``torchao_tpu/models/llama/cli.py`` for
 the ported configs: ``int8wo``, ``int8dq``, ``int8dq_prefill_wo_decode``,
-``float8wo``, ``float8dq-row`` (alias ``float8dq``) and ``int4wo-<g>``. Any
-other recipe raises ``NotImplementedError``; the rest of the JAX package's
-command line is not ported.
+``float8wo``, ``float8dq-row`` (alias ``float8dq``), ``int4wo-<g>``,
+``8da4w[-<g>]`` (group 32 by default) and ``fp6`` (the dual-plane runtime,
+the JAX default). Any other recipe raises ``NotImplementedError``; the rest
+of the JAX package's command line is not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from torchao_tpu_torch.quantization.granularity import PerRow
 from torchao_tpu_torch.quantization.quant_api import (
     Float8DynamicActivationFloat8WeightConfig,
     Float8WeightOnlyConfig,
+    FPXWeightOnlyConfig,
     Int4WeightOnlyConfig,
+    Int8DynamicActivationInt4WeightConfig,
     Int8DynamicActivationInt8WeightConfig,
     Int8WeightOnlyConfig,
 )
@@ -31,6 +34,12 @@ def config_from_recipe(q: str):
     if q.startswith("int4wo") and not q.endswith("-hqq"):
         parts = q.split("-")
         return Int4WeightOnlyConfig(group_size=int(parts[1]) if len(parts) > 1 else 128)
+    if q.startswith("8da4w"):
+        parts = q.split("-")
+        return Int8DynamicActivationInt4WeightConfig(
+            group_size=int(parts[1]) if len(parts) > 1 else 32)
+    if q == "fp6":
+        return FPXWeightOnlyConfig(ebits=3, mbits=2)
     if q == "float8wo":
         return Float8WeightOnlyConfig()
     if q in ("float8dq-row", "float8dq"):

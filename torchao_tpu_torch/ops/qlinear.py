@@ -21,13 +21,35 @@ version for a CPU tensor.
 - float8 stacked (per-row or per-layer weight scales) →
   ``fp8_mixed_matmul`` (K8) with bf16 x (float8wo), or with per-row e4m3
   activations quantized first in plain torch (float8dq-row), as the JAX
-  package does in XLA. The unstacked fp8 head follows the JAX package's
-  default route, XLA there and plain torch here: float8wo dequantizes and
-  calls ``torch.matmul``; float8dq takes the f32 product of the upcast e4m3
-  operands times both scales. (Whether the head should take K8 or K9 on
-  the H100 is an open decision, ROADMAP.md.)
-- Any other quantized weight is dequantized and multiplied on the CPU only;
-  on a CUDA tensor it raises, because no kernel is ported for it yet.
+  package does in XLA.
+- float8dq-row unstacked (the head: per-row weight scales, per-row e4m3
+  activations) → ``fp8_rowwise_matmul`` (K9). The JAX package makes K9
+  opt-in because the TPU it was measured on (v5e) has no fp8 arithmetic and
+  its comment asks for it on hardware with native fp8; the H100 has it, and
+  the plain-torch head took 2.36 ms per decode step against 0.184 ms for a
+  kernel on the same weight (PERF.md). The other unstacked fp8 heads keep
+  the JAX package's default route, XLA there and plain torch here (a
+  per-tensor float8dq scale: the f32 product of the upcast e4m3 operands
+  times both scales; float8wo: dequantize and ``torch.matmul``).
+- fp6, dual planes (``Fp6DualArray``, the ``fp6`` recipe): a stacked weight
+  at M <= 16 within K11's guard → ``fp6_dual_matmul`` (K11); otherwise, and
+  always for the unstacked head, the two planes ride their own routes and
+  are summed in x.dtype: the A plane (zero-free int4, g = 128) K1/K5, the B
+  plane (int8 per channel) K6.
+- fp6, packed (``FloatxArray``): M <= 16 within K12's guard, stacked or
+  not → ``fp6_dq_matmul`` (K12); otherwise the weight is dequantized and
+  multiplied with ``torch.matmul`` (the JAX package's XLA route).
+- 8da4w (``LinearActivationQuantizedArray``, per-token int8 activations,
+  symmetric or asymmetric, over a TILED int4 weight): the activations are
+  quantized, centred as ``q − zp`` (exact: |q − zp| <= 255) and fed to K1/K5
+  in its zero-free form; the output is multiplied by the per-token scale in
+  f32 and cast. The JAX package centres into bf16; the port keeps x's dtype
+  (the same numbers for a bf16 model, and no bf16 rounding of the weights
+  for a float32 one on the CPU).
+- Any other quantized weight is dequantized and multiplied on the CPU only
+  (another activation-quantized weight first quantizes and dequantizes its
+  activations, as the JAX package's generic route does); on a CUDA tensor it
+  raises, because no kernel is ported for it yet.
 """
 
 from __future__ import annotations
@@ -37,7 +59,13 @@ from typing import Optional
 
 import torch
 
-from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul
+from torchao_tpu_torch.kernels.fp6_matmul import (
+    fp6_dq_matmul,
+    fp6_dq_supported,
+    fp6_dual_matmul,
+    fp6_dual_supported,
+)
+from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_rowwise_matmul
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul
 from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
@@ -50,6 +78,7 @@ from torchao_tpu_torch.qtypes.float8 import (
     Float8Array,
     quantize_activation_float8,
 )
+from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization import quant_primitives as qp
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
@@ -72,6 +101,15 @@ def _int8_per_token_sym_noop_decode(x: torch.Tensor):
     return qp.quantize_activation_per_token_absmax(x)
 
 
+@register_act_quant("int8_per_token_asym")
+def _int8_per_token_asym(x: torch.Tensor):
+    """Per-token asymmetric int8: (codes, scale, int32 zero point)."""
+    block = qp.per_token_block_size(x)
+    scale, zp = qp.choose_qparams_affine(x, qp.MappingType.ASYMMETRIC, block, "int8",
+                                         zero_point_dtype=torch.int32)
+    return qp.quantize_affine(x, block, scale, zp, "int8"), scale, zp
+
+
 @register_act_quant("fp8_per_row")
 def _fp8_per_row(x: torch.Tensor, hp_value_ub=None):
     """Per-row e4m3 activations; the scale squeezed to ``x.shape[:-1]``."""
@@ -86,10 +124,11 @@ def _fp8_per_row(x: torch.Tensor, hp_value_ub=None):
 
 
 def _is_int4_tiled(w) -> bool:
+    """TILED nibbles in the FLOAT zero domain, or zero-free (z = 0)."""
     return (
         isinstance(w, IntxArray)
         and w.packing_format is PackingFormat.TILED_NIBBLES
-        and w.zero_point_domain is ZeroPointDomain.FLOAT
+        and (w.zero_point_domain is ZeroPointDomain.FLOAT or w.zero_point is None)
         and w.quant_max - w.quant_min <= 15
     )
 
@@ -112,6 +151,26 @@ def _is_int8dq(w) -> bool:
     )
 
 
+def _is_8da4w(w) -> bool:
+    return (
+        isinstance(w, LinearActivationQuantizedArray)
+        and w.input_quant_name in ("int8_per_token_sym", "int8_per_token_asym")
+        and _is_int4_tiled(w.original_weight)
+        and w.original_weight.target_dtype == "int4"
+    )
+
+
+def _is_fp8_row_head(w, layer_idx) -> bool:
+    """K9's guard (the JAX package's): an unstacked e4m3 weight with per-row
+    scales and per-row activations, K and N multiples of 128."""
+    if not isinstance(w, Float8Array) or layer_idx is not None or w.qdata.ndim != 2:
+        return False
+    N, K = w.qdata.shape
+    spec = w.act_quant_spec
+    return (spec is not None and spec.granularity == "per_row" and w.scale.numel() == N
+            and K % 128 == 0 and N % 128 == 0)
+
+
 def _is_fp8_stacked(w, layer_idx) -> bool:
     """K8 takes a stacked e4m3 weight with per-row or per-layer scales (a
     per-tensor scale over all layers is declined, as in the JAX package)."""
@@ -121,6 +180,50 @@ def _is_fp8_stacked(w, layer_idx) -> bool:
     spec = w.act_quant_spec
     return (w.float8_dtype == "float8_e4m3fn" and w.scale.numel() in (L, L * N)
             and (spec is None or spec.granularity in ("per_row", "per_tensor")))
+
+
+def _int4(x2, w: IntxArray, layer_idx):
+    mid = (w.quant_max + w.quant_min + 1) / 2 - w.quant_min
+    return int4_dq_matmul(x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1],
+                          mid=mid, layer_idx=layer_idx, xored=w.nibbles_xored)
+
+
+def _8da4w(x2, w: LinearActivationQuantizedArray, layer_idx):
+    quantized = w.quantize_input(x2)
+    q, scale = quantized[0], quantized[1]
+    xc = q.to(torch.int32)
+    if len(quantized) == 3:  # asymmetric: centre on the zero point
+        xc = xc - quantized[2].to(torch.int32).reshape(-1, 1)
+    out = _int4(xc.to(x2.dtype), w.original_weight, layer_idx)
+    return (out.float() * scale.float().reshape(-1, 1)).to(x2.dtype)
+
+
+def _fp6_dual(x2, w: Fp6DualArray, layer_idx):
+    a, b = w.a_plane, w.b_plane
+    N, K = w.shape[-2:]
+    if layer_idx is not None and a.nibbles_xored and fp6_dual_supported(x2.shape[0], K, N):
+        return fp6_dual_matmul(x2, a.qdata, b.qdata, a.scale[..., 0, :], layer_idx=layer_idx)
+    return _int4(x2, a, layer_idx) + _int8wo(x2, b, layer_idx)
+
+
+def _fp6_packed(x2, w: FloatxArray, layer_idx):
+    N, K = w.shape[-2:]
+    if fp6_dq_supported(x2.shape[0], K, N):
+        return fp6_dq_matmul(x2, w.qdata, w.qdata2, w.scale, layer_idx=layer_idx)
+    if layer_idx is not None:
+        w = w.take_layer(layer_idx)
+    return torch.matmul(x2, w.dequantize(x2.dtype).T)
+
+
+def _laqt_qdq(x, w: LinearActivationQuantizedArray):
+    """The JAX package's generic route: quantize-dequantize x, then the
+    inner weight (CPU only here)."""
+    quantized = w.quantize_input(x)
+    per_token = lambda t: t.float().reshape(*x.shape[:-1], 1)
+    q = quantized[0].float()
+    if len(quantized) == 3:
+        q = q - per_token(quantized[2])
+    return (q * per_token(quantized[1])).to(x.dtype)
 
 
 def _int8wo(x2, w: IntxArray, layer_idx):
@@ -150,6 +253,11 @@ def _fp8_stacked(x2, w: Float8Array, layer_idx, out_dtype):
                             layer_idx=layer_idx)
 
 
+def _fp8_row_head(x2, w: Float8Array):
+    x_q, x_scale = quantize_activation_float8(x2, w.act_quant_spec)
+    return fp8_rowwise_matmul(x_q, w.qdata, x_scale.reshape(-1), w.scale.reshape(-1), x2.dtype)
+
+
 def _fp8_head(x, w: Float8Array):
     """The JAX package's XLA route for an unstacked fp8 weight, in plain
     torch (per-row or per-tensor weight scales)."""
@@ -176,22 +284,28 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     N, K = w.shape[-2:]
     x2 = x.reshape(-1, K).contiguous()
     if _is_int4_tiled(w):
-        mid = (w.quant_max + w.quant_min + 1) / 2 - w.quant_min
-        out = int4_dq_matmul(
-            x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1], mid=mid,
-            layer_idx=layer_idx, xored=w.nibbles_xored,
-        )
+        out = _int4(x2, w, layer_idx)
+    elif _is_8da4w(w):
+        out = _8da4w(x2, w, layer_idx)
+    elif isinstance(w, Fp6DualArray):
+        out = _fp6_dual(x2, w, layer_idx)
+    elif isinstance(w, FloatxArray):
+        out = _fp6_packed(x2, w, layer_idx)
     elif _is_int8_per_channel(w):
         out = _int8wo(x2, w, layer_idx)
     elif _is_int8dq(w):
         out = _int8dq(x, x2, w, layer_idx)
     elif _is_fp8_stacked(w, layer_idx):
         out = _fp8_stacked(x2, w, layer_idx, x.dtype)
+    elif _is_fp8_row_head(w, layer_idx):
+        out = _fp8_row_head(x2, w)
     elif isinstance(w, Float8Array) and layer_idx is None and w.qdata.ndim == 2:
         out = _fp8_head(x, w)
     elif x.device.type == "cpu":
         if layer_idx is not None:
             w = w.take_layer(layer_idx)
+        if isinstance(w, LinearActivationQuantizedArray):
+            return linear(_laqt_qdq(x, w), w.original_weight, bias)
         out = torch.matmul(x, w.dequantize(x.dtype).T)
     else:
         raise NotImplementedError(

@@ -15,9 +15,11 @@ Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
 each of the ported configurations with its KV cache (``CONFIGS``), each in
 a fresh process (a finished ``torch.profiler`` session leaves the host
 slower for the rest of its process); with ``--trace PREFIX`` each
-configuration's chrome trace goes to ``PREFIX.<recipe>.json``::
+configuration's chrome trace goes to ``PREFIX.<recipe>.json``, and
+``--recipes`` picks some of them::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
+    python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ TEMPERATURE = 0.6
 TOP_K = 200
 # recipe (models/llama/cli.py) -> KV cache, as chip_smoke.py runs them
 CONFIGS = {"int4wo-32": "int4_smajor", "int8wo": "int8", "int8dq": False, "float8wo": False,
-           "float8dq-row": False}
+           "float8dq-row": False, "fp6": False, "8da4w-32": False}
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 
@@ -136,11 +138,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None,
                     help="write each configuration's chrome trace to PREFIX.<recipe>.json")
+    ap.add_argument("--recipes", default=",".join(CONFIGS),
+                    help="comma-separated recipes of CONFIGS to profile (default: all)")
     a = ap.parse_args()
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    for recipe, kv in CONFIGS.items():
+    for recipe in a.recipes.split(","):
+        kv = CONFIGS[recipe]
         trace = f"{a.trace}.{recipe}.json" if a.trace else None
         with ctx.Pool(1) as pool:
             res = pool.apply(_profile_recipe, (recipe, kv, trace))

@@ -1,10 +1,11 @@
 """LinearActivationQuantizedArray: a quantized weight plus the NAME of the
 function that quantizes its activations.
 
-Port of the part of ``torchao_tpu/qtypes/composition.py`` that int8dq
-uses: the weight carries a registry key (``input_quant_name``) instead of
-a callable, and ``ops/qlinear.py`` registers the quantizers under the JAX
-package's names (``int8_per_token_sym``, ``int8_per_token_sym_noop_decode``,
+Port of the part of ``torchao_tpu/qtypes/composition.py`` that int8dq and
+8da4w use: the weight carries a registry key (``input_quant_name``)
+instead of a callable, and ``ops/qlinear.py`` registers the quantizers
+under the JAX package's names (``int8_per_token_sym``,
+``int8_per_token_sym_noop_decode``, ``int8_per_token_asym``,
 ``fp8_per_row``). Registration happens when ``ops.qlinear`` is imported,
 which ``quantize_input`` does before it looks a name up.
 """

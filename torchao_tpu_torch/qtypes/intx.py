@@ -2,13 +2,16 @@
 
 Port of ``torchao_tpu/qtypes/intx.py`` for the ported configs: the tinygemm
 FLOAT zero-point scheme with TILED_NIBBLES packing (and PLAIN storage for
-odd K), and PLAIN int8 in the INT zero-point domain with the zero preserved
-(int8wo) or in the NONE domain, no zero point stored (int8dq). Storage is
-the JAX package's, byte for byte:
+odd K), symmetric int4 in the NONE domain with TILED_NIBBLES packing and no
+zero point (8da4w; fp6's A plane is the same zero-free form in the FLOAT
+domain), and PLAIN int8 in the INT zero-point domain with the zero preserved
+(int8wo) or in the NONE domain, no zero point stored (int8dq, fp6's B
+plane). Storage is the JAX package's, byte for byte:
 
 - TILED_NIBBLES is K-major: ``qdata [.., K/2, N]`` uint8 (byte k holds
-  elements k and k + K/2), ``scale``/``zero_point [.., K/g, N]`` in the
-  weight dtype; the logical shape stays ``[.., N, K]``.
+  elements k and k + K/2, stored as ``q − quant_min``), ``scale``/
+  ``zero_point [.., K/g, N]`` in the weight dtype (no zero point: z = 0);
+  the logical shape stays ``[.., N, K]``.
 - Nibble bytes are stored XORed with 0x80 (``nibbles_xored``): the low
   nibble is unchanged and the high nibble is ``(byte ^ 0x80) >> 4``.
 - PLAIN is ``qdata [.., N, K]`` int8 with per-channel ``scale [.., N]``
@@ -132,9 +135,10 @@ class IntxArray(QuantizedArray):
             while scale.ndim < w.ndim:
                 scale = scale[..., None]
             scale = scale.transpose(-1, -2).contiguous()
-            while zero_point.ndim < w.ndim:
-                zero_point = zero_point[..., None]
-            zero_point = zero_point.transpose(-1, -2).contiguous()
+            if zero_point is not None:
+                while zero_point.ndim < w.ndim:
+                    zero_point = zero_point[..., None]
+                zero_point = zero_point.transpose(-1, -2).contiguous()
         elif packing_format is not PackingFormat.PLAIN:
             raise NotImplementedError(f"{packing_format} is not ported yet")
 
@@ -152,6 +156,22 @@ class IntxArray(QuantizedArray):
             activation_dtype=w.dtype,
             nibbles_xored=packing_format is PackingFormat.TILED_NIBBLES,
         )
+
+    def slice_out_features(self, start: int, size: int) -> "IntxArray":
+        """Out-features ``start .. start + size``: the last axis of every
+        TILED_NIBBLES field; for PLAIN, the out-feature axis of qdata and
+        of each qparam."""
+        cut = slice(start, start + size)
+        if self.packing_format is PackingFormat.TILED_NIBBLES:
+            kw = {name: getattr(self, name)[..., cut] for name in self._tensor_fields
+                  if getattr(self, name) is not None}
+        else:
+            kw = {name: getattr(self, name)[..., cut, :] if getattr(self, name).ndim
+                  == self.qdata.ndim else getattr(self, name)[..., cut]
+                  for name in self._tensor_fields if getattr(self, name) is not None}
+        ls = list(self.shape)
+        ls[-2] = size
+        return dataclasses.replace(self, logical_shape=tuple(ls), **kw)
 
     @classmethod
     def concat_out_features(cls, parts) -> "IntxArray":

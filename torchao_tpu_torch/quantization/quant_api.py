@@ -17,6 +17,14 @@ underscore is kept for API parity.
 - ``Float8DynamicActivationFloat8WeightConfig(granularity)``: e4m3 weight
   with an activation spec; PerRow (and None) is per row, PerTensor one
   scale.
+- ``Int8DynamicActivationInt4WeightConfig(group_size)`` (8da4w): symmetric
+  int4 weights, qmin=-8/qmax=7, NONE zero-point domain, TILED_NIBBLES where
+  ``K/2 % max(8·g, 128) == 0`` (else PLAIN int8 storage in the INT domain),
+  wrapped with the per-token int8 activation quantizer (asymmetric by
+  default).
+- ``FPXWeightOnlyConfig(ebits, mbits, runtime)``: fp6 (e3m2) in the
+  K-major ``FloatxArray`` (``runtime="packed"``) or its exact dual-plane
+  form ``Fp6DualArray`` (``runtime="dual"``, the default).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from torchao_tpu_torch.core.config import AOBaseConfig
 from torchao_tpu_torch.qtypes.base import PackingFormat
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
+from torchao_tpu_torch.qtypes.floatx import FloatxArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization.granularity import Granularity, PerRow, PerTensor
 from torchao_tpu_torch.quantization.quant_primitives import (
@@ -48,6 +57,8 @@ __all__ = [
     "Int8DynamicActivationInt8WeightConfig",
     "Float8WeightOnlyConfig",
     "Float8DynamicActivationFloat8WeightConfig",
+    "Int8DynamicActivationInt4WeightConfig",
+    "FPXWeightOnlyConfig",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -131,6 +142,27 @@ class Float8DynamicActivationFloat8WeightConfig(AOBaseConfig):
     version: int = 2
 
 
+@dataclasses.dataclass
+class Int8DynamicActivationInt4WeightConfig(AOBaseConfig):
+    """8da4w: int8 per-token activations x int4 group-wise weights."""
+
+    group_size: int = 32
+    mapping_type: MappingType = MappingType.SYMMETRIC
+    act_mapping_type: MappingType = MappingType.ASYMMETRIC
+    version: int = 1
+
+
+@dataclasses.dataclass
+class FPXWeightOnlyConfig(AOBaseConfig):
+    """Sub-byte float (ExMy; fp6 = e3m2) weight-only. ``runtime``: "dual"
+    serves the exact dual-plane form, "packed" keeps the 6-bit shards."""
+
+    ebits: int = 3
+    mbits: int = 2
+    runtime: str = "dual"
+    version: int = 1
+
+
 @register_quantize_module_handler(Int8WeightOnlyConfig)
 def _int8_weight_only_transform(w: torch.Tensor, config: Int8WeightOnlyConfig):
     group_size = w.shape[-1] if config.group_size is None else config.group_size
@@ -174,6 +206,37 @@ def _float8_dyn_act_float8_weight_transform(
                               hp_value_ub=config.activation_value_ub)
     return Float8Array.from_hp(w, block_size=block_size, float8_dtype=config.weight_dtype,
                                act_quant_spec=spec, fast_accum=config.fast_accum)
+
+
+@register_quantize_module_handler(Int8DynamicActivationInt4WeightConfig)
+def _int8_dyn_act_int4_weight_transform(w: torch.Tensor,
+                                        config: Int8DynamicActivationInt4WeightConfig):
+    group_size = config.group_size
+    if group_size in (None, -1):
+        group_size = w.shape[-1]
+    if w.shape[-1] % group_size != 0:
+        return w
+    block_size = tuple([1] * (w.ndim - 1) + [group_size])
+    tiled = (config.mapping_type is MappingType.SYMMETRIC and w.shape[-1] % 2 == 0
+             and (w.shape[-1] // 2) % max(8 * group_size, 128) == 0)
+    if tiled:
+        inner = IntxArray.from_hp(w, config.mapping_type, block_size, "int4", quant_min=-8,
+                                  quant_max=7, zero_point_domain=ZeroPointDomain.NONE,
+                                  packing_format=PackingFormat.TILED_NIBBLES)
+    else:
+        inner = IntxArray.from_hp(w, config.mapping_type, block_size, "int4", quant_min=-8,
+                                  quant_max=7)
+    act = ("int8_per_token_asym" if config.act_mapping_type is MappingType.ASYMMETRIC
+           else "int8_per_token_sym")
+    return LinearActivationQuantizedArray(original_weight=inner, input_quant_name=act)
+
+
+@register_quantize_module_handler(FPXWeightOnlyConfig)
+def _fpx_weight_only_transform(w: torch.Tensor, config: FPXWeightOnlyConfig):
+    fx = FloatxArray.from_hp(w, config.ebits, config.mbits)
+    if config.runtime == "dual":
+        return fx.to_dual_planes()
+    return fx
 
 
 def _default_filter(path: str, leaf) -> bool:

@@ -17,11 +17,16 @@ qparams are bit-exact with the JAX package on the CPU:
   ``quantize_affine_float8`` (``clip(x / scale, ±448)`` cast to e4m3; the
   cast rounds to nearest even, as ml_dtypes' does),
   ``dequantize_affine_float8``, ``_expand_scale_to_tensor_shape``
+- floatx (ExMy, fp6 = e3m2): ``choose_qparams_affine_floatx`` (per-row
+  power-of-two scale), ``quantize_affine_floatx`` (round to the grid, with
+  subnormals), ``dequantize_affine_floatx``, ``exmy_encode`` /
+  ``exmy_decode`` (6-bit codes ``s<<5 | e<<2 | m``)
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -43,6 +48,11 @@ __all__ = [
     "choose_scale_float8",
     "quantize_affine_float8",
     "dequantize_affine_float8",
+    "choose_qparams_affine_floatx",
+    "quantize_affine_floatx",
+    "dequantize_affine_floatx",
+    "exmy_encode",
+    "exmy_decode",
 ]
 
 
@@ -458,3 +468,153 @@ def dequantize_affine_float8(
     """``q.float() * scale``, cast to ``output_dtype``."""
     scale_e = _expand_scale_to_tensor_shape(scale.float(), tensor.shape)
     return (tensor.float() * scale_e).to(output_dtype)
+
+
+# ---------------------------------------------------------------------------
+# floatx (ExMy custom floats, fp6 = e3m2)
+# ---------------------------------------------------------------------------
+#
+# The JAX package takes exponents with ``floor(jnp.log2(x))``, and jnp.log2
+# is ``log(x) / log(2)`` with XLA's float32 log, the division compiled into a
+# multiplication by float32(1 / log 2). That is not exact: on the CPU,
+# log2(2**13) floors to 12, and values a few ulps from a power of two floor
+# to the other side than the exact exponent does (torch.log2 errs as well, at
+# other points). :func:`_floor_log2` therefore computes XLA's float32 log
+# operation for operation (a Cephes polynomial, as Eigen's; the f32 FMA is an
+# f64 multiply-add) times that constant, which reproduces the JAX result bit
+# for bit. Inputs below the smallest normal float give -inf, as
+# XLA's flush of subnormals does. Powers of two come from ``ldexp`` (exact):
+# jnp.exp2 is ``exp(x * ln2)`` and exact only for the exponents these
+# functions meet below 2**13 (a scale exponent below -5 is raised to -5).
+
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32 (XLA's constants are float32)."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+_LOG_P = [_f32(v) for v in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                            -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                            2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)]
+_LOG_Q1, _LOG_Q2, _SQRT_HALF = _f32(-2.12194440e-4), 0.693359375, _f32(0.707106781186547524)
+
+
+def _fma32(a, b, c):
+    return (a.double() * b + c).float()
+
+
+def _true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` with IEEE division (PyTorch turns a division by a scalar
+    into a multiplication by its reciprocal on the card)."""
+    return a / torch.full_like(a, b)
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` for positive ``x`` (see the note above)."""
+    x = x.float()
+    bits = x.view(torch.int32)
+    e = (((bits >> 23) & 0xFF) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # mantissa in [0.5, 1)
+    small = m < _SQRT_HALF
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma32(m, p[0], p[1])
+    y1 = _fma32(m, p[3], p[4])
+    y2 = _fma32(m, p[6], p[7])
+    y = _fma32(y, m, p[2])
+    y1 = _fma32(y1, m, p[5])
+    y2 = _fma32(y2, m, p[8])
+    y = _fma32(y, x3, y1)
+    y = _fma32(y, x3, y2)
+    y = _fma32(y, x3, e * _LOG_Q1)
+    m = (m - x2 * 0.5) + y
+    m = m + e * _LOG_Q2
+    return torch.where(x < torch.finfo(torch.float32).tiny, float("-inf"), m)
+
+
+_INV_LN2 = _f32(1.0 / _f32(math.log(2.0)))
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """``floor(jnp.log2(x))`` as the JAX package computes it on the CPU."""
+    return torch.floor(_xla_log(x) * _INV_LN2)
+
+
+def _exp2(e: torch.Tensor) -> torch.Tensor:
+    """``2**e`` for integer-valued float ``e`` (or -inf), exact: the float
+    is built from its exponent bits (normal range; below it, 2**-126)."""
+    finite = torch.isfinite(e)
+    ei = torch.where(finite, e, 0.0).to(torch.int32).clamp(-126, 127)
+    p = ((ei + 127) << 23).view(torch.float32)
+    return torch.where(finite, p, torch.zeros_like(p))
+
+
+def _floatx_consts(ebits: int, mbits: int):
+    exp_bias = 2 ** (ebits - 1) - 1
+    max_normal = 2 ** (2**ebits - 2 - exp_bias) * (2 ** (mbits + 1) - 1) / (2**mbits)
+    return exp_bias, max_normal
+
+
+def choose_qparams_affine_floatx(tensor: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
+    """Per-row power-of-two scale mapping the row's absmax to the largest
+    ExMy value, rounded down, at least ``2**-(exp_bias + mbits)``; in the
+    tensor's dtype."""
+    exp_bias, max_normal = _floatx_consts(ebits, mbits)
+    amax = tensor.float().abs().amax(dim=-1)
+    scale = _exp2(_floor_log2(_true_div(amax, max_normal)))
+    scale = torch.clamp_min(scale, 2.0 ** (-(exp_bias + mbits)))
+    return scale.to(tensor.dtype)
+
+
+def _float_to_exmy(x32: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
+    """Round float32 values to the nearest ExMy value (with subnormals)."""
+    exp_bias, max_normal = _floatx_consts(ebits, mbits)
+    mag = torch.clamp_max(x32.abs(), max_normal)
+    exp = torch.clamp_min(_floor_log2(torch.clamp_min(mag, 1e-45)), 1 - exp_bias)
+    quantum = _exp2(exp - mbits)
+    return torch.sign(x32) * (torch.round(mag / quantum) * quantum)
+
+
+def quantize_affine_floatx(tensor: torch.Tensor, scale: torch.Tensor, ebits: int,
+                           mbits: int) -> torch.Tensor:
+    """Scale per row, then round to the ExMy grid; float32 grid values."""
+    return _float_to_exmy(tensor.float() / scale.float()[..., None], ebits, mbits)
+
+
+def dequantize_affine_floatx(values: torch.Tensor, scale: torch.Tensor, ebits: int, mbits: int,
+                             output_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    del ebits, mbits
+    return (values.float() * scale.float()[..., None]).to(output_dtype)
+
+
+def exmy_encode(values: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
+    """uint8 ExMy codes ``sign << (ebits + mbits) | E << mbits | M`` of
+    values already on the grid."""
+    exp_bias, _ = _floatx_consts(ebits, mbits)
+    v = values.float()
+    sign = (v < 0).to(torch.int32)
+    mag = v.abs()
+    e_unb = torch.clamp(_floor_log2(torch.clamp_min(mag, 1e-45)), 1 - exp_bias,
+                        2**ebits - 1 - exp_bias)
+    is_sub = mag < 2.0 ** (1 - exp_bias)
+    E = torch.where(is_sub, 0, e_unb.to(torch.int32) + exp_bias)
+    m_norm = torch.round((mag / _exp2(e_unb) - 1.0) * 2.0**mbits).to(torch.int32)
+    m_sub = torch.round(mag * 2.0 ** (exp_bias - 1 + mbits)).to(torch.int32)
+    M = torch.clamp(torch.where(is_sub, m_sub, m_norm), 0, 2**mbits - 1)
+    return ((sign << (ebits + mbits)) | (E << mbits) | M).to(torch.uint8)
+
+
+def exmy_decode(codes: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
+    """Inverse of :func:`exmy_encode`: float32 grid values."""
+    exp_bias, _ = _floatx_consts(ebits, mbits)
+    c = codes.to(torch.int32)
+    sign = 1.0 - 2.0 * ((c >> (ebits + mbits)) & 1).float()
+    E = (c >> mbits) & (2**ebits - 1)
+    M = (c & (2**mbits - 1)).float()
+    normal = (1.0 + M * 2.0 ** (-mbits)) * _exp2((E - exp_bias).float())
+    sub = M * 2.0 ** (1 - exp_bias - mbits)
+    return sign * torch.where(E == 0, sub, normal)
