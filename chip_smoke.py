@@ -6,7 +6,7 @@ Phases (each fails loudly; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``torchao_tpu_torch/csrc`` (``nvcc``, sm_90a);
-3. eight sections, one per configuration, each on Llama-3-8B at full
+3. ten sections, one per configuration, each on Llama-3-8B at full
    width and depth (32 layers, random weights from a seeded
    ``torch.Generator`` on the card, quantized through the port's quantize
    handler, leaf by leaf; each section frees its model before the next):
@@ -22,7 +22,12 @@ Phases (each fails loudly; nothing is caught):
    - fp6 in its packed 6-bit form (K12 at decode; prefill dequantizes and
      calls ``torch.matmul``), bf16 cache;
    - 8da4w g=32 (asymmetric int8 activations, centred, through zero-free
-     K1/K5), bf16 cache.
+     K1/K5), bf16 cache;
+   - int4 weight-only g=32 with the packed-int4 head-major KV cache and
+     ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` for this section alone: K4′ at decode,
+     K4 per head at the 128-token prefill (the fold rule);
+   - int8 weight-only with the int8 head-major KV cache (the reference's
+     memory order), the fold variable unset: K4 at decode and prefill.
 
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes, with its time (CUDA
@@ -37,6 +42,14 @@ Phases (each fails loudly; nothing is caught):
    float32 run on the CPU: the card must come as close to it as the CPU
    does (``check_against_cpu``).
 
+4. two phases with no model: the long-context one (a layer's cache at
+   S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
+   S-major, K2 split-flat, each against its plain version and timed, SDPA
+   on the dequantized layer as the yardstick), and K10's (the W4A8 matmul at
+   Llama-3-8B's linear shapes, M = 1 and 128, reached once through
+   ``ops.linear`` with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``). Their rows
+   report 0 launches: no main path runs them.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -44,10 +57,12 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -81,17 +96,26 @@ from torchao_tpu_torch.kernels.kv_cache_write import (
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
     _kv_values,
+    fold_heads_fits,
+    quantized_kv_attention_smajor,
+    quantized_kv_attention_smajor_plain,
     quantized_kv_decode_attention,
     quantized_kv_decode_attention_bdq,
     quantized_kv_decode_attention_bdq_plain,
+    quantized_kv_decode_attention_heads_plain,
     quantized_kv_decode_attention_plain,
+)
+from torchao_tpu_torch.kernels.w4a8_matmul import (
+    w4a8_dq_matmul,
+    w4a8_dq_matmul_available,
+    w4a8_dq_matmul_plain,
 )
 from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
-from torchao_tpu_torch.qtypes.base import QuantizedArray
+from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
 from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
@@ -105,7 +129,10 @@ from torchao_tpu_torch.quantization.quant_api import (
     Int8DynamicActivationInt8WeightConfig,
     Int8WeightOnlyConfig,
 )
-from torchao_tpu_torch.quantization.quant_primitives import quantize_activation_per_token_absmax
+from torchao_tpu_torch.quantization.quant_primitives import (
+    ZeroPointDomain,
+    quantize_activation_per_token_absmax,
+)
 from torchao_tpu_torch.utils import compute_error
 
 MODEL = "Llama-3-8B"
@@ -116,6 +143,8 @@ BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, the same source
 INT8_FP8_OPS = 1979e12     # dense int8 / fp8 tensor-core peak, the same source
 REPS = 25
 TOL_SQNR_DB = 35.0  # kernel vs plain version: fp32 vs bf16 rounding of weights, K, V, P
+TOL_EXACT_PARTIALS_DB = 80.0  # K10 in f32: exact int32 partials, f32 sums in another order
+LONG_S = 8192  # the long-context phase's cache length
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
 
 _QA = "torchao_tpu_torch/csrc/quantized_attention.cu"
@@ -151,6 +180,15 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                                       "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_zero_free_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                                        "torchao_tpu/kernels/int4_matmul.py:723"),
+    "quantized_kv_decode_attention_heads": (_QA, "torchao_tpu/kernels/quantized_attention.py:293"),
+    "quantized_kv_decode_attention_heads_int8": (
+        _QA, "torchao_tpu/kernels/quantized_attention.py:293"),
+    "quantized_kv_attention_smajor": (_QA, "torchao_tpu/kernels/quantized_attention.py:506"),
+    "quantized_kv_attention_smajor_int8": (_QA, "torchao_tpu/kernels/quantized_attention.py:506"),
+    "w4a8_dq_matmul_gemv": ("torchao_tpu_torch/csrc/w4a8_matmul.cu",
+                            "torchao_tpu/kernels/w4a8_matmul.py:161"),
+    "w4a8_dq_matmul_tiled": ("torchao_tpu_torch/csrc/w4a8_matmul.cu",
+                             "torchao_tpu/kernels/w4a8_matmul.py:161"),
 }
 
 
@@ -230,9 +268,9 @@ class Tally:
                 "work": self.work}
 
 
-def compare(name, got, want, exact=False):
+def compare(name, got, want, exact=False, tol=TOL_SQNR_DB):
     """Max abs error; raises unless the kernel agrees with its plain
-    version (bit-exact, or SQNR >= TOL_SQNR_DB)."""
+    version (bit-exact, or SQNR >= tol)."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     if exact:
@@ -240,8 +278,8 @@ def compare(name, got, want, exact=False):
         what = "bit-exact"
     else:
         sqnr = compute_error(want, got)
-        ok = sqnr >= TOL_SQNR_DB and math.isfinite(err)
-        what = f"sqnr={sqnr:.1f} dB (>= {TOL_SQNR_DB})"
+        ok = sqnr >= tol and math.isfinite(err)
+        what = f"sqnr={sqnr:.1f} dB (>= {tol})"
     log(f"  {name}: max_abs_err={err:.4g} {what} {'PASS' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: the kernel disagrees with its plain version")
@@ -434,15 +472,19 @@ def check_decode_attention(args, gen, int8=False):
     return t
 
 
-def check_prefill_attention(args, gen, int8=False):
+def check_prefill_attention(args, gen, int8=False, head_major=False):
     """K4 (or its int8 form) at T=128, S=256, pos=0 over head-major views
-    of a split-flat layer."""
+    of a split-flat layer, or over a layer of the head-major cache."""
     L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
     G, S, T = H // Hkv, PROMPT + DECODE, PROMPT
-    c = random_cache(gen, 1, 1, Hkv, Dh, S, int8)
-    Db = c["k_q"].shape[2] // Hkv
-    views = (c["k_q"][0].reshape(1, Hkv, Db, S).transpose(2, 3), c["k_scale"][0][..., None],
-             c["v_q"][0].reshape(1, S, Hkv, Db).transpose(1, 2), c["v_scale"][0][..., None])
+    if head_major:
+        views = head_major_cache(gen, 1, Hkv, S, Dh, int8)
+        Db = views[0].shape[-1]
+    else:
+        c = random_cache(gen, 1, 1, Hkv, Dh, S, int8)
+        Db = c["k_q"].shape[2] // Hkv
+        views = (c["k_q"][0].reshape(1, Hkv, Db, S).transpose(2, 3), c["k_scale"][0][..., None],
+                 c["v_q"][0].reshape(1, S, Hkv, Db).transpose(1, 2), c["v_scale"][0][..., None])
     q = torch.randn((1, Hkv, T * G, Dh), generator=gen, device="cuda").bfloat16()
     pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
     name = "quantized_kv_decode_attention" + _suffix(int8)
@@ -462,7 +504,8 @@ def check_prefill_attention(args, gen, int8=False):
     b, by = bound(nbytes, flops)
     log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
         f"bound_ms={b:.5f} ({by})")
-    t = Tally(name, f"one prefill (T={T}, S={S}): {L} launches")
+    t = Tally(name, f"one prefill (T={T}, S={S}{', head-major cache' if head_major else ''}): "
+              f"{L} launches")
     t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
     return t
 
@@ -593,6 +636,217 @@ def _float8dq_row_kernels(params, args, gen):
     tallies += [check_shapes(f"fp8_rowwise_matmul_{form}", head, M, _fp8_row_call, gen,
                              INT8_FP8_OPS, library=_fp8_row_library) for form, M in FORMS]
     return tallies
+
+
+# ------------------------------------------------------------ slice 4 --
+
+
+def head_major_cache(gen, B, H, S, Dh, int8):
+    """One layer of a head-major cache of random codes: packed int4 (uint8)
+    or int8 ``[B, H, S, Db]``, and bf16 scales ``[B, H, S, 1]``."""
+    if int8:
+        q = lambda: torch.randint(-127, 128, (B, H, S, Dh), generator=gen, device="cuda").to(
+            torch.int8)
+    else:
+        q = lambda: torch.randint(0, 256, (B, H, S, Dh // 2), generator=gen, dtype=torch.uint8,
+                                  device="cuda")
+    lo = 0.001 if int8 else 0.01
+    sc = lambda: (torch.rand((B, H, S, 1), generator=gen, device="cuda") * 10 * lo + lo).bfloat16()
+    return q(), sc(), q(), sc()
+
+
+def _sdpa_decode_ms(cache, q, n, G):
+    """SDPA's time on the first ``n`` keys of a head-major layer, dequantized
+    to bf16 beforehand, heads expanded (the library column)."""
+    kq, ks, vq, vs = cache
+    deq = lambda c, sc: ((_kv_values(c[..., :n, :]) * sc[..., :n, :].float()).bfloat16()
+                         .repeat_interleave(G, 1))
+    kd, vd = deq(kq, ks), deq(vq, vs)
+    qs = q.reshape(1, -1, 1, q.shape[-1])
+    return time_ms(lambda: _sdpa(qs, kd, vd, False))
+
+
+def _attention_work(H, Hkv, Dh, Db, keys):
+    """Bytes (the visible keys' codes and scales of every head once, bf16 q,
+    f32 out, pos) and operations of one T = 1 attention call."""
+    return keys * Hkv * (2 * Db + 2 * 2) + H * Dh * (2 + 4) + 4, 4 * H * keys * Dh
+
+
+def check_head_major_decode(args, gen, int8, fold):
+    """K4′ (``fold``) or K4 per head at the decode shape (T=1, S=256, pos 0,
+    128 and 255) over a layer of the head-major cache, against its own plain
+    version: ``_kernel_heads``' numerics for K4′."""
+    L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
+    G, S = H // Hkv, PROMPT + DECODE
+    cache = head_major_cache(gen, 1, Hkv, S, Dh, int8)
+    Db = cache[0].shape[-1]
+    q = torch.randn((1, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
+    name = ("quantized_kv_decode_attention_heads" if fold else "quantized_kv_decode_attention") + \
+        _suffix(int8)
+    plain_fn = quantized_kv_decode_attention_heads_plain if fold else \
+        quantized_kv_decode_attention_plain
+    if fold and not fold_heads_fits(Hkv, G, S, Dh):
+        raise AssertionError("the decode shape should fold")
+    t = Tally(name, f"one decode step at S={S}, pos=255, head-major cache: {L} launches")
+    for p in (0, 128, 255):
+        pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+        call = lambda: quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=fold)
+        plain = lambda: plain_fn(q, *cache, pos, rows_per_t=G)
+        err = compare(f"{name} S={S} pos={p}", call(), plain())
+        if p != 255:
+            t.max_abs_err = max(t.max_abs_err, err)
+            continue
+        ms, plain_ms, lib_ms = time_ms(call), time_ms(plain), _sdpa_decode_ms(cache, q, p + 1, G)
+        nbytes, flops = _attention_work(H, Hkv, Dh, Db, p + 1)
+        b, by = bound(nbytes, flops)
+        log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b:.5f} ({by})")
+        t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
+    return t
+
+
+def _int4hm_kernels(params, args, gen):
+    """K4′ at decode (the fold rule folds R = 4) and K4 per head at the
+    128-token prefill (R = bq = 512 does not fit), packed int4."""
+    return [check_head_major_decode(args, gen, False, fold=True),
+            check_prefill_attention(args, gen, False, head_major=True)]
+
+
+def _int8hm_kernels(params, args, gen):
+    """K4 int8 per head at decode and prefill (the fold variable unset), and
+    the int8 K4′ at the decode shape."""
+    return [check_head_major_decode(args, gen, True, fold=False),
+            check_head_major_decode(args, gen, True, fold=True),
+            check_prefill_attention(args, gen, True, head_major=True)]
+
+
+def long_context_phase(gen):
+    """One Llama-3-8B layer's cache at S = 8192 (B = 1, Hkv = 8, Dh = 128,
+    G = 4), int8 and packed int4, the same codes in three layouts: K4 per
+    head and K4′ over the head-major cache, K13 over the S-major one, K2 over
+    the split-flat one, each at T = 1, pos = 8191, against its plain
+    version, timed, with SDPA on the dequantized bf16 layer as the library
+    column. No main path runs here: launches are 0."""
+    args = ModelArgs.from_name(MODEL)
+    H, Hkv, Dh = args.n_head, args.n_local_heads, args.head_dim
+    G, S = H // Hkv, LONG_S
+    if not fold_heads_fits(Hkv, G, S, Dh):
+        raise AssertionError("the long-context decode should fold at bs = 1024")
+    pos = torch.tensor([S - 1], dtype=torch.int32, device="cuda")
+    rows = []
+    for int8 in (True, False):
+        sfx, width = _suffix(int8), "int8" if int8 else "int4"
+        log(f"== long context: S={S}, {width}, one layer, T=1, pos={S - 1}")
+        cache = head_major_cache(gen, 1, Hkv, S, Dh, int8)
+        kq, ks, vq, vs = cache
+        Db = kq.shape[-1]
+        smajor = tuple(t.transpose(1, 2).flatten(2).contiguous() for t in cache)
+        split = (kq.transpose(2, 3).reshape(1, 1, Hkv * Db, S).contiguous(), ks[..., 0][None],
+                 vq.transpose(1, 2).reshape(1, 1, S, Hkv * Db).contiguous(), vs[..., 0][None])
+        q = torch.randn((1, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
+        layouts = (
+            ("quantized_kv_decode_attention", "head-major, per head (K4)",
+             lambda: quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=False),
+             lambda: quantized_kv_decode_attention_plain(q, *cache, pos, rows_per_t=G)),
+            ("quantized_kv_decode_attention_heads", "head-major, heads folded (K4')",
+             lambda: quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=True),
+             lambda: quantized_kv_decode_attention_heads_plain(q, *cache, pos, rows_per_t=G)),
+            ("quantized_kv_attention_smajor", "S-major (K13)",
+             lambda: quantized_kv_attention_smajor(q, *smajor, pos, rows_per_t=G),
+             lambda: quantized_kv_attention_smajor_plain(q, *smajor, pos, rows_per_t=G)),
+            ("quantized_kv_decode_attention_bdq", "split-flat (K2)",
+             lambda: quantized_kv_decode_attention_bdq(q, *split, pos, layer_idx=0),
+             lambda: quantized_kv_decode_attention_bdq_plain(q, *split, pos, layer_idx=0)),
+        )
+        lib_ms = _sdpa_decode_ms(cache, q, S, G)
+        nbytes, flops = _attention_work(H, Hkv, Dh, Db, S)
+        b, by = bound(nbytes, flops)
+        log(f"  SDPA on the dequantized bf16 layer: {lib_ms:.4f} ms; bound {b:.5f} ms ({by})")
+        for name, label, call, plain in layouts:
+            name += sfx
+            _build.reset_launch_counts()
+            got = call()
+            if dict(_build.LAUNCHES) != {name: 1}:  # each layout runs its own kernel
+                raise AssertionError(f"{label}: launches {dict(_build.LAUNCHES)}")
+            err = compare(f"{name} S={S} pos={S - 1} {label}", got, plain())
+            ms, plain_ms = time_ms(call), time_ms(plain)
+            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+            t = Tally(name, f"long context: one call at S={S}, pos={S - 1}, {label}")
+            t.add(1, ms, plain_ms, nbytes, flops, err, lib_ms)
+            rows.append({**t.row(0), "section": f"long-context {width}"})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _w4a8_weight(gen, N, K):
+    """A random K10 weight: plain (not XORed) nibbles, symmetric groups of
+    GROUP, bf16 scales; the probe must accept it."""
+    w = IntxArray(
+        qdata=torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device="cuda"),
+        scale=(torch.rand((K // GROUP, N), generator=gen, device="cuda") * 0.002 + 0.0005
+               ).bfloat16(),
+        zero_point=None, block_size=(1, GROUP), target_dtype="int4", quant_min=-8, quant_max=7,
+        zero_point_domain=ZeroPointDomain.NONE, packing_format=PackingFormat.TILED_NIBBLES,
+        logical_shape=(N, K), nibbles_xored=False)
+    if not w4a8_dq_matmul_available(w):
+        raise AssertionError("K10's probe declines the weight")
+    return w
+
+
+def w4a8_phase(gen):
+    """K10 at Llama-3-8B's four layer shapes and the head, M = 1 (gemv) and
+    M = 128 (tiled), g = GROUP, plain nibbles, with
+    ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1`` (restored after): ``ops.linear`` on
+    an 8da4w weight with symmetric activations reaches it once; each call
+    against its plain version in f32 (exact partials: >= 80 dB) and timed
+    in bf16, with ``torch.matmul`` on the dequantized bf16 weight as the
+    library column. No config reaches K10: launches are 0."""
+    args = ModelArgs.from_name(MODEL)
+    L, D, F, V = args.n_layer, args.dim, args.intermediate_size, args.vocab_size
+    Dh, H, Hkv = args.head_dim, args.n_head, args.n_local_heads
+    shapes = (("wqkv", (H + 2 * Hkv) * Dh, D, L), ("wo", D, D, L), ("w13", 2 * F, D, L),
+              ("w2", D, F, L), ("output", V, D, 1))
+    with _environment({"TORCHAO_TPU_ENABLE_PALLAS_W4A8": "1"}):
+        log(f"== K10 (w4a8_dq_matmul), g={GROUP}: Llama-3-8B's linear shapes")
+        weights = [(n, _w4a8_weight(gen, N, K), c) for n, N, K, c in shapes]
+        route = LinearActivationQuantizedArray(original_weight=weights[1][1],
+                                               input_quant_name="int8_per_token_sym")
+        x = torch.randn((1, D), generator=gen, device="cuda").bfloat16()
+        _build.reset_launch_counts()
+        got = linear(x, route)
+        if dict(_build.LAUNCHES) != {"w4a8_dq_matmul_gemv": 1}:
+            raise AssertionError(f"ops.linear did not reach K10: {dict(_build.LAUNCHES)}")
+        x_q, xs = quantize_activation_per_token_absmax(x)
+        compare("ops.linear w4a8 route (wo, M=1)", got, w4a8_dq_matmul_plain(
+            x_q, xs, weights[1][1].qdata, weights[1][1].scale, group_size=GROUP))
+        tallies = []
+        for form, M in FORMS:
+            t = Tally(f"w4a8_dq_matmul_{form}", f"one {'decode step' if M == 1 else 'prefill'} "
+                      f"at M={M}: " + ", ".join(f"{n} x{c}" for n, _, c in weights), INT8_FP8_OPS)
+            for wname, w, count in weights:
+                N, K = w.shape
+                x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+                x_q, xs = quantize_activation_per_token_absmax(x)
+                a = (x_q, xs.float(), w.qdata, w.scale)
+                call = lambda: w4a8_dq_matmul(*a, group_size=GROUP)
+                plain = lambda: w4a8_dq_matmul_plain(*a, group_size=GROUP)
+                err = compare(f"w4a8_dq_matmul_{form} {wname} M={M} N={N} K={K} (f32 out)",
+                              w4a8_dq_matmul(*a, group_size=GROUP, out_dtype=torch.float32),
+                              w4a8_dq_matmul_plain(*a, group_size=GROUP, out_dtype=torch.float32),
+                              tol=TOL_EXACT_PARTIALS_DB)
+                compare(f"w4a8_dq_matmul_{form} {wname} (bf16 out)", call(), plain())
+                wd = w.dequantize(torch.bfloat16).T.contiguous()
+                ms, plain_ms, lib_ms = time_ms(call), time_ms(plain), time_ms(lambda: x @ wd)
+                del wd
+                nbytes = K // 2 * N + K // GROUP * N * 2 + M * K + M * 4 + M * N * 2
+                flops = 2 * M * N * K
+                b, by = bound(nbytes, flops, INT8_FP8_OPS)
+                log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={b:.4f} ({by})")
+                t.add(count, ms, plain_ms, nbytes, flops, err, lib_ms)
+            tallies.append(t)
+    torch.cuda.empty_cache()
+    return [{**t.row(0), "section": "w4a8"} for t in tallies]
 
 
 # ---------------------------------------------------------- the model --
@@ -743,14 +997,47 @@ SECTIONS = {
     f"8da4w-{GROUP}": (Int8DynamicActivationInt4WeightConfig(group_size=GROUP), False,
                        _8da4w_kernels,
                        _want_matmul_only("int4_dq_matmul_zero_free", lambda L: 4 * L + 1)),
+    # the head-major caches: K4′ at decode (heads folded), K4 at the prefill
+    f"int4wo-{GROUP}-int4hm": (Int4WeightOnlyConfig(group_size=GROUP), "int4", _int4hm_kernels,
+                               lambda L: {"int4_dq_matmul_gemv": (4 * L + 1) * DECODE,
+                                          "int4_dq_matmul_tiled": 4 * L + 1,
+                                          "quantized_kv_decode_attention_heads": L * DECODE,
+                                          "quantized_kv_decode_attention": L}),
+    "int8wo-int8hm": (Int8WeightOnlyConfig(), "int8_hmajor", _int8hm_kernels,
+                      lambda L: {"int8wo_mixed_matmul_gemv": (4 * L + 1) * DECODE,
+                                 "int8wo_mixed_matmul_tiled": 4 * L + 1,
+                                 "quantized_kv_decode_attention_int8": L * (DECODE + 1)}),
 }
+# environment a section runs under (set for it alone, restored after)
+SECTION_ENV = {f"int4wo-{GROUP}-int4hm": {"TORCHAO_TPU_ATTN_FOLD_HEADS": "1"}}
+
+
+@contextlib.contextmanager
+def _environment(env):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def run_section(name, gen):
     """One configuration: quantize, check its kernels, drive the main path,
-    check it against the CPU. Returns (kernel rows, end-to-end numbers)."""
+    check it against the CPU, under the section's environment. Returns
+    (kernel rows, end-to-end numbers)."""
     config, kv, kernel_checks, want_fn = SECTIONS[name]
-    log(f"== {MODEL}, {name}, KV cache {kv or 'bf16'}: random weights")
+    env = SECTION_ENV.get(name, {})
+    log(f"== {MODEL}, {name}, KV cache {kv or 'bf16'} {env or ''}: random weights")
+    with _environment(env):
+        return _run_section(name, gen, config, kv, kernel_checks, want_fn)
+
+
+def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     t0 = time.perf_counter()
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
     params = init_quantized_params(model, config, default_linear_filter, seed=0)
@@ -807,7 +1094,7 @@ def run_section(name, gen):
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    return [{**t.row(counts[t.name]), "section": name} for t in tallies], e2e
+    return [{**t.row(counts.get(t.name, 0)), "section": name} for t in tallies], e2e
 
 
 def main() -> int:
@@ -830,6 +1117,11 @@ def main() -> int:
         rows += r
         e2e.append(e)
         log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
+
+    rows += long_context_phase(gen)
+    log(f"  long-context phase done; total {time.perf_counter() - t_start:.1f} s")
+    rows += w4a8_phase(gen)
+    log(f"  K10 phase done; total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": rows}))

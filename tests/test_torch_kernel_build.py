@@ -41,11 +41,16 @@ from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write_plain,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
+    fold_heads_fits,
+    quantized_kv_attention_smajor,
+    quantized_kv_attention_smajor_plain,
     quantized_kv_decode_attention,
     quantized_kv_decode_attention_bdq,
     quantized_kv_decode_attention_bdq_plain,
+    quantized_kv_decode_attention_heads_plain,
     quantized_kv_decode_attention_plain,
 )
+from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_plain
 
 _C_TYPES = {"void*": _build.c_ptr, "longlong": _build.c_i64, "int": _build.c_int,
             "float": _build.c_float}
@@ -104,6 +109,21 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         fp8_rowwise_matmul(x.to(torch.float8_e4m3fn), w8.to(torch.float8_e4m3fn), s[:1].float(),
                            s.float())
+
+
+def test_slice_4_wrappers_raise_on_a_device_without_a_kernel():
+    """K4′ (asked to fold), K13 and K10 compute on the CPU or a card only."""
+    m = torch.device("meta")
+    q = torch.empty((1, 2, 4, 64), dtype=torch.bfloat16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantized_kv_decode_attention(q, *([q] * 4), torch.empty(1, device=m), fold_heads=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantized_kv_attention_smajor(q, *([q] * 4), torch.empty(1, device=m))
+    i8 = torch.empty((1, 64), dtype=torch.int8, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        w4a8_dq_matmul(i8, torch.empty(1, device=m), torch.empty((32, 16), dtype=torch.uint8,
+                                                                 device=m),
+                       torch.empty((2, 16), device=m), group_size=32)
 
 
 # --------------------------------------------------------------- on a card --
@@ -354,3 +374,78 @@ def test_fp8_rowwise_kernel_matches_plain(cuda, M):
     xs = torch.rand((M,), generator=gen, device=cuda) * 0.01 + 0.001
     ws = torch.rand((N,), generator=gen, device=cuda) * 0.01 + 0.001
     _sqnr_ok(fp8_rowwise_matmul(x, w, xs, ws), fp8_rowwise_matmul_plain(x, w, xs, ws))
+
+
+# ------------------------------------------------------------ slice 4 on a card --
+
+
+def _head_major_cache(gen, B, H, S, Dh, int8, dev):
+    if int8:
+        q = lambda: torch.randint(-127, 128, (B, H, S, Dh), generator=gen, device=dev).to(torch.int8)
+    else:
+        q = lambda: torch.randint(0, 256, (B, H, S, Dh // 2), generator=gen, dtype=torch.uint8,
+                                  device=dev)
+    lo = 0.001 if int8 else 0.01
+    sc = lambda: (torch.rand((B, H, S, 1), generator=gen, device=dev) * 10 * lo + lo).bfloat16()
+    return q(), sc(), q(), sc()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 40])
+def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
+    """K4′ (decode, and T > 1 with rows_per_t) against its own plain
+    version, which follows ``_kernel_heads``; S = 300 leaves a ragged tile."""
+    gen = torch.Generator(device=cuda).manual_seed(T + Dh + int8)
+    B, H, G, S = 2, 8, 4, 300
+    cache = _head_major_cache(gen, B, H, S, Dh, int8, cuda)
+    q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
+    pos = torch.tensor([0, S - T], dtype=torch.int32, device=cuda)
+    assert fold_heads_fits(H, T * G, S, Dh)
+    name = "quantized_kv_decode_attention_heads" + ("_int8" if int8 else "")
+    before = _build.LAUNCHES[name]
+    got = quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=True)
+    assert _build.LAUNCHES[name] == before + 1
+    _sqnr_ok(got, quantized_kv_decode_attention_heads_plain(q, *cache, pos, rows_per_t=G))
+    # the same K as a D-major view (the split-flat cache's): byte loads, same result
+    k_view = cache[0].transpose(2, 3).contiguous().transpose(2, 3)
+    again = quantized_kv_decode_attention(q, k_view, *cache[1:], pos, rows_per_t=G,
+                                          fold_heads=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("T", [1, 40])
+def test_smajor_attention_kernel_matches_plain(cuda, int8, T):
+    """K13 over an S-major cache [B, S, H*Db] with [B, S, H] scales (strided
+    head-major views inside)."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + T + int8)
+    B, H, G, Dh, S = 2, 8, 4, 128, 300
+    kq, ks, vq, vs = (t.transpose(1, 2).flatten(2).contiguous()
+                      for t in _head_major_cache(gen, B, H, S, Dh, int8, cuda))
+    q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
+    pos = torch.tensor([3, S - T], dtype=torch.int32, device=cuda)
+    got = quantized_kv_attention_smajor(q, kq, ks, vq, vs, pos, rows_per_t=G)
+    want = quantized_kv_attention_smajor_plain(q, kq, ks, vq, vs, pos, rows_per_t=G)
+    _sqnr_ok(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [8, 32, 128])
+@pytest.mark.parametrize("M", [1, 4, 16, 128])
+def test_w4a8_kernel_matches_plain(cuda, g, M):
+    """K10, gemv (M <= 16) and tiled (M = 128), plain nibbles, ragged N; the
+    group partials are exact, so only the f32 sums' order differs."""
+    gen = torch.Generator(device=cuda).manual_seed(M + g)
+    K, N = 2048, 4096 + 40
+    x_q = torch.randint(-127, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+    x_s = torch.rand((M,), generator=gen, device=cuda) * 0.02 + 0.001
+    wp = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device=cuda)
+    ws = (torch.rand((K // g, N), generator=gen, device=cuda) * 0.05 + 0.01).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = w4a8_dq_matmul(x_q, x_s, wp, ws, group_size=g, out_dtype=out_dtype)
+        want = w4a8_dq_matmul_plain(x_q, x_s, wp, ws, group_size=g, out_dtype=out_dtype)
+        _sqnr_ok(got, want, 80.0 if out_dtype == torch.float32 else 45.0)

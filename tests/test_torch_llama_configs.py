@@ -81,6 +81,10 @@ CONFIGS = {
                    TQ.FPXWeightOnlyConfig(ebits=3, mbits=2, runtime="packed"), False),
     "8da4w-32": (JQ.Int8DynamicActivationInt4WeightConfig(group_size=32),
                  TQ.Int8DynamicActivationInt4WeightConfig(group_size=32), False),
+    # the head-major caches: packed int4 and the reference's int8 memory order
+    "int4wo-32-int4hm": (JQ.Int4WeightOnlyConfig(group_size=32),
+                         TQ.Int4WeightOnlyConfig(group_size=32), "int4"),
+    "int8wo-int8hm": (JQ.Int8WeightOnlyConfig(), TQ.Int8WeightOnlyConfig(), "int8_hmajor"),
 }
 WIDE = {"fp6", "fp6-packed", "8da4w-32"}
 WEIGHTS = (("layers", "attention", "wqkv"), ("layers", "attention", "wo"),
@@ -266,3 +270,110 @@ def test_config_from_recipe_matches_jax():
     for q in ("float8dq-tensor", "int4wo-64-hqq", "int4dq-8"):
         with pytest.raises(NotImplementedError):
             config_from_recipe(q)
+
+
+# ------------------------------------------------------ the head-major caches --
+
+HEAD_MAJOR = ("int4", "int8_hmajor")
+
+
+def test_head_major_caches_match_jax_shapes():
+    """``"int4"``, ``"int8_hmajor"`` and ``"hmajor"``: the JAX package's
+    shapes and dtypes; an unknown name still raises."""
+    model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=torch.bfloat16, device="cpu")
+    jmodel = JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.bfloat16)
+    for q, qdtype in (("int4", torch.uint8), ("int8_hmajor", torch.int8), ("hmajor", torch.int8)):
+        c, jc = model.setup_caches(2, 40, quantize=q), jmodel.setup_caches(2, 40, q)
+        assert set(c) == set(jc) == {"k_q", "v_q", "k_scale", "v_scale"}
+        for k in c:
+            assert tuple(c[k].shape) == tuple(jc[k].shape), (q, k)
+            assert str(c[k].dtype).split(".")[-1] == str(jc[k].dtype), (q, k)
+        assert c["k_q"].dtype == qdtype and c["k_scale"].shape == (2, 2, 2, 40, 1)
+    with pytest.raises(ValueError, match="unknown KV cache"):
+        model.setup_caches(1, 8, quantize="int2")
+
+
+@pytest.mark.parametrize("kv", HEAD_MAJOR)
+def test_prefill_cache_matches_jax(monkeypatch, kv):
+    """After a prefill, the port's head-major cache holds the JAX package's
+    contents. In float32 against the JAX model's own cache: the codes
+    bit-exact, the scales within a few ulps (the two models' k and v differ
+    in the last bits). In bf16, where one ulp of k moves a code, against the
+    compiled JAX quantize-and-write (``_update_layer_cache``) applied to the
+    very k and v that the port wrote: bit-exact, every layer."""
+    name = "int4wo-32-int4hm" if kv == "int4" else "int8wo-int8hm"
+    jparams, prompt = _jax_run(name, "float32")[:2]
+    jmodel = JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.float32)
+    jcache = jmodel.setup_caches(1, PROMPT + STEPS, quantize=kv)
+    _, jcache = jax.jit(lambda p, t, c: jmodel(p, t, jnp.int32(0), c))(
+        jparams, jnp.asarray(prompt), jcache)
+    model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=torch.float32, device="cpu")
+    cache = model.setup_caches(1, PROMPT + STEPS, quantize=kv)
+    model(params_from_jax_numpy(jax_to_numpy(jparams), device="cpu"),
+          torch.from_numpy(prompt.copy()).long(), 0, cache)
+    for k in ("k_q", "v_q"):
+        np.testing.assert_array_equal(cache[k].numpy(), np.asarray(jcache[k]), err_msg=k)
+    for k in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]), rtol=1e-6, err_msg=k)
+
+    jparams = _jax_run(name, "bfloat16")[0]
+    model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=torch.bfloat16, device="cpu")
+    cache = model.setup_caches(1, PROMPT + STEPS, quantize=kv)
+    written = []
+    write = TM._cache_write
+    monkeypatch.setattr(TM, "_cache_write", lambda c, k, v, p, l: (
+        written.append((k.clone(), v.clone(), l)), write(c, k, v, p, l)))
+    model(params_from_jax_numpy(jax_to_numpy(jparams), device="cpu"),
+          torch.from_numpy(prompt.copy()).long(), 0, cache)
+    assert [w[2] for w in written] == list(range(ARGS["n_layer"]))
+    update = jax.jit(lambda c, k, v, p: JM._update_layer_cache(c, k, v, p)[2])
+    empty = JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.bfloat16).setup_caches(
+        1, PROMPT + STEPS, quantize=kv)
+    for k, v, l in written:
+        as_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+        want = update({n: a[l] for n, a in empty.items()}, as_jax(k), as_jax(v), jnp.int32(0))
+        for n in want:
+            np.testing.assert_array_equal(cache[n][l].float().numpy(),
+                                          np.asarray(want[n].astype(jnp.float32)), err_msg=(n, l))
+
+
+@pytest.mark.parametrize("kv", HEAD_MAJOR)
+def test_quantized_write_at_per_slot_positions(kv):
+    """The quantized head-major write at per-slot ``[B]`` positions (B = 2,
+    one of them past S - T, where ``dynamic_update_slice`` clamps the
+    start) equals the JAX package's compiled quantize + ``_cache_write``,
+    bit-exact in bf16; the other layer is untouched."""
+    rs = np.random.RandomState(9)
+    B, T, S = 2, 5, 24
+    k = rs.randn(B, 2, T, 64).astype(np.float32) * 2
+    v = rs.randn(B, 2, T, 64).astype(np.float32)
+    pos = np.array([3, S - 2], np.int32)  # the second clamps to S - T
+    jargs = JM.ModelArgs(**ARGS)
+    jc = JM.init_kv_cache(jargs, B, S, quantize=kv)
+    update = jax.jit(lambda c, k, v, p: JM._update_layer_cache(c, k, v, p)[2])
+    want = update({n: a[1] for n, a in jc.items()}, jnp.asarray(k, jnp.bfloat16),
+                  jnp.asarray(v, jnp.bfloat16), jnp.asarray(pos))
+    cache = TM.init_kv_cache(TM.ModelArgs(**ARGS), B, S, quantize=kv, device="cpu")
+    TM._cache_write(cache, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
+                    torch.from_numpy(pos), 1)
+    for n in want:
+        np.testing.assert_array_equal(cache[n][1].float().numpy(),
+                                      np.asarray(want[n].astype(jnp.float32)), err_msg=n)
+        assert not cache[n][0].any(), n
+    assert cache["k_scale"][1, 1, :, S - T:].all() and not cache["k_scale"][1, 1, :, :S - T].any()
+
+
+@pytest.mark.parametrize("kv", HEAD_MAJOR)
+def test_fold_heads_variable_leaves_cpu_logits_unchanged(monkeypatch, kv):
+    """``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` picks K4′ on the card only: the CPU
+    runs the same plain version either way."""
+    name = "int4wo-32-int4hm" if kv == "int4" else "int8wo-int8hm"
+    jparams, prompt = _jax_run(name, "bfloat16")[:2]
+    params = params_from_jax_numpy(jax_to_numpy(jparams), device="cpu")
+    monkeypatch.delenv("TORCHAO_TPU_ATTN_FOLD_HEADS", raising=False)
+    base, tokens = _run_port(params, prompt, kv, torch.bfloat16)
+    monkeypatch.setenv("TORCHAO_TPU_ATTN_FOLD_HEADS", "1")
+    folded, folded_tokens = _run_port(params, prompt, kv, torch.bfloat16)
+    assert folded_tokens == tokens
+    for a, b in zip(folded, base):
+        np.testing.assert_array_equal(a, b)

@@ -1,20 +1,29 @@
-"""K2 and K4: the port's attention over the packed-int4 KV cache (plain
-versions on the CPU) against the JAX package's Pallas kernels in
-interpret mode. SQNR >= 45 dB as in tests/test_llama.py: the JAX kernels
-round Q and P to bf16, the plain versions compute in fp32."""
+"""K2, K4, K4′ and K13: the port's attention over the quantized KV cache
+(plain versions on the CPU) against the JAX package's Pallas kernels in
+interpret mode, and K4′'s routing rule against the JAX wrapper's. SQNR >=
+45 dB as in tests/test_llama.py: the JAX kernels round Q and P to bf16, the
+plain versions compute in fp32."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from torchao_tpu.kernels.quantized_attention import (
+    quantized_kv_attention_smajor as j_smajor,
     quantized_kv_decode_attention as j_attn,
     quantized_kv_decode_attention_bdq as j_bdq,
     unpack_int4_kv as j_unpack,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
+    fold_heads_fits,
+    quantized_kv_attention_smajor,
     quantized_kv_decode_attention,
     quantized_kv_decode_attention_bdq,
+    quantized_kv_decode_attention_heads_plain,
     unpack_int4_kv,
 )
 from torchao_tpu_torch.utils import compute_error
@@ -138,3 +147,121 @@ def test_prefill_attention_int8_matches_jax_kernel():
     kq_view = args[1].transpose(2, 3).contiguous().transpose(2, 3)
     again = quantized_kv_decode_attention(args[0], kq_view, *args[2:], rows_per_t=G)
     torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+# ------------------------------------------------ K4′ (head-folded) and K13 --
+
+
+def _hm_cache(rs, B, Hkv, S, Dh, int8):
+    """A head-major cache of random codes: int8, or packed int4."""
+    if int8:
+        kq = rs.randint(-127, 128, (B, Hkv, S, Dh)).astype(np.int8)
+        vq = rs.randint(-127, 128, (B, Hkv, S, Dh)).astype(np.int8)
+    else:
+        kq, vq = (_pack(rs.randint(-8, 8, (B, Hkv, S, Dh))) for _ in range(2))
+    lo = 0.001 if int8 else 0.01
+    ks, vs = ((rs.rand(B, Hkv, S, 1) * 10 * lo + lo).astype(np.float32) for _ in range(2))
+    return kq, ks, vq, vs
+
+
+# (T, G, bq): decode (T = 1, R = G) and a prefill with rows_per_t = G and bq < R
+_FOLD_CASES = [(1, 4, None), (8, 4, 8)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("T,G,bq", _FOLD_CASES, ids=["decode", "prefill"])
+def test_heads_folded_plain_matches_jax_kernel_heads(int8, T, G, bq):
+    """K4′'s plain version against the JAX package's ``_kernel_heads``
+    (``fold_heads=True``, interpret mode), which it follows: the int8 K
+    scale out of the dot, P·v_scale rounded to bf16."""
+    rs = np.random.RandomState(21 + int8 + T)
+    B, Hkv, Dh, S = 2, 2, 64, 32
+    R = T * G
+    q = rs.randn(B, Hkv, R, Dh).astype(np.float32)
+    kq, ks, vq, vs = _hm_cache(rs, B, Hkv, S, Dh, int8)
+    pos = np.array([S - T, 5], np.int32)
+    want = j_attn(jnp.asarray(q, jnp.bfloat16), jnp.asarray(kq), jnp.asarray(ks, jnp.bfloat16),
+                  jnp.asarray(vq), jnp.asarray(vs, jnp.bfloat16), jnp.asarray(pos),
+                  rows_per_t=G, bq=bq, bs=8, fold_heads=True, interpret=True)
+    got = quantized_kv_decode_attention_heads_plain(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kq), torch.from_numpy(ks).bfloat16(),
+        torch.from_numpy(vq), torch.from_numpy(vs).bfloat16(), torch.from_numpy(pos),
+        rows_per_t=G)
+    assert got.shape == (B, Hkv, R, Dh) and got.dtype == torch.float32
+    err = compute_error(torch.from_numpy(np.asarray(want)), got)
+    assert err >= 45, err
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("T,G,bq", _FOLD_CASES, ids=["decode", "prefill"])
+def test_smajor_attention_matches_jax_kernel(int8, T, G, bq):
+    """K13: the S-major cache ``[B, S, Hkv·Db]`` with ``[B, S, Hkv]``
+    scales, against ``quantized_kv_attention_smajor`` in interpret mode."""
+    rs = np.random.RandomState(31 + int8 + T)
+    B, Hkv, Dh, S = 2, 2, 64, 32
+    R = T * G
+    q = rs.randn(B, Hkv, R, Dh).astype(np.float32)
+    kq, ks, vq, vs = _hm_cache(rs, B, Hkv, S, Dh, int8)
+    flat = lambda c: np.ascontiguousarray(c.transpose(0, 2, 1, 3).reshape(B, S, -1))
+    kf, vf, ksf, vsf = flat(kq), flat(vq), flat(ks), flat(vs)  # scales [B, S, Hkv]
+    pos = np.array([S - T, 5], np.int32)
+    want = j_smajor(jnp.asarray(q, jnp.bfloat16), jnp.asarray(kf), jnp.asarray(ksf, jnp.bfloat16),
+                    jnp.asarray(vf), jnp.asarray(vsf, jnp.bfloat16), jnp.asarray(pos),
+                    rows_per_t=G, bq=bq, bs=8, interpret=True)
+    args = (torch.from_numpy(q).bfloat16(), torch.from_numpy(kf), torch.from_numpy(ksf).bfloat16(),
+            torch.from_numpy(vf), torch.from_numpy(vsf).bfloat16(), torch.from_numpy(pos))
+    got = quantized_kv_attention_smajor(*args, rows_per_t=G)
+    assert got.shape == (B, Hkv, R, Dh) and got.dtype == torch.float32
+    err = compute_error(torch.from_numpy(np.asarray(want)), got)
+    assert err >= 45, err
+    # the same contents head-major through K4's plain version: the same numbers
+    hm = quantized_kv_decode_attention(
+        args[0], torch.from_numpy(kq), torch.from_numpy(ks).bfloat16(), torch.from_numpy(vq),
+        torch.from_numpy(vs).bfloat16(), args[-1], rows_per_t=G)
+    torch.testing.assert_close(got, hm, rtol=0, atol=0)
+
+
+def _jax_folds(Hkv, R, S, Dh, bs, bq):
+    """Whether the JAX wrapper, asked to fold, runs ``_kernel_heads``: its
+    grid is (B, n_q, n_s) then, (B, Hkv, n_q, n_s) per head."""
+    sds = jax.ShapeDtypeStruct
+    f = functools.partial(j_attn, fold_heads=True, bs=bs, bq=bq, rows_per_t=4, interpret=True)
+    jaxpr = jax.make_jaxpr(f)(
+        sds((1, Hkv, R, Dh), jnp.bfloat16), sds((1, Hkv, S, Dh), jnp.int8),
+        sds((1, Hkv, S, 1), jnp.bfloat16), sds((1, Hkv, S, Dh), jnp.int8),
+        sds((1, Hkv, S, 1), jnp.bfloat16), sds((1,), jnp.int32)).jaxpr
+
+    def calls(jp):
+        for e in jp.eqns:
+            if e.primitive.name == "pallas_call":
+                yield e
+            for v in e.params.values():
+                inner = getattr(v, "jaxpr", None)
+                if inner is not None:
+                    yield from calls(getattr(inner, "jaxpr", inner))
+
+    (call,) = calls(jaxpr)
+    return len(call.params["grid_mapping"].grid) == 3
+
+
+# Llama-3-8B's decode (R = 4, S = 256) and 128-token prefill (R = bq = 512),
+# long caches, a ragged S, and widths and budgets on either side of the line
+_FIT_GRID = [
+    (8, 4, 256, 128, 1024, None), (8, 512, 256, 128, 1024, 512), (8, 4, 8192, 128, 1024, None),
+    (8, 512, 8192, 128, 1024, 512), (8, 64, 256, 128, 1024, 512), (8, 256, 1024, 128, 1024, 512),
+    (8, 128, 2048, 128, 1024, None), (8, 4, 300, 128, 1024, None), (8, 512, 300, 128, 1024, 512),
+    (2, 512, 1024, 64, 1024, 512), (2, 32, 32, 64, 8, 8), (16, 4, 4096, 128, 1024, None),
+    (16, 256, 512, 128, 512, None), (4, 1024, 2048, 128, 1024, 512), (8, 2048, 2048, 128, 1024, 512),
+]
+
+
+@pytest.mark.parametrize("Hkv,R,S,Dh,bs,bq", _FIT_GRID)
+def test_fold_heads_fits_matches_the_jax_wrapper(Hkv, R, S, Dh, bs, bq):
+    assert fold_heads_fits(Hkv, R, S, Dh, bs=bs, bq=bq) == _jax_folds(Hkv, R, S, Dh, bs, bq)
+
+
+def test_fold_heads_fits_at_llama_3_8b():
+    """Folded at decode, per head at the 128-token prefill (14.16 MB over
+    the 12 MiB budget)."""
+    assert fold_heads_fits(8, 4, 256, 128)
+    assert not fold_heads_fits(8, 512, 256, 128, bq=512)

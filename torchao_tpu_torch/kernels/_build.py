@@ -78,6 +78,12 @@ _FLASH = (
     + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
     + [c_ptr] * 2 + [c_int] * 6 + [c_float, c_ptr]
 )
+# _FLASH with split-K scratch (ws_m, ws_l, ws_acc) and QT, nsplit, keys per split
+_HEADS = (
+    [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
+    + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
+    + [c_ptr] * 5 + [c_int] * 9 + [c_float, c_ptr]
+)
 # kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 # x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream
@@ -91,12 +97,19 @@ SIGNATURES = {
     "tt_bdq_decode_i8": _BDQ,
     "tt_flash_prefill": _FLASH,
     "tt_flash_prefill_i8": _FLASH,
+    "tt_flash_heads": _HEADS,
+    "tt_flash_heads_i8": _HEADS,
+    "tt_smajor_attention": _HEADS,
+    "tt_smajor_attention_i8": _HEADS,
     "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_tiled": _QMM + [c_ptr] + [c_int] * 3 + [c_ptr],
     "tt_fp8_rowwise_gemv": _GEMV6,
     "tt_fp8_rowwise_tiled": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
     "tt_fp6_dual_gemv": _GEMV6,
     "tt_fp6_gemv": _GEMV6,
+    # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
+    "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
+    "tt_w4a8_tiled": [c_ptr] * 3 + [c_int, c_ptr, c_int, c_ptr] + [c_int] * 5 + [c_ptr],
 }
 
 

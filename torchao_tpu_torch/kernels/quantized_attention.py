@@ -1,7 +1,7 @@
 """Attention over the quantized KV cache: CUDA kernel wrappers + plain
 versions.
 
-Port of two functions of ``torchao_tpu/kernels/quantized_attention.py``
+Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
 (CUDA source ``csrc/quantized_attention.cu``), each for a packed-int4
 (``uint8``) and an int8 cache, told apart by the cache's dtype:
 
@@ -16,16 +16,28 @@ Port of two functions of ``torchao_tpu/kernels/quantized_attention.py``
   S, 1]`` scales). The CUDA kernel reads these through their strides, so
   the model passes the split-flat cache as a transposed VIEW
   (``model._smajor_to_hmajor``) and no copy of the cache is made.
+  With ``fold_heads`` (or ``TORCHAO_TPU_ATTN_FOLD_HEADS=1``, read at call
+  time) and on the calls where the JAX package's fit rule folds
+  (:func:`fold_heads_fits`), the head-folded kernel K4′ runs instead: all
+  heads in one block, keys split over the grid, ``_kernel_heads``' numerics.
+- :func:`quantized_kv_attention_smajor` (K13): the same attention over a
+  cache whose K and V are both S-major ``[B, S, Hkv·Db]`` with scales
+  ``[B, S, Hkv]``, on K4′'s CUDA template (a key's heads are one contiguous
+  run of ``Hkv·Db`` bytes). No model route reaches it; it is a direct-call
+  kernel, as in the JAX package.
 
 Packed int4 KV: byte d of a head holds elements d and d + Dh/2 as
 offset-binary nibbles (``q = nibble − 8``); int8 KV: one int8 per element.
 One scale per token. The int8 launches count under their own names
-(``..._int8``), so a run's counts show which variant ran.
+(``..._int8``), and K4′'s and K13's under theirs
+(``quantized_kv_decode_attention_heads``, ``quantized_kv_attention_smajor``),
+so a run's counts show which kernel ran.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -34,6 +46,11 @@ from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.utils import cdiv
 
 DECODE_CHUNK = 128  # keys per decode block (csrc DEC_CHUNK)
+HEADS_FK = 16       # keys per head-folded tile (csrc HF_FK)
+HEADS_PAIRS = 64    # (head, query row) pairs per head-folded block (csrc HF_PAIRS)
+HEADS_MAX = 16      # kv heads per head-folded block, at most (csrc HF_HMAX)
+_HEADS_BLOCKS = 128  # head-folded blocks to aim for: the keys are split until about this many
+FOLD_BUDGET = 12 * 2**20  # the JAX package's VMEM budget for the folded kernel
 
 
 def unpack_int4_kv(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -155,19 +172,9 @@ def quantized_kv_decode_attention_plain(q, k_q, k_scale, v_q, v_scale, pos, *,
     return _masked_attention(q, k, v, visible, scale)
 
 
-def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
-                                  pos: torch.Tensor, *, scale: Optional[float] = None,
-                                  rows_per_t: Optional[int] = None) -> torch.Tensor:
-    """``q [B, Hkv, R, Dh]`` (R = T·G, t-major) against a head-major
-    packed-int4 ``[B, Hkv, S, Dh/2]`` (uint8) or int8 ``[B, Hkv, S, Dh]``
-    cache + scales ``[B, Hkv, S, 1]`` (any strides); returns
-    ``[B, Hkv, R, Dh]`` fp32."""
-    if q.device.type == "cpu":
-        return quantized_kv_decode_attention_plain(
-            q, k_q, k_scale, v_q, v_scale, pos, scale=scale, rows_per_t=rows_per_t
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+def _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t, dh_ok=(64, 128)):
+    """Shapes, dtypes and devices of a head-major call (views of any
+    strides); returns ``(int8, G)``."""
     B, H, R, Dh = q.shape
     S = k_q.shape[2]
     G = R if rows_per_t is None else rows_per_t
@@ -182,20 +189,52 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
         (k_scale.shape == (B, H, S, 1) and v_scale.shape == k_scale.shape, "scale shapes"),
         (pos.shape == (B,) and pos.dtype == torch.int32 and pos.is_contiguous(),
          "pos must be int32 [B]"),
-        (Dh in (64, 128), "head_dim must be 64 or 128"),
+        (Dh in dh_ok, f"head_dim must be one of {dh_ok}"),
         (G >= 1 and R % G == 0, "R must be a multiple of rows_per_t"),
     )
     for ok, what in checks:
         if not ok:
-            raise ValueError(f"quantized_kv_decode_attention: {what}")
+            raise ValueError(f"{name}: {what}")
     for t in (k_q, k_scale, v_q, v_scale, pos):
         if t.device != q.device:
-            raise ValueError("quantized_kv_decode_attention: tensors must share one device")
+            raise ValueError(f"{name}: tensors must share one device")
+    return int8, G
+
+
+def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
+                                  pos: torch.Tensor, *, scale: Optional[float] = None,
+                                  rows_per_t: Optional[int] = None,
+                                  fold_heads: Optional[bool] = None, bs: int = 1024,
+                                  bq: Optional[int] = None) -> torch.Tensor:
+    """``q [B, Hkv, R, Dh]`` (R = T·G, t-major) against a head-major
+    packed-int4 ``[B, Hkv, S, Dh/2]`` (uint8) or int8 ``[B, Hkv, S, Dh]``
+    cache + scales ``[B, Hkv, S, 1]`` (any strides); returns
+    ``[B, Hkv, R, Dh]`` fp32.
+
+    ``fold_heads=None`` reads ``TORCHAO_TPU_ATTN_FOLD_HEADS == "1"`` at call
+    time, as the JAX package does; a fold then runs K4′ only where
+    :func:`fold_heads_fits` says the JAX package folds (``bs`` and ``bq`` are
+    its block sizes and enter only that rule: the CUDA kernels tile on their
+    own). On a CPU tensor the plain version runs, fold or not."""
+    if q.device.type == "cpu":
+        return quantized_kv_decode_attention_plain(
+            q, k_q, k_scale, v_q, v_scale, pos, scale=scale, rows_per_t=rows_per_t
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    if fold_heads is None:
+        fold_heads = os.environ.get("TORCHAO_TPU_ATTN_FOLD_HEADS") == "1"
+    if fold_heads and fold_heads_fits(H, R, S, Dh, bs=bs, bq=bq):
+        return _launch_heads("quantized_kv_decode_attention_heads", "tt_flash_heads", q, k_q,
+                             k_scale, v_q, v_scale, pos, scale, rows_per_t)
+    int8, G = _check_attention("quantized_kv_decode_attention", q, k_q, k_scale, v_q, v_scale,
+                               pos, rows_per_t)
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     out = torch.empty((B, H, R, Dh), dtype=torch.float32, device=q.device)
-    ks, vs = k_q.stride(), v_q.stride()
-    kcs, vcs = k_scale.stride()[:3], v_scale.stride()[:3]
+    ks, kcs, vs, vcs = k_q.stride(), k_scale.stride()[:3], v_q.stride(), v_scale.stride()[:3]
     _build.library().launch(
         "tt_flash_prefill_i8" if int8 else "tt_flash_prefill", q.data_ptr(), k_q.data_ptr(),
         *ks, k_scale.data_ptr(), *kcs, v_q.data_ptr(), *vs, v_scale.data_ptr(), *vcs,
@@ -204,3 +243,134 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
     )
     _build.LAUNCHES["quantized_kv_decode_attention" + ("_int8" if int8 else "")] += 1
     return out
+
+
+# ---------------------------------------------------------------- K4′ --
+
+
+def fold_heads_fits(Hkv: int, R: int, S: int, Dh: int, *, bs: int = 1024,
+                    bq: Optional[int] = None) -> bool:
+    """Whether the JAX package's ``quantized_kv_decode_attention`` folds the
+    heads (runs ``_kernel_heads``) when asked to: its block-size rule
+    (``bs`` and ``bq`` halve until they divide S and R) and its fit rule
+    (``_fold_bytes`` of the halved ``bs`` within 12 MiB of TPU VMEM, and S a
+    multiple of it), verbatim from ``quantized_attention.py:213-252``.
+
+    This is a TPU memory budget carried over as a routing rule, not a limit
+    of the CUDA kernel K4′: it makes K4′ run on exactly the calls on which the
+    TPU runs ``_kernel_heads``. At Llama-3-8B (Hkv = 8, Dh = 128) it folds the
+    decode step (R = 4) and not the 128-token prefill (R = bq = 512: 14.16 MB)."""
+    bs = min(bs, S)
+    while S % bs:
+        bs //= 2
+    bq = R if bq is None else min(bq, R)
+    while R % bq:
+        bq //= 2
+
+    def fold_bytes(bs_c):
+        return Hkv * bs_c * Dh * 6 + Hkv * bq * bs_c * 8 + Hkv * bq * Dh * 8
+
+    bs_f = bs
+    while bs_f > 256 and fold_bytes(bs_f) > FOLD_BUDGET:
+        bs_f //= 2
+    return fold_bytes(bs_f) <= FOLD_BUDGET and S % bs_f == 0
+
+
+def quantized_kv_decode_attention_heads_plain(q, k_q, k_scale, v_q, v_scale, pos, *,
+                                              scale=None, rows_per_t=None):
+    """Plain PyTorch version of ``_kernel_heads``' numerics (K4′): int8 keeps
+    the per-key K scale out of the q·k dot and rounds P·v_scale to bf16
+    before the P·V dot over the int8 codes; packed int4 dequantizes K and V
+    to bf16 and rounds P to bf16. P is unnormalised (the row max taken out)
+    and divided by its f32 sum at the end, as the kernel does."""
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    G = R if rows_per_t is None else rows_per_t
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    if k_q.dtype == torch.int8:
+        k, v = k_q.float(), v_q.float()
+        k_post, v_pre = k_scale.float()[..., 0], v_scale.float()[..., 0]
+    else:
+        k, v = bf(_kv_values(k_q) * k_scale.float()), bf(_kv_values(v_q) * v_scale.float())
+        k_post = v_pre = torch.ones((B, H, S), device=q.device)
+    scores = torch.einsum("bhrd,bhsd->bhrs", q.float(), k) * k_post[:, :, None] * scale
+    t = torch.arange(R, device=q.device) // G
+    visible = (torch.arange(S, device=q.device)[None, None, None, :]
+               <= pos.view(B, 1, 1, 1) + t[None, None, :, None])
+    scores = scores.masked_fill(~visible, float("-inf"))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    w = bf(p * v_pre[:, :, None])
+    return torch.einsum("bhrs,bhsd->bhrd", w, v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def _launch_heads(name, entry, q, k_q, k_scale, v_q, v_scale, pos, scale, rows_per_t):
+    """K4′ / K13 on head-major views (any strides) of the cache."""
+    int8, G = _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t)
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    if H > HEADS_MAX:
+        raise ValueError(f"{name}: at most {HEADS_MAX} kv heads")
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    QT = min(HEADS_PAIRS // H, R)  # query rows of every head per block
+    n_q = cdiv(R, QT)
+    tiles = cdiv(S, HEADS_FK)
+    # split the keys until about _HEADS_BLOCKS blocks are in flight
+    per_split = cdiv(tiles, max(1, min(tiles, cdiv(_HEADS_BLOCKS, B * n_q))))
+    nsplit = cdiv(tiles, per_split)
+    ws_m = torch.empty((B * H * nsplit * R,), dtype=torch.float32, device=q.device)
+    ws_l = torch.empty_like(ws_m)
+    ws_acc = torch.empty((B * H * nsplit * R * Dh,), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, R, Dh), dtype=torch.float32, device=q.device)
+    _build.library().launch(
+        entry + ("_i8" if int8 else ""), q.data_ptr(), k_q.data_ptr(), *k_q.stride(),
+        k_scale.data_ptr(), *k_scale.stride()[:3], v_q.data_ptr(), *v_q.stride(),
+        v_scale.data_ptr(), *v_scale.stride()[:3], pos.data_ptr(), ws_m.data_ptr(),
+        ws_l.data_ptr(), ws_acc.data_ptr(), out.data_ptr(), B, H, R, S, G, Dh, QT, nsplit,
+        per_split * HEADS_FK, float(scale), _build.stream_handle(q.device),
+    )
+    _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K13 --
+
+
+def _smajor_as_hmajor(k_q, k_scale, v_q, v_scale, H):
+    """Head-major views ``[B, H, S, Db]`` / ``[B, H, S, 1]`` of an S-major
+    ``[B, S, H·Db]`` cache with ``[B, S, H]`` scales (no copy)."""
+    return (k_q.unflatten(-1, (H, -1)).transpose(1, 2), k_scale.transpose(1, 2)[..., None],
+            v_q.unflatten(-1, (H, -1)).transpose(1, 2), v_scale.transpose(1, 2)[..., None])
+
+
+def quantized_kv_attention_smajor_plain(q, k_q, k_scale, v_q, v_scale, pos, *, scale=None,
+                                        rows_per_t=None):
+    """Plain PyTorch version: K4's plain version on head-major views."""
+    return quantized_kv_decode_attention_plain(
+        q, *_smajor_as_hmajor(k_q, k_scale, v_q, v_scale, q.shape[1]), pos, scale=scale,
+        rows_per_t=rows_per_t)
+
+
+def quantized_kv_attention_smajor(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
+                                  pos: torch.Tensor, *, scale: Optional[float] = None,
+                                  bs: int = 1024, bq: Optional[int] = None,
+                                  rows_per_t: Optional[int] = None) -> torch.Tensor:
+    """``q [B, Hkv, R, Dh]`` bf16 against an S-major packed-int4 (uint8,
+    ``Db = Dh/2``) or int8 (``Db = Dh``) cache ``k_q, v_q [B, S, Hkv·Db]``
+    with scales ``[B, S, Hkv]``; causal per row (``key <= pos + r //
+    rows_per_t``); returns ``[B, Hkv, R, Dh]`` fp32. ``bs`` and ``bq`` are
+    the JAX package's block sizes, accepted for its signature: the CUDA
+    kernel tiles on its own."""
+    if q.device.type == "cpu":
+        return quantized_kv_attention_smajor_plain(q, k_q, k_scale, v_q, v_scale, pos,
+                                                   scale=scale, rows_per_t=rows_per_t)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, H, R, Dh = q.shape
+    if k_q.ndim != 3 or k_scale.shape != (B, k_q.shape[1], H):
+        raise ValueError("quantized_kv_attention_smajor: k_q [B, S, Hkv*Db], k_scale [B, S, Hkv]")
+    return _launch_heads("quantized_kv_attention_smajor", "tt_smajor_attention", q,
+                         *_smajor_as_hmajor(k_q, k_scale, v_q, v_scale, H), pos, scale,
+                         rows_per_t)

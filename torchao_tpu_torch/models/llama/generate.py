@@ -66,7 +66,9 @@ def generate(model: Transformer, params, prompt: torch.Tensor, max_new_tokens: i
              temperature: float = 0.6, top_k: Optional[int] = 200,
              kv_cache_quantization=False, seed: int = 0):
     """Returns ``[B, T_prompt + max_new_tokens]`` tokens.
-    ``kv_cache_quantization`` is ``setup_caches``' ``quantize``."""
+    ``kv_cache_quantization`` is ``setup_caches``' ``quantize``: False (bf16),
+    ``"int8"`` / ``"int4_smajor"`` (split-flat) or ``"int8_hmajor"`` /
+    ``"int4"`` (head-major)."""
     B, T = prompt.shape
     cache = model.setup_caches(B, T + max_new_tokens, quantize=kv_cache_quantization)
     gen = torch.Generator(device=model.device)

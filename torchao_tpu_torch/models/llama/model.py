@@ -2,7 +2,7 @@
 
 Port of the ported paths of ``torchao_tpu/models/llama/model.py``:
 stacked layer weights (leading ``n_layer`` axis) indexed per layer in a
-Python loop, every matmul through ``ops.linear``, and three KV caches
+Python loop, every matmul through ``ops.linear``, and five KV caches
 (``setup_caches(quantize=...)``), updated in place:
 
 - ``False``: bf16 (model dtype) ``{"k", "v": [L, B, Hkv, S, Dh]}``;
@@ -20,8 +20,20 @@ Python loop, every matmul through ``ops.linear``, and three KV caches
   prefill writes with indexed assignment and attends with
   ``quantized_kv_decode_attention`` (K4) over a head-major VIEW of the
   cache (no transpose copy).
+- ``"int8_hmajor"`` / ``"hmajor"``: int8 head-major, the reference
+  torchao's ``AffineQuantizedKVCache`` memory order; ``"int4"``: packed
+  int4 head-major::
 
-With ``cache=None`` the forward attends over the current tokens only
+    k_q, v_q         [L, B, Hkv, S, Db] int8 | uint8
+    k_scale, v_scale [L, B, Hkv, S, 1] in the model dtype
+
+  Every T writes with indexed assignment (``_cache_write``) and attends
+  with ``quantized_kv_decode_attention`` over layer l's slice (a view): K4,
+  or K4′ where heads are folded (``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` and the
+  JAX package's fit rule; on Llama-3-8B the decode steps).
+
+Every layout is the JAX package's, byte for byte, so no converter is
+needed. With ``cache=None`` the forward attends over the current tokens only
 (causal), as the JAX forward does. Positions are an int32 ``[B]`` tensor
 on the device, so decoding needs no host sync.
 
@@ -193,10 +205,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def init_kv_cache(args: ModelArgs, batch_size: int, max_seq_len: int,
                   dtype=torch.bfloat16, quantize=False, device=None):
-    """KV cache with a leading layer axis (see the module docstring).
-    Caches longer than 1024 round S up to a multiple of 1024, as in the
-    JAX package (the causal mask never reads the padded tail). The JAX
-    package's head-major int8/int4 layouts are not ported."""
+    """KV cache with a leading layer axis (see the module docstring), in
+    the JAX package's shapes and dtypes. Caches longer than 1024 round S up
+    to a multiple of 1024, as in the JAX package (the causal mask never
+    reads the padded tail)."""
     if max_seq_len > 1024:
         max_seq_len = -(-max_seq_len // 1024) * 1024
     dev = resolve_device(device)
@@ -205,14 +217,22 @@ def init_kv_cache(args: ModelArgs, batch_size: int, max_seq_len: int,
     if not quantize:
         return {"k": torch.zeros((L, B, H, S, Dh), dtype=dtype, device=dev),
                 "v": torch.zeros((L, B, H, S, Dh), dtype=dtype, device=dev)}
+    if quantize in ("int4", "int4_smajor", "int4smajor") and Dh % 2:
+        raise ValueError("int4 KV packing needs an even head_dim")
+    if quantize in ("int8_hmajor", "hmajor", "int4"):
+        qdtype, Db = (torch.uint8, Dh // 2) if quantize == "int4" else (torch.int8, Dh)
+        return {
+            "k_q": torch.zeros((L, B, H, S, Db), dtype=qdtype, device=dev),
+            "v_q": torch.zeros((L, B, H, S, Db), dtype=qdtype, device=dev),
+            "k_scale": torch.zeros((L, B, H, S, 1), dtype=dtype, device=dev),
+            "v_scale": torch.zeros((L, B, H, S, 1), dtype=dtype, device=dev),
+        }
     if quantize in (True, "int8", "int8_smajor", "smajor"):
         X, qdtype = H * Dh, torch.int8
     elif quantize in ("int4_smajor", "int4smajor"):
-        if Dh % 2:
-            raise ValueError("int4 KV packing needs an even head_dim")
         X, qdtype = H * Dh // 2, torch.uint8
     else:
-        raise NotImplementedError(f"KV cache {quantize!r} is not ported yet")
+        raise ValueError(f"unknown KV cache {quantize!r}")
     return {
         "k_q": torch.zeros((L, B, X, S), dtype=qdtype, device=dev),
         "v_q": torch.zeros((L, B, S, X), dtype=qdtype, device=dev),
@@ -278,16 +298,24 @@ def _smajor_update(cache, k, v, pos: torch.Tensor, l: int) -> None:
 
 
 def _cache_write(cache, k, v, pos: torch.Tensor, l: int) -> None:
-    """Write new k/v ``[B, Hkv, T, Dh]`` into layer ``l`` of the bf16 cache
-    ``[L, B, Hkv, S, Dh]`` at each slot's position, in place, with
-    ``dynamic_update_slice`` semantics (start clamped to ``[0, S - T]``)."""
+    """Write new k/v ``[B, Hkv, T, Dh]`` into layer ``l`` of a head-major
+    cache at each slot's position, in place, with ``dynamic_update_slice``
+    semantics (start clamped to ``[0, S - T]``): the bf16 cache
+    ``[L, B, Hkv, S, Dh]`` as they are, a quantized one (int8, or packed int4
+    for uint8 codes) after per-token quantization, codes and scales alike."""
     B, _, T, _ = k.shape
-    S = cache["k"].shape[3]
+    if "k" in cache:
+        new = {"k": k, "v": v}
+    else:
+        qfn = _quantize_kv_int4 if cache["k_q"].dtype == torch.uint8 else _quantize_kv
+        (k_q, k_s), (v_q, v_s) = qfn(k), qfn(v)
+        new = {"k_q": k_q, "v_q": v_q, "k_scale": k_s, "v_scale": v_s}
+    S = cache[next(iter(new))].shape[3]
     start = pos.to(torch.long).clamp(0, S - T)
     idx = start[:, None] + torch.arange(T, device=pos.device)[None]  # [B, T]
     bidx = torch.arange(B, device=pos.device)[:, None]
-    cache["k"][l][bidx, :, idx] = k.transpose(1, 2).to(cache["k"].dtype)
-    cache["v"][l][bidx, :, idx] = v.transpose(1, 2).to(cache["v"].dtype)
+    for name, val in new.items():  # advanced indices split by a slice: [B, T] dims first
+        cache[name][l][bidx, :, idx] = val.transpose(1, 2).to(cache[name].dtype)
 
 
 def _smajor_to_hmajor(cache, Hkv: int, Dh: int, l: int):
@@ -345,22 +373,26 @@ def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: Mod
             _cache_write(cache, k, v, pos, l)
             k, v = cache["k"][l], cache["v"][l]
         return linear(_plain_attention(q, k, v, mask, x.dtype), lw["wo"], layer_idx=l)
-    _smajor_update(cache, k, v, pos, l)
-    if T == 1:
-        attn = quantized_kv_decode_attention_bdq(
-            q.reshape(B, Hkv, g, Dh).contiguous(),
-            cache["k_q"], cache["k_scale"], cache["v_q"], cache["v_scale"],
-            pos, layer_idx=l,
-        )  # [B, Hkv, g, Dh] fp32
-        out = attn.reshape(B, 1, H * Dh).to(x.dtype)
-    else:
-        kq_h, ks_h, vq_h, vs_h = _smajor_to_hmajor(cache, Hkv, Dh, l)
-        # rows t-major: [B, H, T, Dh] → [B, Hkv, T·g, Dh]
-        qg = q.reshape(B, Hkv, g, T, Dh).transpose(2, 3).reshape(B, Hkv, T * g, Dh)
+    # rows t-major: [B, H, T, Dh] → [B, Hkv, T·g, Dh]
+    qg = q.reshape(B, Hkv, g, T, Dh).transpose(2, 3).reshape(B, Hkv, T * g, Dh)
+    if cache["k_q"].ndim == 5:  # head-major: K4, or K4′ where heads fold
+        _cache_write(cache, k, v, pos, l)
         attn = quantized_kv_decode_attention(
-            qg.contiguous(), kq_h, ks_h, vq_h, vs_h, pos, rows_per_t=g
+            qg.contiguous(), cache["k_q"][l], cache["k_scale"][l], cache["v_q"][l],
+            cache["v_scale"][l], pos, rows_per_t=g, bq=None if T == 1 else 512,
         )  # [B, Hkv, T·g, Dh] fp32
-        out = attn.reshape(B, Hkv, T, g, Dh).transpose(1, 2).reshape(B, T, H * Dh).to(x.dtype)
+    else:
+        _smajor_update(cache, k, v, pos, l)
+        if T == 1:
+            attn = quantized_kv_decode_attention_bdq(
+                qg.contiguous(), cache["k_q"], cache["k_scale"], cache["v_q"], cache["v_scale"],
+                pos, layer_idx=l,
+            )  # [B, Hkv, g, Dh] fp32
+        else:
+            attn = quantized_kv_decode_attention(
+                qg.contiguous(), *_smajor_to_hmajor(cache, Hkv, Dh, l), pos, rows_per_t=g, bq=512
+            )  # [B, Hkv, T·g, Dh] fp32
+    out = attn.reshape(B, Hkv, T, g, Dh).transpose(1, 2).reshape(B, T, H * Dh).to(x.dtype)
     return linear(out, lw["wo"], layer_idx=l)
 
 

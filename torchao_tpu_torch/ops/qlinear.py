@@ -39,6 +39,12 @@ version for a CPU tensor.
 - fp6, packed (``FloatxArray``): M <= 16 within K12's guard, stacked or
   not → ``fp6_dq_matmul`` (K12); otherwise the weight is dequantized and
   multiplied with ``torch.matmul`` (the JAX package's XLA route).
+- w4a8 (an 8da4w weight with symmetric per-token activations that K10's
+  probe accepts: ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1`` and nibbles that are not
+  XORed, which ``quantize_`` never makes) → on a CUDA tensor,
+  ``w4a8_dq_matmul`` (K10), in the JAX package's registration order: before
+  8da4w's centred route. With the shipped defaults it never fires, as in the
+  JAX package; on the CPU the weight takes the centred route below.
 - 8da4w (``LinearActivationQuantizedArray``, per-token int8 activations,
   symmetric or asymmetric, over a TILED int4 weight): the activations are
   quantized, centred as ``q − zp`` (exact: |q − zp| <= 255) and fed to K1/K5
@@ -68,6 +74,7 @@ from torchao_tpu_torch.kernels.fp6_matmul import (
 from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_rowwise_matmul
 from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul
 from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
+from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_available
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
 from torchao_tpu_torch.qtypes.composition import (
     LinearActivationQuantizedArray,
@@ -160,6 +167,17 @@ def _is_8da4w(w) -> bool:
     )
 
 
+def _is_w4a8(w) -> bool:
+    """K10's selection, the JAX package's ``_check_w4a8`` on a device that
+    has the kernel: symmetric per-token int8 activations over a weight that
+    K10's probe accepts (the caller adds the device)."""
+    return (
+        isinstance(w, LinearActivationQuantizedArray)
+        and w.input_quant_name == "int8_per_token_sym"
+        and w4a8_dq_matmul_available(w.original_weight)
+    )
+
+
 def _is_fp8_row_head(w, layer_idx) -> bool:
     """K9's guard (the JAX package's): an unstacked e4m3 weight with per-row
     scales and per-row activations, K and N multiples of 128."""
@@ -196,6 +214,13 @@ def _8da4w(x2, w: LinearActivationQuantizedArray, layer_idx):
         xc = xc - quantized[2].to(torch.int32).reshape(-1, 1)
     out = _int4(xc.to(x2.dtype), w.original_weight, layer_idx)
     return (out.float() * scale.float().reshape(-1, 1)).to(x2.dtype)
+
+
+def _w4a8(x2, w: LinearActivationQuantizedArray):
+    inner = w.original_weight
+    q, scale = w.quantize_input(x2)
+    return w4a8_dq_matmul(q, scale.reshape(-1), inner.qdata, inner.scale,
+                          group_size=inner.block_size[-1], out_dtype=x2.dtype)
 
 
 def _fp6_dual(x2, w: Fp6DualArray, layer_idx):
@@ -285,6 +310,8 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     x2 = x.reshape(-1, K).contiguous()
     if _is_int4_tiled(w):
         out = _int4(x2, w, layer_idx)
+    elif x.device.type == "cuda" and _is_w4a8(w):
+        out = _w4a8(x2, w)
     elif _is_8da4w(w):
         out = _8da4w(x2, w, layer_idx)
     elif isinstance(w, Fp6DualArray):

@@ -14,12 +14,13 @@ events (kernels, copies, memsets) back:
 Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
 each of the ported configurations with its KV cache (``CONFIGS``), each in
 a fresh process (a finished ``torch.profiler`` session leaves the host
-slower for the rest of its process); with ``--trace PREFIX`` each
-configuration's chrome trace goes to ``PREFIX.<recipe>.json``, and
-``--recipes`` picks some of them::
+slower for the rest of its process, and a configuration's environment,
+such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1``, stays in its own); with
+``--trace PREFIX`` each configuration's chrome trace goes to
+``PREFIX.<name>.json``, and ``--recipes`` picks some of them::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
-    python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32
+    python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32,int4wo-32-int4hm
 """
 
 from __future__ import annotations
@@ -41,9 +42,14 @@ PROMPT_LEN = 128
 STEPS = 16
 TEMPERATURE = 0.6
 TOP_K = 200
-# recipe (models/llama/cli.py) -> KV cache, as chip_smoke.py runs them
-CONFIGS = {"int4wo-32": "int4_smajor", "int8wo": "int8", "int8dq": False, "float8wo": False,
-           "float8dq-row": False, "fp6": False, "8da4w-32": False}
+# name -> (recipe of models/llama/cli.py, KV cache, environment), as chip_smoke.py runs them
+_FOLD = {"TORCHAO_TPU_ATTN_FOLD_HEADS": "1"}
+CONFIGS = {"int4wo-32": ("int4wo-32", "int4_smajor", {}), "int8wo": ("int8wo", "int8", {}),
+           "int8dq": ("int8dq", False, {}), "float8wo": ("float8wo", False, {}),
+           "float8dq-row": ("float8dq-row", False, {}), "fp6": ("fp6", False, {}),
+           "8da4w-32": ("8da4w-32", False, {}),
+           "int4wo-32-int4hm": ("int4wo-32", "int4", _FOLD),
+           "int8wo-int8hm": ("int8wo", "int8_hmajor", {})}
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 
@@ -121,11 +127,14 @@ def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
     }
 
 
-def _profile_recipe(recipe, kv, trace_path):
-    """Quantize Llama-3-8B with ``recipe`` and profile its decode step."""
+def _profile_recipe(recipe, kv, env, trace_path):
+    """Quantize Llama-3-8B with ``recipe`` and profile its decode step, with
+    ``env`` set in this (fresh) process."""
     from torchao_tpu_torch.models.llama.cli import config_from_recipe
     from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
     from torchao_tpu_torch.models.llama.model import Transformer, default_linear_filter
+
+    os.environ.update(env)
 
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
     params = init_quantized_params(model, config_from_recipe(recipe), default_linear_filter,
@@ -137,19 +146,19 @@ def _profile_recipe(recipe, kv, trace_path):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None,
-                    help="write each configuration's chrome trace to PREFIX.<recipe>.json")
+                    help="write each configuration's chrome trace to PREFIX.<name>.json")
     ap.add_argument("--recipes", default=",".join(CONFIGS),
-                    help="comma-separated recipes of CONFIGS to profile (default: all)")
+                    help="comma-separated names of CONFIGS to profile (default: all)")
     a = ap.parse_args()
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    for recipe in a.recipes.split(","):
-        kv = CONFIGS[recipe]
-        trace = f"{a.trace}.{recipe}.json" if a.trace else None
+    for name in a.recipes.split(","):
+        recipe, kv, env = CONFIGS[name]
+        trace = f"{a.trace}.{name}.json" if a.trace else None
         with ctx.Pool(1) as pool:
-            res = pool.apply(_profile_recipe, (recipe, kv, trace))
-        print(f"{res['device']}; {recipe}, KV cache {kv or 'bf16'}; decode step: "
+            res = pool.apply(_profile_recipe, (recipe, kv, env, trace))
+        print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; decode step: "
               f"wall {res['wall_ms_per_step']:.3f} ms (traced "
               f"{res['traced_wall_ms_per_step']:.3f} ms), device busy "
               f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}")
@@ -160,7 +169,8 @@ def main():
         print("  host ops by self time:")
         for op in res["host_ops"]:
             print(f"  {op['self_ms_per_step']:9.4f} ms  {op['calls_per_step']:7.1f}x  {op['name']}")
-        print(json.dumps({"recipe": recipe, "kv_cache": kv or "bf16", **res,
+        print(json.dumps({"config": name, "recipe": recipe, "kv_cache": kv or "bf16", "env": env,
+                          **res,
                           "kernels": res["kernels"][:25]}))
 
 
