@@ -42,13 +42,24 @@ Phases (each fails loudly; nothing is caught):
    float32 run on the CPU: the card must come as close to it as the CPU
    does (``check_against_cpu``).
 
-4. two phases with no model: the long-context one (a layer's cache at
+   Then the section ``int4wo-32-variants``: the same int4wo model, quantized
+   once, decoded three times under the int4 variants of slice 5 —
+   ``TORCHAO_TPU_INT4_VARIANT=banded`` (K14c at decode, K5 at prefill),
+   ``group_partial`` (K14a everywhere) and ``TORCHAO_TPU_AUTOTUNE=1`` with a
+   cache in a temporary directory (each shape's pick printed and its launch
+   counts asserted) — after K14a (M = 1, 128), K14b and K14c (M = 1) against
+   their plain versions at the model's shapes; the 2-layer check runs under
+   ``banded``.
+
+4. three phases with no model: the long-context one (a layer's cache at
    S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
    S-major, K2 split-flat, each against its plain version and timed, SDPA
    on the dequantized layer as the yardstick), and K10's (the W4A8 matmul at
    Llama-3-8B's linear shapes, M = 1 and 128, reached once through
-   ``ops.linear`` with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``). Their rows
-   report 0 launches: no main path runs them.
+   ``ops.linear`` with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``), and the ceiling
+   probe's (``probes/ceiling_probe.py`` at fewer steps: K1, its stub arm and
+   the one-launch stream over a decode step's 4.69 GB, with GB/s). Their
+   rows report 0 launches: no main path runs them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -57,8 +68,10 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -66,6 +79,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -83,7 +97,14 @@ from torchao_tpu_torch.kernels.fp8_matmul import (
     fp8_rowwise_matmul,
     fp8_rowwise_matmul_plain,
 )
-from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul, int4_dq_matmul_plain
+from torchao_tpu_torch.kernels.int4_matmul import (
+    PLAIN,
+    VARIANT_ENV,
+    choose_body,
+    int4_dq_matmul,
+    reset_variant_choices,
+    variant_choices,
+)
 from torchao_tpu_torch.kernels.int8_matmul import (
     int8_scaled_matmul,
     int8_scaled_matmul_plain,
@@ -114,6 +135,7 @@ from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
+from torchao_tpu_torch.probes import ceiling_probe
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
@@ -189,6 +211,15 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                             "torchao_tpu/kernels/w4a8_matmul.py:161"),
     "w4a8_dq_matmul_tiled": ("torchao_tpu_torch/csrc/w4a8_matmul.cu",
                              "torchao_tpu/kernels/w4a8_matmul.py:161"),
+    "int4_dq_matmul_group_partial": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                     "torchao_tpu/kernels/int4_matmul.py:723"),
+    "int4_dq_matmul_banded": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                              "torchao_tpu/kernels/int4_matmul.py:1054"),
+    "int4_dq_matmul_banded_stacked": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                      "torchao_tpu/kernels/int4_matmul.py:1004"),
+    "int4_dq_matmul_stub": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                            "torchao_tpu/kernels/int4_matmul.py:877"),
+    "ceiling_mono": ("torchao_tpu_torch/csrc/ceiling_probe.cu", "scripts/ceiling_probe_r4.py:140"),
 }
 
 
@@ -299,15 +330,17 @@ def _weights(params):
 FORMS = (("gemv", 1), ("tiled", PROMPT))  # decode and prefill
 
 
-def _int4_call(x, w, l):
-    """K1/K5 on an int4 weight, with its zero or zero-free (fp6's A plane,
-    the 8da4w weight)."""
+def _int4_call(x, w, l, variant="auto"):
+    """K1/K5 (or the body that ``variant`` runs at this M) on an int4
+    weight, with its zero or zero-free (fp6's A plane, the 8da4w weight),
+    and that body's plain version."""
     N, K = w.shape[-2:]
     M, g = x.shape[0], w.block_size[-1]
     args = (x, w.qdata, w.scale, w.zero_point)
     kw = dict(group_size=g, layer_idx=l, xored=True)
+    plain = PLAIN[choose_body(M, K, g, variant)]
     qparams = (1 if w.zero_point is None else 2) * (K // g) * N * 2
-    return (lambda: int4_dq_matmul(*args, **kw), lambda: int4_dq_matmul_plain(*args, **kw),
+    return (lambda: int4_dq_matmul(*args, variant=variant, **kw), lambda: plain(*args, **kw),
             K // 2 * N + qparams + M * K * 2 + M * N * 2, 2 * M * N * K)
 
 
@@ -1097,6 +1130,145 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     return [{**t.row(counts.get(t.name, 0)), "section": name} for t in tallies], e2e
 
 
+# ------------------------------------------------------------ slice 5 --
+
+VARIANTS_SECTION = f"int4wo-{GROUP}-variants"
+
+
+def _k14_kernels(params, args, gen):
+    """K14a at M = 1 and 128, K14c (the default layout: a chunk applies to
+    every Llama-3-8B shape) and K14b (``TORCHAO_TPU_QPARAMS_LAYOUT=family``)
+    at M = 1, on every stacked weight and the head; each group of checks
+    launches its own kernel and no other."""
+    cases = _cases(params, args.n_layer, True)
+    checks = (("int4_dq_matmul_group_partial", "group_partial", 1, {}),
+              ("int4_dq_matmul_group_partial", "group_partial", PROMPT, {}),
+              ("int4_dq_matmul_banded_stacked", "banded", 1, {}),
+              ("int4_dq_matmul_banded", "banded", 1, {"TORCHAO_TPU_QPARAMS_LAYOUT": "family"}))
+    tallies = []
+    for name, variant, M, env in checks:
+        with _environment(env):
+            _build.reset_launch_counts()
+            tallies.append(check_shapes(name, cases, M, functools.partial(_int4_call, variant=variant),
+                                        gen))
+            if set(_build.LAUNCHES) != {name}:
+                raise AssertionError(f"{variant} at M={M}: launches {dict(_build.LAUNCHES)}")
+    return tallies
+
+
+def _attention_counts(L):
+    return {k: v for k, v in _want_int4(L).items() if not k.startswith("int4_dq_matmul")}
+
+
+def _variant_run(model, params, label, env):
+    """One ``benchmark_decode`` of the section's model under ``env``, the
+    choices made afresh; returns (e2e numbers, launch counts, choices)."""
+    log(f"  -- {label}: {env}")
+    with _environment(env):
+        reset_variant_choices()
+        torch.cuda.reset_peak_memory_stats()
+
+        def on_run(i):
+            if i == 1:
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+
+        res = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
+                               kv_cache_quantization="int4_smajor", temperature=TEMPERATURE,
+                               top_k=TOP_K, warmup=1, iters=1, on_run=on_run)
+        counts, choices = dict(_build.LAUNCHES), variant_choices()
+        reset_variant_choices()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = res["tokens"]
+    if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
+                                           int(tokens.max()) < model.args.vocab_size):
+        raise AssertionError(f"tokens out of range: {tokens}")
+    e2e = {"config": f"{VARIANTS_SECTION} {label}", "kv_cache": "int4_smajor", "env": env,
+           "ttft_ms": res["ttft_ms"], "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
+        f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
+        f"peak_GB={peak_gb:.3f}")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    return e2e, counts, choices
+
+
+def _expect(counts, want, label):
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != expected {want}")
+
+
+def variants_section(gen):
+    """Llama-3-8B int4wo-32 with the int4 split-flat cache, quantized once and
+    decoded under ``banded``, ``group_partial`` and the autotuner (see the
+    module docstring). Returns (kernel rows, end-to-end numbers)."""
+    log(f"== {MODEL}, {VARIANTS_SECTION}, KV cache int4_smajor: random weights")
+    t0 = time.perf_counter()
+    model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
+    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
+                                   default_linear_filter, seed=0)
+    torch.cuda.synchronize()
+    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
+    L = model.args.n_layer
+    log("  -- K14 against the plain versions of their bodies (main-path shapes)")
+    tallies = _k14_kernels(params, model.args, gen)
+    torch.cuda.empty_cache()
+
+    banded = {VARIANT_ENV: "banded"}
+    e2e_a, counts, _ = _variant_run(model, params, "banded", banded)
+    _expect(counts, {"int4_dq_matmul_banded_stacked": (4 * L + 1) * DECODE,
+                     "int4_dq_matmul_tiled": 4 * L + 1, **_attention_counts(L)}, "banded")
+    with _environment(banded):
+        log("  -- the card's forward against the CPU's plain versions, under banded")
+        sqnr = check_against_cpu(params, gen, "int4_smajor")
+        reset_variant_choices()
+    e2e_a.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
+
+    e2e_b, counts_b, _ = _variant_run(model, params, "group_partial",
+                                      {VARIANT_ENV: "group_partial"})
+    _expect(counts_b, {"int4_dq_matmul_group_partial": (4 * L + 1) * (DECODE + 1),
+                       **_attention_counts(L)}, "group_partial")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tune = {"TORCHAO_TPU_AUTOTUNE": "1",
+                "TORCHAO_TPU_AUTOTUNE_CACHE": os.path.join(tmp, "autotune_cache.json")}
+        e2e_c, counts_c, picks = _variant_run(model, params, "autotuned", tune)
+    want = collections.Counter(_attention_counts(L))
+    for (M, N, K, g, stacked, _), body in sorted(picks.items()):
+        log(f"  autotune pick M={M} N={N} K={K} g={g}{' stacked' if stacked else ''}: {body}")
+        want[f"int4_dq_matmul_{body}"] += (L if stacked else 1) * (DECODE if M == 1 else 1)
+    _expect(counts_c, dict(want), "autotuned")
+    e2e_c["picks"] = {f"M={M},N={N},K={K}": body for (M, N, K, *_), body in picks.items()}
+
+    runs = {"banded": counts, "group_partial": counts_b}
+    rows = [{**t.row(runs["group_partial" if "group" in t.name else "banded"].get(t.name, 0)),
+             "section": VARIANTS_SECTION} for t in tallies]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, [e2e_a, e2e_b, e2e_c]
+
+
+def ceiling_phase():
+    """The ceiling probe at fewer steps: K1 (real), its stub arm and the
+    one-launch stream, each against its plain version, with GB/s."""
+    log("== ceiling probe: a Llama-3-8B int4 decode step's operand set, three arms")
+    res = ceiling_probe.run_probe(steps=8, reps=3, tol_db=TOL_SQNR_DB)
+    rows = []
+    for arm, name in (("real", "int4_dq_matmul_gemv"), ("stub", "int4_dq_matmul_stub"),
+                      ("mono", "ceiling_mono")):
+        r = res[arm]
+        nbytes = r.get("bytes", res["bytes_per_step"])
+        t = Tally(name, f"ceiling probe, {arm} arm: {nbytes / 1e9:.3f} GB per "
+                        + ("launch" if arm == "mono" else "decode step of 161 launches"))
+        t.add(1, r["ms_per_step"], r["plain_ms"], nbytes, 0, r["max_abs_err"])
+        rows.append({**t.row(0), "section": "ceiling", "GBps": r["GBps"]})
+    log(f"  real/stub={res['real_over_stub']:.3f} stub/mono={res['stub_over_mono']:.3f} "
+        f"mono/3.35 TB/s={res['mono_over_spec']:.3f}")
+    rows[-1].update({k: res[k] for k in ("real_over_stub", "stub_over_mono", "mono_over_spec")})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1118,10 +1290,17 @@ def main() -> int:
         e2e.append(e)
         log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
 
+    r, e = variants_section(gen)
+    rows += r
+    e2e += e
+    log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
+
     rows += long_context_phase(gen)
     log(f"  long-context phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += w4a8_phase(gen)
     log(f"  K10 phase done; total {time.perf_counter() - t_start:.1f} s")
+    rows += ceiling_phase()
+    log(f"  ceiling phase done; total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": rows}))

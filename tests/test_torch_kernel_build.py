@@ -449,3 +449,119 @@ def test_w4a8_kernel_matches_plain(cuda, g, M):
         got = w4a8_dq_matmul(x_q, x_s, wp, ws, group_size=g, out_dtype=out_dtype)
         want = w4a8_dq_matmul_plain(x_q, x_s, wp, ws, group_size=g, out_dtype=out_dtype)
         _sqnr_ok(got, want, 80.0 if out_dtype == torch.float32 else 45.0)
+
+
+# ------------------------------------------------------------------ slice 5 --
+
+
+def test_slice_5_wrappers_raise_on_a_device_without_a_kernel():
+    """K14a/b/c, K1's stub arm and the probe's mono stream compute on the
+    CPU or a card only."""
+    from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul_stub
+    from torchao_tpu_torch.probes.ceiling_probe import ceiling_mono
+
+    m = torch.device("meta")
+    x = torch.empty((1, 64), dtype=torch.bfloat16, device=m)
+    wp = torch.empty((32, 16), dtype=torch.uint8, device=m)
+    s = torch.empty((2, 16), dtype=torch.bfloat16, device=m)
+    for variant in ("group_partial", "banded"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            int4_dq_matmul(x, wp, s, s, group_size=32, xored=True, variant=variant)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int4_dq_matmul_stub(x, wp, s, s, group_size=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ceiling_mono(torch.empty(1024, dtype=torch.bfloat16, device=m),
+                     torch.empty((1024, 2048), dtype=torch.uint8, device=m))
+
+
+def test_stub_and_mono_plain_versions_are_the_raw_byte_dot():
+    """The stub arm's and the mono stream's plain versions against the same
+    arithmetic written out in float64 (the stub's 1e-30 qparam term is
+    below float32's resolution here)."""
+    import numpy as np
+
+    from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul_stub
+    from torchao_tpu_torch.probes.ceiling_probe import ceiling_mono
+
+    gen = torch.Generator().manual_seed(0)
+    wp, scale, zero = _int4_weight(gen, 2, 256, 64, 32, "cpu")
+    x = torch.randn((3, 256), generator=gen).bfloat16()
+    got = int4_dq_matmul_stub(x, wp, scale, zero, group_size=32, layer_idx=1)
+    want = x[:, :128].double().numpy() @ wp[1].view(torch.int8).double().numpy()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2, atol=1e-1)
+
+    xm = torch.randn(1024, generator=gen).bfloat16()
+    w = torch.randint(0, 256, (3 * 1024, 2048), generator=gen, dtype=torch.uint8)
+    want = (w.view(torch.int8).double().reshape(3, 1024, 2048)
+            * xm.double()[None, :, None]).sum((0, 1))
+    np.testing.assert_allclose(ceiling_mono(xm, w).numpy(), want.numpy(), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("M", [1, 4, 16, 128])
+def test_int4_variant_kernels_match_plain(cuda, monkeypatch, M, zero_free):
+    """K14a (every M), K14c and K14b (M <= 16: the chunked and the family
+    layout), each against its own body's plain version, and each launching
+    the kernel it names; K = 14336 has no partial trailing K block (K/2 =
+    7168), N = 4096 + 16 a ragged column tile."""
+    from torchao_tpu_torch.kernels.int4_matmul import PLAIN
+
+    gen = torch.Generator(device=cuda).manual_seed(M + zero_free)
+    L, K, N, g = 2, 14336, 4096 + 16, 32
+    wp, scale, zero = _int4_weight(gen, L, K, N, g, cuda)
+    zero = None if zero_free else zero
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    forms = [("group_partial", None, "group_partial")]
+    if M <= 16:
+        forms += [("banded", None, "banded_stacked"), ("banded", "family", "banded")]
+    base = "int4_dq_matmul" + ("_zero_free" if zero_free else "")
+    for variant, layout, body in forms:
+        if layout:
+            monkeypatch.setenv("TORCHAO_TPU_QPARAMS_LAYOUT", layout)
+        else:
+            monkeypatch.delenv("TORCHAO_TPU_QPARAMS_LAYOUT", raising=False)
+        for l, args in ((1, (wp, scale, zero)),
+                        (None, (wp[0], scale[0], None if zero is None else zero[0]))):
+            before = _build.LAUNCHES[f"{base}_{body}"]
+            got = int4_dq_matmul(x, *args, group_size=g, layer_idx=l, xored=True,
+                                 variant=variant)
+            assert _build.LAUNCHES[f"{base}_{body}"] == before + 1
+            _sqnr_ok(got, PLAIN[body](x, *args, group_size=g, layer_idx=l, xored=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4])
+def test_stub_arm_matches_plain(cuda, M):
+    """K1's stub arm: K1's grid and loads, one raw-byte dot."""
+    from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul_stub, int4_dq_matmul_stub_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    wp, scale, zero = _int4_weight(gen, 2, 4096, 4096 + 16, 32, cuda)
+    x = torch.randn((M, 4096), generator=gen, device=cuda).bfloat16()
+    for z in (zero, None):
+        got = int4_dq_matmul_stub(x, wp, scale, z, group_size=32, layer_idx=1)
+        _sqnr_ok(got, int4_dq_matmul_stub_plain(x, wp, scale, z, group_size=32, layer_idx=1))
+
+
+@pytest.mark.cuda
+def test_mono_stream_matches_plain(cuda):
+    """The probe's one-launch stream on random bytes, rows not a multiple
+    of the blocks."""
+    from torchao_tpu_torch.probes.ceiling_probe import ceiling_mono, ceiling_mono_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(1024, generator=gen, device=cuda).bfloat16()
+    w = torch.randint(0, 256, (37 * 1024, 2048), generator=gen, dtype=torch.uint8, device=cuda)
+    _sqnr_ok(ceiling_mono(x, w), ceiling_mono_plain(x, w))
+
+
+def test_ceiling_probe_needs_a_card(monkeypatch):
+    """Without a CUDA device the probe exits non-zero and measures nothing."""
+    from torchao_tpu_torch.probes import ceiling_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["ceiling_probe"])
+    assert ceiling_probe.main() == 1
+    with pytest.raises(RuntimeError, match="CUDA card only"):
+        ceiling_probe.run_probe()

@@ -19,6 +19,11 @@ __device__ __forceinline__ float nib_minus8(uint32_t v4, int j) {
   return __uint_as_float(__byte_perm(v4, 0x4B000000u, 0x7540u | j)) - 8388616.0f;
 }
 
+// The same nibble byte as its raw value (0..15), exactly.
+__device__ __forceinline__ float nib(uint32_t v4, int j) {
+  return __uint_as_float(__byte_perm(v4, 0x4B000000u, 0x7540u | j)) - 8388608.0f;
+}
+
 // int8 byte j of `v4x` (a word already XORed with 0x80808080, i.e. offset
 // binary) as float, exactly: the byte goes into the mantissa of 2^23.
 __device__ __forceinline__ float sbyte(uint32_t v4x, int j) {

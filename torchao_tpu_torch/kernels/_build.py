@@ -88,10 +88,17 @@ _HEADS = (
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 # x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream
 _GEMV6 = [c_ptr] * 6 + [c_int] * 4 + [c_ptr]
+# x, wp, scale, zero, ws, out, M, K, N, g, ksplit, stream
+_INT4 = [c_ptr] * 6 + [c_int] * 5 + [c_ptr]
 SIGNATURES = {
     # the zero pointer (4th) may be null: the zero-free form
-    "tt_int4_gemv": [c_ptr] * 6 + [c_int] * 5 + [c_ptr],
+    "tt_int4_gemv": _INT4,
+    "tt_int4_gemv_stub": _INT4,
+    "tt_int4_group_partial": _INT4,
+    "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
     "tt_int4_tiled": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+    # x, w, out, R, xr_mask, blocks, stream
+    "tt_ceiling_mono": [c_ptr] * 3 + [c_i64, c_int, c_int, c_ptr],
     "tt_kv_cache_write": [c_ptr] * 9 + [c_int] * 5 + [c_ptr],
     "tt_bdq_decode": _BDQ,
     "tt_bdq_decode_i8": _BDQ,

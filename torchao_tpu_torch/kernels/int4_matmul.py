@@ -1,59 +1,101 @@
-"""int4 weight-only dequant-matmul: CUDA kernel wrapper + plain version.
+"""int4 weight-only dequant-matmul: CUDA kernel wrappers + plain versions.
 
-Port of ``torchao_tpu/kernels/int4_matmul.py::int4_dq_matmul`` (kernels K1
-and K5 of the port's kernel table). The CUDA source is
-``csrc/int4_matmul.cu``; it has two launch shapes:
+Port of ``torchao_tpu/kernels/int4_matmul.py::int4_dq_matmul`` and of the
+selection in its dispatch ``int4_dq_matmul_available``. The CUDA source is
+``csrc/int4_matmul.cu``. A call runs one of five bodies, each the TPU
+kernel body it stands for, and counts its launches as
+``int4_dq_matmul_<body>`` (``int4_dq_matmul_zero_free_<body>`` for
+``zero=None``):
 
-- ``gemv`` (K1, M <= 32): replaces the decode GEMV ``_bint8_call`` →
-  ``_kernel_bint8m`` (pallas_call at ``int4_matmul.py:877``);
-- ``tiled`` (K5, M > 32): replaces the fused variant ``_kernel``
-  (pallas_call at ``int4_matmul.py:723``).
+- ``gemv`` (K1): the decode GEMV ``_bint8_call`` → ``_kernel_bint8m``
+  (pallas_call at ``int4_matmul.py:877``);
+- ``tiled`` (K5): the fused variant ``_kernel`` (pallas_call at ``:723``);
+- ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call;
+- ``banded_stacked`` (K14c): ``_kernel_banded_stacked`` (pallas_call at
+  ``:1004``), where the JAX package's chunk rule gives a chunk;
+- ``banded`` (K14b): ``_kernel_banded`` (pallas_call at ``:1054``), where
+  it gives none.
 
-``out[m, n] = Σ_k x[m, k] · ((q[n, k] − 8)·s[k//g, n] + z[k//g, n])`` over
-K-major half-split nibbles (byte k holds k and k + K/2), with a stacked
-``[L, K/2, N]`` weight addressed by ``layer_idx`` (``wp[l]`` is a view, so
-nothing is copied). The TPU's scalar-prefetch layer index and its
-chunked ``qparams_eff`` stream have no counterpart here.
+``variant=`` follows the JAX package's rules (``int4_matmul.py:649-722``):
+``auto`` keeps the port's split, K1 at M <= 32 and K5 above (the JAX package
+picks its batched-int8 body up to M = 16, or 32 when a chunk applies and
+16 | M); ``fused`` is K5 at every M; ``group_partial`` K14a at every M;
+``batched_int8`` K1 and ``banded`` K14c/K14b up to the JAX package's M
+limit, above which a visible ``warnings.warn`` sends them to ``fused`` (so
+the 128-token prefill of ``banded`` runs K5; ``banded`` at 16 < M <= 32
+with a chunk runs K5 without a warning, as in the JAX package).
+
+:func:`int4_linear` is ``ops.linear``'s entry (the JAX dispatch's ``impl``):
+``TORCHAO_TPU_INT4_VARIANT`` wins over an autotuned choice
+(``kernels/autotune.py``, ``TORCHAO_TPU_AUTOTUNE=1``), which wins over
+``auto``, wherever the JAX package's dispatch would take its kernel
+(:func:`_kernel_gate`); elsewhere ``auto``. The choice is resolved once per
+(M, N, K, g, stacked, device) and memoized, because the decode loop is
+host-bound; :func:`reset_variant_choices` forgets it.
+``TORCHAO_TPU_INT4_BN``/``_BKP`` are TPU block knobs with no counterpart.
+
+Every body computes ``out[m, n] = Σ_k x[m, k]·((q[n, k] − mid)·s[k//g, n] +
+z[k//g, n])`` over K-major half-split nibbles (byte k holds k and k + K/2),
+with a stacked ``[L, K/2, N]`` weight addressed by ``layer_idx`` (``wp[l]``
+is a view, so nothing is copied); they differ in where they round, and each
+plain version rounds as its TPU body does (K1/K5's as the XLA route
+``_xla_tiled_int4_linear``). The TPU's scalar-prefetch layer index and its
+stored ``qparams_eff`` have no counterpart: the kernels read ``scale`` and
+``zero`` (see ``qtypes/intx.py`` for why that computes the same numbers).
 
 ``zero=None`` is the zero-free form (z = 0, mid = 8): the symmetric 8da4w
-weight and fp6's A plane. It reaches the kernel as a null pointer, and it
-counts its launches as ``int4_dq_matmul_zero_free_{gemv,tiled}``.
+weight and fp6's A plane. It reaches the kernels as a null pointer.
 
-A CUDA tensor launches the kernel (or raises); only a CPU tensor takes
-:func:`int4_dq_matmul_plain`.
+A CUDA tensor launches a kernel (or raises); only a CPU tensor takes a
+plain version. K1's ``stub`` arm (:func:`int4_dq_matmul_stub`) is the
+ceiling probe's: K1's launch structure and loads with one raw-byte dot.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional
 
 import torch
 
-from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels import _build, autotune
+from torchao_tpu_torch.qtypes.intx import _tiled_eff_qparams, qparams_chunk_groups
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 32
+BANDED_MAX_M = 16  # the JAX banded bodies' M limit
 GEMV_RUN = 8       # packed rows per GEMV run (csrc RUN)
 TILED_KP = 16      # packed rows per tiled step (csrc TKP)
 _GEMV_TN = 128     # columns per GEMV block (csrc GEMV_TN)
 _GEMV_LANES = 32   # run lanes per GEMV block (csrc GEMV_LANES)
-_TARGET_BLOCKS = 1024
+TARGET_BLOCKS = 1024
+VARIANTS = ("auto", "fused", "group_partial", "batched_int8", "banded")
+VARIANT_ENV = "TORCHAO_TPU_INT4_VARIANT"
 
 
-def int4_dq_matmul_plain(x, wp, scale, zero, *, group_size, mid=8.0,
-                         layer_idx=None, xored=False):
-    """Plain PyTorch version, rounding where the JAX package's XLA route
+def _layer(wp, scale, zero, layer_idx):
+    if layer_idx is None:
+        return wp, scale, zero
+    return wp[layer_idx], scale[layer_idx], None if zero is None else zero[layer_idx]
+
+
+def _nibbles(wp, xored):
+    """The low and high nibbles (0..15) of the bytes as quantized."""
+    qd = wp ^ 0x80 if xored else wp
+    return qd & 0xF, qd >> 4
+
+
+def int4_dq_matmul_plain(x, wp, scale, zero, *, group_size, mid=8.0, layer_idx=None,
+                         xored=False):
+    """Plain version of K1/K5, rounding where the JAX package's XLA route
     ``_xla_tiled_int4_linear`` rounds: each packed half is dequantized in
     fp32 and rounded to ``x.dtype``, contracted in fp32, rounded to
     ``x.dtype``, and the two halves are summed in ``x.dtype``."""
-    if layer_idx is not None:
-        wp, scale = wp[layer_idx], scale[layer_idx]
-        zero = None if zero is None else zero[layer_idx]
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
     Kp, N = wp.shape
     g = group_size
-    qd = wp ^ 0x80 if xored else wp
-    lo = (qd & 0xF).float()
-    hi = (qd >> 4).float()
+    lo, hi = (t.float() for t in _nibbles(wp, xored))
     s = scale.float().repeat_interleave(g, dim=0)  # [K, N]
     z = 0.0 if zero is None else zero.float().repeat_interleave(g, dim=0)
     z_lo, z_hi = (z, z) if zero is None else (z[:Kp], z[Kp:])
@@ -61,6 +103,178 @@ def int4_dq_matmul_plain(x, wp, scale, zero, *, group_size, mid=8.0,
     dq_hi = ((hi - mid) * s[Kp:] + z_hi).to(x.dtype).float()
     xf = x.float()
     return (xf[:, :Kp] @ dq_lo).to(x.dtype) + (xf[:, Kp:] @ dq_hi).to(x.dtype)
+
+
+def int4_dq_matmul_group_partial_plain(x, wp, scale, zero, *, group_size, mid=8.0,
+                                       layer_idx=None, xored=False):
+    """Plain version of K14a, rounding where ``_kernel_v2`` rounds: per
+    group, the f32 partial of x times the raw nibbles (lo, and hi = (w −
+    lo)/16, both 0..15) times the bf16 scale, plus the group's f32 x-sum
+    times ``bf16(z − mid·s)``, accumulated group by group in f32 and
+    rounded to ``x.dtype``."""
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
+    Kp, N = wp.shape
+    g = group_size
+    s = scale.to(torch.bfloat16).float()
+    z2 = ((0.0 if zero is None else zero.float()) - mid * scale.float()).to(
+        torch.bfloat16).float()
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], N), dtype=torch.float32, device=x.device)
+    for half, q in enumerate(_nibbles(wp, xored)):
+        qf, xh = q.float(), xf[:, half * Kp:(half + 1) * Kp]
+        for gi in range(Kp // g):
+            xg, row = xh[:, gi * g:(gi + 1) * g], half * (Kp // g) + gi
+            acc += (xg @ qf[gi * g:(gi + 1) * g]) * s[row]
+            acc += xg.sum(1, keepdim=True) * z2[row]
+    return acc.to(x.dtype)
+
+
+def int4_dq_matmul_banded_plain(x, wp, scale, zero, *, group_size, mid=8.0, layer_idx=None,
+                                xored=False):
+    """Plain version of K14b/K14c, rounding where ``_kernel_banded`` and
+    ``_kernel_banded_stacked`` round (the two compute the same function):
+    x rounded to bf16; per group, f32 partials of the lo-half x and of the
+    hi-half x against the low nibble, and of the hi-half x against ``b′ =
+    (w ^ 0x80) as int8 = lo + 16·(hi − 8)``; ``p_lo·s_lo + (p_b′ −
+    p_hi,lo)·(s_hi/16)`` summed over groups in f32; then the zero terms, the
+    group x-sums rounded to bf16 times the bf16 pre-biased zeros."""
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
+    Kp, N = wp.shape
+    g, M = group_size, x.shape[0]
+    nG = Kp // g
+    # the four bf16 families of qparams_eff (quant range 0 .. 2·mid − 1 has mid `mid`)
+    slo, shi16, z2lo, z2hi = _tiled_eff_qparams(scale, zero, 0, 2 * mid - 1).float().chunk(4)
+    lo, hi = _nibbles(wp, xored)
+    lo3 = lo.float().reshape(nG, g, N)
+    bp3 = (lo.to(torch.int16) + 16 * (hi.to(torch.int16) - 8)).float().reshape(nG, g, N)
+    xb = x.to(torch.bfloat16).float()
+    xl, xh = xb[:, :Kp].reshape(M, nG, g), xb[:, Kp:].reshape(M, nG, g)
+    dot = lambda a, b: torch.einsum("mgk,gkn->mgn", a, b)
+    acc = (dot(xl, lo3) * slo + (dot(xh, bp3) - dot(xh, lo3)) * shi16).sum(1)
+    acc = acc + xl.sum(-1).to(torch.bfloat16).float() @ z2lo
+    acc = acc + xh.sum(-1).to(torch.bfloat16).float() @ z2hi
+    return acc.to(x.dtype)
+
+
+PLAIN = {"gemv": int4_dq_matmul_plain, "tiled": int4_dq_matmul_plain,
+         "group_partial": int4_dq_matmul_group_partial_plain,
+         "banded": int4_dq_matmul_banded_plain, "banded_stacked": int4_dq_matmul_banded_plain}
+
+
+def int4_dq_matmul_stub_plain(x, wp, scale, zero, *, group_size, layer_idx=None):
+    """Plain version of K1's stub arm: the lo-half x times the stored bytes
+    as int8 in f32, plus 1e-30 times the qparams that each run of K1 reads,
+    rounded to ``x.dtype``. Not the matmul."""
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
+    Kp = wp.shape[0]
+    acc = x[:, :Kp].float() @ wp.view(torch.int8).float()
+    touched = scale.float().sum(0) + (0.0 if zero is None else zero.float().sum(0))
+    return (acc + 1e-30 * (group_size // GEMV_RUN) * touched).to(x.dtype)
+
+
+def eff_qparams_to_block_major(qeff: torch.Tensor, chunk_groups: int) -> torch.Tensor:
+    """Port of the JAX function (``int4_matmul.py:296-308``): family-major
+    kernel-form qparams ``[.., 4·nG, N]`` into the chunked block-major layout
+    (for each chunk of ``chunk_groups`` groups, its four family slabs
+    contiguous)."""
+    *lead, fourng, N = qeff.shape
+    cb = chunk_groups
+    nG = fourng // 4
+    assert nG % cb == 0, (nG, cb)
+    q = qeff.reshape(*lead, 4, nG // cb, cb, N).movedim(-4, -3)
+    return q.reshape(*lead, fourng, N)
+
+
+# ------------------------------------------------------------- selection --
+
+
+def choose_body(M: int, K: int, group_size: int, variant: str = "auto") -> str:
+    """The body that ``variant`` runs at M (see the module docstring); warns
+    where the JAX package warns."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown int4 variant {variant!r}; one of {VARIANTS}")
+    if variant == "auto":
+        return "gemv" if M <= GEMV_MAX_M else "tiled"
+    chunk = qparams_chunk_groups(K // group_size, group_size)
+    bint8_max_m = 32 if chunk is not None and M % 16 == 0 else 16
+    if variant in ("batched_int8", "banded") and M > bint8_max_m:
+        warnings.warn(f"variant={variant!r} requires M <= {bint8_max_m} (got M={M}); "
+                      "running the fused variant instead")
+        return "tiled"
+    if variant == "batched_int8":
+        return "gemv"
+    if variant == "banded" and M <= BANDED_MAX_M:
+        return "banded" if chunk is None else "banded_stacked"
+    return "group_partial" if variant == "group_partial" else "tiled"
+
+
+def _plan(M, K, group_size, variant, target_blocks):
+    """(body, K-split target, packed rows per K-split unit of the banded
+    bodies: a group for K14b, a canonical chunk of groups for K14c)."""
+    body = choose_body(M, K, group_size, variant)
+    unit = None
+    if body == "banded":
+        unit = group_size
+    elif body == "banded_stacked":
+        unit = qparams_chunk_groups(K // group_size, group_size) * group_size
+    return body, target_blocks, unit
+
+
+def _kernel_gate(N: int, K: int, g: int) -> bool:
+    """Where the JAX package's dispatch takes its kernel at all
+    (``int4_dq_matmul_available``): whole groups of at least 8 scale rows in
+    each packed half, K/2 and N multiples of 128."""
+    Kp = K // 2
+    return g <= Kp and Kp % (8 * g) == 0 and Kp % 128 == 0 and N % 128 == 0
+
+
+_CHOICES: dict = {}
+
+
+def reset_variant_choices() -> None:
+    """Forget the memoized choices and the loaded autotune cache: the next
+    call of each shape reads the environment and the cache again."""
+    _CHOICES.clear()
+    autotune.reset_cache()
+
+
+def variant_choices() -> dict:
+    """{(M, N, K, g, stacked, device type): body} of the choices made so far."""
+    return {k: v[0] for k, v in _CHOICES.items()}
+
+
+def _choose(x, wp, scale, zero, group_size, mid, layer_idx, xored):
+    M, K = x.shape
+    N = wp.shape[-1]
+    kw = {}
+    if _kernel_gate(N, K, group_size):
+        run = lambda cfg, xi: int4_dq_matmul(xi, wp, scale, zero, group_size=group_size,
+                                             mid=mid, layer_idx=layer_idx, xored=xored, **cfg)
+        kw.update(autotune.lookup_or_tune(
+            "int4_dq_matmul", (M, N, K, group_size),
+            autotune.int4_matmul_candidates(M, N, K, group_size), run, example_x=x) or {})
+        v = os.environ.get(VARIANT_ENV)
+        if v in VARIANTS[1:]:
+            kw["variant"] = v  # the override wins over the cache
+    return _plan(M, K, group_size, kw.get("variant", "auto"),
+                 kw.get("target_blocks", TARGET_BLOCKS))
+
+
+def int4_linear(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                zero: Optional[torch.Tensor], *, group_size: int, mid: float = 8.0,
+                layer_idx: Optional[int] = None, xored: bool = False) -> torch.Tensor:
+    """``ops.linear``'s int4 entry: :func:`int4_dq_matmul` with the variant
+    that the environment, the autotune cache or ``auto`` picks for this
+    shape, resolved at its first call and memoized."""
+    M, K = x.shape
+    key = (M, wp.shape[-1], K, group_size, layer_idx is not None, x.device.type)
+    plan = _CHOICES.get(key)
+    if plan is None:
+        plan = _CHOICES[key] = _choose(x, wp, scale, zero, group_size, mid, layer_idx, xored)
+    return _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored)
+
+
+# ----------------------------------------------------------------- launch --
 
 
 def _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored):
@@ -98,37 +312,80 @@ def _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored):
     return M, K, N
 
 
-def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
-                   zero: Optional[torch.Tensor], *, group_size: int, mid: float = 8.0,
-                   layer_idx: Optional[int] = None, xored: bool = False) -> torch.Tensor:
-    """``x [M, K]`` times a K-major packed int4 weight ``wp [(L,) K/2, N]``
-    with ``scale``/``zero [(L,) K/g, N]`` (``zero=None``: z = 0); returns
-    ``[M, N]`` in x.dtype."""
+def _ksplit(M, K, N, target, mt, units=None):
+    """Blocks over K: up to ``target`` blocks in flight, at least one run
+    for each of a block's 32 run lanes, and (banded) whole units."""
+    runs = K // 2 // GEMV_RUN
+    cap = runs // _GEMV_LANES if units is None else min(units, runs // _GEMV_LANES)
+    return max(1, min(cap, cdiv(target, cdiv(N, _GEMV_TN) * cdiv(M, mt))))
+
+
+def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
+    body, target, unit = plan
     if x.device.type == "cpu":
-        return int4_dq_matmul_plain(x, wp, scale, zero, group_size=group_size, mid=mid,
-                                    layer_idx=layer_idx, xored=xored)
+        return PLAIN[body](x, wp, scale, zero, group_size=group_size, mid=mid,
+                           layer_idx=layer_idx, xored=xored)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     M, K, N = _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored)
-    if layer_idx is not None:
-        wp, scale = wp[layer_idx], scale[layer_idx]
-        zero = None if zero is None else zero[layer_idx]
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
     zp = 0 if zero is None else zero.data_ptr()  # null: the zero-free form
-    name = "int4_dq_matmul" if zero is not None else "int4_dq_matmul_zero_free"
     lib = _build.library()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = _build.stream_handle(x.device)
-    if M <= GEMV_MAX_M:
-        # split K across blocks until ~_TARGET_BLOCKS blocks are in flight,
-        # keeping at least one run for each of a block's 32 run lanes
-        runs = K // 2 // GEMV_RUN
-        ksplit = max(1, min(runs // _GEMV_LANES, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_TN))))
-        ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-        lib.launch("tt_int4_gemv", x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp,
-                   ws.data_ptr(), out.data_ptr(), M, K, N, group_size, ksplit, stream)
-        _build.LAUNCHES[f"{name}_gemv"] += 1
+    ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
+    if body == "tiled":
+        lib.launch("tt_int4_tiled", *ptrs, out.data_ptr(), M, K, N, group_size, stream)
     else:
-        lib.launch("tt_int4_tiled", x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp,
-                   out.data_ptr(), M, K, N, group_size, stream)
-        _build.LAUNCHES[f"{name}_tiled"] += 1
+        if body == "gemv":  # K1's split ignores its M tiles (M <= 32)
+            ksplit = _ksplit(1, K, N, target, 1)
+        elif body == "group_partial":
+            ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4)
+        else:
+            ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4, K // 2 // unit)
+        ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+        args = (*ptrs, ws.data_ptr(), out.data_ptr(), M, K, N, group_size, ksplit)
+        if body in ("banded", "banded_stacked"):
+            lib.launch("tt_int4_banded", *args, unit, stream)
+        else:
+            lib.launch("tt_int4_gemv" if body == "gemv" else "tt_int4_group_partial", *args,
+                       stream)
+    base = "int4_dq_matmul" if zero is not None else "int4_dq_matmul_zero_free"
+    _build.LAUNCHES[f"{base}_{body}"] += 1
+    return out
+
+
+def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                   zero: Optional[torch.Tensor], *, group_size: int, mid: float = 8.0,
+                   layer_idx: Optional[int] = None, xored: bool = False,
+                   variant: str = "auto", target_blocks: int = TARGET_BLOCKS) -> torch.Tensor:
+    """``x [M, K]`` times a K-major packed int4 weight ``wp [(L,) K/2, N]``
+    with ``scale``/``zero [(L,) K/g, N]`` (``zero=None``: z = 0); returns
+    ``[M, N]`` in x.dtype, through the body that ``variant`` runs at M.
+    ``target_blocks``: the K-split target of the bodies that split K."""
+    plan = _plan(x.shape[0], x.shape[1], group_size, variant, target_blocks)
+    return _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored)
+
+
+def int4_dq_matmul_stub(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                        zero: Optional[torch.Tensor], *, group_size: int,
+                        layer_idx: Optional[int] = None) -> torch.Tensor:
+    """K1's stub arm (the ceiling probe's): K1's grid, loads and reduce with
+    the dequantization replaced by one raw-byte dot (see
+    :func:`int4_dq_matmul_stub_plain`). Counts ``int4_dq_matmul_stub``."""
+    if x.device.type == "cpu":
+        return int4_dq_matmul_stub_plain(x, wp, scale, zero, group_size=group_size,
+                                         layer_idx=layer_idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    M, K, N = _check_cuda(x, wp, scale, zero, group_size, 8.0, layer_idx, True)
+    wp, scale, zero = _layer(wp, scale, zero, layer_idx)
+    ksplit = _ksplit(1, K, N, TARGET_BLOCKS, 1)
+    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.library().launch("tt_int4_gemv_stub", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+                            0 if zero is None else zero.data_ptr(), ws.data_ptr(),
+                            out.data_ptr(), M, K, N, group_size, ksplit,
+                            _build.stream_handle(x.device))
+    _build.LAUNCHES["int4_dq_matmul_stub"] += 1
     return out

@@ -8,10 +8,13 @@ so the TPU's scalar-prefetch trick has no counterpart). Each kernel
 wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 version for a CPU tensor.
 
-- int4 TILED_NIBBLES (FLOAT zero-point domain) → ``int4_dq_matmul`` (K1/K5)
-  at every M. The JAX package's ``M >= 4096`` switch to dequant + XLA
-  matmul was a TPU measurement and is not carried over; where that line
-  lies on an H100 is an open decision (ROADMAP.md).
+- int4 TILED_NIBBLES (FLOAT zero-point domain, or zero-free) →
+  ``int4_linear`` at every M: K1/K5, or the variant (K14a/b/c, K1, K5) that
+  ``TORCHAO_TPU_INT4_VARIANT`` or the autotune cache picks for the shape
+  (``kernels/int4_matmul.py``); int4wo, 8da4w and fp6's A plane all take
+  it. The JAX package's ``M >= 4096`` switch to dequant + XLA matmul was a
+  TPU measurement and is not carried over; where that line lies on an H100
+  is an open decision (ROADMAP.md).
 - int8 PLAIN per-channel (int8wo) → ``int8wo_mixed_matmul`` (K6), the
   unstacked head included. Like the JAX package, the route ignores the
   (symmetric, zero) zero point.
@@ -72,7 +75,7 @@ from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dual_supported,
 )
 from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_rowwise_matmul
-from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul
+from torchao_tpu_torch.kernels.int4_matmul import int4_linear
 from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
 from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_available
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
@@ -202,8 +205,8 @@ def _is_fp8_stacked(w, layer_idx) -> bool:
 
 def _int4(x2, w: IntxArray, layer_idx):
     mid = (w.quant_max + w.quant_min + 1) / 2 - w.quant_min
-    return int4_dq_matmul(x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1],
-                          mid=mid, layer_idx=layer_idx, xored=w.nibbles_xored)
+    return int4_linear(x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1],
+                       mid=mid, layer_idx=layer_idx, xored=w.nibbles_xored)
 
 
 def _8da4w(x2, w: LinearActivationQuantizedArray, layer_idx):

@@ -15,12 +15,14 @@ Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
 each of the ported configurations with its KV cache (``CONFIGS``), each in
 a fresh process (a finished ``torch.profiler`` session leaves the host
 slower for the rest of its process, and a configuration's environment,
-such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1``, stays in its own); with
-``--trace PREFIX`` each configuration's chrome trace goes to
-``PREFIX.<name>.json``, and ``--recipes`` picks some of them::
+such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` or
+``TORCHAO_TPU_INT4_VARIANT=banded``, stays in its own); with ``--trace
+PREFIX`` each configuration's chrome trace goes to ``PREFIX.<name>.json``,
+and ``--recipes`` picks some of them::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
     python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32,int4wo-32-int4hm
+    python -m torchao_tpu_torch.profiler --recipes int4wo-32,int4wo-32-banded
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ CONFIGS = {"int4wo-32": ("int4wo-32", "int4_smajor", {}), "int8wo": ("int8wo", "
            "float8dq-row": ("float8dq-row", False, {}), "fp6": ("fp6", False, {}),
            "8da4w-32": ("8da4w-32", False, {}),
            "int4wo-32-int4hm": ("int4wo-32", "int4", _FOLD),
-           "int8wo-int8hm": ("int8wo", "int8_hmajor", {})}
+           "int8wo-int8hm": ("int8wo", "int8_hmajor", {}),
+           # K14c in the decode loop in K1's place (K5 at the prefill)
+           "int4wo-32-banded": ("int4wo-32", "int4_smajor",
+                                {"TORCHAO_TPU_INT4_VARIANT": "banded"})}
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 

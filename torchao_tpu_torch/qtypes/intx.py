@@ -18,13 +18,29 @@ plane). Storage is the JAX package's, byte for byte:
   (``zero_point [.., N]`` int32 in the INT domain, None in NONE).
 
 The JAX package's ``qparams_eff`` (a chunked block-major qparams copy
-laid out for the TPU's DMA) is not carried: the CUDA kernel reads
-``scale``/``zero_point`` directly.
+laid out for the TPU's DMA) is not carried: the CUDA kernels read
+``scale``/``zero_point`` directly. On Llama-3-8B at g = 32 it would add
+about 0.94 GB to a 5.742 GB model, and only an opt-in int4 variant would
+read it. Its derivation is ported all the same, as plain functions that
+compute it (:func:`_tiled_eff_qparams`, :func:`_tiled_eff_qparams_chunked`,
+``kernels.int4_matmul.eff_qparams_to_block_major``), bit-exact against the
+JAX package, and its chunk rule (:func:`qparams_chunk_groups`) decides which
+TPU body an int4 call stands for: ``banded_stacked`` where a chunk applies,
+``banded`` where none does.
+
+Why reading ``scale``/``zero_point`` computes what the TPU kernels compute
+from ``qparams_eff``: with bf16 scales (what the CUDA kernels take) the four
+families are ``s_lo``, ``s_hi/16``, ``bf16(z_lo − mid·s_lo)`` and
+``bf16(z_hi + (8 − mid)·s_hi)``. The first two are exact in bf16 (a division
+by 16 is a power-of-two scaling), and a kernel that forms the pre-biased
+zeros in registers, with an f32 multiply-add and a bf16 round, gets the
+same numbers as the stored last two.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -36,6 +52,73 @@ from torchao_tpu_torch.quantization.quant_primitives import (
     MappingType,
     ZeroPointDomain,
 )
+
+QPARAMS_LAYOUT_ENV = "TORCHAO_TPU_QPARAMS_LAYOUT"
+
+
+def _tiled_eff_qparams(scale, zero_point, quant_min, quant_max, zero_point_domain=None):
+    """Kernel-form qparams of K-major TILED_NIBBLES ``scale``/``zero_point``
+    ``[.., K/g, N]`` (lo-half group rows, then hi-half rows), family-major
+    in one bf16 ``[.., 4·nG, N]`` array (nG = K/(2g)):
+
+      rows [0, nG):      s_lo
+      rows [nG, 2·nG):   s_hi / 16
+      rows [2·nG, 3·nG): z_lo − mid·s_lo
+      rows [3·nG, 4·nG): z_hi + (8 − mid)·s_hi
+
+    computed in float32 and rounded once. The INT zero domain maps onto the
+    same form through the float-equivalent zero ``z = (mid − zp)·s``. None
+    when the scale rows do not split into two halves."""
+    mid = (quant_max + quant_min + 1) / 2 - quant_min
+    nG2 = scale.shape[-2]
+    nG = nG2 // 2
+    if nG == 0 or nG2 % 2:
+        return None
+    s = scale.float()
+    if zero_point is None:
+        z = torch.zeros_like(s)
+    elif zero_point_domain is ZeroPointDomain.INT:
+        z = (mid - zero_point.float()) * s
+    else:
+        z = zero_point.float()
+    s_lo, s_hi = s[..., :nG, :], s[..., nG:, :]
+    z_lo, z_hi = z[..., :nG, :], z[..., nG:, :]
+    return torch.cat([s_lo, s_hi / 16.0, z_lo - mid * s_lo, z_hi + (8.0 - mid) * s_hi],
+                     dim=-2).to(torch.bfloat16)
+
+
+def qparams_chunk_groups(scale_rows: int, group_size: int) -> Optional[int]:
+    """The JAX package's chunk rule (``qtypes/intx.py:90-126``): groups per
+    canonical chunk of 1024 packed rows, halved until it divides the nG =
+    ``scale_rows / 2`` groups of a half (Llama-3.2-3B's dim 3072 at g = 32:
+    nG = 48, so 32 → 16), or None: no chunk of at least 8 groups divides nG,
+    or ``TORCHAO_TPU_QPARAMS_LAYOUT=family``. Read at each call."""
+    if scale_rows == 0 or scale_rows % 2:
+        return None
+    nG = scale_rows // 2
+    g = int(group_size)
+    cb = 1024 // g if g and 1024 % g == 0 else 0
+    while cb >= 8 and nG % cb:
+        cb //= 2
+    if cb >= 8 and nG % cb == 0 and os.environ.get(QPARAMS_LAYOUT_ENV) != "family":
+        return cb
+    return None
+
+
+def _tiled_eff_qparams_chunked(scale, zero_point, quant_min, quant_max, zero_point_domain,
+                               group_size):
+    """``(qparams_eff, chunk_groups)``: :func:`_tiled_eff_qparams`, reordered
+    block-major where :func:`qparams_chunk_groups` gives a chunk (the four
+    families' rows of each chunk contiguous), else family-major with None."""
+    qe = _tiled_eff_qparams(scale, zero_point, quant_min, quant_max, zero_point_domain)
+    if qe is None:
+        return None, None
+    cb = qparams_chunk_groups(scale.shape[-2], group_size)
+    if cb is None:
+        return qe, None
+    from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
+
+    return eff_qparams_to_block_major(qe, cb), cb
 
 
 @dataclasses.dataclass(frozen=True)
