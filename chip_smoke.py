@@ -61,6 +61,21 @@ Phases (each fails loudly; nothing is caught):
    the one-launch stream over a decode step's 4.69 GB, with GB/s). Their
    rows report 0 launches: no main path runs them.
 
+5. the probe phase (slice 6): each probe of ``torchao_tpu_torch/probes/``
+   through its ``run_probe`` at fewer steps, the launch counts set to 0
+   just before each and read just after (every kernel of the probe must
+   have launched): the attention ceiling probe at int4 and int8 (K2 and its
+   stub arm), K4's ablation ladder at int8 and int4 (every rung, K2′/K2 and
+   a torch sum as yardsticks), the manual-DMA probe (P1, P2), the int4
+   qparams-layout probe (K1, eff4, m1), and the dtype probes (P3's casts
+   and dot, P5's dots). Each new CUDA arm is first held against its plain
+   version at the block size it uses (K2's stub at 128 keys, the rungs at
+   32). Each row carries its time per probe step (CUDA graph replays over
+   more bytes than the L2 holds, or single calls with the L2 flushed), its
+   bound, its plain version's time, a library call's where one PyTorch call
+   computes the function, and 0 launches (no main path runs them;
+   ``probe_launches`` holds the probe's own count).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -76,7 +91,6 @@ import gc
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -116,6 +130,7 @@ from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write_plain,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
+    ABLATE_RUNGS,
     _kv_values,
     fold_heads_fits,
     quantized_kv_attention_smajor,
@@ -135,7 +150,16 @@ from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
-from torchao_tpu_torch.probes import ceiling_probe
+from torchao_tpu_torch.probes import (
+    attn_ceiling_probe,
+    attn_probe,
+    ceiling_probe,
+    dot_legality_probe,
+    fp8_cast_probe,
+    int4_probe2,
+    manual_dma_probe,
+)
+from torchao_tpu_torch.probes._common import TOL_SQNR_DB, cold_ms
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
@@ -164,7 +188,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, the same source
 INT8_FP8_OPS = 1979e12     # dense int8 / fp8 tensor-core peak, the same source
 REPS = 25
-TOL_SQNR_DB = 35.0  # kernel vs plain version: fp32 vs bf16 rounding of weights, K, V, P
 TOL_EXACT_PARTIALS_DB = 80.0  # K10 in f32: exact int32 partials, f32 sums in another order
 LONG_S = 8192  # the long-context phase's cache length
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
@@ -172,6 +195,7 @@ E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_ag
 _QA = "torchao_tpu_torch/csrc/quantized_attention.cu"
 _QMM = "torchao_tpu_torch/csrc/qmatmul.cu"
 _FP6 = "torchao_tpu_torch/csrc/fp6_matmul.cu"
+_DP = "torchao_tpu_torch/csrc/dtype_probes.cu"
 KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "int4_dq_matmul_gemv": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                             "torchao_tpu/kernels/int4_matmul.py:877"),
@@ -220,6 +244,23 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "int4_dq_matmul_stub": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                             "torchao_tpu/kernels/int4_matmul.py:877"),
     "ceiling_mono": ("torchao_tpu_torch/csrc/ceiling_probe.cu", "scripts/ceiling_probe_r4.py:140"),
+    # slice 6: the probes' arms (K2's stub arm's bodies are at :569-590 and :682-700)
+    "quantized_kv_decode_attention_bdq_stub": (_QA, "torchao_tpu/kernels/quantized_attention.py:931"),
+    "quantized_kv_decode_attention_bdq_stub_int8": (
+        _QA, "torchao_tpu/kernels/quantized_attention.py:959"),
+    **{f"quantized_kv_decode_attention_{r}{sfx}": (
+        _QA, "torchao_tpu/kernels/quantized_attention.py:337")
+       for r in ABLATE_RUNGS[1:] for sfx in ("", "_int8")},
+    "manual_dma_std": (_QMM, "scripts/manual_dma_probe.py:62"),
+    "manual_dma_persistent": ("torchao_tpu_torch/csrc/manual_dma_probe.cu",
+                              "scripts/manual_dma_probe.py:112"),
+    "int4_dq_matmul_eff4": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                            "torchao_tpu/kernels/int4_matmul.py:928"),
+    "int4_dq_matmul_m1": ("torchao_tpu_torch/csrc/int4_matmul.cu", "scripts/int4_probe2.py:141"),
+    **{name: (_DP, "scripts/fp8_cast_probe.py:25") for name in (
+        "fp8_cast_e4m3_bf16", "fp8_cast_e4m3_f32", "fp8_cast_e5m2_bf16", "fp8_bf16_e4m3_dot")},
+    "dot_s8_bf16": (_DP, "scripts/dot_legality_probe.py:60"),
+    "dot_bf16t_s8": (_DP, "scripts/dot_legality_probe.py:60"),
 }
 
 
@@ -236,29 +277,11 @@ def nvidia_smi(query: str) -> str:
 
 # ------------------------------------------------------------- timing --
 
-_FLUSH = None
-
-
 def time_ms(fn) -> float:
     """Median device time of ``fn()`` over REPS calls, each after the L2
     cache was flushed; a sleep kernel keeps the device busy while the host
     enqueues the call, so host overhead is not counted."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    fn()
-    times = []
-    for _ in range(REPS):
-        _FLUSH.zero_()
-        torch.cuda._sleep(1_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return cold_ms(fn, REPS)
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -1253,7 +1276,7 @@ def ceiling_phase():
     """The ceiling probe at fewer steps: K1 (real), its stub arm and the
     one-launch stream, each against its plain version, with GB/s."""
     log("== ceiling probe: a Llama-3-8B int4 decode step's operand set, three arms")
-    res = ceiling_probe.run_probe(steps=8, reps=3, tol_db=TOL_SQNR_DB)
+    res = ceiling_probe.run_probe(steps=8, reps=3)
     rows = []
     for arm, name in (("real", "int4_dq_matmul_gemv"), ("stub", "int4_dq_matmul_stub"),
                       ("mono", "ceiling_mono")):
@@ -1266,6 +1289,112 @@ def ceiling_phase():
     log(f"  real/stub={res['real_over_stub']:.3f} stub/mono={res['stub_over_mono']:.3f} "
         f"mono/3.35 TB/s={res['mono_over_spec']:.3f}")
     rows[-1].update({k: res[k] for k in ("real_over_stub", "stub_over_mono", "mono_over_spec")})
+    return rows
+
+
+# ------------------------------------------------------------ slice 6 --
+
+
+def _probe_run(label, fn, kernels):
+    """Run one probe with the launch counts set to 0 just before and read
+    just after; every kernel in ``kernels`` must have launched. Returns the
+    probe's numbers and the counts."""
+    log(f"== probe: {label}")
+    _build.reset_launch_counts()
+    res = fn()
+    counts = dict(_build.LAUNCHES)
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    missing = [k for k in kernels if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    return res, counts
+
+
+def _probe_row(name, counts, work, ms, plain_ms, nbytes, flops, err, library_ms=None,
+               peak=BF16_FLOPS, **extra):
+    t = Tally(name, work, peak)
+    t.add(1, ms, plain_ms, nbytes, flops, err, library_ms)
+    return {**t.row(0), "section": "probes", "probe_launches": counts.get(name, 0), **extra}
+
+
+def probe_phase():
+    """Slice 6's path: every probe entry of ``torchao_tpu_torch/probes/`` at
+    fewer steps (see the module docstring). Returns the kernel rows and the
+    probes' answers."""
+    rows, answers = [], {}
+    for kv in ("int4", "int8"):
+        sfx = "_int8" if kv == "int8" else ""
+        stub = "quantized_kv_decode_attention_bdq_stub" + sfx
+        res, counts = _probe_run(f"attention ceiling, {kv} (K2 real and stub)", functools.partial(
+            attn_ceiling_probe.run_probe, kv=kv, steps=4, reps=2),
+            [stub, "quantized_kv_decode_attention_bdq" + sfx])
+        r = res["stub"]
+        rows.append(_probe_row(
+            stub, counts, f"attention ceiling probe, stub arm: one decode step ({attn_ceiling_probe.L}"
+            f" layers, S={res['S']}, pos=S-2, {kv})", r["ms_per_step"], r["plain_ms"],
+            res["bytes_per_step"], 0, r["max_abs_err"], GBps=r["GBps"],
+            real_ms=res["real"]["ms_per_step"], real_GBps=res["real"]["GBps"],
+            real_vs_structure_ceiling=res["real_vs_structure_ceiling"]))
+        answers[f"attn_ceiling_{kv}"] = {k: res[k] for k in ("real_vs_structure_ceiling",)} | {
+            f"{a}_GBps": res[a]["GBps"] for a in ("real", "stub")}
+        log(f"  real/stub (structure ceiling) = {res['real_vs_structure_ceiling']:.3f}")
+
+    for kv in ("int8", "int4"):
+        sfx = "_int8" if kv == "int8" else ""
+        rungs = ABLATE_RUNGS[1:]
+        variants = ("none",) + rungs + (("bdq", "xla_sum") if kv == "int8" else ())
+        res, counts = _probe_run(f"K4 ablation ladder, {kv}", functools.partial(
+            attn_probe.run_probe, variants=variants, kv=kv, steps=2, reps=2),
+            [f"quantized_kv_decode_attention_{r}{sfx}" for r in rungs])
+        for r in rungs:
+            v = res[r]
+            rows.append(_probe_row(
+                f"quantized_kv_decode_attention_{r}{sfx}", counts,
+                f"K4 ablation probe, rung {r}: one sweep of {attn_probe.L} layers at S="
+                f"{attn_probe.S}, pos=S-2, {kv}, per head", v["ms_per_sweep"], v["plain_ms"],
+                res["bytes_per_sweep"], 0, v["max_abs_err"], GBps=v["GBps"]))
+        answers[f"attn_ladder_{kv}"] = {k: res[k]["GBps"] for k in variants}
+
+    res, counts = _probe_run("manual DMA (P1 two launches, P2 one persistent launch)",
+                             functools.partial(manual_dma_probe.run_probe, steps=8, reps=2),
+                             ["manual_dma_std", "manual_dma_persistent"])
+    for arm, name in (("two_calls", "manual_dma_std"), ("manual", "manual_dma_persistent")):
+        v = res[arm]
+        rows.append(_probe_row(
+            name, counts, f"manual-DMA probe, {arm}: one pair of int8 GEMVs (N = "
+            f"{manual_dma_probe.N1}, {manual_dma_probe.N2}; K = {manual_dma_probe.K})",
+            v["ms_per_pair"], v["plain_ms"], res["bytes_per_pair"], 0, v["max_abs_err"],
+            res["library_ms"], GBps=v["GBps"]))
+    answers["manual_dma"] = {"speedup_manual_vs_two_calls": res["speedup_manual_vs_two_calls"],
+                             **{f"{a}_GBps": res[a]["GBps"] for a in ("two_calls", "manual")}}
+    log(f"  manual / two_calls speedup = {res['speedup_manual_vs_two_calls']:.3f}")
+
+    arms = tuple(int4_probe2.CONFIGS)
+    res, counts = _probe_run("int4 qparams layouts (K1, eff4, m1)", functools.partial(
+        int4_probe2.run_probe, variants=arms, steps=4, reps=2),
+        ["int4_dq_matmul_gemv", "int4_dq_matmul_eff4", "int4_dq_matmul_m1"])
+    for arm, name in (("eff4", "int4_dq_matmul_eff4"), ("m1", "int4_dq_matmul_m1")):
+        v = res[arm]
+        rows.append(_probe_row(
+            name, counts, f"int4 layout probe, {arm}: one sweep of {int4_probe2.L} layers x "
+            f"{int4_probe2.SHAPES} at M = 1, g = {int4_probe2.G}", v["ms_per_sweep"],
+            v["plain_ms"], res["bytes_per_sweep"], 0, v["max_abs_err"], res["library_ms"],
+            GBps=v["GBps"], k1_GBps=res["k1"]["GBps"]))
+    answers["int4_layouts"] = {a: res[a]["GBps"] for a in arms}
+
+    for label, probe, kernels in (
+            ("fp8 casts and the bf16 x e4m3 dot (P3)", fp8_cast_probe,
+             ["fp8_cast_e4m3_bf16", "fp8_cast_e4m3_f32", "fp8_cast_e5m2_bf16",
+              "fp8_bf16_e4m3_dot"]),
+            ("mixed s8 / bf16 dots (P5)", dot_legality_probe, ["dot_s8_bf16", "dot_bf16t_s8"])):
+        res, counts = _probe_run(label, functools.partial(probe.run_probe, reps=REPS), kernels)
+        for key, v in res.items():
+            name = v.get("kernel", key)
+            rows.append(_probe_row(name, counts, f"{label}: {key}, one call", v["ms"],
+                                   v["plain_ms"], v["bytes"], v["flops"], v["max_abs_err"],
+                                   v["library_ms"]))
+        answers[probe.__name__.rsplit(".", 1)[-1]] = {k: v["max_abs_err"] for k, v in res.items()}
+    log(f"  probe answers: {json.dumps(answers)}")
     return rows
 
 
@@ -1301,6 +1430,8 @@ def main() -> int:
     log(f"  K10 phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += ceiling_phase()
     log(f"  ceiling phase done; total {time.perf_counter() - t_start:.1f} s")
+    rows += probe_phase()
+    log(f"  probe phase done; total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": rows}))

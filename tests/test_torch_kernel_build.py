@@ -565,3 +565,178 @@ def test_ceiling_probe_needs_a_card(monkeypatch):
     assert ceiling_probe.main() == 1
     with pytest.raises(RuntimeError, match="CUDA card only"):
         ceiling_probe.run_probe()
+
+
+# ---------------------------------------------------------------- slice 6 --
+
+
+def test_slice_6_wrappers_raise_on_a_device_without_a_kernel():
+    """K2's stub arm, K4's rungs and the probes' kernels (P1/P2, P6, P3,
+    P5) compute on the CPU or a card only."""
+    from torchao_tpu_torch.probes import dot_legality_probe as p5
+    from torchao_tpu_torch.probes import fp8_cast_probe as p3
+    from torchao_tpu_torch.probes import int4_probe2 as p6
+    from torchao_tpu_torch.probes import manual_dma_probe as p12
+
+    m = torch.device("meta")
+    q = torch.empty((1, 2, 4, 64), dtype=torch.bfloat16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantized_kv_decode_attention_bdq(q, *([q] * 4), torch.empty(1, device=m), stub=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantized_kv_decode_attention(q, *([q] * 4), torch.empty(1, device=m), ablate="noexp")
+    x = torch.empty((1, 4096), dtype=torch.bfloat16, device=m)
+    w = torch.empty((16, 4096), dtype=torch.int8, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p12.manual_dma_std(x, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p12.manual_dma_persistent(x, w, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p6.int4_dq_matmul_eff(x, torch.empty((2048, 16), dtype=torch.uint8, device=m),
+                              torch.empty((256, 16), dtype=torch.bfloat16, device=m),
+                              group_size=32)
+    e4 = torch.empty((16, 16), dtype=torch.float8_e4m3fn, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p3.fp8_cast(e4, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p3.fp8_bf16_e4m3_dot(x[:, :16], e4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p5.dot_s8_bf16(w, x.T)
+    with pytest.raises(ValueError, match="unsupported device"):
+        p5.dot_bf16t_s8(x.T, w.T)
+
+
+def _finite_sqnr_ok(got, want, db=60.0):
+    """Non-finite entries equal (NaN for NaN, inf for inf of the same sign);
+    finite entries at SQNR >= db (float64)."""
+    from torchao_tpu_torch.probes._common import _nonfinite_same, sqnr_db
+
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert _nonfinite_same(got, want)
+    if fin.any():
+        assert sqnr_db(want[fin], got[fin]) >= db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_bdq_stub_kernel_matches_plain(cuda, int8):
+    """K2's stub arm against its plain version at the kernel's chunk (128
+    keys), stacked, two slots (one cutting a chunk)."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        quantized_kv_decode_attention_bdq_stub_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(6 + int8)
+    L, B, H, G, Dh, S = 2, 2, 4, 4, 128, 384
+    cache = (_int8_split_flat_cache if int8 else _split_flat_cache)(gen, L, B, H, Dh, S, cuda)
+    q = (torch.randn((B, H, G, Dh), generator=gen, device=cuda) * 0.1).bfloat16()
+    pos = torch.tensor([S - 2, 200], dtype=torch.int32, device=cuda)
+    name = "quantized_kv_decode_attention_bdq_stub" + ("_int8" if int8 else "")
+    before = _build.LAUNCHES[name]
+    got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=128, stub=True)
+    assert _build.LAUNCHES[name] == before + 1
+    _finite_sqnr_ok(got, quantized_kv_decode_attention_bdq_stub_plain(q, *cache, pos,
+                                                                      layer_idx=1, bs=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_bdq_stub_scale_term_matches_plain(cuda, int8):
+    """The stub's scale term alone (q = 0: the raw-code dots vanish), at the
+    attention ceiling probe's shape, against the plain version at 1e-5
+    relative: a term dropped or read at another block, head or layer is off
+    by percents."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        quantized_kv_decode_attention_bdq_stub_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(16 + int8)
+    L, B, H, G, Dh, S = 2, 1, 8, 4, 128, 8192
+    cache = (_int8_split_flat_cache if int8 else _split_flat_cache)(gen, L, B, H, Dh, S, cuda)
+    q = torch.zeros((B, H, G, Dh), dtype=torch.bfloat16, device=cuda)
+    for p in (S - 2, 1000):
+        pos = torch.tensor([p], dtype=torch.int32, device=cuda)
+        got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=128, stub=True)
+        want = quantized_kv_decode_attention_bdq_stub_plain(q, *cache, pos, layer_idx=1, bs=128)
+        assert bool((want > 0).all())
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("rung", ["noexp", "nosoftmax", "nomaskexp", "dotsonly"])
+def test_ablation_rung_kernels_match_plain(cuda, rung, int8):
+    """Each rung of K4's ladder against its plain version at the kernel's
+    tile (32 keys), at pos S - 2 and S - 1, Dh 64 and 128."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        quantized_kv_decode_attention_ablate_plain,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for Dh in (64, 128):
+        cache = _head_major_cache(gen, 1, 2, 256, Dh, int8, cuda)
+        q = torch.randn((1, 2, 4, Dh), generator=gen, device=cuda).bfloat16()
+        for p in (254, 255):
+            pos = torch.tensor([p], dtype=torch.int32, device=cuda)
+            got = quantized_kv_decode_attention(q, *cache, pos, bs=32, ablate=rung)
+            _finite_sqnr_ok(got, quantized_kv_decode_attention_ablate_plain(
+                q, *cache, pos, ablate=rung, bs=32))
+
+
+@pytest.mark.cuda
+def test_manual_dma_kernels_match_plain(cuda):
+    """P1 (two launches) and P2 (one persistent, double-buffered launch) at
+    the probe's shapes."""
+    from torchao_tpu_torch.probes import manual_dma_probe as p
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    w1, w2 = (torch.randint(-128, 128, (n, p.K), generator=gen, device=cuda).to(torch.int8)
+              for n in (p.N1, p.N2))
+    x = (torch.randn((1, p.K), generator=gen, device=cuda) * 0.1).bfloat16()
+    o1, o2 = p.manual_dma_persistent(x, w1, w2)
+    for got, w in ((p.manual_dma_std(x, w1), w1), (p.manual_dma_std(x, w2), w2), (o1, w1),
+                   (o2, w2)):
+        _finite_sqnr_ok(got, p.manual_dma_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("chunk_groups", [None, 32], ids=["eff4", "m1"])
+def test_int4_eff_kernels_match_plain(cuda, chunk_groups, M):
+    """P6's layouts on K1's launch, against the batched-int8 plain version;
+    K = 14336 (224 groups a half), N = 4096 + 16 a ragged column tile."""
+    from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
+    from torchao_tpu_torch.probes import int4_probe2 as p6
+
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    wp, scale, zero = _int4_weight(gen, 2, 14336, 4096 + 16, 32, cuda)
+    qp = p6.eff_qparams(scale, zero)
+    if chunk_groups:
+        qp = eff_qparams_to_block_major(qp, chunk_groups).contiguous()
+    x = (torch.randn((M, 14336), generator=gen, device=cuda) * 0.1).bfloat16()
+    got = p6.int4_dq_matmul_eff(x, wp, qp, group_size=32, chunk_groups=chunk_groups, layer_idx=1)
+    _sqnr_ok(got, p6.int4_dq_matmul_eff_plain(x, wp, qp, group_size=32,
+                                              chunk_groups=chunk_groups, layer_idx=1))
+
+
+@pytest.mark.cuda
+def test_dtype_probe_kernels(cuda):
+    """P3's casts bit-exact and its dot, P5's two dots, within 1e-4 of the
+    f32 product."""
+    from torchao_tpu_torch.probes import dot_legality_probe as p5
+    from torchao_tpu_torch.probes import fp8_cast_probe as p3
+
+    x, x5, a = p3.make_inputs(device=cuda)
+    for src, dt in ((x, torch.bfloat16), (x, torch.float32), (x5, torch.bfloat16)):
+        got, want = p3.fp8_cast(src, dt), p3.fp8_cast_plain(src, dt)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits))
+    pairs = [(p3.fp8_bf16_e4m3_dot(a, x), p3.fp8_bf16_e4m3_dot_plain(a, x))]
+    for case in p5.CASES:
+        ca, cb = p5.make_inputs(case, device=cuda)
+        _, call, plain = p5.CALLS[case]
+        pairs.append((call(ca, cb), plain(ca, cb)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4

@@ -171,3 +171,27 @@ def test_measurements_refuse_the_cpu_and_busy_time_is_a_union():
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_decode(model, {})
     assert _busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+
+
+def test_benchmark_decode_result_has_the_jax_keys_and_defaults():
+    """The port's ``benchmark_decode`` returns the JAX function's keys with
+    their definitions (extras may stay) and takes its defaults (``iters=3``);
+    the JAX function runs here on a tiny float32 model."""
+    import inspect
+
+    from torchao_tpu.models.llama.generate import benchmark_decode as j_bench
+    from torchao_tpu.utils import get_model_size_in_bytes as j_size
+    from torchao_tpu_torch.models.llama.generate import benchmark_decode, decode_result
+
+    model = JM.Transformer(JM.ModelArgs(**ARGS), dtype=jnp.float32)
+    params = model.init_params(jax.random.PRNGKey(0))
+    want = j_bench(model, params, prompt_len=4, num_tokens=2, warmup=1, iters=1)
+    got = decode_result(j_size(params), 1, 2, [want["time_s"], 2 * want["time_s"]],
+                        [want["ttft_p50_ms"] / 1e3])
+    assert set(want) <= set(got)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-9), k
+    for fn in (j_bench, benchmark_decode):
+        defaults = {k: p.default for k, p in inspect.signature(fn).parameters.items()}
+        assert (defaults["iters"], defaults["warmup"], defaults["batch_size"],
+                defaults["prompt_len"], defaults["num_tokens"]) == (3, 1, 1, 128, 128)

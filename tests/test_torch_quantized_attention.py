@@ -20,12 +20,14 @@ from torchao_tpu.kernels.quantized_attention import (
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
     fold_heads_fits,
+    quantized_kv_decode_attention_ablate_plain,
     quantized_kv_attention_smajor,
     quantized_kv_decode_attention,
     quantized_kv_decode_attention_bdq,
     quantized_kv_decode_attention_heads_plain,
     unpack_int4_kv,
 )
+from torchao_tpu_torch.probes._common import sqnr_db
 from torchao_tpu_torch.utils import compute_error
 
 
@@ -265,3 +267,169 @@ def test_fold_heads_fits_at_llama_3_8b():
     the 12 MiB budget)."""
     assert fold_heads_fits(8, 4, 256, 128)
     assert not fold_heads_fits(8, 512, 256, 128, bq=512)
+
+
+# ------------------------------------- slice 6: K2's stub arm, K4's ladder --
+
+
+def _split_flat(rs, Lc, B, H, Dh, S, int8):
+    """Random split-flat codes (int8, or packed int4 bytes) and bf16-able scales."""
+    X = H * Dh // (1 if int8 else 2)
+    if int8:
+        kq = rs.randint(-127, 128, (Lc, B, X, S)).astype(np.int8)
+        vq = rs.randint(-127, 128, (Lc, B, S, X)).astype(np.int8)
+    else:
+        kq = rs.randint(0, 256, (Lc, B, X, S)).astype(np.uint8)
+        vq = rs.randint(0, 256, (Lc, B, S, X)).astype(np.uint8)
+    ks = (rs.rand(Lc, B, H, S) * .01).astype(np.float32)
+    vs = (rs.rand(Lc, B, H, S) * .01).astype(np.float32)
+    return kq, ks, vq, vs
+
+
+def _both(arrays):
+    """(jax arrays, torch tensors) of numpy arrays, float32 ones as bf16."""
+    j = [jnp.asarray(a, jnp.bfloat16 if a.dtype == np.float32 else a.dtype) for a in arrays]
+    t = [torch.from_numpy(a).bfloat16() if a.dtype == np.float32 else torch.from_numpy(a)
+         for a in arrays]
+    return j, t
+
+
+@pytest.mark.parametrize("bs", [128, 1024])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_bdq_stub_matches_jax_stub_arm(int8, bs):
+    """K2's stub arm (wrong math on purpose) against ``_kernel_bdq[_i4]``'s
+    stub in interpret mode, at the CUDA chunk (128) and the JAX default
+    (1024): both sum the same products in another order (>= 80 dB). pos 200
+    cuts a block, so the block size shows."""
+    rs = np.random.RandomState(46 + int8)
+    Lc, B, H, G, Dh, S = 2, 2, 4, 4, 128, 512
+    q = (rs.randn(B, H, G, Dh) * .1).astype(np.float32)
+    pos = np.array([S - 2, 200], np.int32)
+    (jq, *jc), (tq, *tc) = _both([q, *_split_flat(rs, Lc, B, H, Dh, S, int8)])
+    want = j_bdq(jq, *jc, jnp.asarray(pos), bs=bs, interpret=True, layer_idx=jnp.int32(1),
+                 stub=True)
+    got = quantized_kv_decode_attention_bdq(tq, *tc, torch.from_numpy(pos), layer_idx=1, bs=bs,
+                                            interpret=True, stub=True)
+    assert got.shape == (B, H, G, Dh) and got.dtype == torch.float32
+    assert sqnr_db(torch.from_numpy(np.asarray(want)), got) >= 80
+
+
+@pytest.mark.parametrize("bs", [128, 1024])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_bdq_stub_scale_term_matches_jax(int8, bs):
+    """The stub's scale term alone: with q = 0 the raw-code dots vanish and
+    every output is the sum over live blocks of bf16(k_scale + v_scale) of
+    head 0 at the block's first key. Held against the JAX stub at 1e-6
+    relative (the same f32 sums in another order); a term dropped, or read
+    at another block, head or layer, is off by percents."""
+    rs = np.random.RandomState(52 + int8)
+    Lc, B, H, G, Dh, S = 2, 2, 4, 4, 128, 2048
+    q = np.zeros((B, H, G, Dh), np.float32)
+    pos = np.array([S - 2, 700], np.int32)
+    (jq, *jc), (tq, *tc) = _both([q, *_split_flat(rs, Lc, B, H, Dh, S, int8)])
+    want = torch.from_numpy(np.asarray(j_bdq(jq, *jc, jnp.asarray(pos), bs=bs, interpret=True,
+                                             layer_idx=jnp.int32(1), stub=True)))
+    got = quantized_kv_decode_attention_bdq(tq, *tc, torch.from_numpy(pos), layer_idx=1, bs=bs,
+                                            stub=True)
+    assert bool((want[:, :1, :1, :1] > 0).all())
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+    for b in range(B):
+        assert bool((want[b] == want[b, 0, 0, 0]).all())
+
+
+def test_bdq_wrapper_takes_the_jax_keywords():
+    """``bs`` and ``interpret`` leave K2 (and K4) unchanged, as in the JAX
+    package; ``stub`` selects the stub arm."""
+    rs = np.random.RandomState(3)
+    B, H, G, Dh, S = 1, 2, 4, 64, 256
+    q = (rs.randn(B, H, G, Dh) * .1).astype(np.float32)
+    _, (tq, *tc) = _both([q, *(a[0] for a in _split_flat(rs, 1, B, H, Dh, S, False))])
+    pos = torch.tensor([S - 1], dtype=torch.int32)
+    base = quantized_kv_decode_attention_bdq(tq, *tc, pos)
+    torch.testing.assert_close(quantized_kv_decode_attention_bdq(tq, *tc, pos, bs=256,
+                                                                 interpret=True), base)
+    stub = quantized_kv_decode_attention_bdq(tq, *tc, pos, bs=128, stub=True)
+    assert not torch.allclose(stub, base)
+    hm = (tc[0].reshape(B, H, Dh // 2, S).transpose(2, 3), tc[1][..., None],
+          tc[2].reshape(B, S, H, Dh // 2).transpose(1, 2), tc[3][..., None])
+    torch.testing.assert_close(quantized_kv_decode_attention(tq, *hm, pos, interpret=True),
+                               quantized_kv_decode_attention(tq, *hm, pos))
+
+
+def _hm_codes(rs, B, H, S, Dh, int8):
+    if int8:
+        kq = rs.randint(-127, 128, (B, H, S, Dh)).astype(np.int8)
+        vq = rs.randint(-127, 128, (B, H, S, Dh)).astype(np.int8)
+    else:
+        kq = rs.randint(0, 256, (B, H, S, Dh // 2)).astype(np.uint8)
+        vq = rs.randint(0, 256, (B, H, S, Dh // 2)).astype(np.uint8)
+    ks = (rs.rand(B, H, S, 1) * .02).astype(np.float32)
+    vs = (rs.rand(B, H, S, 1) * .02).astype(np.float32)
+    return kq, ks, vq, vs
+
+
+def _finite_agree(want, got, db):
+    """The non-finite entries equal (NaN for NaN, inf for inf of the same
+    sign), the finite entries at SQNR >= db (f64)."""
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isnan(want), np.isnan(got))
+    np.testing.assert_array_equal(np.isinf(want), np.isinf(got))
+    np.testing.assert_array_equal(want[np.isinf(want)], got[np.isinf(want)])
+    if fin.any():
+        assert sqnr_db(torch.from_numpy(want[fin]), torch.from_numpy(got[fin])) >= db
+
+
+_RUNGS = [(r, kv) for r in ("noexp", "nosoftmax", "nomaskexp", "dotsonly")
+          for kv in ("int8", "int4") if (r, kv) != ("dotsonly", "int4")]
+
+
+@pytest.mark.parametrize("bs", [32, 256])
+@pytest.mark.parametrize("rung,kv", _RUNGS)
+def test_ablation_rungs_match_jax_kernel(monkeypatch, rung, kv, bs):
+    """Each rung of K4's ladder (wrong math on purpose) against ``_kernel``'s
+    ``ablate`` arm in interpret mode, at the CUDA tile (32 keys) and at 256;
+    at pos = S - 2 (a masked key in the last block, ``noexp`` overflows) and
+    S - 1. The non-finite positions must be equal and the finite entries at
+    >= 60 dB. For nosoftmax / nomaskexp also the pre-division parts: the JAX
+    kernel's acc (its final ``jnp.maximum`` made 1) and acc·l (made 1/l),
+    because l, a signed sum, can come near 0 and amplify rounding."""
+    rs = np.random.RandomState(7)
+    B, H, R, Dh, S = 1, 2, 4, 128, 256
+    q = rs.randn(B, H, R, Dh).astype(np.float32)
+    (jq, *jc), (tq, *tc) = _both([q, *_hm_codes(rs, B, H, S, Dh, kv == "int8")])
+    for p in (S - 2, S - 1):
+        pos = np.array([p], np.int32)
+        run = lambda: np.asarray(j_attn(jq, *jc, jnp.asarray(pos), bs=bs, fold_heads=False,
+                                        interpret=True, ablate=rung))
+        got = quantized_kv_decode_attention(tq, *tc, torch.from_numpy(pos), bs=bs, ablate=rung)
+        _finite_agree(run(), got.numpy(), 60)
+        if rung in ("nosoftmax", "nomaskexp"):
+            acc, l = quantized_kv_decode_attention_ablate_plain(
+                tq, *tc, torch.from_numpy(pos), ablate=rung, bs=bs, parts=True)
+            for fake, mine in ((lambda a, b: jnp.ones_like(a), acc),
+                               (lambda a, b: 1.0 / a, acc * l[..., None])):
+                jax.clear_caches()
+                monkeypatch.setattr(jnp, "maximum", fake)
+                part = run()
+                monkeypatch.undo()
+                assert sqnr_db(torch.from_numpy(part), mine) >= 60
+            jax.clear_caches()
+
+
+def test_int4_dotsonly_is_the_port_s_definition():
+    """JAX's int4 ``dotsonly`` does not trace (its q·K dot contracts Dh with
+    the Dh/2 packed bytes); the port's dots the unpacked codes, no scale:
+    held against that arithmetic in float64."""
+    rs = np.random.RandomState(8)
+    B, H, R, Dh, S = 1, 2, 4, 64, 64
+    q = rs.randn(B, H, R, Dh).astype(np.float32)
+    (jq, *jc), (tq, *tc) = _both([q, *_hm_codes(rs, B, H, S, Dh, False)])
+    pos = np.array([S - 2], np.int32)
+    with pytest.raises(TypeError):
+        j_attn(jq, *jc, jnp.asarray(pos), bs=32, fold_heads=False, interpret=True,
+               ablate="dotsonly")
+    got = quantized_kv_decode_attention(tq, *tc, torch.from_numpy(pos), bs=32, ablate="dotsonly")
+    k, v = unpack_int4_kv(tc[0]).double(), unpack_int4_kv(tc[2]).double()
+    raw = torch.einsum("bhrd,bhsd->bhrs", tq.double(), k)
+    want = torch.einsum("bhrs,bhsd->bhrd", raw.to(torch.bfloat16).double(), v) / 1e-30
+    assert sqnr_db(want, got) >= 60

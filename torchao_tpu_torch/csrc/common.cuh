@@ -52,3 +52,58 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// ------------------------------------------------ tensor-core fragments --
+// bf16 operands of mma.sync.aligned.m16n8k16 with f32 accumulation (PTX
+// ISA, "Matrix Fragments for mma.m16n8k16 with floating point type"): for
+// lane l, g = l / 4 and t2 = 2 (l % 4); A (16 x 16, row) holds (g, t2 + i),
+// (g + 8, t2 + i), (g, t2 + 8 + i), (g + 8, t2 + 8 + i) for i = 0, 1 in four
+// 32-bit registers; B (16 x 8, col) holds (t2 + i, g), (t2 + 8 + i, g) in two;
+// C (16 x 8) holds (g, t2 + i), (g + 8, t2 + i) in four floats. The loaders
+// take a functor ld(r, c) that returns element (r, c) of the operand as a
+// float, so an operand of another type (int8, e4m3) is converted to bf16 as
+// its fragment is loaded, and any layout (a transposed lhs) is an index map.
+
+// two floats -> one register of two bf16 (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of the 16 x 16 tile at (m0, k0)
+template <class Ld>
+__device__ __forceinline__ void load_frag_a(uint32_t a[4], const Ld& ld, int m0, int k0) {
+  const int g = (threadIdx.x % 32) / 4, t2 = (threadIdx.x % 4) * 2;
+  a[0] = pack_bf16x2(ld(m0 + g, k0 + t2), ld(m0 + g, k0 + t2 + 1));
+  a[1] = pack_bf16x2(ld(m0 + g + 8, k0 + t2), ld(m0 + g + 8, k0 + t2 + 1));
+  a[2] = pack_bf16x2(ld(m0 + g, k0 + t2 + 8), ld(m0 + g, k0 + t2 + 9));
+  a[3] = pack_bf16x2(ld(m0 + g + 8, k0 + t2 + 8), ld(m0 + g + 8, k0 + t2 + 9));
+}
+
+// B fragment of the 16 x 8 tile at (k0, n0)
+template <class Ld>
+__device__ __forceinline__ void load_frag_b(uint32_t b[2], const Ld& ld, int k0, int n0) {
+  const int g = (threadIdx.x % 32) / 4, t2 = (threadIdx.x % 4) * 2;
+  b[0] = pack_bf16x2(ld(k0 + t2, n0 + g), ld(k0 + t2 + 1, n0 + g));
+  b[1] = pack_bf16x2(ld(k0 + t2 + 8, n0 + g), ld(k0 + t2 + 9, n0 + g));
+}
+
+// c += a . b (16 x 8 x 16, bf16 in, f32 accumulation)
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// store the C fragment of the 16 x 8 tile at (m0, n0) of a row-major [., ldc] f32 array
+__device__ __forceinline__ void store_frag_c(float* out, int ldc, const float c[4], int m0,
+                                             int n0) {
+  const int g = (threadIdx.x % 32) / 4, t2 = (threadIdx.x % 4) * 2;
+  out[(size_t)(m0 + g) * ldc + n0 + t2] = c[0];
+  out[(size_t)(m0 + g) * ldc + n0 + t2 + 1] = c[1];
+  out[(size_t)(m0 + g + 8) * ldc + n0 + t2] = c[2];
+  out[(size_t)(m0 + g + 8) * ldc + n0 + t2 + 1] = c[3];
+}

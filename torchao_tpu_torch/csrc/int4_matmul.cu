@@ -29,6 +29,22 @@
 // raw-byte dot; a compile-time parameter, so production K1's code is the
 // same instantiation as before.
 //
+// The qparams-layout arms of the probe P6 (QP != QP_SZ, tt_int4_gemv_eff4
+// and tt_int4_gemv_m1) replace scripts/int4_probe2.py::m1_matmul (pallas_call
+// at :141, body _kernel_m1 at :43) and its eff4 arm (the batched-int8 body
+// _kernel_bint8 reading qparams_eff as four streams): K1's grid, loads and
+// reduce, with the four bf16 qparam families of the batched-int8 math
+// (s_lo | s_hi/16 | z - 8 s_lo | z_hi) read in place of scale and zero,
+// either family-major [4 nG, N] (eff4: four row streams) or chunked
+// block-major [nG/cb, 4, cb, N] (m1: the four families of a chunk of cb
+// groups in one contiguous slab, eff_qparams_to_block_major's layout).
+//   sum_k x dq = s_lo * sum x lo + (s_hi/16) * 16 sum x (hi - 8)
+//                + (z - 8 s_lo) * sum x_lo + z_hi * sum x_hi
+// The same bytes as production K1 (two bf16 [K/g, N] arrays there, one
+// [2K/g, N] array here), so the arms price the layout only: they are
+// compile-time parameters of K1's CUDA template (CUDA, as K1, so that only
+// the layout differs), and production K1 is the same instantiation as before.
+//
 // The int4 variants K14a (group_partial) and K14b/K14c (banded) follow the
 // tiled form below.
 //
@@ -52,14 +68,26 @@ constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
 constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
 constexpr int RUN = 8;                                     // packed rows per run
 
+enum QParams { QP_SZ = 0, QP_EFF4 = 1, QP_M1 = 2 };  // scale + zero; the P6 layouts
+
+// 16 bf16 columns at row `row` of a [rows, N] array -> 16 floats
+__device__ __forceinline__ void load_row16(const __nv_bfloat16* a, size_t row, int N, int n0,
+                                           float* f) {
+  const uint4* p = reinterpret_cast<const uint4*>(a + row * N + n0);
+  bf16x8_to_float(__ldg(p), f);
+  bf16x8_to_float(__ldg(p + 1), f + 8);
+}
+
 // grid: (ceil(N / 128), ksplit, ceil(M / MT)); block: 256 threads.
 // Thread (lane, chunk) handles 16 columns and every 32nd run of its split.
 // Partial sums go to ws[ksplit, M, N] (fp32); tt_int4_reduce finishes.
-template <int MT, bool HAS_Z, bool STUB = false>
+// QP != QP_SZ: `sc` is the qparams_eff array in that layout (`cb` groups per
+// chunk for QP_M1), `zr` is unused.
+template <int MT, bool HAS_Z, bool STUB = false, int QP = QP_SZ>
 __global__ void __launch_bounds__(GEMV_THREADS)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
-                 float* __restrict__ ws, int M, int K, int N, int g) {
+                 float* __restrict__ ws, int M, int K, int N, int g, int cb = 0) {
   const int Kp = K / 2;
   const int chunk = threadIdx.x % GEMV_CHUNKS;
   const int lane = threadIdx.x / GEMV_CHUNKS;
@@ -85,6 +113,51 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
       for (int i = 0; i < RUN; ++i)
         w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
       float s_lo[GEMV_COLS], z_lo[GEMV_COLS], s_hi[GEMV_COLS], z_hi[GEMV_COLS];
+      if constexpr (QP != QP_SZ) {
+        // family f of lo-half group glo: s_lo, s_hi/16, z - 8 s_lo, z_hi
+        const int nG = Kp / g;
+        auto row = [&](int f) -> size_t {
+          return QP == QP_EFF4 ? (size_t)f * nG + glo
+                               : ((size_t)(glo / cb) * 4 + f) * cb + glo % cb;
+        };
+        load_row16(sc, row(0), N, n0, s_lo);
+        load_row16(sc, row(1), N, n0, s_hi);
+        load_row16(sc, row(2), N, n0, z_lo);
+        load_row16(sc, row(3), N, n0, z_hi);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m0 + m >= M) break;
+          float xl[RUN], xh[RUN];
+          const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
+          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
+          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
+          float sxl = 0.f, sxh = 0.f;
+          float pl[GEMV_COLS], ph[GEMV_COLS];
+#pragma unroll
+          for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
+#pragma unroll
+          for (int i = 0; i < RUN; ++i) {
+            sxl += xl[i];
+            sxh += xh[i];
+            const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
+              const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);          // x * lo
+                ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);   // x * (hi - 8)
+              }
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < GEMV_COLS; ++c)
+            acc[m][c] += s_lo[c] * pl[c] + (16.f * s_hi[c]) * ph[c] + z_lo[c] * sxl +
+                         z_hi[c] * sxh;
+        }
+        continue;
+      }
       {
         const uint4* p;
         p = reinterpret_cast<const uint4*>(sc + (size_t)glo * N + n0);
@@ -568,6 +641,27 @@ static int reduce_splits(float* ws, void* out, int ksplit, int M, int N, cudaStr
   return cudaGetLastError();
 }
 
+// P6's layouts: K1's launch with the qparams_eff array in `qp`.
+template <int QP>
+static int launch_gemv_eff(const void* x, const void* wp, const void* qp, void* ws, void* out,
+                           int M, int K, int N, int g, int cb, int ksplit, void* stream) {
+  if (QP == QP_M1 && (cb < 1 || (K / 2 / g) % cb)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mt = M == 1 ? 1 : 4;
+  dim3 grid((N + GEMV_TN - 1) / GEMV_TN, ksplit, (M + mt - 1) / mt);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto w8 = static_cast<const uint8_t*>(wp);
+  auto q = static_cast<const __nv_bfloat16*>(qp);
+  auto wsf = static_cast<float*>(ws);
+  if (mt == 1)
+    int4_gemv_kernel<1, true, false, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, nullptr, wsf, M, K, N, g, cb);
+  else
+    int4_gemv_kernel<4, true, false, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, nullptr, wsf, M, K, N, g, cb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_splits(wsf, out, ksplit, M, N, st);
+}
+
 template <bool STUB>
 static int launch_gemv(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
                        void* out, int M, int K, int N, int g, int ksplit, void* stream) {
@@ -606,6 +700,19 @@ TT_EXPORT int tt_int4_gemv_stub(const void* x, const void* wp, const void* sc, c
                                 void* ws, void* out, int M, int K, int N, int g, int ksplit,
                                 void* stream) {
   return launch_gemv<true>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, stream);
+}
+
+// P6: the arguments of tt_int4_gemv with qp, the qparams_eff array [2K/g, N]
+// bf16, family-major (eff4) or block-major in chunks of cb groups (m1), in
+// place of scale and zero.
+TT_EXPORT int tt_int4_gemv_eff4(const void* x, const void* wp, const void* qp, void* ws,
+                                void* out, int M, int K, int N, int g, int ksplit, void* stream) {
+  return launch_gemv_eff<QP_EFF4>(x, wp, qp, ws, out, M, K, N, g, 0, ksplit, stream);
+}
+
+TT_EXPORT int tt_int4_gemv_m1(const void* x, const void* wp, const void* qp, void* ws, void* out,
+                              int M, int K, int N, int g, int cb, int ksplit, void* stream) {
+  return launch_gemv_eff<QP_M1>(x, wp, qp, ws, out, M, K, N, g, cb, ksplit, stream);
 }
 
 TT_EXPORT int tt_int4_tiled(const void* x, const void* wp, const void* sc, const void* zr,

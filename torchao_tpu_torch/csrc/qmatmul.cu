@@ -15,7 +15,12 @@
 //   K9 (e4m3 x, e4m3 w, f32 accumulation, f32 per-row x and w scales, the
 //      unstacked float8dq-row head) replaces fp8_matmul.py::fp8_rowwise_matmul
 //      (pallas_call at :79, body _kernel at :24); its own entry points,
-//      tt_fp8_rowwise_gemv and tt_fp8_rowwise_tiled, run the same loops.
+//      tt_fp8_rowwise_gemv and tt_fp8_rowwise_tiled, run the same loops;
+//   P1 (K6 with the scale dropped at compile time, bf16(x . w^T)) replaces
+//      scripts/manual_dma_probe.py::std_call (pallas_call at :62, body
+//      _std_kernel at :51), the probe's "two_calls" arm; entry point
+//      tt_manual_dma_std (CUDA: K6's own gemv body, to price the production
+//      launch structure). Its one-launch rival P2 is csrc/manual_dma_probe.cu.
 // The weight is [N, K] row-major (K contiguous), as the JAX package stores
 // it; a stacked [L, N, K] weight is addressed by the caller with a pointer
 // offset, so no per-layer copy is made. Scales are per row of x (or none)
@@ -46,11 +51,12 @@
 
 namespace {
 
-enum Kind { K6_BF16_I8 = 0, K7_I8_I8 = 1, K8_BF16_E4M3 = 2, K8_E4M3_E4M3 = 3, K9_E4M3_ROW = 4 };
+enum Kind { K6_BF16_I8 = 0, K7_I8_I8 = 1, K8_BF16_E4M3 = 2, K8_E4M3_E4M3 = 3, K9_E4M3_ROW = 4,
+            P1_BF16_I8 = 5 };
 
 template <int KIND> struct Traits {
   static constexpr bool kIntAcc = KIND == K7_I8_I8;
-  static constexpr bool kXBf16 = KIND == K6_BF16_I8 || KIND == K8_BF16_E4M3;
+  static constexpr bool kXBf16 = KIND == K6_BF16_I8 || KIND == K8_BF16_E4M3 || KIND == P1_BF16_I8;
   static constexpr bool kWE4m3 = KIND == K8_BF16_E4M3 || KIND == K8_E4M3_E4M3 || KIND == K9_E4M3_ROW;
   static constexpr int kXBytes = kXBf16 ? 2 : 1;
   using Acc = typename std::conditional<kIntAcc, int, float>::type;
@@ -187,8 +193,10 @@ qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
         const int n = n0 + r;
         if (n >= N) continue;
         if (gridDim.y == 1) {
-          const float v = (float)acc[m][r] * load_scale(xs, xs_kind, m0 + m) *
-                          load_scale(wsc, ws_kind, (long long)n * ws_stride);
+          const float v = KIND == P1_BF16_I8
+                              ? (float)acc[m][r]
+                              : (float)acc[m][r] * load_scale(xs, xs_kind, m0 + m) *
+                                    load_scale(wsc, ws_kind, (long long)n * ws_stride);
           out[(size_t)(m0 + m) * N + n] = __float2bfloat16(v);
         } else {
           work[((size_t)blockIdx.y * M + m0 + m) * N + n] = acc[m][r];
@@ -379,6 +387,15 @@ TT_EXPORT int tt_qmm_tiled(int kind, const void* x, const void* w, const void* x
     case K8_E4M3_E4M3: return launch_tiled<K8_E4M3_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// P1: x [M, K] bf16; w [N, K] int8; no scale (the reduce pass multiplies by
+// kind-0 scales, 1); work [ksplit, M, N] f32 when ksplit > 1; out [M, N] bf16.
+TT_EXPORT int tt_manual_dma_std(const void* x, const void* w, void* work, void* out, int M, int K,
+                                int N, int ksplit, void* stream) {
+  if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
+  return launch_gemv<P1_BF16_I8>(x, w, nullptr, 0, nullptr, 0, 0, work, out, M, K, N, ksplit,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // K9. x [M, K] e4m3; w [N, K] e4m3; xs [M] and ws [N] f32; work [ksplit, M, N]

@@ -28,6 +28,27 @@
 //   body _kernel_bdq at :518). Bound: bytes, 2 * Dh bytes per visible key
 //   and head plus scales, twice the int4 form's.
 //
+// tt_bdq_decode_stub (int4) and tt_bdq_decode_stub_i8 (int8): K2's stub arm
+//   (STUB = true), the attention ceiling probe's. It replaces the stub arms of
+//   _kernel_bdq (:569-590) and _kernel_bdq_i4 (:682-700), reached through
+//   quantized_kv_decode_attention_bdq(stub=True) (pallas_call at :931/:959):
+//   wrong math on purpose. Per live chunk (first key <= pos), every key of
+//   the chunk, unmasked:
+//     out[h, g, :Dh] += bf16(q[h, g] . codesK[h]) . codesV[:, :Dh]
+//   with the raw codes (int8 as int8; int4 the low nibbles 0..15 against q's
+//   first Dh/2 columns), codesV the first Dh columns of the S-major V rows
+//   (the JAX stub's wide[:, :dh]: head 0's stripe, for int4 heads 0 and 1),
+//   plus k_scale[0, s0] + v_scale[0, s0], summed in f32 (as XLA computes the
+//   JAX stub's bf16 sum, its rounding dropped), added to every output; no
+//   softmax, scale or mask work. The grid, the chunk, the partial writes and
+//   the combine launch are K2's, and each block also loads the bytes that
+//   K2's block loads (its own head's K and V stripes and scales; the V
+//   stripe and the scales are folded into an empty asm so they are read),
+//   so the stub streams what K2 streams; head 0's V columns come on top,
+//   from the L2 after the first head's block. A compile-time parameter of
+//   K2's CUDA template (CUDA, as K2: the stub must be K2's own grid and
+//   loads to price them): K2's own code is the same instantiation as before.
+//
 // tt_flash_prefill (K4) replaces
 //   quantized_attention.py::quantized_kv_decode_attention, int4 prefill form
 //   (pallas_call at quantized_attention.py:337, body _kernel at :46): causal
@@ -43,6 +64,25 @@
 //   flops at the bf16 tensor-core peak); this SIMT kernel is far from both.
 // tt_flash_prefill_i8 is its int8 form (the same pallas_call with an int8
 //   cache): a [B, Hkv, S, Dh] int8 view, one byte per element.
+// tt_flash_ablate and tt_flash_ablate_i8: K4's ablation ladder (the ABLATE
+//   template parameter; scripts/attn_probe.py's rungs of _kernel's `ablate`,
+//   :83-165), each rung dropping one more stage, all but none wrong math:
+//     noexp      exp -> identity: p = s - m_new, alpha = m_old - m_new;
+//     nosoftmax  no max / exp / alpha: p = s, masked scores 0;
+//     nomaskexp  also no causal mask;
+//     dotsonly   raw dots only, acc += bf16(q . codesK) . codesV, no scale.
+//   The rungs follow _kernel's numerics, not K4's f32 ones: int8 keeps the
+//   per-key K scale out of the q.k dot (raw * k_scale * scale) and dots
+//   bf16(p * v_scale) with the int8 codes; int4 dequantizes K and V to bf16
+//   and dots bf16(p); the running max starts at and masks with -1e30, and
+//   the end divides by max(l, 1e-30) with NaN kept. A rung's value depends on
+//   the key block (the mask, max and alpha act per block): the blocks here
+//   are the FK = 32-key tiles, so the plain version is held at bs = 32.
+//   JAX's int4 dotsonly does not trace (its q . K dot contracts Dh with the
+//   Dh/2 packed bytes); the port's int4 dotsonly dots the unpacked codes
+//   (q - 8 values). A template parameter of K4's CUDA kernel (CUDA, as K4:
+//   each rung must keep K4's grid and tiles to attribute K4's time).
+//   ABLATE = 0 is K4's own instantiation, unchanged.
 //
 // tt_flash_heads (K4', int4) and tt_flash_heads_i8 (int8) replace the
 //   head-folded form of the same function (fold_heads, pallas_call at
@@ -82,7 +122,7 @@ namespace {
 constexpr int DEC_CHUNK = 128;  // keys per block; also threads per block
 constexpr int DEC_DB_MAX = 128;  // bytes per key and head: Dh/2 (int4) or Dh (int8)
 
-template <int G, bool I8>
+template <int G, bool I8, bool STUB = false>
 __global__ void __launch_bounds__(DEC_CHUNK)
 bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ kq,
                    const __nv_bfloat16* __restrict__ ksc, const uint8_t* __restrict__ vq,
@@ -115,6 +155,51 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
   const __nv_bfloat16* ks_b = ksc + ((size_t)b * H + h) * S;
   const __nv_bfloat16* vs_b = vsc + ((size_t)b * H + h) * S;
   const __nv_bfloat16* q_b = q + (size_t)bh * G * Dh;
+
+  if constexpr (STUB) {
+    const int na = min(DEC_CHUNK, S - s0);  // the whole chunk, unmasked
+    const uint8_t* v0 = vq + (size_t)b * S * X;  // the first Dh columns of V
+    for (int i = t; i < G * Dh; i += DEC_CHUNK) qs[i / Dh][i % Dh] = __bfloat162float(q_b[i]);
+    uint32_t sink = 0;  // K2's loads of this head's V stripe and scales
+    for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
+      const int d = e / DEC_CHUNK, s = e % DEC_CHUNK;
+      kt[d][s] = s < na ? kq_b[(size_t)d * S + s0 + s] : 0;
+    }
+    for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
+      const int s = e / DB, d = e % DB;
+      if (s < na) sink ^= vq_b[(size_t)(s0 + s) * X + d];
+    }
+    for (int e = t; e < Dh * DEC_CHUNK; e += DEC_CHUNK) {
+      const int s = e / Dh, d = e % Dh;
+      vt[s][d] = s < na ? v0[(size_t)(s0 + s) * X + d] : 0;
+    }
+    if (t < na) sink ^= (uint32_t)__bfloat16_as_ushort(ks_b[s0 + t]) ^ __bfloat16_as_ushort(vs_b[s0 + t]);
+    asm volatile("" ::"r"(sink));
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float raw = 0.f;
+      for (int d = 0; d < DB; ++d)
+        raw = fmaf(qs[g][d], I8 ? (float)(int8_t)kt[d][t] : (float)(kt[d][t] & 0xF), raw);
+      ps[g][t] = t < na ? __bfloat162float(__float2bfloat16(raw)) : 0.f;
+    }
+    __syncthreads();
+    for (int idx = t; idx < G * Dh; idx += DEC_CHUNK) {
+      const int g = idx / Dh, d = idx % Dh;
+      float a = 0.f;
+      for (int s = 0; s < na; ++s)
+        a = fmaf(ps[g][s], I8 ? (float)(int8_t)vt[s][d] : (float)(vt[s][d] & 0xF), a);
+      ws_acc[(wsi * G + g) * Dh + d] = a;
+    }
+    if (t < G) {
+      const __nv_bfloat16* k0 = ksc + (size_t)b * H * S;  // head 0
+      const __nv_bfloat16* vs0 = vsc + (size_t)b * H * S;
+      const float sum = __bfloat162float(k0[s0]) + __bfloat162float(vs0[s0]);  // f32, as XLA
+      ws_m[wsi * G + t] = 0.f;
+      ws_l[wsi * G + t] = sum;
+    }
+    return;
+  }
 
   for (int i = t; i < G * Dh; i += DEC_CHUNK) qs[i / Dh][i % Dh] = __bfloat162float(q_b[i]) * scale;
   for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
@@ -207,12 +292,24 @@ bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restric
 }
 
 // out[bh, g, d] = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M)
+// (STUB: sum_i acc_i + sum_i l_i)
+template <bool STUB = false>
 __global__ void bdq_combine_kernel(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
                                    const float* __restrict__ ws_acc, float* __restrict__ out,
                                    int G, int Dh, int nsplit) {
   const int bh = blockIdx.x;
   for (int idx = threadIdx.x; idx < G * Dh; idx += blockDim.x) {
     const int g = idx / Dh, d = idx % Dh;
+    if constexpr (STUB) {
+      float a = 0.f, l = 0.f;
+      for (int i = 0; i < nsplit; ++i) {
+        const size_t wi = (size_t)bh * nsplit + i;
+        a += ws_acc[(wi * G + g) * Dh + d];
+        l += ws_l[wi * G + g];
+      }
+      out[((size_t)bh * G + g) * Dh + d] = a + l;
+      continue;
+    }
     float M = -INFINITY;
     for (int i = 0; i < nsplit; ++i) M = fmaxf(M, ws_m[((size_t)bh * nsplit + i) * G + g]);
     float num = 0.f, den = 0.f;
@@ -241,7 +338,12 @@ struct KvView {  // element (b, h, s, d) of a [B, H, S, Dh/2] uint8 view
   bool vec;  // d contiguous and every row 4-byte aligned: 4-byte loads (head-folded kernel)
 };
 
-template <int DH, bool I8>
+// What a key tile holds: code * scale in f32 (K4), the codes alone (int8
+// codes, int4 nibble - 8), or code * scale rounded to bf16 (_kernel's int4
+// dequantization).
+enum TileMode { KV_F32 = 0, KV_CODES = 1, KV_BF16 = 2 };
+
+template <int DH, bool I8, int MODE = KV_F32>
 __device__ __forceinline__ void load_kv_tile(float* tile, const KvView& v, int b, int h, int k0,
                                              int S) {
   constexpr int DB = I8 ? DH : DH / 2;  // bytes per key
@@ -252,12 +354,17 @@ __device__ __forceinline__ void load_kv_tile(float* tile, const KvView& v, int b
     float lo = 0.f, hi = 0.f;
     if (key < S) {
       const int byte = v.q[b * v.sb + h * v.sh + key * v.ss + d * v.sd];
-      const float scl = __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]);
+      const float scl =
+          MODE == KV_CODES ? 1.f : __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]);
       if constexpr (I8) {
         lo = (float)(int8_t)byte * scl;
       } else {
         lo = (float)((byte & 0xF) - 8) * scl;
         hi = (float)((byte >> 4) - 8) * scl;
+      }
+      if constexpr (MODE == KV_BF16) {
+        lo = __bfloat162float(__float2bfloat16(lo));
+        hi = __bfloat162float(__float2bfloat16(hi));
       }
     }
     tile[s * (DH + 4) + d] = lo;
@@ -265,7 +372,14 @@ __device__ __forceinline__ void load_kv_tile(float* tile, const KvView& v, int b
   }
 }
 
-template <int DH, bool I8>
+enum Ablate { AB_NONE = 0, AB_NOEXP = 1, AB_NOSOFTMAX = 2, AB_NOMASKEXP = 3, AB_DOTSONLY = 4 };
+constexpr float NEG_BIG = -1e30f;  // the JAX kernels' NEG_INF
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <int DH, bool I8, int AB = AB_NONE>
 __global__ void __launch_bounds__(F_THREADS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
                      const int* __restrict__ pos, float* __restrict__ out, int H, int R, int S,
@@ -275,6 +389,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
   float* kt = qs + FQ * (DH + 4);        // [FK][DH + 4]
   float* vt = kt + FK * (DH + 4);        // [FK][DH + 4]
   float* ps = vt + FK * (DH + 4);        // [FQ][FK + 1]
+  float* kss = ps + FQ * (FK + 1);       // [FK] int8 ablation rungs: the tile's K scales
+  float* vss = kss + FK;                 // [FK] and V scales
   constexpr int NC = DH / 4;             // output columns per thread
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -285,21 +401,32 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
 
   for (int e = threadIdx.x; e < FQ * DH; e += F_THREADS) {
     const int r = e / DH, d = e % DH;
-    qs[r * (DH + 4) + d] =
-        r0 + r < R ? __bfloat162float(q[((size_t)bh * R + r0 + r) * DH + d]) * scale : 0.f;
+    qs[r * (DH + 4) + d] = r0 + r < R ? __bfloat162float(q[((size_t)bh * R + r0 + r) * DH + d]) *
+                                            (AB == AB_NONE ? scale : 1.f)
+                                      : 0.f;
   }
 
   const int row = threadIdx.x / 4, c = threadIdx.x % 4;
   const bool row_ok = r0 + row < R;
   const int lim = p + (r0 + row) / G;  // last visible key of this row
-  float m = -INFINITY, l = 0.f, acc[NC];
+  float m = AB == AB_NONE ? -INFINITY : NEG_BIG, l = 0.f, acc[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < key_end; k0 += FK) {
     __syncthreads();  // previous tile fully consumed (and q tile written)
-    load_kv_tile<DH, I8>(kt, kv, b, h, k0, S);
-    load_kv_tile<DH, I8>(vt, vv, b, h, k0, S);
+    constexpr int MODE = AB == AB_NONE ? KV_F32 : (I8 || AB == AB_DOTSONLY) ? KV_CODES : KV_BF16;
+    load_kv_tile<DH, I8, MODE>(kt, kv, b, h, k0, S);
+    load_kv_tile<DH, I8, MODE>(vt, vv, b, h, k0, S);
+    if constexpr (MODE == KV_CODES && AB != AB_DOTSONLY) {
+      if (threadIdx.x < 2 * FK) {
+        const bool is_v = threadIdx.x >= FK;
+        const KvView& v = is_v ? vv : kv;
+        const int key = k0 + threadIdx.x % FK;
+        (is_v ? vss : kss)[threadIdx.x % FK] =
+            key < S ? __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]) : 0.f;
+      }
+    }
     __syncthreads();
 
     float sc[FK / 4];
@@ -314,6 +441,55 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
         const float4 kk = *reinterpret_cast<const float4*>(kt + (j * 4 + c) * (DH + 4) + d);
         sc[j] = fmaf(a.x, kk.x, fmaf(a.y, kk.y, fmaf(a.z, kk.z, fmaf(a.w, kk.w, sc[j]))));
       }
+    }
+    if constexpr (AB != AB_NONE) {
+      // _kernel's ablation rungs (quantized_attention.py:83-165)
+      float alpha = 1.f, w[FK / 4];
+      if constexpr (AB == AB_DOTSONLY) {
+#pragma unroll
+        for (int j = 0; j < FK / 4; ++j) w[j] = bf16_round(sc[j]);
+      } else {
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < FK / 4; ++j) {
+          const int key = k0 + j * 4 + c;
+          float s = I8 ? sc[j] * kss[j * 4 + c] * scale : sc[j] * scale;
+          if (AB != AB_NOMASKEXP && key > lim) s = AB == AB_NOSOFTMAX ? 0.f : NEG_BIG;
+          sc[j] = s;
+        }
+        if constexpr (AB == AB_NOEXP) {
+          float mx = NEG_BIG;
+#pragma unroll
+          for (int j = 0; j < FK / 4; ++j) mx = fmaxf(mx, sc[j]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m, mx);
+          alpha = m - m_new;  // exp -> identity
+#pragma unroll
+          for (int j = 0; j < FK / 4; ++j) sc[j] -= m_new;
+          m = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < FK / 4; ++j) {
+          rs += sc[j];
+          w[j] = bf16_round(I8 ? sc[j] * vss[j * 4 + c] : sc[j]);
+        }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l = l * alpha + rs;
+      }
+#pragma unroll
+      for (int j = 0; j < FK / 4; ++j) ps[row * (FK + 1) + j * 4 + c] = w[j];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) acc[i] *= alpha;
+      __syncthreads();
+      for (int jj = 0; jj < FK; ++jj) {
+        const float pj = ps[row * (FK + 1) + jj];
+        const float* vrow = vt + jj * (DH + 4);
+#pragma unroll
+        for (int i = 0; i < NC; ++i) acc[i] = fmaf(pj, vrow[i * 4 + c], acc[i]);
+      }
+      continue;
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -355,35 +531,44 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
   }
   if (row_ok) {
     float* o = out + ((size_t)bh * R + r0 + row) * DH;
+    if constexpr (AB != AB_NONE) {
+      const float den = l != l ? l : fmaxf(l, 1e-30f);  // jnp.maximum keeps a NaN
+#pragma unroll
+      for (int i = 0; i < NC; ++i) o[i * 4 + c] = acc[i] / den;
+      return;
+    }
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NC; ++i) o[i * 4 + c] = acc[i] * inv;
   }
 }
 
-template <int DH, bool I8>
+template <int DH, bool I8, int AB = AB_NONE>
 int launch_prefill(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* out,
                    int B, int H, int R, int S, int G, float scale, cudaStream_t st) {
-  const size_t smem = (size_t)(FQ * (DH + 4) + 2 * FK * (DH + 4) + FQ * (FK + 1)) * sizeof(float);
+  const size_t smem = (size_t)(FQ * (DH + 4) + 2 * FK * (DH + 4) + FQ * (FK + 1) +
+                               (AB == AB_NONE ? 0 : 2 * FK)) * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH, I8>,
+    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH, I8, AB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid(B * H, (R + FQ - 1) / FQ);
-  flash_prefill_kernel<DH, I8><<<grid, F_THREADS, smem, st>>>(
+  flash_prefill_kernel<DH, I8, AB><<<grid, F_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), kv, vv, static_cast<const int*>(pos),
       static_cast<float*>(out), H, R, S, G, scale);
   return cudaGetLastError();
 }
 
-template <bool I8>
+template <bool I8, bool STUB = false>
 int launch_decode(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
                   const void* pos, void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
                   int G, int Dh, int S, int nsplit, float scale, cudaStream_t st) {
   if (I8 ? Dh > DEC_DB_MAX : (Dh % 2 || Dh / 2 > DEC_DB_MAX)) return cudaErrorInvalidValue;
+  // the stub reads the first Dh columns of the H * Db-byte V rows
+  if (STUB && (Dh > DEC_DB_MAX || (I8 ? H * Dh : H * Dh / 2) < Dh)) return cudaErrorInvalidValue;
   dim3 grid(B * H, nsplit);
   auto qb = static_cast<const __nv_bfloat16*>(q);
   auto k8 = static_cast<const uint8_t*>(kq);
@@ -395,25 +580,39 @@ int launch_decode(const void* q, const void* kq, const void* ks, const void* vq,
   auto wl = static_cast<float*>(ws_l);
   auto wa = static_cast<float*>(ws_acc);
   switch (G) {
-    case 1: bdq_partial_kernel<1, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 2: bdq_partial_kernel<2, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 4: bdq_partial_kernel<4, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 8: bdq_partial_kernel<8, I8><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 1: bdq_partial_kernel<1, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 2: bdq_partial_kernel<2, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 4: bdq_partial_kernel<4, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
+    case 8: bdq_partial_kernel<8, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bdq_combine_kernel<<<B * H, 256, 0, st>>>(wm, wl, wa, static_cast<float*>(out), G, Dh, nsplit);
+  bdq_combine_kernel<STUB><<<B * H, 256, 0, st>>>(wm, wl, wa, static_cast<float*>(out), G, Dh, nsplit);
   return cudaGetLastError();
 }
 
-template <bool I8>
+template <bool I8, int AB = AB_NONE>
 int launch_prefill_dh(const void* q, const KvView& kv, const KvView& vv, const void* pos,
                       void* out, int B, int H, int R, int S, int G, int Dh, float scale,
                       cudaStream_t st) {
   switch (Dh) {
-    case 64: return launch_prefill<64, I8>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
-    case 128: return launch_prefill<128, I8>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
+    case 64: return launch_prefill<64, I8, AB>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
+    case 128: return launch_prefill<128, I8, AB>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool I8>
+int launch_ablate(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* out,
+                  int B, int H, int R, int S, int G, int Dh, int ablate, float scale,
+                  cudaStream_t st) {
+  if (S % FK) return cudaErrorInvalidValue;  // whole key blocks, as the plain version's
+  switch (ablate) {
+    case AB_NOEXP: return launch_prefill_dh<I8, AB_NOEXP>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
+    case AB_NOSOFTMAX: return launch_prefill_dh<I8, AB_NOSOFTMAX>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
+    case AB_NOMASKEXP: return launch_prefill_dh<I8, AB_NOMASKEXP>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
+    case AB_DOTSONLY: return launch_prefill_dh<I8, AB_DOTSONLY>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -634,7 +833,7 @@ int launch_heads(const void* q, const KvView& kv, const KvView& vv, const void* 
       G, QT, kps, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bdq_combine_kernel<<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+  bdq_combine_kernel<><<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
                                             static_cast<float*>(ws_acc), static_cast<float*>(out),
                                             R, DH, nsplit);
   return cudaGetLastError();
@@ -684,6 +883,24 @@ TT_EXPORT int tt_bdq_decode_i8(const void* q, const void* kq, const void* ks, co
                              nsplit, scale, static_cast<cudaStream_t>(stream));
 }
 
+// K2's stub arm: the arguments of tt_bdq_decode (scale unused), chunks of
+// DEC_CHUNK keys; Dh <= 128 and H * Db >= Dh.
+TT_EXPORT int tt_bdq_decode_stub(const void* q, const void* kq, const void* ks, const void* vq,
+                                 const void* vs, const void* pos, void* ws_m, void* ws_l,
+                                 void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
+                                 int nsplit, float scale, void* stream) {
+  return launch_decode<false, true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh,
+                                    S, nsplit, scale, static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_bdq_decode_stub_i8(const void* q, const void* kq, const void* ks, const void* vq,
+                                    const void* vs, const void* pos, void* ws_m, void* ws_l,
+                                    void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
+                                    int nsplit, float scale, void* stream) {
+  return launch_decode<true, true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh,
+                                   S, nsplit, scale, static_cast<cudaStream_t>(stream));
+}
+
 // q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views with
 // element strides (b, h, s, d); ks/vs: bf16 views with strides (b, h, s);
 // out [B, H, R, Dh].
@@ -715,6 +932,38 @@ TT_EXPORT int tt_flash_prefill_i8(const void* q, const void* kq, long long ksb, 
                   static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
   return launch_prefill_dh<true>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// K4's ablation rungs: the arguments of tt_flash_prefill and the rung
+// (1 noexp, 2 nosoftmax, 3 nomaskexp, 4 dotsonly); S % 32 == 0.
+TT_EXPORT int tt_flash_ablate(const void* q, const void* kq, long long ksb, long long ksh,
+                              long long kss, long long ksd, const void* ks, long long kcb,
+                              long long kch, long long kcs, const void* vq, long long vsb,
+                              long long vsh, long long vss, long long vsd, const void* vs,
+                              long long vcb, long long vch, long long vcs, const void* pos,
+                              void* out, int B, int H, int R, int S, int G, int Dh, int ablate,
+                              float scale, void* stream) {
+  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
+                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
+  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
+                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
+  return launch_ablate<false>(q, kv, vv, pos, out, B, H, R, S, G, Dh, ablate, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_flash_ablate_i8(const void* q, const void* kq, long long ksb, long long ksh,
+                                 long long kss, long long ksd, const void* ks, long long kcb,
+                                 long long kch, long long kcs, const void* vq, long long vsb,
+                                 long long vsh, long long vss, long long vsd, const void* vs,
+                                 long long vcb, long long vch, long long vcs, const void* pos,
+                                 void* out, int B, int H, int R, int S, int G, int Dh, int ablate,
+                                 float scale, void* stream) {
+  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
+                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
+  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
+                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
+  return launch_ablate<true>(q, kv, vv, pos, out, B, H, R, S, G, Dh, ablate, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // K4' (tt_flash_heads, int4; tt_flash_heads_i8, int8) and K13

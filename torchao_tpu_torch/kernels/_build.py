@@ -90,6 +90,10 @@ _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 _GEMV6 = [c_ptr] * 6 + [c_int] * 4 + [c_ptr]
 # x, wp, scale, zero, ws, out, M, K, N, g, ksplit, stream
 _INT4 = [c_ptr] * 6 + [c_int] * 5 + [c_ptr]
+# fp8 bytes, out, n, stream
+_CAST = [c_ptr, c_ptr, c_i64, c_ptr]
+# a, b, out, M, N, K, stream
+_DOT = [c_ptr] * 3 + [c_int] * 3 + [c_ptr]
 SIGNATURES = {
     # the zero pointer (4th) may be null: the zero-free form
     "tt_int4_gemv": _INT4,
@@ -97,13 +101,31 @@ SIGNATURES = {
     "tt_int4_group_partial": _INT4,
     "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
     "tt_int4_tiled": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+    # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
+    "tt_int4_gemv_eff4": [c_ptr] * 5 + [c_int] * 5 + [c_ptr],
+    "tt_int4_gemv_m1": [c_ptr] * 5 + [c_int] * 6 + [c_ptr],
+    # x, w, work, out, M, K, N, ksplit, stream
+    "tt_manual_dma_std": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
+    # x, w1, w2, out1, out2, K, N1, N2, blocks, stream
+    "tt_manual_dma_persistent": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+    "tt_fp8_cast_e4m3_bf16": _CAST,
+    "tt_fp8_cast_e4m3_f32": _CAST,
+    "tt_fp8_cast_e5m2_bf16": _CAST,
+    "tt_dot_bf16_e4m3": _DOT,
+    "tt_dot_s8_bf16": _DOT,
+    "tt_dot_bf16t_s8": _DOT,
     # x, w, out, R, xr_mask, blocks, stream
     "tt_ceiling_mono": [c_ptr] * 3 + [c_i64, c_int, c_int, c_ptr],
     "tt_kv_cache_write": [c_ptr] * 9 + [c_int] * 5 + [c_ptr],
     "tt_bdq_decode": _BDQ,
     "tt_bdq_decode_i8": _BDQ,
+    "tt_bdq_decode_stub": _BDQ,
+    "tt_bdq_decode_stub_i8": _BDQ,
     "tt_flash_prefill": _FLASH,
     "tt_flash_prefill_i8": _FLASH,
+    # _FLASH with the rung before the scale
+    "tt_flash_ablate": _FLASH[:-2] + [c_int] + _FLASH[-2:],
+    "tt_flash_ablate_i8": _FLASH[:-2] + [c_int] + _FLASH[-2:],
     "tt_flash_heads": _HEADS,
     "tt_flash_heads_i8": _HEADS,
     "tt_smajor_attention": _HEADS,

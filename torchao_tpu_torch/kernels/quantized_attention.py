@@ -20,6 +20,15 @@ Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
   time) and on the calls where the JAX package's fit rule folds
   (:func:`fold_heads_fits`), the head-folded kernel K4′ runs instead: all
   heads in one block, keys split over the grid, ``_kernel_heads``' numerics.
+- Two diagnostic arms, wrong math on purpose, reached only by the probes
+  (``probes/attn_ceiling_probe.py``, ``probes/attn_probe.py``) and never by
+  ``model.py``: K2's ``stub`` (:func:`quantized_kv_decode_attention_bdq`
+  with ``stub=True``: K2's grid and streams, raw-code dots, no softmax) and
+  K4's ablation ladder (:func:`quantized_kv_decode_attention` with
+  ``ablate=``: each rung drops one more stage of ``_kernel``). Their values
+  depend on the key block, so their plain versions take it (``bs``) and the
+  card runs them at its own tile only: 128 keys for the stub, 32 for the
+  rungs.
 - :func:`quantized_kv_attention_smajor` (K13): the same attention over a
   cache whose K and V are both S-major ``[B, S, Hkv·Db]`` with scales
   ``[B, S, Hkv]``, on K4′'s CUDA template (a key's heads are one contiguous
@@ -46,6 +55,10 @@ from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.utils import cdiv
 
 DECODE_CHUNK = 128  # keys per decode block (csrc DEC_CHUNK)
+FLASH_FK = 32       # keys per K4 tile (csrc FK)
+FLASH_FQ = 64       # query rows per K4 block (csrc FQ)
+ABLATE_RUNGS = ("none", "noexp", "nosoftmax", "nomaskexp", "dotsonly")  # csrc Ablate order
+NEG_INF = -1e30     # the JAX kernels' running-max start and mask value
 HEADS_FK = 16       # keys per head-folded tile (csrc HF_FK)
 HEADS_PAIRS = 64    # (head, query row) pairs per head-folded block (csrc HF_PAIRS)
 HEADS_MAX = 16      # kv heads per head-folded block, at most (csrc HF_HMAX)
@@ -63,6 +76,14 @@ def unpack_int4_kv(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 def _kv_values(p: torch.Tensor) -> torch.Tensor:
     """Integer KV values in f32: int8 as is, packed int4 unpacked."""
     return p.float() if p.dtype == torch.int8 else unpack_int4_kv(p)
+
+
+def _jax_block(bs: int, n: int) -> int:
+    """The JAX wrappers' block rule: ``min(bs, n)``, halved until it divides n."""
+    bs = min(bs, n)
+    while n % bs:
+        bs //= 2
+    return bs
 
 
 def _masked_attention(q, k, v, visible, scale):
@@ -95,12 +116,54 @@ def quantized_kv_decode_attention_bdq_plain(q, k_q, k_scale, v_q, v_scale, pos, 
     return _masked_attention(q, k, v, visible, scale)
 
 
+def quantized_kv_decode_attention_bdq_stub_plain(q, k_q, k_scale, v_q, v_scale, pos, *,
+                                                 bs=DECODE_CHUNK, layer_idx=None):
+    """Plain version of K2's stub arm (``_kernel_bdq``'s and ``_kernel_bdq_i4``'s
+    ``stub``, ``quantized_attention.py:569-590, 682-700``). Not attention: for
+    each block of ``bs`` keys (the JAX block rule) whose first key is <= pos,
+    every key of the block, unmasked, adds ``bf16(q·codes_K) · codes_V[:, :Dh]``
+    — int8 codes as int8, int4 the low nibbles (0..15) against q's first Dh/2
+    columns, codes_V the first Dh columns of the S-major V rows (head 0's, for
+    int4 heads 0 and 1) — and every output gets ``k_scale[0, s0] +
+    v_scale[0, s0]`` at the block's first key s0, added in float32: JAX
+    writes that sum in bf16, but XLA computes it in float32 and drops the
+    rounding (the JAX stub run on the CPU gives the unrounded sum)."""
+    B, H, G, Dh = q.shape
+    if layer_idx is not None:
+        k_q, k_scale, v_q, v_scale = (a[layer_idx] for a in (k_q, k_scale, v_q, v_scale))
+    S = v_q.shape[1]
+    int8 = k_q.dtype == torch.int8
+    Db = Dh if int8 else Dh // 2
+    bs = _jax_block(bs, S)
+    codes = (lambda t: t.float()) if int8 else (lambda t: (t & 0xF).float())
+    raw = torch.einsum("bhgd,bhds->bhgs", q[..., :Db].float(), codes(k_q.reshape(B, H, Db, S)))
+    starts = torch.arange(0, S, bs, device=q.device)
+    live = starts[None, :] <= pos.view(B, 1).long()                          # [B, blocks]
+    p = raw.to(torch.bfloat16).float() * live.repeat_interleave(bs, 1)[:, None, None, :]
+    acc = torch.einsum("bhgs,bsd->bhgd", p, codes(v_q[:, :, :Dh]))
+    first = k_scale[:, 0, starts].float() + v_scale[:, 0, starts].float()
+    return acc + (first * live).sum(-1).view(B, 1, 1, 1)
+
+
 def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
                                       pos: torch.Tensor, *, scale: Optional[float] = None,
-                                      layer_idx: Optional[int] = None) -> torch.Tensor:
+                                      bs: int = 1024, interpret: bool = False,
+                                      layer_idx: Optional[int] = None,
+                                      stub: bool = False) -> torch.Tensor:
     """``q [B, Hkv, G, Dh]`` against the packed-int4 (uint8) or int8
-    split-flat cache; returns ``[B, Hkv, G, Dh]`` fp32."""
+    split-flat cache; returns ``[B, Hkv, G, Dh]`` fp32.
+
+    ``bs`` and ``interpret`` are the JAX package's block size and interpret
+    switch, accepted for its signature: attention does not depend on them and
+    the CUDA kernel tiles on its own. ``stub=True`` is K2's stub arm (the
+    attention ceiling probe's, wrong math: see
+    :func:`quantized_kv_decode_attention_bdq_stub_plain`), whose value does
+    depend on ``bs``: on the card it runs at the kernel's chunk, so there
+    ``bs`` must be ``DECODE_CHUNK`` and S a multiple of it."""
     if q.device.type == "cpu":
+        if stub:
+            return quantized_kv_decode_attention_bdq_stub_plain(
+                q, k_q, k_scale, v_q, v_scale, pos, bs=bs, layer_idx=layer_idx)
         return quantized_kv_decode_attention_bdq_plain(
             q, k_q, k_scale, v_q, v_scale, pos, scale=scale, layer_idx=layer_idx
         )
@@ -134,6 +197,9 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
     for t in (q, k_q, k_scale, v_q, v_scale, pos):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("quantized_kv_decode_attention_bdq: tensors must be contiguous, one device")
+    if stub and not (bs == DECODE_CHUNK and S % DECODE_CHUNK == 0 and Dh <= 128 and X >= Dh):
+        raise ValueError(f"quantized_kv_decode_attention_bdq(stub=True) on the card: bs must be "
+                         f"{DECODE_CHUNK} (its chunk) and divide S, Dh <= 128, Hkv * Db >= Dh")
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     nsplit = cdiv(S, DECODE_CHUNK)
@@ -141,13 +207,15 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
     ws_l = torch.empty_like(ws_m)
     ws_acc = torch.empty((B * H * nsplit * G * Dh,), dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, G, Dh), dtype=torch.float32, device=q.device)
+    entry = "tt_bdq_decode" + ("_stub" if stub else "") + ("_i8" if int8 else "")
     _build.library().launch(
-        "tt_bdq_decode_i8" if int8 else "tt_bdq_decode", q.data_ptr(), k_q.data_ptr(),
+        entry, q.data_ptr(), k_q.data_ptr(),
         k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), ws_m.data_ptr(),
         ws_l.data_ptr(), ws_acc.data_ptr(), out.data_ptr(), B, H, G, Dh, S, nsplit,
         float(scale), _build.stream_handle(q.device),
     )
-    _build.LAUNCHES["quantized_kv_decode_attention_bdq" + ("_int8" if int8 else "")] += 1
+    name = "quantized_kv_decode_attention_bdq" + ("_stub" if stub else "")
+    _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
     return out
 
 
@@ -170,6 +238,81 @@ def quantized_kv_decode_attention_plain(q, k_q, k_scale, v_q, v_scale, pos, *,
     visible = (torch.arange(S, device=q.device)[None, None, None, :]
                <= pos.view(B, 1, 1, 1) + t[None, None, :, None])
     return _masked_attention(q, k, v, visible, scale)
+
+
+def quantized_kv_decode_attention_ablate_plain(q, k_q, k_scale, v_q, v_scale, pos, *, ablate,
+                                               bs=FLASH_FK, bq=None, scale=None,
+                                               rows_per_t=None, parts=False):
+    """Plain version of ``_kernel``'s ablation ladder (``quantized_attention.py:46-169``,
+    scripts/attn_probe.py), block by block as the JAX kernel walks them:
+    ``bs`` keys and ``bq`` query rows by the JAX block rule; a key block runs
+    for the rows of a query block that can see its first key. Numerics are
+    ``_kernel``'s: int8 scores ``(q·codes)·k_scale·scale`` and P·V as
+    ``bf16(p·v_scale)·codes``; int4 K and V dequantized to bf16 and P·V as
+    ``bf16(p)·v``; the running max starts at -1e30 and masks with it.
+
+    - ``none``: the kernel itself; ``noexp``: exp → identity (``p = s −
+      m_new``, ``alpha = m_old − m_new``); ``nosoftmax``: ``p = s``, alpha 1,
+      masked scores 0; ``nomaskexp``: also no mask; ``dotsonly``: ``acc +=
+      bf16(q·codes_K)·codes_V``, no scale, l stays 0.
+    - The output is ``acc / max(l, 1e-30)`` (a NaN kept); ``parts=True``
+      returns ``(acc, l)`` before that division, where l near 0 amplifies
+      rounding.
+    - JAX's int4 ``dotsonly`` does not trace (its dot contracts Dh with the
+      Dh/2 packed bytes); here int4 ``dotsonly`` dots the unpacked codes
+      (nibble − 8)."""
+    if ablate not in ABLATE_RUNGS:
+        raise ValueError(f"unknown ablate {ablate!r}; one of {ABLATE_RUNGS}")
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    G = R if rows_per_t is None else rows_per_t
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    bs, bq = _jax_block(bs, S), _jax_block(R if bq is None else bq, R)
+    int8 = k_q.dtype == torch.int8
+    bf = lambda t: t.to(torch.bfloat16).float()
+    if int8 or ablate == "dotsonly":
+        k, v = _kv_values(k_q), _kv_values(v_q)
+    else:
+        k, v = bf(_kv_values(k_q) * k_scale.float()), bf(_kv_values(v_q) * v_scale.float())
+    ks, vs = k_scale.float()[..., 0], v_scale.float()[..., 0]
+    dev = q.device
+    rows = torch.arange(R, device=dev)
+    last_t = ((rows // bq) * bq + bq - 1) // G      # the last t of each row's query block
+    row_t = (pos.view(B, 1, 1, 1).long() + (rows // G).view(1, 1, R, 1))
+    qf = q.float()
+    m = torch.full((B, H, R), NEG_INF, device=dev)
+    l = torch.zeros((B, H, R), device=dev)
+    acc = torch.zeros((B, H, R, Dh), device=dev)
+    for s0 in range(0, S, bs):
+        sl = slice(s0, s0 + bs)
+        live = (s0 <= pos.view(B, 1).long() + last_t.view(1, R))[:, None, :]   # [B, 1, R]
+        raw = torch.einsum("bhrd,bhsd->bhrs", qf, k[:, :, sl])
+        if ablate == "dotsonly":
+            pv = torch.einsum("bhrs,bhsd->bhrd", bf(raw), v[:, :, sl])
+            acc = torch.where(live[..., None], acc + pv, acc)
+            continue
+        scores = raw * ks[:, :, None, sl] * scale if int8 else raw * scale
+        if ablate != "nomaskexp":
+            idx = torch.arange(s0, s0 + scores.shape[-1], device=dev).view(1, 1, 1, -1)
+            scores = torch.where(idx <= row_t, scores,
+                                 torch.tensor(0.0 if ablate == "nosoftmax" else NEG_INF, device=dev))
+        if ablate in ("nosoftmax", "nomaskexp"):
+            p, alpha, m_new = scores, torch.ones_like(m), m
+        else:
+            m_new = torch.maximum(m, scores.amax(-1))
+            if ablate == "noexp":
+                p, alpha = scores - m_new[..., None], m - m_new
+            else:
+                p, alpha = torch.exp(scores - m_new[..., None]), torch.exp(m - m_new)
+        w = bf(p * vs[:, :, None, sl]) if int8 else bf(p)
+        pv = torch.einsum("bhrs,bhsd->bhrd", w, v[:, :, sl])
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l * alpha + p.sum(-1), l)
+        acc = torch.where(live[..., None], acc * alpha[..., None] + pv, acc)
+    if parts:
+        return acc, l
+    return acc / torch.maximum(l, torch.tensor(1e-30, device=dev))[..., None]
 
 
 def _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t, dh_ok=(64, 128)):
@@ -205,7 +348,8 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
                                   pos: torch.Tensor, *, scale: Optional[float] = None,
                                   rows_per_t: Optional[int] = None,
                                   fold_heads: Optional[bool] = None, bs: int = 1024,
-                                  bq: Optional[int] = None) -> torch.Tensor:
+                                  bq: Optional[int] = None, interpret: bool = False,
+                                  ablate: str = "none") -> torch.Tensor:
     """``q [B, Hkv, R, Dh]`` (R = T·G, t-major) against a head-major
     packed-int4 ``[B, Hkv, S, Dh/2]`` (uint8) or int8 ``[B, Hkv, S, Dh]``
     cache + scales ``[B, Hkv, S, 1]`` (any strides); returns
@@ -215,7 +359,17 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
     time, as the JAX package does; a fold then runs K4′ only where
     :func:`fold_heads_fits` says the JAX package folds (``bs`` and ``bq`` are
     its block sizes and enter only that rule: the CUDA kernels tile on their
-    own). On a CPU tensor the plain version runs, fold or not."""
+    own; ``interpret`` is accepted for the JAX signature). On a CPU tensor
+    the plain version runs, fold or not.
+
+    ``ablate`` other than ``"none"`` runs a rung of K4's ablation ladder
+    (scripts/attn_probe.py; wrong math, see
+    :func:`quantized_kv_decode_attention_ablate_plain`) per head, never
+    folded, as the JAX package does. A rung's value depends on the key block:
+    on the card it runs at the kernel's tile, so there ``bs`` must be
+    ``FLASH_FK``, S a multiple of it and R at most ``FLASH_FQ``."""
+    if ablate != "none":
+        return _ablate(q, k_q, k_scale, v_q, v_scale, pos, ablate, scale, rows_per_t, bs, bq)
     if q.device.type == "cpu":
         return quantized_kv_decode_attention_plain(
             q, k_q, k_scale, v_q, v_scale, pos, scale=scale, rows_per_t=rows_per_t
@@ -245,6 +399,37 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
     return out
 
 
+def _ablate(q, k_q, k_scale, v_q, v_scale, pos, ablate, scale, rows_per_t, bs, bq):
+    """One rung of K4's ablation ladder: the plain version on a CPU tensor,
+    ``tt_flash_ablate[_i8]`` on a CUDA one."""
+    if ablate not in ABLATE_RUNGS:
+        raise ValueError(f"unknown ablate {ablate!r}; one of {ABLATE_RUNGS}")
+    if q.device.type == "cpu":
+        return quantized_kv_decode_attention_ablate_plain(
+            q, k_q, k_scale, v_q, v_scale, pos, ablate=ablate, bs=bs, bq=bq, scale=scale,
+            rows_per_t=rows_per_t)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    name = f"quantized_kv_decode_attention_{ablate}"
+    int8, G = _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t)
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    if bs != FLASH_FK or S % FLASH_FK or R > FLASH_FQ or (bq is not None and bq < R):
+        raise ValueError(f"{name} on the card: bs must be {FLASH_FK} (its tile) and divide S, "
+                         f"and R <= {FLASH_FQ} rows in one query block")
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    out = torch.empty((B, H, R, Dh), dtype=torch.float32, device=q.device)
+    _build.library().launch(
+        "tt_flash_ablate_i8" if int8 else "tt_flash_ablate", q.data_ptr(), k_q.data_ptr(),
+        *k_q.stride(), k_scale.data_ptr(), *k_scale.stride()[:3], v_q.data_ptr(), *v_q.stride(),
+        v_scale.data_ptr(), *v_scale.stride()[:3], pos.data_ptr(), out.data_ptr(), B, H, R, S,
+        G, Dh, ABLATE_RUNGS.index(ablate), float(scale), _build.stream_handle(q.device),
+    )
+    _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
+    return out
+
+
 # ---------------------------------------------------------------- K4′ --
 
 
@@ -260,12 +445,7 @@ def fold_heads_fits(Hkv: int, R: int, S: int, Dh: int, *, bs: int = 1024,
     of the CUDA kernel K4′: it makes K4′ run on exactly the calls on which the
     TPU runs ``_kernel_heads``. At Llama-3-8B (Hkv = 8, Dh = 128) it folds the
     decode step (R = 4) and not the 128-token prefill (R = bq = 512: 14.16 MB)."""
-    bs = min(bs, S)
-    while S % bs:
-        bs //= 2
-    bq = R if bq is None else min(bq, R)
-    while R % bq:
-        bq //= 2
+    bs, bq = _jax_block(bs, S), _jax_block(R if bq is None else bq, R)
 
     def fold_bytes(bs_c):
         return Hkv * bs_c * Dh * 6 + Hkv * bq * bs_c * 8 + Hkv * bq * Dh * 8

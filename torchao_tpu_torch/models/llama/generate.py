@@ -79,17 +79,42 @@ def generate(model: Transformer, params, prompt: torch.Tensor, max_new_tokens: i
     return torch.cat([prompt, first[:, None], rest], dim=1)
 
 
+def decode_result(model_bytes: int, batch_size: int, num_tokens: int, decode_s, ttft_s,
+                  tokens=None) -> Dict[str, Any]:
+    """:func:`benchmark_decode`'s result from the timed runs' decode and
+    prefill seconds, with the JAX package's keys and definitions
+    (``torchao_tpu/models/llama/generate.py::benchmark_decode``): the fastest
+    decode gives ``tokens_per_s``, ``time_s`` and the model-weight bandwidth
+    ``mem_bw_GBps`` (model bytes × tokens / time); ``ttft_p50_ms`` is the
+    median prefill. Also ``decode_s`` (= ``time_s``), ``ttft_ms`` (=
+    ``ttft_p50_ms``) and the last run's ``tokens``."""
+    t = min(decode_s)
+    ttft_ms = sorted(ttft_s)[len(ttft_s) // 2] * 1e3
+    return {
+        "tokens_per_s": num_tokens * batch_size / t,
+        "mem_bw_GBps": model_bytes * num_tokens / t / 1e9,
+        "model_size_GB": model_bytes / 1e9,
+        "time_s": t,
+        "ttft_p50_ms": ttft_ms,
+        "decode_s": t,
+        "ttft_ms": ttft_ms,
+        "tokens": tokens,
+    }
+
+
 def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: int = 1,
                      prompt_len: int = 128, num_tokens: int = 128,
                      kv_cache_quantization=False, temperature: float = 0.6,
-                     top_k: Optional[int] = 200, warmup: int = 1, iters: int = 1,
-                     on_run=None) -> Dict[str, float]:
+                     top_k: Optional[int] = 200, warmup: int = 1, iters: int = 3,
+                     on_run=None) -> Dict[str, Any]:
     """Decode tok/s and time to first token on the card: each run sets up a
     cache, prefills ``prompt_len`` tokens (timed as ttft), then decodes
     ``num_tokens`` (timed as decode), with the KV cache that
-    ``kv_cache_quantization`` names. Only CUDA is measured: a time taken
-    on the CPU is not a device number. ``on_run(i)`` is called before run
-    ``i`` (warm-up runs first), e.g. to reset launch counts."""
+    ``kv_cache_quantization`` names; ``warmup`` runs, then ``iters`` timed
+    ones (the JAX package's defaults). Returns :func:`decode_result`. Only
+    CUDA is measured: a time taken on the CPU is not a device number.
+    ``on_run(i)`` is called before run ``i`` (warm-up runs first), e.g. to
+    reset launch counts."""
     if model.device.type != "cuda":
         raise RuntimeError("benchmark_decode measures the CUDA device only")
     gen = torch.Generator(device=model.device)
@@ -114,11 +139,5 @@ def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: 
         if i >= warmup:
             ttfts.append(t1 - t0)
             decodes.append(t2 - t1)
-    t = min(decodes)
-    return {
-        "tokens_per_s": num_tokens * batch_size / t,
-        "decode_s": t,
-        "ttft_ms": sorted(ttfts)[len(ttfts) // 2] * 1e3,
-        "model_size_GB": get_model_size_in_bytes(params) / 1e9,
-        "tokens": tokens,
-    }
+    return decode_result(get_model_size_in_bytes(params), batch_size, num_tokens, decodes, ttfts,
+                         tokens)

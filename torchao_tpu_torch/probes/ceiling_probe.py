@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 
 import torch
@@ -44,7 +43,13 @@ from torchao_tpu_torch.kernels.int4_matmul import (
     int4_dq_matmul_stub,
     int4_dq_matmul_stub_plain,
 )
-from torchao_tpu_torch.utils import compute_error
+from torchao_tpu_torch.probes._common import (
+    HBM_BYTES_PER_S,
+    card,
+    check,
+    elapsed_ms,
+    graph_ms_per_step,
+)
 
 G = 32
 L = 32
@@ -53,7 +58,6 @@ SHAPES = {"wqkv": (4096, 6144, True), "wo": (4096, 4096, True), "w13": (4096, 28
           "w2": (14336, 4096, True), "head": (4096, 128256, False)}
 MONO_C = 2048   # columns of the mono stream (csrc MONO_C)
 MONO_XR = 1024  # activation values it cycles through (a power of two)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 
 def ceiling_mono_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -131,43 +135,7 @@ def step(x, ops, call, layers=L):
     return x * (1.0 + logits[:, :1] * 1e-30)
 
 
-def _elapsed_ms(fn, n=1):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def graph_ms_per_step(fn, x0, steps, reps):
-    """Median over ``reps`` of the device time per replay of ``fn(x0)``
-    captured in a CUDA graph, ``steps`` replays per timing."""
-    fn(x0)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(x0)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn(x0)
-    graph.replay()
-    return statistics.median(_elapsed_ms(graph.replay, steps) for _ in range(reps))
-
-
-def _check(name, got, want, tol_db):
-    torch.cuda.synchronize()
-    sqnr = compute_error(want, got)
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"  {name}: max_abs_err={err:.4g} sqnr={sqnr:.1f} dB (>= {tol_db})", flush=True)
-    if not sqnr >= tol_db:
-        raise AssertionError(f"{name}: the kernel disagrees with its plain version")
-    return err
-
-
-def run_probe(steps=32, reps=3, seed=0, tol_db=35.0):
+def run_probe(steps=32, reps=3, seed=0):
     """Check and time the three arms on the card; returns their numbers."""
     if not torch.cuda.is_available():
         raise RuntimeError("the ceiling probe measures a CUDA card only")
@@ -180,9 +148,9 @@ def run_probe(steps=32, reps=3, seed=0, tol_db=35.0):
         for name, (K, N, stacked) in SHAPES.items():  # layer 0 and the head, M = 1
             x = (torch.randn((1, K), generator=gen, device="cuda") * 0.1).bfloat16()
             args = (x, *ops[name], 0 if stacked else None)
-            err = max(err, _check(f"{arm} {name} K={K} N={N}", call(*args), plain(*args), tol_db))
+            err = max(err, check(f"{arm} {name} K={K} N={N}", call(*args), plain(*args)))
         ms = graph_ms_per_step(lambda x: step(x, ops, call), x0, steps, reps)
-        plain_ms = _elapsed_ms(lambda: step(x0, ops, plain))
+        plain_ms = elapsed_ms(lambda: step(x0, ops, plain))
         out[arm] = {"ms_per_step": ms, "GBps": nbytes / ms / 1e6, "plain_ms": plain_ms,
                     "max_abs_err": err}
         print(f"  {arm}: {ms:.4f} ms per step, {out[arm]['GBps']:.1f} GB/s; plain version "
@@ -194,11 +162,10 @@ def run_probe(steps=32, reps=3, seed=0, tol_db=35.0):
     rows = nbytes // (MONO_C * MONO_XR) * MONO_XR
     w = torch.randint(0, 256, (rows, MONO_C), generator=gen, dtype=torch.uint8, device="cuda")
     part = w[: 32 * MONO_XR]  # 64 MB against the plain version
-    err = _check("mono (64 MB of random bytes)", ceiling_mono(x, part), ceiling_mono_plain(x, part),
-                 tol_db)
+    err = check("mono (64 MB of random bytes)", ceiling_mono(x, part), ceiling_mono_plain(x, part))
     ceiling_mono(x, w)
-    ms = statistics.median(_elapsed_ms(lambda: ceiling_mono(x, w), steps) for _ in range(reps))
-    plain_ms = _elapsed_ms(lambda: ceiling_mono_plain(x, w))
+    ms = statistics.median(elapsed_ms(lambda: ceiling_mono(x, w), steps) for _ in range(reps))
+    plain_ms = elapsed_ms(lambda: ceiling_mono_plain(x, w))
     out["mono"] = {"ms_per_step": ms, "GBps": w.numel() / ms / 1e6, "plain_ms": plain_ms,
                    "max_abs_err": err, "bytes": w.numel()}
     print(f"  mono: {ms:.4f} ms per {w.numel() / 1e9:.3f} GB, {out['mono']['GBps']:.1f} GB/s; "
@@ -219,13 +186,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ceiling_probe: no CUDA device is available", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], check=True, capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    name = card()
+    print(name, flush=True)
     res = run_probe(a.steps, a.reps)
     print(json.dumps({"probe": "int4_decode_ceiling", "device": torch.cuda.get_device_name(0),
-                      "card": card, **res}))
+                      "card": name, **res}))
     return 0
 
 
