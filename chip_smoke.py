@@ -11,7 +11,9 @@ Phases (each fails loudly; nothing is caught):
    ``torch.Generator`` on the card, quantized through the port's quantize
    handler, leaf by leaf; each section frees its model before the next):
 
-   - int4 weight-only g=32 with the packed-int4 split-flat KV cache;
+   - int4 weight-only g=32 with the packed-int4 split-flat KV cache (and
+     one ``int4_route_threshold`` line: K5 at M = 4096 on w13 and w2 beside
+     dequantize + ``torch.matmul``, the JAX package's route at that M);
    - int8 weight-only with the int8 split-flat KV cache;
    - int8 dynamic activations x int8 weights with the bf16 KV cache;
    - float8 weight-only with the bf16 KV cache;
@@ -1011,8 +1013,34 @@ def _want_matmul_only(name, per_forward):
     return lambda L: {f"{name}_gemv": per_forward(L) * DECODE, f"{name}_tiled": per_forward(L)}
 
 
+ROUTE_M = 4096  # the JAX package's int4 XLA-route threshold (torchao_tpu/ops/qlinear.py:112-138)
+
+
+def int4_route_threshold(params, gen):
+    """K5 at M = ROUTE_M on layer 0's w13 and w2, held against its plain
+    version, timed beside the JAX package's route there (dequantize, then a
+    bf16 ``torch.matmul``) and the matmul alone; one line of output."""
+    res = {}
+    for wname, w, l in _weights(params)[2:4]:
+        N, K = w.shape[-2:]
+        x = torch.randn((ROUTE_M, K), generator=gen, device="cuda").bfloat16()
+        kernel, plain, _, flops = _int4_call(x, w, l)
+        err = compare(f"int4_dq_matmul_tiled {wname} M={ROUTE_M} N={N} K={K}", kernel(), plain())
+        wl = w.take_layer(l)
+        wd = wl.dequantize(torch.bfloat16).T.contiguous()
+        res[wname] = {"N": N, "K": K, "max_abs_err": err, "k5_ms": time_ms(kernel),
+                      "dequantize_matmul_ms": time_ms(
+                          lambda: torch.matmul(x, wl.dequantize(torch.bfloat16).T)),
+                      "matmul_ms": time_ms(lambda: torch.matmul(x, wd)),
+                      "bound_ms": bound(K // 2 * N + 2 * (K // GROUP) * N * 2 + ROUTE_M * (K + N) * 2,
+                                        flops)[0]}
+        del x, wd
+    log(json.dumps({"int4_route_threshold": {"M": ROUTE_M, **res}}))
+
+
 def _int4_kernels(params, args, gen):
     tallies = check_int4(params, args, gen)
+    int4_route_threshold(params, gen)
     tallies += [check_kv_write(args, gen), check_decode_attention(args, gen),
                 check_prefill_attention(args, gen)]
     return tallies

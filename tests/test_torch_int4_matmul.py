@@ -181,3 +181,81 @@ def test_plain_8da4w_weight_quantizes_activations_on_the_cpu():
     want = np.asarray(jops.linear(jnp.asarray(x), jw))
     np.testing.assert_allclose(linear(torch.from_numpy(x), tw).numpy(), want, rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------- K5's shapes and K split --
+
+LLAMA3_8B_SHAPES = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (128256, 4096)]
+
+
+def _meta_args(M, K, N, g, stacked, zero=True):
+    from torchao_tpu_torch.kernels.int4_matmul import _check_cuda
+
+    m = torch.device("meta")
+    lead = (2,) if stacked else ()
+    x = torch.empty((M, K), dtype=torch.bfloat16, device=m)
+    wp = torch.empty((*lead, K // 2, N), dtype=torch.uint8, device=m)
+    s = torch.empty((*lead, K // g, N), dtype=torch.bfloat16, device=m)
+    z = torch.empty_like(s) if zero else None
+    return lambda: _check_cuda(x, wp, s, z, g, 8.0, 1 if stacked else None, True)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("N,K", LLAMA3_8B_SHAPES)
+def test_tiled_wrapper_takes_every_llama3_8b_shape(N, K, g, stacked):
+    """K5's wrapper checks pass at M = 128 on each Llama-3-8B linear (zero
+    and zero-free), and its K split fills one wave of 2 blocks per SM on an
+    H100's 132 SMs where the output tiles alone would not."""
+    from torchao_tpu_torch.kernels.int4_matmul import TILED_BLOCKS_PER_SM, tiled_ksplit
+
+    for zero in (True, False):
+        assert _meta_args(128, K, N, g, stacked, zero)() == (128, K, N)
+    tiles = -(-N // 128)
+    ks = tiled_ksplit(128, K, N, 132)
+    assert 1 <= ks <= K // 2 // 16 and ks * tiles <= max(tiles, TILED_BLOCKS_PER_SM * 132)
+    if tiles < 132:
+        assert ks * tiles >= 132
+
+
+# every shape the SIMT body took: K/2 % 16 == 0, g % 8 == 0, K/2 % g == 0,
+# N % 16 == 0, any M > 32 (K/2 = 48 and 80: the 32-row main tile does not divide)
+@pytest.mark.parametrize("M,K,N,g", [(33, 96, 16, 8), (100, 96, 144, 16), (257, 160, 48, 16),
+                                     (4096, 160, 4112, 8), (64, 128, 16, 64)])
+def test_tiled_wrapper_takes_the_simt_body_shapes(M, K, N, g):
+    from torchao_tpu_torch.kernels.int4_matmul import tiled_ksplit
+
+    assert _meta_args(M, K, N, g, True)() == (M, K, N)
+    assert _meta_args(M, K, N, g, False, zero=False)() == (M, K, N)
+    assert 1 <= tiled_ksplit(M, K, N, 132) <= K // 2 // 16
+
+
+@pytest.mark.parametrize("K,N,g", [(40, 16, 4), (72, 16, 36), (96, 24, 16), (96, 16, 12),
+                                   (80, 16, 16)])
+def test_tiled_wrapper_raises_on_shapes_it_never_took(K, N, g):
+    """K/2 not a multiple of 16 (40, 72, 80 → 20, 36, 40), g not of 8, N
+    not of 16: refused before any launch, as the SIMT body's wrapper did."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        _meta_args(128, K, N, g, False)()
+
+
+def test_tiled_split_walks_every_packed_row_once():
+    """The K5 kernel's walk (csrc int4_tiled_kernel), written out: split z
+    takes units [z·U/ks, (z+1)·U/ks) of 16 packed rows, two per step and a
+    16-row step where an odd count ends; every row is read exactly once."""
+    from torchao_tpu_torch.kernels.int4_matmul import TILED_BKP, TILED_KP, tiled_ksplit
+
+    for Kp in (48, 80, 384, 2048, 7168):
+        for ks in sorted({1, 2, 3, 5, 8, tiled_ksplit(128, 2 * Kp, 4096, 132)}):
+            U = Kp // TILED_KP
+            if ks > U:
+                continue
+            seen = np.zeros(Kp, int)
+            for z in range(ks):
+                u0, u1 = z * U // ks, (z + 1) * U // ks
+                for st in range((u1 - u0 + 1) // 2):
+                    kp0 = (u0 + 2 * st) * TILED_KP
+                    rows = min(TILED_BKP, (u1 - u0 - 2 * st) * TILED_KP)
+                    assert rows in (TILED_KP, TILED_BKP)
+                    seen[kp0:kp0 + rows] += 1
+            assert (seen == 1).all(), (Kp, ks)

@@ -156,6 +156,44 @@ def test_int4_kernel_matches_plain(cuda, M):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+# K5 (M > 32): N = 4096 + 16 leaves a ragged column tile; at M <= 128 the
+# wrapper splits K 8 ways over 24 units of 16 packed rows (3 each: every
+# split ends on a 16-row step)
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [33, 100, 128, 257])
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
+def test_tiled_int4_kernel_matches_plain(cuda, M, g, zero, stacked):
+    gen = torch.Generator(device=cuda).manual_seed(M + g + zero + stacked)
+    L, K, N = 2, 768, 4096 + 16
+    wp, scale, z = _int4_weight(gen, L, K, N, g, cuda)
+    args = (wp, scale, z if zero else None) if stacked else (
+        wp[1].clone(), scale[1].clone(), z[1].clone() if zero else None)
+    kw = dict(group_size=g, layer_idx=1 if stacked else None, xored=True)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    name = "int4_dq_matmul" + ("" if zero else "_zero_free") + "_tiled"
+    before = _build.LAUNCHES[name]
+    got = int4_dq_matmul(x, *args, **kw)
+    assert _build.LAUNCHES[name] == before + 1
+    _sqnr_ok(got, int4_dq_matmul_plain(x, *args, **kw), 35.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,g", [(96, 8), (96, 16), (160, 16), (160, 8)])
+def test_tiled_int4_kernel_partial_k_tile(cuda, K, g):
+    """K/2 = 48 or 80: the 32-row main tile does not divide it, so the last
+    step of each split takes 16 rows; N = 144 is not a multiple of 128."""
+    gen = torch.Generator(device=cuda).manual_seed(K + g)
+    M, N = 100, 144
+    wp, scale, z = _int4_weight(gen, 1, K, N, g, cuda)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    for zero in (z, None):
+        got = int4_dq_matmul(x, wp, scale, zero, group_size=g, layer_idx=0, xored=True)
+        _sqnr_ok(got, int4_dq_matmul_plain(x, wp, scale, zero, group_size=g, layer_idx=0,
+                                           xored=True), 35.0)
+
+
 def _split_flat_cache(gen, L, B, H, Dh, S, dev):
     X = H * Dh // 2
     u8 = lambda *s: torch.randint(0, 256, s, generator=gen, dtype=torch.uint8, device=dev)
@@ -177,20 +215,37 @@ def test_decode_attention_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
 @pytest.mark.parametrize("Dh", [64, 128])
-def test_prefill_attention_kernel_matches_plain(cuda, Dh):
-    gen = torch.Generator(device=cuda).manual_seed(Dh)
-    B, H, G, T, S = 1, 2, 4, 40, 96
-    kq, ks, vq, vs = (a[0] for a in _split_flat_cache(gen, 1, B, H, Dh, S, cuda))
-    # the head-major views that the model hands over (D-major K, S-major V)
-    views = (kq.reshape(B, H, Dh // 2, S).transpose(2, 3), ks[..., None],
-             vq.reshape(B, S, H, Dh // 2).transpose(1, 2), vs[..., None])
+@pytest.mark.parametrize("T", [1, 40, 128])
+@pytest.mark.parametrize("S", [256, 200, 198])
+@pytest.mark.parametrize("layout", ["split_flat", "head_major"])
+def test_prefill_attention_kernel_matches_plain(cuda, int8, Dh, T, S, layout):
+    """K4 against its plain version at >= 35 dB: G = 4, B = 2 with its own
+    pos per slot, over the split-flat cache's views (D-major K: 16-byte
+    copies at S = 256, 8 at 200, byte loads at 198) or a head-major cache.
+    T = 1 and 40 take the key split (B·H·ceil(R/32) < 128), T = 128 not."""
+    gen = torch.Generator(device=cuda).manual_seed(Dh + T + S + int8)
+    B, H, G = 2, 4, 4
+    if layout == "head_major":
+        views = _head_major_cache(gen, B, H, S, Dh, int8, cuda)
+    else:
+        Db = Dh if int8 else Dh // 2
+        codes = lambda *shape: (
+            torch.randint(-127, 128, shape, generator=gen, device=cuda).to(torch.int8) if int8
+            else torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8, device=cuda))
+        sc = lambda: (torch.rand((B, H, S), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
+        kq, vq = codes(B, H * Db, S), codes(B, S, H * Db)
+        # the head-major views that the model hands over (D-major K, S-major V)
+        views = (kq.reshape(B, H, Db, S).transpose(2, 3), sc()[..., None],
+                 vq.reshape(B, S, H, Db).transpose(1, 2), sc()[..., None])
     q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
-    pos = torch.tensor([7], dtype=torch.int32, device=cuda)
-    got = quantized_kv_decode_attention(q, *views, pos, rows_per_t=G)
-    want = quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    pos = torch.tensor([S - T, 5], dtype=torch.int32, device=cuda)
+    name = "quantized_kv_decode_attention" + ("_int8" if int8 else "")
+    before = _build.LAUNCHES[name]
+    got = quantized_kv_decode_attention(q, *views, pos, rows_per_t=G, fold_heads=False)
+    assert _build.LAUNCHES[name] == before + 1
+    _sqnr_ok(got, quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G), 35.0)
 
 
 @pytest.mark.cuda

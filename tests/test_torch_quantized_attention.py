@@ -19,6 +19,7 @@ from torchao_tpu.kernels.quantized_attention import (
     unpack_int4_kv as j_unpack,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
+    _kv_values,
     fold_heads_fits,
     quantized_kv_decode_attention_ablate_plain,
     quantized_kv_attention_smajor,
@@ -433,3 +434,85 @@ def test_int4_dotsonly_is_the_port_s_definition():
     raw = torch.einsum("bhrd,bhsd->bhrs", tq.double(), k)
     want = torch.einsum("bhrs,bhsd->bhrd", raw.to(torch.bfloat16).double(), v) / 1e-30
     assert sqnr_db(want, got) >= 60
+
+
+# ------------------------------------------------------ K4's grid and split --
+
+
+@pytest.mark.parametrize("B,H,R,S", [(1, 8, 512, 256), (1, 8, 4, 256), (1, 8, 4, 8192),
+                                     (2, 8, 160, 256), (1, 8, 4, 200)])
+def test_flash_plan_fills_the_card(B, H, R, S):
+    """K4's grid is at least 128 blocks at the main path's prefill (B = 1,
+    Hkv = 8, R = 512, S = 256: 16 query blocks a head, one split) and at
+    head-major decode (R = 4: 8 blocks, so the keys split 16 ways); splits
+    are whole multiples of 16 keys, cover S and none is empty (S = 200 has
+    13 such units: one split each)."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        FLASH_FQ,
+        FLASH_SPLIT,
+        flash_plan,
+    )
+
+    nq, nsplit, kps = flash_plan(B, H, R, S)
+    assert nq == -(-R // FLASH_FQ)
+    assert B * H * nq * nsplit >= min(128, B * H * nq * -(-S // FLASH_SPLIT))
+    assert kps % FLASH_SPLIT == 0 and nsplit * kps >= S > (nsplit - 1) * kps
+    if (B, H, R, S) == (1, 8, 512, 256):
+        assert (nq, nsplit) == (16, 1)
+    if (R, S) == (4, 256):
+        assert (nsplit, kps) == (16, 16)
+
+
+def _split_plain(q, k_q, k_scale, v_q, v_scale, pos, *, kps, rows_per_t):
+    """K4's split arithmetic in plain PyTorch: each split of ``kps`` keys
+    gives its row max ``m``, sum ``l = Σ exp(s − m)`` and ``acc = Σ exp(s −
+    m)·v`` over its visible keys; the combine (csrc ``bdq_combine_kernel``)
+    weighs them by ``exp(m − max m)`` and divides (0 where no key is
+    visible). In float32 it is the unsplit softmax up to the order of sums."""
+    B, H, R, Dh = q.shape
+    S = k_q.shape[2]
+    k = (_kv_values(k_q) * k_scale.float()).to(q.dtype)
+    v = (_kv_values(v_q) * v_scale.float()).to(q.dtype)
+    scores = torch.einsum("bhrd,bhsd->bhrs", q, k) / Dh ** 0.5
+    t = torch.arange(R) // rows_per_t
+    visible = torch.arange(S)[None, None, None, :] <= pos.view(B, 1, 1, 1) + t[None, None, :, None]
+    scores = scores.masked_fill(~visible, float("-inf"))
+    ms, ls, accs = [], [], []
+    for s0 in range(0, S, kps):
+        sc = scores[..., s0:s0 + kps]
+        m = sc.amax(-1)
+        e = torch.exp(sc - torch.where(torch.isinf(m), torch.zeros_like(m), m)[..., None])
+        ms.append(m)
+        ls.append(e.sum(-1))
+        accs.append(torch.einsum("bhrs,bhsd->bhrd", e, v[:, :, s0:s0 + kps]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    top = m.amax(0)
+    w = torch.where(torch.isinf(top), torch.zeros_like(m), torch.exp(m - top))
+    num, den = (w[..., None] * acc).sum(0), (w * l).sum(0)
+    return torch.where(torch.isinf(top)[..., None], torch.zeros_like(num),
+                       num / den.clamp_min(1e-30)[..., None])
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("B,T,S,pos", [(1, 1, 256, [255]), (2, 1, 256, [0, 130]),
+                                       (1, 1, 8192, [8191]), (2, 40, 200, [3, 160])])
+def test_split_combine_matches_unsplit_plain(kv, B, T, S, pos):
+    """K4's split arithmetic (per-split max, sum and P·V, combined as
+    ``bdq_combine_kernel`` does) over the splits ``flash_plan`` chooses equals
+    the unsplit plain version at >= 100 dB in float32 (no bf16 rounding on
+    either side: they differ only in the order of the sums)."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        flash_plan,
+        quantized_kv_decode_attention_plain,
+    )
+
+    rs = np.random.RandomState(S + T + B)
+    H, G, Dh = 8, 4, 128
+    q = torch.from_numpy(rs.randn(B, H, T * G, Dh).astype(np.float32))
+    cache = [torch.from_numpy(a) for a in _hm_codes(rs, B, H, S, Dh, kv == "int8")]
+    p = torch.tensor(pos, dtype=torch.int32)
+    _, nsplit, kps = flash_plan(B, H, T * G, S)
+    assert nsplit > 1
+    got = _split_plain(q, *cache, p, kps=kps, rows_per_t=G)
+    want = quantized_kv_decode_attention_plain(q, *cache, p, rows_per_t=G)
+    assert sqnr_db(want.double(), got.double()) >= 100

@@ -98,6 +98,45 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes), and register i receives
+// matrix i in the fragment layout above (.trans: each matrix transposed).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// ------------------------------------------------------- async copies --
+// cp.async of BYTES (4, 8 or 16) from device to shared memory, both aligned
+// to BYTES; with `pred` false nothing is read and the destination is zeroed.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool pred = true) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(a), "l"(gmem),
+                 "n"(BYTES), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // store the C fragment of the 16 x 8 tile at (m0, n0) of a row-major [., ldc] f32 array
 __device__ __forceinline__ void store_frag_c(float* out, int ldc, const float c[4], int m0,
                                              int n0) {

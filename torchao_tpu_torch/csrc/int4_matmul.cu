@@ -1,4 +1,4 @@
-// int4 weight-only dequant-matmul for Hopper (sm_90a), SIMT.
+// int4 weight-only dequant-matmul for Hopper (sm_90a).
 //
 // Replaces torchao_tpu/kernels/int4_matmul.py::int4_dq_matmul:
 //   - the decode GEMV for M <= 32 (_bint8_call -> _kernel_bint8m,
@@ -20,9 +20,31 @@
 // GEMV therefore reads each weight byte once with 16-byte loads, keeps the
 // dequantized weight in registers only, and folds the group zero into one
 // multiply per group: sum_k x (q-8) s + z = s * sum_k x (q-8) + z * sum_k x.
-// At M = 128 (prefill) the work is bound by operations; the tiled form is a
-// plain shared-memory SIMT GEMM in fp32 (tensor cores come in a later
-// change). Both accumulate in fp32.
+//
+// K5, tt_int4_tiled (M > 32; the prefill runs M = 128): bound by operations
+// on an H100 (2 M N K flops at the 989 TFLOP/s bf16 tensor-core peak against
+// about N K / 2 bytes of packed weight: 1.94 ms per Llama-3-8B prefill
+// against 1.4 ms of bytes). The design feeds the tensor cores: bf16
+// mma.sync.m16n8k16 with f32 accumulators (mma.sync, not wgmma: at this
+// size the 128-row tile of x and a dequantized weight tile both live in
+// shared memory, and mma.sync from ldmatrix fragments needs no descriptor
+// layouts; its rate is far above what the dequantization leaves to feed).
+//   - A three-stage cp.async ring (16-byte copies) holds, per step of 32
+//     packed rows, the x tile (128 rows x 32 low-half + 32 high-half values,
+//     bf16), the packed tile (32 x 128 bytes) and the scale/zero rows of the
+//     step's groups, so loads overlap the products of earlier steps.
+//   - Each weight byte is dequantized once per block, by one thread, into a
+//     bf16 tile in shared memory: (q - 8) * s + z rounded once to bf16, two
+//     columns per bf16x2 fused multiply-add (the dequantization, not the
+//     products, is what limits the issue rate); scale and zero come from
+//     shared memory, read from device memory once per group and column of
+//     the tile. Byte kp gives row kp (low nibble) and row K/2 + kp (high
+//     nibble) of that tile, so both halves of k come from one packed tile.
+//   - Eight warps (2 x 4) each own 64 x 32 of the 128 x 128 output tile;
+//     ldmatrix feeds x (A) and the dequantized tile (B, transposed).
+//   - Where ceil(M/128) ceil(N/128) blocks would not fill the card (wo, w2
+//     and wqkv at M = 128), the wrapper splits K over the grid: f32 partials
+//     go to a workspace and int4_reduce_kernel sums them (as K1).
 //
 // K1's stub arm (the ceiling probe's, STUB = true, tt_int4_gemv_stub): the
 // same grid, loads and reduce, with the dequantization replaced by one
@@ -53,9 +75,11 @@
 // form reads no zero and does no sum of x.
 //
 // No partial K blocks: the GEMV walks whole runs of RUN packed rows that
-// lie inside one group, and the tiled form whole steps of TKP rows; the
-// host wrapper checks K/2 % g == 0, g % RUN == 0 and K/2 % TKP == 0. The
-// N edge is masked (N % 16 == 0 is required for the 16-byte loads).
+// lie inside one group; the tiled form walks steps of TBKP = 32 packed rows,
+// and where its split's rows end on an odd unit of TKP = 16 it takes a last
+// step of 16 (never reading past the array); the host wrapper checks K/2 %
+// g == 0, g % RUN == 0 and K/2 % TKP == 0. The M and N edges are masked
+// (N % 16 == 0 is required for the 16-byte loads).
 #include "common.cuh"
 
 namespace {
@@ -283,88 +307,197 @@ __global__ void int4_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* 
 }
 
 // --------------------------------------------------------------- tiled --
-constexpr int T_THREADS = 256;
-constexpr int TBM = 64;          // rows of x per block
-constexpr int TBN = 64;          // columns per block
-constexpr int TKP = 16;          // packed rows per step (32 values of k)
-constexpr int TK = 2 * TKP;
+// Two nibbles of `v4` (bytes j and j + 1, each 0..15) as bf16x2 (q - 8),
+// exactly: a byte becomes the low mantissa bits of bf16 128 (0x43nn = 128 +
+// n), and 136 is subtracted.
+__device__ __forceinline__ __nv_bfloat162 nib2_minus8(uint32_t v4, int j) {
+  const uint32_t w = __byte_perm(v4, 0x43434343u, j | 0x40 | ((j + 1) << 8) | 0x4000);
+  return __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
+                 __floats2bfloat162_rn(136.f, 136.f));
+}
 
-// grid: (ceil(N / 64), ceil(M / 64)); block 256 threads, each a 4x4 tile.
+// K5 (see the notes at the top). A block computes a TBM x TBN tile of out
+// over the packed rows of its K split, TBKP packed rows per step: TBKP
+// values of k from the low half and the same TBKP from the high half.
+constexpr int T_THREADS = 256;      // 8 warps: 2 (64 rows) x 4 (32 columns)
+constexpr int TBM = 128;            // rows of x per block
+constexpr int TBN = 128;            // columns per block
+constexpr int TBKP = 32;            // packed rows per step
+constexpr int TKP = 16;             // packed rows per unit: K/2 % TKP == 0, the split's unit
+constexpr int T_STAGES = 3;         // cp.async ring
+constexpr int T_QROWS = 4;          // group rows per half and step (g % 8 == 0, steps at units)
+constexpr int TXS = 2 * TBKP + 8;   // x tile row, bf16 (+8: ldmatrix rows on distinct banks)
+constexpr int TBS = TBN + 8;        // dequantized tile row, bf16
+constexpr int T_X_BYTES = TBM * TXS * 2;
+constexpr int T_W_BYTES = TBKP * TBN;
+constexpr int T_Q_BYTES = 2 * 2 * T_QROWS * TBN * 2;  // scale, zero x lo, hi
+constexpr int T_STAGE_BYTES = T_X_BYTES + T_W_BYTES + T_Q_BYTES;
+constexpr int T_SMEM = T_STAGES * T_STAGE_BYTES + 2 * TBKP * TBS * 2;
+
+// grid: (ceil(N / TBN), ceil(M / TBM), ksplit). Split z walks units
+// [z U / ksplit, (z + 1) U / ksplit) of the U = K/2 / TKP units, two per
+// step (one in a split's last step if it has an odd count). ws null: out
+// is written in bf16; else the f32 partial goes to ws[z, M, N].
 template <bool HAS_Z>
-__global__ void __launch_bounds__(T_THREADS)
+__global__ void __launch_bounds__(T_THREADS, 2)
 int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                   const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N, int g) {
-  const int Kp = K / 2;
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  __shared__ __align__(16) float xs[TK][TBM];   // x tile, k-major
-  __shared__ __align__(16) float wsm[TK][TBN];  // dequantized weight tile
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int K, int N,
+                  int g) {
+  extern __shared__ __align__(16) uint8_t t_smem[];
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(t_smem + T_STAGES * T_STAGE_BYTES);
+  const int Kp = K / 2, nGh = Kp / g;
+  const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
+  const int units = Kp / TKP;
+  const int u0 = (int)((long long)blockIdx.z * units / gridDim.z);
+  const int u1 = (int)((long long)(blockIdx.z + 1) * units / gridDim.z);
+  const int steps = (u1 - u0 + 1) / 2;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+  auto rows_of = [&](int st) { return min(TBKP, (u1 - u0 - 2 * st) * TKP); };
 
-  float acc[4][4];
+  // Issue step st's copies into ring slot s: the x tile, the packed tile and
+  // the scale/zero rows of the step's groups (lo rows G0.., hi nGh + G0..).
+  auto load = [&](int st, int s) {
+    uint8_t* base = t_smem + s * T_STAGE_BYTES;
+    const int kp0 = (u0 + 2 * st) * TKP, rows = rows_of(st);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+    for (int c = tid; c < TBM * 8; c += T_THREADS) {  // 8 chunks of 8 values per row
+      const int m = c / 8, half = (c % 8) / 4, kc = (c % 4) * 8;
+      const bool ok = m0 + m < M && kc < rows;
+      cp_async<16>(xs + m * TXS + half * TBKP + kc,
+                   ok ? x + (size_t)(m0 + m) * K + half * Kp + kp0 + kc : x, ok);
+    }
+    {  // one 16-byte chunk per thread
+      const int r = tid / 8, c = (tid % 8) * 16;
+      const bool ok = r < rows && n0 + c < N;
+      cp_async<16>(base + T_X_BYTES + r * TBN + c, ok ? wp + (size_t)(kp0 + r) * N + n0 + c : wp,
+                   ok);
+    }
+    __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(base + T_X_BYTES + T_W_BYTES);
+    const int G0 = kp0 / g, nq = (kp0 + rows - 1) / g - G0 + 1;
+    for (int c = tid; c < (HAS_Z ? 2 : 1) * 2 * nq * 16; c += T_THREADS) {
+      const int col = (c % 16) * 8, rq = (c / 16) % nq, half = (c / 16 / nq) % 2,
+                arr = c / 16 / nq / 2;
+      const __nv_bfloat16* a = arr ? zr : sc;
+      const bool ok = n0 + col < N;
+      cp_async<16>(q + ((arr * 2 + half) * T_QROWS + rq) * TBN + col,
+                   ok ? a + (size_t)(half * nGh + G0 + rq) * N + n0 + col : a, ok);
+    }
+  };
+
+  // Dequantize step st's packed tile (slot s) into bs, bf16: row r holds
+  // k = kp0 + r (the low nibbles), row TBKP + r k = K/2 + kp0 + r (the high
+  // ones); (q - 8) * s + z by one fused bf16x2 multiply-add, rounded once
+  // (the plain version rounds its f32 value to bf16: the exact product
+  // (q - 8) * s is the same, the sums differ only where the f32 rounding of
+  // the sum meets a bf16 tie; zero-free, the two are equal).
+  auto dequant = [&](int st, int s) {
+    const uint8_t* base = t_smem + s * T_STAGE_BYTES;
+    const int kp0 = (u0 + 2 * st) * TKP;
+    const int r = tid / 8, c = (tid % 8) * 16;
+    if (r >= rows_of(st)) return;
+    const int rq = (kp0 + r) / g - kp0 / g;
+    const uint4 wv = *reinterpret_cast<const uint4*>(base + T_X_BYTES + r * TBN + c);
+    const uint32_t* wd = reinterpret_cast<const uint32_t*>(&wv);
+    const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(base + T_X_BYTES + T_W_BYTES);
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {  // 8 columns at a time, as 4 bf16 pairs
+      auto qrow = [&](int arr, int half) {
+        return *reinterpret_cast<const uint4*>(q + ((arr * 2 + half) * T_QROWS + rq) * TBN + c +
+                                               8 * h8);
+      };
+      const uint4 sl4 = qrow(0, 0), sh4 = qrow(0, 1);
+      const uint4 zl4 = HAS_Z ? qrow(1, 0) : uint4{}, zh4 = HAS_Z ? qrow(1, 1) : uint4{};
+      const __nv_bfloat162* s_lo = reinterpret_cast<const __nv_bfloat162*>(&sl4);
+      const __nv_bfloat162* s_hi = reinterpret_cast<const __nv_bfloat162*>(&sh4);
+      const __nv_bfloat162* z_lo = reinterpret_cast<const __nv_bfloat162*>(&zl4);
+      const __nv_bfloat162* z_hi = reinterpret_cast<const __nv_bfloat162*>(&zh4);
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {  // columns c + 8 h8 + 2p, + 1: bytes 2 (p % 2), + 1
+        const uint32_t word = wd[2 * h8 + p / 2];
+        const uint32_t lo4 = word & 0x0F0F0F0Fu;                        // xor leaves the low nibble
+        const uint32_t hi4 = ((word >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;  // undo the 0x80 xor
+        const __nv_bfloat162 ql = nib2_minus8(lo4, 2 * (p % 2)), qh = nib2_minus8(hi4, 2 * (p % 2));
+        const __nv_bfloat162 vl = HAS_Z ? __hfma2(ql, s_lo[p], z_lo[p]) : __hmul2(ql, s_lo[p]);
+        const __nv_bfloat162 vh = HAS_Z ? __hfma2(qh, s_hi[p], z_hi[p]) : __hmul2(qh, s_hi[p]);
+        lo[p] = *reinterpret_cast<const uint32_t*>(&vl);
+        hi[p] = *reinterpret_cast<const uint32_t*>(&vh);
+      }
+      *reinterpret_cast<uint4*>(bs + r * TBS + c + 8 * h8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(bs + (TBKP + r) * TBS + c + 8 * h8) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  };
+
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  // weight-load role: packed row wr, columns wc..wc+3
-  const int wr = threadIdx.x / 16, wc = (threadIdx.x % 16) * 4;
-  const bool wvalid = n0 + wc < N;  // N % 16 == 0, so the 4 columns are all in or all out
-
-  for (int kp0 = 0; kp0 < Kp; kp0 += TKP) {
-    // x tile: 64 rows x 32 values (16 low-half k, 16 high-half k)
 #pragma unroll
-    for (int e = threadIdx.x; e < TBM * TK; e += T_THREADS) {
-      const int m = e / TK, kk = e % TK;
-      const int k = kk < TKP ? kp0 + kk : Kp + kp0 + (kk - TKP);
-      xs[kk][m] = (m0 + m < M) ? __bfloat162float(x[(size_t)(m0 + m) * K + k]) : 0.f;
-    }
-    // weight tile: dequantize 16 packed rows x 64 columns into 32 x 64
-    {
-      const int kp = kp0 + wr;
-      float lo[4], hi[4];
-      if (wvalid) {
-        const uint32_t b = __ldg(reinterpret_cast<const uint32_t*>(wp + (size_t)kp * N + n0 + wc));
-        const uint32_t lo4 = b & 0x0F0F0F0Fu, hi4 = ((b >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-        const int glo = kp / g, ghi = (kp + Kp) / g;
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<T_STAGES - 2>();
+    __syncthreads();  // step st landed; every warp is done with step st - 1 (its slot, bs)
+    if (st + T_STAGES - 1 < steps) load(st + T_STAGES - 1, (st + T_STAGES - 1) % T_STAGES);
+    cp_async_commit();
+    dequant(st, st % T_STAGES);
+    __syncthreads();
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(t_smem + (st % T_STAGES) * T_STAGE_BYTES);
+    const bool full = rows_of(st) == TBKP;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const size_t clo = (size_t)glo * N + n0 + wc + j, chi = (size_t)ghi * N + n0 + wc + j;
-          const float zlo = HAS_Z ? __bfloat162float(zr[clo]) : 0.f;
-          const float zhi = HAS_Z ? __bfloat162float(zr[chi]) : 0.f;
-          lo[j] = fmaf(nib_minus8(lo4, j), __bfloat162float(sc[clo]), zlo);
-          hi[j] = fmaf(nib_minus8(hi4, j), __bfloat162float(sc[chi]), zhi);
-        }
-      } else {
+    for (int kk = 0; kk < 4; ++kk) {  // 16 values of k: lo 0-15, lo 16-31, hi 0-15, hi 16-31
+      if ((kk & 1) && !full) continue;  // a 16-row step has no second half of either half
+      const int kx = (kk / 2) * TBKP + (kk % 2) * 16;  // column of xs, row of bs
+      uint32_t a[4][4], b[4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) { lo[j] = 0.f; hi[j] = 0.f; }
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + lane % 16) * TXS + kx + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bs + (kx + lane % 8 + ((lane / 8) % 2) * 8) * TBS + wn * 32 +
+                                 np * 16 + (lane / 16) * 8);
+        b[2 * np][0] = r[0]; b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2]; b[2 * np + 1][1] = r[3];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) { wsm[wr][wc + j] = lo[j]; wsm[TKP + wr][wc + j] = hi[j]; }
-    }
-    __syncthreads();
+      for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&wsm[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = __float2bfloat16(acc[i][j]);
+        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
     }
   }
+  cp_async_wait<0>();
+
+  const int gq = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + wn * 32 + nt * 8 + t2;  // N % 16 == 0: n and n + 1 are in or out together
+      if (n >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 64 + mt * 16 + gq + 8 * h;
+        if (m >= M) continue;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (ws)
+          *reinterpret_cast<float2*>(ws + ((size_t)blockIdx.z * M + m) * N + n) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
 }
 
 // ------------------------------------------------ K14: the int4 variants --
@@ -715,20 +848,39 @@ TT_EXPORT int tt_int4_gemv_m1(const void* x, const void* wp, const void* qp, voi
   return launch_gemv_eff<QP_M1>(x, wp, qp, ws, out, M, K, N, g, cb, ksplit, stream);
 }
 
+template <bool HAS_Z>
+static int launch_tiled(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
+                        void* out, int M, int K, int N, int g, int ksplit, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(int4_tiled_kernel<HAS_Z>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM, ksplit);
+  int4_tiled_kernel<HAS_Z><<<grid, T_THREADS, T_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
+      static_cast<__nv_bfloat16*>(out), ksplit > 1 ? static_cast<float*>(ws) : nullptr, M, K, N,
+      g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ksplit == 1) return err;
+  return reduce_splits(static_cast<float*>(ws), out, ksplit, M, N, st);
+}
+
+// K5: the arguments of tt_int4_gemv, any M; K/2 % 16 == 0, g % 8 == 0,
+// N % 16 == 0, 1 <= ksplit <= K/2 / 16; ws (fp32 [ksplit, M, N]) may be
+// null when ksplit == 1. x, wp, sc and zr 16-byte aligned.
 TT_EXPORT int tt_int4_tiled(const void* x, const void* wp, const void* sc, const void* zr,
-                            void* out, int M, int K, int N, int g, void* stream) {
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+                            void* ws, void* out, int M, int K, int N, int g, int ksplit,
+                            void* stream) {
+  if ((K / 2) % TKP || g % 8 || (K / 2) % g || N % 16 || ksplit < 1 || ksplit > K / 2 / TKP ||
+      (ksplit > 1 && !ws))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto s = static_cast<const __nv_bfloat16*>(sc);
-  auto z = static_cast<const __nv_bfloat16*>(zr);
-  auto o = static_cast<__nv_bfloat16*>(out);
-  if (z)
-    int4_tiled_kernel<true><<<grid, T_THREADS, 0, st>>>(xb, w8, s, z, o, M, K, N, g);
-  else
-    int4_tiled_kernel<false><<<grid, T_THREADS, 0, st>>>(xb, w8, s, z, o, M, K, N, g);
-  return cudaGetLastError();
+  return zr ? launch_tiled<true>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st)
+            : launch_tiled<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st);
 }
 
 // K14a: the arguments of tt_int4_gemv, any M.

@@ -1,4 +1,5 @@
-// Attention over the quantized KV cache for Hopper (sm_90a), SIMT, fp32.
+// Attention over the quantized KV cache for Hopper (sm_90a): K4 on the tensor
+// cores, the other kernels SIMT in fp32.
 //
 // Int4 KV layout (models/llama/model.py::_quantize_kv_int4): per token and
 // head, byte d holds elements d and d + Dh/2 as offset-binary nibbles,
@@ -56,12 +57,33 @@
 //   with R = T*G t-major query rows; row r sees keys <= pos[b] + r / G.
 //   The kernel takes the view's strides, so the model hands it the split-
 //   flat cache transposed as a view: no copy of the cache is made.
-//   Design: one block per (batch, kv-head, 64 query rows); key tiles of 32
-//   are dequantized to fp32 in shared memory; online softmax in fp32.
-//   Bound on an H100: bytes at prefill shapes — the packed cache and its
-//   scales, the bf16 q and the f32 out, read or written once (~0.001 ms per
-//   launch at 3.35 TB/s, against ~0.00014 ms for its 2 * 2 * rows * keys * Dh
-//   flops at the bf16 tensor-core peak); this SIMT kernel is far from both.
+//   Bound on an H100: bytes — the packed cache and its scales, the bf16 q
+//   and the f32 out, read or written once (~0.001 ms per launch at 3.35 TB/s
+//   at the 128-token prefill, against ~0.00014 ms for its 2 * 2 * rows *
+//   keys * Dh flops at the bf16 tensor-core peak); at that size a launch is
+//   short, so what the design has to win is latency and the card's width.
+//   Design (FlashAttention-2 on mma.sync.m16n8k16, bf16 in, f32 out):
+//   - a block owns 32 query rows of one head and walks key tiles of 32 only
+//     up to the last key its rows see (the causal skip). Its four warps are
+//     two row groups of 16 times two halves of the output columns: both
+//     warps of a row group score every key (their running max and sum stay
+//     in registers), each accumulates P V for its half of Dh;
+//   - the grid is B * Hkv * ceil(R / 32) blocks (128 at the prefill); where
+//     that is under 128 (decode, R = 4: 8) the keys are split over the grid
+//     in multiples of 16 and bdq_combine_kernel merges the partials, as K2;
+//   - a launch is short, so latency is what the loader has to hide: key
+//     tiles come in by cp.async through a 4-deep ring, the first three
+//     issued before pos is read; the codes in 16-byte copies where the view
+//     allows it (8, 4, else byte loads): the split-flat K view (D-major,
+//     keys contiguous) by runs of keys per d, V and the head-major caches by
+//     runs of bytes per key; each key's scale once per tile, 8 keys a copy
+//     where they are contiguous. The tile is dequantized from shared memory
+//     to bf16 (code * scale rounded once, as _masked_attention rounds K and
+//     V), codes converted by the exponent trick of common.cuh;
+//   - S = Q K^T from Q's fragments in registers (bf16 as given; the softmax
+//     scale multiplies the f32 scores), online softmax in f32 registers
+//     (base 2), P rounded to bf16 and fed from S's accumulator registers as
+//     the A operand of O += P V; out f32 [B, Hkv, R, Dh].
 // tt_flash_prefill_i8 is its int8 form (the same pallas_call with an int8
 //   cache): a [B, Hkv, S, Dh] int8 view, one byte per element.
 // tt_flash_ablate and tt_flash_ablate_i8: K4's ablation ladder (the ABLATE
@@ -77,12 +99,16 @@
 //   and dots bf16(p); the running max starts at and masks with -1e30, and
 //   the end divides by max(l, 1e-30) with NaN kept. A rung's value depends on
 //   the key block (the mask, max and alpha act per block): the blocks here
-//   are the FK = 32-key tiles, so the plain version is held at bs = 32.
+//   are the FK = 32-key tiles, so the plain version is held at bs = 32, and
+//   the query block is one (R <= 32).
 //   JAX's int4 dotsonly does not trace (its q . K dot contracts Dh with the
 //   Dh/2 packed bytes); the port's int4 dotsonly dots the unpacked codes
 //   (q - 8 values). A template parameter of K4's CUDA kernel (CUDA, as K4:
-//   each rung must keep K4's grid and tiles to attribute K4's time).
-//   ABLATE = 0 is K4's own instantiation, unchanged.
+//   each rung keeps K4's blocks, tiles and loader to attribute K4's time);
+//   the int8 rungs' and dotsonly's tiles hold the codes unscaled. A rung
+//   runs one key split: its partials would not combine as softmax partials
+//   do, so at decode it runs B * Hkv * ceil(R / 32) blocks where K4 splits.
+//   ABLATE = 0 is K4's own instantiation.
 //
 // tt_flash_heads (K4', int4) and tt_flash_heads_i8 (int8) replace the
 //   head-folded form of the same function (fold_heads, pallas_call at
@@ -326,10 +352,6 @@ __global__ void bdq_combine_kernel(const float* __restrict__ ws_m, const float* 
 }
 
 // ------------------------------------------------------------ prefill --
-constexpr int FQ = 64;   // query rows per block
-constexpr int FK = 32;   // keys per tile
-constexpr int F_THREADS = 256;
-
 struct KvView {  // element (b, h, s, d) of a [B, H, S, Dh/2] uint8 view
   const uint8_t* q;
   long long sb, sh, ss, sd;
@@ -338,40 +360,6 @@ struct KvView {  // element (b, h, s, d) of a [B, H, S, Dh/2] uint8 view
   bool vec;  // d contiguous and every row 4-byte aligned: 4-byte loads (head-folded kernel)
 };
 
-// What a key tile holds: code * scale in f32 (K4), the codes alone (int8
-// codes, int4 nibble - 8), or code * scale rounded to bf16 (_kernel's int4
-// dequantization).
-enum TileMode { KV_F32 = 0, KV_CODES = 1, KV_BF16 = 2 };
-
-template <int DH, bool I8, int MODE = KV_F32>
-__device__ __forceinline__ void load_kv_tile(float* tile, const KvView& v, int b, int h, int k0,
-                                             int S) {
-  constexpr int DB = I8 ? DH : DH / 2;  // bytes per key
-  for (int e = threadIdx.x; e < FK * DB; e += F_THREADS) {
-    int s, d;
-    if (v.sd == 1) { s = e / DB; d = e % DB; } else { d = e / FK; s = e % FK; }
-    const int key = k0 + s;
-    float lo = 0.f, hi = 0.f;
-    if (key < S) {
-      const int byte = v.q[b * v.sb + h * v.sh + key * v.ss + d * v.sd];
-      const float scl =
-          MODE == KV_CODES ? 1.f : __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]);
-      if constexpr (I8) {
-        lo = (float)(int8_t)byte * scl;
-      } else {
-        lo = (float)((byte & 0xF) - 8) * scl;
-        hi = (float)((byte >> 4) - 8) * scl;
-      }
-      if constexpr (MODE == KV_BF16) {
-        lo = __bfloat162float(__float2bfloat16(lo));
-        hi = __bfloat162float(__float2bfloat16(hi));
-      }
-    }
-    tile[s * (DH + 4) + d] = lo;
-    if constexpr (!I8) tile[s * (DH + 4) + d + DB] = hi;
-  }
-}
-
 enum Ablate { AB_NONE = 0, AB_NOEXP = 1, AB_NOSOFTMAX = 2, AB_NOMASKEXP = 3, AB_DOTSONLY = 4 };
 constexpr float NEG_BIG = -1e30f;  // the JAX kernels' NEG_INF
 
@@ -379,187 +367,412 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <int DH, bool I8, int AB = AB_NONE>
-__global__ void __launch_bounds__(F_THREADS)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
-                     const int* __restrict__ pos, float* __restrict__ out, int H, int R, int S,
-                     int G, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [FQ][DH + 4]
-  float* kt = qs + FQ * (DH + 4);        // [FK][DH + 4]
-  float* vt = kt + FK * (DH + 4);        // [FK][DH + 4]
-  float* ps = vt + FK * (DH + 4);        // [FQ][FK + 1]
-  float* kss = ps + FQ * (FK + 1);       // [FK] int8 ablation rungs: the tile's K scales
-  float* vss = kss + FK;                 // [FK] and V scales
-  constexpr int NC = DH / 4;             // output columns per thread
+constexpr int FQ = 32;          // query rows per block: two row groups of 16
+constexpr int FK = 32;          // keys per tile
+constexpr int F_THREADS = 128;  // 4 warps: (row group, half of the output columns)
+constexpr int F_STAGES = 4;     // cp.async ring of key tiles (codes and scales)
+constexpr int F_SPLIT = 16;     // keys per split are a multiple of this
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int r0 = blockIdx.y * FQ;
-  const int p = pos[b];
-  const int r_last = min(R, r0 + FQ) - 1;
-  const int key_end = min(S, p + r_last / G + 1);
+struct FlashView {  // element (b, h, s, d) of a [B, H, S, Db] byte view, scales (b, h, s)
+  const uint8_t* q;
+  long long sb, sh, ss, sd;
+  const __nv_bfloat16* scale;
+  long long cb, ch, cs;
+  int dmajor;  // keys contiguous (ss == 1, the split-flat K): staged [Db][FK], else [FK][Db]
+  int width;   // bytes per copy of codes: 16, 8 or 4 by cp.async, 1 by plain loads
+  int svec;    // scales of consecutive keys contiguous and 16-byte aligned: cp.async
+};
 
-  for (int e = threadIdx.x; e < FQ * DH; e += F_THREADS) {
-    const int r = e / DH, d = e % DH;
-    qs[r * (DH + 4) + d] = r0 + r < R ? __bfloat162float(q[((size_t)bh * R + r0 + r) * DH + d]) *
-                                            (AB == AB_NONE ? scale : 1.f)
-                                      : 0.f;
-  }
-
-  const int row = threadIdx.x / 4, c = threadIdx.x % 4;
-  const bool row_ok = r0 + row < R;
-  const int lim = p + (r0 + row) / G;  // last visible key of this row
-  float m = AB == AB_NONE ? -INFINITY : NEG_BIG, l = 0.f, acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < key_end; k0 += FK) {
-    __syncthreads();  // previous tile fully consumed (and q tile written)
-    constexpr int MODE = AB == AB_NONE ? KV_F32 : (I8 || AB == AB_DOTSONLY) ? KV_CODES : KV_BF16;
-    load_kv_tile<DH, I8, MODE>(kt, kv, b, h, k0, S);
-    load_kv_tile<DH, I8, MODE>(vt, vv, b, h, k0, S);
-    if constexpr (MODE == KV_CODES && AB != AB_DOTSONLY) {
-      if (threadIdx.x < 2 * FK) {
-        const bool is_v = threadIdx.x >= FK;
-        const KvView& v = is_v ? vv : kv;
-        const int key = k0 + threadIdx.x % FK;
-        (is_v ? vss : kss)[threadIdx.x % FK] =
-            key < S ? __bfloat162float(v.scale[b * v.cb + h * v.ch + key * v.cs]) : 0.f;
-      }
+// Stage the codes and scales of keys [k0, k0 + nk) of head (b, h) into `st`
+// and `sc` (bf16). Keys past nk are left as they are: dequant_kv zeroes them.
+template <int DB>
+__device__ __forceinline__ void stage_kv(uint8_t* st, __nv_bfloat16* sc, const FlashView& v, int b,
+                                         int h, int k0, int nk) {
+  const uint8_t* base = v.q + b * v.sb + h * v.sh;
+  const int w = v.width;
+  const int per = v.dmajor ? FK / w : DB / w;  // copies per row of the staged tile
+  const int n = v.dmajor ? DB * per : nk * per;
+  for (int e = threadIdx.x; e < n; e += F_THREADS) {
+    const int row = e / per, c = (e % per) * w;
+    const uint8_t* src;
+    uint8_t* dst;
+    if (v.dmajor) {  // row d, keys k0 + c ..; a copy starting below nk ends below the limit
+      if (c >= nk) continue;
+      src = base + row * v.sd + (k0 + c);
+      dst = st + row * FK + c;
+    } else {         // row = key, bytes c ..
+      src = base + (k0 + row) * v.ss + c * v.sd;
+      dst = st + row * DB + c;
     }
-    __syncthreads();
-
-    float sc[FK / 4];
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) sc[j] = 0.f;
-    const float* qrow = qs + row * (DH + 4);
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qrow + d);
-#pragma unroll
-      for (int j = 0; j < FK / 4; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(kt + (j * 4 + c) * (DH + 4) + d);
-        sc[j] = fmaf(a.x, kk.x, fmaf(a.y, kk.y, fmaf(a.z, kk.z, fmaf(a.w, kk.w, sc[j]))));
-      }
-    }
-    if constexpr (AB != AB_NONE) {
-      // _kernel's ablation rungs (quantized_attention.py:83-165)
-      float alpha = 1.f, w[FK / 4];
-      if constexpr (AB == AB_DOTSONLY) {
-#pragma unroll
-        for (int j = 0; j < FK / 4; ++j) w[j] = bf16_round(sc[j]);
-      } else {
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < FK / 4; ++j) {
-          const int key = k0 + j * 4 + c;
-          float s = I8 ? sc[j] * kss[j * 4 + c] * scale : sc[j] * scale;
-          if (AB != AB_NOMASKEXP && key > lim) s = AB == AB_NOSOFTMAX ? 0.f : NEG_BIG;
-          sc[j] = s;
-        }
-        if constexpr (AB == AB_NOEXP) {
-          float mx = NEG_BIG;
-#pragma unroll
-          for (int j = 0; j < FK / 4; ++j) mx = fmaxf(mx, sc[j]);
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m, mx);
-          alpha = m - m_new;  // exp -> identity
-#pragma unroll
-          for (int j = 0; j < FK / 4; ++j) sc[j] -= m_new;
-          m = m_new;
-        }
-#pragma unroll
-        for (int j = 0; j < FK / 4; ++j) {
-          rs += sc[j];
-          w[j] = bf16_round(I8 ? sc[j] * vss[j * 4 + c] : sc[j]);
-        }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        l = l * alpha + rs;
-      }
-#pragma unroll
-      for (int j = 0; j < FK / 4; ++j) ps[row * (FK + 1) + j * 4 + c] = w[j];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[i] *= alpha;
-      __syncthreads();
-      for (int jj = 0; jj < FK; ++jj) {
-        const float pj = ps[row * (FK + 1) + jj];
-        const float* vrow = vt + jj * (DH + 4);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[i] = fmaf(pj, vrow[i * 4 + c], acc[i]);
-      }
-      continue;
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) {
-      const int key = k0 + j * 4 + c;
-      if (!row_ok || key > lim || key >= S) sc[j] = -INFINITY;
-      mx = fmaxf(mx, sc[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    float alpha = 1.f, rs = 0.f;
-    if (m_new > -INFINITY) {
-      alpha = __expf(m - m_new);
-#pragma unroll
-      for (int j = 0; j < FK / 4; ++j) {
-        sc[j] = __expf(sc[j] - m_new);
-        rs += sc[j];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < FK / 4; ++j) sc[j] = 0.f;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-    m = m_new;
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) ps[row * (FK + 1) + j * 4 + c] = sc[j];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
-    __syncthreads();
-    for (int jj = 0; jj < FK; ++jj) {
-      const float pj = ps[row * (FK + 1) + jj];
-      const float* vrow = vt + jj * (DH + 4);
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[i] = fmaf(pj, vrow[i * 4 + c], acc[i]);
+    switch (w) {
+      case 16: cp_async<16>(dst, src); break;
+      case 8: cp_async<8>(dst, src); break;
+      case 4: cp_async<4>(dst, src); break;
+      default: *dst = *src;
     }
   }
-  if (row_ok) {
-    float* o = out + ((size_t)bh * R + r0 + row) * DH;
-    if constexpr (AB != AB_NONE) {
-      const float den = l != l ? l : fmaxf(l, 1e-30f);  // jnp.maximum keeps a NaN
-#pragma unroll
-      for (int i = 0; i < NC; ++i) o[i * 4 + c] = acc[i] / den;
-      return;
+  const __nv_bfloat16* sp = v.scale + b * v.cb + h * v.ch + k0 * v.cs;
+  if (v.svec) {  // 8 keys a copy; a copy past nk falls back to single keys
+    const int c = threadIdx.x * 8;
+    if (c + 8 <= nk) {
+      cp_async<16>(sc + c, sp + c);
+    } else if (c < nk) {
+      for (int k = c; k < nk; ++k) sc[k] = sp[k];
     }
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) o[i * 4 + c] = acc[i] * inv;
+  } else {
+    for (int k = threadIdx.x; k < nk; k += F_THREADS) sc[k] = sp[k * v.cs];
   }
 }
 
-template <int DH, bool I8, int AB = AB_NONE>
-int launch_prefill(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* out,
-                   int B, int H, int R, int S, int G, float scale, cudaStream_t st) {
-  const size_t smem = (size_t)(FQ * (DH + 4) + 2 * FK * (DH + 4) + FQ * (FK + 1) +
-                               (AB == AB_NONE ? 0 : 2 * FK)) * sizeof(float);
+// Staged codes -> tile[key][d], bf16, rows of DH + 8: code * scale rounded
+// once (SCALED) or the code itself (int4: nibble - 8); keys >= nk are 0.
+template <int DH, bool I8, bool SCALED>
+__device__ __forceinline__ void dequant_kv(__nv_bfloat16* tile, const uint8_t* st, int dmajor,
+                                           const __nv_bfloat16* sc, int nk) {
+  constexpr int DB = I8 ? DH : DH / 2, TS = DH + 8;
+  // byte j of a word as its code, exactly (the exponent trick of common.cuh, no I2F)
+  auto codes = [](uint32_t word, float* lo, float* hi) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (I8) {
+        lo[j] = sbyte(word ^ 0x80808080u, j);
+      } else {
+        lo[j] = nib_minus8(word & 0x0F0F0F0Fu, j);
+        hi[j] = nib_minus8((word >> 4) & 0x0F0F0F0Fu, j);
+      }
+    }
+  };
+  for (int e = threadIdx.x; e < FK * DB / 4; e += F_THREADS) {
+    float lo[4], hi[4];
+    if (!dmajor) {  // four bytes d .. d + 3 of one key
+      const int key = e / (DB / 4), d = (e % (DB / 4)) * 4;
+      codes(reinterpret_cast<const uint32_t*>(st)[e], lo, hi);
+      const float s = key < nk ? (SCALED ? __bfloat162float(sc[key]) : 1.f) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j] *= s;
+        if constexpr (!I8) hi[j] *= s;
+      }
+      *reinterpret_cast<uint2*>(tile + key * TS + d) =
+          make_uint2(pack_bf16x2(lo[0], lo[1]), pack_bf16x2(lo[2], lo[3]));
+      if constexpr (!I8)
+        *reinterpret_cast<uint2*>(tile + key * TS + DB + d) =
+            make_uint2(pack_bf16x2(hi[0], hi[1]), pack_bf16x2(hi[2], hi[3]));
+    } else {  // byte d of four keys; neighbouring lanes take neighbouring d
+      const int d = e % DB, k4 = (e / DB) * 4;
+      codes(reinterpret_cast<const uint32_t*>(st)[d * (FK / 4) + k4 / 4], lo, hi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k4 + j;
+        const float s = key < nk ? (SCALED ? __bfloat162float(sc[key]) : 1.f) : 0.f;
+        tile[key * TS + d] = __float2bfloat16(lo[j] * s);
+        if constexpr (!I8) tile[key * TS + DB + d] = __float2bfloat16(hi[j] * s);
+      }
+    }
+  }
+}
+
+template <int DH, bool I8>
+constexpr int flash_smem() {
+  return F_STAGES * 2 * FK * (I8 ? DH : DH / 2) + 2 * FK * (DH + 8) * 2 + F_STAGES * 2 * FK * 2;
+}
+
+// grid: (B * H * ceil(R / FQ), nsplit); F_THREADS threads. Block (bh, query
+// block, split z) owns rows r0 .. r0 + FQ of head bh and keys [z kps,
+// min(S, (z + 1) kps)), walked in tiles of FK up to the last key its rows
+// see. Warp w owns rows r0 + 16 (w % 2) .. + 16 and output columns
+// (w / 2) DH / 2 .. + DH / 2: both warps of a row group score every key.
+// nsplit == 1: out[bh, r] = acc / l; else the partials go to ws_m (max,
+// natural-log units), ws_l (sum) [B * H, nsplit, R] and ws_acc [B * H,
+// nsplit, R, DH] for bdq_combine_kernel.
+template <int DH, bool I8, int AB>
+__global__ void __launch_bounds__(F_THREADS)
+flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
+             const int* __restrict__ pos, float* __restrict__ out, float* __restrict__ ws_m,
+             float* __restrict__ ws_l, float* __restrict__ ws_acc, int H, int R, int S, int G,
+             int kps, float scale) {
+  constexpr int DB = I8 ? DH : DH / 2, TS = DH + 8, NC = DH / 16;  // NC: 8-column tiles a warp
+  // _kernel's rungs keep int8 codes (and dotsonly every code) unscaled in the tiles
+  constexpr bool SCALED = AB == AB_NONE || (!I8 && AB != AB_DOTSONLY);
+  extern __shared__ __align__(16) uint8_t f_smem[];
+  uint8_t* stg = f_smem;                                       // [F_STAGES][K, V][FK * DB]
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(stg + F_STAGES * 2 * FK * DB);
+  __nv_bfloat16* vt = kt + FK * TS;
+  __nv_bfloat16* scs = vt + FK * TS;                           // [F_STAGES][K, V][FK]
+
+  const int nq = (R + FQ - 1) / FQ;
+  const int bh = blockIdx.x / nq, b = bh / H, h = bh % H, r0 = (blockIdx.x % nq) * FQ;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int s_begin = split * kps, s_end = min(S, s_begin + kps);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t2 = (lane % 4) * 2, chalf = warp / 2;
+
+  auto stage = [&](int i) {
+    const int k0 = s_begin + i * FK, slot = i % F_STAGES;
+    uint8_t* st = stg + slot * 2 * FK * DB;
+    __nv_bfloat16* sc = scs + slot * 2 * FK;
+    stage_kv<DB>(st, sc, kv, b, h, k0, min(FK, s_end - k0));
+    stage_kv<DB>(st + FK * DB, sc + FK, vv, b, h, k0, min(FK, s_end - k0));
+  };
+  // the first tiles go out before pos is read: the split's tiles, not yet the causal cut
+  const int split_tiles = (s_end - s_begin + FK - 1) / FK;
+#pragma unroll
+  for (int i = 0; i < F_STAGES - 1; ++i) {
+    if (i < split_tiles) stage(i);
+    cp_async_commit();
+  }
+
+  const int p = pos[b];
+  const int key_end = min(s_end, p + (min(R, r0 + FQ) - 1) / G + 1);  // the causal skip
+  const int n_tiles = key_end > s_begin ? (key_end - s_begin + FK - 1) / FK : 0;
+  int row[2], lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // this lane's rows: gq and gq + 8 of the warp's 16
+    row[i] = r0 + (warp % 2) * 16 + gq + 8 * i;
+    lim[i] = row[i] < R ? p + row[i] / G : -1;  // the row's last visible key
+  }
+
+  uint32_t qa[DH / 16][4];  // Q's A fragments, bf16 as given
+  const __nv_bfloat16* qh = q + (size_t)bh * R * DH;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row[i & 1], col = ks * 16 + t2 + (i / 2) * 8;
+      qa[ks][i] = r < R ? *reinterpret_cast<const uint32_t*>(qh + (size_t)r * DH + col) : 0u;
+    }
+
+  float m[2], l[2] = {0.f, 0.f}, o[NC][4];
+  m[0] = m[1] = AB == AB_NONE ? -INFINITY : NEG_BIG;
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float c2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x c2)
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int slot = i % F_STAGES, k0 = s_begin + i * FK, nk = min(FK, s_end - k0);
+    const uint8_t* st = stg + slot * 2 * FK * DB;
+    const __nv_bfloat16* sc = scs + slot * 2 * FK;
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();  // tile i staged; every warp is done with tile i - 1 (its slot, kt, vt)
+    if (i + F_STAGES - 1 < n_tiles) stage(i + F_STAGES - 1);
+    cp_async_commit();
+    dequant_kv<DH, I8, SCALED>(kt, st, kv.dmajor, sc, nk);
+    dequant_kv<DH, I8, SCALED>(vt, st + FK * DB, vv.dmajor, sc + FK, nk);
+    __syncthreads();
+
+    float s[FK / 8][4];  // S = Q K^T: 16 rows x FK keys, f32
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+      for (int np = 0; np < FK / 16; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, kt + (np * 16 + lane % 8 + (lane / 16) * 8) * TS + ks * 16 +
+                           ((lane / 8) % 2) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_bf16_16816(s[2 * np], qa[ks], b0);
+        mma_bf16_16816(s[2 * np + 1], qa[ks], b1);
+      }
+
+    // element (j, e) of s: row row[e / 2], key k0 + 8 j + t2 + e % 2
+    float w[FK / 8][4], alpha[2] = {1.f, 1.f}, mx[2], rs[2] = {0.f, 0.f};
+    if constexpr (AB == AB_NONE) {  // online softmax in base 2, f32
+      mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + t2 + e % 2;
+          s[j][e] = key > lim[e / 2] || key >= s_end ? -INFINITY : s[j][e] * c2;
+          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = m_new == -INFINITY ? 1.f : exp2f(m[r] - m_new);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          w[j][e] = exp2f(s[j][e] - base[e / 2]);
+          rs[e / 2] += w[j][e];
+        }
+    } else if constexpr (AB == AB_DOTSONLY) {  // _kernel's rungs (quantized_attention.py:83-165)
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[j][e] = bf16_round(s[j][e]);
+    } else {
+      mx[0] = mx[1] = NEG_BIG;
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = 8 * j + t2 + e % 2, key = k0 + kl;
+          float v = I8 ? s[j][e] * __bfloat162float(sc[kl]) * scale : s[j][e] * scale;
+          if (AB != AB_NOMASKEXP && key > lim[e / 2]) v = AB == AB_NOSOFTMAX ? 0.f : NEG_BIG;
+          s[j][e] = v;
+          mx[e / 2] = fmaxf(mx[e / 2], v);
+        }
+      if constexpr (AB == AB_NOEXP) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          alpha[r] = m[r] - m_new;  // exp -> identity
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] -= m[e / 2];
+      }
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          rs[e / 2] += s[j][e];
+          const float vs = __bfloat162float(sc[FK + 8 * j + t2 + e % 2]);
+          w[j][e] = bf16_round(I8 ? s[j][e] * vs : s[j][e]);
+        }
+    }
+    if constexpr (AB != AB_DOTSONLY) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+    }
+
+    // O += P V over this warp's columns, P rounded to bf16: S's accumulator
+    // layout is the A fragment's
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(w[2 * kk][0], w[2 * kk][1]),
+                              pack_bf16x2(w[2 * kk][2], w[2 * kk][3]),
+                              pack_bf16x2(w[2 * kk + 1][0], w[2 * kk + 1][1]),
+                              pack_bf16x2(w[2 * kk + 1][2], w[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NC / 2; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * TS +
+                                 chalf * (DH / 2) + dp * 16 + (lane / 16) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_bf16_16816(o[2 * dp], pa, b0);
+        mma_bf16_16816(o[2 * dp + 1], pa, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= R) continue;
+    const int col = chalf * (DH / 2) + t2;
+    if (nsplit == 1) {
+      // rungs: acc / max(l, 1e-30) with a NaN kept, as jnp.maximum
+      const float den = AB == AB_NONE || l[i] == l[i] ? fmaxf(l[i], 1e-30f) : l[i];
+      float* dst = out + ((size_t)bh * R + row[i]) * DH + col;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+    } else {
+      const size_t wi = ((size_t)bh * nsplit + split) * R + row[i];
+      if (t2 == 0 && chalf == 0) {
+        ws_m[wi] = m[i] == -INFINITY ? -INFINITY : m[i] * 0.6931471805599453f;  // to natural log
+        ws_l[wi] = l[i];
+      }
+      float* dst = ws_acc + wi * DH + col;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+    }
+  }
+}
+
+// The staging order and copy width of a view: 16, 8 or 4 bytes where the
+// base, the strides and the run (Db bytes of a key, or the keys of a d row)
+// allow it, else byte loads; scales by 16-byte copies where keys are
+// contiguous and rows aligned.
+inline FlashView flash_view(const void* p, long long sb, long long sh, long long ss,
+                            long long sd, const void* sc, long long cb, long long ch,
+                            long long cs, int db, int S) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), as = reinterpret_cast<uintptr_t>(sc);
+  FlashView v{static_cast<const uint8_t*>(p), sb, sh, ss, sd,
+              static_cast<const __nv_bfloat16*>(sc), cb, ch, cs, sd != 1 && ss == 1, 1,
+              cs == 1 && as % 16 == 0 && cb % 8 == 0 && ch % 8 == 0};
+  for (int w = 16; w >= 4; w /= 2) {
+    const bool rows = a % w == 0 && sb % w == 0 && sh % w == 0;
+    const bool run = v.dmajor ? sd % w == 0 && S % w == 0 : sd == 1 && ss % w == 0 && db % w == 0;
+    if (rows && run) {
+      v.width = w;
+      break;
+    }
+  }
+  return v;
+}
+
+template <int DH, bool I8, int AB>
+int launch_flash(const void* q, const FlashView& kv, const FlashView& vv, const void* pos,
+                 void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H, int R, int S,
+                 int G, int nsplit, int kps, float scale, cudaStream_t st) {
+  if (G < 1 || nsplit < 1 || kps < F_SPLIT || kps % F_SPLIT ||
+      (long long)nsplit * kps < S || (nsplit > 1 && (AB != AB_NONE || !ws_m || !ws_l || !ws_acc)))
+    return cudaErrorInvalidValue;
+  constexpr int smem = flash_smem<DH, I8>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_prefill_kernel<DH, I8, AB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(flash_kernel<DH, I8, AB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid(B * H, (R + FQ - 1) / FQ);
-  flash_prefill_kernel<DH, I8, AB><<<grid, F_THREADS, smem, st>>>(
+  dim3 grid(B * H * ((R + FQ - 1) / FQ), nsplit);
+  flash_kernel<DH, I8, AB><<<grid, F_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), kv, vv, static_cast<const int*>(pos),
-      static_cast<float*>(out), H, R, S, G, scale);
+      static_cast<float*>(out), static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+      static_cast<float*>(ws_acc), H, R, S, G, kps, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  bdq_combine_kernel<><<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+                                            static_cast<float*>(ws_acc), static_cast<float*>(out),
+                                            R, DH, nsplit);
   return cudaGetLastError();
+}
+
+template <bool I8, int AB>
+int launch_flash_dh(const void* q, const void* kq, long long ksb, long long ksh, long long kss,
+                    long long ksd, const void* ks, long long kcb, long long kch, long long kcs,
+                    const void* vq, long long vsb, long long vsh, long long vss, long long vsd,
+                    const void* vs, long long vcb, long long vch, long long vcs, const void* pos,
+                    void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H, int R, int S,
+                    int G, int Dh, int nsplit, int kps, float scale, void* stream) {
+  const int db = I8 ? Dh : Dh / 2;
+  const FlashView kv = flash_view(kq, ksb, ksh, kss, ksd, ks, kcb, kch, kcs, db, S);
+  const FlashView vv = flash_view(vq, vsb, vsh, vss, vsd, vs, vcb, vch, vcs, db, S);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch_flash<64, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+    case 128: return launch_flash<128, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool I8, bool STUB = false>
@@ -590,31 +803,6 @@ int launch_decode(const void* q, const void* kq, const void* ks, const void* vq,
   if (err != cudaSuccess) return err;
   bdq_combine_kernel<STUB><<<B * H, 256, 0, st>>>(wm, wl, wa, static_cast<float*>(out), G, Dh, nsplit);
   return cudaGetLastError();
-}
-
-template <bool I8, int AB = AB_NONE>
-int launch_prefill_dh(const void* q, const KvView& kv, const KvView& vv, const void* pos,
-                      void* out, int B, int H, int R, int S, int G, int Dh, float scale,
-                      cudaStream_t st) {
-  switch (Dh) {
-    case 64: return launch_prefill<64, I8, AB>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
-    case 128: return launch_prefill<128, I8, AB>(q, kv, vv, pos, out, B, H, R, S, G, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool I8>
-int launch_ablate(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* out,
-                  int B, int H, int R, int S, int G, int Dh, int ablate, float scale,
-                  cudaStream_t st) {
-  if (S % FK) return cudaErrorInvalidValue;  // whole key blocks, as the plain version's
-  switch (ablate) {
-    case AB_NOEXP: return launch_prefill_dh<I8, AB_NOEXP>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
-    case AB_NOSOFTMAX: return launch_prefill_dh<I8, AB_NOSOFTMAX>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
-    case AB_NOMASKEXP: return launch_prefill_dh<I8, AB_NOMASKEXP>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
-    case AB_DOTSONLY: return launch_prefill_dh<I8, AB_DOTSONLY>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ------------------------------------------------------- heads folded --
@@ -901,22 +1089,30 @@ TT_EXPORT int tt_bdq_decode_stub_i8(const void* q, const void* kq, const void* k
                                    S, nsplit, scale, static_cast<cudaStream_t>(stream));
 }
 
-// q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views with
-// element strides (b, h, s, d); ks/vs: bf16 views with strides (b, h, s);
-// out [B, H, R, Dh].
+// K4: q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views
+// with element strides (b, h, s, d); ks/vs: bf16 views with strides (b, h,
+// s); out [B, H, R, Dh] fp32. Keys split nsplit ways, kps per split (a
+// multiple of 16, nsplit * kps >= S); with nsplit > 1 the partials go to
+// scratch ws_m, ws_l [B, H, nsplit, R] and ws_acc [B, H, nsplit, R, Dh]
+// fp32 and a second launch combines them (null scratch for nsplit == 1).
+#define TT_FLASH_ARGS                                                                          \
+  const void *q, const void *kq, long long ksb, long long ksh, long long kss, long long ksd,  \
+      const void *ks, long long kcb, long long kch, long long kcs, const void *vq,           \
+      long long vsb, long long vsh, long long vss, long long vsd, const void *vs,            \
+      long long vcb, long long vch, long long vcs, const void *pos
+#define TT_FLASH_PASS \
+  q, kq, ksb, ksh, kss, ksd, ks, kcb, kch, kcs, vq, vsb, vsh, vss, vsd, vs, vcb, vch, vcs, pos
+
 TT_EXPORT int tt_flash_prefill(const void* q, const void* kq, long long ksb, long long ksh,
                                long long kss, long long ksd, const void* ks, long long kcb,
                                long long kch, long long kcs, const void* vq, long long vsb,
                                long long vsh, long long vss, long long vsd, const void* vs,
                                long long vcb, long long vch, long long vcs, const void* pos,
-                               void* out, int B, int H, int R, int S, int G, int Dh, float scale,
+                               void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
+                               int R, int S, int G, int Dh, int nsplit, int kps, float scale,
                                void* stream) {
-  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
-                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
-  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
-                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
-  return launch_prefill_dh<false>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_flash_dh<false, AB_NONE>(TT_FLASH_PASS, ws_m, ws_l, ws_acc, out, B, H, R, S, G,
+                                         Dh, nsplit, kps, scale, stream);
 }
 
 TT_EXPORT int tt_flash_prefill_i8(const void* q, const void* kq, long long ksb, long long ksh,
@@ -924,18 +1120,28 @@ TT_EXPORT int tt_flash_prefill_i8(const void* q, const void* kq, long long ksb, 
                                   long long kch, long long kcs, const void* vq, long long vsb,
                                   long long vsh, long long vss, long long vsd, const void* vs,
                                   long long vcb, long long vch, long long vcs, const void* pos,
-                                  void* out, int B, int H, int R, int S, int G, int Dh,
-                                  float scale, void* stream) {
-  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
-                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
-  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
-                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
-  return launch_prefill_dh<true>(q, kv, vv, pos, out, B, H, R, S, G, Dh, scale,
-                                 static_cast<cudaStream_t>(stream));
+                                  void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
+                                  int R, int S, int G, int Dh, int nsplit, int kps, float scale,
+                                  void* stream) {
+  return launch_flash_dh<true, AB_NONE>(TT_FLASH_PASS, ws_m, ws_l, ws_acc, out, B, H, R, S, G,
+                                        Dh, nsplit, kps, scale, stream);
 }
 
-// K4's ablation rungs: the arguments of tt_flash_prefill and the rung
-// (1 noexp, 2 nosoftmax, 3 nomaskexp, 4 dotsonly); S % 32 == 0.
+// K4's ablation rungs: the views of tt_flash_prefill, out, and the rung
+// (1 noexp, 2 nosoftmax, 3 nomaskexp, 4 dotsonly); one split, S % 32 == 0.
+template <bool I8>
+static int launch_ablate(TT_FLASH_ARGS, void* out, int B, int H, int R, int S, int G, int Dh,
+                         int ablate, float scale, void* stream) {
+  if (S % FK) return cudaErrorInvalidValue;  // whole key blocks, as the plain version's
+  switch (ablate) {
+    case AB_NOEXP: return launch_flash_dh<I8, AB_NOEXP>(TT_FLASH_PASS, nullptr, nullptr, nullptr, out, B, H, R, S, G, Dh, 1, S, scale, stream);
+    case AB_NOSOFTMAX: return launch_flash_dh<I8, AB_NOSOFTMAX>(TT_FLASH_PASS, nullptr, nullptr, nullptr, out, B, H, R, S, G, Dh, 1, S, scale, stream);
+    case AB_NOMASKEXP: return launch_flash_dh<I8, AB_NOMASKEXP>(TT_FLASH_PASS, nullptr, nullptr, nullptr, out, B, H, R, S, G, Dh, 1, S, scale, stream);
+    case AB_DOTSONLY: return launch_flash_dh<I8, AB_DOTSONLY>(TT_FLASH_PASS, nullptr, nullptr, nullptr, out, B, H, R, S, G, Dh, 1, S, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 TT_EXPORT int tt_flash_ablate(const void* q, const void* kq, long long ksb, long long ksh,
                               long long kss, long long ksd, const void* ks, long long kcb,
                               long long kch, long long kcs, const void* vq, long long vsb,
@@ -943,12 +1149,7 @@ TT_EXPORT int tt_flash_ablate(const void* q, const void* kq, long long ksb, long
                               long long vcb, long long vch, long long vcs, const void* pos,
                               void* out, int B, int H, int R, int S, int G, int Dh, int ablate,
                               float scale, void* stream) {
-  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
-                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
-  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
-                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
-  return launch_ablate<false>(q, kv, vv, pos, out, B, H, R, S, G, Dh, ablate, scale,
-                              static_cast<cudaStream_t>(stream));
+  return launch_ablate<false>(TT_FLASH_PASS, out, B, H, R, S, G, Dh, ablate, scale, stream);
 }
 
 TT_EXPORT int tt_flash_ablate_i8(const void* q, const void* kq, long long ksb, long long ksh,
@@ -958,12 +1159,7 @@ TT_EXPORT int tt_flash_ablate_i8(const void* q, const void* kq, long long ksb, l
                                  long long vcb, long long vch, long long vcs, const void* pos,
                                  void* out, int B, int H, int R, int S, int G, int Dh, int ablate,
                                  float scale, void* stream) {
-  const KvView kv{static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd,
-                  static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs};
-  const KvView vv{static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd,
-                  static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs};
-  return launch_ablate<true>(q, kv, vv, pos, out, B, H, R, S, G, Dh, ablate, scale,
-                             static_cast<cudaStream_t>(stream));
+  return launch_ablate<true>(TT_FLASH_PASS, out, B, H, R, S, G, Dh, ablate, scale, stream);
 }
 
 // K4' (tt_flash_heads, int4; tt_flash_heads_i8, int8) and K13

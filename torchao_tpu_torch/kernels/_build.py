@@ -73,17 +73,18 @@ c_float = ctypes.c_float
 # against the sources). ctypes does not check a call's argument count, so
 # :meth:`KernelLibrary.launch` does.
 _BDQ = [c_ptr] * 10 + [c_int] * 6 + [c_float, c_ptr]
-_FLASH = (
+# q, the K view (pointer, 4 strides, scales, 3 strides), the V view, pos
+_VIEWS = (
     [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-    + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-    + [c_ptr] * 2 + [c_int] * 6 + [c_float, c_ptr]
+    + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3 + [c_ptr]
 )
-# _FLASH with split-K scratch (ws_m, ws_l, ws_acc) and QT, nsplit, keys per split
-_HEADS = (
-    [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-    + [c_ptr] + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
-    + [c_ptr] * 5 + [c_int] * 9 + [c_float, c_ptr]
-)
+# K4: ws_m, ws_l, ws_acc (null for one split), out, B, H, R, S, G, Dh, nsplit,
+# keys per split, scale, stream
+_FLASH = _VIEWS + [c_ptr] * 4 + [c_int] * 8 + [c_float, c_ptr]
+# K4's rungs: out, B, H, R, S, G, Dh, the rung, scale, stream
+_ABLATE = _VIEWS + [c_ptr] + [c_int] * 7 + [c_float, c_ptr]
+# K4' and K13: the scratch, out, and B, H, R, S, G, Dh, QT, nsplit, keys per split
+_HEADS = _VIEWS + [c_ptr] * 4 + [c_int] * 9 + [c_float, c_ptr]
 # kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 # x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream
@@ -100,7 +101,7 @@ SIGNATURES = {
     "tt_int4_gemv_stub": _INT4,
     "tt_int4_group_partial": _INT4,
     "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
-    "tt_int4_tiled": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
+    "tt_int4_tiled": _INT4,  # ws may be null (ksplit 1)
     # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
     "tt_int4_gemv_eff4": [c_ptr] * 5 + [c_int] * 5 + [c_ptr],
     "tt_int4_gemv_m1": [c_ptr] * 5 + [c_int] * 6 + [c_ptr],
@@ -123,9 +124,8 @@ SIGNATURES = {
     "tt_bdq_decode_stub_i8": _BDQ,
     "tt_flash_prefill": _FLASH,
     "tt_flash_prefill_i8": _FLASH,
-    # _FLASH with the rung before the scale
-    "tt_flash_ablate": _FLASH[:-2] + [c_int] + _FLASH[-2:],
-    "tt_flash_ablate_i8": _FLASH[:-2] + [c_int] + _FLASH[-2:],
+    "tt_flash_ablate": _ABLATE,
+    "tt_flash_ablate_i8": _ABLATE,
     "tt_flash_heads": _HEADS,
     "tt_flash_heads_i8": _HEADS,
     "tt_smajor_attention": _HEADS,

@@ -53,6 +53,7 @@ ceiling probe's: K1's launch structure and loads with one raw-byte dot.
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Optional
@@ -66,7 +67,11 @@ from torchao_tpu_torch.utils import cdiv
 GEMV_MAX_M = 32
 BANDED_MAX_M = 16  # the JAX banded bodies' M limit
 GEMV_RUN = 8       # packed rows per GEMV run (csrc RUN)
-TILED_KP = 16      # packed rows per tiled step (csrc TKP)
+TILED_KP = 16      # packed rows per K5 unit: K/2 is a multiple, the K split's unit (csrc TKP)
+TILED_BKP = 32     # packed rows per K5 step; a split ending on an odd unit takes one of 16 (csrc TBKP)
+TILED_BM = 128     # rows of x per K5 block (csrc TBM)
+TILED_BN = 128     # columns per K5 block (csrc TBN)
+TILED_BLOCKS_PER_SM = 2  # K5 blocks resident per SM (its shared memory and registers)
 _GEMV_TN = 128     # columns per GEMV block (csrc GEMV_TN)
 _GEMV_LANES = 32   # run lanes per GEMV block (csrc GEMV_LANES)
 TARGET_BLOCKS = 1024
@@ -307,9 +312,23 @@ def _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored):
                          f"{TILED_KP}, g of {GEMV_RUN}, N={N} of 16")
     if stacked and not 0 <= layer_idx < wp.shape[0]:
         raise IndexError(f"layer_idx {layer_idx} out of range for {wp.shape[0]} layers")
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
+    for name, t in (("x", x), ("wp", wp), ("scale", scale), ("zero", zero)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     return M, K, N
+
+
+def tiled_ksplit(M: int, K: int, N: int, sms: int) -> int:
+    """K5's K split: the blocks of one wave (``TILED_BLOCKS_PER_SM`` per
+    SM) over the ``ceil(M/128)·ceil(N/128)`` output tiles, at most one split
+    per unit of ``TILED_KP`` packed rows."""
+    tiles = cdiv(M, TILED_BM) * cdiv(N, TILED_BN)
+    return max(1, min(K // 2 // TILED_KP, TILED_BLOCKS_PER_SM * sms // tiles))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ksplit(M, K, N, target, mt, units=None):
@@ -335,7 +354,11 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     stream = _build.stream_handle(x.device)
     ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
     if body == "tiled":
-        lib.launch("tt_int4_tiled", *ptrs, out.data_ptr(), M, K, N, group_size, stream)
+        ksplit = tiled_ksplit(M, K, N, _sm_count(x.device.index or 0))
+        ws = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+              if ksplit > 1 else None)
+        lib.launch("tt_int4_tiled", *ptrs, 0 if ws is None else ws.data_ptr(), out.data_ptr(),
+                   M, K, N, group_size, ksplit, stream)
     else:
         if body == "gemv":  # K1's split ignores its M tiles (M <= 32)
             ksplit = _ksplit(1, K, N, target, 1)

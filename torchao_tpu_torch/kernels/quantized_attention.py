@@ -56,7 +56,9 @@ from torchao_tpu_torch.utils import cdiv
 
 DECODE_CHUNK = 128  # keys per decode block (csrc DEC_CHUNK)
 FLASH_FK = 32       # keys per K4 tile (csrc FK)
-FLASH_FQ = 64       # query rows per K4 block (csrc FQ)
+FLASH_FQ = 32       # query rows per K4 block (csrc FQ)
+FLASH_SPLIT = 16    # K4's keys per split are a multiple of this (csrc F_SPLIT)
+FLASH_BLOCKS = 128  # K4 blocks to aim for: the keys are split until about this many
 ABLATE_RUNGS = ("none", "noexp", "nosoftmax", "nomaskexp", "dotsonly")  # csrc Ablate order
 NEG_INF = -1e30     # the JAX kernels' running-max start and mask value
 HEADS_FK = 16       # keys per head-folded tile (csrc HF_FK)
@@ -315,6 +317,17 @@ def quantized_kv_decode_attention_ablate_plain(q, k_q, k_scale, v_q, v_scale, po
     return acc / torch.maximum(l, torch.tensor(1e-30, device=dev))[..., None]
 
 
+def flash_plan(B: int, H: int, R: int, S: int):
+    """K4's grid: ``(query blocks, key splits, keys per split)``. A block
+    takes ``FLASH_FQ`` rows of one head; where the ``B·H·ceil(R/FLASH_FQ)``
+    blocks are fewer than ``FLASH_BLOCKS``, the keys are split, in
+    multiples of ``FLASH_SPLIT``, until about that many are in flight."""
+    nq = cdiv(R, FLASH_FQ)
+    units = cdiv(S, FLASH_SPLIT)
+    per = cdiv(units, min(units, cdiv(FLASH_BLOCKS, B * H * nq)))
+    return nq, cdiv(units, per), per * FLASH_SPLIT
+
+
 def _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t, dh_ok=(64, 128)):
     """Shapes, dtypes and devices of a head-major call (views of any
     strides); returns ``(int8, G)``."""
@@ -388,11 +401,17 @@ def quantized_kv_decode_attention(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     out = torch.empty((B, H, R, Dh), dtype=torch.float32, device=q.device)
+    _, nsplit, kps = flash_plan(B, H, R, S)
+    ws = [0, 0, 0]  # null scratch: one split writes out itself
+    if nsplit > 1:
+        parts = [torch.empty((B * H * nsplit * R * n,), dtype=torch.float32, device=q.device)
+                 for n in (1, 1, Dh)]
+        ws = [t.data_ptr() for t in parts]
     ks, kcs, vs, vcs = k_q.stride(), k_scale.stride()[:3], v_q.stride(), v_scale.stride()[:3]
     _build.library().launch(
         "tt_flash_prefill_i8" if int8 else "tt_flash_prefill", q.data_ptr(), k_q.data_ptr(),
         *ks, k_scale.data_ptr(), *kcs, v_q.data_ptr(), *vs, v_scale.data_ptr(), *vcs,
-        pos.data_ptr(), out.data_ptr(), B, H, R, S, G, Dh, float(scale),
+        pos.data_ptr(), *ws, out.data_ptr(), B, H, R, S, G, Dh, nsplit, kps, float(scale),
         _build.stream_handle(q.device),
     )
     _build.LAUNCHES["quantized_kv_decode_attention" + ("_int8" if int8 else "")] += 1

@@ -5,11 +5,14 @@ the per-head attention kernel (``quantized_kv_decode_attention(ablate=…)``,
 wrong math on every rung but ``none``), to find which stage holds K4 at
 decode far from its bytes bound:
 
-    none       K4 itself
+    none       K4 itself (at R = 4 its keys split over the grid: 128 blocks)
     noexp      exp -> identity
     nosoftmax  no max / exp / alpha / l chain
     nomaskexp  also no causal mask
     dotsonly   raw q.K and scores.V dots only
+               (each rung runs K4's blocks, tiles and loader with one key
+               split, 8 blocks: its partials would not combine as softmax
+               partials do, so a rung against ``none`` also prices the split)
     bdq        K2′ (int8) / K2 (int4) on the split-flat view of the same cache
     xla_sum    a plain torch sum over the same cache (the JAX script's XLA arm:
                no kernel of the package there either)
