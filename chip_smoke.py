@@ -32,7 +32,8 @@ Phases (each fails loudly; nothing is caught):
      memory order), the fold variable unset: K4 at decode and prefill.
 
    In each: every kernel of the configuration against its plain PyTorch
-   version on the card at the main path's shapes, with its time (CUDA
+   version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
+   and K9's tensor-core forms 65 and 60 dB), with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
    head's plain-torch route, K8 and the route it takes); the main path — prefill 128
@@ -49,7 +50,8 @@ Phases (each fails loudly; nothing is caught):
    ``TORCHAO_TPU_INT4_VARIANT=banded`` (K14c at decode, K5 at prefill),
    ``group_partial`` (K14a everywhere) and ``TORCHAO_TPU_AUTOTUNE=1`` with a
    cache in a temporary directory (each shape's pick printed and its launch
-   counts asserted) — after K14a (M = 1, 128), K14b and K14c (M = 1) against
+   counts asserted) — after K14a (M = 1; M = 128, its tensor-core form,
+   with the weights' zero and without), K14b and K14c (M = 1) against
    their plain versions at the model's shapes; the 2-layer check runs under
    ``banded``.
 
@@ -191,6 +193,12 @@ BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, the same source
 INT8_FP8_OPS = 1979e12     # dense int8 / fp8 tensor-core peak, the same source
 REPS = 25
 TOL_EXACT_PARTIALS_DB = 80.0  # K10 in f32: exact int32 partials, f32 sums in another order
+# K14a's tensor-core form (M > 32): its exact-nibble rounding against _kernel_v2's plain
+# version; 65 dB separates it from K5's dequantize-then-round (~51 dB)
+TOL_K14A_TILED_DB = 65.0
+# K9 tiled (the head at M = 128): e4m3 mma.sync with f32 accumulators, no promotion, over
+# K = 4096, against the plain version's exact products and f32 sum
+TOL_K9_TILED_DB = 60.0
 LONG_S = 8192  # the long-context phase's cache length
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
 
@@ -239,6 +247,8 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                              "torchao_tpu/kernels/w4a8_matmul.py:161"),
     "int4_dq_matmul_group_partial": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                                      "torchao_tpu/kernels/int4_matmul.py:723"),
+    "int4_dq_matmul_zero_free_group_partial": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                               "torchao_tpu/kernels/int4_matmul.py:723"),
     "int4_dq_matmul_banded": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                               "torchao_tpu/kernels/int4_matmul.py:1054"),
     "int4_dq_matmul_banded_stacked": ("torchao_tpu_torch/csrc/int4_matmul.cu",
@@ -303,6 +313,7 @@ class Tally:
         self.library_ms = 0.0
         self.has_library = False
         self.max_abs_err = 0.0
+        self.extra = {}  # more keys of the row (the least SQNR of its checks, ...)
 
     def add(self, count, ms, plain_ms, nbytes, flops, err, library_ms=None):
         self.ms += count * ms
@@ -321,12 +332,14 @@ class Tally:
                 "launches": launches, "max_abs_err": self.max_abs_err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": self.library_ms if self.has_library else None,
-                "work": self.work}
+                "work": self.work,
+                **{k: None if isinstance(v, float) and not math.isfinite(v) else v
+                   for k, v in self.extra.items()}}
 
 
 def compare(name, got, want, exact=False, tol=TOL_SQNR_DB):
     """Max abs error; raises unless the kernel agrees with its plain
-    version (bit-exact, or SQNR >= tol)."""
+    version (bit-exact, or SQNR >= tol, in dB)."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     if exact:
@@ -620,12 +633,14 @@ def _centred(x):
     return (q.to(torch.int32) - zp.to(torch.int32).reshape(-1, 1)).bfloat16()
 
 
-def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None):
+def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None,
+                 tol=TOL_SQNR_DB):
     """One kernel form at M on each (weight name, weight, layer, launches per
-    forward) of ``cases``, against its plain version. ``call(x, w, layer)``
-    gives the kernel call, the plain call, the bytes the function must move
-    and its operations; the library call is ``library(x, w, layer)``'s, or
-    a bf16 ``torch.matmul`` on the dequantized weight."""
+    forward) of ``cases``, against its plain version (SQNR >= ``tol``).
+    ``call(x, w, layer)`` gives the kernel call, the plain call, the bytes
+    the function must move and its operations; the library call is
+    ``library(x, w, layer)``'s, or a bf16 ``torch.matmul`` on the
+    dequantized weight. The row keeps the least SQNR as ``sqnr_db``."""
     t = Tally(name, f"one {'decode step' if M <= 16 else 'prefill'} at M={M}: "
               + ", ".join(f"{n} x{c}" for n, _, _, c in cases), peak)
     for wname, w, l, count in cases:
@@ -634,7 +649,11 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
         if make_x is not None:
             x = make_x(x)
         kernel, plain, nbytes, flops = call(x, w, l)
-        err = compare(f"{name} {wname} M={M} N={N} K={K}", kernel(), plain())
+        got, want = kernel(), plain()
+        err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, tol=tol)
+        sqnr = compute_error(want, got)
+        t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
+        del got, want
         lib = library(x, w, l) if library is not None else None
         if lib is None:
             wl = w.take_layer(l) if l is not None else w
@@ -692,7 +711,9 @@ def _float8dq_row_kernels(params, args, gen):
                         False)
     head = _cases(params, args.n_layer, True)[-1:]
     tallies += [check_shapes(f"fp8_rowwise_matmul_{form}", head, M, _fp8_row_call, gen,
-                             INT8_FP8_OPS, library=_fp8_row_library) for form, M in FORMS]
+                             INT8_FP8_OPS, library=_fp8_row_library,
+                             tol=TOL_K9_TILED_DB if form == "tiled" else TOL_SQNR_DB)
+                for form, M in FORMS]
     return tallies
 
 
@@ -1187,23 +1208,33 @@ VARIANTS_SECTION = f"int4wo-{GROUP}-variants"
 
 
 def _k14_kernels(params, args, gen):
-    """K14a at M = 1 and 128, K14c (the default layout: a chunk applies to
-    every Llama-3-8B shape) and K14b (``TORCHAO_TPU_QPARAMS_LAYOUT=family``)
-    at M = 1, on every stacked weight and the head; each group of checks
-    launches its own kernel and no other."""
+    """K14a at M = 1 and 128 (at 128 its tensor-core form, with its zero and
+    zero-free: the same weights without their zero), K14c (the default
+    layout: a chunk applies to every Llama-3-8B shape) and K14b
+    (``TORCHAO_TPU_QPARAMS_LAYOUT=family``) at M = 1, on every stacked
+    weight and the head; each group of checks launches its own kernel and
+    no other."""
     cases = _cases(params, args.n_layer, True)
-    checks = (("int4_dq_matmul_group_partial", "group_partial", 1, {}),
-              ("int4_dq_matmul_group_partial", "group_partial", PROMPT, {}),
-              ("int4_dq_matmul_banded_stacked", "banded", 1, {}),
-              ("int4_dq_matmul_banded", "banded", 1, {"TORCHAO_TPU_QPARAMS_LAYOUT": "family"}))
+    zero_free = _cases(params, args.n_layer, True,
+                       lambda w: dataclasses.replace(w, zero_point=None))
+    gp, gp_tiled, banded = "tt_int4_group_partial", "tt_int4_group_partial_tiled", "tt_int4_banded"
+    checks = (("int4_dq_matmul_group_partial", "group_partial", 1, {}, cases, TOL_SQNR_DB, gp),
+              ("int4_dq_matmul_group_partial", "group_partial", PROMPT, {}, cases,
+               TOL_K14A_TILED_DB, gp_tiled),
+              ("int4_dq_matmul_zero_free_group_partial", "group_partial", PROMPT, {}, zero_free,
+               TOL_K14A_TILED_DB, gp_tiled),
+              ("int4_dq_matmul_banded_stacked", "banded", 1, {}, cases, TOL_SQNR_DB, banded),
+              ("int4_dq_matmul_banded", "banded", 1, {"TORCHAO_TPU_QPARAMS_LAYOUT": "family"},
+               cases, TOL_SQNR_DB, banded))
     tallies = []
-    for name, variant, M, env in checks:
+    for name, variant, M, env, on, tol, entry in checks:
         with _environment(env):
             _build.reset_launch_counts()
-            tallies.append(check_shapes(name, cases, M, functools.partial(_int4_call, variant=variant),
-                                        gen))
-            if set(_build.LAUNCHES) != {name}:
-                raise AssertionError(f"{variant} at M={M}: launches {dict(_build.LAUNCHES)}")
+            tallies.append(check_shapes(name, on, M, functools.partial(_int4_call, variant=variant),
+                                        gen, tol=tol))
+            if set(_build.LAUNCHES) != {name} or set(_build.ENTRIES) != {entry}:
+                raise AssertionError(f"{variant} at M={M}: launches {dict(_build.LAUNCHES)}, "
+                                     f"entries {dict(_build.ENTRIES)}")
     return tallies
 
 
@@ -1213,7 +1244,8 @@ def _attention_counts(L):
 
 def _variant_run(model, params, label, env):
     """One ``benchmark_decode`` of the section's model under ``env``, the
-    choices made afresh; returns (e2e numbers, launch counts, choices)."""
+    choices made afresh; returns (e2e numbers, launch counts, choices,
+    launches per int4 entry point)."""
     log(f"  -- {label}: {env}")
     with _environment(env):
         reset_variant_choices()
@@ -1227,7 +1259,7 @@ def _variant_run(model, params, label, env):
         res = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
                                kv_cache_quantization="int4_smajor", temperature=TEMPERATURE,
                                top_k=TOP_K, warmup=1, iters=1, on_run=on_run)
-        counts, choices = dict(_build.LAUNCHES), variant_choices()
+        counts, choices, entries = dict(_build.LAUNCHES), variant_choices(), dict(_build.ENTRIES)
         reset_variant_choices()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = res["tokens"]
@@ -1241,7 +1273,7 @@ def _variant_run(model, params, label, env):
         f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
         f"peak_GB={peak_gb:.3f}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
-    return e2e, counts, choices
+    return e2e, counts, choices, entries
 
 
 def _expect(counts, want, label):
@@ -1266,7 +1298,7 @@ def variants_section(gen):
     torch.cuda.empty_cache()
 
     banded = {VARIANT_ENV: "banded"}
-    e2e_a, counts, _ = _variant_run(model, params, "banded", banded)
+    e2e_a, counts, _, _ = _variant_run(model, params, "banded", banded)
     _expect(counts, {"int4_dq_matmul_banded_stacked": (4 * L + 1) * DECODE,
                      "int4_dq_matmul_tiled": 4 * L + 1, **_attention_counts(L)}, "banded")
     with _environment(banded):
@@ -1275,15 +1307,18 @@ def variants_section(gen):
         reset_variant_choices()
     e2e_a.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
 
-    e2e_b, counts_b, _ = _variant_run(model, params, "group_partial",
-                                      {VARIANT_ENV: "group_partial"})
+    e2e_b, counts_b, _, entries_b = _variant_run(model, params, "group_partial",
+                                                 {VARIANT_ENV: "group_partial"})
     _expect(counts_b, {"int4_dq_matmul_group_partial": (4 * L + 1) * (DECODE + 1),
                        **_attention_counts(L)}, "group_partial")
+    # the prefill (M = 128) on the tensor-core form, each decode step on the SIMT one
+    _expect(entries_b, {"tt_int4_group_partial_tiled": 4 * L + 1,
+                        "tt_int4_group_partial": (4 * L + 1) * DECODE}, "group_partial entries")
 
     with tempfile.TemporaryDirectory() as tmp:
         tune = {"TORCHAO_TPU_AUTOTUNE": "1",
                 "TORCHAO_TPU_AUTOTUNE_CACHE": os.path.join(tmp, "autotune_cache.json")}
-        e2e_c, counts_c, picks = _variant_run(model, params, "autotuned", tune)
+        e2e_c, counts_c, picks, _ = _variant_run(model, params, "autotuned", tune)
     want = collections.Counter(_attention_counts(L))
     for (M, N, K, g, stacked, _), body in sorted(picks.items()):
         log(f"  autotune pick M={M} N={N} K={K} g={g}{' stacked' if stacked else ''}: {body}")

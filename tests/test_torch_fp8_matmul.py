@@ -55,7 +55,7 @@ def test_fp8_mixed_matmul_matches_jax_kernel(M, K, x_kind, w_scale):
 # ----------------------------------------------------- K9 (slice 3) --
 
 
-@pytest.mark.parametrize("M", [1, 32, 128])
+@pytest.mark.parametrize("M", [1, 32, 128, 33, 130])
 @pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
 def test_fp8_rowwise_matmul_matches_jax_kernel(M, out_dtype):
     """K9 against the JAX package's ``fp8_rowwise_matmul`` (interpret mode),
@@ -81,6 +81,29 @@ def test_fp8_rowwise_matmul_matches_jax_kernel(M, out_dtype):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     else:
         assert compute_error(torch.from_numpy(want), got) >= 40
+
+
+@pytest.mark.parametrize("M", [33, 128, 130])
+def test_fp8_rowwise_matmul_ragged_n_matches_jax_kernel(M):
+    """K9 at the tiled form's M (ragged 33 and 130, and 128) with N = 200,
+    not a multiple of the JAX block (128) nor of 16, against the JAX
+    package's kernel in interpret mode. bf16 out: SQNR >= 40 dB, as above."""
+    from torchao_tpu.kernels.fp8_matmul import fp8_rowwise_matmul as j_row
+    from torchao_tpu_torch.kernels.fp8_matmul import fp8_rowwise_matmul
+    from torchao_tpu_torch.utils import compute_error
+
+    rs = np.random.RandomState(M + 7)
+    K, Nr = 512, 200
+    xj, xt = _e4m3(rs, (M, K))
+    wj, wt = _e4m3(rs, (Nr, K))
+    xs = (rs.rand(M) * 0.02 + 0.001).astype(np.float32)
+    ws = (rs.rand(Nr) * 0.02 + 0.001).astype(np.float32)
+    want = torch.from_numpy(np.asarray(
+        j_row(xj, wj, jnp.asarray(xs), jnp.asarray(ws), bn=128, bk=256,
+              interpret=True).astype(jnp.float32)))
+    got = fp8_rowwise_matmul(xt, wt, torch.from_numpy(xs), torch.from_numpy(ws))
+    assert got.shape == (M, Nr) and got.dtype == torch.bfloat16
+    assert compute_error(want, got) >= 40
 
 
 def test_float8dq_row_head_takes_k9():

@@ -10,6 +10,9 @@ against the JAX package.
   dB (measured >= 128). In bf16 the outputs are equal but for an
   occasional one-ulp rounding of a sum that lies on a rounding edge: SQNR
   >= 80 dB (measured >= 89).
+- K14a's launch: its tensor-core entry above M = 32 (g a multiple of 32),
+  its SIMT entry at M <= 32, under one launch counter; the K split of the
+  tensor-core form holds whole groups (plain Python, so checked here).
 - The selection: for each (M, variant, stacked, qparams layout) the port
   runs the body that the JAX package's dispatch runs, warning where it
   warns (the JAX bodies are recorded while tracing and never run). ``auto``
@@ -171,7 +174,7 @@ def test_banded_plain_matches_jax_body(monkeypatch, M, stacked, layout, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
 @pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
-@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("M", [1, 8, 40, 128, 33])
 def test_group_partial_plain_matches_jax_body(M, stacked, zero_free, dtype):
     """K14a against ``_kernel_v2``; zero-free: the JAX dispatch's zeros."""
     x, wp, scale, zero = _operands(M + 3 * stacked + zero_free, M, zero_free)
@@ -186,6 +189,59 @@ def test_group_partial_plain_matches_jax_body(M, stacked, zero_free, dtype):
     got = TK.int4_dq_matmul(_t(x, getattr(torch, dtype)), torch.from_numpy(w[0]), _t(w[1]), tz,
                             group_size=G, layer_idx=l, xored=True, variant="group_partial")
     _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("M", [33, 128])
+def test_group_partial_plain_matches_jax_body_g128(M, zero_free, dtype):
+    """K14a at the prefill's M (and a ragged one) with g = 128 (fp6's A
+    planes and other g = 128 recipes), stacked, against ``_kernel_v2``."""
+    g = 128
+    rs = np.random.RandomState(M + zero_free)
+    x = rs.randn(M, K).astype(np.float32)
+    wp = rs.randint(0, 256, (L, K // 2, N)).astype(np.uint8)
+    scale = _bf16(rs.rand(L, K // g, N) * 0.01 + 0.005)
+    zero = np.zeros_like(scale) if zero_free else _bf16(rs.randn(L, K // g, N) * 0.02)
+    want = JK.int4_dq_matmul(jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(wp),
+                             jnp.asarray(scale, jnp.bfloat16), jnp.asarray(zero, jnp.bfloat16),
+                             group_size=g, variant="group_partial", layer_idx=1, xored=True,
+                             interpret=True)
+    got = TK.int4_dq_matmul(_t(x, getattr(torch, dtype)), torch.from_numpy(wp), _t(scale),
+                            None if zero_free else _t(zero), group_size=g, layer_idx=1,
+                            xored=True, variant="group_partial")
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
+def test_group_partial_launches_its_tensor_core_form_above_m32(zero_free):
+    """``group_partial`` (K14a) launches ``tt_int4_group_partial_tiled``
+    above M = 32 where g is a multiple of 32, and the SIMT
+    ``tt_int4_group_partial`` at M <= 32 (and for other g), under the one
+    counter; the new entry has the int4 ctypes signature; its K split
+    fills one wave in whole groups at Llama-3-8B's prefill shapes."""
+    from torchao_tpu_torch.kernels import _build
+
+    for M, g, entry in ((1, 32, "tt_int4_group_partial"), (32, 32, "tt_int4_group_partial"),
+                        (33, 32, "tt_int4_group_partial_tiled"),
+                        (128, 32, "tt_int4_group_partial_tiled"),
+                        (128, 64, "tt_int4_group_partial_tiled"),
+                        (128, 128, "tt_int4_group_partial_tiled"),
+                        (128, 16, "tt_int4_group_partial")):
+        assert TK.launch_entry("group_partial", M, g) == entry, (M, g)
+        assert TK.launch_counter("group_partial", zero_free) == (
+            "int4_dq_matmul_zero_free_group_partial" if zero_free
+            else "int4_dq_matmul_group_partial")
+        assert _build.SIGNATURES[entry] == _build.SIGNATURES["tt_int4_gemv"]
+    assert TK.launch_entry("tiled", 128, 32) == "tt_int4_tiled"
+    # (N, K) of wqkv, wo, w13, w2 and the head: 48, 32, 224, 32 and 1002 tiles
+    # of 128 x 128 on 132 SMs
+    for (N, K_), want in (((6144, 4096), 2), ((4096, 4096), 4), ((28672, 4096), 1),
+                          ((4096, 14336), 4), ((128256, 4096), 1)):
+        for g in (32, 128):
+            ks = TK.group_partial_tiled_ksplit(128, K_, N, g, 132)
+            assert ks == want and 1 <= ks <= K_ // 2 // g, (N, K_, g, ks)
+    assert TK.group_partial_tiled_ksplit(128, 256, 128, 128, 132) == 1  # one group per half
 
 
 # -------------------------------------------------------------- selection --

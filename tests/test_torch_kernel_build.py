@@ -161,7 +161,7 @@ def test_int4_kernel_matches_plain(cuda, M):
 # split ends on a 16-row step)
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [33, 100, 128, 257])
-@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("g", [32, 64, 128])
 @pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
 @pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
 def test_tiled_int4_kernel_matches_plain(cuda, M, g, zero, stacked):
@@ -795,3 +795,64 @@ def test_dtype_probe_kernels(cuda):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+# ------------------------------------------ tensor-core redesigns on a card --
+
+TOL_K14A_TILED_DB = 65.0  # separates K14a's exact-nibble rounding from K5's (~51 dB)
+# K9 tiled: e4m3 mma.sync with f32 accumulators and no promotion, over K = 4096
+TOL_K9_TILED_DB = 60.0
+
+
+# K = 14336 (K/2 = 7168: 224 groups of 32, 112 of 64, 56 of 128), N = 4096 + 16 a
+# ragged column tile; M = 33 and 130 ragged row tiles. "split": the
+# wrapper's own K split (4 at M <= 128, 2 at M = 130 on 132 SMs), or one.
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_split"])
+@pytest.mark.parametrize("M", [33, 128, 130])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
+def test_group_partial_tiled_kernel_matches_plain(cuda, monkeypatch, M, g, zero, stacked, split):
+    """K14a's tensor-core form (M > 32) against ``_kernel_v2``'s plain
+    version, launching ``tt_int4_group_partial_tiled`` under K14a's one
+    counter."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+
+    K, N = 14336, 4096 + 16
+    if not split:
+        monkeypatch.setattr(TK, "group_partial_tiled_ksplit", lambda *a: 1)
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert TK.group_partial_tiled_ksplit(M, K, N, g, sms) > 1
+    gen = torch.Generator(device=cuda).manual_seed(M + g + zero + stacked)
+    wp, scale, z = _int4_weight(gen, 2, K, N, g, cuda)
+    args = (wp, scale, z if zero else None) if stacked else (
+        wp[1].clone(), scale[1].clone(), z[1].clone() if zero else None)
+    kw = dict(group_size=g, layer_idx=1 if stacked else None, xored=True)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    assert TK.launch_entry("group_partial", M, g) == "tt_int4_group_partial_tiled"
+    name = TK.launch_counter("group_partial", not zero)
+    before = _build.LAUNCHES[name], _build.ENTRIES["tt_int4_group_partial_tiled"]
+    got = int4_dq_matmul(x, *args, variant="group_partial", **kw)
+    assert (_build.LAUNCHES[name], _build.ENTRIES["tt_int4_group_partial_tiled"]) == (
+        before[0] + 1, before[1] + 1)
+    _sqnr_ok(got, TK.int4_dq_matmul_group_partial_plain(x, *args, **kw), TOL_K14A_TILED_DB)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4096, 4096 + 32])
+@pytest.mark.parametrize("M", [33, 128, 130])
+def test_fp8_rowwise_tiled_kernel_matches_plain(cuda, M, K):
+    """K9's e4m3 tensor-core form at K = 4096 (the head's) and at K =
+    4128, whose last ring stage holds one 32-k step of its four; ragged N."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    N = 4096 + 40
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+    w = (torch.randn((N, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+    xs = torch.rand((M,), generator=gen, device=cuda) * 0.01 + 0.001
+    ws = torch.rand((N,), generator=gen, device=cuda) * 0.01 + 0.001
+    before = _build.LAUNCHES["fp8_rowwise_matmul_tiled"]
+    got = fp8_rowwise_matmul(x, w, xs, ws)
+    assert _build.LAUNCHES["fp8_rowwise_matmul_tiled"] == before + 1
+    _sqnr_ok(got, fp8_rowwise_matmul_plain(x, w, xs, ws), TOL_K9_TILED_DB)

@@ -67,8 +67,9 @@
 // compile-time parameters of K1's CUDA template (CUDA, as K1, so that only
 // the layout differs), and production K1 is the same instantiation as before.
 //
-// The int4 variants K14a (group_partial) and K14b/K14c (banded) follow the
-// tiled form below.
+// The int4 variants K14a (group_partial: a SIMT form, and above M = 32 a
+// tensor-core form on K5's tile) and K14b/K14c (banded) follow the tiled
+// form below.
 //
 // Zero-free form: a null `zr` means z = 0 (the symmetric 8da4w weight and
 // fp6's A plane: dq = (q - 8) * s). The kernels are templated on it, so that
@@ -568,9 +569,10 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p, i
 //
 // Any M: a block takes MT rows (1 at M = 1, else 4) and reuses each weight
 // run from registers; the M tiles of a column block are neighbours in the
-// grid (blockIdx.x), so at prefill (M = 128: 32 tiles) a weight block comes
-// from device memory once and from L2 after. grid: (ceil(M / MT),
-// ceil(N / 128), ksplit).
+// grid (blockIdx.x), so a weight block comes from device memory once and
+// from L2 after. The wrapper takes this SIMT form at M <= 32 (decode) and
+// where g % 32 != 0; above M = 32 the tensor-core form below runs.
+// grid: (ceil(M / MT), ceil(N / 128), ksplit).
 template <int MT, bool HAS_Z>
 __global__ void __launch_bounds__(GEMV_THREADS)
 int4_group_partial_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
@@ -649,6 +651,249 @@ int4_group_partial_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __
     }
   }
   store_split<MT>(acc, ws, blockIdx.z, m0, blockIdx.y, M, N);
+}
+
+// K14a at M > 32, tt_int4_group_partial_tiled: the same function as the
+// SIMT form above (_kernel_v2's rounding), on the tensor cores. Bound by
+// operations on an H100 (at M = 128, 2 M N K flops at the 989 TFLOP/s bf16
+// peak: 1.943 ms per Llama-3-8B prefill, against 1.4 ms of packed bytes).
+// _kernel_v2 is a set of per-group MXU sub-matmuls with f32 epilogues on
+// the partials, so its counterpart here is K5's tile with that epilogue:
+//   - B of a bf16 mma.sync.m16n8k16 is the RAW nibble (lo, or hi = (w -
+//     lo) / 16; 0..15, exact in bf16), never (q - 8) s: the products and
+//     the f32 partial P_g = x_g . Q_g are what _kernel_v2's jnp.dot gives.
+//   - P_g lives in its own register accumulator, zeroed when the group
+//     starts; when it ends it is folded into the running f32 accumulator,
+//     acc += P_g s_g[n] + rs_g[m] z2_g[n], with z2 = bf16(z - 8 s) (zero-free:
+//     bf16(-8 s)) and rs_g the group's f32 sum of x, not rounded to bf16.
+//     The output is rounded once.
+//   - One partial at a time: a block walks its K split group by group, and
+//     each group's lo half before its hi half, in sub-steps of TBKP = 32
+//     packed rows of ONE half (x: 128 x 32 values; the packed tile, whose
+//     other nibble the other half's sub-step takes, comes from L2 the second
+//     time). So g % 32 == 0 (g = 32: one sub-step per group and half).
+//   - Registers: 64 f32 accumulators and 64 partials per thread (8 warps of
+//     64 x 32, K5's 128 x 128 tile) do not fit K5's 128 registers at two
+//     blocks per SM, so the kernel runs one block per SM (launch bound 1, up
+//     to 255 registers; -Xptxas -v: 220 registers with the zero, 219
+//     zero-free, no spills) with a deeper ring: four stages of x, the packed
+//     tile and the group's scale/zero rows, by 16-byte cp.async (67 KB).
+//   - The fold is SIMT f32 work (two FMAs per accumulator per group and
+//     half: at g = 32 about the issue slots of the mma itself); rs_g is
+//     summed from the x tile already in shared memory, one row per pair of
+//     threads, as the nibbles are converted.
+//   - The K split (ws, int4_reduce_kernel) starts and ends on group
+//     boundaries, so a split never holds half a group; M and N edges are
+//     masked (N % 16 == 0).
+constexpr int GP_STAGES = 4;
+constexpr int GP_TXS = TBKP + 8;   // x tile row, bf16 (+8: ldmatrix rows on distinct banks)
+constexpr int GP_TBS = TBN + 8;    // nibble tile row, bf16
+constexpr int GP_X_BYTES = TBM * GP_TXS * 2;
+constexpr int GP_W_BYTES = TBKP * TBN;
+constexpr int GP_Q_BYTES = 2 * TBN * 2;  // the group's scale and zero rows
+constexpr int GP_STAGE_BYTES = GP_X_BYTES + GP_W_BYTES + GP_Q_BYTES;
+constexpr int GP_SMEM = GP_STAGES * GP_STAGE_BYTES + TBKP * GP_TBS * 2 + TBM * 4;
+
+// Two raw nibbles of `v4` (bytes j and j + 1, each 0..15) as bf16x2,
+// exactly (nib2_minus8 without the -8).
+__device__ __forceinline__ uint32_t nib2_raw(uint32_t v4, int j) {
+  const uint32_t w = __byte_perm(v4, 0x43434343u, j | 0x40 | ((j + 1) << 8) | 0x4000);
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
+                                   __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// grid: (ceil(N / TBN), ceil(M / TBM), ksplit). Split z takes groups
+// [z nG / ksplit, (z + 1) nG / ksplit) of the nG = K/2 / g packed-row groups;
+// sub-step st is group G0 + st / 2C, half (st / C) % 2, chunk st % C of the
+// C = g / TBKP chunks. ws null: out is written in bf16; else the f32
+// partial goes to ws[z, M, N].
+template <bool HAS_Z>
+__global__ void __launch_bounds__(T_THREADS, 1)
+int4_group_partial_tiled_kernel(const __nv_bfloat16* __restrict__ x,
+                                const uint8_t* __restrict__ wp,
+                                const __nv_bfloat16* __restrict__ sc,
+                                const __nv_bfloat16* __restrict__ zr,
+                                __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M,
+                                int K, int N, int g) {
+  extern __shared__ __align__(16) uint8_t gp_smem[];
+  __nv_bfloat16* bq = reinterpret_cast<__nv_bfloat16*>(gp_smem + GP_STAGES * GP_STAGE_BYTES);
+  float* rs = reinterpret_cast<float*>(gp_smem + GP_STAGES * GP_STAGE_BYTES + TBKP * GP_TBS * 2);
+  const int Kp = K / 2, nGh = Kp / g, C = g / TBKP;
+  const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
+  const int G0 = (int)((long long)blockIdx.z * nGh / gridDim.z);
+  const int G1 = (int)((long long)(blockIdx.z + 1) * nGh / gridDim.z);
+  const int steps = (G1 - G0) * 2 * C;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+  auto group_of = [&](int st) { return G0 + st / (2 * C); };
+  auto half_of = [&](int st) { return (st / C) % 2; };
+
+  // Issue sub-step st's copies into ring slot s: its half's x tile, the
+  // packed tile and the group's scale and zero rows of that half.
+  auto load = [&](int st, int s) {
+    uint8_t* base = gp_smem + s * GP_STAGE_BYTES;
+    const int gi = group_of(st), half = half_of(st), kp0 = gi * g + (st % C) * TBKP;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+    for (int c = tid; c < TBM * 4; c += T_THREADS) {  // 4 chunks of 8 values per row
+      const int m = c / 4, kc = (c % 4) * 8;
+      const bool ok = m0 + m < M;
+      cp_async<16>(xs + m * GP_TXS + kc, ok ? x + (size_t)(m0 + m) * K + half * Kp + kp0 + kc : x,
+                   ok);
+    }
+    {  // one 16-byte chunk per thread
+      const int r = tid / 8, c = (tid % 8) * 16;
+      const bool ok = n0 + c < N;
+      cp_async<16>(base + GP_X_BYTES + r * TBN + c, ok ? wp + (size_t)(kp0 + r) * N + n0 + c : wp,
+                   ok);
+    }
+    if (tid < (HAS_Z ? 32 : 16)) {
+      const int arr = tid / 16, col = (tid % 16) * 8;
+      const __nv_bfloat16* a = arr ? zr : sc;
+      const bool ok = n0 + col < N;
+      __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(base + GP_X_BYTES + GP_W_BYTES);
+      cp_async<16>(q + arr * TBN + col, ok ? a + (size_t)(half * nGh + gi) * N + n0 + col : a, ok);
+    }
+  };
+
+  // Sub-step st's nibbles of its half (slot s) into bq as bf16 0..15, and
+  // its 32 values of each row of x added to the group's x-sum rs.
+  auto convert = [&](int st, int s) {
+    const uint8_t* base = gp_smem + s * GP_STAGE_BYTES;
+    {
+      const int r = tid / 8, c = (tid % 8) * 16;
+      const uint4 wv = *reinterpret_cast<const uint4*>(base + GP_X_BYTES + r * TBN + c);
+      const uint32_t* wd = reinterpret_cast<const uint32_t*>(&wv);
+      const bool hi = half_of(st);
+      uint32_t o[8];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {  // columns c + 4d .. c + 4d + 3
+        const uint32_t q4 = hi ? ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u  // undo the 0x80 xor
+                               : wd[d] & 0x0F0F0F0Fu;
+        o[2 * d] = nib2_raw(q4, 0);
+        o[2 * d + 1] = nib2_raw(q4, 2);
+      }
+      *reinterpret_cast<uint4*>(bq + r * GP_TBS + c) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(bq + r * GP_TBS + c + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+    {
+      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base);
+      const int m = tid / 2, k0 = (tid % 2) * 16;
+      float f[16];
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(xs + m * GP_TXS + k0), f);
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(xs + m * GP_TXS + k0 + 8), f + 8);
+      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v += f[i];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      if (tid % 2 == 0) rs[m] = (st % C == 0 ? 0.f : rs[m]) + v;
+    }
+  };
+
+  float acc[4][4][4], p[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) { acc[i][j][e] = 0.f; p[i][j][e] = 0.f; }
+
+  const int gq = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int s = 0; s < GP_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<GP_STAGES - 2>();
+    __syncthreads();  // sub-step st landed; every warp is done with st - 1 (bq, rs, its slot)
+    if (st + GP_STAGES - 1 < steps) load(st + GP_STAGES - 1, (st + GP_STAGES - 1) % GP_STAGES);
+    cp_async_commit();
+    convert(st, st % GP_STAGES);
+    __syncthreads();
+    if (st % C == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[i][j][e] = 0.f;
+    }
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(gp_smem + (st % GP_STAGES) * GP_STAGE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {  // 16 values of k each
+      const int kx = kk * 16;
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + lane % 16) * GP_TXS + kx + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bq + (kx + lane % 8 + ((lane / 8) % 2) * 8) * GP_TBS + wn * 32 +
+                                 np * 16 + (lane / 16) * 8);
+        b[2 * np][0] = r[0]; b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2]; b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(p[mt][nt], a[mt], b[nt]);
+    }
+    if (st % C == C - 1) {  // the group-half ends: acc += P s + rs z2
+      const __nv_bfloat16* q = reinterpret_cast<const __nv_bfloat16*>(
+          gp_smem + (st % GP_STAGES) * GP_STAGE_BYTES + GP_X_BYTES + GP_W_BYTES);
+      float sv[4][2], zv[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = wn * 32 + nt * 8 + t2;
+        const float2 s2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + n));
+        const float2 z2 =
+            HAS_Z ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + TBN + n))
+                  : make_float2(0.f, 0.f);
+        sv[nt][0] = s2.x;
+        sv[nt][1] = s2.y;
+        zv[nt][0] = bf16_round(fmaf(-8.f, s2.x, z2.x));  // z2 = bf16(z - 8 s)
+        zv[nt][1] = bf16_round(fmaf(-8.f, s2.y, z2.y));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float r = rs[wm * 64 + mt * 16 + gq + 8 * h];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& a = acc[mt][nt][2 * h + e];
+              a += p[mt][nt][2 * h + e] * sv[nt][e];
+              a += r * zv[nt][e];
+            }
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + wn * 32 + nt * 8 + t2;  // N % 16 == 0: n and n + 1 are in or out together
+      if (n >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 64 + mt * 16 + gq + 8 * h;
+        if (m >= M) continue;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (ws)
+          *reinterpret_cast<float2*>(ws + ((size_t)blockIdx.z * M + m) * N + n) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
 }
 
 // K14b / K14c, banded: replaces _kernel_banded (int4_matmul.py:408, pallas_call
@@ -883,7 +1128,8 @@ TT_EXPORT int tt_int4_tiled(const void* x, const void* wp, const void* sc, const
             : launch_tiled<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st);
 }
 
-// K14a: the arguments of tt_int4_gemv, any M.
+// K14a's SIMT form: the arguments of tt_int4_gemv, any M (the wrapper
+// takes it at M <= 32, and above where g % 32 != 0).
 TT_EXPORT int tt_int4_group_partial(const void* x, const void* wp, const void* sc,
                                     const void* zr, void* ws, void* out, int M, int K, int N,
                                     int g, int ksplit, void* stream) {
@@ -906,6 +1152,43 @@ TT_EXPORT int tt_int4_group_partial(const void* x, const void* wp, const void* s
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_splits(wsf, out, ksplit, M, N, st);
+}
+
+template <bool HAS_Z>
+static int launch_group_partial_tiled(const void* x, const void* wp, const void* sc,
+                                      const void* zr, void* ws, void* out, int M, int K, int N,
+                                      int g, int ksplit, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(int4_group_partial_tiled_kernel<HAS_Z>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM, ksplit);
+  int4_group_partial_tiled_kernel<HAS_Z><<<grid, T_THREADS, GP_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
+      static_cast<__nv_bfloat16*>(out), ksplit > 1 ? static_cast<float*>(ws) : nullptr, M, K, N,
+      g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ksplit == 1) return err;
+  return reduce_splits(static_cast<float*>(ws), out, ksplit, M, N, st);
+}
+
+// K14a at M > 32: the arguments of tt_int4_gemv; g % 32 == 0, K/2 % g == 0,
+// N % 16 == 0, 1 <= ksplit <= K/2 / g (the split's unit is a group); ws
+// (fp32 [ksplit, M, N]) may be null when ksplit == 1. x, wp, sc and zr
+// 16-byte aligned.
+TT_EXPORT int tt_int4_group_partial_tiled(const void* x, const void* wp, const void* sc,
+                                          const void* zr, void* ws, void* out, int M, int K,
+                                          int N, int g, int ksplit, void* stream) {
+  if (g < TBKP || g % TBKP || (K / 2) % g || N % 16 || ksplit < 1 || ksplit > K / 2 / g ||
+      (ksplit > 1 && !ws))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return zr ? launch_group_partial_tiled<true>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st)
+            : launch_group_partial_tiled<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st);
 }
 
 // K14b / K14c: the arguments of tt_int4_gemv and the K-split unit in packed

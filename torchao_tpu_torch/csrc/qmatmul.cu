@@ -1,4 +1,5 @@
-// Weight-streaming quantized matmul for Hopper (sm_90a), SIMT: K6, K7, K8, K9.
+// Weight-streaming quantized matmul for Hopper (sm_90a): K6, K7, K8 and K9
+// (SIMT, but for K9's tiled form, which runs on the tensor cores).
 //
 //   out[m, n] = (sum_k x[m, k] * w[n, k]) * xs[m] * ws[n]     (f32 epilogue,
 //                                                              one rounding)
@@ -14,8 +15,9 @@
 //      (pallas_call at fp8_matmul.py:218, body _mixed_kernel at :129);
 //   K9 (e4m3 x, e4m3 w, f32 accumulation, f32 per-row x and w scales, the
 //      unstacked float8dq-row head) replaces fp8_matmul.py::fp8_rowwise_matmul
-//      (pallas_call at :79, body _kernel at :24); its own entry points,
-//      tt_fp8_rowwise_gemv and tt_fp8_rowwise_tiled, run the same loops;
+//      (pallas_call at :79, body _kernel at :24); its own gemv entry point,
+//      tt_fp8_rowwise_gemv, runs the same loops; its tiled one,
+//      tt_fp8_rowwise_tiled, is an e4m3 tensor-core kernel of its own (below);
 //   P1 (K6 with the scale dropped at compile time, bf16(x . w^T)) replaces
 //      scripts/manual_dma_probe.py::std_call (pallas_call at :62, body
 //      _std_kernel at :51), the probe's "two_calls" arm; entry point
@@ -36,9 +38,9 @@
 //     k per step; K is split over blockIdx.y until ~1000 blocks are in
 //     flight, partial sums go to a scratch buffer and a second pass sums
 //     them and applies the epilogue (one pass only when K is not split);
-//   - tiled (M > 32): a shared-memory SIMT GEMM, 64 x 64 outputs per block,
-//     32 k per step; K7 multiplies with __dp4a on packed int8. Tensor cores
-//     (mma / wgmma) are later work.
+//   - tiled (M > 32; K6, K7, K8): a shared-memory SIMT GEMM, 64 x 64
+//     outputs per block, 32 k per step; K7 multiplies with __dp4a on packed
+//     int8. Tensor cores (mma / wgmma) for these are later work.
 // int8 -> f32 and e4m3 -> f32 conversions are exact; K7's int32 sum is exact
 // (14336 * 127^2 < 2^31). No partial K block: the wrapper requires K % 32 == 0
 // (gemv splits K on 16-element chunks, tiled steps 32 at a time); the M and
@@ -319,6 +321,163 @@ qmm_tiled_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   }
 }
 
+// --------------------------------------------- K9 tiled, e4m3 tensor cores --
+// tt_fp8_rowwise_tiled (M > 32: the float8dq-row head at prefill) replaces
+// fp8_rowwise_matmul's _kernel (fp8_matmul.py:24, pallas_call at :79):
+//   out = bf16(sum_k x[m, k] w[n, k] * xs[m] * ws[n]), e4m3 x and w.
+// The TPU body upcasts both operands to bf16, so its products are exact;
+// e4m3 x e4m3 products are exact too, so the kernel feeds the stored bytes
+// to mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32: x [M, K] and
+// w [N, K] are both K-major, which is row.col, and ldmatrix (not
+// transposed) loads both fragments from shared memory.
+// What bounds it on an H100: bytes. At the head's shape (N = 128256, K =
+// 4096, M = 128) w is 525 MB, 0.167 ms at 3.35 TB/s; its 134.5 GFLOP take
+// 0.068 ms at the 1,979 TFLOP/s e4m3 peak. So the design keeps the weight
+// stream moving: each w tile is read once, by 16-byte cp.async into a
+// four-stage ring (128 rows x 128 k per stage); a block holds M = 128
+// whole (BM = BN = 128: 1002 blocks at the head), so x (512 KB) comes from
+// L2; the epilogue (acc * xs[m] * ws[n], rounded once) runs from registers.
+// Eight warps, 2 x 4, each own 64 x 32 outputs.
+// Accumulation: on sm_90a the e4m3 mma.sync compiles to f16 HMMA with f32
+// accumulators after conversions in registers (F2FP.F16.E4M3.UNPACK_B in
+// the SASS): exact products, an f32 sum, as the TPU body, so it needs no
+// promotion every 128 k (the DeepSeek-V3 report, section 3.3.2, adds one
+// for wgmma's e4m3 path, whose running sum keeps fewer bits). Held to
+// >= 60 dB against the plain version at K = 4096. -Xptxas -v: 179
+// registers, no spills;
+// one block per SM (the ring's 144 KB of shared memory).
+// No partial K step: K % 32 == 0; a last stage of fewer than 128 k runs
+// only its whole 32-k steps (its copies past K are masked). M and N edges
+// are masked; any N.
+constexpr int F8_THREADS = 256;
+constexpr int F8_BM = 128, F8_BN = 128, F8_BK = 128;  // rows of x, of w; k (bytes) per stage
+constexpr int F8_STAGES = 4;
+constexpr int F8_LD = F8_BK + 16;  // mma.sync tile row, bytes (+16: ldmatrix rows on distinct banks)
+constexpr int F8_MMA_STAGE = (F8_BM + F8_BN) * F8_LD;  // x tile, then w tile
+constexpr int F8_MMA_SMEM = F8_STAGES * F8_MMA_STAGE;
+
+// c += a . b (16 x 8 x 32, e4m3 in, f32 accumulation); fragments as in
+// common.cuh's bf16 form with four bytes of k where that has two values
+__device__ __forceinline__ void mma_e4m3_16832(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// grid: (ceil(N / 128), ceil(M / 128)); block 256 threads.
+__global__ void __launch_bounds__(F8_THREADS, 1)
+fp8_rowwise_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                       const float* __restrict__ xs, const float* __restrict__ wsc,
+                       __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(16) uint8_t f8_smem[];
+  const int n0 = blockIdx.x * F8_BN, m0 = blockIdx.y * F8_BM;
+  const int steps = (K + F8_BK - 1) / F8_BK;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+
+  auto load = [&](int st, int s) {
+    uint8_t* base = f8_smem + s * F8_MMA_STAGE;
+    const int k0 = st * F8_BK;
+    for (int c = tid; c < (F8_BM + F8_BN) * (F8_BK / 16); c += F8_THREADS) {
+      const int r = c / (F8_BK / 16), kc = (c % (F8_BK / 16)) * 16;
+      const bool in_k = k0 + kc < K;
+      if (r < F8_BM) {
+        const bool ok = in_k && m0 + r < M;
+        cp_async<16>(base + r * F8_LD + kc, ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok);
+      } else {
+        const int n = r - F8_BM;
+        const bool ok = in_k && n0 + n < N;
+        cp_async<16>(base + r * F8_LD + kc, ok ? w + (size_t)(n0 + n) * K + k0 + kc : w, ok);
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < F8_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<F8_STAGES - 2>();
+    __syncthreads();  // stage st landed; every warp is done with st - 1's slot
+    if (st + F8_STAGES - 1 < steps) load(st + F8_STAGES - 1, (st + F8_STAGES - 1) % F8_STAGES);
+    cp_async_commit();
+    const uint8_t* xt = f8_smem + (st % F8_STAGES) * F8_MMA_STAGE;
+    const uint8_t* wt = xt + F8_BM * F8_LD;
+    const int nk = min(F8_BK, K - st * F8_BK) / 32;
+#pragma unroll
+    for (int kk = 0; kk < F8_BK / 32; ++kk) {
+      if (kk >= nk) break;
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(a[mt], xt + (wm * 64 + mt * 16 + lane % 16) * F8_LD + kk * 32 +
+                               (lane / 16) * 16);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {  // matrices: (n 0-7 | 8-15) x (k 0-15 | 16-31)
+        uint32_t r[4];
+        const int n = wn * 32 + np * 16 + (lane / 16) * 8 + lane % 8;
+        ldmatrix_x4(r, wt + n * F8_LD + kk * 32 + ((lane / 8) % 2) * 16);
+        b[2 * np][0] = r[0]; b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2]; b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_e4m3_16832(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gq = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int n = n0 + wn * 32 + nt * 8 + t2;
+    if (n >= N) continue;
+    const float w0 = wsc[n], w1 = n + 1 < N ? wsc[n + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 64 + mt * 16 + gq + 8 * h;
+        if (m >= M) continue;
+        const float sx = xs[m];
+        __nv_bfloat16* o = out + (size_t)m * N + n;
+        o[0] = __float2bfloat16(acc[mt][nt][2 * h] * sx * w0);
+        if (n + 1 < N) o[1] = __float2bfloat16(acc[mt][nt][2 * h + 1] * sx * w1);
+      }
+  }
+}
+
+int launch_fp8_rowwise_mma(const void* x, const void* w, const void* xs, const void* ws,
+                           void* out, int M, int K, int N, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(fp8_rowwise_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         F8_MMA_SMEM);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((N + F8_BN - 1) / F8_BN, (M + F8_BM - 1) / F8_BM);
+  fp8_rowwise_mma_kernel<<<grid, F8_THREADS, F8_MMA_SMEM, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(xs), static_cast<const float*>(ws),
+      static_cast<__nv_bfloat16*>(out), M, K, N);
+  return cudaGetLastError();
+}
+
 template <int KIND>
 int launch_gemv(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
                 int ws_kind, int ws_stride, void* work, void* out, int M, int K, int N, int ksplit,
@@ -409,9 +568,10 @@ TT_EXPORT int tt_fp8_rowwise_gemv(const void* x, const void* w, const void* xs, 
                                   static_cast<cudaStream_t>(stream));
 }
 
+// K9 tiled (the e4m3 mma.sync kernel above): the arguments of the gemv
+// entry without the scratch and the split.
 TT_EXPORT int tt_fp8_rowwise_tiled(const void* x, const void* w, const void* xs, const void* ws,
                                    void* out, int M, int K, int N, void* stream) {
   if (K % TK) return cudaErrorInvalidValue;
-  return launch_tiled<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, out, M, K, N,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_fp8_rowwise_mma(x, w, xs, ws, out, M, K, N, static_cast<cudaStream_t>(stream));
 }

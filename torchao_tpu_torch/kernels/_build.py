@@ -11,7 +11,9 @@ never served by a stale library.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. ``LAUNCHES`` counts kernel launches per wrapper: each wrapper
-adds one where it launches its kernel, and nowhere else.
+adds one where it launches its kernel, and nowhere else. ``ENTRIES``
+counts the same launches per C entry point where one counter covers more
+than one kernel (the int4 wrapper: K14a's SIMT and tensor-core forms).
 """
 
 from __future__ import annotations
@@ -36,10 +38,12 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+ENTRIES: "collections.Counter[str]" = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    ENTRIES.clear()
 
 
 def _nvcc() -> str:
@@ -100,6 +104,7 @@ SIGNATURES = {
     "tt_int4_gemv": _INT4,
     "tt_int4_gemv_stub": _INT4,
     "tt_int4_group_partial": _INT4,
+    "tt_int4_group_partial_tiled": _INT4,  # ws may be null (ksplit 1)
     "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
     "tt_int4_tiled": _INT4,  # ws may be null (ksplit 1)
     # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
@@ -211,3 +216,27 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptxas_report(names) -> str:
+    """Compile ``csrc/<name>`` (each of ``names``) with the library's flags
+    and ``-Xptxas -v``, and return what ptxas says of each kernel
+    (registers, shared memory, spills). Writes no library."""
+    nvcc = _nvcc()
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                                str(CSRC / name), "-o", str(Path(tmp) / "k.o")],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{r.stdout}{r.stderr}")
+            out.append(f"== {name}\n{r.stdout}{r.stderr}")
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu
+    import sys
+
+    print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))

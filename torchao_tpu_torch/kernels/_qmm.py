@@ -4,8 +4,9 @@
 weight-streaming kernel with two launch shapes: ``gemv`` for M ≤ 32 (K
 split over blocks until about ``_TARGET_BLOCKS`` are in flight) and
 ``tiled`` for larger M. K9 has its own C entry points
-(``tt_fp8_rowwise_{gemv,tiled}``, f32 scales per row of x and of w); the
-others share ``tt_qmm_{gemv,tiled}``, which take the kind. Each wrapper
+(``tt_fp8_rowwise_{gemv,tiled}``, f32 scales per row of x and of w; its
+tiled form is an e4m3 ``mma.sync`` kernel of its own); the others share
+``tt_qmm_{gemv,tiled}``, which take the kind. Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
 ``<name>_tiled``.
 """

@@ -15,8 +15,8 @@ Port of two functions of ``torchao_tpu/kernels/fp8_matmul.py`` (CUDA source
   ``_kernel`` at :24): e4m3 x ``[M, K]`` times an unstacked e4m3 weight
   ``[N, K]``, f32 accumulation, epilogue ``acc · xs[m] · ws[n]`` with f32
   per-row scales (the float8dq-row head). A gemv form for M <= 32 (the head
-  at decode) and a tiled form above (the head at prefill), counted as
-  ``fp8_rowwise_matmul_{gemv,tiled}``.
+  at decode) and a tiled form above (the head at prefill: e4m3
+  ``mma.sync``), counted as ``fp8_rowwise_matmul_{gemv,tiled}``.
 
 A CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
 plain version.

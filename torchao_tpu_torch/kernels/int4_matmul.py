@@ -10,7 +10,9 @@ kernel body it stands for, and counts its launches as
 - ``gemv`` (K1): the decode GEMV ``_bint8_call`` → ``_kernel_bint8m``
   (pallas_call at ``int4_matmul.py:877``);
 - ``tiled`` (K5): the fused variant ``_kernel`` (pallas_call at ``:723``);
-- ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call;
+- ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call
+  (above M = 32 with g a multiple of 32 on the tensor cores, see
+  :func:`launch_entry`);
 - ``banded_stacked`` (K14c): ``_kernel_banded_stacked`` (pallas_call at
   ``:1004``), where the JAX package's chunk rule gives a chunk;
 - ``banded`` (K14b): ``_kernel_banded`` (pallas_call at ``:1054``), where
@@ -72,6 +74,8 @@ TILED_BKP = 32     # packed rows per K5 step; a split ending on an odd unit take
 TILED_BM = 128     # rows of x per K5 block (csrc TBM)
 TILED_BN = 128     # columns per K5 block (csrc TBN)
 TILED_BLOCKS_PER_SM = 2  # K5 blocks resident per SM (its shared memory and registers)
+GP_TILED_KP = 32   # packed rows per K14a tensor-core sub-step: g must be a multiple (csrc TBKP)
+GP_TILED_BLOCKS_PER_SM = 1  # its 128 accumulators per thread take up to 255 registers
 _GEMV_TN = 128     # columns per GEMV block (csrc GEMV_TN)
 _GEMV_LANES = 32   # run lanes per GEMV block (csrc GEMV_LANES)
 TARGET_BLOCKS = 1024
@@ -326,6 +330,30 @@ def tiled_ksplit(M: int, K: int, N: int, sms: int) -> int:
     return max(1, min(K // 2 // TILED_KP, TILED_BLOCKS_PER_SM * sms // tiles))
 
 
+def group_partial_tiled_ksplit(M: int, K: int, N: int, g: int, sms: int) -> int:
+    """K14a's tensor-core form's K split: the blocks of one wave (one per
+    SM) over the ``ceil(M/128)·ceil(N/128)`` output tiles, in whole groups
+    (a split never holds half a group)."""
+    tiles = cdiv(M, TILED_BM) * cdiv(N, TILED_BN)
+    return max(1, min(K // 2 // g, GP_TILED_BLOCKS_PER_SM * sms // tiles))
+
+
+def launch_entry(body: str, M: int, group_size: int) -> str:
+    """The C entry point that ``body`` launches at M. ``group_partial``
+    (K14a) takes its tensor-core form above ``GEMV_MAX_M`` where g is a
+    multiple of ``GP_TILED_KP``, and its SIMT form otherwise; both count as
+    ``int4_dq_matmul[_zero_free]_group_partial``."""
+    if body == "group_partial":
+        tiled = M > GEMV_MAX_M and group_size % GP_TILED_KP == 0
+        return "tt_int4_group_partial_tiled" if tiled else "tt_int4_group_partial"
+    return {"gemv": "tt_int4_gemv", "tiled": "tt_int4_tiled"}.get(body, "tt_int4_banded")
+
+
+def launch_counter(body: str, zero_free: bool) -> str:
+    """The ``_build.LAUNCHES`` key of ``body``'s launches."""
+    return f"int4_dq_matmul{'_zero_free' if zero_free else ''}_{body}"
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -353,11 +381,14 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = _build.stream_handle(x.device)
     ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
-    if body == "tiled":
-        ksplit = tiled_ksplit(M, K, N, _sm_count(x.device.index or 0))
+    entry = launch_entry(body, M, group_size)
+    if entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
+        sms = _sm_count(x.device.index or 0)
+        ksplit = (tiled_ksplit(M, K, N, sms) if body == "tiled"
+                  else group_partial_tiled_ksplit(M, K, N, group_size, sms))
         ws = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
               if ksplit > 1 else None)
-        lib.launch("tt_int4_tiled", *ptrs, 0 if ws is None else ws.data_ptr(), out.data_ptr(),
+        lib.launch(entry, *ptrs, 0 if ws is None else ws.data_ptr(), out.data_ptr(),
                    M, K, N, group_size, ksplit, stream)
     else:
         if body == "gemv":  # K1's split ignores its M tiles (M <= 32)
@@ -368,13 +399,9 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
             ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4, K // 2 // unit)
         ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
         args = (*ptrs, ws.data_ptr(), out.data_ptr(), M, K, N, group_size, ksplit)
-        if body in ("banded", "banded_stacked"):
-            lib.launch("tt_int4_banded", *args, unit, stream)
-        else:
-            lib.launch("tt_int4_gemv" if body == "gemv" else "tt_int4_group_partial", *args,
-                       stream)
-    base = "int4_dq_matmul" if zero is not None else "int4_dq_matmul_zero_free"
-    _build.LAUNCHES[f"{base}_{body}"] += 1
+        lib.launch(entry, *args, *((unit,) if entry == "tt_int4_banded" else ()), stream)
+    _build.LAUNCHES[launch_counter(body, zero is None)] += 1
+    _build.ENTRIES[entry] += 1
     return out
 
 
