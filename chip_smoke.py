@@ -33,13 +33,17 @@ Phases (each fails loudly; nothing is caught):
 
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
-   and K9's tensor-core forms 65 and 60 dB), with its time (CUDA
+   tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
+   cores, 60 dB), with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
    head's plain-torch route, K8 and the route it takes); the main path — prefill 128
    tokens, decode 128 at batch 1, top-k 200 at temperature 0.6, one warm-up
-   and one timed run, the launch counts of the timed run asserted, the
-   tokens in range and the logits finite; and a 2-layer slice of the same
+   and one timed run, the launch counts of the timed run asserted (and
+   the launches of each tiled qmm body's C entry: ``tt_qmm_mma_bf16`` for
+   K6 and K8 with bf16 x, ``tt_qmm_mma_e4m3`` for K8 with e4m3 x and K9,
+   ``tt_qmm_tiled`` for K7 alone), the tokens in range and the logits
+   finite; and a 2-layer slice of the same
    weights in bf16 on
    the card (kernels) and on the CPU (plain versions), each held against a
    float32 run on the CPU: the card must come as close to it as the CPU
@@ -199,6 +203,9 @@ TOL_K14A_TILED_DB = 65.0
 # K9 tiled (the head at M = 128): e4m3 mma.sync with f32 accumulators, no promotion, over
 # K = 4096, against the plain version's exact products and f32 sum
 TOL_K9_TILED_DB = 60.0
+# K6 and K8 tiled (M = 128) on the tensor cores: exact products (int8 and e4m3 weights
+# are bf16 values, e4m3 x e4m3 products exact), f32 sums in another order, K up to 14336
+TOL_QMM_TILED_DB = 60.0
 LONG_S = 8192  # the long-context phase's cache length
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
 
@@ -425,12 +432,13 @@ def _fp8_call(x, w, l):
             N * K + N * 4 + nx + M * N * 2, 2 * M * N * K)
 
 
-def check_qmm(name, params, args, gen, call, peak, head):
+def check_qmm(name, params, args, gen, call, peak, head, tiled_tol=TOL_SQNR_DB):
     """K6 / K7 / K8 at M=1 (gemv, decode) and M=128 (tiled, prefill) on
     layer 0 of each stacked weight (and the head where the kernel runs
-    it), against its plain version."""
+    it), against its plain version (the tiled form to ``tiled_tol``)."""
     return [check_shapes(f"{name}_{form}", _cases(params, args.n_layer, head), M, call, gen,
-                         peak) for form, M in FORMS]
+                         peak, tol=tiled_tol if form == "tiled" else TOL_SQNR_DB)
+            for form, M in FORMS]
 
 
 def time_fp8_head(params, gen):
@@ -653,6 +661,7 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
         err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, tol=tol)
         sqnr = compute_error(want, got)
         t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
+        t.extra.setdefault("sqnr_db_by_weight", {})[f"{wname} K={K}"] = sqnr
         del got, want
         lib = library(x, w, l) if library is not None else None
         if lib is None:
@@ -687,7 +696,8 @@ def _fp6_kernels(params, args, gen):
         check_shapes("int4_dq_matmul_zero_free_gemv", a_planes[-1:], 1, _int4_call, gen),
         check_shapes("int8wo_mixed_matmul_gemv", b_planes[-1:], 1, _int8wo_call, gen),
         check_shapes("int4_dq_matmul_zero_free_tiled", a_planes, PROMPT, _int4_call, gen),
-        check_shapes("int8wo_mixed_matmul_tiled", b_planes, PROMPT, _int8wo_call, gen),
+        check_shapes("int8wo_mixed_matmul_tiled", b_planes, PROMPT, _int8wo_call, gen,
+                     tol=TOL_QMM_TILED_DB),
     ]
 
 
@@ -708,7 +718,7 @@ def _8da4w_kernels(params, args, gen):
 def _float8dq_row_kernels(params, args, gen):
     """K8 (e4m3 x) on the layers, and K9 on the head at M=1 and M=128."""
     tallies = check_qmm("fp8_mixed_matmul_e4m3", params, args, gen, _fp8_call, INT8_FP8_OPS,
-                        False)
+                        False, TOL_QMM_TILED_DB)
     head = _cases(params, args.n_layer, True)[-1:]
     tallies += [check_shapes(f"fp8_rowwise_matmul_{form}", head, M, _fp8_row_call, gen,
                              INT8_FP8_OPS, library=_fp8_row_library,
@@ -1068,7 +1078,8 @@ def _int4_kernels(params, args, gen):
 
 
 def _int8wo_kernels(params, args, gen):
-    tallies = check_qmm("int8wo_mixed_matmul", params, args, gen, _int8wo_call, BF16_FLOPS, True)
+    tallies = check_qmm("int8wo_mixed_matmul", params, args, gen, _int8wo_call, BF16_FLOPS, True,
+                        TOL_QMM_TILED_DB)
     tallies += [check_kv_write(args, gen, True), check_decode_attention(args, gen, True),
                 check_prefill_attention(args, gen, True)]
     return tallies
@@ -1085,7 +1096,7 @@ SECTIONS = {
                _want_matmul_only("int8_scaled_matmul", lambda L: 4 * L + 1)),
     "float8wo": (Float8WeightOnlyConfig(), False,
                  lambda p, a, g: check_qmm("fp8_mixed_matmul", p, a, g, _fp8_call,
-                                           BF16_FLOPS, False),
+                                           BF16_FLOPS, False, TOL_QMM_TILED_DB),
                  _want_matmul_only("fp8_mixed_matmul", lambda L: 4 * L)),
     "float8dq-row": (Float8DynamicActivationFloat8WeightConfig(granularity=PerRow()), False,
                      _float8dq_row_kernels,
@@ -1112,6 +1123,19 @@ SECTIONS = {
                       lambda L: {"int8wo_mixed_matmul_gemv": (4 * L + 1) * DECODE,
                                  "int8wo_mixed_matmul_tiled": 4 * L + 1,
                                  "quantized_kv_decode_attention_int8": L * (DECODE + 1)}),
+}
+# The tiled qmm bodies' C entries (_build.ENTRIES) and the launches each section's timed
+# run makes of them (none where a section is not listed); the int4 wrapper's entries are
+# not asserted here
+QMM_TILED_ENTRIES = ("tt_qmm_tiled", "tt_qmm_mma_bf16", "tt_qmm_mma_e4m3")
+_MMA_BF16_ALL = lambda L: {"tt_qmm_mma_bf16": 4 * L + 1}  # the layers and the head
+SECTION_QMM_ENTRIES = {
+    "int8wo": _MMA_BF16_ALL,
+    "int8dq": lambda L: {"tt_qmm_tiled": 4 * L + 1},
+    "float8wo": lambda L: {"tt_qmm_mma_bf16": 4 * L},  # the head in plain torch
+    "float8dq-row": lambda L: {"tt_qmm_mma_e4m3": 4 * L + 1},  # K8 on the layers, K9 the head
+    "fp6": _MMA_BF16_ALL,  # the B planes
+    "int8wo-int8hm": _MMA_BF16_ALL,
 }
 # environment a section runs under (set for it alone, restored after)
 SECTION_ENV = {f"int4wo-{GROUP}-int4hm": {"TORCHAO_TPU_ATTN_FOLD_HEADS": "1"}}
@@ -1169,18 +1193,24 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
                            kv_cache_quantization=kv, temperature=TEMPERATURE, top_k=TOP_K,
                            warmup=1, iters=1, on_run=on_run)
     counts = dict(_build.LAUNCHES)
+    entries = {k: v for k, v in _build.ENTRIES.items() if k in QMM_TILED_ENTRIES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
            "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
-           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, **head}
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, "qmm_entries": entries,
+           **head}
     log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
         f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
         f"peak_GB={peak_gb:.3f}")
     log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    log(f"  tiled qmm entries: {json.dumps(entries, sort_keys=True)}")
     want = want_fn(model.args.n_layer)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
+    want = SECTION_QMM_ENTRIES.get(name, lambda L: {})(model.args.n_layer)
+    if entries != want:
+        raise AssertionError(f"tiled qmm entries {entries} != expected {want}")
     tokens = res["tokens"]
     if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
                                            int(tokens.max()) < model.args.vocab_size):

@@ -856,3 +856,74 @@ def test_fp8_rowwise_tiled_kernel_matches_plain(cuda, M, K):
     got = fp8_rowwise_matmul(x, w, xs, ws)
     assert _build.LAUNCHES["fp8_rowwise_matmul_tiled"] == before + 1
     _sqnr_ok(got, fp8_rowwise_matmul_plain(x, w, xs, ws), TOL_K9_TILED_DB)
+
+
+# K6 and K8 tiled on the tensor cores: exact products (int8 and e4m3 are bf16
+# values, e4m3 x e4m3 products exact), f32 sums in another order than the plain
+# version's
+TOL_QMM_TILED_DB = 60.0
+
+
+# N = 4096 + 40 a ragged column tile, M = 33 and 130 ragged row tiles, K = 4128
+# a last ring stage of one 32-k step, K = 14336 (w2's) the longest chain;
+# "split": five splits (uneven, in whole 32-k units) forced, or one.
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_split"])
+@pytest.mark.parametrize("w_scale", ["per_row", "per_layer"])
+@pytest.mark.parametrize("K", [4096, 4096 + 32, 14336])
+@pytest.mark.parametrize("M", [33, 128, 130])
+@pytest.mark.parametrize("kind", ["int8wo", "fp8_bf16x", "fp8_e4m3x"])
+def test_qmm_tiled_mma_kernels_match_plain(cuda, monkeypatch, kind, M, K, w_scale, split):
+    """K6 (``tt_qmm_mma_bf16``), K8 with bf16 x (the same entry) and K8 with
+    e4m3 x (``tt_qmm_mma_e4m3``, K9's kernel) on layer 1 of a stacked
+    weight, against their plain versions; each call launches its entry once
+    and never the SIMT ``tt_qmm_tiled``."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    monkeypatch.setattr(_qmm, "tiled_ksplit", lambda *a: 5 if split else 1)
+    gen = torch.Generator(device=cuda).manual_seed(M + K + len(kind))
+    L, N = 2, 4096 + 40
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    ws = torch.rand((L, N if w_scale == "per_row" else 1), generator=gen, device=cuda) * 0.02 + 1e-3
+    if kind == "int8wo":
+        w = torch.randint(-127, 128, (L, N, K), generator=gen, device=cuda).to(torch.int8)
+        ws = ws.bfloat16()
+        call = lambda: int8wo_mixed_matmul(x, w, ws, layer_idx=1)
+        plain = lambda: int8wo_mixed_matmul_plain(x, w, ws, layer_idx=1)
+        name, entry = "int8wo_mixed_matmul_tiled", "tt_qmm_mma_bf16"
+    else:
+        w = (torch.randn((L, N, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+        xs = None
+        name, entry = "fp8_mixed_matmul_tiled", "tt_qmm_mma_bf16"
+        if kind == "fp8_e4m3x":
+            x = (torch.randn((M, K), generator=gen, device=cuda) * 50).to(torch.float8_e4m3fn)
+            xs = torch.rand((M,), generator=gen, device=cuda) * 0.01 + 0.001
+            name, entry = "fp8_mixed_matmul_e4m3_tiled", "tt_qmm_mma_e4m3"
+        call = lambda: fp8_mixed_matmul(x, w, ws, xs, layer_idx=1)
+        plain = lambda: fp8_mixed_matmul_plain(x, w, ws, xs, layer_idx=1)
+    counts = lambda: (_build.LAUNCHES[name], _build.ENTRIES[entry], _build.ENTRIES["tt_qmm_tiled"])
+    before = counts()
+    got = call()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    _sqnr_ok(got, plain(), TOL_QMM_TILED_DB)
+
+
+@pytest.mark.cuda
+def test_int8dq_tiled_stays_on_the_simt_tile(cuda):
+    """K7 at M = 128 still launches ``tt_qmm_tiled`` (and no tensor-core
+    entry), exact up to the order of its two f32 scale products."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    L, M, N, K = 2, 128, 4096 + 40, 4096 + 32
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+    w8 = torch.randint(-127, 128, (L, N, K), generator=gen, device=cuda).to(torch.int8)
+    xs = (torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001).bfloat16()
+    ws = (torch.rand((L, N), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
+    entries = ("tt_qmm_tiled", "tt_qmm_mma_bf16", "tt_qmm_mma_e4m3")
+    counts = lambda: (_build.LAUNCHES["int8_scaled_matmul_tiled"],
+                      *(_build.ENTRIES[e] for e in entries))
+    before = counts()
+    got = int8_scaled_matmul(xq, w8, xs, ws, layer_idx=1)
+    assert counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    want = int8_scaled_matmul_plain(xq, w8, xs, ws, layer_idx=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-3)

@@ -1,10 +1,10 @@
-// Weight-streaming quantized matmul for Hopper (sm_90a): K6, K7, K8 and K9
-// (SIMT, but for K9's tiled form, which runs on the tensor cores).
+// Weight-streaming quantized matmul for Hopper (sm_90a): K6, K7, K8 and K9.
 //
 //   out[m, n] = (sum_k x[m, k] * w[n, k]) * xs[m] * ws[n]     (f32 epilogue,
 //                                                              one rounding)
 //
-// One templated kernel pair, one instantiation per (activation, weight) type:
+// The kernels, one instantiation per (activation, weight) type where they
+// are templated:
 //   K6 (bf16 x, int8 w, f32 accumulation) replaces
 //      torchao_tpu/kernels/int8_matmul.py::int8wo_mixed_matmul
 //      (pallas_call at int8_matmul.py:255, body _wo_kernel at :185);
@@ -15,9 +15,7 @@
 //      (pallas_call at fp8_matmul.py:218, body _mixed_kernel at :129);
 //   K9 (e4m3 x, e4m3 w, f32 accumulation, f32 per-row x and w scales, the
 //      unstacked float8dq-row head) replaces fp8_matmul.py::fp8_rowwise_matmul
-//      (pallas_call at :79, body _kernel at :24); its own gemv entry point,
-//      tt_fp8_rowwise_gemv, runs the same loops; its tiled one,
-//      tt_fp8_rowwise_tiled, is an e4m3 tensor-core kernel of its own (below);
+//      (pallas_call at :79, body _kernel at :24);
 //   P1 (K6 with the scale dropped at compile time, bf16(x . w^T)) replaces
 //      scripts/manual_dma_probe.py::std_call (pallas_call at :62, body
 //      _std_kernel at :51), the probe's "two_calls" arm; entry point
@@ -31,20 +29,27 @@
 //
 // What bounds it on an H100: bytes, at decode and at a 128-token prefill
 // alike. Llama-3-8B's int8/e4m3 linears stream 7.50 GB per forward (2.24 ms
-// at 3.35 TB/s); the M = 128 prefill's 1.92 TFLOP take 0.97 ms at the
-// int8/fp8 tensor-core peak. The design reads each weight byte once with
-// 16-byte loads and keeps the converted weight in registers only:
-//   - gemv (M <= 32): one warp per two weight rows, each lane 16 consecutive
-//     k per step; K is split over blockIdx.y until ~1000 blocks are in
-//     flight, partial sums go to a scratch buffer and a second pass sums
-//     them and applies the epilogue (one pass only when K is not split);
-//   - tiled (M > 32; K6, K7, K8): a shared-memory SIMT GEMM, 64 x 64
-//     outputs per block, 32 k per step; K7 multiplies with __dp4a on packed
-//     int8. Tensor cores (mma / wgmma) for these are later work.
-// int8 -> f32 and e4m3 -> f32 conversions are exact; K7's int32 sum is exact
-// (14336 * 127^2 < 2^31). No partial K block: the wrapper requires K % 32 == 0
-// (gemv splits K on 16-element chunks, tiled steps 32 at a time); the M and
-// N edges are masked.
+// at 3.35 TB/s); the M = 128 prefill's 1.92 TFLOP take 1.94 ms at the bf16
+// tensor-core peak (0.97 ms at the int8/fp8 one). Three bodies:
+//   - gemv (M <= 32; K6, K7, K8, K9, P1: tt_qmm_gemv, tt_fp8_rowwise_gemv):
+//     SIMT, one warp per two weight rows, each lane 16 consecutive k per
+//     step, reading each weight byte once with 16-byte loads and keeping the
+//     converted weight in registers only; K is split over blockIdx.y until
+//     ~1000 blocks are in flight, partial sums go to a scratch buffer and a
+//     second pass sums them and applies the epilogue (one pass only when K
+//     is not split);
+//   - tensor cores (M > 32): K6 and K8 with bf16 x on bf16 mma.sync
+//     (qmm_mma_bf16_kernel, tt_qmm_mma_bf16), K8 with e4m3 x and K9 on
+//     e4m3 mma.sync (qmm_mma_e4m3_kernel, tt_qmm_mma_e4m3): 128 x 128
+//     outputs per block, a cp.async ring, K split over blockIdx.z where the
+//     tiles would not fill the card (f32 partials finished by
+//     qmm_reduce_kernel); notes at each kernel;
+//   - tiled SIMT (M > 32; K7 only: tt_qmm_tiled): 64 x 64 outputs per block,
+//     32 k per step, __dp4a on packed int8. Its tensor-core form is later work.
+// int8 -> f32 / bf16 and e4m3 -> f32 / bf16 conversions are exact; K7's int32
+// sum is exact (14336 * 127^2 < 2^31). No partial K block: the wrapper
+// requires K % 32 == 0 (gemv splits K on 16-element chunks, the other bodies
+// step 32 at a time and split K on 32-k units); the M and N edges are masked.
 #include "common.cuh"
 
 #include <cuda_fp8.h>
@@ -225,84 +230,53 @@ __global__ void qmm_reduce_kernel(const Acc* __restrict__ work, const void* __re
   }
 }
 
-// --------------------------------------------------------------- tiled --
+// ------------------------------------------------------------ tiled K7 --
 constexpr int T_THREADS = 256;
 constexpr int TBM = 64;   // rows of x per block
 constexpr int TBN = 64;   // weight rows (outputs) per block
-constexpr int TK = 32;    // k per step
+constexpr int TK = 32;    // k per step; K % TK == 0 for every body
 
-// grid: (ceil(N / 64), ceil(M / 64)); block 256 threads, each a 4 x 4 tile.
-// Loaders: thread t stages row t / 4 and k (t % 4) * 8 .. + 8 of both tiles.
-template <int KIND>
+// K7 (int8 x, int8 w): a SIMT GEMM on __dp4a. grid: (ceil(N / 64),
+// ceil(M / 64)); block 256 threads, each a 4 x 4 tile. Loaders: thread t
+// stages row t / 4 and k (t % 4) * 8 .. + 8 of both tiles, as packed words.
 __global__ void __launch_bounds__(T_THREADS)
-qmm_tiled_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
+qmm_tiled_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                  const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
                  int ws_kind, int ws_stride, __nv_bfloat16* __restrict__ out, int M, int K,
                  int N) {
-  using Tr = Traits<KIND>;
-  using Acc = typename Tr::Acc;
-  // float path: [TK][TBM] / [TK][TBN] floats; int path: [TK/4][..] packed ints
-  constexpr int KR = Tr::kIntAcc ? TK / 4 : TK;
-  __shared__ __align__(16) Acc xsm[KR][TBM];
-  __shared__ __align__(16) Acc wsm[KR][TBN];
+  __shared__ __align__(16) int xsm[TK / 4][TBM];
+  __shared__ __align__(16) int wsm[TK / 4][TBN];
 
   const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int lr = threadIdx.x / 4, lk = (threadIdx.x % 4) * 8;
   const bool xrow = m0 + lr < M, wrow = n0 + lr < N;
 
-  Acc acc[4][4];
+  int acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < K; k0 += TK) {
-    // weight tile: 8 bytes of row n0 + lr
     const uint2 wb = wrow ? __ldg(reinterpret_cast<const uint2*>(w + (size_t)(n0 + lr) * K + k0 + lk))
                           : make_uint2(0, 0);
-    if constexpr (Tr::kIntAcc) {
-      wsm[lk / 4][lr] = (int)wb.x;
-      wsm[lk / 4 + 1][lr] = (int)wb.y;
-      const uint2 xb = xrow ? __ldg(reinterpret_cast<const uint2*>(
-                                  static_cast<const int8_t*>(xv) + (size_t)(m0 + lr) * K + k0 + lk))
-                            : make_uint2(0, 0);
-      xsm[lk / 4][lr] = (int)xb.x;
-      xsm[lk / 4 + 1][lr] = (int)xb.y;
-    } else {
-      float f[8];
-      bytes4_to_float<Tr::kWE4m3>(wb.x, f);
-      bytes4_to_float<Tr::kWE4m3>(wb.y, f + 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wsm[lk + i][lr] = f[i];
-      if constexpr (Tr::kXBf16) {
-        const uint4 xb = xrow ? __ldg(reinterpret_cast<const uint4*>(
-                                    static_cast<const __nv_bfloat16*>(xv) + (size_t)(m0 + lr) * K + k0 + lk))
-                              : make_uint4(0, 0, 0, 0);
-        bf16x8_to_float(xb, f);
-      } else {
-        const uint2 xb = xrow ? __ldg(reinterpret_cast<const uint2*>(
-                                    static_cast<const uint8_t*>(xv) + (size_t)(m0 + lr) * K + k0 + lk))
-                              : make_uint2(0, 0);
-        bytes4_to_float<true>(xb.x, f);
-        bytes4_to_float<true>(xb.y, f + 4);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) xsm[lk + i][lr] = f[i];
-    }
+    wsm[lk / 4][lr] = (int)wb.x;
+    wsm[lk / 4 + 1][lr] = (int)wb.y;
+    const uint2 xb = xrow ? __ldg(reinterpret_cast<const uint2*>(x + (size_t)(m0 + lr) * K + k0 + lk))
+                          : make_uint2(0, 0);
+    xsm[lk / 4][lr] = (int)xb.x;
+    xsm[lk / 4 + 1][lr] = (int)xb.y;
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < KR; ++kk) {
-      Acc av[4], bv[4];
+    for (int kk = 0; kk < TK / 4; ++kk) {
+      int av[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) { av[i] = xsm[kk][ty * 4 + i]; bv[i] = wsm[kk][tx * 4 + i]; }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (Tr::kIntAcc) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-          else acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -321,11 +295,207 @@ qmm_tiled_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   }
 }
 
-// --------------------------------------------- K9 tiled, e4m3 tensor cores --
-// tt_fp8_rowwise_tiled (M > 32: the float8dq-row head at prefill) replaces
-// fp8_rowwise_matmul's _kernel (fp8_matmul.py:24, pallas_call at :79):
-//   out = bf16(sum_k x[m, k] w[n, k] * xs[m] * ws[n]), e4m3 x and w.
-// The TPU body upcasts both operands to bf16, so its products are exact;
+// ---------------------------------------------- tensor cores (M > 32) --
+// Both kernels below compute a 128 x 128 output tile per block with eight
+// warps (2 x 4, each 64 x 32 outputs: 4 x 4 m16n8 accumulator tiles), over
+// split blockIdx.z of K: the 32-k units [z U / S, (z + 1) U / S) of the
+// U = K / 32 (S = gridDim.z, at most U: every split holds a whole unit).
+// One split: the epilogue (acc * xs[m] * ws[n], rounded once) runs from
+// registers; more: the f32 partials go to work[z, M, N] and
+// qmm_reduce_kernel sums them and applies the same epilogue.
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_BM = 128, MMA_BN = 128;  // rows of x, rows of w per block
+constexpr int K_UNIT = 32;                 // k per mma step and per split unit
+
+__device__ __forceinline__ void split_range(int K, int& kb, int& ke) {
+  const int units = K / K_UNIT;
+  kb = (int)((long long)blockIdx.z * units / gridDim.z) * K_UNIT;
+  ke = (int)((long long)(blockIdx.z + 1) * units / gridDim.z) * K_UNIT;
+}
+
+// A warp's 4 x 4 accumulator tiles, rows mb + 16 mt + (g, g + 8), columns
+// nb + 8 nt + 2t, + 1 (the C fragment), to work or, scaled, to out.
+__device__ __forceinline__ void store_mma_tile(const float (&acc)[4][4][4], int mb, int nb,
+                                               const void* xs, int xs_kind, const void* wsc,
+                                               int ws_kind, int ws_stride, float* work,
+                                               __nv_bfloat16* out, int M, int N) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int n = nb + nt * 8 + t2;
+    if (n >= N) continue;
+    const bool n1 = n + 1 < N;
+    const float w0 = load_scale(wsc, ws_kind, (long long)n * ws_stride);
+    const float w1 = n1 ? load_scale(wsc, ws_kind, (long long)(n + 1) * ws_stride) : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mb + mt * 16 + gq + 8 * h;
+        if (m >= M) continue;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (work) {
+          float* o = work + ((size_t)blockIdx.z * M + m) * N + n;
+          o[0] = v0;
+          if (n1) o[1] = v1;
+        } else {
+          const float sx = load_scale(xs, xs_kind, m);
+          __nv_bfloat16* o = out + (size_t)m * N + n;
+          o[0] = __float2bfloat16(v0 * sx * w0);
+          if (n1) o[1] = __float2bfloat16(v1 * sx * w1);
+        }
+      }
+  }
+}
+
+// ------------------------------------ K6 / K8 with bf16 x, tensor cores --
+// qmm_mma_bf16_kernel<KIND> (entry tt_qmm_mma_bf16; M > 32: the int8wo,
+// fp6 B-plane and float8wo prefills) replaces _wo_kernel
+// (int8_matmul.py:185) and _mixed_kernel with bf16 x (fp8_matmul.py:129):
+// one bf16 x s8 / e4m3 dot_general per block, f32 accumulation, the scale
+// in the epilogue:  out = bf16((sum_k x[m, k] w[n, k]) * ws[n]).
+// Every int8 value and every finite e4m3 value is a bf16 value, and the
+// scale is per output column, not per group of k, so the weight converted
+// to bf16 is the stored value exactly: bf16 mma.sync.m16n8k16 with f32
+// accumulators forms exact products and differs from the plain version
+// only in the order of its f32 sums (held to >= 60 dB).
+// What bounds it on an H100: bytes (at M = 128 one weight byte feeds 256
+// operations: 2.42 ms of weight stream per Llama-3-8B prefill against 1.94
+// ms of bf16 tensor-core work). So each weight tile is read once: a block
+// holds M = 128 whole (x, 1 MB at K = 4096, comes from L2) and 128 weight
+// rows, through a three-stage ring of 16-byte cp.async copies, 64 k per
+// stage, so the stream overlaps the products of earlier stages; two blocks
+// per SM (108 KB of shared memory each) give 16 warps to hide latency.
+// Where the weight is converted: in registers, as each B fragment is read
+// from the byte tile, and not once per block into a bf16 tile as K5 does.
+// The conversion has no scale and no zero (int8: the 2^23 byte trick, 11
+// instructions per 4 values; e4m3: cvt through f16, 8), so doing it twice
+// (the two warps that share a column slice each convert it) costs less
+// issue than K5's second tile, its shared stores and its second
+// __syncthreads per stage, and the byte tile is half a bf16 tile's size.
+// The k order inside each 32-k step is permuted, the same for x and w (a
+// dot product does not depend on it): lane (g, t) of the m16n8k16 fragments
+// takes k 8t .. 8t + 3 for the step's first mma and 8t + 4 .. 8t + 7 for its
+// second (its pairs {2t, 2t + 1} and {2t + 8, 2t + 9}), so one 8-byte load
+// of a weight row and one 16-byte load of an x row give a lane all its
+// operands for both, with no ldmatrix. Row pitches keep those loads on
+// distinct banks: x rows 192 bytes (128 of data; rows g, g + 1 of a 16-byte
+// load phase 64 bytes apart mod 128), w rows 96 (64 of data; rows g .. g + 3
+// of an 8-byte phase 32 apart). A last stage of one 32-k unit runs one step.
+// -Xptxas -v on the card: 128 registers (the cap that two blocks per SM
+// set), 48 bytes of spill for int8 and 64 for e4m3; two blocks per SM
+// (MMA_BLOCKS_PER_SM in kernels/_qmm.py, the K split's wave).
+constexpr int MB_BK = 64;                 // k per ring stage
+constexpr int MB_STAGES = 3;
+constexpr int MB_XLD = MB_BK * 2 + 64;    // x row pitch, bytes
+constexpr int MB_WLD = MB_BK + 32;        // w row pitch, bytes
+constexpr int MB_STAGE = MMA_BM * MB_XLD + MMA_BN * MB_WLD;
+constexpr int MB_SMEM = MB_STAGES * MB_STAGE;
+
+// four weight bytes (k .. k + 3) -> bf16x2 {k, k + 1} and {k + 2, k + 3}, exactly
+template <bool E4M3>
+__device__ __forceinline__ void bytes4_to_bf16x4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  if constexpr (E4M3) {
+    const float2 a = e4m3x2(v, 0), b = e4m3x2(v, 1);
+    lo = pack_bf16x2(a.x, a.y);
+    hi = pack_bf16x2(b.x, b.y);
+  } else {
+    const uint32_t vx = v ^ 0x80808080u;
+    lo = pack_bf16x2(sbyte(vx, 0), sbyte(vx, 1));
+    hi = pack_bf16x2(sbyte(vx, 2), sbyte(vx, 3));
+  }
+}
+
+// grid: (ceil(N / 128), ceil(M / 128), ksplit); block 256 threads. work
+// null: one split.
+template <int KIND>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+qmm_mma_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                    const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
+                    int ws_kind, int ws_stride, float* __restrict__ work,
+                    __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(16) uint8_t mb_smem[];
+  const int n0 = blockIdx.x * MMA_BN, m0 = blockIdx.y * MMA_BM;
+  int kb, ke;
+  split_range(K, kb, ke);
+  const int steps = (ke - kb + MB_BK - 1) / MB_BK;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2, g = lane / 4, t = lane % 4;
+
+  auto load = [&](int st, int s) {
+    uint8_t* xt = mb_smem + s * MB_STAGE;
+    uint8_t* wt = xt + MMA_BM * MB_XLD;
+    const int k0 = kb + st * MB_BK;
+    for (int c = tid; c < MMA_BM * (MB_BK / 8); c += MMA_THREADS) {  // x: 8 values a copy
+      const int r = c / (MB_BK / 8), kc = (c % (MB_BK / 8)) * 8;
+      const bool ok = m0 + r < M && k0 + kc < ke;
+      cp_async<16>(xt + r * MB_XLD + kc * 2, ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok);
+    }
+    for (int c = tid; c < MMA_BN * (MB_BK / 16); c += MMA_THREADS) {  // w: 16 bytes a copy
+      const int r = c / (MB_BK / 16), kc = (c % (MB_BK / 16)) * 16;
+      const bool ok = n0 + r < N && k0 + kc < ke;
+      cp_async<16>(wt + r * MB_WLD + kc, ok ? w + (size_t)(n0 + r) * K + k0 + kc : w, ok);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < MB_STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<MB_STAGES - 2>();
+    __syncthreads();  // stage st landed; every warp is done with st - 1's slot
+    if (st + MB_STAGES - 1 < steps) load(st + MB_STAGES - 1, (st + MB_STAGES - 1) % MB_STAGES);
+    cp_async_commit();
+    const uint8_t* xt = mb_smem + (st % MB_STAGES) * MB_STAGE;
+    const uint8_t* wt = xt + MMA_BM * MB_XLD;
+    const int nk = min(MB_BK, ke - kb - st * MB_BK) / K_UNIT;
+#pragma unroll
+    for (int kk = 0; kk < MB_BK / K_UNIT; ++kk) {
+      if (kk >= nk) break;
+      uint32_t b[4][4];  // per n tile: the first mma's b0, b1, then the second's
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(
+            wt + (wn * 32 + nt * 8 + g) * MB_WLD + kk * K_UNIT + 8 * t);
+        bytes4_to_bf16x4<Traits<KIND>::kWE4m3>(raw.x, b[nt][0], b[nt][1]);
+        bytes4_to_bf16x4<Traits<KIND>::kWE4m3>(raw.y, b[nt][2], b[nt][3]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const uint8_t* xr = xt + (wm * 64 + mt * 16 + g) * MB_XLD + kk * 2 * K_UNIT + 16 * t;
+        const uint4 lo = *reinterpret_cast<const uint4*>(xr);               // row g
+        const uint4 hi = *reinterpret_cast<const uint4*>(xr + 8 * MB_XLD);  // row g + 8
+        const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_bf16_16816(acc[mt][nt], a0, b[nt]);
+          mma_bf16_16816(acc[mt][nt], a1, b[nt] + 2);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  store_mma_tile(acc, m0 + wm * 64, n0 + wn * 32, xs, xs_kind, wsc, ws_kind, ws_stride, work,
+                 out, M, N);
+}
+
+// ------------------------------- K8 with e4m3 x and K9, tensor cores --
+// qmm_mma_e4m3_kernel (entry tt_qmm_mma_e4m3; M > 32: the float8dq-row
+// layers (K8: stacked, a per-row or per-layer w scale, bf16 or f32) and
+// its head (K9)) replaces _mixed_kernel with e4m3 x (fp8_matmul.py:129,
+// pallas_call at :218) and fp8_rowwise_matmul's _kernel (:24, pallas_call
+// at :79):  out = bf16(sum_k x[m, k] w[n, k] * xs[m] * ws[n]).
+// The TPU bodies upcast e4m3 to bf16, so their products are exact;
 // e4m3 x e4m3 products are exact too, so the kernel feeds the stored bytes
 // to mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32: x [M, K] and
 // w [N, K] are both K-major, which is row.col, and ldmatrix (not
@@ -335,25 +505,21 @@ qmm_tiled_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
 // 0.068 ms at the 1,979 TFLOP/s e4m3 peak. So the design keeps the weight
 // stream moving: each w tile is read once, by 16-byte cp.async into a
 // four-stage ring (128 rows x 128 k per stage); a block holds M = 128
-// whole (BM = BN = 128: 1002 blocks at the head), so x (512 KB) comes from
-// L2; the epilogue (acc * xs[m] * ws[n], rounded once) runs from registers.
-// Eight warps, 2 x 4, each own 64 x 32 outputs.
+// whole, so x (512 KB) comes from L2; the epilogue runs from registers.
 // Accumulation: on sm_90a the e4m3 mma.sync compiles to f16 HMMA with f32
 // accumulators after conversions in registers (F2FP.F16.E4M3.UNPACK_B in
 // the SASS): exact products, an f32 sum, as the TPU body, so it needs no
 // promotion every 128 k (the DeepSeek-V3 report, section 3.3.2, adds one
 // for wgmma's e4m3 path, whose running sum keeps fewer bits). Held to
-// >= 60 dB against the plain version at K = 4096. -Xptxas -v: 179
-// registers, no spills;
-// one block per SM (the ring's 144 KB of shared memory).
-// No partial K step: K % 32 == 0; a last stage of fewer than 128 k runs
-// only its whole 32-k steps (its copies past K are masked). M and N edges
-// are masked; any N.
-constexpr int F8_THREADS = 256;
-constexpr int F8_BM = 128, F8_BN = 128, F8_BK = 128;  // rows of x, of w; k (bytes) per stage
+// >= 60 dB against the plain version at K = 4096 (the head) and 14336 (w2).
+// -Xptxas -v on the card: 183 registers, no spills; one block per SM (the
+// ring's 144 KB of shared memory; MMA_BLOCKS_PER_SM in kernels/_qmm.py).
+// A last stage of fewer than 128 k runs only its whole 32-k steps (its
+// copies past the split's end are masked). M and N edges are masked; any N.
+constexpr int F8_BK = 128;  // k (bytes) per stage
 constexpr int F8_STAGES = 4;
 constexpr int F8_LD = F8_BK + 16;  // mma.sync tile row, bytes (+16: ldmatrix rows on distinct banks)
-constexpr int F8_MMA_STAGE = (F8_BM + F8_BN) * F8_LD;  // x tile, then w tile
+constexpr int F8_MMA_STAGE = (MMA_BM + MMA_BN) * F8_LD;  // x tile, then w tile
 constexpr int F8_MMA_SMEM = F8_STAGES * F8_MMA_STAGE;
 
 // c += a . b (16 x 8 x 32, e4m3 in, f32 accumulation); fragments as in
@@ -367,28 +533,32 @@ __device__ __forceinline__ void mma_e4m3_16832(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// grid: (ceil(N / 128), ceil(M / 128)); block 256 threads.
-__global__ void __launch_bounds__(F8_THREADS, 1)
-fp8_rowwise_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                       const float* __restrict__ xs, const float* __restrict__ wsc,
-                       __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+// grid: (ceil(N / 128), ceil(M / 128), ksplit); block 256 threads. work
+// null: one split.
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+qmm_mma_e4m3_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                    const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
+                    int ws_kind, int ws_stride, float* __restrict__ work,
+                    __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) uint8_t f8_smem[];
-  const int n0 = blockIdx.x * F8_BN, m0 = blockIdx.y * F8_BM;
-  const int steps = (K + F8_BK - 1) / F8_BK;
+  const int n0 = blockIdx.x * MMA_BN, m0 = blockIdx.y * MMA_BM;
+  int kb, ke;
+  split_range(K, kb, ke);
+  const int steps = (ke - kb + F8_BK - 1) / F8_BK;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp % 2, wn = warp / 2;
 
   auto load = [&](int st, int s) {
     uint8_t* base = f8_smem + s * F8_MMA_STAGE;
-    const int k0 = st * F8_BK;
-    for (int c = tid; c < (F8_BM + F8_BN) * (F8_BK / 16); c += F8_THREADS) {
+    const int k0 = kb + st * F8_BK;
+    for (int c = tid; c < (MMA_BM + MMA_BN) * (F8_BK / 16); c += MMA_THREADS) {
       const int r = c / (F8_BK / 16), kc = (c % (F8_BK / 16)) * 16;
-      const bool in_k = k0 + kc < K;
-      if (r < F8_BM) {
+      const bool in_k = k0 + kc < ke;
+      if (r < MMA_BM) {
         const bool ok = in_k && m0 + r < M;
         cp_async<16>(base + r * F8_LD + kc, ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok);
       } else {
-        const int n = r - F8_BM;
+        const int n = r - MMA_BM;
         const bool ok = in_k && n0 + n < N;
         cp_async<16>(base + r * F8_LD + kc, ok ? w + (size_t)(n0 + n) * K + k0 + kc : w, ok);
       }
@@ -414,10 +584,10 @@ fp8_rowwise_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict_
     if (st + F8_STAGES - 1 < steps) load(st + F8_STAGES - 1, (st + F8_STAGES - 1) % F8_STAGES);
     cp_async_commit();
     const uint8_t* xt = f8_smem + (st % F8_STAGES) * F8_MMA_STAGE;
-    const uint8_t* wt = xt + F8_BM * F8_LD;
-    const int nk = min(F8_BK, K - st * F8_BK) / 32;
+    const uint8_t* wt = xt + MMA_BM * F8_LD;
+    const int nk = min(F8_BK, ke - kb - st * F8_BK) / K_UNIT;
 #pragma unroll
-    for (int kk = 0; kk < F8_BK / 32; ++kk) {
+    for (int kk = 0; kk < F8_BK / K_UNIT; ++kk) {
       if (kk >= nk) break;
       uint32_t a[4][4], b[4][2];
 #pragma unroll
@@ -439,42 +609,32 @@ fp8_rowwise_mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict_
     }
   }
   cp_async_wait<0>();
-
-  const int gq = lane / 4, t2 = (lane % 4) * 2;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int n = n0 + wn * 32 + nt * 8 + t2;
-    if (n >= N) continue;
-    const float w0 = wsc[n], w1 = n + 1 < N ? wsc[n + 1] : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + mt * 16 + gq + 8 * h;
-        if (m >= M) continue;
-        const float sx = xs[m];
-        __nv_bfloat16* o = out + (size_t)m * N + n;
-        o[0] = __float2bfloat16(acc[mt][nt][2 * h] * sx * w0);
-        if (n + 1 < N) o[1] = __float2bfloat16(acc[mt][nt][2 * h + 1] * sx * w1);
-      }
-  }
+  store_mma_tile(acc, m0 + wm * 64, n0 + wn * 32, xs, xs_kind, wsc, ws_kind, ws_stride, work,
+                 out, M, N);
 }
 
-int launch_fp8_rowwise_mma(const void* x, const void* w, const void* xs, const void* ws,
-                           void* out, int M, int K, int N, cudaStream_t st) {
-  static bool configured = false;
+// A tensor-core kernel (x of type X) over ksplit splits, then (ksplit > 1)
+// the reduce pass. `configured`: the kernel's shared-memory limit is raised.
+template <typename X, typename Kernel>
+int launch_mma(Kernel kernel, int smem, bool& configured, const void* x, const void* w,
+               const void* xs, int xs_kind, const void* ws, int ws_kind, int ws_stride,
+               void* work, void* out, int M, int K, int N, int ksplit, cudaStream_t st) {
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(fp8_rowwise_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         F8_MMA_SMEM);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((N + F8_BN - 1) / F8_BN, (M + F8_BM - 1) / F8_BM);
-  fp8_rowwise_mma_kernel<<<grid, F8_THREADS, F8_MMA_SMEM, st>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+  dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM, ksplit);
+  float* wk = ksplit > 1 ? static_cast<float*>(work) : nullptr;
+  auto o = static_cast<__nv_bfloat16*>(out);
+  kernel<<<grid, MMA_THREADS, smem, st>>>(static_cast<const X*>(x), static_cast<const uint8_t*>(w),
+                                          xs, xs_kind, ws, ws_kind, ws_stride, wk, o, M, K, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ksplit == 1) return err;
+  const long long MN = (long long)M * N;
+  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+  qmm_reduce_kernel<float><<<blocks, 256, 0, st>>>(wk, xs, xs_kind, ws, ws_kind, ws_stride, o,
+                                                   ksplit, M, N);
   return cudaGetLastError();
 }
 
@@ -503,16 +663,6 @@ int launch_gemv(const void* x, const void* w, const void* xs, int xs_kind, const
   return cudaGetLastError();
 }
 
-template <int KIND>
-int launch_tiled(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
-                 int ws_kind, int ws_stride, void* out, int M, int K, int N, cudaStream_t st) {
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  qmm_tiled_kernel<KIND><<<grid, T_THREADS, 0, st>>>(x, static_cast<const uint8_t*>(w), xs,
-                                                     xs_kind, ws, ws_kind, ws_stride,
-                                                     static_cast<__nv_bfloat16*>(out), M, K, N);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // kind: 0 = K6 (bf16 x, int8 w), 1 = K7 (int8 x, int8 w), 2 = K8 (bf16 x,
@@ -534,18 +684,53 @@ TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs
   }
 }
 
+// K7 on the SIMT tiled kernel (M > 32): the arguments of tt_qmm_gemv
+// without the scratch and the split; kind must be 1.
 TT_EXPORT int tt_qmm_tiled(int kind, const void* x, const void* w, const void* xs, int xs_kind,
                            const void* ws, int ws_kind, int ws_stride, void* out, int M, int K,
                            int N, void* stream) {
+  if (K % TK || kind != K7_I8_I8) return cudaErrorInvalidValue;
+  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+  qmm_tiled_kernel<<<grid, T_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind,
+      ws_stride, static_cast<__nv_bfloat16*>(out), M, K, N);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernels (M > 32), with the arguments of tt_qmm_gemv: kind
+// 0 (K6) or 2 (K8, bf16 x) for tt_qmm_mma_bf16, 3 (K8, e4m3 x) or 4 (K9)
+// for tt_qmm_mma_e4m3; work [ksplit, M, N] f32 scratch when ksplit > 1
+// (else unread, may be null); 1 <= ksplit <= K / 32. K % 32 == 0, x and w
+// 16-byte aligned.
+TT_EXPORT int tt_qmm_mma_bf16(int kind, const void* x, const void* w, const void* xs,
+                              int xs_kind, const void* ws, int ws_kind, int ws_stride, void* work,
+                              void* out, int M, int K, int N, int ksplit, void* stream) {
+  static bool configured_k6 = false, configured_k8 = false;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % TK) return cudaErrorInvalidValue;
+  if (K % K_UNIT || ksplit < 1 || ksplit > K / K_UNIT) return cudaErrorInvalidValue;
   switch (kind) {
-    case K6_BF16_I8: return launch_tiled<K6_BF16_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
-    case K7_I8_I8: return launch_tiled<K7_I8_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
-    case K8_BF16_E4M3: return launch_tiled<K8_BF16_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
-    case K8_E4M3_E4M3: return launch_tiled<K8_E4M3_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, out, M, K, N, st);
+    case K6_BF16_I8:
+      return launch_mma<__nv_bfloat16>(qmm_mma_bf16_kernel<K6_BF16_I8>, MB_SMEM, configured_k6, x,
+                                       w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K,
+                                       N, ksplit, st);
+    case K8_BF16_E4M3:
+      return launch_mma<__nv_bfloat16>(qmm_mma_bf16_kernel<K8_BF16_E4M3>, MB_SMEM, configured_k8,
+                                       x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K,
+                                       N, ksplit, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+TT_EXPORT int tt_qmm_mma_e4m3(int kind, const void* x, const void* w, const void* xs,
+                              int xs_kind, const void* ws, int ws_kind, int ws_stride, void* work,
+                              void* out, int M, int K, int N, int ksplit, void* stream) {
+  static bool configured = false;
+  if (K % K_UNIT || ksplit < 1 || ksplit > K / K_UNIT ||
+      (kind != K8_E4M3_E4M3 && kind != K9_E4M3_ROW))
+    return cudaErrorInvalidValue;
+  return launch_mma<uint8_t>(qmm_mma_e4m3_kernel, F8_MMA_SMEM, configured, x, w, xs, xs_kind, ws,
+                             ws_kind, ws_stride, work, out, M, K, N, ksplit,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // P1: x [M, K] bf16; w [N, K] int8; no scale (the reduce pass multiplies by
@@ -566,12 +751,4 @@ TT_EXPORT int tt_fp8_rowwise_gemv(const void* x, const void* w, const void* xs, 
   if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
   return launch_gemv<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, work, out, M, K, N, ksplit,
                                   static_cast<cudaStream_t>(stream));
-}
-
-// K9 tiled (the e4m3 mma.sync kernel above): the arguments of the gemv
-// entry without the scratch and the split.
-TT_EXPORT int tt_fp8_rowwise_tiled(const void* x, const void* w, const void* xs, const void* ws,
-                                   void* out, int M, int K, int N, void* stream) {
-  if (K % TK) return cudaErrorInvalidValue;
-  return launch_fp8_rowwise_mma(x, w, xs, ws, out, M, K, N, static_cast<cudaStream_t>(stream));
 }

@@ -13,7 +13,9 @@ Each C entry point launches on the stream it is given and returns
 exception. ``LAUNCHES`` counts kernel launches per wrapper: each wrapper
 adds one where it launches its kernel, and nowhere else. ``ENTRIES``
 counts the same launches per C entry point where one counter covers more
-than one kernel (the int4 wrapper: K14a's SIMT and tensor-core forms).
+than one kernel, or one kernel serves more than one counter (the int4
+wrapper: K14a's SIMT and tensor-core forms; the tiled qmm bodies: K6 and K8
+share ``tt_qmm_mma_bf16``, K8 with e4m3 x and K9 ``tt_qmm_mma_e4m3``).
 """
 
 from __future__ import annotations
@@ -137,8 +139,10 @@ SIGNATURES = {
     "tt_smajor_attention_i8": _HEADS,
     "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_tiled": _QMM + [c_ptr] + [c_int] * 3 + [c_ptr],
+    # the tensor-core bodies take the gemv's arguments (work may be null: one split)
+    "tt_qmm_mma_bf16": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
+    "tt_qmm_mma_e4m3": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_fp8_rowwise_gemv": _GEMV6,
-    "tt_fp8_rowwise_tiled": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
     "tt_fp6_dual_gemv": _GEMV6,
     "tt_fp6_gemv": _GEMV6,
     # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
@@ -216,6 +220,14 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (the tiled kernels' K-split rules)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptxas_report(names) -> str:

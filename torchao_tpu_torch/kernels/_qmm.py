@@ -1,14 +1,22 @@
 """Launcher shared by the K6, K7, K8 and K9 wrappers (``csrc/qmatmul.cu``).
 
-``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]`` in one templated
-weight-streaming kernel with two launch shapes: ``gemv`` for M ≤ 32 (K
-split over blocks until about ``_TARGET_BLOCKS`` are in flight) and
-``tiled`` for larger M. K9 has its own C entry points
-(``tt_fp8_rowwise_{gemv,tiled}``, f32 scales per row of x and of w; its
-tiled form is an e4m3 ``mma.sync`` kernel of its own); the others share
-``tt_qmm_{gemv,tiled}``, which take the kind. Each wrapper
+``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]``, through one of four
+bodies, by M and the kind (:func:`tiled_entry`):
+
+- M ≤ 32, every kind: the SIMT gemv (``tt_qmm_gemv``; K9's own
+  ``tt_fp8_rowwise_gemv``), K split over blocks until about
+  ``_TARGET_BLOCKS`` are in flight; bound by the weight's bytes;
+- M > 32, K6 and K8 with bf16 x: bf16 ``mma.sync`` on the weight bytes
+  converted in registers (``tt_qmm_mma_bf16``);
+- M > 32, K8 with e4m3 x and K9: e4m3 ``mma.sync`` on the stored bytes
+  (``tt_qmm_mma_e4m3``);
+- M > 32, K7: the SIMT ``__dp4a`` tile (``tt_qmm_tiled``).
+
+The two tensor-core bodies split K over the grid by :func:`tiled_ksplit`
+where their 128 x 128 output tiles would not fill the card. Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
-``<name>_tiled``.
+``<name>_tiled``; a tiled launch also counts its C entry in
+``_build.ENTRIES``.
 """
 
 from __future__ import annotations
@@ -21,10 +29,14 @@ from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 32
-K_STEP = 32          # tiled k step (csrc TK); K must be a multiple
+K_STEP = 32          # k per step of the tiled bodies and unit of their K split (csrc TK,
+                     # K_UNIT); K must be a multiple: no partial K block
 _CHUNK = 16          # k per lane per gemv step (csrc CH)
 _GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
 _TARGET_BLOCKS = 1024
+TILED_BM = TILED_BN = 128  # output tile of the tensor-core bodies (csrc MMA_BM, MMA_BN)
+# blocks resident per SM (their shared memory and registers): the K split's wave
+MMA_BLOCKS_PER_SM = {"tt_qmm_mma_bf16": 2, "tt_qmm_mma_e4m3": 1}
 
 # csrc Kind
 K6_BF16_I8, K7_I8_I8, K8_BF16_E4M3, K8_E4M3_E4M3, K9_E4M3_ROW = range(5)
@@ -45,6 +57,25 @@ def layer(layer_idx: Optional[int], *ts):
         if t.ndim < 1 or not 0 <= layer_idx < t.shape[0]:
             raise IndexError(f"layer_idx {layer_idx} out of range for {tuple(t.shape)}")
     return tuple(t[layer_idx] for t in ts)
+
+
+def tiled_entry(kind: int) -> str:
+    """The C entry point of kind ``kind`` at M > ``GEMV_MAX_M``."""
+    if kind in (K6_BF16_I8, K8_BF16_E4M3):
+        return "tt_qmm_mma_bf16"
+    if kind in (K8_E4M3_E4M3, K9_E4M3_ROW):
+        return "tt_qmm_mma_e4m3"
+    if kind == K7_I8_I8:
+        return "tt_qmm_tiled"
+    raise ValueError(f"unknown kind {kind}")
+
+
+def tiled_ksplit(M: int, K: int, N: int, sms: int, blocks_per_sm: int) -> int:
+    """The tensor-core bodies' K split (K5's rule): the blocks of one wave
+    (``blocks_per_sm`` per SM) over the ``ceil(M/128)·ceil(N/128)`` output
+    tiles, at most one split per ``K_STEP`` of k."""
+    tiles = cdiv(M, TILED_BM) * cdiv(N, TILED_BN)
+    return max(1, min(K // K_STEP, blocks_per_sm * sms // tiles))
 
 
 def _scale_arg(s: Optional[torch.Tensor], sizes, what: str):
@@ -101,6 +132,17 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
                    stream)
         _build.LAUNCHES[f"{name}_gemv"] += 1
     else:
-        lib.launch(f"{entry}_tiled", *args, out.data_ptr(), M, K, N, stream)
+        entry = tiled_entry(kind)
+        args = (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
+        if entry == "tt_qmm_tiled":
+            lib.launch(entry, *args, out.data_ptr(), M, K, N, stream)
+        else:
+            ksplit = tiled_ksplit(M, K, N, _build.sm_count(x.device.index or 0),
+                                  MMA_BLOCKS_PER_SM[entry])
+            work = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+                    if ksplit > 1 else None)
+            lib.launch(entry, *args, 0 if work is None else work.data_ptr(), out.data_ptr(),
+                       M, K, N, ksplit, stream)
         _build.LAUNCHES[f"{name}_tiled"] += 1
+        _build.ENTRIES[entry] += 1
     return out

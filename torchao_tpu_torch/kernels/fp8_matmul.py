@@ -8,15 +8,20 @@ Port of two functions of ``torchao_tpu/kernels/fp8_matmul.py`` (CUDA source
   ``out = (x · w_qᵀ) · xs[m] · ws[n]`` with a stacked e4m3 weight
   ``[(L,) N, K]``, and x in bf16 (float8wo, no x scale) or e4m3 (float8dq,
   per-row x scales), f32 accumulation. Weight scales are per row
-  (``[(L,) N]`` or ``[(L,) N, 1]``) or one per layer (``[(L,) 1]``). It
-  counts its launches as ``fp8_mixed_matmul_{gemv,tiled}`` with bf16 x and
-  ``fp8_mixed_matmul_e4m3_{gemv,tiled}`` with e4m3 x.
+  (``[(L,) N]`` or ``[(L,) N, 1]``) or one per layer (``[(L,) 1]``). M ≤ 32
+  runs the SIMT gemv (``tt_qmm_gemv``); M > 32 a tensor-core kernel: with
+  bf16 x K6's bf16 one (``tt_qmm_mma_bf16``, the e4m3 weight converted to
+  bf16 in registers, exactly), with e4m3 x K9's e4m3 one
+  (``tt_qmm_mma_e4m3``, the stored bytes); every form is bound by the
+  weight's bytes. It counts its launches as ``fp8_mixed_matmul_{gemv,tiled}``
+  with bf16 x and ``fp8_mixed_matmul_e4m3_{gemv,tiled}`` with e4m3 x.
 - :func:`fp8_rowwise_matmul` (K9; replaces the pallas_call at :79, body
   ``_kernel`` at :24): e4m3 x ``[M, K]`` times an unstacked e4m3 weight
   ``[N, K]``, f32 accumulation, epilogue ``acc · xs[m] · ws[n]`` with f32
   per-row scales (the float8dq-row head). A gemv form for M <= 32 (the head
-  at decode) and a tiled form above (the head at prefill: e4m3
-  ``mma.sync``), counted as ``fp8_rowwise_matmul_{gemv,tiled}``.
+  at decode, ``tt_fp8_rowwise_gemv``) and, above, the e4m3 tensor-core
+  kernel it shares with K8 (``tt_qmm_mma_e4m3``), bound by bytes; counted
+  as ``fp8_rowwise_matmul_{gemv,tiled}``.
 
 A CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
 plain version.

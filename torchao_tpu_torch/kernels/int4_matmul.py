@@ -55,7 +55,6 @@ ceiling probe's: K1's launch structure and loads with one raw-byte dot.
 
 from __future__ import annotations
 
-import functools
 import os
 import warnings
 from typing import Optional
@@ -354,11 +353,6 @@ def launch_counter(body: str, zero_free: bool) -> str:
     return f"int4_dq_matmul{'_zero_free' if zero_free else ''}_{body}"
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _ksplit(M, K, N, target, mt, units=None):
     """Blocks over K: up to ``target`` blocks in flight, at least one run
     for each of a block's 32 run lanes, and (banded) whole units."""
@@ -383,7 +377,7 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
     entry = launch_entry(body, M, group_size)
     if entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
-        sms = _sm_count(x.device.index or 0)
+        sms = _build.sm_count(x.device.index or 0)
         ksplit = (tiled_ksplit(M, K, N, sms) if body == "tiled"
                   else group_partial_tiled_ksplit(M, K, N, group_size, sms))
         ws = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)

@@ -6,11 +6,17 @@ source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
 - :func:`int8wo_mixed_matmul` (K6, int8 weight-only): bf16 x times an int8
   weight ``[(L,) N, K]``, f32 accumulation, per-channel scale epilogue;
   replaces ``int8wo_mixed_matmul`` (pallas_call at ``int8_matmul.py:255``,
-  body ``_wo_kernel`` at :185).
+  body ``_wo_kernel`` at :185). M ≤ 32 runs the SIMT gemv
+  (``tt_qmm_gemv``), bound by the weight's bytes; M > 32 the bf16
+  tensor-core kernel (``tt_qmm_mma_bf16``: the int8 bytes converted to bf16
+  in registers, exactly), bound by bytes too at M = 128. Counted as
+  ``int8wo_mixed_matmul_{gemv,tiled}``.
 - :func:`int8_scaled_matmul` (K7, int8dq): per-token int8 x times the int8
   weight, exact int32 accumulation, epilogue ``acc·f32(xs)·f32(ws)``
   rounded once; replaces ``int8_scaled_matmul`` (pallas_call at :104,
-  body ``_kernel`` at :24).
+  body ``_kernel`` at :24). Both forms are SIMT on ``__dp4a``: the gemv
+  (M ≤ 32) and a 64 x 64 tile (``tt_qmm_tiled``, M > 32, held by its
+  issue rate); counted as ``int8_scaled_matmul_{gemv,tiled}``.
 
 A stacked weight is addressed by ``layer_idx`` (``w_q[l]`` is a view: no
 copy). A CUDA tensor launches the kernel (or raises); only a CPU tensor
