@@ -34,7 +34,8 @@ Phases (each fails loudly; nothing is caught):
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
    tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
-   cores, 60 dB), with its time (CUDA
+   cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact),
+   with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
    head's plain-torch route, K8 and the route it takes); the main path — prefill 128
@@ -42,7 +43,8 @@ Phases (each fails loudly; nothing is caught):
    and one timed run, the launch counts of the timed run asserted (and
    the launches of each tiled qmm body's C entry: ``tt_qmm_mma_bf16`` for
    K6 and K8 with bf16 x, ``tt_qmm_mma_e4m3`` for K8 with e4m3 x and K9,
-   ``tt_qmm_tiled`` for K7 alone), the tokens in range and the logits
+   ``tt_qmm_mma_s8`` for K7; K7's SIMT ``tt_qmm_tiled`` is gone from the
+   library), the tokens in range and the logits
    finite; and a 2-layer slice of the same
    weights in bf16 on
    the card (kernels) and on the CPU (plain versions), each held against a
@@ -63,8 +65,9 @@ Phases (each fails loudly; nothing is caught):
    S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
    S-major, K2 split-flat, each against its plain version and timed, SDPA
    on the dequantized layer as the yardstick), and K10's (the W4A8 matmul at
-   Llama-3-8B's linear shapes, M = 1 and 128, reached once through
-   ``ops.linear`` with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``), and the ceiling
+   Llama-3-8B's linear shapes, M = 1 and 128 (the tensor-core entry
+   ``tt_w4a8_mma`` asserted at each), reached once through ``ops.linear``
+   with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``), and the ceiling
    probe's (``probes/ceiling_probe.py`` at fewer steps: K1, its stub arm and
    the one-launch stream over a decode step's 4.69 GB, with GB/s). Their
    rows report 0 launches: no main path runs them.
@@ -173,6 +176,7 @@ from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8Array, quantize_activation_float8
 from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
+from torchao_tpu_torch.qtypes.packing import unpack_int4
 from torchao_tpu_torch.quantization.granularity import PerRow
 from torchao_tpu_torch.quantization.quant_api import (
     Float8DynamicActivationFloat8WeightConfig,
@@ -197,6 +201,7 @@ BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, the same source
 INT8_FP8_OPS = 1979e12     # dense int8 / fp8 tensor-core peak, the same source
 REPS = 25
 TOL_EXACT_PARTIALS_DB = 80.0  # K10 in f32: exact int32 partials, f32 sums in another order
+FOLD_GROUPS = (64, 128)  # K10's tensor-core form timed at these g too: its fold's share
 # K14a's tensor-core form (M > 32): its exact-nibble rounding against _kernel_v2's plain
 # version; 65 dB separates it from K5's dequantize-then-round (~51 dB)
 TOL_K14A_TILED_DB = 65.0
@@ -418,6 +423,14 @@ def _int8dq_call(x, w, l):
             N * K + N * 2 + M * K + M * 2 + M * N * 2, 2 * M * N * K)
 
 
+def _int8dq_int_mm(x, w, l):
+    """``torch._int_mm`` on K7's operands (int8 x int8 -> int32, no scales)."""
+    inner = w.original_weight
+    x_q, _ = quantize_activation_per_token_absmax(x)
+    wq = inner.qdata[l] if l is not None else inner.qdata
+    return lambda: torch._int_mm(x_q, wq.t())
+
+
 def _fp8_call(x, w, l):
     N, K = w.shape[-2:]
     ws = w.scale.reshape(w.qdata.shape[0], -1)
@@ -432,12 +445,14 @@ def _fp8_call(x, w, l):
             N * K + N * 4 + nx + M * N * 2, 2 * M * N * K)
 
 
-def check_qmm(name, params, args, gen, call, peak, head, tiled_tol=TOL_SQNR_DB):
+def check_qmm(name, params, args, gen, call, peak, head, tiled_tol=TOL_SQNR_DB, tiled_kw=None):
     """K6 / K7 / K8 at M=1 (gemv, decode) and M=128 (tiled, prefill) on
     layer 0 of each stacked weight (and the head where the kernel runs
-    it), against its plain version (the tiled form to ``tiled_tol``)."""
+    it), against its plain version (the tiled form to ``tiled_tol``, and
+    with ``check_shapes``'s keywords ``tiled_kw``)."""
     return [check_shapes(f"{name}_{form}", _cases(params, args.n_layer, head), M, call, gen,
-                         peak, tol=tiled_tol if form == "tiled" else TOL_SQNR_DB)
+                         peak, tol=tiled_tol if form == "tiled" else TOL_SQNR_DB,
+                         **((tiled_kw or {}) if form == "tiled" else {}))
             for form, M in FORMS]
 
 
@@ -642,13 +657,17 @@ def _centred(x):
 
 
 def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None,
-                 tol=TOL_SQNR_DB):
+                 tol=TOL_SQNR_DB, exact=False, int_mm=None):
     """One kernel form at M on each (weight name, weight, layer, launches per
-    forward) of ``cases``, against its plain version (SQNR >= ``tol``).
-    ``call(x, w, layer)`` gives the kernel call, the plain call, the bytes
-    the function must move and its operations; the library call is
-    ``library(x, w, layer)``'s, or a bf16 ``torch.matmul`` on the
-    dequantized weight. The row keeps the least SQNR as ``sqnr_db``."""
+    forward) of ``cases``, against its plain version (SQNR >= ``tol``, or
+    bit for bit if ``exact``). ``call(x, w, layer)`` gives the kernel call,
+    the plain call, the bytes the function must move and its operations;
+    the library call is ``library(x, w, layer)``'s, or a bf16
+    ``torch.matmul`` on the dequantized weight. The row keeps the least
+    SQNR as ``sqnr_db`` (``bit_exact`` instead if ``exact``). ``int_mm(x,
+    w, layer)``, if given, is an int8 tensor-core yardstick (a
+    ``torch._int_mm`` call): its time is logged per shape and summed as
+    ``int_mm_ms``, beside the library column."""
     t = Tally(name, f"one {'decode step' if M <= 16 else 'prefill'} at M={M}: "
               + ", ".join(f"{n} x{c}" for n, _, _, c in cases), peak)
     for wname, w, l, count in cases:
@@ -658,11 +677,19 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
             x = make_x(x)
         kernel, plain, nbytes, flops = call(x, w, l)
         got, want = kernel(), plain()
-        err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, tol=tol)
-        sqnr = compute_error(want, got)
-        t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
-        t.extra.setdefault("sqnr_db_by_weight", {})[f"{wname} K={K}"] = sqnr
+        err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, exact=exact, tol=tol)
+        if exact:
+            t.extra["bit_exact"] = True
+        else:
+            sqnr = compute_error(want, got)
+            t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
+            t.extra.setdefault("sqnr_db_by_weight", {})[f"{wname} K={K}"] = sqnr
         del got, want
+        if int_mm is not None:
+            int_mm_ms = time_ms(int_mm(x, w, l))
+            t.extra["int_mm_ms"] = t.extra.get("int_mm_ms", 0.0) + count * int_mm_ms
+            log(f"    int_mm_ms={int_mm_ms:.4f} (torch._int_mm, {wname} M={M} N={N} K={K}: "
+                f"int8 tensor-core yardstick)")
         lib = library(x, w, l) if library is not None else None
         if lib is None:
             wl = w.take_layer(l) if l is not None else w
@@ -887,9 +914,15 @@ def w4a8_phase(gen):
     M = 128 (tiled), g = GROUP, plain nibbles, with
     ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1`` (restored after): ``ops.linear`` on
     an 8da4w weight with symmetric activations reaches it once; each call
-    against its plain version in f32 (exact partials: >= 80 dB) and timed
-    in bf16, with ``torch.matmul`` on the dequantized bf16 weight as the
-    library column. No config reaches K10: launches are 0."""
+    against its plain version in f32 (exact partials: >= 80 dB) and in bf16
+    (>= 35 dB) and timed in bf16, with ``torch.matmul`` on the dequantized
+    bf16 weight as the library column; at M = 128 each call must launch the
+    tensor-core entry ``tt_w4a8_mma``, and ``torch._int_mm`` on the same
+    int8 codes and the nibbles - 8 is logged beside it as an int8
+    tensor-core yardstick. The fold's share: at M = 128 the same weights
+    with scales for g in FOLD_GROUPS (a quarter of the folds at g = 128)
+    are checked (f32, >= 80 dB) and timed too, summed per prefill as
+    ``ms_g<g>``. No config reaches K10: launches are 0."""
     args = ModelArgs.from_name(MODEL)
     L, D, F, V = args.n_layer, args.dim, args.intermediate_size, args.vocab_size
     Dh, H, Hkv = args.head_dim, args.n_head, args.n_local_heads
@@ -919,14 +952,43 @@ def w4a8_phase(gen):
                 a = (x_q, xs.float(), w.qdata, w.scale)
                 call = lambda: w4a8_dq_matmul(*a, group_size=GROUP)
                 plain = lambda: w4a8_dq_matmul_plain(*a, group_size=GROUP)
+                mma_before = _build.ENTRIES["tt_w4a8_mma"]
+                got32 = w4a8_dq_matmul(*a, group_size=GROUP, out_dtype=torch.float32)
+                if form == "tiled" and _build.ENTRIES["tt_w4a8_mma"] != mma_before + 1:
+                    raise AssertionError(f"K10 {wname} M={M} did not launch tt_w4a8_mma")
+                want32 = w4a8_dq_matmul_plain(*a, group_size=GROUP, out_dtype=torch.float32)
                 err = compare(f"w4a8_dq_matmul_{form} {wname} M={M} N={N} K={K} (f32 out)",
-                              w4a8_dq_matmul(*a, group_size=GROUP, out_dtype=torch.float32),
-                              w4a8_dq_matmul_plain(*a, group_size=GROUP, out_dtype=torch.float32),
-                              tol=TOL_EXACT_PARTIALS_DB)
-                compare(f"w4a8_dq_matmul_{form} {wname} (bf16 out)", call(), plain())
+                              got32, want32, tol=TOL_EXACT_PARTIALS_DB)
+                sqnr = {"f32": compute_error(want32, got32)}
+                del got32, want32
+                got, want = call(), plain()
+                compare(f"w4a8_dq_matmul_{form} {wname} (bf16 out)", got, want)
+                sqnr["bf16"] = compute_error(want, got)
+                del got, want
+                for k, v in sqnr.items():
+                    t.extra[f"sqnr_db_{k}"] = min(t.extra.get(f"sqnr_db_{k}", math.inf), v)
                 wd = w.dequantize(torch.bfloat16).T.contiguous()
                 ms, plain_ms, lib_ms = time_ms(call), time_ms(plain), time_ms(lambda: x @ wd)
                 del wd
+                if form == "tiled":
+                    qt = (unpack_int4(w.qdata, axis=0).to(torch.int16) - 8).to(torch.int8).T
+                    qt = qt.contiguous()  # [N, K]: K7's weight layout
+                    int_mm_ms = time_ms(lambda: torch._int_mm(x_q, qt.t()))
+                    del qt
+                    t.extra["int_mm_ms"] = t.extra.get("int_mm_ms", 0.0) + count * int_mm_ms
+                    log(f"    int_mm_ms={int_mm_ms:.4f} (torch._int_mm, {wname} M={M} N={N} "
+                        f"K={K}: int8 tensor-core yardstick)")
+                    for g in FOLD_GROUPS:
+                        ws = (torch.rand((K // g, N), generator=gen, device="cuda") * 0.002
+                              + 0.0005).bfloat16()
+                        ag = (x_q, xs.float(), w.qdata, ws)
+                        compare(f"w4a8_dq_matmul_tiled {wname} g={g} (f32 out)",
+                                w4a8_dq_matmul(*ag, group_size=g, out_dtype=torch.float32),
+                                w4a8_dq_matmul_plain(*ag, group_size=g, out_dtype=torch.float32),
+                                tol=TOL_EXACT_PARTIALS_DB)
+                        ms_g = time_ms(lambda: w4a8_dq_matmul(*ag, group_size=g))
+                        t.extra[f"ms_g{g}"] = t.extra.get(f"ms_g{g}", 0.0) + count * ms_g
+                        log(f"    g={g}: ms={ms_g:.4f}")
                 nbytes = K // 2 * N + K // GROUP * N * 2 + M * K + M * 4 + M * N * 2
                 flops = 2 * M * N * K
                 b, by = bound(nbytes, flops, INT8_FP8_OPS)
@@ -934,6 +996,9 @@ def w4a8_phase(gen):
                     f"bound_ms={b:.4f} ({by})")
                 t.add(count, ms, plain_ms, nbytes, flops, err, lib_ms)
             tallies.append(t)
+    log(json.dumps({"w4a8_fold": {f"g{GROUP}": tallies[-1].ms,
+                                  **{f"g{g}": tallies[-1].extra[f"ms_g{g}"]
+                                     for g in FOLD_GROUPS}}}))
     torch.cuda.empty_cache()
     return [{**t.row(0), "section": "w4a8"} for t in tallies]
 
@@ -1092,7 +1157,8 @@ SECTIONS = {
     "int8wo": (Int8WeightOnlyConfig(), "int8", _int8wo_kernels, _want_int8wo),
     "int8dq": (Int8DynamicActivationInt8WeightConfig(), False,
                lambda p, a, g: check_qmm("int8_scaled_matmul", p, a, g, _int8dq_call,
-                                         INT8_FP8_OPS, True),
+                                         INT8_FP8_OPS, True,
+                                         tiled_kw=dict(exact=True, int_mm=_int8dq_int_mm)),
                _want_matmul_only("int8_scaled_matmul", lambda L: 4 * L + 1)),
     "float8wo": (Float8WeightOnlyConfig(), False,
                  lambda p, a, g: check_qmm("fp8_mixed_matmul", p, a, g, _fp8_call,
@@ -1126,12 +1192,13 @@ SECTIONS = {
 }
 # The tiled qmm bodies' C entries (_build.ENTRIES) and the launches each section's timed
 # run makes of them (none where a section is not listed); the int4 wrapper's entries are
-# not asserted here
-QMM_TILED_ENTRIES = ("tt_qmm_tiled", "tt_qmm_mma_bf16", "tt_qmm_mma_e4m3")
+# not asserted here. K7's SIMT tile (tt_qmm_tiled) is gone: main asserts the library
+# has no such entry
+QMM_TILED_ENTRIES = ("tt_qmm_mma_bf16", "tt_qmm_mma_e4m3", "tt_qmm_mma_s8")
 _MMA_BF16_ALL = lambda L: {"tt_qmm_mma_bf16": 4 * L + 1}  # the layers and the head
 SECTION_QMM_ENTRIES = {
     "int8wo": _MMA_BF16_ALL,
-    "int8dq": lambda L: {"tt_qmm_tiled": 4 * L + 1},
+    "int8dq": lambda L: {"tt_qmm_mma_s8": 4 * L + 1},
     "float8wo": lambda L: {"tt_qmm_mma_bf16": 4 * L},  # the head in plain torch
     "float8dq-row": lambda L: {"tt_qmm_mma_e4m3": 4 * L + 1},  # K8 on the layers, K9 the head
     "fp6": _MMA_BF16_ALL,  # the B planes
@@ -1503,6 +1570,8 @@ def main() -> int:
     log("== build")
     lib = _build.library()
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s")
+    if "tt_qmm_tiled" in _build.SIGNATURES or hasattr(lib.lib, "tt_qmm_tiled"):
+        raise AssertionError("K7's SIMT tile tt_qmm_tiled is still in the library")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, e2e = [], []

@@ -877,7 +877,7 @@ def test_qmm_tiled_mma_kernels_match_plain(cuda, monkeypatch, kind, M, K, w_scal
     """K6 (``tt_qmm_mma_bf16``), K8 with bf16 x (the same entry) and K8 with
     e4m3 x (``tt_qmm_mma_e4m3``, K9's kernel) on layer 1 of a stacked
     weight, against their plain versions; each call launches its entry once
-    and never the SIMT ``tt_qmm_tiled``."""
+    and never K7's ``tt_qmm_mma_s8``."""
     from torchao_tpu_torch.kernels import _qmm
 
     monkeypatch.setattr(_qmm, "tiled_ksplit", lambda *a: 5 if split else 1)
@@ -901,7 +901,7 @@ def test_qmm_tiled_mma_kernels_match_plain(cuda, monkeypatch, kind, M, K, w_scal
             name, entry = "fp8_mixed_matmul_e4m3_tiled", "tt_qmm_mma_e4m3"
         call = lambda: fp8_mixed_matmul(x, w, ws, xs, layer_idx=1)
         plain = lambda: fp8_mixed_matmul_plain(x, w, ws, xs, layer_idx=1)
-    counts = lambda: (_build.LAUNCHES[name], _build.ENTRIES[entry], _build.ENTRIES["tt_qmm_tiled"])
+    counts = lambda: (_build.LAUNCHES[name], _build.ENTRIES[entry], _build.ENTRIES["tt_qmm_mma_s8"])
     before = counts()
     got = call()
     assert counts() == (before[0] + 1, before[1] + 1, before[2])
@@ -910,15 +910,17 @@ def test_qmm_tiled_mma_kernels_match_plain(cuda, monkeypatch, kind, M, K, w_scal
 
 @pytest.mark.cuda
 def test_int8dq_tiled_stays_on_the_simt_tile(cuda):
-    """K7 at M = 128 still launches ``tt_qmm_tiled`` (and no tensor-core
-    entry), exact up to the order of its two f32 scale products."""
+    """K7 at M = 128 (the name predates K7's tensor-core form: its SIMT tile
+    is gone) launches the s8 tensor-core entry ``tt_qmm_mma_s8`` once and no
+    other tiled entry, and equals its plain version bit for bit: int32 sums
+    and int32 K-split partials, one rounding to f32, then xs, then ws."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     L, M, N, K = 2, 128, 4096 + 40, 4096 + 32
     xq = torch.randint(-127, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
     w8 = torch.randint(-127, 128, (L, N, K), generator=gen, device=cuda).to(torch.int8)
     xs = (torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001).bfloat16()
     ws = (torch.rand((L, N), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
-    entries = ("tt_qmm_tiled", "tt_qmm_mma_bf16", "tt_qmm_mma_e4m3")
+    entries = ("tt_qmm_mma_s8", "tt_qmm_mma_bf16", "tt_qmm_mma_e4m3")
     counts = lambda: (_build.LAUNCHES["int8_scaled_matmul_tiled"],
                       *(_build.ENTRIES[e] for e in entries))
     before = counts()
@@ -926,4 +928,74 @@ def test_int8dq_tiled_stays_on_the_simt_tile(cuda):
     assert counts() == (before[0] + 1, before[1] + 1, *before[2:])
     want = int8_scaled_matmul_plain(xq, w8, xs, ws, layer_idx=1)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-3)
+    assert torch.equal(got, want)
+    assert "tt_qmm_tiled" not in _build.SIGNATURES
+
+
+# K7 tiled: K = 4128 a last ring stage of one 32-k step, K = 14336 (w2's) the
+# longest chain (|sum| < 14336 * 128^2 < 2^31); "split": five splits (uneven,
+# in whole 32-k units) forced, or one; N = 4096 + 40 a ragged column tile,
+# M = 33 and 130 ragged row tiles; the full int8 range, -128 included.
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_split"])
+@pytest.mark.parametrize("K", [4096, 4096 + 32, 14336])
+@pytest.mark.parametrize("M", [33, 128, 130])
+def test_int8dq_tiled_mma_is_bit_exact(cuda, monkeypatch, M, K, split):
+    """K7's s8 tensor-core form (``tt_qmm_mma_s8``) on layer 1 of a stacked
+    weight equals its plain version bit for bit, with f32 and bf16 scales."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    monkeypatch.setattr(_qmm, "tiled_ksplit", lambda *a: 5 if split else 1)
+    gen = torch.Generator(device=cuda).manual_seed(M + K + split)
+    L, N = 2, 4096 + 40
+    xq = torch.randint(-128, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+    w8 = torch.randint(-128, 128, (L, N, K), generator=gen, device=cuda).to(torch.int8)
+    xs = torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001
+    ws = torch.rand((L, N), generator=gen, device=cuda) * 0.02 + 0.001
+    for scales in ((xs, ws), (xs.bfloat16(), ws.bfloat16())):
+        before = _build.LAUNCHES["int8_scaled_matmul_tiled"], _build.ENTRIES["tt_qmm_mma_s8"]
+        got = int8_scaled_matmul(xq, w8, *scales, layer_idx=1)
+        assert (_build.LAUNCHES["int8_scaled_matmul_tiled"], _build.ENTRIES["tt_qmm_mma_s8"]) == (
+            before[0] + 1, before[1] + 1)
+        want = int8_scaled_matmul_plain(xq, w8, *scales, layer_idx=1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+# K10's tensor-core form: exact int32 group partials, f32 sums of partial x
+# scale in another order than the plain version's (80 dB in f32, as
+# chip_smoke.py's TOL_EXACT_PARTIALS_DB); bf16 out: that sum rounded once
+TOL_W4A8_MMA_DB = {torch.float32: 80.0, torch.bfloat16: 35.0}
+
+
+# K = 4096 (K/2 = 2048: 64 groups of 32, 16 of 128) and 14336 (w2's); N = 4096
+# (packed rows 16-byte aligned) and 4136 (8-byte aligned: 8-byte copies, a
+# ragged column tile); M = 33 and 130 ragged row tiles; "split": five splits
+# forced (uneven, whole groups), one, or the wrapper's own (mma_ksplit).
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["five", "one", "natural"])
+@pytest.mark.parametrize("N", [4096, 4136])
+@pytest.mark.parametrize("K", [4096, 14336])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("M", [33, 128, 130])
+def test_w4a8_mma_kernel_matches_plain(cuda, monkeypatch, M, g, K, N, split):
+    """K10 above M = 16 at g in {32, 64, 128} launches ``tt_w4a8_mma`` (one
+    ``w4a8_dq_matmul_tiled`` launch) and agrees with its plain version in f32
+    and in bf16, with bf16 and f32 group scales."""
+    from torchao_tpu_torch.kernels import w4a8_matmul as W
+
+    if split != "natural":
+        monkeypatch.setattr(W, "mma_ksplit", lambda *a: 5 if split == "five" else 1)
+    gen = torch.Generator(device=cuda).manual_seed(M + g + K + N)
+    x_q = torch.randint(-128, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+    x_s = torch.rand((M,), generator=gen, device=cuda) * 0.02 + 0.001
+    wp = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device=cuda)
+    ws = torch.rand((K // g, N), generator=gen, device=cuda) * 0.05 + 0.01
+    assert W.launch_entry(M, g) == "tt_w4a8_mma"
+    for out_dtype, scale in ((torch.float32, ws), (torch.bfloat16, ws.bfloat16())):
+        before = _build.LAUNCHES["w4a8_dq_matmul_tiled"], _build.ENTRIES["tt_w4a8_mma"]
+        got = w4a8_dq_matmul(x_q, x_s, wp, scale, group_size=g, out_dtype=out_dtype)
+        assert (_build.LAUNCHES["w4a8_dq_matmul_tiled"], _build.ENTRIES["tt_w4a8_mma"]) == (
+            before[0] + 1, before[1] + 1)
+        want = w4a8_dq_matmul_plain(x_q, x_s, wp, scale, group_size=g, out_dtype=out_dtype)
+        _sqnr_ok(got, want, TOL_W4A8_MMA_DB[out_dtype])

@@ -1,4 +1,4 @@
-"""K6 and K8 at the prefill (M > 32), what runs without a card: the tiled
+"""K6, K7 and K8 at the prefill (M > 32), what runs without a card: the tiled
 route from kind to C entry, the tensor-core bodies' K split at Llama-3-8B's
 shapes, and the plain versions against the JAX package's Pallas kernels in
 interpret mode at M = 128 and K = 4096 + 32 (the JAX kernels halve their K
@@ -34,7 +34,7 @@ def split_bounds(K, ksplit):
             for z in range(ksplit)]
 
 
-@pytest.mark.parametrize("entry", ["tt_qmm_mma_bf16", "tt_qmm_mma_e4m3"])
+@pytest.mark.parametrize("entry", ["tt_qmm_mma_bf16", "tt_qmm_mma_e4m3", "tt_qmm_mma_s8"])
 @pytest.mark.parametrize("wname", list(LLAMA3_8B))
 def test_tiled_ksplit_at_llama3_8b_shapes(entry, wname):
     """Every split is a non-empty run of whole 32-k steps inside K, the
@@ -60,7 +60,7 @@ def test_tiled_ksplit_never_exceeds_the_k_steps():
 def test_tiled_route_by_kind():
     assert [_qmm.tiled_entry(k) for k in range(5)] == [
         "tt_qmm_mma_bf16",   # K6
-        "tt_qmm_tiled",      # K7 (SIMT, __dp4a)
+        "tt_qmm_mma_s8",     # K7 (s8 mma.sync, exact int32 sums)
         "tt_qmm_mma_bf16",   # K8, bf16 x
         "tt_qmm_mma_e4m3",   # K8, e4m3 x
         "tt_qmm_mma_e4m3",   # K9

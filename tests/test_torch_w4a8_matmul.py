@@ -19,8 +19,14 @@ from torchao_tpu.kernels.w4a8_matmul import (
 )
 from torchao_tpu.qtypes.packing import pack_int4 as j_pack_int4
 from torchao_tpu_torch.convert import params_from_jax_numpy
+from torchao_tpu_torch.kernels import w4a8_matmul as W
 from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_available
 from torchao_tpu_torch.utils import compute_error
+
+# Llama-3-8B's linears (N, K), as K10 takes them at a 128-token prefill
+LLAMA3_8B = {"wqkv": (6144, 4096), "wo": (4096, 4096), "w13": (28672, 4096),
+             "w2": (4096, 14336), "output": (128256, 4096)}
+SMS = 132  # an H100 SXM's SMs
 
 
 def _operands(rs, M, N, K, g):
@@ -34,9 +40,11 @@ def _operands(rs, M, N, K, g):
     return x_q, x_s, wp, ws
 
 
-@pytest.mark.parametrize("M,g", [(1, 32), (8, 32), (16, 64)])
+@pytest.mark.parametrize("M,g", [(1, 32), (8, 32), (16, 64), (33, 128), (128, 32)])
 def test_plain_matches_jax_kernel_and_reference(M, g):
-    """Exact int32 group partials and f32 scale sums on both sides."""
+    """Exact int32 group partials and f32 scale sums on both sides; M = 33
+    and 128 are the card's tiled forms' row counts (a ragged row tile, and
+    the 128-token prefill)."""
     rs = np.random.RandomState(0)
     N, K = 256, 512
     x_q, x_s, wp, ws = _operands(rs, M, N, K, g)
@@ -52,6 +60,49 @@ def test_plain_matches_jax_kernel_and_reference(M, g):
     bf = w4a8_dq_matmul(*(torch.from_numpy(a) for a in (x_q, x_s, wp, ws)), group_size=g)
     assert bf.dtype == torch.bfloat16
     torch.testing.assert_close(bf, got.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("g", [4, 8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("M", [1, 16, 17, 33, 128, 130])
+def test_launch_entry_by_m_and_g(M, g):
+    """The gemv up to M = 16; above it the tensor-core form for g in
+    {32, 64, 128} (whose |16 P| <= 2^21 converts exactly, and whose groups
+    tile its 128-row stage), the SIMT tile for the rest. N does not choose:
+    the tensor-core form copies a packed row that is only 8-byte aligned
+    (N % 16 == 8, the card tests' N = 4136) 8 bytes at a time."""
+    want = ("tt_w4a8_gemv" if M <= 16 else
+            "tt_w4a8_mma" if g in (32, 64, 128) else "tt_w4a8_tiled")
+    assert W.launch_entry(M, g) == want
+
+
+def split_groups(K, g, ksplit):
+    """The groups ``[g0, g1)`` of each half that split z holds, as
+    csrc/w4a8_matmul.cu's ``w4a8_mma_kernel`` computes them."""
+    G = K // 2 // g
+    return [(z * G // ksplit, (z + 1) * G // ksplit) for z in range(ksplit)]
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("wname", list(LLAMA3_8B))
+def test_mma_ksplit_at_llama3_8b_shapes(wname, g):
+    """K10's tensor-core K split at M = 128 on 132 SMs: whole groups, every
+    split non-empty, the splits tiling each half in order; wqkv, wo and w2
+    (48, 32 and 32 output tiles) split, w13 (224) and the head (1002) do
+    not."""
+    N, K = LLAMA3_8B[wname]
+    ksplit = W.mma_ksplit(128, K, N, g, SMS)
+    assert ksplit == {"wqkv": 2, "wo": 4, "w2": 4}.get(wname, 1)
+    bounds = split_groups(K, g, ksplit)
+    assert bounds[0][0] == 0 and bounds[-1][1] == K // 2 // g
+    for (g0, g1), (n0, _) in zip(bounds, bounds[1:] + [(K // 2 // g, None)]):
+        assert g0 < g1 == n0
+
+
+def test_mma_ksplit_never_exceeds_the_groups():
+    """At most one split per group: a narrow, short product keeps every split
+    non-empty."""
+    assert W.mma_ksplit(33, 256, 128, 128, SMS) == 1
+    assert W.mma_ksplit(33, 512, 128, 64, SMS) == 4
 
 
 def _8da4w_weight(rs, N=128, K=512, g=32, sym=True):

@@ -98,6 +98,18 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a . b (16 x 8 x 32, s8 in, exact s32 accumulation). Fragments (PTX
+// ISA, mma.m16n8k32 with .s8): lane (g, t) holds A's rows g and g + 8 at
+// k 4t .. 4t + 3 and 16 + 4t .. (a0 .. a3, four bytes a register), B's
+// column g at those k (b0, b1), C's rows g, g + 8 at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // ldmatrix: four 8 x 8 bf16 matrices from shared memory; lane l gives the
 // address of row l % 8 of matrix l / 8 (16 bytes), and register i receives
 // matrix i in the fragment layout above (.trans: each matrix transposed).

@@ -38,16 +38,18 @@
 //     ~1000 blocks are in flight, partial sums go to a scratch buffer and a
 //     second pass sums them and applies the epilogue (one pass only when K
 //     is not split);
-//   - tensor cores (M > 32): K6 and K8 with bf16 x on bf16 mma.sync
-//     (qmm_mma_bf16_kernel, tt_qmm_mma_bf16), K8 with e4m3 x and K9 on
-//     e4m3 mma.sync (qmm_mma_e4m3_kernel, tt_qmm_mma_e4m3): 128 x 128
-//     outputs per block, a cp.async ring, K split over blockIdx.z where the
-//     tiles would not fill the card (f32 partials finished by
-//     qmm_reduce_kernel); notes at each kernel;
-//   - tiled SIMT (M > 32; K7 only: tt_qmm_tiled): 64 x 64 outputs per block,
-//     32 k per step, __dp4a on packed int8. Its tensor-core form is later work.
+//   - bf16 tensor cores (M > 32; K6 and K8 with bf16 x): bf16 mma.sync on
+//     the weight bytes converted in registers (qmm_mma_bf16_kernel,
+//     tt_qmm_mma_bf16);
+//   - 8-bit tensor cores (M > 32; qmm_mma_8bit_kernel): K8 with e4m3 x and
+//     K9 on e4m3 mma.sync (tt_qmm_mma_e4m3), K7 on s8 mma.sync with exact
+//     int32 sums (tt_qmm_mma_s8).
+//   The tensor-core bodies take 128 x 128 outputs per block through a
+//   cp.async ring, with K split over blockIdx.z where the tiles would not
+//   fill the card (partials, f32 or K7's int32, finished by
+//   qmm_reduce_kernel); notes at each kernel.
 // int8 -> f32 / bf16 and e4m3 -> f32 / bf16 conversions are exact; K7's int32
-// sum is exact (14336 * 127^2 < 2^31). No partial K block: the wrapper
+// sum is exact (14336 * 128^2 < 2^31). No partial K block: the wrapper
 // requires K % 32 == 0 (gemv splits K on 16-element chunks, the other bodies
 // step 32 at a time and split K on 32-k units); the M and N edges are masked.
 #include "common.cuh"
@@ -230,79 +232,14 @@ __global__ void qmm_reduce_kernel(const Acc* __restrict__ work, const void* __re
   }
 }
 
-// ------------------------------------------------------------ tiled K7 --
-constexpr int T_THREADS = 256;
-constexpr int TBM = 64;   // rows of x per block
-constexpr int TBN = 64;   // weight rows (outputs) per block
-constexpr int TK = 32;    // k per step; K % TK == 0 for every body
-
-// K7 (int8 x, int8 w): a SIMT GEMM on __dp4a. grid: (ceil(N / 64),
-// ceil(M / 64)); block 256 threads, each a 4 x 4 tile. Loaders: thread t
-// stages row t / 4 and k (t % 4) * 8 .. + 8 of both tiles, as packed words.
-__global__ void __launch_bounds__(T_THREADS)
-qmm_tiled_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                 const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
-                 int ws_kind, int ws_stride, __nv_bfloat16* __restrict__ out, int M, int K,
-                 int N) {
-  __shared__ __align__(16) int xsm[TK / 4][TBM];
-  __shared__ __align__(16) int wsm[TK / 4][TBN];
-
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lr = threadIdx.x / 4, lk = (threadIdx.x % 4) * 8;
-  const bool xrow = m0 + lr < M, wrow = n0 + lr < N;
-
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    const uint2 wb = wrow ? __ldg(reinterpret_cast<const uint2*>(w + (size_t)(n0 + lr) * K + k0 + lk))
-                          : make_uint2(0, 0);
-    wsm[lk / 4][lr] = (int)wb.x;
-    wsm[lk / 4 + 1][lr] = (int)wb.y;
-    const uint2 xb = xrow ? __ldg(reinterpret_cast<const uint2*>(x + (size_t)(m0 + lr) * K + k0 + lk))
-                          : make_uint2(0, 0);
-    xsm[lk / 4][lr] = (int)xb.x;
-    xsm[lk / 4 + 1][lr] = (int)xb.y;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK / 4; ++kk) {
-      int av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) { av[i] = xsm[kk][ty * 4 + i]; bv[i] = wsm[kk][tx * 4 + i]; }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const float sx = load_scale(xs, xs_kind, m);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N)
-        out[(size_t)m * N + n] = __float2bfloat16(
-            (float)acc[i][j] * sx * load_scale(wsc, ws_kind, (long long)n * ws_stride));
-    }
-  }
-}
-
 // ---------------------------------------------- tensor cores (M > 32) --
 // Both kernels below compute a 128 x 128 output tile per block with eight
 // warps (2 x 4, each 64 x 32 outputs: 4 x 4 m16n8 accumulator tiles), over
 // split blockIdx.z of K: the 32-k units [z U / S, (z + 1) U / S) of the
 // U = K / 32 (S = gridDim.z, at most U: every split holds a whole unit).
 // One split: the epilogue (acc * xs[m] * ws[n], rounded once) runs from
-// registers; more: the f32 partials go to work[z, M, N] and
-// qmm_reduce_kernel sums them and applies the same epilogue.
+// registers; more: the partials (f32, or int32 for K7) go to work[z, M, N]
+// and qmm_reduce_kernel sums them and applies the same epilogue.
 constexpr int MMA_THREADS = 256;
 constexpr int MMA_BM = 128, MMA_BN = 128;  // rows of x, rows of w per block
 constexpr int K_UNIT = 32;                 // k per mma step and per split unit
@@ -314,10 +251,12 @@ __device__ __forceinline__ void split_range(int K, int& kb, int& ke) {
 }
 
 // A warp's 4 x 4 accumulator tiles, rows mb + 16 mt + (g, g + 8), columns
-// nb + 8 nt + 2t, + 1 (the C fragment), to work or, scaled, to out.
-__device__ __forceinline__ void store_mma_tile(const float (&acc)[4][4][4], int mb, int nb,
+// nb + 8 nt + 2t, + 1 (the C fragment), to work or, scaled, to out
+// (bf16(f32(acc) * xs[m] * ws[n]); an int32 acc converts to nearest).
+template <typename Acc>
+__device__ __forceinline__ void store_mma_tile(const Acc (&acc)[4][4][4], int mb, int nb,
                                                const void* xs, int xs_kind, const void* wsc,
-                                               int ws_kind, int ws_stride, float* work,
+                                               int ws_kind, int ws_stride, Acc* work,
                                                __nv_bfloat16* out, int M, int N) {
   const int lane = threadIdx.x % 32, gq = lane / 4, t2 = (lane % 4) * 2;
 #pragma unroll
@@ -333,16 +272,16 @@ __device__ __forceinline__ void store_mma_tile(const float (&acc)[4][4][4], int 
       for (int h = 0; h < 2; ++h) {
         const int m = mb + mt * 16 + gq + 8 * h;
         if (m >= M) continue;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        const Acc v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
         if (work) {
-          float* o = work + ((size_t)blockIdx.z * M + m) * N + n;
+          Acc* o = work + ((size_t)blockIdx.z * M + m) * N + n;
           o[0] = v0;
           if (n1) o[1] = v1;
         } else {
           const float sx = load_scale(xs, xs_kind, m);
           __nv_bfloat16* o = out + (size_t)m * N + n;
-          o[0] = __float2bfloat16(v0 * sx * w0);
-          if (n1) o[1] = __float2bfloat16(v1 * sx * w1);
+          o[0] = __float2bfloat16((float)v0 * sx * w0);
+          if (n1) o[1] = __float2bfloat16((float)v1 * sx * w1);
         }
       }
   }
@@ -489,38 +428,51 @@ qmm_mma_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
                  out, M, N);
 }
 
-// ------------------------------- K8 with e4m3 x and K9, tensor cores --
-// qmm_mma_e4m3_kernel (entry tt_qmm_mma_e4m3; M > 32: the float8dq-row
-// layers (K8: stacked, a per-row or per-layer w scale, bf16 or f32) and
-// its head (K9)) replaces _mixed_kernel with e4m3 x (fp8_matmul.py:129,
-// pallas_call at :218) and fp8_rowwise_matmul's _kernel (:24, pallas_call
-// at :79):  out = bf16(sum_k x[m, k] w[n, k] * xs[m] * ws[n]).
-// The TPU bodies upcast e4m3 to bf16, so their products are exact;
-// e4m3 x e4m3 products are exact too, so the kernel feeds the stored bytes
-// to mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32: x [M, K] and
-// w [N, K] are both K-major, which is row.col, and ldmatrix (not
-// transposed) loads both fragments from shared memory.
-// What bounds it on an H100: bytes. At the head's shape (N = 128256, K =
+// ------------------ K7, K8 with e4m3 x and K9: 8-bit x, tensor cores --
+// qmm_mma_8bit_kernel<S8> has two instances. Both feed the stored bytes of
+// x [M, K] and w [N, K] (both K-major, which is row.col) to an m16n8k32
+// mma.sync, and ldmatrix (not transposed) loads both fragments from shared
+// memory. The instruction and the accumulator are the only differences:
+//   - S8 = false (entry tt_qmm_mma_e4m3; M > 32: the float8dq-row layers
+//     (K8: stacked, a per-row or per-layer w scale, bf16 or f32) and its
+//     head (K9)) replaces _mixed_kernel with e4m3 x (fp8_matmul.py:129,
+//     pallas_call at :218) and fp8_rowwise_matmul's _kernel (:24,
+//     pallas_call at :79):  out = bf16(sum_k x[m, k] w[n, k] * xs[m] * ws[n]).
+//     The TPU bodies upcast e4m3 to bf16, so their products are exact;
+//     e4m3 x e4m3 products are exact too, hence
+//     mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32. On sm_90a it
+//     compiles to f16 HMMA with f32 accumulators after conversions in
+//     registers (F2FP.F16.E4M3.UNPACK_B in the SASS): exact products, an f32
+//     sum, as the TPU body, so it needs no promotion every 128 k (the
+//     DeepSeek-V3 report, section 3.3.2, adds one for wgmma's e4m3 path,
+//     whose running sum keeps fewer bits). Held to >= 60 dB against the
+//     plain version at K = 4096 (the head) and 14336 (w2). -Xptxas -v on the
+//     card: 183 registers, no spills.
+//   - S8 = true (entry tt_qmm_mma_s8; M > 32: the int8dq prefill, K7)
+//     replaces int8_matmul.py::int8_scaled_matmul's _kernel (:24,
+//     pallas_call at :104):  out = bf16(f32(sum_k xq[m, k] wq[n, k]) *
+//     f32(xs[m]) * f32(ws[n])), on the native IMMA instruction
+//     mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. The sum is exact in
+//     int32 (|acc| <= 14336 * 128^2 < 2^31), the K split's partials are
+//     int32 too (summed exactly by qmm_reduce_kernel<int>), and the epilogue
+//     rounds the integer to f32 once and multiplies by xs, then ws, as the
+//     plain version does: the kernel equals it bit for bit. -Xptxas -v on
+//     the card: 117 registers, no spills, so it runs two blocks per SM on
+//     a three-stage ring (108 KB each), where e4m3's 183 allow one.
+// What bounds both on an H100: bytes. At the head's shape (N = 128256, K =
 // 4096, M = 128) w is 525 MB, 0.167 ms at 3.35 TB/s; its 134.5 GFLOP take
-// 0.068 ms at the 1,979 TFLOP/s e4m3 peak. So the design keeps the weight
-// stream moving: each w tile is read once, by 16-byte cp.async into a
-// four-stage ring (128 rows x 128 k per stage); a block holds M = 128
-// whole, so x (512 KB) comes from L2; the epilogue runs from registers.
-// Accumulation: on sm_90a the e4m3 mma.sync compiles to f16 HMMA with f32
-// accumulators after conversions in registers (F2FP.F16.E4M3.UNPACK_B in
-// the SASS): exact products, an f32 sum, as the TPU body, so it needs no
-// promotion every 128 k (the DeepSeek-V3 report, section 3.3.2, adds one
-// for wgmma's e4m3 path, whose running sum keeps fewer bits). Held to
-// >= 60 dB against the plain version at K = 4096 (the head) and 14336 (w2).
-// -Xptxas -v on the card: 183 registers, no spills; one block per SM (the
-// ring's 144 KB of shared memory; MMA_BLOCKS_PER_SM in kernels/_qmm.py).
-// A last stage of fewer than 128 k runs only its whole 32-k steps (its
-// copies past the split's end are masked). M and N edges are masked; any N.
+// 0.068 ms at the 1,979 TFLOP/s e4m3 / int8 peak. So the design keeps the
+// weight stream moving: each w tile is read once, by 16-byte cp.async into
+// a ring of 128 rows x 128 k per stage (four stages for e4m3, one block per
+// SM: 144 KB; three for s8, two blocks per SM; MMA_BLOCKS_PER_SM in
+// kernels/_qmm.py); a block holds M = 128 whole, so x (512 KB) comes from
+// L2; the epilogue runs from registers. A last stage of fewer than 128 k
+// runs only its whole 32-k steps (its copies past the split's end are
+// masked). M and N edges are masked; any N.
 constexpr int F8_BK = 128;  // k (bytes) per stage
-constexpr int F8_STAGES = 4;
 constexpr int F8_LD = F8_BK + 16;  // mma.sync tile row, bytes (+16: ldmatrix rows on distinct banks)
 constexpr int F8_MMA_STAGE = (MMA_BM + MMA_BN) * F8_LD;  // x tile, then w tile
-constexpr int F8_MMA_SMEM = F8_STAGES * F8_MMA_STAGE;
+template <bool S8> constexpr int F8_STAGES = S8 ? 3 : 4;
 
 // c += a . b (16 x 8 x 32, e4m3 in, f32 accumulation); fragments as in
 // common.cuh's bf16 form with four bytes of k where that has two values
@@ -533,14 +485,18 @@ __device__ __forceinline__ void mma_e4m3_16832(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+template <bool S8> using Acc8 = typename std::conditional<S8, int, float>::type;
+
 // grid: (ceil(N / 128), ceil(M / 128), ksplit); block 256 threads. work
 // null: one split.
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-qmm_mma_e4m3_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+template <bool S8>
+__global__ void __launch_bounds__(MMA_THREADS, S8 ? 2 : 1)
+qmm_mma_8bit_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
                     const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
-                    int ws_kind, int ws_stride, float* __restrict__ work,
+                    int ws_kind, int ws_stride, Acc8<S8>* __restrict__ work,
                     __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) uint8_t f8_smem[];
+  constexpr int STAGES = F8_STAGES<S8>;
   const int n0 = blockIdx.x * MMA_BN, m0 = blockIdx.y * MMA_BM;
   int kb, ke;
   split_range(K, kb, ke);
@@ -565,25 +521,25 @@ qmm_mma_e4m3_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w
     }
   };
 
-  float acc[4][4][4];
+  Acc8<S8> acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
 #pragma unroll
-  for (int s = 0; s < F8_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps) load(s, s);
     cp_async_commit();
   }
   for (int st = 0; st < steps; ++st) {
-    cp_async_wait<F8_STAGES - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage st landed; every warp is done with st - 1's slot
-    if (st + F8_STAGES - 1 < steps) load(st + F8_STAGES - 1, (st + F8_STAGES - 1) % F8_STAGES);
+    if (st + STAGES - 1 < steps) load(st + STAGES - 1, (st + STAGES - 1) % STAGES);
     cp_async_commit();
-    const uint8_t* xt = f8_smem + (st % F8_STAGES) * F8_MMA_STAGE;
+    const uint8_t* xt = f8_smem + (st % STAGES) * F8_MMA_STAGE;
     const uint8_t* wt = xt + MMA_BM * F8_LD;
     const int nk = min(F8_BK, ke - kb - st * F8_BK) / K_UNIT;
 #pragma unroll
@@ -605,7 +561,10 @@ qmm_mma_e4m3_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_e4m3_16832(acc[mt][nt], a[mt], b[nt]);
+        for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (S8) mma_s8_16832(acc[mt][nt], a[mt], b[nt]);
+          else mma_e4m3_16832(acc[mt][nt], a[mt], b[nt]);
+        }
     }
   }
   cp_async_wait<0>();
@@ -613,9 +572,10 @@ qmm_mma_e4m3_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w
                  out, M, N);
 }
 
-// A tensor-core kernel (x of type X) over ksplit splits, then (ksplit > 1)
-// the reduce pass. `configured`: the kernel's shared-memory limit is raised.
-template <typename X, typename Kernel>
+// A tensor-core kernel (x of type X, partials of type Acc) over ksplit
+// splits, then (ksplit > 1) the reduce pass. `configured`: the kernel's
+// shared-memory limit is raised.
+template <typename X, typename Acc, typename Kernel>
 int launch_mma(Kernel kernel, int smem, bool& configured, const void* x, const void* w,
                const void* xs, int xs_kind, const void* ws, int ws_kind, int ws_stride,
                void* work, void* out, int M, int K, int N, int ksplit, cudaStream_t st) {
@@ -625,7 +585,7 @@ int launch_mma(Kernel kernel, int smem, bool& configured, const void* x, const v
     configured = true;
   }
   dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM, ksplit);
-  float* wk = ksplit > 1 ? static_cast<float*>(work) : nullptr;
+  Acc* wk = ksplit > 1 ? static_cast<Acc*>(work) : nullptr;
   auto o = static_cast<__nv_bfloat16*>(out);
   kernel<<<grid, MMA_THREADS, smem, st>>>(static_cast<const X*>(x), static_cast<const uint8_t*>(w),
                                           xs, xs_kind, ws, ws_kind, ws_stride, wk, o, M, K, N);
@@ -633,8 +593,8 @@ int launch_mma(Kernel kernel, int smem, bool& configured, const void* x, const v
   if (err != cudaSuccess || ksplit == 1) return err;
   const long long MN = (long long)M * N;
   const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  qmm_reduce_kernel<float><<<blocks, 256, 0, st>>>(wk, xs, xs_kind, ws, ws_kind, ws_stride, o,
-                                                   ksplit, M, N);
+  qmm_reduce_kernel<Acc><<<blocks, 256, 0, st>>>(wk, xs, xs_kind, ws, ws_kind, ws_stride, o,
+                                                 ksplit, M, N);
   return cudaGetLastError();
 }
 
@@ -674,7 +634,7 @@ TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs
                           const void* ws, int ws_kind, int ws_stride, void* work, void* out,
                           int M, int K, int N, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
+  if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
   switch (kind) {
     case K6_BF16_I8: return launch_gemv<K6_BF16_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
     case K7_I8_I8: return launch_gemv<K7_I8_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
@@ -684,24 +644,11 @@ TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs
   }
 }
 
-// K7 on the SIMT tiled kernel (M > 32): the arguments of tt_qmm_gemv
-// without the scratch and the split; kind must be 1.
-TT_EXPORT int tt_qmm_tiled(int kind, const void* x, const void* w, const void* xs, int xs_kind,
-                           const void* ws, int ws_kind, int ws_stride, void* out, int M, int K,
-                           int N, void* stream) {
-  if (K % TK || kind != K7_I8_I8) return cudaErrorInvalidValue;
-  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-  qmm_tiled_kernel<<<grid, T_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind,
-      ws_stride, static_cast<__nv_bfloat16*>(out), M, K, N);
-  return cudaGetLastError();
-}
-
 // The tensor-core kernels (M > 32), with the arguments of tt_qmm_gemv: kind
 // 0 (K6) or 2 (K8, bf16 x) for tt_qmm_mma_bf16, 3 (K8, e4m3 x) or 4 (K9)
-// for tt_qmm_mma_e4m3; work [ksplit, M, N] f32 scratch when ksplit > 1
-// (else unread, may be null); 1 <= ksplit <= K / 32. K % 32 == 0, x and w
-// 16-byte aligned.
+// for tt_qmm_mma_e4m3, 1 (K7) for tt_qmm_mma_s8; work [ksplit, M, N] f32
+// (int32 for K7) scratch when ksplit > 1 (else unread, may be null);
+// 1 <= ksplit <= K / 32. K % 32 == 0, x and w 16-byte aligned.
 TT_EXPORT int tt_qmm_mma_bf16(int kind, const void* x, const void* w, const void* xs,
                               int xs_kind, const void* ws, int ws_kind, int ws_stride, void* work,
                               void* out, int M, int K, int N, int ksplit, void* stream) {
@@ -710,13 +657,13 @@ TT_EXPORT int tt_qmm_mma_bf16(int kind, const void* x, const void* w, const void
   if (K % K_UNIT || ksplit < 1 || ksplit > K / K_UNIT) return cudaErrorInvalidValue;
   switch (kind) {
     case K6_BF16_I8:
-      return launch_mma<__nv_bfloat16>(qmm_mma_bf16_kernel<K6_BF16_I8>, MB_SMEM, configured_k6, x,
-                                       w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K,
-                                       N, ksplit, st);
+      return launch_mma<__nv_bfloat16, float>(qmm_mma_bf16_kernel<K6_BF16_I8>, MB_SMEM,
+                                              configured_k6, x, w, xs, xs_kind, ws, ws_kind,
+                                              ws_stride, work, out, M, K, N, ksplit, st);
     case K8_BF16_E4M3:
-      return launch_mma<__nv_bfloat16>(qmm_mma_bf16_kernel<K8_BF16_E4M3>, MB_SMEM, configured_k8,
-                                       x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K,
-                                       N, ksplit, st);
+      return launch_mma<__nv_bfloat16, float>(qmm_mma_bf16_kernel<K8_BF16_E4M3>, MB_SMEM,
+                                              configured_k8, x, w, xs, xs_kind, ws, ws_kind,
+                                              ws_stride, work, out, M, K, N, ksplit, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -728,16 +675,27 @@ TT_EXPORT int tt_qmm_mma_e4m3(int kind, const void* x, const void* w, const void
   if (K % K_UNIT || ksplit < 1 || ksplit > K / K_UNIT ||
       (kind != K8_E4M3_E4M3 && kind != K9_E4M3_ROW))
     return cudaErrorInvalidValue;
-  return launch_mma<uint8_t>(qmm_mma_e4m3_kernel, F8_MMA_SMEM, configured, x, w, xs, xs_kind, ws,
-                             ws_kind, ws_stride, work, out, M, K, N, ksplit,
-                             static_cast<cudaStream_t>(stream));
+  return launch_mma<uint8_t, float>(qmm_mma_8bit_kernel<false>, F8_STAGES<false> * F8_MMA_STAGE,
+                                    configured, x, w, xs, xs_kind, ws, ws_kind, ws_stride, work,
+                                    out, M, K, N, ksplit, static_cast<cudaStream_t>(stream));
+}
+
+TT_EXPORT int tt_qmm_mma_s8(int kind, const void* x, const void* w, const void* xs, int xs_kind,
+                            const void* ws, int ws_kind, int ws_stride, void* work, void* out,
+                            int M, int K, int N, int ksplit, void* stream) {
+  static bool configured = false;
+  if (K % K_UNIT || ksplit < 1 || ksplit > K / K_UNIT || kind != K7_I8_I8)
+    return cudaErrorInvalidValue;
+  return launch_mma<uint8_t, int>(qmm_mma_8bit_kernel<true>, F8_STAGES<true> * F8_MMA_STAGE,
+                                 configured, x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out,
+                                 M, K, N, ksplit, static_cast<cudaStream_t>(stream));
 }
 
 // P1: x [M, K] bf16; w [N, K] int8; no scale (the reduce pass multiplies by
 // kind-0 scales, 1); work [ksplit, M, N] f32 when ksplit > 1; out [M, N] bf16.
 TT_EXPORT int tt_manual_dma_std(const void* x, const void* w, void* work, void* out, int M, int K,
                                 int N, int ksplit, void* stream) {
-  if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
+  if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
   return launch_gemv<P1_BF16_I8>(x, w, nullptr, 0, nullptr, 0, 0, work, out, M, K, N, ksplit,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -748,7 +706,7 @@ TT_EXPORT int tt_manual_dma_std(const void* x, const void* w, void* work, void* 
 TT_EXPORT int tt_fp8_rowwise_gemv(const void* x, const void* w, const void* xs, const void* ws,
                                   void* work, void* out, int M, int K, int N, int ksplit,
                                   void* stream) {
-  if (K % TK || ksplit < 1) return cudaErrorInvalidValue;
+  if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
   return launch_gemv<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, work, out, M, K, N, ksplit,
                                   static_cast<cudaStream_t>(stream));
 }

@@ -15,7 +15,9 @@ adds one where it launches its kernel, and nowhere else. ``ENTRIES``
 counts the same launches per C entry point where one counter covers more
 than one kernel, or one kernel serves more than one counter (the int4
 wrapper: K14a's SIMT and tensor-core forms; the tiled qmm bodies: K6 and K8
-share ``tt_qmm_mma_bf16``, K8 with e4m3 x and K9 ``tt_qmm_mma_e4m3``).
+share ``tt_qmm_mma_bf16``, K8 with e4m3 x and K9 ``tt_qmm_mma_e4m3``, K7
+takes ``tt_qmm_mma_s8``; K10's tiled counter: ``tt_w4a8_mma`` or the SIMT
+``tt_w4a8_tiled``).
 """
 
 from __future__ import annotations
@@ -138,16 +140,18 @@ SIGNATURES = {
     "tt_smajor_attention": _HEADS,
     "tt_smajor_attention_i8": _HEADS,
     "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
-    "tt_qmm_tiled": _QMM + [c_ptr] + [c_int] * 3 + [c_ptr],
     # the tensor-core bodies take the gemv's arguments (work may be null: one split)
     "tt_qmm_mma_bf16": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_mma_e4m3": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
+    "tt_qmm_mma_s8": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_fp8_rowwise_gemv": _GEMV6,
     "tt_fp6_dual_gemv": _GEMV6,
     "tt_fp6_gemv": _GEMV6,
     # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
     "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
     "tt_w4a8_tiled": [c_ptr] * 3 + [c_int, c_ptr, c_int, c_ptr] + [c_int] * 5 + [c_ptr],
+    # the tensor-core form takes the gemv's arguments (work may be null: one split)
+    "tt_w4a8_mma": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
 }
 
 

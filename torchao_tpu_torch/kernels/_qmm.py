@@ -10,10 +10,13 @@ bodies, by M and the kind (:func:`tiled_entry`):
   converted in registers (``tt_qmm_mma_bf16``);
 - M > 32, K8 with e4m3 x and K9: e4m3 ``mma.sync`` on the stored bytes
   (``tt_qmm_mma_e4m3``);
-- M > 32, K7: the SIMT ``__dp4a`` tile (``tt_qmm_tiled``).
+- M > 32, K7: s8 ``mma.sync`` (IMMA) on the stored bytes, exact int32 sums
+  (``tt_qmm_mma_s8``, the e4m3 body's other instance).
 
-The two tensor-core bodies split K over the grid by :func:`tiled_ksplit`
-where their 128 x 128 output tiles would not fill the card. Each wrapper
+Each bound at M = 128 by the weight's bytes. The tensor-core bodies split K
+over the grid by :func:`tiled_ksplit` where their 128 x 128 output tiles
+would not fill the card (K7's partials int32, so its result stays exact:
+it equals the plain version bit for bit). Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
 ``<name>_tiled``; a tiled launch also counts its C entry in
 ``_build.ENTRIES``.
@@ -36,7 +39,7 @@ _GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
 _TARGET_BLOCKS = 1024
 TILED_BM = TILED_BN = 128  # output tile of the tensor-core bodies (csrc MMA_BM, MMA_BN)
 # blocks resident per SM (their shared memory and registers): the K split's wave
-MMA_BLOCKS_PER_SM = {"tt_qmm_mma_bf16": 2, "tt_qmm_mma_e4m3": 1}
+MMA_BLOCKS_PER_SM = {"tt_qmm_mma_bf16": 2, "tt_qmm_mma_e4m3": 1, "tt_qmm_mma_s8": 2}
 
 # csrc Kind
 K6_BF16_I8, K7_I8_I8, K8_BF16_E4M3, K8_E4M3_E4M3, K9_E4M3_ROW = range(5)
@@ -66,7 +69,7 @@ def tiled_entry(kind: int) -> str:
     if kind in (K8_E4M3_E4M3, K9_E4M3_ROW):
         return "tt_qmm_mma_e4m3"
     if kind == K7_I8_I8:
-        return "tt_qmm_tiled"
+        return "tt_qmm_mma_s8"
     raise ValueError(f"unknown kind {kind}")
 
 
@@ -133,16 +136,12 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
         _build.LAUNCHES[f"{name}_gemv"] += 1
     else:
         entry = tiled_entry(kind)
-        args = (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
-        if entry == "tt_qmm_tiled":
-            lib.launch(entry, *args, out.data_ptr(), M, K, N, stream)
-        else:
-            ksplit = tiled_ksplit(M, K, N, _build.sm_count(x.device.index or 0),
-                                  MMA_BLOCKS_PER_SM[entry])
-            work = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-                    if ksplit > 1 else None)
-            lib.launch(entry, *args, 0 if work is None else work.data_ptr(), out.data_ptr(),
-                       M, K, N, ksplit, stream)
+        ksplit = tiled_ksplit(M, K, N, _build.sm_count(x.device.index or 0),
+                              MMA_BLOCKS_PER_SM[entry])
+        acc = torch.int32 if kind == K7_I8_I8 else torch.float32
+        work = torch.empty((ksplit, M, N), dtype=acc, device=x.device) if ksplit > 1 else None
+        lib.launch(entry, kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws,
+                   0 if work is None else work.data_ptr(), out.data_ptr(), M, K, N, ksplit, stream)
         _build.LAUNCHES[f"{name}_tiled"] += 1
         _build.ENTRIES[entry] += 1
     return out

@@ -14,9 +14,12 @@ source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
 - :func:`int8_scaled_matmul` (K7, int8dq): per-token int8 x times the int8
   weight, exact int32 accumulation, epilogue ``acc·f32(xs)·f32(ws)``
   rounded once; replaces ``int8_scaled_matmul`` (pallas_call at :104,
-  body ``_kernel`` at :24). Both forms are SIMT on ``__dp4a``: the gemv
-  (M ≤ 32) and a 64 x 64 tile (``tt_qmm_tiled``, M > 32, held by its
-  issue rate); counted as ``int8_scaled_matmul_{gemv,tiled}``.
+  body ``_kernel`` at :24). M ≤ 32 runs the SIMT gemv on ``__dp4a``
+  (``tt_qmm_gemv``), bound by the weight's bytes; M > 32 s8 ``mma.sync``
+  (IMMA, ``tt_qmm_mma_s8``), bound by bytes too at M = 128, whose int32
+  sums and int32 K-split partials keep it bit-exact against
+  :func:`int8_scaled_matmul_plain`. Counted as
+  ``int8_scaled_matmul_{gemv,tiled}``.
 
 A stacked weight is addressed by ``layer_idx`` (``w_q[l]`` is a view: no
 copy). A CUDA tensor launches the kernel (or raises); only a CPU tensor

@@ -8,9 +8,19 @@ Port of ``torchao_tpu/kernels/w4a8_matmul.py`` (CUDA source
 
 over K-major half-split nibbles ``wp [K/2, N]`` (byte k holds k and
 k + K/2) that are NOT XORed with 0x80, with exact int32 group partials and
-the scale sum in f32. Two launch shapes: ``gemv`` for M ≤ 16 (groups of K
-split over blocks, a second pass sums the splits) and ``tiled`` for larger
-M; they count as ``w4a8_dq_matmul_gemv`` / ``w4a8_dq_matmul_tiled``.
+the scale sum in f32. Three bodies, chosen by :func:`launch_entry`:
+
+- M ≤ 16: the SIMT gemv (``tt_w4a8_gemv``; groups of K split over blocks,
+  a second pass sums the splits), bound by the packed weight's bytes;
+- M > 16, g in (32, 64, 128): s8 ``mma.sync`` (IMMA) on the nibbles made
+  signed in registers, each group's int32 partial folded into f32 with its
+  scale (``tt_w4a8_mma``, K split in whole groups by :func:`mma_ksplit`),
+  bound by the packed weight's bytes at M = 128 too, held in practice by
+  the unpacking and the fold;
+- M > 16, other g (4, 8, 16): the SIMT ``__dp4a`` tile (``tt_w4a8_tiled``).
+
+They count as ``w4a8_dq_matmul_gemv`` / ``w4a8_dq_matmul_tiled`` (both M >
+16 bodies); a tiled launch also counts its C entry in ``_build.ENTRIES``.
 
 :func:`w4a8_dq_matmul_available` is the JAX package's dispatch probe. As
 there, it is off unless ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1`` and declines
@@ -39,6 +49,9 @@ GEMV_MAX_M = 16
 _GEMV_TN = 128       # columns per gemv block (csrc GV_TN)
 _GEMV_LANES = 16     # group lanes per gemv block (csrc GV_LANES)
 _TARGET_BLOCKS = 1024
+MMA_GROUPS = (32, 64, 128)  # the tensor-core form's group sizes (csrc tt_w4a8_mma)
+MMA_BM = MMA_BN = 128       # its output tile (csrc MMA_BM, MMA_BN)
+MMA_BLOCKS_PER_SM = 1       # its shared memory (162 KB) and registers: the K split's wave
 _SCALE_KIND = {torch.bfloat16: 1, torch.float32: 2}
 _PLAIN_CHUNK = 2**27  # f64 elements of group partials the plain version holds at once
 
@@ -63,6 +76,23 @@ def w4a8_dq_matmul_plain(x_q, x_scale, wp, w_scale, *, group_size, out_dtype=tor
         part = torch.einsum("mgk,gkn->mgn", xc, qc).float()            # exact
         out += (part * ws[None, g0:g1]).sum(1)
     return (out * x_scale.float().reshape(-1, 1)).to(out_dtype)
+
+
+def launch_entry(M: int, g: int) -> str:
+    """The C entry point that K10 launches at M rows and group size g (any
+    N % 8 == 0: the tensor-core form copies packed rows 8 bytes at a time
+    where N % 16 != 0)."""
+    if M <= GEMV_MAX_M:
+        return "tt_w4a8_gemv"
+    return "tt_w4a8_mma" if g in MMA_GROUPS else "tt_w4a8_tiled"
+
+
+def mma_ksplit(M: int, K: int, N: int, g: int, sms: int) -> int:
+    """The tensor-core form's K split: the blocks of one wave over its
+    ``ceil(M/128)·ceil(N/128)`` output tiles, in whole groups (split z holds
+    the groups ``[z·G/S, (z+1)·G/S)`` of the ``G = K/2g`` of each half)."""
+    tiles = cdiv(M, MMA_BM) * cdiv(N, MMA_BN)
+    return max(1, min(K // 2 // g, MMA_BLOCKS_PER_SM * sms // tiles))
 
 
 def w4a8_dq_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, wp: torch.Tensor,
@@ -105,18 +135,27 @@ def w4a8_dq_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, wp: torch.Tensor,
             w_scale.data_ptr(), _SCALE_KIND[w_scale.dtype])
     out_f32 = int(out_dtype == torch.float32)
     stream = _build.stream_handle(x_q.device)
-    if M <= GEMV_MAX_M:
+    entry = launch_entry(M, g)
+    if entry == "tt_w4a8_gemv":
         # split the groups over blocks until ~_TARGET_BLOCKS are in flight,
         # keeping one group for each of a block's 16 group lanes
         ksplit = max(1, min(Kp // g // _GEMV_LANES, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_TN))))
         work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
                            device=x_q.device)
-        lib.launch("tt_w4a8_gemv", *args, work.data_ptr(), out.data_ptr(), out_f32, M, K, N, g,
-                   ksplit, stream)
+        lib.launch(entry, *args, work.data_ptr(), out.data_ptr(), out_f32, M, K, N, g, ksplit,
+                   stream)
         _build.LAUNCHES["w4a8_dq_matmul_gemv"] += 1
+        return out
+    if entry == "tt_w4a8_mma":
+        ksplit = mma_ksplit(M, K, N, g, _build.sm_count(x_q.device.index or 0))
+        work = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x_q.device)
+                if ksplit > 1 else None)
+        lib.launch(entry, *args, 0 if work is None else work.data_ptr(), out.data_ptr(), out_f32,
+                   M, K, N, g, ksplit, stream)
     else:
-        lib.launch("tt_w4a8_tiled", *args, out.data_ptr(), out_f32, M, K, N, g, stream)
-        _build.LAUNCHES["w4a8_dq_matmul_tiled"] += 1
+        lib.launch(entry, *args, out.data_ptr(), out_f32, M, K, N, g, stream)
+    _build.LAUNCHES["w4a8_dq_matmul_tiled"] += 1
+    _build.ENTRIES[entry] += 1
     return out
 
 
