@@ -61,7 +61,13 @@ Phases (each fails loudly; nothing is caught):
    their plain versions at the model's shapes; the 2-layer check runs under
    ``banded``.
 
-4. three phases with no model: the long-context one (a layer's cache at
+4. the C3 phase: K4 (int4, int8) at Dh 32, 48, 64 and 96 and K4′ at 32, 48
+   and 96 on Llama-3-8B's heads, then K2, K2′ and K4 at stories15M's heads
+   (Dh = 48, G = 1), each against its plain version and timed; its main path
+   is a 2-layer stories15M at full width (random bf16 weights, int4_smajor
+   cache) on the card against the CPU, its launches asserted.
+
+5. three phases with no model: the long-context one (a layer's cache at
    S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
    S-major, K2 split-flat, each against its plain version and timed, SDPA
    on the dequantized layer as the yardstick), and K10's (the W4A8 matmul at
@@ -72,7 +78,7 @@ Phases (each fails loudly; nothing is caught):
    the one-launch stream over a decode step's 4.69 GB, with GB/s). Their
    rows report 0 launches: no main path runs them.
 
-5. the probe phase (slice 6): each probe of ``torchao_tpu_torch/probes/``
+6. the probe phase (slice 6): each probe of ``torchao_tpu_torch/probes/``
    through its ``run_probe`` at fewer steps, the launch counts set to 0
    just before each and read just after (every kernel of the probe must
    have launched): the attention ceiling probe at int4 and int8 (K2 and its
@@ -80,8 +86,8 @@ Phases (each fails loudly; nothing is caught):
    a torch sum as yardsticks), the manual-DMA probe (P1, P2), the int4
    qparams-layout probe (K1, eff4, m1), and the dtype probes (P3's casts
    and dot, P5's dots). Each new CUDA arm is first held against its plain
-   version at the block size it uses (K2's stub at 128 keys, the rungs at
-   32). Each row carries its time per probe step (CUDA graph replays over
+   version at the block size it uses (K2's stub at its 32-key tile, the
+   rungs at 32). Each row carries its time per probe step (CUDA graph replays over
    more bytes than the L2 holds, or single calls with the L2 flushed), its
    bound, its plain version's time, a library call's where one PyTorch call
    computes the function, and 0 launches (no main path runs them;
@@ -161,6 +167,7 @@ from torchao_tpu_torch.models.llama.generate import benchmark_decode
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
+from torchao_tpu_torch.profiler import kernels_per_call
 from torchao_tpu_torch.probes import (
     attn_ceiling_probe,
     attn_probe,
@@ -215,6 +222,7 @@ LONG_S = 8192  # the long-context phase's cache length
 E2E_MARGIN_DB = 3.0  # card vs CPU, each against the CPU's float32 run (check_against_cpu)
 
 _QA = "torchao_tpu_torch/csrc/quantized_attention.cu"
+_DEC = "torchao_tpu_torch/csrc/decode_attention.cu"
 _QMM = "torchao_tpu_torch/csrc/qmatmul.cu"
 _FP6 = "torchao_tpu_torch/csrc/fp6_matmul.cu"
 _DP = "torchao_tpu_torch/csrc/dtype_probes.cu"
@@ -225,14 +233,14 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                              "torchao_tpu/kernels/int4_matmul.py:723"),
     "fused_smajor_token_write": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
                                  "torchao_tpu/kernels/kv_cache_write.py:166"),
-    "quantized_kv_decode_attention_bdq": (_QA, "torchao_tpu/kernels/quantized_attention.py:931"),
+    "quantized_kv_decode_attention_bdq": (_DEC, "torchao_tpu/kernels/quantized_attention.py:931"),
     "quantized_kv_decode_attention": (_QA, "torchao_tpu/kernels/quantized_attention.py:337"),
     "int8wo_mixed_matmul_gemv": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
     "int8wo_mixed_matmul_tiled": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
     "fused_smajor_token_write_int8": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
                                       "torchao_tpu/kernels/kv_cache_write.py:166"),
     "quantized_kv_decode_attention_bdq_int8": (
-        _QA, "torchao_tpu/kernels/quantized_attention.py:959"),
+        _DEC, "torchao_tpu/kernels/quantized_attention.py:959"),
     "quantized_kv_decode_attention_int8": (_QA, "torchao_tpu/kernels/quantized_attention.py:337"),
     "int8_scaled_matmul_gemv": (_QMM, "torchao_tpu/kernels/int8_matmul.py:104"),
     "int8_scaled_matmul_tiled": (_QMM, "torchao_tpu/kernels/int8_matmul.py:104"),
@@ -269,9 +277,9 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                             "torchao_tpu/kernels/int4_matmul.py:877"),
     "ceiling_mono": ("torchao_tpu_torch/csrc/ceiling_probe.cu", "scripts/ceiling_probe_r4.py:140"),
     # slice 6: the probes' arms (K2's stub arm's bodies are at :569-590 and :682-700)
-    "quantized_kv_decode_attention_bdq_stub": (_QA, "torchao_tpu/kernels/quantized_attention.py:931"),
+    "quantized_kv_decode_attention_bdq_stub": (_DEC, "torchao_tpu/kernels/quantized_attention.py:931"),
     "quantized_kv_decode_attention_bdq_stub_int8": (
-        _QA, "torchao_tpu/kernels/quantized_attention.py:959"),
+        _DEC, "torchao_tpu/kernels/quantized_attention.py:959"),
     **{f"quantized_kv_decode_attention_{r}{sfx}": (
         _QA, "torchao_tpu/kernels/quantized_attention.py:337")
        for r in ABLATE_RUNGS[1:] for sfx in ("", "_int8")},
@@ -525,13 +533,21 @@ def _sdpa(q, k, v, causal):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
 
+def _sqnr(t, want, got, key="sqnr_db"):
+    """Keep the least SQNR of a row's checks as ``t.extra[key]``."""
+    t.extra[key] = min(t.extra.get(key, math.inf), compute_error(want, got))
+
+
 def check_decode_attention(args, gen, int8=False):
-    """K2 / K2′ at S=256 with pos 0, 128, 255, and at S=8192 with pos 8191."""
+    """K2 / K2′ at S=256 with pos 0, 128, 255, and at S=8192 with pos 8191;
+    one call is one kernel on the card and nothing else (the combine folded
+    in: the nodes of a CUDA graph captured around the call). The row keeps
+    both lengths' times and the least SQNR."""
     L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
-    G = H // Hkv
+    G, li = H // Hkv, min(7, L - 1)
     name = "quantized_kv_decode_attention_bdq" + _suffix(int8)
     t = Tally(name, f"one decode step at S={PROMPT + DECODE}, pos=255: {L} launches")
-    for S, positions in ((PROMPT + DECODE, (0, 128, 255)), (8192, (8191,))):
+    for S, positions in ((PROMPT + DECODE, (0, 128, 255)), (LONG_S, (LONG_S - 1,))):
         c = random_cache(gen, L, 1, Hkv, Dh, S, int8)
         X = c["k_q"].shape[2]
         Db = X // Hkv
@@ -539,19 +555,24 @@ def check_decode_attention(args, gen, int8=False):
         q = torch.randn((1, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
         for p in positions:
             pos = torch.tensor([p], dtype=torch.int32, device="cuda")
-            got = quantized_kv_decode_attention_bdq(q, *a, pos, layer_idx=7)
-            want = quantized_kv_decode_attention_bdq_plain(q, *a, pos, layer_idx=7)
+            call = lambda: quantized_kv_decode_attention_bdq(q, *a, pos, layer_idx=li)
+            got = call()
+            want = quantized_kv_decode_attention_bdq_plain(q, *a, pos, layer_idx=li)
             err = compare(f"{name} S={S} pos={p}", got, want)
+            _sqnr(t, want, got)
+            nodes = kernels_per_call(call)
+            if nodes != (1, 1):  # the merge folded in: one kernel, nothing else
+                raise AssertionError(f"{name}: a call is {nodes} (kernels, graph nodes)")
             # SDPA over the visible keys of the pre-dequantized layer, heads expanded
             n = p + 1
-            kd = (_kv_values(c["k_q"][7].reshape(1, Hkv, Db, S)[..., :n].transpose(2, 3))
-                  * c["k_scale"][7][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
-            vd = (_kv_values(c["v_q"][7][:, :n].reshape(1, n, Hkv, Db).transpose(1, 2))
-                  * c["v_scale"][7][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
+            kd = (_kv_values(c["k_q"][li].reshape(1, Hkv, Db, S)[..., :n].transpose(2, 3))
+                  * c["k_scale"][li][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
+            vd = (_kv_values(c["v_q"][li][:, :n].reshape(1, n, Hkv, Db).transpose(1, 2))
+                  * c["v_scale"][li][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
             qs = q.reshape(1, H, 1, Dh)
-            ms = time_ms(lambda: quantized_kv_decode_attention_bdq(q, *a, pos, layer_idx=7))
+            ms = time_ms(call)
             plain_ms = time_ms(lambda: quantized_kv_decode_attention_bdq_plain(
-                q, *a, pos, layer_idx=7))
+                q, *a, pos, layer_idx=li))
             lib_ms = time_ms(lambda: _sdpa(qs, kd, vd, False))
             nbytes = n * (2 * X + 2 * Hkv * 2) + H * Dh * (2 + 4) + 4
             flops = 4 * H * n * Dh
@@ -562,6 +583,9 @@ def check_decode_attention(args, gen, int8=False):
                 t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
             else:
                 t.max_abs_err = max(t.max_abs_err, err)
+            if S == LONG_S:  # one call at the long context, beside the step's row
+                t.extra.update({f"S{S}_ms": ms, f"S{S}_plain_ms": plain_ms,
+                                f"S{S}_library_ms": lib_ms, f"S{S}_bound_ms": b})
         del c, a
     return t
 
@@ -584,7 +608,7 @@ def check_prefill_attention(args, gen, int8=False, head_major=False):
     name = "quantized_kv_decode_attention" + _suffix(int8)
     got = quantized_kv_decode_attention(q, *views, pos, rows_per_t=G)
     want = quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G)
-    err = compare(f"{name} T={T} S={S}", got, want)
+    err = compare(f"{name} T={T} S={S} Dh={Dh}", got, want)
     kd = (_kv_values(views[0][..., :T, :]) * views[1][..., :T, :].float()).bfloat16()
     vd = (_kv_values(views[2][..., :T, :]) * views[3][..., :T, :].float()).bfloat16()
     qs = q.reshape(1, Hkv, T, G, Dh).transpose(2, 3).reshape(1, H, T, Dh).contiguous()
@@ -598,9 +622,10 @@ def check_prefill_attention(args, gen, int8=False, head_major=False):
     b, by = bound(nbytes, flops)
     log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
         f"bound_ms={b:.5f} ({by})")
-    t = Tally(name, f"one prefill (T={T}, S={S}{', head-major cache' if head_major else ''}): "
-              f"{L} launches")
+    t = Tally(name, f"one prefill (T={T}, S={S}, Dh={Dh}"
+              f"{', head-major cache' if head_major else ''}): {L} launches")
     t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
+    _sqnr(t, want, got)
     return t
 
 
@@ -803,12 +828,15 @@ def check_head_major_decode(args, gen, int8, fold):
         quantized_kv_decode_attention_plain
     if fold and not fold_heads_fits(Hkv, G, S, Dh):
         raise AssertionError("the decode shape should fold")
-    t = Tally(name, f"one decode step at S={S}, pos=255, head-major cache: {L} launches")
+    t = Tally(name, f"one decode step at S={S}, pos=255, Dh={Dh}, head-major cache: "
+              f"{L} launches")
     for p in (0, 128, 255):
         pos = torch.tensor([p], dtype=torch.int32, device="cuda")
         call = lambda: quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=fold)
         plain = lambda: plain_fn(q, *cache, pos, rows_per_t=G)
-        err = compare(f"{name} S={S} pos={p}", call(), plain())
+        got, want = call(), plain()
+        err = compare(f"{name} S={S} pos={p} Dh={Dh}", got, want)
+        _sqnr(t, want, got)
         if p != 255:
             t.max_abs_err = max(t.max_abs_err, err)
             continue
@@ -1047,18 +1075,19 @@ def to_device(tree, device, dtype=None):
     return tree.to(device, dtype) if dtype is not None else tree.to(device)
 
 
-def check_against_cpu(params, gen, kv):
-    """A 2-layer slice at full width, teacher-forced over a 16-token prefill
-    and 3 decode steps, three times: bf16 on the card (kernels), bf16 on the
-    CPU (plain versions) and float32 on the CPU (plain versions, the
-    reference). A quantized KV cache or quantized activations turn a
-    rounding difference into whole code steps wherever a value lies near a
-    rounding edge, so two correct bf16 runs differ far more than one ulp:
-    the card must come as close to the float32 reference as the CPU's bf16
-    run does, within E2E_MARGIN_DB."""
-    args = ModelArgs.from_name(MODEL)
-    args.n_layer = 2
-    small = first_layers(params, 2)
+def check_against_cpu(params, gen, kv, name=MODEL, layers=2):
+    """A ``layers``-deep slice of model ``name`` at full width, teacher-forced
+    over a 16-token prefill and 3 decode steps, three times: bf16 on the card
+    (kernels), bf16 on the CPU (plain versions) and float32 on the CPU
+    (plain versions, the reference). A quantized KV cache or quantized
+    activations turn a rounding difference into whole code steps wherever a
+    value lies near a rounding edge, so two correct bf16 runs differ far more
+    than one ulp: the card must come as close to the float32 reference as the
+    CPU's bf16 run does, within E2E_MARGIN_DB. Returns the SQNRs and the
+    card run's launch counts (set to 0 just before it)."""
+    args = ModelArgs.from_name(name)
+    args.n_layer = layers
+    small = first_layers(params, layers)
     runs = {
         "card bf16": (Transformer(args, torch.bfloat16, "cuda"), small),
         "CPU bf16": (Transformer(args, torch.bfloat16, "cpu"), to_device(small, "cpu")),
@@ -1067,24 +1096,29 @@ def check_against_cpu(params, gen, kv):
     }
     toks = torch.randint(0, args.vocab_size, (1, 19), generator=gen, device="cuda")
     steps = [(toks[:, :16], 0)] + [(toks[:, 16 + i:17 + i], 16 + i) for i in range(3)]
-    logits = {}
-    for name, (model, p) in runs.items():
+    logits, counts = {}, {}
+    for run, (model, p) in runs.items():
         cache = model.setup_caches(1, 64, quantize=kv)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
         out = []
         for tk, pos in steps:
             lg, cache = model(p, tk.to(model.device), pos, cache)
             out.append(lg[:, -1].float().cpu())
-        logits[name] = torch.cat(out)
+        if model.device.type == "cuda":
+            counts = dict(_build.LAUNCHES)
+        logits[run] = torch.cat(out)
     ref = logits.pop("CPU f32")
-    sqnr = {name: compute_error(ref, lg) for name, lg in logits.items()}
-    log(f"  2-layer {MODEL}, logits SQNR against CPU f32: "
+    sqnr = {run: compute_error(ref, lg) for run, lg in logits.items()}
+    log(f"  {layers}-layer {name}, logits SQNR against CPU f32: "
         + ", ".join(f"{n} {s:.2f} dB" for n, s in sqnr.items()))
     if not all(torch.isfinite(lg).all() for lg in logits.values()):
         raise AssertionError("non-finite logits")
     if not sqnr["card bf16"] >= sqnr["CPU bf16"] - E2E_MARGIN_DB:
         raise AssertionError("the card's forward is further from the float32 reference "
                              "than the CPU's bf16 plain versions")
-    return sqnr
+    return sqnr, counts
 
 
 # ------------------------------------------------------------ sections --
@@ -1291,12 +1325,65 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     log("  tokens in range, logits finite")
 
     log("  -- the card's forward against the CPU's plain versions")
-    sqnr = check_against_cpu(params, gen, kv)
+    sqnr, _ = check_against_cpu(params, gen, kv)
     e2e.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return [{**t.row(counts.get(t.name, 0)), "section": name} for t in tallies], e2e
+
+
+# ---------------------------------------------------------------- C3 --
+
+C3_HEAD_DIMS = (32, 48, 96)  # beside 64 and 128: tiny-debug's 32, stories15M's 48, and 96
+C3_MODEL, C3_LAYERS = "stories15M", 2
+
+
+def c3_phase(gen):
+    """The head dims that K4 and K4′ take beside 64 and 128, on the card:
+    K4 (int4 and int8) at Llama-3-8B's prefill geometry (Hkv = 8, G = 4,
+    T = 128, S = 256) at Dh 32, 48, 64 (beside 48, the comparison) and 96;
+    K4′ at its decode shape at Dh 32, 48 and 96; K2, K2′ and K4 at
+    stories15M's geometry (Hkv = 6, G = 1, Dh = 48). Its main path is a
+    ``C3_LAYERS``-layer stories15M at full width with random bf16 weights and
+    the int4_smajor cache (``check_against_cpu``: K4 at the prefill, K3 and
+    K2 at each decode step), the counts set to 0 just before the card's run
+    and read just after; the rows of stories15M's geometry take those
+    counts, the others 0. Returns (rows, end-to-end numbers)."""
+    base = ModelArgs.from_name(MODEL)
+    rows = []
+    log(f"== C3: K4 and K4′ at Dh {C3_HEAD_DIMS} beside 64 ({MODEL}'s heads)")
+    for Dh in sorted(C3_HEAD_DIMS + (64,)):
+        args = dataclasses.replace(base, dim=Dh * base.n_head)
+        for int8 in (False, True):
+            t = check_prefill_attention(args, gen, int8)
+            rows.append({**t.row(0), "section": f"c3 Dh={Dh}", "head_dim": Dh})
+    for Dh in C3_HEAD_DIMS:
+        args = dataclasses.replace(base, dim=Dh * base.n_head)
+        for int8 in (False, True):
+            t = check_head_major_decode(args, gen, int8, fold=True)
+            rows.append({**t.row(0), "section": f"c3 Dh={Dh}", "head_dim": Dh})
+    args = ModelArgs.from_name(C3_MODEL)
+    log(f"== C3: {C3_MODEL} (Hkv={args.n_local_heads}, G={args.n_head // args.n_local_heads}, "
+        f"Dh={args.head_dim}), random bf16 weights, int4_smajor cache")
+    tallies = [f(args, gen, int8) for f in (check_decode_attention, check_prefill_attention)
+               for int8 in (False, True)]
+    model = Transformer(args, torch.bfloat16, "cuda")
+    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
+                                   lambda name, leaf: False, seed=0)  # bf16 weights
+    sqnr, counts = check_against_cpu(params, gen, "int4_smajor", C3_MODEL, C3_LAYERS)
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    want = {"quantized_kv_decode_attention": C3_LAYERS,  # the 16-token prefill
+            "quantized_kv_decode_attention_bdq": 3 * C3_LAYERS, "fused_smajor_token_write": 3 * C3_LAYERS}
+    if counts != want:
+        raise AssertionError(f"C3 {C3_MODEL}: launch counts {counts} != expected {want}")
+    rows += [{**t.row(counts.get(t.name, 0)), "section": f"c3 {C3_MODEL}", "head_dim": args.head_dim}
+             for t in tallies]
+    del model, params
+    torch.cuda.empty_cache()
+    e2e = {"config": f"c3 {C3_MODEL} {C3_LAYERS} layers", "kv_cache": "int4_smajor",
+           **{f"{C3_LAYERS}layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()}}
+    return rows, e2e
 
 
 # ------------------------------------------------------------ slice 5 --
@@ -1400,7 +1487,7 @@ def variants_section(gen):
                      "int4_dq_matmul_tiled": 4 * L + 1, **_attention_counts(L)}, "banded")
     with _environment(banded):
         log("  -- the card's forward against the CPU's plain versions, under banded")
-        sqnr = check_against_cpu(params, gen, "int4_smajor")
+        sqnr, _ = check_against_cpu(params, gen, "int4_smajor")
         reset_variant_choices()
     e2e_a.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
 
@@ -1569,7 +1656,8 @@ def main() -> int:
 
     log("== build")
     lib = _build.library()
-    log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s")
+    log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s; nvcc seconds per source: "
+        + json.dumps({k: round(v, 1) for k, v in sorted(lib.file_seconds.items())}))
     if "tt_qmm_tiled" in _build.SIGNATURES or hasattr(lib.lib, "tt_qmm_tiled"):
         raise AssertionError("K7's SIMT tile tt_qmm_tiled is still in the library")
 
@@ -1586,6 +1674,10 @@ def main() -> int:
     e2e += e
     log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
 
+    r, e = c3_phase(gen)
+    rows += r
+    e2e.append(e)
+    log(f"  C3 phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += long_context_phase(gen)
     log(f"  long-context phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += w4a8_phase(gen)

@@ -215,13 +215,153 @@ def test_decode_attention_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [48, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("S", [256, 300, 8192])
 @pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
-@pytest.mark.parametrize("Dh", [64, 128])
+def test_decode_attention_redesign_matches_plain(cuda, int8, S, G, Dh):
+    """K2 / K2′ (one launch: split keys, a cp.async ring and mma.sync per
+    warp, the last block of a (batch, kv head) merging the splits) against the
+    plain version at >= 35 dB: S = 300 is no multiple of the 32-key tile
+    (4-byte K copies, byte scale copies), Dh = 48 int4 has 24-byte V rows
+    (8-byte copies); B = 2 with
+    a position per slot: 0 and S - 1 (one live split, and all), the last key
+    of a tile and the next tile's first (one warp's keys, and two warps'),
+    the last key of a split and the next split's first (one live split, and
+    two). After each call the tickets are back at zero."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+
+    gen = torch.Generator(device=cuda).manual_seed(S + G + Dh + int8)
+    L, B, H = 2, 2, 2
+    cache = (_int8_split_flat_cache if int8 else _split_flat_cache)(gen, L, B, H, Dh, S, cuda)
+    q = torch.randn((B, H, G, Dh), generator=gen, device=cuda).bfloat16()
+    name = "quantized_kv_decode_attention_bdq" + ("_int8" if int8 else "")
+    _, kps = qa.decode_plan(B, H, S)
+    tile = qa.DECODE_CHUNK
+    for pair in ((0, S - 1), (tile - 1, tile), (kps - 1, kps)):
+        pos = torch.tensor(pair, dtype=torch.int32, device=cuda)
+        before = _build.LAUNCHES[name]
+        got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1)
+        assert _build.LAUNCHES[name] == before + 1
+        _sqnr_ok(got, quantized_kv_decode_attention_bdq_plain(q, *cache, pos, layer_idx=1), 35.0)
+        assert int(qa._TICKETS[cuda if cuda.index is not None else got.device].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [2, 6, 40, 72, 200])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_decode_attention_at_ragged_head_dims(cuda, int8, Dh):
+    """K2 / K2′ at even head dims that fill no whole k block or column tile
+    of the tensor-core fragments (the rest is zero and not stored), G = 3,
+    against the plain version at >= 35 dB."""
+    gen = torch.Generator(device=cuda).manual_seed(Dh + int8)
+    L, B, H, G, S = 1, 2, 3, 3, 200
+    cache = (_int8_split_flat_cache if int8 else _split_flat_cache)(gen, L, B, H, Dh, S, cuda)
+    q = torch.randn((B, H, G, Dh), generator=gen, device=cuda).bfloat16()
+    pos = torch.tensor([S - 1, 70], dtype=torch.int32, device=cuda)
+    got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=0)
+    _sqnr_ok(got, quantized_kv_decode_attention_bdq_plain(q, *cache, pos, layer_idx=0), 35.0)
+
+
+@pytest.mark.cuda
+def test_decode_attention_is_one_device_kernel(cuda):
+    """The folded combine: one K2 call is one kernel on the card and nothing
+    else (the nodes of a CUDA graph captured around it), where it was a
+    partial and a combine launch."""
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = _int8_split_flat_cache(gen, 2, 1, 8, 128, 1024, cuda)
+    q = torch.randn((1, 8, 4, 128), generator=gen, device=cuda).bfloat16()
+    pos = torch.tensor([1023], dtype=torch.int32, device=cuda)
+    quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1)  # build, tickets
+    for p in (1023, 7):  # 4 splits merged, one split written directly
+        pos = torch.tensor([p], dtype=torch.int32, device=cuda)
+        call = lambda: quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1)
+        assert kernels_per_call(call) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(32, 64, 128), (96, 192, 1024), (256, 128, 640)])
+def test_dot_kernels_at_other_shapes(cuda, M, N, K):
+    """The redesigned mma dot (P3's and P5's) at shapes beside the probes':
+    one slice, more slices than the ring's stages, a ring that wraps; within
+    1e-4 of the f32 product, relative to its largest entry."""
+    from torchao_tpu_torch.probes import dot_legality_probe as p5
+    from torchao_tpu_torch.probes import fp8_cast_probe as p3
+
+    gen = torch.Generator(device=cuda).manual_seed(M + N + K)
+    s8 = lambda *sh: torch.randint(-127, 128, sh, generator=gen, device=cuda).to(torch.int8)
+    bf = lambda *sh: torch.randn(sh, generator=gen, device=cuda).bfloat16()
+    x = torch.randn((N, K), generator=gen, device=cuda).to(torch.float8_e4m3fn)
+    a = bf(M, K)
+    pairs = [(p3.fp8_bf16_e4m3_dot(a, x), p3.fp8_bf16_e4m3_dot_plain(a, x))]
+    sa, b = s8(M, K), bf(K, N)
+    pairs.append((p5.dot_s8_bf16(sa, b), p5.dot_s8_bf16_plain(sa, b)))
+    at, sb = bf(K, M), s8(K, N)
+    pairs.append((p5.dot_bf16t_s8(at, sb), p5.dot_bf16t_s8_plain(at, sb)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.shape == (M, N)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_dh48_forward_on_the_card_matches_the_cpu(cuda):
+    """A narrow 2-layer model at stories15M's head layout (Dh = 48, G = 1)
+    with the int4_smajor cache and bf16 weights, teacher-forced over a
+    16-token prefill (K4) and 3 decode steps (K2), on the card and on the
+    CPU in bf16, each held against a float32 CPU run: the card within 3 dB
+    of the CPU (chip_smoke.py's rule)."""
+    from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
+    from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer
+    from torchao_tpu_torch.quantization.quant_api import Int4WeightOnlyConfig
+    from torchao_tpu_torch.utils import compute_error
+
+    args = ModelArgs(block_size=64, vocab_size=512, n_layer=2, n_head=6, n_local_heads=6,
+                     dim=288, intermediate_size=768)
+    assert args.head_dim == 48
+    plain = lambda name, w: False
+    params = init_quantized_params(Transformer(args, torch.float32, "cpu"),
+                                   Int4WeightOnlyConfig(32), plain, seed=0)
+    toks = torch.randint(0, 512, (1, 19), generator=torch.Generator().manual_seed(0))
+    steps = [(toks[:, :16], 0)] + [(toks[:, 16 + i:17 + i], 16 + i) for i in range(3)]
+    runs = {"card": (cuda, torch.bfloat16), "cpu": ("cpu", torch.bfloat16),
+            "ref": ("cpu", torch.float32)}
+    logits = {}
+    for key, (dev, dt) in runs.items():
+        model = Transformer(args, dt, dev)
+        to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev, dt)
+        p = to(params)
+        cache = model.setup_caches(1, 64, quantize="int4_smajor")
+        before = dict(_build.LAUNCHES)
+        out = []
+        for tk, pos in steps:
+            lg, cache = model(p, tk.to(dev), pos, cache)
+            out.append(lg[:, -1].float().cpu())
+        if key == "card":
+            grew = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+            assert grew == {"quantized_kv_decode_attention": 2,
+                            "quantized_kv_decode_attention_bdq": 6,
+                            "fused_smajor_token_write": 6}, grew
+        logits[key] = torch.cat(out)
+    ref = logits.pop("ref")
+    sqnr = {k: compute_error(ref, v) for k, v in logits.items()}
+    assert all(torch.isfinite(v).all() for v in logits.values())
+    assert sqnr["card"] >= sqnr["cpu"] - 3.0, sqnr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+@pytest.mark.parametrize("Dh", [32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 40, 128])
 @pytest.mark.parametrize("S", [256, 200, 198])
 @pytest.mark.parametrize("layout", ["split_flat", "head_major"])
 def test_prefill_attention_kernel_matches_plain(cuda, int8, Dh, T, S, layout):
-    """K4 against its plain version at >= 35 dB: G = 4, B = 2 with its own
+    """K4 against its plain version at >= 35 dB at every head dim it is
+    instantiated for (48: one column warp takes two groups of 16, the other
+    one): G = 4, B = 2 with its own
     pos per slot, over the split-flat cache's views (D-major K: 16-byte
     copies at S = 256, 8 at 200, byte loads at 198) or a head-major cache.
     T = 1 and 40 take the key split (B·H·ceil(R/32) < 128), T = 128 not."""
@@ -447,7 +587,7 @@ def _head_major_cache(gen, B, H, S, Dh, int8, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
-@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Dh", [32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 40])
 def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
     """K4′ (decode, and T > 1 with rows_per_t) against its own plain
@@ -474,11 +614,12 @@ def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
 @pytest.mark.parametrize("T", [1, 40])
-def test_smajor_attention_kernel_matches_plain(cuda, int8, T):
+@pytest.mark.parametrize("Dh", [128, 32, 48, 96])
+def test_smajor_attention_kernel_matches_plain(cuda, int8, T, Dh):
     """K13 over an S-major cache [B, S, H*Db] with [B, S, H] scales (strided
-    head-major views inside)."""
-    gen = torch.Generator(device=cuda).manual_seed(7 + T + int8)
-    B, H, G, Dh, S = 2, 8, 4, 128, 300
+    head-major views inside), at each head dim of K4′'s template."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + T + int8 + Dh)
+    B, H, G, S = 2, 8, 4, 300
     kq, ks, vq, vs = (t.transpose(1, 2).flatten(2).contiguous()
                       for t in _head_major_cache(gen, B, H, S, Dh, int8, cuda))
     q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
@@ -675,9 +816,10 @@ def _finite_sqnr_ok(got, want, db=60.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
 def test_bdq_stub_kernel_matches_plain(cuda, int8):
-    """K2's stub arm against its plain version at the kernel's chunk (128
-    keys), stacked, two slots (one cutting a chunk)."""
+    """K2's stub arm against its plain version at the kernel's tile
+    (``DECODE_CHUNK`` keys), stacked, two slots (one cutting a tile)."""
     from torchao_tpu_torch.kernels.quantized_attention import (
+        DECODE_CHUNK,
         quantized_kv_decode_attention_bdq_stub_plain,
     )
 
@@ -688,10 +830,11 @@ def test_bdq_stub_kernel_matches_plain(cuda, int8):
     pos = torch.tensor([S - 2, 200], dtype=torch.int32, device=cuda)
     name = "quantized_kv_decode_attention_bdq_stub" + ("_int8" if int8 else "")
     before = _build.LAUNCHES[name]
-    got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=128, stub=True)
+    got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=DECODE_CHUNK,
+                                            stub=True)
     assert _build.LAUNCHES[name] == before + 1
-    _finite_sqnr_ok(got, quantized_kv_decode_attention_bdq_stub_plain(q, *cache, pos,
-                                                                      layer_idx=1, bs=128))
+    _finite_sqnr_ok(got, quantized_kv_decode_attention_bdq_stub_plain(
+        q, *cache, pos, layer_idx=1, bs=DECODE_CHUNK))
 
 
 @pytest.mark.cuda
@@ -702,6 +845,7 @@ def test_bdq_stub_scale_term_matches_plain(cuda, int8):
     relative: a term dropped or read at another block, head or layer is off
     by percents."""
     from torchao_tpu_torch.kernels.quantized_attention import (
+        DECODE_CHUNK,
         quantized_kv_decode_attention_bdq_stub_plain,
     )
 
@@ -711,8 +855,10 @@ def test_bdq_stub_scale_term_matches_plain(cuda, int8):
     q = torch.zeros((B, H, G, Dh), dtype=torch.bfloat16, device=cuda)
     for p in (S - 2, 1000):
         pos = torch.tensor([p], dtype=torch.int32, device=cuda)
-        got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=128, stub=True)
-        want = quantized_kv_decode_attention_bdq_stub_plain(q, *cache, pos, layer_idx=1, bs=128)
+        got = quantized_kv_decode_attention_bdq(q, *cache, pos, layer_idx=1, bs=DECODE_CHUNK,
+                                                stub=True)
+        want = quantized_kv_decode_attention_bdq_stub_plain(q, *cache, pos, layer_idx=1,
+                                                            bs=DECODE_CHUNK)
         assert bool((want > 0).all())
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 

@@ -25,11 +25,14 @@ from torchao_tpu_torch.utils import compute_error
 
 ARGS = dict(block_size=64, vocab_size=512, n_layer=2, n_head=4, n_local_heads=2,
             dim=256, intermediate_size=512)  # Dh = 64, GQA 2:1
+# stories15M's head dim (48) and its G = 1, narrow and 2 layers deep
+ARGS_DH48 = dict(block_size=64, vocab_size=512, n_layer=2, n_head=4, n_local_heads=4,
+                 dim=192, intermediate_size=512)
 PROMPT, STEPS = 16, 8
 
 
-def _run_jax(dtype):
-    model = JM.Transformer(JM.ModelArgs(**ARGS), dtype=dtype)
+def _run_jax(dtype, args=ARGS):
+    model = JM.Transformer(JM.ModelArgs(**args), dtype=dtype)
     params = jquantize(model.init_params(jax.random.PRNGKey(0)), JCfg(group_size=32),
                        JM.default_linear_filter)
     fwd = jax.jit(lambda p, t, pos, c: model(p, t, pos, c))
@@ -45,8 +48,8 @@ def _run_jax(dtype):
     return params, np.asarray(toks), all_logits, tokens
 
 
-def _run_port(params, prompt, dtype):
-    model = TM.Transformer(TM.ModelArgs(**ARGS), dtype=dtype, device="cpu")
+def _run_port(params, prompt, dtype, args=ARGS):
+    model = TM.Transformer(TM.ModelArgs(**args), dtype=dtype, device="cpu")
     cache = model.setup_caches(1, PROMPT + STEPS, quantize="int4_smajor")
     logits, cache = model(params, torch.from_numpy(prompt).long(), 0, cache)
     all_logits, tokens = [logits[:, -1].float().numpy()], []
@@ -83,6 +86,20 @@ def test_bfloat16_logits_sqnr(jax_runs):
     for step, (a, b) in enumerate(zip(logits, jlogits)):
         err = compute_error(torch.from_numpy(b), torch.from_numpy(a))
         assert err >= 30, (step, err)
+
+
+def test_dh48_float32_logits_and_greedy_tokens_match():
+    """At Dh = 48 (stories15M's head dim, G = 1) with the int4_smajor cache:
+    the port's prefill goes to K4 and its decode to K2 at a head dim the
+    card's kernels take since they were widened; the plain versions agree
+    with the JAX package in float32 as at Dh = 64."""
+    assert TM.ModelArgs(**ARGS_DH48).head_dim == 48
+    jparams, prompt, jlogits, jtokens = _run_jax(jnp.float32, ARGS_DH48)
+    params = params_from_jax_numpy(jax_to_numpy(jparams), device="cpu")
+    logits, tokens = _run_port(params, prompt, torch.float32, ARGS_DH48)
+    assert tokens == jtokens
+    for step, (a, b) in enumerate(zip(logits, jlogits)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3, err_msg=f"step {step}")
 
 
 def test_port_quantize_equals_converted_params(jax_runs):

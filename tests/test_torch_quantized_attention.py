@@ -5,6 +5,7 @@ interpret mode, and K4′'s routing rule against the JAX wrapper's. SQNR >=
 plain versions compute in fp32."""
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -150,6 +151,198 @@ def test_prefill_attention_int8_matches_jax_kernel():
     kq_view = args[1].transpose(2, 3).contiguous().transpose(2, 3)
     again = quantized_kv_decode_attention(args[0], kq_view, *args[2:], rows_per_t=G)
     torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+# ------------------------------ the head dims and G that the configs use --
+
+
+def _bdq_inputs(rs, Lc, B, H, G, Dh, S, int8):
+    """q and a stacked split-flat cache (int8, or packed int4) of random codes."""
+    q = rs.randn(B, H, G, Dh).astype(np.float32)
+    lo, hi, scl = (-127, 128, .01) if int8 else (-8, 8, .1)
+    kx = rs.randint(lo, hi, (Lc, B, H, S, Dh))
+    vx = rs.randint(lo, hi, (Lc, B, H, S, Dh))
+    if int8:
+        kx, vx = kx.astype(np.int8), vx.astype(np.int8)
+    else:
+        kx, vx = _pack(kx), _pack(vx)
+    Db = kx.shape[-1]
+    kq = np.ascontiguousarray(kx.transpose(0, 1, 2, 4, 3).reshape(Lc, B, H * Db, S))
+    vq = np.ascontiguousarray(vx.transpose(0, 1, 3, 2, 4).reshape(Lc, B, S, H * Db))
+    ks = (rs.rand(Lc, B, H, S) * scl + scl / 10).astype(np.float32)
+    vs = (rs.rand(Lc, B, H, S) * scl + scl / 10).astype(np.float32)
+    return q, kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("G", [1, 16])
+@pytest.mark.parametrize("Dh", [48, 256])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_bdq_decode_matches_jax_kernel_at_config_shapes(int8, Dh, G):
+    """K2 / K2′'s plain version against the JAX kernel (interpret mode) at
+    stories15M's head dim (48), the widest the card takes (256), G = 1
+    (stories15M) and G = 16 (Llama-3.1-405B): the shapes the card's kernel
+    newly takes. B = 2 with a position per slot, stacked, layer 1."""
+    rs = np.random.RandomState(Dh + G + int8)
+    Lc, B, H, S = 2, 2, 2, 64
+    q, kq, ks, vq, vs = _bdq_inputs(rs, Lc, B, H, G, Dh, S, int8)
+    pos = np.array([S - 3, 10], np.int32)
+    want = j_bdq(jnp.asarray(q, jnp.bfloat16), jnp.asarray(kq), jnp.asarray(ks, jnp.bfloat16),
+                 jnp.asarray(vq), jnp.asarray(vs, jnp.bfloat16), jnp.asarray(pos),
+                 bs=32, interpret=True, layer_idx=jnp.int32(1))
+    got = quantized_kv_decode_attention_bdq(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kq), torch.from_numpy(ks).bfloat16(),
+        torch.from_numpy(vq), torch.from_numpy(vs).bfloat16(), torch.from_numpy(pos),
+        layer_idx=1)
+    assert got.shape == (B, H, G, Dh) and got.dtype == torch.float32
+    err = compute_error(torch.from_numpy(np.asarray(want)), got)
+    assert err >= 45, err
+
+
+@pytest.mark.parametrize("Dh", [32, 48, 96])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_prefill_attention_matches_jax_kernel_at_config_head_dims(int8, Dh):
+    """K4's plain version against the JAX kernel (interpret mode) at the head
+    dims beside 64 and 128 that the configs use: tiny-debug's 32,
+    stories15M's 48, and 96. T = 8 with rows_per_t = G = 4, B = 2 with its
+    own pos per slot, a head-major cache."""
+    rs = np.random.RandomState(13 + Dh + int8)
+    B, Hkv, G, T, S = 2, 2, 4, 8, 32
+    R = T * G
+    q = rs.randn(B, Hkv, R, Dh).astype(np.float32)
+    kq, ks, vq, vs = _hm_codes(rs, B, Hkv, S, Dh, int8)
+    pos = np.array([0, 5], np.int32)
+    want = j_attn(jnp.asarray(q, jnp.bfloat16), jnp.asarray(kq), jnp.asarray(ks, jnp.bfloat16),
+                  jnp.asarray(vq), jnp.asarray(vs, jnp.bfloat16), jnp.asarray(pos),
+                  rows_per_t=G, bq=8, bs=8, interpret=True)
+    got = quantized_kv_decode_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kq), torch.from_numpy(ks).bfloat16(),
+        torch.from_numpy(vq), torch.from_numpy(vs).bfloat16(), torch.from_numpy(pos),
+        rows_per_t=G)
+    assert got.shape == (B, Hkv, R, Dh) and got.dtype == torch.float32
+    err = compute_error(torch.from_numpy(np.asarray(want)), got)
+    assert err >= 45, err
+
+
+def _cases(path, function, switch):
+    """The ``case N:`` labels of ``switch (<switch>)`` in ``function``'s body
+    in ``csrc/<path>``."""
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / path).read_text()
+    start = re.search(rf"\b{function}\s*\([^)]*\)\s*{{", text)
+    assert start, function
+    depth, i = 1, start.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        i += 1
+    body = text[start.end():i]
+    sw = body.index(f"switch ({switch})")
+    block = body[sw:body.index("default:", sw)]
+    return tuple(sorted(int(n) for n in re.findall(r"case\s+(\d+)\s*:", block)))
+
+
+def _constant(path, name):
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / path).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_wrappers_take_exactly_the_cuda_instances():
+    """The wrappers' accepted head dims are the cases of the CUDA switches
+    that instantiate K4, K4′ / K13 and the rungs, and K2's G, head dims,
+    tile and split unit are the source's constants (its G rows are one
+    m16 tile, its head dims run on the instance for 64, 128 or 256 columns),
+    so a Python guard and the CUDA instances cannot drift apart (as they did
+    when K4 took Dh 64 and 128 only while the configs use 32 and 48)."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+
+    assert _cases("quantized_attention.cu", "launch_flash_dh", "Dh") == qa.FLASH_HEAD_DIMS
+    assert _cases("quantized_attention.cu", "launch_heads_dh", "Dh") == qa.FLASH_HEAD_DIMS
+    assert _cases("quantized_attention.cu", "launch_ablate_dh", "Dh") == qa.ABLATE_HEAD_DIMS
+    assert qa.DECODE_GROUPS == tuple(range(1, _constant("decode_attention.cu", "DEC_G_MAX") + 1))
+    assert _constant("decode_attention.cu", "DEC_DH_MAX") == qa.DECODE_DH_MAX
+    assert _constant("decode_attention.cu", "DEC_STUB_DH_MAX") == qa.DECODE_STUB_DH_MAX
+    assert _constant("decode_attention.cu", "DEC_FK") == qa.DECODE_CHUNK
+    assert (_constant("decode_attention.cu", "DEC_FK")
+            * _constant("decode_attention.cu", "DEC_WARPS")) == qa.DECODE_SPLIT
+    assert _constant("decode_attention.cu", "DEC_SPLIT_MAX") >= qa.DECODE_BLOCKS
+    assert _constant("quantized_attention.cu", "FK") == qa.FLASH_FK
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64, 80, 96, 128, 256])
+def test_head_major_check_takes_the_instantiated_head_dims(Dh):
+    """``_check_attention`` (K4, K4′, K13) passes exactly the head dims of
+    ``FLASH_HEAD_DIMS``, and the ablation rungs' check exactly
+    ``ABLATE_HEAD_DIMS``; every head dim of the port's configs that is not
+    Llama-3's 128 is among the first."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+    from torchao_tpu_torch.models.llama.model import ModelArgs, transformer_configs
+
+    rs = np.random.RandomState(Dh)
+    B, H, S, G = 1, 2, 16, 4
+    q = torch.zeros((B, H, G, Dh), dtype=torch.bfloat16)
+    cache = [torch.from_numpy(a) for a in _hm_codes(rs, B, H, S, Dh, False)]
+    cache[1], cache[3] = cache[1].bfloat16(), cache[3].bfloat16()
+    pos = torch.zeros((B,), dtype=torch.int32)
+    for dims in (qa.FLASH_HEAD_DIMS, qa.ABLATE_HEAD_DIMS):
+        if Dh in dims:
+            assert qa._check_attention("k", q, *cache, pos, None, dims) == (False, G)
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                qa._check_attention("k", q, *cache, pos, None, dims)
+    config_dims = {ModelArgs.from_name(n).head_dim for n in transformer_configs}
+    assert {32, 48} <= config_dims
+    assert config_dims <= set(qa.FLASH_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("B,H,S", [(1, 8, 256), (1, 8, 8192), (2, 8, 300), (1, 6, 16),
+                                   (1, 8, 5), (4, 16, 256), (1, 1, 131072)])
+def test_decode_plan_fills_the_card(B, H, S):
+    """K2's grid: at the main path's S = 256 with B·Hkv = 8 one split per
+    (batch, kv head) (8 blocks of 8 warps, no merge across blocks), at S =
+    8192 16 splits (128 blocks); splits are whole units of ``DECODE_SPLIT``
+    keys, cover S, none is empty, and there are no more than
+    ``DECODE_BLOCKS`` per (batch, kv head)."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        DECODE_BLOCKS,
+        DECODE_SPLIT,
+        decode_plan,
+    )
+
+    nsplit, kps = decode_plan(B, H, S)
+    assert kps % DECODE_SPLIT == 0 and nsplit * kps >= S > (nsplit - 1) * kps
+    assert nsplit <= DECODE_BLOCKS
+    assert B * H * nsplit >= min(DECODE_BLOCKS // 2, B * H * -(-S // DECODE_SPLIT))
+    if (B, H, S) == (1, 8, 256):
+        assert (nsplit, kps) == (1, 256)
+    if (B, H, S) == (1, 8, 8192):
+        assert (nsplit, kps) == (16, 512)
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("B,S,pos", [(1, 1024, [1023]), (2, 1024, [0, 300]), (1, 8192, [8191]),
+                                     (2, 300, [255, 256])])
+def test_decode_splits_combine_to_the_unsplit_plain(kv, B, S, pos):
+    """K2's split arithmetic over the splits ``decode_plan`` chooses (each
+    split's max, sum and P·V merged by their maxima, as the last block of a
+    (batch, kv head) merges them) equals the unsplit plain version at >= 100
+    dB in float32."""
+    from torchao_tpu_torch.kernels.quantized_attention import (
+        decode_plan,
+        quantized_kv_decode_attention_plain,
+    )
+
+    rs = np.random.RandomState(S + B)
+    H, G, Dh = 8, 4, 128
+    q = torch.from_numpy(rs.randn(B, H, G, Dh).astype(np.float32))
+    cache = [torch.from_numpy(a) for a in _hm_codes(rs, B, H, S, Dh, kv == "int8")]
+    p = torch.tensor(pos, dtype=torch.int32)
+    nsplit, kps = decode_plan(B, H, S)
+    assert nsplit > 1
+    got = _split_plain(q, *cache, p, kps=kps, rows_per_t=G)
+    want = quantized_kv_decode_attention_plain(q, *cache, p, rows_per_t=G)
+    assert sqnr_db(want.double(), got.double()) >= 100
 
 
 # ------------------------------------------------ K4′ (head-folded) and K13 --
@@ -466,7 +659,7 @@ def test_flash_plan_fills_the_card(B, H, R, S):
 def _split_plain(q, k_q, k_scale, v_q, v_scale, pos, *, kps, rows_per_t):
     """K4's split arithmetic in plain PyTorch: each split of ``kps`` keys
     gives its row max ``m``, sum ``l = Σ exp(s − m)`` and ``acc = Σ exp(s −
-    m)·v`` over its visible keys; the combine (csrc ``bdq_combine_kernel``)
+    m)·v`` over its visible keys; the combine (csrc ``split_combine_kernel``)
     weighs them by ``exp(m − max m)`` and divides (0 where no key is
     visible). In float32 it is the unsplit softmax up to the order of sums."""
     B, H, R, Dh = q.shape
@@ -498,7 +691,7 @@ def _split_plain(q, k_q, k_scale, v_q, v_scale, pos, *, kps, rows_per_t):
                                        (1, 1, 8192, [8191]), (2, 40, 200, [3, 160])])
 def test_split_combine_matches_unsplit_plain(kv, B, T, S, pos):
     """K4's split arithmetic (per-split max, sum and P·V, combined as
-    ``bdq_combine_kernel`` does) over the splits ``flash_plan`` chooses equals
+    ``split_combine_kernel`` does) over the splits ``flash_plan`` chooses equals
     the unsplit plain version at >= 100 dB in float32 (no bf16 rounding on
     either side: they differ only in the order of the sums)."""
     from torchao_tpu_torch.kernels.quantized_attention import (

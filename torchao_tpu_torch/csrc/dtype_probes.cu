@@ -17,21 +17,33 @@
 //     e5m2 value is exact in f16, f32 and bf16, so the casts are bit-exact;
 //   - the tensor cores have no mixed bf16 x e4m3 (or bf16 x s8) instruction:
 //     mma and wgmma take both operands in one type (fp8 x fp8 exists, in f32
-//     accumulation). So each dot converts its narrow operand to bf16 as it
-//     loads the fragment (exact: e4m3 has 3 mantissa bits, |s8| <= 127 fits
-//     bf16's 8) and runs mma.sync.m16n8k16 bf16 with f32 accumulation: the
-//     products are exact and only the f32 sums round. The transposed lhs of
-//     bf16_lhs_dim0 is an index map in the fragment loader (common.cuh).
+//     accumulation). So each dot converts its narrow operand to bf16 (exact:
+//     e4m3 has 3 mantissa bits, |s8| <= 127 fits bf16's 8) and runs
+//     mma.sync.m16n8k16 bf16 with f32 accumulation: the products are exact
+//     and only the f32 sums round. The transposed lhs of bf16_lhs_dim0 is
+//     read with ldmatrix.trans.
 //
 // CUDA C++, not Triton: the question is which instructions the card has
 // (cvt, mma.sync fragments), and Triton picks its own.
 //
-// Design: casts, 4 bytes a thread (two cvt.x2); dots, one warp per 16 x 8
-// output tile, K in steps of 16, operands read from global memory into the
-// fragments (these arrays are 0.1-0.4 MB: they live in the L2). Bound on an
-// H100: bytes for the casts (1 B in, 2 or 4 B out per element); for the dots
-// the operands and the f32 output, read and written once (the 2 M N K
-// operations take 0.03-0.07 us at the bf16 peak).
+// Design: casts, 4 bytes a thread (two cvt.x2). Dots (mma_dot_kernel, one
+// template for the three): the arrays are 0.2-0.4 MB and the work 34-67
+// MFLOP (0.03-0.07 us at the bf16 peak), so a dot is latency: the design
+// keeps many bytes in flight and converts each narrow element once.
+//   - a block owns a 32 x 64 output tile (32 blocks at 256 x 256, 16 at
+//     128 x 256), four warps of 16 x 32;
+//   - K walks in slices of 128 through a 4-stage cp.async ring of 16-byte
+//     copies (all of K = 512 in flight by the first slice), each operand
+//     copied in its own layout: [M, K] or [K, M] for the lhs, [K, N] or
+//     [N, K] for the rhs; every slice costs two block barriers, so the slice
+//     is long (chosen by timing slices of 32, 64, 128 and 256);
+//   - a narrow (s8, e4m3) slice is converted to bf16 once, in shared memory,
+//     into a padded tile; a bf16 slice is staged straight into one;
+//   - fragments come from ldmatrix (.trans for the transposed lhs and for a
+//     [K, N] rhs) into bf16 mma.sync.m16n8k16 with f32 accumulators, each
+//     output summed by one thread in k order: no split-K, no atomics.
+// Bound on an H100: bytes, the operands and the f32 output read and written
+// once.
 #include "common.cuh"
 
 #include <cuda_fp16.h>
@@ -70,54 +82,152 @@ fp8_cast_kernel(const uint8_t* __restrict__ x, Out* __restrict__ out, long long 
   }
 }
 
-// element (r, c) of a row-major array with strides (rs, cs), as float
-struct Bf16At {
-  const __nv_bfloat16* p;
-  int rs, cs;
-  __device__ float operator()(int r, int c) const {
-    return __bfloat162float(p[(size_t)r * rs + (size_t)c * cs]);
+enum Elem { E_BF16 = 0, E_S8 = 1, E_E4M3 = 2 };
+constexpr int DT_BM = 32, DT_BN = 64, DT_BK = 128;  // block tile and K slice
+constexpr int DT_STAGES = 4;
+constexpr int DT_THREADS = 128;                     // 2 x 2 warps of 16 x 32
+constexpr int DT_PAD = 8;                           // bf16 elements past each tile row
+
+// One operand's slice in shared memory: EXT (BM or BN) rows or columns by
+// DT_BK. KROWS: stored [K][EXT] (the transposed lhs, a [K, N] rhs), else
+// [EXT][K]. A bf16 slice is staged straight into its padded tile; a narrow
+// one is staged raw and converted into one padded tile per slice.
+template <int E, bool KROWS, int EXT>
+struct Slice {
+  static constexpr int ROWS = KROWS ? DT_BK : EXT, COLS = KROWS ? EXT : DT_BK;
+  static constexpr int STRIDE = COLS + DT_PAD;  // bf16 elements per tile row
+  static constexpr int TILE = ROWS * STRIDE * 2;
+  static constexpr int RAW = E == E_BF16 ? TILE : ROWS * COLS;  // bytes per ring stage
+  static constexpr int CONV = E == E_BF16 ? 0 : TILE;
+  static constexpr int ROW_BYTES = COLS * (E == E_BF16 ? 2 : 1);
+
+  // copy slice k0 of the tile at `t0` (rows or columns) of a [K, ld] or [ld, K] array
+  __device__ static void stage(uint8_t* dst, const uint8_t* src, int ld, int K, int t0, int k0) {
+    constexpr int PER = ROW_BYTES / 16, DST_ROW = E == E_BF16 ? STRIDE * 2 : COLS;
+    const int esz = E == E_BF16 ? 2 : 1;
+    for (int e = threadIdx.x; e < ROWS * PER; e += DT_THREADS) {
+      const int r = e / PER, c = (e % PER) * 16;
+      const size_t row = KROWS ? (size_t)(k0 + r) * ld + t0 : (size_t)(t0 + r) * K + k0;
+      cp_async<16>(dst + r * DST_ROW + c, src + row * esz + c);
+    }
   }
-};
-struct S8At {
-  const int8_t* p;
-  int rs, cs;
-  __device__ float operator()(int r, int c) const { return (float)p[(size_t)r * rs + (size_t)c * cs]; }
-};
-struct E4m3At {
-  const uint8_t* p;
-  int rs, cs;
-  __device__ float operator()(int r, int c) const {
-    const __half_raw h = __nv_cvt_fp8_to_halfraw(p[(size_t)r * rs + (size_t)c * cs], __NV_E4M3);
-    return __half2float(__half(h));
+
+  // the raw narrow slice -> the padded bf16 tile, exactly
+  __device__ static void convert(__nv_bfloat16* tile, const uint8_t* raw) {
+    if constexpr (E != E_BF16) {
+      for (int e = threadIdx.x; e < ROWS * COLS / 4; e += DT_THREADS) {
+        const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + r * COLS + c);
+        float f[4];
+        if constexpr (E == E_S8) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[j] = sbyte(w ^ 0x80808080u, j);
+        } else {
+          const float2 lo = fp8x2_to_float2<false>(w & 0xFFFFu), hi = fp8x2_to_float2<false>(w >> 16);
+          f[0] = lo.x; f[1] = lo.y; f[2] = hi.x; f[3] = hi.y;
+        }
+        *reinterpret_cast<uint2*>(tile + r * STRIDE + c) =
+            make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+      }
+    }
   }
 };
 
-// out [M, N] f32 = A [M, K] . B [K, N], A and B read through their loaders;
-// warp w of the grid owns output tile w (16 x 8, row-major over the tiles).
-template <class LA, class LB>
-__global__ void __launch_bounds__(DP_THREADS)
-mma_dot_kernel(LA la, LB lb, float* __restrict__ out, int M, int N, int K) {
-  const int tile = (blockIdx.x * DP_THREADS + threadIdx.x) / 32;
-  const int tiles_n = N / 8;
-  if (tile >= (M / 16) * tiles_n) return;
-  const int m0 = tile / tiles_n * 16, n0 = tile % tiles_n * 8;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4], b[2];
-    load_frag_a(a, la, m0, k0);
-    load_frag_b(b, lb, k0, n0);
-    mma_bf16_16816(c, a, b);
+// out [M, N] f32 = A . B: A [M, K] (AK: stored [K, M]) of type EA, B [K, N]
+// (BKR: stored [K, N], else [N, K]) of type EB. grid (N / 64, M / 32).
+template <int EA, bool AK, int EB, bool BKR>
+__global__ void __launch_bounds__(DT_THREADS)
+mma_dot_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+               float* __restrict__ out, int M, int N, int K) {
+  using SA = Slice<EA, AK, DT_BM>;
+  using SB = Slice<EB, BKR, DT_BN>;
+  extern __shared__ __align__(16) uint8_t dt_smem[];
+  uint8_t* ring = dt_smem;  // [DT_STAGES][A raw, B raw]
+  __nv_bfloat16* ca = reinterpret_cast<__nv_bfloat16*>(ring + DT_STAGES * (SA::RAW + SB::RAW));
+  __nv_bfloat16* cb = reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<uint8_t*>(ca) + SA::CONV);
+  const int m_blk = blockIdx.y * DT_BM, n_blk = blockIdx.x * DT_BN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp % 2, wn = warp / 2;
+  const int n_slices = K / DT_BK;
+
+  auto stage = [&](int i) {
+    uint8_t* st = ring + (i % DT_STAGES) * (SA::RAW + SB::RAW);
+    SA::stage(st, a, M, K, m_blk, i * DT_BK);
+    SB::stage(st + SA::RAW, b, N, K, n_blk, i * DT_BK);
+  };
+#pragma unroll
+  for (int i = 0; i < DT_STAGES - 1; ++i) {
+    if (i < n_slices) stage(i);
+    cp_async_commit();
   }
-  store_frag_c(out, N, c, m0, n0);
+
+  float c[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+
+  for (int i = 0; i < n_slices; ++i) {
+    cp_async_wait<DT_STAGES - 2>();
+    __syncthreads();  // slice i staged; every warp is done with slice i - 1
+    if (i + DT_STAGES - 1 < n_slices) stage(i + DT_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* st = ring + (i % DT_STAGES) * (SA::RAW + SB::RAW);
+    const __nv_bfloat16* ta = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(st + SA::RAW);
+    if constexpr (EA != E_BF16 || EB != E_BF16) {
+      if constexpr (EA != E_BF16) { SA::convert(ca, st); ta = ca; }
+      if constexpr (EB != E_BF16) { SB::convert(cb, st + SA::RAW); tb = cb; }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < DT_BK / 16; ++kk) {
+      uint32_t fa[4];
+      if constexpr (AK)  // [K][BM]: each 8 x 8 matrix transposed
+        ldmatrix_x4_trans(fa, ta + (kk * 16 + lane % 8 + (lane / 16) * 8) * SA::STRIDE +
+                                  wm * 16 + ((lane / 8) % 2) * 8);
+      else
+        ldmatrix_x4(fa, ta + (wm * 16 + lane % 16) * SA::STRIDE + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int n0 = wn * 32 + np * 16;
+        uint32_t r[4];
+        if constexpr (BKR)  // [K][BN]
+          ldmatrix_x4_trans(r, tb + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SB::STRIDE +
+                                   n0 + (lane / 16) * 8);
+        else                // [BN][K]
+          ldmatrix_x4(r, tb + (n0 + lane % 8 + (lane / 16) * 8) * SB::STRIDE + kk * 16 +
+                             ((lane / 8) % 2) * 8);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_bf16_16816(c[2 * np], fa, b0);
+        mma_bf16_16816(c[2 * np + 1], fa, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) store_frag_c(out, N, c[j], m_blk + wm * 16, n_blk + wn * 32 + 8 * j);
 }
 
-template <class LA, class LB>
-int launch_dot(LA la, LB lb, void* out, int M, int N, int K, void* stream) {
-  if (M % 16 || N % 8 || K % 16 || M < 16 || N < 8) return cudaErrorInvalidValue;
-  const int tiles = (M / 16) * (N / 8);
-  const int blocks = (tiles * 32 + DP_THREADS - 1) / DP_THREADS;
-  mma_dot_kernel<<<blocks, DP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      la, lb, static_cast<float*>(out), M, N, K);
+template <int EA, bool AK, int EB, bool BKR>
+int launch_dot(const void* a, const void* b, void* out, int M, int N, int K, void* stream) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (M < DT_BM || N < DT_BN || K < DT_BK || M % DT_BM || N % DT_BN || K % DT_BK ||
+      !aligned(a) || !aligned(b))
+    return cudaErrorInvalidValue;
+  using SA = Slice<EA, AK, DT_BM>;
+  using SB = Slice<EB, BKR, DT_BN>;
+  constexpr int smem = DT_STAGES * (SA::RAW + SB::RAW) + SA::CONV + SB::CONV;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(mma_dot_kernel<EA, AK, EB, BKR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  mma_dot_kernel<EA, AK, EB, BKR><<<dim3(N / DT_BN, M / DT_BM), DT_THREADS, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), static_cast<float*>(out), M,
+      N, K);
   return cudaGetLastError();
 }
 
@@ -147,23 +257,21 @@ TT_EXPORT int tt_fp8_cast_e5m2_bf16(const void* x, void* out, long long n, void*
   return launch_cast<true, __nv_bfloat16>(x, out, n, stream);
 }
 
+// The dots take M % 32, N % 64 and K % 128 == 0 and 16-byte aligned operands.
 // P3 dot: out [M, N] f32 = a [M, K] bf16 . x [N, K] e4m3 ^T.
 TT_EXPORT int tt_dot_bf16_e4m3(const void* a, const void* x, void* out, int M, int N, int K,
                                void* stream) {
-  return launch_dot(Bf16At{static_cast<const __nv_bfloat16*>(a), K, 1},
-                    E4m3At{static_cast<const uint8_t*>(x), 1, K}, out, M, N, K, stream);
+  return launch_dot<E_BF16, false, E_E4M3, false>(a, x, out, M, N, K, stream);
 }
 
 // P5 s8_lhs: out [M, N] f32 = a [M, K] s8 . b [K, N] bf16.
 TT_EXPORT int tt_dot_s8_bf16(const void* a, const void* b, void* out, int M, int N, int K,
                              void* stream) {
-  return launch_dot(S8At{static_cast<const int8_t*>(a), K, 1},
-                    Bf16At{static_cast<const __nv_bfloat16*>(b), N, 1}, out, M, N, K, stream);
+  return launch_dot<E_S8, false, E_BF16, true>(a, b, out, M, N, K, stream);
 }
 
 // P5 bf16_lhs_dim0: out [M, N] f32 = a [K, M] bf16 ^T . b [K, N] s8.
 TT_EXPORT int tt_dot_bf16t_s8(const void* a, const void* b, void* out, int M, int N, int K,
                               void* stream) {
-  return launch_dot(Bf16At{static_cast<const __nv_bfloat16*>(a), 1, M},
-                    S8At{static_cast<const int8_t*>(b), N, 1}, out, M, N, K, stream);
+  return launch_dot<E_BF16, true, E_S8, true>(a, b, out, M, N, K, stream);
 }

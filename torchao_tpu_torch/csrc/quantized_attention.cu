@@ -1,5 +1,6 @@
 // Attention over the quantized KV cache for Hopper (sm_90a): K4 on the tensor
-// cores, the other kernels SIMT in fp32.
+// cores, K4' and K13 SIMT in fp32. (The split-flat decode kernels K2 and K2'
+// are in decode_attention.cu.)
 //
 // Int4 KV layout (models/llama/model.py::_quantize_kv_int4): per token and
 // head, byte d holds elements d and d + Dh/2 as offset-binary nibbles,
@@ -8,47 +9,10 @@
 // per token. Each kernel below has an int4 and an int8 instantiation (the
 // I8 template flag); "bytes per key and head" is Dh/2 or Dh.
 //
-// tt_bdq_decode (K2) replaces
-//   torchao_tpu/kernels/quantized_attention.py::quantized_kv_decode_attention_bdq,
-//   int4 variant (pallas_call at quantized_attention.py:931, body
-//   _kernel_bdq_i4 at :641): T = 1 GQA flash decode reading the split-flat
-//   cache directly — K D-major [B, Hkv*Dh/2, S], V S-major [B, S, Hkv*Dh/2],
-//   scales [B, Hkv, S] (the caller offsets the stacked [L, ...] arrays to
-//   layer l) — with per-slot positions and the mask s <= pos[b].
-//   Design: one block per (batch, kv-head, chunk of 128 keys); the chunk's
-//   bytes are staged in shared memory with coalesced byte loads, each thread
-//   scores one key for all G query heads, and the chunk's softmax partials
-//   (max, sum, P.V) go to scratch; a second launch combines the chunks.
-//   Chunks past pos[b] exit at once. The TPU's block-diagonal-Q trick (a
-//   matrix-unit device) is not carried over.
-//   Bound on an H100: bytes — the cache bytes of keys <= pos (Dh bytes per
-//   key and head for K and V together, plus scales).
-// tt_bdq_decode_i8 (K2') is the same kernel over the int8 split-flat cache —
-//   K D-major [B, Hkv*Dh, S], V S-major [B, S, Hkv*Dh] — and replaces the
-//   int8 variant of the same function (pallas_call at quantized_attention.py:959,
-//   body _kernel_bdq at :518). Bound: bytes, 2 * Dh bytes per visible key
-//   and head plus scales, twice the int4 form's.
-//
-// tt_bdq_decode_stub (int4) and tt_bdq_decode_stub_i8 (int8): K2's stub arm
-//   (STUB = true), the attention ceiling probe's. It replaces the stub arms of
-//   _kernel_bdq (:569-590) and _kernel_bdq_i4 (:682-700), reached through
-//   quantized_kv_decode_attention_bdq(stub=True) (pallas_call at :931/:959):
-//   wrong math on purpose. Per live chunk (first key <= pos), every key of
-//   the chunk, unmasked:
-//     out[h, g, :Dh] += bf16(q[h, g] . codesK[h]) . codesV[:, :Dh]
-//   with the raw codes (int8 as int8; int4 the low nibbles 0..15 against q's
-//   first Dh/2 columns), codesV the first Dh columns of the S-major V rows
-//   (the JAX stub's wide[:, :dh]: head 0's stripe, for int4 heads 0 and 1),
-//   plus k_scale[0, s0] + v_scale[0, s0], summed in f32 (as XLA computes the
-//   JAX stub's bf16 sum, its rounding dropped), added to every output; no
-//   softmax, scale or mask work. The grid, the chunk, the partial writes and
-//   the combine launch are K2's, and each block also loads the bytes that
-//   K2's block loads (its own head's K and V stripes and scales; the V
-//   stripe and the scales are folded into an empty asm so they are read),
-//   so the stub streams what K2 streams; head 0's V columns come on top,
-//   from the L2 after the first head's block. A compile-time parameter of
-//   K2's CUDA template (CUDA, as K2: the stub must be K2's own grid and
-//   loads to price them): K2's own code is the same instantiation as before.
+// Head dims: K4, K4' and K13 are instantiated at Dh in {32, 48, 64, 96, 128}
+// (the cases of launch_flash_dh's and launch_heads_dh's switch; the wrappers'
+// checks in kernels/quantized_attention.py take the same sets, and a CPU test
+// holds them together), K4's ablation rungs at {64, 128} (launch_ablate_dh).
 //
 // tt_flash_prefill (K4) replaces
 //   quantized_attention.py::quantized_kv_decode_attention, int4 prefill form
@@ -65,12 +29,14 @@
 //   Design (FlashAttention-2 on mma.sync.m16n8k16, bf16 in, f32 out):
 //   - a block owns 32 query rows of one head and walks key tiles of 32 only
 //     up to the last key its rows see (the causal skip). Its four warps are
-//     two row groups of 16 times two halves of the output columns: both
-//     warps of a row group score every key (their running max and sum stay
-//     in registers), each accumulates P V for its half of Dh;
+//     two row groups of 16 times two column warps: both warps of a row group
+//     score every key (their running max and sum stay in registers), and the
+//     Dh / 16 column groups of 16 (one ldmatrix.x4.trans each) are dealt to
+//     the two, ceil(Dh / 32) to the first: even halves at 32, 64, 96 and 128,
+//     two groups and one at 48 (that warp idles through one P V group);
 //   - the grid is B * Hkv * ceil(R / 32) blocks (128 at the prefill); where
 //     that is under 128 (decode, R = 4: 8) the keys are split over the grid
-//     in multiples of 16 and bdq_combine_kernel merges the partials, as K2;
+//     in multiples of 16 and split_combine_kernel merges the partials;
 //   - a launch is short, so latency is what the loader has to hide: key
 //     tiles come in by cp.async through a 4-deep ring, the first three
 //     issued before pos is read; the codes in 16-byte copies where the view
@@ -144,198 +110,14 @@
 
 namespace {
 
-// ------------------------------------------------------------- decode --
-constexpr int DEC_CHUNK = 128;  // keys per block; also threads per block
-constexpr int DEC_DB_MAX = 128;  // bytes per key and head: Dh/2 (int4) or Dh (int8)
-
-template <int G, bool I8, bool STUB = false>
-__global__ void __launch_bounds__(DEC_CHUNK)
-bdq_partial_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ kq,
-                   const __nv_bfloat16* __restrict__ ksc, const uint8_t* __restrict__ vq,
-                   const __nv_bfloat16* __restrict__ vsc, const int* __restrict__ pos,
-                   float* __restrict__ ws_m, float* __restrict__ ws_l,
-                   float* __restrict__ ws_acc, int H, int Dh, int S, float scale) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int s0 = split * DEC_CHUNK;
-  const int DB = I8 ? Dh : Dh / 2, X = H * DB;
-  const int t = threadIdx.x;
-  const size_t wsi = (size_t)bh * nsplit + split;
-  const int p = pos[b];
-  const int key_end = min(S, p + 1);  // keys [0, key_end) are visible
-  if (s0 >= key_end) {
-    for (int i = t; i < G * Dh; i += DEC_CHUNK) ws_acc[wsi * G * Dh + i] = 0.f;
-    if (t < G) { ws_m[wsi * G + t] = -INFINITY; ws_l[wsi * G + t] = 0.f; }
-    return;
-  }
-  const int n = min(DEC_CHUNK, key_end - s0);
-
-  __shared__ float qs[G][2 * DEC_DB_MAX];
-  __shared__ float ps[G][DEC_CHUNK];
-  __shared__ uint8_t kt[DEC_DB_MAX][DEC_CHUNK];
-  __shared__ uint8_t vt[DEC_CHUNK][DEC_DB_MAX];
-  __shared__ float red[G][DEC_CHUNK / 32];
-
-  const uint8_t* kq_b = kq + (size_t)b * X * S + (size_t)h * DB * S;
-  const uint8_t* vq_b = vq + (size_t)b * S * X + (size_t)h * DB;
-  const __nv_bfloat16* ks_b = ksc + ((size_t)b * H + h) * S;
-  const __nv_bfloat16* vs_b = vsc + ((size_t)b * H + h) * S;
-  const __nv_bfloat16* q_b = q + (size_t)bh * G * Dh;
-
-  if constexpr (STUB) {
-    const int na = min(DEC_CHUNK, S - s0);  // the whole chunk, unmasked
-    const uint8_t* v0 = vq + (size_t)b * S * X;  // the first Dh columns of V
-    for (int i = t; i < G * Dh; i += DEC_CHUNK) qs[i / Dh][i % Dh] = __bfloat162float(q_b[i]);
-    uint32_t sink = 0;  // K2's loads of this head's V stripe and scales
-    for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
-      const int d = e / DEC_CHUNK, s = e % DEC_CHUNK;
-      kt[d][s] = s < na ? kq_b[(size_t)d * S + s0 + s] : 0;
-    }
-    for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
-      const int s = e / DB, d = e % DB;
-      if (s < na) sink ^= vq_b[(size_t)(s0 + s) * X + d];
-    }
-    for (int e = t; e < Dh * DEC_CHUNK; e += DEC_CHUNK) {
-      const int s = e / Dh, d = e % Dh;
-      vt[s][d] = s < na ? v0[(size_t)(s0 + s) * X + d] : 0;
-    }
-    if (t < na) sink ^= (uint32_t)__bfloat16_as_ushort(ks_b[s0 + t]) ^ __bfloat16_as_ushort(vs_b[s0 + t]);
-    asm volatile("" ::"r"(sink));
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float raw = 0.f;
-      for (int d = 0; d < DB; ++d)
-        raw = fmaf(qs[g][d], I8 ? (float)(int8_t)kt[d][t] : (float)(kt[d][t] & 0xF), raw);
-      ps[g][t] = t < na ? __bfloat162float(__float2bfloat16(raw)) : 0.f;
-    }
-    __syncthreads();
-    for (int idx = t; idx < G * Dh; idx += DEC_CHUNK) {
-      const int g = idx / Dh, d = idx % Dh;
-      float a = 0.f;
-      for (int s = 0; s < na; ++s)
-        a = fmaf(ps[g][s], I8 ? (float)(int8_t)vt[s][d] : (float)(vt[s][d] & 0xF), a);
-      ws_acc[(wsi * G + g) * Dh + d] = a;
-    }
-    if (t < G) {
-      const __nv_bfloat16* k0 = ksc + (size_t)b * H * S;  // head 0
-      const __nv_bfloat16* vs0 = vsc + (size_t)b * H * S;
-      const float sum = __bfloat162float(k0[s0]) + __bfloat162float(vs0[s0]);  // f32, as XLA
-      ws_m[wsi * G + t] = 0.f;
-      ws_l[wsi * G + t] = sum;
-    }
-    return;
-  }
-
-  for (int i = t; i < G * Dh; i += DEC_CHUNK) qs[i / Dh][i % Dh] = __bfloat162float(q_b[i]) * scale;
-  for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
-    const int d = e / DEC_CHUNK, s = e % DEC_CHUNK;
-    kt[d][s] = s < n ? kq_b[(size_t)d * S + s0 + s] : 0;
-  }
-  for (int e = t; e < DB * DEC_CHUNK; e += DEC_CHUNK) {
-    const int s = e / DB, d = e % DB;
-    vt[s][d] = s < n ? vq_b[(size_t)(s0 + s) * X + d] : 0;
-  }
-  __syncthreads();
-
-  float sc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) sc[g] = 0.f;
-  if (t < n) {
-    for (int d = 0; d < DB; ++d) {
-      if constexpr (I8) {
-        const float kv = (float)(int8_t)kt[d][t];
-#pragma unroll
-        for (int g = 0; g < G; ++g) sc[g] = fmaf(qs[g][d], kv, sc[g]);
-      } else {
-        const int byte = kt[d][t];
-        const float lo = (float)((byte & 0xF) - 8), hi = (float)((byte >> 4) - 8);
-#pragma unroll
-        for (int g = 0; g < G; ++g) sc[g] = fmaf(qs[g][d], lo, fmaf(qs[g][d + DB], hi, sc[g]));
-      }
-    }
-    const float kscale = __bfloat162float(ks_b[s0 + t]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) sc[g] *= kscale;
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) sc[g] = -INFINITY;
-  }
-
-  const int warp = t / 32, lane = t % 32;
-  float m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float w = warp_max(sc[g]);
-    if (lane == 0) red[g][warp] = w;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = red[g][0];
-    for (int w = 1; w < DEC_CHUNK / 32; ++w) m[g] = fmaxf(m[g], red[g][w]);
-  }
-  __syncthreads();
-  const float vscale = t < n ? __bfloat162float(vs_b[s0 + t]) : 0.f;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float pg = t < n ? __expf(sc[g] - m[g]) : 0.f;  // key 0 of the chunk is visible
-    ps[g][t] = pg * vscale;
-    const float w = warp_sum(pg);
-    if (lane == 0) red[g][warp] = w;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    l[g] = 0.f;
-    for (int w = 0; w < DEC_CHUNK / 32; ++w) l[g] += red[g][w];
-  }
-
-  for (int idx = t; idx < G * DB; idx += DEC_CHUNK) {
-    const int g = idx / DB, d = idx % DB;
-    float* acc = ws_acc + (wsi * G + g) * Dh;
-    if constexpr (I8) {
-      float a = 0.f;
-      for (int s = 0; s < n; ++s) a = fmaf(ps[g][s], (float)(int8_t)vt[s][d], a);
-      acc[d] = a;
-    } else {
-      float alo = 0.f, ahi = 0.f;
-      for (int s = 0; s < n; ++s) {
-        const float w = ps[g][s];
-        const int byte = vt[s][d];
-        alo = fmaf(w, (float)((byte & 0xF) - 8), alo);
-        ahi = fmaf(w, (float)((byte >> 4) - 8), ahi);
-      }
-      acc[d] = alo;
-      acc[d + DB] = ahi;
-    }
-  }
-  if (t < G) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      if (g == t) { ws_m[wsi * G + g] = m[g]; ws_l[wsi * G + g] = l[g]; }
-  }
-}
-
-// out[bh, g, d] = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M)
-// (STUB: sum_i acc_i + sum_i l_i)
-template <bool STUB = false>
-__global__ void bdq_combine_kernel(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
-                                   const float* __restrict__ ws_acc, float* __restrict__ out,
-                                   int G, int Dh, int nsplit) {
+// out[bh, g, d] = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M): the key
+// splits of K4 and K4' merged
+__global__ void split_combine_kernel(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
+                                     const float* __restrict__ ws_acc, float* __restrict__ out,
+                                     int G, int Dh, int nsplit) {
   const int bh = blockIdx.x;
   for (int idx = threadIdx.x; idx < G * Dh; idx += blockDim.x) {
     const int g = idx / Dh, d = idx % Dh;
-    if constexpr (STUB) {
-      float a = 0.f, l = 0.f;
-      for (int i = 0; i < nsplit; ++i) {
-        const size_t wi = (size_t)bh * nsplit + i;
-        a += ws_acc[(wi * G + g) * Dh + d];
-        l += ws_l[wi * G + g];
-      }
-      out[((size_t)bh * G + g) * Dh + d] = a + l;
-      continue;
-    }
     float M = -INFINITY;
     for (int i = 0; i < nsplit; ++i) M = fmaxf(M, ws_m[((size_t)bh * nsplit + i) * G + g]);
     float num = 0.f, den = 0.f;
@@ -480,18 +262,21 @@ constexpr int flash_smem() {
 // grid: (B * H * ceil(R / FQ), nsplit); F_THREADS threads. Block (bh, query
 // block, split z) owns rows r0 .. r0 + FQ of head bh and keys [z kps,
 // min(S, (z + 1) kps)), walked in tiles of FK up to the last key its rows
-// see. Warp w owns rows r0 + 16 (w % 2) .. + 16 and output columns
-// (w / 2) DH / 2 .. + DH / 2: both warps of a row group score every key.
+// see. Warp w owns rows r0 + 16 (w % 2) .. + 16 and the output column groups
+// (w / 2) NGW .. + NGW of 16 (fewer for the second warp where DH / 16 is
+// odd): both warps of a row group score every key.
 // nsplit == 1: out[bh, r] = acc / l; else the partials go to ws_m (max,
 // natural-log units), ws_l (sum) [B * H, nsplit, R] and ws_acc [B * H,
-// nsplit, R, DH] for bdq_combine_kernel.
+// nsplit, R, DH] for split_combine_kernel.
 template <int DH, bool I8, int AB>
 __global__ void __launch_bounds__(F_THREADS)
 flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
              const int* __restrict__ pos, float* __restrict__ out, float* __restrict__ ws_m,
              float* __restrict__ ws_l, float* __restrict__ ws_acc, int H, int R, int S, int G,
              int kps, float scale) {
-  constexpr int DB = I8 ? DH : DH / 2, TS = DH + 8, NC = DH / 16;  // NC: 8-column tiles a warp
+  constexpr int DB = I8 ? DH : DH / 2, TS = DH + 8;
+  constexpr int NG = DH / 16, NGW = (NG + 1) / 2, NC = 2 * NGW;  // column groups of 16; a warp's
+  static_assert(DH % 16 == 0, "K4 takes Dh in whole column groups of 16");
   // _kernel's rungs keep int8 codes (and dotsonly every code) unscaled in the tiles
   constexpr bool SCALED = AB == AB_NONE || (!I8 && AB != AB_DOTSONLY);
   extern __shared__ __align__(16) uint8_t f_smem[];
@@ -506,6 +291,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
   const int s_begin = split * kps, s_end = min(S, s_begin + kps);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gq = lane / 4, t2 = (lane % 4) * 2, chalf = warp / 2;
+  const int ng_mine = min(NGW, NG - chalf * NGW);  // this warp's column groups (from chalf NGW)
 
   auto stage = [&](int i) {
     const int k0 = s_begin + i * FK, slot = i % F_STAGES;
@@ -670,10 +456,11 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
                               pack_bf16x2(w[2 * kk + 1][0], w[2 * kk + 1][1]),
                               pack_bf16x2(w[2 * kk + 1][2], w[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < NC / 2; ++dp) {
+      for (int dp = 0; dp < NGW; ++dp) {
+        if (dp >= ng_mine) break;  // warp-uniform
         uint32_t r[4];
         ldmatrix_x4_trans(r, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * TS +
-                                 chalf * (DH / 2) + dp * 16 + (lane / 16) * 8);
+                                 (chalf * NGW + dp) * 16 + (lane / 16) * 8);
         const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
         mma_bf16_16816(o[2 * dp], pa, b0);
         mma_bf16_16816(o[2 * dp + 1], pa, b1);
@@ -685,14 +472,15 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= R) continue;
-    const int col = chalf * (DH / 2) + t2;
+    const int col = chalf * NGW * 16 + t2;
     if (nsplit == 1) {
       // rungs: acc / max(l, 1e-30) with a NaN kept, as jnp.maximum
       const float den = AB == AB_NONE || l[i] == l[i] ? fmaxf(l[i], 1e-30f) : l[i];
       float* dst = out + ((size_t)bh * R + row[i]) * DH + col;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+        if (n < 2 * ng_mine)
+          *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i] / den, o[n][2 * i + 1] / den);
     } else {
       const size_t wi = ((size_t)bh * nsplit + split) * R + row[i];
       if (t2 == 0 && chalf == 0) {
@@ -702,7 +490,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, FlashView kv, FlashView vv,
       float* dst = ws_acc + wi * DH + col;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+        if (n < 2 * ng_mine)
+          *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
     }
   }
 }
@@ -751,10 +540,22 @@ int launch_flash(const void* q, const FlashView& kv, const FlashView& vv, const 
       static_cast<float*>(ws_acc), H, R, S, G, kps, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  bdq_combine_kernel<><<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+  split_combine_kernel<<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
                                             static_cast<float*>(ws_acc), static_cast<float*>(out),
                                             R, DH, nsplit);
   return cudaGetLastError();
+}
+
+// K4's ablation rungs (probe-only wrong math) keep Dh in {64, 128}
+template <bool I8, int AB>
+int launch_ablate_dh(const void* q, const FlashView& kv, const FlashView& vv, const void* pos,
+                     void* out, int B, int H, int R, int S, int G, int Dh, int kps, float scale,
+                     cudaStream_t st) {
+  switch (Dh) {
+    case 64: return launch_flash<64, I8, AB>(q, kv, vv, pos, nullptr, nullptr, nullptr, out, B, H, R, S, G, 1, kps, scale, st);
+    case 128: return launch_flash<128, I8, AB>(q, kv, vv, pos, nullptr, nullptr, nullptr, out, B, H, R, S, G, 1, kps, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool I8, int AB>
@@ -768,41 +569,18 @@ int launch_flash_dh(const void* q, const void* kq, long long ksb, long long ksh,
   const FlashView kv = flash_view(kq, ksb, ksh, kss, ksd, ks, kcb, kch, kcs, db, S);
   const FlashView vv = flash_view(vq, vsb, vsh, vss, vsd, vs, vcb, vch, vcs, db, S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64: return launch_flash<64, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
-    case 128: return launch_flash<128, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (AB == AB_NONE) {  // K4
+    switch (Dh) {
+      case 32: return launch_flash<32, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+      case 48: return launch_flash<48, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+      case 64: return launch_flash<64, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+      case 96: return launch_flash<96, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+      case 128: return launch_flash<128, I8, AB>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, nsplit, kps, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    return launch_ablate_dh<I8, AB>(q, kv, vv, pos, out, B, H, R, S, G, Dh, kps, scale, st);
   }
-}
-
-template <bool I8, bool STUB = false>
-int launch_decode(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-                  const void* pos, void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
-                  int G, int Dh, int S, int nsplit, float scale, cudaStream_t st) {
-  if (I8 ? Dh > DEC_DB_MAX : (Dh % 2 || Dh / 2 > DEC_DB_MAX)) return cudaErrorInvalidValue;
-  // the stub reads the first Dh columns of the H * Db-byte V rows
-  if (STUB && (Dh > DEC_DB_MAX || (I8 ? H * Dh : H * Dh / 2) < Dh)) return cudaErrorInvalidValue;
-  dim3 grid(B * H, nsplit);
-  auto qb = static_cast<const __nv_bfloat16*>(q);
-  auto k8 = static_cast<const uint8_t*>(kq);
-  auto v8 = static_cast<const uint8_t*>(vq);
-  auto ksb = static_cast<const __nv_bfloat16*>(ks);
-  auto vsb = static_cast<const __nv_bfloat16*>(vs);
-  auto pp = static_cast<const int*>(pos);
-  auto wm = static_cast<float*>(ws_m);
-  auto wl = static_cast<float*>(ws_l);
-  auto wa = static_cast<float*>(ws_acc);
-  switch (G) {
-    case 1: bdq_partial_kernel<1, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 2: bdq_partial_kernel<2, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 4: bdq_partial_kernel<4, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    case 8: bdq_partial_kernel<8, I8, STUB><<<grid, DEC_CHUNK, 0, st>>>(qb, k8, ksb, v8, vsb, pp, wm, wl, wa, H, Dh, S, scale); break;
-    default: return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bdq_combine_kernel<STUB><<<B * H, 256, 0, st>>>(wm, wl, wa, static_cast<float*>(out), G, Dh, nsplit);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------- heads folded --
@@ -873,7 +651,10 @@ flash_heads_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
                    float* __restrict__ ws_l, float* __restrict__ ws_acc, int H, int R, int S,
                    int G, int QT, int kps, float scale) {
   constexpr int KSTR = DH + 8;
-  constexpr int NB = DH / 32;  // 32-column blocks; a thread owns 8 columns of each
+  // 32-column blocks; a thread owns 8 columns of each (at DH = 48, threads 2
+  // and 3 of a pair own none of the second, half-filled block)
+  constexpr int NB = (DH + 31) / 32;
+  static_assert(DH % 8 == 0, "K4' takes Dh in whole 8-column chunks");
   const int hstr = HF_FK * KSTR + HF_HPAD;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                                   // [HF_PAIRS][DH + 4]
@@ -977,6 +758,7 @@ flash_heads_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
       const float w = ps[pair * (HF_FK + 1) + jj];
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
+        if (32 * i + 8 * c >= DH) break;
         float vf[8];
         bf16x8_to_float(*reinterpret_cast<const uint4*>(vh + jj * KSTR + 32 * i), vf);
 #pragma unroll
@@ -991,7 +773,8 @@ flash_heads_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
 #pragma unroll
     for (int i = 0; i < NB; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) o[32 * i + e] = acc[8 * i + e];
+      for (int e = 0; e < 8; ++e)
+        if (32 * i + 8 * c < DH) o[32 * i + e] = acc[8 * i + e];
   }
 }
 
@@ -1021,7 +804,7 @@ int launch_heads(const void* q, const KvView& kv, const KvView& vv, const void* 
       G, QT, kps, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bdq_combine_kernel<><<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+  split_combine_kernel<<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
                                             static_cast<float*>(ws_acc), static_cast<float*>(out),
                                             R, DH, nsplit);
   return cudaGetLastError();
@@ -1042,52 +825,16 @@ int launch_heads_dh(const void* q, KvView kv, KvView vv, const void* pos, void* 
   set_vec(kv, db);
   set_vec(vv, db);
   switch (Dh) {
+    case 32: return launch_heads<32, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
+    case 48: return launch_heads<48, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
     case 64: return launch_heads<64, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
+    case 96: return launch_heads<96, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
     case 128: return launch_heads<128, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
-
-// q [B, H, G, Dh] bf16; kq [B, H*Dh/2, S] u8 (int8: [B, H*Dh, S] i8);
-// ks [B, H, S] bf16; vq [B, S, H*Dh/2] u8 (int8: [B, S, H*Dh] i8);
-// vs [B, H, S] bf16 (all at layer l); pos [B] int32;
-// scratch ws_m, ws_l [B*H*nsplit*G], ws_acc [B*H*nsplit*G*Dh] fp32;
-// out [B, H, G, Dh] fp32.
-TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const void* vq,
-                            const void* vs, const void* pos, void* ws_m, void* ws_l,
-                            void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
-                            int nsplit, float scale, void* stream) {
-  return launch_decode<false>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh, S,
-                              nsplit, scale, static_cast<cudaStream_t>(stream));
-}
-
-TT_EXPORT int tt_bdq_decode_i8(const void* q, const void* kq, const void* ks, const void* vq,
-                               const void* vs, const void* pos, void* ws_m, void* ws_l,
-                               void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
-                               int nsplit, float scale, void* stream) {
-  return launch_decode<true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh, S,
-                             nsplit, scale, static_cast<cudaStream_t>(stream));
-}
-
-// K2's stub arm: the arguments of tt_bdq_decode (scale unused), chunks of
-// DEC_CHUNK keys; Dh <= 128 and H * Db >= Dh.
-TT_EXPORT int tt_bdq_decode_stub(const void* q, const void* kq, const void* ks, const void* vq,
-                                 const void* vs, const void* pos, void* ws_m, void* ws_l,
-                                 void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
-                                 int nsplit, float scale, void* stream) {
-  return launch_decode<false, true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh,
-                                    S, nsplit, scale, static_cast<cudaStream_t>(stream));
-}
-
-TT_EXPORT int tt_bdq_decode_stub_i8(const void* q, const void* kq, const void* ks, const void* vq,
-                                    const void* vs, const void* pos, void* ws_m, void* ws_l,
-                                    void* ws_acc, void* out, int B, int H, int G, int Dh, int S,
-                                    int nsplit, float scale, void* stream) {
-  return launch_decode<true, true>(q, kq, ks, vq, vs, pos, ws_m, ws_l, ws_acc, out, B, H, G, Dh,
-                                   S, nsplit, scale, static_cast<cudaStream_t>(stream));
-}
 
 // K4: q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views
 // with element strides (b, h, s, d); ks/vs: bf16 views with strides (b, h,

@@ -80,7 +80,9 @@ c_float = ctypes.c_float
 # ``float`` c_float (tests/test_torch_kernel_build.py holds this table
 # against the sources). ctypes does not check a call's argument count, so
 # :meth:`KernelLibrary.launch` does.
-_BDQ = [c_ptr] * 10 + [c_int] * 6 + [c_float, c_ptr]
+# q, kq, ks, vq, vs, pos, ws (null for one split), tickets, out, B, H, G, Dh, S,
+# nsplit, keys per split, scale, stream
+_BDQ = [c_ptr] * 9 + [c_int] * 7 + [c_float, c_ptr]
 # q, the K view (pointer, 4 strides, scales, 3 strides), the V view, pos
 _VIEWS = (
     [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
@@ -156,12 +158,14 @@ SIGNATURES = {
 
 
 class KernelLibrary:
-    """The loaded shared library and how long its build took (0 when an
-    up-to-date library was already on disk)."""
+    """The loaded shared library, how long its build took (0 when an
+    up-to-date library was already on disk) and each source's ``nvcc``
+    seconds (empty then)."""
 
-    def __init__(self, path: Path, build_seconds: float):
+    def __init__(self, path: Path, build_seconds: float, file_seconds=None):
         self.path = path
         self.build_seconds = build_seconds
+        self.file_seconds = dict(file_seconds or {})
         self.lib = ctypes.CDLL(str(path))
         self.lib.tt_error_string.argtypes = [ctypes.c_int]
         self.lib.tt_error_string.restype = ctypes.c_char_p
@@ -180,24 +184,27 @@ class KernelLibrary:
             raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def _build(out: Path) -> None:
+def _build(out: Path) -> dict:
+    """Compile every source (one ``nvcc`` each, all at once) and link;
+    returns each source's compile seconds."""
     nvcc = _nvcc()
     cus, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
+        t0, seconds = time.perf_counter(), {}
         for src in cus:
-            obj = Path(tmp) / (src.stem + ".o")
+            obj, log = Path(tmp) / (src.stem + ".o"), Path(tmp) / (src.stem + ".log")
             objs.append(obj)
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-            procs.append((src, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
-        failures = []
-        for src, p in procs:
-            log, _ = p.communicate()
-            if p.returncode != 0:
-                failures.append(f"{src.name}:\n{log}")
+            with open(log, "w") as f:
+                procs.append((src, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+        while len(seconds) < len(procs):  # each file's seconds, as it finishes
+            for src, _, p in procs:
+                if src.name not in seconds and p.poll() is not None:
+                    seconds[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        failures = [f"{src.name}:\n{log.read_text()}" for src, log, p in procs if p.returncode]
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         tmp_lib = Path(tmp) / out.name
@@ -208,6 +215,7 @@ def _build(out: Path) -> None:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
         os.replace(tmp_lib, out)  # atomic: a concurrent loader sees all or nothing
+    return seconds
 
 
 @functools.cache
@@ -215,9 +223,8 @@ def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library."""
     out = BUILD_DIR / f"libtorchao_tpu_torch_{_digest()}.so"
     t0 = time.perf_counter()
-    if not out.exists():
-        _build(out)
-    return KernelLibrary(out, time.perf_counter() - t0)
+    seconds = _build(out) if not out.exists() else {}
+    return KernelLibrary(out, time.perf_counter() - t0, seconds)
 
 
 def stream_handle(device) -> int:
@@ -235,24 +242,28 @@ def sm_count(index: int) -> int:
 
 
 def ptxas_report(names) -> str:
-    """Compile ``csrc/<name>`` (each of ``names``) with the library's flags
-    and ``-Xptxas -v``, and return what ptxas says of each kernel
-    (registers, shared memory, spills). Writes no library."""
+    """Compile ``csrc/<name>`` (each of ``names``; a path elsewhere is taken
+    as it is, with its own directory on the include path) with the
+    library's flags and ``-Xptxas -v``, one after another, and return each
+    file's compile seconds and what ptxas says of each kernel (registers,
+    shared memory, spills). Writes no library."""
     nvcc = _nvcc()
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
-            r = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
-                                str(CSRC / name), "-o", str(Path(tmp) / "k.o")],
+            src = CSRC / name
+            t0 = time.perf_counter()
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(src.parent), "-c",
+                                str(src), "-o", str(Path(tmp) / "k.o")],
                                capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}:\n{r.stdout}{r.stderr}")
-            out.append(f"== {name}\n{r.stdout}{r.stderr}")
+            out.append(f"== {name}: {time.perf_counter() - t0:.1f} s\n{r.stdout}{r.stderr}")
     return "\n".join(out)
 
 
 if __name__ == "__main__":
-    # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu
+    # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu [other/dir/x.cu]
     import sys
 
     print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))

@@ -2,7 +2,8 @@
 versions.
 
 Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
-(CUDA source ``csrc/quantized_attention.cu``), each for a packed-int4
+(CUDA sources ``csrc/decode_attention.cu`` for K2, ``csrc/quantized_attention.cu``
+for the others), each for a packed-int4
 (``uint8``) and an int8 cache, told apart by the cache's dtype:
 
 - :func:`quantized_kv_decode_attention_bdq` (K2 int4, K2′ int8): T=1 GQA
@@ -27,8 +28,13 @@ Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
   K4's ablation ladder (:func:`quantized_kv_decode_attention` with
   ``ablate=``: each rung drops one more stage of ``_kernel``). Their values
   depend on the key block, so their plain versions take it (``bs``) and the
-  card runs them at its own tile only: 128 keys for the stub, 32 for the
-  rungs.
+  card runs them at its own tile only: ``DECODE_CHUNK`` (32) keys for the
+  stub, 32 for the rungs.
+
+Shapes the card takes: K2 / K2′ any even Dh <= 256 and G <= 16; K4, K4′ and
+K13 Dh in ``FLASH_HEAD_DIMS`` (32, 48, 64, 96, 128); the rungs Dh in
+``ABLATE_HEAD_DIMS`` (64, 128). The sets are the cases of the CUDA switches
+(a CPU test parses them).
 - :func:`quantized_kv_attention_smajor` (K13): the same attention over a
   cache whose K and V are both S-major ``[B, S, Hkv·Db]`` with scales
   ``[B, S, Hkv]``, on K4′'s CUDA template (a key's heads are one contiguous
@@ -54,7 +60,14 @@ import torch
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.utils import cdiv
 
-DECODE_CHUNK = 128  # keys per decode block (csrc DEC_CHUNK)
+DECODE_CHUNK = 32    # keys per K2 tile (csrc DEC_FK)
+DECODE_SPLIT = 256   # K2's keys per split are a multiple of this: a tile for each of 8 warps
+DECODE_BLOCKS = 128  # K2 blocks to aim for: the keys are split until about this many
+DECODE_GROUPS = tuple(range(1, 17))  # query heads per kv head that K2 takes (csrc DEC_G_MAX)
+DECODE_DH_MAX = 256  # K2's largest (even) head dim (csrc DEC_DH_MAX)
+DECODE_STUB_DH_MAX = 128  # and its stub arm's (csrc DEC_STUB_DH_MAX)
+FLASH_HEAD_DIMS = (32, 48, 64, 96, 128)  # K4, K4′ and K13 (csrc switch (Dh))
+ABLATE_HEAD_DIMS = (64, 128)             # K4's rungs (csrc launch_ablate_dh)
 FLASH_FK = 32       # keys per K4 tile (csrc FK)
 FLASH_FQ = 32       # query rows per K4 block (csrc FQ)
 FLASH_SPLIT = 16    # K4's keys per split are a multiple of this (csrc F_SPLIT)
@@ -147,6 +160,32 @@ def quantized_kv_decode_attention_bdq_stub_plain(q, k_q, k_scale, v_q, v_scale, 
     return acc + (first * live).sum(-1).view(B, 1, 1, 1)
 
 
+def decode_plan(B: int, H: int, S: int):
+    """K2's grid: ``(key splits, keys per split)``. The ``B·H`` (batch, kv
+    head) pairs each take their keys in splits of whole ``DECODE_SPLIT``
+    units (a tile for each of a block's 8 warps, each warp its own key
+    stream), as many as bring the grid to about ``DECODE_BLOCKS`` blocks: one
+    split at Llama-3-8B's S = 256 with B = 1 (8 blocks, no merge across
+    blocks), 16 of 512 keys at S = 8192 (128 blocks)."""
+    units = cdiv(S, DECODE_SPLIT)
+    per = cdiv(units, min(units, cdiv(DECODE_BLOCKS, B * H)))
+    return cdiv(units, per), per * DECODE_SPLIT
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """K2's per-device ticket counters (int32, one per (batch, kv head)):
+    zeroed once here, left at zero by every launch (the block that merges a
+    pair's splits resets its counter), so a decode step needs no memset."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
                                       pos: torch.Tensor, *, scale: Optional[float] = None,
                                       bs: int = 1024, interpret: bool = False,
@@ -155,12 +194,23 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
     """``q [B, Hkv, G, Dh]`` against the packed-int4 (uint8) or int8
     split-flat cache; returns ``[B, Hkv, G, Dh]`` fp32.
 
+    On the card (``csrc/decode_attention.cu``, one launch): the keys split
+    over the grid by :func:`decode_plan`, each warp streaming its tiles of
+    ``DECODE_CHUNK`` keys through its own ``cp.async`` ring into bf16
+    ``mma.sync`` (Q·Kᵀ and P·V, f32 accumulators, P·v_scale as a bf16 pair),
+    the block merging its warps and the last block of each (batch, kv head)
+    to finish merging the splits (an atomic ticket per pair in a per-device
+    buffer). Any even Dh <= 256 (the stub arm <= 128) and G <= 16. Bound:
+    bytes, the visible keys' codes and scales read once; at the decode
+    shapes a call's time is its latency (a launch, a DRAM round trip, the
+    merge), which the design keeps short.
+
     ``bs`` and ``interpret`` are the JAX package's block size and interpret
     switch, accepted for its signature: attention does not depend on them and
     the CUDA kernel tiles on its own. ``stub=True`` is K2's stub arm (the
     attention ceiling probe's, wrong math: see
     :func:`quantized_kv_decode_attention_bdq_stub_plain`), whose value does
-    depend on ``bs``: on the card it runs at the kernel's chunk, so there
+    depend on ``bs``: on the card it runs at the kernel's tile, so there
     ``bs`` must be ``DECODE_CHUNK`` and S a multiple of it."""
     if q.device.type == "cpu":
         if stub:
@@ -190,8 +240,8 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
         (k_q.shape == (B, X, S) and v_q.shape == (B, S, X), "cache shapes"),
         (k_scale.shape == (B, H, S) and v_scale.shape == (B, H, S), "scale shapes"),
         (pos.shape == (B,) and pos.dtype == torch.int32, "pos must be int32 [B]"),
-        (G in (1, 2, 4, 8) and Dh % 2 == 0 and Dh <= (128 if int8 else 256),
-         "needs G in {1,2,4,8} and an even Dh <= 256 (int4) or <= 128 (int8)"),
+        (G in DECODE_GROUPS and Dh % 2 == 0 and 2 <= Dh <= DECODE_DH_MAX,
+         f"needs G <= {DECODE_GROUPS[-1]} and an even Dh <= {DECODE_DH_MAX}"),
     )
     for ok, what in checks:
         if not ok:
@@ -199,21 +249,22 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
     for t in (q, k_q, k_scale, v_q, v_scale, pos):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("quantized_kv_decode_attention_bdq: tensors must be contiguous, one device")
-    if stub and not (bs == DECODE_CHUNK and S % DECODE_CHUNK == 0 and Dh <= 128 and X >= Dh):
+    if stub and not (bs == DECODE_CHUNK and S % DECODE_CHUNK == 0 and X >= Dh
+                     and Dh <= DECODE_STUB_DH_MAX):
         raise ValueError(f"quantized_kv_decode_attention_bdq(stub=True) on the card: bs must be "
-                         f"{DECODE_CHUNK} (its chunk) and divide S, Dh <= 128, Hkv * Db >= Dh")
+                         f"{DECODE_CHUNK} (its tile) and divide S, Hkv * Db >= Dh, "
+                         f"Dh <= {DECODE_STUB_DH_MAX}")
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
-    nsplit = cdiv(S, DECODE_CHUNK)
-    ws_m = torch.empty((B * H * nsplit * G,), dtype=torch.float32, device=q.device)
-    ws_l = torch.empty_like(ws_m)
-    ws_acc = torch.empty((B * H * nsplit * G * Dh,), dtype=torch.float32, device=q.device)
+    nsplit, kps = decode_plan(B, H, S)
+    ws = torch.empty((B * H * nsplit * G * (Dh + 2),) if nsplit > 1 else (0,),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, G, Dh), dtype=torch.float32, device=q.device)
     entry = "tt_bdq_decode" + ("_stub" if stub else "") + ("_i8" if int8 else "")
     _build.library().launch(
-        entry, q.data_ptr(), k_q.data_ptr(),
-        k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), ws_m.data_ptr(),
-        ws_l.data_ptr(), ws_acc.data_ptr(), out.data_ptr(), B, H, G, Dh, S, nsplit,
+        entry, q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), pos.data_ptr(), ws.data_ptr() if nsplit > 1 else None,
+        _tickets(q.device, B * H).data_ptr(), out.data_ptr(), B, H, G, Dh, S, nsplit, kps,
         float(scale), _build.stream_handle(q.device),
     )
     name = "quantized_kv_decode_attention_bdq" + ("_stub" if stub else "")
@@ -328,7 +379,8 @@ def flash_plan(B: int, H: int, R: int, S: int):
     return nq, cdiv(units, per), per * FLASH_SPLIT
 
 
-def _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t, dh_ok=(64, 128)):
+def _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t,
+                     dh_ok=FLASH_HEAD_DIMS):
     """Shapes, dtypes and devices of a head-major call (views of any
     strides); returns ``(int8, G)``."""
     B, H, R, Dh = q.shape
@@ -430,7 +482,8 @@ def _ablate(q, k_q, k_scale, v_q, v_scale, pos, ablate, scale, rows_per_t, bs, b
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     name = f"quantized_kv_decode_attention_{ablate}"
-    int8, G = _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t)
+    int8, G = _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t,
+                               ABLATE_HEAD_DIMS)
     B, H, R, Dh = q.shape
     S = k_q.shape[2]
     if bs != FLASH_FK or S % FLASH_FK or R > FLASH_FQ or (bq is not None and bq < R):

@@ -6,9 +6,9 @@ Hkv = 8, G = 4, Dh = 128, S = 8192, pos = S - 2, random codes and scales),
 one K2 launch per layer with the query chained from layer to layer:
 
 - ``real``: K2 (int4) or K2′ (int8), ``quantized_kv_decode_attention_bdq``;
-- ``stub``: K2's stub arm (``stub=True``): the same grid, chunks, loads,
-  partial writes and combine launch, with raw-code dots in place of the
-  softmax, scale and mask work. Wrong math on purpose.
+- ``stub``: K2's stub arm (``stub=True``): the same grid, tiles, loads,
+  partial writes and merge, with raw-code dots in place of the softmax,
+  scale and mask work. Wrong math on purpose.
 
 stub ~= real: K2's rate is its launch and chunk structure's; stub >> real:
 its compute steals streaming time. ``real_vs_structure_ceiling`` is real's
@@ -18,8 +18,8 @@ JAX script counts a bf16 scale as one byte.) Each step is captured in a
 CUDA graph and ``steps`` replays are timed with CUDA events; each arm is
 first held against its plain version on layer 0, and the stub's scale term
 alone (q = 0, so the raw-code dots vanish) at 1e-5 relative. The card's stub
-runs in chunks of 128 keys (``DECODE_CHUNK``), so the script's ``--bs`` has
-no counterpart here; the real arm does not depend on it.
+runs in K2's tiles of 32 keys (``DECODE_CHUNK``), so the script's ``--bs``
+has no counterpart here; the real arm does not depend on it.
 
     python -m torchao_tpu_torch.probes.attn_ceiling_probe [--kv int4|int8] [--S 8192]
         [--steps 32] [--reps 3]

@@ -7,11 +7,11 @@ can dot int8 with bf16 in two orientations, f32 out:
     bf16_lhs_dim0   bf16 [512, 256] contracted on dim 0 x s8 [512, 256]
 
 Hopper's tensor cores have no mixed s8 x bf16 instruction: both kernels
-(``csrc/dtype_probes.cu``) convert the int8 operand to bf16 as its
-``mma.sync`` fragment loads (exact: |v| <= 127), run bf16 with f32
-accumulation, and read the transposed lhs of the second case through its
-index map. Each is held against the f32 product at a relative max error of
-1e-4 and timed with CUDA events, the L2 flushed before each call.
+(``csrc/dtype_probes.cu``) convert each K slice of the int8 operand to bf16
+once, in shared memory (exact: |v| <= 127), run bf16 ``mma.sync`` with f32
+accumulation, and read the transposed lhs of the second case with
+``ldmatrix.trans``. Each is held against the f32 product at a relative max
+error of 1e-4 and timed with CUDA events, the L2 flushed before each call.
 
     python -m torchao_tpu_torch.probes.dot_legality_probe [--reps 25]
 

@@ -3,8 +3,9 @@
 Port of ``scripts/fp8_cast_probe.py``, which asks whether a TPU kernel can
 cast e4m3 and e5m2 and dot bf16 with e4m3. On Hopper the casts are the
 sm_89+ ``cvt`` instructions and the dot has no mixed instruction, so its
-kernel converts e4m3 to bf16 as it loads the ``mma.sync`` fragments
-(``csrc/dtype_probes.cu``). Cases, as in the script:
+kernel converts each K slice of e4m3 to bf16 once, in shared memory, and
+runs bf16 ``mma.sync`` on it (``csrc/dtype_probes.cu``). Cases, as in the
+script:
 
     A  e4m3 -> bf16 cast     [256, 512]
     B  e4m3 -> f32 cast      [256, 512]
@@ -63,8 +64,9 @@ def fp8_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _check_dot(name, a, b, a_dtype, b_dtype, M, N, K):
     if (a.dtype, b.dtype) != (a_dtype, b_dtype) or not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{name}: contiguous {a_dtype} and {b_dtype} operands")
-    if M % 16 or N % 8 or K % 16 or b.device != a.device:
-        raise ValueError(f"{name}: M % 16, N % 8 and K % 16 must be 0, one device")
+    if M % 32 or N % 64 or K % 128 or b.device != a.device:
+        raise ValueError(f"{name}: M % 32, N % 64 and K % 128 must be 0 (the kernel's tiles), "
+                         "one device")
 
 
 def launch_dot(name, entry, a, b, M, N, K):
@@ -83,7 +85,7 @@ def fp8_bf16_e4m3_dot_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def fp8_bf16_e4m3_dot(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a [M, K]`` bf16 times ``x [N, K]`` e4m3, contracted on both last
-    dims, f32 out: mma.sync bf16 with x converted as its fragments load.
+    dims, f32 out: mma.sync bf16 with x converted to bf16 in shared memory.
     Counts ``fp8_bf16_e4m3_dot``."""
     if a.device.type == "cpu":
         return fp8_bf16_e4m3_dot_plain(a, x)

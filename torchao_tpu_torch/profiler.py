@@ -68,6 +68,36 @@ def _busy_us(intervals):
     return busy
 
 
+def kernels_per_call(fn):
+    """``(kernel nodes, all nodes)`` of a CUDA graph captured around one call
+    of ``fn()``: how many kernels the call launches, and whether it does
+    anything else on the card (a copy, a memset). ``fn`` must not
+    synchronise; what it allocates comes from the graph's pool."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"a cuGraph call returned {rc}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kinds.append(kind.value)
+    return sum(k == 0 for k in kinds), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
 def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
     """Trace ``STEPS`` batch-1 decode steps (top-k ``TOP_K`` at
     ``TEMPERATURE``) after a ``PROMPT_LEN`` prefill, with the KV cache that
