@@ -256,11 +256,11 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                                       "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_zero_free_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                                        "torchao_tpu/kernels/int4_matmul.py:723"),
-    "quantized_kv_decode_attention_heads": (_QA, "torchao_tpu/kernels/quantized_attention.py:293"),
+    "quantized_kv_decode_attention_heads": (_DEC, "torchao_tpu/kernels/quantized_attention.py:293"),
     "quantized_kv_decode_attention_heads_int8": (
-        _QA, "torchao_tpu/kernels/quantized_attention.py:293"),
-    "quantized_kv_attention_smajor": (_QA, "torchao_tpu/kernels/quantized_attention.py:506"),
-    "quantized_kv_attention_smajor_int8": (_QA, "torchao_tpu/kernels/quantized_attention.py:506"),
+        _DEC, "torchao_tpu/kernels/quantized_attention.py:293"),
+    "quantized_kv_attention_smajor": (_DEC, "torchao_tpu/kernels/quantized_attention.py:506"),
+    "quantized_kv_attention_smajor_int8": (_DEC, "torchao_tpu/kernels/quantized_attention.py:506"),
     "w4a8_dq_matmul_gemv": ("torchao_tpu_torch/csrc/w4a8_matmul.cu",
                             "torchao_tpu/kernels/w4a8_matmul.py:161"),
     "w4a8_dq_matmul_tiled": ("torchao_tpu_torch/csrc/w4a8_matmul.cu",
@@ -816,7 +816,8 @@ def _attention_work(H, Hkv, Dh, Db, keys):
 def check_head_major_decode(args, gen, int8, fold):
     """K4′ (``fold``) or K4 per head at the decode shape (T=1, S=256, pos 0,
     128 and 255) over a layer of the head-major cache, against its own plain
-    version: ``_kernel_heads``' numerics for K4′."""
+    version: ``_kernel_heads``' numerics for K4′, whose call is one kernel on
+    the card and nothing else (the nodes of a CUDA graph captured around it)."""
     L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
     G, S = H // Hkv, PROMPT + DECODE
     cache = head_major_cache(gen, 1, Hkv, S, Dh, int8)
@@ -837,6 +838,9 @@ def check_head_major_decode(args, gen, int8, fold):
         got, want = call(), plain()
         err = compare(f"{name} S={S} pos={p} Dh={Dh}", got, want)
         _sqnr(t, want, got)
+        nodes = kernels_per_call(call) if fold else (1, 1)
+        if nodes != (1, 1):  # K4′: the merge folded in
+            raise AssertionError(f"{name}: a call is {nodes} (kernels, graph nodes)")
         if p != 255:
             t.max_abs_err = max(t.max_abs_err, err)
             continue
@@ -870,7 +874,8 @@ def long_context_phase(gen):
     head and K4′ over the head-major cache, K13 over the S-major one, K2 over
     the split-flat one, each at T = 1, pos = 8191, against its plain
     version, timed, with SDPA on the dequantized bf16 layer as the library
-    column. No main path runs here: launches are 0."""
+    column; a call of K4′, K13 or K2 is one kernel (K4 per head merges its
+    splits in a second). No main path runs here: launches are 0."""
     args = ModelArgs.from_name(MODEL)
     H, Hkv, Dh = args.n_head, args.n_local_heads, args.head_dim
     G, S = H // Hkv, LONG_S
@@ -913,8 +918,11 @@ def long_context_phase(gen):
             if dict(_build.LAUNCHES) != {name: 1}:  # each layout runs its own kernel
                 raise AssertionError(f"{label}: launches {dict(_build.LAUNCHES)}")
             err = compare(f"{name} S={S} pos={S - 1} {label}", got, plain())
+            nodes = kernels_per_call(call)
+            if name != "quantized_kv_decode_attention" + sfx and nodes != (1, 1):
+                raise AssertionError(f"{label}: a call is {nodes} (kernels, graph nodes)")
             ms, plain_ms = time_ms(call), time_ms(plain)
-            log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+            log(f"    {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
             t = Tally(name, f"long context: one call at S={S}, pos={S - 1}, {label}")
             t.add(1, ms, plain_ms, nbytes, flops, err, lib_ms)
             rows.append({**t.row(0), "section": f"long-context {width}"})

@@ -585,13 +585,27 @@ def _head_major_cache(gen, B, H, S, Dh, int8, dev):
     return q(), sc(), q(), sc()
 
 
+def _one_launch(call, device):
+    """``call`` is one kernel on the card and nothing else (the nodes of a
+    CUDA graph captured around it), and the ticket buffer it shares with K2
+    is back at zero after it."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    assert kernels_per_call(call) == (1, 1)
+    torch.cuda.synchronize()
+    assert int(qa._TICKETS[device].abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
 @pytest.mark.parametrize("Dh", [32, 48, 64, 96, 128])
 @pytest.mark.parametrize("T", [1, 40])
 def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
     """K4′ (decode, and T > 1 with rows_per_t) against its own plain
-    version, which follows ``_kernel_heads``; S = 300 leaves a ragged tile."""
+    version, which follows ``_kernel_heads``; S = 300 leaves a ragged tile
+    and, at decode, two key splits merged in the kernel. One call is one
+    kernel (the splits merged by K2's ticket)."""
     gen = torch.Generator(device=cuda).manual_seed(T + Dh + int8)
     B, H, G, S = 2, 8, 4, 300
     cache = _head_major_cache(gen, B, H, S, Dh, int8, cuda)
@@ -600,15 +614,17 @@ def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
     assert fold_heads_fits(H, T * G, S, Dh)
     name = "quantized_kv_decode_attention_heads" + ("_int8" if int8 else "")
     before = _build.LAUNCHES[name]
-    got = quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=True)
+    call = lambda: quantized_kv_decode_attention(q, *cache, pos, rows_per_t=G, fold_heads=True)
+    got = call()
     assert _build.LAUNCHES[name] == before + 1
     _sqnr_ok(got, quantized_kv_decode_attention_heads_plain(q, *cache, pos, rows_per_t=G))
-    # the same K as a D-major view (the split-flat cache's): byte loads, same result
+    # the same K as a D-major view (the split-flat cache's): gathered, same result
     k_view = cache[0].transpose(2, 3).contiguous().transpose(2, 3)
     again = quantized_kv_decode_attention(q, k_view, *cache[1:], pos, rows_per_t=G,
                                           fold_heads=True)
     torch.cuda.synchronize()
     assert torch.equal(again, got)
+    _one_launch(call, got.device)
 
 
 @pytest.mark.cuda
@@ -617,16 +633,47 @@ def test_heads_folded_kernel_matches_plain(cuda, int8, Dh, T):
 @pytest.mark.parametrize("Dh", [128, 32, 48, 96])
 def test_smajor_attention_kernel_matches_plain(cuda, int8, T, Dh):
     """K13 over an S-major cache [B, S, H*Db] with [B, S, H] scales (strided
-    head-major views inside), at each head dim of K4′'s template."""
+    head-major views inside: 2-byte scale loads), at each head dim of K4′'s
+    template; one call is one kernel."""
     gen = torch.Generator(device=cuda).manual_seed(7 + T + int8 + Dh)
     B, H, G, S = 2, 8, 4, 300
     kq, ks, vq, vs = (t.transpose(1, 2).flatten(2).contiguous()
                       for t in _head_major_cache(gen, B, H, S, Dh, int8, cuda))
     q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
     pos = torch.tensor([3, S - T], dtype=torch.int32, device=cuda)
-    got = quantized_kv_attention_smajor(q, kq, ks, vq, vs, pos, rows_per_t=G)
+    call = lambda: quantized_kv_attention_smajor(q, kq, ks, vq, vs, pos, rows_per_t=G)
+    got = call()
     want = quantized_kv_attention_smajor_plain(q, kq, ks, vq, vs, pos, rows_per_t=G)
     _sqnr_ok(got, want)
+    _one_launch(call, got.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,T,S,Dh,pos", [
+    (2, 20, 3, 1, 1000, 64, (999, 511)),   # more kv heads than the old 16, G = 3
+    (1, 8, 4, 1, 8192, 128, (511,)),        # 16 splits, pos the last key of one
+    (1, 8, 4, 1, 8192, 128, (512,)),        # and the next split's first
+    (1, 2, 16, 3, 600, 48, (100,)),         # R = 48: three row tiles, 8-byte int4 copies
+    (3, 1, 1, 7, 333, 96, (0, 200, 326)),   # one row a t, ragged S
+])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_heads_kernels_at_other_shapes(cuda, int8, B, H, G, T, S, Dh, pos):
+    """K4′ and K13 beside the main path's shapes against their plain
+    versions at >= 40 dB, one kernel a call."""
+    gen = torch.Generator(device=cuda).manual_seed(B + H + G + T + S + Dh + int8)
+    cache = _head_major_cache(gen, B, H, S, Dh, int8, cuda)
+    q = torch.randn((B, H, T * G, Dh), generator=gen, device=cuda).bfloat16()
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    assert fold_heads_fits(H, T * G, S, Dh)
+    heads = lambda: quantized_kv_decode_attention(q, *cache, p, rows_per_t=G, fold_heads=True)
+    got = heads()
+    _sqnr_ok(got, quantized_kv_decode_attention_heads_plain(q, *cache, p, rows_per_t=G))
+    _one_launch(heads, got.device)
+    smajor = tuple(t.transpose(1, 2).flatten(2).contiguous() for t in cache)
+    sm = lambda: quantized_kv_attention_smajor(q, *smajor, p, rows_per_t=G)
+    got = sm()
+    _sqnr_ok(got, quantized_kv_attention_smajor_plain(q, *smajor, p, rows_per_t=G))
+    _one_launch(sm, got.device)
 
 
 @pytest.mark.cuda

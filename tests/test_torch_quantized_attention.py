@@ -251,14 +251,17 @@ def _constant(path, name):
 def test_wrappers_take_exactly_the_cuda_instances():
     """The wrappers' accepted head dims are the cases of the CUDA switches
     that instantiate K4, K4′ / K13 and the rungs, and K2's G, head dims,
-    tile and split unit are the source's constants (its G rows are one
-    m16 tile, its head dims run on the instance for 64, 128 or 256 columns),
-    so a Python guard and the CUDA instances cannot drift apart (as they did
-    when K4 took Dh 64 and 128 only while the configs use 32 and 48)."""
+    tile and split unit and K4′'s / K13's rows per block are the source's
+    constants (K2's G rows and K4′'s row tiles are one m16 tile, K2's head
+    dims run on the instance for 64, 128 or 256 columns; K4′ and K13 split
+    their keys in K2's units), so a Python guard and the CUDA instances
+    cannot drift apart (as they did when K4 took Dh 64 and 128 only while
+    the configs use 32 and 48)."""
     from torchao_tpu_torch.kernels import quantized_attention as qa
 
     assert _cases("quantized_attention.cu", "launch_flash_dh", "Dh") == qa.FLASH_HEAD_DIMS
-    assert _cases("quantized_attention.cu", "launch_heads_dh", "Dh") == qa.FLASH_HEAD_DIMS
+    assert _cases("decode_attention.cu", "launch_heads_dh", "Dh") == qa.FLASH_HEAD_DIMS
+    assert _constant("decode_attention.cu", "HD_ROWS") == qa.HEADS_ROWS
     assert _cases("quantized_attention.cu", "launch_ablate_dh", "Dh") == qa.ABLATE_HEAD_DIMS
     assert qa.DECODE_GROUPS == tuple(range(1, _constant("decode_attention.cu", "DEC_G_MAX") + 1))
     assert _constant("decode_attention.cu", "DEC_DH_MAX") == qa.DECODE_DH_MAX
@@ -318,6 +321,38 @@ def test_decode_plan_fills_the_card(B, H, S):
         assert (nsplit, kps) == (1, 256)
     if (B, H, S) == (1, 8, 8192):
         assert (nsplit, kps) == (16, 512)
+
+
+@pytest.mark.parametrize("S", [1, 16, 255, 256, 300, 8192])
+@pytest.mark.parametrize("R", [4, 160])
+def test_heads_plan_covers_every_key_once(R, S):
+    """K4′'s and K13's grid (``heads_plan``): every key of a (batch, kv head,
+    row tile) lies in exactly one split, each split is whole tiles of
+    ``DECODE_CHUNK`` keys (the warps' streams) and none is empty; the splits
+    stay within the kernel's ``DEC_SPLIT_MAX`` (its merge's shared memory),
+    the grid within CUDA's limits, and the ticket buffer holds a counter for
+    each (batch, kv head, row tile). At Llama-3-8B's decode (B = 1, Hkv = 8,
+    S = 256) one split per (batch, kv head); the grid is about
+    ``DECODE_BLOCKS`` blocks where there are keys enough."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+
+    for B, H in ((1, 8), (2, 8), (1, 40)):
+        nrt, nsplit, kps = qa.heads_plan(B, H, R, S)
+        assert nrt == -(-R // qa.HEADS_ROWS)
+        splits = [torch.arange(z * kps, min(S, (z + 1) * kps)) for z in range(nsplit)]
+        assert all(len(keys) for keys in splits)
+        assert torch.equal(torch.cat(splits), torch.arange(S))
+        assert kps % qa.DECODE_CHUNK == 0
+        assert 1 <= nsplit <= _constant("decode_attention.cu", "DEC_SPLIT_MAX")
+        assert nsplit <= 65535 and B * H * nrt < 2**31
+        assert qa._tickets(torch.device("cpu"), B * H * nrt).numel() >= B * H * nrt
+        units = -(-S // qa.DECODE_SPLIT)
+        assert B * H * nrt * nsplit >= min(qa.DECODE_BLOCKS // 2, B * H * nrt * units)
+        if (B, H, R, S) == (1, 8, 4, 256):
+            assert (nrt, nsplit, kps) == (1, 1, 256)
+        if (B, H, R, S) == (1, 8, 4, 8192):
+            assert (nsplit, kps) == (16, 512)
+    qa._TICKETS.pop(torch.device("cpu"), None)
 
 
 @pytest.mark.parametrize("kv", ["int4", "int8"])

@@ -1,6 +1,6 @@
 // Attention over the quantized KV cache for Hopper (sm_90a): K4 on the tensor
-// cores, K4' and K13 SIMT in fp32. (The split-flat decode kernels K2 and K2'
-// are in decode_attention.cu.)
+// cores. (K2, K2', K4' and K13, the decode kernels of one launch a call, are
+// in decode_attention.cu.)
 //
 // Int4 KV layout (models/llama/model.py::_quantize_kv_int4): per token and
 // head, byte d holds elements d and d + Dh/2 as offset-binary nibbles,
@@ -9,10 +9,11 @@
 // per token. Each kernel below has an int4 and an int8 instantiation (the
 // I8 template flag); "bytes per key and head" is Dh/2 or Dh.
 //
-// Head dims: K4, K4' and K13 are instantiated at Dh in {32, 48, 64, 96, 128}
-// (the cases of launch_flash_dh's and launch_heads_dh's switch; the wrappers'
-// checks in kernels/quantized_attention.py take the same sets, and a CPU test
-// holds them together), K4's ablation rungs at {64, 128} (launch_ablate_dh).
+// Head dims: K4 is instantiated at Dh in {32, 48, 64, 96, 128} (the cases of
+// launch_flash_dh's switch, as K4' and K13 are of launch_heads_dh's in
+// decode_attention.cu; the wrappers' checks in kernels/quantized_attention.py
+// take the same sets, and a CPU test holds them together), K4's ablation
+// rungs at {64, 128} (launch_ablate_dh).
 //
 // tt_flash_prefill (K4) replaces
 //   quantized_attention.py::quantized_kv_decode_attention, int4 prefill form
@@ -76,42 +77,15 @@
 //   do, so at decode it runs B * Hkv * ceil(R / 32) blocks where K4 splits.
 //   ABLATE = 0 is K4's own instantiation.
 //
-// tt_flash_heads (K4', int4) and tt_flash_heads_i8 (int8) replace the
-//   head-folded form of the same function (fold_heads, pallas_call at
-//   quantized_attention.py:293, body _kernel_heads at :979): the same causal
-//   attention with all Hkv heads in one step, over the head-major cache. Its
-//   numerics are _kernel_heads' (:1013-1059): int8 keeps the per-key K scale
-//   out of the q.k dot and rounds P * v_scale to bf16 before the P.V dot
-//   over the int8 codes; int4 dequantizes K and V to bf16 (nibble * scale,
-//   rounded) and rounds P to bf16. Accumulators are f32.
-// tt_smajor_attention (K13, int4) and tt_smajor_attention_i8 (int8) replace
-//   quantized_attention.py::quantized_kv_attention_smajor (pallas_call at :506,
-//   body _kernel_smajor at :349): the same function over a cache whose K and V
-//   are both S-major [B, S, Hkv * Db] with scales [B, S, Hkv]. _kernel_smajor
-//   dequantizes both widths to bf16 (no scale factored out), so its int8 form
-//   is the int4 numerics over int8 codes.
-//   Design (both): one template. A block owns one batch row, up to 64 (head,
-//   query row) pairs of all heads, and one split of the keys; it walks its
-//   split in tiles of 16 keys, staging every head's K and V stripes of the
-//   tile in shared memory as bf16 (2 * Hkv * 16 * Dh * 2 bytes, 64 KB at
-//   Hkv = 8, Dh = 128) with 4-byte coalesced loads: a head's stripe for the
-//   head-major cache, a key's run of all heads (Hkv * Db contiguous bytes)
-//   for the S-major one. Four threads serve each pair. At decode (B = 1,
-//   R = G = 4) a grid over (batch, query tile) alone would be one block on one
-//   SM of 132, so the keys are split over the grid as K2 does (about 128
-//   blocks), each split writes its softmax partials (max, sum, P.V) to scratch
-//   and a second launch combines them.
-//   Bound on an H100: bytes at decode (the visible keys' codes and scales of
-//   all heads, read once: 0.54 MB per layer at S = 256 int8 and 8.7 MB at
-//   S = 8192 int4, against 2 * 2 * rows * keys * Dh flops).
+// K4' and K13 (the head-folded and S-major forms) are in decode_attention.cu.
 #include "common.cuh"
 
 #include <math.h>
 
 namespace {
 
-// out[bh, g, d] = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M): the key
-// splits of K4 and K4' merged
+// out[bh, g, d] = sum_i acc_i e^(m_i - M) / sum_i l_i e^(m_i - M): K4's key
+// splits merged
 __global__ void split_combine_kernel(const float* __restrict__ ws_m, const float* __restrict__ ws_l,
                                      const float* __restrict__ ws_acc, float* __restrict__ out,
                                      int G, int Dh, int nsplit) {
@@ -134,14 +108,6 @@ __global__ void split_combine_kernel(const float* __restrict__ ws_m, const float
 }
 
 // ------------------------------------------------------------ prefill --
-struct KvView {  // element (b, h, s, d) of a [B, H, S, Dh/2] uint8 view
-  const uint8_t* q;
-  long long sb, sh, ss, sd;
-  const __nv_bfloat16* scale;  // (b, h, s) of a [B, H, S, 1] view
-  long long cb, ch, cs;
-  bool vec;  // d contiguous and every row 4-byte aligned: 4-byte loads (head-folded kernel)
-};
-
 enum Ablate { AB_NONE = 0, AB_NOEXP = 1, AB_NOSOFTMAX = 2, AB_NOMASKEXP = 3, AB_DOTSONLY = 4 };
 constexpr float NEG_BIG = -1e30f;  // the JAX kernels' NEG_INF
 
@@ -583,257 +549,6 @@ int launch_flash_dh(const void* q, const void* kq, long long ksb, long long ksh,
   }
 }
 
-// ------------------------------------------------------- heads folded --
-constexpr int HF_THREADS = 256;
-constexpr int HF_PAIRS = HF_THREADS / 4;  // (head, query row) pairs per block
-constexpr int HF_FK = 16;                 // keys per tile
-constexpr int HF_HMAX = 16;               // kv heads per block, at most
-constexpr int HF_HPAD = 32;               // bf16 elements between two heads' tiles
-
-// A byte of the cache at (h, s, d) of the tile -> the tile's bf16 element(s):
-// int8 the code itself (FACTOR: the scale stays out) or code * scale, int4
-// the two nibbles (d and d + Db) times the scale, each rounded once to bf16.
-template <bool I8, bool FACTOR>
-__device__ __forceinline__ void put_bytes(__nv_bfloat16* row, int d, int db, uint32_t bytes,
-                                          int nbytes, float scl) {
-  for (int i = 0; i < nbytes; ++i) {
-    const int byte = (bytes >> (8 * i)) & 0xFF;
-    if constexpr (I8) {
-      const float v = (float)(int8_t)byte;
-      row[d + i] = __float2bfloat16(FACTOR ? v : v * scl);
-    } else {
-      row[d + i] = __float2bfloat16((float)((byte & 0xF) - 8) * scl);
-      row[d + i + db] = __float2bfloat16((float)((byte >> 4) - 8) * scl);
-    }
-  }
-}
-
-// Stage keys [k0, k0 + HF_FK) of every head into tile[h][s][d] (bf16, rows of
-// DH + 8); keys at or past key_end are zero. sc[h][s] holds the keys' scales.
-template <int DH, bool I8, bool FACTOR>
-__device__ __forceinline__ void load_heads_tile(__nv_bfloat16* tile, const float* sc,
-                                                const KvView& v, int b, int H, int k0,
-                                                int key_end, int hstr) {
-  constexpr int DB = I8 ? DH : DH / 2;
-  constexpr int KSTR = DH + 8;
-  const uint8_t* base = v.q + b * v.sb;
-  if (v.vec) {
-    constexpr int WPR = DB / 4;  // 4-byte words per key and head
-    const bool key_major = v.ss > v.sh;  // S-major: a key's heads lie side by side
-    for (int e = threadIdx.x; e < H * HF_FK * WPR; e += HF_THREADS) {
-      const int w = e % WPR, hs = e / WPR;
-      const int h = key_major ? hs % H : hs / HF_FK, s = key_major ? hs / H : hs % HF_FK;
-      const int key = k0 + s;
-      const uint32_t word =
-          key < key_end ? *reinterpret_cast<const uint32_t*>(base + h * v.sh + key * v.ss + 4 * w)
-                        : 0u;
-      put_bytes<I8, FACTOR>(tile + h * hstr + s * KSTR, 4 * w, DB, word, 4, sc[h * HF_FK + s]);
-    }
-  } else {  // any strides (e.g. a D-major view): one byte at a time, keys fastest
-    for (int e = threadIdx.x; e < H * HF_FK * DB; e += HF_THREADS) {
-      const int s = e % HF_FK, hd = e / HF_FK, d = hd % DB, h = hd / DB;
-      const int key = k0 + s;
-      const uint32_t byte = key < key_end ? base[h * v.sh + key * v.ss + d * v.sd] : 0u;
-      put_bytes<I8, FACTOR>(tile + h * hstr + s * KSTR, d, DB, byte, 1, sc[h * HF_FK + s]);
-    }
-  }
-}
-
-// grid: (B * nq, nsplit); block 256 threads = 64 pairs x 4. Pair p is head
-// p / QT, query row r0 + p % QT of the block's tile; thread c of a pair
-// scores keys 4j + c of each tile and owns output columns 32i + 8c .. + 8.
-// Split s covers keys [s * kps, (s + 1) * kps); its partials go to
-// ws_m / ws_l [B, H, nsplit, R] and ws_acc [B, H, nsplit, R, DH].
-template <int DH, bool I8, bool FACTOR>
-__global__ void __launch_bounds__(HF_THREADS)
-flash_heads_kernel(const __nv_bfloat16* __restrict__ q, KvView kv, KvView vv,
-                   const int* __restrict__ pos, float* __restrict__ ws_m,
-                   float* __restrict__ ws_l, float* __restrict__ ws_acc, int H, int R, int S,
-                   int G, int QT, int kps, float scale) {
-  constexpr int KSTR = DH + 8;
-  // 32-column blocks; a thread owns 8 columns of each (at DH = 48, threads 2
-  // and 3 of a pair own none of the second, half-filled block)
-  constexpr int NB = (DH + 31) / 32;
-  static_assert(DH % 8 == 0, "K4' takes Dh in whole 8-column chunks");
-  const int hstr = HF_FK * KSTR + HF_HPAD;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                   // [HF_PAIRS][DH + 4]
-  float* ps = qs + HF_PAIRS * (DH + 4);               // [HF_PAIRS][HF_FK + 1]
-  float* ksc = ps + HF_PAIRS * (HF_FK + 1);           // [H][HF_FK]
-  float* vsc = ksc + H * HF_FK;                       // [H][HF_FK]
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(vsc + H * HF_FK);  // [H][hstr]
-  __nv_bfloat16* vt = kt + H * hstr;
-
-  const int nq = (R + QT - 1) / QT;
-  const int b = blockIdx.x / nq, r0 = (blockIdx.x % nq) * QT;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int p = pos[b];
-  const int s_begin = split * kps;
-  const int r_last = min(R, r0 + QT) - 1;
-  const int key_end = min(min(S, s_begin + kps), p + r_last / G + 1);
-
-  const int pair = threadIdx.x / 4, c = threadIdx.x % 4;
-  const int h = pair / QT, r = r0 + pair % QT;
-  const bool valid = h < H && r < R;
-  const int hc = min(h, H - 1);                // in-bounds head for idle pairs
-  const int lim = valid ? p + r / G : -1;      // last key this row sees
-
-  for (int e = threadIdx.x; e < HF_PAIRS * DH; e += HF_THREADS) {
-    const int pr = e / DH, d = e % DH, hh = pr / QT, rr = r0 + pr % QT;
-    qs[pr * (DH + 4) + d] =
-        hh < H && rr < R ? __bfloat162float(q[(((size_t)b * H + hh) * R + rr) * DH + d]) : 0.f;
-  }
-
-  float m = -INFINITY, l = 0.f, acc[NB * 8];
-#pragma unroll
-  for (int i = 0; i < NB * 8; ++i) acc[i] = 0.f;
-
-  for (int k0 = s_begin; k0 < key_end; k0 += HF_FK) {
-    __syncthreads();  // the previous tile is consumed (and the q rows written)
-    for (int e = threadIdx.x; e < 2 * H * HF_FK; e += HF_THREADS) {
-      const bool is_v = e >= H * HF_FK;
-      const int i = is_v ? e - H * HF_FK : e, hh = i / HF_FK, key = k0 + i % HF_FK;
-      const __nv_bfloat16* sp = is_v ? vv.scale + b * vv.cb + hh * vv.ch + key * vv.cs
-                                     : kv.scale + b * kv.cb + hh * kv.ch + key * kv.cs;
-      (is_v ? vsc : ksc)[i] = key < key_end ? __bfloat162float(*sp) : 0.f;
-    }
-    __syncthreads();
-    load_heads_tile<DH, I8, FACTOR>(kt, ksc, kv, b, H, k0, key_end, hstr);
-    load_heads_tile<DH, I8, FACTOR>(vt, vsc, vv, b, H, k0, key_end, hstr);
-    __syncthreads();
-
-    float sc[HF_FK / 4];
-#pragma unroll
-    for (int j = 0; j < HF_FK / 4; ++j) sc[j] = 0.f;
-    const float* qrow = qs + pair * (DH + 4);
-    const __nv_bfloat16* kh = kt + hc * hstr;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 8) {
-      const float4 a0 = *reinterpret_cast<const float4*>(qrow + d);
-      const float4 a1 = *reinterpret_cast<const float4*>(qrow + d + 4);
-#pragma unroll
-      for (int j = 0; j < HF_FK / 4; ++j) {
-        float kf[8];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(kh + (j * 4 + c) * KSTR + d), kf);
-        float s = sc[j];
-        s = fmaf(a0.x, kf[0], s); s = fmaf(a0.y, kf[1], s);
-        s = fmaf(a0.z, kf[2], s); s = fmaf(a0.w, kf[3], s);
-        s = fmaf(a1.x, kf[4], s); s = fmaf(a1.y, kf[5], s);
-        s = fmaf(a1.z, kf[6], s); s = fmaf(a1.w, kf[7], s);
-        sc[j] = s;
-      }
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < HF_FK / 4; ++j) {
-      const int key = k0 + j * 4 + c;
-      const float post = FACTOR ? ksc[hc * HF_FK + j * 4 + c] : 1.f;
-      sc[j] = key > lim || key >= key_end ? -INFINITY : sc[j] * post * scale;
-      mx = fmaxf(mx, sc[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    float alpha = 1.f, rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < HF_FK / 4; ++j) {
-      sc[j] = m_new > -INFINITY ? __expf(sc[j] - m_new) : 0.f;
-      rs += sc[j];
-    }
-    if (m_new > -INFINITY) alpha = __expf(m - m_new);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-    m = m_new;
-#pragma unroll
-    for (int j = 0; j < HF_FK / 4; ++j) {
-      const float pre = FACTOR ? vsc[hc * HF_FK + j * 4 + c] : 1.f;
-      ps[pair * (HF_FK + 1) + j * 4 + c] = __bfloat162float(__float2bfloat16(sc[j] * pre));
-    }
-#pragma unroll
-    for (int i = 0; i < NB * 8; ++i) acc[i] *= alpha;
-    __syncwarp();  // a pair's four threads share one warp
-    const __nv_bfloat16* vh = vt + hc * hstr + c * 8;
-    for (int jj = 0; jj < HF_FK; ++jj) {
-      const float w = ps[pair * (HF_FK + 1) + jj];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        if (32 * i + 8 * c >= DH) break;
-        float vf[8];
-        bf16x8_to_float(*reinterpret_cast<const uint4*>(vh + jj * KSTR + 32 * i), vf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[8 * i + e] = fmaf(w, vf[e], acc[8 * i + e]);
-      }
-    }
-  }
-  if (valid) {
-    const size_t row = ((size_t)(b * H + h) * nsplit + split) * R + r;
-    if (c == 0) { ws_m[row] = m; ws_l[row] = l; }
-    float* o = ws_acc + row * DH + c * 8;
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (32 * i + 8 * c < DH) o[32 * i + e] = acc[8 * i + e];
-  }
-}
-
-template <int DH, bool I8, bool FACTOR>
-int launch_heads(const void* q, const KvView& kv, const KvView& vv, const void* pos, void* ws_m,
-                 void* ws_l, void* ws_acc, void* out, int B, int H, int R, int S, int G, int QT,
-                 int nsplit, int kps, float scale, cudaStream_t st) {
-  if (H < 1 || H > HF_HMAX || QT < 1 || H * QT > HF_PAIRS || kps % HF_FK || nsplit < 1)
-    return cudaErrorInvalidValue;
-  auto bytes = [](int h) {
-    return (size_t)(HF_PAIRS * (DH + 4) + HF_PAIRS * (HF_FK + 1) + 2 * h * HF_FK) * sizeof(float) +
-           (size_t)2 * h * (HF_FK * (DH + 8) + HF_HPAD) * sizeof(__nv_bfloat16);
-  };
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_heads_kernel<DH, I8, FACTOR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes(HF_HMAX));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const int nq = (R + QT - 1) / QT;
-  dim3 grid(B * nq, nsplit);
-  flash_heads_kernel<DH, I8, FACTOR><<<grid, HF_THREADS, bytes(H), st>>>(
-      static_cast<const __nv_bfloat16*>(q), kv, vv, static_cast<const int*>(pos),
-      static_cast<float*>(ws_m), static_cast<float*>(ws_l), static_cast<float*>(ws_acc), H, R, S,
-      G, QT, kps, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  split_combine_kernel<<<B * H, 256, 0, st>>>(static_cast<float*>(ws_m), static_cast<float*>(ws_l),
-                                            static_cast<float*>(ws_acc), static_cast<float*>(out),
-                                            R, DH, nsplit);
-  return cudaGetLastError();
-}
-
-// A view takes 4-byte loads when d is contiguous and every row is 4-byte aligned.
-inline void set_vec(KvView& v, int db) {
-  const bool aligned = reinterpret_cast<uintptr_t>(v.q) % 4 == 0 && v.sb % 4 == 0 &&
-                       v.sh % 4 == 0 && v.ss % 4 == 0;
-  v.vec = v.sd == 1 && db % 4 == 0 && aligned;
-}
-
-template <bool I8, bool FACTOR>
-int launch_heads_dh(const void* q, KvView kv, KvView vv, const void* pos, void* ws_m, void* ws_l,
-                    void* ws_acc, void* out, int B, int H, int R, int S, int G, int Dh, int QT,
-                    int nsplit, int kps, float scale, cudaStream_t st) {
-  const int db = I8 ? Dh : Dh / 2;
-  set_vec(kv, db);
-  set_vec(vv, db);
-  switch (Dh) {
-    case 32: return launch_heads<32, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
-    case 48: return launch_heads<48, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
-    case 64: return launch_heads<64, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
-    case 96: return launch_heads<96, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
-    case 128: return launch_heads<128, I8, FACTOR>(q, kv, vv, pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, QT, nsplit, kps, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // K4: q [B, H, R, Dh] bf16 contiguous; kq/vq: uint8 (int8 for _i8) views
@@ -907,72 +622,4 @@ TT_EXPORT int tt_flash_ablate_i8(const void* q, const void* kq, long long ksb, l
                                  void* out, int B, int H, int R, int S, int G, int Dh, int ablate,
                                  float scale, void* stream) {
   return launch_ablate<true>(TT_FLASH_PASS, out, B, H, R, S, G, Dh, ablate, scale, stream);
-}
-
-// K4' (tt_flash_heads, int4; tt_flash_heads_i8, int8) and K13
-// (tt_smajor_attention, int4; tt_smajor_attention_i8, int8): q [B, H, R, Dh]
-// bf16 contiguous; kq/vq uint8 (int8 for _i8) views with element strides
-// (b, h, s, d) — the head-major cache, or the S-major one seen head-major;
-// ks/vs bf16 views with strides (b, h, s); scratch ws_m, ws_l
-// [B, H, nsplit, R] and ws_acc [B, H, nsplit, R, Dh] fp32; out [B, H, R, Dh]
-// fp32. QT query rows of every head per block (H * QT <= 64, H <= 16);
-// kps keys per split, a multiple of 16.
-TT_EXPORT int tt_flash_heads(const void* q, const void* kq, long long ksb, long long ksh,
-                             long long kss, long long ksd, const void* ks, long long kcb,
-                             long long kch, long long kcs, const void* vq, long long vsb,
-                             long long vsh, long long vss, long long vsd, const void* vs,
-                             long long vcb, long long vch, long long vcs, const void* pos,
-                             void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H, int R,
-                             int S, int G, int Dh, int QT, int nsplit, int kps, float scale,
-                             void* stream) {
-  return launch_heads_dh<false, false>(
-      q, {static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd, static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs},
-      {static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd, static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs},
-      pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, Dh, QT, nsplit, kps, scale,
-      static_cast<cudaStream_t>(stream));
-}
-
-TT_EXPORT int tt_flash_heads_i8(const void* q, const void* kq, long long ksb, long long ksh,
-                                long long kss, long long ksd, const void* ks, long long kcb,
-                                long long kch, long long kcs, const void* vq, long long vsb,
-                                long long vsh, long long vss, long long vsd, const void* vs,
-                                long long vcb, long long vch, long long vcs, const void* pos,
-                                void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
-                                int R, int S, int G, int Dh, int QT, int nsplit, int kps,
-                                float scale, void* stream) {
-  return launch_heads_dh<true, true>(
-      q, {static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd, static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs},
-      {static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd, static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs},
-      pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, Dh, QT, nsplit, kps, scale,
-      static_cast<cudaStream_t>(stream));
-}
-
-TT_EXPORT int tt_smajor_attention(const void* q, const void* kq, long long ksb, long long ksh,
-                                  long long kss, long long ksd, const void* ks, long long kcb,
-                                  long long kch, long long kcs, const void* vq, long long vsb,
-                                  long long vsh, long long vss, long long vsd, const void* vs,
-                                  long long vcb, long long vch, long long vcs, const void* pos,
-                                  void* ws_m, void* ws_l, void* ws_acc, void* out, int B, int H,
-                                  int R, int S, int G, int Dh, int QT, int nsplit, int kps,
-                                  float scale, void* stream) {
-  return launch_heads_dh<false, false>(
-      q, {static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd, static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs},
-      {static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd, static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs},
-      pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, Dh, QT, nsplit, kps, scale,
-      static_cast<cudaStream_t>(stream));
-}
-
-TT_EXPORT int tt_smajor_attention_i8(const void* q, const void* kq, long long ksb, long long ksh,
-                                     long long kss, long long ksd, const void* ks, long long kcb,
-                                     long long kch, long long kcs, const void* vq, long long vsb,
-                                     long long vsh, long long vss, long long vsd, const void* vs,
-                                     long long vcb, long long vch, long long vcs, const void* pos,
-                                     void* ws_m, void* ws_l, void* ws_acc, void* out, int B,
-                                     int H, int R, int S, int G, int Dh, int QT, int nsplit,
-                                     int kps, float scale, void* stream) {
-  return launch_heads_dh<true, false>(
-      q, {static_cast<const uint8_t*>(kq), ksb, ksh, kss, ksd, static_cast<const __nv_bfloat16*>(ks), kcb, kch, kcs},
-      {static_cast<const uint8_t*>(vq), vsb, vsh, vss, vsd, static_cast<const __nv_bfloat16*>(vs), vcb, vch, vcs},
-      pos, ws_m, ws_l, ws_acc, out, B, H, R, S, G, Dh, QT, nsplit, kps, scale,
-      static_cast<cudaStream_t>(stream));
 }

@@ -93,8 +93,9 @@ _VIEWS = (
 _FLASH = _VIEWS + [c_ptr] * 4 + [c_int] * 8 + [c_float, c_ptr]
 # K4's rungs: out, B, H, R, S, G, Dh, the rung, scale, stream
 _ABLATE = _VIEWS + [c_ptr] + [c_int] * 7 + [c_float, c_ptr]
-# K4' and K13: the scratch, out, and B, H, R, S, G, Dh, QT, nsplit, keys per split
-_HEADS = _VIEWS + [c_ptr] * 4 + [c_int] * 9 + [c_float, c_ptr]
+# K4' and K13: ws (null for one split), tickets, out, B, H, R, S, G, Dh, nsplit,
+# keys per split, scale, stream
+_HEADS = _VIEWS + [c_ptr] * 3 + [c_int] * 8 + [c_float, c_ptr]
 # kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 # x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream

@@ -2,8 +2,8 @@
 versions.
 
 Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
-(CUDA sources ``csrc/decode_attention.cu`` for K2, ``csrc/quantized_attention.cu``
-for the others), each for a packed-int4
+(CUDA sources ``csrc/quantized_attention.cu`` for K4 and its rungs,
+``csrc/decode_attention.cu`` for the others), each for a packed-int4
 (``uint8``) and an int8 cache, told apart by the cache's dtype:
 
 - :func:`quantized_kv_decode_attention_bdq` (K2 int4, K2′ int8): T=1 GQA
@@ -19,8 +19,9 @@ for the others), each for a packed-int4
   (``model._smajor_to_hmajor``) and no copy of the cache is made.
   With ``fold_heads`` (or ``TORCHAO_TPU_ATTN_FOLD_HEADS=1``, read at call
   time) and on the calls where the JAX package's fit rule folds
-  (:func:`fold_heads_fits`), the head-folded kernel K4′ runs instead: all
-  heads in one block, keys split over the grid, ``_kernel_heads``' numerics.
+  (:func:`fold_heads_fits`), the head-folded kernel K4′ runs instead,
+  ``_kernel_heads``' numerics on K2's design (one launch a call): a block
+  per (batch, kv head, 16 query rows) and key split (:func:`heads_plan`).
 - Two diagnostic arms, wrong math on purpose, reached only by the probes
   (``probes/attn_ceiling_probe.py``, ``probes/attn_probe.py``) and never by
   ``model.py``: K2's ``stub`` (:func:`quantized_kv_decode_attention_bdq`
@@ -37,9 +38,9 @@ K13 Dh in ``FLASH_HEAD_DIMS`` (32, 48, 64, 96, 128); the rungs Dh in
 (a CPU test parses them).
 - :func:`quantized_kv_attention_smajor` (K13): the same attention over a
   cache whose K and V are both S-major ``[B, S, Hkv·Db]`` with scales
-  ``[B, S, Hkv]``, on K4′'s CUDA template (a key's heads are one contiguous
-  run of ``Hkv·Db`` bytes). No model route reaches it; it is a direct-call
-  kernel, as in the JAX package.
+  ``[B, S, Hkv]``, on K4′'s CUDA template through head-major views (a key's
+  ``Db`` bytes of a head are one contiguous run). No model route reaches it;
+  it is a direct-call kernel, as in the JAX package.
 
 Packed int4 KV: byte d of a head holds elements d and d + Dh/2 as
 offset-binary nibbles (``q = nibble − 8``); int8 KV: one int8 per element.
@@ -74,10 +75,7 @@ FLASH_SPLIT = 16    # K4's keys per split are a multiple of this (csrc F_SPLIT)
 FLASH_BLOCKS = 128  # K4 blocks to aim for: the keys are split until about this many
 ABLATE_RUNGS = ("none", "noexp", "nosoftmax", "nomaskexp", "dotsonly")  # csrc Ablate order
 NEG_INF = -1e30     # the JAX kernels' running-max start and mask value
-HEADS_FK = 16       # keys per head-folded tile (csrc HF_FK)
-HEADS_PAIRS = 64    # (head, query row) pairs per head-folded block (csrc HF_PAIRS)
-HEADS_MAX = 16      # kv heads per head-folded block, at most (csrc HF_HMAX)
-_HEADS_BLOCKS = 128  # head-folded blocks to aim for: the keys are split until about this many
+HEADS_ROWS = 16     # query rows per K4′ / K13 block: one m16 tile (csrc HD_ROWS)
 FOLD_BUDGET = 12 * 2**20  # the JAX package's VMEM budget for the folded kernel
 
 
@@ -160,25 +158,32 @@ def quantized_kv_decode_attention_bdq_stub_plain(q, k_q, k_scale, v_q, v_scale, 
     return acc + (first * live).sum(-1).view(B, 1, 1, 1)
 
 
-def decode_plan(B: int, H: int, S: int):
-    """K2's grid: ``(key splits, keys per split)``. The ``B·H`` (batch, kv
-    head) pairs each take their keys in splits of whole ``DECODE_SPLIT``
-    units (a tile for each of a block's 8 warps, each warp its own key
-    stream), as many as bring the grid to about ``DECODE_BLOCKS`` blocks: one
-    split at Llama-3-8B's S = 256 with B = 1 (8 blocks, no merge across
-    blocks), 16 of 512 keys at S = 8192 (128 blocks)."""
+def _key_splits(tiles: int, S: int):
+    """``(key splits, keys per split)`` for ``tiles`` blocks' worth of
+    queries: whole ``DECODE_SPLIT`` units (a 32-key tile for each of a
+    block's 8 warps, each warp its own key stream), as many splits as bring
+    the grid to about ``DECODE_BLOCKS`` blocks."""
     units = cdiv(S, DECODE_SPLIT)
-    per = cdiv(units, min(units, cdiv(DECODE_BLOCKS, B * H)))
+    per = cdiv(units, min(units, cdiv(DECODE_BLOCKS, tiles)))
     return cdiv(units, per), per * DECODE_SPLIT
+
+
+def decode_plan(B: int, H: int, S: int):
+    """K2's grid: ``(key splits, keys per split)`` for its ``B·H`` (batch,
+    kv head) pairs (:func:`_key_splits`): one split at Llama-3-8B's S = 256
+    with B = 1 (8 blocks, no merge across blocks), 16 of 512 keys at S =
+    8192 (128 blocks)."""
+    return _key_splits(B * H, S)
 
 
 _TICKETS: dict = {}
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """K2's per-device ticket counters (int32, one per (batch, kv head)):
-    zeroed once here, left at zero by every launch (the block that merges a
-    pair's splits resets its counter), so a decode step needs no memset."""
+    """The per-device ticket counters of K2, K4′ and K13 (int32, one per
+    (batch, kv head) and, for K4′ / K13, row tile): zeroed once here, left
+    at zero by every launch (the block that merges a tile's splits resets
+    its counter), so a decode step needs no memset."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
         t = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
@@ -557,31 +562,37 @@ def quantized_kv_decode_attention_heads_plain(q, k_q, k_scale, v_q, v_scale, pos
     return torch.einsum("bhrs,bhsd->bhrd", w, v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
 
 
+def heads_plan(B: int, H: int, R: int, S: int):
+    """K4′'s and K13's grid: ``(row tiles, key splits, keys per split)``. A
+    block takes ``HEADS_ROWS`` query rows of one (batch, kv head) and one
+    split of the keys, split by K2's rule (:func:`_key_splits`) over the
+    ``B·H·row tiles`` tiles: one split at Llama-3-8B's decode (B = 1, Hkv =
+    8, R = 4, S = 256: 8 blocks, no merge across blocks), 16 of 512 keys at
+    S = 8192."""
+    nrt = cdiv(R, HEADS_ROWS)
+    return (nrt, *_key_splits(B * H * nrt, S))
+
+
 def _launch_heads(name, entry, q, k_q, k_scale, v_q, v_scale, pos, scale, rows_per_t):
-    """K4′ / K13 on head-major views (any strides) of the cache."""
+    """K4′ / K13 on head-major views (any strides) of the cache: one launch,
+    the splits merged by the last block of each (batch, kv head, row tile)
+    to finish (K2's ticket buffer)."""
     int8, G = _check_attention(name, q, k_q, k_scale, v_q, v_scale, pos, rows_per_t)
     B, H, R, Dh = q.shape
     S = k_q.shape[2]
-    if H > HEADS_MAX:
-        raise ValueError(f"{name}: at most {HEADS_MAX} kv heads")
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
-    QT = min(HEADS_PAIRS // H, R)  # query rows of every head per block
-    n_q = cdiv(R, QT)
-    tiles = cdiv(S, HEADS_FK)
-    # split the keys until about _HEADS_BLOCKS blocks are in flight
-    per_split = cdiv(tiles, max(1, min(tiles, cdiv(_HEADS_BLOCKS, B * n_q))))
-    nsplit = cdiv(tiles, per_split)
-    ws_m = torch.empty((B * H * nsplit * R,), dtype=torch.float32, device=q.device)
-    ws_l = torch.empty_like(ws_m)
-    ws_acc = torch.empty((B * H * nsplit * R * Dh,), dtype=torch.float32, device=q.device)
+    nrt, nsplit, kps = heads_plan(B, H, R, S)
+    ws = torch.empty((B * H * nrt * nsplit * HEADS_ROWS * (Dh + 2),) if nsplit > 1 else (0,),
+                     dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, R, Dh), dtype=torch.float32, device=q.device)
     _build.library().launch(
         entry + ("_i8" if int8 else ""), q.data_ptr(), k_q.data_ptr(), *k_q.stride(),
         k_scale.data_ptr(), *k_scale.stride()[:3], v_q.data_ptr(), *v_q.stride(),
-        v_scale.data_ptr(), *v_scale.stride()[:3], pos.data_ptr(), ws_m.data_ptr(),
-        ws_l.data_ptr(), ws_acc.data_ptr(), out.data_ptr(), B, H, R, S, G, Dh, QT, nsplit,
-        per_split * HEADS_FK, float(scale), _build.stream_handle(q.device),
+        v_scale.data_ptr(), *v_scale.stride()[:3], pos.data_ptr(),
+        ws.data_ptr() if nsplit > 1 else None, _tickets(q.device, B * H * nrt).data_ptr(),
+        out.data_ptr(), B, H, R, S, G, Dh, nsplit, kps, float(scale),
+        _build.stream_handle(q.device),
     )
     _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
     return out
