@@ -13,7 +13,9 @@ Phases (each fails loudly; nothing is caught):
 
    - int4 weight-only g=32 with the packed-int4 split-flat KV cache (and
      one ``int4_route_threshold`` line: K5 at M = 4096 on w13 and w2 beside
-     dequantize + ``torch.matmul``, the JAX package's route at that M);
+     dequantize + ``torch.matmul``, the JAX package's route at that M; and
+     one ``k1_m32`` line: K1 at M = 32, the GEMV's upper limit, on w13
+     beside a bf16 ``torch.matmul``);
    - int8 weight-only with the int8 split-flat KV cache;
    - int8 dynamic activations x int8 weights with the bf16 KV cache;
    - float8 weight-only with the bf16 KV cache;
@@ -34,7 +36,8 @@ Phases (each fails loudly; nothing is caught):
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
    tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
-   cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact),
+   cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact;
+   K1 in every form and K11 each one kernel per call, K2's merge folded in),
    with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
@@ -129,6 +132,7 @@ from torchao_tpu_torch.kernels.fp8_matmul import (
     fp8_rowwise_matmul_plain,
 )
 from torchao_tpu_torch.kernels.int4_matmul import (
+    GEMV_MAX_M,
     PLAIN,
     VARIANT_ENV,
     choose_body,
@@ -681,6 +685,12 @@ def _centred(x):
     return (q.to(torch.int32) - zp.to(torch.int32).reshape(-1, 1)).bfloat16()
 
 
+# the kernels whose call is one kernel on the card and nothing else (their
+# K-split merge folded in); check_shapes asserts it on a captured graph
+ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
+                       "fp6_dual_matmul"}
+
+
 def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None,
                  tol=TOL_SQNR_DB, exact=False, int_mm=None):
     """One kernel form at M on each (weight name, weight, layer, launches per
@@ -692,7 +702,8 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
     SQNR as ``sqnr_db`` (``bit_exact`` instead if ``exact``). ``int_mm(x,
     w, layer)``, if given, is an int8 tensor-core yardstick (a
     ``torch._int_mm`` call): its time is logged per shape and summed as
-    ``int_mm_ms``, beside the library column."""
+    ``int_mm_ms``, beside the library column. A kernel of
+    ``ONE_KERNEL_PER_CALL`` must be one kernel per call at every shape."""
     t = Tally(name, f"one {'decode step' if M <= 16 else 'prefill'} at M={M}: "
               + ", ".join(f"{n} x{c}" for n, _, _, c in cases), peak)
     for wname, w, l, count in cases:
@@ -703,6 +714,8 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
         kernel, plain, nbytes, flops = call(x, w, l)
         got, want = kernel(), plain()
         err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, exact=exact, tol=tol)
+        if name in ONE_KERNEL_PER_CALL and (nodes := kernels_per_call(kernel)) != (1, 1):
+            raise AssertionError(f"{name} {wname}: a call is {nodes} (kernels, graph nodes)")
         if exact:
             t.extra["bit_exact"] = True
         else:
@@ -1176,9 +1189,28 @@ def int4_route_threshold(params, gen):
     log(json.dumps({"int4_route_threshold": {"M": ROUTE_M, **res}}))
 
 
+def k1_at_its_upper_m(params, gen):
+    """K1 at M = GEMV_MAX_M (32, the GEMV's upper limit) on layer 0's w13,
+    held against its plain version and timed beside a bf16 ``torch.matmul``
+    on the dequantized weight; one line of output."""
+    wname, w, l = _weights(params)[2]
+    N, K = w.shape[-2:]
+    x = torch.randn((GEMV_MAX_M, K), generator=gen, device="cuda").bfloat16()
+    kernel, plain, nbytes, flops = _int4_call(x, w, l)
+    got, want = kernel(), plain()
+    err = compare(f"int4_dq_matmul_gemv {wname} M={GEMV_MAX_M} N={N} K={K}", got, want)
+    wd = w.take_layer(l).dequantize(torch.bfloat16).T.contiguous()
+    res = {"weight": wname, "M": GEMV_MAX_M, "N": N, "K": K, "max_abs_err": err,
+           "sqnr_db": compute_error(want, got), "k1_ms": time_ms(kernel),
+           "matmul_ms": time_ms(lambda: torch.matmul(x, wd)), "bound_ms": bound(nbytes, flops)[0]}
+    del x, wd, got, want
+    log(json.dumps({"k1_m32": res}))
+
+
 def _int4_kernels(params, args, gen):
     tallies = check_int4(params, args, gen)
     int4_route_threshold(params, gen)
+    k1_at_its_upper_m(params, gen)
     tallies += [check_kv_write(args, gen), check_decode_attention(args, gen),
                 check_prefill_attention(args, gen)]
     return tallies

@@ -132,3 +132,68 @@ def test_linear_fp6_routes_match_jax(runtime, M):
         assert got.shape == (M, N)
         assert compute_error(torch.from_numpy(np.asarray(want.astype(jnp.float32))), got) >= 40
     jax.clear_caches()
+
+
+# ------------------------------------------- K11's weight stream: its plan --
+
+def _source_int(path, name):
+    import re
+
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / path).read_text()
+    expr = re.search(rf"constexpr int {name} = ([0-9 *+]+);", text).group(1)
+    return eval(expr, {"__builtins__": {}})  # digits, spaces, * and + only
+
+
+def test_dual_constants_are_the_cuda_source():
+    """K11's B rows per warp and M limit are the source's; its warps' B rows
+    tile the weight stream's 128-column strip."""
+    from torchao_tpu_torch.kernels import _build
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+    from torchao_tpu_torch.kernels.int4_matmul import STREAM_COLS, STREAM_WARPS
+
+    assert _source_int("fp6_matmul.cu", "DUAL_MAX_M") == F.GEMV_MAX_M
+    assert F.DUAL_B_ROWS * STREAM_WARPS == STREAM_COLS
+    text = (_build.CSRC / "fp6_matmul.cu").read_text()
+    assert "DUAL_B_ROWS = wstream::COLS / wstream::WARPS" in text
+
+
+@pytest.mark.parametrize("N,K", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                                 (4096 + 128, 2048), (256, 1024)])
+def test_dual_split_walks_every_weight_byte_once(N, K):
+    """K11's walk (csrc fp6_dual_kernel), written out for the plan of
+    :func:`dual_nsplit` at M = 1, 5 and 16 on 132 SMs: split y takes the A
+    steps [y·S/ns, (y+1)·S/ns) of 8 packed rows (warp w a contiguous eighth)
+    and the B chunks [y·C/ns, (y+1)·C/ns) of 16 k (warp w 16 of a strip's
+    128 rows, lane l every 32nd chunk); every packed row of A and every k of
+    every B row is read exactly once, and the block's shared memory fits."""
+    from torchao_tpu_torch.kernels.fp6_matmul import dual_nsplit
+
+    Kp = K // 2
+    S, C = Kp // 8, K // 16
+    for M in (1, 5, 16):
+        ns = dual_nsplit(M, K, N, 132)
+        assert 1 <= ns <= S
+        seen_a, seen_b = np.zeros(Kp, int), np.zeros((K, 128), int)
+        for y in range(ns):
+            s0, s1 = y * S // ns, (y + 1) * S // ns
+            for w in range(8):
+                for st in range(s0 + w * (s1 - s0) // 8, s0 + (w + 1) * (s1 - s0) // 8):
+                    seen_a[8 * st:8 * st + 8] += 1
+                for lane in range(32):
+                    for c in range(y * C // ns + lane, (y + 1) * C // ns, 32):
+                        seen_b[16 * c:16 * c + 16, 16 * w:16 * w + 16] += 1
+        assert (seen_a == 1).all() and (seen_b == 1).all(), (M, ns)
+        xst = -(-S // ns) * 8 + 4  # x pairs, or the warps' sums
+        smem = max(M * xst * 4, 8 * M * 128 * 4)
+        assert smem <= _source_int("weight_stream.cuh", "MAX_SMEM")
+
+
+def test_dual_planes_b_fits_in_int8():
+    """``to_dual_planes`` gives B in [-56, 56] (fp6's largest magnitude, 28
+    = 896 / 32, is 16·56 + 0): K11 reads it as int8, exact in f32."""
+    _, tw = _packed(7)
+    b = tw.to_dual_planes().b_plane.qdata
+    assert b.dtype == torch.int8
+    assert int(b.min()) >= -56 and int(b.max()) <= 56

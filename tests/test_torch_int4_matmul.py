@@ -259,3 +259,87 @@ def test_tiled_split_walks_every_packed_row_once():
                     assert rows in (TILED_KP, TILED_BKP)
                     seen[kp0:kp0 + rows] += 1
             assert (seen == 1).all(), (Kp, ks)
+
+
+# ------------------------------------------- K1's weight stream: its plan --
+
+def _source_int(path, name):
+    """``constexpr int <name> = <integer arithmetic>;`` of ``csrc/<path>``."""
+    import re
+
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / path).read_text()
+    expr = re.search(rf"constexpr int {name} = ([0-9 *+]+);", text).group(1)
+    return eval(expr, {"__builtins__": {}})  # digits, spaces, * and + only
+
+
+def test_stream_constants_are_the_cuda_sources():
+    """The wrappers' weight-stream constants (the plan's units, the strips,
+    the shared memory cap, K1's and its stub's M limits) are the CUDA
+    source's, so a plan and the kernels cannot drift apart."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+
+    ws = "weight_stream.cuh"
+    assert _source_int(ws, "WARPS") == TK.STREAM_WARPS
+    assert _source_int(ws, "COLS") == TK.STREAM_COLS
+    assert _source_int(ws, "STEP_ROWS") == TK.STREAM_STEP_ROWS == TK.GEMV_RUN
+    assert _source_int("int4_matmul.cu", "K1_MAX_M") == TK.GEMV_MAX_M
+    assert _source_int("int4_matmul.cu", "K1_STUB_MAX_M") == TK.K1_STUB_MAX_M
+
+
+def _k1_smem(M, K, nsplit):
+    """csrc k1_smem, from the source's constants: the qparams rings (a slot
+    per step in flight and one) and the split's x pairs, or the warps' sums
+    in the same bytes."""
+    warps = _source_int("weight_stream.cuh", "WARPS")
+    slots = _source_int("weight_stream.cuh", "PREFETCH") + 1
+    ring = warps * slots * _source_int("int4_matmul.cu", "K1_QSLOT")
+    steps = K // 2 // 8
+    xst = -(-steps // nsplit) * 8 + 4
+    return max(ring + M * xst * 4, warps * M * 128 * 4)
+
+
+K1_PLAN_SHAPES = LLAMA3_8B_SHAPES + [(4096 + 16, 1024), (4096 + 16, 2048), (4096 + 16, 4096),
+                                     (64, 256)]
+
+
+@pytest.mark.parametrize("g", [32, 64, 128, 256])
+@pytest.mark.parametrize("N,K", K1_PLAN_SHAPES)
+def test_gemv_split_walks_every_packed_row_once(N, K, g):
+    """K1's walk (csrc int4_gemv_kernel), written out for the plan of
+    :func:`gemv_nsplit` at M = 1, 8, 17 and 32 on an H100's 132 SMs: split
+    y takes steps [y·S/ns, (y+1)·S/ns) of 8 packed rows, warp w a contiguous
+    eighth of them; every packed row is read exactly once, each step lies in
+    one group, and the block's shared memory fits (two blocks an SM at one
+    n-tile, beside the 1 KB the card reserves a block)."""
+    from torchao_tpu_torch.kernels.int4_matmul import gemv_nsplit
+
+    Kp = K // 2
+    if Kp % g:
+        pytest.skip(f"K/2={Kp} holds no whole group of {g}")
+    S = Kp // 8
+    for M in (1, 8, 17, 32):
+        ns = gemv_nsplit(M, K, N, 132)
+        assert 1 <= ns <= S
+        seen = np.zeros(Kp, int)
+        for y in range(ns):
+            s0, s1 = y * S // ns, (y + 1) * S // ns
+            for w in range(8):
+                for st in range(s0 + w * (s1 - s0) // 8, s0 + (w + 1) * (s1 - s0) // 8):
+                    assert (8 * st) // g == (8 * st + 7) // g
+                    seen[8 * st:8 * st + 8] += 1
+        assert (seen == 1).all(), (M, ns)
+        smem = _k1_smem(M, K, ns)
+        assert smem <= _source_int("weight_stream.cuh", "MAX_SMEM")
+        if M <= 8:
+            assert 2 * (smem + 1024) <= 228 * 1024
+
+
+def test_gemv_plan_fills_the_card_at_llama3_8b_shapes():
+    """At M = 1 every Llama-3-8B linear's plan gives every SM a block: the
+    grid of strips x splits is at least 132 blocks."""
+    from torchao_tpu_torch.kernels.int4_matmul import gemv_nsplit
+
+    for N, K in LLAMA3_8B_SHAPES:
+        assert -(-N // 128) * gemv_nsplit(1, K, N, 132) >= 132, (N, K)

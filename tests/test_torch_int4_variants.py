@@ -232,7 +232,7 @@ def test_group_partial_launches_its_tensor_core_form_above_m32(zero_free):
         assert TK.launch_counter("group_partial", zero_free) == (
             "int4_dq_matmul_zero_free_group_partial" if zero_free
             else "int4_dq_matmul_group_partial")
-        assert _build.SIGNATURES[entry] == _build.SIGNATURES["tt_int4_gemv"]
+        assert _build.SIGNATURES[entry] == _build.SIGNATURES["tt_int4_tiled"]
     assert TK.launch_entry("tiled", 128, 32) == "tt_int4_tiled"
     # (N, K) of wqkv, wo, w13, w2 and the head: 48, 32, 224, 32 and 1002 tiles
     # of 128 x 128 on 132 SMs

@@ -1192,3 +1192,130 @@ def test_w4a8_mma_kernel_matches_plain(cuda, monkeypatch, M, g, K, N, split):
             before[0] + 1, before[1] + 1)
         want = w4a8_dq_matmul_plain(x_q, x_s, wp, scale, group_size=g, out_dtype=out_dtype)
         _sqnr_ok(got, want, TOL_W4A8_MMA_DB[out_dtype])
+
+
+# ------------------------------------------ K1 and K11 on the weight stream --
+
+
+def _stream_tickets_are_zero(dev):
+    t = _build._STREAM_BUFFERS.get((dev, "tickets"))
+    return t is None or int(t.abs().sum()) == 0
+
+
+def _int4_args(gen, M, K, N, g, zero, stacked, dev):
+    wp, scale, z = _int4_weight(gen, 2, K, N, g, dev)
+    z = z if zero else None
+    if not stacked:
+        wp, scale, z = wp[0], scale[0], None if z is None else z[0]
+    x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+    return x, (wp, scale, z), dict(group_size=g, layer_idx=1 if stacked else None, xored=True)
+
+
+# N = 4096 + 16 leaves a ragged 128-column strip; the K split is the plan's
+# or forced to three (uneven: 128 steps of 8 packed rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
+@pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("M", [1, 2, 8, 17, 32])
+def test_gemv_stream_kernel_matches_plain(cuda, monkeypatch, M, g, zero, stacked, split):
+    """K1 on the weight stream at every n-tile count (M <= 8, 16, 32), with
+    a zero and zero-free, against its plain version; it counts one launch
+    of ``tt_int4_gemv`` and leaves the tickets at zero."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+
+    if split == "three":
+        monkeypatch.setattr(TK, "gemv_nsplit", lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + g + zero + stacked)
+    x, args, kw = _int4_args(gen, M, 2048, 4096 + 16, g, zero, stacked, cuda)
+    counter = TK.launch_counter("gemv", not zero)
+    before, entries = _build.LAUNCHES[counter], _build.ENTRIES["tt_int4_gemv"]
+    got = TK.int4_dq_matmul(x, *args, **kw)
+    assert _build.LAUNCHES[counter] == before + 1
+    assert _build.ENTRIES["tt_int4_gemv"] == entries + 1
+    _sqnr_ok(got, TK.int4_dq_matmul_plain(x, *args, **kw))
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_fp6_dual_stream_matches_plain(cuda, monkeypatch, M, split):
+    """K11 on the weight stream, stacked and unstacked, the K split the
+    plan's or forced to three (16 units of 64 packed rows), against its
+    plain version; the tickets stay at zero."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+
+    if split == "three":
+        monkeypatch.setattr(F, "dual_nsplit", lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + 7)
+    _, dual = _fp6_weight(gen, 2, 4096 + 128, 2048, cuda)
+    x = torch.randn((M, 2048), generator=gen, device=cuda).bfloat16()
+    a, b = dual.a_plane, dual.b_plane
+    args = (a.qdata, b.qdata, a.scale[:, 0, :].contiguous())
+    for l in (1, None):
+        la = args if l is not None else tuple(t[0] for t in args)
+        _sqnr_ok(F.fp6_dual_matmul(x, *la, layer_idx=l),
+                 F.fp6_dual_matmul_plain(x, *la, layer_idx=l))
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4])
+def test_stub_arm_on_the_stream_at_forced_splits(cuda, monkeypatch, M):
+    """K1's stub arm on K1's new structure with the K split forced to one
+    and to five, against its plain version."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+
+    gen = torch.Generator(device=cuda).manual_seed(M + 11)
+    x, (wp, scale, zero), _ = _int4_args(gen, M, 4096, 4096 + 16, 32, True, True, cuda)
+    for ns in (1, 5):
+        monkeypatch.setattr(TK, "gemv_nsplit", lambda *a, ns=ns: ns)
+        for z in (zero, None):
+            got = TK.int4_dq_matmul_stub(x, wp, scale, z, group_size=32, layer_idx=1)
+            _sqnr_ok(got, TK.int4_dq_matmul_stub_plain(x, wp, scale, z, group_size=32,
+                                                       layer_idx=1))
+    with pytest.raises(ValueError, match="M <= 4"):
+        TK.int4_dq_matmul_stub(torch.zeros((5, 4096), dtype=torch.bfloat16, device=cuda), wp,
+                               scale, zero, group_size=32, layer_idx=1)
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_gemv_stream_is_one_kernel_and_repeats_bit_for_bit(cuda):
+    """K1 (with a zero at M = 1, zero-free at M = 17), its stub arm and K11,
+    each at a shape its plan splits: a call is one kernel on the card and
+    nothing else (the nodes of a CUDA graph captured around it); two calls
+    back to back, and two replays of a graph of one call, give the same
+    bits, which holds only if the merging block reset its ticket."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    K, N = 4096, 4096
+    calls = []
+    for M, zero in ((1, True), (17, False)):
+        x, args, kw = _int4_args(gen, M, K, N, 32, zero, True, cuda)
+        assert TK.gemv_nsplit(M, K, N, _build.sm_count(0)) > 1
+        calls.append(lambda x=x, args=args, kw=kw: TK.int4_dq_matmul(x, *args, **kw))
+    x, (wp, scale, zero), _ = _int4_args(gen, 1, K, N, 32, True, True, cuda)
+    calls.append(lambda: TK.int4_dq_matmul_stub(x, wp, scale, zero, group_size=32, layer_idx=1))
+    _, dual = _fp6_weight(gen, 2, N, K, cuda)
+    a, b = dual.a_plane, dual.b_plane
+    pargs = (a.qdata, b.qdata, a.scale[:, 0, :].contiguous())
+    assert F.dual_nsplit(1, K, N, _build.sm_count(0)) > 1
+    calls.append(lambda: F.fp6_dual_matmul(x, *pargs, layer_idx=1))
+    for call in calls:
+        first = call()
+        assert torch.equal(call(), first)
+        assert kernels_per_call(call) == (1, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert _stream_tickets_are_zero(cuda)

@@ -14,12 +14,38 @@
 // [K/g, N] bf16. A stacked [L, ...] weight is addressed by the caller with
 // a pointer offset, so no per-layer copy is made.
 //
-// What bounds it on an H100: at M = 1 the GEMV is bound by bytes (0.5 B of
-// packed weight per element plus 4 B of bf16 scale+zero per group of g;
-// Llama-3-8B moves ~4.7 GB per decoded token, ~1.4 ms at 3.35 TB/s). The
-// GEMV therefore reads each weight byte once with 16-byte loads, keeps the
-// dequantized weight in registers only, and folds the group zero into one
-// multiply per group: sum_k x (q-8) s + z = s * sum_k x (q-8) + z * sum_k x.
+// K1, tt_int4_gemv (M <= 32): bound by bytes on an H100 (0.5 B of packed
+// weight per element plus 4 B of bf16 scale + zero per group of g; a
+// Llama-3-8B decode step moves ~4.7 GB, 1.4 ms at 3.35 TB/s). It runs on
+// the weight stream of weight_stream.cuh (tensor cores, each lane's next
+// steps in flight in registers, one launch with the K-split merge folded
+// in). What is K1's own:
+//   - the A element of an mma is a packed byte's (lo, hi) pair, dequantized
+//     in bf16 pairs: 0x4300 | q built by LOP3/PRMT, less 136 (exact), then
+//     one bf16x2 fused multiply-add with the (s_lo, s_hi) and (z_lo, z_hi)
+//     pairs of its column: (q - 8) s + z rounded ONCE to bf16, where the
+//     plain version rounds its f32 value (the same exact product; the two
+//     differ only where the f32 rounding of the sum meets a bf16 tie);
+//   - a group's scale and zero rows (4 x 128 columns, bf16) go through a
+//     small per-warp cp.async ring in shared memory (the four lanes of a
+//     column group share them), a slot per step in flight, filled for the
+//     warp's first step of the group: copied once per group and column (a
+//     lane copies one row of its 16 columns), and turned into 32 pair
+//     registers when that step is consumed;
+//   - the step (8 packed rows) lies inside one group (g % 8 == 0), and a
+//     split ends on whole steps: no partial K blocks.
+// NT = ceil(M / 8) n-tiles (1, 2 or 4: M <= 8, 16, 32); one block of 8 warps
+// per SM at NT > 1 (the accumulators), two at NT = 1.
+//
+// K1's stub arm (the ceiling probe's, STUB = true, tt_int4_gemv_stub, M <= 4):
+// the same grid, ring, loads (qparams too) and ticket merge, with the
+// dequantization and the mma replaced by one raw-byte dot on the CUDA cores
+// (the lo-half x times the stored bytes as int8) and the qparams kept live by
+// a 1e-30 term; a compile-time parameter of K1's template.
+//
+// The qparams-layout arms of the probe P6 (tt_int4_gemv_eff4 and
+// tt_int4_gemv_m1) stay on the SIMT GEMV design, kept for them alone as
+// p6_gemv_kernel (with K14's helpers below).
 //
 // K5, tt_int4_tiled (M > 32; the prefill runs M = 128): bound by operations
 // on an H100 (2 M N K flops at the 989 TFLOP/s bf16 tensor-core peak against
@@ -44,28 +70,7 @@
 //     ldmatrix feeds x (A) and the dequantized tile (B, transposed).
 //   - Where ceil(M/128) ceil(N/128) blocks would not fill the card (wo, w2
 //     and wqkv at M = 128), the wrapper splits K over the grid: f32 partials
-//     go to a workspace and int4_reduce_kernel sums them (as K1).
-//
-// K1's stub arm (the ceiling probe's, STUB = true, tt_int4_gemv_stub): the
-// same grid, loads and reduce, with the dequantization replaced by one
-// raw-byte dot; a compile-time parameter, so production K1's code is the
-// same instantiation as before.
-//
-// The qparams-layout arms of the probe P6 (QP != QP_SZ, tt_int4_gemv_eff4
-// and tt_int4_gemv_m1) replace scripts/int4_probe2.py::m1_matmul (pallas_call
-// at :141, body _kernel_m1 at :43) and its eff4 arm (the batched-int8 body
-// _kernel_bint8 reading qparams_eff as four streams): K1's grid, loads and
-// reduce, with the four bf16 qparam families of the batched-int8 math
-// (s_lo | s_hi/16 | z - 8 s_lo | z_hi) read in place of scale and zero,
-// either family-major [4 nG, N] (eff4: four row streams) or chunked
-// block-major [nG/cb, 4, cb, N] (m1: the four families of a chunk of cb
-// groups in one contiguous slab, eff_qparams_to_block_major's layout).
-//   sum_k x dq = s_lo * sum x lo + (s_hi/16) * 16 sum x (hi - 8)
-//                + (z - 8 s_lo) * sum x_lo + z_hi * sum x_hi
-// The same bytes as production K1 (two bf16 [K/g, N] arrays there, one
-// [2K/g, N] array here), so the arms price the layout only: they are
-// compile-time parameters of K1's CUDA template (CUDA, as K1, so that only
-// the layout differs), and production K1 is the same instantiation as before.
+//     go to a workspace and int4_reduce_kernel sums them.
 //
 // The int4 variants K14a (group_partial: a SIMT form, and above M = 32 a
 // tensor-core form on K5's tile) and K14b/K14c (banded) follow the tiled
@@ -75,225 +80,220 @@
 // fp6's A plane: dq = (q - 8) * s). The kernels are templated on it, so that
 // form reads no zero and does no sum of x.
 //
-// No partial K blocks: the GEMV walks whole runs of RUN packed rows that
-// lie inside one group; the tiled form walks steps of TBKP = 32 packed rows,
+// No partial K blocks: the tiled form walks steps of TBKP = 32 packed rows,
 // and where its split's rows end on an odd unit of TKP = 16 it takes a last
 // step of 16 (never reading past the array); the host wrapper checks K/2 %
-// g == 0, g % RUN == 0 and K/2 % TKP == 0. The M and N edges are masked
+// g == 0, g % 8 == 0 and K/2 % TKP == 0. The M and N edges are masked
 // (N % 16 == 0 is required for the 16-byte loads).
 #include "common.cuh"
+#include "weight_stream.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- GEMV --
-constexpr int GEMV_THREADS = 256;
-constexpr int GEMV_COLS = 16;                              // one 16-byte load
-constexpr int GEMV_CHUNKS = 8;                             // column chunks / block
-constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
-constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
-constexpr int RUN = 8;                                     // packed rows per run
+// ---------------------------------------------------------------- K1 --
+constexpr int K1_QSLOT = 1024;  // a group's s_lo, s_hi, z_lo, z_hi x 128 columns, bf16
+constexpr int K1_QSTAGES = wstream::PREFETCH + 1;  // the qparams ring: a slot per step in flight
+constexpr int K1_RING = wstream::WARPS * K1_QSTAGES * K1_QSLOT;  // 32 KB
+constexpr int K1_MAX_M = 32;
+constexpr int K1_STUB_MAX_M = 4;
 
-enum QParams { QP_SZ = 0, QP_EFF4 = 1, QP_M1 = 2 };  // scale + zero; the P6 layouts
-
-// 16 bf16 columns at row `row` of a [rows, N] array -> 16 floats
-__device__ __forceinline__ void load_row16(const __nv_bfloat16* a, size_t row, int N, int n0,
-                                           float* f) {
-  const uint4* p = reinterpret_cast<const uint4*>(a + row * N + n0);
-  bf16x8_to_float(__ldg(p), f);
-  bf16x8_to_float(__ldg(p + 1), f + 8);
-}
-
-// grid: (ceil(N / 128), ksplit, ceil(M / MT)); block: 256 threads.
-// Thread (lane, chunk) handles 16 columns and every 32nd run of its split.
-// Partial sums go to ws[ksplit, M, N] (fp32); tt_int4_reduce finishes.
-// QP != QP_SZ: `sc` is the qparams_eff array in that layout (`cb` groups per
-// chunk for QP_M1), `zr` is unused.
-template <int MT, bool HAS_Z, bool STUB = false, int QP = QP_SZ>
-__global__ void __launch_bounds__(GEMV_THREADS)
+// grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes steps
+// [y S / nsplit, (y + 1) S / nsplit) of the S = K/2 / 8 steps; warp w a
+// contiguous eighth of them. ws ([nsplit, M, N] f32) and the tickets (one
+// per strip, zero) as in wstream::finish.
+template <int NT, bool HAS_Z, bool STUB>
+__global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
-                 float* __restrict__ ws, int M, int K, int N, int g, int cb = 0) {
-  const int Kp = K / 2;
-  const int chunk = threadIdx.x % GEMV_CHUNKS;
-  const int lane = threadIdx.x / GEMV_CHUNKS;
-  const int n0 = blockIdx.x * GEMV_TN + chunk * GEMV_COLS;
-  const bool valid = n0 < N;
-  const int m0 = blockIdx.z * MT;
-  const int runs = Kp / RUN;
-  const int r0 = (int)(((long long)blockIdx.y * runs) / gridDim.y);
-  const int r1 = (int)(((long long)(blockIdx.y + 1) * runs) / gridDim.y);
+                 float* __restrict__ ws, int* __restrict__ tickets,
+                 __nv_bfloat16* __restrict__ out, int M, int K, int N, int g) {
+  constexpr int PF = wstream::PREFETCH, ROWS = wstream::STEP_ROWS, COLS = wstream::COLS;
+  extern __shared__ __align__(16) uint8_t k1_smem[];
+  const int Kp = K / 2, nGh = Kp / g, spg = g / ROWS;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gq = lane / 4, tq = lane % 4;
+  const int steps = Kp / ROWS;
+  const int s0 = (int)((long long)blockIdx.y * steps / gridDim.y);
+  const int s1 = (int)((long long)(blockIdx.y + 1) * steps / gridDim.y);
+  // x pairs a row: xst / 4 odd, so a warp's B loads hit 32 banks
+  const int xst = (steps + gridDim.y - 1) / gridDim.y * ROWS + 4;
+  uint8_t* ring = k1_smem + warp * K1_QSTAGES * K1_QSLOT;
+  uint32_t* xs = reinterpret_cast<uint32_t*>(k1_smem + K1_RING);
+  int first, last;
+  wstream::warp_range(s1 - s0, first, last);
+  first += s0;
+  last += s0;
+  const int col = blockIdx.x * COLS + 16 * gq;
+  const bool ok = col < N;
+  auto needs_q = [&](int st) { return st == first || st % spg == 0; };
 
-  float acc[MT][GEMV_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
+  // Step st's weight bytes: rows tq and tq + 4 of its 8, at this lane's 16
+  // columns, into registers.
+  auto load = [&](int st, uint4& a, uint4& b) {
+    const size_t kp = (size_t)st * ROWS;
+    wstream::load_rows(wp, kp + tq, kp + tq + 4, N, col, ok && st < last, a, b);
+  };
+  // Where step st opens the warp's view of a group: row tq of the group's
+  // (s_lo, s_hi, z_lo, z_hi) at this lane's 16 columns, into ring slot s.
+  auto issue_q = [&](int st, int s) {
+    if (needs_q(st) && (HAS_Z || tq < 2)) {
+      const __nv_bfloat16* a = tq < 2 ? sc : zr;
+      const size_t row = (size_t)(st * ROWS / g + (tq % 2) * nGh);
+      __nv_bfloat16* q =
+          reinterpret_cast<__nv_bfloat16*>(ring + s * K1_QSLOT) + tq * COLS + 16 * gq;
+      cp_async<16>(q, ok ? a + row * N + col : a, ok);
+      cp_async<16>(q + 8, ok ? a + row * N + col + 8 : a, ok);
+    }
+  };
 
-  if (valid) {
-    for (int r = r0 + lane; r < r1; r += GEMV_LANES) {
-      const int kp0 = r * RUN;
-      const int glo = kp0 / g, ghi = (kp0 + Kp) / g;
-      uint4 w[RUN];
+  float acc[NT][8][4];
 #pragma unroll
-      for (int i = 0; i < RUN; ++i)
-        w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
-      float s_lo[GEMV_COLS], z_lo[GEMV_COLS], s_hi[GEMV_COLS], z_hi[GEMV_COLS];
-      if constexpr (QP != QP_SZ) {
-        // family f of lo-half group glo: s_lo, s_hi/16, z - 8 s_lo, z_hi
-        const int nG = Kp / g;
-        auto row = [&](int f) -> size_t {
-          return QP == QP_EFF4 ? (size_t)f * nG + glo
-                               : ((size_t)(glo / cb) * 4 + f) * cb + glo % cb;
-        };
-        load_row16(sc, row(0), N, n0, s_lo);
-        load_row16(sc, row(1), N, n0, s_hi);
-        load_row16(sc, row(2), N, n0, z_lo);
-        load_row16(sc, row(3), N, n0, z_hi);
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m0 + m >= M) break;
-          float xl[RUN], xh[RUN];
-          const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
-          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
-          float sxl = 0.f, sxh = 0.f;
-          float pl[GEMV_COLS], ph[GEMV_COLS];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
+      for (int e = 0; e < 4; ++e) acc[nt][j][e] = 0.f;
+  uint32_t s2[16], z2[16];  // (s_lo, s_hi) and (z_lo, z_hi) of the lane's 16 columns
+  float sacc[STUB ? K1_STUB_MAX_M : 1][16];  // the stub's raw-byte sums, rows x columns
 #pragma unroll
-          for (int i = 0; i < RUN; ++i) {
-            sxl += xl[i];
-            sxh += xh[i];
-            const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+  for (int m = 0; m < (STUB ? K1_STUB_MAX_M : 1); ++m)
 #pragma unroll
-            for (int d = 0; d < 4; ++d) {
-              const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
-              const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+    for (int c = 0; c < 16; ++c) sacc[m][c] = 0.f;
+
+  wstream::StepRing<PF> wring;
+  wring.fill(load, first);
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);          // x * lo
-                ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);   // x * (hi - 8)
-              }
-            }
-          }
+  for (int s = 0; s < PF; ++s) {
+    if (first + s < last) issue_q(first + s, s);
+    cp_async_commit();
+  }
+  wstream::stage_x_pairs(xs, x, M, K, s0 * ROWS, (s1 - s0) * ROWS, xst);
+  __syncthreads();
+
+  for (int st = first; st < last; ++st) {
+    const int i = st - first;
+    cp_async_wait<PF - 1>();
+    __syncwarp();  // every lane's qparams copies of step st landed; all done with step st - 1's
+    if (st + PF < last) issue_q(st + PF, (i + PF) % K1_QSTAGES);
+    cp_async_commit();
+    const uint8_t* slot = ring + (i % K1_QSTAGES) * K1_QSLOT;
+    uint4 w0, w1;
+    wring.next(load, st + PF, w0, w1);
+    const uint32_t* r0 = &w0.x;
+    const uint32_t* r1 = &w1.x;
+    const uint32_t* xr = xs + (st - s0) * ROWS + tq;  // + m xst: (x[kp], x[kp + K/2]) of row tq
+
+    if (needs_q(st)) {
+      const uint4* q = reinterpret_cast<const uint4*>(slot) + 2 * gq;
+      uint32_t w[4][8];  // rows s_lo, s_hi, z_lo, z_hi; word e = columns 2e, 2e + 1
 #pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c)
-            acc[m][c] += s_lo[c] * pl[c] + (16.f * s_hi[c]) * ph[c] + z_lo[c] * sxl +
-                         z_hi[c] * sxh;
-        }
-        continue;
-      }
-      {
-        const uint4* p;
-        p = reinterpret_cast<const uint4*>(sc + (size_t)glo * N + n0);
-        bf16x8_to_float(__ldg(p), s_lo); bf16x8_to_float(__ldg(p + 1), s_lo + 8);
-        p = reinterpret_cast<const uint4*>(sc + (size_t)ghi * N + n0);
-        bf16x8_to_float(__ldg(p), s_hi); bf16x8_to_float(__ldg(p + 1), s_hi + 8);
-        if constexpr (HAS_Z) {
-          p = reinterpret_cast<const uint4*>(zr + (size_t)glo * N + n0);
-          bf16x8_to_float(__ldg(p), z_lo); bf16x8_to_float(__ldg(p + 1), z_lo + 8);
-          p = reinterpret_cast<const uint4*>(zr + (size_t)ghi * N + n0);
-          bf16x8_to_float(__ldg(p), z_hi); bf16x8_to_float(__ldg(p + 1), z_hi + 8);
-        }
+      for (int r = 0; r < (HAS_Z ? 4 : 2); ++r) {
+        const uint4 a = q[r * COLS / 8], b = q[r * COLS / 8 + 1];
+        w[r][0] = a.x; w[r][1] = a.y; w[r][2] = a.z; w[r][3] = a.w;
+        w[r][4] = b.x; w[r][5] = b.y; w[r][6] = b.z; w[r][7] = b.w;
       }
       if constexpr (STUB) {
-        // _kernel_bint8m's stub arm (int4_matmul.py:220-238): the same loads,
-        // one dot of the low-half x against the stored bytes as int8, the
-        // qparams kept live by a 1e-30 term. Not the matmul.
+        // the plain version adds 1e-30 (g / 8) (sum of the qparams) once per group;
+        // this warp adds its steps' share of that
+        const int mine = min(last, (st / spg + 1) * spg) - st;
+        if (tq == 0) {
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m0 + m >= M) break;
-          float xl[RUN];
-          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + kp0)),
-                          xl);
+          for (int c = 0; c < 16; ++c) {
+            float qs = 0.f;
 #pragma unroll
-          for (int i = 0; i < RUN; ++i) {
-            const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+            for (int r = 0; r < (HAS_Z ? 4 : 2); ++r) {
+              const uint32_t h = c % 2 ? w[r][c / 2] >> 16 : w[r][c / 2] & 0xFFFFu;
+              qs += __uint_as_float(h << 16);
+            }
 #pragma unroll
-            for (int d = 0; d < 4; ++d)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[m][4 * d + j] = fmaf(xl[i], sbyte(wd[d] ^ 0x80808080u, j), acc[m][4 * d + j]);
-          }
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) {
-            float q = s_lo[c] + s_hi[c];
-            if constexpr (HAS_Z) q += z_lo[c] + z_hi[c];
-            acc[m][c] += 1e-30f * q;
+            for (int m = 0; m < K1_STUB_MAX_M; ++m)
+              if (m < M) sacc[m][c] += 1e-30f * (float)mine * qs;
           }
         }
-        continue;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const uint32_t sel = c % 2 ? 0x7632 : 0x5410;
+          s2[c] = wstream::prmt(w[0][c / 2], w[1][c / 2], sel);
+          z2[c] = HAS_Z ? wstream::prmt(w[2][c / 2], w[3][c / 2], sel) : 0u;
+        }
       }
+    }
+
+    if constexpr (STUB) {
+      // _kernel_bint8m's stub arm (int4_matmul.py:220-238): the lo-half x
+      // times the stored bytes as int8, the dequantization and the mma gone
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float xl[RUN], xh[RUN];
-        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
-        float sxl = 0.f, sxh = 0.f;
-        float pl[GEMV_COLS], ph[GEMV_COLS];
+      for (int rr = 0; rr < 2; ++rr) {
+        float xv[K1_STUB_MAX_M];
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
+        for (int m = 0; m < K1_STUB_MAX_M; ++m)
+          xv[m] = m < M ? __uint_as_float(xr[m * xst + 4 * rr] << 16) : 0.f;
+        const uint32_t* r = rr ? r1 : r0;
 #pragma unroll
-        for (int i = 0; i < RUN; ++i) {
-          sxl += xl[i];
-          sxh += xh[i];
-          const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+        for (int d = 0; d < 4; ++d) {
+          const uint32_t v = r[d] ^ 0x80808080u;
 #pragma unroll
-          for (int d = 0; d < 4; ++d) {
-            const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;                       // xor leaves low nibble
-            const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;  // undo the 0x80 xor
+          for (int jj = 0; jj < 4; ++jj) {
+            const float f = sbyte(v, jj);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              pl[4 * d + j] = fmaf(xl[i], nib_minus8(lo4, j), pl[4 * d + j]);
-              ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);
+            for (int m = 0; m < K1_STUB_MAX_M; ++m) {
+              if (m >= M) break;
+              sacc[m][4 * d + jj] = fmaf(xv[m], f, sacc[m][4 * d + jj]);
             }
           }
         }
+      }
+    } else {
+      uint32_t b[NT][2];
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) {
-          if constexpr (HAS_Z)
-            acc[m][c] += s_lo[c] * pl[c] + z_lo[c] * sxl + s_hi[c] * ph[c] + z_hi[c] * sxh;
-          else
-            acc[m][c] += s_lo[c] * pl[c] + s_hi[c] * ph[c];
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = nt * 8 + gq;
+        b[nt][0] = m < M ? xr[m * xst] : 0u;
+        b[nt][1] = m < M ? xr[m * xst + 4] : 0u;
+      }
+      auto deq = [&](uint32_t p, int c) {
+        const uint32_t q = wstream::hsub2u(p, wstream::BF16X2_136);  // q - 8, exact
+        return HAS_Z ? wstream::hfma2u(q, s2[c], z2[c]) : wstream::hmul2u(q, s2[c]);
+      };
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        uint32_t p0[4], p1[4];
+        wstream::nibble_pairs(r0[d], p0);
+        wstream::nibble_pairs(r1[d], p1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 4 * d + 2 * e;  // mma j = c / 2: bytes c (A row gq), c + 1 (row gq + 8)
+          const uint32_t a[4] = {deq(p0[2 * e], c), deq(p0[2 * e + 1], c + 1), deq(p1[2 * e], c),
+                                 deq(p1[2 * e + 1], c + 1)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[nt][c / 2], a, b[nt]);
         }
       }
     }
   }
 
-  // lanes of one chunk inside a warp differ by 8 and 16 in threadIdx.x
+  if constexpr (STUB) {
+    // sum the four lanes of a column group, then hand row m's sums to lane m / 2
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < K1_STUB_MAX_M; ++m)
 #pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][c] = v;
-    }
-  __shared__ float red[GEMV_THREADS / 32][MT][GEMV_TN];
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x % 32) < GEMV_CHUNKS) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) red[warp][m][chunk * GEMV_COLS + c] = acc[m][c];
-  }
-  __syncthreads();
-  if (threadIdx.x < GEMV_TN) {
-    const int n = blockIdx.x * GEMV_TN + threadIdx.x;
-    if (n < N) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float v = 0.f;
-#pragma unroll
-        for (int w8 = 0; w8 < GEMV_THREADS / 32; ++w8) v += red[w8][m][threadIdx.x];
-        ws[((size_t)blockIdx.y * M + m0 + m) * N + n] = v;
+      for (int c = 0; c < 16; ++c) {
+        float v = sacc[m][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        sacc[m][c] = v;
       }
-    }
+#pragma unroll
+    for (int m = 0; m < K1_STUB_MAX_M; ++m)
+      if (m / 2 == tq)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[0][j][m % 2] = sacc[m][2 * j];
+          acc[0][j][2 + m % 2] = sacc[m][2 * j + 1];
+        }
   }
+  wstream::finish<NT>(acc, reinterpret_cast<float*>(k1_smem), nullptr, nullptr, ws, tickets, out,
+                      M, N);
 }
 
 // out[m, n] = bf16(sum over splits of ws[s, m, n])
@@ -501,10 +501,22 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     }
 }
 
+// --------------------------------------- the SIMT GEMV design: K14, P6 --
+// K14's SIMT bodies and P6's qparams-layout arms keep K1's first GEMV design: a
+// block = 128 columns x a range of runs of RUN packed rows, each thread 16
+// columns and every 32nd run of its split, one 16-byte load per packed row,
+// f32 split-K partials to ws[ksplit, M, N] finished by int4_reduce_kernel.
+constexpr int GEMV_THREADS = 256;
+constexpr int GEMV_COLS = 16;                              // one 16-byte load
+constexpr int GEMV_CHUNKS = 8;                             // column chunks / block
+constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
+constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
+constexpr int RUN = 8;                                     // packed rows per run
+
 // ------------------------------------------------ K14: the int4 variants --
-// Both variants keep K1's launch structure (a block = 128 columns x a range
+// Both variants keep that launch structure (a block = 128 columns x a range
 // of runs of RUN packed rows, one 16-byte load per packed row and thread,
-// split-K partials finished by int4_reduce_kernel) and differ from it, and
+// split-K partials finished by int4_reduce_kernel) and differ from K1, and
 // from each other, in where they round. Like K1 they are bound by bytes at
 // decode. They read scale/zero and form the TPU's derived qparam families
 // in registers (qtypes/intx.py says why that gives the same numbers).
@@ -513,7 +525,7 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// K1's epilogue: sum each column's partials over the block's run lanes and
+// That design's epilogue: sum each column's partials over the block's run lanes and
 // store them as split `split` of ws[ksplit, M, N].
 template <int MT>
 __device__ __forceinline__ void store_split(float (&acc)[MT][GEMV_COLS], float* __restrict__ ws,
@@ -558,6 +570,98 @@ __device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p, i
   const uint4* q = reinterpret_cast<const uint4*>(p + (size_t)gr * N + n0);
   bf16x8_to_float(__ldg(q), f);
   bf16x8_to_float(__ldg(q + 1), f + 8);
+}
+
+enum QParams { QP_EFF4 = 1, QP_M1 = 2 };  // P6's layouts
+
+// P6's arms, replacing scripts/int4_probe2.py::m1_matmul (pallas_call at
+// :141, body _kernel_m1 at :43) and its eff4 arm (the batched-int8 body
+// _kernel_bint8 reading qparams_eff as four streams): the SIMT GEMV's grid,
+// loads and reduce, with the four bf16 qparam families of the batched-int8
+// math (s_lo | s_hi/16 | z - 8 s_lo | z_hi) read in place of scale and zero,
+// either family-major [4 nG, N] (eff4: four row streams) or chunked
+// block-major [nG/cb, 4, cb, N] (m1: the four families of a chunk of cb
+// groups in one contiguous slab, eff_qparams_to_block_major's layout).
+//   sum_k x dq = s_lo * sum x lo + (s_hi/16) * 16 sum x (hi - 8)
+//                + (z - 8 s_lo) * sum x_lo + z_hi * sum x_hi
+// The same bytes as K1 (two bf16 [K/g, N] arrays there, one [2K/g, N] array
+// here), so the two arms price the layout on one design; the probe's K1 arm
+// is K1 itself (tt_int4_gemv, on the weight stream).
+// grid: (ceil(N / 128), ksplit, ceil(M / MT)); `qp` in that layout (`cb`
+// groups per chunk for QP_M1).
+template <int MT, int QP>
+__global__ void __launch_bounds__(GEMV_THREADS)
+p6_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
+               const __nv_bfloat16* __restrict__ qp, float* __restrict__ ws, int M, int K, int N,
+               int g, int cb) {
+  const int Kp = K / 2, nG = Kp / g;
+  const int chunk = threadIdx.x % GEMV_CHUNKS;
+  const int lane = threadIdx.x / GEMV_CHUNKS;
+  const int n0 = blockIdx.x * GEMV_TN + chunk * GEMV_COLS;
+  const int m0 = blockIdx.z * MT;
+  const int runs = Kp / RUN;
+  const int r0 = (int)(((long long)blockIdx.y * runs) / gridDim.y);
+  const int r1 = (int)(((long long)(blockIdx.y + 1) * runs) / gridDim.y);
+
+  float acc[MT][GEMV_COLS];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
+
+  if (n0 < N) {
+    for (int r = r0 + lane; r < r1; r += GEMV_LANES) {
+      const int kp0 = r * RUN;
+      const int glo = kp0 / g;
+      uint4 w[RUN];
+#pragma unroll
+      for (int i = 0; i < RUN; ++i)
+        w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
+      // family f of lo-half group glo: s_lo, s_hi/16, z - 8 s_lo, z_hi
+      auto row = [&](int f) -> size_t {
+        return QP == QP_EFF4 ? (size_t)f * nG + glo
+                             : ((size_t)(glo / cb) * 4 + f) * cb + glo % cb;
+      };
+      float s_lo[GEMV_COLS], z_lo[GEMV_COLS], s_hi[GEMV_COLS], z_hi[GEMV_COLS];
+      load_cols(qp, row(0), N, n0, s_lo);
+      load_cols(qp, row(1), N, n0, s_hi);
+      load_cols(qp, row(2), N, n0, z_lo);
+      load_cols(qp, row(3), N, n0, z_hi);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m0 + m >= M) break;
+        float xl[RUN], xh[RUN];
+        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
+        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
+        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
+        float sxl = 0.f, sxh = 0.f;
+        float pl[GEMV_COLS], ph[GEMV_COLS];
+#pragma unroll
+        for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
+#pragma unroll
+        for (int i = 0; i < RUN; ++i) {
+          sxl += xl[i];
+          sxh += xh[i];
+          const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
+            const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);          // x * lo
+              ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);   // x * (hi - 8)
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < GEMV_COLS; ++c)
+          acc[m][c] += s_lo[c] * pl[c] + (16.f * s_hi[c]) * ph[c] + z_lo[c] * sxl +
+                       z_hi[c] * sxh;
+      }
+    }
+  }
+  store_split<MT>(acc, ws, blockIdx.y, m0, blockIdx.x, M, N);
 }
 
 // K14a, group_partial: replaces _kernel_v2 (torchao_tpu/kernels/int4_matmul.py
@@ -1019,7 +1123,7 @@ static int reduce_splits(float* ws, void* out, int ksplit, int M, int N, cudaStr
   return cudaGetLastError();
 }
 
-// P6's layouts: K1's launch with the qparams_eff array in `qp`.
+// P6's layouts: the SIMT GEMV's launch with the qparams_eff array in `qp`.
 template <int QP>
 static int launch_gemv_eff(const void* x, const void* wp, const void* qp, void* ws, void* out,
                            int M, int K, int N, int g, int cb, int ksplit, void* stream) {
@@ -1032,57 +1136,91 @@ static int launch_gemv_eff(const void* x, const void* wp, const void* qp, void* 
   auto q = static_cast<const __nv_bfloat16*>(qp);
   auto wsf = static_cast<float*>(ws);
   if (mt == 1)
-    int4_gemv_kernel<1, true, false, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, nullptr, wsf, M, K, N, g, cb);
+    p6_gemv_kernel<1, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, wsf, M, K, N, g, cb);
   else
-    int4_gemv_kernel<4, true, false, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, nullptr, wsf, M, K, N, g, cb);
+    p6_gemv_kernel<4, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, wsf, M, K, N, g, cb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_splits(wsf, out, ksplit, M, N, st);
+}
+
+// K1's shared memory: the rings and the split's x pairs, or (after the
+// loop, in the same bytes) the warps' sums.
+static int k1_smem(int M, int K, int nsplit) {
+  const int steps = K / 2 / wstream::STEP_ROWS;
+  const int xst = (steps + nsplit - 1) / nsplit * wstream::STEP_ROWS + 4;
+  const int red = wstream::WARPS * M * wstream::COLS * 4;
+  const int ring = K1_RING + M * xst * 4;
+  return ring > red ? ring : red;
+}
+
+template <int NT, bool HAS_Z, bool STUB>
+static int launch_k1(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
+                     void* tickets, void* out, int M, int K, int N, int g, int nsplit,
+                     cudaStream_t st) {
+  static int configured = 0;  // the largest dynamic shared memory asked for so far
+  const int smem = k1_smem(M, K, nsplit);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(int4_gemv_kernel<NT, HAS_Z, STUB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
+  int4_gemv_kernel<NT, HAS_Z, STUB><<<grid, wstream::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
+      static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
+      K, N, g);
+  return cudaGetLastError();
 }
 
 template <bool STUB>
 static int launch_gemv(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
-                       void* out, int M, int K, int N, int g, int ksplit, void* stream) {
+                       void* tickets, void* out, int M, int K, int N, int g, int nsplit,
+                       void* stream) {
+  const int Kp = K / 2;
+  if (M < 1 || M > (STUB ? K1_STUB_MAX_M : K1_MAX_M) || Kp % 16 || g < wstream::STEP_ROWS ||
+      g % wstream::STEP_ROWS || Kp % g || N % 16 || nsplit < 1 ||
+      nsplit > Kp / wstream::STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
+      k1_smem(M, K, nsplit) > wstream::MAX_SMEM)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((N + GEMV_TN - 1) / GEMV_TN, ksplit, (M + mt - 1) / mt);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto s = static_cast<const __nv_bfloat16*>(sc);
-  auto z = static_cast<const __nv_bfloat16*>(zr);
-  auto wsf = static_cast<float*>(ws);
-  if (mt == 1 && z)
-    int4_gemv_kernel<1, true, STUB><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else if (mt == 1)
-    int4_gemv_kernel<1, false, STUB><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else if (z)
-    int4_gemv_kernel<4, true, STUB><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else
-    int4_gemv_kernel<4, false, STUB><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(wsf, out, ksplit, M, N, st);
+  if (STUB)
+    return zr ? launch_k1<1, true, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
+              : launch_k1<1, false, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+  if (M <= 8)
+    return zr ? launch_k1<1, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
+              : launch_k1<1, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+  if (M <= 16)
+    return zr ? launch_k1<2, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
+              : launch_k1<2, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+  return zr ? launch_k1<4, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
+            : launch_k1<4, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
 }
 
-// x [M, K] bf16; wp [K/2, N] u8; sc, zr [K/g, N] bf16 (layer already
-// offset by the caller; zr null: the zero-free form); ws [ksplit, M, N] fp32
-// scratch; out [M, N] bf16.
+// K1. x [M, K] bf16, M <= 32; wp [K/2, N] u8; sc, zr [K/g, N] bf16 (layer
+// already offset by the caller; zr null: the zero-free form); ws [nsplit, M,
+// N] f32 (null when nsplit == 1); tickets: int32, one per 128-column strip,
+// zero (and left zero); out [M, N] bf16. K/2 % 16 == 0, g % 8 == 0, K/2 % g
+// == 0, N % 16 == 0, 1 <= nsplit <= K/2 / 8; x, wp, sc and zr 16-byte aligned.
 TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const void* zr,
-                           void* ws, void* out, int M, int K, int N, int g, int ksplit,
-                           void* stream) {
-  return launch_gemv<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, stream);
+                           void* ws, void* tickets, void* out, int M, int K, int N, int g,
+                           int nsplit, void* stream) {
+  return launch_gemv<false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, stream);
 }
 
-// K1's stub arm, the ceiling probe's: the same arguments and grid.
+// K1's stub arm, the ceiling probe's: the same arguments, grid and ring; M <= 4.
 TT_EXPORT int tt_int4_gemv_stub(const void* x, const void* wp, const void* sc, const void* zr,
-                                void* ws, void* out, int M, int K, int N, int g, int ksplit,
-                                void* stream) {
-  return launch_gemv<true>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, stream);
+                                void* ws, void* tickets, void* out, int M, int K, int N, int g,
+                                int nsplit, void* stream) {
+  return launch_gemv<true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, stream);
 }
 
-// P6: the arguments of tt_int4_gemv with qp, the qparams_eff array [2K/g, N]
-// bf16, family-major (eff4) or block-major in chunks of cb groups (m1), in
-// place of scale and zero.
+// P6: x, wp, ws, out and the sizes as the SIMT GEMV took them (ws [ksplit,
+// M, N] f32 scratch), with qp, the qparams_eff array [2K/g, N] bf16,
+// family-major (eff4) or block-major in chunks of cb groups (m1), in place of
+// scale and zero.
 TT_EXPORT int tt_int4_gemv_eff4(const void* x, const void* wp, const void* qp, void* ws,
                                 void* out, int M, int K, int N, int g, int ksplit, void* stream) {
   return launch_gemv_eff<QP_EFF4>(x, wp, qp, ws, out, M, K, N, g, 0, ksplit, stream);

@@ -102,14 +102,18 @@ _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
 _GEMV6 = [c_ptr] * 6 + [c_int] * 4 + [c_ptr]
 # x, wp, scale, zero, ws, out, M, K, N, g, ksplit, stream
 _INT4 = [c_ptr] * 6 + [c_int] * 5 + [c_ptr]
+# the weight stream: x, weight(s), scale(s), ws (null: one split), tickets, out,
+# M, K, N, (g,) nsplit, stream
+_STREAM_INT4 = [c_ptr] * 7 + [c_int] * 5 + [c_ptr]
+_STREAM_FP6 = [c_ptr] * 7 + [c_int] * 4 + [c_ptr]
 # fp8 bytes, out, n, stream
 _CAST = [c_ptr, c_ptr, c_i64, c_ptr]
 # a, b, out, M, N, K, stream
 _DOT = [c_ptr] * 3 + [c_int] * 3 + [c_ptr]
 SIGNATURES = {
     # the zero pointer (4th) may be null: the zero-free form
-    "tt_int4_gemv": _INT4,
-    "tt_int4_gemv_stub": _INT4,
+    "tt_int4_gemv": _STREAM_INT4,
+    "tt_int4_gemv_stub": _STREAM_INT4,
     "tt_int4_group_partial": _INT4,
     "tt_int4_group_partial_tiled": _INT4,  # ws may be null (ksplit 1)
     "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
@@ -148,7 +152,7 @@ SIGNATURES = {
     "tt_qmm_mma_e4m3": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_mma_s8": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_fp8_rowwise_gemv": _GEMV6,
-    "tt_fp6_dual_gemv": _GEMV6,
+    "tt_fp6_dual_gemv": _STREAM_FP6,
     "tt_fp6_gemv": _GEMV6,
     # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
     "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
@@ -240,6 +244,40 @@ def sm_count(index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The weight-stream GEMVs' (K1's, K11's) per-device buffers: one ticket
+# counter per 128-column strip, and a K-split workspace per size.
+STREAM_TICKETS = 1 << 16
+_STREAM_BUFFERS: dict = {}
+
+
+def stream_buffers(device, numel: int, strips: int):
+    """(workspace, tickets) for a weight-stream GEMV call on ``device``
+    over ``strips`` column strips whose K-split partials take ``numel`` f32
+    (0: one split, no workspace):
+    allocated at the first call that needs them and kept for the process's
+    life, so a call allocates nothing and a CUDA graph that captured one
+    keeps valid pointers. The tickets are zeroed once; every launch leaves
+    them zero (the block that merges a strip resets its counter). The first
+    call of a size must not be under graph capture."""
+    import torch
+
+    if strips > STREAM_TICKETS:
+        raise ValueError(f"stream_buffers: {strips} column strips exceed the ticket buffer")
+    key = (device, numel)
+    bufs = _STREAM_BUFFERS.get(key)
+    if bufs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("stream_buffers: first call of this size under CUDA graph "
+                               "capture; call it once before capturing")
+        tickets = _STREAM_BUFFERS.get((device, "tickets"))
+        if tickets is None:
+            tickets = _STREAM_BUFFERS[(device, "tickets")] = torch.zeros(
+                STREAM_TICKETS, dtype=torch.int32, device=device)
+        ws = torch.empty(numel, dtype=torch.float32, device=device) if numel else None
+        bufs = _STREAM_BUFFERS[key] = (ws, tickets)
+    return bufs
 
 
 def ptxas_report(names) -> str:

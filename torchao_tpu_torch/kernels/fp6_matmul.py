@@ -9,7 +9,10 @@ dtype:
   (−8..7) and B int8 ``[(L,) N, K]`` (−56..56);
   ``out = (x@A + 16·x@B) · s32[n]`` with ``s32 = scale / 32``. Replaces
   ``fp6_dual_matmul`` (pallas_call at ``fp6_matmul.py:428``, body
-  ``_kernel_dual`` at :317). Counts its launches as ``fp6_dual_matmul``.
+  ``_kernel_dual`` at :317) in one launch a call: the A plane on K1's weight
+  stream (``csrc/weight_stream.cuh``, tensor cores), the B plane on the CUDA
+  cores, its K split planned by :func:`dual_nsplit`. Counts its launches as
+  ``fp6_dual_matmul``.
 - :func:`fp6_dq_matmul` (K12): the packed 6-bit shards, s4 ``[(L,) K/2,
   N]`` (half-split nibbles ``m | e0<<2 | e1<<3``) and s2 ``[(L,) K/4, N]``
   (quarter-split 2-bit fields ``e2 | s<<1``);
@@ -27,19 +30,26 @@ takes the plain version, which also takes float32 x (the kernels take bf16).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels._qmm import layer
+from torchao_tpu_torch.kernels.int4_matmul import (
+    STREAM_COLS,
+    STREAM_STEP_ROWS,
+    STREAM_X_BYTES,
+    stream_nsplit,
+)
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 16
-_TN = 128            # columns per block (csrc TN)
-_RUN = 8             # K11: packed A rows per run (csrc RUN)
+_TN = 128            # K12: columns per block (csrc TN)
 _RUN6 = 4            # K12: s2 rows per run (csrc RUN6)
 _TARGET_BLOCKS = 1024
+DUAL_B_ROWS = 16     # K11: rows of B per warp of its SIMT B loop (csrc DUAL_B_ROWS)
 
 
 def pack_fp6_kmajor(codes: torch.Tensor):
@@ -80,6 +90,18 @@ def fp6_v32(s4: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
 def fp6_dual_supported(M: int, K: int, N: int) -> bool:
     """The JAX package's guard: K/2 % 256 == 0, N % 128 == 0, M <= 16."""
     return M <= GEMV_MAX_M and (K // 2) % 256 == 0 and K % 2 == 0 and N % 128 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def dual_nsplit(M: int, K: int, N: int, sms: int) -> int:
+    """K11's K split (``int4_matmul.stream_nsplit``), K1's over the A plane:
+    units of ``STREAM_STEP_ROWS`` packed rows (each with twice its bytes of
+    the B plane, split alike over k in chunks of 16: three steps' work), two
+    blocks an SM at M <= 8, one above; a split's x pairs in
+    ``STREAM_X_BYTES``."""
+    units = K // 2 // STREAM_STEP_ROWS
+    max_units = max(1, (STREAM_X_BYTES // (4 * M) - 4) // STREAM_STEP_ROWS)
+    return stream_nsplit(cdiv(N, STREAM_COLS), units, 3, sms, 2 if M <= 8 else 1, max_units)
 
 
 def fp6_dual_matmul_plain(x, wa, wb, s32, *, layer_idx=None):
@@ -125,13 +147,13 @@ def fp6_dual_matmul(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor, s32: to
         raise ValueError(f"fp6_dual_matmul: unsupported shape M={M}, K={K}, N={N}")
     _check("fp6_dual_matmul", x, (("A", wa), ("B", wb), ("s32", s32)),
            (torch.uint8, torch.int8, torch.bfloat16))
-    runs = Kp // _RUN
-    ksplit = max(1, min(runs // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _TN))))
-    ws = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
-                     device=x.device)
+    nsplit = dual_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+    ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
+                                        cdiv(N, STREAM_COLS))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _build.library().launch("tt_fp6_dual_gemv", x.data_ptr(), wa.data_ptr(), wb.data_ptr(),
-                            s32.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                            s32.data_ptr(), None if ws is None else ws.data_ptr(),
+                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
                             _build.stream_handle(x.device))
     _build.LAUNCHES["fp6_dual_matmul"] += 1
     return out

@@ -8,7 +8,9 @@ kernel body it stands for, and counts its launches as
 ``zero=None``):
 
 - ``gemv`` (K1): the decode GEMV ``_bint8_call`` → ``_kernel_bint8m``
-  (pallas_call at ``int4_matmul.py:877``);
+  (pallas_call at ``int4_matmul.py:877``), on the weight stream of
+  ``csrc/weight_stream.cuh`` (tensor cores, one launch a call, its K split
+  planned by :func:`gemv_nsplit`);
 - ``tiled`` (K5): the fused variant ``_kernel`` (pallas_call at ``:723``);
 - ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call
   (above M = 32 with g a multiple of 32 on the tensor cores, see
@@ -50,11 +52,12 @@ weight and fp6's A plane. It reaches the kernels as a null pointer.
 
 A CUDA tensor launches a kernel (or raises); only a CPU tensor takes a
 plain version. K1's ``stub`` arm (:func:`int4_dq_matmul_stub`) is the
-ceiling probe's: K1's launch structure and loads with one raw-byte dot.
+ceiling probe's: K1's grid, ring, loads and merge with one raw-byte dot.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Optional
@@ -75,9 +78,16 @@ TILED_BN = 128     # columns per K5 block (csrc TBN)
 TILED_BLOCKS_PER_SM = 2  # K5 blocks resident per SM (its shared memory and registers)
 GP_TILED_KP = 32   # packed rows per K14a tensor-core sub-step: g must be a multiple (csrc TBKP)
 GP_TILED_BLOCKS_PER_SM = 1  # its 128 accumulators per thread take up to 255 registers
-_GEMV_TN = 128     # columns per GEMV block (csrc GEMV_TN)
-_GEMV_LANES = 32   # run lanes per GEMV block (csrc GEMV_LANES)
-TARGET_BLOCKS = 1024
+_GEMV_TN = 128     # columns per block of the SIMT GEMV design: K14, P6 (csrc GEMV_TN)
+_GEMV_LANES = 32   # run lanes per such block (csrc GEMV_LANES)
+TARGET_BLOCKS = 1024  # their K-split target (K1 has its own plan: gemv_nsplit)
+# the weight stream (csrc/weight_stream.cuh; tests hold these against the source)
+STREAM_WARPS = 8        # warps per block (csrc wstream::WARPS)
+STREAM_COLS = 128       # columns per block, a strip (csrc wstream::COLS)
+STREAM_STEP_ROWS = 8    # packed rows per int4 step (csrc wstream::STEP_ROWS)
+STREAM_X_BYTES = 48 * 1024    # the split's staged x: at most this much shared memory
+STREAM_BLOCK_STEPS = 24  # a block's fixed cost (ring fill, x staging, merge), in steps
+K1_STUB_MAX_M = 4       # csrc K1_STUB_MAX_M
 VARIANTS = ("auto", "fused", "group_partial", "batched_int8", "banded")
 VARIANT_ENV = "TORCHAO_TPU_INT4_VARIANT"
 
@@ -353,6 +363,42 @@ def launch_counter(body: str, zero_free: bool) -> str:
     return f"int4_dq_matmul{'_zero_free' if zero_free else ''}_{body}"
 
 
+def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per_sm: int,
+                  max_units: int) -> int:
+    """The K splits of a weight-stream GEMV (K1, K11): ``strips`` column
+    strips of ``STREAM_COLS``, each ``units`` whole units of ``unit_steps``
+    warp steps long, go to ``strips·nsplit`` blocks of ``STREAM_WARPS``
+    warps, ``blocks_per_sm`` at a time on each of ``sms`` SMs. Picks the
+    nsplit of least ``waves · (steps per split + STREAM_BLOCK_STEPS)``, the
+    smaller on a tie, with at most ``max_units`` units a split (its staged
+    x) and, where there is more than one split, a step for every warp."""
+    slots, best = sms * blocks_per_sm, None
+    for ns in range(1, units + 1):
+        per = cdiv(units, ns)
+        if ns > 1 and (units // ns) * unit_steps < STREAM_WARPS:
+            break
+        if per > max_units:
+            continue
+        cost = cdiv(strips * ns, slots) * (per * unit_steps + STREAM_BLOCK_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, ns)
+    if best is None:
+        raise ValueError(f"no K split of {units} units holds at most {max_units} a split")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_nsplit(M: int, K: int, N: int, sms: int) -> int:
+    """K1's K split (:func:`stream_nsplit`): units of ``STREAM_STEP_ROWS``
+    packed rows (a step, inside one group at every g the wrapper takes, g %
+    8 == 0, so g does not move the plan), two blocks an SM at M <= 8 (one
+    n-tile), one above; a split's x pairs (4 B per packed row and row of x)
+    in ``STREAM_X_BYTES``."""
+    steps = K // 2 // STREAM_STEP_ROWS
+    max_units = max(1, (STREAM_X_BYTES // (4 * M) - 4) // STREAM_STEP_ROWS)
+    return stream_nsplit(cdiv(N, STREAM_COLS), steps, 1, sms, 2 if M <= 8 else 1, max_units)
+
+
 def _ksplit(M, K, N, target, mt, units=None):
     """Blocks over K: up to ``target`` blocks in flight, at least one run
     for each of a block's 32 run lanes, and (banded) whole units."""
@@ -376,7 +422,9 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     stream = _build.stream_handle(x.device)
     ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
     entry = launch_entry(body, M, group_size)
-    if entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
+    if entry == "tt_int4_gemv":
+        _launch_stream(entry, x, ptrs, out, M, K, N, group_size, stream)
+    elif entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
         sms = _build.sm_count(x.device.index or 0)
         ksplit = (tiled_ksplit(M, K, N, sms) if body == "tiled"
                   else group_partial_tiled_ksplit(M, K, N, group_size, sms))
@@ -385,9 +433,7 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
         lib.launch(entry, *ptrs, 0 if ws is None else ws.data_ptr(), out.data_ptr(),
                    M, K, N, group_size, ksplit, stream)
     else:
-        if body == "gemv":  # K1's split ignores its M tiles (M <= 32)
-            ksplit = _ksplit(1, K, N, target, 1)
-        elif body == "group_partial":
+        if body == "group_partial":
             ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4)
         else:
             ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4, K // 2 // unit)
@@ -397,6 +443,16 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     _build.LAUNCHES[launch_counter(body, zero is None)] += 1
     _build.ENTRIES[entry] += 1
     return out
+
+
+def _launch_stream(entry, x, ptrs, out, M, K, N, g, stream):
+    """Launch K1 (or its stub arm) on the weight stream: the K split of
+    :func:`gemv_nsplit`, the per-device buffers of ``_build.stream_buffers``."""
+    nsplit = gemv_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+    ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
+                                        cdiv(N, STREAM_COLS))
+    _build.library().launch(entry, *ptrs, None if ws is None else ws.data_ptr(),
+                            tickets.data_ptr(), out.data_ptr(), M, K, N, g, nsplit, stream)
 
 
 def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
@@ -414,22 +470,22 @@ def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
 def int4_dq_matmul_stub(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                         zero: Optional[torch.Tensor], *, group_size: int,
                         layer_idx: Optional[int] = None) -> torch.Tensor:
-    """K1's stub arm (the ceiling probe's): K1's grid, loads and reduce with
-    the dequantization replaced by one raw-byte dot (see
-    :func:`int4_dq_matmul_stub_plain`). Counts ``int4_dq_matmul_stub``."""
+    """K1's stub arm (the ceiling probe's): K1's grid, ring, loads and merge
+    with the dequantization and the mma replaced by one raw-byte dot (see
+    :func:`int4_dq_matmul_stub_plain`); M <= ``K1_STUB_MAX_M`` on the card.
+    Counts ``int4_dq_matmul_stub``."""
     if x.device.type == "cpu":
         return int4_dq_matmul_stub_plain(x, wp, scale, zero, group_size=group_size,
                                          layer_idx=layer_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     M, K, N = _check_cuda(x, wp, scale, zero, group_size, 8.0, layer_idx, True)
+    if M > K1_STUB_MAX_M:
+        raise ValueError(f"int4_dq_matmul_stub takes M <= {K1_STUB_MAX_M} on the card, got {M}")
     wp, scale, zero = _layer(wp, scale, zero, layer_idx)
-    ksplit = _ksplit(1, K, N, TARGET_BLOCKS, 1)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _build.library().launch("tt_int4_gemv_stub", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
-                            0 if zero is None else zero.data_ptr(), ws.data_ptr(),
-                            out.data_ptr(), M, K, N, group_size, ksplit,
-                            _build.stream_handle(x.device))
+    ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), 0 if zero is None else zero.data_ptr())
+    _launch_stream("tt_int4_gemv_stub", x, ptrs, out, M, K, N, group_size,
+                   _build.stream_handle(x.device))
     _build.LAUNCHES["int4_dq_matmul_stub"] += 1
     return out

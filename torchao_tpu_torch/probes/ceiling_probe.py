@@ -7,17 +7,19 @@ and zeros of ``wqkv → wo → w13 → w2`` in each of 32 layers plus the head
 
 - ``real``: the production K1 over the step's 161 launches, activations
   chained from one launch to the next;
-- ``stub``: K1's stub arm over the same launches and loads, the
-  dequantization replaced by one raw-byte dot (``int4_dq_matmul_stub``);
+- ``stub``: K1's stub arm over the same launches, grid, ring and loads,
+  the dequantization and the mma replaced by one raw-byte dot
+  (``int4_dq_matmul_stub``);
 - ``mono``: ONE launch streaming the same number of bytes through the stub
   body (``csrc/ceiling_probe.cu``).
 
-real / stub prices K1's dequantization, stub / mono its launch structure,
+real / stub prices K1's dequantization and products, stub / mono its launch structure,
 and mono against the data sheet's 3.35 TB/s is the card's streaming
 ceiling, which the bounds in PERF.md do not replace. Device work is timed,
 not the host's launch rate: a step is captured in a CUDA graph (the ctypes
 launches go to the capturing stream; the wrappers' outputs and workspaces
-come from the graph's private pool, so a replay allocates nothing), and
+come from the graph's private pool or, K1's, are the per-device buffers its
+first, eager call made, so a replay allocates nothing), and
 CUDA events bracket ``steps`` replays; each step reads 4.69 GB, so the 50 MB
 L2 holds nothing over. Each arm is held against its plain version first
 (the stub's plain version is the same raw-byte arithmetic).
