@@ -37,7 +37,8 @@ Phases (each fails loudly; nothing is caught):
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
    tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
    cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact;
-   K1 in every form and K11 each one kernel per call, K2's merge folded in),
+   K1 in every form, K11, K12 and K8's gemv each one kernel per call, K2's
+   merge folded in; K12 also on every 6-bit code, bit for bit),
    with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
@@ -124,6 +125,7 @@ from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dq_matmul_plain,
     fp6_dual_matmul,
     fp6_dual_matmul_plain,
+    pack_fp6_kmajor,
 )
 from torchao_tpu_torch.kernels.fp8_matmul import (
     fp8_mixed_matmul,
@@ -688,7 +690,8 @@ def _centred(x):
 # the kernels whose call is one kernel on the card and nothing else (their
 # K-split merge folded in); check_shapes asserts it on a captured graph
 ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
-                       "fp6_dual_matmul"}
+                       "fp6_dual_matmul", "fp6_dq_matmul", "fp8_mixed_matmul_gemv",
+                       "fp8_mixed_matmul_e4m3_gemv"}
 
 
 def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None,
@@ -766,10 +769,32 @@ def _fp6_kernels(params, args, gen):
     ]
 
 
+def check_fp6_every_code(N=4096, K=4096, M=16):
+    """K12 on a weight that holds every 6-bit code in each k quarter and
+    nibble half (code (7 n + 5 k) % 64), with one-hot rows of x (1.5 at k =
+    m (K / M) + 3 m: every quarter) and power-of-two scales: each output is
+    one product, so the kernel must equal its plain version bit for bit,
+    the e = 0 subnormals included."""
+    k = torch.arange(K, device="cuda")
+    n = torch.arange(N, device="cuda")
+    s4, s2 = pack_fp6_kmajor((n[:, None] * 7 + k[None, :] * 5) % 64)
+    scale = torch.pow(2.0, (n % 7 - 3).float()).bfloat16()
+    rows = torch.arange(M, device="cuda")
+    x = torch.zeros((M, K), device="cuda")
+    x[rows, rows * (K // M) + 3 * rows] = 1.5
+    x = x.bfloat16()
+    compare(f"fp6_dq_matmul every code M={M} N={N} K={K}", fp6_dq_matmul(x, s4, s2, scale),
+            fp6_dq_matmul_plain(x, s4, s2, scale), exact=True)
+
+
 def _fp6_packed_kernels(params, args, gen):
-    """K12 on every stacked weight and the head at M=1."""
-    return [check_shapes("fp6_dq_matmul", _cases(params, args.n_layer, True), 1,
-                         _fp6_packed_call, gen)]
+    """K12 on every stacked weight and the head at M=1, and on every 6-bit
+    code (``check_fp6_every_code``)."""
+    tally = check_shapes("fp6_dq_matmul", _cases(params, args.n_layer, True), 1,
+                         _fp6_packed_call, gen)
+    check_fp6_every_code()
+    tally.extra["every_code_bit_exact"] = True
+    return [tally]
 
 
 def _8da4w_kernels(params, args, gen):
@@ -1264,17 +1289,20 @@ SECTIONS = {
                                  "int8wo_mixed_matmul_tiled": 4 * L + 1,
                                  "quantized_kv_decode_attention_int8": L * (DECODE + 1)}),
 }
-# The tiled qmm bodies' C entries (_build.ENTRIES) and the launches each section's timed
-# run makes of them (none where a section is not listed); the int4 wrapper's entries are
-# not asserted here. K7's SIMT tile (tt_qmm_tiled) is gone: main asserts the library
-# has no such entry
-QMM_TILED_ENTRIES = ("tt_qmm_mma_bf16", "tt_qmm_mma_e4m3", "tt_qmm_mma_s8")
+# The tiled qmm bodies' C entries and K8's one-launch gemv (_build.ENTRIES), and the
+# launches each section's timed run makes of them (none where a section is not listed);
+# the int4 wrapper's entries are not asserted here. K7's SIMT tile (tt_qmm_tiled) is
+# gone: main asserts the library has no such entry
+QMM_ENTRIES = ("tt_qmm_mma_bf16", "tt_qmm_mma_e4m3", "tt_qmm_mma_s8", "tt_fp8_mixed_gemv")
 _MMA_BF16_ALL = lambda L: {"tt_qmm_mma_bf16": 4 * L + 1}  # the layers and the head
 SECTION_QMM_ENTRIES = {
     "int8wo": _MMA_BF16_ALL,
     "int8dq": lambda L: {"tt_qmm_mma_s8": 4 * L + 1},
-    "float8wo": lambda L: {"tt_qmm_mma_bf16": 4 * L},  # the head in plain torch
-    "float8dq-row": lambda L: {"tt_qmm_mma_e4m3": 4 * L + 1},  # K8 on the layers, K9 the head
+    # the head in plain torch
+    "float8wo": lambda L: {"tt_qmm_mma_bf16": 4 * L, "tt_fp8_mixed_gemv": 4 * L * DECODE},
+    # K8 on the layers, K9 the head
+    "float8dq-row": lambda L: {"tt_qmm_mma_e4m3": 4 * L + 1,
+                               "tt_fp8_mixed_gemv": 4 * L * DECODE},
     "fp6": _MMA_BF16_ALL,  # the B planes
     "int8wo-int8hm": _MMA_BF16_ALL,
 }
@@ -1334,7 +1362,7 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
                            kv_cache_quantization=kv, temperature=TEMPERATURE, top_k=TOP_K,
                            warmup=1, iters=1, on_run=on_run)
     counts = dict(_build.LAUNCHES)
-    entries = {k: v for k, v in _build.ENTRIES.items() if k in QMM_TILED_ENTRIES}
+    entries = {k: v for k, v in _build.ENTRIES.items() if k in QMM_ENTRIES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
            "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
@@ -1345,13 +1373,13 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
         f"peak_GB={peak_gb:.3f}")
     log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
-    log(f"  tiled qmm entries: {json.dumps(entries, sort_keys=True)}")
+    log(f"  qmm entries: {json.dumps(entries, sort_keys=True)}")
     want = want_fn(model.args.n_layer)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     want = SECTION_QMM_ENTRIES.get(name, lambda L: {})(model.args.n_layer)
     if entries != want:
-        raise AssertionError(f"tiled qmm entries {entries} != expected {want}")
+        raise AssertionError(f"qmm entries {entries} != expected {want}")
     tokens = res["tokens"]
     if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
                                            int(tokens.max()) < model.args.vocab_size):

@@ -197,3 +197,102 @@ def test_dual_planes_b_fits_in_int8():
     b = tw.to_dual_planes().b_plane.qdata
     assert b.dtype == torch.int8
     assert int(b.min()) >= -56 and int(b.max()) <= 56
+
+
+# ------------------------------------------- K12's weight stream: its plan --
+
+def _source_u32(path, name):
+    import re
+
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / path).read_text()
+    return int(re.search(rf"\b{name} = (0x[0-9A-Fa-f]+)u", text).group(1), 16)
+
+
+def test_fp6_packed_constants_are_the_cuda_source():
+    """K12's step rows, M limit, decode tables and 2^124 pair are the
+    source's; its step is three of K1's in bytes (the split plan's unit)."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+    from torchao_tpu_torch.kernels.int4_matmul import STREAM_STEP_ROWS
+
+    assert _source_int("fp6_matmul.cu", "FP6_MAX_M") == F.GEMV_MAX_M
+    assert _source_int("fp6_matmul.cu", "FP6_STEP_ROWS") == F.FP6_STEP_ROWS
+    # a step reads three arrays of K1's step rows: fp6_nsplit's three units a step
+    assert F.FP6_STEP_ROWS == STREAM_STEP_ROWS
+    assert (_source_u32("fp6_matmul.cu", "FP6_LOW_LO"),
+            _source_u32("fp6_matmul.cu", "FP6_LOW_HI")) == F.FP6_LOW
+    assert (_source_u32("fp6_matmul.cu", "FP6_HIGH_LO"),
+            _source_u32("fp6_matmul.cu", "FP6_HIGH_HI")) == F.FP6_HIGH
+    two124 = torch.tensor([2.0 ** 124], dtype=torch.bfloat16).view(torch.int16).item() & 0xFFFF
+    assert _source_u32("fp6_matmul.cu", "BF16X2_2P124") == two124 << 16 | two124
+
+
+def test_fp6_bit_placement_times_2p124_is_every_code():
+    """K12's decode: the bf16 bits its tables place for each of the 64 codes
+    (``fp6_bf16_bits``), times 2^124 in bf16, are ``code_v32(c) / 32``
+    exactly, the e = 0 subnormals (bf16 subnormals before the multiply) and
+    both zeros included."""
+    from torchao_tpu_torch.kernels.fp6_matmul import code_v32, fp6_bf16_bits
+
+    codes = torch.arange(64)
+    bits = torch.tensor(fp6_bf16_bits(range(64)), dtype=torch.int32).to(torch.int16)
+    v = bits.view(torch.bfloat16) * torch.tensor(2.0 ** 124, dtype=torch.bfloat16)
+    assert torch.equal(v.float(), code_v32(codes) / 32)
+    assert torch.equal(torch.signbit(v), codes >= 32)
+    subnormal = (codes >> 2) & 7 == 0
+    assert bool((bits.view(torch.bfloat16)[subnormal & (codes & 3 > 0)].abs()
+                 < torch.finfo(torch.bfloat16).tiny).all())
+
+
+@pytest.mark.parametrize("N,K", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                                 (128256, 4096), (4096 + 128, 2048), (256, 1024)])
+def test_fp6_packed_split_walks_every_byte_once(N, K):
+    """K12's walk (csrc fp6_packed_kernel), written out for the plan of
+    :func:`fp6_nsplit` at M = 1, 9 and 16 on 132 SMs: split y takes the steps
+    [y·S/ns, (y+1)·S/ns) of 8 s2 rows (warp w a contiguous eighth), lane (gq,
+    tq) the rows tq and tq + 4 of a step's s2 rows r.., s4 rows r.. and s4
+    rows Q + r.. at columns 16·gq... Every s4 and s2 byte of a strip is read
+    exactly once; each element's nibble and 2-bit field, as the kernel pairs
+    them, give the packed code of that k, with the x of that k beside it
+    (the staged pairs (x[r], x[r + K/2]) and (x[Q + r], x[Q + r + K/2]));
+    the block's shared memory fits, two blocks an SM at M <= 8."""
+    from torchao_tpu_torch.kernels.fp6_matmul import fp6_nsplit, pack_fp6_kmajor
+
+    Q = K // 4
+    S = Q // 8
+    codes = torch.from_numpy(np.random.RandomState(K).randint(0, 64, (128, K)))
+    s4, s2 = (t.numpy().astype(np.int64) for t in pack_fp6_kmajor(codes))
+    codes = codes.numpy()
+    # (set, half) -> (s4 row offset, nibble shift, s2 field shift, k offset, x pair offset)
+    elems = {("A", 0): (0, 0, 0, 0), ("A", 1): (0, 4, 4, 2 * Q),
+             ("B", 0): (Q, 0, 2, Q), ("B", 1): (Q, 4, 6, 3 * Q)}
+    max_smem = _source_int("weight_stream.cuh", "MAX_SMEM")
+    for M in (1, 9, 16):
+        ns = fp6_nsplit(M, K, N, 132)
+        assert 1 <= ns <= S
+        seen4, seen2, seen_k = np.zeros((K // 2, 128), int), np.zeros((Q, 128), int), np.zeros(K, int)
+        for y in range(ns):
+            s0, s1 = y * S // ns, (y + 1) * S // ns
+            for w in range(8):
+                for st in range(s0 + w * (s1 - s0) // 8, s0 + (w + 1) * (s1 - s0) // 8):
+                    for tq in range(4):
+                        for r in (8 * st + tq, 8 * st + tq + 4):
+                            seen2[r] += 1
+                            seen4[r] += 1
+                            seen4[Q + r] += 1
+                            for (row4, sh4, sh2, dk) in elems.values():
+                                k = r + dk
+                                seen_k[k] += 1
+                                if M == 1:
+                                    got = ((s4[row4 + r] >> sh4) & 15) | (((s2[r] >> sh2) & 3) << 4)
+                                    assert (got == codes[:, k]).all(), (y, st, k)
+                                    # the x pair this element meets: the staged pair's half
+                                    x_k = (row4 + r) + (K // 2 if sh4 else 0)
+                                    assert x_k == k
+        assert (seen4 == 1).all() and (seen2 == 1).all() and (seen_k == 1).all(), (M, ns)
+        xst = -(-S // ns) * 8 + 4
+        smem = max(2 * M * xst * 4, 8 * M * 128 * 4)
+        assert smem <= max_smem
+        if M <= 8:
+            assert 2 * (smem + 1024) <= 228 * 1024

@@ -136,3 +136,63 @@ def test_float8dq_row_head_takes_k9():
     assert fp8_matmul.fp8_rowwise_matmul is real
     want = jax.jit(jops.linear)(jnp.asarray(x), jw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ K8's one-launch gemv: its plan --
+
+
+def _qmm_source_int(name):
+    import re
+
+    from torchao_tpu_torch.kernels import _build
+
+    text = (_build.CSRC / "qmatmul.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", text))
+
+    def value(expr):
+        expr = re.sub(r"[A-Z_][A-Z0-9_]*", lambda m: str(value(consts[m.group(0)])), expr)
+        return eval(expr.replace("/", "//"), {"__builtins__": {}})  # ints, * / + and names
+
+    return value(consts[name])
+
+
+def test_fp8_gemv_constants_are_the_cuda_source():
+    """K8's gemv block rows, x rows and blocks an SM are the source's."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    assert _qmm_source_int("F8G_ROWS") == _qmm.FP8_GEMV_ROWS
+    assert _qmm_source_int("F8G_MT") == _qmm.FP8_GEMV_MT
+    assert _qmm_source_int("F8G_BLOCKS") == _qmm.FP8_GEMV_BLOCKS_PER_SM
+    assert _qmm_source_int("CH") == _qmm._CHUNK
+
+
+@pytest.mark.parametrize("N,K", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                                 (4096 + 48, 1536), (200, 4128)])
+def test_fp8_gemv_split_walks_every_k_of_every_row_once(N, K):
+    """K8's gemv walk (csrc fp8_gemv_kernel), written out for the plan of
+    ``fp8_gemv_nsplit`` at M = 1, 4, 17 and 32 on 132 SMs: block (b, y, z)
+    takes rows 32 b + 4 w + r (warp w) and rows 4 z .. of x, split y the 16-k
+    chunks [y·C/ns, (y+1)·C/ns), lane l every 32nd. Every k of every row
+    (and every row of x) is met exactly once; the tickets fit."""
+    from torchao_tpu_torch.kernels import _build, _qmm
+
+    C = K // 16
+    for M in (1, 4, 17, 32):
+        ns = _qmm.fp8_gemv_nsplit(M, K, N, 132)
+        mt = 1 if M == 1 else _qmm.FP8_GEMV_MT
+        assert 1 <= ns <= C
+        seen_k, seen_n, seen_m = np.zeros(K, int), np.zeros(N, int), np.zeros(M, int)
+        for y in range(ns):
+            for lane in range(32):
+                for c in range(y * C // ns + lane, (y + 1) * C // ns, 32):
+                    seen_k[16 * c:16 * c + 16] += 1
+        for b in range(-(-N // _qmm.FP8_GEMV_ROWS)):
+            for w in range(8):
+                for r in range(4):
+                    n = 32 * b + 4 * w + r
+                    if n < N:
+                        seen_n[n] += 1
+        for z in range(-(-M // mt)):
+            seen_m[z * mt:(z + 1) * mt] += 1
+        assert (seen_k == 1).all() and (seen_n == 1).all() and (seen_m == 1).all()
+        assert -(-N // _qmm.FP8_GEMV_ROWS) * -(-M // mt) <= _build.STREAM_TICKETS

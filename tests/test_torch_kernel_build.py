@@ -506,12 +506,16 @@ def test_int8_kv_kernels_match_plain(cuda):
 # ------------------------------------------------------------ slice 3 on a card --
 
 
-def _sqnr_ok(got, want, db=40.0):
+def _sqnr_ok(got, want, db=40.0, label=None):
+    """SQNR >= db; with a ``label``, the value is printed (``-s`` shows it)."""
     from torchao_tpu_torch.utils import compute_error
 
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    assert compute_error(want, got) >= db
+    sqnr = compute_error(want, got)
+    if label is not None:
+        print(f"SQNR {label}: {sqnr:.2f} dB")
+    assert sqnr >= db, (label, sqnr)
 
 
 @pytest.mark.cuda
@@ -1319,3 +1323,161 @@ def test_gemv_stream_is_one_kernel_and_repeats_bit_for_bit(cuda):
             torch.cuda.synchronize()
             assert torch.equal(out, first)
         assert _stream_tickets_are_zero(cuda)
+
+
+# ---------------------------------- K12 on the weight stream, K8's one-launch gemv --
+
+
+# N = 4096 + 128 leaves a last strip of its own; K = 2048: 64 steps of 8 s2
+# rows, the split the plan's, or forced to one or to three (uneven)
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "one", "three"])
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
+def test_fp6_packed_stream_matches_plain(cuda, monkeypatch, M, stacked, split):
+    """K12 on the weight stream at both n-tile counts (M <= 8, 16), against
+    its plain version (SQNR >= 35 dB); one launch of ``tt_fp6_gemv`` counted,
+    the tickets back at zero."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+
+    if split != "plan":
+        monkeypatch.setattr(F, "fp6_nsplit", lambda *a, ns={"one": 1, "three": 3}[split]: ns)
+    gen = torch.Generator(device=cuda).manual_seed(M + 3 * stacked)
+    packed, _ = _fp6_weight(gen, 2, 4096 + 128, 2048, cuda)
+    x = torch.randn((M, 2048), generator=gen, device=cuda).bfloat16()
+    args, l = (packed.qdata, packed.qdata2, packed.scale), 1
+    if not stacked:
+        args, l = tuple(t[0] for t in args), None
+    before = _build.LAUNCHES["fp6_dq_matmul"]
+    got = F.fp6_dq_matmul(x, *args, layer_idx=l)
+    assert _build.LAUNCHES["fp6_dq_matmul"] == before + 1
+    _sqnr_ok(got, F.fp6_dq_matmul_plain(x, *args, layer_idx=l), 35.0,
+             f"K12 M={M} {'stacked' if stacked else 'unstacked'} {split}")
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 3])
+def test_fp6_packed_decodes_every_code_exactly(cuda, monkeypatch, split):
+    """K12 on a weight that holds every 6-bit code in every column's k
+    quarters and nibble halves, with one-hot rows of x (1.5 at k = 133 m:
+    every quarter of K = 2048) and power-of-two scales: each output is
+    one product, so the kernel equals its plain version bit for bit, the
+    e = 0 subnormals included."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+
+    monkeypatch.setattr(F, "fp6_nsplit", lambda *a: split)
+    M, K, N = 16, 2048, 256
+    k = torch.arange(K, device=cuda)
+    n = torch.arange(N, device=cuda)
+    codes = (n[:, None] * 7 + k[None, :] * 5) % 64  # [N, K]
+    s4, s2 = F.pack_fp6_kmajor(codes)
+    scale = torch.pow(2.0, (n % 7 - 3).float()).bfloat16()
+    x = torch.zeros((M, K), device=cuda)
+    x[torch.arange(M, device=cuda), torch.arange(M, device=cuda) * 133] = 1.5
+    x = x.bfloat16()
+    got = F.fp6_dq_matmul(x, s4, s2, scale)
+    want = F.fp6_dq_matmul_plain(x, s4, s2, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    hit = codes[:, torch.arange(M, device=cuda) * 133]
+    assert len(torch.unique(hit)) == 64
+    assert _stream_tickets_are_zero(cuda)
+
+
+def _fp8_gemv_operands(gen, x_kind, M, N, K, dev):
+    w = (torch.randn((2, N, K), generator=gen, device=dev) * 50).to(torch.float8_e4m3fn)
+    ws = torch.rand((2, N, 1), generator=gen, device=dev) * 0.01 + 0.001
+    if x_kind == "bf16":
+        return torch.randn((M, K), generator=gen, device=dev).bfloat16(), w, ws, None
+    x = (torch.randn((M, K), generator=gen, device=dev) * 50).to(torch.float8_e4m3fn)
+    return x, w, ws, torch.rand((M,), generator=gen, device=dev) * 0.01 + 0.001
+
+
+# N = 4096 + 48: a last block of 16 rows; K = 4096 and 1536 (three 512-k
+# units, a partial lane step); the split the plan's or forced to three
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("K", [1536, 4096])
+@pytest.mark.parametrize("M", [1, 4, 17, 32])
+@pytest.mark.parametrize("x_kind", ["bf16", "e4m3"])
+def test_fp8_gemv_one_launch_matches_plain(cuda, monkeypatch, x_kind, M, K, split):
+    """K8's gemv with bf16 x (float8wo) and e4m3 x (float8dq), per-row
+    weight scales, layer 1 of a stacked weight, against its plain version
+    (SQNR >= 60 dB: exact products, f32 sums in another order); one launch
+    of ``tt_fp8_mixed_gemv`` counted, the tickets back at zero."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    if split == "three":
+        monkeypatch.setattr(_qmm, "fp8_gemv_nsplit", lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    x, w, ws, xs = _fp8_gemv_operands(gen, x_kind, M, 4096 + 48, K, cuda)
+    name = "fp8_mixed_matmul_gemv" if x_kind == "bf16" else "fp8_mixed_matmul_e4m3_gemv"
+    before = _build.LAUNCHES[name], _build.ENTRIES["tt_fp8_mixed_gemv"]
+    got = fp8_mixed_matmul(x, w, ws, xs, layer_idx=1)
+    assert (_build.LAUNCHES[name], _build.ENTRIES["tt_fp8_mixed_gemv"]) == (
+        before[0] + 1, before[1] + 1)
+    _sqnr_ok(got, fp8_mixed_matmul_plain(x, w, ws, xs, layer_idx=1), 60.0,
+             f"K8 gemv {x_kind} M={M} K={K} {split}")
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_fp6_packed_and_fp8_gemv_are_one_kernel_and_repeat_bit_for_bit(cuda):
+    """K12 (M = 1 and 16) and K8's gemv (bf16 x at M = 1, e4m3 x at M = 4 on
+    w2's K), each at a shape its plan splits: a call is one kernel on the card and
+    nothing else (the nodes of a CUDA graph captured around it); two calls
+    back to back, and two replays of a graph of one call, give the same
+    bits, which holds only if the merging block reset its ticket."""
+    from torchao_tpu_torch.kernels import _qmm
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    K, N, sms = 4096, 4096, _build.sm_count(0)
+    packed, _ = _fp6_weight(gen, 2, N, K, cuda)
+    pargs = (packed.qdata, packed.qdata2, packed.scale)
+    calls = []
+    for M in (1, 16):
+        assert F.fp6_nsplit(M, K, N, sms) > 1
+        x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+        calls.append(lambda x=x: F.fp6_dq_matmul(x, *pargs, layer_idx=1))
+    for x_kind, M, Kx in (("bf16", 1, K), ("e4m3", 4, 14336)):
+        x, w, ws, xs = _fp8_gemv_operands(gen, x_kind, M, N, Kx, cuda)
+        assert _qmm.fp8_gemv_nsplit(M, Kx, N, sms) > 1
+        calls.append(lambda x=x, w=w, ws=ws, xs=xs: fp8_mixed_matmul(x, w, ws, xs, layer_idx=1))
+    for call in calls:
+        first = call()
+        assert torch.equal(call(), first)
+        assert kernels_per_call(call) == (1, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert _stream_tickets_are_zero(cuda)
+
+
+def test_sass_loops_counts_the_largest_loop():
+    """``_build.sass_loops`` (the SASS instruction count PERF.md cites) on a
+    hand-written ``cuobjdump -sass`` listing: the span from the backward
+    branch's target to the branch, by opcode, in the named kernel only."""
+    sass = """
+        code for sm_90a
+                Function : _Z13other_kernelv
+        /*0000*/                   EXIT ;                                    /* 0x000000000000794d */
+                Function : _ZN12fp6_packed_kernelILi1EEEvv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                    /* 0x00000a0000017a02 */
+        /*0010*/                   PRMT R2, R3, 0x5140, R4 ;                 /* 0x0000514003027816 */
+        /*0020*/                   HMUL2.BF16_V2 R2, R2, R5 ;                /* 0x0000000502027232 */
+        /*0030*/                   HMMA.16816.F32.BF16 R8, R12, R2, R8 ;    /* 0x000000020c08723c */
+        /*0040*/               @P0 BRA 0x10 ;                                /* 0xffffffc000000947 */
+        /*0050*/                   BRA 0x60 ;                                /* 0x0000000000007947 */
+        /*0060*/                   EXIT ;                                    /* 0x000000000000794d */
+"""
+    out = _build.sass_loops(sass, "fp6_packed_kernel")
+    assert "4 instructions in its largest loop [0x10, 0x40]" in out
+    assert "PRMT 1, HMUL2 1, HMMA 1, BRA 1" in out
+    assert "other_kernel" not in out

@@ -33,106 +33,55 @@
 // K12 tt_fp6_gemv replaces fp6_matmul.py::fp6_dq_matmul (pallas_call at
 // fp6_matmul.py:189, body _kernel_fp6 at :72), the packed 6-bit form:
 //
-//   out[m, n] = (sum_k x[m, k] v32(k, n)) * scale[n] / 32
+//   out[m, n] = (sum_k x[m, k] fp6(k, n)) * scale[n]
 //
 //   s4 [K/2, N] u8: element k's 4-bit field m | e0<<2 | e1<<3, low nibble for
 //      k < K/2, high nibble for k >= K/2;
 //   s2 [K/4, N] u8: element k's 2-bit field e2 | s<<1 at bit 2 (k / (K/4)).
 //
-// A thread reads one s2 row r and the s4 rows r and r + K/4: the four
-// elements k = r + q K/4 (q = 0..3) of 16 columns. The code f4 | f2 << 4 is
-// the 6-bit ExMy code s<<5 | e<<2 | m, found with integer shifts, and a
-// 64-entry table gives v32 = fp6 * 32 = sign ((4+m)[e>0] + 2m[e=0]) 2^e, an
-// integer exact in f32. The table sits in shared memory once per bank (entry
-// c of lane l at [c][l]), so a warp's 32 lookups never share a bank. (The
-// TPU kernel's shift-free product decode existed because Mosaic had no u8
-// shifts; it is not carried over.)
+// K12 is one launch a call on K1's weight stream (weight_stream.cuh), with
+// Q = K/4:
+//   - A warp step is the s2 rows r .. r + 7 and the s4 rows r .. r + 7 (k =
+//     r, r + 2Q) and Q + r .. (k = r + Q, r + 3Q): 32 k x 128 columns, 3 KB.
+//     Lane (gq, tq) loads rows tq and tq + 4 of each of the three at columns
+//     16 gq: six 16-byte loads a step into registers, the next step's as
+//     soon as one is consumed (two steps in registers read 2.6% slower on
+//     the card). An s4 byte is one bf16x2 A element (its (lo, hi) nibble
+//     pair: k, k + 2Q) and takes the two of its s2 byte's fields that belong
+//     to it; x is staged once per split as (x[k], x[k + 2Q]) pairs for the s4
+//     rows r and (x[k + Q], x[k + 3Q]) for the rows Q + r. So a step is 16
+//     mma a lane and n-tile, two per mma's columns.
+//   - The decode has no table in memory. With e = e0 + 2 e1 + 4 e2, the bf16
+//     bits s<<15 | e<<7 | m<<5 are fp6 * 2^-124 for all 64 codes, the e = 0
+//     subnormals included (FP6-LLM's placement, Xia et al., 2024), so one
+//     bf16x2 multiply by 2^124 (mul.rn.bf16x2: no flush to zero) gives the
+//     e3m2 values exactly. The bytes come from prmt lookups in registers: the
+//     low byte m<<5 | e0<<7 indexed by the nibble's m | e0<<2, the high byte
+//     e1 | e2<<1 | s<<7 by e2 | s<<1 | e1<<2 (four lookups a prmt), and two
+//     prmt interleave them into four A elements: about 2.4 instructions a
+//     weight element with the multiply.
+//   - The K split (kernels/fp6_matmul.py::fp6_nsplit) is merged by the last
+//     block of a strip (an atomic ticket), as K1's.
+// Epilogue: the f32 sum times the f32 scale, rounded to bf16 once. The
+// factor 32 of the plain version's v32 = fp6 * 32 and the scale are powers
+// of two, so this is the plain version's and the JAX kernel's result:
+// scaling by a power of two commutes with rounding (barring underflow).
 //
 // What bounds them on an H100: bytes. K11 streams 1.5 B per weight element
 // (Llama-3-8B's layers, 6.98 G elements: 10.5 GB per decode step, 3.1 ms at
-// 3.35 TB/s); K12 0.75 B (layers and head, 7.50 G: 5.6 GB, 1.7 ms). K12
-// (SIMT) reads each weight byte once with 16-byte loads and keeps the decoded
-// weight in registers; K is split over blockIdx.y until ~1000 blocks are in
-// flight, partial sums go to ws[ksplit, M, N] (f32) and fp6_reduce_kernel
-// sums them and applies the epilogue (one pass when K is not split).
-//
-// K12's epilogue: the f32 sum times the f32 scale / 32, rounded to bf16
-// once. The scales are powers of two, so this is the JAX kernels' result:
-// scaling by a power of two commutes with rounding (barring underflow).
+// 3.35 TB/s); K12 0.75 B (layers and head, 7.50 G: 5.6 GB, 1.7 ms). K12's
+// decode is cheap because it has to be: at its bytes bound the card takes
+// 4.46 T weight elements a second, so a decode of ~6 instructions an element
+// (a table in shared memory, an FMA per row of x) would need ~27 T
+// thread-instructions a second of the ~33 T the card can issue.
 //
 // Shapes: M <= 16, N % 16 == 0 (16-byte column loads; the column edge of a
-// 128-column tile is masked), K/2 % 16 == 0 (K11), K/4 % 4 == 0 (K12); the
-// wrappers check them.
+// 128-column strip is masked), K/2 % 16 == 0 (K11), K % 32 == 0 (K12: whole
+// steps); the wrappers check them.
 #include "common.cuh"
 #include "weight_stream.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS = 16;                  // columns per thread: one 16-byte load
-constexpr int CHUNKS = 8;                 // column chunks per block
-constexpr int TN = COLS * CHUNKS;         // 128 columns per block
-constexpr int LANES = THREADS / CHUNKS;   // 32 row lanes per chunk
-constexpr int RUN6 = 4;                   // K12: s2 rows per run
-
-__device__ __forceinline__ uint32_t byte_of(const uint4& v, int c) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
-  return (w[c / 4] >> (8 * (c % 4))) & 0xFFu;
-}
-
-__device__ __forceinline__ void bf16x4_to_float(const uint2& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-// Sum the per-thread column sums of the 32 lanes of each chunk into
-// red[warp][m][column] (lanes of one chunk inside a warp differ by 8 and 16
-// in threadIdx.x).
-template <int MT>
-__device__ __forceinline__ void reduce_lanes(float (&acc)[MT][COLS], float (*red)[MT][TN]) {
-  const int chunk = threadIdx.x % CHUNKS;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][c] = v;
-    }
-  if ((threadIdx.x % 32) < CHUNKS) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) red[threadIdx.x / 32][m][chunk * COLS + c] = acc[m][c];
-  }
-}
-
-// Thread t < 128: the block's column t, summed over warps, times the
-// scale, to out (one split) or to ws (several).
-template <int MT>
-__device__ __forceinline__ void finish(float (*red)[MT][TN],
-                                       const __nv_bfloat16* __restrict__ scale, float mul,
-                                       float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
-                                       int M, int N, int m0) {
-  if (threadIdx.x >= TN) return;
-  const int n = blockIdx.x * TN + threadIdx.x;
-  if (n >= N) return;
-  const float s = __bfloat162float(scale[n]) * mul;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m0 + m >= M) break;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += red[w][m][threadIdx.x];
-    if (gridDim.y == 1)
-      out[(size_t)(m0 + m) * N + n] = __float2bfloat16(v * s);
-    else
-      ws[((size_t)blockIdx.y * M + m0 + m) * N + n] = v;
-  }
-}
 
 // ------------------------------------------------------------------ K11 --
 constexpr int DUAL_MAX_M = 16;
@@ -278,105 +227,144 @@ fp6_dual_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
 }
 
 // ------------------------------------------------------------------ K12 --
-// grid: (ceil(N / 128), ksplit, ceil(M / MT)); block 256 threads.
-template <int MT>
-__global__ void __launch_bounds__(THREADS)
+constexpr int FP6_MAX_M = 16;
+constexpr int FP6_STEP_ROWS = 8;  // s2 rows a warp step: 32 k x 128 columns
+// the decode's prmt tables: byte i of {HI:LO}. FP6_LOW: the bf16's low byte
+// m<<5 | e0<<7 at i = m | e0<<2; FP6_HIGH: its high byte e1 | e2<<1 | s<<7 at
+// i = e2 | s<<1 | e1<<2
+constexpr uint32_t FP6_LOW_LO = 0x60402000u, FP6_LOW_HI = 0xE0C0A080u;
+constexpr uint32_t FP6_HIGH_LO = 0x82800200u, FP6_HIGH_HI = 0x83810301u;
+constexpr uint32_t BF16X2_2P124 = 0x7D807D80u;  // (2^124, 2^124)
+
+// byte n of the result is byte (nibble n of sel) of {hi:lo}; every nibble
+// here is below 8 (prmt's sign replication is never asked for)
+__device__ __forceinline__ uint32_t lut8(uint32_t lo, uint32_t hi, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
+  return r;
+}
+
+// a * b in bf16x2, rounded to nearest, subnormals kept
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// The four columns of an s4 word w (byte c: element k in its low nibble, k +
+// K/2 in its high one) with their 2-bit fields in f (byte c: k's at bits 0-1,
+// k + K/2's at bits 4-5; bits 2-3 and 6-7 are ignored): p[c] = the bf16x2
+// pair (fp6(k), fp6(k + K/2)) of column c, exactly.
+__device__ __forceinline__ void fp6_pairs(uint32_t w, uint32_t f, uint32_t (&p)[4]) {
+  const uint32_t lsel = w & 0x77777777u;                              // m | e0<<2
+  const uint32_t hsel = (f & 0x33333333u) | ((w >> 1) & 0x44444444u);  // e2 | s<<1 | e1<<2
+  const uint32_t l01 = lut8(FP6_LOW_LO, FP6_LOW_HI, lsel);
+  const uint32_t l23 = lut8(FP6_LOW_LO, FP6_LOW_HI, lsel >> 16);
+  const uint32_t h01 = lut8(FP6_HIGH_LO, FP6_HIGH_HI, hsel);
+  const uint32_t h23 = lut8(FP6_HIGH_LO, FP6_HIGH_HI, hsel >> 16);
+  p[0] = mul_bf16x2(wstream::prmt(l01, h01, 0x5140), BF16X2_2P124);
+  p[1] = mul_bf16x2(wstream::prmt(l01, h01, 0x7362), BF16X2_2P124);
+  p[2] = mul_bf16x2(wstream::prmt(l23, h23, 0x5140), BF16X2_2P124);
+  p[3] = mul_bf16x2(wstream::prmt(l23, h23, 0x7362), BF16X2_2P124);
+}
+
+// A lane's bytes of one step: s4 rows tq, tq + 4 of the first quarter pair
+// (a) and of the second (b), s2 rows tq, tq + 4 (f).
+struct Fp6Step {
+  uint4 a0, a1, b0, b1, f0, f1;
+};
+
+// grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes the steps
+// [y S / nsplit, (y + 1) S / nsplit) of the S = K/4 / 8; warp w a contiguous
+// eighth of them. ws ([nsplit, M, N] f32) and the tickets (one per strip,
+// zero) as in wstream::finish.
+template <int NT>
+__global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 fp6_packed_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ s4,
                   const uint8_t* __restrict__ s2, const __nv_bfloat16* __restrict__ scale,
-                  float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  __shared__ float lut[64][32];          // v32 of each 6-bit code, once per bank
-  __shared__ float red[WARPS][MT][TN];
-  for (int i = threadIdx.x; i < 64 * 32; i += THREADS) {
-    const int code = i / 32, m = code & 3, e = (code >> 2) & 7;
-    const float v = (float)((e ? 4 + m : 2 * m) << e);
-    lut[code][i % 32] = (code & 32) ? -v : v;
-  }
-  __syncthreads();
-
+                  float* __restrict__ ws, int* __restrict__ tickets,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  constexpr int ROWS = FP6_STEP_ROWS;
+  extern __shared__ __align__(16) uint8_t p_smem[];
   const int Q = K / 4;
-  const int m0 = blockIdx.z * MT;
-  const int chunk = threadIdx.x % CHUNKS, lane = threadIdx.x / CHUNKS;
-  const int bank = threadIdx.x % 32;
-  const int n0 = blockIdx.x * TN + chunk * COLS;
-  const int runs = Q / RUN6;
-  const int r0 = (int)((long long)blockIdx.y * runs / gridDim.y);
-  const int r1 = (int)((long long)(blockIdx.y + 1) * runs / gridDim.y);
-  float acc[MT][COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[m][c] = 0.f;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int steps = Q / ROWS;
+  const int s0 = (int)((long long)blockIdx.y * steps / gridDim.y);
+  const int s1 = (int)((long long)(blockIdx.y + 1) * steps / gridDim.y);
+  // x pairs a row: xst / 4 odd, so a warp's B loads hit 32 banks
+  const int xst = (steps + gridDim.y - 1) / gridDim.y * ROWS + 4;
+  uint32_t* xa = reinterpret_cast<uint32_t*>(p_smem);  // (x[k], x[k + 2Q]), k = r
+  uint32_t* xb = xa + M * xst;                         // (x[k], x[k + 2Q]), k = Q + r
+  int first, last;
+  wstream::warp_range(s1 - s0, first, last);
+  first += s0;
+  last += s0;
+  const int col = blockIdx.x * wstream::COLS + 16 * gq;
+  const bool ok = col < N;
+  auto load = [&](int st, Fp6Step& s) {
+    const size_t r = (size_t)st * ROWS + tq;
+    const bool on = ok && st < last;
+    wstream::load_rows(s4, r, r + 4, N, col, on, s.a0, s.a1);
+    wstream::load_rows(s4, Q + r, Q + r + 4, N, col, on, s.b0, s.b1);
+    wstream::load_rows(s2, r, r + 4, N, col, on, s.f0, s.f1);
+  };
 
-  if (n0 < N) {
-    for (int r = r0 + lane; r < r1; r += LANES) {
-      const int q0 = r * RUN6;
-      uint4 ua[RUN6], ub[RUN6], u2[RUN6];
+  float acc[NT][8][4];
 #pragma unroll
-      for (int i = 0; i < RUN6; ++i) {
-        ua[i] = __ldg(reinterpret_cast<const uint4*>(s4 + (size_t)(q0 + i) * N + n0));
-        ub[i] = __ldg(reinterpret_cast<const uint4*>(s4 + (size_t)(Q + q0 + i) * N + n0));
-        u2[i] = __ldg(reinterpret_cast<const uint4*>(s2 + (size_t)(q0 + i) * N + n0));
-      }
-      // x at k = q Q + q0 + i, quarter q
-      float xq[MT][4][RUN6];
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(x + (size_t)(m0 + m) * K + q * Q + q0)),
-                          xq[m][q]);
-      }
+      for (int e = 0; e < 4; ++e) acc[nt][j][e] = 0.f;
+
+  // step st's products: row tq's pairs are A's k 2tq, 2tq + 1 and row tq + 4's
+  // its k 2tq + 8, + 9, as x's pairs are B's
+  auto consume = [&](const Fp6Step& s, int st) {
+    const int xo = (st - s0) * ROWS + tq;
+    uint32_t ba[NT][2], bb[NT][2];
 #pragma unroll
-      for (int i = 0; i < RUN6; ++i) {
+    for (int nt = 0; nt < NT; ++nt) {
+      const int m = nt * 8 + gq;
+      ba[nt][0] = m < M ? xa[m * xst + xo] : 0u;
+      ba[nt][1] = m < M ? xa[m * xst + xo + 4] : 0u;
+      bb[nt][0] = m < M ? xb[m * xst + xo] : 0u;
+      bb[nt][1] = m < M ? xb[m * xst + xo + 4] : 0u;
+    }
+    const uint32_t *a0 = &s.a0.x, *a1 = &s.a1.x, *b0 = &s.b0.x, *b1 = &s.b1.x;
+    const uint32_t *f0 = &s.f0.x, *f1 = &s.f1.x;
 #pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          const uint32_t a = byte_of(ua[i], c), b = byte_of(ub[i], c), t = byte_of(u2[i], c);
-          const float v0 = lut[(a & 15u) | ((t & 3u) << 4)][bank];
-          const float v1 = lut[(b & 15u) | (((t >> 2) & 3u) << 4)][bank];
-          const float v2 = lut[(a >> 4) | (((t >> 4) & 3u) << 4)][bank];
-          const float v3 = lut[(b >> 4) | ((t >> 6) << 4)][bank];
+    for (int d = 0; d < 4; ++d) {
+      uint32_t pa0[4], pa1[4], pb0[4], pb1[4];
+      fp6_pairs(a0[d], f0[d], pa0);       // fields of k = r, r + 2Q
+      fp6_pairs(a1[d], f1[d], pa1);
+      fp6_pairs(b0[d], f0[d] >> 2, pb0);  // fields of k = r + Q, r + 3Q
+      fp6_pairs(b1[d], f1[d] >> 2, pb1);
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m0 + m >= M) break;
-            float s = acc[m][c];
-            s = fmaf(xq[m][0][i], v0, s);
-            s = fmaf(xq[m][1][i], v1, s);
-            s = fmaf(xq[m][2][i], v2, s);
-            s = fmaf(xq[m][3][i], v3, s);
-            acc[m][c] = s;
-          }
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t wa[4] = {pa0[2 * e], pa0[2 * e + 1], pa1[2 * e], pa1[2 * e + 1]};
+        const uint32_t wb[4] = {pb0[2 * e], pb0[2 * e + 1], pb1[2 * e], pb1[2 * e + 1]};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_bf16_16816(acc[nt][2 * d + e], wa, ba[nt]);
+          mma_bf16_16816(acc[nt][2 * d + e], wb, bb[nt]);
         }
       }
     }
-  }
-  reduce_lanes<MT>(acc, red);
+  };
+
+  // a step's bytes are loaded as soon as the step before is consumed (the
+  // first while x is staged); two steps in registers measured slower
+  Fp6Step step;
+  load(first, step);
+  wstream::stage_x_pairs(xa, x, M, K, s0 * ROWS, (s1 - s0) * ROWS, xst);
+  wstream::stage_x_pairs(xb, x + Q, M, K, s0 * ROWS, (s1 - s0) * ROWS, xst);
   __syncthreads();
-  finish<MT>(red, scale, 1.f / 32.f, ws, out, M, N, m0);
-}
-
-// out[m, n] = bf16(sum over splits of ws[s, m, n] * f32(scale[n]) * mul)
-__global__ void fp6_reduce_kernel(const float* __restrict__ ws,
-                                  const __nv_bfloat16* __restrict__ scale, float mul,
-                                  __nv_bfloat16* __restrict__ out, int ksplit, int M, int N) {
-  const long long MN = (long long)M * N;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
-       i += (long long)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < ksplit; ++s) v += ws[s * MN + i];
-    out[i] = __float2bfloat16(v * (__bfloat162float(scale[i % N]) * mul));
+  for (int st = first; st < last; ++st) {
+    consume(step, st);
+    load(st + 1, step);
   }
-}
-
-int finish_splits(const float* ws, const void* scale, float mul, void* out, int ksplit, int M, int N,
-           cudaStream_t st) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ksplit == 1) return err;
-  const long long MN = (long long)M * N;
-  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  fp6_reduce_kernel<<<blocks, 256, 0, st>>>(ws, static_cast<const __nv_bfloat16*>(scale), mul,
-                                            static_cast<__nv_bfloat16*>(out), ksplit, M, N);
-  return cudaGetLastError();
+  wstream::finish<NT>(acc, reinterpret_cast<float*>(p_smem), nullptr, scale, ws, tickets, out,
+                      M, N);
 }
 
 }  // namespace
@@ -429,24 +417,49 @@ TT_EXPORT int tt_fp6_dual_gemv(const void* x, const void* wa, const void* wb, co
   return launch_dual<2, 4>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, st);
 }
 
-// K12. x [M, K] bf16; s4 [K/2, N] u8; s2 [K/4, N] u8; scale [N] bf16 (layer
-// already offset by the caller); ws [ksplit, M, N] f32 scratch (ksplit > 1);
-// out [M, N] bf16.
+// K12's shared memory: the split's two arrays of x pairs, or (after the
+// loop, in the same bytes) the warps' sums.
+static int fp6_smem(int M, int K, int nsplit) {
+  const int steps = K / 4 / FP6_STEP_ROWS;
+  const int x = 2 * M * ((steps + nsplit - 1) / nsplit * FP6_STEP_ROWS + 4) * 4;
+  const int red = wstream::WARPS * M * wstream::COLS * 4;
+  return x > red ? x : red;
+}
+
+template <int NT>
+static int launch_fp6(const void* x, const void* s4, const void* s2, const void* scale, void* ws,
+                      void* tickets, void* out, int M, int K, int N, int nsplit,
+                      cudaStream_t st) {
+  static int configured = 0;  // the largest dynamic shared memory asked for so far
+  const int smem = fp6_smem(M, K, nsplit);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(fp6_packed_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
+  fp6_packed_kernel<NT><<<grid, wstream::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(s4),
+      static_cast<const uint8_t*>(s2), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
+      K, N);
+  return cudaGetLastError();
+}
+
+// K12. x [M, K] bf16, M <= 16; s4 [K/2, N] u8; s2 [K/4, N] u8; scale [N] bf16
+// (layer already offset by the caller); ws [nsplit, M, N] f32 (null when
+// nsplit == 1); tickets: int32, one per 128-column strip, zero (and left
+// zero); out [M, N] bf16. K % 32 == 0, N % 16 == 0, 1 <= nsplit <= K/4 / 8;
+// x, s4 and s2 16-byte aligned.
 TT_EXPORT int tt_fp6_gemv(const void* x, const void* s4, const void* s2, const void* scale,
-                          void* ws, void* out, int M, int K, int N, int ksplit, void* stream) {
-  if (M < 1 || M > 16 || ksplit < 1 || (K / 4) % RUN6 || N % COLS) return cudaErrorInvalidValue;
+                          void* ws, void* tickets, void* out, int M, int K, int N, int nsplit,
+                          void* stream) {
+  if (M < 1 || M > FP6_MAX_M || K % (4 * FP6_STEP_ROWS) || N % 16 || nsplit < 1 ||
+      nsplit > K / 4 / FP6_STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
+      fp6_smem(M, K, nsplit) > wstream::MAX_SMEM)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((N + TN - 1) / TN, ksplit, (M + mt - 1) / mt);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto a = static_cast<const uint8_t*>(s4);
-  auto b = static_cast<const uint8_t*>(s2);
-  auto s = static_cast<const __nv_bfloat16*>(scale);
-  auto w = static_cast<float*>(ws);
-  auto o = static_cast<__nv_bfloat16*>(out);
-  if (mt == 1)
-    fp6_packed_kernel<1><<<grid, THREADS, 0, st>>>(xb, a, b, s, w, o, M, K, N);
-  else
-    fp6_packed_kernel<4><<<grid, THREADS, 0, st>>>(xb, a, b, s, w, o, M, K, N);
-  return finish_splits(w, scale, 1.f / 32.f, out, ksplit, M, N, st);
+  if (M <= 8) return launch_fp6<1>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, st);
+  return launch_fp6<2>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, st);
 }

@@ -30,14 +30,19 @@
 // What bounds it on an H100: bytes, at decode and at a 128-token prefill
 // alike. Llama-3-8B's int8/e4m3 linears stream 7.50 GB per forward (2.24 ms
 // at 3.35 TB/s); the M = 128 prefill's 1.92 TFLOP take 1.94 ms at the bf16
-// tensor-core peak (0.97 ms at the int8/fp8 one). Three bodies:
-//   - gemv (M <= 32; K6, K7, K8, K9, P1: tt_qmm_gemv, tt_fp8_rowwise_gemv):
+// tensor-core peak (0.97 ms at the int8/fp8 one). Four bodies:
+//   - gemv (M <= 32; K6, K7, K9, P1: tt_qmm_gemv, tt_fp8_rowwise_gemv):
 //     SIMT, one warp per two weight rows, each lane 16 consecutive k per
 //     step, reading each weight byte once with 16-byte loads and keeping the
 //     converted weight in registers only; K is split over blockIdx.y until
 //     ~1000 blocks are in flight, partial sums go to a scratch buffer and a
 //     second pass sums them and applies the epilogue (one pass only when K
 //     is not split);
+//   - K8's gemv (M <= 32, tt_fp8_mixed_gemv): the same reading and
+//     arithmetic in one launch a call, four rows a warp, the K split (planned
+//     by kernels/_qmm.py::fp8_gemv_nsplit: two splits for wo and w2 at
+//     decode, none for wqkv and w13) merged by the last block's ticket;
+//     notes at the kernel;
 //   - bf16 tensor cores (M > 32; K6 and K8 with bf16 x): bf16 mma.sync on
 //     the weight bytes converted in registers (qmm_mma_bf16_kernel,
 //     tt_qmm_mma_bf16);
@@ -229,6 +234,135 @@ __global__ void qmm_reduce_kernel(const Acc* __restrict__ work, const void* __re
     const int m = (int)(i / N), n = (int)(i % N);
     out[i] = __float2bfloat16((float)v * load_scale(xs, xs_kind, m) *
                               load_scale(wsc, ws_kind, (long long)n * ws_stride));
+  }
+}
+
+// --------------------------------------------- K8's gemv: one launch --
+// fp8_gemv_kernel<KIND, MT> (entry tt_fp8_mixed_gemv; K8 at M <= 32, kinds
+// 2 and 3: float8wo's and float8dq-row's decode) computes what
+// qmm_gemv_kernel does for those kinds, with the same arithmetic (the
+// hardware e4m3x2 -> f16x2 conversion, f32 FMAs, the epilogue acc * xs * ws
+// rounded once) and the same reading (a lane 16 consecutive k of a row per
+// 16-byte load, so each load of a warp is one 512-byte run of a row), in one
+// launch a call: a warp takes F8G_RPW rows, and the K split
+// (kernels/_qmm.py::fp8_gemv_nsplit) is merged in the launch. A split's f32
+// sums go to a per-shape workspace and the last split of a block's rows (an
+// atomic ticket per (row block, x block), reset by that block: no memset)
+// sums them in split order and writes out. No reduce pass and nothing
+// allocated per call; two calls give the same bits.
+// Two measured departures from the design this form was first written to
+// (PERF.md §6): x staged once per block in shared memory by cp.async
+// read 2-3% slower per decode step than x read from L2 by each lane (its
+// wait opens every block), and keeping the next 1, 2, 3 or 7 steps' weight
+// loads in registers moved nothing against loading each step where it is
+// used: the card's other warps hide the latency.
+// grid: (ceil(N / F8G_ROWS), nsplit, ceil(M / MT)). Split y takes the
+// 16-k chunks [y C / nsplit, (y + 1) C / nsplit) of the C = K / 16; lane l
+// every 32nd of them.
+constexpr int F8G_RPW = 4;                            // weight rows per warp
+constexpr int F8G_ROWS = F8G_RPW * GV_THREADS / 32;   // 32 weight rows per block
+constexpr int F8G_BLOCKS = 2;                         // blocks an SM (the launch bounds)
+constexpr int F8G_MT = 4;                             // rows of x a block takes at M > 1
+
+template <int KIND, int MT>
+__global__ void __launch_bounds__(GV_THREADS, F8G_BLOCKS)
+fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
+                const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
+                int ws_kind, int ws_stride, float* __restrict__ work, int* __restrict__ tickets,
+                __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  using Tr = Traits<KIND>;
+  constexpr int XB = Tr::kXBytes, RPW = F8G_RPW;
+  __shared__ float part[MT][F8G_ROWS];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nb = blockIdx.x * F8G_ROWS, n0 = nb + warp * RPW;
+  const int m0 = blockIdx.z * MT, split = blockIdx.y, nsplit = gridDim.y;
+  const int nch = K / CH;
+  const int c0 = (int)((long long)split * nch / nsplit);
+  const int c1 = (int)((long long)(split + 1) * nch / nsplit);
+
+  // x row m at chunk c, as 16 floats
+  auto x_at = [&](int m, int c, float (&xf)[CH]) {
+    const uint8_t* p =
+        static_cast<const uint8_t*>(xv) + ((size_t)(m0 + m) * K + (size_t)c * CH) * XB;
+    if constexpr (Tr::kXBf16) {
+      bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(p)), xf);
+      bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(p + 16)), xf + 8);
+    } else {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+      const uint32_t* d = &q.x;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bytes4_to_float<true>(d[i], xf + 4 * i);
+    }
+  };
+  float acc[MT][RPW];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) acc[m][r] = 0.f;
+  for (int c = c0 + lane; c < c1; c += 32) {
+    uint4 wr[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+      wr[r] = n0 + r < N
+                  ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + (size_t)c * CH))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    float xf[CH];  // M = 1: row 0 of x, once for the RPW rows
+    if constexpr (MT == 1) x_at(0, c, xf);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      float wf[CH];
+      const uint32_t* d = &wr[r].x;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bytes4_to_float<true>(d[i], wf + 4 * i);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if constexpr (MT == 1) {
+#pragma unroll
+          for (int i = 0; i < CH; ++i) acc[0][r] = fmaf(xf[i], wf[i], acc[0][r]);
+        } else {
+          if (m0 + m >= M) break;
+          float xm[CH];
+          x_at(m, c, xm);
+#pragma unroll
+          for (int i = 0; i < CH; ++i) acc[m][r] = fmaf(xm[i], wf[i], acc[m][r]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const float v = warp_sum(acc[m][r]);
+      if (lane == 0) part[m][warp * RPW + r] = v;
+    }
+  __syncthreads();
+  // thread t < MT * F8G_ROWS: row m = t / F8G_ROWS of x, weight row nb + t % F8G_ROWS
+  const int m = tid / F8G_ROWS, n = nb + tid % F8G_ROWS;
+  const bool mine = tid < MT * F8G_ROWS && m0 + m < M && n < N;
+  auto store = [&](float v) {
+    out[(size_t)(m0 + m) * N + n] = __float2bfloat16(
+        v * load_scale(xs, xs_kind, m0 + m) * load_scale(wsc, ws_kind, (long long)n * ws_stride));
+  };
+  if (nsplit == 1) {
+    if (mine) store(part[m][tid % F8G_ROWS]);
+    return;
+  }
+  if (mine) work[((size_t)split * M + m0 + m) * N + n] = part[m][tid % F8G_ROWS];
+  const int strip = blockIdx.z * gridDim.x + blockIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + strip, 1) == nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;
+  if (tid == 0) tickets[strip] = 0;  // ready for the next launch
+  __threadfence();
+  if (mine) {
+    float v = 0.f;
+    for (int s = 0; s < nsplit; ++s) v += __ldcg(work + ((size_t)s * M + m0 + m) * N + n);
+    store(v);
   }
 }
 
@@ -623,13 +757,25 @@ int launch_gemv(const void* x, const void* w, const void* xs, int xs_kind, const
   return cudaGetLastError();
 }
 
+template <int KIND, int MT>
+int launch_fp8_gemv(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
+                    int ws_kind, int ws_stride, void* work, void* tickets, void* out, int M,
+                    int K, int N, int nsplit, cudaStream_t st) {
+  dim3 grid((N + F8G_ROWS - 1) / F8G_ROWS, nsplit, (M + MT - 1) / MT);
+  fp8_gemv_kernel<KIND, MT><<<grid, GV_THREADS, 0, st>>>(
+      x, static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind, ws_stride,
+      static_cast<float*>(work), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
+      K, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// kind: 0 = K6 (bf16 x, int8 w), 1 = K7 (int8 x, int8 w), 2 = K8 (bf16 x,
-// e4m3 w), 3 = K8 (e4m3 x, e4m3 w). x [M, K]; w [N, K] (layer already offset
-// by the caller); xs [M] and ws [N] (or [1] with ws_stride 0) of kind 0/1/2;
-// work [ksplit, M, N] f32 (int32 for K7) scratch when ksplit > 1; out [M, N]
-// bf16. K % 32 == 0, x and w 16-byte aligned.
+// kind: 0 = K6 (bf16 x, int8 w), 1 = K7 (int8 x, int8 w); K8's gemv is
+// tt_fp8_mixed_gemv. x [M, K]; w [N, K] (layer already offset by the caller);
+// xs [M] and ws [N] (or [1] with ws_stride 0) of kind 0/1/2; work [ksplit, M,
+// N] f32 (int32 for K7) scratch when ksplit > 1; out [M, N] bf16. K % 32 ==
+// 0, x and w 16-byte aligned.
 TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs, int xs_kind,
                           const void* ws, int ws_kind, int ws_stride, void* work, void* out,
                           int M, int K, int N, int ksplit, void* stream) {
@@ -638,10 +784,35 @@ TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs
   switch (kind) {
     case K6_BF16_I8: return launch_gemv<K6_BF16_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
     case K7_I8_I8: return launch_gemv<K7_I8_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
-    case K8_BF16_E4M3: return launch_gemv<K8_BF16_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
-    case K8_E4M3_E4M3: return launch_gemv<K8_E4M3_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K8's gemv in one launch: kind 2 (bf16 x) or 3 (e4m3 x); x [M, K], M <= 32;
+// w [N, K] e4m3 (layer already offset by the caller); xs [M] and ws [N] (or
+// [1] with ws_stride 0) of kind 0/1/2; work [nsplit, M, N] f32 (null when
+// nsplit == 1); tickets: int32, one per (32-row block, x block of 4 rows),
+// zero (and left zero); out [M, N] bf16. K % 32 == 0, 1 <= nsplit <= K / 16,
+// x and w 16-byte aligned.
+TT_EXPORT int tt_fp8_mixed_gemv(int kind, const void* x, const void* w, const void* xs,
+                                int xs_kind, const void* ws, int ws_kind, int ws_stride,
+                                void* work, void* tickets, void* out, int M, int K, int N,
+                                int nsplit, void* stream) {
+  if ((kind != K8_BF16_E4M3 && kind != K8_E4M3_E4M3) || M < 1 || M > 32 || K % K_UNIT ||
+      nsplit < 1 || nsplit > K / CH || !tickets || (nsplit > 1 && !work))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == K8_BF16_E4M3)
+    return M == 1 ? launch_fp8_gemv<K8_BF16_E4M3, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
+                                                     work, tickets, out, M, K, N, nsplit, st)
+                  : launch_fp8_gemv<K8_BF16_E4M3, F8G_MT>(x, w, xs, xs_kind, ws, ws_kind,
+                                                          ws_stride, work, tickets, out, M, K,
+                                                          N, nsplit, st);
+  return M == 1 ? launch_fp8_gemv<K8_E4M3_E4M3, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
+                                                   work, tickets, out, M, K, N, nsplit, st)
+                : launch_fp8_gemv<K8_E4M3_E4M3, F8G_MT>(x, w, xs, xs_kind, ws, ws_kind,
+                                                        ws_stride, work, tickets, out, M, K, N,
+                                                        nsplit, st);
 }
 
 // The tensor-core kernels (M > 32), with the arguments of tt_qmm_gemv: kind

@@ -1,6 +1,7 @@
 // One weight stream for the decode GEMVs on the tensor cores: K1
-// (int4_matmul.cu, tt_int4_gemv and its stub arm) and K11's A plane
-// (fp6_matmul.cu, tt_fp6_dual_gemv). Both read a weight far larger than x
+// (int4_matmul.cu, tt_int4_gemv and its stub arm), K11's A plane and K12
+// (fp6_matmul.cu, tt_fp6_dual_gemv, tt_fp6_gemv: K12's step is three K1
+// steps, its own map noted there). Each reads a weight far larger than x
 // (M <= 32 rows) once, so they are bound by bytes on an H100; what this
 // design gives them:
 //
@@ -31,8 +32,8 @@
 //     call is capturable in a CUDA graph) sums the partials in split order.
 //     Every sum has a fixed order, so two calls give the same bits.
 // The split plan (how many splits) is the wrapper's (kernels/int4_matmul.py::
-// gemv_nsplit, kernels/fp6_matmul.py::dual_nsplit); a kernel only divides
-// its grid's work evenly by it.
+// gemv_nsplit, kernels/fp6_matmul.py::dual_nsplit and fp6_nsplit); a kernel
+// only divides its grid's work evenly by it.
 #pragma once
 
 #include "common.cuh"

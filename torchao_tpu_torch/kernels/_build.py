@@ -98,7 +98,7 @@ _ABLATE = _VIEWS + [c_ptr] + [c_int] * 7 + [c_float, c_ptr]
 _HEADS = _VIEWS + [c_ptr] * 3 + [c_int] * 8 + [c_float, c_ptr]
 # kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride
 _QMM = [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int]
-# x, w (or its planes / shards), scale(s), scratch, out, M, K, N, ksplit, stream
+# x, w, xs, ws, scratch, out, M, K, N, ksplit, stream
 _GEMV6 = [c_ptr] * 6 + [c_int] * 4 + [c_ptr]
 # x, wp, scale, zero, ws, out, M, K, N, g, ksplit, stream
 _INT4 = [c_ptr] * 6 + [c_int] * 5 + [c_ptr]
@@ -147,13 +147,15 @@ SIGNATURES = {
     "tt_smajor_attention": _HEADS,
     "tt_smajor_attention_i8": _HEADS,
     "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
+    # K8's one-launch gemv: work (null: one split), tickets, out, M, K, N, nsplit, stream
+    "tt_fp8_mixed_gemv": _QMM + [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
     # the tensor-core bodies take the gemv's arguments (work may be null: one split)
     "tt_qmm_mma_bf16": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_mma_e4m3": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_mma_s8": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_fp8_rowwise_gemv": _GEMV6,
     "tt_fp6_dual_gemv": _STREAM_FP6,
-    "tt_fp6_gemv": _GEMV6,
+    "tt_fp6_gemv": _STREAM_FP6,
     # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
     "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
     "tt_w4a8_tiled": [c_ptr] * 3 + [c_int, c_ptr, c_int, c_ptr] + [c_int] * 5 + [c_ptr],
@@ -301,8 +303,56 @@ def ptxas_report(names) -> str:
     return "\n".join(out)
 
 
+def sass_loops(sass: str, kernel: str) -> str:
+    """For each function of ``cuobjdump -sass`` output whose mangled name
+    holds ``kernel``: the instructions of its largest loop (the span from a
+    backward branch's target to the branch), their number and their count
+    by opcode. That is the steady state of a streaming kernel's main loop."""
+    import re
+
+    out = []
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = block.split("\n", 1)[0].strip()
+        if kernel not in fname:
+            continue
+        ins = []  # (address, opcode, backward-branch target or None)
+        for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block):
+            toks = [t for t in text.split() if not t.startswith("@")]
+            if not toks:
+                continue
+            target = re.search(r"(0x[0-9a-f]+)\s*$", text) if toks[0].startswith("BRA") else None
+            ins.append((int(addr, 16), toks[0], int(target.group(1), 16) if target else None))
+        loops = [(a - t, t, a) for a, _, t in ins if t is not None and t < a]
+        if not loops:
+            out.append(f"== {fname}: no loop")
+            continue
+        _, lo, hi = max(loops)
+        counts = collections.Counter(op.split(".")[0] for a, op, _ in ins if lo <= a <= hi)
+        out.append(f"== {fname}: {sum(counts.values())} instructions in its largest loop "
+                   f"[{lo:#x}, {hi:#x}]\n   "
+                   + ", ".join(f"{k} {v}" for k, v in counts.most_common()))
+    return "\n".join(out)
+
+
+def sass_loop_report(name: str, kernel: str) -> str:
+    """:func:`sass_loops` of ``csrc/<name>`` compiled with the library's
+    flags (needs ``nvcc`` and ``cuobjdump``)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "k.o"
+        subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o",
+                        str(obj)], check=True, capture_output=True, text=True)
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(obj)],
+                              check=True, capture_output=True, text=True).stdout
+    return sass_loops(sass, kernel)
+
+
 if __name__ == "__main__":
     # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu [other/dir/x.cu]
+    # python -m torchao_tpu_torch.kernels._build --sass fp6_matmul.cu fp6_packed_kernel
     import sys
 
-    print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))
+    if sys.argv[1:2] == ["--sass"]:
+        print(sass_loop_report(sys.argv[2], sys.argv[3]))
+    else:
+        print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))

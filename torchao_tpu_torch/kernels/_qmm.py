@@ -1,11 +1,17 @@
 """Launcher shared by the K6, K7, K8 and K9 wrappers (``csrc/qmatmul.cu``).
 
-``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]``, through one of four
+``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]``, through one of five
 bodies, by M and the kind (:func:`tiled_entry`):
 
-- M ≤ 32, every kind: the SIMT gemv (``tt_qmm_gemv``; K9's own
+- M ≤ 32, K8 (kinds 2 and 3, bf16 or e4m3 x): the SIMT gemv in one launch
+  a call (``tt_fp8_mixed_gemv``): 512-byte row runs, four rows a warp, the
+  K split of :func:`fp8_gemv_nsplit` merged by the last block's ticket
+  (workspace and tickets from ``_build.stream_buffers``: nothing allocated
+  but the output); bound by the weight's bytes;
+- M ≤ 32, K6, K7 and K9: the SIMT gemv (``tt_qmm_gemv``; K9's own
   ``tt_fp8_rowwise_gemv``), K split over blocks until about
-  ``_TARGET_BLOCKS`` are in flight; bound by the weight's bytes;
+  ``_TARGET_BLOCKS`` are in flight and finished by a reduce pass; bound by
+  the weight's bytes;
 - M > 32, K6 and K8 with bf16 x: bf16 ``mma.sync`` on the weight bytes
   converted in registers (``tt_qmm_mma_bf16``);
 - M > 32, K8 with e4m3 x and K9: e4m3 ``mma.sync`` on the stored bytes
@@ -18,17 +24,19 @@ over the grid by :func:`tiled_ksplit` where their 128 x 128 output tiles
 would not fill the card (K7's partials int32, so its result stays exact:
 it equals the plain version bit for bit). Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
-``<name>_tiled``; a tiled launch also counts its C entry in
-``_build.ENTRIES``.
+``<name>_tiled``; a tiled launch and a K8 gemv launch also count their C
+entry in ``_build.ENTRIES``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels.int4_matmul import STREAM_WARPS, stream_nsplit
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 32
@@ -37,6 +45,10 @@ K_STEP = 32          # k per step of the tiled bodies and unit of their K split 
 _CHUNK = 16          # k per lane per gemv step (csrc CH)
 _GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
 _TARGET_BLOCKS = 1024
+FP8_GEMV_ROWS = 32   # K8 gemv: weight rows per block (csrc F8G_ROWS)
+FP8_GEMV_BLOCKS_PER_SM = 2  # K8 gemv: its launch bounds (csrc F8G_BLOCKS)
+FP8_GEMV_MT = 4      # K8 gemv: rows of x per block at M > 1 (csrc F8G_MT)
+FP8_GEMV_ENTRY = "tt_fp8_mixed_gemv"
 TILED_BM = TILED_BN = 128  # output tile of the tensor-core bodies (csrc MMA_BM, MMA_BN)
 # blocks resident per SM (their shared memory and registers): the K split's wave
 MMA_BLOCKS_PER_SM = {"tt_qmm_mma_bf16": 2, "tt_qmm_mma_e4m3": 1, "tt_qmm_mma_s8": 2}
@@ -79,6 +91,20 @@ def tiled_ksplit(M: int, K: int, N: int, sms: int, blocks_per_sm: int) -> int:
     tiles, at most one split per ``K_STEP`` of k."""
     tiles = cdiv(M, TILED_BM) * cdiv(N, TILED_BN)
     return max(1, min(K // K_STEP, blocks_per_sm * sms // tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def fp8_gemv_nsplit(M: int, K: int, N: int, sms: int) -> int:
+    """K8's gemv K split (``int4_matmul.stream_nsplit``): blocks of
+    ``FP8_GEMV_ROWS`` weight rows and one or ``FP8_GEMV_MT`` rows of x,
+    units of 512 k (one load of a lane for every row of its warp: with
+    ``STREAM_WARPS`` warps of 4 rows, two of K1's steps in bytes),
+    ``FP8_GEMV_BLOCKS_PER_SM`` blocks an SM."""
+    mt = 1 if M == 1 else FP8_GEMV_MT
+    strips = cdiv(N, FP8_GEMV_ROWS) * cdiv(M, mt)
+    units = cdiv(K, 32 * _CHUNK)
+    return stream_nsplit(strips, units, max(1, FP8_GEMV_ROWS // STREAM_WARPS // 2), sms,
+                         FP8_GEMV_BLOCKS_PER_SM, units)
 
 
 def _scale_arg(s: Optional[torch.Tensor], sizes, what: str):
@@ -126,7 +152,16 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
     lib = _build.library()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = _build.stream_handle(x.device)
-    if M <= GEMV_MAX_M:
+    if M <= GEMV_MAX_M and kind in (K8_BF16_E4M3, K8_E4M3_E4M3):
+        nsplit = fp8_gemv_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+        mt = 1 if M == 1 else FP8_GEMV_MT
+        work, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
+                                              cdiv(N, FP8_GEMV_ROWS) * cdiv(M, mt))
+        lib.launch(FP8_GEMV_ENTRY, *args, None if work is None else work.data_ptr(),
+                   tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit, stream)
+        _build.LAUNCHES[f"{name}_gemv"] += 1
+        _build.ENTRIES[FP8_GEMV_ENTRY] += 1
+    elif M <= GEMV_MAX_M:
         chunks = K // _CHUNK
         ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
         acc = torch.int32 if kind == K7_I8_I8 else torch.float32

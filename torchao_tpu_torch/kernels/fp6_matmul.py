@@ -17,8 +17,12 @@ dtype:
   N]`` (half-split nibbles ``m | e0<<2 | e1<<3``) and s2 ``[(L,) K/4, N]``
   (quarter-split 2-bit fields ``e2 | s<<1``);
   ``out = (Σ_k x·v32(k, n)) · scale[n] / 32``. Replaces ``fp6_dq_matmul``
-  (pallas_call at :189, body ``_kernel_fp6`` at :72). Counts its launches
-  as ``fp6_dq_matmul``.
+  (pallas_call at :189, body ``_kernel_fp6`` at :72) in one launch a call
+  on K1's weight stream: each s4 byte one bf16x2 tensor-core element, its
+  bits placed as bf16 ``fp6·2^-124`` by register lookups and one multiply
+  by 2^124 (exact, subnormals too: :func:`fp6_bf16_bits` models it), the K
+  split planned by :func:`fp6_nsplit`. Counts its launches as
+  ``fp6_dq_matmul``.
 
 :func:`pack_fp6_kmajor` is the port's copy of the JAX package's packing of
 6-bit codes into those two shards. ``*_supported`` are the JAX package's
@@ -46,10 +50,11 @@ from torchao_tpu_torch.kernels.int4_matmul import (
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 16
-_TN = 128            # K12: columns per block (csrc TN)
-_RUN6 = 4            # K12: s2 rows per run (csrc RUN6)
-_TARGET_BLOCKS = 1024
 DUAL_B_ROWS = 16     # K11: rows of B per warp of its SIMT B loop (csrc DUAL_B_ROWS)
+FP6_STEP_ROWS = 8    # K12: s2 rows per warp step, 32 k x 128 columns (csrc FP6_STEP_ROWS)
+# K12's prmt tables (csrc FP6_LOW_*, FP6_HIGH_*): byte i of (HI << 32 | LO)
+FP6_LOW = (0x60402000, 0xE0C0A080)    # m<<5 | e0<<7 at i = m | e0<<2
+FP6_HIGH = (0x82800200, 0x83810301)   # e1 | e2<<1 | s<<7 at i = e2 | s<<1 | e1<<2
 
 
 def pack_fp6_kmajor(codes: torch.Tensor):
@@ -75,6 +80,21 @@ _V32 = [(-1 if c & 32 else 1) * ((4 + (c & 3)) if (c >> 2) & 7 else 2 * (c & 3))
 def code_v32(codes: torch.Tensor) -> torch.Tensor:
     """fp6 codes → ``fp6 · 32`` in f32 (integers, exact)."""
     return torch.tensor(_V32, dtype=torch.float32, device=codes.device)[codes.int()]
+
+
+def fp6_bf16_bits(codes):
+    """The bf16 bits K12 places for 6-bit codes ``s<<5 | e<<2 | m``: its
+    table lookups (byte ``i`` of a table pair, as ``prmt`` reads it) of the
+    low byte at ``m | e0<<2`` and the high byte at ``e2 | s<<1 | e1<<2``.
+    As bf16, times 2^124, they are the codes' e3m2 values."""
+    byte = lambda pair, i: (pair[i >> 2] >> (8 * (i & 3))) & 0xFF
+    out = []
+    for c in codes:
+        m, e, s = c & 3, (c >> 2) & 7, (c >> 5) & 1
+        low = byte(FP6_LOW, m | (e & 1) << 2)
+        high = byte(FP6_HIGH, (e >> 2) | s << 1 | ((e >> 1) & 1) << 2)
+        out.append(high << 8 | low)
+    return out
 
 
 def fp6_v32(s4: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -167,6 +187,17 @@ def fp6_dq_supported(M: int, K: int, N: int) -> bool:
     return M <= GEMV_MAX_M and K % 512 == 0 and N % 128 == 0
 
 
+@functools.lru_cache(maxsize=None)
+def fp6_nsplit(M: int, K: int, N: int, sms: int) -> int:
+    """K12's K split (``int4_matmul.stream_nsplit``): units of
+    ``FP6_STEP_ROWS`` s2 rows (a warp step, three of K1's in bytes), two
+    blocks an SM at M <= 8 (one n-tile), one above; a split's two arrays of
+    x pairs (8 B per s2 row and row of x) in ``STREAM_X_BYTES``."""
+    units = K // 4 // FP6_STEP_ROWS
+    max_units = max(1, (STREAM_X_BYTES // (8 * M) - 4) // FP6_STEP_ROWS)
+    return stream_nsplit(cdiv(N, STREAM_COLS), units, 3, sms, 2 if M <= 8 else 1, max_units)
+
+
 def fp6_dq_matmul_plain(x, s4, s2, scale, *, layer_idx=None):
     """Plain PyTorch version of ``fp6_dq_matmul``, rounding where it rounds:
     ``Σ x·v32`` in f32, rounded to x.dtype, times ``scale/32`` in x.dtype."""
@@ -193,13 +224,13 @@ def fp6_dq_matmul(x: torch.Tensor, s4: torch.Tensor, s2: torch.Tensor, scale: to
         raise ValueError(f"fp6_dq_matmul: unsupported shape M={M}, K={K}, N={N}")
     _check("fp6_dq_matmul", x, (("s4", s4), ("s2", s2), ("scale", scale)),
            (torch.uint8, torch.uint8, torch.bfloat16))
-    runs = K // 4 // _RUN6
-    ksplit = max(1, min(runs // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _TN))))
-    ws = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
-                     device=x.device)
+    nsplit = fp6_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+    ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
+                                        cdiv(N, STREAM_COLS))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _build.library().launch("tt_fp6_gemv", x.data_ptr(), s4.data_ptr(), s2.data_ptr(),
-                            scale.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                            scale.data_ptr(), None if ws is None else ws.data_ptr(),
+                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
                             _build.stream_handle(x.device))
     _build.LAUNCHES["fp6_dq_matmul"] += 1
     return out

@@ -9,7 +9,9 @@ Port of two functions of ``torchao_tpu/kernels/fp8_matmul.py`` (CUDA source
   ``[(L,) N, K]``, and x in bf16 (float8wo, no x scale) or e4m3 (float8dq,
   per-row x scales), f32 accumulation. Weight scales are per row
   (``[(L,) N]`` or ``[(L,) N, 1]``) or one per layer (``[(L,) 1]``). M ≤ 32
-  runs the SIMT gemv (``tt_qmm_gemv``); M > 32 a tensor-core kernel: with
+  runs the SIMT gemv in one launch a call (``tt_fp8_mixed_gemv``: 512-byte
+  row runs, x staged once per block, the K split merged by the last block's
+  ticket); M > 32 a tensor-core kernel: with
   bf16 x K6's bf16 one (``tt_qmm_mma_bf16``, the e4m3 weight converted to
   bf16 in registers, exactly), with e4m3 x K9's e4m3 one
   (``tt_qmm_mma_e4m3``, the stored bytes); every form is bound by the
