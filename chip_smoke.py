@@ -60,10 +60,11 @@ Phases (each fails loudly; nothing is caught):
    ``TORCHAO_TPU_INT4_VARIANT=banded`` (K14c at decode, K5 at prefill),
    ``group_partial`` (K14a everywhere) and ``TORCHAO_TPU_AUTOTUNE=1`` with a
    cache in a temporary directory (each shape's pick printed and its launch
-   counts asserted) — after K14a (M = 1; M = 128, its tensor-core form,
-   with the weights' zero and without), K14b and K14c (M = 1) against
-   their plain versions at the model's shapes; the 2-layer check runs under
-   ``banded``.
+   counts asserted) — after K14a (M = 1 and 32 on the weight stream; M =
+   128, its tensor-core form, with the weights' zero and without), K14c (M
+   = 1 and 16) and K14b (M = 1) against their plain versions at the model's
+   shapes, each stream form one kernel and one graph node a call; the
+   2-layer check runs under ``banded``.
 
 4. the C3 phase: K4 (int4, int8) at Dh 32, 48, 64 and 96 and K4′ at 32, 48
    and 96 on Llama-3-8B's heads, then K2, K2′ and K4 at stories15M's heads
@@ -688,14 +689,17 @@ def _centred(x):
 
 
 # the kernels whose call is one kernel on the card and nothing else (their
-# K-split merge folded in); check_shapes asserts it on a captured graph
+# K-split merge folded in); check_shapes asserts it on a captured graph. By
+# counter name, or (where a counter also names a form that keeps a reduce
+# pass: K14a's tensor-core form) by the C entry point the check launches
 ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
                        "fp6_dual_matmul", "fp6_dq_matmul", "fp8_mixed_matmul_gemv",
                        "fp8_mixed_matmul_e4m3_gemv"}
+ONE_KERNEL_ENTRIES = {"tt_int4_group_partial", "tt_int4_banded"}
 
 
 def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, library=None,
-                 tol=TOL_SQNR_DB, exact=False, int_mm=None):
+                 tol=TOL_SQNR_DB, exact=False, int_mm=None, entry=None):
     """One kernel form at M on each (weight name, weight, layer, launches per
     forward) of ``cases``, against its plain version (SQNR >= ``tol``, or
     bit for bit if ``exact``). ``call(x, w, layer)`` gives the kernel call,
@@ -706,7 +710,8 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
     w, layer)``, if given, is an int8 tensor-core yardstick (a
     ``torch._int_mm`` call): its time is logged per shape and summed as
     ``int_mm_ms``, beside the library column. A kernel of
-    ``ONE_KERNEL_PER_CALL`` must be one kernel per call at every shape."""
+    ``ONE_KERNEL_PER_CALL``, or whose C ``entry`` is in
+    ``ONE_KERNEL_ENTRIES``, must be one kernel per call at every shape."""
     t = Tally(name, f"one {'decode step' if M <= 16 else 'prefill'} at M={M}: "
               + ", ".join(f"{n} x{c}" for n, _, _, c in cases), peak)
     for wname, w, l, count in cases:
@@ -717,7 +722,8 @@ def check_shapes(name, cases, M, call, gen, peak=BF16_FLOPS, make_x=None, librar
         kernel, plain, nbytes, flops = call(x, w, l)
         got, want = kernel(), plain()
         err = compare(f"{name} {wname} M={M} N={N} K={K}", got, want, exact=exact, tol=tol)
-        if name in ONE_KERNEL_PER_CALL and (nodes := kernels_per_call(kernel)) != (1, 1):
+        one = name in ONE_KERNEL_PER_CALL or entry in ONE_KERNEL_ENTRIES
+        if one and (nodes := kernels_per_call(kernel)) != (1, 1):
             raise AssertionError(f"{name} {wname}: a call is {nodes} (kernels, graph nodes)")
         if exact:
             t.extra["bit_exact"] = True
@@ -1460,22 +1466,25 @@ VARIANTS_SECTION = f"int4wo-{GROUP}-variants"
 
 
 def _k14_kernels(params, args, gen):
-    """K14a at M = 1 and 128 (at 128 its tensor-core form, with its zero and
-    zero-free: the same weights without their zero), K14c (the default
-    layout: a chunk applies to every Llama-3-8B shape) and K14b
-    (``TORCHAO_TPU_QPARAMS_LAYOUT=family``) at M = 1, on every stacked
-    weight and the head; each group of checks launches its own kernel and
-    no other."""
+    """K14a at M = 1, 32 and 128 (at 128 its tensor-core form, with its
+    zero and zero-free: the same weights without their zero), K14c (the
+    default layout: a chunk applies to every Llama-3-8B shape) at M = 1 and
+    16 and K14b (``TORCHAO_TPU_QPARAMS_LAYOUT=family``) at M = 1, on every
+    stacked weight and the head; each group of checks launches its own
+    kernel and no other, the stream forms (M <= 32) one kernel and one graph
+    node a call."""
     cases = _cases(params, args.n_layer, True)
     zero_free = _cases(params, args.n_layer, True,
                        lambda w: dataclasses.replace(w, zero_point=None))
     gp, gp_tiled, banded = "tt_int4_group_partial", "tt_int4_group_partial_tiled", "tt_int4_banded"
     checks = (("int4_dq_matmul_group_partial", "group_partial", 1, {}, cases, TOL_SQNR_DB, gp),
+              ("int4_dq_matmul_group_partial", "group_partial", 32, {}, cases, TOL_SQNR_DB, gp),
               ("int4_dq_matmul_group_partial", "group_partial", PROMPT, {}, cases,
                TOL_K14A_TILED_DB, gp_tiled),
               ("int4_dq_matmul_zero_free_group_partial", "group_partial", PROMPT, {}, zero_free,
                TOL_K14A_TILED_DB, gp_tiled),
               ("int4_dq_matmul_banded_stacked", "banded", 1, {}, cases, TOL_SQNR_DB, banded),
+              ("int4_dq_matmul_banded_stacked", "banded", 16, {}, cases, TOL_SQNR_DB, banded),
               ("int4_dq_matmul_banded", "banded", 1, {"TORCHAO_TPU_QPARAMS_LAYOUT": "family"},
                cases, TOL_SQNR_DB, banded))
     tallies = []
@@ -1483,7 +1492,8 @@ def _k14_kernels(params, args, gen):
         with _environment(env):
             _build.reset_launch_counts()
             tallies.append(check_shapes(name, on, M, functools.partial(_int4_call, variant=variant),
-                                        gen, tol=tol))
+                                        gen, tol=tol, entry=entry))
+            tallies[-1].extra["M"] = M
             if set(_build.LAUNCHES) != {name} or set(_build.ENTRIES) != {entry}:
                 raise AssertionError(f"{variant} at M={M}: launches {dict(_build.LAUNCHES)}, "
                                      f"entries {dict(_build.ENTRIES)}")
@@ -1563,7 +1573,7 @@ def variants_section(gen):
                                                  {VARIANT_ENV: "group_partial"})
     _expect(counts_b, {"int4_dq_matmul_group_partial": (4 * L + 1) * (DECODE + 1),
                        **_attention_counts(L)}, "group_partial")
-    # the prefill (M = 128) on the tensor-core form, each decode step on the SIMT one
+    # the prefill (M = 128) on the tensor-core form, each decode step on the stream one
     _expect(entries_b, {"tt_int4_group_partial_tiled": 4 * L + 1,
                         "tt_int4_group_partial": (4 * L + 1) * DECODE}, "group_partial entries")
 
@@ -1579,7 +1589,9 @@ def variants_section(gen):
     e2e_c["picks"] = {f"M={M},N={N},K={K}": body for (M, N, K, *_), body in picks.items()}
 
     runs = {"banded": counts, "group_partial": counts_b}
-    rows = [{**t.row(runs["group_partial" if "group" in t.name else "banded"].get(t.name, 0)),
+    # the M = 16 and 32 checks have no launch on the main path (its decode is M = 1)
+    rows = [{**t.row(runs["group_partial" if "group" in t.name else "banded"].get(t.name, 0)
+                     if t.extra["M"] in (1, PROMPT) else 0),
              "section": VARIANTS_SECTION} for t in tallies]
     del model, params
     gc.collect()

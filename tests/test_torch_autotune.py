@@ -81,13 +81,10 @@ def test_int4_candidates_keep_the_jax_variant_set(M):
     variants = {c["variant"] for c in cands}
     small = {"batched_int8", "banded"}
     assert variants == {"fused", "group_partial"} | (small if M <= 16 else set())
-    # K5 and K1 (its own split plan) are one candidate each; K14's bodies take
-    # the three K-split targets
-    single = {"fused", "batched_int8"}
-    for c in cands:
-        assert set(c) == ({"variant"} if c["variant"] in single else
-                          {"variant", "target_blocks"})
-    assert len(cands) == len(variants & single) + 3 * len(variants - single)
+    # every body's K split is its own plan: one candidate a variant, the
+    # variant its only key
+    assert all(set(c) == {"variant"} for c in cands)
+    assert len(cands) == len(variants)
 
 
 def test_int4_route_tunes_once_and_honours_the_override(monkeypatch, tmp_path):
@@ -117,3 +114,22 @@ def test_int4_route_tunes_once_and_honours_the_override(monkeypatch, tmp_path):
     TK.reset_variant_choices()
     call()
     assert list(TK.variant_choices().values()) == ["group_partial"]
+
+
+def test_an_older_cache_entry_with_a_split_target_is_read(tmp_path):
+    """A cache written when K14's candidates carried a K-split target
+    (``target_blocks``) still gives its variant, and the other key is
+    ignored."""
+    K, N, g = 512, 128, 32
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, generator=gen)
+    s = (torch.rand((K // g, N), generator=gen) * 0.01).bfloat16()
+    x = torch.randn((1, K), generator=gen).bfloat16()
+    key = f"int4_dq_matmul|cpu|1,{N},{K},{g}"
+    (tmp_path / "cache.json").write_text(json.dumps(
+        {key: {"config": {"variant": "banded", "target_blocks": 2048}, "time_us": 1.0}}))
+    at.reset_cache()
+    got = TK.int4_linear(x, w, s, None, group_size=g, xored=True)
+    assert TK.variant_choices() == {(1, N, K, g, False, "cpu"): "banded_stacked"}
+    want = TK.int4_dq_matmul_banded_plain(x, w, s, None, group_size=g, xored=True)
+    assert torch.equal(got, want)

@@ -10,9 +10,16 @@ against the JAX package.
   dB (measured >= 128). In bf16 the outputs are equal but for an
   occasional one-ulp rounding of a sum that lies on a rounding edge: SQNR
   >= 80 dB (measured >= 89).
-- K14a's launch: its tensor-core entry above M = 32 (g a multiple of 32),
-  its SIMT entry at M <= 32, under one launch counter; the K split of the
+- K14a's launch: its tensor-core entry above M = 32 (every g), its stream
+  entry at M <= 32, under one launch counter; the K split of the
   tensor-core form holds whole groups (plain Python, so checked here).
+- K14's stream form (K14a at M <= 32, K14b/K14c): its constants are the
+  CUDA source's, and a model of its walk (the split plan, the warps' ranges
+  and n-tiles, the folds and the zero terms) at Llama-3-8B's shapes reads
+  every packed byte once per n-tile, folds each (group, half) partial once
+  with that group's scale, adds each group's zero term once, keeps the
+  banded splits on whole units and its shared memory within the card's; the
+  same walk, computed in float64, is the plain version's function.
 - The selection: for each (M, variant, stacked, qparams layout) the port
   runs the body that the JAX package's dispatch runs, warning where it
   warns (the JAX bodies are recorded while tracing and never run). ``auto``
@@ -216,23 +223,26 @@ def test_group_partial_plain_matches_jax_body_g128(M, zero_free, dtype):
 @pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
 def test_group_partial_launches_its_tensor_core_form_above_m32(zero_free):
     """``group_partial`` (K14a) launches ``tt_int4_group_partial_tiled``
-    above M = 32 where g is a multiple of 32, and the SIMT
-    ``tt_int4_group_partial`` at M <= 32 (and for other g), under the one
-    counter; the new entry has the int4 ctypes signature; its K split
-    fills one wave in whole groups at Llama-3-8B's prefill shapes."""
+    above M = 32 at every g, and the stream form ``tt_int4_group_partial``
+    at M <= 32, under the one counter; the tiled entry has K5's ctypes
+    signature, the stream entry K1's; the tiled K split fills one wave in
+    whole groups at Llama-3-8B's prefill shapes."""
     from torchao_tpu_torch.kernels import _build
 
     for M, g, entry in ((1, 32, "tt_int4_group_partial"), (32, 32, "tt_int4_group_partial"),
+                        (32, 16, "tt_int4_group_partial"),
                         (33, 32, "tt_int4_group_partial_tiled"),
                         (128, 32, "tt_int4_group_partial_tiled"),
                         (128, 64, "tt_int4_group_partial_tiled"),
                         (128, 128, "tt_int4_group_partial_tiled"),
-                        (128, 16, "tt_int4_group_partial")):
+                        (128, 16, "tt_int4_group_partial_tiled"),
+                        (128, 8, "tt_int4_group_partial_tiled")):
         assert TK.launch_entry("group_partial", M, g) == entry, (M, g)
         assert TK.launch_counter("group_partial", zero_free) == (
             "int4_dq_matmul_zero_free_group_partial" if zero_free
             else "int4_dq_matmul_group_partial")
-        assert _build.SIGNATURES[entry] == _build.SIGNATURES["tt_int4_tiled"]
+        like = "tt_int4_tiled" if entry.endswith("_tiled") else "tt_int4_gemv"
+        assert _build.SIGNATURES[entry] == _build.SIGNATURES[like]
     assert TK.launch_entry("tiled", 128, 32) == "tt_int4_tiled"
     # (N, K) of wqkv, wo, w13, w2 and the head: 48, 32, 224, 32 and 1002 tiles
     # of 128 x 128 on 132 SMs
@@ -242,6 +252,229 @@ def test_group_partial_launches_its_tensor_core_form_above_m32(zero_free):
             ks = TK.group_partial_tiled_ksplit(128, K_, N, g, 132)
             assert ks == want and 1 <= ks <= K_ // 2 // g, (N, K_, g, ks)
     assert TK.group_partial_tiled_ksplit(128, 256, 128, 128, 132) == 1  # one group per half
+
+
+# ------------------------------------------ K14's stream form (M <= 32) --
+
+
+def _cuda_source(name):
+    from torchao_tpu_torch.kernels import _build
+
+    return (_build.CSRC / name).read_text()
+
+
+def _source_int(name, const, env=None):
+    """``constexpr int <const> = <expr>;`` of ``csrc/<name>``, the names in
+    ``env`` (``wstream::WARPS`` and the like) substituted."""
+    import re
+
+    expr = re.search(rf"constexpr int {const} = ([^;]+);", _cuda_source(name)).group(1)
+    expr = re.sub(r"[A-Za-z_][\w:]*", lambda t: str((env or {}).get(t.group(0), t.group(0))),
+                  expr)
+    assert re.fullmatch(r"[0-9 *+/()]+", expr), expr
+    return eval(expr, {"__builtins__": {}})
+
+
+def _k14_consts():
+    ws = {c: _source_int("weight_stream.cuh", c)
+          for c in ("WARPS", "COLS", "STEP_ROWS", "PREFETCH", "MAX_SMEM")}
+    env = {f"wstream::{k}": v for k, v in ws.items()}
+    for c in ("K14_MAX_M", "K14_BANDED_MAX_M", "K14_QSLOT", "K14_QSLOTS", "K14_QRING", "K14_ACC",
+              "K14_BLOCKS"):
+        env[c] = _source_int("int4_matmul.cu", c, env)
+    return {**ws, **{k: v for k, v in env.items() if k.startswith("K14")}}
+
+
+def test_k14_constants_are_the_cuda_source():
+    """K14's M limits, blocks an SM and shared-memory pieces are the
+    source's; its entries take K1's stream arguments (banded: and the unit);
+    the launch bound is the plan's blocks an SM."""
+    from torchao_tpu_torch.kernels import _build
+
+    c = _k14_consts()
+    assert c["K14_MAX_M"] == TK.GEMV_MAX_M
+    assert c["K14_BANDED_MAX_M"] == TK.BANDED_MAX_M
+    assert c["K14_BLOCKS"] == TK.K14_BLOCKS_PER_SM
+    assert c["STEP_ROWS"] == TK.STREAM_STEP_ROWS and c["COLS"] == TK.STREAM_COLS
+    assert c["K14_QRING"] == c["WARPS"] * c["K14_QSLOTS"] * c["K14_QSLOT"] == 16 * 1024
+    assert c["K14_QSLOT"] == 4 * c["COLS"] * 2  # s_lo, s_hi, z_lo, z_hi rows of a strip, bf16
+    assert c["K14_ACC"] == c["WARPS"] * 8 * 32 * 16  # a float4 a lane and mma, every warp
+    text = _cuda_source("int4_matmul.cu")
+    assert "__launch_bounds__(wstream::THREADS, K14_BLOCKS)" in text
+    assert "int4_group_partial_kernel" not in text and "int4_banded_kernel" not in text
+    sig = _build.SIGNATURES
+    assert sig["tt_int4_group_partial"] == sig["tt_int4_gemv"]
+    assert sig["tt_int4_banded"] == sig["tt_int4_gemv"][:-1] + [_build.c_int, _build.c_ptr]
+
+
+def _k14_smem(c, M, K, g, unit, ns):
+    """csrc k14_smem, from the source's constants."""
+    rows = -(-(K // 2 // unit) // ns) * unit
+    groups = -(-rows // g) + 1
+    return c["K14_ACC"] + c["K14_QRING"] + M * (rows + 4) * 4 + groups * M * 8
+
+
+def _k14_walk(M, K, g, unit, ns, warps=8, rows=8):
+    """csrc int4_k14_kernel's walk of one strip: for each split y, its
+    packed rows [R0, R1) and, for each warp, (n-tile, first step, last
+    step, events); an event is ("step", st) or ("fold", gi, owns)."""
+    Kp = K // 2
+    U, su = Kp // unit, unit // rows
+    NT = 1 if M <= 8 else 2 if M <= 16 else 4
+    ranges = warps // NT
+    out = []
+    for y in range(ns):
+        s0, s1 = y * U // ns * su, (y + 1) * U // ns * su
+        R0 = s0 * rows
+        ws = []
+        for w in range(warps):
+            nt, r = w % NT, w // NT
+            first = s0 + r * (s1 - s0) // ranges
+            last = s0 + (r + 1) * (s1 - s0) // ranges
+            ev = []
+            for st in range(first, last):
+                ev.append(("step", st))
+                if st + 1 == last or (st + 1) * rows % g == 0:
+                    gi = st * rows // g
+                    ev.append(("fold", gi, max(gi * g, R0) >= first * rows))
+            ws.append((nt, first, last, ev))
+        out.append((R0, s1 * rows, ws))
+    return out
+
+
+K14_SHAPES = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (128256, 4096),
+              (4096 + 16, 2048)]
+
+
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("N,K", K14_SHAPES)
+@pytest.mark.parametrize("body", ["group_partial", "banded", "banded_stacked"])
+def test_k14_walk_reads_each_byte_once_and_folds_each_group_once(monkeypatch, body, N, K, g):
+    """The walk of :func:`k14_nsplit`'s plan on 132 SMs at M = 1, 8, 9, 16
+    (and 17, 32 for K14a): per n-tile every packed byte is read once; the
+    steps between two folds lie in the fold's group (so a partial of the lo
+    half meets scale row gi and of the hi half row K/(2g) + gi only), each
+    step is folded once; each group's zero term covers its rows once (a
+    split's part of the group, from the warp that holds its first row);
+    banded splits start and end on whole units (and add a group's zero term
+    in one piece); shared memory fits the card at every M, and the staged
+    x's 8-row runs fit in the sums' bytes."""
+    c = _k14_consts()
+    Kp = K // 2
+    if body == "banded":
+        monkeypatch.setenv(LAYOUT, "family")
+        assert TX.qparams_chunk_groups(K // g, g) is None
+    elif body == "banded_stacked":
+        monkeypatch.delenv(LAYOUT, raising=False)
+        assert TX.qparams_chunk_groups(K // g, g) is not None
+    variant = "group_partial" if body == "group_partial" else "banded"
+    for M in (1, 8, 9, 16) + ((17, 32) if body == "group_partial" else ()):
+        got_body, unit = TK._plan(M, K, g, variant)
+        assert got_body == body
+        ns = TK.k14_nsplit(M, K, N, unit, 132)
+        assert 1 <= ns <= Kp // unit
+        smem = _k14_smem(c, M, K, g, unit, ns)
+        assert smem <= c["MAX_SMEM"], (M, smem)
+        rows_max = -(-(Kp // unit) // ns) * unit
+        assert M * rows_max <= c["K14_ACC"]  # the 8-row runs' (lo, hi) sums
+        NT = 1 if M <= 8 else 2 if M <= 16 else 4
+        seen = np.zeros((NT, Kp), int)
+        zero_rows = np.zeros((NT, Kp), int)
+        zero_adds = np.zeros((NT, Kp // g), int)
+        for R0, R1, warps in _k14_walk(M, K, g, unit, ns):
+            if body != "group_partial":
+                assert R0 % unit == 0 and R1 % unit == 0
+            for nt, first, last, ev in warps:
+                pending = []
+                for e in ev:
+                    if e[0] == "step":
+                        seen[nt, 8 * e[1]:8 * e[1] + 8] += 1
+                        pending.append(e[1])
+                        continue
+                    _, gi, owns = e
+                    assert pending and all(8 * st // g == gi and (8 * st + 7) // g == gi
+                                           for st in pending), (gi, pending)
+                    pending = []
+                    if owns:
+                        lo, hi = max(gi * g, R0), min((gi + 1) * g, R1)
+                        zero_rows[nt, lo:hi] += 1
+                        zero_adds[nt, gi] += 1
+                assert not pending  # the last step folds
+        assert (seen == 1).all(), (M, ns)
+        assert (zero_rows == 1).all(), (M, ns)
+        if body != "group_partial":
+            assert (zero_adds == 1).all(), (M, ns)
+
+
+def _k14_emulate(x, wp, scale, zero, g, unit, ns, banded):
+    """The kernel's arithmetic over :func:`_k14_walk`, in float64: per warp
+    and group the partials of each half against the raw nibbles (banded: hi
+    - 8), folded with that group's scales; the owner warp's zero terms with
+    the split's x-sums of the group (banded: rounded to bf16) times
+    bf16(z - 8 s) (banded's hi half: z); the ranges and splits summed."""
+    M, K = x.shape
+    Kp, N = wp.shape
+    nGh = Kp // g
+    lo, hi = (t.double() for t in TK._nibbles(wp, True))
+    if banded:
+        hi = hi - 8
+    s = scale.double()
+    z = torch.zeros_like(s) if zero is None else zero.double()
+    bf = lambda t: t.to(torch.bfloat16).double()
+    z2 = bf(z - 8 * s)
+    if banded:
+        z2[nGh:] = z[nGh:]
+    xd = x.double()
+    out = torch.zeros((M, N), dtype=torch.float64)
+    for R0, R1, warps in _k14_walk(M, K, g, unit, ns):
+        for nt, first, last, ev in warps:
+            m = slice(8 * nt, min(M, 8 * nt + 8))
+            plo = torch.zeros((xd[m].shape[0], N), dtype=torch.float64)
+            phi = torch.zeros_like(plo)
+            for e in ev:
+                if e[0] == "step":
+                    r = slice(8 * e[1], 8 * e[1] + 8)
+                    plo += xd[m, :Kp][:, r] @ lo[r]
+                    phi += xd[m, Kp:][:, r] @ hi[r]
+                    continue
+                _, gi, owns = e
+                out[m] += plo * s[gi] + phi * s[nGh + gi]
+                plo.zero_(), phi.zero_()
+                if owns:
+                    r = slice(max(gi * g, R0), min((gi + 1) * g, R1))
+                    rs_lo, rs_hi = xd[m, :Kp][:, r].sum(1), xd[m, Kp:][:, r].sum(1)
+                    if banded:
+                        rs_lo, rs_hi = bf(rs_lo), bf(rs_hi)
+                    out[m] += rs_lo[:, None] * z2[gi] + rs_hi[:, None] * z2[nGh + gi]
+    return out
+
+
+@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("body", ["group_partial", "banded", "banded_stacked"])
+@pytest.mark.parametrize("M", [1, 9])
+def test_k14_walk_computes_the_plain_function(monkeypatch, M, body, zero_free):
+    """The walk's arithmetic (:func:`_k14_emulate`) at forced splits of 1,
+    2 and 3 (in whole units for banded) is the body's plain version: float32
+    x of bf16 values, SQNR >= 100 dB (the two sum the same products in
+    another order; measured >= 130)."""
+    if body == "banded":
+        monkeypatch.setenv(LAYOUT, "family")
+    K_, N_, g = 4096, 128, 32
+    rs = np.random.RandomState(M + 2 * zero_free)
+    x = torch.from_numpy(_bf16(rs.randn(M, K_).astype(np.float32)))
+    wp = torch.from_numpy(rs.randint(0, 256, (K_ // 2, N_)).astype(np.uint8))
+    scale = _t(_bf16(rs.rand(K_ // g, N_) * 0.01 + 0.005))
+    zero = None if zero_free else _t(_bf16(rs.randn(K_ // g, N_) * 0.02))
+    variant = "group_partial" if body == "group_partial" else "banded"
+    got_body, unit = TK._plan(M, K_, g, variant)
+    assert got_body == body
+    want = TK.PLAIN[body](x, wp, scale, zero, group_size=g, xored=True)
+    for ns in (1, 2, 3):
+        if ns > K_ // 2 // unit:
+            continue
+        got = _k14_emulate(x, wp, scale, zero, g, unit, ns, body != "group_partial")
+        err = compute_error(want.double(), got)
+        assert err >= 100, (ns, err)
 
 
 # -------------------------------------------------------------- selection --

@@ -744,37 +744,110 @@ def test_stub_and_mono_plain_versions_are_the_raw_byte_dot():
     np.testing.assert_allclose(ceiling_mono(xm, w).numpy(), want.numpy(), rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
-@pytest.mark.parametrize("M", [1, 4, 16, 128])
-def test_int4_variant_kernels_match_plain(cuda, monkeypatch, M, zero_free):
-    """K14a (every M), K14c and K14b (M <= 16: the chunked and the family
-    layout), each against its own body's plain version, and each launching
-    the kernel it names; K = 14336 has no partial trailing K block (K/2 =
-    7168), N = 4096 + 16 a ragged column tile."""
-    from torchao_tpu_torch.kernels.int4_matmul import PLAIN
+K14_SQNR = []  # (least SQNR, case) of the K14 stream checks; -s prints them
 
+
+# K = 14336 has no partial trailing K block (K/2 = 7168), N = 4096 + 16 a
+# ragged column strip; the K split the plan's there, or forced to one or two
+# at K = 4096 (2048 above M = 16: a split's x must fit the shared memory)
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "one", "two"])
+@pytest.mark.parametrize("zero_free", [False, True], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 9, 16, 17, 32, 128])
+def test_int4_variant_kernels_match_plain(cuda, monkeypatch, M, zero_free, split):
+    """K14a (every M: the weight stream up to 32, the tensor-core tile at
+    128), K14c and K14b (M in 1, 4, 9, 16: the chunked and the family
+    layout), stacked and unstacked, each against its own body's plain
+    version (SQNR >= 40 dB), each launching the kernel it names and leaving
+    the stream's tickets at zero."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.utils import compute_error
+
+    if M == 128 and split != "plan":
+        pytest.skip("the tensor-core form's split is group_partial_tiled_ksplit's")
+    K = 14336 if split == "plan" else 2048 if M > 16 else 4096
+    if split != "plan":
+        monkeypatch.setattr(TK, "k14_nsplit", lambda *a, ns={"one": 1, "two": 2}[split]: ns)
     gen = torch.Generator(device=cuda).manual_seed(M + zero_free)
-    L, K, N, g = 2, 14336, 4096 + 16, 32
+    L, N, g = 2, 4096 + 16, 32
     wp, scale, zero = _int4_weight(gen, L, K, N, g, cuda)
     zero = None if zero_free else zero
     x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
     forms = [("group_partial", None, "group_partial")]
-    if M <= 16:
+    if M in (1, 4, 9, 16):
         forms += [("banded", None, "banded_stacked"), ("banded", "family", "banded")]
-    base = "int4_dq_matmul" + ("_zero_free" if zero_free else "")
     for variant, layout, body in forms:
         if layout:
             monkeypatch.setenv("TORCHAO_TPU_QPARAMS_LAYOUT", layout)
         else:
             monkeypatch.delenv("TORCHAO_TPU_QPARAMS_LAYOUT", raising=False)
+        entry = TK.launch_entry(body, M, g)
+        counter = TK.launch_counter(body, zero_free)
         for l, args in ((1, (wp, scale, zero)),
                         (None, (wp[0], scale[0], None if zero is None else zero[0]))):
-            before = _build.LAUNCHES[f"{base}_{body}"]
+            before = _build.LAUNCHES[counter], _build.ENTRIES[entry]
             got = int4_dq_matmul(x, *args, group_size=g, layer_idx=l, xored=True,
                                  variant=variant)
-            assert _build.LAUNCHES[f"{base}_{body}"] == before + 1
-            _sqnr_ok(got, PLAIN[body](x, *args, group_size=g, layer_idx=l, xored=True))
+            assert (_build.LAUNCHES[counter], _build.ENTRIES[entry]) == (before[0] + 1,
+                                                                         before[1] + 1)
+            label = f"{body} M={M} {split} {'stacked' if l else 'unstacked'} zero_free={zero_free}"
+            want = TK.PLAIN[body](x, *args, group_size=g, layer_idx=l, xored=True)
+            _sqnr_ok(got, want, label=label)
+            K14_SQNR.append((compute_error(want, got), label))
+    assert _stream_tickets_are_zero(cuda)
+    print(f"K14 least SQNR so far: {min(K14_SQNR)}")
+
+
+@pytest.mark.cuda
+def test_k14_stream_is_one_kernel_and_repeats_bit_for_bit(cuda):
+    """K14a (M = 1 with a zero, M = 17 zero-free), K14c (M = 1) and K14b (M
+    = 4, zero-free) at shapes their plans split: a call is one kernel on the
+    card and nothing else (the nodes of a CUDA graph captured around it);
+    two calls back to back, and two replays of a graph of one call, give
+    the same bits."""
+    import os
+
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    K, N, g = 4096, 4096, 32
+    sms = _build.sm_count(0)
+    calls = []
+    forms = ((1, True, "group_partial", None), (17, False, "group_partial", None),
+             (1, True, "banded_stacked", None), (4, False, "banded", "family"))
+    for M, zero, body, layout in forms:
+        x, args, kw = _int4_args(gen, M, K, N, g, zero, True, cuda)
+        variant = "group_partial" if body == "group_partial" else "banded"
+        if layout:
+            os.environ["TORCHAO_TPU_QPARAMS_LAYOUT"] = layout
+        try:
+            got_body, unit = TK._plan(M, K, g, variant)
+        finally:
+            os.environ.pop("TORCHAO_TPU_QPARAMS_LAYOUT", None)
+        assert got_body == body and TK.k14_nsplit(M, K, N, unit, sms) > 1
+
+        def call(x=x, args=args, kw=kw, variant=variant, layout=layout):
+            if layout:
+                os.environ["TORCHAO_TPU_QPARAMS_LAYOUT"] = layout
+            try:
+                return TK.int4_dq_matmul(x, *args, variant=variant, **kw)
+            finally:
+                os.environ.pop("TORCHAO_TPU_QPARAMS_LAYOUT", None)
+
+        calls.append(call)
+    for call in calls:
+        first = call()
+        assert torch.equal(call(), first)
+        assert kernels_per_call(call) == (1, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert _stream_tickets_are_zero(cuda)
 
 
 @pytest.mark.cuda
@@ -1001,19 +1074,19 @@ TOL_K14A_TILED_DB = 65.0  # separates K14a's exact-nibble rounding from K5's (~5
 TOL_K9_TILED_DB = 60.0
 
 
-# K = 14336 (K/2 = 7168: 224 groups of 32, 112 of 64, 56 of 128), N = 4096 + 16 a
+# K = 14336 (K/2 = 7168: 896 groups of 8 ... 56 of 128), N = 4096 + 16 a
 # ragged column tile; M = 33 and 130 ragged row tiles. "split": the
 # wrapper's own K split (4 at M <= 128, 2 at M = 130 on 132 SMs), or one.
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [True, False], ids=["split", "one_split"])
 @pytest.mark.parametrize("M", [33, 128, 130])
-@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("g", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
 @pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "unstacked"])
 def test_group_partial_tiled_kernel_matches_plain(cuda, monkeypatch, M, g, zero, stacked, split):
-    """K14a's tensor-core form (M > 32) against ``_kernel_v2``'s plain
-    version, launching ``tt_int4_group_partial_tiled`` under K14a's one
-    counter."""
+    """K14a's tensor-core form (M > 32; g = 8 and 16 in sub-steps of g
+    rows) against ``_kernel_v2``'s plain version, launching
+    ``tt_int4_group_partial_tiled`` under K14a's one counter."""
     from torchao_tpu_torch.kernels import int4_matmul as TK
 
     K, N = 14336, 4096 + 16
@@ -1481,3 +1554,28 @@ def test_sass_loops_counts_the_largest_loop():
     assert "4 instructions in its largest loop [0x10, 0x40]" in out
     assert "PRMT 1, HMUL2 1, HMMA 1, BRA 1" in out
     assert "other_kernel" not in out
+
+
+def test_sass_loops_finds_the_loop_of_the_mma():
+    """With an opcode, ``_build.sass_loops`` takes the smallest loop that
+    holds the most of it: a kernel's main loop of tensor-core steps where a
+    larger loop of its prologue holds none, and the inner of two nested
+    loops that hold the same ones."""
+    sass = """
+                Function : _ZN15int4_k14_kernelILb1ELb0EEEvv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                    /* 0x00000a0000017a02 */
+        /*0010*/                   FADD R2, R2, R3 ;                         /* 0x0000000302027221 */
+        /*0020*/                   FADD R2, R2, R4 ;                         /* 0x0000000402027221 */
+        /*0030*/                   FADD R2, R2, R5 ;                         /* 0x0000000502027221 */
+        /*0040*/                   FADD R2, R2, R6 ;                         /* 0x0000000602027221 */
+        /*0050*/               @P0 BRA 0x10 ;                                /* 0xffffffc000000947 */
+        /*0060*/                   PRMT R2, R3, 0x5140, R4 ;                 /* 0x0000514003027816 */
+        /*0070*/                   HMMA.1688.F32.BF16 R8, R12, R2, R8 ;     /* 0x000000020c08723c */
+        /*0080*/               @P1 BRA 0x60 ;                                /* 0xffffffc000000947 */
+        /*0090*/               @P2 BRA 0x60 ;                                /* 0xffffffc000000947 */
+        /*00a0*/                   EXIT ;                                    /* 0x000000000000794d */
+"""
+    out = _build.sass_loops(sass, "int4_k14_kernel", "HMMA")
+    assert "3 instructions in its smallest loop of the most HMMA [0x60, 0x80]" in out
+    assert "PRMT 1, HMMA 1, BRA 1" in out
+    assert "its largest loop [0x10, 0x50]" in _build.sass_loops(sass, "int4_k14_kernel")

@@ -78,6 +78,17 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a . b (16 x 8 x 8, bf16 in, f32 accumulation): A (16 x 8, row) holds
+// (g, t2 + i) and (g + 8, t2 + i) in two registers, B (8 x 8, col) (t2 + i, g)
+// in one, C as above (PTX ISA, mma.m16n8k8).
+__device__ __forceinline__ void mma_bf16_1688(float c[4], const uint32_t a[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 // c += a . b (16 x 8 x 32, s8 in, exact s32 accumulation). Fragments (PTX
 // ISA, mma.m16n8k32 with .s8): lane (g, t) holds A's rows g and g + 8 at
 // k 4t .. 4t + 3 and 16 + 4t .. (a0 .. a3, four bytes a register), B's

@@ -45,7 +45,7 @@
 //
 // The qparams-layout arms of the probe P6 (tt_int4_gemv_eff4 and
 // tt_int4_gemv_m1) stay on the SIMT GEMV design, kept for them alone as
-// p6_gemv_kernel (with K14's helpers below).
+// p6_gemv_kernel.
 //
 // K5, tt_int4_tiled (M > 32; the prefill runs M = 128): bound by operations
 // on an H100 (2 M N K flops at the 989 TFLOP/s bf16 tensor-core peak against
@@ -72,9 +72,10 @@
 //     and wqkv at M = 128), the wrapper splits K over the grid: f32 partials
 //     go to a workspace and int4_reduce_kernel sums them.
 //
-// The int4 variants K14a (group_partial: a SIMT form, and above M = 32 a
-// tensor-core form on K5's tile) and K14b/K14c (banded) follow the tiled
-// form below.
+// The int4 variants K14a (group_partial) and K14b/K14c (banded) follow
+// below: at decode (M <= 32; banded M <= 16) one template on K1's weight
+// stream, int4_k14_kernel, one launch a call; K14a above M = 32 a
+// tensor-core form on K5's tile.
 //
 // Zero-free form: a null `zr` means z = 0 (the symmetric 8da4w weight and
 // fp6's A plane: dq = (q - 8) * s). The kernels are templated on it, so that
@@ -501,11 +502,11 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     }
 }
 
-// --------------------------------------- the SIMT GEMV design: K14, P6 --
-// K14's SIMT bodies and P6's qparams-layout arms keep K1's first GEMV design: a
-// block = 128 columns x a range of runs of RUN packed rows, each thread 16
-// columns and every 32nd run of its split, one 16-byte load per packed row,
-// f32 split-K partials to ws[ksplit, M, N] finished by int4_reduce_kernel.
+// ------------------------------------------- the SIMT GEMV design: P6 --
+// P6's qparams-layout arms keep K1's first GEMV design: a block = 128
+// columns x a range of runs of RUN packed rows, each thread 16 columns and
+// every 32nd run of its split, one 16-byte load per packed row, f32 split-K
+// partials to ws[ksplit, M, N] finished by int4_reduce_kernel.
 constexpr int GEMV_THREADS = 256;
 constexpr int GEMV_COLS = 16;                              // one 16-byte load
 constexpr int GEMV_CHUNKS = 8;                             // column chunks / block
@@ -513,19 +514,11 @@ constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
 constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
 constexpr int RUN = 8;                                     // packed rows per run
 
-// ------------------------------------------------ K14: the int4 variants --
-// Both variants keep that launch structure (a block = 128 columns x a range
-// of runs of RUN packed rows, one 16-byte load per packed row and thread,
-// split-K partials finished by int4_reduce_kernel) and differ from K1, and
-// from each other, in where they round. Like K1 they are bound by bytes at
-// decode. They read scale/zero and form the TPU's derived qparam families
-// in registers (qtypes/intx.py says why that gives the same numbers).
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// That design's epilogue: sum each column's partials over the block's run lanes and
+// Its epilogue: sum each column's partials over the block's run lanes and
 // store them as split `split` of ws[ksplit, M, N].
 template <int MT>
 __device__ __forceinline__ void store_split(float (&acc)[MT][GEMV_COLS], float* __restrict__ ws,
@@ -664,101 +657,288 @@ p6_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   store_split<MT>(acc, ws, blockIdx.y, m0, blockIdx.x, M, N);
 }
 
-// K14a, group_partial: replaces _kernel_v2 (torchao_tpu/kernels/int4_matmul.py
-// :44, through the pallas_call at :723). Per group, f32 partials of x times
-// the RAW nibbles (lo, and hi = (w - lo) / 16: 0..15, no -8) scaled by s, plus
-// the group's f32 x-sum times z2 = bf16(z - 8 s) (mid = 8), for both halves.
-// A run lies inside one group (g % RUN == 0), so scaling each run's piece of
-// a group partial and summing is the TPU's per-group scale in another order.
-//
-// Any M: a block takes MT rows (1 at M = 1, else 4) and reuses each weight
-// run from registers; the M tiles of a column block are neighbours in the
-// grid (blockIdx.x), so a weight block comes from device memory once and
-// from L2 after. The wrapper takes this SIMT form at M <= 32 (decode) and
-// where g % 32 != 0; above M = 32 the tensor-core form below runs.
-// grid: (ceil(M / MT), ceil(N / 128), ksplit).
-template <int MT, bool HAS_Z>
-__global__ void __launch_bounds__(GEMV_THREADS)
-int4_group_partial_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
-                          const __nv_bfloat16* __restrict__ sc,
-                          const __nv_bfloat16* __restrict__ zr, float* __restrict__ ws, int M,
-                          int K, int N, int g) {
-  const int Kp = K / 2;
-  const int chunk = threadIdx.x % GEMV_CHUNKS;
-  const int lane = threadIdx.x / GEMV_CHUNKS;
-  const int m0 = blockIdx.x * MT;
-  const int n0 = blockIdx.y * GEMV_TN + chunk * GEMV_COLS;
-  const int runs = Kp / RUN;
-  const int r0 = (int)(((long long)blockIdx.z * runs) / gridDim.z);
-  const int r1 = (int)(((long long)(blockIdx.z + 1) * runs) / gridDim.z);
+// ------------------------------------------------ K14: the int4 variants --
+// K14a at M <= 32 (group_partial, tt_int4_group_partial) replaces _kernel_v2
+// (torchao_tpu/kernels/int4_matmul.py:44, through the pallas_call at :723);
+// K14b / K14c (banded, tt_int4_banded, M <= 16) replace _kernel_banded
+// (:408, pallas_call at :1054) and _kernel_banded_stacked (:311, pallas_call
+// at :1004), which compute one function. Both round where the TPU bodies do,
+// which K1's single bf16 dequantization does not:
+//   group_partial: out = bf16(sum over (group, half) of P s + rs bf16(z - 8 s))
+//                  with P = x_g . q_g (q the raw nibble, 0..15) and rs the
+//                  group's f32 x-sum;
+//   banded:        the same with q_hi - 8 in place of the hi half's nibble
+//                  (16 (hi - 8) x s_hi / 16 in the TPU's band), rs rounded
+//                  to bf16, and bf16(z_lo - 8 s_lo) and z_hi as the zeros.
+// Bound by bytes at decode, as K1 (the same bytes: 1.4 ms a Llama-3-8B
+// step at 3.35 TB/s), so both run on K1's weight stream (weight_stream.cuh)
+// with their own lane map and fold:
+//   - A lane loads K1's bytes (rows tq, tq + 4 of an 8-row step, 16 columns)
+//     but pairs two rows of ONE half in an A element, (q[tq], q[tq + 4]) of
+//     a column, for bf16 mma.sync.m16n8k8: the two nibbles of a byte lie in
+//     different groups with different scales, so each half keeps its own
+//     partial. The nibble becomes bf16 exactly (0x43nn less 128, or 136 for
+//     banded's hi - 8: one hsub2 a pair, no scale); x's B element is
+//     (x[tq], x[tq + 4]) of the half, from K1's staged pairs by one prmt.
+//   - One fold per group: a lane's per-group partials P_lo, P_hi (64 f32)
+//     stay in registers while its warp's steps are in the group (an 8-row
+//     step lies in one group, g % 8 == 0); when they leave it, acc += P_lo
+//     s_lo + P_hi s_hi per column, in f32. The running sums acc live in
+//     shared memory in fragment order (a float4 a lane and mma: no bank
+//     conflicts), so a lane holds one group's partials and no more.
+//   - The group's scale and zero rows come through a per-warp cp.async ring
+//     of two slots (the group being summed and the next), one row of 16
+//     columns a lane, as K1's.
+//   - The zero terms need the group's x-sum per (m, half), which no column
+//     changes: the block sums x once while staging it (8-row runs, then the
+//     runs of each group within the split, rounded to bf16 for banded), and
+//     one warp adds rs z2 per group: the one whose range holds the group's
+//     first row in the split. A group's zero term is so added once per split
+//     (banded splits hold whole groups, so once), and the split sums of
+//     group_partial's f32 rs add up to the group's.
+//   - Every warp takes one n-tile (8 rows of x): at M > 8 the 8 warps are
+//     NT n-tiles (2 at M <= 16, 4 above) x 8 / NT ranges of the split, the
+//     warps of a range reading the same bytes (the second from L1 or L2).
+//     So a lane's registers do not grow with M.
+//   - One launch a call: the splits walk whole units of `unit` packed rows
+//     (a step for K14a, a group for K14b, a chunk of cb groups for K14c:
+//     the TPU's block-major unit), planned by kernels/int4_matmul.py::
+//     k14_nsplit and merged by the last block of a strip, as K1's.
+//   - A warp step is K1's (1 KB: each lane's two 16-byte loads), each lane's
+//     next PREFETCH steps in registers (K1's StepRing). K12's 3 KB step
+//     (three K1 steps loaded together once the three before are consumed)
+//     read 0.3-3% slower a decode step here (PERF.md, §6).
+constexpr int K14_MAX_M = 32;          // group_partial; banded: the JAX bodies' limit
+constexpr int K14_BANDED_MAX_M = 16;
+constexpr int K14_QSLOT = 1024;        // a group's s_lo, s_hi, z_lo, z_hi x 128 columns, bf16
+constexpr int K14_QSLOTS = 2;          // a warp's qparams ring: the group it sums and the next
+constexpr int K14_QRING = wstream::WARPS * K14_QSLOTS * K14_QSLOT;  // 16 KB
+constexpr int K14_ACC = wstream::WARPS * 8 * 32 * 16;               // the running sums: 32 KB
+constexpr int K14_BLOCKS = 2;          // blocks an SM (the launch bound)
 
-  float acc[MT][GEMV_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
+// grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes units [y U /
+// nsplit, (y + 1) U / nsplit) of the U = K/2 / unit; warp w takes n-tile w %
+// NT and range w / NT of the split's steps (8 / NT contiguous ranges). ws
+// ([nsplit, M, N] f32) and the tickets (one per strip, zero) as in
+// wstream::merge.
+template <bool HAS_Z, bool BANDED>
+__global__ void __launch_bounds__(wstream::THREADS, K14_BLOCKS)
+int4_k14_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
+                const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
+                float* __restrict__ ws, int* __restrict__ tickets,
+                __nv_bfloat16* __restrict__ out, int M, int K, int N, int g, int unit) {
+  constexpr int ROWS = wstream::STEP_ROWS, COLS = wstream::COLS, WARPS = wstream::WARPS;
+  extern __shared__ __align__(16) uint8_t k14_smem[];
+  const int Kp = K / 2, nGh = Kp / g;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gq = lane / 4, tq = lane % 4;
+  const int NT = M <= 8 ? 1 : M <= 16 ? 2 : 4, ranges = WARPS / NT;  // n-tiles, ranges
+  const int nt = warp % NT, range = warp / NT;
+  const int units = Kp / unit, su = unit / ROWS;
+  const int s0 = (int)((long long)blockIdx.y * units / gridDim.y) * su;
+  const int s1 = (int)((long long)(blockIdx.y + 1) * units / gridDim.y) * su;
+  // x pairs a row: xst / 4 odd, so a warp's B loads hit 32 banks
+  const int xst = (units + gridDim.y - 1) / gridDim.y * unit + 4;
+  const int R0 = s0 * ROWS, R1 = s1 * ROWS, G0 = R0 / g;
+  float4* acc = reinterpret_cast<float4*>(k14_smem) + warp * 8 * 32;  // [mma j][lane]
+  uint8_t* ring = k14_smem + K14_ACC + warp * K14_QSLOTS * K14_QSLOT;
+  uint32_t* xs = reinterpret_cast<uint32_t*>(k14_smem + K14_ACC + K14_QRING);
+  float2* rs = reinterpret_cast<float2*>(xs + M * xst);  // [group - G0][m]: (lo, hi) x-sums
+  float2* runs = reinterpret_cast<float2*>(k14_smem);    // [m][8-row run], in acc's bytes
+  float* red = reinterpret_cast<float*>(k14_smem);       // [range][m][COLS], in acc's bytes
+  const int first = s0 + (int)((long long)range * (s1 - s0) / ranges);
+  const int last = s0 + (int)((long long)(range + 1) * (s1 - s0) / ranges);
+  const int col = blockIdx.x * COLS + 16 * gq;
+  const bool ok = col < N;
 
-  if (n0 < N) {
-    for (int r = r0 + lane; r < r1; r += GEMV_LANES) {
-      const int kp0 = r * RUN;
-      const int glo = kp0 / g, ghi = (kp0 + Kp) / g;
-      uint4 w[RUN];
+  // Step st's weight bytes: rows tq and tq + 4 of its 8, at this lane's 16
+  // columns, into registers.
+  auto load = [&](int st, uint4& a, uint4& b) {
+    const size_t kp = (size_t)st * ROWS;
+    wstream::load_rows(wp, kp + tq, kp + tq + 4, N, col, ok && st < last, a, b);
+  };
+  // Group gi's (s_lo, s_hi, z_lo, z_hi) rows, row tq at this lane's 16
+  // columns, into ring slot gi % 2, where the warp's range reaches gi; one
+  // commit either way.
+  auto issue_q = [&](int gi) {
+    if (gi * g < last * ROWS && (HAS_Z || tq < 2)) {
+      const __nv_bfloat16* a = tq < 2 ? sc : zr;
+      const size_t row = (size_t)(gi + (tq % 2) * nGh);
+      __nv_bfloat16* q =
+          reinterpret_cast<__nv_bfloat16*>(ring + (gi % 2) * K14_QSLOT) + tq * COLS + 16 * gq;
+      cp_async<16>(q, ok ? a + row * N + col : a, ok);
+      cp_async<16>(q + 8, ok ? a + row * N + col + 8 : a, ok);
+    }
+    cp_async_commit();
+  };
+
+  float plo[8][4], phi[8][4];  // the group's partials of the lo and hi halves
 #pragma unroll
-      for (int i = 0; i < RUN; ++i)
-        w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
-      float s_lo[GEMV_COLS], s_hi[GEMV_COLS], z2_lo[GEMV_COLS], z2_hi[GEMV_COLS];
-      load_cols(sc, glo, N, n0, s_lo);
-      load_cols(sc, ghi, N, n0, s_hi);
-      if constexpr (HAS_Z) {
-        load_cols(zr, glo, N, n0, z2_lo);
-        load_cols(zr, ghi, N, n0, z2_hi);
-      } else {
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) { z2_lo[c] = 0.f; z2_hi[c] = 0.f; }
+    for (int e = 0; e < 4; ++e) plo[j][e] = phi[j][e] = 0.f;
+
+  wstream::StepRing<wstream::PREFETCH> wring;
+  if (first < last) {
+    wring.fill(load, first);
+    issue_q(first * ROWS / g);
+    issue_q(first * ROWS / g + 1);
+  }
+  wstream::stage_x_pairs(xs, x, M, K, R0, R1 - R0, xst);
+  __syncthreads();
+  const int nrun = (R1 - R0) / ROWS;
+  for (int i = threadIdx.x; i < M * nrun; i += wstream::THREADS) {  // each 8-row run's x-sums
+    const uint32_t* xr = xs + i / nrun * xst + i % nrun * ROWS;
+    const uint4 a = *reinterpret_cast<const uint4*>(xr);
+    const uint4 b = *reinterpret_cast<const uint4*>(xr + 4);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v.x += __uint_as_float(w[k] << 16);
+      v.y += __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+    runs[i] = v;  // i = m nrun + run
+  }
+  __syncthreads();
+  {  // each group's x-sums within the split, from the 8-row runs
+    const int ng = (R1 - 1) / g - G0 + 1;
+    for (int i = threadIdx.x; i < ng * M; i += wstream::THREADS) {
+      const int gi = G0 + i / M, m = i % M;
+      const int r0 = (max(gi * g, R0) - R0) / ROWS, r1 = (min((gi + 1) * g, R1) - R0) / ROWS;
+      float2 v = make_float2(0.f, 0.f);
+      for (int r = r0; r < r1; ++r) {
+        const float2 t = runs[m * nrun + r];
+        v.x += t.x;
+        v.y += t.y;
       }
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) {  // z2 = bf16(z - 8 s)
-        z2_lo[c] = bf16_round(fmaf(-8.f, s_lo[c], z2_lo[c]));
-        z2_hi[c] = bf16_round(fmaf(-8.f, s_hi[c], z2_hi[c]));
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float xl[RUN], xh[RUN];
-        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
-        float sxl = 0.f, sxh = 0.f;
-        float pl[GEMV_COLS], ph[GEMV_COLS];
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
-#pragma unroll
-        for (int i = 0; i < RUN; ++i) {
-          sxl += xl[i];
-          sxh += xh[i];
-          const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
-#pragma unroll
-          for (int d = 0; d < 4; ++d) {
-            const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
-            const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);
-              ph[4 * d + j] = fmaf(xh[i], nib(hi4, j), ph[4 * d + j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c)
-          acc[m][c] += s_lo[c] * pl[c] + z2_lo[c] * sxl + s_hi[c] * ph[c] + z2_hi[c] * sxh;
-      }
+      if (BANDED) v = make_float2(bf16_round(v.x), bf16_round(v.y));
+      rs[i] = v;  // i = (gi - G0) M + m
     }
   }
-  store_split<MT>(acc, ws, blockIdx.z, m0, blockIdx.y, M, N);
+  __syncthreads();  // the runs are read: acc's bytes are free
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // Step st's products into the group's partials. mma j takes the lane's
+  // bytes 2j (A row gq) and 2j + 1 (A row gq + 8), as K1's; A's k 2tq, 2tq +
+  // 1 are rows tq, tq + 4 of the step, and so are B's.
+  const int mrow = nt * 8 + gq;
+  auto consume = [&](int st, const uint4& w0, const uint4& w1) {
+    const uint32_t* xr = xs + (st - s0) * ROWS + tq;  // + m xst: (x[kp], x[kp + K/2]) of row tq
+    const uint32_t xa = mrow < M ? xr[mrow * xst] : 0u, xb = mrow < M ? xr[mrow * xst + 4] : 0u;
+    const uint32_t blo = wstream::prmt(xa, xb, 0x5410), bhi = wstream::prmt(xa, xb, 0x7632);
+    const uint32_t* r0 = &w0.x;
+    const uint32_t* r1 = &w1.x;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      uint32_t pl[4], ph[4];
+      wstream::half_pairs<false>(r0[d], r1[d], pl);
+      wstream::half_pairs<true>(r0[d], r1[d], ph);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        constexpr uint32_t HI = BANDED ? wstream::BF16X2_136 : wstream::BF16X2_128;
+        const uint32_t alo[2] = {wstream::hsub2u(pl[2 * e], wstream::BF16X2_128),
+                                 wstream::hsub2u(pl[2 * e + 1], wstream::BF16X2_128)};
+        const uint32_t ahi[2] = {wstream::hsub2u(ph[2 * e], HI),
+                                 wstream::hsub2u(ph[2 * e + 1], HI)};
+        mma_bf16_1688(plo[2 * d + e], alo, blo);
+        mma_bf16_1688(phi[2 * d + e], ahi, bhi);
+      }
+    }
+  };
+
+  // The warp leaves group gi: acc += P_lo s_lo + P_hi s_hi per column (and,
+  // from the warp that holds the group's first row in the split, the zero
+  // terms rs z2); the partials restart; the slot takes group gi + 2.
+  auto fold = [&](int gi) {
+    cp_async_wait<1>();  // group gi + 1's copies may still be in flight
+    __syncwarp();
+    const uint4* q = reinterpret_cast<const uint4*>(ring + (gi % 2) * K14_QSLOT) + 2 * gq;
+    const bool owns = max(gi * g, R0) >= first * ROWS;
+    const int m0 = nt * 8 + 2 * tq;
+    float2 x0 = make_float2(0.f, 0.f), x1 = x0;  // (lo, hi) x-sums of rows m0, m0 + 1
+    if (owns && m0 < M) x0 = rs[(gi - G0) * M + m0];
+    if (owns && m0 + 1 < M) x1 = rs[(gi - G0) * M + m0 + 1];
+    auto f2 = [](uint32_t w) {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the lane's columns 8h .. 8h + 7: mma j = 4h .. 4h + 3
+      const uint4 sl4 = q[h], sh4 = q[COLS / 8 + h];
+      const uint4 zl4 = HAS_Z ? q[2 * COLS / 8 + h] : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 zh4 = HAS_Z ? q[3 * COLS / 8 + h] : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t* sl = &sl4.x;
+      const uint32_t* sh = &sh4.x;
+      const uint32_t* zl = &zl4.x;
+      const uint32_t* zh = &zh4.x;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {  // word jj: the columns of mma j's A rows gq, gq + 8
+        const int j = 4 * h + jj;
+        const float2 s_lo = f2(sl[jj]), s_hi = f2(sh[jj]);
+        float4 a = acc[j * 32 + lane];
+        a.x = fmaf(phi[j][0], s_hi.x, fmaf(plo[j][0], s_lo.x, a.x));
+        a.y = fmaf(phi[j][1], s_hi.x, fmaf(plo[j][1], s_lo.x, a.y));
+        a.z = fmaf(phi[j][2], s_hi.y, fmaf(plo[j][2], s_lo.y, a.z));
+        a.w = fmaf(phi[j][3], s_hi.y, fmaf(plo[j][3], s_lo.y, a.w));
+        if (owns) {
+          const float2 z_lo = f2(zl[jj]), z_hi = f2(zh[jj]);
+          const float2 zz_lo = make_float2(bf16_round(fmaf(-8.f, s_lo.x, z_lo.x)),
+                                           bf16_round(fmaf(-8.f, s_lo.y, z_lo.y)));
+          const float2 zz_hi = BANDED ? z_hi
+                                      : make_float2(bf16_round(fmaf(-8.f, s_hi.x, z_hi.x)),
+                                                    bf16_round(fmaf(-8.f, s_hi.y, z_hi.y)));
+          a.x = fmaf(x0.y, zz_hi.x, fmaf(x0.x, zz_lo.x, a.x));
+          a.y = fmaf(x1.y, zz_hi.x, fmaf(x1.x, zz_lo.x, a.y));
+          a.z = fmaf(x0.y, zz_hi.y, fmaf(x0.x, zz_lo.y, a.z));
+          a.w = fmaf(x1.y, zz_hi.y, fmaf(x1.x, zz_lo.y, a.w));
+        }
+        acc[j * 32 + lane] = a;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) plo[j][e] = phi[j][e] = 0.f;
+      }
+    }
+    __syncwarp();  // every lane has read the slot
+    issue_q(gi + 2);
+  };
+  auto after = [&](int st) {
+    if (st + 1 == last || (st + 1) * ROWS % g == 0) fold(st * ROWS / g);
+  };
+
+  for (int st = first; st < last; ++st) {
+    uint4 w0, w1;
+    wring.next(load, st + wstream::PREFETCH, w0, w1);
+    consume(st, w0, w1);
+    after(st);
+  }
+
+  // the warps' sums, as finish stores them, with the range in place of the
+  // warp: red[range][m][c] (8 / NT ranges of M rows fill acc's bytes)
+  float4 mine[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mine[j] = acc[j * 32 + lane];
+  cp_async_wait<0>();
+  __syncthreads();  // every warp has its sums
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int m = nt * 8 + 2 * tq, c = 16 * gq + 2 * j;
+    if (m < M)
+      *reinterpret_cast<float2*>(red + (range * M + m) * COLS + c) =
+          make_float2(mine[j].x, mine[j].z);
+    if (m + 1 < M)
+      *reinterpret_cast<float2*>(red + (range * M + m + 1) * COLS + c) =
+          make_float2(mine[j].y, mine[j].w);
+  }
+  __syncthreads();
+  if (NT == 1)
+    wstream::merge<WARPS>(red, nullptr, nullptr, ws, tickets, out, M, N);
+  else if (NT == 2)
+    wstream::merge<WARPS / 2>(red, nullptr, nullptr, ws, tickets, out, M, N);
+  else
+    wstream::merge<WARPS / 4>(red, nullptr, nullptr, ws, tickets, out, M, N);
 }
 
 // K14a at M > 32, tt_int4_group_partial_tiled: the same function as the
-// SIMT form above (_kernel_v2's rounding), on the tensor cores. Bound by
+// stream form above (_kernel_v2's rounding), on K5's tile. Bound by
 // operations on an H100 (at M = 128, 2 M N K flops at the 989 TFLOP/s bf16
 // peak: 1.943 ms per Llama-3-8B prefill, against 1.4 ms of packed bytes).
 // _kernel_v2 is a set of per-group MXU sub-matmuls with f32 epilogues on
@@ -772,10 +952,12 @@ int4_group_partial_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __
 //     bf16(-8 s)) and rs_g the group's f32 sum of x, not rounded to bf16.
 //     The output is rounded once.
 //   - One partial at a time: a block walks its K split group by group, and
-//     each group's lo half before its hi half, in sub-steps of TBKP = 32
-//     packed rows of ONE half (x: 128 x 32 values; the packed tile, whose
-//     other nibble the other half's sub-step takes, comes from L2 the second
-//     time). So g % 32 == 0 (g = 32: one sub-step per group and half).
+//     each group's lo half before its hi half, in sub-steps of SR packed rows
+//     of ONE half (x: 128 x 32 values; the packed tile, whose other nibble
+//     the other half's sub-step takes, comes from L2 the second time): SR =
+//     TBKP = 32 where 32 | g (g = 32: one sub-step per group and half), else
+//     16 or 8, the x tile's columns past SR zero (so the tile's rows past
+//     SR add nothing). Every g % 8 == 0 runs here.
 //   - Registers: 64 f32 accumulators and 64 partials per thread (8 warps of
 //     64 x 32, K5's 128 x 128 tile) do not fit K5's 128 registers at two
 //     blocks per SM, so the kernel runs one block per SM (launch bound 1, up
@@ -810,7 +992,7 @@ __device__ __forceinline__ uint32_t nib2_raw(uint32_t v4, int j) {
 // grid: (ceil(N / TBN), ceil(M / TBM), ksplit). Split z takes groups
 // [z nG / ksplit, (z + 1) nG / ksplit) of the nG = K/2 / g packed-row groups;
 // sub-step st is group G0 + st / 2C, half (st / C) % 2, chunk st % C of the
-// C = g / TBKP chunks. ws null: out is written in bf16; else the f32
+// C = g / SR chunks. ws null: out is written in bf16; else the f32
 // partial goes to ws[z, M, N].
 template <bool HAS_Z>
 __global__ void __launch_bounds__(T_THREADS, 1)
@@ -823,7 +1005,8 @@ int4_group_partial_tiled_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) uint8_t gp_smem[];
   __nv_bfloat16* bq = reinterpret_cast<__nv_bfloat16*>(gp_smem + GP_STAGES * GP_STAGE_BYTES);
   float* rs = reinterpret_cast<float*>(gp_smem + GP_STAGES * GP_STAGE_BYTES + TBKP * GP_TBS * 2);
-  const int Kp = K / 2, nGh = Kp / g, C = g / TBKP;
+  const int Kp = K / 2, nGh = Kp / g;
+  const int SR = g % TBKP == 0 ? TBKP : g % 16 == 0 ? 16 : 8, C = g / SR;  // sub-step rows, count
   const int n0 = blockIdx.x * TBN, m0 = blockIdx.y * TBM;
   const int G0 = (int)((long long)blockIdx.z * nGh / gridDim.z);
   const int G1 = (int)((long long)(blockIdx.z + 1) * nGh / gridDim.z);
@@ -837,17 +1020,17 @@ int4_group_partial_tiled_kernel(const __nv_bfloat16* __restrict__ x,
   // packed tile and the group's scale and zero rows of that half.
   auto load = [&](int st, int s) {
     uint8_t* base = gp_smem + s * GP_STAGE_BYTES;
-    const int gi = group_of(st), half = half_of(st), kp0 = gi * g + (st % C) * TBKP;
+    const int gi = group_of(st), half = half_of(st), kp0 = gi * g + (st % C) * SR;
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
     for (int c = tid; c < TBM * 4; c += T_THREADS) {  // 4 chunks of 8 values per row
       const int m = c / 4, kc = (c % 4) * 8;
-      const bool ok = m0 + m < M;
+      const bool ok = m0 + m < M && kc < SR;
       cp_async<16>(xs + m * GP_TXS + kc, ok ? x + (size_t)(m0 + m) * K + half * Kp + kp0 + kc : x,
                    ok);
     }
     {  // one 16-byte chunk per thread
       const int r = tid / 8, c = (tid % 8) * 16;
-      const bool ok = n0 + c < N;
+      const bool ok = n0 + c < N && r < SR;
       cp_async<16>(base + GP_X_BYTES + r * TBN + c, ok ? wp + (size_t)(kp0 + r) * N + n0 + c : wp,
                    ok);
     }
@@ -927,6 +1110,7 @@ int4_group_partial_tiled_kernel(const __nv_bfloat16* __restrict__ x,
         reinterpret_cast<const __nv_bfloat16*>(gp_smem + (st % GP_STAGES) * GP_STAGE_BYTES);
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {  // 16 values of k each
+      if (kk * 16 >= SR) break;
       const int kx = kk * 16;
       uint32_t a[4][4], b[4][2];
 #pragma unroll
@@ -998,119 +1182,6 @@ int4_group_partial_tiled_kernel(const __nv_bfloat16* __restrict__ x,
               __floats2bfloat162_rn(v0, v1);
       }
     }
-}
-
-// K14b / K14c, banded: replaces _kernel_banded (int4_matmul.py:408, pallas_call
-// at :1054) and _kernel_banded_stacked (:311, pallas_call at :1004), which
-// compute one function: per group, the low-nibble partial of the lo-half x
-// times s_lo, the nibble-difference partial d = (w ^ 0x80 as i8) - lo =
-// 16 (hi - 8) of the hi-half x times s_hi / 16, and the zero terms: the
-// group's x-sum ROUNDED TO BF16 times the bf16 pre-biased zero (z2_lo =
-// bf16(z - 8 s), z2_hi = z at mid = 8). x is bf16, so partials are exact
-// products summed in f32; the hi partial is summed as x (hi - 8) and scaled
-// by s_hi, the same f32 number as 16 x (hi - 8) times s_hi / 16.
-//
-// The TPU builds a banded activation matrix, A[m bg + gi, k] = x[m, k] [k/g ==
-// gi], so that ONE 128-deep MXU contraction yields every group partial: its
-// batched per-group dots (depth g = 32) were issue-bound, and on a memory-
-// bound kernel the band's 31/32 zero products cost nothing there. On this
-// card a SIMT thread's run already lies inside one group, so its partials
-// are per group by construction and the band would only add zero products;
-// the band as the A operand of a bf16 mma.sync (the nibbles as B) is a
-// later change. The run that opens a group adds the group's zero terms,
-// summing the group's x itself.
-//
-// Two forms, one template: the K split walks whole units of `unit` packed
-// rows: a group (banded, K14b) or a canonical chunk of cb groups (banded_stacked,
-// K14c: the TPU's block-major unit, which its stacked body's blocks cover
-// whole). grid: (ceil(N / 128), ksplit, ceil(M / MT)), M <= 16.
-template <int MT, bool HAS_Z>
-__global__ void __launch_bounds__(GEMV_THREADS)
-int4_banded_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
-                   const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
-                   float* __restrict__ ws, int M, int K, int N, int g, int unit) {
-  const int Kp = K / 2;
-  const int chunk = threadIdx.x % GEMV_CHUNKS;
-  const int lane = threadIdx.x / GEMV_CHUNKS;
-  const int n0 = blockIdx.x * GEMV_TN + chunk * GEMV_COLS;
-  const int m0 = blockIdx.z * MT;
-  const int units = Kp / unit;
-  const int r0 = (int)(((long long)blockIdx.y * units) / gridDim.y) * (unit / RUN);
-  const int r1 = (int)(((long long)(blockIdx.y + 1) * units) / gridDim.y) * (unit / RUN);
-
-  float acc[MT][GEMV_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
-
-  if (n0 < N) {
-    for (int r = r0 + lane; r < r1; r += GEMV_LANES) {
-      const int kp0 = r * RUN;
-      const int glo = kp0 / g, ghi = (kp0 + Kp) / g;
-      const bool opens = kp0 % g == 0;  // this run adds its group's zero terms
-      uint4 w[RUN];
-#pragma unroll
-      for (int i = 0; i < RUN; ++i)
-        w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
-      float s_lo[GEMV_COLS], s_hi[GEMV_COLS], z2_lo[GEMV_COLS], z2_hi[GEMV_COLS];
-      load_cols(sc, glo, N, n0, s_lo);
-      load_cols(sc, ghi, N, n0, s_hi);
-      if (opens) {  // z2_lo = bf16(z_lo - 8 s_lo); z2_hi = bf16(z_hi + 0 s_hi) = z_hi
-        if constexpr (HAS_Z) {
-          load_cols(zr, glo, N, n0, z2_lo);
-          load_cols(zr, ghi, N, n0, z2_hi);
-        } else {
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) { z2_lo[c] = 0.f; z2_hi[c] = 0.f; }
-        }
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) z2_lo[c] = bf16_round(fmaf(-8.f, s_lo[c], z2_lo[c]));
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float xl[RUN], xh[RUN];
-        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
-        float pl[GEMV_COLS], ph[GEMV_COLS];
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
-#pragma unroll
-        for (int i = 0; i < RUN; ++i) {
-          const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
-#pragma unroll
-          for (int d = 0; d < 4; ++d) {
-            const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
-            const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);
-              ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] += s_lo[c] * pl[c] + s_hi[c] * ph[c];
-        if (opens) {
-          float t_lo = 0.f, t_hi = 0.f;
-          for (int k = 0; k < g; k += RUN) {
-            float a[RUN], b[RUN];
-            bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0 + k)), a);
-            bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0 + k)), b);
-#pragma unroll
-            for (int i = 0; i < RUN; ++i) { t_lo += a[i]; t_hi += b[i]; }
-          }
-          t_lo = bf16_round(t_lo);
-          t_hi = bf16_round(t_hi);
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] += t_lo * z2_lo[c] + t_hi * z2_hi[c];
-        }
-      }
-    }
-  }
-  store_split<MT>(acc, ws, blockIdx.y, m0, blockIdx.x, M, N);
 }
 
 }  // namespace
@@ -1266,32 +1337,6 @@ TT_EXPORT int tt_int4_tiled(const void* x, const void* wp, const void* sc, const
             : launch_tiled<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st);
 }
 
-// K14a's SIMT form: the arguments of tt_int4_gemv, any M (the wrapper
-// takes it at M <= 32, and above where g % 32 != 0).
-TT_EXPORT int tt_int4_group_partial(const void* x, const void* wp, const void* sc,
-                                    const void* zr, void* ws, void* out, int M, int K, int N,
-                                    int g, int ksplit, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((M + mt - 1) / mt, (N + GEMV_TN - 1) / GEMV_TN, ksplit);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto s = static_cast<const __nv_bfloat16*>(sc);
-  auto z = static_cast<const __nv_bfloat16*>(zr);
-  auto wsf = static_cast<float*>(ws);
-  if (mt == 1 && z)
-    int4_group_partial_kernel<1, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else if (mt == 1)
-    int4_group_partial_kernel<1, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else if (z)
-    int4_group_partial_kernel<4, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  else
-    int4_group_partial_kernel<4, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(wsf, out, ksplit, M, N, st);
-}
-
 template <bool HAS_Z>
 static int launch_group_partial_tiled(const void* x, const void* wp, const void* sc,
                                       const void* zr, void* ws, void* out, int M, int K, int N,
@@ -1314,14 +1359,14 @@ static int launch_group_partial_tiled(const void* x, const void* wp, const void*
   return reduce_splits(static_cast<float*>(ws), out, ksplit, M, N, st);
 }
 
-// K14a at M > 32: the arguments of tt_int4_gemv; g % 32 == 0, K/2 % g == 0,
+// K14a at M > 32: the arguments of tt_int4_tiled; g % 8 == 0, K/2 % g == 0,
 // N % 16 == 0, 1 <= ksplit <= K/2 / g (the split's unit is a group); ws
 // (fp32 [ksplit, M, N]) may be null when ksplit == 1. x, wp, sc and zr
 // 16-byte aligned.
 TT_EXPORT int tt_int4_group_partial_tiled(const void* x, const void* wp, const void* sc,
                                           const void* zr, void* ws, void* out, int M, int K,
                                           int N, int g, int ksplit, void* stream) {
-  if (g < TBKP || g % TBKP || (K / 2) % g || N % 16 || ksplit < 1 || ksplit > K / 2 / g ||
+  if (g < 8 || g % 8 || (K / 2) % g || N % 16 || ksplit < 1 || ksplit > K / 2 / g ||
       (ksplit > 1 && !ws))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1329,28 +1374,69 @@ TT_EXPORT int tt_int4_group_partial_tiled(const void* x, const void* wp, const v
             : launch_group_partial_tiled<false>(x, wp, sc, zr, ws, out, M, K, N, g, ksplit, st);
 }
 
-// K14b / K14c: the arguments of tt_int4_gemv and the K-split unit in packed
-// rows (g, or cb * g); M <= 16, unit % g == 0, K/2 % unit == 0.
-TT_EXPORT int tt_int4_banded(const void* x, const void* wp, const void* sc, const void* zr,
-                             void* ws, void* out, int M, int K, int N, int g, int ksplit,
-                             int unit, void* stream) {
+// K14's shared memory: the warps' running sums, their qparams rings, the
+// split's x pairs and its groups' x-sums (M rows each).
+static int k14_smem(int M, int K, int g, int unit, int nsplit) {
+  const int rows = (K / 2 / unit + nsplit - 1) / nsplit * unit;  // the longest split
+  const int groups = (rows + g - 1) / g + 1;                      // the most a split touches
+  return K14_ACC + K14_QRING + M * (rows + 4) * 4 + groups * M * 8;
+}
+
+template <bool HAS_Z, bool BANDED>
+static int launch_k14(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
+                      void* tickets, void* out, int M, int K, int N, int g, int unit, int nsplit,
+                      cudaStream_t st) {
+  static int configured = 0;  // the largest dynamic shared memory asked for so far
+  const int smem = k14_smem(M, K, g, unit, nsplit);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(int4_k14_kernel<HAS_Z, BANDED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
+  int4_k14_kernel<HAS_Z, BANDED><<<grid, wstream::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
+      static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
+      K, N, g, unit);
+  return cudaGetLastError();
+}
+
+template <bool BANDED>
+static int launch_k14_checked(const void* x, const void* wp, const void* sc, const void* zr,
+                              void* ws, void* tickets, void* out, int M, int K, int N, int g,
+                              int unit, int nsplit, void* stream) {
+  const int Kp = K / 2, rows = unit > 0 ? (Kp / unit + nsplit - 1) / nsplit * unit : 0;
+  if (M < 1 || M > (BANDED ? K14_BANDED_MAX_M : K14_MAX_M) || Kp % 16 ||
+      g < wstream::STEP_ROWS || g % wstream::STEP_ROWS || Kp % g || N % 16 ||
+      unit < wstream::STEP_ROWS || unit % (BANDED ? g : wstream::STEP_ROWS) || Kp % unit ||
+      nsplit < 1 || nsplit > Kp / unit || !tickets || (nsplit > 1 && !ws) ||
+      M * rows > K14_ACC || k14_smem(M, K, g, unit, nsplit) > wstream::MAX_SMEM)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((N + GEMV_TN - 1) / GEMV_TN, ksplit, (M + mt - 1) / mt);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto s = static_cast<const __nv_bfloat16*>(sc);
-  auto z = static_cast<const __nv_bfloat16*>(zr);
-  auto wsf = static_cast<float*>(ws);
-  if (mt == 1 && z)
-    int4_banded_kernel<1, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g, unit);
-  else if (mt == 1)
-    int4_banded_kernel<1, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g, unit);
-  else if (z)
-    int4_banded_kernel<4, true><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g, unit);
-  else
-    int4_banded_kernel<4, false><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, s, z, wsf, M, K, N, g, unit);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(wsf, out, ksplit, M, N, st);
+  return zr ? launch_k14<true, BANDED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, unit, nsplit,
+                                       st)
+            : launch_k14<false, BANDED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, unit, nsplit,
+                                        st);
+}
+
+// K14a at M <= 32 (group_partial): the arguments of tt_int4_gemv, split by
+// K1's step; K/2 % 16 == 0, g % 8 == 0, K/2 % g == 0, N % 16 == 0, 1 <=
+// nsplit <= K/2 / 8, the split's x at most 48 KB (the wrapper's plan).
+TT_EXPORT int tt_int4_group_partial(const void* x, const void* wp, const void* sc,
+                                    const void* zr, void* ws, void* tickets, void* out, int M,
+                                    int K, int N, int g, int nsplit, void* stream) {
+  return launch_k14_checked<false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                   wstream::STEP_ROWS, nsplit, stream);
+}
+
+// K14b / K14c (banded): the same and the K split's unit in packed rows (g,
+// or cb g); M <= 16, unit % g == 0, K/2 % unit == 0, 1 <= nsplit <= K/2 /
+// unit.
+TT_EXPORT int tt_int4_banded(const void* x, const void* wp, const void* sc, const void* zr,
+                             void* ws, void* tickets, void* out, int M, int K, int N, int g,
+                             int nsplit, int unit, void* stream) {
+  return launch_k14_checked<true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, unit, nsplit,
+                                  stream);
 }

@@ -1,5 +1,7 @@
 // One weight stream for the decode GEMVs on the tensor cores: K1
-// (int4_matmul.cu, tt_int4_gemv and its stub arm), K11's A plane and K12
+// (int4_matmul.cu, tt_int4_gemv and its stub arm), K14a at M <= 32 and
+// K14b/K14c (int4_matmul.cu, tt_int4_group_partial, tt_int4_banded: their
+// own lane map and fold noted there), K11's A plane and K12
 // (fp6_matmul.cu, tt_fp6_dual_gemv, tt_fp6_gemv: K12's step is three K1
 // steps, its own map noted there). Each reads a weight far larger than x
 // (M <= 32 rows) once, so they are bound by bytes on an H100; what this
@@ -32,8 +34,8 @@
 //     call is capturable in a CUDA graph) sums the partials in split order.
 //     Every sum has a fixed order, so two calls give the same bits.
 // The split plan (how many splits) is the wrapper's (kernels/int4_matmul.py::
-// gemv_nsplit, kernels/fp6_matmul.py::dual_nsplit and fp6_nsplit); a kernel
-// only divides its grid's work evenly by it.
+// gemv_nsplit and k14_nsplit, kernels/fp6_matmul.py::dual_nsplit and
+// fp6_nsplit); a kernel only divides its grid's work evenly by it.
 #pragma once
 
 #include "common.cuh"
@@ -71,6 +73,7 @@ __device__ __forceinline__ uint32_t hmul2u(uint32_t a, uint32_t b) {
 }
 
 constexpr uint32_t BF16X2_136 = 0x43084308u;  // (136, 136)
+constexpr uint32_t BF16X2_128 = 0x43004300u;  // (128, 128)
 
 // The four bytes of a K-major packed word (stored XORed with 0x80) as four
 // bf16x2 (lo, hi) pairs of 128 + q, q the nibble as quantized (0..15), exactly:
@@ -84,6 +87,20 @@ __device__ __forceinline__ void nibble_pairs(uint32_t w, uint32_t (&p)[4]) {
   p[1] = prmt(lh01, 0x43434343u, 0x4342);
   p[2] = prmt(lh23, 0x43434343u, 0x4140);
   p[3] = prmt(lh23, 0x43434343u, 0x4342);
+}
+
+// The same for the nibbles of ONE half of two packed words w0, w1 (hi: the
+// high nibbles, the XOR undone): p[j] is (byte j's nibble of w0, of w1), as
+// bf16x2 of 128 + q (K14's A element: two rows of one half).
+template <bool HI>
+__device__ __forceinline__ void half_pairs(uint32_t w0, uint32_t w1, uint32_t (&p)[4]) {
+  const uint32_t a = HI ? ((w0 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u : w0 & 0x0F0F0F0Fu;
+  const uint32_t b = HI ? ((w1 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u : w1 & 0x0F0F0F0Fu;
+  const uint32_t ab01 = prmt(a, b, 0x5140), ab23 = prmt(a, b, 0x7362);  // a0 b0 a1 b1, a2 b2 a3 b3
+  p[0] = prmt(ab01, 0x43434343u, 0x4140);
+  p[1] = prmt(ab01, 0x43434343u, 0x4342);
+  p[2] = prmt(ab23, 0x43434343u, 0x4140);
+  p[3] = prmt(ab23, 0x43434343u, 0x4342);
 }
 
 // x rows [0, M) at packed rows [kp0, kp0 + R) as pair words xs[m][r] =
@@ -143,44 +160,26 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ base, size
   }
 }
 
-// The block's epilogue. acc: this warp's C fragments (n-tile nt, mma j) over
-// its range of the split; red: shared memory for [WARPS][M][COLS] f32 (the
-// x staging's and the qparams ring's, free by now). Sums the warps, then
-// either writes out (one split) or stores the split's partial to
-// ws[split][M][N] and lets the last split of the strip merge, in split
-// order. extra (may be null): [M][COLS] f32 more to add per column (K11's
-// B plane); scale (may be null): a per-column bf16 factor applied before
-// the rounding (K11's s32).
-template <int NT>
-__device__ __forceinline__ void finish(float (&acc)[NT][8][4], float* red, const float* extra,
-                                       const __nv_bfloat16* __restrict__ scale,
-                                       float* __restrict__ ws, int* __restrict__ tickets,
-                                       __nv_bfloat16* __restrict__ out, int M, int N) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, tq = lane % 4;
+// The block's merge, once its partial sums are in shared memory: red holds
+// [PARTS][M][COLS] f32. Sums the parts in order, then either writes out (one
+// split) or stores the split's partial to ws[split][M][N] and lets the last
+// split of the strip merge, in split order. extra (may be null): [M][COLS]
+// f32 more to add per column (K11's B plane); scale (may be null): a
+// per-column bf16 factor applied before the rounding (K11's s32).
+template <int PARTS>
+__device__ __forceinline__ void merge(const float* red, const float* extra,
+                                      const __nv_bfloat16* __restrict__ scale,
+                                      float* __restrict__ ws, int* __restrict__ tickets,
+                                      __nv_bfloat16* __restrict__ out, int M, int N) {
+  const int tid = threadIdx.x;
   const int n0 = blockIdx.x * COLS, split = blockIdx.y, nsplit = gridDim.y;
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the shared memory
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = nt * 8 + 2 * tq, c = 16 * gq + 2 * j;
-      if (m < M)
-        *reinterpret_cast<float2*>(red + (warp * M + m) * COLS + c) =
-            make_float2(acc[nt][j][0], acc[nt][j][2]);
-      if (m + 1 < M)
-        *reinterpret_cast<float2*>(red + (warp * M + m + 1) * COLS + c) =
-            make_float2(acc[nt][j][1], acc[nt][j][3]);
-    }
-  __syncthreads();
   auto colscale = [&](int n) { return scale ? __bfloat162float(scale[n]) : 1.f; };
   for (int i = tid; i < M * COLS; i += THREADS) {
     const int m = i / COLS, c = i % COLS, n = n0 + c;
     if (n >= N) continue;
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += red[(w * M + m) * COLS + c];
+    for (int w = 0; w < PARTS; ++w) v += red[(w * M + m) * COLS + c];
     if (extra) v += extra[m * COLS + c];
     if (nsplit == 1)
       out[(size_t)m * N + n] = __float2bfloat16(v * colscale(n));
@@ -203,6 +202,35 @@ __device__ __forceinline__ void finish(float (&acc)[NT][8][4], float* red, const
     for (int s = 0; s < nsplit; ++s) v += __ldcg(ws + ((size_t)s * M + m) * N + n);
     out[(size_t)m * N + n] = __float2bfloat16(v * colscale(n));
   }
+}
+
+// The block's epilogue. acc: this warp's C fragments (n-tile nt, mma j) over
+// its range of the split; red: shared memory for [WARPS][M][COLS] f32 (the
+// x staging's and the qparams ring's, free by now). Sums the warps and
+// merges (merge above).
+template <int NT>
+__device__ __forceinline__ void finish(float (&acc)[NT][8][4], float* red, const float* extra,
+                                       const __nv_bfloat16* __restrict__ scale,
+                                       float* __restrict__ ws, int* __restrict__ tickets,
+                                       __nv_bfloat16* __restrict__ out, int M, int N) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the shared memory
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = nt * 8 + 2 * tq, c = 16 * gq + 2 * j;
+      if (m < M)
+        *reinterpret_cast<float2*>(red + (warp * M + m) * COLS + c) =
+            make_float2(acc[nt][j][0], acc[nt][j][2]);
+      if (m + 1 < M)
+        *reinterpret_cast<float2*>(red + (warp * M + m + 1) * COLS + c) =
+            make_float2(acc[nt][j][1], acc[nt][j][3]);
+    }
+  __syncthreads();
+  merge<WARPS>(red, extra, scale, ws, tickets, out, M, N);
 }
 
 // This warp's contiguous range [first, last) of a block's `n` steps.

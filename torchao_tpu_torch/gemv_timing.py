@@ -1,17 +1,21 @@
-"""Time the decode GEMVs of K12 (fp6-packed) and K8 (float8wo: bf16 x;
-float8dq-row: e4m3 x) at Llama-3-8B's linear shapes, each call alone with
-the L2 flushed (CUDA events, median), and print one JSON line: per form
-the ms of one decode step's launches (32 of each layer weight, and K12's
-head), its bytes and GB/s, each shape's time and SQNR against the plain
-version.
+"""Time the decode GEMVs of K12 (fp6-packed), K8 (float8wo: bf16 x;
+float8dq-row: e4m3 x), K14a (int4 ``group_partial``), K14c / K14b
+(int4 ``banded``, chunked and family qparams layout) and K1 (int4
+``batched_int8``, K14's bytes and layout) at Llama-3-8B's linear
+shapes, each call alone with the L2 flushed (CUDA events, median), and
+print one JSON line: per form the ms of one decode step's launches (32 of
+each layer weight, and the head where the recipe quantizes it), its bytes
+and GB/s, each shape's time and SQNR against the plain version.
 
     python -m torchao_tpu_torch.gemv_timing [--reps 25] [--sweep 1,2,3,4,6,8]
 
 ``--sweep`` also times each shape at each of the given K splits (the
 wrapper's plan patched), where the tree has the plan functions
-(``fp6_matmul.fp6_nsplit``, ``_qmm.fp8_gemv_nsplit``). The inputs are
-random, from a seeded generator: s4 / s2 bytes (every byte is a valid
-field), power-of-two scales, e4m3 weights drawn from a normal. The module
+(``fp6_matmul.fp6_nsplit``, ``_qmm.fp8_gemv_nsplit``,
+``int4_matmul.k14_nsplit`` and ``gemv_nsplit``). ``--forms`` picks forms by a substring of
+their names. The inputs are random, from a seeded generator: s4 / s2 bytes
+(every byte is a valid field), power-of-two scales, e4m3 weights drawn from
+a normal, int4 bytes with g = 32 scales and zeros. The module
 reaches the kernels only through the wrappers' public calls, so with
 another tree's root first on ``PYTHONPATH`` it times that tree's kernels:
 two trees compare in one call, on one card. It exits 1 without a card.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -28,7 +33,7 @@ import torch
 # Llama-3-8B: (name, N, K, launches per decode step)
 SHAPES = (("wqkv", 6144, 4096, 32), ("wo", 4096, 4096, 32), ("w13", 28672, 4096, 32),
           ("w2", 4096, 14336, 32))
-HEAD = ("output", 128256, 4096, 1)  # K12 only: fp6-packed quantizes the head
+HEAD = ("output", 128256, 4096, 1)  # fp6-packed and int4wo quantize the head (K12, K14)
 
 
 def _fp6_case(gen, N, K):
@@ -61,10 +66,50 @@ def _fp8_case(gen, N, K, e4m3):
             (_qmm, "fp8_gemv_nsplit"))
 
 
+def _int4_case(gen, N, K, variant, layout):
+    """K14 at M = 1 through ``int4_dq_matmul(variant=...)`` with the qparams
+    layout ``layout`` (None: the default, chunked where a chunk applies)."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+
+    g = 32
+    wp = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device="cuda")
+    scale = (torch.rand((K // g, N), generator=gen, device="cuda") * 0.02 + 0.001).bfloat16()
+    zero = (torch.randn((K // g, N), generator=gen, device="cuda") * 0.02).bfloat16()
+    x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+    kw = dict(group_size=g, xored=True)
+
+    def in_layout(fn):
+        def run():
+            old = os.environ.pop(LAYOUT_ENV, None)
+            if layout:
+                os.environ[LAYOUT_ENV] = layout
+            try:
+                return fn()
+            finally:
+                os.environ.pop(LAYOUT_ENV, None)
+                if old is not None:
+                    os.environ[LAYOUT_ENV] = old
+        return run
+
+    body = in_layout(lambda: TK.choose_body(1, K, g, variant))()
+    call = in_layout(lambda: TK.int4_dq_matmul(x, wp, scale, zero, variant=variant, **kw))
+    plain = lambda: TK.PLAIN[body](x, wp, scale, zero, **kw)
+    nbytes = K // 2 * N + 2 * (K // g) * N * 2 + 2 * K + 2 * N
+    return call, plain, nbytes, (TK, "gemv_nsplit" if body == "gemv" else "k14_nsplit")
+
+
+LAYOUT_ENV = "TORCHAO_TPU_QPARAMS_LAYOUT"
 FORMS = {
     "K12 fp6-packed": (lambda g, N, K: _fp6_case(g, N, K), SHAPES + (HEAD,)),
     "K8 gemv bf16 x": (lambda g, N, K: _fp8_case(g, N, K, False), SHAPES),
     "K8 gemv e4m3 x": (lambda g, N, K: _fp8_case(g, N, K, True), SHAPES),
+    "K14a group_partial": (lambda g, N, K: _int4_case(g, N, K, "group_partial", None),
+                           SHAPES + (HEAD,)),
+    "K14c banded": (lambda g, N, K: _int4_case(g, N, K, "banded", None), SHAPES + (HEAD,)),
+    "K14b banded family": (lambda g, N, K: _int4_case(g, N, K, "banded", "family"),
+                           SHAPES + (HEAD,)),
+    "K1 batched_int8": (lambda g, N, K: _int4_case(g, N, K, "batched_int8", None),
+                        SHAPES + (HEAD,)),
 }
 
 
@@ -72,6 +117,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--sweep", default="", help="comma-separated K splits to time per shape")
+    ap.add_argument("--forms", default="", help="comma-separated substrings of form names")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemv_timing: no CUDA device", file=sys.stderr)
@@ -84,7 +130,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": torch.cuda.get_device_name(0), "tree": str(_build.CSRC.parent.parent),
               "forms": {}}
+    picks = [f for f in a.forms.split(",") if f]
     for form, (make, shapes) in FORMS.items():
+        if picks and not any(f in form for f in picks):
+            continue
         rows, step_ms, step_bytes = {}, 0.0, 0
         for name, N, K, count in shapes:
             call, plain, nbytes, (mod, plan) = make(gen, N, K)

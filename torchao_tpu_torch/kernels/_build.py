@@ -14,7 +14,7 @@ exception. ``LAUNCHES`` counts kernel launches per wrapper: each wrapper
 adds one where it launches its kernel, and nowhere else. ``ENTRIES``
 counts the same launches per C entry point where one counter covers more
 than one kernel, or one kernel serves more than one counter (the int4
-wrapper: K14a's SIMT and tensor-core forms; the tiled qmm bodies: K6 and K8
+wrapper: K14a's stream and tensor-core forms; the tiled qmm bodies: K6 and K8
 share ``tt_qmm_mma_bf16``, K8 with e4m3 x and K9 ``tt_qmm_mma_e4m3``, K7
 takes ``tt_qmm_mma_s8``; K10's tiled counter: ``tt_w4a8_mma`` or the SIMT
 ``tt_w4a8_tiled``).
@@ -114,9 +114,9 @@ SIGNATURES = {
     # the zero pointer (4th) may be null: the zero-free form
     "tt_int4_gemv": _STREAM_INT4,
     "tt_int4_gemv_stub": _STREAM_INT4,
-    "tt_int4_group_partial": _INT4,
+    "tt_int4_group_partial": _STREAM_INT4,
     "tt_int4_group_partial_tiled": _INT4,  # ws may be null (ksplit 1)
-    "tt_int4_banded": _INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
+    "tt_int4_banded": _STREAM_INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
     "tt_int4_tiled": _INT4,  # ws may be null (ksplit 1)
     # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
     "tt_int4_gemv_eff4": [c_ptr] * 5 + [c_int] * 5 + [c_ptr],
@@ -248,7 +248,7 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# The weight-stream GEMVs' (K1's, K11's) per-device buffers: one ticket
+# The weight-stream GEMVs' (K1's, K11's, K12's, K14's) per-device buffers: one ticket
 # counter per 128-column strip, and a K-split workspace per size.
 STREAM_TICKETS = 1 << 16
 _STREAM_BUFFERS: dict = {}
@@ -303,11 +303,14 @@ def ptxas_report(names) -> str:
     return "\n".join(out)
 
 
-def sass_loops(sass: str, kernel: str) -> str:
+def sass_loops(sass: str, kernel: str, opcode: str = "") -> str:
     """For each function of ``cuobjdump -sass`` output whose mangled name
     holds ``kernel``: the instructions of its largest loop (the span from a
     backward branch's target to the branch), their number and their count
-    by opcode. That is the steady state of a streaming kernel's main loop."""
+    by opcode. That is the steady state of a streaming kernel's main loop.
+    With ``opcode`` (``HMMA``): the smallest loop that holds the most
+    instructions of that opcode instead, where a kernel's other loops (its
+    prologue's and epilogue's) are larger than its main one."""
     import re
 
     out = []
@@ -327,14 +330,19 @@ def sass_loops(sass: str, kernel: str) -> str:
             out.append(f"== {fname}: no loop")
             continue
         _, lo, hi = max(loops)
+        what = "its largest loop"
+        if opcode:
+            held = lambda t, a: sum(op.split(".")[0] == opcode for x, op, _ in ins if t <= x <= a)
+            _, _, lo, hi = max((held(t, a), -span, t, a) for span, t, a in loops)
+            what = f"its smallest loop of the most {opcode}"
         counts = collections.Counter(op.split(".")[0] for a, op, _ in ins if lo <= a <= hi)
-        out.append(f"== {fname}: {sum(counts.values())} instructions in its largest loop "
+        out.append(f"== {fname}: {sum(counts.values())} instructions in {what} "
                    f"[{lo:#x}, {hi:#x}]\n   "
                    + ", ".join(f"{k} {v}" for k, v in counts.most_common()))
     return "\n".join(out)
 
 
-def sass_loop_report(name: str, kernel: str) -> str:
+def sass_loop_report(name: str, kernel: str, opcode: str = "") -> str:
     """:func:`sass_loops` of ``csrc/<name>`` compiled with the library's
     flags (needs ``nvcc`` and ``cuobjdump``)."""
     nvcc = _nvcc()
@@ -344,15 +352,15 @@ def sass_loop_report(name: str, kernel: str) -> str:
                         str(obj)], check=True, capture_output=True, text=True)
         sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(obj)],
                               check=True, capture_output=True, text=True).stdout
-    return sass_loops(sass, kernel)
+    return sass_loops(sass, kernel, opcode)
 
 
 if __name__ == "__main__":
     # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu [other/dir/x.cu]
-    # python -m torchao_tpu_torch.kernels._build --sass fp6_matmul.cu fp6_packed_kernel
+    # python -m torchao_tpu_torch.kernels._build --sass fp6_matmul.cu fp6_packed_kernel [HMMA]
     import sys
 
     if sys.argv[1:2] == ["--sass"]:
-        print(sass_loop_report(sys.argv[2], sys.argv[3]))
+        print(sass_loop_report(*sys.argv[2:5]))
     else:
         print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))

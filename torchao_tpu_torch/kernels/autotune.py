@@ -37,8 +37,6 @@ DEFAULT_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config
 ENABLE_ENV = "TORCHAO_TPU_AUTOTUNE"
 CACHE_ENV = "TORCHAO_TPU_AUTOTUNE_CACHE"
 L2_FLUSH_BYTES = 256 * 2**20  # five times an H100's 50 MB L2
-# K-split targets (blocks in flight) of the int4 kernels on the SIMT GEMV design (K14)
-SPLIT_TARGETS = (512, 1024, 2048)
 
 _cache: Optional[Dict[str, Any]] = None
 
@@ -138,15 +136,13 @@ def lookup_or_tune(kernel_name: str, shape_sig: Sequence, candidates: List[Dict[
 
 
 def int4_matmul_candidates(M: int, N: int, K: int, g: int) -> List[Dict[str, Any]]:
-    """The JAX package's variant set by M: ``fused`` (K5) and
-    ``group_partial`` (K14a) always, ``batched_int8`` (K1) and ``banded``
-    (K14b/c) at M <= 16. The TPU's ``bn``/``bkp`` blocks have no counterpart;
-    the port's launch parameter is the K-split target of the kernels that
-    split K over blocks on the SIMT GEMV design (K14a, K14b/c):
-    ``target_blocks`` in :data:`SPLIT_TARGETS`. K5's tiles are fixed, and
-    K1's split is its own plan (``int4_matmul.gemv_nsplit``: a function of
-    the shape and the SM count), so K1 is one candidate."""
-    split = ["group_partial"] + (["banded"] if M <= 16 else [])
-    k1 = [{"variant": "batched_int8"}] if M <= 16 else []
-    return [{"variant": "fused"}] + k1 + [{"variant": v, "target_blocks": t}
-                                          for v in split for t in SPLIT_TARGETS]
+    """The JAX package's variant set by M, one candidate a variant:
+    ``fused`` (K5) and ``group_partial`` (K14a) always, ``batched_int8``
+    (K1) and ``banded`` (K14b/c) at M <= 16. The TPU's ``bn``/``bkp`` blocks
+    have no counterpart: K5's tiles are fixed, and every other body's K
+    split is its own plan (``int4_matmul.gemv_nsplit``, ``k14_nsplit``,
+    ``group_partial_tiled_ksplit``: functions of the shape and the SM
+    count)."""
+    small = [{"variant": "batched_int8"}] if M <= 16 else []
+    return ([{"variant": "fused"}] + small + [{"variant": "group_partial"}]
+            + ([{"variant": "banded"}] if M <= 16 else []))

@@ -12,13 +12,16 @@ kernel body it stands for, and counts its launches as
   ``csrc/weight_stream.cuh`` (tensor cores, one launch a call, its K split
   planned by :func:`gemv_nsplit`);
 - ``tiled`` (K5): the fused variant ``_kernel`` (pallas_call at ``:723``);
-- ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call
-  (above M = 32 with g a multiple of 32 on the tensor cores, see
+- ``group_partial`` (K14a): ``_kernel_v2`` through the same pallas_call:
+  at M <= 32 on the weight stream (one launch a call, its K split planned
+  by :func:`k14_nsplit` in K1's steps), above on K5's tile (see
   :func:`launch_entry`);
 - ``banded_stacked`` (K14c): ``_kernel_banded_stacked`` (pallas_call at
   ``:1004``), where the JAX package's chunk rule gives a chunk;
 - ``banded`` (K14b): ``_kernel_banded`` (pallas_call at ``:1054``), where
-  it gives none.
+  it gives none. Both banded bodies run one kernel on the weight stream, its
+  K split in whole units (:func:`k14_nsplit`): a group for K14b, a chunk of
+  groups for K14c.
 
 ``variant=`` follows the JAX package's rules (``int4_matmul.py:649-722``):
 ``auto`` keeps the port's split, K1 at M <= 32 and K5 above (the JAX package
@@ -70,17 +73,13 @@ from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 32
 BANDED_MAX_M = 16  # the JAX banded bodies' M limit
-GEMV_RUN = 8       # packed rows per GEMV run (csrc RUN)
+GEMV_RUN = 8       # packed rows per run of P6's SIMT GEMV (csrc RUN), a K1 step
 TILED_KP = 16      # packed rows per K5 unit: K/2 is a multiple, the K split's unit (csrc TKP)
 TILED_BKP = 32     # packed rows per K5 step; a split ending on an odd unit takes one of 16 (csrc TBKP)
 TILED_BM = 128     # rows of x per K5 block (csrc TBM)
 TILED_BN = 128     # columns per K5 block (csrc TBN)
 TILED_BLOCKS_PER_SM = 2  # K5 blocks resident per SM (its shared memory and registers)
-GP_TILED_KP = 32   # packed rows per K14a tensor-core sub-step: g must be a multiple (csrc TBKP)
-GP_TILED_BLOCKS_PER_SM = 1  # its 128 accumulators per thread take up to 255 registers
-_GEMV_TN = 128     # columns per block of the SIMT GEMV design: K14, P6 (csrc GEMV_TN)
-_GEMV_LANES = 32   # run lanes per such block (csrc GEMV_LANES)
-TARGET_BLOCKS = 1024  # their K-split target (K1 has its own plan: gemv_nsplit)
+GP_TILED_BLOCKS_PER_SM = 1  # K14a tiled: its 128 accumulators per thread take up to 255 registers
 # the weight stream (csrc/weight_stream.cuh; tests hold these against the source)
 STREAM_WARPS = 8        # warps per block (csrc wstream::WARPS)
 STREAM_COLS = 128       # columns per block, a strip (csrc wstream::COLS)
@@ -88,6 +87,7 @@ STREAM_STEP_ROWS = 8    # packed rows per int4 step (csrc wstream::STEP_ROWS)
 STREAM_X_BYTES = 48 * 1024    # the split's staged x: at most this much shared memory
 STREAM_BLOCK_STEPS = 24  # a block's fixed cost (ring fill, x staging, merge), in steps
 K1_STUB_MAX_M = 4       # csrc K1_STUB_MAX_M
+K14_BLOCKS_PER_SM = 2   # K14's stream form (csrc K14_BLOCKS)
 VARIANTS = ("auto", "fused", "group_partial", "batched_int8", "banded")
 VARIANT_ENV = "TORCHAO_TPU_INT4_VARIANT"
 
@@ -226,16 +226,16 @@ def choose_body(M: int, K: int, group_size: int, variant: str = "auto") -> str:
     return "group_partial" if variant == "group_partial" else "tiled"
 
 
-def _plan(M, K, group_size, variant, target_blocks):
-    """(body, K-split target, packed rows per K-split unit of the banded
-    bodies: a group for K14b, a canonical chunk of groups for K14c)."""
+def _plan(M, K, group_size, variant):
+    """(body, packed rows per K-split unit of its stream form: a step for
+    K1 and K14a, a group for K14b, a canonical chunk of groups for K14c)."""
     body = choose_body(M, K, group_size, variant)
-    unit = None
+    unit = STREAM_STEP_ROWS
     if body == "banded":
         unit = group_size
     elif body == "banded_stacked":
         unit = qparams_chunk_groups(K // group_size, group_size) * group_size
-    return body, target_blocks, unit
+    return body, unit
 
 
 def _kernel_gate(N: int, K: int, g: int) -> bool:
@@ -267,15 +267,16 @@ def _choose(x, wp, scale, zero, group_size, mid, layer_idx, xored):
     kw = {}
     if _kernel_gate(N, K, group_size):
         run = lambda cfg, xi: int4_dq_matmul(xi, wp, scale, zero, group_size=group_size,
-                                             mid=mid, layer_idx=layer_idx, xored=xored, **cfg)
+                                             mid=mid, layer_idx=layer_idx, xored=xored,
+                                             variant=cfg["variant"])
         kw.update(autotune.lookup_or_tune(
             "int4_dq_matmul", (M, N, K, group_size),
             autotune.int4_matmul_candidates(M, N, K, group_size), run, example_x=x) or {})
         v = os.environ.get(VARIANT_ENV)
         if v in VARIANTS[1:]:
             kw["variant"] = v  # the override wins over the cache
-    return _plan(M, K, group_size, kw.get("variant", "auto"),
-                 kw.get("target_blocks", TARGET_BLOCKS))
+    # only the variant: an older cache's other keys (a K-split target) are ignored
+    return _plan(M, K, group_size, kw.get("variant", "auto"))
 
 
 def int4_linear(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
@@ -349,12 +350,11 @@ def group_partial_tiled_ksplit(M: int, K: int, N: int, g: int, sms: int) -> int:
 
 def launch_entry(body: str, M: int, group_size: int) -> str:
     """The C entry point that ``body`` launches at M. ``group_partial``
-    (K14a) takes its tensor-core form above ``GEMV_MAX_M`` where g is a
-    multiple of ``GP_TILED_KP``, and its SIMT form otherwise; both count as
+    (K14a) takes its stream form up to ``GEMV_MAX_M`` and its tensor-core
+    tile above (every g); both count as
     ``int4_dq_matmul[_zero_free]_group_partial``."""
     if body == "group_partial":
-        tiled = M > GEMV_MAX_M and group_size % GP_TILED_KP == 0
-        return "tt_int4_group_partial_tiled" if tiled else "tt_int4_group_partial"
+        return "tt_int4_group_partial" if M <= GEMV_MAX_M else "tt_int4_group_partial_tiled"
     return {"gemv": "tt_int4_gemv", "tiled": "tt_int4_tiled"}.get(body, "tt_int4_banded")
 
 
@@ -365,7 +365,7 @@ def launch_counter(body: str, zero_free: bool) -> str:
 
 def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per_sm: int,
                   max_units: int) -> int:
-    """The K splits of a weight-stream GEMV (K1, K11): ``strips`` column
+    """The K splits of a weight-stream GEMV (K1, K11, K14): ``strips`` column
     strips of ``STREAM_COLS``, each ``units`` whole units of ``unit_steps``
     warp steps long, go to ``strips·nsplit`` blocks of ``STREAM_WARPS``
     warps, ``blocks_per_sm`` at a time on each of ``sms`` SMs. Picks the
@@ -399,16 +399,20 @@ def gemv_nsplit(M: int, K: int, N: int, sms: int) -> int:
     return stream_nsplit(cdiv(N, STREAM_COLS), steps, 1, sms, 2 if M <= 8 else 1, max_units)
 
 
-def _ksplit(M, K, N, target, mt, units=None):
-    """Blocks over K: up to ``target`` blocks in flight, at least one run
-    for each of a block's 32 run lanes, and (banded) whole units."""
-    runs = K // 2 // GEMV_RUN
-    cap = runs // _GEMV_LANES if units is None else min(units, runs // _GEMV_LANES)
-    return max(1, min(cap, cdiv(target, cdiv(N, _GEMV_TN) * cdiv(M, mt))))
+@functools.lru_cache(maxsize=None)
+def k14_nsplit(M: int, K: int, N: int, unit: int, sms: int) -> int:
+    """K14's K split (:func:`stream_nsplit`) in whole units of ``unit``
+    packed rows (a step for K14a, K1's unit; a group for K14b; a chunk of
+    groups for K14c), ``K14_BLOCKS_PER_SM`` blocks an SM at every M (every warp
+    holds one n-tile, so the registers do not grow with M), a split's x
+    pairs in ``STREAM_X_BYTES`` where a unit fits."""
+    max_units = max(1, (STREAM_X_BYTES // (4 * M) - 4) // unit)
+    return stream_nsplit(cdiv(N, STREAM_COLS), K // 2 // unit, unit // STREAM_STEP_ROWS, sms,
+                         K14_BLOCKS_PER_SM, max_units)
 
 
 def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
-    body, target, unit = plan
+    body, unit = plan
     if x.device.type == "cpu":
         return PLAIN[body](x, wp, scale, zero, group_size=group_size, mid=mid,
                            layer_idx=layer_idx, xored=xored)
@@ -422,9 +426,7 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     stream = _build.stream_handle(x.device)
     ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(), zp)
     entry = launch_entry(body, M, group_size)
-    if entry == "tt_int4_gemv":
-        _launch_stream(entry, x, ptrs, out, M, K, N, group_size, stream)
-    elif entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
+    if entry in ("tt_int4_tiled", "tt_int4_group_partial_tiled"):
         sms = _build.sm_count(x.device.index or 0)
         ksplit = (tiled_ksplit(M, K, N, sms) if body == "tiled"
                   else group_partial_tiled_ksplit(M, K, N, group_size, sms))
@@ -433,37 +435,35 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
         lib.launch(entry, *ptrs, 0 if ws is None else ws.data_ptr(), out.data_ptr(),
                    M, K, N, group_size, ksplit, stream)
     else:
-        if body == "group_partial":
-            ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4)
-        else:
-            ksplit = _ksplit(M, K, N, target, 1 if M == 1 else 4, K // 2 // unit)
-        ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-        args = (*ptrs, ws.data_ptr(), out.data_ptr(), M, K, N, group_size, ksplit)
-        lib.launch(entry, *args, *((unit,) if entry == "tt_int4_banded" else ()), stream)
+        _launch_stream(entry, x, ptrs, out, M, K, N, group_size, stream, unit)
     _build.LAUNCHES[launch_counter(body, zero is None)] += 1
     _build.ENTRIES[entry] += 1
     return out
 
 
-def _launch_stream(entry, x, ptrs, out, M, K, N, g, stream):
-    """Launch K1 (or its stub arm) on the weight stream: the K split of
-    :func:`gemv_nsplit`, the per-device buffers of ``_build.stream_buffers``."""
-    nsplit = gemv_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+def _launch_stream(entry, x, ptrs, out, M, K, N, g, stream, unit=STREAM_STEP_ROWS):
+    """Launch a weight-stream form (K1 or its stub arm, K14a, K14b/K14c in
+    units of ``unit`` packed rows): the K split of :func:`gemv_nsplit` (K1)
+    or :func:`k14_nsplit`, the per-device buffers of
+    ``_build.stream_buffers``; allocates nothing."""
+    sms = _build.sm_count(x.device.index or 0)
+    k1 = entry.startswith("tt_int4_gemv")
+    nsplit = gemv_nsplit(M, K, N, sms) if k1 else k14_nsplit(M, K, N, unit, sms)
     ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
                                         cdiv(N, STREAM_COLS))
     _build.library().launch(entry, *ptrs, None if ws is None else ws.data_ptr(),
-                            tickets.data_ptr(), out.data_ptr(), M, K, N, g, nsplit, stream)
+                            tickets.data_ptr(), out.data_ptr(), M, K, N, g, nsplit,
+                            *(() if entry != "tt_int4_banded" else (unit,)), stream)
 
 
 def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                    zero: Optional[torch.Tensor], *, group_size: int, mid: float = 8.0,
                    layer_idx: Optional[int] = None, xored: bool = False,
-                   variant: str = "auto", target_blocks: int = TARGET_BLOCKS) -> torch.Tensor:
+                   variant: str = "auto") -> torch.Tensor:
     """``x [M, K]`` times a K-major packed int4 weight ``wp [(L,) K/2, N]``
     with ``scale``/``zero [(L,) K/g, N]`` (``zero=None``: z = 0); returns
-    ``[M, N]`` in x.dtype, through the body that ``variant`` runs at M.
-    ``target_blocks``: the K-split target of the bodies that split K."""
-    plan = _plan(x.shape[0], x.shape[1], group_size, variant, target_blocks)
+    ``[M, N]`` in x.dtype, through the body that ``variant`` runs at M."""
+    plan = _plan(x.shape[0], x.shape[1], group_size, variant)
     return _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored)
 
 

@@ -44,8 +44,6 @@ import torch
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels.int4_matmul import (
     GEMV_RUN,
-    TARGET_BLOCKS,
-    _ksplit,
     _nibbles,
     eff_qparams_to_block_major,
     int4_dq_matmul,
@@ -59,8 +57,12 @@ from torchao_tpu_torch.probes._common import (
     graph_ms_per_step,
 )
 from torchao_tpu_torch.qtypes.intx import _tiled_eff_qparams
+from torchao_tpu_torch.utils import cdiv
 
 L, M, G = 16, 1, 32
+# the SIMT GEMV's K split (csrc p6_gemv_kernel): blocks of GEMV_TN columns and
+# GEMV_LANES run lanes, up to TARGET_BLOCKS in flight
+GEMV_TN, GEMV_LANES, TARGET_BLOCKS = 128, 32, 1024
 SHAPES = [(4096, 14336), (14336, 4096)]  # (K, N): w1/w3 then w2
 # arm -> the script's (bn, bkp, n_chunks); None: a family-major or production arm
 CONFIGS = {"k1": None, "eff4": None, "m1": (2048, 1024, 1), "m1bn4096": (4096, 1024, 1),
@@ -108,6 +110,14 @@ def int4_dq_matmul_eff_plain(x, wp, qp, *, group_size, chunk_groups=None, layer_
     return acc.to(x.dtype)
 
 
+def gemv_eff_ksplit(K: int, N: int) -> int:
+    """The arms' K split: up to ``TARGET_BLOCKS`` blocks of ``GEMV_TN``
+    columns in flight at M = 1, each of a block's ``GEMV_LANES`` run lanes
+    at least one run."""
+    runs = K // 2 // GEMV_RUN
+    return max(1, min(runs // GEMV_LANES, cdiv(TARGET_BLOCKS, cdiv(N, GEMV_TN))))
+
+
 def int4_dq_matmul_eff(x: torch.Tensor, wp: torch.Tensor, qp: torch.Tensor, *,
                        group_size: int, chunk_groups: Optional[int] = None,
                        layer_idx: Optional[int] = None) -> torch.Tensor:
@@ -138,7 +148,7 @@ def int4_dq_matmul_eff(x: torch.Tensor, wp: torch.Tensor, qp: torch.Tensor, *,
     for ok, what in checks:
         if not ok:
             raise ValueError(f"int4_dq_matmul_eff: {what}")
-    ksplit = _ksplit(1, K, N, TARGET_BLOCKS, 1)
+    ksplit = gemv_eff_ksplit(K, N)
     ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib, stream = _build.library(), _build.stream_handle(x.device)
