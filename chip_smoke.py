@@ -38,7 +38,11 @@ Phases (each fails loudly; nothing is caught):
    tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
    cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact;
    K1 in every form, K11, K12 and K8's gemv each one kernel per call, K2's
-   merge folded in; K12 also on every 6-bit code, bit for bit),
+   merge folded in; K12 also on every 6-bit code, bit for bit; on the
+   split-flat caches the decode step's one launch a layer, K2 / K2′ with
+   K3's quantize-and-write folded in, bit for bit against the plain
+   quantizers' write and against K3 then K2, and timed beside that
+   sequence),
    with its time (CUDA
    events, median, L2 flushed), its bound, the plain version's time and one
    PyTorch library call's time (for the fp8 sections also the unstacked
@@ -67,10 +71,11 @@ Phases (each fails loudly; nothing is caught):
    2-layer check runs under ``banded``.
 
 4. the C3 phase: K4 (int4, int8) at Dh 32, 48, 64 and 96 and K4′ at 32, 48
-   and 96 on Llama-3-8B's heads, then K2, K2′ and K4 at stories15M's heads
-   (Dh = 48, G = 1), each against its plain version and timed; its main path
-   is a 2-layer stories15M at full width (random bf16 weights, int4_smajor
-   cache) on the card against the CPU, its launches asserted.
+   and 96 on Llama-3-8B's heads, then the fused decode step (K2 / K2′ with
+   K3's write), K2, K2′ and K4 at stories15M's heads (Dh = 48, G = 1), each
+   against its plain version and timed; its main path is a 2-layer
+   stories15M at full width (random bf16 weights, int4_smajor cache) on the
+   card against the CPU, its launches asserted.
 
 5. three phases with no model: the long-context one (a layer's cache at
    S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
@@ -120,6 +125,7 @@ import time
 
 import torch
 
+from torchao_tpu_torch.attention_timing import host_us, k3_then_k2
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dq_matmul,
@@ -152,6 +158,7 @@ from torchao_tpu_torch.kernels.int8_matmul import (
 from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write,
     fused_smajor_token_write_plain,
+    quantizer_edge_cases,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
     ABLATE_RUNGS,
@@ -164,6 +171,8 @@ from torchao_tpu_torch.kernels.quantized_attention import (
     quantized_kv_decode_attention_bdq_plain,
     quantized_kv_decode_attention_heads_plain,
     quantized_kv_decode_attention_plain,
+    smajor_decode_write_attention,
+    smajor_decode_write_attention_plain,
 )
 from torchao_tpu_torch.kernels.w4a8_matmul import (
     w4a8_dq_matmul,
@@ -242,6 +251,9 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                                  "torchao_tpu/kernels/kv_cache_write.py:166"),
     "quantized_kv_decode_attention_bdq": (_DEC, "torchao_tpu/kernels/quantized_attention.py:931"),
     "quantized_kv_decode_attention": (_QA, "torchao_tpu/kernels/quantized_attention.py:337"),
+    # K3 redesigned: the token quantized and written inside K2's launch (K2 is :931 / :959)
+    "smajor_decode_write_attention": (_DEC, "torchao_tpu/kernels/kv_cache_write.py:166"),
+    "smajor_decode_write_attention_int8": (_DEC, "torchao_tpu/kernels/kv_cache_write.py:166"),
     "int8wo_mixed_matmul_gemv": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
     "int8wo_mixed_matmul_tiled": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
     "fused_smajor_token_write_int8": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
@@ -597,6 +609,95 @@ def check_decode_attention(args, gen, int8=False):
     return t
 
 
+def _same_bits(a, b):
+    """Equal bit for bit, NaN included (f32 or bf16)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(view), b.view(view))
+
+
+def check_decode_write(args, gen, int8=False):
+    """K2 / K2′ with K3's write (``tt_bdq_decode_write[_i8]``, the decode
+    step's one launch a layer) at S = 256 with pos 0, 127 and 255 and at S =
+    8192 with pos 8191, each with a random token and with the quantizers'
+    edge cases (``quantizer_edge_cases``): the four cache arrays against the
+    plain sequence's and K3's, and the output against K3-then-K2's, bit for
+    bit; the random token's output against the plain version (SQNR); one
+    kernel and one graph node a call. Timed beside it (random token): the
+    plain version, SDPA, and K3-then-K2 with the quantizers' torch ops as
+    the model ran them before (``parent_ms``); and the host's time a call of
+    each (``host_us``, ``parent_host_us``)."""
+    L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
+    G, li = H // Hkv, min(7, L - 1)
+    name = "smajor_decode_write_attention" + _suffix(int8)
+    t = Tally(name, f"one decode step at S={PROMPT + DECODE}, pos=255: {L} launches (K2's "
+                    f"attention with the new token quantized and written)")
+    edges = quantizer_edge_cases(Dh).cuda()
+    edge = edges[torch.arange(Hkv) % len(edges)].reshape(1, Hkv, 1, Dh)
+    for S, positions in ((PROMPT + DECODE, (0, 127, 255)), (LONG_S, (LONG_S - 1,))):
+        c = random_cache(gen, L, 1, Hkv, Dh, S, int8)
+        X = c["k_q"].shape[2]
+        Db = X // Hkv
+        a = (c["k_q"], c["k_scale"], c["v_q"], c["v_scale"])
+        q = torch.randn((1, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
+        for p in positions:
+            pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+            kn, vn = (torch.randn((2, 1, Hkv, 1, Dh), generator=gen, device="cuda") * 0.5
+                      ).bfloat16()
+            for tk, tv, label in ((edge, edge.flip(1), "edge cases"), (kn, vn, "random")):
+                fused, seq, plain = ([x.clone() for x in a] for _ in range(3))
+                got = smajor_decode_write_attention(q, tk, tv, *fused, pos, layer_idx=li)
+                want = k3_then_k2(q, tk, tv, seq, pos, li)
+                ref = smajor_decode_write_attention_plain(q, tk, tv, *plain, pos, layer_idx=li)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) and torch.equal(x, z)
+                           for x, y, z in zip(fused, seq, plain))
+                ok = same and _same_bits(got, want)
+                log(f"  {name} S={S} pos={p} {label}: cache == plain == K3's, out == "
+                    f"K3-then-K2's bit for bit {'PASS' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name}: the kernel disagrees with K3-then-K2")
+                del fused, seq, plain
+            err = compare(f"{name} S={S} pos={p}", got, ref)
+            _sqnr(t, ref, got)
+            call = lambda: smajor_decode_write_attention(q, kn, vn, *a, pos, layer_idx=li)
+            parent = lambda: k3_then_k2(q, kn, vn, a, pos, li)
+            if name in ONE_KERNEL_PER_CALL and (nodes := kernels_per_call(call)) != (1, 1):
+                raise AssertionError(f"{name}: a call is {nodes} (kernels, graph nodes)")
+            n = min(p, S - 1) + 1
+            kd = (_kv_values(a[0][li].reshape(1, Hkv, Db, S)[..., :n].transpose(2, 3))
+                  * a[1][li][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
+            vd = (_kv_values(a[2][li][:, :n].reshape(1, n, Hkv, Db).transpose(1, 2))
+                  * a[3][li][..., :n, None].float()).bfloat16().repeat_interleave(G, 1)
+            qs = q.reshape(1, H, 1, Dh)
+            ms, parent_ms = time_ms(call), time_ms(parent)
+            plain_ms = time_ms(lambda: smajor_decode_write_attention_plain(
+                q, kn, vn, *a, pos, layer_idx=li))
+            lib_ms = time_ms(lambda: _sdpa(qs, kd, vd, False))
+            call_us, parent_us = host_us(call), host_us(parent)
+            # the n - 1 older keys read, q read, out written, the token read and written
+            nbytes = ((n - 1) * (2 * X + 2 * Hkv * 2) + H * Dh * (2 + 4) + 4
+                      + 2 * Hkv * Dh * 2 + 2 * X + 2 * Hkv * 2)
+            flops = 4 * H * n * Dh
+            b, by = bound(nbytes, flops)
+            log(f"    ms={ms:.4f} parent_ms={parent_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={b:.6f} ({by}) host_us={call_us:.1f} "
+                f"parent_host_us={parent_us:.1f}")
+            if S == PROMPT + DECODE and p == 255:
+                t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
+                t.extra.update({"parent_ms": L * parent_ms, "host_us_per_call": call_us,
+                                "parent_host_us_per_call": parent_us})
+            else:
+                t.max_abs_err = max(t.max_abs_err, err)
+            if S == LONG_S:  # one call at the long context, beside the step's row
+                t.extra.update({f"S{S}_ms": ms, f"S{S}_parent_ms": parent_ms,
+                                f"S{S}_plain_ms": plain_ms, f"S{S}_library_ms": lib_ms,
+                                f"S{S}_bound_ms": b})
+            del kd, vd
+        del c, a
+    t.extra["bit_exact_vs_k3_then_k2"] = True
+    return t
+
+
 def check_prefill_attention(args, gen, int8=False, head_major=False):
     """K4 (or its int8 form) at T=128, S=256, pos=0 over head-major views
     of a split-flat layer, or over a layer of the head-major cache."""
@@ -694,7 +795,8 @@ def _centred(x):
 # pass: K14a's tensor-core form) by the C entry point the check launches
 ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
                        "fp6_dual_matmul", "fp6_dq_matmul", "fp8_mixed_matmul_gemv",
-                       "fp8_mixed_matmul_e4m3_gemv"}
+                       "fp8_mixed_matmul_e4m3_gemv", "smajor_decode_write_attention",
+                       "smajor_decode_write_attention_int8"}
 ONE_KERNEL_ENTRIES = {"tt_int4_group_partial", "tt_int4_banded"}
 
 
@@ -1177,17 +1279,17 @@ def check_against_cpu(params, gen, kv, name=MODEL, layers=2):
 
 
 def _want_int4(L):
+    """A layer-step of decode is one launch (K2 with K3's write); K3 and K2 run
+    only in their checks."""
     return {"int4_dq_matmul_gemv": (4 * L + 1) * DECODE, "int4_dq_matmul_tiled": 4 * L + 1,
-            "fused_smajor_token_write": L * DECODE,
-            "quantized_kv_decode_attention_bdq": L * DECODE,
+            "smajor_decode_write_attention": L * DECODE,
             "quantized_kv_decode_attention": L}
 
 
 def _want_int8wo(L):
     return {"int8wo_mixed_matmul_gemv": (4 * L + 1) * DECODE,
             "int8wo_mixed_matmul_tiled": 4 * L + 1,
-            "fused_smajor_token_write_int8": L * DECODE,
-            "quantized_kv_decode_attention_bdq_int8": L * DECODE,
+            "smajor_decode_write_attention_int8": L * DECODE,
             "quantized_kv_decode_attention_int8": L}
 
 
@@ -1242,16 +1344,16 @@ def _int4_kernels(params, args, gen):
     tallies = check_int4(params, args, gen)
     int4_route_threshold(params, gen)
     k1_at_its_upper_m(params, gen)
-    tallies += [check_kv_write(args, gen), check_decode_attention(args, gen),
-                check_prefill_attention(args, gen)]
+    tallies += [check_decode_write(args, gen), check_kv_write(args, gen),
+                check_decode_attention(args, gen), check_prefill_attention(args, gen)]
     return tallies
 
 
 def _int8wo_kernels(params, args, gen):
     tallies = check_qmm("int8wo_mixed_matmul", params, args, gen, _int8wo_call, BF16_FLOPS, True,
                         TOL_QMM_TILED_DB)
-    tallies += [check_kv_write(args, gen, True), check_decode_attention(args, gen, True),
-                check_prefill_attention(args, gen, True)]
+    tallies += [check_decode_write(args, gen, True), check_kv_write(args, gen, True),
+                check_decode_attention(args, gen, True), check_prefill_attention(args, gen, True)]
     return tallies
 
 
@@ -1417,13 +1519,14 @@ def c3_phase(gen):
     """The head dims that K4 and K4′ take beside 64 and 128, on the card:
     K4 (int4 and int8) at Llama-3-8B's prefill geometry (Hkv = 8, G = 4,
     T = 128, S = 256) at Dh 32, 48, 64 (beside 48, the comparison) and 96;
-    K4′ at its decode shape at Dh 32, 48 and 96; K2, K2′ and K4 at
-    stories15M's geometry (Hkv = 6, G = 1, Dh = 48). Its main path is a
-    ``C3_LAYERS``-layer stories15M at full width with random bf16 weights and
-    the int4_smajor cache (``check_against_cpu``: K4 at the prefill, K3 and
-    K2 at each decode step), the counts set to 0 just before the card's run
-    and read just after; the rows of stories15M's geometry take those
-    counts, the others 0. Returns (rows, end-to-end numbers)."""
+    K4′ at its decode shape at Dh 32, 48 and 96; the fused decode step (K2 /
+    K2′ with K3's write), K2, K2′ and K4 at stories15M's geometry (Hkv = 6,
+    G = 1, Dh = 48). Its main path is a ``C3_LAYERS``-layer stories15M at
+    full width with random bf16 weights and the int4_smajor cache
+    (``check_against_cpu``: K4 at the prefill, K2 with K3's write at each
+    decode step), the counts set to 0 just before the card's run and read
+    just after; the rows of stories15M's geometry take those counts, the
+    others 0. Returns (rows, end-to-end numbers)."""
     base = ModelArgs.from_name(MODEL)
     rows = []
     log(f"== C3: K4 and K4′ at Dh {C3_HEAD_DIMS} beside 64 ({MODEL}'s heads)")
@@ -1440,7 +1543,8 @@ def c3_phase(gen):
     args = ModelArgs.from_name(C3_MODEL)
     log(f"== C3: {C3_MODEL} (Hkv={args.n_local_heads}, G={args.n_head // args.n_local_heads}, "
         f"Dh={args.head_dim}), random bf16 weights, int4_smajor cache")
-    tallies = [f(args, gen, int8) for f in (check_decode_attention, check_prefill_attention)
+    tallies = [f(args, gen, int8) for f in (check_decode_write, check_decode_attention,
+                                            check_prefill_attention)
                for int8 in (False, True)]
     model = Transformer(args, torch.bfloat16, "cuda")
     params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
@@ -1448,7 +1552,7 @@ def c3_phase(gen):
     sqnr, counts = check_against_cpu(params, gen, "int4_smajor", C3_MODEL, C3_LAYERS)
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
     want = {"quantized_kv_decode_attention": C3_LAYERS,  # the 16-token prefill
-            "quantized_kv_decode_attention_bdq": 3 * C3_LAYERS, "fused_smajor_token_write": 3 * C3_LAYERS}
+            "smajor_decode_write_attention": 3 * C3_LAYERS}
     if counts != want:
         raise AssertionError(f"C3 {C3_MODEL}: launch counts {counts} != expected {want}")
     rows += [{**t.row(counts.get(t.name, 0)), "section": f"c3 {C3_MODEL}", "head_dim": args.head_dim}

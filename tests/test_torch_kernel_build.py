@@ -16,6 +16,7 @@ import re
 import pytest
 import torch
 
+from torchao_tpu_torch.attention_timing import k3_then_k2
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dq_matmul,
@@ -39,6 +40,7 @@ from torchao_tpu_torch.kernels.int8_matmul import (
 from torchao_tpu_torch.kernels.kv_cache_write import (
     fused_smajor_token_write,
     fused_smajor_token_write_plain,
+    quantizer_edge_cases,
 )
 from torchao_tpu_torch.kernels.quantized_attention import (
     fold_heads_fits,
@@ -310,7 +312,8 @@ def test_dot_kernels_at_other_shapes(cuda, M, N, K):
 def test_dh48_forward_on_the_card_matches_the_cpu(cuda):
     """A narrow 2-layer model at stories15M's head layout (Dh = 48, G = 1)
     with the int4_smajor cache and bf16 weights, teacher-forced over a
-    16-token prefill (K4) and 3 decode steps (K2), on the card and on the
+    16-token prefill (K4) and 3 decode steps (K2 with K3's write, one
+    launch a layer-step), on the card and on the
     CPU in bf16, each held against a float32 CPU run: the card within 3 dB
     of the CPU (chip_smoke.py's rule)."""
     from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
@@ -343,8 +346,7 @@ def test_dh48_forward_on_the_card_matches_the_cpu(cuda):
             grew = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
                     if v != before.get(k, 0)}
             assert grew == {"quantized_kv_decode_attention": 2,
-                            "quantized_kv_decode_attention_bdq": 6,
-                            "fused_smajor_token_write": 6}, grew
+                            "smajor_decode_write_attention": 6}, grew
         logits[key] = torch.cat(out)
     ref = logits.pop("ref")
     sqnr = {k: compute_error(ref, v) for k, v in logits.items()}
@@ -501,6 +503,83 @@ def test_int8_kv_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ K2 with K3's write on a card --
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("S", [256, 8192])
+@pytest.mark.parametrize("int8", [False, True], ids=["int4", "int8"])
+def test_decode_write_kernel_matches_plain(cuda, int8, S, G, Dh):
+    """K2 / K2′ with K3's write (one launch) against the plain sequence and
+    against K3 then K2 on the card: B = 2 slots, 5 kv heads, layer 1 of 2;
+    positions (5, S − 1) (the first warp's tile, copied before pos is read,
+    and the last split), (31, 32) (a tile edge) and the last key of a split
+    and the next (S = 8192: 11 splits; at 256 the second clamps to S − 1);
+    at each, the quantizers' edge cases (``quantizer_edge_cases``) and a
+    random token.
+    The four cache arrays equal the plain version's and K3's bit for bit, the
+    output K3-then-K2's bit for bit (NaN included: ±max bf16 overflows the
+    dots) and, for the random token, the plain version's at >= 35 dB. One
+    launch a call; the tickets back at 0."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+
+    gen = torch.Generator(device=cuda).manual_seed(S + G + Dh + int8)
+    L, B, H = 2, 2, 5
+    cache = (_int8_split_flat_cache if int8 else _split_flat_cache)(gen, L, B, H, Dh, S, cuda)
+    q = torch.randn((B, H, G, Dh), generator=gen, device=cuda).bfloat16()
+    edges = quantizer_edge_cases(Dh).to(cuda)
+    edge = edges[torch.arange(B * H) % len(edges)].reshape(B, H, 1, Dh)
+    name = "smajor_decode_write_attention" + ("_int8" if int8 else "")
+    _, kps = qa.decode_plan(B, H, S)
+    for pair in ((5, S - 1), (31, 32), (kps - 1, kps)):
+        pos = torch.tensor(pair, dtype=torch.int32, device=cuda)
+        rand = lambda: (torch.randn((B, H, 1, Dh), generator=gen, device=cuda) * 0.5).bfloat16()
+        for k_new, v_new, random in ((edge, edge.flip(1), False), (rand(), rand(), True)):
+            fused, seq, plain = ([t.clone() for t in cache] for _ in range(3))
+            before = _build.LAUNCHES[name]
+            got = qa.smajor_decode_write_attention(q, k_new, v_new, *fused, pos, layer_idx=1)
+            assert _build.LAUNCHES[name] == before + 1
+            want = k3_then_k2(q, k_new, v_new, seq, pos, 1)
+            ref = qa.smajor_decode_write_attention_plain(q, k_new, v_new, *plain, pos,
+                                                         layer_idx=1)
+            torch.cuda.synchronize()
+            for a, b, c in zip(fused, seq, plain):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            assert _same_bits(got, want)
+            if random:
+                _sqnr_ok(got, ref, 35.0)
+            tickets = _build.stream_buffers(got.device, 0, 1)[1]
+            assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_decode_write_is_one_device_kernel(cuda):
+    """One call of the fused step is one kernel on the card and nothing else
+    (the nodes of a CUDA graph captured around it), with 4 splits merged or
+    one split written directly."""
+    from torchao_tpu_torch.kernels import quantized_attention as qa
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for make in (_split_flat_cache, _int8_split_flat_cache):
+        cache = make(gen, 2, 1, 8, 128, 1024, cuda)
+        q = torch.randn((1, 8, 4, 128), generator=gen, device=cuda).bfloat16()
+        kn, vn = torch.randn((2, 1, 8, 1, 128), generator=gen, device=cuda).bfloat16()
+        for p in (1023, 7):
+            pos = torch.tensor([p], dtype=torch.int32, device=cuda)
+            call = lambda: qa.smajor_decode_write_attention(q, kn, vn, *cache, pos, layer_idx=1)
+            call()  # the first call of a size allocates its buffers
+            assert kernels_per_call(call) == (1, 1)
 
 
 # ------------------------------------------------------------ slice 3 on a card --

@@ -2,7 +2,8 @@
 against the JAX package's ``fused_smajor_token_write(interpret=True)`` —
 bit-exact, at positions 0, mid, S−1 and one past the end that clamps — for
 the packed-int4 (uint8) and the int8 cache; and the model's T = 1 cache
-update for both."""
+update for both (the decode step's, inside its attention launch on the card,
+and the prefill's ``_smajor_update``)."""
 
 import os
 
@@ -68,11 +69,14 @@ def test_fused_write_bit_exact(sdtype, int8):
 
 @pytest.mark.parametrize("kv", ["int4_smajor", "int8"])
 def test_model_decode_update_matches_jax(monkeypatch, kv):
-    """The model's T=1 cache update (int4 or int8 KV quantization + fused
-    write) equals the JAX package's ``_smajor_update`` through its fused
-    kernel."""
+    """The model's T=1 cache update (int4 or int8 KV quantization and the
+    write, inside the decode step's attention call,
+    ``smajor_decode_write_attention``) equals the JAX package's
+    ``_smajor_update`` through its fused kernel; so does ``_smajor_update``
+    (the prefill's write) at T = 1."""
     import torchao_tpu.models.llama.model as JM
     import torchao_tpu_torch.models.llama.model as TM
+    from torchao_tpu_torch.kernels.quantized_attention import smajor_decode_write_attention
 
     monkeypatch.setenv("TORCHAO_TPU_FUSED_KV_WRITE", "interpret")
     args_j = JM.ModelArgs(n_layer=L, n_head=16, dim=16 * Dh, n_local_heads=Hkv, vocab_size=128)
@@ -85,10 +89,16 @@ def test_model_decode_update_matches_jax(monkeypatch, kv):
     # compiled, as the model runs it (see test_torch_llama's KV quantization test)
     want = jax.jit(lambda c, k, v, p: JM._smajor_update(c, k, v, p, l=jnp.int32(1)))(
         jc, jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), jnp.asarray(pos))
-    tc = TM.init_kv_cache(args_t, B, S, quantize=kv, device="cpu")
-    TM._smajor_update(tc, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
-                      torch.from_numpy(pos), 1)
-    for name in ("k_q", "v_q", "k_scale", "v_scale"):
-        np.testing.assert_array_equal(
-            tc[name].float().numpy(), np.asarray(want[name].astype(jnp.float32)), err_msg=name)
+    kt, vt = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    decode = TM.init_kv_cache(args_t, B, S, quantize=kv, device="cpu")
+    q = torch.zeros((B, Hkv, 2, Dh), dtype=torch.bfloat16)
+    smajor_decode_write_attention(q, kt, vt, decode["k_q"], decode["k_scale"], decode["v_q"],
+                                  decode["v_scale"], torch.from_numpy(pos), layer_idx=1)
+    prefill = TM.init_kv_cache(args_t, B, S, quantize=kv, device="cpu")
+    TM._smajor_update(prefill, kt, vt, torch.from_numpy(pos), 1)
+    for tc in (decode, prefill):
+        for name in ("k_q", "v_q", "k_scale", "v_scale"):
+            np.testing.assert_array_equal(tc[name].float().numpy(),
+                                          np.asarray(want[name].astype(jnp.float32)),
+                                          err_msg=name)
     assert os.environ["TORCHAO_TPU_FUSED_KV_WRITE"] == "interpret"

@@ -1,7 +1,8 @@
 // Decode attention over the quantized KV cache for Hopper (sm_90a), on the
 // tensor cores (bf16 mma.sync, f32 accumulators), one launch a call: K2
 // (int4), K2' (int8) and K2's stub arm over the split-flat cache, one
-// template (bdq_decode_kernel<DHM, I8, STUB>); K4' and K13 over head-major
+// template (bdq_decode_kernel<DHM, I8, STUB, WRITE>), which also serves K3's
+// write at decode (WRITE); K4' and K13 over head-major
 // views, a sibling template (heads_decode_kernel<DH, I8, FACTOR>, below K2's
 // launcher) on the same design, sharing its copies and its merges.
 //
@@ -19,6 +20,32 @@
 //   (pallas_call at :959, body _kernel_bdq at :518).
 //   Numerics (both): scores (q . codes) * k_scale * scale in f32, P in f32
 //   weighted by the per-key v_scale, out f32 [B, Hkv, G, Dh].
+// tt_bdq_decode_write (int4) and tt_bdq_decode_write_i8 (int8): K2 / K2' with
+//   K3's work folded in (WRITE = true). K3 replaced
+//   torchao_tpu/kernels/kv_cache_write.py::fused_smajor_token_write (pallas_call
+//   at kv_cache_write.py:166), which the JAX package runs after XLA's per-token
+//   quantization of the new token (torchao_tpu/models/llama/model.py
+//   _quantize_kv[_int4], _smajor_update). Here one launch takes the new token's
+//   bf16 K (after RoPE) and V, [B, H, Dh] each, quantizes them per (token, kv
+//   head) as the plain quantizers do (quantize_token, below), writes codes and
+//   bf16 scales into the cache at key min(max(pos[b], 0), S - 1), and attends
+//   over keys 0..pos[b], the new one included: what K3 followed by K2 computes,
+//   bit for bit. Why inside K2's launch: the write moves ~1 KB, so a launch of
+//   its own is all latency, and the quantization before it was ~14 PyTorch ops
+//   a tensor; the card idles while the host issues them. Every block loads the
+//   token's K and V for its head beside Q and pos (after its warps' first
+//   tiles went out); of the grid's blocks for (b, h) exactly one owns the key
+//   (its split's keys hold it) and keeps the token in shared memory, and of
+//   its warps the one whose tiles hold the key quantizes it once Q is staged
+//   and keeps the codes in shared memory. Its staged copy of that key's tile
+//   predates the token, so after that stage's cp.async wait the warp writes
+//   the token into it before the dots. No other block reads the key, so the
+//   warp stores the codes to the cache last, after the split merge's ticket
+//   (a byte store into a sector that is not in L2 may wait for DRAM, and the
+//   merge's __threadfence would wait for it), and no barrier is added in
+//   front of the ring.
+//   Bound on an H100: bytes, K2's plus the token (2 Dh bf16 read, 2 Db + 4
+//   bytes written per head).
 // tt_bdq_decode_stub (int4) and tt_bdq_decode_stub_i8 (int8): K2's stub arm
 //   (STUB = true), the attention ceiling probe's: the stub arms of _kernel_bdq
 //   (:569-590) and _kernel_bdq_i4 (:682-700). Wrong math on purpose: per live
@@ -141,18 +168,22 @@ struct DecArgs {
   int H, G, Dh, S, kps;
   float scale;
   int kw, vw, v0w, sw;       // bytes per copy: K rows, V rows, the stub's V columns, scales
+  const __nv_bfloat16* knew;  // [B, H, Dh]: the new token's K (WRITE), written into kq and ks
+  const __nv_bfloat16* vnew;  // [B, H, Dh]: its V, written into vq and vs
 };
 
 // Shared memory of a launch (the same on the host and the card): a region
-// that holds the warps' rings in the key loop and then the merges, and Q.
+// that holds the warps' rings in the key loop and then the merges, Q, and
+// (WRITE) the new token: its K and V as given (2 Dh bf16), then its codes,
+// K's then V's (Db bytes each), and their two bf16 scales.
 struct DecSmem {
-  int vstr, v0str, stage, qcols, qstr, uni, total;
+  int vstr, v0str, stage, qcols, qstr, uni, tok, total;
 };
 __host__ __device__ constexpr int dec_warps(int dhm, bool i8) {
   return i8 && dhm > 128 ? DEC_WARPS / 2 : DEC_WARPS;
 }
 __host__ __device__ inline DecSmem dec_smem(int G, int Db, int Dh, bool stub, bool pair,
-                                            int nsplit, int nw) {
+                                            int nsplit, int nw, bool write = false) {
   DecSmem z;
   z.vstr = Db + 16;                 // V rows padded (fewer bank conflicts), 16-byte aligned
   z.v0str = stub ? Dh + 16 : 0;
@@ -164,8 +195,82 @@ __host__ __device__ inline DecSmem dec_smem(int G, int Db, int Dh, bool stub, bo
   const int warps = 4 * nw * (32 + G * Dh);
   const int splits = 4 * (2 * nsplit * G + G);
   z.uni = (max(ring, max(warps, splits)) + 15) / 16 * 16;
-  z.total = z.uni + 16 * z.qstr * 2;
+  z.tok = z.uni + 16 * z.qstr * 2;
+  z.total = z.tok + (write ? (4 * Dh + 2 * Db + 4 + 15) / 16 * 16 : 0);
   return z;
+}
+
+// The plain quantizers' constants (kernels/kv_cache_write.py): f32(1e-5) and
+// f32(1/7) for int4, bf16(1e-5) for int8
+constexpr uint32_t KV4_EPS = 0x3727c5acu;
+constexpr uint32_t KV4_ONE_SEVENTH = 0x3e124925u;
+constexpr unsigned short KV8_EPS = 0x3728u;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// An int4 code: clamp(rint(x / s), -8, 7) + 8, the division IEEE-rounded
+__device__ __forceinline__ uint32_t kv4_code(float x, float s) {
+  return (uint32_t)((int)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -8.f), 7.f) + 8);
+}
+
+// One token of one kv head (x: Dh bf16) quantized per token by one warp, as
+// kernels/kv_cache_write.py::quantize_kv_int4 / quantize_kv compute it on a
+// bf16 input (bit for bit; the plain versions are the torch ops):
+// - int4: absmax in f32; s = max(absmax, 1e-5) * f32(1/7) in f32; byte c =
+//   code(x[c]) | code(x[c + Db]) << 4; the scale bf16(s).
+// - int8, rounded to bf16 at each step as choose_qparams_affine and
+//   quantize_affine round on a bf16 input: mmax = max(-min(x, 0), max(x, 0));
+//   sc = max(bf16(mmax / 127), bf16(1e-5)); inv = bf16(1 / sc); code =
+//   clamp(rint(bf16(x * inv)), -127, 127) (x * inv is exact in f32); the
+//   scale sc. (bf16(mmax / 127) equals bf16(mmax * f32(1/127)) at every bf16
+//   mmax: a CPU test checks all of them.)
+// Lane l takes byte columns l, l + 32, ... < Db; x, codes[c] and *scale
+// are shared memory.
+template <bool I8>
+__device__ __forceinline__ void quantize_token(const __nv_bfloat16* x, int Dh, uint8_t* codes,
+                                               __nv_bfloat16* scale) {
+  constexpr int PER = I8 ? DEC_DH_MAX / 32 : DEC_DH_MAX / 64;  // byte columns a lane
+  const int lane = threadIdx.x % 32, Db = I8 ? Dh : Dh / 2;
+  float lo[PER], hi[PER];
+  float amax = 0.f, mn = 0.f, mx = 0.f;  // |x|'s max (int4); min(x, 0), max(x, 0) (int8)
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int c = lane + 32 * j;
+    lo[j] = c < Db ? __bfloat162float(x[c]) : 0.f;
+    hi[j] = !I8 && c < Db ? __bfloat162float(x[c + Db]) : 0.f;
+    amax = fmaxf(amax, fmaxf(fabsf(lo[j]), fabsf(hi[j])));
+    mn = fminf(mn, lo[j]);
+    mx = fmaxf(mx, lo[j]);
+  }
+#pragma unroll
+  for (int o = 16; o; o /= 2) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  float s;
+  if constexpr (I8) {
+    s = fmaxf(bf16_round(__fdiv_rn(fmaxf(-mn, mx), 127.f)),
+              __bfloat162float(__ushort_as_bfloat16(KV8_EPS)));
+    const float inv = bf16_round(__fdiv_rn(1.f, s));
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + 32 * j;
+      if (c < Db)
+        codes[c] = (uint8_t)(int)fminf(fmaxf(rintf(bf16_round(__fmul_rn(lo[j], inv))), -127.f),
+                                       127.f);
+    }
+  } else {
+    s = __fmul_rn(fmaxf(amax, __uint_as_float(KV4_EPS)), __uint_as_float(KV4_ONE_SEVENTH));
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + 32 * j;
+      if (c < Db) codes[c] = (uint8_t)(kv4_code(lo[j], s) | kv4_code(hi[j], s) << 4);
+    }
+  }
+  if (lane == 0) *scale = __float2bfloat16_rn(s);
 }
 
 // Copy `row_bytes` bytes of each of `rows` rows (source stride `src_stride`,
@@ -284,9 +389,11 @@ __device__ __forceinline__ void merge_splits(float* smem, int* is_last, int* tic
 
 // grid (B * H, nsplit), 32 NW threads. Block (bh, z) owns keys
 // [z kps, min(S, (z + 1) kps)); warp w takes its tiles w, w + NW, ... DHM:
-// the output columns (Dh) the instance's registers hold.
-template <int DHM, bool I8, bool STUB>
+// the output columns (Dh) the instance's registers hold. WRITE: the new
+// token is quantized and written first (see tt_bdq_decode_write above).
+template <int DHM, bool I8, bool STUB, bool WRITE>
 __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(DecArgs a) {
+  static_assert(!(STUB && WRITE), "the stub arm writes nothing");
   constexpr int NW = dec_warps(DHM, I8), NTHR = 32 * NW;
   constexpr bool PAIR = !I8 && !STUB;  // int4 attention: a byte is two elements of a fragment
   constexpr int NO = DHM / 8;          // output n-tiles of 8 columns
@@ -299,9 +406,13 @@ __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(Dec
   const int Db = I8 ? Dh : Dh / 2, X = H * Db;
   const int t = threadIdx.x, lane = t % 32, warp = t / 32, gq = lane / 4, tq = lane % 4;
   const int s_begin = split * a.kps, s_end = min(S, s_begin + a.kps);
-  const DecSmem z = dec_smem(G, Db, Dh, STUB, PAIR, nsplit, NW);
+  const DecSmem z = dec_smem(G, Db, Dh, STUB, PAIR, nsplit, NW, WRITE);
   uint8_t* ring = d_smem + warp * DEC_STAGES * z.stage;
   __nv_bfloat16* qp = reinterpret_cast<__nv_bfloat16*>(d_smem + z.uni);  // [16][qstr], k permuted
+  // WRITE: the new token's K and V [2][Dh] as given, its codes [2][Db] and two scales
+  __nv_bfloat16* tok_x = reinterpret_cast<__nv_bfloat16*>(d_smem + z.tok);
+  uint8_t* tok = d_smem + z.tok + 4 * Dh;
+  __nv_bfloat16* tok_sc = reinterpret_cast<__nv_bfloat16*>(tok + 2 * Db);
 
   const uint8_t* kb = a.kq + ((size_t)b * X + (size_t)h * Db) * S;  // row d at + d S
   const uint8_t* vb = a.vq + (size_t)b * S * X + (size_t)h * Db;    // key s at + s X
@@ -334,6 +445,19 @@ __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(Dec
     if (i < staged) stage(i);
     cp_async_commit();
   }
+  // WRITE: the new token's K and V (2 Dh bf16) load now, beside Q and pos,
+  // 2 bytes a thread at a time; the block whose keys hold pos keeps them
+  constexpr int TOKH = (2 * DHM + NTHR - 1) / NTHR;
+  [[maybe_unused]] unsigned short th[TOKH];
+  if constexpr (WRITE) {
+    const unsigned short* kn = reinterpret_cast<const unsigned short*>(a.knew) + (size_t)bh * Dh;
+    const unsigned short* vn = reinterpret_cast<const unsigned short*>(a.vnew) + (size_t)bh * Dh;
+#pragma unroll
+    for (int j = 0; j < TOKH; ++j) {
+      const int e = t + NTHR * j;
+      th[j] = e < Dh ? kn[e] : e < 2 * Dh ? vn[e - Dh] : 0;
+    }
+  }
   // Q as the A operand, bf16 as given, rows >= G and k past Db zero; the k
   // order of a pair (int4) block: k 2j, 2j + 1 = the two nibbles of byte row
   // 8 kb + j (elements d and d + Db)
@@ -356,14 +480,60 @@ __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(Dec
   const int p = a.pos[b];
   const int key_end = min(s_end, p + 1);  // keys [s_begin, key_end) are visible
   const int n_live = max(0, (min(S, p + 1) + a.kps - 1) / a.kps);  // splits with a visible key
+  // WRITE: the new token goes to key pw; the block whose keys hold it keeps
+  // the loaded token (keep_token), and the warp whose tile own_i holds it (at
+  // own_key) quantizes and writes it (own_i = -1 in every other warp)
+  const int pw = min(max(p, 0), S - 1);
+  const bool own_block = WRITE && pw >= s_begin && pw < s_end;
+  int own_i = -1, own_key = 0;
+  if (own_block && (pw - s_begin) / DEC_FK % NW == warp) {
+    own_i = (pw - s_begin) / DEC_FK / NW;
+    own_key = (pw - s_begin) % DEC_FK;
+  }
+  auto keep_token = [&]() {
+    unsigned short* tx = reinterpret_cast<unsigned short*>(tok_x);
+#pragma unroll
+    for (int j = 0; j < TOKH; ++j)
+      if (t + NTHR * j < 2 * Dh) tx[t + NTHR * j] = th[j];
+  };
+  auto quantize = [&]() {  // into tok and tok_sc
+    quantize_token<I8>(tok_x, Dh, tok, tok_sc);
+    quantize_token<I8>(tok_x + Dh, Dh, tok + Db, tok_sc + 1);
+    __syncwarp();
+  };
+  // The cache's copy: one byte a D-major K row, a run of V, two scales;
+  // stored last (each byte lands in another sector, which L2 may have to
+  // read from DRAM first: the split merge's __threadfence would wait)
+  auto store_token = [&]() {
+    uint8_t* kw = const_cast<uint8_t*>(kb) + pw;                // D-major: byte c at + c S
+    uint8_t* vw = const_cast<uint8_t*>(vb) + (size_t)pw * X;    // S-major: one run of Db
+    for (int c = lane; c < Db; c += 32) {
+      kw[(size_t)c * S] = tok[c];
+      vw[c] = tok[Db + c];
+    }
+    if (lane == 0) {
+      const_cast<__nv_bfloat16*>(a.ks)[((size_t)b * H + h) * S + pw] = tok_sc[0];
+      const_cast<__nv_bfloat16*>(a.vs)[((size_t)b * H + h) * S + pw] = tok_sc[1];
+    }
+  };
   if (key_end <= s_begin) {
+    if (own_block) {  // pos < 0: the token goes to key 0, and no key is visible
+      keep_token();
+      __syncthreads();
+      if (own_i >= 0) {
+        quantize();
+        store_token();
+      }
+    }
     cp_async_wait<0>();
     if (n_live == 0 && split == 0)  // nothing visible at all: out is 0
       for (int i = t; i < G * Dh; i += NTHR) a.out[(size_t)bh * G * Dh + i] = 0.f;
     return;
   }
   const int n_mine = warp_tiles(key_end);
-  __syncthreads();  // Q staged
+  if (own_block) keep_token();
+  __syncthreads();  // Q (and the token) staged
+  if (own_i >= 0) quantize();  // the other warps start their tiles meanwhile
 
   float o[NO][4];
 #pragma unroll
@@ -379,11 +549,23 @@ __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(Dec
     if (i + DEC_STAGES - 1 < n_mine) stage(i + DEC_STAGES - 1);
     cp_async_commit();
     const int k0 = tile_k0(i);
-    const uint8_t* kt = ring + (i % DEC_STAGES) * z.stage;
-    const uint8_t* vt = kt + DEC_FK * Db;
+    uint8_t* kt = ring + (i % DEC_STAGES) * z.stage;
+    uint8_t* vt = kt + DEC_FK * Db;
     const uint8_t* v0t = vt + DEC_FK * z.vstr;
     const __nv_bfloat16* sc =
         reinterpret_cast<const __nv_bfloat16*>(v0t + (STUB ? DEC_FK * z.v0str : 0));
+    if (WRITE && i == own_i) {  // the new token over what may have been copied before its store
+      for (int c = lane; c < Db; c += 32) {
+        kt[c * DEC_FK + own_key] = tok[c];
+        vt[own_key * z.vstr + c] = tok[Db + c];
+      }
+      if (lane == 0) {
+        __nv_bfloat16* scw = const_cast<__nv_bfloat16*>(sc);
+        scw[own_key] = tok_sc[0];
+        scw[DEC_FK + own_key] = tok_sc[1];
+      }
+      __syncwarp();
+    }
 
     // S = Q K^T: 16 rows x DEC_FK keys (n-tiles of 8), k over Db bytes
     float s[NT][4];
@@ -543,11 +725,11 @@ __global__ void __launch_bounds__(32 * dec_warps(DHM, I8)) bdq_decode_kernel(Dec
   const float* base = a.ws + (size_t)bh * nsplit * G * (Dh + 2);
   const size_t stride = (size_t)G * (Dh + 2);
   float* out = a.out + (size_t)bh * G * Dh;
-  if (merge_warps<NW, NTHR, STUB>(mw, lw, ow, G, Dh, n_live == 1, out,
-                                  a.ws + ((size_t)bh * nsplit + split) * G * (Dh + 2)))
-    return;
-  merge_splits<NTHR, STUB>(reinterpret_cast<float*>(d_smem), &is_last, a.tickets + bh, base,
-                           stride, n_live, G, Dh, out);
+  if (!merge_warps<NW, NTHR, STUB>(mw, lw, ow, G, Dh, n_live == 1, out,
+                                   a.ws + ((size_t)bh * nsplit + split) * G * (Dh + 2)))
+    merge_splits<NTHR, STUB>(reinterpret_cast<float*>(d_smem), &is_last, a.tickets + bh, base,
+                             stride, n_live, G, Dh, out);
+  if (WRITE && own_i >= 0) store_token();  // after the ticket: no fence waits for it
 }
 
 // The widest copy (16, 8 or 4 bytes, else 1) for rows of `run` bytes at
@@ -559,34 +741,39 @@ inline int copy_width(const void* base, long long stride, long long run) {
   return 1;
 }
 
-template <int DHM, bool I8, bool STUB>
+template <int DHM, bool I8, bool STUB, bool WRITE>
 int launch_decode_dh(const DecArgs& a, int B, int nsplit, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {  // the most any launch of this instance asks for
     const int db_max = I8 ? DHM : DHM / 2;
     const DecSmem zmax = dec_smem(DEC_G_MAX, db_max, DHM, STUB, !I8 && !STUB, DEC_SPLIT_MAX,
-                                  dec_warps(DHM, I8));
-    cudaError_t e = cudaFuncSetAttribute(bdq_decode_kernel<DHM, I8, STUB>,
+                                  dec_warps(DHM, I8), WRITE);
+    cudaError_t e = cudaFuncSetAttribute(bdq_decode_kernel<DHM, I8, STUB, WRITE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, zmax.total);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const int Db = I8 ? a.Dh : a.Dh / 2;
-  const DecSmem z = dec_smem(a.G, Db, a.Dh, STUB, !I8 && !STUB, nsplit, dec_warps(DHM, I8));
-  bdq_decode_kernel<DHM, I8, STUB><<<dim3(B * a.H, nsplit), 32 * dec_warps(DHM, I8), z.total,
-                                     st>>>(a);
+  const DecSmem z =
+      dec_smem(a.G, Db, a.Dh, STUB, !I8 && !STUB, nsplit, dec_warps(DHM, I8), WRITE);
+  bdq_decode_kernel<DHM, I8, STUB, WRITE><<<dim3(B * a.H, nsplit), 32 * dec_warps(DHM, I8),
+                                            z.total, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool I8, bool STUB>
+// WRITE: knew and vnew [B, H, Dh] bf16 (else null); kq, ks, vq and vs are
+// then written at key min(max(pos[b], 0), S - 1).
+template <bool I8, bool STUB, bool WRITE>
 int launch_decode(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-                  const void* pos, void* ws, void* tickets, void* out, int B, int H, int G,
-                  int Dh, int S, int nsplit, int kps, float scale, void* stream) {
+                  const void* pos, void* ws, void* tickets, void* out, const void* knew,
+                  const void* vnew, int B, int H, int G, int Dh, int S, int nsplit, int kps,
+                  float scale, void* stream) {
   const int Db = I8 ? Dh : Dh / 2, X = H * Db;
   if (B < 1 || H < 1 || S < 1 || G < 1 || G > DEC_G_MAX || Dh < 2 || Dh % 2 ||
       Dh > (STUB ? DEC_STUB_DH_MAX : DEC_DH_MAX) || nsplit < 1 || nsplit > DEC_SPLIT_MAX ||
       kps < DEC_FK || kps % DEC_FK || (long long)nsplit * kps < S ||
-      (long long)(nsplit - 1) * kps >= S || !tickets || (nsplit > 1 && !ws))
+      (long long)(nsplit - 1) * kps >= S || !tickets || (nsplit > 1 && !ws) ||
+      WRITE != (knew && vnew))
     return cudaErrorInvalidValue;
   // the stub runs whole tiles and reads the first Dh bytes of the H * Db-byte V rows
   if (STUB && (S % DEC_FK || X < Dh)) return cudaErrorInvalidValue;
@@ -595,13 +782,14 @@ int launch_decode(const void* q, const void* kq, const void* ks, const void* vq,
             static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pos),
             static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<float*>(out),
             H, G, Dh, S, kps, scale,
-            copy_width(kq, S, S), copy_width(vq, X, Db), copy_width(vq, X, Dh), 1};
+            copy_width(kq, S, S), copy_width(vq, X, Db), copy_width(vq, X, Dh), 1,
+            static_cast<const __nv_bfloat16*>(knew), static_cast<const __nv_bfloat16*>(vnew)};
   // scales: 8 keys a copy where both rows are 16-byte aligned, else byte copies
   a.sw = copy_width(ks, 2LL * S, 16) == 16 && copy_width(vs, 2LL * S, 16) == 16 ? 16 : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh <= 64) return launch_decode_dh<64, I8, STUB>(a, B, nsplit, st);
-  if (Dh <= 128) return launch_decode_dh<128, I8, STUB>(a, B, nsplit, st);
-  if constexpr (!STUB) return launch_decode_dh<256, I8, STUB>(a, B, nsplit, st);
+  if (Dh <= 64) return launch_decode_dh<64, I8, STUB, WRITE>(a, B, nsplit, st);
+  if (Dh <= 128) return launch_decode_dh<128, I8, STUB, WRITE>(a, B, nsplit, st);
+  if constexpr (!STUB) return launch_decode_dh<256, I8, STUB, WRITE>(a, B, nsplit, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1057,16 +1245,16 @@ TT_EXPORT int tt_bdq_decode(const void* q, const void* kq, const void* ks, const
                             const void* vs, const void* pos, void* ws, void* tickets, void* out,
                             int B, int H, int G, int Dh, int S, int nsplit, int kps, float scale,
                             void* stream) {
-  return launch_decode<false, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, B, H, G, Dh, S,
-                                     nsplit, kps, scale, stream);
+  return launch_decode<false, false, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, nullptr,
+                                            nullptr, B, H, G, Dh, S, nsplit, kps, scale, stream);
 }
 
 TT_EXPORT int tt_bdq_decode_i8(const void* q, const void* kq, const void* ks, const void* vq,
                                const void* vs, const void* pos, void* ws, void* tickets,
                                void* out, int B, int H, int G, int Dh, int S, int nsplit, int kps,
                                float scale, void* stream) {
-  return launch_decode<true, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, B, H, G, Dh, S,
-                                    nsplit, kps, scale, stream);
+  return launch_decode<true, false, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, nullptr,
+                                           nullptr, B, H, G, Dh, S, nsplit, kps, scale, stream);
 }
 
 // K2's stub arm: the arguments of tt_bdq_decode (scale unused); S a multiple
@@ -1075,16 +1263,38 @@ TT_EXPORT int tt_bdq_decode_stub(const void* q, const void* kq, const void* ks, 
                                  const void* vs, const void* pos, void* ws, void* tickets,
                                  void* out, int B, int H, int G, int Dh, int S, int nsplit,
                                  int kps, float scale, void* stream) {
-  return launch_decode<false, true>(q, kq, ks, vq, vs, pos, ws, tickets, out, B, H, G, Dh, S,
-                                    nsplit, kps, scale, stream);
+  return launch_decode<false, true, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, nullptr,
+                                           nullptr, B, H, G, Dh, S, nsplit, kps, scale, stream);
 }
 
 TT_EXPORT int tt_bdq_decode_stub_i8(const void* q, const void* kq, const void* ks, const void* vq,
                                     const void* vs, const void* pos, void* ws, void* tickets,
                                     void* out, int B, int H, int G, int Dh, int S, int nsplit,
                                     int kps, float scale, void* stream) {
-  return launch_decode<true, true>(q, kq, ks, vq, vs, pos, ws, tickets, out, B, H, G, Dh, S,
-                                   nsplit, kps, scale, stream);
+  return launch_decode<true, true, false>(q, kq, ks, vq, vs, pos, ws, tickets, out, nullptr,
+                                          nullptr, B, H, G, Dh, S, nsplit, kps, scale, stream);
+}
+
+// K2 / K2' with K3's write (tt_bdq_decode_write, packed int4;
+// tt_bdq_decode_write_i8, int8): tt_bdq_decode's arguments, the cache
+// written in place, and knew, vnew [B, H, Dh] bf16 (contiguous): the new
+// token's K and V, quantized and stored at key min(max(pos[b], 0), S - 1) of
+// kq, ks, vq and vs before the attention reads them.
+TT_EXPORT int tt_bdq_decode_write(const void* q, void* kq, void* ks, void* vq, void* vs,
+                                  const void* pos, void* ws, void* tickets, void* out,
+                                  const void* knew, const void* vnew, int B, int H, int G, int Dh,
+                                  int S, int nsplit, int kps, float scale, void* stream) {
+  return launch_decode<false, false, true>(q, kq, ks, vq, vs, pos, ws, tickets, out, knew, vnew,
+                                           B, H, G, Dh, S, nsplit, kps, scale, stream);
+}
+
+TT_EXPORT int tt_bdq_decode_write_i8(const void* q, void* kq, void* ks, void* vq, void* vs,
+                                     const void* pos, void* ws, void* tickets, void* out,
+                                     const void* knew, const void* vnew, int B, int H, int G,
+                                     int Dh, int S, int nsplit, int kps, float scale,
+                                     void* stream) {
+  return launch_decode<true, false, true>(q, kq, ks, vq, vs, pos, ws, tickets, out, knew, vnew,
+                                          B, H, G, Dh, S, nsplit, kps, scale, stream);
 }
 
 // K4' (tt_flash_heads, int4; tt_flash_heads_i8, int8) and K13

@@ -17,7 +17,10 @@
 // What bounds it on an H100: nothing but launch latency — it moves
 // 2 * (X + 2 * H) bytes per slot (~1 KB at Llama-3-8B). One block per
 // slot; the TPU's banded read-modify-write windows are not needed because
-// a CUDA thread stores single bytes directly.
+// a CUDA thread stores single bytes directly. So the model's decode step
+// does not launch it: its token is quantized and written inside K2's
+// launch (tt_bdq_decode_write, decode_attention.cu). This kernel stays the
+// direct-call counterpart of the JAX function.
 #include "common.cuh"
 
 namespace {

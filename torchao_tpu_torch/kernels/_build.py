@@ -83,6 +83,8 @@ c_float = ctypes.c_float
 # q, kq, ks, vq, vs, pos, ws (null for one split), tickets, out, B, H, G, Dh, S,
 # nsplit, keys per split, scale, stream
 _BDQ = [c_ptr] * 9 + [c_int] * 7 + [c_float, c_ptr]
+# K2 with K3's write: K2's pointers, then the new token's k and v
+_BDQ_WRITE = [c_ptr] * 11 + [c_int] * 7 + [c_float, c_ptr]
 # q, the K view (pointer, 4 strides, scales, 3 strides), the V view, pos
 _VIEWS = (
     [c_ptr] * 2 + [c_i64] * 4 + [c_ptr] + [c_i64] * 3
@@ -138,6 +140,8 @@ SIGNATURES = {
     "tt_bdq_decode_i8": _BDQ,
     "tt_bdq_decode_stub": _BDQ,
     "tt_bdq_decode_stub_i8": _BDQ,
+    "tt_bdq_decode_write": _BDQ_WRITE,
+    "tt_bdq_decode_write_i8": _BDQ_WRITE,
     "tt_flash_prefill": _FLASH,
     "tt_flash_prefill_i8": _FLASH,
     "tt_flash_ablate": _ABLATE,

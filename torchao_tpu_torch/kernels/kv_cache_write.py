@@ -17,13 +17,78 @@ takes bf16 scales, as a bf16 model's cache holds them; the plain version
 also takes the float32 caches of the CPU parity tests. The kernel copies
 bytes, so both caches take the same launch; an int8 cache's launches
 count as ``fused_smajor_token_write_int8``.
+
+The model's decode step does not launch K3: its token is quantized and
+written inside K2's launch (``quantized_attention.smajor_decode_write_attention``,
+``csrc/decode_attention.cu``). K3 stays the direct-call counterpart of the
+JAX function. This module also holds the per-token quantizers of the new
+token, :func:`quantize_kv` (int8) and :func:`quantize_kv_int4`, the plain
+versions of that kernel's quantization.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.quantization.quant_primitives import quantize_activation_per_token_absmax
+
+# f32(1e-5) and f32(1/7) (csrc decode_attention.cu KV4_EPS, KV4_ONE_SEVENTH)
+KV4_EPS = float(np.float32(1e-5))
+KV4_ONE_SEVENTH = float(np.float32(1.0 / 7.0))
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-token absmax int8 over head_dim: ``x [B, H, T, Dh]`` → (int8
+    values, scales ``[B, H, T, 1]`` in x.dtype): ``choose_qparams_affine``
+    and ``quantize_affine`` (symmetric, ±127, eps 1e-5), which round to
+    x.dtype at every step."""
+    q, scale = quantize_activation_per_token_absmax(x)
+    return q, scale[..., None].to(x.dtype)
+
+
+def quantize_kv_int4(x: torch.Tensor):
+    """Per-token absmax symmetric int4, packed 2-per-uint8 along Dh:
+    byte d = (q[d]+8) | ((q[d+Dh/2]+8) << 4); scales in x.dtype.
+
+    The scale is ``absmax * float32(1/7)``: XLA compiles the JAX package's
+    ``absmax / 7.0`` to that product, and a code near a rounding edge
+    follows whichever of the two is used."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(absmax, KV4_EPS) * KV4_ONE_SEVENTH
+    q = (torch.clamp(torch.round(xf / s), -8, 7).to(torch.int32) + 8).to(torch.uint8)
+    half = x.shape[-1] // 2
+    return q[..., :half] | (q[..., half:] << 4), s.to(x.dtype)
+
+
+def quantizer_edge_cases(Dh: int) -> torch.Tensor:
+    """Heads of one token ``[9, Dh]`` bf16 on the quantizers' edges, for the
+    checks of their kernel against these plain versions: int4's x / s
+    exactly k + 0.5 (absmax 7·2^e makes s = 2^e exactly; e = 0, -3, 4);
+    int8's bf16(x · inv) exactly k + 0.5 (absmax 127 makes sc = inv = 1);
+    an all-zero head (the eps clamp); ±max bf16; the absmax at Dh/2 − 1 and
+    at Dh/2 (one byte's two nibbles); all negative (int8's min sets mmax)."""
+    half, rows = Dh // 2, []
+    cycle = lambda t: t.repeat(Dh)[:Dh]
+    for e in (0, -3, 4):
+        r = cycle(torch.arange(-6.5, 7.0, 1.0)) * 2.0 ** e
+        r[0] = 7.0 * 2.0 ** e
+        rows.append(r)
+    r = cycle(torch.arange(-126.5, 127.0, 1.0)[::7])
+    r[1] = 127.0
+    rows += [r, torch.zeros(Dh)]
+    big = torch.finfo(torch.bfloat16).max
+    r = torch.linspace(-1.0, 1.0, Dh)
+    r[3], r[half + 2] = big, -big
+    rows.append(r)
+    for a, b in ((half - 1, half), (half, half - 1)):
+        r = torch.linspace(-0.25, 0.25, Dh)
+        r[a], r[b] = 5.0, -4.75
+        rows.append(r)
+    rows.append(-torch.linspace(0.5, 9.0, Dh))
+    return torch.stack(rows).bfloat16()
 
 
 def fused_smajor_token_write_plain(k_q, v_q, k_scale, v_scale, kf, vf, ks, vs, pos, layer_idx):

@@ -11,6 +11,11 @@ Port of three functions of ``torchao_tpu/kernels/quantized_attention.py``
   ``[L, B, Hkv·Db, S]``, V S-major ``[L, B, S, Hkv·Db]`` (``Db`` bytes per
   key and head: Dh/2 or Dh), scales ``[L, B, Hkv, S]`` — at layer
   ``layer_idx``, with per-slot positions (mask ``s <= pos[b]``).
+- :func:`smajor_decode_write_attention`: the model's decode step on that
+  cache, K2 / K2′ with K3's work folded into the same launch: the new
+  token quantized (``kv_cache_write.quantize_kv[_int4]``) and written at
+  ``pos`` before the attention reads it. Its launches count as
+  ``smajor_decode_write_attention[_int8]``; K2 and K3 stay direct calls.
 - :func:`quantized_kv_decode_attention` (K4, and its int8 form): head-major
   flash attention with ``R = T·G`` t-major query rows and the causal mask
   ``key <= pos + r // G``, over a ``[B, Hkv, S, Db]`` cache (+ ``[B, Hkv,
@@ -59,6 +64,11 @@ from typing import Optional
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels.kv_cache_write import (
+    fused_smajor_token_write_plain,
+    quantize_kv,
+    quantize_kv_int4,
+)
 from torchao_tpu_torch.utils import cdiv
 
 DECODE_CHUNK = 32    # keys per K2 tile (csrc DEC_FK)
@@ -191,6 +201,40 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
+def _layer(layer_idx, *caches):
+    """Layer ``layer_idx`` (checked) of each stacked ``[L, ...]`` cache array."""
+    if not 0 <= layer_idx < caches[0].shape[0]:
+        raise IndexError(f"layer_idx {layer_idx} out of range")
+    return tuple(a[layer_idx] for a in caches)
+
+
+def _check_bdq(name, q, k_q, k_scale, v_q, v_scale, pos):
+    """K2's checks on one layer of the split-flat cache (the kernel's view);
+    returns ``(S, int8, X)``."""
+    B, H, G, Dh = q.shape
+    S = v_q.shape[1]
+    int8 = k_q.dtype == torch.int8
+    X = H * Dh if int8 else H * Dh // 2
+    checks = (
+        (q.dtype == torch.bfloat16, "q must be bf16"),
+        (k_q.dtype in (torch.uint8, torch.int8) and v_q.dtype == k_q.dtype,
+         "the cache must be uint8 (packed int4) or int8"),
+        (k_scale.dtype == torch.bfloat16 and v_scale.dtype == torch.bfloat16, "scales must be bf16"),
+        (k_q.shape == (B, X, S) and v_q.shape == (B, S, X), "cache shapes"),
+        (k_scale.shape == (B, H, S) and v_scale.shape == (B, H, S), "scale shapes"),
+        (pos.shape == (B,) and pos.dtype == torch.int32, "pos must be int32 [B]"),
+        (G in DECODE_GROUPS and Dh % 2 == 0 and 2 <= Dh <= DECODE_DH_MAX,
+         f"needs G <= {DECODE_GROUPS[-1]} and an even Dh <= {DECODE_DH_MAX}"),
+    )
+    for ok, what in checks:
+        if not ok:
+            raise ValueError(f"{name}: {what}")
+    for t in (q, k_q, k_scale, v_q, v_scale, pos):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous, one device")
+    return S, int8, X
+
+
 def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scale,
                                       pos: torch.Tensor, *, scale: Optional[float] = None,
                                       bs: int = 1024, interpret: bool = False,
@@ -226,34 +270,14 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, H, G, Dh = q.shape
     stacked = k_q.ndim == 4
     if stacked != (layer_idx is not None):
         raise ValueError("a stacked [L, ...] cache needs layer_idx, and only it")
     if layer_idx is not None:
-        if not 0 <= layer_idx < k_q.shape[0]:
-            raise IndexError(f"layer_idx {layer_idx} out of range")
-        k_q, k_scale, v_q, v_scale = (a[layer_idx] for a in (k_q, k_scale, v_q, v_scale))
-    S = v_q.shape[1]
-    int8 = k_q.dtype == torch.int8
-    X = H * Dh if int8 else H * Dh // 2
-    checks = (
-        (q.dtype == torch.bfloat16, "q must be bf16"),
-        (k_q.dtype in (torch.uint8, torch.int8) and v_q.dtype == k_q.dtype,
-         "the cache must be uint8 (packed int4) or int8"),
-        (k_scale.dtype == torch.bfloat16 and v_scale.dtype == torch.bfloat16, "scales must be bf16"),
-        (k_q.shape == (B, X, S) and v_q.shape == (B, S, X), "cache shapes"),
-        (k_scale.shape == (B, H, S) and v_scale.shape == (B, H, S), "scale shapes"),
-        (pos.shape == (B,) and pos.dtype == torch.int32, "pos must be int32 [B]"),
-        (G in DECODE_GROUPS and Dh % 2 == 0 and 2 <= Dh <= DECODE_DH_MAX,
-         f"needs G <= {DECODE_GROUPS[-1]} and an even Dh <= {DECODE_DH_MAX}"),
-    )
-    for ok, what in checks:
-        if not ok:
-            raise ValueError(f"quantized_kv_decode_attention_bdq: {what}")
-    for t in (q, k_q, k_scale, v_q, v_scale, pos):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("quantized_kv_decode_attention_bdq: tensors must be contiguous, one device")
+        k_q, k_scale, v_q, v_scale = _layer(layer_idx, k_q, k_scale, v_q, v_scale)
+    B, H, G, Dh = q.shape
+    S, int8, X = _check_bdq("quantized_kv_decode_attention_bdq", q, k_q, k_scale, v_q, v_scale,
+                            pos)
     if stub and not (bs == DECODE_CHUNK and S % DECODE_CHUNK == 0 and X >= Dh
                      and Dh <= DECODE_STUB_DH_MAX):
         raise ValueError(f"quantized_kv_decode_attention_bdq(stub=True) on the card: bs must be "
@@ -273,6 +297,77 @@ def quantized_kv_decode_attention_bdq(q: torch.Tensor, k_q, k_scale, v_q, v_scal
         float(scale), _build.stream_handle(q.device),
     )
     name = "quantized_kv_decode_attention_bdq" + ("_stub" if stub else "")
+    _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
+    return out
+
+
+# ------------------------------------------------------- K2 + K3 --
+
+
+def smajor_decode_write_attention_plain(q, k_new, v_new, k_q, k_scale, v_q, v_scale, pos, *,
+                                        layer_idx, scale=None):
+    """Plain PyTorch version: the parent sequence of a decode step on the
+    split-flat cache: :func:`quantize_kv_int4` (packed-int4, uint8 cache) or
+    :func:`quantize_kv` (int8) of the new token, the indexed write of
+    ``fused_smajor_token_write_plain`` at ``pos`` (clamped to ``[0, S-1]``),
+    then K2's plain version over layer ``layer_idx``."""
+    B, H = k_new.shape[:2]
+    qfn = quantize_kv if k_q.dtype == torch.int8 else quantize_kv_int4
+    (kc, ks), (vc, vs) = qfn(k_new), qfn(v_new)
+    X = k_q.shape[2]
+    fused_smajor_token_write_plain(k_q, v_q, k_scale, v_scale, kc.reshape(B, X),
+                                   vc.reshape(B, X), ks.reshape(B, H), vs.reshape(B, H), pos,
+                                   layer_idx)
+    return quantized_kv_decode_attention_bdq_plain(q, k_q, k_scale, v_q, v_scale, pos,
+                                                   scale=scale, layer_idx=layer_idx)
+
+
+def smajor_decode_write_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                                  k_q, k_scale, v_q, v_scale, pos: torch.Tensor, *,
+                                  layer_idx: int, scale: Optional[float] = None) -> torch.Tensor:
+    """A decode step's attention on the stacked split-flat cache, the new
+    token written first: ``k_new, v_new [B, Hkv, 1, Dh]`` (K after RoPE)
+    are quantized per (token, kv head), written IN PLACE at ``pos``
+    (clamped to ``[0, S-1]``) into layer ``layer_idx`` of ``k_q [L, B, X,
+    S]``, ``v_q [L, B, S, X]``, ``k_scale`` and ``v_scale [L, B, Hkv, S]``,
+    and ``q [B, Hkv, G, Dh]`` attends over keys ``0..pos``; returns ``[B,
+    Hkv, G, Dh]`` fp32, what :func:`smajor_decode_write_attention_plain`
+    returns.
+
+    On the card: ONE launch (``tt_bdq_decode_write[_i8]``, K2's kernel with
+    K3's write folded in, ``csrc/decode_attention.cu``), equal bit for bit
+    to the quantizers' torch ops, ``fused_smajor_token_write`` and
+    :func:`quantized_kv_decode_attention_bdq` in turn. Its split scratch
+    and tickets come from ``_build.stream_buffers``. A shape the kernel
+    does not take raises (K2's: any even Dh <= 256, G <= 16, bf16)."""
+    if q.device.type == "cpu":
+        return smajor_decode_write_attention_plain(q, k_new, v_new, k_q, k_scale, v_q, v_scale,
+                                                   pos, layer_idx=layer_idx, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    name = "smajor_decode_write_attention"
+    if k_q.ndim != 4:
+        raise ValueError(f"{name}: the stacked [L, ...] split-flat cache")
+    layer = _layer(layer_idx, k_q, k_scale, v_q, v_scale)
+    B, H, G, Dh = q.shape
+    S, int8, _ = _check_bdq(name, q, *layer, pos)
+    for t in (k_new, v_new):
+        if t.shape != (B, H, 1, Dh) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name}: k_new and v_new must be contiguous bf16 [B, Hkv, 1, Dh] "
+                             "on q's device")
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    nsplit, kps = decode_plan(B, H, S)
+    ws, tickets = _build.stream_buffers(q.device, B * H * nsplit * G * (Dh + 2) if nsplit > 1
+                                        else 0, B * H)
+    out = torch.empty((B, H, G, Dh), dtype=torch.float32, device=q.device)
+    _build.library().launch(
+        "tt_bdq_decode_write" + ("_i8" if int8 else ""), q.data_ptr(),
+        *(t.data_ptr() for t in layer), pos.data_ptr(), None if ws is None else ws.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), B, H, G, Dh, S,
+        nsplit, kps, float(scale), _build.stream_handle(q.device),
+    )
     _build.LAUNCHES[name + ("_int8" if int8 else "")] += 1
     return out
 

@@ -15,11 +15,11 @@ Python loop, every matmul through ``ops.linear``, and five KV caches
     v_q     [L, B, S, Hkv·Db]               — V S-major
     k_scale [L, B, Hkv, S], v_scale [L, B, Hkv, S] in the model dtype
 
-  Decode (T = 1) writes the token with ``fused_smajor_token_write`` (K3)
-  and attends with ``quantized_kv_decode_attention_bdq`` (K2 / K2′);
-  prefill writes with indexed assignment and attends with
-  ``quantized_kv_decode_attention`` (K4) over a head-major VIEW of the
-  cache (no transpose copy).
+  Decode (T = 1) is one launch a layer: ``smajor_decode_write_attention``
+  quantizes the new token, writes it into the cache and attends (K2 / K2′
+  with K3's write folded in); prefill writes with indexed assignment
+  (``_smajor_update``) and attends with ``quantized_kv_decode_attention``
+  (K4) over a head-major VIEW of the cache (no transpose copy).
 - ``"int8_hmajor"`` / ``"hmajor"``: int8 head-major, the reference
   torchao's ``AffineQuantizedKVCache`` memory order; ``"int4"``: packed
   int4 head-major::
@@ -49,14 +49,14 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from torchao_tpu_torch.kernels.kv_cache_write import fused_smajor_token_write
+from torchao_tpu_torch.kernels.kv_cache_write import quantize_kv as _quantize_kv
+from torchao_tpu_torch.kernels.kv_cache_write import quantize_kv_int4 as _quantize_kv_int4
 from torchao_tpu_torch.kernels.quantized_attention import (
     quantized_kv_decode_attention,
-    quantized_kv_decode_attention_bdq,
+    smajor_decode_write_attention,
 )
 from torchao_tpu_torch.ops.embedding import embedding
 from torchao_tpu_torch.ops.qlinear import linear
-from torchao_tpu_torch.quantization.quant_primitives import quantize_activation_per_token_absmax
 from torchao_tpu_torch.utils import find_multiple, resolve_device
 
 
@@ -241,51 +241,17 @@ def init_kv_cache(args: ModelArgs, batch_size: int, max_seq_len: int,
     }
 
 
-def _quantize_kv(x: torch.Tensor):
-    """Per-token absmax int8 over head_dim: ``x [B, H, T, Dh]`` → (int8
-    values, scales ``[B, H, T, 1]`` in x.dtype)."""
-    q, scale = quantize_activation_per_token_absmax(x)
-    return q, scale[..., None].to(x.dtype)
-
-
-_ONE_SEVENTH = float(np.float32(1.0 / 7.0))
-
-
-def _quantize_kv_int4(x: torch.Tensor):
-    """Per-token absmax symmetric int4, packed 2-per-uint8 along Dh:
-    byte d = (q[d]+8) | ((q[d+Dh/2]+8) << 4); scales in x.dtype.
-
-    The scale is ``absmax * float32(1/7)``: XLA compiles the JAX package's
-    ``absmax / 7.0`` to that product, and a code near a rounding edge
-    follows whichever of the two is used."""
-    xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp_min(absmax, 1e-5) * _ONE_SEVENTH
-    q = (torch.clamp(torch.round(xf / s), -8, 7).to(torch.int32) + 8).to(torch.uint8)
-    half = x.shape[-1] // 2
-    return q[..., :half] | (q[..., half:] << 4), s.to(x.dtype)
-
-
 def _smajor_update(cache, k, v, pos: torch.Tensor, l: int) -> None:
     """Quantize new k/v ``[B, Hkv, T, Dh]`` per token (int8, or packed int4
     for a uint8 cache) and write them into layer ``l`` of the split-flat
-    cache, in place. T = 1 rides the fused token-write kernel; longer
-    writes follow ``dynamic_update_slice`` semantics (start clamped to
-    ``[0, S - T]``)."""
+    cache, in place, with ``dynamic_update_slice`` semantics (start clamped
+    to ``[0, S - T]``): the prefill's write (a decode step writes inside its
+    attention launch, ``smajor_decode_write_attention``)."""
     B, Hkv, T, Dh = k.shape
     qfn = _quantize_kv_int4 if cache["k_q"].dtype == torch.uint8 else _quantize_kv
     k_q, k_s = qfn(k)  # [B, Hkv, T, Db], [B, Hkv, T, 1]
     v_q, v_s = qfn(v)
     X = Hkv * k_q.shape[-1]
-    if T == 1:
-        sdt = cache["k_scale"].dtype
-        fused_smajor_token_write(
-            cache["k_q"], cache["v_q"], cache["k_scale"], cache["v_scale"],
-            k_q.reshape(B, X).contiguous(), v_q.reshape(B, X).contiguous(),
-            k_s.reshape(B, Hkv).to(sdt).contiguous(), v_s.reshape(B, Hkv).to(sdt).contiguous(),
-            pos, l,
-        )
-        return
     S = cache["v_q"].shape[2]
     start = pos.to(torch.long).clamp(0, S - T)
     idx = start[:, None] + torch.arange(T, device=pos.device)[None]  # [B, T]
@@ -381,17 +347,16 @@ def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: Mod
             qg.contiguous(), cache["k_q"][l], cache["k_scale"][l], cache["v_q"][l],
             cache["v_scale"][l], pos, rows_per_t=g, bq=None if T == 1 else 512,
         )  # [B, Hkv, T·g, Dh] fp32
+    elif T == 1:  # one launch: the new token quantized and written inside K2's
+        attn = smajor_decode_write_attention(
+            qg.contiguous(), k.contiguous(), v.contiguous(), cache["k_q"], cache["k_scale"],
+            cache["v_q"], cache["v_scale"], pos, layer_idx=l,
+        )  # [B, Hkv, g, Dh] fp32
     else:
         _smajor_update(cache, k, v, pos, l)
-        if T == 1:
-            attn = quantized_kv_decode_attention_bdq(
-                qg.contiguous(), cache["k_q"], cache["k_scale"], cache["v_q"], cache["v_scale"],
-                pos, layer_idx=l,
-            )  # [B, Hkv, g, Dh] fp32
-        else:
-            attn = quantized_kv_decode_attention(
-                qg.contiguous(), *_smajor_to_hmajor(cache, Hkv, Dh, l), pos, rows_per_t=g, bq=512
-            )  # [B, Hkv, T·g, Dh] fp32
+        attn = quantized_kv_decode_attention(
+            qg.contiguous(), *_smajor_to_hmajor(cache, Hkv, Dh, l), pos, rows_per_t=g, bq=512
+        )  # [B, Hkv, T·g, Dh] fp32
     out = attn.reshape(B, Hkv, T, g, Dh).transpose(1, 2).reshape(B, T, H * Dh).to(x.dtype)
     return linear(out, lw["wo"], layer_idx=l)
 
