@@ -36,8 +36,9 @@ Phases (each fails loudly; nothing is caught):
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
    tensor-core form 65 dB; K9's and the tiled K6 / K8, all on the tensor
-   cores, 60 dB; the tiled K7, s8 tensor cores with int32 sums, bit-exact;
-   K1 in every form, K11, K12 and K8's gemv each one kernel per call, K2's
+   cores, 60 dB; K7, the tiled form on s8 tensor cores and the gemv, both
+   with int32 sums, bit-exact; K1 in every form, K11, K12 and the gemv of
+   K6, K7 and K8 each one kernel per call, the K split's
    merge folded in; K12 also on every 6-bit code, bit for bit; on the
    split-flat caches the decode step's one launch a layer, K2 / K2′ with
    K3's quantize-and-write folded in, bit for bit against the plain
@@ -81,7 +82,9 @@ Phases (each fails loudly; nothing is caught):
    S = 8192, int8 and int4, in three layouts: K4 and K4′ head-major, K13
    S-major, K2 split-flat, each against its plain version and timed, SDPA
    on the dequantized layer as the yardstick), and K10's (the W4A8 matmul at
-   Llama-3-8B's linear shapes, M = 1 and 128 (the tensor-core entry
+   Llama-3-8B's linear shapes, M = 1 (the weight stream, one kernel per
+   call; its row carries ptxas's registers and spills and its main loop's
+   SASS instructions a weight element) and 128 (the tensor-core entry
    ``tt_w4a8_mma`` asserted at each), reached once through ``ops.linear``
    with ``TORCHAO_TPU_ENABLE_PALLAS_W4A8=1``), and the ceiling
    probe's (``probes/ceiling_probe.py`` at fewer steps: K1, its stub arm and
@@ -93,7 +96,8 @@ Phases (each fails loudly; nothing is caught):
    just before each and read just after (every kernel of the probe must
    have launched): the attention ceiling probe at int4 and int8 (K2 and its
    stub arm), K4's ablation ladder at int8 and int4 (every rung, K2′/K2 and
-   a torch sum as yardsticks), the manual-DMA probe (P1, P2), the int4
+   a torch sum as yardsticks), the manual-DMA probe (P1, P2; P1's call one
+   kernel at both of its shapes), the int4
    qparams-layout probe (K1, eff4, m1), and the dtype probes (P3's casts
    and dot, P5's dots). Each new CUDA arm is first held against its plain
    version at the block size it uses (K2's stub at its 32-key tile, the
@@ -118,6 +122,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -472,14 +477,16 @@ def _fp8_call(x, w, l):
             N * K + N * 4 + nx + M * N * 2, 2 * M * N * K)
 
 
-def check_qmm(name, params, args, gen, call, peak, head, tiled_tol=TOL_SQNR_DB, tiled_kw=None):
+def check_qmm(name, params, args, gen, call, peak, head, tiled_tol=TOL_SQNR_DB, tiled_kw=None,
+              gemv_kw=None):
     """K6 / K7 / K8 at M=1 (gemv, decode) and M=128 (tiled, prefill) on
     layer 0 of each stacked weight (and the head where the kernel runs
     it), against its plain version (the tiled form to ``tiled_tol``, and
-    with ``check_shapes``'s keywords ``tiled_kw``)."""
+    with ``check_shapes``'s keywords ``tiled_kw``; the gemv with
+    ``gemv_kw``)."""
     return [check_shapes(f"{name}_{form}", _cases(params, args.n_layer, head), M, call, gen,
                          peak, tol=tiled_tol if form == "tiled" else TOL_SQNR_DB,
-                         **((tiled_kw or {}) if form == "tiled" else {}))
+                         **((tiled_kw if form == "tiled" else gemv_kw) or {}))
             for form, M in FORMS]
 
 
@@ -796,7 +803,8 @@ def _centred(x):
 ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
                        "fp6_dual_matmul", "fp6_dq_matmul", "fp8_mixed_matmul_gemv",
                        "fp8_mixed_matmul_e4m3_gemv", "smajor_decode_write_attention",
-                       "smajor_decode_write_attention_int8"}
+                       "smajor_decode_write_attention_int8", "int8wo_mixed_matmul_gemv",
+                       "int8_scaled_matmul_gemv", "w4a8_dq_matmul_gemv", "manual_dma_std"}
 ONE_KERNEL_ENTRIES = {"tt_int4_group_partial", "tt_int4_banded"}
 
 
@@ -1091,6 +1099,34 @@ def _w4a8_weight(gen, N, K):
     return w
 
 
+# K10's gemv instance per rows of x (csrc w4a8_stream_kernel<MR, 16>): M = 1, 8, 16
+W4A8_GEMV_INSTANCES = {1: "w4a8_stream_kernelILi2ELi16E", 8: "w4a8_stream_kernelILi8ELi16E",
+                       16: "w4a8_stream_kernelILi16ELi16E"}
+
+
+def w4a8_gemv_build():
+    """K10's gemv as compiled: ptxas's registers and spill bytes of its
+    instances at M = 1, 8 and 16, and the SASS instructions of its main loop
+    (the loop of the IMMA: one 16-row block and the group fold the loop
+    holds, taken once a group) at M = 1, per weight element of a lane's block
+    (4 rows x 16 columns x 2 nibbles)."""
+    report = _build.ptxas_report(["w4a8_matmul.cu"])
+    out = {}
+    for M, inst in W4A8_GEMV_INSTANCES.items():
+        m = re.search(re.escape(inst) + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", report)
+        if m is None:
+            raise AssertionError(f"ptxas reports no {inst}")
+        out[f"registers_M{M}"] = int(m.group(4))
+        out[f"spill_bytes_M{M}"] = int(m.group(2)) + int(m.group(3))
+    sass = _build.sass_loop_report("w4a8_matmul.cu", W4A8_GEMV_INSTANCES[1], "IMMA")
+    n = int(re.search(r": (\d+) instructions", sass).group(1))
+    out.update(sass_loop_instructions_M1=n, sass_per_weight_element_M1=n / 128,
+               sass_loop_imma_M1=int(re.search(r"IMMA (\d+)", sass).group(1)))
+    log(f"  K10 gemv as built: {json.dumps(out)}")
+    return out
+
+
 def w4a8_phase(gen):
     """K10 at Llama-3-8B's four layer shapes and the head, M = 1 (gemv) and
     M = 128 (tiled), g = GROUP, plain nibbles, with
@@ -1147,6 +1183,9 @@ def w4a8_phase(gen):
                 compare(f"w4a8_dq_matmul_{form} {wname} (bf16 out)", got, want)
                 sqnr["bf16"] = compute_error(want, got)
                 del got, want
+                one = f"w4a8_dq_matmul_{form}" in ONE_KERNEL_PER_CALL
+                if one and (nodes := kernels_per_call(call)) != (1, 1):
+                    raise AssertionError(f"K10 {wname} M={M}: a call is {nodes} (kernels, nodes)")
                 for k, v in sqnr.items():
                     t.extra[f"sqnr_db_{k}"] = min(t.extra.get(f"sqnr_db_{k}", math.inf), v)
                 wd = w.dequantize(torch.bfloat16).T.contiguous()
@@ -1177,6 +1216,8 @@ def w4a8_phase(gen):
                 log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                     f"bound_ms={b:.4f} ({by})")
                 t.add(count, ms, plain_ms, nbytes, flops, err, lib_ms)
+            if form == "gemv":
+                t.extra.update(w4a8_gemv_build())
             tallies.append(t)
     log(json.dumps({"w4a8_fold": {f"g{GROUP}": tallies[-1].ms,
                                   **{f"g{g}": tallies[-1].extra[f"ms_g{g}"]
@@ -1365,7 +1406,8 @@ SECTIONS = {
     "int8dq": (Int8DynamicActivationInt8WeightConfig(), False,
                lambda p, a, g: check_qmm("int8_scaled_matmul", p, a, g, _int8dq_call,
                                          INT8_FP8_OPS, True,
-                                         tiled_kw=dict(exact=True, int_mm=_int8dq_int_mm)),
+                                         tiled_kw=dict(exact=True, int_mm=_int8dq_int_mm),
+                                         gemv_kw=dict(exact=True)),
                _want_matmul_only("int8_scaled_matmul", lambda L: 4 * L + 1)),
     "float8wo": (Float8WeightOnlyConfig(), False,
                  lambda p, a, g: check_qmm("fp8_mixed_matmul", p, a, g, _fp8_call,
@@ -1796,6 +1838,13 @@ def probe_phase():
             f"{manual_dma_probe.N1}, {manual_dma_probe.N2}; K = {manual_dma_probe.K})",
             v["ms_per_pair"], v["plain_ms"], res["bytes_per_pair"], 0, v["max_abs_err"],
             res["library_ms"], GBps=v["GBps"]))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xp = torch.randn((1, manual_dma_probe.K), generator=gen, device="cuda").bfloat16()
+    for n in (manual_dma_probe.N1, manual_dma_probe.N2):
+        wp = torch.randint(-128, 128, (n, manual_dma_probe.K), generator=gen,
+                           device="cuda").to(torch.int8)
+        if (nodes := kernels_per_call(lambda: manual_dma_probe.manual_dma_std(xp, wp))) != (1, 1):
+            raise AssertionError(f"P1 N={n}: a call is {nodes} (kernels, graph nodes)")
     answers["manual_dma"] = {"speedup_manual_vs_two_calls": res["speedup_manual_vs_two_calls"],
                              **{f"{a}_GBps": res[a]["GBps"] for a in ("two_calls", "manual")}}
     log(f"  manual / two_calls speedup = {res['speedup_manual_vs_two_calls']:.3f}")

@@ -160,17 +160,17 @@ def test_fp8_gemv_constants_are_the_cuda_source():
     """K8's gemv block rows, x rows and blocks an SM are the source's."""
     from torchao_tpu_torch.kernels import _qmm
 
-    assert _qmm_source_int("F8G_ROWS") == _qmm.FP8_GEMV_ROWS
-    assert _qmm_source_int("F8G_MT") == _qmm.FP8_GEMV_MT
-    assert _qmm_source_int("F8G_BLOCKS") == _qmm.FP8_GEMV_BLOCKS_PER_SM
+    assert _qmm_source_int("G1_ROWS") == _qmm.GEMV1_ROWS
+    assert _qmm_source_int("G1_MT") == _qmm.GEMV1_MT
+    assert _qmm_source_int("G1_BLOCKS") == _qmm.GEMV1_BLOCKS_PER_SM
     assert _qmm_source_int("CH") == _qmm._CHUNK
 
 
 @pytest.mark.parametrize("N,K", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
                                  (4096 + 48, 1536), (200, 4128)])
 def test_fp8_gemv_split_walks_every_k_of_every_row_once(N, K):
-    """K8's gemv walk (csrc fp8_gemv_kernel), written out for the plan of
-    ``fp8_gemv_nsplit`` at M = 1, 4, 17 and 32 on 132 SMs: block (b, y, z)
+    """K8's gemv walk (csrc gemv1_kernel), written out for the plan of
+    ``gemv1_nsplit`` at M = 1, 4, 17 and 32 on 132 SMs: block (b, y, z)
     takes rows 32 b + 4 w + r (warp w) and rows 4 z .. of x, split y the 16-k
     chunks [y·C/ns, (y+1)·C/ns), lane l every 32nd. Every k of every row
     (and every row of x) is met exactly once; the tickets fit."""
@@ -178,15 +178,15 @@ def test_fp8_gemv_split_walks_every_k_of_every_row_once(N, K):
 
     C = K // 16
     for M in (1, 4, 17, 32):
-        ns = _qmm.fp8_gemv_nsplit(M, K, N, 132)
-        mt = 1 if M == 1 else _qmm.FP8_GEMV_MT
+        ns = _qmm.gemv1_nsplit(M, K, N, 132)
+        mt = 1 if M == 1 else _qmm.GEMV1_MT
         assert 1 <= ns <= C
         seen_k, seen_n, seen_m = np.zeros(K, int), np.zeros(N, int), np.zeros(M, int)
         for y in range(ns):
             for lane in range(32):
                 for c in range(y * C // ns + lane, (y + 1) * C // ns, 32):
                     seen_k[16 * c:16 * c + 16] += 1
-        for b in range(-(-N // _qmm.FP8_GEMV_ROWS)):
+        for b in range(-(-N // _qmm.GEMV1_ROWS)):
             for w in range(8):
                 for r in range(4):
                     n = 32 * b + 4 * w + r
@@ -195,4 +195,4 @@ def test_fp8_gemv_split_walks_every_k_of_every_row_once(N, K):
         for z in range(-(-M // mt)):
             seen_m[z * mt:(z + 1) * mt] += 1
         assert (seen_k == 1).all() and (seen_n == 1).all() and (seen_m == 1).all()
-        assert -(-N // _qmm.FP8_GEMV_ROWS) * -(-M // mt) <= _build.STREAM_TICKETS
+        assert -(-N // _qmm.GEMV1_ROWS) * -(-M // mt) <= _build.STREAM_TICKETS

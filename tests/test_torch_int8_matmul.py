@@ -75,3 +75,53 @@ def test_int8_wrappers_check_layer_idx():
     w = torch.zeros((2, 16, 32), dtype=torch.int8)
     with pytest.raises(IndexError):
         int8wo_mixed_matmul(torch.zeros((1, 32)), w, torch.ones((2, 16)), layer_idx=2)
+
+
+# Llama-3-8B's int8 linears (N, K) and two ragged shapes; the plan at M = 1 on
+# 132 SMs (wo and w2 split in two)
+GEMV1_SHAPES = {(6144, 4096): 1, (4096, 4096): 2, (28672, 4096): 1, (4096, 14336): 2,
+                (128256, 4096): 1, (4096 + 48, 1536): None, (200, 4128): None}
+
+
+@pytest.mark.parametrize("N,K", list(GEMV1_SHAPES))
+def test_int8_gemv_one_launch_split_walks_every_k_of_every_row_once(N, K):
+    """K6's and K7's one-launch gemv (csrc gemv1_kernel, the plan of
+    ``_qmm.gemv1_nsplit``) at M = 1, 4, 17 and 32 on 132 SMs: block (b, y,
+    z) takes weight rows 32 b + 4 w + r (warp w) and rows of x from 4 z
+    (all of x at M = 1), split y the 16-k chunks [y·C/ns, (y+1)·C/ns), lane
+    l every 32nd. Every k of every row (and every row of x) is met exactly
+    once, every split holds a chunk, and the tickets (one per (row block,
+    x block)) fit the ticket buffer."""
+    from torchao_tpu_torch.kernels import _build, _qmm
+
+    C = K // 16
+    for M in (1, 4, 17, 32):
+        ns = _qmm.gemv1_nsplit(M, K, N, 132)
+        if M == 1 and GEMV1_SHAPES[(N, K)] is not None:
+            assert ns == GEMV1_SHAPES[(N, K)]
+        mt = 1 if M == 1 else _qmm.GEMV1_MT
+        assert 1 <= ns <= C and all((y + 1) * C // ns > y * C // ns for y in range(ns))
+        seen_k, seen_n, seen_m = np.zeros(K, int), np.zeros(N, int), np.zeros(M, int)
+        for y in range(ns):
+            for lane in range(32):
+                for c in range(y * C // ns + lane, (y + 1) * C // ns, 32):
+                    seen_k[16 * c:16 * c + 16] += 1
+        rows = np.arange(-(-N // _qmm.GEMV1_ROWS) * _qmm.GEMV1_ROWS).reshape(-1, 8, 4)
+        seen_n += np.bincount(rows[rows < N].ravel(), minlength=N)  # block b, warp w, row r
+        for z in range(-(-M // mt)):
+            seen_m[z * mt:(z + 1) * mt] += 1
+        assert (seen_k == 1).all() and (seen_n == 1).all() and (seen_m == 1).all()
+        assert _qmm.gemv1_strips(M, N) == -(-N // _qmm.GEMV1_ROWS) * -(-M // mt)
+        assert _qmm.gemv1_strips(M, N) <= _build.STREAM_TICKETS
+
+
+@pytest.mark.parametrize("kind", ["K6", "K7"])
+def test_gemv1_entry_by_kind(kind):
+    """K6 and K7 take ``tt_qmm_gemv``, K8 ``tt_fp8_mixed_gemv``: one kernel
+    template, two entry points."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    k = {"K6": _qmm.K6_BF16_I8, "K7": _qmm.K7_I8_I8}[kind]
+    assert _qmm.gemv1_entry(k) == "tt_qmm_gemv"
+    assert {_qmm.gemv1_entry(x) for x in (_qmm.K8_BF16_E4M3, _qmm.K8_E4M3_E4M3)} == {
+        "tt_fp8_mixed_gemv"}

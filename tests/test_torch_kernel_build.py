@@ -1561,7 +1561,7 @@ def test_fp8_gemv_one_launch_matches_plain(cuda, monkeypatch, x_kind, M, K, spli
     from torchao_tpu_torch.kernels import _qmm
 
     if split == "three":
-        monkeypatch.setattr(_qmm, "fp8_gemv_nsplit", lambda *a: 3)
+        monkeypatch.setattr(_qmm, "gemv1_nsplit", lambda *a: 3)
     gen = torch.Generator(device=cuda).manual_seed(M + K)
     x, w, ws, xs = _fp8_gemv_operands(gen, x_kind, M, 4096 + 48, K, cuda)
     name = "fp8_mixed_matmul_gemv" if x_kind == "bf16" else "fp8_mixed_matmul_e4m3_gemv"
@@ -1596,8 +1596,131 @@ def test_fp6_packed_and_fp8_gemv_are_one_kernel_and_repeat_bit_for_bit(cuda):
         calls.append(lambda x=x: F.fp6_dq_matmul(x, *pargs, layer_idx=1))
     for x_kind, M, Kx in (("bf16", 1, K), ("e4m3", 4, 14336)):
         x, w, ws, xs = _fp8_gemv_operands(gen, x_kind, M, N, Kx, cuda)
-        assert _qmm.fp8_gemv_nsplit(M, Kx, N, sms) > 1
+        assert _qmm.gemv1_nsplit(M, Kx, N, sms) > 1
         calls.append(lambda x=x, w=w, ws=ws, xs=xs: fp8_mixed_matmul(x, w, ws, xs, layer_idx=1))
+    for call in calls:
+        first = call()
+        assert torch.equal(call(), first)
+        assert kernels_per_call(call) == (1, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert _stream_tickets_are_zero(cuda)
+
+
+# K10's gemv on the weight stream: N = 4096 (16-byte loads) and 4096 + 40
+# (N % 16 == 8: 8-byte loads, a last strip of 40 columns); K = 4096 and
+# 14336 (w2's); the split the plan's, one (where one split's x fits in
+# shared memory: not w2's K at M = 16) or three
+_W4A8_GEMV_CASES = [(M, N, K, split) for M in (1, 5, 16)
+                    for N, K in ((4096, 4096), (4096 + 40, 14336))
+                    for split in ("plan", "one", "three")
+                    if not (split == "one" and M == 16 and K == 14336)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,split", _W4A8_GEMV_CASES)
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_w4a8_gemv_stream_matches_plain(cuda, monkeypatch, g, M, N, K, split):
+    """K10 at M <= 16 (``tt_w4a8_gemv``, u8·s8 IMMA on the stream) against
+    its plain version: >= 80 dB in f32 (exact group partials, f32 sums in
+    another order), >= 35 dB in bf16, with bf16 and f32 scales; one kernel
+    and no other graph node per call, the same bits in two calls, the
+    tickets back at zero."""
+    from torchao_tpu_torch.kernels import w4a8_matmul as W
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    if split != "plan":
+        monkeypatch.setattr(W, "gemv_nsplit", lambda *a, ns={"one": 1, "three": 3}[split]: ns)
+    gen = torch.Generator(device=cuda).manual_seed(M + g + K)
+    x_q = torch.randint(-128, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+    x_s = (torch.rand((M,), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
+    wp = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device=cuda)
+    ws = torch.rand((K // g, N), generator=gen, device=cuda) * 0.05 + 0.01
+    for w_s in (ws.bfloat16(), ws):
+        for out_dtype, db in ((torch.float32, 80.0), (torch.bfloat16, 35.0)):
+            call = lambda: w4a8_dq_matmul(x_q, x_s, wp, w_s, group_size=g, out_dtype=out_dtype)
+            before = _build.LAUNCHES["w4a8_dq_matmul_gemv"]
+            got = call()
+            assert _build.LAUNCHES["w4a8_dq_matmul_gemv"] == before + 1
+            want = w4a8_dq_matmul_plain(x_q, x_s, wp, w_s, group_size=g, out_dtype=out_dtype)
+            _sqnr_ok(got, want, db, f"K10 gemv g={g} M={M} N={N} K={K} {split} {w_s.dtype} "
+                     f"-> {out_dtype}")
+            assert torch.equal(call(), got)
+    assert kernels_per_call(call) == (1, 1)
+    torch.cuda.synchronize()
+    assert _stream_tickets_are_zero(cuda)
+
+
+# K6 and K7's gemv in one launch: N = 4096 + 48 (a last block of 16 rows); K
+# = 1536 (three 512-k units) and 4096; the split the plan's or forced to three
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("K", [1536, 4096])
+@pytest.mark.parametrize("M", [1, 4, 17, 32])
+def test_int8_gemv_one_launch_matches_plain(cuda, monkeypatch, M, K, split):
+    """K6 (bf16 x) within 60 dB of its plain version (exact products, f32
+    sums in another order) and K7 (int8 x, bf16 scales) equal to it bit for
+    bit (int32 sums and int32 split partials), layer 1 of a stacked weight;
+    one launch of ``tt_qmm_gemv`` each, the tickets back at zero."""
+    from torchao_tpu_torch.kernels import _qmm
+
+    if split == "three":
+        monkeypatch.setattr(_qmm, "gemv1_nsplit", lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    L, N = 2, 4096 + 48
+    x, w8 = _qmm_operands(gen, L, M, N, K, torch.bfloat16, torch.int8, cuda)
+    ws = (torch.rand((L, N), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
+    xq, _ = _qmm_operands(gen, L, M, N, K, torch.int8, torch.int8, cuda)
+    xs = (torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001).bfloat16()
+    for name, call, plain in (
+            ("int8wo_mixed_matmul_gemv", lambda: int8wo_mixed_matmul(x, w8, ws, layer_idx=1),
+             lambda: int8wo_mixed_matmul_plain(x, w8, ws, layer_idx=1)),
+            ("int8_scaled_matmul_gemv", lambda: int8_scaled_matmul(xq, w8, xs, ws, layer_idx=1),
+             lambda: int8_scaled_matmul_plain(xq, w8, xs, ws, layer_idx=1))):
+        before = _build.LAUNCHES[name], _build.ENTRIES["tt_qmm_gemv"]
+        got = call()
+        assert (_build.LAUNCHES[name], _build.ENTRIES["tt_qmm_gemv"]) == (
+            before[0] + 1, before[1] + 1)
+        if name.startswith("int8_scaled"):
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain()), f"K7 gemv M={M} K={K} {split}"
+        else:
+            _sqnr_ok(got, plain(), 60.0, f"K6 gemv M={M} K={K} {split}")
+        assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_int8_and_p1_gemv_are_one_kernel_and_repeat_bit_for_bit(cuda):
+    """K6 and K7's gemv at M = 1 and 4 on w2's shape (their plan splits it)
+    and P1 at the probe's two shapes: a call is one kernel on the card and
+    nothing else (a CUDA graph captured around it), and two calls back to
+    back and two replays of a graph of one call give the same bits."""
+    from torchao_tpu_torch.kernels import _qmm
+    from torchao_tpu_torch.probes import manual_dma_probe as P
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    N, K, sms = 4096, 14336, _build.sm_count(0)
+    calls = []
+    for M in (1, 4):
+        assert _qmm.gemv1_nsplit(M, K, N, sms) > 1
+        x, w8 = _qmm_operands(gen, 1, M, N, K, torch.bfloat16, torch.int8, cuda)
+        xq, _ = _qmm_operands(gen, 1, M, N, K, torch.int8, torch.int8, cuda)
+        ws = (torch.rand((1, N), generator=gen, device=cuda) * 0.02 + 0.001).bfloat16()
+        xs = (torch.rand((M,), generator=gen, device=cuda) * 0.05 + 0.001).bfloat16()
+        calls += [lambda x=x, w8=w8, ws=ws: int8wo_mixed_matmul(x, w8, ws, layer_idx=0),
+                  lambda xq=xq, w8=w8, xs=xs, ws=ws: int8_scaled_matmul(xq, w8, xs, ws,
+                                                                      layer_idx=0)]
+    xp = (torch.randn((1, P.K), generator=gen, device=cuda) * 0.1).bfloat16()
+    for n in (P.N1, P.N2):
+        wp = torch.randint(-128, 128, (n, P.K), generator=gen, device=cuda).to(torch.int8)
+        calls.append(lambda wp=wp: P.manual_dma_std(xp, wp))
+        _finite_sqnr_ok(P.manual_dma_std(xp, wp), P.manual_dma_plain(xp, wp))
     for call in calls:
         first = call()
         assert torch.equal(call(), first)

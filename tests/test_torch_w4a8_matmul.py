@@ -5,6 +5,8 @@ and ``ops.linear``'s selection rule against the JAX package's; and the
 JAX ``test_kernel_vs_laqt_path`` case on the port."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +105,120 @@ def test_mma_ksplit_never_exceeds_the_groups():
     non-empty."""
     assert W.mma_ksplit(33, 256, 128, 128, SMS) == 1
     assert W.mma_ksplit(33, 512, 128, 64, SMS) == 4
+
+
+# K10's gemv (M <= 16) plan at M = 1 on 132 SMs: (wqkv, wo, w13, w2, head) by g
+GEMV_PLAN_M1 = {32: (5, 8, 1, 8, 1), 64: (5, 8, 1, 8, 1), 128: (4, 8, 1, 8, 1)}
+
+
+def _csrc_int(name):
+    text = (Path(W.__file__).resolve().parent.parent / "csrc" / "w4a8_matmul.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_gemv_constants_are_the_cuda_source():
+    """The gemv's block of packed rows and blocks an SM are the source's."""
+    assert _csrc_int("WS_BLOCK") == W.GEMV_BLOCK_ROWS
+    assert _csrc_int("WS_BLOCKS") == W.GEMV_BLOCKS_PER_SM
+    assert _csrc_int("WS_MAX_M") == W.GEMV_MAX_M
+
+
+def gemv_splits(K, g, nsplit):
+    """The packed rows ``[R0, R1)`` each split of K10's gemv takes, as
+    csrc/w4a8_matmul.cu's ``w4a8_stream_kernel`` computes them: groups
+    ``[y G / nsplit, (y + 1) G / nsplit)`` of the ``G = K/2 / g``."""
+    G = K // 2 // g
+    return [(y * G // nsplit * g, (y + 1) * G // nsplit * g) for y in range(nsplit)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("wname", list(LLAMA3_8B))
+def test_gemv_split_plan_at_llama3_8b_shapes(wname, g, M):
+    """K10's gemv K split on 132 SMs: every split holds whole groups and
+    whole 16-row blocks and tiles K/2 in order, each warp range of a split
+    (8 at M <= 8, 4 at M = 16) has a block where there is more than one
+    split, the split's staged x fits beside the rings in a block's shared
+    memory, and the strips' tickets fit the ticket buffer."""
+    from torchao_tpu_torch.kernels import _build
+    from torchao_tpu_torch.kernels.int4_matmul import STREAM_COLS, STREAM_X_BYTES, STREAM_WARPS
+
+    N, K = LLAMA3_8B[wname]
+    ns = W.gemv_nsplit(M, K, N, g, SMS)
+    if M == 1:
+        assert ns == GEMV_PLAN_M1[g][list(LLAMA3_8B).index(wname)]
+    splits = gemv_splits(K, g, ns)
+    assert splits[0][0] == 0 and splits[-1][1] == K // 2
+    ranges = STREAM_WARPS if M <= 8 else STREAM_WARPS // 2
+    for (r0, r1), (n0, _) in zip(splits, splits[1:] + [(K // 2, None)]):
+        assert r0 < r1 == n0 and r0 % g == 0 and r1 % g == 0 and (r1 - r0) % W.GEMV_BLOCK_ROWS == 0
+        blocks = (r1 - r0) // W.GEMV_BLOCK_ROWS
+        assert ns == 1 or blocks >= ranges
+        assert W.gemv_x_bytes(M, blocks) <= STREAM_X_BYTES
+    assert -(-N // STREAM_COLS) <= _build.STREAM_TICKETS
+
+
+def gemv_model(x_q, x_s, wp, ws, g, nsplit, mixed=False):
+    """K10's gemv arithmetic in the kernel's order, on the CPU (numpy): per
+    split, per warp range of 16-row blocks, each group's portion summed
+    exactly from the u8 nibbles (low: b & 0x0F, high: b & 0xF0, 16 times the
+    nibble) against the int8 x of its half, less 8 sum(x) (128 sum(x) for
+    the high half), folded into f32 as acc = fma(P_hi, s_hi / 16, fma(P_lo,
+    s_lo, acc)) (each fma rounded once to f32 from f64); the ranges, then
+    the splits, summed in order in f32, times x_s, in f32. ``mixed``: the
+    hazard the kernel avoids, both nibbles of a byte in ONE partial per
+    group, folded with the low half's scale."""
+    M, K = x_q.shape
+    Kp, N = wp.shape
+    nG, f32 = Kp // g, np.float32
+    lo = (wp & 0x0F).astype(np.int64)
+    hi16 = (wp & 0xF0).astype(np.int64)
+    xl, xh = x_q[:, :Kp].astype(np.int64), x_q[:, Kp:].astype(np.int64)
+    fma = lambda a, b, c: (a.astype(np.float64) * b.astype(np.float64) + c).astype(f32)
+    ranges = 8 if M <= 8 else 4
+    out = np.zeros((M, N), f32)
+    for r0, r1 in gemv_splits(K, g, nsplit):
+        nb = (r1 - r0) // 16
+        red = np.zeros((M, N), f32)
+        for rg in range(ranges):
+            first, last = rg * nb // ranges, (rg + 1) * nb // ranges
+            acc = np.zeros((M, N), f32)
+            b = first
+            while b < last:  # the warp's portion of one group: blocks [b, e)
+                gi = (r0 + 16 * b) // g
+                e = min(last, (gi + 1) * g // 16 - r0 // 16)
+                rows = slice(r0 + 16 * b, r0 + 16 * e)
+                p_lo = xl[:, rows] @ lo[rows] - 8 * xl[:, rows].sum(1, keepdims=True)
+                p_hi = xh[:, rows] @ hi16[rows] - 128 * xh[:, rows].sum(1, keepdims=True)
+                s_lo, s_hi = ws[gi].astype(f32), ws[gi + nG].astype(f32) * f32(0.0625)
+                if mixed:
+                    acc = fma((p_lo + p_hi).astype(f32), s_lo, acc)
+                else:
+                    acc = fma(p_hi.astype(f32), s_hi, fma(p_lo.astype(f32), s_lo, acc))
+                b = e
+            red = (red + acc).astype(f32)
+        out = (out + red).astype(f32)
+    return out * x_s.astype(f32)[:, None]
+
+
+@pytest.mark.parametrize("M,g,nsplit", [(1, 32, 3), (5, 64, 2), (16, 32, 1), (8, 128, 2),
+                                        (16, 64, 4)])
+def test_gemv_model_in_kernel_order_matches_jax_kernel(M, g, nsplit):
+    """The gemv's arithmetic in the kernel's order (``gemv_model``) against
+    the JAX kernel in interpret mode at a narrow width, within the f32 sums'
+    order; the same walk with both nibbles of a byte in one partial (the
+    mixed-group hazard: groups gi and gi + K/2g meet one scale) misses it by
+    far more."""
+    rs = np.random.RandomState(M + g + nsplit)
+    N, K = 256, 1024
+    x_q, x_s, wp, ws = _operands(rs, M, N, K, g)
+    x_q[0, :4] = -128  # the int8 minimum meets the u8 nibbles too
+    want = np.asarray(j_w4a8(*(jnp.asarray(a) for a in (x_q, x_s, wp, ws)), group_size=g,
+                             out_dtype=jnp.float32, bn=128, interpret=True))
+    got = gemv_model(x_q, x_s, wp, ws, g, nsplit)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    mixed = gemv_model(x_q, x_s, wp, ws, g, nsplit, mixed=True)
+    assert np.abs(mixed - want).max() > 100 * np.abs(got - want).max() + 1e-3
 
 
 def _8da4w_weight(rs, N=128, K=512, g=32, sym=True):

@@ -101,6 +101,18 @@ __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a . b (16 x 8 x 16, u8 A, s8 B, exact s32 accumulation). Fragments
+// (PTX ISA, mma.m16n8k16 with .u8 / .s8): lane (g, t) holds A's row g at k
+// 4t .. 4t + 3 in a0 and row g + 8 in a1 (four bytes a register), B's column
+// g at those k in b, C as mma_s8_16832's.
+__device__ __forceinline__ void mma_u8s8_16816(int c[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // ldmatrix: four 8 x 8 bf16 matrices from shared memory; lane l gives the
 // address of row l % 8 of matrix l / 8 (16 bytes), and register i receives
 // matrix i in the fragment layout above (.trans: each matrix transposed).

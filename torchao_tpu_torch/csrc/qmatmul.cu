@@ -31,18 +31,14 @@
 // alike. Llama-3-8B's int8/e4m3 linears stream 7.50 GB per forward (2.24 ms
 // at 3.35 TB/s); the M = 128 prefill's 1.92 TFLOP take 1.94 ms at the bf16
 // tensor-core peak (0.97 ms at the int8/fp8 one). Four bodies:
-//   - gemv (M <= 32; K6, K7, K9, P1: tt_qmm_gemv, tt_fp8_rowwise_gemv):
-//     SIMT, one warp per two weight rows, each lane 16 consecutive k per
-//     step, reading each weight byte once with 16-byte loads and keeping the
-//     converted weight in registers only; K is split over blockIdx.y until
-//     ~1000 blocks are in flight, partial sums go to a scratch buffer and a
-//     second pass sums them and applies the epilogue (one pass only when K
-//     is not split);
-//   - K8's gemv (M <= 32, tt_fp8_mixed_gemv): the same reading and
-//     arithmetic in one launch a call, four rows a warp, the K split (planned
-//     by kernels/_qmm.py::fp8_gemv_nsplit: two splits for wo and w2 at
-//     decode, none for wqkv and w13) merged by the last block's ticket;
-//     notes at the kernel;
+//   - the one-launch gemv (M <= 32; K6, K7: tt_qmm_gemv; K8:
+//     tt_fp8_mixed_gemv; P1: tt_manual_dma_std): SIMT, a lane 16 consecutive
+//     k of a row per 16-byte load (each load of a warp one 512-byte run),
+//     four rows a warp, the K split (planned by kernels/_qmm.py::
+//     gemv1_nsplit) merged by the last block's ticket; notes at the kernel;
+//   - K9's gemv (M <= 32, tt_fp8_rowwise_gemv): the same reading, two rows a
+//     warp, K split over blockIdx.y until ~1000 blocks are in flight and the
+//     splits summed by a second pass (qmm_reduce_kernel);
 //   - bf16 tensor cores (M > 32; K6 and K8 with bf16 x): bf16 mma.sync on
 //     the weight bytes converted in registers (qmm_mma_bf16_kernel,
 //     tt_qmm_mma_bf16);
@@ -107,18 +103,19 @@ constexpr int GV_RPW = 2;                             // weight rows per warp
 constexpr int GV_ROWS = GV_RPW * GV_THREADS / 32;     // 16 weight rows per block
 constexpr int CH = 16;                                // k per lane per step
 
-// grid: (ceil(N / 16), ksplit, ceil(M / MT)); block 256 threads (8 warps).
-// Split s covers 16-element chunks [s * nch / ksplit, (s + 1) * nch / ksplit).
-// ksplit == 1: the epilogue is applied here and `out` written; otherwise
-// raw sums go to work[s, M, N] and qmm_reduce_kernel finishes.
+// K9's gemv (tt_fp8_rowwise_gemv; K6, K7, K8 and P1 run the one-launch
+// form below). grid: (ceil(N / 16), ksplit, ceil(M / MT)); block 256
+// threads (8 warps). Split s covers 16-element chunks [s * nch / ksplit,
+// (s + 1) * nch / ksplit). ksplit == 1: the epilogue is applied here and
+// `out` written; otherwise raw sums go to work[s, M, N] and
+// qmm_reduce_kernel finishes.
 template <int KIND, int MT>
 __global__ void __launch_bounds__(GV_THREADS)
 qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
                 const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
-                int ws_kind, int ws_stride, typename Traits<KIND>::Acc* __restrict__ work,
+                int ws_kind, int ws_stride, float* __restrict__ work,
                 __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using Tr = Traits<KIND>;
-  using Acc = typename Tr::Acc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = blockIdx.x * GV_ROWS + warp * GV_RPW;
   const int m0 = blockIdx.z * MT;
@@ -126,11 +123,11 @@ qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   const int c0 = (int)(((long long)blockIdx.y * nch) / gridDim.y);
   const int c1 = (int)(((long long)(blockIdx.y + 1) * nch) / gridDim.y);
 
-  Acc acc[MT][GV_RPW];
+  float acc[MT][GV_RPW];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int r = 0; r < GV_RPW; ++r) acc[m][r] = 0;
+    for (int r = 0; r < GV_RPW; ++r) acc[m][r] = 0.f;
 
   for (int c = c0 + lane; c < c1; c += 32) {
     const int k = c * CH;
@@ -139,52 +136,28 @@ qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
     for (int r = 0; r < GV_RPW; ++r)
       wr[r] = n0 + r < N ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k))
                          : make_uint4(0, 0, 0, 0);
-    if constexpr (Tr::kIntAcc) {
+    float wf[GV_RPW][CH];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        const uint4 xq = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const int8_t*>(xv) + (size_t)(m0 + m) * K + k));
+    for (int r = 0; r < GV_RPW; ++r) {
+      const uint32_t* wd = reinterpret_cast<const uint32_t*>(&wr[r]);
 #pragma unroll
-        for (int r = 0; r < GV_RPW; ++r) {
-          int a = acc[m][r];
-          a = __dp4a((int)xq.x, (int)wr[r].x, a);
-          a = __dp4a((int)xq.y, (int)wr[r].y, a);
-          a = __dp4a((int)xq.z, (int)wr[r].z, a);
-          a = __dp4a((int)xq.w, (int)wr[r].w, a);
-          acc[m][r] = a;
-        }
-      }
-    } else {
-      float wf[GV_RPW][CH];
+      for (int q = 0; q < 4; ++q) bytes4_to_float<Tr::kWE4m3>(wd[q], wf[r] + 4 * q);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m0 + m >= M) break;
+      float xf[CH];
+      const uint4 xq = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const uint8_t*>(xv) + (size_t)(m0 + m) * K + k));
+      const uint32_t* xd = reinterpret_cast<const uint32_t*>(&xq);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bytes4_to_float<true>(xd[q], xf + 4 * q);
 #pragma unroll
       for (int r = 0; r < GV_RPW; ++r) {
-        const uint32_t* wd = reinterpret_cast<const uint32_t*>(&wr[r]);
+        float a = acc[m][r];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) bytes4_to_float<Tr::kWE4m3>(wd[q], wf[r] + 4 * q);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float xf[CH];
-        if constexpr (Tr::kXBf16) {
-          const __nv_bfloat16* xr = static_cast<const __nv_bfloat16*>(xv) + (size_t)(m0 + m) * K + k;
-          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr)), xf);
-          bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + 8)), xf + 8);
-        } else {
-          const uint4 xq = __ldg(reinterpret_cast<const uint4*>(
-              static_cast<const uint8_t*>(xv) + (size_t)(m0 + m) * K + k));
-          const uint32_t* xd = reinterpret_cast<const uint32_t*>(&xq);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) bytes4_to_float<true>(xd[q], xf + 4 * q);
-        }
-#pragma unroll
-        for (int r = 0; r < GV_RPW; ++r) {
-          float a = acc[m][r];
-#pragma unroll
-          for (int i = 0; i < CH; ++i) a = fmaf(xf[i], wf[r][i], a);
-          acc[m][r] = a;
-        }
+        for (int i = 0; i < CH; ++i) a = fmaf(xf[i], wf[r][i], a);
+        acc[m][r] = a;
       }
     }
   }
@@ -192,12 +165,7 @@ qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int r = 0; r < GV_RPW; ++r) {
-      Acc v = acc[m][r];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[m][r] = v;
-    }
+    for (int r = 0; r < GV_RPW; ++r) acc[m][r] = warp_sum(acc[m][r]);
   if (lane == 0) {
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -206,15 +174,12 @@ qmm_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
       for (int r = 0; r < GV_RPW; ++r) {
         const int n = n0 + r;
         if (n >= N) continue;
-        if (gridDim.y == 1) {
-          const float v = KIND == P1_BF16_I8
-                              ? (float)acc[m][r]
-                              : (float)acc[m][r] * load_scale(xs, xs_kind, m0 + m) *
-                                    load_scale(wsc, ws_kind, (long long)n * ws_stride);
-          out[(size_t)(m0 + m) * N + n] = __float2bfloat16(v);
-        } else {
+        if (gridDim.y == 1)
+          out[(size_t)(m0 + m) * N + n] = __float2bfloat16(
+              acc[m][r] * load_scale(xs, xs_kind, m0 + m) *
+              load_scale(wsc, ws_kind, (long long)n * ws_stride));
+        else
           work[((size_t)blockIdx.y * M + m0 + m) * N + n] = acc[m][r];
-        }
       }
     }
   }
@@ -237,51 +202,74 @@ __global__ void qmm_reduce_kernel(const Acc* __restrict__ work, const void* __re
   }
 }
 
-// --------------------------------------------- K8's gemv: one launch --
-// fp8_gemv_kernel<KIND, MT> (entry tt_fp8_mixed_gemv; K8 at M <= 32, kinds
-// 2 and 3: float8wo's and float8dq-row's decode) computes what
-// qmm_gemv_kernel does for those kinds, with the same arithmetic (the
-// hardware e4m3x2 -> f16x2 conversion, f32 FMAs, the epilogue acc * xs * ws
-// rounded once) and the same reading (a lane 16 consecutive k of a row per
-// 16-byte load, so each load of a warp is one 512-byte run of a row), in one
-// launch a call: a warp takes F8G_RPW rows, and the K split
-// (kernels/_qmm.py::fp8_gemv_nsplit) is merged in the launch. A split's f32
-// sums go to a per-shape workspace and the last split of a block's rows (an
-// atomic ticket per (row block, x block), reset by that block: no memset)
-// sums them in split order and writes out. No reduce pass and nothing
-// allocated per call; two calls give the same bits.
+// ------------------------------------------ the one-launch gemv (M <= 32) --
+// gemv1_kernel<KIND, MT> is the decode GEMV of K6 and K7 (entry
+// tt_qmm_gemv, kinds 0 and 1: int8wo's, int8wo-int8hm's, fp6's head B plane
+// and int8dq's decode), K8 (tt_fp8_mixed_gemv, kinds 2 and 3: float8wo's
+// and float8dq-row's) and P1 (tt_manual_dma_std: K6's body with the scale
+// dropped at compile time, to price the production launch structure). Bound
+// by the weight's bytes (N K of them: Llama-3-8B's decode step streams 7.5
+// GB, 2.24 ms at 3.35 TB/s). The reading: a lane takes 16 consecutive k of
+// a row per 16-byte load, so each load of a warp is one 512-byte run of a
+// row; a warp takes G1_RPW rows; x comes from L2, each lane its own 16 k.
+// The arithmetic per kind: K6 and P1 convert the int8 bytes and bf16 x to
+// f32 and sum by FMA; K8 converts e4m3 by the hardware e4m3x2 -> f16x2
+// conversion; K7 sums int8 x int8 in int32 by __dp4a, exactly. The epilogue
+// acc * xs * ws (K7: f32(acc) * xs * ws, the plain version's order; P1: acc)
+// is rounded once to bf16. One launch a call: the K split (planned by
+// kernels/_qmm.py::gemv1_nsplit) is merged in the launch. A split's sums
+// (f32, or K7's int32 in the f32 workspace's bits) go to a per-shape
+// workspace and the last split of a block's rows (an atomic ticket per (row
+// block, x block), reset by that block: no memset) sums them in split order
+// and writes out. No reduce pass and nothing allocated per call; two calls
+// give the same bits (K7's sum is exact in any order, so it equals its plain
+// version bit for bit).
 // Two measured departures from the design this form was first written to
-// (PERF.md §6): x staged once per block in shared memory by cp.async
+// for K8 (PERF.md §6): x staged once per block in shared memory by cp.async
 // read 2-3% slower per decode step than x read from L2 by each lane (its
 // wait opens every block), and keeping the next 1, 2, 3 or 7 steps' weight
 // loads in registers moved nothing against loading each step where it is
 // used: the card's other warps hide the latency.
-// grid: (ceil(N / F8G_ROWS), nsplit, ceil(M / MT)). Split y takes the
+// grid: (ceil(N / G1_ROWS), nsplit, ceil(M / MT)). Split y takes the
 // 16-k chunks [y C / nsplit, (y + 1) C / nsplit) of the C = K / 16; lane l
 // every 32nd of them.
-constexpr int F8G_RPW = 4;                            // weight rows per warp
-constexpr int F8G_ROWS = F8G_RPW * GV_THREADS / 32;   // 32 weight rows per block
-constexpr int F8G_BLOCKS = 2;                         // blocks an SM (the launch bounds)
-constexpr int F8G_MT = 4;                             // rows of x a block takes at M > 1
+constexpr int G1_RPW = 4;                             // weight rows per warp
+constexpr int G1_ROWS = G1_RPW * GV_THREADS / 32;     // 32 weight rows per block
+constexpr int G1_BLOCKS = 2;                          // blocks an SM (the launch bounds)
+constexpr int G1_MT = 4;                              // rows of x a block takes at M > 1
+
+// sum of 16 int8 products (four __dp4a) into a
+__device__ __forceinline__ int dot16_s8(const uint4& x, const uint4& w, int a) {
+  a = __dp4a((int)x.x, (int)w.x, a);
+  a = __dp4a((int)x.y, (int)w.y, a);
+  a = __dp4a((int)x.z, (int)w.z, a);
+  return __dp4a((int)x.w, (int)w.w, a);
+}
 
 template <int KIND, int MT>
-__global__ void __launch_bounds__(GV_THREADS, F8G_BLOCKS)
-fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
-                const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
-                int ws_kind, int ws_stride, float* __restrict__ work, int* __restrict__ tickets,
-                __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+__global__ void __launch_bounds__(GV_THREADS, G1_BLOCKS)
+gemv1_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
+             const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
+             int ws_kind, int ws_stride, void* __restrict__ work, int* __restrict__ tickets,
+             __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using Tr = Traits<KIND>;
-  constexpr int XB = Tr::kXBytes, RPW = F8G_RPW;
-  __shared__ float part[MT][F8G_ROWS];
+  using Acc = typename Tr::Acc;
+  constexpr int XB = Tr::kXBytes, RPW = G1_RPW;
+  __shared__ Acc part[MT][G1_ROWS];
   __shared__ int is_last;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nb = blockIdx.x * F8G_ROWS, n0 = nb + warp * RPW;
+  const int nb = blockIdx.x * G1_ROWS, n0 = nb + warp * RPW;
   const int m0 = blockIdx.z * MT, split = blockIdx.y, nsplit = gridDim.y;
   const int nch = K / CH;
   const int c0 = (int)((long long)split * nch / nsplit);
   const int c1 = (int)((long long)(split + 1) * nch / nsplit);
+  Acc* wk = static_cast<Acc*>(work);
 
-  // x row m at chunk c, as 16 floats
+  // x row m at chunk c: 16 raw bytes (K7), or 16 floats
+  auto x_raw = [&](int m, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(xv) + ((size_t)(m0 + m) * K + (size_t)c * CH) * XB));
+  };
   auto x_at = [&](int m, int c, float (&xf)[CH]) {
     const uint8_t* p =
         static_cast<const uint8_t*>(xv) + ((size_t)(m0 + m) * K + (size_t)c * CH) * XB;
@@ -295,11 +283,11 @@ fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
       for (int i = 0; i < 4; ++i) bytes4_to_float<true>(d[i], xf + 4 * i);
     }
   };
-  float acc[MT][RPW];
+  Acc acc[MT][RPW];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) acc[m][r] = 0.f;
+    for (int r = 0; r < RPW; ++r) acc[m][r] = 0;
   for (int c = c0 + lane; c < c1; c += 32) {
     uint4 wr[RPW];
 #pragma unroll
@@ -307,25 +295,35 @@ fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
       wr[r] = n0 + r < N
                   ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + (size_t)c * CH))
                   : make_uint4(0u, 0u, 0u, 0u);
-    float xf[CH];  // M = 1: row 0 of x, once for the RPW rows
-    if constexpr (MT == 1) x_at(0, c, xf);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      float wf[CH];
-      const uint32_t* d = &wr[r].x;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bytes4_to_float<true>(d[i], wf + 4 * i);
+    if constexpr (Tr::kIntAcc) {
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        if constexpr (MT == 1) {
+        if (m0 + m >= M) break;
+        const uint4 xq = x_raw(m, c);
 #pragma unroll
-          for (int i = 0; i < CH; ++i) acc[0][r] = fmaf(xf[i], wf[i], acc[0][r]);
-        } else {
-          if (m0 + m >= M) break;
-          float xm[CH];
-          x_at(m, c, xm);
+        for (int r = 0; r < RPW; ++r) acc[m][r] = dot16_s8(xq, wr[r], acc[m][r]);
+      }
+    } else {
+      float xf[CH];  // M = 1: row 0 of x, once for the RPW rows
+      if constexpr (MT == 1) x_at(0, c, xf);
 #pragma unroll
-          for (int i = 0; i < CH; ++i) acc[m][r] = fmaf(xm[i], wf[i], acc[m][r]);
+      for (int r = 0; r < RPW; ++r) {
+        float wf[CH];
+        const uint32_t* d = &wr[r].x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) bytes4_to_float<Tr::kWE4m3>(d[i], wf + 4 * i);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if constexpr (MT == 1) {
+#pragma unroll
+            for (int i = 0; i < CH; ++i) acc[0][r] = fmaf(xf[i], wf[i], acc[0][r]);
+          } else {
+            if (m0 + m >= M) break;
+            float xm[CH];
+            x_at(m, c, xm);
+#pragma unroll
+            for (int i = 0; i < CH; ++i) acc[m][r] = fmaf(xm[i], wf[i], acc[m][r]);
+          }
         }
       }
     }
@@ -335,22 +333,27 @@ fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
-      const float v = warp_sum(acc[m][r]);
+      Acc v = acc[m][r];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
       if (lane == 0) part[m][warp * RPW + r] = v;
     }
   __syncthreads();
-  // thread t < MT * F8G_ROWS: row m = t / F8G_ROWS of x, weight row nb + t % F8G_ROWS
-  const int m = tid / F8G_ROWS, n = nb + tid % F8G_ROWS;
-  const bool mine = tid < MT * F8G_ROWS && m0 + m < M && n < N;
-  auto store = [&](float v) {
-    out[(size_t)(m0 + m) * N + n] = __float2bfloat16(
-        v * load_scale(xs, xs_kind, m0 + m) * load_scale(wsc, ws_kind, (long long)n * ws_stride));
+  // thread t < MT * G1_ROWS: row m = t / G1_ROWS of x, weight row nb + t % G1_ROWS
+  const int m = tid / G1_ROWS, n = nb + tid % G1_ROWS;
+  const bool mine = tid < MT * G1_ROWS && m0 + m < M && n < N;
+  auto store = [&](Acc v) {
+    const float f = KIND == P1_BF16_I8
+                        ? (float)v
+                        : (float)v * load_scale(xs, xs_kind, m0 + m) *
+                              load_scale(wsc, ws_kind, (long long)n * ws_stride);
+    out[(size_t)(m0 + m) * N + n] = __float2bfloat16(f);
   };
   if (nsplit == 1) {
-    if (mine) store(part[m][tid % F8G_ROWS]);
+    if (mine) store(part[m][tid % G1_ROWS]);
     return;
   }
-  if (mine) work[((size_t)split * M + m0 + m) * N + n] = part[m][tid % F8G_ROWS];
+  if (mine) wk[((size_t)split * M + m0 + m) * N + n] = part[m][tid % G1_ROWS];
   const int strip = blockIdx.z * gridDim.x + blockIdx.x;
   __threadfence();
   __syncthreads();
@@ -360,8 +363,8 @@ fp8_gemv_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
   if (tid == 0) tickets[strip] = 0;  // ready for the next launch
   __threadfence();
   if (mine) {
-    float v = 0.f;
-    for (int s = 0; s < nsplit; ++s) v += __ldcg(work + ((size_t)s * M + m0 + m) * N + n);
+    Acc v = 0;
+    for (int s = 0; s < nsplit; ++s) v += __ldcg(wk + ((size_t)s * M + m0 + m) * N + n);
     store(v);
   }
 }
@@ -732,87 +735,91 @@ int launch_mma(Kernel kernel, int smem, bool& configured, const void* x, const v
   return cudaGetLastError();
 }
 
-template <int KIND>
-int launch_gemv(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
-                int ws_kind, int ws_stride, void* work, void* out, int M, int K, int N, int ksplit,
-                cudaStream_t st) {
-  using Acc = typename Traits<KIND>::Acc;
+// K9's gemv and, where K is split, its reduce pass
+int launch_rowwise_gemv(const void* x, const void* w, const void* xs, const void* ws, void* work,
+                        void* out, int M, int K, int N, int ksplit, cudaStream_t st) {
   const int mt = M == 1 ? 1 : 4;
   dim3 grid((N + GV_ROWS - 1) / GV_ROWS, ksplit, (M + mt - 1) / mt);
   auto w8 = static_cast<const uint8_t*>(w);
-  auto wk = static_cast<Acc*>(work);
+  auto wk = static_cast<float*>(work);
   auto o = static_cast<__nv_bfloat16*>(out);
   if (mt == 1)
-    qmm_gemv_kernel<KIND, 1><<<grid, GV_THREADS, 0, st>>>(x, w8, xs, xs_kind, ws, ws_kind,
-                                                          ws_stride, wk, o, M, K, N);
+    qmm_gemv_kernel<K9_E4M3_ROW, 1><<<grid, GV_THREADS, 0, st>>>(x, w8, xs, 2, ws, 2, 1, wk, o,
+                                                                 M, K, N);
   else
-    qmm_gemv_kernel<KIND, 4><<<grid, GV_THREADS, 0, st>>>(x, w8, xs, xs_kind, ws, ws_kind,
-                                                          ws_stride, wk, o, M, K, N);
+    qmm_gemv_kernel<K9_E4M3_ROW, 4><<<grid, GV_THREADS, 0, st>>>(x, w8, xs, 2, ws, 2, 1, wk, o,
+                                                                 M, K, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || ksplit == 1) return err;
   const long long MN = (long long)M * N;
   const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  qmm_reduce_kernel<Acc><<<blocks, 256, 0, st>>>(wk, xs, xs_kind, ws, ws_kind, ws_stride, o,
-                                                 ksplit, M, N);
+  qmm_reduce_kernel<float><<<blocks, 256, 0, st>>>(wk, xs, 2, ws, 2, 1, o, ksplit, M, N);
   return cudaGetLastError();
 }
 
 template <int KIND, int MT>
-int launch_fp8_gemv(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
+int launch_gemv1_mt(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
                     int ws_kind, int ws_stride, void* work, void* tickets, void* out, int M,
                     int K, int N, int nsplit, cudaStream_t st) {
-  dim3 grid((N + F8G_ROWS - 1) / F8G_ROWS, nsplit, (M + MT - 1) / MT);
-  fp8_gemv_kernel<KIND, MT><<<grid, GV_THREADS, 0, st>>>(
-      x, static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind, ws_stride,
-      static_cast<float*>(work), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
-      K, N);
+  dim3 grid((N + G1_ROWS - 1) / G1_ROWS, nsplit, (M + MT - 1) / MT);
+  gemv1_kernel<KIND, MT><<<grid, GV_THREADS, 0, st>>>(
+      x, static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind, ws_stride, work,
+      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M, K, N);
   return cudaGetLastError();
+}
+
+template <int KIND>
+int launch_gemv1(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
+                 int ws_kind, int ws_stride, void* work, void* tickets, void* out, int M, int K,
+                 int N, int nsplit, cudaStream_t st) {
+  if (M < 1 || M > 32 || K % K_UNIT || nsplit < 1 || nsplit > K / CH || !tickets ||
+      (nsplit > 1 && !work))
+    return cudaErrorInvalidValue;
+  return M == 1 ? launch_gemv1_mt<KIND, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work,
+                                           tickets, out, M, K, N, nsplit, st)
+                : launch_gemv1_mt<KIND, G1_MT>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work,
+                                               tickets, out, M, K, N, nsplit, st);
 }
 
 }  // namespace
 
-// kind: 0 = K6 (bf16 x, int8 w), 1 = K7 (int8 x, int8 w); K8's gemv is
-// tt_fp8_mixed_gemv. x [M, K]; w [N, K] (layer already offset by the caller);
-// xs [M] and ws [N] (or [1] with ws_stride 0) of kind 0/1/2; work [ksplit, M,
-// N] f32 (int32 for K7) scratch when ksplit > 1; out [M, N] bf16. K % 32 ==
-// 0, x and w 16-byte aligned.
+// The one-launch gemv (M <= 32): kind 0 = K6 (bf16 x, int8 w), 1 = K7 (int8
+// x, int8 w). x [M, K]; w [N, K] (layer already offset by the caller); xs
+// [M] and ws [N] (or [1] with ws_stride 0) of kind 0/1/2; work [nsplit, M,
+// N] f32 (K7: int32 in its bits; null when nsplit == 1); tickets: int32, one
+// per (32-row block, x block of 4 rows), zero (and left zero); out [M, N]
+// bf16. K % 32 == 0, 1 <= nsplit <= K / 16, x and w 16-byte aligned.
 TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs, int xs_kind,
-                          const void* ws, int ws_kind, int ws_stride, void* work, void* out,
-                          int M, int K, int N, int ksplit, void* stream) {
+                          const void* ws, int ws_kind, int ws_stride, void* work, void* tickets,
+                          void* out, int M, int K, int N, int nsplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
   switch (kind) {
-    case K6_BF16_I8: return launch_gemv<K6_BF16_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
-    case K7_I8_I8: return launch_gemv<K7_I8_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, out, M, K, N, ksplit, st);
+    case K6_BF16_I8:
+      return launch_gemv1<K6_BF16_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                      out, M, K, N, nsplit, st);
+    case K7_I8_I8:
+      return launch_gemv1<K7_I8_I8>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                    out, M, K, N, nsplit, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// K8's gemv in one launch: kind 2 (bf16 x) or 3 (e4m3 x); x [M, K], M <= 32;
-// w [N, K] e4m3 (layer already offset by the caller); xs [M] and ws [N] (or
-// [1] with ws_stride 0) of kind 0/1/2; work [nsplit, M, N] f32 (null when
-// nsplit == 1); tickets: int32, one per (32-row block, x block of 4 rows),
-// zero (and left zero); out [M, N] bf16. K % 32 == 0, 1 <= nsplit <= K / 16,
-// x and w 16-byte aligned.
+// K8's gemv, the same kernel and arguments: kind 2 (bf16 x) or 3 (e4m3 x),
+// w e4m3.
 TT_EXPORT int tt_fp8_mixed_gemv(int kind, const void* x, const void* w, const void* xs,
                                 int xs_kind, const void* ws, int ws_kind, int ws_stride,
                                 void* work, void* tickets, void* out, int M, int K, int N,
                                 int nsplit, void* stream) {
-  if ((kind != K8_BF16_E4M3 && kind != K8_E4M3_E4M3) || M < 1 || M > 32 || K % K_UNIT ||
-      nsplit < 1 || nsplit > K / CH || !tickets || (nsplit > 1 && !work))
-    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == K8_BF16_E4M3)
-    return M == 1 ? launch_fp8_gemv<K8_BF16_E4M3, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
-                                                     work, tickets, out, M, K, N, nsplit, st)
-                  : launch_fp8_gemv<K8_BF16_E4M3, F8G_MT>(x, w, xs, xs_kind, ws, ws_kind,
-                                                          ws_stride, work, tickets, out, M, K,
-                                                          N, nsplit, st);
-  return M == 1 ? launch_fp8_gemv<K8_E4M3_E4M3, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
-                                                   work, tickets, out, M, K, N, nsplit, st)
-                : launch_fp8_gemv<K8_E4M3_E4M3, F8G_MT>(x, w, xs, xs_kind, ws, ws_kind,
-                                                        ws_stride, work, tickets, out, M, K, N,
-                                                        nsplit, st);
+  switch (kind) {
+    case K8_BF16_E4M3:
+      return launch_gemv1<K8_BF16_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                        out, M, K, N, nsplit, st);
+    case K8_E4M3_E4M3:
+      return launch_gemv1<K8_E4M3_E4M3>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                        out, M, K, N, nsplit, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The tensor-core kernels (M > 32), with the arguments of tt_qmm_gemv: kind
@@ -862,13 +869,12 @@ TT_EXPORT int tt_qmm_mma_s8(int kind, const void* x, const void* w, const void* 
                                  M, K, N, ksplit, static_cast<cudaStream_t>(stream));
 }
 
-// P1: x [M, K] bf16; w [N, K] int8; no scale (the reduce pass multiplies by
-// kind-0 scales, 1); work [ksplit, M, N] f32 when ksplit > 1; out [M, N] bf16.
-TT_EXPORT int tt_manual_dma_std(const void* x, const void* w, void* work, void* out, int M, int K,
-                                int N, int ksplit, void* stream) {
-  if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
-  return launch_gemv<P1_BF16_I8>(x, w, nullptr, 0, nullptr, 0, 0, work, out, M, K, N, ksplit,
-                                 static_cast<cudaStream_t>(stream));
+// P1: x [M, K] bf16; w [N, K] int8; no scale; work [nsplit, M, N] f32
+// (null when nsplit == 1) and tickets as tt_qmm_gemv's; out [M, N] bf16.
+TT_EXPORT int tt_manual_dma_std(const void* x, const void* w, void* work, void* tickets,
+                                void* out, int M, int K, int N, int nsplit, void* stream) {
+  return launch_gemv1<P1_BF16_I8>(x, w, nullptr, 0, nullptr, 0, 0, work, tickets, out, M, K, N,
+                                  nsplit, static_cast<cudaStream_t>(stream));
 }
 
 // K9. x [M, K] e4m3; w [N, K] e4m3; xs [M] and ws [N] f32; work [ksplit, M, N]
@@ -878,6 +884,6 @@ TT_EXPORT int tt_fp8_rowwise_gemv(const void* x, const void* w, const void* xs, 
                                   void* work, void* out, int M, int K, int N, int ksplit,
                                   void* stream) {
   if (K % K_UNIT || ksplit < 1) return cudaErrorInvalidValue;
-  return launch_gemv<K9_E4M3_ROW>(x, w, xs, 2, ws, 2, 1, work, out, M, K, N, ksplit,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_rowwise_gemv(x, w, xs, ws, work, out, M, K, N, ksplit,
+                             static_cast<cudaStream_t>(stream));
 }

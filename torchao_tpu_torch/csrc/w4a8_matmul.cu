@@ -21,18 +21,18 @@
 // 3.35 TB/s), at decode and at a 128-token prefill alike (there its 1.92
 // TOP take 0.97 ms at the 1,979 TOP/s int8 peak, its 4.2 GB of packed
 // weight and scales 1.26 ms). Three bodies:
-//   - gemv (M <= 16; tt_w4a8_gemv): a block owns 128 columns; a thread 8 of
-//     them (one 8-byte load per packed row) and whole groups of K, split over
-//     blockIdx.y, with a second pass that sums the splits (as K1's gemv).
-//     Four packed rows are transposed in registers (__byte_perm) into one
-//     word of four k per column, so that each column's low and high nibbles
-//     meet the activations in one __dp4a each; the nibble offset is applied
-//     once per group as 8 * sum(x).
+//   - gemv (M <= 16; tt_w4a8_gemv), g % 16 == 0: the tensor-core weight
+//     stream of weight_stream.cuh, u8 x s8 IMMA mma.sync on the raw nibbles,
+//     one int32 partial per group and half, the offset removed once a group
+//     as 8 sum(x), the K split merged by the last block's ticket: one launch
+//     a call; notes at the kernel. Other g (4, 8, 12, ...) run the SIMT
+//     tile's kernel below in one launch.
 //   - tensor cores (M > 16, g in {32, 64, 128}; tt_w4a8_mma): s8 IMMA
 //     mma.sync on the nibbles made signed in registers, 128 x 128 outputs
 //     per block, a cp.async ring, a K split in whole groups; notes at the
 //     kernel.
-//   - tiled SIMT (M > 16, the other g: 4, 8, 16; tt_w4a8_tiled): 64 x 64
+//   - tiled SIMT (M > 16, the other g: 4, 8, 16; tt_w4a8_tiled; and the
+//     gemv's g % 16 != 0): 64 x 64
 //     outputs per block, 16 packed rows (32 k) per step, the nibbles made
 //     signed (q - 8) on their way into shared memory, int32 partials per
 //     thread flushed into the f32 sum at each group end, __dp4a.
@@ -40,6 +40,7 @@
 // (g % 16 == 0 runs the SIMT tile in steps of 16 rows, else of 4), so a step
 // never crosses a group. The N edge is masked (N % 8 == 0).
 #include "common.cuh"
+#include "weight_stream.cuh"
 
 namespace {
 
@@ -66,112 +67,271 @@ __device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2
 }
 
 // ---------------------------------------------------------------- gemv --
-constexpr int GV_THREADS = 256;
-constexpr int GV_COLS = 8;                          // columns per thread
-constexpr int GV_CHUNKS = 16;                       // column chunks per block
-constexpr int GV_TN = GV_COLS * GV_CHUNKS;          // 128 columns per block
-constexpr int GV_LANES = GV_THREADS / GV_CHUNKS;    // 16 group lanes
-constexpr int RUN = 4;                              // packed rows per __dp4a
+// w4a8_stream_kernel<MR, VEC> (entry tt_w4a8_gemv; M <= 16, g % 16 == 0)
+// runs on the weight stream of weight_stream.cuh: 8 warps and 128 columns
+// a block, each lane's own 16-byte loads of its next PREFETCH steps kept in
+// registers (StepRing), the K split merged by the last block's ticket. What
+// is K10's own:
+//   - Integer tensor cores, mma.sync.m16n8k16 .s32.u8.s8.s32: the weight's
+//     nibbles are operand A as u8 (16 rows = 16 output columns, K1's
+//     columns: mma j takes a lane's columns 2j (A row gq) and 2j + 1 (row gq
+//     + 8)), x is operand B as s8 (8 columns; a warp takes one n-tile, at M
+//     > 8 the warps are 2 n-tiles x 4 ranges of the split, as K14's). Each
+//     sum is exact int32. At M <= 4 B's column n is row n % MR of x (MR =
+//     2 or 4), so 8 / MR lanes hold each output and fold a share each.
+//   - The lane map: a u8 A register is four k of ONE output column, so it
+//     takes four packed rows of one half. An mma block is 16 packed rows,
+//     two of K1's steps: lane (gq, tq) loads rows tq and tq + 4 of each
+//     (16 columns a row, two 16-byte loads a step, K1's loads), so it holds
+//     rows tq + 4i (i = 0..3) of the block, and k 4 tq + i of the mma is
+//     packed row tq + 4i. Four 4-byte words of those rows (4 columns each)
+//     are transposed in registers (transpose4: 8 PRMT) into four column
+//     words, and one LOP3 each makes the low half's A (& 0x0F0F0F0F, the
+//     nibble) and the high half's (& 0xF0F0F0F0, 16 times the nibble): no
+//     other decode. x is staged in shared memory in the same k order, a
+//     (lo, hi) word pair per (row of x, block, tq).
+//   - Mixed groups: the two nibbles of a byte lie in groups gi and gi +
+//     K/2g, with different scales, so each half has its own int32 partials
+//     (C_lo, C_hi: 64 registers a lane); a group is whole blocks (g % 16 ==
+//     0), so a block never mixes two groups of one half.
+//   - The fold, once a warp leaves a group: P = C_lo - 8 sum(x) and P_hi =
+//     C_hi - 128 sum(x) (sum(x) over the rows the warp took of the group,
+//     from per-block sums staged with x) are exact, become f32 exactly (P_hi
+//     is 16 times a partial below 2^24) and meet their scales, acc += P s_lo
+//     + P_hi (s_hi / 16), in f32 in a fixed order; the running sums live in
+//     shared memory in fragment order, as K14's. A lane folds only its share
+//     of the mmas (all 8 at MR >= 8, 2 at MR = 2): at M = 1 the fold's work
+//     is a quarter of the fragment's. A group whose rows two warps share
+//     folds in two parts. xs[m] is applied once, in the merge, with one
+//     rounding to the output type.
+//   - The group scales (bf16 or f32) come through a per-warp cp.async ring
+//     of two slots (the group being summed and the next), K14's.
+//   - Measured departures (PERF.md §6), each against the SIMT gemv it
+//     replaces in one call, a decode step of Llama-3-8B shapes: StepRing's
+//     form 2% faster; a register ring turned by unrolling (no moves, two
+//     16-row blocks in flight) 3% slower; four blocks in flight at one block
+//     an SM (182 registers) 21% slower; three at two blocks an SM (spills)
+//     16% slower; a block of eight strips, each warp one strip over its
+//     whole split (K split over blocks only), 12% slower (the head as fast,
+//     the small shapes lost to merging up to 64 splits).
+// No partial K block: the splits walk whole groups (kernels/w4a8_matmul.py::
+// gemv_nsplit), a group whole blocks; the N edge is masked per 8 columns
+// (VEC = 8: N % 16 == 8, whose packed rows are only 8-byte aligned, loaded
+// 8 bytes at a time). Other g (4, 8, 12, ...) run the SIMT tile below.
+constexpr int WS_BLOCK = 16;                        // packed rows an mma block takes
+constexpr int WS_QSLOT = 2 * wstream::COLS * 4;     // a group's s_lo, s_hi rows, f32 at most
+constexpr int WS_QSLOTS = 2;                        // a warp's ring: the group it sums and the next
+constexpr int WS_QRING = wstream::WARPS * WS_QSLOTS * WS_QSLOT;  // 16 KB
+constexpr int WS_ACC = wstream::WARPS * 8 * 32 * 16;             // the running sums: 32 KB
+constexpr int WS_BLOCKS = 2;                        // blocks an SM (the launch bounds)
+constexpr int WS_MAX_M = 16;
 
-// grid: (ceil(N / 128), ksplit, ceil(M / MT)). Thread (lane, chunk) takes
-// columns n0..n0+7 and every 16th group of its split (groups of the low
-// half: group gi covers packed rows [gi g, (gi + 1) g), its high-half twin
-// is group gi + K/2g). ksplit == 1 writes out; otherwise work[s, M, N].
-template <int MT>
-__global__ void __launch_bounds__(GV_THREADS)
-w4a8_gemv_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
-                 const void* __restrict__ xs, int xs_kind, const void* __restrict__ ws,
-                 int ws_kind, float* __restrict__ work, void* __restrict__ out, int out_f32,
-                 int M, int K, int N, int g) {
-  const int Kp = K / 2, ng = Kp / g;
-  const int chunk = threadIdx.x % GV_CHUNKS, lane = threadIdx.x / GV_CHUNKS;
-  const int n0 = blockIdx.x * GV_TN + chunk * GV_COLS;
-  const int m0 = blockIdx.z * MT;
-  const int g0 = (int)(((long long)blockIdx.y * ng) / gridDim.y);
-  const int g1 = (int)(((long long)(blockIdx.y + 1) * ng) / gridDim.y);
+// x words a row of x: 8 per block, padded to 8 mod 32 (the B loads, 8 bytes
+// a lane, meet no bank conflict)
+__host__ __device__ constexpr int ws_xst(int blocks) { return (blocks * 8 + 23) / 32 * 32 + 8; }
 
-  float acc[MT][GV_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_COLS; ++c) acc[m][c] = 0.f;
+// grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes groups [y G /
+// nsplit, (y + 1) G / nsplit) of the G = K/2 / g; warp w takes n-tile w % NT
+// and range w / NT of the split's blocks (8 / NT contiguous ranges). work
+// ([nsplit, M, N] f32) and the tickets (one per strip, zero) as in
+// wstream::merge_with. MR: the rows of x the instance takes, 2, 4, 8 (one
+// n-tile) or 16 (two); B's column n is row n % MR of x, so at MR < 8 every
+// C element is held by 8 / MR lanes, and each folds only its share (j = s
+// REP + q below): the fold's work falls with M, as the useful outputs do.
+template <int MR, int VEC>
+__global__ void __launch_bounds__(wstream::THREADS, WS_BLOCKS)
+w4a8_stream_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+                   const void* __restrict__ xs, int xs_kind, const void* __restrict__ ws,
+                   int ws_kind, float* __restrict__ work, int* __restrict__ tickets,
+                   void* __restrict__ out, int out_f32, int M, int K, int N, int g) {
+  constexpr int COLS = wstream::COLS;
+  constexpr int NT = MR > 8 ? 2 : 1, RANGES = wstream::WARPS / NT;
+  constexpr int MR8 = MR > 8 ? 8 : MR;   // rows of x an n-tile holds
+  constexpr int REP = 8 / MR8, NJ = 8 / REP;  // lanes holding an element; mmas a lane folds
+  extern __shared__ __align__(16) uint8_t w4s_smem[];
+  const int Kp = K / 2, nG = Kp / g;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gq = lane / 4, tq = lane % 4;
+  const int nt = warp % NT, range = warp / NT;
+  const int q = tq / (MR8 / 2);  // this lane's share of the mmas: j = s REP + q
+  const int G0 = (int)((long long)blockIdx.y * nG / gridDim.y);
+  const int G1 = (int)((long long)(blockIdx.y + 1) * nG / gridDim.y);
+  const int R0 = G0 * g, nb = (G1 - G0) * g / WS_BLOCK;  // the split's first row, its blocks
+  const int xst = ws_xst(nb), Mp = M + (M & 1);
+  float4* acc = reinterpret_cast<float4*>(w4s_smem) + warp * 8 * 32;  // [s][lane]
+  uint8_t* ring = w4s_smem + WS_ACC + warp * WS_QSLOTS * WS_QSLOT;
+  uint32_t* xw = reinterpret_cast<uint32_t*>(w4s_smem + WS_ACC + WS_QRING);  // [m][block][tq][h]
+  int* xsum = reinterpret_cast<int*>(xw + M * xst);      // [block][m < Mp][h]: x-sums
+  float* red = reinterpret_cast<float*>(w4s_smem);       // [range][m][COLS], in acc's bytes
+  const int first = (int)((long long)range * nb / RANGES);
+  const int last = (int)((long long)(range + 1) * nb / RANGES);
+  const int col = blockIdx.x * COLS + 16 * gq;
+  const bool ok0 = col < N, ok8 = col + 8 < N;
+  const int sb = ws_kind == 1 ? 2 : 4;  // bytes a scale
+  const uint8_t* wrow = wp + (size_t)(R0 + tq) * N + col;  // packed row R0 + tq, the lane's columns
 
-  if (n0 < N) {
-    for (int gi = g0 + lane; gi < g1; gi += GV_LANES) {
-      int plo[MT][GV_COLS], phi[MT][GV_COLS], sxl[MT], sxh[MT];
+  // 16 bytes at p (zero where !live or past N)
+  auto ld = [&](const uint8_t* p, bool live, uint4& v) {
+    if constexpr (VEC == 16) {
+      v = live && ok0 ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      const uint2 a = live && ok0 ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+      const uint2 b =
+          live && ok8 ? __ldg(reinterpret_cast<const uint2*>(p + 8)) : make_uint2(0u, 0u);
+      v = make_uint4(a.x, a.y, b.x, b.y);
+    }
+  };
+  // K1's step st of the split (8 rows): rows tq and tq + 4, into registers
+  auto load = [&](int st, uint4& a, uint4& b) {
+    const uint8_t* p = wrow + (size_t)st * wstream::STEP_ROWS * N;
+    const bool live = st < 2 * last;
+    ld(p, live, a);
+    ld(p + 4 * (size_t)N, live, b);
+  };
+  // Group gi's s_lo (row gi) and s_hi (row gi + nG): lane tq copies row tq /
+  // 2 at columns 8 (tq % 2) .. + 7 of its 16, into slot gi % 2, where the
+  // warp's range reaches gi; one commit either way.
+  auto issue_q = [&](int gi) {
+    if (gi * g < R0 + last * WS_BLOCK) {
+      const int c = col + 8 * (tq % 2);
+      const bool okc = c < N;
+      const size_t row = (size_t)gi + (size_t)(tq / 2) * nG;
+      const uint8_t* w8 = static_cast<const uint8_t*>(ws);
+      const uint8_t* src = w8 + (row * N + c) * sb;
+      uint8_t* dst = ring + (gi % 2) * WS_QSLOT + ((tq / 2) * COLS + 16 * gq + 8 * (tq % 2)) * sb;
+      cp_async<16>(dst, okc ? src : w8, okc);
+      if (sb == 4) cp_async<16>(dst + 16, okc ? src + 16 : w8, okc);
+    }
+    cp_async_commit();
+  };
+
+  wstream::StepRing<wstream::PREFETCH> wring;
+  if (first < last) {
+    wring.fill(load, 2 * first);
+    issue_q((R0 + first * WS_BLOCK) / g);
+    issue_q((R0 + first * WS_BLOCK) / g + 1);
+  }
+  // x (and 0 for the rows of x past M) in the mma's k order, and each block's x-sums
+  for (int i = threadIdx.x; i < Mp * nb * 2; i += wstream::THREADS) {
+    const int m = i / (2 * nb), b = (i / 2) % nb, h = i % 2;
+    const uint4 v = m < M ? __ldg(reinterpret_cast<const uint4*>(
+                                x + (size_t)m * K + h * Kp + R0 + b * WS_BLOCK))
+                          : make_uint4(0u, 0u, 0u, 0u);
+    uint32_t t[4];  // t[q]: rows q, q + 4, q + 8, q + 12 of the block
+    transpose4(v.x, v.y, v.z, v.w, t);
+    if (m < M)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        sxl[m] = sxh[m] = 0;
+      for (int k = 0; k < 4; ++k) xw[m * xst + b * 8 + 2 * k + h] = t[k];
+    xsum[(b * Mp + m) * 2 + h] = __dp4a((int)v.w, 0x01010101, __dp4a((int)v.z, 0x01010101,
+                                 __dp4a((int)v.y, 0x01010101, __dp4a((int)v.x, 0x01010101, 0))));
+  }
 #pragma unroll
-        for (int c = 0; c < GV_COLS; ++c) plo[m][c] = phi[m][c] = 0;
+  for (int s = 0; s < NJ; ++s) acc[s * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  int clo[8][4], chi[8][4];  // the group's int32 partials of the low and high halves
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) clo[j][e] = chi[j][e] = 0;
+  const int brow = nt * 8 + gq % MR8;         // this lane's row of x in B
+  const int r0 = nt * 8 + (2 * tq) % MR8;     // the rows of x of its C elements: r0, r0 + 1
+  // element e of mma s REP + q (the lane's share s), picked by q
+  auto pick = [&](const int (&c)[8][4], int s, int e) {
+    int v = c[s * REP][e];
+#pragma unroll
+    for (int r = 1; r < REP; ++r)
+      if (q == r) v = c[s * REP + r][e];
+    return v;
+  };
+
+  // The warp leaves group gi, whose rows it took in blocks [b0, b1]: for
+  // the lane's share, acc += P_lo s_lo + P_hi s_hi per column; the partials
+  // restart; the slot takes group gi + 2.
+  auto fold = [&](int gi, int b0, int b1) {
+    int sx[4] = {0, 0, 0, 0};  // (lo, hi) x-sums of rows r0, r0 + 1
+    if (r0 < Mp)
+      for (int b = b0; b <= b1; ++b) {
+        const int4 v = *reinterpret_cast<const int4*>(xsum + (b * Mp + r0) * 2);
+        sx[0] += v.x; sx[1] += v.y; sx[2] += v.z; sx[3] += v.w;
       }
-      for (int kp = gi * g; kp < (gi + 1) * g; kp += RUN) {
-        uint2 w[RUN];
+    const int bl0 = -8 * sx[0], bh0 = -128 * sx[1], bl1 = -8 * sx[2], bh1 = -128 * sx[3];
+    auto tof = [](int c, int b) { return (float)(c + b); };  // exact: 16 P, |P| < 2^24
+    cp_async_wait<1>();  // group gi + 1's copies may still be in flight
+    __syncwarp();
+    const uint8_t* slot = ring + (gi % 2) * WS_QSLOT;
 #pragma unroll
-        for (int i = 0; i < RUN; ++i)
-          w[i] = __ldg(reinterpret_cast<const uint2*>(wp + (size_t)(kp + i) * N + n0));
-        uint32_t col[GV_COLS];
-        transpose4(w[0].x, w[1].x, w[2].x, w[3].x, col);
-        transpose4(w[0].y, w[1].y, w[2].y, w[3].y, col + 4);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m0 + m >= M) break;
-          const int8_t* xr = x + (size_t)(m0 + m) * K;
-          const int xl = __ldg(reinterpret_cast<const int*>(xr + kp));
-          const int xh = __ldg(reinterpret_cast<const int*>(xr + Kp + kp));
-          sxl[m] = __dp4a(xl, 0x01010101, sxl[m]);
-          sxh[m] = __dp4a(xh, 0x01010101, sxh[m]);
-#pragma unroll
-          for (int c = 0; c < GV_COLS; ++c) {  // nibbles 0..15 read as non-negative int8
-            plo[m][c] = __dp4a(xl, (int)(col[c] & 0x0F0F0F0Fu), plo[m][c]);
-            phi[m][c] = __dp4a(xh, (int)((col[c] >> 4) & 0x0F0F0F0Fu), phi[m][c]);
-          }
-        }
+    for (int s = 0; s < NJ; ++s) {
+      const int c = 16 * gq + 2 * (s * REP + q);  // the mma's columns c, c + 1
+      float2 sl, sh;
+      if (sb == 2) {
+        sl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(slot + c * 2));
+        sh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(slot + (COLS + c) * 2));
+      } else {
+        sl = *reinterpret_cast<const float2*>(slot + c * 4);
+        sh = *reinterpret_cast<const float2*>(slot + (COLS + c) * 4);
       }
-      float slo[GV_COLS], shi[GV_COLS];
+      sh.x *= 0.0625f;  // C_hi is 16 times the high half's sum: exact
+      sh.y *= 0.0625f;
+      float4 a = acc[s * 32 + lane];
+      a.x = fmaf(tof(pick(chi, s, 0), bh0), sh.x, fmaf(tof(pick(clo, s, 0), bl0), sl.x, a.x));
+      a.y = fmaf(tof(pick(chi, s, 1), bh1), sh.x, fmaf(tof(pick(clo, s, 1), bl1), sl.x, a.y));
+      a.z = fmaf(tof(pick(chi, s, 2), bh0), sh.y, fmaf(tof(pick(clo, s, 2), bl0), sl.y, a.z));
+      a.w = fmaf(tof(pick(chi, s, 3), bh1), sh.y, fmaf(tof(pick(clo, s, 3), bl1), sl.y, a.w));
+      acc[s * 32 + lane] = a;
+    }
 #pragma unroll
-      for (int c = 0; c < GV_COLS; ++c) {
-        slo[c] = load_scale(ws, ws_kind, (size_t)gi * N + n0 + c);
-        shi[c] = load_scale(ws, ws_kind, (size_t)(gi + ng) * N + n0 + c);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) clo[j][e] = chi[j][e] = 0;
+    __syncwarp();  // every lane has read the slot
+    issue_q(gi + 2);
+  };
+
+  int gb = first;  // the block where the warp entered its current group
+  for (int b = first; b < last; ++b) {
+    uint4 r[4];  // rows tq + 4i of block b, i = 0..3
+    wring.next(load, 2 * b + wstream::PREFETCH, r[0], r[1]);
+    wring.next(load, 2 * b + 1 + wstream::PREFETCH, r[2], r[3]);
+    const uint2 bx = brow < M ? *reinterpret_cast<const uint2*>(xw + brow * xst + b * 8 + 2 * tq)
+                              : make_uint2(0u, 0u);  // (lo, hi) B words
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {  // columns 4d .. 4d + 3 of the lane's 16
+      uint32_t cw[4];
+      transpose4((&r[0].x)[d], (&r[1].x)[d], (&r[2].x)[d], (&r[3].x)[d], cw);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 2 * d + e;
+        mma_u8s8_16816(clo[j], cw[2 * e] & 0x0F0F0F0Fu, cw[2 * e + 1] & 0x0F0F0F0Fu, bx.x);
+        mma_u8s8_16816(chi[j], cw[2 * e] & 0xF0F0F0F0u, cw[2 * e + 1] & 0xF0F0F0F0u, bx.y);
       }
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < GV_COLS; ++c)
-          acc[m][c] += slo[c] * (float)(plo[m][c] - 8 * sxl[m]) +
-                       shi[c] * (float)(phi[m][c] - 8 * sxh[m]);
+    }
+    const int row = R0 + (b + 1) * WS_BLOCK;
+    if (b + 1 == last || row % g == 0) {
+      fold((row - 1) / g, gb, b);
+      gb = b + 1;
     }
   }
 
-  // the two lanes of a chunk inside a warp differ by 16 in threadIdx.x
+  // the lane's share of the warp's sums, as K14 stores them: red[range][m][c]
+  float4 mine[NJ];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int s = 0; s < NJ; ++s) mine[s] = acc[s * 32 + lane];
+  cp_async_wait<0>();
+  __syncthreads();  // every warp has its sums
 #pragma unroll
-    for (int c = 0; c < GV_COLS; ++c) acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], 16);
-  __shared__ float red[GV_THREADS / 32][MT][GV_TN];
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 < GV_CHUNKS) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < GV_COLS; ++c) red[warp][m][chunk * GV_COLS + c] = acc[m][c];
+  for (int s = 0; s < NJ; ++s) {
+    const int c = 16 * gq + 2 * (s * REP + q);
+    if (r0 < M)
+      *reinterpret_cast<float2*>(red + (range * M + r0) * COLS + c) =
+          make_float2(mine[s].x, mine[s].z);
+    if (r0 + 1 < M)
+      *reinterpret_cast<float2*>(red + (range * M + r0 + 1) * COLS + c) =
+          make_float2(mine[s].y, mine[s].w);
   }
   __syncthreads();
-  if (threadIdx.x < GV_TN) {
-    const int n = blockIdx.x * GV_TN + threadIdx.x;
-    if (n < N) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float v = 0.f;
-#pragma unroll
-        for (int w8 = 0; w8 < GV_THREADS / 32; ++w8) v += red[w8][m][threadIdx.x];
-        const size_t i = (size_t)(m0 + m) * N + n;
-        if (gridDim.y == 1) store_out(out, out_f32, i, v * load_scale(xs, xs_kind, m0 + m));
-        else work[(size_t)blockIdx.y * M * N + i] = v;
-      }
-    }
-  }
+  wstream::merge_with<RANGES>(red, nullptr, work, tickets, M, N, [&](int m, int n, float v) {
+    store_out(out, out_f32, (size_t)m * N + n, v * load_scale(xs, xs_kind, m));
+  });
 }
 
 // out[m, n] = (sum over splits of work[s, m, n]) * xs[m]
@@ -544,34 +704,79 @@ int launch_w4a8_mma_g(const void* x, const void* wp, const void* xs, int xs_kind
                                 ksplit, st);
 }
 
+// The stream kernel's shared memory: the warps' running sums and qparams
+// rings, the longest split's x words and its blocks' x-sums.
+int w4a8_stream_smem(int M, int K, int g, int nsplit) {
+  const int nG = K / 2 / g, blocks = (nG + nsplit - 1) / nsplit * g / WS_BLOCK;
+  return WS_ACC + WS_QRING + M * ws_xst(blocks) * 4 + blocks * (M + (M & 1)) * 8;
+}
+
+template <int MR, int VEC>
+int launch_w4a8_stream(const void* x, const void* wp, const void* xs, int xs_kind,
+                       const void* ws, int ws_kind, void* work, void* tickets, void* out,
+                       int out_f32, int M, int K, int N, int g, int nsplit, cudaStream_t st) {
+  static int configured = 0;  // the largest dynamic shared memory asked for so far
+  const int smem = w4a8_stream_smem(M, K, g, nsplit);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(w4a8_stream_kernel<MR, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
+  w4a8_stream_kernel<MR, VEC><<<grid, wstream::THREADS, smem, st>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp), xs, xs_kind, ws, ws_kind,
+      static_cast<float*>(work), static_cast<int*>(tickets), out, out_f32, M, K, N, g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x [M, K] int8; wp [K/2, N] uint8 (plain nibbles); xs [M] and ws [K/g, N]
-// of kind 1 (bf16) or 2 (f32); work [ksplit, M, N] f32 scratch when
-// ksplit > 1; out [M, N] bf16 (out_f32 0) or f32 (1). M <= 16, K/2 % g == 0,
-// g % 4 == 0, N % 8 == 0; x, wp and ws 16-byte aligned.
+// K10 at M <= 16. x [M, K] int8; wp [K/2, N] uint8 (plain nibbles); xs [M]
+// and ws [K/g, N] of kind 1 (bf16) or 2 (f32); work [nsplit, M, N] f32
+// (null when nsplit == 1); tickets: int32, one per 128-column strip, zero
+// (and left zero); out [M, N] bf16 (out_f32 0) or f32 (1). K/2 % g == 0, g %
+// 4 == 0, N % 8 == 0; x, wp and ws 16-byte aligned. g % 16 == 0 runs the
+// weight stream, 1 <= nsplit <= K/2 / g and the split's x in shared memory;
+// the other g the SIMT tile (nsplit 1, work and tickets unread).
 TT_EXPORT int tt_w4a8_gemv(const void* x, const void* wp, const void* xs, int xs_kind,
-                           const void* ws, int ws_kind, void* work, void* out, int out_f32, int M,
-                           int K, int N, int g, int ksplit, void* stream) {
-  if (g < 4 || g % 4 || (K / 2) % g || N % 8 || ksplit < 1) return cudaErrorInvalidValue;
+                           const void* ws, int ws_kind, void* work, void* tickets, void* out,
+                           int out_f32, int M, int K, int N, int g, int nsplit, void* stream) {
+  const int Kp = K / 2;
+  if (M < 1 || M > WS_MAX_M || g < 4 || g % 4 || Kp % g || N % 8 || nsplit < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((N + GV_TN - 1) / GV_TN, ksplit, (M + mt - 1) / mt);
-  auto x8 = static_cast<const int8_t*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto wk = static_cast<float*>(work);
-  if (mt == 1)
-    w4a8_gemv_kernel<1><<<grid, GV_THREADS, 0, st>>>(x8, w8, xs, xs_kind, ws, ws_kind, wk, out,
-                                                     out_f32, M, K, N, g);
-  else
-    w4a8_gemv_kernel<4><<<grid, GV_THREADS, 0, st>>>(x8, w8, xs, xs_kind, ws, ws_kind, wk, out,
-                                                     out_f32, M, K, N, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ksplit == 1) return err;
-  const long long MN = (long long)M * N;
-  const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  w4a8_reduce_kernel<<<blocks, 256, 0, st>>>(wk, xs, xs_kind, out, out_f32, ksplit, M, N);
-  return cudaGetLastError();
+  if (g % WS_BLOCK) {
+    if (nsplit != 1) return cudaErrorInvalidValue;
+    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+    w4a8_tiled_kernel<4><<<grid, T_THREADS, 0, st>>>(static_cast<const int8_t*>(x),
+                                                     static_cast<const uint8_t*>(wp), xs,
+                                                     xs_kind, ws, ws_kind, out, out_f32, M, K,
+                                                     N, g);
+    return cudaGetLastError();
+  }
+  if (nsplit > Kp / g || !tickets || (nsplit > 1 && !work) ||
+      w4a8_stream_smem(M, K, g, nsplit) > wstream::MAX_SMEM)
+    return cudaErrorInvalidValue;
+  if (M <= 2)
+    return N % 16 ? launch_w4a8_stream<2, 8>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                             out_f32, M, K, N, g, nsplit, st)
+                  : launch_w4a8_stream<2, 16>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                              out_f32, M, K, N, g, nsplit, st);
+  if (M <= 4)
+    return N % 16 ? launch_w4a8_stream<4, 8>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                             out_f32, M, K, N, g, nsplit, st)
+                  : launch_w4a8_stream<4, 16>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                              out_f32, M, K, N, g, nsplit, st);
+  if (M <= 8)
+    return N % 16 ? launch_w4a8_stream<8, 8>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                             out_f32, M, K, N, g, nsplit, st)
+                  : launch_w4a8_stream<8, 16>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                              out_f32, M, K, N, g, nsplit, st);
+  return N % 16 ? launch_w4a8_stream<16, 8>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                            out_f32, M, K, N, g, nsplit, st)
+                : launch_w4a8_stream<16, 16>(x, wp, xs, xs_kind, ws, ws_kind, work, tickets, out,
+                                             out_f32, M, K, N, g, nsplit, st);
 }
 
 // The same operands for any M (the wrapper takes it for M > 16).

@@ -161,19 +161,16 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ base, size
 }
 
 // The block's merge, once its partial sums are in shared memory: red holds
-// [PARTS][M][COLS] f32. Sums the parts in order, then either writes out (one
-// split) or stores the split's partial to ws[split][M][N] and lets the last
-// split of the strip merge, in split order. extra (may be null): [M][COLS]
-// f32 more to add per column (K11's B plane); scale (may be null): a
-// per-column bf16 factor applied before the rounding (K11's s32).
-template <int PARTS>
-__device__ __forceinline__ void merge(const float* red, const float* extra,
-                                      const __nv_bfloat16* __restrict__ scale,
-                                      float* __restrict__ ws, int* __restrict__ tickets,
-                                      __nv_bfloat16* __restrict__ out, int M, int N) {
+// [PARTS][M][COLS] f32. Sums the parts in order, then either stores out (one
+// split: store(m, n, v)) or stores the split's partial to ws[split][M][N]
+// and lets the last split of the strip merge, in split order, and store.
+// extra (may be null): [M][COLS] f32 more to add per column (K11's B plane).
+template <int PARTS, class Store>
+__device__ __forceinline__ void merge_with(const float* red, const float* extra,
+                                           float* __restrict__ ws, int* __restrict__ tickets,
+                                           int M, int N, Store&& store) {
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * COLS, split = blockIdx.y, nsplit = gridDim.y;
-  auto colscale = [&](int n) { return scale ? __bfloat162float(scale[n]) : 1.f; };
   for (int i = tid; i < M * COLS; i += THREADS) {
     const int m = i / COLS, c = i % COLS, n = n0 + c;
     if (n >= N) continue;
@@ -182,7 +179,7 @@ __device__ __forceinline__ void merge(const float* red, const float* extra,
     for (int w = 0; w < PARTS; ++w) v += red[(w * M + m) * COLS + c];
     if (extra) v += extra[m * COLS + c];
     if (nsplit == 1)
-      out[(size_t)m * N + n] = __float2bfloat16(v * colscale(n));
+      store(m, n, v);
     else
       ws[((size_t)split * M + m) * N + n] = v;
   }
@@ -200,8 +197,20 @@ __device__ __forceinline__ void merge(const float* red, const float* extra,
     if (n >= N) continue;
     float v = 0.f;
     for (int s = 0; s < nsplit; ++s) v += __ldcg(ws + ((size_t)s * M + m) * N + n);
-    out[(size_t)m * N + n] = __float2bfloat16(v * colscale(n));
+    store(m, n, v);
   }
+}
+
+// merge_with to a bf16 out [M, N]; scale (may be null): a per-column bf16
+// factor applied before the rounding (K11's s32).
+template <int PARTS>
+__device__ __forceinline__ void merge(const float* red, const float* extra,
+                                      const __nv_bfloat16* __restrict__ scale,
+                                      float* __restrict__ ws, int* __restrict__ tickets,
+                                      __nv_bfloat16* __restrict__ out, int M, int N) {
+  merge_with<PARTS>(red, extra, ws, tickets, M, N, [&](int m, int n, float v) {
+    out[(size_t)m * N + n] = __float2bfloat16(scale ? v * __bfloat162float(scale[n]) : v);
+  });
 }
 
 // The block's epilogue. acc: this warp's C fragments (n-tile nt, mma j) over

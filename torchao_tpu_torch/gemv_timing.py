@@ -1,21 +1,23 @@
 """Time the decode GEMVs of K12 (fp6-packed), K8 (float8wo: bf16 x;
 float8dq-row: e4m3 x), K14a (int4 ``group_partial``), K14c / K14b
-(int4 ``banded``, chunked and family qparams layout) and K1 (int4
-``batched_int8``, K14's bytes and layout) at Llama-3-8B's linear
-shapes, each call alone with the L2 flushed (CUDA events, median), and
-print one JSON line: per form the ms of one decode step's launches (32 of
-each layer weight, and the head where the recipe quantizes it), its bytes
-and GB/s, each shape's time and SQNR against the plain version.
+(int4 ``banded``, chunked and family qparams layout), K1 (int4
+``batched_int8``, K14's bytes and layout), K10 (w4a8, g = 32), K6
+(int8wo) and K7 (int8dq) at Llama-3-8B's linear shapes, each call alone
+with the L2 flushed (CUDA events, median), and print one JSON line: per
+form the ms of one decode step's launches (32 of each layer weight, and
+the head where the recipe quantizes it), its bytes and GB/s, each shape's
+time and SQNR against the plain version.
 
     python -m torchao_tpu_torch.gemv_timing [--reps 25] [--sweep 1,2,3,4,6,8]
 
 ``--sweep`` also times each shape at each of the given K splits (the
 wrapper's plan patched), where the tree has the plan functions
-(``fp6_matmul.fp6_nsplit``, ``_qmm.fp8_gemv_nsplit``,
-``int4_matmul.k14_nsplit`` and ``gemv_nsplit``). ``--forms`` picks forms by a substring of
+(``fp6_matmul.fp6_nsplit``, ``_qmm.gemv1_nsplit``,
+``int4_matmul.k14_nsplit`` and ``gemv_nsplit``,
+``w4a8_matmul.gemv_nsplit``). ``--forms`` picks forms by a substring of
 their names. The inputs are random, from a seeded generator: s4 / s2 bytes
 (every byte is a valid field), power-of-two scales, e4m3 weights drawn from
-a normal, int4 bytes with g = 32 scales and zeros. The module
+a normal, int4 bytes with g = 32 scales and zeros, int8 weights. The module
 reaches the kernels only through the wrappers' public calls, so with
 another tree's root first on ``PYTHONPATH`` it times that tree's kernels:
 two trees compare in one call, on one card. It exits 1 without a card.
@@ -63,7 +65,7 @@ def _fp8_case(gen, N, K, e4m3):
         args, nx = (x.bfloat16(), w, ws, None), 2 * K
     nbytes = N * K + 4 * N + nx + 2 * N
     return (lambda: F8.fp8_mixed_matmul(*args), lambda: F8.fp8_mixed_matmul_plain(*args), nbytes,
-            (_qmm, "fp8_gemv_nsplit"))
+            (_qmm, "gemv1_nsplit"))
 
 
 def _int4_case(gen, N, K, variant, layout):
@@ -98,6 +100,41 @@ def _int4_case(gen, N, K, variant, layout):
     return call, plain, nbytes, (TK, "gemv_nsplit" if body == "gemv" else "k14_nsplit")
 
 
+def _w4a8_case(gen, N, K):
+    """K10 at M = 1: per-token int8 x, plain (not XORed) nibbles, g = 32 bf16
+    scales."""
+    from torchao_tpu_torch.kernels import w4a8_matmul as W
+
+    g = 32
+    x_q = torch.randint(-128, 128, (1, K), generator=gen, device="cuda").to(torch.int8)
+    x_s = torch.rand((1,), generator=gen, device="cuda") * 0.02 + 0.001
+    wp = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8, device="cuda")
+    ws = (torch.rand((K // g, N), generator=gen, device="cuda") * 0.002 + 0.0005).bfloat16()
+    args = (x_q, x_s, wp, ws)
+    nbytes = K // 2 * N + K // g * N * 2 + K + 4 + 2 * N
+    return (lambda: W.w4a8_dq_matmul(*args, group_size=g),
+            lambda: W.w4a8_dq_matmul_plain(*args, group_size=g), nbytes, (W, "gemv_nsplit"))
+
+
+def _int8_case(gen, N, K, int8_x):
+    """K6 (bf16 x, int8wo) or K7 (int8 x, int8dq) at M = 1, per-row bf16
+    weight scales."""
+    from torchao_tpu_torch.kernels import _qmm
+    from torchao_tpu_torch.kernels import int8_matmul as I8
+
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda").to(torch.int8)
+    ws = (torch.rand((N,), generator=gen, device="cuda") * 0.02 + 0.001).bfloat16()
+    if int8_x:
+        x_q = torch.randint(-127, 128, (1, K), generator=gen, device="cuda").to(torch.int8)
+        args = (x_q, w, torch.full((1,), 0.02, device="cuda").bfloat16(), ws)
+        call, plain, nx = I8.int8_scaled_matmul, I8.int8_scaled_matmul_plain, K + 2
+    else:
+        args = (torch.randn((1, K), generator=gen, device="cuda").bfloat16(), w, ws)
+        call, plain, nx = I8.int8wo_mixed_matmul, I8.int8wo_mixed_matmul_plain, 2 * K
+    nbytes = N * K + 2 * N + nx + 2 * N
+    return lambda: call(*args), lambda: plain(*args), nbytes, (_qmm, "gemv1_nsplit")
+
+
 LAYOUT_ENV = "TORCHAO_TPU_QPARAMS_LAYOUT"
 FORMS = {
     "K12 fp6-packed": (lambda g, N, K: _fp6_case(g, N, K), SHAPES + (HEAD,)),
@@ -110,6 +147,10 @@ FORMS = {
                            SHAPES + (HEAD,)),
     "K1 batched_int8": (lambda g, N, K: _int4_case(g, N, K, "batched_int8", None),
                         SHAPES + (HEAD,)),
+    # the int8wo and int8dq recipes quantize the head (K6, K7); K10's phase times it too
+    "K10 gemv w4a8": (_w4a8_case, SHAPES + (HEAD,)),
+    "K6 gemv int8wo": (lambda g, N, K: _int8_case(g, N, K, False), SHAPES + (HEAD,)),
+    "K7 gemv int8dq": (lambda g, N, K: _int8_case(g, N, K, True), SHAPES + (HEAD,)),
 }
 
 

@@ -123,8 +123,8 @@ SIGNATURES = {
     # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
     "tt_int4_gemv_eff4": [c_ptr] * 5 + [c_int] * 5 + [c_ptr],
     "tt_int4_gemv_m1": [c_ptr] * 5 + [c_int] * 6 + [c_ptr],
-    # x, w, work, out, M, K, N, ksplit, stream
-    "tt_manual_dma_std": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
+    # x, w, work (null: one split), tickets, out, M, K, N, nsplit, stream
+    "tt_manual_dma_std": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     # x, w1, w2, out1, out2, K, N1, N2, blocks, stream
     "tt_manual_dma_persistent": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     "tt_fp8_cast_e4m3_bf16": _CAST,
@@ -150,8 +150,9 @@ SIGNATURES = {
     "tt_flash_heads_i8": _HEADS,
     "tt_smajor_attention": _HEADS,
     "tt_smajor_attention_i8": _HEADS,
-    "tt_qmm_gemv": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
-    # K8's one-launch gemv: work (null: one split), tickets, out, M, K, N, nsplit, stream
+    # the one-launch gemv (K6, K7; K8): work (null: one split), tickets, out, M, K, N,
+    # nsplit, stream
+    "tt_qmm_gemv": _QMM + [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
     "tt_fp8_mixed_gemv": _QMM + [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
     # the tensor-core bodies take the gemv's arguments (work may be null: one split)
     "tt_qmm_mma_bf16": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
@@ -160,8 +161,9 @@ SIGNATURES = {
     "tt_fp8_rowwise_gemv": _GEMV6,
     "tt_fp6_dual_gemv": _STREAM_FP6,
     "tt_fp6_gemv": _STREAM_FP6,
-    # x, wp, xs, xs_kind, ws, ws_kind, (work,) out, out_f32, M, K, N, g, (ksplit,) stream
-    "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],
+    # x, wp, xs, xs_kind, ws, ws_kind, (work, (tickets,)) out, out_f32, M, K, N, g,
+    # (ksplit,) stream
+    "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 3 + [c_int] * 6 + [c_ptr],
     "tt_w4a8_tiled": [c_ptr] * 3 + [c_int, c_ptr, c_int, c_ptr] + [c_int] * 5 + [c_ptr],
     # the tensor-core form takes the gemv's arguments (work may be null: one split)
     "tt_w4a8_mma": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 2 + [c_int] * 6 + [c_ptr],

@@ -3,15 +3,15 @@
 ``out[m, n] = (Σ_k x[m, k]·w[n, k]) · xs[m] · ws[n]``, through one of five
 bodies, by M and the kind (:func:`tiled_entry`):
 
-- M ≤ 32, K8 (kinds 2 and 3, bf16 or e4m3 x): the SIMT gemv in one launch
-  a call (``tt_fp8_mixed_gemv``): 512-byte row runs, four rows a warp, the
-  K split of :func:`fp8_gemv_nsplit` merged by the last block's ticket
-  (workspace and tickets from ``_build.stream_buffers``: nothing allocated
-  but the output); bound by the weight's bytes;
-- M ≤ 32, K6, K7 and K9: the SIMT gemv (``tt_qmm_gemv``; K9's own
-  ``tt_fp8_rowwise_gemv``), K split over blocks until about
-  ``_TARGET_BLOCKS`` are in flight and finished by a reduce pass; bound by
-  the weight's bytes;
+- M ≤ 32, K6, K7 and K8: the SIMT gemv in one launch a call
+  (``tt_qmm_gemv``, kinds 0 and 1; ``tt_fp8_mixed_gemv``, kinds 2 and 3):
+  512-byte row runs, four rows a warp, the K split of :func:`gemv1_nsplit`
+  merged by the last block's ticket (workspace and tickets from
+  ``_build.stream_buffers``: nothing allocated but the output; K7's int32
+  partials in the f32 workspace's bits); bound by the weight's bytes;
+- M ≤ 32, K9: its own SIMT gemv (``tt_fp8_rowwise_gemv``), K split over
+  blocks until about ``_TARGET_BLOCKS`` are in flight and finished by a
+  reduce pass; bound by the weight's bytes;
 - M > 32, K6 and K8 with bf16 x: bf16 ``mma.sync`` on the weight bytes
   converted in registers (``tt_qmm_mma_bf16``);
 - M > 32, K8 with e4m3 x and K9: e4m3 ``mma.sync`` on the stored bytes
@@ -24,8 +24,8 @@ over the grid by :func:`tiled_ksplit` where their 128 x 128 output tiles
 would not fill the card (K7's partials int32, so its result stays exact:
 it equals the plain version bit for bit). Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
-``<name>_tiled``; a tiled launch and a K8 gemv launch also count their C
-entry in ``_build.ENTRIES``.
+``<name>_tiled``; a tiled launch and a one-launch gemv launch also count
+their C entry in ``_build.ENTRIES``.
 """
 
 from __future__ import annotations
@@ -43,12 +43,11 @@ GEMV_MAX_M = 32
 K_STEP = 32          # k per step of the tiled bodies and unit of their K split (csrc TK,
                      # K_UNIT); K must be a multiple: no partial K block
 _CHUNK = 16          # k per lane per gemv step (csrc CH)
-_GEMV_ROWS = 16      # weight rows per gemv block (csrc GV_ROWS)
+_GEMV_ROWS = 16      # weight rows per K9 gemv block (csrc GV_ROWS)
 _TARGET_BLOCKS = 1024
-FP8_GEMV_ROWS = 32   # K8 gemv: weight rows per block (csrc F8G_ROWS)
-FP8_GEMV_BLOCKS_PER_SM = 2  # K8 gemv: its launch bounds (csrc F8G_BLOCKS)
-FP8_GEMV_MT = 4      # K8 gemv: rows of x per block at M > 1 (csrc F8G_MT)
-FP8_GEMV_ENTRY = "tt_fp8_mixed_gemv"
+GEMV1_ROWS = 32      # one-launch gemv: weight rows per block (csrc G1_ROWS)
+GEMV1_BLOCKS_PER_SM = 2  # one-launch gemv: its launch bounds (csrc G1_BLOCKS)
+GEMV1_MT = 4         # one-launch gemv: rows of x per block at M > 1 (csrc G1_MT)
 TILED_BM = TILED_BN = 128  # output tile of the tensor-core bodies (csrc MMA_BM, MMA_BN)
 # blocks resident per SM (their shared memory and registers): the K split's wave
 MMA_BLOCKS_PER_SM = {"tt_qmm_mma_bf16": 2, "tt_qmm_mma_e4m3": 1, "tt_qmm_mma_s8": 2}
@@ -93,18 +92,40 @@ def tiled_ksplit(M: int, K: int, N: int, sms: int, blocks_per_sm: int) -> int:
     return max(1, min(K // K_STEP, blocks_per_sm * sms // tiles))
 
 
+def gemv1_entry(kind: int) -> str:
+    """The C entry point of the one-launch gemv for ``kind`` (K6, K7, K8)."""
+    return "tt_fp8_mixed_gemv" if kind in (K8_BF16_E4M3, K8_E4M3_E4M3) else "tt_qmm_gemv"
+
+
 @functools.lru_cache(maxsize=None)
-def fp8_gemv_nsplit(M: int, K: int, N: int, sms: int) -> int:
-    """K8's gemv K split (``int4_matmul.stream_nsplit``): blocks of
-    ``FP8_GEMV_ROWS`` weight rows and one or ``FP8_GEMV_MT`` rows of x,
-    units of 512 k (one load of a lane for every row of its warp: with
-    ``STREAM_WARPS`` warps of 4 rows, two of K1's steps in bytes),
-    ``FP8_GEMV_BLOCKS_PER_SM`` blocks an SM."""
-    mt = 1 if M == 1 else FP8_GEMV_MT
-    strips = cdiv(N, FP8_GEMV_ROWS) * cdiv(M, mt)
+def gemv1_nsplit(M: int, K: int, N: int, sms: int) -> int:
+    """The one-launch gemv's K split (K6, K7, K8 and P1;
+    ``int4_matmul.stream_nsplit``): blocks of ``GEMV1_ROWS`` weight rows and
+    one or ``GEMV1_MT`` rows of x, units of 512 k (one load of a lane for
+    every row of its warp: with ``STREAM_WARPS`` warps of 4 rows, two of
+    K1's steps in bytes), ``GEMV1_BLOCKS_PER_SM`` blocks an SM."""
+    strips = gemv1_strips(M, N)
     units = cdiv(K, 32 * _CHUNK)
-    return stream_nsplit(strips, units, max(1, FP8_GEMV_ROWS // STREAM_WARPS // 2), sms,
-                         FP8_GEMV_BLOCKS_PER_SM, units)
+    return stream_nsplit(strips, units, max(1, GEMV1_ROWS // STREAM_WARPS // 2), sms,
+                         GEMV1_BLOCKS_PER_SM, units)
+
+
+def gemv1_strips(M: int, N: int) -> int:
+    """The one-launch gemv's (row block, x block) pairs: one ticket each."""
+    return cdiv(N, GEMV1_ROWS) * cdiv(M, 1 if M == 1 else GEMV1_MT)
+
+
+def launch_gemv1(entry: str, args, x: torch.Tensor, out: torch.Tensor, M: int, K: int,
+                 N: int) -> None:
+    """Launch the one-launch gemv ``entry`` with its leading ``args`` (the
+    operands and scales): the split of :func:`gemv1_nsplit`, the per-device
+    buffers of ``_build.stream_buffers``; allocates nothing."""
+    nsplit = gemv1_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
+    work, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
+                                          gemv1_strips(M, N))
+    _build.library().launch(entry, *args, None if work is None else work.data_ptr(),
+                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
+                            _build.stream_handle(x.device))
 
 
 def _scale_arg(s: Optional[torch.Tensor], sizes, what: str):
@@ -146,27 +167,23 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
     if kind == K9_E4M3_ROW:
         if xs[1] != 2 or ws[1] != 2 or w_scale.numel() != N:
             raise ValueError(f"{name}: x_scale [M] and w_scale [N] must be f32")
-        entry, args = "tt_fp8_rowwise", (x.data_ptr(), w.data_ptr(), xs[0], ws[0])
+        args = (x.data_ptr(), w.data_ptr(), xs[0], ws[0])
     else:
-        entry, args = "tt_qmm", (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
+        args = (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
     lib = _build.library()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = _build.stream_handle(x.device)
-    if M <= GEMV_MAX_M and kind in (K8_BF16_E4M3, K8_E4M3_E4M3):
-        nsplit = fp8_gemv_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
-        mt = 1 if M == 1 else FP8_GEMV_MT
-        work, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
-                                              cdiv(N, FP8_GEMV_ROWS) * cdiv(M, mt))
-        lib.launch(FP8_GEMV_ENTRY, *args, None if work is None else work.data_ptr(),
-                   tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit, stream)
+    if M <= GEMV_MAX_M and kind != K9_E4M3_ROW:
+        entry = gemv1_entry(kind)
+        launch_gemv1(entry, args, x, out, M, K, N)
         _build.LAUNCHES[f"{name}_gemv"] += 1
-        _build.ENTRIES[FP8_GEMV_ENTRY] += 1
+        _build.ENTRIES[entry] += 1
     elif M <= GEMV_MAX_M:
         chunks = K // _CHUNK
         ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
-        acc = torch.int32 if kind == K7_I8_I8 else torch.float32
-        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=acc, device=x.device)
-        lib.launch(f"{entry}_gemv", *args, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
+                           device=x.device)
+        lib.launch("tt_fp8_rowwise_gemv", *args, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
                    stream)
         _build.LAUNCHES[f"{name}_gemv"] += 1
     else:

@@ -364,14 +364,15 @@ def launch_counter(body: str, zero_free: bool) -> str:
 
 
 def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per_sm: int,
-                  max_units: int) -> int:
-    """The K splits of a weight-stream GEMV (K1, K11, K14): ``strips`` column
-    strips of ``STREAM_COLS``, each ``units`` whole units of ``unit_steps``
-    warp steps long, go to ``strips·nsplit`` blocks of ``STREAM_WARPS``
-    warps, ``blocks_per_sm`` at a time on each of ``sms`` SMs. Picks the
-    nsplit of least ``waves · (steps per split + STREAM_BLOCK_STEPS)``, the
-    smaller on a tie, with at most ``max_units`` units a split (its staged
-    x) and, where there is more than one split, a step for every warp."""
+                  max_units: int, block_steps: int = STREAM_BLOCK_STEPS) -> int:
+    """The K splits of a weight-stream GEMV (K1, K10, K11, K14): ``strips``
+    column strips of ``STREAM_COLS``, each ``units`` whole units of
+    ``unit_steps`` warp steps long, go to ``strips·nsplit`` blocks of
+    ``STREAM_WARPS`` warps, ``blocks_per_sm`` at a time on each of ``sms``
+    SMs. Picks the nsplit of least ``waves · (steps per split +
+    block_steps)`` (a block's fixed cost in those steps), the smaller on a
+    tie, with at most ``max_units`` units a split (its staged x) and, where
+    there is more than one split, a step for every warp."""
     slots, best = sms * blocks_per_sm, None
     for ns in range(1, units + 1):
         per = cdiv(units, ns)
@@ -379,7 +380,7 @@ def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per
             break
         if per > max_units:
             continue
-        cost = cdiv(strips * ns, slots) * (per * unit_steps + STREAM_BLOCK_STEPS)
+        cost = cdiv(strips * ns, slots) * (per * unit_steps + block_steps)
         if best is None or cost < best[0]:
             best = (cost, ns)
     if best is None:

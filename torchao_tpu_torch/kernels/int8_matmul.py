@@ -6,16 +6,19 @@ source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
 - :func:`int8wo_mixed_matmul` (K6, int8 weight-only): bf16 x times an int8
   weight ``[(L,) N, K]``, f32 accumulation, per-channel scale epilogue;
   replaces ``int8wo_mixed_matmul`` (pallas_call at ``int8_matmul.py:255``,
-  body ``_wo_kernel`` at :185). M ≤ 32 runs the SIMT gemv
-  (``tt_qmm_gemv``), bound by the weight's bytes; M > 32 the bf16
+  body ``_wo_kernel`` at :185). M ≤ 32 runs the SIMT gemv in one launch
+  (``tt_qmm_gemv``: the K split merged by the last block's ticket), bound
+  by the weight's bytes; M > 32 the bf16
   tensor-core kernel (``tt_qmm_mma_bf16``: the int8 bytes converted to bf16
   in registers, exactly), bound by bytes too at M = 128. Counted as
   ``int8wo_mixed_matmul_{gemv,tiled}``.
 - :func:`int8_scaled_matmul` (K7, int8dq): per-token int8 x times the int8
   weight, exact int32 accumulation, epilogue ``acc·f32(xs)·f32(ws)``
   rounded once; replaces ``int8_scaled_matmul`` (pallas_call at :104,
-  body ``_kernel`` at :24). M ≤ 32 runs the SIMT gemv on ``__dp4a``
-  (``tt_qmm_gemv``), bound by the weight's bytes; M > 32 s8 ``mma.sync``
+  body ``_kernel`` at :24). M ≤ 32 runs the same one-launch SIMT
+  gemv on ``__dp4a`` (``tt_qmm_gemv``: exact int32 sums and int32 split
+  partials, equal to :func:`int8_scaled_matmul_plain` bit for bit), bound
+  by the weight's bytes; M > 32 s8 ``mma.sync``
   (IMMA, ``tt_qmm_mma_s8``), bound by bytes too at M = 128, whose int32
   sums and int32 K-split partials keep it bit-exact against
   :func:`int8_scaled_matmul_plain`. Counted as

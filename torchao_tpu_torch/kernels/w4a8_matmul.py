@@ -10,8 +10,13 @@ over K-major half-split nibbles ``wp [K/2, N]`` (byte k holds k and
 k + K/2) that are NOT XORed with 0x80, with exact int32 group partials and
 the scale sum in f32. Three bodies, chosen by :func:`launch_entry`:
 
-- M ≤ 16: the SIMT gemv (``tt_w4a8_gemv``; groups of K split over blocks,
-  a second pass sums the splits), bound by the packed weight's bytes;
+- M ≤ 16: ``tt_w4a8_gemv``, one launch a call. At g % 16 == 0 the
+  tensor-core weight stream (u8·s8 ``mma.sync`` on the raw nibbles, one
+  exact int32 partial per group and half, the K split of
+  :func:`gemv_nsplit` in whole groups merged by the last block's ticket;
+  workspace and tickets from ``_build.stream_buffers``: nothing allocated
+  but the output), bound by the packed weight's bytes; other g the SIMT
+  tile's kernel;
 - M > 16, g in (32, 64, 128): s8 ``mma.sync`` (IMMA) on the nibbles made
   signed in registers, each group's int32 partial folded into f32 with its
   scale (``tt_w4a8_mma``, K split in whole groups by :func:`mma_ksplit`),
@@ -34,11 +39,18 @@ A CUDA tensor launches the kernel (or raises); only a CPU tensor takes
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
 
 from torchao_tpu_torch.kernels import _build
+from torchao_tpu_torch.kernels.int4_matmul import (
+    STREAM_BLOCK_STEPS,
+    STREAM_COLS,
+    STREAM_X_BYTES,
+    stream_nsplit,
+)
 from torchao_tpu_torch.qtypes.base import PackingFormat
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.qtypes.packing import unpack_int4
@@ -46,9 +58,8 @@ from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
 from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 16
-_GEMV_TN = 128       # columns per gemv block (csrc GV_TN)
-_GEMV_LANES = 16     # group lanes per gemv block (csrc GV_LANES)
-_TARGET_BLOCKS = 1024
+GEMV_BLOCK_ROWS = 16  # packed rows an mma block of the gemv takes (csrc WS_BLOCK)
+GEMV_BLOCKS_PER_SM = 2  # the gemv's launch bounds (csrc WS_BLOCKS)
 MMA_GROUPS = (32, 64, 128)  # the tensor-core form's group sizes (csrc tt_w4a8_mma)
 MMA_BM = MMA_BN = 128       # its output tile (csrc MMA_BM, MMA_BN)
 MMA_BLOCKS_PER_SM = 1       # its shared memory (162 KB) and registers: the K split's wave
@@ -95,6 +106,28 @@ def mma_ksplit(M: int, K: int, N: int, g: int, sms: int) -> int:
     return max(1, min(K // 2 // g, MMA_BLOCKS_PER_SM * sms // tiles))
 
 
+def gemv_x_bytes(M: int, blocks: int) -> int:
+    """The gemv's staged x for a split of ``blocks`` mma blocks (csrc
+    ``w4a8_stream_smem`` less the rings): a row of x's (lo, hi) words, padded
+    to 8 mod 32 words, and each block's x-sums of M rounded up to even."""
+    xst = (blocks * 8 + 23) // 32 * 32 + 8
+    return M * xst * 4 + blocks * (M + M % 2) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_nsplit(M: int, K: int, N: int, g: int, sms: int) -> int:
+    """The gemv's K split (``int4_matmul.stream_nsplit``) at g % 16 == 0: units
+    of a group (a split holds whole groups), warp steps of one mma block
+    (16 packed rows, two of K1's steps: a block's fixed cost is half
+    ``STREAM_BLOCK_STEPS`` of them), ``GEMV_BLOCKS_PER_SM`` blocks an SM, a
+    split's staged x in ``STREAM_X_BYTES``."""
+    units, per = K // 2 // g, g // GEMV_BLOCK_ROWS
+    max_units = next((u for u in range(units, 0, -1)
+                      if gemv_x_bytes(M, u * per) <= STREAM_X_BYTES), 1)
+    return stream_nsplit(cdiv(N, STREAM_COLS), units, per, sms, GEMV_BLOCKS_PER_SM, max_units,
+                         STREAM_BLOCK_STEPS // 2)
+
+
 def w4a8_dq_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, wp: torch.Tensor,
                    w_scale: torch.Tensor, *, group_size: int,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -137,13 +170,14 @@ def w4a8_dq_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, wp: torch.Tensor,
     stream = _build.stream_handle(x_q.device)
     entry = launch_entry(M, g)
     if entry == "tt_w4a8_gemv":
-        # split the groups over blocks until ~_TARGET_BLOCKS are in flight,
-        # keeping one group for each of a block's 16 group lanes
-        ksplit = max(1, min(Kp // g // _GEMV_LANES, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_TN))))
-        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
-                           device=x_q.device)
-        lib.launch(entry, *args, work.data_ptr(), out.data_ptr(), out_f32, M, K, N, g, ksplit,
-                   stream)
+        nsplit, work, tickets = 1, None, None
+        if g % GEMV_BLOCK_ROWS == 0:  # the weight stream; other g: the SIMT tile
+            nsplit = gemv_nsplit(M, K, N, g, _build.sm_count(x_q.device.index or 0))
+            work, tickets = _build.stream_buffers(x_q.device, nsplit * M * N if nsplit > 1 else 0,
+                                                  cdiv(N, STREAM_COLS))
+        lib.launch(entry, *args, None if work is None else work.data_ptr(),
+                   None if tickets is None else tickets.data_ptr(), out.data_ptr(), out_f32, M, K,
+                   N, g, nsplit, stream)
         _build.LAUNCHES["w4a8_dq_matmul_gemv"] += 1
         return out
     if entry == "tt_w4a8_mma":

@@ -7,8 +7,8 @@ the short decode shapes that pay most for a launch's fill and drain,
 4096]`` (wqkv-like) int8, ``bf16(x · wᵀ)`` with f32 accumulation:
 
 - ``two_calls`` (P1, :func:`manual_dma_std`): two launches of K6's GEMV
-  body with the scale dropped at compile time, each with its K-split
-  partials and reduce pass: the production structure;
+  body with the scale dropped at compile time, each one launch with its K
+  split merged by the last block's ticket: the production structure;
 - ``manual`` (P2, :func:`manual_dma_persistent`): ONE persistent launch over
   one schedule of both matrices' row tiles, double-buffered in shared memory
   with ``cp.async``, the next tile's copy in flight while the current one is
@@ -43,7 +43,6 @@ from torchao_tpu_torch.probes._common import (
     elapsed_ms,
     graph_ms_per_step,
 )
-from torchao_tpu_torch.utils import cdiv
 
 K, N1, N2 = 4096, 4096, 6144
 SETS = 4        # weight sets a step rotates through: 4 x 41.9 MB, past the L2
@@ -65,21 +64,16 @@ def _check_operands(name, x, *ws):
 
 
 def manual_dma_std(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """P1: one GEMV launch (K6's body, no scale) and its reduce pass.
-    Counts ``manual_dma_std``."""
+    """P1: one launch of K6's one-launch GEMV body, no scale (K6's split
+    plan and per-device buffers). Counts ``manual_dma_std``."""
     if x.device.type == "cpu":
         return manual_dma_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_operands("manual_dma_std", x, w)
-    N = w.shape[0]
-    # K6's split rule (kernels/_qmm.py)
-    ksplit = max(1, min(K // _qmm._CHUNK // 32, cdiv(_qmm._TARGET_BLOCKS, cdiv(N, _qmm._GEMV_ROWS))))
-    work = torch.empty((ksplit, 1, N) if ksplit > 1 else (1,), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty((1, N), dtype=torch.bfloat16, device=x.device)
-    _build.library().launch("tt_manual_dma_std", x.data_ptr(), w.data_ptr(), work.data_ptr(),
-                            out.data_ptr(), 1, K, N, ksplit, _build.stream_handle(x.device))
+    out = torch.empty((1, w.shape[0]), dtype=torch.bfloat16, device=x.device)
+    _qmm.launch_gemv1("tt_manual_dma_std", (x.data_ptr(), w.data_ptr()), x, out, 1, K,
+                      w.shape[0])
     _build.LAUNCHES["manual_dma_std"] += 1
     return out
 
