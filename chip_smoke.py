@@ -96,10 +96,16 @@ Phases (each fails loudly; nothing is caught):
    just before each and read just after (every kernel of the probe must
    have launched): the attention ceiling probe at int4 and int8 (K2 and its
    stub arm), K4's ablation ladder at int8 and int4 (every rung, K2′/K2 and
-   a torch sum as yardsticks), the manual-DMA probe (P1, P2; P1's call one
-   kernel at both of its shapes), the int4
+   a torch sum as yardsticks), the manual-DMA probe (P1, P2), the int4
    qparams-layout probe (K1, eff4, m1), and the dtype probes (P3's casts
-   and dot, P5's dots). Each new CUDA arm is first held against its plain
+   and dot, P5's dots). P1's, P2's, eff4's and m1's calls are each one
+   kernel and one graph node at the probes' shapes; the rows of P2, eff4
+   and m1 (the TMA copy ring of ``csrc/bulk_ring.cuh``) carry ptxas's
+   registers and spills and the count of their copy opcode in the SASS
+   (``UBLKCP`` for P2's bulk copies, ``UTMALDG`` for P6's tensor-map
+   boxes), which must be there, beside that of ``LDGSTS`` (cp.async), which
+   must not (the sources compiled again in the background from the build
+   on). Each new CUDA arm is first held against its plain
    version at the block size it uses (K2's stub at its 32-key tile, the
    rungs at 32). Each row carries its time per probe step (CUDA graph replays over
    more bytes than the L2 holds, or single calls with the L2 flushed), its
@@ -115,6 +121,7 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -150,6 +157,7 @@ from torchao_tpu_torch.kernels.int4_matmul import (
     PLAIN,
     VARIANT_ENV,
     choose_body,
+    eff_qparams_to_block_major,
     int4_dq_matmul,
     reset_variant_choices,
     variant_choices,
@@ -804,7 +812,8 @@ ONE_KERNEL_PER_CALL = {"int4_dq_matmul_gemv", "int4_dq_matmul_zero_free_gemv",
                        "fp6_dual_matmul", "fp6_dq_matmul", "fp8_mixed_matmul_gemv",
                        "fp8_mixed_matmul_e4m3_gemv", "smajor_decode_write_attention",
                        "smajor_decode_write_attention_int8", "int8wo_mixed_matmul_gemv",
-                       "int8_scaled_matmul_gemv", "w4a8_dq_matmul_gemv", "manual_dma_std"}
+                       "int8_scaled_matmul_gemv", "w4a8_dq_matmul_gemv", "manual_dma_std",
+                       "manual_dma_persistent", "int4_dq_matmul_eff4", "int4_dq_matmul_m1"}
 ONE_KERNEL_ENTRIES = {"tt_int4_group_partial", "tt_int4_banded"}
 
 
@@ -1113,12 +1122,7 @@ def w4a8_gemv_build():
     report = _build.ptxas_report(["w4a8_matmul.cu"])
     out = {}
     for M, inst in W4A8_GEMV_INSTANCES.items():
-        m = re.search(re.escape(inst) + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
-                      r"stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", report)
-        if m is None:
-            raise AssertionError(f"ptxas reports no {inst}")
-        out[f"registers_M{M}"] = int(m.group(4))
-        out[f"spill_bytes_M{M}"] = int(m.group(2)) + int(m.group(3))
+        out[f"registers_M{M}"], out[f"spill_bytes_M{M}"] = _build.ptxas_usage(report, inst)
     sass = _build.sass_loop_report("w4a8_matmul.cu", W4A8_GEMV_INSTANCES[1], "IMMA")
     n = int(re.search(r": (\d+) instructions", sass).group(1))
     out.update(sass_loop_instructions_M1=n, sass_per_weight_element_M1=n / 128,
@@ -1768,6 +1772,53 @@ def ceiling_phase():
 # ------------------------------------------------------------ slice 6 --
 
 
+# the copy ring's kernels as compiled: (source, the M = 1 instance, the copy
+# opcode its SASS must hold); none may hold LDGSTS (a cp.async)
+RING_KERNELS = {
+    "manual_dma_persistent": ("manual_dma_probe.cu", "manual_dma_ring_kernel", "UBLKCP"),
+    "int4_dq_matmul_eff4": ("int4_matmul.cu", "p6_ring_kernelILi1ELb0E", "UTMALDG"),
+    "int4_dq_matmul_m1": ("int4_matmul.cu", "p6_ring_kernelILi1ELb1E", "UTMALDG"),
+}
+_RING_REPORTS: dict = {}
+
+
+def start_ring_reports():
+    """Compile the ring kernels' sources with ``-Xptxas -v`` and disassemble
+    them, in the background (one ``nvcc`` each, started together); the
+    probe phase reads the results."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    for src in sorted({v[0] for v in RING_KERNELS.values()}):
+        _RING_REPORTS[src] = pool.submit(_build.compile_report, src)
+    pool.shutdown(wait=False)
+
+
+def ring_build(name):
+    """ptxas's registers and spills of a ring kernel's M = 1 instance and
+    its SASS's copy opcodes: the bulk copy (P2) or the tensor-map copy
+    (P6) present, no cp.async."""
+    src, inst, op = RING_KERNELS[name]
+    if src not in _RING_REPORTS:
+        start_ring_reports()
+    report, sass = _RING_REPORTS[src].result()
+    regs, spill = _build.ptxas_usage(report, inst)
+    ops = _build.sass_opcodes(sass, inst)
+    out = {"registers": regs, "spill_bytes": spill, f"sass_{op}": ops.get(op, 0),
+           "sass_LDGSTS": ops.get("LDGSTS", 0)}
+    log(f"  {name} as built ({inst}): {json.dumps(out)}")
+    if not ops.get(op) or ops.get("LDGSTS"):
+        raise AssertionError(f"{name}: its SASS holds {ops.get(op, 0)} {op} and "
+                             f"{ops.get('LDGSTS', 0)} LDGSTS")
+    return out
+
+
+def _one_kernel(label, call):
+    """``call()`` is one kernel and one graph node on the card (a first call
+    outside the capture makes its buffers)."""
+    call()
+    if (nodes := kernels_per_call(call)) != (1, 1):
+        raise AssertionError(f"{label}: a call is {nodes} (kernels, graph nodes)")
+
+
 def _probe_run(label, fn, kernels):
     """Run one probe with the launch counts set to 0 just before and read
     just after; every kernel in ``kernels`` must have launched. Returns the
@@ -1840,26 +1891,39 @@ def probe_phase():
             res["library_ms"], GBps=v["GBps"]))
     gen = torch.Generator(device="cuda").manual_seed(3)
     xp = torch.randn((1, manual_dma_probe.K), generator=gen, device="cuda").bfloat16()
-    for n in (manual_dma_probe.N1, manual_dma_probe.N2):
-        wp = torch.randint(-128, 128, (n, manual_dma_probe.K), generator=gen,
-                           device="cuda").to(torch.int8)
-        if (nodes := kernels_per_call(lambda: manual_dma_probe.manual_dma_std(xp, wp))) != (1, 1):
-            raise AssertionError(f"P1 N={n}: a call is {nodes} (kernels, graph nodes)")
+    wps = [torch.randint(-128, 128, (n, manual_dma_probe.K), generator=gen,
+                         device="cuda").to(torch.int8)
+           for n in (manual_dma_probe.N1, manual_dma_probe.N2)]
+    for wp in wps:
+        _one_kernel(f"P1 N={wp.shape[0]}", lambda: manual_dma_probe.manual_dma_std(xp, wp))
+    _one_kernel("P2", lambda: manual_dma_probe.manual_dma_persistent(xp, *wps))
+    rows[-1].update(ring_build("manual_dma_persistent"))
     answers["manual_dma"] = {"speedup_manual_vs_two_calls": res["speedup_manual_vs_two_calls"],
                              **{f"{a}_GBps": res[a]["GBps"] for a in ("two_calls", "manual")}}
     log(f"  manual / two_calls speedup = {res['speedup_manual_vs_two_calls']:.3f}")
+    del wps
 
     arms = tuple(int4_probe2.CONFIGS)
     res, counts = _probe_run("int4 qparams layouts (K1, eff4, m1)", functools.partial(
         int4_probe2.run_probe, variants=arms, steps=4, reps=2),
         ["int4_dq_matmul_gemv", "int4_dq_matmul_eff4", "int4_dq_matmul_m1"])
+    for (K, N), l in zip(int4_probe2.SHAPES, (3, 1)):  # each arm one kernel a call
+        wp, scale, zero, qe = int4_probe2.make_data(gen, layers=4, shapes=[(K, N)])[0][0]
+        xq = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+        for cb in (None, int4_probe2.STAGE_GROUPS):
+            qp = qe if cb is None else eff_qparams_to_block_major(qe, cb).contiguous()
+            _one_kernel(f"P6 {'eff4' if cb is None else 'm1'} K={K} N={N}",
+                        lambda: int4_probe2.int4_dq_matmul_eff(xq, wp, qp, group_size=int4_probe2.G,
+                                                               chunk_groups=cb, layer_idx=l))
+        del wp, scale, zero, qe, qp
     for arm, name in (("eff4", "int4_dq_matmul_eff4"), ("m1", "int4_dq_matmul_m1")):
         v = res[arm]
         rows.append(_probe_row(
             name, counts, f"int4 layout probe, {arm}: one sweep of {int4_probe2.L} layers x "
             f"{int4_probe2.SHAPES} at M = 1, g = {int4_probe2.G}", v["ms_per_sweep"],
             v["plain_ms"], res["bytes_per_sweep"], 0, v["max_abs_err"], res["library_ms"],
-            GBps=v["GBps"], k1_GBps=res["k1"]["GBps"]))
+            GBps=v["GBps"], k1_GBps=res["k1"]["GBps"], k1_ms=res["k1"]["ms_per_sweep"],
+            **ring_build(name)))
     answers["int4_layouts"] = {a: res[a]["GBps"] for a in arms}
 
     for label, probe, kernels in (
@@ -1889,6 +1953,7 @@ def main() -> int:
 
     log("== build")
     lib = _build.library()
+    start_ring_reports()
     log(f"  built {lib.path.name} in {lib.build_seconds:.1f} s; nvcc seconds per source: "
         + json.dumps({k: round(v, 1) for k, v in sorted(lib.file_seconds.items())}))
     if "tt_qmm_tiled" in _build.SIGNATURES or hasattr(lib.lib, "tt_qmm_tiled"):

@@ -1089,8 +1089,8 @@ def test_ablation_rung_kernels_match_plain(cuda, rung, int8):
 
 @pytest.mark.cuda
 def test_manual_dma_kernels_match_plain(cuda):
-    """P1 (two launches) and P2 (one persistent, double-buffered launch) at
-    the probe's shapes."""
+    """P1 (two launches) and P2 (one persistent launch on the TMA copy ring)
+    at the probe's shapes."""
     from torchao_tpu_torch.probes import manual_dma_probe as p
 
     gen = torch.Generator(device=cuda).manual_seed(12)
@@ -1104,14 +1104,33 @@ def test_manual_dma_kernels_match_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4])
-@pytest.mark.parametrize("chunk_groups", [None, 32], ids=["eff4", "m1"])
+@pytest.mark.parametrize("n1,n2", [(8, 24), (4096 + 8, 8), (8, 6144)])
+def test_manual_dma_ring_at_other_shapes(cuda, n1, n2):
+    """P2 where the tiles do not fill a wave (3 tiles on 132 blocks), where
+    w2 is one tile, and where w1 is: every tile once, across the boundary."""
+    from torchao_tpu_torch.probes import manual_dma_probe as p
+
+    gen = torch.Generator(device=cuda).manual_seed(n1 + n2)
+    w1, w2 = (torch.randint(-128, 128, (n, p.K), generator=gen, device=cuda).to(torch.int8)
+              for n in (n1, n2))
+    x = (torch.randn((1, p.K), generator=gen, device=cuda) * 0.1).bfloat16()
+    o1, o2 = p.manual_dma_persistent(x, w1, w2)
+    for got, w in ((o1, w1), (o2, w2)):
+        _finite_sqnr_ok(got, p.manual_dma_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 17, 32])
+@pytest.mark.parametrize("chunk_groups", [None, 4], ids=["eff4", "m1"])
 def test_int4_eff_kernels_match_plain(cuda, chunk_groups, M):
-    """P6's layouts on K1's launch, against the batched-int8 plain version;
-    K = 14336 (224 groups a half), N = 4096 + 16 a ragged column tile."""
+    """P6's layouts on the copy ring, against the batched-int8 plain
+    version, at layer 1 of a stacked weight; K = 14336 (224 groups a half),
+    N = 4096 + 16 a ragged last strip (the box past N zero-filled); m1 at
+    the kernel's chunk, a stage's groups."""
     from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
     from torchao_tpu_torch.probes import int4_probe2 as p6
 
+    assert chunk_groups in (None, p6.STAGE_GROUPS)
     gen = torch.Generator(device=cuda).manual_seed(M)
     wp, scale, zero = _int4_weight(gen, 2, 14336, 4096 + 16, 32, cuda)
     qp = p6.eff_qparams(scale, zero)
@@ -1121,6 +1140,69 @@ def test_int4_eff_kernels_match_plain(cuda, chunk_groups, M):
     got = p6.int4_dq_matmul_eff(x, wp, qp, group_size=32, chunk_groups=chunk_groups, layer_idx=1)
     _sqnr_ok(got, p6.int4_dq_matmul_eff_plain(x, wp, qp, group_size=32,
                                               chunk_groups=chunk_groups, layer_idx=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5])
+@pytest.mark.parametrize("K,N", [(4096, 512), (14336, 144), (256, 16)])
+@pytest.mark.parametrize("chunk_groups", [None, 4], ids=["eff4", "m1"])
+def test_int4_eff_kernels_short_of_a_wave(cuda, chunk_groups, K, N, M):
+    """P6 where the stages do not fill the card (64, 112 and 1 of them on
+    132 SMs: a block a stage, each strip merged from up to 56 splits by the
+    ticket), against the plain version; the tickets back at 0."""
+    from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
+    from torchao_tpu_torch.probes import int4_probe2 as p6
+
+    gen = torch.Generator(device=cuda).manual_seed(K + N + M)
+    wp, scale, zero = _int4_weight(gen, 1, K, N, 32, cuda)
+    qp = p6.eff_qparams(scale, zero)
+    if chunk_groups:
+        qp = eff_qparams_to_block_major(qp, chunk_groups).contiguous()
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 0.1).bfloat16()
+    got = p6.int4_dq_matmul_eff(x, wp, qp, group_size=32, chunk_groups=chunk_groups, layer_idx=0)
+    _sqnr_ok(got, p6.int4_dq_matmul_eff_plain(x, wp, qp, group_size=32,
+                                              chunk_groups=chunk_groups, layer_idx=0))
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_ring_probes_are_one_kernel_and_repeat_bit_for_bit(cuda):
+    """P2 at the probe's shapes and P6's eff4 and m1 at its two shapes (M =
+    1, layer 3 of 4) and at M = 17: a call is one kernel on the card and
+    nothing else (a CUDA graph captured around it), and two calls back to
+    back and two replays of a graph of one call give the same bits."""
+    from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
+    from torchao_tpu_torch.probes import int4_probe2 as p6
+    from torchao_tpu_torch.probes import manual_dma_probe as p2
+    from torchao_tpu_torch.profiler import kernels_per_call
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    w1, w2 = (torch.randint(-128, 128, (n, p2.K), generator=gen, device=cuda).to(torch.int8)
+              for n in (p2.N1, p2.N2))
+    xp = (torch.randn((1, p2.K), generator=gen, device=cuda) * 0.1).bfloat16()
+    calls = [lambda: p2.manual_dma_persistent(xp, w1, w2)]
+    for K, N in p6.SHAPES:
+        wp, scale, zero = _int4_weight(gen, 4, K, N, 32, cuda)
+        qe = p6.eff_qparams(scale, zero)
+        qm = eff_qparams_to_block_major(qe, p6.STAGE_GROUPS).contiguous()
+        for M in (1, 17):
+            x = (torch.randn((M, K), generator=gen, device=cuda) * 0.1).bfloat16()
+            for qp, cb in ((qe, None), (qm, p6.STAGE_GROUPS)):
+                calls.append(lambda x=x, wp=wp, qp=qp, cb=cb: p6.int4_dq_matmul_eff(
+                    x, wp, qp, group_size=32, chunk_groups=cb, layer_idx=3))
+    same = lambda a, b: all(map(torch.equal, *((t,) if torch.is_tensor(t) else t for t in (a, b))))
+    for call in calls:
+        first = call()
+        assert same(call(), first)
+        assert kernels_per_call(call) == (1, 1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert same(out, first)
+        assert _stream_tickets_are_zero(cuda)
 
 
 @pytest.mark.cuda

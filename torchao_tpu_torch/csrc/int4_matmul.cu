@@ -44,8 +44,8 @@
 // a 1e-30 term; a compile-time parameter of K1's template.
 //
 // The qparams-layout arms of the probe P6 (tt_int4_gemv_eff4 and
-// tt_int4_gemv_m1) stay on the SIMT GEMV design, kept for them alone as
-// p6_gemv_kernel.
+// tt_int4_gemv_m1) run on the copy ring of bulk_ring.cuh (TMA boxes, a
+// persistent grid, the merge in the same launch): p6_ring_kernel below.
 //
 // K5, tt_int4_tiled (M > 32; the prefill runs M = 128): bound by operations
 // on an H100 (2 M N K flops at the 989 TFLOP/s bf16 tensor-core peak against
@@ -87,6 +87,7 @@
 // g == 0, g % 8 == 0 and K/2 % TKP == 0. The M and N edges are masked
 // (N % 16 == 0 is required for the 16-byte loads).
 #include "common.cuh"
+#include "bulk_ring.cuh"
 #include "weight_stream.cuh"
 
 namespace {
@@ -502,159 +503,262 @@ int4_tiled_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict
     }
 }
 
-// ------------------------------------------- the SIMT GEMV design: P6 --
-// P6's qparams-layout arms keep K1's first GEMV design: a block = 128
-// columns x a range of runs of RUN packed rows, each thread 16 columns and
-// every 32nd run of its split, one 16-byte load per packed row, f32 split-K
-// partials to ws[ksplit, M, N] finished by int4_reduce_kernel.
-constexpr int GEMV_THREADS = 256;
-constexpr int GEMV_COLS = 16;                              // one 16-byte load
-constexpr int GEMV_CHUNKS = 8;                             // column chunks / block
-constexpr int GEMV_TN = GEMV_COLS * GEMV_CHUNKS;           // 128 columns
-constexpr int GEMV_LANES = GEMV_THREADS / GEMV_CHUNKS;     // 32 run lanes
-constexpr int RUN = 8;                                     // packed rows per run
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Its epilogue: sum each column's partials over the block's run lanes and
-// store them as split `split` of ws[ksplit, M, N].
-template <int MT>
-__device__ __forceinline__ void store_split(float (&acc)[MT][GEMV_COLS], float* __restrict__ ws,
-                                            int split, int m0, int nb, int M, int N) {
-  const int chunk = threadIdx.x % GEMV_CHUNKS;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][c] = v;
-    }
-  __shared__ float red[GEMV_THREADS / 32][MT][GEMV_TN];
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x % 32) < GEMV_CHUNKS) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) red[warp][m][chunk * GEMV_COLS + c] = acc[m][c];
-  }
-  __syncthreads();
-  if (threadIdx.x < GEMV_TN) {
-    const int n = nb * GEMV_TN + threadIdx.x;
-    if (n < N) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float v = 0.f;
-#pragma unroll
-        for (int w8 = 0; w8 < GEMV_THREADS / 32; ++w8) v += red[w8][m][threadIdx.x];
-        ws[((size_t)split * M + m0 + m) * N + n] = v;
-      }
-    }
-  }
-}
-
-// The 16 columns' scales (or zeros) of group row `gr` from 16-byte loads.
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* __restrict__ p, int gr, int N,
-                                          int n0, float* f) {
-  const uint4* q = reinterpret_cast<const uint4*>(p + (size_t)gr * N + n0);
-  bf16x8_to_float(__ldg(q), f);
-  bf16x8_to_float(__ldg(q + 1), f + 8);
-}
-
-enum QParams { QP_EFF4 = 1, QP_M1 = 2 };  // P6's layouts
-
+// ------------------------------------------------ P6: on the copy ring --
 // P6's arms, replacing scripts/int4_probe2.py::m1_matmul (pallas_call at
 // :141, body _kernel_m1 at :43) and its eff4 arm (the batched-int8 body
-// _kernel_bint8 reading qparams_eff as four streams): the SIMT GEMV's grid,
-// loads and reduce, with the four bf16 qparam families of the batched-int8
-// math (s_lo | s_hi/16 | z - 8 s_lo | z_hi) read in place of scale and zero,
-// either family-major [4 nG, N] (eff4: four row streams) or chunked
-// block-major [nG/cb, 4, cb, N] (m1: the four families of a chunk of cb
-// groups in one contiguous slab, eff_qparams_to_block_major's layout).
+// _kernel_bint8 reading qparams_eff as four block streams): the int4 decode
+// GEMV with the four bf16 qparam families of the batched-int8 math
+// (s_lo | s_hi/16 | z - 8 s_lo | z_hi) read in place of scale and zero, laid
+// out family-major [4 nG, N] (eff4) or chunked block-major [nG / P6_SG, 4,
+// P6_SG, N] (m1: the four families of a chunk of P6_SG groups in one slab,
+// eff_qparams_to_block_major's layout with the chunk a stage's groups):
 //   sum_k x dq = s_lo * sum x lo + (s_hi/16) * 16 sum x (hi - 8)
 //                + (z - 8 s_lo) * sum x_lo + z_hi * sum x_hi
-// The same bytes as K1 (two bf16 [K/g, N] arrays there, one [2K/g, N] array
-// here), so the two arms price the layout on one design; the probe's K1 arm
-// is K1 itself (tt_int4_gemv, on the weight stream).
-// grid: (ceil(N / 128), ksplit, ceil(M / MT)); `qp` in that layout (`cb`
-// groups per chunk for QP_M1).
-template <int MT, int QP>
-__global__ void __launch_bounds__(GEMV_THREADS)
-p6_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
-               const __nv_bfloat16* __restrict__ qp, float* __restrict__ ws, int M, int K, int N,
-               int g, int cb) {
-  const int Kp = K / 2, nG = Kp / g;
-  const int chunk = threadIdx.x % GEMV_CHUNKS;
-  const int lane = threadIdx.x / GEMV_CHUNKS;
-  const int n0 = blockIdx.x * GEMV_TN + chunk * GEMV_COLS;
-  const int m0 = blockIdx.z * MT;
-  const int runs = Kp / RUN;
-  const int r0 = (int)(((long long)blockIdx.y * runs) / gridDim.y);
-  const int r1 = (int)(((long long)(blockIdx.y + 1) * runs) / gridDim.y);
+// Bound by bytes on an H100, as K1 (the same bytes: two bf16 [K/g, N] arrays
+// there, one [2K/g, N] here). The TPU script prices the qparams as four DMA
+// streams a grid step (eff4) against one (m1); here the copies are TMA boxes
+// on the ring of bulk_ring.cuh, so the two arms differ in just that:
+//   - a stage is P6_SG groups (P6_ROWS packed rows) of one 128-column strip:
+//     one box of the weights (2D tensor map of the layer's [K/2, N] bytes);
+//     of the qparams, four boxes of P6_SG rows, one per family (eff4), or ONE
+//     box of 4 P6_SG rows (m1), both landing as [family][group][column]; and
+//     the stage's x, two boxes of M rows x P6_ROWS (its low-half and
+//     high-half k), so the consumers read nothing from device memory;
+//   - a persistent grid, at most one block per SM, in wave order: a work item
+//     is (strip, K range), the strip's stages cut into ksplit ranges (ksplit
+//     = SMs / strips where the strips do not fill the card), the items
+//     numbered split-major and dealt round-robin to the blocks. So at any
+//     time the blocks stream neighbouring strips at the same K, and a DRAM
+//     page of a K-major row serves several SMs at once (the stages cut into
+//     contiguous ranges a block, strip-major, kept SMs at distant K and read
+//     the same bytes 15-20% slower); every block has the same items within
+//     one. The ring flows across a block's items.
+//   - P6_WARPS consumer warps: warp w takes group w % P6_SG of each stage (32
+//     packed rows) in the column half w / P6_SG (64 columns), on the tensor
+//     cores as K1's stream does (weight_stream.cuh): a packed byte's (lo, hi)
+//     nibble pair is one bf16x2 A element, exact as 128 + q; bf16
+//     mma.sync.m16n8k16 takes it twice, against x as (x_lo, 0) and as (0,
+//     x_hi), so the low and the high half keep their own f32 sums D_lo =
+//     sum x_lo (128 + lo) and D_hi = sum x_hi (128 + hi) for the group; the
+//     fold then takes the group's qparams and x sums (128 and 136 of each x
+//     back out of the zero terms):
+//       s_lo D_lo + s_hi D_hi + sum x_lo (z_lo - 128 s_lo) + sum x_hi (z_hi - 136 s_hi)
+//     with s_hi = 16 (s_hi/16). Lane (gq, tq) reads 8 columns (64 h + 8 gq ..)
+//     of rows tq and tq + 4 of each 8-row step: byte j of a row is A row gq
+//     (j < 4) or gq + 8 of n-tile j % 4;
+//   - at the end of an item the warps meet in shared memory (a fixed order);
+//     a strip's ksplit partials merge in the same launch by the last item's
+//     ticket (wstream::merge_with: ws [ksplit][M][N], the split the item's K
+//     range): one kernel a call, and every sum in a fixed order, so two
+//     calls give the same bits.
+// The plan is mirrored in probes/int4_probe2.py::ring_plan. g = P6_G and
+// M <= P6_MAX_M (MT n8-tiles of x's rows); the sums' and x's room sets the
+// ring's depth (p6_stages).
+constexpr int P6_G = 32;                              // the group size the arms take
+constexpr int P6_SG = 4;                              // groups a stage: m1's chunk
+constexpr int P6_ROWS = P6_SG * P6_G;                 // packed rows a stage
+constexpr int P6_COLS = wstream::COLS;                // a strip
+constexpr int P6_WBYTES = P6_ROWS * P6_COLS;          // 16 KB of weights a stage
+constexpr int P6_QBYTES = 4 * P6_SG * P6_COLS * 2;    // 4 KB of qparams a stage
+constexpr int P6_XBYTES = 2 * P6_ROWS * 2;            // a row of x's two halves a stage
+constexpr int P6_WARPS = wstream::WARPS;              // consumer warps
+constexpr int P6_THREADS = (P6_WARPS + 1) * 32;       // and the producer warp
+constexpr int P6_MAX_STAGES = 4;  // deeper rings read slower (8: +20%)
+constexpr int P6_MAX_M = 32;
+static_assert(P6_WARPS == 2 * P6_SG, "a warp takes one group of a stage and half its columns");
 
-  float acc[MT][GEMV_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) acc[m][c] = 0.f;
+// a stage's bytes at M rows of x (weights, qparams, x)
+__host__ __device__ constexpr int p6_stage_bytes(int M) {
+  return P6_WBYTES + P6_QBYTES + M * P6_XBYTES;
+}
+static_assert(p6_stage_bytes(P6_MAX_M) <= (int)bulk::MAX_TX, "a stage must fit one mbarrier phase");
 
-  if (n0 < N) {
-    for (int r = r0 + lane; r < r1; r += GEMV_LANES) {
-      const int kp0 = r * RUN;
-      const int glo = kp0 / g;
-      uint4 w[RUN];
+// eight bf16 (one 16-byte shared load) as floats
+__device__ __forceinline__ void bf16x8_smem(const __nv_bfloat16* p, float (&f)[8]) {
+  bf16x8_to_float(*reinterpret_cast<const uint4*>(p), f);
+}
+
+// One warp's share of a stage: group w % P6_SG of the slot's weights W,
+// qparams Q and x rows X ([2][M][P6_ROWS] bf16), columns 64 (w / P6_SG) ..
+// + 63, folded into acc (n8-tile mt of x's rows, n-tile t, C element e).
+template <int MT>
+__device__ __forceinline__ void p6_stage(const uint8_t* W, const __nv_bfloat16* Q,
+                                         const __nv_bfloat16* X, int M,
+                                         float (&acc)[MT][4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int grp = warp % P6_SG, col = 64 * (warp / P6_SG) + 8 * gq;
+  const uint8_t* rows = W + (P6_G * grp + tq) * P6_COLS + col;
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(X) + P6_G * grp + tq;
+  float dlo[MT][4][4], dhi[MT][4][4], sxl[MT], sxh[MT];
 #pragma unroll
-      for (int i = 0; i < RUN; ++i)
-        w[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)(kp0 + i) * N + n0));
-      // family f of lo-half group glo: s_lo, s_hi/16, z - 8 s_lo, z_hi
-      auto row = [&](int f) -> size_t {
-        return QP == QP_EFF4 ? (size_t)f * nG + glo
-                             : ((size_t)(glo / cb) * 4 + f) * cb + glo % cb;
-      };
-      float s_lo[GEMV_COLS], z_lo[GEMV_COLS], s_hi[GEMV_COLS], z_hi[GEMV_COLS];
-      load_cols(qp, row(0), N, n0, s_lo);
-      load_cols(qp, row(1), N, n0, s_hi);
-      load_cols(qp, row(2), N, n0, z_lo);
-      load_cols(qp, row(3), N, n0, z_hi);
+  for (int mt = 0; mt < MT; ++mt) {
+    sxl[mt] = sxh[mt] = 0.f;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m0 + m >= M) break;
-        float xl[RUN], xh[RUN];
-        const __nv_bfloat16* xr = x + (size_t)(m0 + m) * K;
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + kp0)), xl);
-        bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(xr + Kp + kp0)), xh);
-        float sxl = 0.f, sxh = 0.f;
-        float pl[GEMV_COLS], ph[GEMV_COLS];
+    for (int t = 0; t < 4; ++t)
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) { pl[c] = 0.f; ph[c] = 0.f; }
+      for (int e = 0; e < 4; ++e) dlo[mt][t][e] = dhi[mt][t][e] = 0.f;
+  }
 #pragma unroll
-        for (int i = 0; i < RUN; ++i) {
-          sxl += xl[i];
-          sxh += xh[i];
-          const uint32_t* wd = reinterpret_cast<const uint32_t*>(&w[i]);
+  for (int ks = 0; ks < P6_G / 8; ++ks) {  // 8-row steps of the group
+    const uint2 r0 = *reinterpret_cast<const uint2*>(rows + 8 * ks * P6_COLS);
+    const uint2 r1 = *reinterpret_cast<const uint2*>(rows + (8 * ks + 4) * P6_COLS);
+    uint32_t a0[4], a1[4], a2[4], a3[4];  // n-tile t's A: rows gq / gq + 8, k rows tq / tq + 4
+    wstream::nibble_pairs(r0.x, a0);
+    wstream::nibble_pairs(r0.y, a1);
+    wstream::nibble_pairs(r1.x, a2);
+    wstream::nibble_pairs(r1.y, a3);
 #pragma unroll
-          for (int d = 0; d < 4; ++d) {
-            const uint32_t lo4 = wd[d] & 0x0F0F0F0Fu;
-            const uint32_t hi4 = ((wd[d] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = 8 * mt + gq;  // B's column: a row of x
+      uint32_t l0 = 0, l1 = 0, h0 = 0, h1 = 0;
+      if (m < M) {
+        const uint16_t* xm = xs + m * P6_ROWS + 8 * ks;
+        l0 = xm[0];
+        l1 = xm[4];
+        h0 = (uint32_t)xm[M * P6_ROWS] << 16;
+        h1 = (uint32_t)xm[M * P6_ROWS + 4] << 16;
+      }
+      sxl[mt] += __uint_as_float(l0 << 16) + __uint_as_float(l1 << 16);
+      sxh[mt] += __uint_as_float(h0) + __uint_as_float(h1);
+      const uint32_t blo[2] = {l0, l1}, bhi[2] = {h0, h1};
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              pl[4 * d + j] = fmaf(xl[i], nib(lo4, j), pl[4 * d + j]);          // x * lo
-              ph[4 * d + j] = fmaf(xh[i], nib_minus8(hi4, j), ph[4 * d + j]);   // x * (hi - 8)
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c)
-          acc[m][c] += s_lo[c] * pl[c] + (16.f * s_hi[c]) * ph[c] + z_lo[c] * sxl +
-                       z_hi[c] * sxh;
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t a[4] = {a0[t], a1[t], a2[t], a3[t]};
+        mma_bf16_16816(dlo[mt][t], a, blo);
+        mma_bf16_16816(dhi[mt][t], a, bhi);
       }
     }
   }
-  store_split<MT>(acc, ws, blockIdx.y, m0, blockIdx.x, M, N);
+  // the group's qparams of the lane's 8 columns: c < 4 A row gq of n-tile c,
+  // c >= 4 row gq + 8 of n-tile c - 4
+  float s_lo[8], s_hi[8], z_lo[8], z_hi[8];
+  const __nv_bfloat16* q = Q + grp * P6_COLS + col;
+  bf16x8_smem(q, s_lo);
+  bf16x8_smem(q + P6_SG * P6_COLS, s_hi);
+  bf16x8_smem(q + 2 * P6_SG * P6_COLS, z_lo);
+  bf16x8_smem(q + 3 * P6_SG * P6_COLS, z_hi);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    s_hi[c] *= 16.f;
+    z_lo[c] = fmaf(-128.f, s_lo[c], z_lo[c]);
+    z_hi[c] = fmaf(-136.f, s_hi[c], z_hi[c]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // the x sums of rows 8 mt + gq over the group, then of this lane's C rows
+    float l = sxl[mt], h = sxh[mt];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    h += __shfl_xor_sync(0xffffffffu, h, 1);
+    h += __shfl_xor_sync(0xffffffffu, h, 2);
+    const float xl0 = __shfl_sync(0xffffffffu, l, 8 * tq), xl1 = __shfl_sync(0xffffffffu, l, 8 * tq + 4);
+    const float xh0 = __shfl_sync(0xffffffffu, h, 8 * tq), xh1 = __shfl_sync(0xffffffffu, h, 8 * tq + 4);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = t + 4 * (e >> 1);
+        const float xl = e & 1 ? xl1 : xl0, xh = e & 1 ? xh1 : xh0;
+        acc[mt][t][e] += s_lo[c] * dlo[mt][t][e] + s_hi[c] * dhi[mt][t][e] + xl * z_lo[c] +
+                         xh * z_hi[c];
+      }
+  }
+}
+
+// grid: persistent blocks over the strips * ksplit items (item j: strip j %
+// strips, split j / strips; block b takes items b, b + grid, ...); block:
+// P6_WARPS consumer warps and the producer warp. wmap: the
+// layer's weights [K/2, N] u8, boxes P6_ROWS x P6_COLS; qmap: its qparams [4
+// nG, N] bf16, boxes of P6_SG rows (eff4) or 4 P6_SG (M1); xmap: x [M, K]
+// bf16, boxes of M x P6_ROWS. ws ([max splits][M][N] f32) and the tickets
+// (one per strip, zero) as wstream::merge_with takes them. Dynamic shared
+// memory: the ring's `stages` slots, the sums [P6_SG][M][P6_COLS] f32, the
+// barriers.
+template <int MT, bool M1>
+__global__ void __launch_bounds__(P6_THREADS, 1)
+p6_ring_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap xmap, float* __restrict__ ws,
+               int* __restrict__ tickets, __nv_bfloat16* __restrict__ out, int M, int K, int N,
+               int ksplit, int stages) {
+  extern __shared__ __align__(128) uint8_t p6_smem[];
+  const int stage_bytes = p6_stage_bytes(M);
+  float* red = reinterpret_cast<float*>(p6_smem + stages * stage_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + P6_SG * M * P6_COLS);
+  const bulk::Ring ring{bars, bars + stages};
+  const int Kp = K / 2, nG = Kp / P6_G, sps = nG / P6_SG, strips = (N + P6_COLS - 1) / P6_COLS;
+  const int items = strips * ksplit;
+  // item j's stages, counted within its strip
+  auto first = [&](int j) { return (j / strips) * sps / ksplit; };
+  auto last = [&](int j) { return (j / strips + 1) * sps / ksplit; };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) ring.init(stages, P6_WARPS);
+  __syncthreads();
+
+  bulk::Cursor c(stages);
+  if (warp == P6_WARPS) {  // the producer
+    if (lane == 0)
+      for (int j = blockIdx.x; j < items; j += gridDim.x)
+        for (int ks = first(j); ks < last(j); ++ks, c.next()) {
+          const int col = (j % strips) * P6_COLS;
+          uint8_t* slot = p6_smem + c.stage * stage_bytes;
+          uint64_t* full = ring.full + c.stage;
+          c.acquire(ring);
+          bulk::mbar_expect_tx(full, stage_bytes);
+          bulk::copy_2d(slot, &wmap, col, ks * P6_ROWS, full);
+          if (M1) {
+            bulk::copy_2d(slot + P6_WBYTES, &qmap, col, 4 * P6_SG * ks, full);
+          } else {
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+              bulk::copy_2d(slot + P6_WBYTES + f * P6_SG * P6_COLS * 2, &qmap, col,
+                            f * nG + P6_SG * ks, full);
+          }
+          uint8_t* xs = slot + P6_WBYTES + P6_QBYTES;
+          bulk::copy_2d(xs, &xmap, ks * P6_ROWS, 0, full);
+          bulk::copy_2d(xs + M * P6_ROWS * 2, &xmap, Kp + ks * P6_ROWS, 0, full);
+        }
+    return;
+  }
+
+  const int gq = lane / 4, tq = lane % 4;
+  const int part = warp % P6_SG, col = 64 * (warp / P6_SG) + 8 * gq;
+  float acc[MT][4][4];
+  for (int j = blockIdx.x; j < items; j += gridDim.x) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+    for (int ks = first(j); ks < last(j); ++ks, c.next()) {
+      c.wait_full(ring);
+      const uint8_t* slot = p6_smem + c.stage * stage_bytes;
+      p6_stage<MT>(slot, reinterpret_cast<const __nv_bfloat16*>(slot + P6_WBYTES),
+                   reinterpret_cast<const __nv_bfloat16*>(slot + P6_WBYTES + P6_QBYTES), M, acc);
+      c.release(ring);
+    }
+    // the item's sums: the warps of a column half meet in shared memory, then
+    // the strip's merge
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 8 * mt + 2 * tq + (e & 1);
+          if (m < M) red[(part * M + m) * P6_COLS + col + t + 4 * (e >> 1)] = acc[mt][t][e];
+        }
+    bulk::consumer_sync<P6_WARPS * 32>();
+    wstream::merge_with<P6_SG>(
+        red, nullptr, ws, tickets, M, N, j % strips, j / strips, ksplit,
+        [&](int m, int n, float v) { out[(size_t)m * N + n] = __float2bfloat16(v); },
+        [] { bulk::consumer_sync<P6_WARPS * 32>(); });
+    bulk::consumer_sync<P6_WARPS * 32>();  // red is free for the next item
+  }
 }
 
 // ------------------------------------------------ K14: the int4 variants --
@@ -1194,25 +1298,54 @@ static int reduce_splits(float* ws, void* out, int ksplit, int M, int N, cudaStr
   return cudaGetLastError();
 }
 
-// P6's layouts: the SIMT GEMV's launch with the qparams_eff array in `qp`.
-template <int QP>
-static int launch_gemv_eff(const void* x, const void* wp, const void* qp, void* ws, void* out,
-                           int M, int K, int N, int g, int cb, int ksplit, void* stream) {
-  if (QP == QP_M1 && (cb < 1 || (K / 2 / g) % cb)) return cudaErrorInvalidValue;
+// P6's ring depth at M rows of x: as many slots as fit beside the sums
+static int p6_stages(int M) {
+  const int red = P6_SG * M * P6_COLS * 4;
+  const int s = (wstream::MAX_SMEM - red) / (p6_stage_bytes(M) + 16);
+  return s < P6_MAX_STAGES ? s : P6_MAX_STAGES;
+}
+
+template <int MT, bool M1>
+static int launch_p6_mt(const CUtensorMap& wmap, const CUtensorMap& qmap, const CUtensorMap& xmap,
+                        void* ws, void* tickets, void* out, int M, int K, int N, int ksplit,
+                        int blocks, cudaStream_t st) {
+  static int configured = 0;  // the largest dynamic shared memory asked for so far
+  const int stages = p6_stages(M);
+  const int smem = stages * (p6_stage_bytes(M) + 16) + P6_SG * M * P6_COLS * 4;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(p6_ring_kernel<MT, M1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  p6_ring_kernel<MT, M1><<<blocks, P6_THREADS, smem, st>>>(
+      wmap, qmap, xmap, static_cast<float*>(ws), static_cast<int*>(tickets),
+      static_cast<__nv_bfloat16*>(out), M, K, N, ksplit, stages);
+  return cudaGetLastError();
+}
+
+// P6's arms: the tensor maps of x and of the layer's weights and qparams,
+// then the instance for M (up to 8: one n8-tile of x's rows; up to 32).
+template <bool M1>
+static int launch_p6(const void* x, const void* wp, const void* qp, void* ws, void* tickets,
+                     void* out, int M, int K, int N, int g, int ksplit, int blocks,
+                     void* stream) {
+  const int Kp = K / 2, strips = (N + P6_COLS - 1) / P6_COLS;
+  if (M < 1 || M > P6_MAX_M || g != P6_G || K % 2 || Kp % P6_ROWS || N % 16 || ksplit < 1 ||
+      ksplit > Kp / P6_ROWS || blocks < 1 || blocks > strips * ksplit || !tickets ||
+      (!ws && ksplit > 1) || p6_stages(M) < 2)
+    return cudaErrorInvalidValue;
+  CUtensorMap wmap, qmap, xmap;
+  int e = bulk::encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wp, Kp, N, N, P6_ROWS, P6_COLS);
+  if (!e)
+    e = bulk::encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, 4 * (Kp / g), N, N,
+                        M1 ? 4 * P6_SG : P6_SG, P6_COLS);
+  if (!e) e = bulk::encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, K, M, P6_ROWS);
+  if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mt = M == 1 ? 1 : 4;
-  dim3 grid((N + GEMV_TN - 1) / GEMV_TN, ksplit, (M + mt - 1) / mt);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto w8 = static_cast<const uint8_t*>(wp);
-  auto q = static_cast<const __nv_bfloat16*>(qp);
-  auto wsf = static_cast<float*>(ws);
-  if (mt == 1)
-    p6_gemv_kernel<1, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, wsf, M, K, N, g, cb);
-  else
-    p6_gemv_kernel<4, QP><<<grid, GEMV_THREADS, 0, st>>>(xb, w8, q, wsf, M, K, N, g, cb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(wsf, out, ksplit, M, N, st);
+  if (M <= 8)
+    return launch_p6_mt<1, M1>(wmap, qmap, xmap, ws, tickets, out, M, K, N, ksplit, blocks, st);
+  return launch_p6_mt<4, M1>(wmap, qmap, xmap, ws, tickets, out, M, K, N, ksplit, blocks, st);
 }
 
 // K1's shared memory: the rings and the split's x pairs, or (after the
@@ -1288,18 +1421,21 @@ TT_EXPORT int tt_int4_gemv_stub(const void* x, const void* wp, const void* sc, c
   return launch_gemv<true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, stream);
 }
 
-// P6: x, wp, ws, out and the sizes as the SIMT GEMV took them (ws [ksplit,
-// M, N] f32 scratch), with qp, the qparams_eff array [2K/g, N] bf16,
-// family-major (eff4) or block-major in chunks of cb groups (m1), in place of
-// scale and zero.
+// P6: x [M, K] bf16, wp [K/2, N] u8 (one layer, 0x80-XORed), qp the qparams_eff
+// array [2K/g, N] bf16 of that layer, family-major (eff4) or block-major in
+// chunks of P6_SG groups (m1); ws ([ksplit][M][N] f32, null for one split)
+// and tickets (one per strip, zero) as wstream::merge_with takes them;
+// `ksplit` K ranges a strip; `blocks` persistent blocks (at most the items).
 TT_EXPORT int tt_int4_gemv_eff4(const void* x, const void* wp, const void* qp, void* ws,
-                                void* out, int M, int K, int N, int g, int ksplit, void* stream) {
-  return launch_gemv_eff<QP_EFF4>(x, wp, qp, ws, out, M, K, N, g, 0, ksplit, stream);
+                                void* tickets, void* out, int M, int K, int N, int g, int ksplit,
+                                int blocks, void* stream) {
+  return launch_p6<false>(x, wp, qp, ws, tickets, out, M, K, N, g, ksplit, blocks, stream);
 }
 
-TT_EXPORT int tt_int4_gemv_m1(const void* x, const void* wp, const void* qp, void* ws, void* out,
-                              int M, int K, int N, int g, int cb, int ksplit, void* stream) {
-  return launch_gemv_eff<QP_M1>(x, wp, qp, ws, out, M, K, N, g, cb, ksplit, stream);
+TT_EXPORT int tt_int4_gemv_m1(const void* x, const void* wp, const void* qp, void* ws,
+                              void* tickets, void* out, int M, int K, int N, int g, int ksplit,
+                              int blocks, void* stream) {
+  return launch_p6<true>(x, wp, qp, ws, tickets, out, M, K, N, g, ksplit, blocks, stream);
 }
 
 template <bool HAS_Z>

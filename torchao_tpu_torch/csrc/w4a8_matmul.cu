@@ -329,7 +329,8 @@ w4a8_stream_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
           make_float2(mine[s].y, mine[s].w);
   }
   __syncthreads();
-  wstream::merge_with<RANGES>(red, nullptr, work, tickets, M, N, [&](int m, int n, float v) {
+  wstream::merge_with<RANGES>(red, nullptr, work, tickets, M, N, blockIdx.x, blockIdx.y,
+                              gridDim.y, [&](int m, int n, float v) {
     store_out(out, out_f32, (size_t)m * N + n, v * load_scale(xs, xs_kind, m));
   });
 }

@@ -161,16 +161,24 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ base, size
 }
 
 // The block's merge, once its partial sums are in shared memory: red holds
-// [PARTS][M][COLS] f32. Sums the parts in order, then either stores out (one
+// [PARTS][M][COLS] f32 for the COLS columns of strip `strip`, split `split`
+// of its `nsplit`. Sums the parts in order, then either stores out (one
 // split: store(m, n, v)) or stores the split's partial to ws[split][M][N]
 // and lets the last split of the strip merge, in split order, and store.
 // extra (may be null): [M][COLS] f32 more to add per column (K11's B plane).
-template <int PARTS, class Store>
+// Every thread of the block takes part (THREADS of them, the block's meeting
+// being sync(): __syncthreads, or the consumers' own barrier of a ring).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+template <int PARTS, class Store, class Sync = BlockSync>
 __device__ __forceinline__ void merge_with(const float* red, const float* extra,
                                            float* __restrict__ ws, int* __restrict__ tickets,
-                                           int M, int N, Store&& store) {
+                                           int M, int N, int strip, int split, int nsplit,
+                                           Store&& store, Sync sync = Sync()) {
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * COLS, split = blockIdx.y, nsplit = gridDim.y;
+  const int n0 = strip * COLS;
   for (int i = tid; i < M * COLS; i += THREADS) {
     const int m = i / COLS, c = i % COLS, n = n0 + c;
     if (n >= N) continue;
@@ -186,11 +194,11 @@ __device__ __forceinline__ void merge_with(const float* red, const float* extra,
   if (nsplit == 1) return;
   __shared__ int is_last;
   __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(tickets + blockIdx.x, 1) == nsplit - 1;
-  __syncthreads();
+  sync();
+  if (tid == 0) is_last = atomicAdd(tickets + strip, 1) == nsplit - 1;
+  sync();
   if (!is_last) return;
-  if (tid == 0) tickets[blockIdx.x] = 0;  // ready for the next launch
+  if (tid == 0) tickets[strip] = 0;  // ready for the next launch
   __threadfence();
   for (int i = tid; i < M * COLS; i += THREADS) {
     const int m = i / COLS, c = i % COLS, n = n0 + c;
@@ -208,7 +216,8 @@ __device__ __forceinline__ void merge(const float* red, const float* extra,
                                       const __nv_bfloat16* __restrict__ scale,
                                       float* __restrict__ ws, int* __restrict__ tickets,
                                       __nv_bfloat16* __restrict__ out, int M, int N) {
-  merge_with<PARTS>(red, extra, ws, tickets, M, N, [&](int m, int n, float v) {
+  merge_with<PARTS>(red, extra, ws, tickets, M, N, blockIdx.x, blockIdx.y, gridDim.y,
+                    [&](int m, int n, float v) {
     out[(size_t)m * N + n] = __float2bfloat16(scale ? v * __bfloat162float(scale[n]) : v);
   });
 }

@@ -14,7 +14,9 @@ time and SQNR against the plain version.
 wrapper's plan patched), where the tree has the plan functions
 (``fp6_matmul.fp6_nsplit``, ``_qmm.gemv1_nsplit``,
 ``int4_matmul.k14_nsplit`` and ``gemv_nsplit``,
-``w4a8_matmul.gemv_nsplit``). ``--forms`` picks forms by a substring of
+``w4a8_matmul.gemv_nsplit``); P6's arms (``eff4``, ``m1``: K1's bytes in
+the qparams_eff layouts) and P2's pair (the manual-DMA probe's two GEMVs in
+one launch) are timed the same way, without a sweep. ``--forms`` picks forms by a substring of
 their names. The inputs are random, from a seeded generator: s4 / s2 bytes
 (every byte is a valid field), power-of-two scales, e4m3 weights drawn from
 a normal, int4 bytes with g = 32 scales and zeros, int8 weights. The module
@@ -135,6 +137,37 @@ def _int8_case(gen, N, K, int8_x):
     return lambda: call(*args), lambda: plain(*args), nbytes, (_qmm, "gemv1_nsplit")
 
 
+def _p6_case(gen, N, K, m1):
+    """P6's eff4 (``m1`` False) or m1 arm at M = 1 on K1's bytes: 0x80-XORed
+    int4 bytes, g = 32 scales and zeros as the qparams_eff array, family-major
+    or block-major in chunks of a stage's groups."""
+    from torchao_tpu_torch.kernels.int4_matmul import eff_qparams_to_block_major
+    from torchao_tpu_torch.probes import int4_probe2 as P6
+
+    wp, scale, zero, qp = P6.make_data(gen, layers=1, shapes=[(K, N)])[0][0]
+    cb = P6.STAGE_GROUPS if m1 else None
+    if m1:
+        qp = eff_qparams_to_block_major(qp, cb).contiguous()
+    x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+    kw = dict(group_size=P6.G, chunk_groups=cb, layer_idx=0)
+    nbytes = K // 2 * N + 2 * (K // P6.G) * N * 2 + 2 * K + 2 * N
+    return (lambda: P6.int4_dq_matmul_eff(x, wp, qp, **kw),
+            lambda: P6.int4_dq_matmul_eff_plain(x, wp, qp, **kw), nbytes, (P6, ""))
+
+
+def _p2_case(gen, N, K):
+    """P2: the manual-DMA probe's pair (w1 [4096, K], w2 [N - 4096, K] int8)
+    in one launch; both outputs."""
+    from torchao_tpu_torch.probes import manual_dma_probe as P2
+
+    w1, w2 = (torch.randint(-128, 128, (n, K), generator=gen, device="cuda").to(torch.int8)
+              for n in (P2.N1, N - P2.N1))
+    x = (torch.randn((1, K), generator=gen, device="cuda") * 0.1).bfloat16()
+    nbytes = N * K + 2 * K + 2 * N
+    return (lambda: P2.manual_dma_persistent(x, w1, w2),
+            lambda: tuple(P2.manual_dma_plain(x, w) for w in (w1, w2)), nbytes, (P2, ""))
+
+
 LAYOUT_ENV = "TORCHAO_TPU_QPARAMS_LAYOUT"
 FORMS = {
     "K12 fp6-packed": (lambda g, N, K: _fp6_case(g, N, K), SHAPES + (HEAD,)),
@@ -151,6 +184,10 @@ FORMS = {
     "K10 gemv w4a8": (_w4a8_case, SHAPES + (HEAD,)),
     "K6 gemv int8wo": (lambda g, N, K: _int8_case(g, N, K, False), SHAPES + (HEAD,)),
     "K7 gemv int8dq": (lambda g, N, K: _int8_case(g, N, K, True), SHAPES + (HEAD,)),
+    # the probes' ring kernels: P6's arms on K1's bytes, and P2's pair (no model path)
+    "P6 eff4 ring": (lambda g, N, K: _p6_case(g, N, K, False), SHAPES + (HEAD,)),
+    "P6 m1 ring": (lambda g, N, K: _p6_case(g, N, K, True), SHAPES + (HEAD,)),
+    "P2 manual-DMA pair": (_p2_case, (("pair", 10240, 4096, 1),)),
 }
 
 
@@ -179,7 +216,9 @@ def main(argv=None) -> int:
         for name, N, K, count in shapes:
             call, plain, nbytes, (mod, plan) = make(gen, N, K)
             ms = cold_ms(call, a.reps)
-            row = {"ms": ms, "GB_s": nbytes / ms / 1e6, "sqnr_db": compute_error(plain(), call())}
+            flat = lambda out: torch.cat(out, 1) if isinstance(out, tuple) else out
+            row = {"ms": ms, "GB_s": nbytes / ms / 1e6,
+                   "sqnr_db": compute_error(flat(plain()), flat(call()))}
             if sweep and hasattr(mod, plan):
                 real = getattr(mod, plan)
                 try:

@@ -120,9 +120,10 @@ SIGNATURES = {
     "tt_int4_group_partial_tiled": _INT4,  # ws may be null (ksplit 1)
     "tt_int4_banded": _STREAM_INT4[:-1] + [c_int, c_ptr],  # and the K-split unit
     "tt_int4_tiled": _INT4,  # ws may be null (ksplit 1)
-    # x, wp, qparams_eff, ws, out, M, K, N, g, (chunk groups,) ksplit, stream
-    "tt_int4_gemv_eff4": [c_ptr] * 5 + [c_int] * 5 + [c_ptr],
-    "tt_int4_gemv_m1": [c_ptr] * 5 + [c_int] * 6 + [c_ptr],
+    # P6's ring: x, wp, qparams_eff, ws (null: one split), tickets, out, M, K, N, g, ksplit,
+    # blocks, stream
+    "tt_int4_gemv_eff4": [c_ptr] * 6 + [c_int] * 6 + [c_ptr],
+    "tt_int4_gemv_m1": [c_ptr] * 6 + [c_int] * 6 + [c_ptr],
     # x, w, work (null: one split), tickets, out, M, K, N, nsplit, stream
     "tt_manual_dma_std": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     # x, w1, w2, out1, out2, K, N1, N2, blocks, stream
@@ -307,6 +308,50 @@ def ptxas_report(names) -> str:
                 raise RuntimeError(f"nvcc failed on {name}:\n{r.stdout}{r.stderr}")
             out.append(f"== {name}: {time.perf_counter() - t0:.1f} s\n{r.stdout}{r.stderr}")
     return "\n".join(out)
+
+
+def compile_report(name: str):
+    """``csrc/<name>`` compiled with the library's flags and ``-Xptxas -v``
+    into a temporary object: ``(ptxas's report, the object's cuobjdump
+    -sass)``. Writes no library (needs ``nvcc`` and ``cuobjdump``)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "k.o"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                            str(CSRC / name), "-o", str(obj)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{r.stdout}{r.stderr}")
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(obj)],
+                              check=True, capture_output=True, text=True).stdout
+    return r.stdout + r.stderr, sass
+
+
+def ptxas_usage(report: str, kernel: str):
+    """``(registers, spill bytes)`` ptxas reports for the first function
+    whose mangled name holds ``kernel``."""
+    import re
+
+    m = re.search(re.escape(kernel) + r"[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                  r"stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", report)
+    if m is None:
+        raise ValueError(f"ptxas reports no {kernel}")
+    return int(m.group(4)), int(m.group(2)) + int(m.group(3))
+
+
+def sass_opcodes(sass: str, kernel: str) -> "collections.Counter[str]":
+    """Every instruction of the functions of ``cuobjdump -sass`` output
+    whose mangled name holds ``kernel``, counted by opcode (``UTMALDG``,
+    ``UBLKCP``, ``LDGSTS``, ...)."""
+    import re
+
+    counts: "collections.Counter[str]" = collections.Counter()
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel in block.split("\n", 1)[0]:
+            for text in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block):
+                toks = [t for t in text.split() if not t.startswith("@")]
+                if toks:
+                    counts[toks[0].split(".")[0]] += 1
+    return counts
 
 
 def sass_loops(sass: str, kernel: str, opcode: str = "") -> str:

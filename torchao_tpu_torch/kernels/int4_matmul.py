@@ -73,7 +73,7 @@ from torchao_tpu_torch.utils import cdiv
 
 GEMV_MAX_M = 32
 BANDED_MAX_M = 16  # the JAX banded bodies' M limit
-GEMV_RUN = 8       # packed rows per run of P6's SIMT GEMV (csrc RUN), a K1 step
+GEMV_RUN = 8       # packed rows per K1 step (csrc wstream::STEP_ROWS)
 TILED_KP = 16      # packed rows per K5 unit: K/2 is a multiple, the K split's unit (csrc TKP)
 TILED_BKP = 32     # packed rows per K5 step; a split ending on an odd unit takes one of 16 (csrc TBKP)
 TILED_BM = 128     # rows of x per K5 block (csrc TBM)

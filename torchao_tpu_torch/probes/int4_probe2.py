@@ -6,25 +6,34 @@ w2-like [14336 → 4096], 16 stacked layers, random weights), reading the
 qparams in three layouts:
 
 - ``k1``: production K1 (``int4_dq_matmul``, ``batched_int8``), which reads
-  ``scale`` and ``zero`` ``[K/g, N]`` bf16, two streams;
+  ``scale`` and ``zero`` ``[K/g, N]`` bf16, two streams, on its own design
+  (the tensor-core weight stream, each lane's loads in registers);
 - ``eff4``: the four bf16 families of ``qparams_eff`` (s_lo | s_hi/16 |
-  z − 8·s_lo | z_hi) family-major ``[2K/g, N]``, four row streams
-  (:func:`int4_dq_matmul_eff`);
+  z − 8·s_lo | z_hi) family-major ``[2K/g, N]``, fetched as FOUR TMA boxes a
+  stage (:func:`int4_dq_matmul_eff`);
 - ``m1``, ``m1bn4096``, ``m1bkp2048``: the same families chunked block-major
-  (``eff_qparams_to_block_major(qeff, bkp // g // n_chunks)``), the four
-  families of a chunk of groups in one contiguous slab, one stream.
+  (``eff_qparams_to_block_major(qeff, STAGE_GROUPS)``), the four families of
+  a stage's groups in one contiguous slab, fetched as ONE box a stage.
 
-All arms read the same bytes, 73.4 MB per layer (1.174 GB per sweep of 16
-layers, past the L2). ``bn`` and ``bkp`` are the TPU kernel's block shapes:
-the CUDA kernel tiles on its own, so ``m1``, ``m1bn4096`` and ``m1bkp2048``
-resolve to one launch on one layout (32 groups a chunk): it is checked and
-timed once, and the other two names report that arm's numbers
-(``same_launch_as``). The script's ``m1bkp2048`` lays its qparams out per K
-block (``to_block_major(qeff, bkp // g)``) while its kernel slices them per
-chunk, and computes a wrong answer; here every arm takes the chunked layout.
-A sweep is captured in a CUDA graph and ``steps`` replays are timed with CUDA
-events; each arm is first held against its plain version on layer 3. The
-yardstick is ``torch.matmul`` on the weights dequantized to bf16 beforehand.
+``eff4`` and ``m1`` run one kernel (csrc ``p6_ring_kernel``: a persistent
+grid in wave order (:func:`ring_plan`) on the TMA copy ring of
+``bulk_ring.cuh``, each stage STAGE_GROUPS groups of one STRIP-column strip
+and its rows of x, the nibbles on the tensor cores, the split strips merged
+in the same launch) and differ only in the qparams' copies: five boxes a stage
+against two, the TPU script's "four DMA streams against one". Beside
+``k1`` they price the copy path (TMA, persistence) against K1's register
+stream on the same bytes. All arms read the same bytes, 73.4 MB per layer
+(1.174 GB per sweep of 16 layers, past the L2). ``bn`` and ``bkp`` are the
+TPU kernel's block shapes: the CUDA kernel tiles on its own, so ``m1``,
+``m1bn4096`` and ``m1bkp2048`` resolve to one launch on one layout (m1's
+chunk is the kernel's stage, STAGE_GROUPS groups): it is checked and timed
+once, and the other two names report that arm's numbers (``same_launch_as``).
+The script's ``m1bkp2048`` lays its qparams out per K block
+(``to_block_major(qeff, bkp // g)``) while its kernel slices them per chunk,
+and computes a wrong answer; here every arm takes the chunked layout. A sweep
+is captured in a CUDA graph and ``steps`` replays are timed with CUDA events;
+each arm is first held against its plain version on layer 3. The yardstick
+is ``torch.matmul`` on the weights dequantized to bf16 beforehand.
 
     python -m torchao_tpu_torch.probes.int4_probe2 [--variants k1,eff4,m1,...] [--steps 8]
         [--reps 3]
@@ -35,6 +44,7 @@ It needs one CUDA card; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 from typing import Optional
@@ -43,7 +53,6 @@ import torch
 
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels.int4_matmul import (
-    GEMV_RUN,
     _nibbles,
     eff_qparams_to_block_major,
     int4_dq_matmul,
@@ -60,9 +69,9 @@ from torchao_tpu_torch.qtypes.intx import _tiled_eff_qparams
 from torchao_tpu_torch.utils import cdiv
 
 L, M, G = 16, 1, 32
-# the SIMT GEMV's K split (csrc p6_gemv_kernel): blocks of GEMV_TN columns and
-# GEMV_LANES run lanes, up to TARGET_BLOCKS in flight
-GEMV_TN, GEMV_LANES, TARGET_BLOCKS = 128, 32, 1024
+# the copy ring's stage (csrc P6_SG, P6_COLS): STAGE_GROUPS groups of G packed rows of
+# one STRIP-column strip; m1's chunk. RING_MAX_M rows of x at most (csrc P6_MAX_M).
+STAGE_GROUPS, STRIP, RING_MAX_M = 4, 128, 32
 SHAPES = [(4096, 14336), (14336, 4096)]  # (K, N): w1/w3 then w2
 # arm -> the script's (bn, bkp, n_chunks); None: a family-major or production arm
 CONFIGS = {"k1": None, "eff4": None, "m1": (2048, 1024, 1), "m1bn4096": (4096, 1024, 1),
@@ -110,21 +119,36 @@ def int4_dq_matmul_eff_plain(x, wp, qp, *, group_size, chunk_groups=None, layer_
     return acc.to(x.dtype)
 
 
-def gemv_eff_ksplit(K: int, N: int) -> int:
-    """The arms' K split: up to ``TARGET_BLOCKS`` blocks of ``GEMV_TN``
-    columns in flight at M = 1, each of a block's ``GEMV_LANES`` run lanes
-    at least one run."""
-    runs = K // 2 // GEMV_RUN
-    return max(1, min(runs // GEMV_LANES, cdiv(TARGET_BLOCKS, cdiv(N, GEMV_TN))))
+@functools.lru_cache(maxsize=None)
+def ring_plan(K: int, N: int, sms: int):
+    """The arms' launch plan (csrc ``p6_ring_kernel``) for packed weights
+    ``[K/2, N]`` on ``sms`` SMs: ``(blocks, ksplit, items)``. A strip's
+    stages are cut into ``ksplit`` K ranges (``sms // strips`` where the
+    strips do not fill the card); the items (strip, range) are numbered
+    split-major and dealt round-robin to ``blocks = min(sms, items)``
+    persistent blocks, so the blocks stream neighbouring strips at the same
+    K. ``items[b]`` lists block b's as (strip, first stage, end stage), stages
+    counted within the strip."""
+    sps = K // 2 // (STAGE_GROUPS * G)
+    strips = cdiv(N, STRIP)
+    ksplit = max(1, min(sps, sms // strips))
+    n = strips * ksplit
+    blocks = min(sms, n)
+    items = tuple(tuple((j % strips, (j // strips) * sps // ksplit, (j // strips + 1) * sps // ksplit)
+                        for j in range(b, n, blocks)) for b in range(blocks))
+    return blocks, ksplit, items
 
 
 def int4_dq_matmul_eff(x: torch.Tensor, wp: torch.Tensor, qp: torch.Tensor, *,
                        group_size: int, chunk_groups: Optional[int] = None,
                        layer_idx: Optional[int] = None) -> torch.Tensor:
-    """P6's CUDA arms: K1's launch (grid, loads, reduce) on 0x80-XORed packed
+    """P6's CUDA arms: the copy ring's one launch on 0x80-XORed packed
     weights ``wp [(L,) K/2, N]`` with the qparams_eff array ``qp [(L,) 2K/g,
-    N]``: family-major (``eff4``) or, with ``chunk_groups``, block-major
-    (``m1``). Counts ``int4_dq_matmul_eff4`` / ``int4_dq_matmul_m1``."""
+    N]``: family-major (``eff4``, four boxes a stage) or, with
+    ``chunk_groups`` (the stage's ``STAGE_GROUPS``), block-major (``m1``, one
+    box a stage). The plan is :func:`ring_plan`'s, the workspace and tickets
+    ``_build.stream_buffers``'. Counts ``int4_dq_matmul_eff4`` /
+    ``int4_dq_matmul_m1``."""
     if x.device.type == "cpu":
         return int4_dq_matmul_eff_plain(x, wp, qp, group_size=group_size,
                                         chunk_groups=chunk_groups, layer_idx=layer_idx)
@@ -139,33 +163,34 @@ def int4_dq_matmul_eff(x: torch.Tensor, wp: torch.Tensor, qp: torch.Tensor, *,
         (x.dtype == torch.bfloat16 and wp.dtype == torch.uint8 and qp.dtype == torch.bfloat16,
          "bf16 x and qparams, uint8 weights"),
         (Kp * 2 == K and qp.shape == (2 * K // g, N), "shapes"),
-        (Kp % g == 0 and g % GEMV_RUN == 0 and N % 16 == 0, "whole groups, N % 16 == 0"),
-        (chunk_groups is None or (Kp // g) % chunk_groups == 0, "chunks divide the groups"),
-        (M <= 32, "M <= 32"),
+        (g == G and Kp % (STAGE_GROUPS * g) == 0 and N % 16 == 0,
+         f"g = {G}, K/2 in whole stages of {STAGE_GROUPS} groups, N % 16 == 0"),
+        (chunk_groups in (None, STAGE_GROUPS), f"m1's chunk is a stage, {STAGE_GROUPS} groups"),
+        (M <= RING_MAX_M, f"M <= {RING_MAX_M}"),
         (all(t.is_contiguous() and t.device == x.device for t in (x, wp, qp)),
          "contiguous, one device"),
     )
     for ok, what in checks:
         if not ok:
             raise ValueError(f"int4_dq_matmul_eff: {what}")
-    ksplit = gemv_eff_ksplit(K, N)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    blocks, ksplit, _ = ring_plan(K, N, _build.sm_count(x.device.index or 0))
+    ws, tickets = _build.stream_buffers(x.device, ksplit * M * N if ksplit > 1 else 0,
+                                        cdiv(N, STRIP))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib, stream = _build.library(), _build.stream_handle(x.device)
-    args = (x.data_ptr(), wp.data_ptr(), qp.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, g)
-    if chunk_groups is None:
-        lib.launch("tt_int4_gemv_eff4", *args, ksplit, stream)
-        _build.LAUNCHES["int4_dq_matmul_eff4"] += 1
-    else:
-        lib.launch("tt_int4_gemv_m1", *args, chunk_groups, ksplit, stream)
-        _build.LAUNCHES["int4_dq_matmul_m1"] += 1
+    entry, name = (("tt_int4_gemv_eff4", "int4_dq_matmul_eff4") if chunk_groups is None
+                   else ("tt_int4_gemv_m1", "int4_dq_matmul_m1"))
+    _build.library().launch(entry, x.data_ptr(), wp.data_ptr(), qp.data_ptr(),
+                            None if ws is None else ws.data_ptr(), tickets.data_ptr(),
+                            out.data_ptr(), M, K, N, g, ksplit, blocks,
+                            _build.stream_handle(x.device))
+    _build.LAUNCHES[name] += 1
     return out
 
 
 def chunk_groups(arm: str) -> Optional[int]:
-    """The m1 layout's groups per chunk for ``arm`` (None: not an m1 arm)."""
-    cfg = CONFIGS[arm]
-    return None if cfg is None else cfg[1] // G // cfg[2]
+    """The m1 layout's groups per chunk for ``arm``: the kernel's stage
+    (None: not an m1 arm)."""
+    return None if CONFIGS[arm] is None else STAGE_GROUPS
 
 
 def make_data(gen, layers=L, shapes=SHAPES, device="cuda"):

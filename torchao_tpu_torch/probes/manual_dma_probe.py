@@ -10,8 +10,10 @@ the short decode shapes that pay most for a launch's fill and drain,
   body with the scale dropped at compile time, each one launch with its K
   split merged by the last block's ticket: the production structure;
 - ``manual`` (P2, :func:`manual_dma_persistent`): ONE persistent launch over
-  one schedule of both matrices' row tiles, double-buffered in shared memory
-  with ``cp.async``, the next tile's copy in flight while the current one is
+  one schedule of both matrices' row tiles (:func:`ring_plan`), dealt
+  round-robin to the blocks and streamed through the TMA copy ring of
+  ``csrc/bulk_ring.cuh`` (one 1D bulk copy a tile, ``RING_STAGES`` in
+  flight), the next tiles' copies in flight while the current one is
   reduced, across the w1 → w2 boundary.
 
 If ``manual`` beats ``two_calls`` by about the fill/drain share, a launch's
@@ -46,7 +48,8 @@ from torchao_tpu_torch.probes._common import (
 
 K, N1, N2 = 4096, 4096, 6144
 SETS = 4        # weight sets a step rotates through: 4 x 41.9 MB, past the L2
-TILE_ROWS = 16  # rows per tile of the persistent kernel (csrc MD_ROWS)
+TILE_ROWS = 8     # rows per tile of the persistent kernel (csrc MD_ROWS): 32 KB, one copy
+RING_STAGES = 4   # tiles in flight per SM (csrc MD_STAGES)
 
 
 def manual_dma_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -78,9 +81,21 @@ def manual_dma_std(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ring_plan(n1: int, n2: int, blocks: int):
+    """P2's schedule (csrc ``manual_dma_ring_kernel``): the T row tiles of w1
+    ``[n1, K]``, then those of w2 ``[n2, K]``, dealt round-robin to
+    ``blocks`` blocks (block b takes tiles b, b + blocks, ...); returns each
+    block's tiles as (matrix 1 or 2, first row)."""
+    t1 = n1 // TILE_ROWS
+    T = t1 + n2 // TILE_ROWS
+    return [[(1, t * TILE_ROWS) if t < t1 else (2, (t - t1) * TILE_ROWS)
+             for t in range(b, T, blocks)] for b in range(blocks)]
+
+
 def manual_dma_persistent(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
-    """P2: both GEMVs in one persistent, double-buffered launch; returns
-    ``(out1, out2)``. Counts ``manual_dma_persistent``."""
+    """P2: both GEMVs in one persistent launch on the TMA copy ring, one
+    block per SM (:func:`ring_plan`); returns ``(out1, out2)``. Counts
+    ``manual_dma_persistent``."""
     if x.device.type == "cpu":
         return manual_dma_plain(x, w1), manual_dma_plain(x, w2)
     if x.device.type != "cuda":
