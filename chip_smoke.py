@@ -49,7 +49,13 @@ Phases (each fails loudly; nothing is caught):
    PyTorch library call's time (for the fp8 sections also the unstacked
    head's plain-torch route, K8 and the route it takes); the main path — prefill 128
    tokens, decode 128 at batch 1, top-k 200 at temperature 0.6, one warm-up
-   and one timed run, the launch counts of the timed run asserted (and
+   and one timed run, the decode through the CUDA graph of the decode step
+   (``make_decode_n_tokens``: captured in the warm-up run, one replay a
+   token, each replay counted as the launches its capture recorded; in
+   int4wo-32, int8wo and int8dq the timed run is decoded again by the
+   eager step loop, from the same prompt, seed and fresh cache, and the two
+   runs' 128 tokens must be equal bit for bit; both tok/s and the capture's
+   seconds are printed), the launch counts of the timed run asserted (and
    the launches of each tiled qmm body's C entry: ``tt_qmm_mma_bf16`` for
    K6 and K8 with bf16 x, ``tt_qmm_mma_e4m3`` for K8 with e4m3 x and K9,
    ``tt_qmm_mma_s8`` for K7; K7's SIMT ``tt_qmm_tiled`` is gone from the
@@ -105,7 +111,10 @@ Phases (each fails loudly; nothing is caught):
    (``UBLKCP`` for P2's bulk copies, ``UTMALDG`` for P6's tensor-map
    boxes), which must be there, beside that of ``LDGSTS`` (cp.async), which
    must not (the sources compiled again in the background from the build
-   on). Each new CUDA arm is first held against its plain
+   on); P3's cast rows carry the card's launch floor (a kernel that does
+   nothing, on the cast's grid, timed alike) and their 16-byte kernel's
+   SASS loads and stores by mnemonic (``LDG.E.128`` and ``STG.E.128``
+   must be there). Each new CUDA arm is first held against its plain
    version at the block size it uses (K2's stub at its 32-key tile, the
    rungs at 32). Each row carries its time per probe step (CUDA graph replays over
    more bytes than the L2 holds, or single calls with the L2 flushed), its
@@ -192,7 +201,7 @@ from torchao_tpu_torch.kernels.w4a8_matmul import (
     w4a8_dq_matmul_available,
     w4a8_dq_matmul_plain,
 )
-from torchao_tpu_torch.models.llama.generate import benchmark_decode
+from torchao_tpu_torch.models.llama.generate import benchmark_decode, decode_n_tokens, prefill
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
@@ -1520,11 +1529,13 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
            "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
-           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, "qmm_entries": entries,
-           **head}
-    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
-        f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
-        f"peak_GB={peak_gb:.3f}")
+           "capture_s": res["capture_s"], "model_GB": res["model_size_GB"], "peak_GB": peak_gb,
+           "qmm_entries": entries, **head}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graph) "
+        f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
+        f"model_GB={res['model_size_GB']:.3f} peak_GB={peak_gb:.3f}")
+    if name in GRAPH_CHECK_SECTIONS:
+        e2e["eager_tok_s"] = eager_decode_check(model, params, kv, res["tokens"])
     log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
     log(f"  qmm entries: {json.dumps(entries, sort_keys=True)}")
@@ -1553,6 +1564,34 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     gc.collect()
     torch.cuda.empty_cache()
     return [{**t.row(counts.get(t.name, 0)), "section": name} for t in tallies], e2e
+
+
+GRAPH_CHECK_SECTIONS = (f"int4wo-{GROUP}", "int8wo", "int8dq")
+
+
+def eager_decode_check(model, params, kv, graph_tokens):
+    """One run of ``benchmark_decode``'s (the same prompt, seed and fresh
+    cache), decoded by the eager step loop (``decode_n_tokens``, every op
+    issued by the host) instead of the CUDA graph: its tokens must equal
+    the graph run's bit for bit. Returns the eager decode's tok/s."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cache = model.setup_caches(1, PROMPT + DECODE, quantize=kv)
+    prompt = torch.zeros((1, PROMPT), dtype=torch.long, device="cuda")
+    first, cache = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, _ = decode_n_tokens(model, params, first, cache, PROMPT, DECODE, gen, TEMPERATURE,
+                                TOP_K)
+    torch.cuda.synchronize()
+    tok_s = DECODE / (time.perf_counter() - t0)
+    same = torch.equal(tokens, graph_tokens)
+    log(f"  eager step loop: tok_s={tok_s:.2f}; its {DECODE} tokens "
+        f"{'equal' if same else 'DIFFER FROM'} the graph's, bit for bit")
+    if not same:
+        differ = (tokens != graph_tokens).nonzero()[:, 1].tolist()
+        raise AssertionError(f"graph and eager decodes differ at steps {differ[:16]}")
+    del cache
+    return tok_s
 
 
 # ---------------------------------------------------------------- C3 --
@@ -1680,10 +1719,10 @@ def _variant_run(model, params, label, env):
         raise AssertionError(f"tokens out of range: {tokens}")
     e2e = {"config": f"{VARIANTS_SECTION} {label}", "kv_cache": "int4_smajor", "env": env,
            "ttft_ms": res["ttft_ms"], "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
-           "model_GB": res["model_size_GB"], "peak_GB": peak_gb}
-    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} "
-        f"decode_s={res['decode_s']:.4f} model_GB={res['model_size_GB']:.3f} "
-        f"peak_GB={peak_gb:.3f}")
+           "capture_s": res["capture_s"], "model_GB": res["model_size_GB"], "peak_GB": peak_gb}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graph) "
+        f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
+        f"model_GB={res['model_size_GB']:.3f} peak_GB={peak_gb:.3f}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
     return e2e, counts, choices, entries
 
@@ -1779,6 +1818,11 @@ RING_KERNELS = {
     "int4_dq_matmul_eff4": ("int4_matmul.cu", "p6_ring_kernelILi1ELb0E", "UTMALDG"),
     "int4_dq_matmul_m1": ("int4_matmul.cu", "p6_ring_kernelILi1ELb1E", "UTMALDG"),
 }
+# P3's casts: the 16-byte path's instance for each counter (dtype_probes.cu)
+CAST_KERNELS = {"fp8_cast_e4m3_bf16": "fp8_cast_vec_kernelILb0E13__nv_bfloat16",
+                "fp8_cast_e4m3_f32": "fp8_cast_vec_kernelILb0Ef",
+                "fp8_cast_e5m2_bf16": "fp8_cast_vec_kernelILb1E13__nv_bfloat16"}
+_CAST_SRC = "dtype_probes.cu"
 _RING_REPORTS: dict = {}
 
 
@@ -1786,8 +1830,8 @@ def start_ring_reports():
     """Compile the ring kernels' sources with ``-Xptxas -v`` and disassemble
     them, in the background (one ``nvcc`` each, started together); the
     probe phase reads the results."""
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
-    for src in sorted({v[0] for v in RING_KERNELS.values()}):
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    for src in sorted({v[0] for v in RING_KERNELS.values()} | {_CAST_SRC}):
         _RING_REPORTS[src] = pool.submit(_build.compile_report, src)
     pool.shutdown(wait=False)
 
@@ -1809,6 +1853,22 @@ def ring_build(name):
         raise AssertionError(f"{name}: its SASS holds {ops.get(op, 0)} {op} and "
                              f"{ops.get('LDGSTS', 0)} LDGSTS")
     return out
+
+
+def cast_build(name):
+    """The SASS memory instructions of a P3 cast's 16-byte kernel, by whole
+    mnemonic: 128-bit loads (``LDG.E.128``) and stores (``STG.E.128``) must
+    be there."""
+    if _CAST_SRC not in _RING_REPORTS:
+        start_ring_reports()
+    _, sass = _RING_REPORTS[_CAST_SRC].result()
+    ops = _build.sass_opcodes(sass, CAST_KERNELS[name], modifiers=True)
+    mem = {f"sass_{k}": v for k, v in sorted(ops.items()) if k.startswith(("LDG", "STG"))}
+    log(f"  {name} as built ({CAST_KERNELS[name]}): {json.dumps(mem)}")
+    wide = lambda op: sum(v for k, v in ops.items() if k.startswith(op + ".E.128"))
+    if not wide("LDG") or not wide("STG"):
+        raise AssertionError(f"{name}: no 128-bit load or store in its SASS: {mem}")
+    return mem
 
 
 def _one_kernel(label, call):
@@ -1934,9 +1994,12 @@ def probe_phase():
         res, counts = _probe_run(label, functools.partial(probe.run_probe, reps=REPS), kernels)
         for key, v in res.items():
             name = v.get("kernel", key)
+            extra = {}
+            if name in CAST_KERNELS:  # the launch floor beside it, and its SASS
+                extra = {"launch_floor_ms": v["launch_floor_ms"], **cast_build(name)}
             rows.append(_probe_row(name, counts, f"{label}: {key}, one call", v["ms"],
                                    v["plain_ms"], v["bytes"], v["flops"], v["max_abs_err"],
-                                   v["library_ms"]))
+                                   v["library_ms"], **extra))
         answers[probe.__name__.rsplit(".", 1)[-1]] = {k: v["max_abs_err"] for k, v in res.items()}
     log(f"  probe answers: {json.dumps(answers)}")
     return rows

@@ -1228,6 +1228,72 @@ def test_dtype_probe_kernels(cuda):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(4, 0), (12, 0), (16, 0), (4012, 0), (4012, 4),
+                                      (131072 + 8, 0), (131072, 8)])
+def test_fp8_casts_16_byte_path_tail_and_words(cuda, n, offset):
+    """P3's casts at n not a multiple of 16 (the 16-byte path and its word
+    tail), at n below 16 (the tail alone) and from an input 4 bytes off a
+    16-byte boundary (the word path): every code, bit for bit against the
+    plain cast (NaN as NaN), one launch a call."""
+    from torchao_tpu_torch.probes import fp8_cast_probe as p3
+
+    codes = torch.arange(n + offset, device=cuda).remainder(256).to(torch.uint8)
+    for src_dtype, dt in ((torch.float8_e4m3fn, torch.bfloat16),
+                          (torch.float8_e4m3fn, torch.float32),
+                          (torch.float8_e5m2, torch.bfloat16)):
+        src = codes.view(src_dtype)[offset:]
+        form = f"fp8_cast_{'e5m2' if src_dtype == torch.float8_e5m2 else 'e4m3'}_" \
+               f"{'bf16' if dt == torch.bfloat16 else 'f32'}"
+        before = _build.LAUNCHES[form]
+        got, want = p3.fp8_cast(src, dt), p3.fp8_cast_plain(src, dt)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[form] == before + 1
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+def test_fp8_cast_plan_matches_the_source():
+    """The Python model of the casts' grid (``fp8_cast_probe.cast_grid``,
+    which the launch floor's grid follows) against ``dtype_probes.cu``'s
+    constants: one 16-byte load a thread, 64 blocks at the probe's [256,
+    512], at least one block, at most 4096."""
+    from torchao_tpu_torch.probes import fp8_cast_probe as p3
+
+    src = (_build.CSRC / "dtype_probes.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert (const("CAST_THREADS"), const("CAST_VEC")) == (p3.CAST_THREADS, p3.CAST_VEC)
+    assert re.search(r"grid\(n / CAST_VEC, CAST_THREADS\)", src)
+    assert p3.cast_grid(256 * 512) == 64
+    assert p3.cast_grid(4) == p3.cast_grid(16) == 1
+    assert p3.cast_grid(16 * 128) == 1 and p3.cast_grid(16 * 128 + 16) == 2
+    assert p3.cast_grid(1 << 40) == 4096
+
+
+def test_sass_opcodes_by_whole_mnemonic():
+    """``_build.sass_opcodes`` counts by opcode, or with ``modifiers`` by
+    whole mnemonic (how ``chip_smoke.py`` tells P3's 128-bit loads and
+    stores from 16-bit ones), in the named kernel only."""
+    sass = """
+                Function : _Z13other_kernelv
+        /*0000*/                   STG.E.U16 [R2.64], R5 ;                   /* 0x0000000502007986 */
+                Function : _ZN12_GLOBAL__N_119fp8_cast_vec_kernelILb0E13__nv_bfloat16EEvPKhPT0_x
+        /*0000*/                   LDG.E.128.CONSTANT R4, [R2.64] ;          /* 0x0000000402047981 */
+        /*0010*/                   F2FP.BF16.F32.PACK_AB R8, R5, R4 ;        /* 0x000000040508723e */
+        /*0020*/                   STG.E.128 [R6.64], R8 ;                   /* 0x0000000806007986 */
+        /*0030*/                   STG.E.128 [R6.64+0x10], R12 ;             /* 0x0000100c06007986 */
+        /*0040*/               @P0 STG.E.U16 [R10.64], R9 ;                  /* 0x000000090a000986 */
+        /*0050*/                   EXIT ;                                    /* 0x000000000000794d */
+"""
+    name = "fp8_cast_vec_kernelILb0E13__nv_bfloat16"
+    assert _build.sass_opcodes(sass, name) == {"LDG": 1, "F2FP": 1, "STG": 3, "EXIT": 1}
+    assert _build.sass_opcodes(sass, name, modifiers=True) == {
+        "LDG.E.128.CONSTANT": 1, "F2FP.BF16.F32.PACK_AB": 1, "STG.E.128": 2, "STG.E.U16": 1,
+        "EXIT": 1}
+
+
 # ------------------------------------------ tensor-core redesigns on a card --
 
 TOL_K14A_TILED_DB = 65.0  # separates K14a's exact-nibble rounding from K5's (~51 dB)

@@ -165,19 +165,35 @@ def _fp8(rs, shape, dtype):
 
 def test_fp8_casts_bit_exact_and_dot():
     """P3: A (e4m3 -> bf16), B (e4m3 -> f32), D (e5m2 -> bf16) bit-exact
-    against ``astype``; C (bf16 x e4m3^T, f32) against the f32 product."""
+    against ``astype``, on the script's inputs and on every one of the 256
+    codes of e4m3 and of e5m2 (the NaN codes compared as NaN, every other
+    code by its bits, infinities and -0 included); C (bf16 x e4m3^T, f32)
+    against the f32 product."""
     rs = np.random.RandomState(0)
     xj, xt = _fp8(rs, (256, 512), ml_dtypes.float8_e4m3fn)
     x5j, x5t = _fp8(rs, (256, 512), ml_dtypes.float8_e5m2)
     a = rs.randn(128, 512).astype(np.float32)
+    codes = np.arange(256, dtype=np.uint8)
+    every = {dt: (jnp.asarray(codes.view(dt)), torch.from_numpy(codes.copy()).view(tt))
+             for dt, tt in ((ml_dtypes.float8_e4m3fn, torch.float8_e4m3fn),
+                            (ml_dtypes.float8_e5m2, torch.float8_e5m2))}
+    e4, e5 = every[ml_dtypes.float8_e4m3fn], every[ml_dtypes.float8_e5m2]
     for src_j, src_t, jd, td in ((xj, xt, jnp.bfloat16, torch.bfloat16),
                                  (xj, xt, jnp.float32, torch.float32),
-                                 (x5j, x5t, jnp.bfloat16, torch.bfloat16)):
+                                 (x5j, x5t, jnp.bfloat16, torch.bfloat16),
+                                 (*e4, jnp.bfloat16, torch.bfloat16),
+                                 (*e4, jnp.float32, torch.float32),
+                                 (*e5, jnp.bfloat16, torch.bfloat16)):
         want = np.asarray(src_j.astype(jd))
         got = fp8_cast_probe.fp8_cast(src_t, td)
         bits = np.int16 if td == torch.bfloat16 else np.int32
+        nan = np.isnan(want.astype(np.float32))
+        np.testing.assert_array_equal(torch.isnan(got).numpy(), nan)
         np.testing.assert_array_equal(got.view(torch.int16 if bits == np.int16 else torch.int32)
-                                      .numpy(), want.view(bits))
+                                      .numpy()[~nan], want.view(bits)[~nan])
+    assert int(torch.isnan(fp8_cast_probe.fp8_cast(e4[1], torch.float32)).sum()) == 2
+    assert int(torch.isnan(fp8_cast_probe.fp8_cast(e5[1], torch.bfloat16)).sum()) == 6
+    assert int(torch.isinf(fp8_cast_probe.fp8_cast(e5[1], torch.bfloat16)).sum()) == 2
     aj = jnp.asarray(a, jnp.bfloat16)
     want = np.asarray(jax.lax.dot_general(aj.astype(jnp.float32), xj.astype(jnp.float32),
                                           (((1,), (1,)), ((), ()))))

@@ -26,7 +26,17 @@
 // CUDA C++, not Triton: the question is which instructions the card has
 // (cvt, mma.sync fragments), and Triton picks its own.
 //
-// Design: casts, 4 bytes a thread (two cvt.x2). Dots (mma_dot_kernel, one
+// Design: casts (fp8_cast_vec_kernel). At the probe's [256, 512] a cast moves
+// 0.13 MB in and 0.26-0.52 MB out, 0.12-0.20 us at the bytes bound, far under
+// a launch: its time is one DRAM round trip and the store tail. So each
+// thread takes 16 fp8 bytes by one 128-bit load, converts them by eight
+// cvt.x2 and writes its 32 (bf16) or 64 (f32) bytes by 128-bit stores, and
+// the grid gives every thread one load (64 blocks of 128 at the probe's
+// size: 64, 128, 256 and 512 threads a block, and two loads a thread, were
+// timed; 128 and 64 were fastest, two loads the slowest). The
+// tail (n % 16 bytes) and an input or output not 16-byte aligned take the
+// word path, 4 bytes a thread (fp8_cast_kernel). tt_empty_launch, a kernel
+// that does nothing, times the card's launch floor beside them. Dots (mma_dot_kernel, one
 // template for the three): the arrays are 0.2-0.4 MB and the work 34-67
 // MFLOP (0.03-0.07 us at the bf16 peak), so a dot is latency: the design
 // keeps many bytes in flight and converts each narrow element once.
@@ -66,21 +76,65 @@ __device__ __forceinline__ void put(Out* o, float v) {
   else *o = __float2bfloat16(v);
 }
 
-// out[i] = x[i] (fp8 -> bf16 or f32), 4 elements a thread
+// out[4i .. 4i + 3] = x[4i .. 4i + 3] (fp8 -> bf16 or f32), the word at x + 4i
+template <bool E5M2, typename Out>
+__device__ __forceinline__ void cast_word(const uint8_t* __restrict__ x, Out* __restrict__ out,
+                                          long long i) {
+  const uint32_t w = reinterpret_cast<const uint32_t*>(x)[i];
+  const float2 a = fp8x2_to_float2<E5M2>(w & 0xFFFFu), b = fp8x2_to_float2<E5M2>(w >> 16);
+  put(out + 4 * i, a.x);
+  put(out + 4 * i + 1, a.y);
+  put(out + 4 * i + 2, b.x);
+  put(out + 4 * i + 3, b.y);
+}
+
+// the word path: 4 elements a thread (any 4-byte aligned x)
 template <bool E5M2, typename Out>
 __global__ void __launch_bounds__(DP_THREADS)
 fp8_cast_kernel(const uint8_t* __restrict__ x, Out* __restrict__ out, long long n) {
-  const long long n4 = n / 4;
-  for (long long i = blockIdx.x * (long long)DP_THREADS + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * DP_THREADS) {
-    const uint32_t w = reinterpret_cast<const uint32_t*>(x)[i];
-    const float2 a = fp8x2_to_float2<E5M2>(w & 0xFFFFu), b = fp8x2_to_float2<E5M2>(w >> 16);
-    put(out + 4 * i, a.x);
-    put(out + 4 * i + 1, a.y);
-    put(out + 4 * i + 2, b.x);
-    put(out + 4 * i + 3, b.y);
-  }
+  for (long long i = blockIdx.x * (long long)DP_THREADS + threadIdx.x; i < n / 4;
+       i += (long long)gridDim.x * DP_THREADS)
+    cast_word<E5M2>(x, out, i);
 }
+
+constexpr int CAST_THREADS = 128;  // threads a block of the 16-byte path
+constexpr int CAST_VEC = 16;       // fp8 bytes a thread: one 128-bit load
+
+// 16 elements a thread: one 128-bit load, eight cvt.x2, two (bf16) or four
+// (f32) 128-bit stores; then the n % 16 tail by the word path. x and out
+// 16-byte aligned.
+template <bool E5M2, typename Out>
+__global__ void __launch_bounds__(CAST_THREADS)
+fp8_cast_vec_kernel(const uint8_t* __restrict__ x, Out* __restrict__ out, long long n) {
+  const long long nv = n / CAST_VEC;
+  const long long tid = blockIdx.x * (long long)CAST_THREADS + threadIdx.x;
+  for (long long i = tid; i < nv; i += (long long)gridDim.x * CAST_THREADS) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(x) + i);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float2 f[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = fp8x2_to_float2<E5M2>(w[j] & 0xFFFFu);
+      f[2 * j + 1] = fp8x2_to_float2<E5M2>(w[j] >> 16);
+    }
+    if constexpr (sizeof(Out) == 2) {
+      uint4* o = reinterpret_cast<uint4*>(out) + 2 * i;
+      o[0] = make_uint4(pack_bf16x2(f[0].x, f[0].y), pack_bf16x2(f[1].x, f[1].y),
+                        pack_bf16x2(f[2].x, f[2].y), pack_bf16x2(f[3].x, f[3].y));
+      o[1] = make_uint4(pack_bf16x2(f[4].x, f[4].y), pack_bf16x2(f[5].x, f[5].y),
+                        pack_bf16x2(f[6].x, f[6].y), pack_bf16x2(f[7].x, f[7].y));
+    } else {
+      float4* o = reinterpret_cast<float4*>(out) + 4 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[j] = make_float4(f[2 * j].x, f[2 * j].y, f[2 * j + 1].x, f[2 * j + 1].y);
+    }
+  }
+  const long long t = nv * (CAST_VEC / 4) + tid;  // the tail's words, one a thread
+  if (t < n / 4) cast_word<E5M2>(x, out, t);
+}
+
+__global__ void empty_kernel() {}
 
 enum Elem { E_BF16 = 0, E_S8 = 1, E_E4M3 = 2 };
 constexpr int DT_BM = 32, DT_BN = 64, DT_BK = 128;  // block tile and K slice
@@ -234,10 +288,18 @@ int launch_dot(const void* a, const void* b, void* out, int M, int N, int K, voi
 template <bool E5M2, typename Out>
 int launch_cast(const void* x, void* out, long long n, void* stream) {
   if (n % 4 || reinterpret_cast<uintptr_t>(x) % 4) return cudaErrorInvalidValue;
-  const long long blocks = (n / 4 + DP_THREADS - 1) / DP_THREADS;
-  fp8_cast_kernel<E5M2, Out><<<(int)(blocks < 4096 ? blocks : 4096), DP_THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<Out*>(out), n);
+  const auto xb = static_cast<const uint8_t*>(x);
+  const auto o = static_cast<Out*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto grid = [](long long items, int threads) {
+    const long long b = (items + threads - 1) / threads;
+    return (int)(b < 1 ? 1 : b < 4096 ? b : 4096);
+  };
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    fp8_cast_kernel<E5M2, Out><<<grid(n / 4, DP_THREADS), DP_THREADS, 0, s>>>(xb, o, n);
+  else
+    fp8_cast_vec_kernel<E5M2, Out><<<grid(n / CAST_VEC, CAST_THREADS), CAST_THREADS, 0, s>>>(
+        xb, o, n);
   return cudaGetLastError();
 }
 
@@ -255,6 +317,12 @@ TT_EXPORT int tt_fp8_cast_e4m3_f32(const void* x, void* out, long long n, void* 
 
 TT_EXPORT int tt_fp8_cast_e5m2_bf16(const void* x, void* out, long long n, void* stream) {
   return launch_cast<true, __nv_bfloat16>(x, out, n, stream);
+}
+
+// The launch floor: a kernel that does nothing, on a grid of `blocks` x `threads`.
+TT_EXPORT int tt_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
 }
 
 // The dots take M % 32, N % 64 and K % 128 == 0 and 16-byte aligned operands.

@@ -131,6 +131,7 @@ SIGNATURES = {
     "tt_fp8_cast_e4m3_bf16": _CAST,
     "tt_fp8_cast_e4m3_f32": _CAST,
     "tt_fp8_cast_e5m2_bf16": _CAST,
+    "tt_empty_launch": [c_int, c_int, c_ptr],  # blocks, threads, stream
     "tt_dot_bf16_e4m3": _DOT,
     "tt_dot_s8_bf16": _DOT,
     "tt_dot_bf16t_s8": _DOT,
@@ -338,10 +339,11 @@ def ptxas_usage(report: str, kernel: str):
     return int(m.group(4)), int(m.group(2)) + int(m.group(3))
 
 
-def sass_opcodes(sass: str, kernel: str) -> "collections.Counter[str]":
+def sass_opcodes(sass: str, kernel: str, modifiers: bool = False) -> "collections.Counter[str]":
     """Every instruction of the functions of ``cuobjdump -sass`` output
     whose mangled name holds ``kernel``, counted by opcode (``UTMALDG``,
-    ``UBLKCP``, ``LDGSTS``, ...)."""
+    ``UBLKCP``, ``LDGSTS``, ...), or with ``modifiers`` by the whole
+    mnemonic (``LDG.E.128``, ``STG.E.U16``, ...)."""
     import re
 
     counts: "collections.Counter[str]" = collections.Counter()
@@ -350,7 +352,7 @@ def sass_opcodes(sass: str, kernel: str) -> "collections.Counter[str]":
             for text in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block):
                 toks = [t for t in text.split() if not t.startswith("@")]
                 if toks:
-                    counts[toks[0].split(".")[0]] += 1
+                    counts[toks[0] if modifiers else toks[0].split(".")[0]] += 1
     return counts
 
 

@@ -14,7 +14,9 @@ script:
 
 The casts must be bit-exact against PyTorch's ``.to``, the dot within a
 relative max error of 1e-4 of the f32 product. Each kernel is timed with CUDA
-events, the L2 flushed before each call.
+events, the L2 flushed before each call; beside each cast, the card's launch
+floor: a kernel that does nothing (``tt_empty_launch``) on the cast's grid,
+timed the same way.
 
     python -m torchao_tpu_torch.probes.fp8_cast_probe [--reps 25]
 
@@ -38,6 +40,24 @@ _CASTS = {(torch.float8_e4m3fn, torch.bfloat16): "e4m3_bf16",
           (torch.float8_e5m2, torch.bfloat16): "e5m2_bf16"}
 
 
+# the casts' 16-byte path (csrc/dtype_probes.cu): threads a block, fp8 bytes a thread
+CAST_THREADS = 128
+CAST_VEC = 16
+
+
+def cast_grid(n: int) -> int:
+    """Blocks of the 16-byte path for ``n`` fp8 bytes: one 128-bit load a
+    thread (at least one block, at most 4096, grid-stride beyond)."""
+    return min(max(-(-(n // CAST_VEC) // CAST_THREADS), 1), 4096)
+
+
+def empty_launch(device, blocks: int, threads: int = CAST_THREADS) -> None:
+    """The card's launch floor: a kernel that does nothing, on ``blocks``
+    x ``threads``; counts ``empty_launch``."""
+    _build.library().launch("tt_empty_launch", blocks, threads, _build.stream_handle(device))
+    _build.LAUNCHES["empty_launch"] += 1
+
+
 def fp8_cast_plain(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The cast through float32 (every fp8 value is exact there)."""
     return x.to(torch.float32).to(dtype)
@@ -45,7 +65,9 @@ def fp8_cast_plain(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def fp8_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` (e4m3 or e5m2) cast to ``dtype`` (bf16, or f32 from e4m3) by the
-    cvt kernel; counts ``fp8_cast_<src>_<dst>``."""
+    cvt kernel (16 bytes a thread where x and the output are 16-byte
+    aligned, the tail and any other input 4 a thread); counts
+    ``fp8_cast_<src>_<dst>``."""
     if x.device.type == "cpu":
         return fp8_cast_plain(x, dtype)
     if x.device.type != "cuda":
@@ -129,6 +151,7 @@ def run_probe(reps=25, seed=0):
                                   lambda: fp8_bf16_e4m3_dot_plain(a, x),
                                   lambda: torch.matmul(a, xb.T),
                                   a.numel() * 2 + x.numel() + a.shape[0] * x.shape[0] * 4)
+    floor = cold_ms(lambda: empty_launch(x.device, cast_grid(x.numel())), reps)
     out = {}
     for name, (call, plain, library, nbytes) in cases.items():
         if name.endswith("dot"):
@@ -141,8 +164,11 @@ def run_probe(reps=25, seed=0):
         out[name] = {"ms": cold_ms(call, reps), "plain_ms": cold_ms(plain, reps),
                      "library_ms": cold_ms(library, reps), "max_abs_err": err, "bytes": nbytes,
                      "flops": flops}
+        if flops == 0:
+            out[name]["launch_floor_ms"] = floor
         print(f"  {name}: {out[name]['ms'] * 1e3:.2f} us (plain {out[name]['plain_ms'] * 1e3:.2f}, "
-              f"library {out[name]['library_ms'] * 1e3:.2f})", flush=True)
+              f"library {out[name]['library_ms'] * 1e3:.2f}, empty launch {floor * 1e3:.2f})",
+              flush=True)
     return out
 
 

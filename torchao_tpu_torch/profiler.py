@@ -11,24 +11,30 @@ events (kernels, copies, memsets) back:
 - ``idle_share``: ``1 - busy / wall``, how far the host holds the card back;
 - ``kernels``: device time and launches per step, by kernel name.
 
+Two modes: ``eager`` decodes by the step loop (``decode_n_tokens``, every
+op issued by the host), ``graph`` through ``make_decode_n_tokens`` (one
+CUDA graph replay a step, captured in the warm-up pass).
+
 Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
-each of the ported configurations with its KV cache (``CONFIGS``), each in
-a fresh process (a finished ``torch.profiler`` session leaves the host
-slower for the rest of its process, and a configuration's environment,
-such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` or
+each of the ported configurations with its KV cache (``CONFIGS``), each
+configuration and mode in a fresh process (a finished ``torch.profiler``
+trace leaves the host slower for the rest of its process, and a
+configuration's environment, such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` or
 ``TORCHAO_TPU_INT4_VARIANT=banded``, stays in its own); with ``--trace
-PREFIX`` each configuration's chrome trace goes to ``PREFIX.<name>.json``,
-and ``--recipes`` picks some of them::
+PREFIX`` each one's chrome trace goes to ``PREFIX.<name>.<mode>.json``,
+``--recipes`` picks some configurations and ``--modes`` the modes::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
     python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32,int4wo-32-int4hm
-    python -m torchao_tpu_torch.profiler --recipes int4wo-32,int4wo-32-banded
+    python -m torchao_tpu_torch.profiler --recipes int4wo-32,int8wo,int8dq --modes graph
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import itertools
 import json
 import multiprocessing
 import os
@@ -37,7 +43,12 @@ import time
 
 import torch
 
-from torchao_tpu_torch.models.llama.generate import decode_n_tokens, prefill
+from torchao_tpu_torch.models.llama.generate import (
+    decode_n_tokens,
+    make_decode_n_tokens,
+    prefill,
+    reset_cache,
+)
 
 MODEL = "Llama-3-8B"
 PROMPT_LEN = 128
@@ -55,6 +66,7 @@ CONFIGS = {"int4wo-32": ("int4wo-32", "int4_smajor", {}), "int8wo": ("int8wo", "
            # K14c in the decode loop in K1's place (K5 at the prefill)
            "int4wo-32-banded": ("int4wo-32", "int4_smajor",
                                 {"TORCHAO_TPU_INT4_VARIANT": "banded"})}
+MODES = ("eager", "graph")
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 
@@ -98,38 +110,49 @@ def kernels_per_call(fn):
     return sum(k == 0 for k in kinds), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
 
 
-def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
+def profile_decode(model, params, trace_path=None, kv_cache_quantization=False,
+                   mode="eager"):
     """Trace ``STEPS`` batch-1 decode steps (top-k ``TOP_K`` at
     ``TEMPERATURE``) after a ``PROMPT_LEN`` prefill, with the KV cache that
-    ``kv_cache_quantization`` names, after an untraced warm-up pass and an
-    untraced timed pass; returns the breakdown above."""
+    ``kv_cache_quantization`` names (allocated once, reset before each
+    pass), decoded in ``mode`` (``MODES``), after an untraced warm-up pass
+    (the graph's capture) and an untraced timed pass; returns the breakdown
+    above."""
     from torch.profiler import ProfilerActivity, profile
 
     if model.device.type != "cuda":
         raise RuntimeError("profile_decode measures the CUDA device only")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}")
     gen = torch.Generator(device=model.device).manual_seed(0)
     prompt = torch.zeros((1, PROMPT_LEN), dtype=torch.long, device=model.device)
+    cache = model.setup_caches(1, PROMPT_LEN + STEPS, quantize=kv_cache_quantization)
+    decode_n = make_decode_n_tokens(model, STEPS)
+
+    def decode(first):
+        if mode == "graph":
+            decode_n(params, first, cache, PROMPT_LEN, gen, TEMPERATURE, TOP_K)
+        else:
+            decode_n_tokens(model, params, first, cache, PROMPT_LEN, STEPS, gen, TEMPERATURE,
+                            TOP_K)
+        torch.cuda.synchronize()
 
     def run(prof=None):
-        cache = model.setup_caches(1, PROMPT_LEN + STEPS, quantize=kv_cache_quantization)
-        first, cache = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
+        reset_cache(cache)
+        first, _ = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if prof is not None:
-            with prof:
-                decode_n_tokens(model, params, first, cache, PROMPT_LEN, STEPS, gen,
-                                TEMPERATURE, TOP_K)
-                torch.cuda.synchronize()
-        else:
-            decode_n_tokens(model, params, first, cache, PROMPT_LEN, STEPS, gen,
-                            TEMPERATURE, TOP_K)
-            torch.cuda.synchronize()
+        with prof if prof is not None else contextlib.nullcontext():
+            decode(first)
         return time.perf_counter() - t0
 
     run()
+    captures = decode_n.captures
     wall = run()  # the tracer's own host cost would inflate a traced wall clock
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     traced_wall = run(prof)
+    if decode_n.captures != captures:
+        raise RuntimeError("profile_decode: a measured pass captured the decode step")
     with tempfile.TemporaryDirectory() as tmp:
         path = trace_path or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -151,7 +174,9 @@ def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
     )
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
+        "mode": mode,
         "steps": STEPS,
+        "capture_s": decode_n.capture_s,
         "wall_ms_per_step": wall * 1e3 / STEPS,
         "traced_wall_ms_per_step": traced_wall * 1e3 / STEPS,
         "busy_ms_per_step": busy / STEPS,
@@ -162,9 +187,9 @@ def profile_decode(model, params, trace_path=None, kv_cache_quantization=False):
     }
 
 
-def _profile_recipe(recipe, kv, env, trace_path):
-    """Quantize Llama-3-8B with ``recipe`` and profile its decode step, with
-    ``env`` set in this (fresh) process."""
+def _profile_recipe(recipe, kv, env, trace_path, mode):
+    """Quantize Llama-3-8B with ``recipe`` and profile its decode step in
+    ``mode``, with ``env`` set in this (fresh) process."""
     from torchao_tpu_torch.models.llama.cli import config_from_recipe
     from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
     from torchao_tpu_torch.models.llama.model import Transformer, default_linear_filter
@@ -174,7 +199,8 @@ def _profile_recipe(recipe, kv, env, trace_path):
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
     params = init_quantized_params(model, config_from_recipe(recipe), default_linear_filter,
                                    seed=0)
-    res = profile_decode(model, params, trace_path=trace_path, kv_cache_quantization=kv)
+    res = profile_decode(model, params, trace_path=trace_path, kv_cache_quantization=kv,
+                         mode=mode)
     return {"device": torch.cuda.get_device_name(0), **res}
 
 
@@ -184,19 +210,23 @@ def main():
                     help="write each configuration's chrome trace to PREFIX.<name>.json")
     ap.add_argument("--recipes", default=",".join(CONFIGS),
                     help="comma-separated names of CONFIGS to profile (default: all)")
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="comma-separated decode modes, each run in its own process "
+                         f"(default: {','.join(MODES)})")
     a = ap.parse_args()
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    for name in a.recipes.split(","):
+    for name, mode in itertools.product(a.recipes.split(","), a.modes.split(",")):
         recipe, kv, env = CONFIGS[name]
-        trace = f"{a.trace}.{name}.json" if a.trace else None
+        trace = f"{a.trace}.{name}.{mode}.json" if a.trace else None
         with ctx.Pool(1) as pool:
-            res = pool.apply(_profile_recipe, (recipe, kv, env, trace))
-        print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; decode step: "
-              f"wall {res['wall_ms_per_step']:.3f} ms (traced "
+            res = pool.apply(_profile_recipe, (recipe, kv, env, trace, mode))
+        print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; decode step, "
+              f"{mode}: wall {res['wall_ms_per_step']:.3f} ms (traced "
               f"{res['traced_wall_ms_per_step']:.3f} ms), device busy "
-              f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}")
+              f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}, "
+              f"capture {res['capture_s']:.3f} s")
         launches = sum(k["launches_per_step"] for k in res["kernels"])
         print(f"  {launches:.1f} device launches per step; by device time:")
         for k in res["kernels"][:25]:

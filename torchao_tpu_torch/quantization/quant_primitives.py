@@ -175,7 +175,9 @@ def _view_qparam(
 
 
 def _eps_like(eps: float, t: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(eps, dtype=t.dtype, device=t.device)
+    """``eps`` as a 0-d tensor of ``t``'s dtype on its device, filled there
+    (no host-to-device copy, so a CUDA graph can capture it)."""
+    return torch.full((), eps, dtype=t.dtype, device=t.device)
 
 
 def choose_qparams_affine(
