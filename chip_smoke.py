@@ -49,7 +49,9 @@ Phases (each fails loudly; nothing is caught):
    PyTorch library call's time (for the fp8 sections also the unstacked
    head's plain-torch route, K8 and the route it takes); the main path — prefill 128
    tokens, decode 128 at batch 1, top-k 200 at temperature 0.6, one warm-up
-   and one timed run, the decode through the CUDA graph of the decode step
+   and one timed run, the prefill through its CUDA graph (``make_prefill``:
+   captured in the warm-up run; the timed run's first token held against an
+   eager prefill's from the same seed), the decode through the CUDA graph of the decode step
    (``make_decode_n_tokens``: captured in the warm-up run, one replay a
    token, each replay counted as the launches its capture recorded; in
    int4wo-32, int8wo and int8dq the timed run is decoded again by the
@@ -76,6 +78,23 @@ Phases (each fails loudly; nothing is caught):
    = 1 and 16) and K14b (M = 1) against their plain versions at the model's
    shapes, each stream form one kernel and one graph node a call; the
    2-layer check runs under ``banded``.
+
+   Then the section ``serving``: ``benchmarks/serving_bench.py``'s default
+   deployment on the port's engine (``torchao_tpu_torch/serving``):
+   Llama-3-8B (block size capped at 4096) int4wo-32, 4 slots, max_seq_len
+   256, prefill_chunk 64, 8 requests of 64-token prompts from
+   ``np.random.RandomState(0)`` with 64 new tokens each, all submitted at
+   t0, ``step_n(16)``, greedy, on the int8 and then the int4 split-flat
+   cache: first the kernels at the engine's batch shapes against their
+   plain versions (K1 at M = 4, K5 at M = 256, K2 / K2′ with K3's write at
+   B = 4 with positions 0, 37, 128 and 255, the cache bit for bit; K4 and
+   K4 int8 at B = 4, T = 16 and 64 with a start a slot; SDPA with each
+   slot's mask the library call), then per cache one warm run (the
+   graphs' captures), the measured run (aggregate tok/s, ttft and tpot
+   p50 / p99, the admission share of wall time, captures, launches per
+   replay, peak GB; every request 64 tokens; each kernel row launched) and
+   a 2-request, 16-token stream of the same engine through its graphs and
+   through its programs run eagerly, tokens and cache equal bit for bit.
 
 4. the C3 phase: K4 (int4, int8) at Dh 32, 48, 64 and 96 and K4′ at 32, 48
    and 96 on Llama-3-8B's heads, then the fused decode step (K2 / K2′ with
@@ -144,6 +163,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from torchao_tpu_torch.attention_timing import host_us, k3_then_k2
@@ -201,7 +221,12 @@ from torchao_tpu_torch.kernels.w4a8_matmul import (
     w4a8_dq_matmul_available,
     w4a8_dq_matmul_plain,
 )
-from torchao_tpu_torch.models.llama.generate import benchmark_decode, decode_n_tokens, prefill
+from torchao_tpu_torch.models.llama.generate import (
+    benchmark_decode,
+    decode_n_tokens,
+    prefill,
+    reset_cache,
+)
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
@@ -236,6 +261,7 @@ from torchao_tpu_torch.quantization.quant_primitives import (
     ZeroPointDomain,
     quantize_activation_per_token_absmax,
 )
+from torchao_tpu_torch.serving import Request, ServingEngine
 from torchao_tpu_torch.utils import compute_error
 
 MODEL = "Llama-3-8B"
@@ -1529,13 +1555,15 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
            "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
-           "capture_s": res["capture_s"], "model_GB": res["model_size_GB"], "peak_GB": peak_gb,
-           "qmm_entries": entries, **head}
-    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graph) "
+           "capture_s": res["capture_s"], "prefill_capture_s": res["prefill_capture_s"],
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, "qmm_entries": entries, **head}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graphs) "
         f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
+        f"prefill_capture_s={res['prefill_capture_s']:.3f} "
         f"model_GB={res['model_size_GB']:.3f} peak_GB={peak_gb:.3f}")
-    if name in GRAPH_CHECK_SECTIONS:
-        e2e["eager_tok_s"] = eager_decode_check(model, params, kv, res["tokens"])
+    eager_tok_s = eager_check(model, params, kv, res, name in GRAPH_CHECK_SECTIONS)
+    if eager_tok_s is not None:
+        e2e["eager_tok_s"] = eager_tok_s
     log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
     log(f"  qmm entries: {json.dumps(entries, sort_keys=True)}")
@@ -1569,29 +1597,310 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
 GRAPH_CHECK_SECTIONS = (f"int4wo-{GROUP}", "int8wo", "int8dq")
 
 
-def eager_decode_check(model, params, kv, graph_tokens):
-    """One run of ``benchmark_decode``'s (the same prompt, seed and fresh
-    cache), decoded by the eager step loop (``decode_n_tokens``, every op
-    issued by the host) instead of the CUDA graph: its tokens must equal
-    the graph run's bit for bit. Returns the eager decode's tok/s."""
+def eager_check(model, params, kv, res, decode):
+    """One run of ``benchmark_decode``'s (the same prompt, seed and a fresh
+    cache) by the eager prefill (``prefill``, every op issued by the host)
+    instead of its CUDA graph: the first token must equal the graph's; with
+    ``decode``, decoded too by the eager step loop (``decode_n_tokens``)
+    instead of the decode graph: its tokens must equal the graph run's bit
+    for bit. Returns the eager decode's tok/s (None without ``decode``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cache = model.setup_caches(1, PROMPT + DECODE, quantize=kv)
     prompt = torch.zeros((1, PROMPT), dtype=torch.long, device="cuda")
     first, cache = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
+    same = torch.equal(first, res["first"])
+    log(f"  eager prefill: first token {first.tolist()} "
+        f"{'equals' if same else 'DIFFERS FROM'} the prefill graph's {res['first'].tolist()}")
+    if not same:
+        raise AssertionError("the prefill graph and the eager prefill sample different tokens")
+    if not decode:
+        return None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tokens, _ = decode_n_tokens(model, params, first, cache, PROMPT, DECODE, gen, TEMPERATURE,
                                 TOP_K)
     torch.cuda.synchronize()
     tok_s = DECODE / (time.perf_counter() - t0)
-    same = torch.equal(tokens, graph_tokens)
+    same = torch.equal(tokens, res["tokens"])
     log(f"  eager step loop: tok_s={tok_s:.2f}; its {DECODE} tokens "
         f"{'equal' if same else 'DIFFER FROM'} the graph's, bit for bit")
     if not same:
-        differ = (tokens != graph_tokens).nonzero()[:, 1].tolist()
+        differ = (tokens != res["tokens"]).nonzero()[:, 1].tolist()
         raise AssertionError(f"graph and eager decodes differ at steps {differ[:16]}")
     del cache
     return tok_s
+
+
+# ----------------------------------------------------------- serving --
+
+# benchmarks/serving_bench.py's default deployment: Llama-3-8B (block size capped at 4096)
+# int4wo-32, 4 slots, max_seq_len 256, prefill_chunk 64, 8 requests of 64-token prompts
+# from np.random.RandomState(0), 64 new tokens each, all submitted at t0, step_n(16),
+# greedy; on the int8 split-flat cache, then the int4 one with the same weights
+SERVE_SLOTS, SERVE_SEQ, SERVE_CHUNK, SERVE_BLOCK = 4, 256, 64, 4096
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BURST = 8, 64, 64, 16
+SERVE_CACHES = ("int8", "int4_smajor")
+SERVE_POSITIONS = (0, 37, 128, 255)  # K2 + K3 at B = 4: one position a slot
+SERVE_STARTS = {16: (0, 37, 128, 200), 64: (0, 37, 128, 190)}  # K4's per-slot starts, by T
+SHORT_REQUESTS, SHORT_NEW = 2, 16  # the graphs-against-eager stream
+
+
+def _dequantized_layer(c, li, Hkv, G):
+    """K and V ``[B, H, S, Dh]`` bf16 of layer ``li`` of a split-flat cache,
+    each kv head repeated for its G query heads (SDPA's operands)."""
+    kq, ks, vq, vs = (c[n][li] for n in ("k_q", "k_scale", "v_q", "v_scale"))
+    B, S, X = vq.shape
+    Db = X // Hkv
+    kd = (_kv_values(kq.reshape(B, Hkv, Db, S).transpose(2, 3)) * ks[..., None].float()).bfloat16()
+    vd = (_kv_values(vq.reshape(B, S, Hkv, Db).transpose(1, 2)) * vs[..., None].float()).bfloat16()
+    return kd.repeat_interleave(G, 1), vd.repeat_interleave(G, 1)
+
+
+def check_decode_write_batched(args, gen, int8=False):
+    """K2 / K2′ with K3's write as the engine's decode step runs it: B =
+    SERVE_SLOTS slots, S = SERVE_SEQ, each slot at its own position
+    (SERVE_POSITIONS): the four cache arrays bit for bit and the output at
+    TOL_SQNR_DB against the plain version; one kernel and one graph node a
+    call; timed beside the plain version and SDPA over each slot's visible
+    keys (a boolean mask) of the dequantized layer."""
+    L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
+    G, li, S, B = H // Hkv, min(7, L - 1), SERVE_SEQ, SERVE_SLOTS
+    name = "smajor_decode_write_attention" + _suffix(int8)
+    t = Tally(name, f"one serving decode step at B={B}, S={S}, pos={list(SERVE_POSITIONS)}: "
+                    f"{L} launches")
+    c = random_cache(gen, L, B, Hkv, Dh, S, int8)
+    X = c["k_q"].shape[2]
+    names = ("k_q", "k_scale", "v_q", "v_scale")
+    a = tuple(c[n] for n in names)
+    q = torch.randn((B, Hkv, G, Dh), generator=gen, device="cuda").bfloat16()
+    kn, vn = (torch.randn((2, B, Hkv, 1, Dh), generator=gen, device="cuda") * 0.5).bfloat16()
+    pos = torch.tensor(SERVE_POSITIONS, dtype=torch.int32, device="cuda")
+    fused, plain = ([x.clone() for x in a] for _ in range(2))
+    got = smajor_decode_write_attention(q, kn, vn, *fused, pos, layer_idx=li)
+    want = smajor_decode_write_attention_plain(q, kn, vn, *plain, pos, layer_idx=li)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(fused, plain))
+    log(f"  {name} B={B} pos={list(SERVE_POSITIONS)}: cache == plain bit for bit "
+        f"{'PASS' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name} at B={B}: the cache disagrees with the plain write")
+    err = compare(f"{name} B={B} pos={list(SERVE_POSITIONS)}", got, want)
+    _sqnr(t, want, got)
+    call = lambda: smajor_decode_write_attention(q, kn, vn, *a, pos, layer_idx=li)
+    if (nodes := kernels_per_call(call)) != (1, 1):
+        raise AssertionError(f"{name} at B={B}: a call is {nodes} (kernels, graph nodes)")
+    kd, vd = _dequantized_layer(dict(zip(names, fused)), li, Hkv, G)
+    mask = torch.arange(S, device="cuda")[None, None, None, :] <= pos.view(B, 1, 1, 1)
+    qs = q.reshape(B, H, 1, Dh)
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: smajor_decode_write_attention_plain(q, kn, vn, *a, pos,
+                                                                   layer_idx=li))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask))
+    n = [p + 1 for p in SERVE_POSITIONS]
+    # each slot's older keys read, q read, out written, its token read and written, pos
+    nbytes = (sum(k - 1 for k in n) * (2 * X + 2 * Hkv * 2)
+              + B * (H * Dh * (2 + 4) + 4 + 2 * Hkv * Dh * 2 + 2 * X + 2 * Hkv * 2))
+    flops = 4 * H * Dh * sum(n)
+    b, by = bound(nbytes, flops)
+    log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b:.6f} "
+        f"({by})")
+    t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
+    t.extra.update({"B": B, "pos": list(SERVE_POSITIONS), "cache_bit_exact": True})
+    del c, a, fused, plain, kd, vd
+    return t
+
+
+def check_prefill_attention_batched(args, gen, int8=False):
+    """K4 (or its int8 form) as the engine's admission passes run it: split-
+    flat views of a layer at B = SERVE_SLOTS, T = 16 and 64, each slot from
+    its own start (SERVE_STARTS), the model's ``bq``; against the plain
+    version at TOL_SQNR_DB, timed beside it and SDPA under each slot's
+    causal mask. One row per T."""
+    L, H, Hkv, Dh = args.n_layer, args.n_head, args.n_local_heads, args.head_dim
+    G, S, B = H // Hkv, SERVE_SEQ, SERVE_SLOTS
+    name = "quantized_kv_decode_attention" + _suffix(int8)
+    tallies = []
+    for T, starts in SERVE_STARTS.items():
+        c = random_cache(gen, 1, B, Hkv, Dh, S, int8)
+        Db = c["k_q"].shape[2] // Hkv
+        views = (c["k_q"][0].reshape(B, Hkv, Db, S).transpose(2, 3), c["k_scale"][0][..., None],
+                 c["v_q"][0].reshape(B, S, Hkv, Db).transpose(1, 2), c["v_scale"][0][..., None])
+        q = torch.randn((B, Hkv, T * G, Dh), generator=gen, device="cuda").bfloat16()
+        pos = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        call = lambda: quantized_kv_decode_attention(q, *views, pos, rows_per_t=G, bq=512)
+        plain = lambda: quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G)
+        got, want = call(), plain()
+        err = compare(f"{name} B={B} T={T} starts={list(starts)}", got, want)
+        kd, vd = _dequantized_layer(c, 0, Hkv, G)
+        qs = q.reshape(B, Hkv, T, G, Dh).transpose(2, 3).reshape(B, H, T, Dh).contiguous()
+        mask = (torch.arange(S, device="cuda")[None, None, None, :]
+                <= pos.view(B, 1, 1, 1) + torch.arange(T, device="cuda").view(1, 1, T, 1))
+        ms, plain_ms = time_ms(call), time_ms(plain)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask))
+        pairs = sum(G * (s0 + t + 1) for s0 in starts for t in range(T))  # per kv head
+        nbytes = Hkv * (B * T * G * Dh * (2 + 4) + sum(s0 + T for s0 in starts) * (2 * Db + 2 * 2))
+        flops = 4 * Hkv * pairs * Dh
+        b, by = bound(nbytes, flops)
+        log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b:.5f} ({by})")
+        t = Tally(name, f"one serving admission pass at B={B}, T={T}, S={S}, "
+                        f"starts={list(starts)}: {L} launches")
+        t.add(L, ms, plain_ms, nbytes, flops, err, lib_ms)
+        _sqnr(t, want, got)
+        t.extra.update({"B": B, "T": T, "starts": list(starts)})
+        tallies.append(t)
+        del c, views, kd, vd, got, want
+    return tallies
+
+
+def _pct_ms(vals, p):
+    """benchmarks/serving_bench.py's percentile (ms)."""
+    v = sorted(vals)
+    return v[min(len(v) - 1, int(p * len(v)))] * 1e3
+
+
+def _serve(model, params, kv, prompts):
+    """serving_bench.py's run on the port's engine: the graphs warmed (and
+    captured) by one 4-token request, then all requests submitted at t0 and
+    driven by ``step_n(SERVE_BURST)`` to the end, the launch counts set to 0
+    just before and read just after. Returns (engine, e2e numbers, launch
+    counts)."""
+    eng = ServingEngine(model, params, max_slots=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+                        prefill_chunk=SERVE_CHUNK, kv_cache_quantization=kv)
+    eng.add_request(Request(prompt=prompts[0].copy(), max_new_tokens=4))
+    eng.run_to_completion(chunk=SERVE_BURST)
+    eng.completed.clear()
+    eng.admit_s = 0.0
+    captured = set(eng.graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.add_request(Request(prompt=p, max_new_tokens=SERVE_NEW))
+    first_t, n_tok, done_t = {}, collections.Counter(), {}
+    while eng.queue or eng.active:
+        out = eng.step_n(SERVE_BURST)
+        now = time.perf_counter()
+        for rid, toks in out.items():
+            if toks:
+                first_t.setdefault(rid, now)
+            n_tok[rid] += len(toks)
+        for r in eng.completed:
+            done_t.setdefault(r.request_id, now)
+    dt = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    if set(eng.graphs) != captured:
+        raise AssertionError(f"the measured run captured {set(eng.graphs) - captured}")
+    done = eng.completed
+    if len(done) != len(prompts) or any(len(r.output) != SERVE_NEW for r in done):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests completed, outputs "
+                             f"{[len(r.output) for r in done]}")
+    if not all(0 <= t < model.args.vocab_size for r in done for t in r.output):
+        raise AssertionError("tokens out of range")
+    ttfts = [first_t[r] - t0 for r in first_t]
+    tpots = [(done_t[r] - first_t[r]) / max(n_tok[r] - 1, 1) for r in done_t]
+    launches = {" ".join(map(str, k)): sum(g.launches.values()) for k, g in eng.graphs.items()}
+    e2e = {"config": "serving", "kv_cache": kv, "slots": SERVE_SLOTS, "requests": len(prompts),
+           "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW, "burst": SERVE_BURST,
+           "prefill_chunk": SERVE_CHUNK, "wall_s": dt,
+           "tok_s": sum(len(r.output) for r in done) / dt,
+           "ttft_p50_ms": _pct_ms(ttfts, 0.5), "ttft_p99_ms": _pct_ms(ttfts, 0.99),
+           "tpot_p50_ms": _pct_ms(tpots, 0.5), "tpot_p99_ms": _pct_ms(tpots, 0.99),
+           "admission_share": eng.admit_s / dt, "captures": len(eng.graphs),
+           "capture_s": sum(g.capture_s for g in eng.graphs.values()),
+           "launches_per_replay": launches,
+           "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {kv}: tok_s={e2e['tok_s']:.2f} ttft p50/p99 {e2e['ttft_p50_ms']:.1f} / "
+        f"{e2e['ttft_p99_ms']:.1f} ms tpot p50/p99 {e2e['tpot_p50_ms']:.2f} / "
+        f"{e2e['tpot_p99_ms']:.2f} ms admission share {e2e['admission_share']:.3f} "
+        f"captures {e2e['captures']} ({e2e['capture_s']:.3f} s) peak_GB={e2e['peak_GB']:.3f}")
+    log(f"  launches per replay: {json.dumps(launches)}")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    return eng, e2e, counts
+
+
+def graph_eager_stream_check(eng, prompts):
+    """A short stream (SHORT_REQUESTS requests x SHORT_NEW tokens) of the
+    same engine from a zeroed cache, through its graphs and through its
+    programs run eagerly: equal tokens and caches, bit for bit."""
+    def run(graphs):
+        eng.cuda_graphs = graphs
+        reset_cache(eng.cache)
+        for a in (eng.slot_pos, eng.slot_remaining, eng.slot_token):
+            a[:] = 0
+        eng.completed.clear()
+        for p in prompts[:SHORT_REQUESTS]:
+            eng.add_request(Request(prompt=p, max_new_tokens=SHORT_NEW))
+        eng.run_to_completion(chunk=SERVE_BURST)
+        torch.cuda.synchronize()
+        return ({r.request_id: r.output for r in eng.completed},
+                {n: t.clone() for n, t in eng.cache.items()})
+
+    captures, graphs = len(eng.graphs), eng.cuda_graphs
+    (g_tok, g_cache), (e_tok, e_cache) = run(graphs), run(False)
+    eng.cuda_graphs = graphs
+    same = list(g_tok.values()) == list(e_tok.values()) and len(g_tok) == SHORT_REQUESTS
+    same_cache = all(torch.equal(g_cache[n], e_cache[n]) for n in g_cache)
+    log(f"  {SHORT_REQUESTS} x {SHORT_NEW} tokens through the graphs and eagerly: tokens "
+        f"{'equal' if same else 'DIFFER'}, cache {'equal' if same_cache else 'DIFFERS'} "
+        f"bit for bit")
+    if not (same and same_cache) or len(eng.graphs) != captures:
+        raise AssertionError("the engine's graphs and its eager programs disagree")
+
+
+def serving_section(gen):
+    """The serving path (``torchao_tpu_torch/serving``) on Llama-3-8B int4wo-32
+    at serving_bench.py's default deployment: the kernels at the engine's
+    batch shapes against their plain versions (K1 at M = 4, K5 at M = 256,
+    K2 / K2′ with K3's write at B = 4, K4 / K4 int8 at B = 4 and T = 16, 64),
+    then the run on each of SERVE_CACHES and the graphs-against-eager stream.
+    Rows take their launches from the run of their cache (the matmuls from
+    the first). Returns (kernel rows, end-to-end numbers)."""
+    log(f"== {MODEL}, serving: int4wo-{GROUP}, {SERVE_SLOTS} slots, S {SERVE_SEQ}, chunk "
+        f"{SERVE_CHUNK}, {SERVE_REQUESTS} x {SERVE_PROMPT}-token prompts, {SERVE_NEW} new "
+        f"tokens, step_n({SERVE_BURST}), greedy; KV caches {SERVE_CACHES}")
+    t0 = time.perf_counter()
+    args = ModelArgs.from_name(MODEL)
+    args.block_size = min(args.block_size, SERVE_BLOCK)
+    model = Transformer(args, torch.bfloat16, "cuda")
+    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
+                                   default_linear_filter, seed=0)
+    torch.cuda.synchronize()
+    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
+    log("  -- kernels against their plain versions (the engine's shapes)")
+    L = args.n_layer
+    matmuls = [check_shapes("int4_dq_matmul_gemv", _cases(params, L, True), SERVE_SLOTS,
+                            _int4_call, gen),
+               check_shapes("int4_dq_matmul_tiled", _cases(params, L, True),
+                            SERVE_SLOTS * SERVE_CHUNK, _int4_call, gen)]
+    attention = {kv: [check_decode_write_batched(args, gen, kv == "int8"),
+                      *check_prefill_attention_batched(args, gen, kv == "int8")]
+                 for kv in SERVE_CACHES}
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, args.vocab_size, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    rows, e2e = [], []
+    for kv in SERVE_CACHES:
+        log(f"  -- the engine, KV cache {kv}")
+        eng, e, counts = _serve(model, params, kv, prompts)
+        graph_eager_stream_check(eng, prompts)
+        tallies = attention[kv] + (matmuls if kv == SERVE_CACHES[0] else [])
+        for t in tallies:
+            if not counts.get(t.name):
+                raise AssertionError(f"{t.name} was not launched in the {kv} serving run")
+            rows.append({**t.row(counts[t.name]), "section": f"serving {kv}"})
+        e2e.append(e)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, e2e
 
 
 # ---------------------------------------------------------------- C3 --
@@ -1711,6 +2020,7 @@ def _variant_run(model, params, label, env):
                                kv_cache_quantization="int4_smajor", temperature=TEMPERATURE,
                                top_k=TOP_K, warmup=1, iters=1, on_run=on_run)
         counts, choices, entries = dict(_build.LAUNCHES), variant_choices(), dict(_build.ENTRIES)
+        eager_check(model, params, "int4_smajor", res, False)
         reset_variant_choices()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = res["tokens"]
@@ -1719,9 +2029,11 @@ def _variant_run(model, params, label, env):
         raise AssertionError(f"tokens out of range: {tokens}")
     e2e = {"config": f"{VARIANTS_SECTION} {label}", "kv_cache": "int4_smajor", "env": env,
            "ttft_ms": res["ttft_ms"], "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
-           "capture_s": res["capture_s"], "model_GB": res["model_size_GB"], "peak_GB": peak_gb}
-    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graph) "
+           "capture_s": res["capture_s"], "prefill_capture_s": res["prefill_capture_s"],
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb}
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graphs) "
         f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
+        f"prefill_capture_s={res['prefill_capture_s']:.3f} "
         f"model_GB={res['model_size_GB']:.3f} peak_GB={peak_gb:.3f}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
     return e2e, counts, choices, entries
@@ -2034,6 +2346,11 @@ def main() -> int:
     rows += r
     e2e += e
     log(f"  section done; total {time.perf_counter() - t_start:.1f} s")
+
+    r, e = serving_section(gen)
+    rows += r
+    e2e += e
+    log(f"  serving section done; total {time.perf_counter() - t_start:.1f} s")
 
     r, e = c3_phase(gen)
     rows += r

@@ -180,13 +180,14 @@ def test_measurements_refuse_the_cpu_and_busy_time_is_a_union():
     """Device metrics come from the card only; busy time counts overlapping
     device events once."""
     from torchao_tpu_torch.models.llama.generate import benchmark_decode
-    from torchao_tpu_torch.profiler import _busy_us, profile_decode
+    from torchao_tpu_torch.profiler import _busy_us, profile_decode, profile_prefill
 
     model = TM.Transformer(TM.ModelArgs(**ARGS), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmark_decode(model, {})
-    with pytest.raises(RuntimeError, match="CUDA"):
-        profile_decode(model, {})
+    for profile in (profile_decode, profile_prefill):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            profile(model, {})
     assert _busy_us([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
 
 

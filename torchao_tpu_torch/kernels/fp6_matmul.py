@@ -77,9 +77,19 @@ _V32 = [(-1 if c & 32 else 1) * ((4 + (c & 3)) if (c >> 2) & 7 else 2 * (c & 3))
         for c in range(64)]
 
 
+_V32_TABLES: dict = {}
+
+
 def code_v32(codes: torch.Tensor) -> torch.Tensor:
-    """fp6 codes → ``fp6 · 32`` in f32 (integers, exact)."""
-    return torch.tensor(_V32, dtype=torch.float32, device=codes.device)[codes.int()]
+    """fp6 codes → ``fp6 · 32`` in f32 (integers, exact). The table is copied
+    to a device once, at the first call there, and kept: a CUDA graph cannot
+    capture the host-to-device copy (the first call on a card must not be
+    under capture)."""
+    table = _V32_TABLES.get(codes.device)
+    if table is None:
+        table = _V32_TABLES[codes.device] = torch.tensor(_V32, dtype=torch.float32,
+                                                         device=codes.device)
+    return table[codes.int()]
 
 
 def fp6_bf16_bits(codes):

@@ -9,7 +9,10 @@ one decode step here, replayed once a token: the host issues one replay a
 token and nothing else. The host-side loops (:func:`decode_n_tokens`,
 ``generate(device_loop=False)``) keep tokens and positions on the device,
 so they never wait for the card per token either, but they issue every
-op of the step. The prefill stays eager.
+op of the step. The prefill (``make_prefill``, a jit in JAX) is a CUDA
+graph per prompt shape: JAX retraces for a new shape, here a new shape is
+a new capture. :class:`CapturedCall` is the one capture rule both use, and
+the serving engine's programs too.
 """
 
 from __future__ import annotations
@@ -49,16 +52,72 @@ def prefill(model: Transformer, params, tokens, cache, generator=None,
     return sample(logits, generator, temperature, top_k), cache
 
 
-def make_prefill(model: Transformer):
+class Prefill:
+    """The callable :func:`make_prefill` returns: ``prefill(params, tokens
+    [B, T], cache, generator, temperature=0.6, top_k=None) -> (next token
+    [B], cache)``, the cache written in place. On a CUDA model it captures
+    the prefill at its first call for each prompt shape ``(B, T)`` and
+    replays it after that; its graphs share one memory pool (they never run
+    at the same time), and a change of :func:`capture_key` other than the
+    prompt's length drops them all. ``captures`` counts the captures and
+    ``capture_s`` holds the last one's seconds. A capture or a replay that
+    fails raises: there is no eager fallback on the card. On a CPU model it
+    runs :func:`prefill`."""
+
+    def __init__(self, model: Transformer):
+        self.model = model
+        self.captures = 0
+        self.capture_s = 0.0
+        self._ident = None
+        self._graphs: Dict[int, "_PrefillGraph"] = {}
+        self._pool = None
+
+    def __call__(self, params, tokens, cache, generator=None, temperature: float = 0.6,
+                 top_k: Optional[int] = None):
+        if tokens.device.type != "cuda":
+            return prefill(self.model, params, tokens, cache, generator, temperature, top_k)
+        B, T = tokens.shape
+        key = capture_key(params, cache, B, T, generator, temperature, top_k)
+        ident = key[:3] + key[4:]  # all but the prompt's length
+        if ident != self._ident:
+            self._graphs = {}  # the old graphs and their pool go first
+            self._ident, self._pool = ident, torch.cuda.graph_pool_handle()
+        graph = self._graphs.get(T)
+        if graph is None:
+            graph = self._graphs[T] = _PrefillGraph(self.model, params, tokens, cache,
+                                                   generator, temperature, top_k, self._pool)
+            self.captures += 1
+            self.capture_s = graph.call.capture_s
+        return graph.run(tokens), cache
+
+
+class _PrefillGraph:
+    """A prefill captured over a static prompt ``tokens [B, T]`` and a static
+    output ``out [B]``."""
+
+    def __init__(self, model, params, tokens, cache, generator, temperature, top_k, pool):
+        self.refs = (params, cache, generator)  # keeps the captured identities alive
+        self.tokens = torch.empty_like(tokens)
+        self.out = torch.empty((tokens.shape[0],), dtype=torch.long, device=tokens.device)
+
+        def fn():
+            nxt, _ = prefill(model, params, self.tokens, cache, generator, temperature, top_k)
+            self.out.copy_(nxt)
+
+        self.tokens.copy_(tokens)
+        self.call = CapturedCall(fn, tokens.device, generator, pool)
+
+    def run(self, tokens):
+        self.tokens.copy_(tokens)
+        self.call.replay()
+        return self.out.clone()
+
+
+def make_prefill(model: Transformer) -> Prefill:
     """``prefill(params, tokens, cache, generator, temperature=0.6,
-    top_k=None) -> (next token [B], cache)``, eager (the JAX function is a
-    jit; a graph of the prefill is later work)."""
-
-    def prefill_fn(params, tokens, cache, generator=None, temperature: float = 0.6,
-                   top_k: Optional[int] = None):
-        return prefill(model, params, tokens, cache, generator, temperature, top_k)
-
-    return prefill_fn
+    top_k=None) -> (next token [B], cache)``, a CUDA graph per prompt shape
+    on the card (see :class:`Prefill`), eager on the CPU."""
+    return Prefill(model)
 
 
 def make_decode_one_token(model: Transformer):
@@ -94,24 +153,78 @@ def decode_n_tokens(model: Transformer, params, first_token: torch.Tensor, cache
 
 def capture_key(params, cache, batch: int, num_tokens: int, generator, temperature: float,
                 top_k: Optional[int]):
-    """What a captured decode step depends on beyond its static buffers:
-    the params (by identity), the cache's storage (each tensor's address,
-    shape and dtype), the batch, the number of tokens, the sampling
-    parameters and the generator (by identity). A change in any of them
-    re-captures."""
+    """What a captured decode step (or prefill) depends on beyond its static
+    buffers: the params (by identity), the cache's storage (each tensor's
+    address, shape and dtype), the batch, the number of tokens (the
+    prompt's length for a prefill), the sampling parameters and the
+    generator (by identity). A change in any of them re-captures."""
     storage = tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
                     for name, t in sorted(cache.items()))
     return (id(params), storage, batch, num_tokens, float(temperature), top_k, id(generator))
 
 
+class CapturedCall:
+    """A static-shape call ``fn()`` captured in a CUDA graph on ``device``.
+    ``fn`` reads its inputs from static buffers and writes its outputs into
+    static buffers (and the KV cache) allocated before the capture, so a
+    graph that shares ``pool`` with others (graphs that never run at the
+    same time) holds nothing another can overwrite.
+
+    One eager call first, on a side stream: it makes what must not first
+    happen under capture (the weight stream's buffers,
+    ``_build.stream_buffers``, the int4 variant memo and any autotuning,
+    each wrapper's first allocation). It writes what the first replay
+    writes again, with the same values, and ``generator`` (or the device's
+    default one) is put back as it was. Then the capture on the side stream
+    (``capture_begin`` / ``capture_end``, which unlike ``torch.cuda.graph``
+    leave the allocator's cache alone, so the next eager call does not
+    call cudaMalloc afresh), the generator registered. ``launches`` and
+    ``entries`` are the kernel launches (``_build.LAUNCHES`` / ``ENTRIES``)
+    one replay makes; ``capture_s`` the seconds of the warm-up call,
+    capture and instantiation. A failure raises."""
+
+    def __init__(self, fn, device, generator=None, pool=None):
+        dev = torch.device(device)
+        t0 = time.perf_counter()
+        gen = generator if generator is not None else torch.cuda.default_generators[
+            dev.index if dev.index is not None else torch.cuda.current_device()]
+        state = gen.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        gen.set_state(state)
+        torch.cuda.synchronize(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        launches, entries = dict(_build.LAUNCHES), dict(_build.ENTRIES)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                self.graph.capture_end()
+        # the capture launched nothing: its counts are a replay's
+        self.launches = _take_growth(_build.LAUNCHES, launches)
+        self.entries = _take_growth(_build.ENTRIES, entries)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self, n: int = 1) -> None:
+        """``n`` replays, counted (:func:`count_replays`)."""
+        for _ in range(n):
+            self.graph.replay()
+        count_replays(self.launches, self.entries, n)
+
+
 class _StepGraph:
-    """One decode step captured in a CUDA graph over static buffers: the
-    token ``tok [B]``, the position ``pos [B]`` (int32), the step index
+    """One decode step captured (:class:`CapturedCall`) over static buffers:
+    the token ``tok [B]``, the position ``pos [B]`` (int32), the step index
     ``idx [1]`` and the output ``out [B, num_tokens]``. The step samples the
     next token, writes it into ``out`` at ``idx`` and into ``tok``, and
-    advances ``pos`` and ``idx``; a replay is one token. ``launches`` and
-    ``entries`` are the kernel launches (``_build.LAUNCHES`` /
-    ``ENTRIES``) one replay makes."""
+    advances ``pos`` and ``idx``; a replay is one token."""
 
     def __init__(self, model, params, cache, first_token, start_pos, num_tokens, generator,
                  temperature, top_k):
@@ -130,42 +243,8 @@ class _StepGraph:
             self.pos += 1
             self.idx += 1
 
-        # One eager step first, on a side stream: it makes what must not
-        # first happen under capture (the weight stream's buffers, the int4
-        # variant memo and any autotuning, each wrapper's first allocation).
-        # It writes the cache slot that the first replay writes again, with
-        # the same values, and the generator is put back as it was.
-        gen = generator if generator is not None else torch.cuda.default_generators[
-            dev.index if dev.index is not None else torch.cuda.current_device()]
-        state = gen.get_state()
         self.reset(first_token, start_pos)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        gen.set_state(state)
-
-        # The capture on the side stream into the graph's own memory pool.
-        # ``torch.cuda.graph`` would also empty the allocator's cache, and
-        # the next prefill would then call cudaMalloc afresh.
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        launches, entries = dict(_build.LAUNCHES), dict(_build.ENTRIES)
-        with torch.cuda.stream(side):
-            self.graph.capture_begin()
-            try:
-                step()
-            finally:
-                self.graph.capture_end()
-        # the capture launched nothing: its counts are a replay's
-        self.launches = _take_growth(_build.LAUNCHES, launches)
-        self.entries = _take_growth(_build.ENTRIES, entries)
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t0
+        self.call = CapturedCall(step, dev, generator)
 
     def reset(self, first_token, start_pos):
         self.tok.copy_(first_token)
@@ -177,9 +256,7 @@ class _StepGraph:
 
     def run(self, first_token, start_pos, num_tokens):
         self.reset(first_token, start_pos)
-        for _ in range(num_tokens):
-            self.graph.replay()
-        count_replays(self.launches, self.entries, num_tokens)
+        self.call.replay(num_tokens)
         return self.out.clone()
 
 
@@ -232,7 +309,7 @@ class DecodeN:
                                      self.num_tokens, generator, temperature, top_k)
             self._key = key
             self.captures += 1
-            self.capture_s = self._graph.capture_s
+            self.capture_s = self._graph.call.capture_s
         return self._graph.run(first_token, start_pos, self.num_tokens), cache
 
 
@@ -303,14 +380,16 @@ def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: 
                      top_k: Optional[int] = 200, warmup: int = 1, iters: int = 3,
                      on_run=None) -> Dict[str, Any]:
     """Decode tok/s and time to first token on the card: each run prefills
-    ``prompt_len`` tokens (timed as ttft), then decodes ``num_tokens``
-    through :func:`make_decode_n_tokens`, one CUDA graph replay a token
-    (timed as decode), with the KV cache that ``kv_cache_quantization``
-    names; ``warmup`` runs, then ``iters`` timed ones (the JAX package's
+    ``prompt_len`` tokens through :func:`make_prefill`, one CUDA graph
+    replay (timed as ttft), then decodes ``num_tokens`` through
+    :func:`make_decode_n_tokens`, one CUDA graph replay a token (timed as
+    decode), with the KV cache that ``kv_cache_quantization`` names;
+    ``warmup`` runs, then ``iters`` timed ones (the JAX package's
     defaults). The cache is allocated once and reset before each run,
-    outside both timed windows, so the graph is captured in the first
+    outside both timed windows, so both graphs are captured in the first
     warm-up run and no timed run captures (one that did raises). Returns
-    :func:`decode_result` and ``capture_s``, the capture's seconds. Only
+    :func:`decode_result`, ``capture_s`` and ``prefill_capture_s`` (the
+    captures' seconds) and the last run's ``first`` token. Only
     CUDA is measured: a time taken on the CPU is not a device number.
     ``on_run(i)`` is called before run ``i`` (warm-up runs first), e.g. to
     reset launch counts."""
@@ -331,7 +410,7 @@ def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: 
             on_run(i)
         gen.manual_seed(0)
         reset_cache(cache)
-        captures = decode_n.captures
+        captures = decode_n.captures, prefill_fn.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         first, cache = prefill_fn(params, prompt, cache, gen, temperature, top_k)
@@ -341,9 +420,10 @@ def benchmark_decode(model: Transformer, params: Dict[str, Any], *, batch_size: 
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if i >= warmup:
-            if decode_n.captures != captures:
-                raise RuntimeError("benchmark_decode: a timed run captured the decode step")
+            if (decode_n.captures, prefill_fn.captures) != captures:
+                raise RuntimeError("benchmark_decode: a timed run captured a graph")
             ttfts.append(t1 - t0)
             decodes.append(t2 - t1)
     return {**decode_result(get_model_size_in_bytes(params), batch_size, num_tokens, decodes,
-                            ttfts, tokens), "capture_s": decode_n.capture_s}
+                            ttfts, tokens), "capture_s": decode_n.capture_s,
+            "prefill_capture_s": prefill_fn.capture_s, "first": first}

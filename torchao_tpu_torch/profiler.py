@@ -1,8 +1,9 @@
-"""Where a decode step's time goes on the card.
+"""Where a decode step's or a prefill's time goes on the card.
 
 Counterpart of ``torchao_tpu/profiler.py``: :func:`profile_decode` traces a
-few decode steps with ``torch.profiler`` and reads the trace's device
-events (kernels, copies, memsets) back:
+few decode steps, :func:`profile_prefill` one prefill, with
+``torch.profiler``, and each reads the trace's device events (kernels,
+copies, memsets) back:
 
 - ``wall_ms_per_step``: host clock around the same steps run untraced,
   ended by a synchronize (``traced_wall_ms_per_step``: the traced run's,
@@ -12,21 +13,26 @@ events (kernels, copies, memsets) back:
 - ``kernels``: device time and launches per step, by kernel name.
 
 Two modes: ``eager`` decodes by the step loop (``decode_n_tokens``, every
-op issued by the host), ``graph`` through ``make_decode_n_tokens`` (one
-CUDA graph replay a step, captured in the warm-up pass).
+op issued by the host) and prefills by ``prefill``; ``graph`` decodes
+through ``make_decode_n_tokens`` (one CUDA graph replay a step) and
+prefills through ``make_prefill`` (one replay), each captured in the
+warm-up pass. A prefill's "step" is the whole prefill; its wall clock is the
+median of ``PREFILL_RUNS`` untraced runs.
 
-Run it on the card: Llama-3-8B with random weights, 16 decode steps, for
-each of the ported configurations with its KV cache (``CONFIGS``), each
-configuration and mode in a fresh process (a finished ``torch.profiler``
+Run it on the card: Llama-3-8B with random weights, 16 decode steps (or one
+prefill), for each of the ported configurations with its KV cache
+(``CONFIGS``), each configuration, phase and mode in a fresh process (a finished ``torch.profiler``
 trace leaves the host slower for the rest of its process, and a
 configuration's environment, such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` or
 ``TORCHAO_TPU_INT4_VARIANT=banded``, stays in its own); with ``--trace
-PREFIX`` each one's chrome trace goes to ``PREFIX.<name>.<mode>.json``,
-``--recipes`` picks some configurations and ``--modes`` the modes::
+PREFIX`` each one's chrome trace goes to ``PREFIX.<name>.<phase>.<mode>.json``,
+``--recipes`` picks some configurations, ``--modes`` the modes and
+``--phases`` the phases (``decode``, the default, and ``prefill``)::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
     python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32,int4wo-32-int4hm
     python -m torchao_tpu_torch.profiler --recipes int4wo-32,int8wo,int8dq --modes graph
+    python -m torchao_tpu_torch.profiler --recipes int4wo-32,int8wo --phases prefill
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 from torchao_tpu_torch.models.llama.generate import (
     decode_n_tokens,
     make_decode_n_tokens,
+    make_prefill,
     prefill,
     reset_cache,
 )
@@ -67,6 +74,8 @@ CONFIGS = {"int4wo-32": ("int4wo-32", "int4_smajor", {}), "int8wo": ("int8wo", "
            "int4wo-32-banded": ("int4wo-32", "int4_smajor",
                                 {"TORCHAO_TPU_INT4_VARIANT": "banded"})}
 MODES = ("eager", "graph")
+PHASES = ("decode", "prefill")
+PREFILL_RUNS = 5
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
 
@@ -153,6 +162,13 @@ def profile_decode(model, params, trace_path=None, kv_cache_quantization=False,
     traced_wall = run(prof)
     if decode_n.captures != captures:
         raise RuntimeError("profile_decode: a measured pass captured the decode step")
+    return {"mode": mode, "steps": STEPS, "capture_s": decode_n.capture_s,
+            **_breakdown(prof, trace_path, STEPS, wall, traced_wall)}
+
+
+def _breakdown(prof, trace_path, steps, wall, traced_wall):
+    """The finished trace ``prof`` of ``steps`` steps read back: wall, busy,
+    idle share, device time and launches by kernel, host ops."""
     with tempfile.TemporaryDirectory() as tmp:
         path = trace_path or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -168,28 +184,68 @@ def profile_decode(model, params, trace_path=None, kv_cache_quantization=False,
         per_kernel[name][1] += 1
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in dev]) / 1e3
     kernels = sorted(
-        ({"name": n, "ms_per_step": us / 1e3 / STEPS, "launches_per_step": c / STEPS}
+        ({"name": n, "ms_per_step": us / 1e3 / steps, "launches_per_step": c / steps}
          for n, (us, c) in per_kernel.items()),
         key=lambda k: -k["ms_per_step"],
     )
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
-        "mode": mode,
-        "steps": STEPS,
-        "capture_s": decode_n.capture_s,
-        "wall_ms_per_step": wall * 1e3 / STEPS,
-        "traced_wall_ms_per_step": traced_wall * 1e3 / STEPS,
-        "busy_ms_per_step": busy / STEPS,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "traced_wall_ms_per_step": traced_wall * 1e3 / steps,
+        "busy_ms_per_step": busy / steps,
         "idle_share": 1 - busy / (wall * 1e3),
         "kernels": kernels,
         "host_ops": [{"name": a.key[:_NAME_CHARS], "self_ms_per_step": a.self_cpu_time_total
-                      / 1e3 / STEPS, "calls_per_step": a.count / STEPS} for a in host[:25]],
+                      / 1e3 / steps, "calls_per_step": a.count / steps} for a in host[:25]],
     }
 
 
-def _profile_recipe(recipe, kv, env, trace_path, mode):
-    """Quantize Llama-3-8B with ``recipe`` and profile its decode step in
-    ``mode``, with ``env`` set in this (fresh) process."""
+def profile_prefill(model, params, trace_path=None, kv_cache_quantization=False,
+                    mode="eager"):
+    """Trace one batch-1 ``PROMPT_LEN``-token prefill (top-k ``TOP_K`` at
+    ``TEMPERATURE``) with the KV cache that ``kv_cache_quantization`` names
+    (allocated once, reset before each pass), in ``mode``: ``prefill``
+    (eager) or ``make_prefill`` (the graph, captured in the untraced warm-up
+    pass), after ``PREFILL_RUNS`` untraced timed passes (their median is the
+    wall clock); returns the breakdown above, a step being the prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if model.device.type != "cuda":
+        raise RuntimeError("profile_prefill measures the CUDA device only")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}")
+    gen = torch.Generator(device=model.device)
+    prompt = torch.zeros((1, PROMPT_LEN), dtype=torch.long, device=model.device)
+    cache = model.setup_caches(1, PROMPT_LEN + STEPS, quantize=kv_cache_quantization)
+    prefill_fn = make_prefill(model)
+
+    def run(prof=None):
+        reset_cache(cache)
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            if mode == "graph":
+                prefill_fn(params, prompt, cache, gen, TEMPERATURE, TOP_K)
+            else:
+                prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    captures = prefill_fn.captures
+    wall = sorted(run() for _ in range(PREFILL_RUNS))[PREFILL_RUNS // 2]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced_wall = run(prof)
+    if prefill_fn.captures != captures:
+        raise RuntimeError("profile_prefill: a measured pass captured the prefill")
+    return {"mode": mode, "steps": 1, "capture_s": prefill_fn.capture_s,
+            **_breakdown(prof, trace_path, 1, wall, traced_wall)}
+
+
+def _profile_recipe(recipe, kv, env, trace_path, mode, phase="decode"):
+    """Quantize Llama-3-8B with ``recipe`` and profile its decode step (or
+    its prefill) in ``mode``, with ``env`` set in this (fresh) process."""
     from torchao_tpu_torch.models.llama.cli import config_from_recipe
     from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
     from torchao_tpu_torch.models.llama.model import Transformer, default_linear_filter
@@ -199,9 +255,9 @@ def _profile_recipe(recipe, kv, env, trace_path, mode):
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
     params = init_quantized_params(model, config_from_recipe(recipe), default_linear_filter,
                                    seed=0)
-    res = profile_decode(model, params, trace_path=trace_path, kv_cache_quantization=kv,
-                         mode=mode)
-    return {"device": torch.cuda.get_device_name(0), **res}
+    fn = profile_prefill if phase == "prefill" else profile_decode
+    res = fn(model, params, trace_path=trace_path, kv_cache_quantization=kv, mode=mode)
+    return {"device": torch.cuda.get_device_name(0), "phase": phase, **res}
 
 
 def main():
@@ -211,24 +267,32 @@ def main():
     ap.add_argument("--recipes", default=",".join(CONFIGS),
                     help="comma-separated names of CONFIGS to profile (default: all)")
     ap.add_argument("--modes", default=",".join(MODES),
-                    help="comma-separated decode modes, each run in its own process "
+                    help="comma-separated modes, each run in its own process "
                          f"(default: {','.join(MODES)})")
+    ap.add_argument("--phases", default="decode",
+                    help=f"comma-separated phases of {PHASES}, each run in its own process "
+                         "(default: decode)")
     a = ap.parse_args()
     if a.trace:
         os.makedirs(os.path.dirname(a.trace) or ".", exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    for name, mode in itertools.product(a.recipes.split(","), a.modes.split(",")):
+    for phase, name, mode in itertools.product(a.phases.split(","), a.recipes.split(","),
+                                               a.modes.split(",")):
+        if phase not in PHASES:
+            raise ValueError(f"phase must be one of {PHASES}")
         recipe, kv, env = CONFIGS[name]
-        trace = f"{a.trace}.{name}.{mode}.json" if a.trace else None
+        trace = f"{a.trace}.{name}.{phase}.{mode}.json" if a.trace else None
         with ctx.Pool(1) as pool:
-            res = pool.apply(_profile_recipe, (recipe, kv, env, trace, mode))
-        print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; decode step, "
+            res = pool.apply(_profile_recipe, (recipe, kv, env, trace, mode, phase))
+        what = "decode step" if phase == "decode" else f"prefill of {PROMPT_LEN} tokens"
+        print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; {what}, "
               f"{mode}: wall {res['wall_ms_per_step']:.3f} ms (traced "
               f"{res['traced_wall_ms_per_step']:.3f} ms), device busy "
               f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}, "
               f"capture {res['capture_s']:.3f} s")
         launches = sum(k["launches_per_step"] for k in res["kernels"])
-        print(f"  {launches:.1f} device launches per step; by device time:")
+        print(f"  {launches:.1f} device launches per {'step' if phase == 'decode' else 'prefill'}"
+              "; by device time:")
         for k in res["kernels"][:25]:
             print(f"  {k['ms_per_step']:9.4f} ms  {k['launches_per_step']:7.1f}x  {k['name']}")
         print("  host ops by self time:")
