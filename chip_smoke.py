@@ -6,7 +6,7 @@ Phases (each fails loudly; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``torchao_tpu_torch/csrc`` (``nvcc``, sm_90a);
-3. ten sections, one per configuration, each on Llama-3-8B at full
+3. fourteen sections, one per configuration, each on Llama-3-8B at full
    width and depth (32 layers, random weights from a seeded
    ``torch.Generator`` on the card, quantized through the port's quantize
    handler, leaf by leaf; each section frees its model before the next):
@@ -31,7 +31,18 @@ Phases (each fails loudly; nothing is caught):
      ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` for this section alone: K4′ at decode,
      K4 per head at the 128-token prefill (the fold rule);
    - int8 weight-only with the int8 head-major KV cache (the reference's
-     memory order), the fold variable unset: K4 at decode and prefill.
+     memory order), the fold variable unset: K4 at decode and prefill;
+   - int4 weight-only g=32 by HQQ (``Int4WeightOnlyConfig(32,
+     use_hqq=True)``: the INT zero domain, K1/K5 reading its float-equivalent
+     zero) with the packed-int4 split-flat KV cache, int4wo-32's launches;
+   - float8 dynamic activations x float8 weights PER TENSOR (one weight scale
+     over each stacked leaf, one activation scale a call: K8 with the scale
+     broadcast to its layers), bf16 cache, the head in plain torch;
+   - uint4 weight-only in BIT_SHARDS, g=64 (``UIntXWeightOnlyConfig``: the
+     JAX package's XLA route, each layer's weight dequantized in its turn and
+     multiplied with ``torch.matmul``; no kernel launches), bf16 cache;
+   - ``embed-int8wo``: bf16 linears (``torch.matmul``) and an int8 embedding
+     table gathered by rows (no kernel launches), bf16 cache.
 
    In each: every kernel of the configuration against its plain PyTorch
    version on the card at the main path's shapes (SQNR >= 35 dB; K14a's
@@ -227,6 +238,7 @@ from torchao_tpu_torch.models.llama.generate import (
     prefill,
     reset_cache,
 )
+from torchao_tpu_torch.models.llama.cli import config_from_recipe, embed_int8wo_filter
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
@@ -461,7 +473,8 @@ def _int4_call(x, w, l, variant="auto"):
     and that body's plain version."""
     N, K = w.shape[-2:]
     M, g = x.shape[0], w.block_size[-1]
-    args = (x, w.qdata, w.scale, w.zero_point)
+    zero = w.zero_float if w.zero_point_domain is ZeroPointDomain.INT else w.zero_point
+    args = (x, w.qdata, w.scale, zero)
     kw = dict(group_size=g, layer_idx=l, xored=True)
     plain = PLAIN[choose_body(M, K, g, variant)]
     qparams = (1 if w.zero_point is None else 2) * (K // g) * N * 2
@@ -508,7 +521,9 @@ def _int8dq_int_mm(x, w, l):
 
 def _fp8_call(x, w, l):
     N, K = w.shape[-2:]
-    ws = w.scale.reshape(w.qdata.shape[0], -1)
+    L = w.qdata.shape[0]
+    # per tensor: the one scale broadcast to each layer, as the route does
+    ws = w.scale.reshape(1, 1).expand(L, 1) if w.scale.numel() == 1 else w.scale.reshape(L, -1)
     M = x.shape[0]
     if w.act_quant_spec is None:
         a, nx = (x, w.qdata, ws, None, torch.bfloat16), M * K * 2
@@ -1303,7 +1318,7 @@ def to_device(tree, device, dtype=None):
         tree = tree.to(device)
         if dtype is None:
             return tree
-        cast = {n: getattr(tree, n).to(dtype) for n in ("scale", "zero_point")
+        cast = {n: getattr(tree, n).to(dtype) for n in ("scale", "zero_point", "zero_float")
                 if getattr(tree, n, None) is not None and getattr(tree, n).is_floating_point()}
         return dataclasses.replace(tree, activation_dtype=dtype, **cast)
     return tree.to(device, dtype) if dtype is not None else tree.to(device)
@@ -1478,6 +1493,23 @@ SECTIONS = {
                                  "int8wo_mixed_matmul_tiled": 4 * L + 1,
                                  "quantized_kv_decode_attention_int8": L * (DECODE + 1)}),
 }
+# slice 21: the remaining recipes. HQQ's int4 rides K1/K5 in the INT zero domain with
+# int4wo-32's launches; float8dq-tensor K8 with one scale over each stacked leaf (the
+# head in plain torch, as the JAX package's XLA route); uintx and embed-int8wo launch
+# no kernel (the JAX package's XLA routes: dequantize a layer, or a bf16 matmul)
+SECTIONS.update({
+    f"int4wo-{GROUP}-hqq": (config_from_recipe(f"int4wo-{GROUP}-hqq"), "int4_smajor",
+                            check_int4, _want_int4),
+    "float8dq-tensor": (config_from_recipe("float8dq-tensor"), False,
+                        lambda p, a, g: check_qmm("fp8_mixed_matmul_e4m3", p, a, g, _fp8_call,
+                                                  INT8_FP8_OPS, False, TOL_QMM_TILED_DB),
+                        _want_matmul_only("fp8_mixed_matmul_e4m3", lambda L: 4 * L)),
+    "uintx-4-64": (config_from_recipe("uintx-4-64"), False, lambda p, a, g: [],
+                   lambda L: {}),
+    "embed-int8wo": (Int8WeightOnlyConfig(), False, lambda p, a, g: [], lambda L: {}),
+})
+# the params filter a section quantizes with (default_linear_filter elsewhere)
+SECTION_FILTER = {"embed-int8wo": embed_int8wo_filter}
 # The tiled qmm bodies' C entries and K8's one-launch gemv (_build.ENTRIES), and the
 # launches each section's timed run makes of them (none where a section is not listed);
 # the int4 wrapper's entries are not asserted here. K7's SIMT tile (tt_qmm_tiled) is
@@ -1494,6 +1526,7 @@ SECTION_QMM_ENTRIES = {
                                "tt_fp8_mixed_gemv": 4 * L * DECODE},
     "fp6": _MMA_BF16_ALL,  # the B planes
     "int8wo-int8hm": _MMA_BF16_ALL,
+    "float8dq-tensor": lambda L: {"tt_qmm_mma_e4m3": 4 * L, "tt_fp8_mixed_gemv": 4 * L * DECODE},
 }
 # environment a section runs under (set for it alone, restored after)
 SECTION_ENV = {f"int4wo-{GROUP}-int4hm": {"TORCHAO_TPU_ATTN_FOLD_HEADS": "1"}}
@@ -1527,9 +1560,11 @@ def run_section(name, gen):
 def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     t0 = time.perf_counter()
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
-    params = init_quantized_params(model, config, default_linear_filter, seed=0)
+    params = init_quantized_params(model, config, SECTION_FILTER.get(name, default_linear_filter),
+                                   seed=0)
     torch.cuda.synchronize()
-    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
+    init_s = time.perf_counter() - t0
+    log(f"  init + quantize {init_s:.1f} s")
 
     log("  -- kernels against their plain versions (main-path shapes)")
     tallies = kernel_checks(params, model.args, gen)
@@ -1556,7 +1591,8 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
     e2e = {"config": name, "kv_cache": kv or "bf16", "ttft_ms": res["ttft_ms"],
            "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
            "capture_s": res["capture_s"], "prefill_capture_s": res["prefill_capture_s"],
-           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, "qmm_entries": entries, **head}
+           "model_GB": res["model_size_GB"], "peak_GB": peak_gb, "qmm_entries": entries,
+           "init_s": init_s, **head}
     log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graphs) "
         f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
         f"prefill_capture_s={res['prefill_capture_s']:.3f} "

@@ -29,6 +29,7 @@ import torch
 import torchao_tpu_torch.models.llama.generate as TG
 import torchao_tpu_torch.models.llama.model as TM
 from torchao_tpu_torch.kernels import _build
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = dict(block_size=64, vocab_size=512, n_layer=2, n_head=4, n_local_heads=2,
             dim=256, intermediate_size=512)  # as tests/test_torch_llama.py

@@ -50,6 +50,7 @@ from torchao_tpu_torch.kernels import int4_matmul as TK
 from torchao_tpu_torch.qtypes import intx as TX
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
 from torchao_tpu_torch.utils import compute_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LAYOUT = "TORCHAO_TPU_QPARAMS_LAYOUT"
 

@@ -11,6 +11,7 @@ its plain version at small shapes, as ``chip_smoke.py`` does at the main
 path's shapes. Run them there with ``python -m pytest tests/test_torch_kernel_build.py -m cuda``.
 """
 
+import dataclasses
 import re
 
 import pytest
@@ -1929,3 +1930,100 @@ def test_sass_loops_finds_the_loop_of_the_mma():
     assert "3 instructions in its smallest loop of the most HMMA [0x60, 0x80]" in out
     assert "PRMT 1, HMMA 1, BRA 1" in out
     assert "its largest loop [0x10, 0x50]" in _build.sass_loops(sass, "int4_k14_kernel")
+
+
+# ------------------------------------------------- slice 21: the recipes' forms --
+
+# Llama-3-8B's wqkv and w2 (N, K), one layer of each, at decode, the serving
+# engine's decode step and the prefill
+RECIPE_SHAPES = [(6144, 4096), (4096, 14336)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 128])
+@pytest.mark.parametrize("N,K", RECIPE_SHAPES)
+def test_hqq_int4_form_matches_plain(cuda, N, K, M):
+    """K1 (M <= 32) and K5 on HQQ's INT-domain weight (quantized on the card by
+    the port's handler) through ``ops.linear``: one launch of the kernel, the
+    float-equivalent zero read, SQNR >= 35 dB against the plain version."""
+    from torchao_tpu_torch.ops.qlinear import linear
+    from torchao_tpu_torch.quantization.quant_api import Int4WeightOnlyConfig, quantize_
+
+    gen = torch.Generator(device=cuda).manual_seed(N + M)
+    w = (torch.randn((1, N, K), generator=gen, device=cuda) / K ** 0.5).bfloat16()
+    q = quantize_({"w": w}, Int4WeightOnlyConfig(32, use_hqq=True), lambda p, t: True)["w"]
+    assert q.zero_float is not None and q.zero_float.dtype == torch.bfloat16
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = linear(x, q, layer_idx=0)
+    torch.cuda.synchronize()
+    form = "gemv" if M <= 32 else "tiled"
+    assert _build.LAUNCHES[f"int4_dq_matmul_{form}"] == 1, dict(_build.LAUNCHES)
+    want = int4_dq_matmul_plain(x, q.qdata, q.scale, q.zero_float, group_size=32, layer_idx=0,
+                                xored=True)
+    _sqnr_ok(got, want, 35.0, f"hqq int4 N={N} K={K} M={M}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 128])
+@pytest.mark.parametrize("N,K", RECIPE_SHAPES)
+def test_fp8_per_tensor_form_matches_plain(cuda, N, K, M):
+    """K8 with e4m3 activations on float8dq-tensor's weight (one scale over
+    the stacked leaf, broadcast to its layers; one activation scale a call)
+    through ``ops.linear``: one launch, SQNR >= 35 dB against the plain
+    version on the same per-tensor operands."""
+    from torchao_tpu_torch.ops.qlinear import linear
+    from torchao_tpu_torch.qtypes.float8 import quantize_activation_float8
+    from torchao_tpu_torch.quantization.granularity import PerTensor
+    from torchao_tpu_torch.quantization.quant_api import (
+        Float8DynamicActivationFloat8WeightConfig,
+        quantize_,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(N + K + M)
+    w = (torch.randn((2, N, K), generator=gen, device=cuda) / K ** 0.5).bfloat16()
+    cfg = Float8DynamicActivationFloat8WeightConfig(granularity=PerTensor())
+    q = quantize_({"w": w}, cfg, lambda p, t: True)["w"]
+    assert q.scale.numel() == 1
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = linear(x, q, layer_idx=1)
+    torch.cuda.synchronize()
+    form = "gemv" if M <= 32 else "tiled"
+    assert _build.LAUNCHES[f"fp8_mixed_matmul_e4m3_{form}"] == 1, dict(_build.LAUNCHES)
+    x_q, xs = quantize_activation_float8(x, q.act_quant_spec)
+    want = fp8_mixed_matmul_plain(x_q, q.qdata, q.scale.reshape(1, 1).expand(2, 1),
+                                  xs.reshape(-1), layer_idx=1)
+    _sqnr_ok(got, want, 35.0, f"fp8 per tensor N={N} K={K} M={M}")
+
+
+@pytest.mark.cuda
+def test_recipe_routes_without_a_kernel_on_the_card(cuda):
+    """uintx (BIT_SHARDS), HQQ's uintx (PLAIN) and int4dq-4's per-channel
+    int4 take the dequantize route on the card, one layer at a time, with no
+    kernel launch; ``safe_int_mm`` pads the shapes ``torch._int_mm`` declines
+    and equals the exact int32 product."""
+    from torchao_tpu_torch.ops.int_mm import safe_int_mm
+    from torchao_tpu_torch.ops.qlinear import linear
+    from torchao_tpu_torch.quantization import quant_api as Q
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    w = (torch.randn((2, 512, 1024), generator=gen, device=cuda) / 32).bfloat16()
+    x = torch.randn((3, 1024), generator=gen, device=cuda).bfloat16()
+    for cfg in (Q.UIntXWeightOnlyConfig("uint4", 64), Q.UIntXWeightOnlyConfig("uint3", 64, True),
+                Q.Int4DynamicActivationInt4WeightConfig()):
+        q = Q.quantize_({"w": w}, cfg, lambda p, t: True)["w"]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = linear(x, q, layer_idx=1)
+        torch.cuda.synchronize()
+        assert not any(_build.LAUNCHES.values()), dict(_build.LAUNCHES)
+        on_cpu = (dataclasses.replace(q, original_weight=q.original_weight.to("cpu"))
+                  if hasattr(q, "original_weight") else q.to("cpu"))
+        _sqnr_ok(got, linear(x.cpu(), on_cpu, layer_idx=1).to(cuda), 40.0, type(cfg).__name__)
+    for M, K, N in ((1, 5, 7), (3, 40, 9), (17, 24, 16)):
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=gen, device=cuda).to(torch.int8)
+        assert torch.equal(safe_int_mm(a, b).cpu(), a.cpu().int() @ b.cpu().int())

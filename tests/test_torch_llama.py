@@ -22,6 +22,7 @@ from torchao_tpu.quantization.quant_api import Int4WeightOnlyConfig as JCfg
 from torchao_tpu.quantization.quant_api import quantize_ as jquantize
 from torchao_tpu_torch.convert import params_from_jax_numpy
 from torchao_tpu_torch.utils import compute_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = dict(block_size=64, vocab_size=512, n_layer=2, n_head=4, n_local_heads=2,
             dim=256, intermediate_size=512)  # Dh = 64, GQA 2:1

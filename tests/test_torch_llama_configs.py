@@ -56,6 +56,7 @@ import torchao_tpu.quantization.quant_api as JQ
 import torchao_tpu_torch.models.llama.model as TM
 import torchao_tpu_torch.quantization.quant_api as TQ
 from test_torch_quant import jax_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from torchao_tpu.quantization.granularity import PerRow as JPerRow
 from torchao_tpu_torch.convert import params_from_jax_numpy
 from torchao_tpu_torch.quantization.granularity import PerRow
@@ -265,9 +266,10 @@ def test_config_from_recipe_matches_jax():
     from torchao_tpu_torch.models.llama.cli import config_from_recipe
 
     for q in ("int8wo", "int8dq", "int8dq_prefill_wo_decode", "float8wo", "float8dq-row",
-              "float8dq", "int4wo-32", "int4wo-128", "fp6", "8da4w", "8da4w-32", "8da4w-128"):
+              "float8dq", "int4wo-32", "int4wo-128", "fp6", "8da4w", "8da4w-32", "8da4w-128",
+              "float8dq-tensor", "int4wo-64-hqq", "int4dq-8"):
         assert config_to_json(config_from_recipe(q)) == jjson(jrecipe(q)), q
-    for q in ("float8dq-tensor", "int4wo-64-hqq", "int4dq-8"):
+    for q in ("codebook", "mx-fp8", "nvfp4"):
         with pytest.raises(NotImplementedError):
             config_from_recipe(q)
 

@@ -8,10 +8,15 @@ arrives as a dict of its arrays plus its static fields:
 - ``IntxArray``: ``{"qdata", "scale", "zero_point" (None in the NONE
   domain), "block_size", "quant_min", "quant_max", "zero_point_domain",
   "nibbles_xored", "logical_shape"}``, optionally ``"target_dtype"``,
-  ``"packing_format"``, ``"activation_dtype"``;
-- ``Float8Array``: ``{"qdata", "scale", "block_size", "float8_dtype"}``,
-  optionally ``"act_quant_spec"`` (a dict of ``Float8ActQuantSpec``'s
-  fields), ``"fast_accum"``, ``"activation_dtype"``;
+  ``"packing_format"`` (TILED_NIBBLES, PLAIN or BIT_SHARDS),
+  ``"activation_dtype"``. An INT-domain TILED array (HQQ's int4) gains its
+  float-equivalent zero ``zero_float`` here, computed from the INT zero as
+  the port's quantizer computes it (the JAX package keeps the same zero in
+  its ``qparams_eff`` instead, which is not carried);
+- ``Float8Array``: ``{"qdata", "scale", "block_size", "float8_dtype"}``
+  (the scale per row, or one over the whole, stacked, leaf), optionally
+  ``"act_quant_spec"`` (a dict of ``Float8ActQuantSpec``'s fields),
+  ``"fast_accum"``, ``"activation_dtype"``;
 - ``LinearActivationQuantizedArray``: ``{"original_weight": <one of the
   above>, "input_quant_name"}``, optionally ``"quant_kwargs"``;
 - ``FloatxArray`` (K-major fp6 only): ``{"qdata" (s4), "qdata2" (s2),
@@ -37,7 +42,7 @@ from torchao_tpu_torch.qtypes.base import PackingFormat
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
 from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
-from torchao_tpu_torch.qtypes.intx import IntxArray
+from torchao_tpu_torch.qtypes.intx import IntxArray, int_zero_as_float
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
 from torchao_tpu_torch.utils import resolve_device
 
@@ -66,20 +71,27 @@ def _enum(cls, v):
 def _intx_from_dict(d: Dict[str, Any], device) -> IntxArray:
     scale = tensor_from_numpy(d["scale"], device)
     zp = d.get("zero_point")
+    zp = None if zp is None else tensor_from_numpy(zp, device)
     act = d.get("activation_dtype")
+    qmin, qmax = int(d["quant_min"]), int(d["quant_max"])
+    domain = _enum(ZeroPointDomain, d["zero_point_domain"])
+    packing = _enum(PackingFormat, d.get("packing_format", "tiled_nibbles"))
+    int_tiled = (packing is PackingFormat.TILED_NIBBLES and domain is ZeroPointDomain.INT
+                 and zp is not None)
     return IntxArray(
         qdata=tensor_from_numpy(d["qdata"], device),
         scale=scale,
-        zero_point=None if zp is None else tensor_from_numpy(zp, device),
+        zero_point=zp,
         block_size=tuple(int(b) for b in d["block_size"]),
         target_dtype=d.get("target_dtype", "uint4"),
-        quant_min=int(d["quant_min"]),
-        quant_max=int(d["quant_max"]),
-        zero_point_domain=_enum(ZeroPointDomain, d["zero_point_domain"]),
-        packing_format=_enum(PackingFormat, d.get("packing_format", "tiled_nibbles")),
+        quant_min=qmin,
+        quant_max=qmax,
+        zero_point_domain=domain,
+        packing_format=packing,
         logical_shape=tuple(int(s) for s in d["logical_shape"]),
         activation_dtype=_DTYPES[act] if act else scale.dtype,
         nibbles_xored=bool(d["nibbles_xored"]),
+        zero_float=int_zero_as_float(scale, zp, qmin, qmax) if int_tiled else None,
     )
 
 

@@ -2,14 +2,18 @@
 
 Port of ``torchao_tpu/models/llama/init_utils.py::init_quantized_params``:
 weights are drawn and quantized ONE piece at a time (one layer of a
-stacked weight, or one out-feature chunk of a 2-D weight), so peak memory
-stays near the quantized model plus one piece in high precision (every
-quantized type stacks per layer and concatenates along out-features;
-per-row and per-channel scales are the same whichever way a weight is cut,
-so the pieces quantize exactly as the whole leaf would). Random
-numbers come from an explicit ``torch.Generator`` on the target device;
-they are not the JAX package's numbers (its tests feed both sides the same
-numpy inputs instead).
+stacked weight, or one out-feature chunk of a 2-D weight, the chunks kept
+lane-aligned: N / chunks a multiple of 128, the JAX package's rule), so
+peak memory stays near the quantized model plus one piece in high precision
+(per-row, per-channel and per-group qparams are the same whichever way a
+weight is cut, so the pieces quantize exactly as the whole leaf would; HQQ
+solves one layer at a time in the JAX package too). A config with ONE
+scale over the tensor (``PerTensor`` granularity, as float8dq-tensor's)
+would get one scale a piece instead, a different quantization: its
+quantized leaves are drawn and quantized whole, as the JAX package's
+fallback does. Random numbers come from an explicit ``torch.Generator`` on
+the target device; they are not the JAX package's numbers (its tests feed
+both sides the same numpy inputs instead).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 import torch
 
 from torchao_tpu_torch.qtypes.base import QuantizedArray
+from torchao_tpu_torch.quantization.granularity import PerTensor
 from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
 
 _CHUNK_ELEMS = 150_000_000
@@ -40,28 +45,33 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
         "output.weight": ((V, D), D),
     }
     handler = get_quantize_handler(config)
+    per_tensor = isinstance(getattr(config, "granularity", None), PerTensor)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def piece(name, shape, fan_in):
-        w = (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-             / math.sqrt(fan_in)).to(dtype)
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).div_(
+            math.sqrt(fan_in)).to(dtype)
         return handler(w, config) if filter_fn(name, w) else w
 
     def make(name):
         shape, fan_in = shapes[name]
+        if per_tensor and filter_fn(name, torch.empty(shape, dtype=dtype, device="meta")):
+            return piece(name, shape, fan_in)  # the whole leaf: one scale over it
         if len(shape) == 3:
-            layers = [piece(name, shape[1:], fan_in) for _ in range(shape[0])]
-            if isinstance(layers[0], QuantizedArray):
-                return type(layers[0]).stack_layers(layers)
-            return torch.stack(layers)
-        n_chunks = 1
-        while shape[0] * shape[1] // n_chunks > _CHUNK_ELEMS and shape[0] % (2 * n_chunks) == 0:
-            n_chunks *= 2
-        parts = [piece(name, (shape[0] // n_chunks, shape[1]), fan_in) for _ in range(n_chunks)]
-        if isinstance(parts[0], QuantizedArray):
-            return type(parts[0]).concat_out_features(parts)
-        return torch.cat(parts)
+            n, piece_shape, stack, join = shape[0], shape[1:], torch.stack, "stack_layers"
+        else:
+            n = 1
+            while (shape[0] * shape[1] // n > _CHUNK_ELEMS and shape[0] % (2 * n) == 0
+                   and (shape[0] // (2 * n)) % 128 == 0):
+                n *= 2
+            piece_shape, stack, join = (shape[0] // n, shape[1]), torch.cat, "concat_out_features"
+        if n == 1 and len(shape) == 2:
+            return piece(name, shape, fan_in)
+        pieces = [piece(name, piece_shape, fan_in) for _ in range(n)]
+        if isinstance(pieces[0], QuantizedArray):
+            return getattr(type(pieces[0]), join)(pieces)
+        return stack(pieces)
 
     tied = args.tie_word_embeddings
     if tied:

@@ -8,13 +8,14 @@ so the TPU's scalar-prefetch trick has no counterpart). Each kernel
 wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 version for a CPU tensor.
 
-- int4 TILED_NIBBLES (FLOAT zero-point domain, or zero-free) →
-  ``int4_linear`` at every M: K1/K5, or the variant (K14a/b/c, K1, K5) that
+- int4 TILED_NIBBLES (FLOAT zero-point domain, zero-free, or HQQ's INT
+  domain through its float-equivalent zero ``zero_float``) →
+  ``int4_linear``: K1/K5, or the variant (K14a/b/c, K1, K5) that
   ``TORCHAO_TPU_INT4_VARIANT`` or the autotune cache picks for the shape
-  (``kernels/int4_matmul.py``); int4wo, 8da4w and fp6's A plane all take
-  it. The JAX package's ``M >= 4096`` switch to dequant + XLA matmul was a
-  TPU measurement and is not carried over; where that line lies on an H100
-  is an open decision (ROADMAP.md).
+  (``kernels/int4_matmul.py``) at every M; int4wo, int4wo-hqq, 8da4w and
+  fp6's A plane all take it. The JAX package's ``M >= 4096`` switch to
+  dequant + XLA matmul was a TPU measurement and is not carried over; where
+  that line lies on an H100 is an open decision (ROADMAP.md).
 - int8 PLAIN per-channel (int8wo) → ``int8wo_mixed_matmul`` (K6), the
   unstacked head included. Like the JAX package, the route ignores the
   (symmetric, zero) zero point.
@@ -55,10 +56,22 @@ version for a CPU tensor.
   f32 and cast. The JAX package centres into bf16; the port keeps x's dtype
   (the same numbers for a bf16 model, and no bf16 rounding of the weights
   for a float32 one on the CPU).
-- Any other quantized weight is dequantized and multiplied on the CPU only
-  (another activation-quantized weight first quantizes and dequantizes its
-  activations, as the JAX package's generic route does); on a CUDA tensor it
-  raises, because no kernel is ported for it yet.
+- float8 stacked with ONE weight scale over all layers (float8dq-tensor's
+  whole-leaf quantization) → K8 as well, the scale broadcast to ``[L]`` (a
+  view) and the one per-tensor activation scale to the rows: the same
+  function. The JAX package declines this weight in its stacked K8 probe
+  and takes XLA (an e4m3 x e4m3 dot in f32 times both scales), whose plain
+  twin the CPU runs; a difference by design (ROADMAP.md Queue C).
+- Another activation-quantized weight (per-row fp8 activations over int4,
+  asymmetric int8dq, int4dq-4, ...): the JAX package's generic route,
+  activations quantized and dequantized, then the inner weight's own route
+  (zero-free K1/K5 for a TILED int4 weight).
+- Sub-byte PLAIN (HQQ's uintx, int4dq-4's per-channel int4, IntxWeightOnly)
+  and BIT_SHARDS (uintx) weights: the weights the JAX package sends to XLA
+  on the TPU. They are dequantized, one layer of a stacked weight at a
+  time, and multiplied with ``torch.matmul``, on any device.
+- Any other quantized weight is dequantized and multiplied on the CPU only;
+  on a CUDA tensor it raises, because no kernel is ported for it.
 """
 
 from __future__ import annotations
@@ -134,12 +147,26 @@ def _fp8_per_row(x: torch.Tensor, hp_value_ub=None):
 
 
 def _is_int4_tiled(w) -> bool:
-    """TILED nibbles in the FLOAT zero domain, or zero-free (z = 0)."""
+    """TILED nibbles in the FLOAT zero domain, zero-free (z = 0), or in the
+    INT domain with the float-equivalent zero (HQQ)."""
     return (
         isinstance(w, IntxArray)
         and w.packing_format is PackingFormat.TILED_NIBBLES
-        and (w.zero_point_domain is ZeroPointDomain.FLOAT or w.zero_point is None)
+        and (w.zero_point_domain is ZeroPointDomain.FLOAT or w.zero_point is None
+             or (w.zero_point_domain is ZeroPointDomain.INT and w.zero_float is not None))
         and w.quant_max - w.quant_min <= 15
+    )
+
+
+def _is_xla_dequant(w) -> bool:
+    """A weight that the JAX package dequantizes for XLA on the TPU: sub-byte
+    codes in the INT domain, BIT_SHARDS (uintx) or PLAIN (HQQ's uintx,
+    int4dq-4's per-channel int4, IntxWeightOnlyConfig)."""
+    return (
+        isinstance(w, IntxArray)
+        and w.packing_format in (PackingFormat.BIT_SHARDS, PackingFormat.PLAIN)
+        and w.zero_point_domain is ZeroPointDomain.INT
+        and w.quant_max - w.quant_min < 255
     )
 
 
@@ -193,20 +220,23 @@ def _is_fp8_row_head(w, layer_idx) -> bool:
 
 
 def _is_fp8_stacked(w, layer_idx) -> bool:
-    """K8 takes a stacked e4m3 weight with per-row or per-layer scales (a
-    per-tensor scale over all layers is declined, as in the JAX package)."""
+    """K8 takes a stacked e4m3 weight with per-row scales, one per layer, or
+    one over all layers (per tensor)."""
     if not isinstance(w, Float8Array) or layer_idx is None or w.qdata.ndim != 3:
         return False
     L, N = w.qdata.shape[:2]
     spec = w.act_quant_spec
-    return (w.float8_dtype == "float8_e4m3fn" and w.scale.numel() in (L, L * N)
+    return (w.float8_dtype == "float8_e4m3fn" and w.scale.numel() in (1, L, L * N)
             and (spec is None or spec.granularity in ("per_row", "per_tensor")))
 
 
 def _int4(x2, w: IntxArray, layer_idx):
+    """K1/K5 on a TILED int4 weight; the zero it reads: FLOAT, the INT
+    zero's float equivalent, or none."""
     mid = (w.quant_max + w.quant_min + 1) / 2 - w.quant_min
-    return int4_linear(x2, w.qdata, w.scale, w.zero_point, group_size=w.block_size[-1],
-                       mid=mid, layer_idx=layer_idx, xored=w.nibbles_xored)
+    zero = w.zero_float if w.zero_point_domain is ZeroPointDomain.INT else w.zero_point
+    return int4_linear(x2, w.qdata, w.scale, zero, group_size=w.block_size[-1], mid=mid,
+                       layer_idx=layer_idx, xored=w.nibbles_xored)
 
 
 def _8da4w(x2, w: LinearActivationQuantizedArray, layer_idx):
@@ -238,14 +268,20 @@ def _fp6_packed(x2, w: FloatxArray, layer_idx):
     N, K = w.shape[-2:]
     if fp6_dq_supported(x2.shape[0], K, N):
         return fp6_dq_matmul(x2, w.qdata, w.qdata2, w.scale, layer_idx=layer_idx)
+    return _dequant_matmul(x2, w, layer_idx)
+
+
+def _dequant_matmul(x2, w, layer_idx):
+    """The JAX package's XLA route: dequantize (one layer of a stacked
+    weight), then ``torch.matmul``."""
     if layer_idx is not None:
         w = w.take_layer(layer_idx)
     return torch.matmul(x2, w.dequantize(x2.dtype).T)
 
 
 def _laqt_qdq(x, w: LinearActivationQuantizedArray):
-    """The JAX package's generic route: quantize-dequantize x, then the
-    inner weight (CPU only here)."""
+    """The JAX package's generic route's activations: x quantized and
+    dequantized (its caller then takes the inner weight's route)."""
     quantized = w.quantize_input(x)
     per_token = lambda t: t.float().reshape(*x.shape[:-1], 1)
     q = quantized[0].float()
@@ -273,7 +309,8 @@ def _int8dq(x, x2, w: LinearActivationQuantizedArray, layer_idx):
 
 def _fp8_stacked(x2, w: Float8Array, layer_idx, out_dtype):
     L = w.qdata.shape[0]
-    ws = w.scale.reshape(L, -1)
+    # one scale over all layers: broadcast to one a layer (a view)
+    ws = w.scale.reshape(1, 1).expand(L, 1) if w.scale.numel() == 1 else w.scale.reshape(L, -1)
     if w.act_quant_spec is None:
         return fp8_mixed_matmul(x2, w.qdata, ws, None, out_dtype, layer_idx=layer_idx)
     x_q, x_scale = quantize_activation_float8(x2, w.act_quant_spec)
@@ -331,12 +368,10 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
         out = _fp8_row_head(x2, w)
     elif isinstance(w, Float8Array) and layer_idx is None and w.qdata.ndim == 2:
         out = _fp8_head(x, w)
-    elif x.device.type == "cpu":
-        if layer_idx is not None:
-            w = w.take_layer(layer_idx)
-        if isinstance(w, LinearActivationQuantizedArray):
-            return linear(_laqt_qdq(x, w), w.original_weight, bias)
-        out = torch.matmul(x, w.dequantize(x.dtype).T)
+    elif isinstance(w, LinearActivationQuantizedArray):
+        return linear(_laqt_qdq(x, w), w.original_weight, bias, layer_idx=layer_idx)
+    elif _is_xla_dequant(w) or x.device.type == "cpu":
+        out = _dequant_matmul(x2, w, layer_idx)
     else:
         raise NotImplementedError(
             f"no CUDA kernel is ported for {type(w).__name__} "

@@ -21,8 +21,8 @@ class PackingFormat(str, enum.Enum):
     PLAIN = unpacked int8/uint8 storage; TILED_NIBBLES = two int4 values per
     byte, *half-split* along the contraction axis (byte ``k`` holds element
     ``k`` in the low nibble and element ``k + K/2`` in the high nibble).
-    BIT_SHARDS is named for config compatibility with the JAX package and
-    is not ported yet.
+    BIT_SHARDS = 1 to 7-bit values split into power-of-two bit shards, each
+    packed densely (``qtypes/packing.py::pack_uintx``).
     """
 
     PLAIN = "plain"

@@ -15,7 +15,20 @@ plane). Storage is the JAX package's, byte for byte:
 - Nibble bytes are stored XORed with 0x80 (``nibbles_xored``): the low
   nibble is unchanged and the high nibble is ``(byte ^ 0x80) >> 4``.
 - PLAIN is ``qdata [.., N, K]`` int8 with per-channel ``scale [.., N]``
-  (``zero_point [.., N]`` int32 in the INT domain, None in NONE).
+  (``zero_point [.., N]`` int32 in the INT domain, None in NONE), or the
+  unpacked codes of HQQ's uintx (uint8, ``scale``/``zero_point [.., N, K/g]``
+  in the weight dtype, INT domain).
+- BIT_SHARDS (``UIntXWeightOnlyConfig``, 1 to 7 bits) is ``qdata [.., N,
+  Σ K·bits/8]``: the shards of ``pack_uintx`` along the last axis,
+  concatenated, so a stacked weight stays sliceable by layer and by
+  out-feature; ``scale``/``zero_point [.., N, K/g]``.
+- HQQ's int4 (``Int4WeightOnlyConfig(use_hqq=True)``) is TILED_NIBBLES in the
+  INT domain (``dq = (q − zp)·s``, qmin 0, qmax 15, a fractional zero in the
+  weight dtype). K1/K5 read FLOAT-domain (scale, zero), so such an array also
+  carries ``zero_float``, the float-equivalent zero ``(mid − zp)·s``
+  (:func:`int_zero_as_float`) in the scale's dtype, computed once when it
+  is made, with the JAX package's rounding (an f32 product, one cast);
+  ``dequantize`` reads the INT zero.
 
 The JAX package's ``qparams_eff`` (a chunked block-major qparams copy
 laid out for the TPU's DMA) is not carried: the CUDA kernels read
@@ -46,7 +59,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
-from torchao_tpu_torch.qtypes.packing import pack_int4, unpack_int4
+from torchao_tpu_torch.qtypes.packing import (
+    _SHARDS,
+    pack_int4,
+    pack_uintx,
+    unpack_int4,
+    unpack_uintx,
+)
 from torchao_tpu_torch.quantization import quant_primitives as qp
 from torchao_tpu_torch.quantization.quant_primitives import (
     MappingType,
@@ -85,6 +104,19 @@ def _tiled_eff_qparams(scale, zero_point, quant_min, quant_max, zero_point_domai
     z_lo, z_hi = z[..., :nG, :], z[..., nG:, :]
     return torch.cat([s_lo, s_hi / 16.0, z_lo - mid * s_lo, z_hi + (8.0 - mid) * s_hi],
                      dim=-2).to(torch.bfloat16)
+
+
+def int_zero_as_float(scale: torch.Tensor, zero_point: torch.Tensor, quant_min: int,
+                      quant_max: int) -> torch.Tensor:
+    """The float-equivalent zero ``(mid − zp)·s`` of an INT-domain zero, in
+    float32 and cast once to the scale's dtype (the JAX package's zero for
+    its fused int4 variant): ``(q − zp)·s = (q − mid)·s + z``."""
+    mid = (quant_max + quant_min + 1) / 2 - quant_min
+    return ((mid - zero_point.float()) * scale.float()).to(scale.dtype)
+
+
+def _nbits_of(target_dtype: str) -> int:
+    return int(target_dtype.lstrip("uint").lstrip("int") or 8)
 
 
 def qparams_chunk_groups(scale_rows: int, group_size: int) -> Optional[int]:
@@ -135,8 +167,9 @@ class IntxArray(QuantizedArray):
     logical_shape: Optional[Tuple[int, ...]] = None
     activation_dtype: torch.dtype = torch.bfloat16
     nibbles_xored: bool = False
+    zero_float: Optional[torch.Tensor] = None  # INT-domain TILED only (see above)
 
-    _tensor_fields = ("qdata", "scale", "zero_point")
+    _tensor_fields = ("qdata", "scale", "zero_point", "zero_float")
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -172,9 +205,10 @@ class IntxArray(QuantizedArray):
 
         - FLOAT domain, zero not preserved: tinygemm (``Int4WeightOnlyConfig``);
         - NONE domain: symmetric, no zero point stored (int8dq);
-        - INT domain, zero preserved: standard affine (int8wo).
+        - INT domain, zero preserved: standard affine (int8wo, uintx).
 
-        The JAX package's INT-without-preserved-zero branch is not ported."""
+        The JAX package's INT-without-preserved-zero branch is not ported:
+        no config reaches it."""
         quant_min, quant_max = qp.qmin_qmax(target_dtype, quant_min, quant_max)
         if zero_point_domain is ZeroPointDomain.FLOAT and not preserve_zero:
             scale, zero_point = qp.choose_qparams_affine_tinygemm(
@@ -222,8 +256,12 @@ class IntxArray(QuantizedArray):
                 while zero_point.ndim < w.ndim:
                     zero_point = zero_point[..., None]
                 zero_point = zero_point.transpose(-1, -2).contiguous()
-        elif packing_format is not PackingFormat.PLAIN:
-            raise NotImplementedError(f"{packing_format} is not ported yet")
+        elif packing_format is PackingFormat.BIT_SHARDS:
+            nbits = _nbits_of(target_dtype)
+            assert 1 <= nbits <= 7, target_dtype
+            if quant_min != 0:
+                qdata = qdata.to(torch.int32) - quant_min
+            qdata = torch.cat(pack_uintx(qdata.to(torch.uint8), nbits, axis=-1), dim=-1)
 
         return cls(
             qdata=qdata,
@@ -263,7 +301,7 @@ class IntxArray(QuantizedArray):
         of qparams of qdata's rank (groups), else their last axis."""
         a = parts[0]
         if a.packing_format is PackingFormat.TILED_NIBBLES:
-            axes = {"qdata": -1, "scale": -1, "zero_point": -1}
+            axes = dict.fromkeys(a._tensor_fields, -1)
         else:
             axes = {name: -2 if getattr(a, name).ndim == a.qdata.ndim else -1
                     for name in a._tensor_fields if getattr(a, name) is not None}
@@ -296,6 +334,17 @@ class IntxArray(QuantizedArray):
         """Integer codes with packing undone, logical ``[.., N, K]``."""
         if self.packing_format is PackingFormat.PLAIN:
             return self.qdata
+        if self.packing_format is PackingFormat.BIT_SHARDS:
+            nbits, n_last = _nbits_of(self.target_dtype), int(self.logical_shape[-1])
+            shards, off = [], 0
+            for bits in _SHARDS[nbits]:
+                width = n_last * bits // 8
+                shards.append(self.qdata[..., off:off + width])
+                off += width
+            q = unpack_uintx(shards, nbits, n_last, axis=-1)
+            if self.quant_min != 0:
+                q = (q.to(torch.int32) + self.quant_min).to(torch.int8)
+            return q
         qd = self.qdata
         if self.nibbles_xored:
             qd = qd ^ 0x80

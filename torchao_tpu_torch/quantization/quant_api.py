@@ -7,7 +7,10 @@ underscore is kept for API parity.
 
 - ``Int4WeightOnlyConfig(group_size)``: ASYMMETRIC, qmin=0/qmax=15,
   eps=1e-6, FLOAT zero-point domain (tinygemm), preserve_zero=False,
-  scale/zero in the weight dtype. The HQQ branch is not ported yet.
+  scale/zero in the weight dtype. ``use_hqq=True``: HQQ's solver (one layer
+  at a time on a stacked weight, as the JAX package's ``lax.map``), stored
+  as XORed TILED nibbles in the INT zero domain with the float-equivalent
+  zero beside the INT one (``qtypes/intx.py``).
 - ``Int8WeightOnlyConfig()``: SYMMETRIC int8 per channel, eps = f32 eps,
   int32 zero point (0), PLAIN.
 - ``Int8DynamicActivationInt8WeightConfig()``: the same weight in the NONE
@@ -25,12 +28,32 @@ underscore is kept for API parity.
 - ``FPXWeightOnlyConfig(ebits, mbits, runtime)``: fp6 (e3m2) in the
   K-major ``FloatxArray`` (``runtime="packed"``) or its exact dual-plane
   form ``Fp6DualArray`` (``runtime="dual"``, the default).
+- ``Int4DynamicActivationInt4WeightConfig()``: symmetric int4 per channel
+  (PLAIN), per-token symmetric int8 activations.
+- ``IntxWeightOnlyConfig(weight_dtype, granularity, mapping_type)``: PLAIN
+  1 to 8-bit weights in the INT domain.
+- ``UIntXWeightOnlyConfig(dtype, group_size, use_hqq)``: asymmetric uint1-7
+  in BIT_SHARDS; with ``use_hqq``, HQQ's codes unpacked (PLAIN, INT domain).
+- ``Float8DynamicActivationInt4WeightConfig(group_size)``: symmetric int4
+  (zero-free TILED where ``K/2 % max(8·g, 128) == 0``, else PLAIN in the
+  INT domain) with per-row e4m3 activations.
+- ``Float8StaticActivationFloat8WeightConfig(scale)``: e4m3 weights (per row,
+  or per tensor) with one activation scale a call, its amax bounded by the
+  calibrated ``scale · 448``.
+- ``GemliteUIntXWeightOnlyConfig``: 4-bit is HQQ's int4, 8-bit symmetric
+  int8 in groups; ``mode="dynamic"`` adds per-token int8 activations.
+- ``FbgemmConfig``: its three dtype triples onto int4wo, fp8 x int4 and
+  float8dq-row (activation amax bounded by ``activation_scale_ub``).
+- ``ModuleFqnToConfig`` (alias ``AOPerModuleConfig``): a config per
+  parameter path (a regex, full match, or the path itself; ``"_default"``
+  for the rest).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import re
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -39,8 +62,10 @@ from torchao_tpu_torch.qtypes.base import PackingFormat
 from torchao_tpu_torch.qtypes.composition import LinearActivationQuantizedArray
 from torchao_tpu_torch.qtypes.float8 import Float8ActQuantSpec, Float8Array
 from torchao_tpu_torch.qtypes.floatx import FloatxArray
-from torchao_tpu_torch.qtypes.intx import IntxArray
-from torchao_tpu_torch.quantization.granularity import Granularity, PerRow, PerTensor
+from torchao_tpu_torch.qtypes.intx import IntxArray, int_zero_as_float
+from torchao_tpu_torch.qtypes.packing import pack_int4
+from torchao_tpu_torch.quantization import quant_primitives as qp
+from torchao_tpu_torch.quantization.granularity import Granularity, PerGroup, PerRow, PerTensor
 from torchao_tpu_torch.quantization.quant_primitives import (
     MappingType,
     ZeroPointDomain,
@@ -58,7 +83,16 @@ __all__ = [
     "Float8WeightOnlyConfig",
     "Float8DynamicActivationFloat8WeightConfig",
     "Int8DynamicActivationInt4WeightConfig",
+    "Int4DynamicActivationInt4WeightConfig",
+    "IntxWeightOnlyConfig",
+    "UIntXWeightOnlyConfig",
     "FPXWeightOnlyConfig",
+    "Float8DynamicActivationInt4WeightConfig",
+    "Float8StaticActivationFloat8WeightConfig",
+    "GemliteUIntXWeightOnlyConfig",
+    "FbgemmConfig",
+    "ModuleFqnToConfig",
+    "AOPerModuleConfig",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -74,10 +108,41 @@ class Int4WeightOnlyConfig(AOBaseConfig):
     version: int = 1
 
 
+def _hqq(w: torch.Tensor, nbits: int, group_size: int):
+    """HQQ's (codes, scale, zero) of ``[N, K]``; a stacked weight one layer
+    at a time, so only one layer's float32 solver state is live."""
+    if w.ndim >= 3:
+        return tuple(torch.stack(t) for t in zip(*(_hqq(wl, nbits, group_size) for wl in w)))
+    q, scale, zero, _ = qp.choose_qparams_and_quantize_affine_hqq(
+        w, nbits=nbits, group_size=group_size, optimize=True, compute_dtype=torch.float32)
+    return q, scale, zero
+
+
+def _int4_hqq(w: torch.Tensor, block_size) -> IntxArray:
+    """HQQ's uint4 as XORed K-major nibbles in the INT zero domain, with the
+    float-equivalent zero that K1/K5 read."""
+    q, scale, zero = _hqq(w, 4, block_size[-1])
+    scale_t = scale.to(w.dtype).transpose(-1, -2).contiguous()
+    zero_t = zero.to(w.dtype).transpose(-1, -2).contiguous()
+    return IntxArray(
+        qdata=(pack_int4(q, axis=-1) ^ 0x80).transpose(-1, -2).contiguous(),
+        scale=scale_t,
+        zero_point=zero_t,
+        block_size=block_size,
+        target_dtype="uint4",
+        quant_min=0,
+        quant_max=15,
+        zero_point_domain=ZeroPointDomain.INT,
+        packing_format=PackingFormat.TILED_NIBBLES,
+        logical_shape=tuple(w.shape),
+        activation_dtype=w.dtype,
+        nibbles_xored=True,
+        zero_float=int_zero_as_float(scale_t, zero_t, 0, 15),
+    )
+
+
 @register_quantize_module_handler(Int4WeightOnlyConfig)
 def _int4_weight_only_transform(w: torch.Tensor, config: Int4WeightOnlyConfig):
-    if config.use_hqq:
-        raise NotImplementedError("Int4WeightOnlyConfig(use_hqq=True) is not ported yet")
     group_size = config.group_size
     if group_size in (None, -1):
         group_size = w.shape[-1]
@@ -87,6 +152,8 @@ def _int4_weight_only_transform(w: torch.Tensor, config: Int4WeightOnlyConfig):
     if w.shape[-1] % 2 != 0:
         packing_format = PackingFormat.PLAIN
     block_size = tuple([1] * (w.ndim - 1) + [group_size])
+    if config.use_hqq:
+        return _int4_hqq(w, block_size)
     return IntxArray.from_hp(
         w,
         MappingType.ASYMMETRIC,
@@ -176,12 +243,12 @@ def _int8_dyn_act_int8_weight_transform(w: torch.Tensor,
                                         config: Int8DynamicActivationInt8WeightConfig):
     if w.shape[-1] <= 16:  # tiny in_features stay unquantized, as in the JAX package
         return w
-    if config.act_mapping_type is not MappingType.SYMMETRIC:
-        raise NotImplementedError("asymmetric int8 activations are not ported yet")
     block_size = tuple([1] * (w.ndim - 1) + [w.shape[-1]])
     inner = IntxArray.from_hp(w, MappingType.SYMMETRIC, block_size, "int8", eps=_F32_EPS,
                               zero_point_domain=ZeroPointDomain.NONE)
-    act = "int8_per_token_sym" + ("_noop_decode" if config.weight_only_decode else "")
+    act = ("int8_per_token_sym" if config.act_mapping_type is MappingType.SYMMETRIC
+           else "int8_per_token_asym")
+    act += "_noop_decode" if config.weight_only_decode else ""
     return LinearActivationQuantizedArray(original_weight=inner, input_quant_name=act)
 
 
@@ -190,17 +257,20 @@ def _float8_weight_only_transform(w: torch.Tensor, config: Float8WeightOnlyConfi
     return Float8Array.from_hp(w, float8_dtype=config.weight_dtype)
 
 
+def _fp8_block(g: Optional[Granularity], w: torch.Tensor):
+    """(weight block size, activation granularity) of an fp8 granularity."""
+    if g is None or isinstance(g, PerRow):
+        return tuple([1] * (w.ndim - 1) + [w.shape[-1]]), "per_row"
+    if isinstance(g, PerTensor):
+        return tuple(w.shape), "per_tensor"
+    return g.block_size(w.shape), "per_row"
+
+
 @register_quantize_module_handler(Float8DynamicActivationFloat8WeightConfig)
 def _float8_dyn_act_float8_weight_transform(
     w: torch.Tensor, config: Float8DynamicActivationFloat8WeightConfig
 ):
-    g = config.granularity
-    if g is None or isinstance(g, PerRow):
-        block_size, gname = tuple([1] * (w.ndim - 1) + [w.shape[-1]]), "per_row"
-    elif isinstance(g, PerTensor):
-        block_size, gname = tuple(w.shape), "per_tensor"
-    else:
-        block_size, gname = g.block_size(w.shape), "per_row"
+    block_size, gname = _fp8_block(config.granularity, w)
     spec = Float8ActQuantSpec(float8_dtype=config.activation_dtype, granularity=gname,
                               hp_value_lb=config.activation_value_lb,
                               hp_value_ub=config.activation_value_ub)
@@ -239,6 +309,186 @@ def _fpx_weight_only_transform(w: torch.Tensor, config: FPXWeightOnlyConfig):
     return fx
 
 
+@dataclasses.dataclass
+class Int4DynamicActivationInt4WeightConfig(AOBaseConfig):
+    """int4 symmetric per-channel weights x per-token symmetric int8
+    activations (the ``int4dq-4`` recipe)."""
+
+    version: int = 1
+
+
+@dataclasses.dataclass
+class IntxWeightOnlyConfig(AOBaseConfig):
+    """1 to 8-bit weight-only quantization with a granularity."""
+
+    weight_dtype: str = "int4"
+    granularity: Granularity = dataclasses.field(default_factory=PerGroup)
+    mapping_type: MappingType = MappingType.SYMMETRIC
+    version: int = 1
+
+
+@dataclasses.dataclass
+class UIntXWeightOnlyConfig(AOBaseConfig):
+    """uint1-7 asymmetric weight-only (BIT_SHARDS; HQQ with ``use_hqq``)."""
+
+    dtype: str = "uint4"
+    group_size: int = 64
+    use_hqq: bool = False
+    version: int = 1
+
+
+@dataclasses.dataclass
+class Float8DynamicActivationInt4WeightConfig(AOBaseConfig):
+    """Per-row e4m3 dynamic activations x int4 group-wise weights."""
+
+    group_size: int = 128
+    version: int = 1
+
+
+@dataclasses.dataclass
+class Float8StaticActivationFloat8WeightConfig(AOBaseConfig):
+    """A calibrated activation ``scale`` x e4m3 weights."""
+
+    scale: Any = None
+    activation_dtype: str = "float8_e4m3fn"
+    weight_dtype: str = "float8_e4m3fn"
+    granularity: Optional[Granularity] = None
+    version: int = 1
+
+
+@dataclasses.dataclass
+class GemliteUIntXWeightOnlyConfig(AOBaseConfig):
+    """4-bit asymmetric (HQQ) or 8-bit symmetric weight-only, optionally
+    with per-token int8 activations (``mode="dynamic"``);
+    ``packing_bitwidth`` is accepted and ignored."""
+
+    group_size: Optional[int] = 128
+    bit_width: int = 4
+    packing_bitwidth: Optional[int] = None
+    mode: Optional[str] = "weight_only"
+    version: int = 1
+
+
+@dataclasses.dataclass
+class FbgemmConfig(AOBaseConfig):
+    """A (input, weight, output) dtype triple: (bf16, int4, bf16), (e4m3,
+    int4, bf16) or (e4m3, e4m3, bf16)."""
+
+    input_dtype: str = "bfloat16"
+    weight_dtype: str = "int4"
+    output_dtype: str = "bfloat16"
+    block_size: Optional[Tuple[int, ...]] = None
+    activation_scale_ub: float = 1200.0
+    preshuffle: bool = False
+    version: int = 1
+
+
+@dataclasses.dataclass
+class ModuleFqnToConfig(AOBaseConfig):
+    """A config per parameter path: keys are regexes (full match) or paths,
+    ``"_default"`` for the rest; None leaves a path unquantized."""
+
+    module_fqn_to_config: Dict[str, Optional[AOBaseConfig]] = dataclasses.field(
+        default_factory=dict)
+    version: int = 1
+
+
+AOPerModuleConfig = ModuleFqnToConfig  # the config's older name
+
+
+def _group_block(w: torch.Tensor, group_size) -> Tuple[int, ...]:
+    group_size = w.shape[-1] if group_size in (None, -1) else group_size
+    return tuple([1] * (w.ndim - 1) + [group_size])
+
+
+@register_quantize_module_handler(Int4DynamicActivationInt4WeightConfig)
+def _int4_dyn_act_int4_weight_transform(w: torch.Tensor,
+                                        config: Int4DynamicActivationInt4WeightConfig):
+    inner = IntxArray.from_hp(w, MappingType.SYMMETRIC, _group_block(w, None), "int4")
+    return LinearActivationQuantizedArray(original_weight=inner,
+                                          input_quant_name="int8_per_token_sym")
+
+
+@register_quantize_module_handler(IntxWeightOnlyConfig)
+def _intx_weight_only_transform(w: torch.Tensor, config: IntxWeightOnlyConfig):
+    return IntxArray.from_hp(w, config.mapping_type, config.granularity.block_size(w.shape),
+                             config.weight_dtype)
+
+
+@register_quantize_module_handler(UIntXWeightOnlyConfig)
+def _uintx_weight_only_transform(w: torch.Tensor, config: UIntXWeightOnlyConfig):
+    block_size = _group_block(w, config.group_size)
+    if config.use_hqq:
+        nbits = int(config.dtype.lstrip("uint"))
+        q, scale, zero = _hqq(w, nbits, block_size[-1])
+        return IntxArray(qdata=q, scale=scale.to(w.dtype), zero_point=zero.to(w.dtype),
+                         block_size=block_size, target_dtype=config.dtype, quant_min=0,
+                         quant_max=2**nbits - 1, zero_point_domain=ZeroPointDomain.INT,
+                         packing_format=PackingFormat.PLAIN, logical_shape=tuple(w.shape),
+                         activation_dtype=w.dtype)
+    return IntxArray.from_hp(w, MappingType.ASYMMETRIC, block_size, config.dtype,
+                             packing_format=PackingFormat.BIT_SHARDS)
+
+
+@register_quantize_module_handler(Float8DynamicActivationInt4WeightConfig)
+def _float8_dyn_act_int4_weight_transform(w: torch.Tensor,
+                                          config: Float8DynamicActivationInt4WeightConfig):
+    group_size = w.shape[-1] if config.group_size in (None, -1) else config.group_size
+    if w.shape[-1] % group_size != 0:
+        return w
+    tiled = w.shape[-1] % 2 == 0 and (w.shape[-1] // 2) % max(8 * group_size, 128) == 0
+    inner = IntxArray.from_hp(
+        w, MappingType.SYMMETRIC, _group_block(w, group_size), "int4", quant_min=-8,
+        quant_max=7,
+        zero_point_domain=ZeroPointDomain.NONE if tiled else ZeroPointDomain.INT,
+        packing_format=PackingFormat.TILED_NIBBLES if tiled else PackingFormat.PLAIN)
+    return LinearActivationQuantizedArray(original_weight=inner, input_quant_name="fp8_per_row")
+
+
+@register_quantize_module_handler(Float8StaticActivationFloat8WeightConfig)
+def _float8_static_act_float8_weight_transform(
+    w: torch.Tensor, config: Float8StaticActivationFloat8WeightConfig
+):
+    block_size, _ = _fp8_block(config.granularity, w)
+    ub = None if config.scale is None else float(config.scale) * 448.0
+    spec = Float8ActQuantSpec(float8_dtype=config.activation_dtype, granularity="per_tensor",
+                              hp_value_ub=ub)
+    return Float8Array.from_hp(w, block_size=block_size, float8_dtype=config.weight_dtype,
+                               act_quant_spec=spec)
+
+
+@register_quantize_module_handler(GemliteUIntXWeightOnlyConfig)
+def _gemlite_uintx_weight_only_transform(w: torch.Tensor,
+                                         config: GemliteUIntXWeightOnlyConfig):
+    assert config.bit_width in (4, 8), config.bit_width
+    group_size = config.group_size or w.shape[-1]
+    if config.bit_width == 4:
+        inner = _int4_weight_only_transform(
+            w, Int4WeightOnlyConfig(group_size=group_size, use_hqq=True))
+    else:
+        inner = IntxArray.from_hp(w, MappingType.SYMMETRIC, _group_block(w, group_size), "int8")
+    if config.mode == "dynamic":
+        return LinearActivationQuantizedArray(original_weight=inner,
+                                              input_quant_name="int8_per_token_sym")
+    return inner
+
+
+@register_quantize_module_handler(FbgemmConfig)
+def _fbgemm_config_transform(w: torch.Tensor, config: FbgemmConfig):
+    triple = (str(config.input_dtype), str(config.weight_dtype), str(config.output_dtype))
+    group_size = config.block_size[-1] if config.block_size else 128
+    if triple == ("bfloat16", "int4", "bfloat16"):
+        return _int4_weight_only_transform(w, Int4WeightOnlyConfig(group_size=group_size))
+    if triple == ("float8_e4m3fn", "int4", "bfloat16"):
+        return _float8_dyn_act_int4_weight_transform(
+            w, Float8DynamicActivationInt4WeightConfig(group_size=group_size))
+    if triple == ("float8_e4m3fn", "float8_e4m3fn", "bfloat16"):
+        return _float8_dyn_act_float8_weight_transform(
+            w, Float8DynamicActivationFloat8WeightConfig(
+                granularity=PerRow(), activation_value_ub=config.activation_scale_ub))
+    raise NotImplementedError(f"FbgemmConfig triple {triple} is not supported")
+
+
 def _default_filter(path: str, leaf) -> bool:
     """Quantize 2-D float tensors (linear weights)."""
     return isinstance(leaf, torch.Tensor) and leaf.ndim == 2 and leaf.is_floating_point()
@@ -253,16 +503,27 @@ def quantize_(
     ``config``; ``filter_fn(path, leaf)`` gets the dot-joined key path."""
     if filter_fn is None:
         filter_fn = _default_filter
-    handler = get_quantize_handler(config)
 
-    def walk(node, prefix):
+    def config_of(path):
+        if not isinstance(config, ModuleFqnToConfig):
+            return config
+        for pat, c in config.module_fqn_to_config.items():
+            if pat != "_default" and (re.fullmatch(pat, path) or pat == path):
+                return c
+        return config.module_fqn_to_config.get("_default")
+
+    def walk(node, keys):
         if isinstance(node, dict):
-            return {
-                k: walk(v, f"{prefix}.{k}" if prefix else str(k))
-                for k, v in node.items()
-            }
-        if filter_fn(prefix, node):
-            return handler(node, config)
-        return node
+            return {k: walk(v, keys + (k,)) for k, v in node.items()}
+        path = _path_str(keys)
+        cfg = config_of(path)
+        if cfg is None or not filter_fn(path, node):
+            return node
+        return get_quantize_handler(cfg)(node, cfg)
 
-    return walk(params, "")
+    return walk(params, ())
+
+
+def _path_str(keys) -> str:
+    """The dot-joined key path that filters and ``ModuleFqnToConfig`` match."""
+    return ".".join(str(k) for k in keys)

@@ -21,6 +21,8 @@ qparams are bit-exact with the JAX package on the CPU:
   power-of-two scale), ``quantize_affine_floatx`` (round to the grid, with
   subnormals), ``dequantize_affine_floatx``, ``exmy_encode`` /
   ``exmy_decode`` (6-bit codes ``s<<5 | e<<2 | m``)
+- HQQ: ``choose_qparams_and_quantize_affine_hqq`` (the proximal zero-point
+  solver, INT zero-point domain)
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ __all__ = [
     "dequantize_affine_floatx",
     "exmy_encode",
     "exmy_decode",
+    "choose_qparams_and_quantize_affine_hqq",
 ]
 
 
@@ -620,3 +623,59 @@ def exmy_decode(codes: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
     normal = (1.0 + M * 2.0 ** (-mbits)) * _exp2((E - exp_bias).float())
     sub = M * 2.0 ** (1 - exp_bias - mbits)
     return sign * torch.where(E == 0, sub, normal)
+
+
+def _scalar_over(a: float, t: torch.Tensor) -> torch.Tensor:
+    """``a / t`` as one IEEE division (``a / t`` on a tensor multiplies by the
+    reciprocal, which differs from XLA's quotient in the last bit)."""
+    return torch.full((), a, dtype=t.dtype, device=t.device) / t
+
+
+def choose_qparams_and_quantize_affine_hqq(
+    tensor: torch.Tensor,
+    nbits: int = 4,
+    group_size: int = 64,
+    optimize: bool = True,
+    axis: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
+    iters: int = 20,
+    lp_norm: float = 0.7,
+    beta: float = 1e1,
+    kappa: float = 1.01,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """HQQ: the zero point by proximal half-quadratic optimization, groups of
+    ``group_size`` along the last axis of ``[n, k]``.
+
+    ``iters`` alternations, in ``compute_dtype``: lp-norm shrinkage of the
+    residual ``W − dq(W)`` (``beta`` growing by ``kappa`` each time), then the
+    closed-form zero ``mean(q − (W − e)·inv_scale)`` per group. Where the
+    residual is 0, ``|x| ** (lp_norm − 1)`` is ``inf`` and the clamp at 0
+    gives 0, as in the JAX package (no NaN). Rounding is half to even.
+
+    Returns ``(q uint8, scale, zero, orig_shape)``; scale and zero are
+    ``orig_shape[:-1] + (k / group_size,)`` and the dequantization is
+    ``(q − zero)·scale`` (INT domain, qmin 0)."""
+    assert axis == 1, "HQQ operates on [n, k] with groups along k"
+    qmin, qmax = 0.0, float(2**nbits - 1)
+    orig_shape = tuple(tensor.shape)
+    w = tensor.to(compute_dtype).reshape(-1, group_size)
+    w_min = w.amin(dim=1, keepdim=True)
+    w_max = w.amax(dim=1, keepdim=True)
+    denom = torch.where(w_max == w_min, 1.0, w_max - w_min)
+    inv_scale = _scalar_over(qmax - qmin, denom)
+    zero = -w_min * inv_scale
+
+    if optimize:
+        beta_i = torch.full((), beta, dtype=compute_dtype, device=w.device)
+        for _ in range(iters):
+            wq = torch.clamp(torch.round(w * inv_scale + zero), qmin, qmax)
+            x = w - (wq - zero) / inv_scale
+            we = torch.sign(x) * torch.clamp_min(
+                x.abs() - _scalar_over(1.0, beta_i) * x.abs() ** (lp_norm - 1), 0.0)
+            zero = torch.mean(wq - (w - we) * inv_scale, dim=1, keepdim=True)
+            beta_i = beta_i * kappa
+
+    wq = torch.clamp(torch.round(w * inv_scale + zero), qmin, qmax)
+    qshape = orig_shape[:-1] + (orig_shape[-1] // group_size,)
+    return (wq.to(torch.uint8).reshape(orig_shape), _scalar_over(1.0, inv_scale).reshape(qshape),
+            zero.reshape(qshape), orig_shape)
