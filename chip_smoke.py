@@ -232,13 +232,24 @@ from torchao_tpu_torch.kernels.w4a8_matmul import (
     w4a8_dq_matmul_available,
     w4a8_dq_matmul_plain,
 )
+from torchao_tpu_torch.checkpoint import load_quantized, save_quantized
+from torchao_tpu_torch.models.llama import cli, speculative
+from torchao_tpu_torch.models.llama import eval as cli_eval
+from torchao_tpu_torch.models.llama.eval import evaluate_ppl
 from torchao_tpu_torch.models.llama.generate import (
     benchmark_decode,
     decode_n_tokens,
+    generate,
     prefill,
     reset_cache,
 )
 from torchao_tpu_torch.models.llama.cli import config_from_recipe, embed_int8wo_filter
+from torchao_tpu_torch.models.llama.speculative import (
+    SpeculativeDecode,
+    early_exit_draft,
+    generate_speculative,
+    make_speculative_decode,
+)
 from torchao_tpu_torch.models.llama.init_utils import init_quantized_params
 from torchao_tpu_torch.models.llama.model import ModelArgs, Transformer, default_linear_filter
 from torchao_tpu_torch.ops.qlinear import _fp8_head, _int8_per_token_asym, linear
@@ -274,7 +285,7 @@ from torchao_tpu_torch.quantization.quant_primitives import (
     quantize_activation_per_token_absmax,
 )
 from torchao_tpu_torch.serving import Request, ServingEngine
-from torchao_tpu_torch.utils import compute_error
+from torchao_tpu_torch.utils import compute_error, get_model_size_in_bytes
 
 MODEL = "Llama-3-8B"
 GROUP = 32
@@ -1939,6 +1950,306 @@ def serving_section(gen):
     return rows, e2e
 
 
+# -------------------------------------------------------- speculative --
+
+# python -m torchao_tpu_torch.models.llama.cli --model_name Llama-3-8B -q int4wo-32
+#     --kv_cache_quantization int4_smajor --speculate 4 --spec_k 4
+SPEC_DRAFT, SPEC_K, SPEC_KV = 4, 4, "int4_smajor"
+# where the draft's T = 2 step and the verify's T = k+1 forward start in the checks
+SPEC_STARTS = {2: PROMPT + 31, SPEC_K + 1: PROMPT + 32}
+
+
+def _spec_per_round(L, D, k):
+    """Launches of one round: the draft's k steps (D layers x 4 linears + the
+    head each; its T = 2 step through K4, its k - 1 T = 1 steps through K2
+    with K3's write), then the verify forward at T = k+1 (L layers)."""
+    return {"int4_dq_matmul_gemv": (4 * D + 1) * k + 4 * L + 1,
+            "smajor_decode_write_attention": D * (k - 1),
+            "quantized_kv_decode_attention": D + L}
+
+
+def check_spec_attention(args, gen, T, start, layers, role):
+    """K4 over int4 split-flat views at B = 1, T rows from ``start`` (>= 128),
+    the speculative round's shape, against its plain version, timed beside
+    its bound and SDPA under the causal mask of the visible keys."""
+    H, Hkv, Dh = args.n_head, args.n_local_heads, args.head_dim
+    G, S = H // Hkv, PROMPT + DECODE + SPEC_K + 1
+    name = "quantized_kv_decode_attention"
+    c = random_cache(gen, 1, 1, Hkv, Dh, S, False)
+    Db = c["k_q"].shape[2] // Hkv
+    views = (c["k_q"][0].reshape(1, Hkv, Db, S).transpose(2, 3), c["k_scale"][0][..., None],
+             c["v_q"][0].reshape(1, S, Hkv, Db).transpose(1, 2), c["v_scale"][0][..., None])
+    q = torch.randn((1, Hkv, T * G, Dh), generator=gen, device="cuda").bfloat16()
+    pos = torch.tensor([start], dtype=torch.int32, device="cuda")
+    call = lambda: quantized_kv_decode_attention(q, *views, pos, rows_per_t=G, bq=512)
+    plain = lambda: quantized_kv_decode_attention_plain(q, *views, pos, rows_per_t=G)
+    got, want = call(), plain()
+    err = compare(f"{name} B=1 T={T} start={start} ({role})", got, want)
+    kd, vd = _dequantized_layer(c, 0, Hkv, G)
+    qs = q.reshape(1, Hkv, T, G, Dh).transpose(2, 3).reshape(1, H, T, Dh).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, None, None, :]
+            <= start + torch.arange(T, device="cuda").view(1, 1, T, 1))
+    ms, plain_ms = time_ms(call), time_ms(plain)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask))
+    pairs = sum(G * (start + t + 1) for t in range(T))  # per kv head
+    nbytes = Hkv * (T * G * Dh * (2 + 4) + (start + T) * (2 * Db + 2 * 2))
+    flops = 4 * Hkv * pairs * Dh
+    b, by = bound(nbytes, flops)
+    log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b:.5f} ({by})")
+    t = Tally(name, f"the speculative round's {role}: B=1, T={T}, start={start}, S={S}: "
+                    f"{layers} launches")
+    t.add(layers, ms, plain_ms, nbytes, flops, err, lib_ms)
+    _sqnr(t, want, got)
+    t.extra.update({"B": 1, "T": T, "start": start, "role": role})
+    del c, views, kd, vd, got, want
+    return t
+
+
+def _spec_kernels(params, args, gen):
+    """K1 at M = 2 (the draft's T = 2 step: its layers and the head) and M =
+    k+1 (the verify forward), K4 at T = 2 and k+1; one row each."""
+    L = args.n_layer
+    rows = []
+    for M, layers, role in ((2, SPEC_DRAFT, "draft T=2 step"), (SPEC_K + 1, L, "verify")):
+        t = check_shapes("int4_dq_matmul_gemv", _cases(params, layers, True), M, _int4_call, gen)
+        t.work = f"the speculative round's {role}: M={M}, " + t.work.split(": ", 1)[1]
+        t.extra.update({"M": M, "role": role})
+        rows.append(t)
+    rows += [check_spec_attention(args, gen, 2, SPEC_STARTS[2], SPEC_DRAFT, "draft T=2 step"),
+             check_spec_attention(args, gen, SPEC_K + 1, SPEC_STARTS[SPEC_K + 1], L, "verify")]
+    return rows
+
+
+def _timed(fn):
+    """(seconds, result) of one call, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def spec_graph_eager_check(model, params, draft, dparams, prompt, temperature, top_k):
+    """The captured round against the same rounds run eagerly, from the same
+    prefilled caches (an eager prefill of each model, cloned): tokens,
+    stats and both caches bit for bit."""
+    n, T = DECODE - 1, prompt.shape[1]
+    cache = model.setup_caches(1, T + DECODE + SPEC_K + 1, quantize=SPEC_KV)
+    dcache = draft.setup_caches(1, T + DECODE + SPEC_K + 1, quantize=SPEC_KV)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    first, _ = prefill(model, params, prompt, cache, g, temperature, top_k)
+    prefill(draft, dparams, prompt, dcache, g, temperature, top_k)
+    copies = ({k: v.clone() for k, v in cache.items()}, {k: v.clone() for k, v in dcache.items()})
+    outs = []
+    for graphs, (c, d) in ((True, (cache, dcache)), (False, copies)):
+        spec = SpeculativeDecode(model, draft, n, SPEC_K, cuda_graphs=graphs)
+        toks, _, _, stats = spec(params, dparams, prompt[:, -1], first, c, d, T, 7, temperature,
+                                 top_k)
+        torch.cuda.synchronize()
+        outs.append((toks, stats, [t.clone() for t in (*c.values(), *d.values())], spec))
+    (gt, gs, gc_, gspec), (et, es, ec, espec) = outs
+    same = (torch.equal(gt, et) and gs == es and gspec.replays == espec.replays
+            and all(torch.equal(a, b) for a, b in zip(gc_, ec)) and gspec.captures == 1)
+    log(f"  round graph vs eager rounds (temperature {temperature}): {gspec.replays} rounds, "
+        f"tokens, stats {gs} and both caches {'equal' if same else 'DIFFER'} bit for bit")
+    if not same:
+        raise AssertionError("the captured speculative round and the eager rounds disagree")
+    return gspec.replays
+
+
+def speculative_section(gen):
+    """The speculative path on Llama-3-8B int4wo-32 with the int4 split-flat
+    cache, a draft of the target's first SPEC_DRAFT layers (views of its
+    weights; shared embedding, norm and head), k = SPEC_K, a PROMPT-token
+    prompt and DECODE new tokens: K1 at M = 2 and k+1 and K4 at T = 2 and
+    k+1 against their plain versions; then greedy and at TEMPERATURE / top-k
+    TOP_K, each a warm run (the captures) and a timed one of
+    ``generate_speculative``, its launches asserted per round, beside
+    vanilla ``generate`` on the same prompt; the round's graph against
+    eager rounds. Returns (kernel rows, end-to-end numbers)."""
+    log(f"== {MODEL}, speculative: int4wo-{GROUP}, KV cache {SPEC_KV}, draft = the first "
+        f"{SPEC_DRAFT} layers, k = {SPEC_K}, prompt {PROMPT}, {DECODE} new tokens")
+    t0 = time.perf_counter()
+    model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
+    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
+                                   default_linear_filter, seed=0)
+    draft, dparams = early_exit_draft(model, params, SPEC_DRAFT)
+    torch.cuda.synchronize()
+    log(f"  init + quantize {time.perf_counter() - t0:.1f} s")
+    wq, dwq = params["layers"]["attention"]["wqkv"], dparams["layers"]["attention"]["wqkv"]
+    if not (dwq.qdata.data_ptr() == wq.qdata.data_ptr() and dwq.qdata.shape[0] == SPEC_DRAFT):
+        raise AssertionError("the draft's weights are not views of the target's")
+    args, L = model.args, model.args.n_layer
+    log("  -- kernels against their plain versions (the round's shapes)")
+    tallies = _spec_kernels(params, args, gen)
+    torch.cuda.empty_cache()
+    prompt = torch.zeros((1, PROMPT), dtype=torch.long, device="cuda")  # benchmark_decode's
+    per_round = _spec_per_round(L, SPEC_DRAFT, SPEC_K)
+    prefills = {"int4_dq_matmul_tiled": 4 * (L + SPEC_DRAFT) + 2,
+                "quantized_kv_decode_attention": L + SPEC_DRAFT}
+    e2e = {"config": "speculative", "kv_cache": SPEC_KV, "draft_layers": SPEC_DRAFT,
+           "spec_k": SPEC_K}
+    counts = None
+    for temp in (0.0, TEMPERATURE):
+        label = "greedy" if temp == 0.0 else f"t{temp}"
+        van = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
+                               kv_cache_quantization=SPEC_KV, temperature=temp, top_k=TOP_K,
+                               warmup=1, iters=1)
+        van_stream = torch.cat([van["first"][:, None], van["tokens"][:, :DECODE - 1]], dim=1)
+        run = lambda: generate_speculative(model, params, draft, dparams, prompt, DECODE,
+                                           spec_k=SPEC_K, temperature=temp, top_k=TOP_K,
+                                           kv_cache_quantization=SPEC_KV, return_stats=True)
+        _timed(run)  # the round's and the prefills' captures
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        spec_s, (out, stats) = _timed(run)
+        got = dict(_build.LAUNCHES)
+        prog = make_speculative_decode(model, draft, DECODE - 1, SPEC_K)
+        r = prog._round
+        if prog.captures != (1 if temp == 0.0 else 2) or r.graph is None:  # one a sampling
+            raise AssertionError(f"the timed run captured again ({prog.captures} captures)")
+        want = {k: prefills.get(k, 0) + prog.replays * per_round.get(k, 0)
+                for k in per_round.keys() | prefills.keys()}
+        log(f"  {label}: launches a round {json.dumps(r.graph.launches, sort_keys=True)}; "
+            f"the run's {json.dumps(got, sort_keys=True)}")
+        if r.graph.launches != per_round or got != want or prog.replays != stats["rounds"]:
+            raise AssertionError(f"launches: a round {r.graph.launches} (want {per_round}), "
+                                 f"the run {got} (want {want}), {prog.replays} replays for "
+                                 f"{stats['rounds']} rounds")
+        if out.shape != (1, PROMPT + DECODE) or not (0 <= int(out.min()) and
+                                                     int(out.max()) < args.vocab_size):
+            raise AssertionError(f"speculative tokens out of range or of the wrong shape")
+        differ = (out[:, PROMPT:] != van_stream).nonzero()
+        prefix = int(differ[0, 1]) if len(differ) else DECODE
+        # vanilla per token: decode only (benchmark_decode's tok/s), and over the whole
+        # call as speculative's is timed (its prefill and decode)
+        van_wall = van["ttft_ms"] / 1e3 + van["decode_s"]
+        e2e[label] = {**stats, "tok_s": DECODE / spec_s, "wall_s": spec_s,
+                      "vanilla_tok_s": van["tokens_per_s"], "vanilla_wall_tok_s": DECODE / van_wall,
+                      "round_capture_s": prog.capture_s, "replays": prog.replays,
+                      "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                      "prefix_equal_to_vanilla": prefix}
+        log(f"  {label}: tok_s={DECODE / spec_s:.2f} over the whole call (vanilla "
+            f"{DECODE / van_wall:.2f}; decode only {van['tokens_per_s']:.2f}), acceptance "
+            f"{stats['acceptance_rate']:.3f} over {stats['rounds']} rounds, round capture "
+            f"{prog.capture_s:.3f} s, peak_GB {e2e[label]['peak_GB']:.3f}; the first {prefix} "
+            f"of {DECODE} tokens equal vanilla's")
+        if counts is None:
+            counts = got
+        spec_graph_eager_check(model, params, draft, dparams, prompt, temp, TOP_K)
+    log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    rows = []
+    for t in tallies:
+        if not counts.get(t.name):
+            raise AssertionError(f"{t.name} was not launched in the speculative run")
+        rows.append({**t.row(counts[t.name]), "section": "speculative"})
+    del model, params, draft, dparams
+    speculative._RUNS.clear()
+    speculative._PROGRAMS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, [e2e]
+
+
+# -------------------------------------------------------------- the cli --
+
+CKPT_LAYERS, PPL_WINDOWS, PPL_SEQ = 2, 2, 2048
+PPL_MAX_REL = 0.02  # |ppl card bf16 / ppl CPU f32 - 1|: bf16 against f32, same weights
+
+
+def cli_section(gen):
+    """The command line on the 8B ``--prompt`` path (the byte tokenizer) and
+    its ``--speculate`` benchmark line, ``eval.main --fake-weights`` at full
+    width over PPL_WINDOWS windows (K5 at M = PPL_SEQ), then
+    ``save_quantized`` / ``load_quantized`` of a CKPT_LAYERS-layer
+    full-width int4wo-32 model (logits equal bit for bit), and
+    ``evaluate_ppl`` over PPL_WINDOWS windows of PPL_SEQ tokens on it, the
+    card (K5 at M = PPL_SEQ) against the CPU's plain versions in float32.
+    Returns the end-to-end numbers."""
+    log(f"== {MODEL}, the command line: --prompt (byte tokenizer), int4wo-{GROUP}, "
+        f"{SPEC_KV} cache, greedy")
+    e2e = {"config": "cli"}
+    V = ModelArgs.from_name(MODEL).vocab_size
+    t0 = time.perf_counter()
+    res = cli.main(["--model_name", MODEL, "-q", f"int4wo-{GROUP}", "--kv_cache_quantization",
+                    SPEC_KV, "--prompt", "The capital of France is", "--max_new_tokens", "32",
+                    "--temperature", "0", "--write_result", ""])
+    e2e["prompt_s"] = time.perf_counter() - t0
+    if len(res["tokens"]) != 32 or not all(0 <= t < V for t in res["tokens"]):
+        raise AssertionError(f"cli.main gave {res['tokens']}")
+    os.makedirs(".chipwork", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=".chipwork") as d:
+        # the benchmark line of --speculate (written to --write_result), and eval.main
+        out = os.path.join(d, "results.txt")
+        res = cli.main(["--model_name", MODEL, "-q", f"int4wo-{GROUP}", "--kv_cache_quantization",
+                        SPEC_KV, "--speculate", str(SPEC_DRAFT), "--spec_k", str(SPEC_K),
+                        "--write_result", out])
+        with open(out) as f:
+            line = f.read()
+        if line.count("\n") != 1 or not 0 <= res["acceptance_rate"] <= 1:
+            raise AssertionError(f"cli.main --speculate wrote {line!r}, returned {res}")
+        e2e.update({"cli_speculate_tok_s": res["tokens_per_s"],
+                    "cli_speculate_acceptance": res["acceptance_rate"]})
+        tokens = os.path.join(d, "tokens.npy")
+        np.save(tokens, np.random.RandomState(1).randint(0, V, PPL_WINDOWS * PPL_SEQ + 1)
+                .astype(np.int32))
+        _build.reset_launch_counts()
+        ppl = cli_eval.main(["--model_name", MODEL, "--tokens", tokens, "--fake-weights", "-q",
+                             f"int4wo-{GROUP}", "--seq-len", str(PPL_SEQ), "--limit",
+                             str(PPL_WINDOWS)])
+        counts = dict(_build.LAUNCHES)
+        want = {"int4_dq_matmul_tiled": PPL_WINDOWS * (4 * ModelArgs.from_name(MODEL).n_layer + 1)}
+        if not math.isfinite(ppl) or counts != want:
+            raise AssertionError(f"eval.main: ppl {ppl}, launches {counts} (want {want})")
+        e2e["eval_main_ppl"] = ppl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    args = ModelArgs.from_name(MODEL)
+    args.n_layer, args.block_size = CKPT_LAYERS, PPL_SEQ
+    model = Transformer(args, torch.bfloat16, "cuda")
+    params = init_quantized_params(model, Int4WeightOnlyConfig(group_size=GROUP),
+                                   default_linear_filter, seed=0)
+    toks = torch.randint(0, args.vocab_size, (1, 64), generator=gen, device="cuda")
+    with tempfile.TemporaryDirectory(dir=".chipwork") as d:
+        save_s, _ = _timed(lambda: save_quantized(params, d))
+        load_s, back = _timed(lambda: load_quantized(d, device="cuda"))
+        same = torch.equal(model(params, toks)[0], model(back, toks)[0])
+    nbytes = get_model_size_in_bytes(params)
+    log(f"  save_quantized / load_quantized of a {CKPT_LAYERS}-layer model ({nbytes / 1e9:.3f} "
+        f"GB): {save_s:.2f} / {load_s:.2f} s, logits {'equal' if same else 'DIFFER'} bit for bit")
+    if not same:
+        raise AssertionError("a loaded checkpoint computes other logits")
+    e2e.update({"ckpt_GB": nbytes / 1e9, "save_s": save_s, "load_s": load_s})
+    del back
+
+    stream = np.random.RandomState(0).randint(0, args.vocab_size, PPL_WINDOWS * PPL_SEQ + 1)
+    _build.reset_launch_counts()
+    card_s, card = _timed(lambda: evaluate_ppl(model, params, stream, seq_len=PPL_SEQ))
+    counts = dict(_build.LAUNCHES)
+    want = {"int4_dq_matmul_tiled": PPL_WINDOWS * (4 * CKPT_LAYERS + 1)}
+    cpu_model = Transformer(args, torch.float32, "cpu")
+    t0 = time.perf_counter()
+    plain = evaluate_ppl(cpu_model, to_device(params, "cpu", torch.float32), stream,
+                         seq_len=PPL_SEQ)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(card / plain - 1)
+    log(f"  evaluate_ppl, {PPL_WINDOWS} x {PPL_SEQ} tokens on the {CKPT_LAYERS}-layer model: card "
+        f"bf16 {card:.3f} in {card_s:.2f} s, CPU f32 {plain:.3f} in {cpu_s:.1f} s (rel "
+        f"{rel:.2e}, <= {PPL_MAX_REL}); launches {json.dumps(counts)}")
+    if not (math.isfinite(card) and rel <= PPL_MAX_REL) or counts != want:
+        raise AssertionError(f"evaluate_ppl: card {card} vs CPU {plain}, launches {counts} "
+                             f"(want {want})")
+    e2e.update({"ppl_card": card, "ppl_cpu_f32": plain, "ppl_card_s": card_s,
+                "ppl_cpu_s": cpu_s})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return e2e
+
+
+
 # ---------------------------------------------------------------- C3 --
 
 C3_HEAD_DIMS = (32, 48, 96)  # beside 64 and 128: tiny-debug's 32, stories15M's 48, and 96
@@ -2387,6 +2698,13 @@ def main() -> int:
     rows += r
     e2e += e
     log(f"  serving section done; total {time.perf_counter() - t_start:.1f} s")
+
+    r, e = speculative_section(gen)
+    rows += r
+    e2e += e
+    log(f"  speculative section done; total {time.perf_counter() - t_start:.1f} s")
+    e2e.append(cli_section(gen))
+    log(f"  cli section done; total {time.perf_counter() - t_start:.1f} s")
 
     r, e = c3_phase(gen)
     rows += r

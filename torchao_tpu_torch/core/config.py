@@ -4,6 +4,10 @@ The port's own copy of ``torchao_tpu/core/config.py``: ``AOBaseConfig``
 with a per-class ``version`` and the ``_type``/``_version``/``_data`` wire
 format, so a config serializes to the same JSON in both packages.
 Deserialization reconstructs classes only from an allow-list of modules.
+A stored ``_version`` that differs from the class's warns and loads, as in
+the JAX package; :class:`VersionMismatchError` is defined for callers that
+want to refuse such a config, as the JAX package defines it (it raises it
+nowhere either).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any, Dict
 
 __all__ = [
     "AOBaseConfig",
+    "VersionMismatchError",
     "config_to_dict",
     "config_from_dict",
     "config_to_json",
@@ -30,6 +35,13 @@ class AOBaseConfig:
     dataclasses; ``version`` is bumped on breaking field changes."""
 
     version: int = 1
+
+
+class VersionMismatchError(Exception):
+    def __init__(self, msg, stored_version, current_version):
+        super().__init__(msg)
+        self.stored_version = stored_version
+        self.current_version = current_version
 
 
 ALLOWED_AO_MODULES = (

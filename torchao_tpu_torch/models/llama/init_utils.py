@@ -31,7 +31,8 @@ _CHUNK_ELEMS = 150_000_000
 
 def init_quantized_params(model, config, filter_fn, seed: int = 0):
     """Random-init + quantize leaf by leaf on ``model.device``; returns the
-    params dict (stacked layer weights, untied output head)."""
+    params dict (stacked layer weights; a tied model's head untied and
+    quantized by :func:`untie_quantized_head`)."""
     args, dtype, dev = model.args, model.dtype, model.device
     D, I = args.dim, args.intermediate_size
     H, Hkv, Dh, L = args.n_head, args.n_local_heads, args.head_dim, args.n_layer
@@ -73,16 +74,9 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
             return getattr(type(pieces[0]), join)(pieces)
         return stack(pieces)
 
-    tied = args.tie_word_embeddings
-    if tied:
+    if args.tie_word_embeddings:
         shapes.pop("output.weight")
     leaves = {name: make(name) for name in shapes}
-    if tied:
-        # an untied, quantized head copied from the embedding table, as
-        # the JAX package's ``untie_quantized_head`` does
-        emb = leaves["tok_embeddings.weight"]
-        quantize_head = filter_fn("output.weight", emb)
-        leaves["output.weight"] = handler(emb, config) if quantize_head else emb
     params = {
         "tok_embeddings": {"weight": leaves["tok_embeddings.weight"]},
         "layers": {
@@ -98,6 +92,32 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
             "ffn_norm": {"weight": torch.ones((L, D), dtype=dtype, device=dev)},
         },
         "norm": {"weight": torch.ones((D,), dtype=dtype, device=dev)},
-        "output": {"weight": leaves["output.weight"]},
     }
-    return params
+    if not args.tie_word_embeddings:
+        params["output"] = {"weight": leaves["output.weight"]}
+        return params
+    return untie_quantized_head(params, args, config, filter_fn)
+
+
+def untie_quantized_head(params, args, config, filter_fn=None):
+    """For a tied-embedding model, a QUANTIZED ``output`` head made from the
+    high-precision embedding table, which stays as it is for the lookup (the
+    reference's separate ``nn.Linear`` head, which ``quantize_`` converts).
+    Without it a tied model reads the whole bf16 table at every step. The
+    params are returned unchanged when the model is untied, the head is
+    already there, the embedding is already quantized (it serves both
+    roles), the filter rejects the head, or the handler returns a plain
+    tensor. ``filter_fn`` defaults to ``default_linear_filter``."""
+    if not getattr(args, "tie_word_embeddings", False) or "output" in params:
+        return params
+    from torchao_tpu_torch.models.llama.model import default_linear_filter
+
+    emb = params["tok_embeddings"]["weight"]
+    if isinstance(emb, QuantizedArray):
+        return params
+    if not (filter_fn or default_linear_filter)("output.weight", emb):
+        return params
+    head = get_quantize_handler(config)(emb, config)
+    if not isinstance(head, QuantizedArray):
+        return params
+    return {**params, "output": {"weight": head}}

@@ -372,11 +372,12 @@ def _feed_forward(x, lw: Dict[str, Any], l: int):
 
 def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
                         input_pos: Union[int, torch.Tensor], cache, freqs_full: torch.Tensor,
-                        args: ModelArgs):
+                        args: ModelArgs, *, head: bool = True):
     """Full forward over ``tokens [B, T]`` starting at ``input_pos`` (an
     int, or an int32 ``[B]`` tensor of per-slot positions). Returns
-    ``(logits [B, T, V], cache)``; the cache (or None) is updated in
-    place."""
+    ``(logits [B, T, V], cache)``, or with ``head=False`` the hidden states
+    ``[B, T, D]`` before the final norm and the head; the cache (or None)
+    is updated in place."""
     B, T = tokens.shape
     dev = tokens.device
     if isinstance(input_pos, torch.Tensor):
@@ -400,23 +401,72 @@ def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
         x = x + _feed_forward(
             rms_norm(x, lws["ffn_norm"]["weight"][l], args.norm_eps), lws["feed_forward"], l
         )
+    if not head:
+        return x, cache
     x = rms_norm(x, params["norm"]["weight"], args.norm_eps)
-    head = params["output"]["weight"] if "output" in params else params["tok_embeddings"]["weight"]
-    return linear(x, head), cache
+    w = params["output"]["weight"] if "output" in params else params["tok_embeddings"]["weight"]
+    return linear(x, w), cache
+
+
+def _named(path: str, names) -> bool:
+    return any(path.endswith(f"{n}.weight") or path.endswith(n) or f".{n}." in path
+               for n in names)
 
 
 def default_linear_filter(path: str, leaf) -> bool:
     """Quantize the transformer's linear weights only (not embeddings or
     norms)."""
-    names = ("wqkv", "wo", "w13", "w1", "w2", "w3", "output")
     return (
         isinstance(leaf, torch.Tensor)
         and leaf.ndim in (2, 3)
-        and any(path.endswith(f"{n}.weight") or path.endswith(n) or f".{n}." in path
-                for n in names)
+        and _named(path, ("wqkv", "wo", "w13", "w1", "w2", "w3", "output"))
         and "tok_embeddings" not in path
         and "norm" not in path
     )
+
+
+def ffn_only_filter(path: str, leaf) -> bool:
+    """FFN linears only (the reference's ``ffn_only``)."""
+    return default_linear_filter(path, leaf) and _named(path, ("w13", "w1", "w2", "w3"))
+
+
+def attn_only_filter(path: str, leaf) -> bool:
+    """Attention linears only."""
+    return default_linear_filter(path, leaf) and _named(path, ("wqkv", "wo"))
+
+
+def ffn_or_attn_only_filter(path: str, leaf) -> bool:
+    """FFN and attention linears, not the output head."""
+    return ffn_only_filter(path, leaf) or attn_only_filter(path, leaf)
+
+
+def init_params(args: ModelArgs, generator: torch.Generator, dtype=torch.bfloat16,
+                device=None) -> Dict[str, Any]:
+    """Random params with stacked layer weights, the JAX package's shapes
+    and scale (normal / sqrt(fan_in), drawn in float32 and cast), drawn from
+    ``generator`` on ``device`` (the generator's device by default)."""
+    dev = resolve_device(device if device is not None else generator.device)
+    D, I = args.dim, args.intermediate_size
+    H, Hkv, Dh, L, V = args.n_head, args.n_local_heads, args.head_dim, args.n_layer, args.vocab_size
+
+    def init(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return w.div_(math.sqrt(fan_in)).to(dtype)
+
+    params = {
+        "tok_embeddings": {"weight": init((V, D), D)},
+        "layers": {
+            "attention": {"wqkv": init((L, (H + 2 * Hkv) * Dh, D), D),
+                          "wo": init((L, D, H * Dh), H * Dh)},
+            "feed_forward": {"w13": init((L, 2 * I, D), D), "w2": init((L, D, I), I)},
+            "attention_norm": {"weight": torch.ones((L, D), dtype=dtype, device=dev)},
+            "ffn_norm": {"weight": torch.ones((L, D), dtype=dtype, device=dev)},
+        },
+        "norm": {"weight": torch.ones((D,), dtype=dtype, device=dev)},
+    }
+    if not args.tie_word_embeddings:
+        params["output"] = {"weight": init((V, D), D)}
+    return params
 
 
 class Transformer:
@@ -432,10 +482,18 @@ class Transformer:
     def from_name(cls, name: str, dtype=torch.bfloat16, device=None):
         return cls(ModelArgs.from_name(name), dtype, device)
 
+    def init_params(self, generator: Optional[torch.Generator] = None):
+        """Random params on the model's device (:func:`init_params`); seed 0
+        when no ``generator`` is given."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return init_params(self.args, generator, self.dtype, self.device)
+
     def setup_caches(self, batch_size: int, max_seq_len: int, quantize=False):
         max_seq_len = min(max_seq_len, self.args.block_size)
         return init_kv_cache(self.args, batch_size, max_seq_len, self.dtype, quantize,
                              device=self.device)
 
-    def __call__(self, params, tokens, input_pos=0, cache=None):
-        return transformer_forward(params, tokens, input_pos, cache, self.freqs, self.args)
+    def __call__(self, params, tokens, input_pos=0, cache=None, *, head: bool = True):
+        return transformer_forward(params, tokens, input_pos, cache, self.freqs, self.args,
+                                   head=head)

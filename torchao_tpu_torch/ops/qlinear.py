@@ -1,6 +1,10 @@
 """Quantized linear dispatch.
 
-Port of the ported configs' routes of ``torchao_tpu/ops/qlinear.py``.
+Port of the ported configs' routes of ``torchao_tpu/ops/qlinear.py``, on its
+dispatch table: :func:`register_qlinear_dispatch` appends a (check, impl)
+route and :func:`linear` takes the first whose check holds, the routes
+below registered in the JAX package's order (:func:`route_of` names the one
+a weight takes).
 Weight convention is torch's: ``w`` is ``[out_features, in_features]`` and
 ``linear(x, w) = x @ w.T (+ bias)``. A stacked ``[L, N, K]`` weight is
 passed whole with ``layer_idx`` (``qdata[l]`` is a free view in PyTorch,
@@ -77,7 +81,7 @@ version for a CPU tensor.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -337,45 +341,101 @@ def _fp8_head(x, w: Float8Array):
     return out.reshape(*x.shape[:-1], w.shape[0]).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# the dispatch table
+# ---------------------------------------------------------------------------
+
+_DISPATCH: List[Tuple[str, Callable, Callable]] = []
+
+
+def register_qlinear_dispatch(name: str, check: Callable, impl: Callable) -> None:
+    """Append a route: ``check(x, w, layer_idx) -> bool`` and ``impl(x, w,
+    layer_idx) -> out [..., N]`` (no bias). The first route whose check
+    holds wins, in registration order, as in the JAX package's table."""
+    _DISPATCH.append((name, check, impl))
+
+
+def _rows(fn):
+    """An impl over ``x`` flattened to rows ``[M, K]``, reshaped back.
+    ``fn(x2, w, layer_idx)`` is looked up at each call, so a route's
+    function can be wrapped in this module (as the tests do)."""
+    def impl(x, w, layer_idx):
+        N, K = w.shape[-2:]
+        return fn()(x.reshape(-1, K).contiguous(), w, layer_idx).reshape(*x.shape[:-1], N)
+    return impl
+
+
+def _is_fp8_weight(x, w, layer_idx) -> bool:
+    return _is_fp8_stacked(w, layer_idx) or (
+        isinstance(w, Float8Array) and layer_idx is None and w.qdata.ndim == 2)
+
+
+def _fp8_weight(x, w, layer_idx):
+    if layer_idx is not None:
+        return _rows(lambda: lambda x2, w, l: _fp8_stacked(x2, w, l, x.dtype))(x, w, layer_idx)
+    if _is_fp8_row_head(w, layer_idx):
+        return _rows(lambda: lambda x2, w, l: _fp8_row_head(x2, w))(x, w, layer_idx)
+    return _fp8_head(x, w)
+
+
+# the JAX package's registration order (torchao_tpu/ops/qlinear.py), the
+# routes it has that the port has not (QAT, smoothquant) left out; the
+# checks are exclusive but for ``laqt_generic``, which must follow the
+# activation-quantized routes before it
+register_qlinear_dispatch(
+    "int8_dyn_act_int8_weight", lambda x, w, l: _is_int8dq(w),
+    lambda x, w, l: _rows(lambda: lambda x2, w, l: _int8dq(x, x2, w, l))(x, w, l))
+register_qlinear_dispatch(
+    "w4a8_int4_weight", lambda x, w, l: x.device.type == "cuda" and _is_w4a8(w),
+    _rows(lambda: lambda x2, w, l: _w4a8(x2, w)))
+register_qlinear_dispatch("8da4w_centered_int4", lambda x, w, l: _is_8da4w(w),
+                          _rows(lambda: _8da4w))
+register_qlinear_dispatch(
+    "laqt_generic", lambda x, w, l: isinstance(w, LinearActivationQuantizedArray),
+    lambda x, w, l: linear(_laqt_qdq(x, w), w.original_weight, layer_idx=l))
+register_qlinear_dispatch("int8_weight_only", lambda x, w, l: _is_int8_per_channel(w),
+                          _rows(lambda: _int8wo))
+register_qlinear_dispatch("int4_weight_only", lambda x, w, l: _is_int4_tiled(w),
+                          _rows(lambda: _int4))
+register_qlinear_dispatch("fp8_weight", _is_fp8_weight, lambda x, w, l: _fp8_weight(x, w, l))
+register_qlinear_dispatch("fpx_weight", lambda x, w, l: isinstance(w, FloatxArray),
+                          _rows(lambda: _fp6_packed))
+register_qlinear_dispatch("fp6_dual", lambda x, w, l: isinstance(w, Fp6DualArray),
+                          _rows(lambda: _fp6_dual))
+
+
+def route_of(x: torch.Tensor, w, layer_idx: Optional[int] = None) -> str:
+    """The name of the route :func:`linear` takes for ``(x, w)``:
+    ``"plain"`` for an unquantized weight, a registered name, or
+    ``"dequantize"`` (the JAX package's XLA route, and any weight on the
+    CPU that no route takes); raises where a CUDA tensor has no route."""
+    if not isinstance(w, QuantizedArray):
+        return "plain"
+    for name, check, _ in _DISPATCH:
+        if check(x, w, layer_idx):
+            return name
+    if _is_xla_dequant(w) or x.device.type == "cpu":
+        return "dequantize"
+    raise NotImplementedError(
+        f"no CUDA kernel is ported for {type(w).__name__} "
+        f"({getattr(w, 'packing_format', None)}) yet"
+    )
+
+
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
            layer_idx: Optional[int] = None) -> torch.Tensor:
     """``x @ w.T + bias`` for a plain or quantized ``w``; with
-    ``layer_idx``, ``w`` is a STACKED per-layer weight ``[L, out, in]``."""
+    ``layer_idx``, ``w`` is a STACKED per-layer weight ``[L, out, in]``.
+    A quantized weight takes the first registered route whose check holds
+    (:func:`register_qlinear_dispatch`)."""
     if not isinstance(w, QuantizedArray):
         if layer_idx is not None:
             w = w[layer_idx]
         out = torch.matmul(x, w.T)
         return out + bias if bias is not None else out
-    N, K = w.shape[-2:]
-    x2 = x.reshape(-1, K).contiguous()
-    if _is_int4_tiled(w):
-        out = _int4(x2, w, layer_idx)
-    elif x.device.type == "cuda" and _is_w4a8(w):
-        out = _w4a8(x2, w)
-    elif _is_8da4w(w):
-        out = _8da4w(x2, w, layer_idx)
-    elif isinstance(w, Fp6DualArray):
-        out = _fp6_dual(x2, w, layer_idx)
-    elif isinstance(w, FloatxArray):
-        out = _fp6_packed(x2, w, layer_idx)
-    elif _is_int8_per_channel(w):
-        out = _int8wo(x2, w, layer_idx)
-    elif _is_int8dq(w):
-        out = _int8dq(x, x2, w, layer_idx)
-    elif _is_fp8_stacked(w, layer_idx):
-        out = _fp8_stacked(x2, w, layer_idx, x.dtype)
-    elif _is_fp8_row_head(w, layer_idx):
-        out = _fp8_row_head(x2, w)
-    elif isinstance(w, Float8Array) and layer_idx is None and w.qdata.ndim == 2:
-        out = _fp8_head(x, w)
-    elif isinstance(w, LinearActivationQuantizedArray):
-        return linear(_laqt_qdq(x, w), w.original_weight, bias, layer_idx=layer_idx)
-    elif _is_xla_dequant(w) or x.device.type == "cpu":
-        out = _dequant_matmul(x2, w, layer_idx)
+    route = route_of(x, w, layer_idx)
+    if route == "dequantize":
+        out = _rows(lambda: _dequant_matmul)(x, w, layer_idx)
     else:
-        raise NotImplementedError(
-            f"no CUDA kernel is ported for {type(w).__name__} "
-            f"({getattr(w, 'packing_format', None)}) yet"
-        )
-    out = out.reshape(*x.shape[:-1], N)
+        out = next(impl for name, _, impl in _DISPATCH if name == route)(x, w, layer_idx)
     return out + bias if bias is not None else out

@@ -1,6 +1,9 @@
 """Where a decode step's or a prefill's time goes on the card.
 
-Counterpart of ``torchao_tpu/profiler.py``: :func:`profile_decode` traces a
+Counterpart of ``torchao_tpu/profiler.py``: :func:`profiler_runner` (a
+``torch.profiler`` trace of whatever runs inside it, written as a chrome
+trace) and :func:`roofline_report` (the analytic bound of a linear at the
+H100's rates) as in the JAX package; and :func:`profile_decode` traces a
 few decode steps, :func:`profile_prefill` one prefill, with
 ``torch.profiler``, and each reads the trace's device events (kernels,
 copies, memsets) back:
@@ -27,12 +30,14 @@ configuration's environment, such as ``TORCHAO_TPU_ATTN_FOLD_HEADS=1`` or
 ``TORCHAO_TPU_INT4_VARIANT=banded``, stays in its own); with ``--trace
 PREFIX`` each one's chrome trace goes to ``PREFIX.<name>.<phase>.<mode>.json``,
 ``--recipes`` picks some configurations, ``--modes`` the modes and
-``--phases`` the phases (``decode``, the default, and ``prefill``)::
+``--phases`` the phases (``decode``, the default, ``prefill``, and
+``speculative``: the rounds of :func:`profile_speculative`)::
 
     python -m torchao_tpu_torch.profiler --trace decode_trace
     python -m torchao_tpu_torch.profiler --recipes fp6,8da4w-32,int4wo-32-int4hm
     python -m torchao_tpu_torch.profiler --recipes int4wo-32,int8wo,int8dq --modes graph
     python -m torchao_tpu_torch.profiler --recipes int4wo-32,int8wo --phases prefill
+    python -m torchao_tpu_torch.profiler --recipes int4wo-32 --phases speculative --modes graph
 """
 
 from __future__ import annotations
@@ -74,10 +79,50 @@ CONFIGS = {"int4wo-32": ("int4wo-32", "int4_smajor", {}), "int8wo": ("int8wo", "
            "int4wo-32-banded": ("int4wo-32", "int4_smajor",
                                 {"TORCHAO_TPU_INT4_VARIANT": "banded"})}
 MODES = ("eager", "graph")
-PHASES = ("decode", "prefill")
+PHASES = ("decode", "prefill", "speculative")
+SPEC_DRAFT, SPEC_K = 4, 4  # the speculative phase: a draft of the first 4 layers, k = 4
 PREFILL_RUNS = 5
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 _NAME_CHARS = 90  # PyTorch's templated kernel names run to kilobytes
+
+
+# NVIDIA's H100 SXM data sheet: HBM3 bytes/s and dense bf16 tensor-core ops/s
+H100_HBM_GBPS = 3350.0
+H100_BF16_TFLOPS = 989.0
+
+
+@contextlib.contextmanager
+def profiler_runner(path: str):
+    """Trace what runs inside the block with ``torch.profiler`` (the CPU
+    and, where there is one, the CUDA device) and write a chrome trace to
+    ``path`` at its end; yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(path)
+
+
+def roofline_report(m: int, n: int, k: int, *, weight_bits: float = 16, act_bits: float = 16,
+                    hbm_gbps: float = H100_HBM_GBPS,
+                    tensor_tflops: float = H100_BF16_TFLOPS) -> dict:
+    """Analytic roofline of an ``[M, K] x [K, N]`` linear: its operations
+    and bytes (weights, activations and a 16-bit output), the time of each
+    at the given rates, which bounds it, and its arithmetic intensity; the
+    JAX package's formula, at the H100's rates by default."""
+    flops = 2 * m * n * k
+    nbytes = (n * k * weight_bits + m * k * act_bits + m * n * 16) / 8
+    t_compute = flops / (tensor_tflops * 1e12)
+    t_memory = nbytes / (hbm_gbps * 1e9)
+    return {
+        "flops": flops,
+        "bytes": int(nbytes),
+        "t_compute_us": t_compute * 1e6,
+        "t_memory_us": t_memory * 1e6,
+        "bound": "memory" if t_memory > t_compute else "compute",
+        "arithmetic_intensity": flops / nbytes,
+    }
 
 
 def _busy_us(intervals):
@@ -243,6 +288,57 @@ def profile_prefill(model, params, trace_path=None, kv_cache_quantization=False,
             **_breakdown(prof, trace_path, 1, wall, traced_wall)}
 
 
+def profile_speculative(model, params, trace_path=None, kv_cache_quantization=False,
+                        mode="graph"):
+    """Trace the rounds of one batch-1 speculative decode of ``STEPS``
+    tokens (a draft of the first ``SPEC_DRAFT`` layers, k = ``SPEC_K``, top-k
+    ``TOP_K`` at ``TEMPERATURE``) after both ``PROMPT_LEN`` prefills (eager,
+    untimed), with both caches allocated once and reset before each pass;
+    ``graph`` replays the captured round (captured in the untraced warm-up
+    pass), ``eager`` runs the same rounds op by op. Returns the breakdown
+    above, a step being a round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchao_tpu_torch.models.llama.speculative import SpeculativeDecode, early_exit_draft
+
+    if model.device.type != "cuda":
+        raise RuntimeError("profile_speculative measures the CUDA device only")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}")
+    draft, dparams = early_exit_draft(model, params, SPEC_DRAFT)
+    gen = torch.Generator(device=model.device)
+    prompt = torch.zeros((1, PROMPT_LEN), dtype=torch.long, device=model.device)
+    S = PROMPT_LEN + STEPS + SPEC_K + 2
+    cache = model.setup_caches(1, S, quantize=kv_cache_quantization)
+    dcache = draft.setup_caches(1, S, quantize=kv_cache_quantization)
+    spec = SpeculativeDecode(model, draft, STEPS, SPEC_K, cuda_graphs=mode == "graph")
+
+    def run(prof=None):
+        reset_cache(cache)
+        reset_cache(dcache)
+        gen.manual_seed(0)
+        first, _ = prefill(model, params, prompt, cache, gen, TEMPERATURE, TOP_K)
+        prefill(draft, dparams, prompt, dcache, gen, TEMPERATURE, TOP_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            spec(params, dparams, prompt[:, -1], first, cache, dcache, PROMPT_LEN, 0,
+                 TEMPERATURE, TOP_K)
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    captures = spec.captures
+    wall = run()
+    rounds = spec.replays
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced_wall = run(prof)
+    if spec.captures != captures or spec.replays != rounds:
+        raise RuntimeError("profile_speculative: a measured pass captured or ran other rounds")
+    return {"mode": mode, "steps": rounds, "capture_s": spec.capture_s,
+            **_breakdown(prof, trace_path, rounds, wall, traced_wall)}
+
+
 def _profile_recipe(recipe, kv, env, trace_path, mode, phase="decode"):
     """Quantize Llama-3-8B with ``recipe`` and profile its decode step (or
     its prefill) in ``mode``, with ``env`` set in this (fresh) process."""
@@ -255,7 +351,8 @@ def _profile_recipe(recipe, kv, env, trace_path, mode, phase="decode"):
     model = Transformer.from_name(MODEL, dtype=torch.bfloat16, device="cuda")
     params = init_quantized_params(model, config_from_recipe(recipe), default_linear_filter,
                                    seed=0)
-    fn = profile_prefill if phase == "prefill" else profile_decode
+    fn = {"decode": profile_decode, "prefill": profile_prefill,
+          "speculative": profile_speculative}[phase]
     res = fn(model, params, trace_path=trace_path, kv_cache_quantization=kv, mode=mode)
     return {"device": torch.cuda.get_device_name(0), "phase": phase, **res}
 
@@ -284,14 +381,16 @@ def main():
         trace = f"{a.trace}.{name}.{phase}.{mode}.json" if a.trace else None
         with ctx.Pool(1) as pool:
             res = pool.apply(_profile_recipe, (recipe, kv, env, trace, mode, phase))
-        what = "decode step" if phase == "decode" else f"prefill of {PROMPT_LEN} tokens"
+        what = {"decode": "decode step", "prefill": f"prefill of {PROMPT_LEN} tokens",
+                "speculative": f"speculative round ({res['steps']} rounds)"}[phase]
         print(f"{res['device']}; {name}, KV cache {kv or 'bf16'} {env or ''}; {what}, "
               f"{mode}: wall {res['wall_ms_per_step']:.3f} ms (traced "
               f"{res['traced_wall_ms_per_step']:.3f} ms), device busy "
               f"{res['busy_ms_per_step']:.3f} ms, idle share {res['idle_share']:.3f}, "
               f"capture {res['capture_s']:.3f} s")
         launches = sum(k["launches_per_step"] for k in res["kernels"])
-        print(f"  {launches:.1f} device launches per {'step' if phase == 'decode' else 'prefill'}"
+        unit = {"decode": "step", "prefill": "prefill", "speculative": "round"}[phase]
+        print(f"  {launches:.1f} device launches per {unit}"
               "; by device time:")
         for k in res["kernels"][:25]:
             print(f"  {k['ms_per_step']:9.4f} ms  {k['launches_per_step']:7.1f}x  {k['name']}")

@@ -24,7 +24,7 @@ the same programs run eagerly.
 Sampling: temperature 0 is the argmax, as in JAX. Otherwise the exponential
 race over the top-k probabilities, its noise keyed per (seed, slot,
 position, vocabulary index) by an integer hash in plain tensor ops
-(:func:`keyed_exponential`), so every slot is an independent,
+(``ops.sampling.keyed_exponential``), so every slot is an independent,
 position-deterministic stream and the noise is graph-capturable, with the
 same integers on the CPU and the card. Its bits differ from the JAX
 engine's (threefry ``fold_in``): sampled streams are the port's own; greedy
@@ -44,40 +44,7 @@ import torch
 
 from torchao_tpu_torch.models.llama.generate import CapturedCall, logits_to_probs
 from torchao_tpu_torch.models.llama.model import Transformer
-
-_MASK32 = 0xFFFFFFFF
-# odd multipliers below 2**31: a 32-bit value times one stays inside int64
-_MIX = (0x7FEB352D, 0x2C1B3C6D)
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (two xorshift-multiply rounds) of ``x``'s low
-    32 bits, held in int64."""
-    x = x & _MASK32
-    x = ((x ^ (x >> 16)) * _MIX[0]) & _MASK32
-    x = ((x ^ (x >> 15)) * _MIX[1]) & _MASK32
-    return x ^ (x >> 16)
-
-
-def keyed_bits(seed: int, slot: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
-    """32-bit hashes ``[B, vocab]`` (int64) of (seed, slot [B], pos [B],
-    vocabulary index): integer ops alone, so the CPU and the card give the
-    same integers."""
-    h = _mix32(torch.full_like(slot, seed, dtype=torch.long))
-    h = _mix32(h + slot.long())
-    h = _mix32(h + pos.long())
-    v = torch.arange(vocab, device=slot.device, dtype=torch.long)
-    return _mix32(h[:, None] + v[None, :])
-
-
-def keyed_exponential(seed: int, slot: torch.Tensor, pos: torch.Tensor,
-                      vocab: int) -> torch.Tensor:
-    """Exp(1) noise ``[B, vocab]`` (float32) keyed per (seed, slot, pos,
-    vocabulary index): the top 23 bits ``k`` of :func:`keyed_bits` give
-    ``u = (k + 0.5) / 2**23`` in (0, 1), exact in float32, and the noise is
-    ``-log u`` (never 0 or infinite)."""
-    k = keyed_bits(seed, slot, pos, vocab) >> 9
-    return -torch.log((k.float() + 0.5) * (1.0 / (1 << 23)))
+from torchao_tpu_torch.ops.sampling import keyed_bits, keyed_exponential  # noqa: F401
 
 
 @dataclasses.dataclass

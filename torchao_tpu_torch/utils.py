@@ -1,13 +1,15 @@
 """Shared utilities: device resolution, SQNR, small math helpers.
 
-Port of ``torchao_tpu/utils.py`` (``cdiv``, ``find_multiple``,
-``get_model_size_in_bytes``) plus ``resolve_device``, the one place that
-decides where an entry point runs.
+Port of ``torchao_tpu/utils.py`` (``cdiv``, ``round_up_to_multiple``,
+``find_multiple``, ``get_model_size_in_bytes``, ``benchmark_fn``) plus
+``resolve_device``, the one place that decides where an entry point runs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import statistics
+import time
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -37,6 +39,10 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def round_up_to_multiple(x: int, m: int) -> int:
+    return cdiv(x, m) * m
+
+
 def find_multiple(n: int, k: int) -> int:
     """Smallest multiple of k that is >= n."""
     if n % k == 0:
@@ -61,3 +67,28 @@ def get_model_size_in_bytes(params) -> int:
     """Total bytes of all tensors in a nested params dict (quantized arrays
     count their packed data and qparams, so this is the true footprint)."""
     return sum(t.numel() * t.element_size() for t in _tensors(params))
+
+
+def benchmark_fn(fn: Callable, *args, num_runs: int = 20, warmup: int = 3) -> float:
+    """Median seconds per call of ``fn(*args)`` after ``warmup`` calls (at
+    least one). When the first tensor ``fn`` returns lies on a CUDA device,
+    each call is timed by CUDA events on the current stream (device time,
+    the host's enqueue included); otherwise by the host's clock."""
+    for _ in range(max(warmup, 1)):
+        out = fn(*args)
+    first = next(_tensors(out), None)
+    on_card = first is not None and first.device.type == "cuda"
+    times = []
+    for _ in range(num_runs):
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(time.perf_counter() - t0)
+    return float(statistics.median(times))
