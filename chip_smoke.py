@@ -73,7 +73,7 @@ Phases (each fails loudly; nothing is caught):
    K6 and K8 with bf16 x, ``tt_qmm_mma_e4m3`` for K8 with e4m3 x and K9,
    ``tt_qmm_mma_s8`` for K7; K7's SIMT ``tt_qmm_tiled`` is gone from the
    library), the tokens in range and the logits
-   finite; and a 2-layer slice of the same
+   finite; and a 1-layer slice (``CPU_CHECK_LAYERS``) of the same
    weights in bf16 on
    the card (kernels) and on the CPU (plain versions), each held against a
    float32 run on the CPU: the card must come as close to it as the CPU
@@ -88,7 +88,7 @@ Phases (each fails loudly; nothing is caught):
    128, its tensor-core form, with the weights' zero and without), K14c (M
    = 1 and 16) and K14b (M = 1) against their plain versions at the model's
    shapes, each stream form one kernel and one graph node a call; the
-   2-layer check runs under ``banded``.
+   card-vs-CPU check runs under ``banded``.
 
    Then the section ``serving``: ``benchmarks/serving_bench.py``'s default
    deployment on the port's engine (``torchao_tpu_torch/serving``):
@@ -152,6 +152,30 @@ Phases (each fails loudly; nothing is caught):
    computes the function, and 0 launches (no main path runs them;
    ``probe_launches`` holds the probe's own count).
 
+7. the section ``mixtral-8x7b-int4wo-32`` (after the Llama model of the
+   phases before is freed): Mixtral-8x7B at full width and depth (32
+   layers, 8 experts top-2, random weights from a seeded generator),
+   ``MoEQuantConfig(Int4WeightOnlyConfig(32))`` on ``moe_linear_filter``'s
+   leaves (the gate bf16), ``moe_mode="auto"`` on the int8 split-flat cache:
+   K1-indexed (the routed experts' linears, the flat index l·E + e read on
+   the card) at w1, w3 and w2 against its plain version and bit for bit
+   against K1 at the host offset of the same (layer, expert), timed a step
+   (192 launches) beside its bound, its plain version and a bf16
+   ``torch.matmul`` on the pre-dequantized expert; K1 and K5 at the
+   attention's and the head's shapes; then prefill 128 + decode 128 through
+   the prefill graph and the decode graph (launches asserted: a decode
+   replay K1-indexed 192, K1 65, K2′ + K3 32; a prefill K5 65, K4 int8 32),
+   the decode's tokens equal to the eager loop's bit for bit, the eager
+   run's routed experts covering more than 2 experts in some layer; the
+   modes against dense in bf16 (SQNR >= 30 dB): each layer's FFN on one
+   input (gathered at T = 1, ragged at T = 128; layers 0, 16, 31), and on
+   a 2-layer view a ragged prefill and 8 decode steps gathered, the logits
+   over the tokens routed alike in every layer (``check_moe_modes``); and
+   ``ServingEngine`` on the model (2 slots, prompts of
+   16 and 8 tokens, 4 new each, greedy, dense mode at B = 2), its graph streams equal to
+   its eager ones. Its ``e2e`` entry holds ttft, tok/s, model and active GB a
+   token, peak GB and the section's seconds.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -199,6 +223,7 @@ from torchao_tpu_torch.kernels.int4_matmul import (
     choose_body,
     eff_qparams_to_block_major,
     int4_dq_matmul,
+    int4_dq_matmul_plain,
     reset_variant_choices,
     variant_choices,
 )
@@ -233,6 +258,7 @@ from torchao_tpu_torch.kernels.w4a8_matmul import (
     w4a8_dq_matmul_plain,
 )
 from torchao_tpu_torch.checkpoint import load_quantized, save_quantized
+from torchao_tpu_torch.models import mixtral
 from torchao_tpu_torch.models.llama import cli, speculative
 from torchao_tpu_torch.models.llama import eval as cli_eval
 from torchao_tpu_torch.models.llama.eval import evaluate_ppl
@@ -285,7 +311,8 @@ from torchao_tpu_torch.quantization.quant_primitives import (
     quantize_activation_per_token_absmax,
 )
 from torchao_tpu_torch.serving import Request, ServingEngine
-from torchao_tpu_torch.utils import compute_error, get_model_size_in_bytes
+from torchao_tpu_torch.prototype.moe_quant import MoEQuantConfig
+from torchao_tpu_torch.utils import DeviceIndex, compute_error, get_model_size_in_bytes
 
 MODEL = "Llama-3-8B"
 GROUP = 32
@@ -318,6 +345,9 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
                             "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                              "torchao_tpu/kernels/int4_matmul.py:723"),
+    # K1 at a device index (the scalar prefetch of :859 / :902, read at :877 / :928)
+    "int4_dq_matmul_gemv_indexed": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                    "torchao_tpu/kernels/int4_matmul.py:877"),
     "fused_smajor_token_write": ("torchao_tpu_torch/csrc/kv_cache_write.cu",
                                  "torchao_tpu/kernels/kv_cache_write.py:166"),
     "quantized_kv_decode_attention_bdq": (_DEC, "torchao_tpu/kernels/quantized_attention.py:931"),
@@ -1335,7 +1365,13 @@ def to_device(tree, device, dtype=None):
     return tree.to(device, dtype) if dtype is not None else tree.to(device)
 
 
-def check_against_cpu(params, gen, kv, name=MODEL, layers=2):
+# the depth of the sections' card-vs-CPU slice: 2 layers before the Mixtral section
+# was added, cut to 1 to keep the script inside its time limit (the head, at full
+# width, is most of the CPU's work either way)
+CPU_CHECK_LAYERS = 1
+
+
+def check_against_cpu(params, gen, kv, name=MODEL, layers=CPU_CHECK_LAYERS):
     """A ``layers``-deep slice of model ``name`` at full width, teacher-forced
     over a 16-token prefill and 3 decode steps, three times: bf16 on the card
     (kernels), bf16 on the CPU (plain versions) and float32 on the CPU
@@ -1634,7 +1670,7 @@ def _run_section(name, gen, config, kv, kernel_checks, want_fn):
 
     log("  -- the card's forward against the CPU's plain versions")
     sqnr, _ = check_against_cpu(params, gen, kv)
-    e2e.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
+    e2e.update({f"{CPU_CHECK_LAYERS}layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2415,7 +2451,7 @@ def variants_section(gen):
         log("  -- the card's forward against the CPU's plain versions, under banded")
         sqnr, _ = check_against_cpu(params, gen, "int4_smajor")
         reset_variant_choices()
-    e2e_a.update({f"2layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
+    e2e_a.update({f"{CPU_CHECK_LAYERS}layer_sqnr_{k.replace(' ', '_')}": v for k, v in sqnr.items()})
 
     e2e_b, counts_b, _, entries_b = _variant_run(model, params, "group_partial",
                                                  {VARIANT_ENV: "group_partial"})
@@ -2664,6 +2700,305 @@ def probe_phase():
     return rows
 
 
+# ------------------------------------------------------------ Mixtral --
+
+MIXTRAL = "Mixtral-8x7B-v0.1"
+MIXTRAL_SECTION = f"mixtral-8x7b-int4wo-{GROUP}"
+MIXTRAL_KV = "int8"  # the int8 split-flat cache (the JAX package's int8_smajor)
+BF16_GATHERED_DB = 30.0  # gathered / ragged against dense, bf16 (tests/test_torch_mixtral.py)
+MIXTRAL_SERVE_PROMPTS, MIXTRAL_SERVE_NEW = (16, 8), 4
+
+
+def _want_mixtral(L):
+    """A decode replay: each layer's 2 routed experts x (w1, w3, w2) on
+    K1-indexed, wqkv and wo (and the head) on K1, one K2′ + K3 launch; a
+    prefill: K5 and K4 int8, the experts dense in torch ops."""
+    return {"int4_dq_matmul_gemv_indexed": 6 * L * DECODE, "int4_dq_matmul_gemv": (2 * L + 1) * DECODE,
+            "smajor_decode_write_attention_int8": L * DECODE, "int4_dq_matmul_tiled": 2 * L + 1,
+            "quantized_kv_decode_attention_int8": L}
+
+
+def check_k1_indexed(params, args, gen):
+    """K1-indexed on the merged expert stacks of w1, w3 and w2: at two
+    (layer, expert) pairs of a router's top-2 each (layer 0 with its first
+    expert, the last layer with its second), against its plain version at
+    the same device index (SQNR >= TOL_SQNR_DB) and bit for bit against K1
+    launched at the host offset of that pair; one kernel a call. Timed a
+    step: 2·L launches of each weight."""
+    E, L = args.num_experts, args.n_layer
+    moe = params["layers"]["block_sparse_moe"]
+    t = Tally("int4_dq_matmul_gemv_indexed",
+              f"one decode step at M=1: w1 x{2 * L}, w3 x{2 * L}, w2 x{2 * L} "
+              f"(top-{args.num_activated_experts} of {E} experts, {L} layers)")
+    top_idx = torch.topk(torch.rand((1, E), generator=gen, device="cuda"), 2).indices
+    for wname in ("w1", "w3", "w2"):
+        w = mixtral._merge_expert_axis(moe[wname])
+        N, K = w.shape[-2:]
+        x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+        ops = (x, w.qdata, w.scale, w.zero_point)
+        kw = dict(group_size=GROUP, xored=True)
+        for l, j in ((0, 0), (L - 1, 1)):
+            ix = DeviceIndex(top_idx[0, j], l * E)
+            f = l * E + int(top_idx[0, j])  # the comparison's host offset, read here only
+            kernel = lambda: int4_dq_matmul(*ops, layer_idx=ix, **kw)
+            plain = lambda: int4_dq_matmul_plain(*ops, layer_idx=ix, **kw)
+            got, want = kernel(), plain()
+            err = compare(f"int4_dq_matmul_gemv_indexed {wname} f={f} M=1 N={N} K={K}", got, want)
+            compare(f"  against K1 at the host offset f={f}", got,
+                    int4_dq_matmul(*ops, layer_idx=f, **kw), exact=True)
+            sqnr = compute_error(want, got)
+            t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
+            if (nodes := kernels_per_call(kernel)) != (1, 1):
+                raise AssertionError(f"K1-indexed {wname}: a call is {nodes} (kernels, nodes)")
+        t.extra["bit_exact_vs_host_offset"] = True
+        wd = w.take_layer(f).dequantize(torch.bfloat16).T.contiguous()  # [K, N], pre-dequantized
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        lib_ms = time_ms(lambda: torch.matmul(x, wd))
+        nbytes = K // 2 * N + 2 * (K // GROUP) * N * 2 + K * 2 + N * 2
+        b, by = bound(nbytes, 2 * N * K)
+        log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b:.4f} "
+            f"({by})")
+        t.add(2 * L, ms, plain_ms, nbytes, 2 * N * K, err, lib_ms)
+        del wd, got, want
+    return t
+
+
+def _with_routes(fn):
+    """``fn()`` with every router call's picks recorded (``mixtral._top_k``
+    wrapped): (fn's result, the picks, each ``[T, k]`` sorted by expert)."""
+    picks, top_k = [], mixtral._top_k
+
+    def recording(weights, k):
+        out = top_k(weights, k)
+        picks.append(out.indices.sort(-1).values)
+        return out
+
+    mixtral._top_k = recording
+    try:
+        return fn(), picks
+    finally:
+        mixtral._top_k = top_k
+
+
+def _routed_experts(model, fn):
+    """``fn()`` (the eager run) with its decode steps' routers recorded;
+    returns (fn's result, the number of distinct experts each layer routed
+    to over the steps)."""
+    res, picks = _with_routes(fn)
+    L = model.args.n_layer
+    steps = [p for p in picks if p.shape[0] == 1]
+    routed = torch.cat(steps).reshape(-1, L, model.args.num_activated_experts)
+    return res, [len(torch.unique(routed[:, l])) for l in range(L)]
+
+
+def _mode_logits(model, params, mode, tokens, pos, cache):
+    """The logits of one forward in ``mode``, and its routers' picks ``[L, T, k]``."""
+    model.moe_mode = mode
+    try:
+        logits, picks = _with_routes(lambda: model(params, tokens, pos, cache)[0])
+    finally:
+        model.moe_mode = "auto"
+    return logits, torch.stack(picks)
+
+
+MODE_STEPS = 8  # decode steps of the gathered-against-dense logits check
+MODE_LAYERS = 2  # the depth of the model's view that the logits checks run
+
+
+def check_moe_modes(model, params, gen):
+    """The MoE modes against ``dense`` in bf16 (SQNR >= BF16_GATHERED_DB):
+
+    - at full depth, each layer's FFN on one input (layers 0, L/2 and
+      L - 1): ``gathered`` (K1-indexed) at T = 1 and ``ragged`` at T =
+      PROMPT, where the router is the same computation on the same input,
+      so both route alike;
+    - the logits of a MODE_LAYERS-deep view of the model at full width: a
+      PROMPT-token ``ragged`` prefill against a dense one, and MODE_STEPS
+      teacher-forced decode steps ``gathered`` against dense after that
+      dense prefill (each mode on its own copy of the cache). A bf16
+      rounding difference can move a near-tie of the router to another
+      expert, and that token then computes another function (and, in a
+      prefill, moves the later tokens through attention): over all 32
+      layers about half of the decode steps route differently somewhere
+      and fewer than half of a prefill's tokens route alike in every layer,
+      so the logits are compared on the shallow view, over the tokens
+      (steps) routed alike in every layer, which must be 3/4 of them
+      (their count is printed)."""
+    args = model.args
+    L, D, V = args.n_layer, args.dim, args.vocab_size
+    moe = params["layers"]["block_sparse_moe"]
+    res, fails = {}, []
+    for l in (0, L // 2, L - 1):
+        for mode, T in (("gathered", 1), ("ragged", PROMPT)):
+            x = torch.randn((1, T, D), generator=gen, device="cuda").bfloat16()
+            got = (mixtral._moe_ffn_gathered(x, moe, args, l) if mode == "gathered"
+                   else mixtral._moe_ffn(x, moe, args, l, "ragged"))
+            db = compute_error(mixtral._moe_ffn(x, moe, args, l, "dense"), got)
+            res[f"ffn_{mode}_vs_dense_db_layer{l}"] = db
+            log(f"  layer {l} FFN, {mode} (T={T}) vs dense: {db:.2f} dB")
+            fails += [] if db >= BF16_GATHERED_DB else [f"layer {l} {mode}"]
+    view = mixtral.MoETransformer(dataclasses.replace(args, n_layer=MODE_LAYERS), model.dtype,
+                                  "cuda", moe_mode="auto")
+    vparams = first_layers(params, MODE_LAYERS)
+    prompt = torch.randint(0, V, (1, PROMPT), generator=gen, device="cuda")
+    cache = view.setup_caches(1, PROMPT + MODE_STEPS, quantize=MIXTRAL_KV)
+    dense, r_dense = _mode_logits(view, vparams, "dense", prompt, 0, cache)
+    ragged, r_ragged = _mode_logits(view, vparams, "ragged", prompt, 0,
+                                    view.setup_caches(1, PROMPT, quantize=MIXTRAL_KV))
+    for name, t in (("dense prefill", dense), ("ragged prefill", ragged)):
+        if t.shape != (1, PROMPT, V) or not torch.isfinite(t).all():
+            raise AssertionError(f"{name} logits: shape {tuple(t.shape)} or not finite")
+    alike = ~(r_dense != r_ragged).any(-1).any(0)  # [T]: routed alike in every layer
+    res["ragged_vs_dense_db"] = compute_error(dense[:, alike], ragged[:, alike])
+    res["ragged_tokens_routed_alike"] = int(alike.sum())
+    other = {n: t.clone() for n, t in cache.items()}
+    tok = torch.argmax(dense[:, -1], dim=-1)[:, None]
+    pairs = []
+    for i in range(MODE_STEPS):
+        d, r_d = _mode_logits(view, vparams, "dense", tok, PROMPT + i, cache)
+        g, r_g = _mode_logits(view, vparams, "gathered", tok, PROMPT + i, other)
+        for name, t in (("dense", d), ("gathered", g)):
+            if t.shape != (1, 1, V) or not torch.isfinite(t).all():
+                raise AssertionError(f"{name} step logits: shape {tuple(t.shape)} or not finite")
+        if torch.equal(r_d, r_g):
+            pairs.append((d, g))
+        tok = torch.argmax(d[:, -1], dim=-1)[:, None]
+    res["gathered_steps_routed_alike"] = len(pairs)
+    if pairs:
+        res["gathered_vs_dense_db"] = compute_error(torch.cat([d for d, _ in pairs]),
+                                                    torch.cat([g for _, g in pairs]))
+    log(f"  logits ({MODE_LAYERS} layers), ragged prefill vs dense: "
+        f"{res['ragged_vs_dense_db']:.2f} dB over the {res['ragged_tokens_routed_alike']} of "
+        f"{PROMPT} tokens routed alike in every layer")
+    log(f"  logits ({MODE_LAYERS} layers), gathered decode steps vs dense: "
+        f"{res.get('gathered_vs_dense_db', math.nan):.2f} dB over the {len(pairs)} of "
+        f"{MODE_STEPS} steps routed alike")
+    if res["ragged_vs_dense_db"] < BF16_GATHERED_DB or 4 * res["ragged_tokens_routed_alike"] < 3 * PROMPT:
+        fails.append("ragged logits")
+    if 4 * len(pairs) < 3 * MODE_STEPS or res["gathered_vs_dense_db"] < BF16_GATHERED_DB:
+        fails.append("gathered logits")
+    if fails:
+        raise AssertionError(f"the MoE modes disagree: {fails}")
+    return res
+
+
+def mixtral_serving_check(model, params):
+    """The engine on the MoE model: 2 slots, prompts of 16 and 8 tokens,
+    MIXTRAL_SERVE_NEW greedy tokens each (dense mode at B = 2), through its graphs and through
+    its programs run eagerly, each from a fresh engine: equal streams."""
+    rs = np.random.RandomState(23)
+    prompts = [rs.randint(0, model.args.vocab_size, n).astype(np.int32)
+               for n in MIXTRAL_SERVE_PROMPTS]
+    streams, e2e = {}, {}
+    for graphs in (True, False):
+        eng = ServingEngine(model, params, max_slots=2, max_seq_len=64, prefill_chunk=16,
+                            kv_cache_quantization=MIXTRAL_KV, cuda_graphs=graphs)
+        for p in prompts:
+            eng.add_request(Request(prompt=p, max_new_tokens=MIXTRAL_SERVE_NEW))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_to_completion(chunk=4)
+        torch.cuda.synchronize()
+        e2e["graph_s" if graphs else "eager_s"] = time.perf_counter() - t0
+        streams[graphs] = {tuple(r.prompt.tolist()): list(r.output) for r in done}
+        if graphs:
+            e2e["captures"] = len(eng.graphs)
+        if len(done) != 2 or any(len(r.output) != MIXTRAL_SERVE_NEW for r in done):
+            raise AssertionError(f"the engine completed {[len(r.output) for r in done]}")
+        del eng
+    same = streams[True] == streams[False]
+    log(f"  engine: 2 requests ({MIXTRAL_SERVE_PROMPTS} tokens), {MIXTRAL_SERVE_NEW} greedy tokens "
+        f"each: graph streams {'equal' if same else 'DIFFER FROM'} eager streams "
+        f"({e2e['graph_s']:.2f} s with {e2e['captures']} graphs, {e2e['eager_s']:.2f} s eager)")
+    if not same:
+        raise AssertionError("the engine's graph and eager streams differ on the MoE model")
+    return e2e
+
+
+def mixtral_section(gen):
+    """Section 7 of the module docstring. Returns (kernel rows, e2e)."""
+    t_start = time.perf_counter()
+    log(f"== {MIXTRAL}, {MIXTRAL_SECTION}: MoEQuantConfig(Int4WeightOnlyConfig({GROUP})) on "
+        f"moe_linear_filter, moe_mode auto, KV cache {MIXTRAL_KV} split-flat: random weights")
+    model = mixtral.MoETransformer.from_name(MIXTRAL, torch.bfloat16, "cuda", moe_mode="auto")
+    params = mixtral.init_quantized_moe(model, MoEQuantConfig(Int4WeightOnlyConfig(GROUP)),
+                                        mixtral.moe_linear_filter, seed=0)
+    torch.cuda.synchronize()
+    args, L = model.args, model.args.n_layer
+    init_s = time.perf_counter() - t_start
+    model_gb = get_model_size_in_bytes(params) / 1e9
+    active_gb = mixtral.active_bytes_per_token(params, args) / 1e9
+    if not isinstance(params["layers"]["block_sparse_moe"]["w1"], IntxArray) or isinstance(
+            params["layers"]["block_sparse_moe"]["gate"], QuantizedArray):
+        raise AssertionError("the experts must be int4 and the gate bf16")
+    log(f"  init + quantize {init_s:.1f} s; model {model_gb:.3f} GB, active {active_gb:.3f} GB "
+        f"a token; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+
+    log("  -- kernels against their plain versions (main-path shapes)")
+    cases = [("wqkv", params["layers"]["attention"]["wqkv"], 0, L),
+             ("wo", params["layers"]["attention"]["wo"], 0, L),
+             ("output", params["output"]["weight"], None, 1)]
+    tallies = [check_k1_indexed(params, args, gen)] + [
+        check_shapes(f"int4_dq_matmul_{form}", cases, M, _int4_call, gen) for form, M in FORMS]
+    torch.cuda.empty_cache()
+
+    log(f"  -- main path: prefill {PROMPT}, decode {DECODE}, batch 1, top-k {TOP_K}, "
+        f"temperature {TEMPERATURE}")
+    torch.cuda.reset_peak_memory_stats()
+
+    def on_run(i):
+        if i == 1:  # the timed run: count only its launches
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+
+    res = benchmark_decode(model, params, batch_size=1, prompt_len=PROMPT, num_tokens=DECODE,
+                           kv_cache_quantization=MIXTRAL_KV, temperature=TEMPERATURE, top_k=TOP_K,
+                           warmup=1, iters=1, on_run=on_run)
+    counts = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  ttft_ms={res['ttft_ms']:.2f} tok_s={res['tokens_per_s']:.2f} (CUDA graphs) "
+        f"decode_s={res['decode_s']:.4f} capture_s={res['capture_s']:.3f} "
+        f"prefill_capture_s={res['prefill_capture_s']:.3f} model_GB={res['model_size_GB']:.3f} "
+        f"peak_GB={peak_gb:.3f}")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    want = _want_mixtral(L)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    log(f"  a decode replay: {json.dumps({k: v // DECODE for k, v in counts.items() if v >= DECODE})}; "
+        f"a prefill: {json.dumps({k: v for k, v in counts.items() if v < DECODE})}")
+    tokens = res["tokens"]
+    if tokens.shape != (1, DECODE) or not (0 <= int(tokens.min()) and
+                                           int(tokens.max()) < args.vocab_size):
+        raise AssertionError(f"tokens out of range: {tokens}")
+    eager_tok_s, routed = _routed_experts(
+        model, lambda: eager_check(model, params, MIXTRAL_KV, res, True))
+    log(f"  distinct experts routed a layer over the eager run's {DECODE} steps: {routed}")
+    if max(routed) <= args.num_activated_experts:
+        raise AssertionError("no layer routed to more than its top-k experts: the graph's "
+                             "replays would not show that they read a new index")
+    log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    modes = check_moe_modes(model, params, gen)
+    torch.cuda.empty_cache()
+    serve = mixtral_serving_check(model, params)
+    e2e = {"config": MIXTRAL_SECTION, "model": MIXTRAL, "kv_cache": MIXTRAL_KV,
+           "ttft_ms": res["ttft_ms"], "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
+           "capture_s": res["capture_s"], "prefill_capture_s": res["prefill_capture_s"],
+           "model_GB": model_gb, "active_GB_per_token": active_gb, "peak_GB": peak_gb,
+           "active_GBps": active_gb * res["tokens_per_s"], "eager_tok_s": eager_tok_s,
+           "experts_routed_per_layer": routed, "init_s": init_s, **modes, "serving": serve}
+    rows = []
+    for t in tallies:
+        if not counts.get(t.name):
+            raise AssertionError(f"{t.name} was not launched on the Mixtral main path")
+        rows.append({**t.row(counts[t.name]), "section": MIXTRAL_SECTION})
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e["section_s"] = time.perf_counter() - t_start
+    log(f"  section seconds {e2e['section_s']:.1f}")
+    return rows, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2718,6 +3053,10 @@ def main() -> int:
     log(f"  ceiling phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += probe_phase()
     log(f"  probe phase done; total {time.perf_counter() - t_start:.1f} s")
+    r, e = mixtral_section(gen)
+    rows += r
+    e2e.append(e)
+    log(f"  Mixtral section done; total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": rows}))

@@ -2027,3 +2027,130 @@ def test_recipe_routes_without_a_kernel_on_the_card(cuda):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=cuda).to(torch.int8)
         b = torch.randint(-128, 128, (K, N), generator=gen, device=cuda).to(torch.int8)
         assert torch.equal(safe_int_mm(a, b).cpu(), a.cpu().int() @ b.cpu().int())
+
+
+# ----------------------------------------------------- K1-indexed on a card --
+
+# the Llama decode's K1 instance (M <= 8, a zero): its SASS counted by opcode
+# (``_build.sass_opcodes``, 1832 instructions) and its (registers, spill
+# bytes), as nvcc 12.8 compiled it for sm_90a (H100) before K1 took its INDEXED
+# parameter; compiled after, its SASS text was the same instruction for instruction
+K1_LLAMA_INSTANCE = "int4_gemv_kernelILi1ELb1ELb0ELb0E"
+K1_LLAMA_USAGE = (120, 0)
+K1_LLAMA_SASS = {
+    "ATOMG": 1, "BAR": 5, "BRA": 49, "BSSY": 21, "BSYNC": 21, "CALL": 2, "CCTL": 2,
+    "CGAERRBAR": 2, "CS2R": 35, "DEPBAR": 2, "ERRBAR": 2, "EXIT": 4, "F2FP": 4, "F2I": 13,
+    "FADD": 79, "FLO": 1, "HADD2": 32, "HFMA2": 32, "HMMA": 8, "I2F": 13, "IABS": 27,
+    "IADD3": 97, "IMAD": 493, "ISETP": 126, "LDC": 28, "LDG": 45, "LDGDEPBAR": 4, "LDGSTS": 8,
+    "LDS": 79, "LEA": 94, "LOP3": 86, "MEMBAR": 2, "MOV": 20, "MUFU": 13, "NOP": 13, "P2R": 1,
+    "PLOP3": 3, "POPC": 2, "PRMT": 106, "RET": 1, "S2R": 10, "S2UR": 11, "SEL": 18, "SHF": 78,
+    "SHFL": 1, "STG": 8, "STS": 23, "UIADD3": 8, "ULDC": 16, "ULEA": 10, "UMOV": 10, "USHF": 4,
+    "VIADD": 56, "VOTEU": 1, "WARPSYNC": 2
+}
+
+
+def _indexed_case(gen, M, K, N, g, zero, dev, entries=6):
+    wp, scale, z = _int4_weight(gen, entries, K, N, g, dev)
+    x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+    return x, (wp, scale, z if zero else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("zero", [True, False], ids=["zero", "zero_free"])
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("M", [1, 8, 17, 32])
+def test_k1_indexed_matches_plain_and_the_host_offset_launch(cuda, monkeypatch, M, g, zero,
+                                                            split):
+    """K1-indexed at ``f = base + index`` read on the card: bit for bit K1
+    launched at the host int f (the same arithmetic), SQNR >= 40 dB against
+    its plain version at the same device index; one launch of
+    ``tt_int4_gemv_indexed`` a call, the tickets left at zero."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    if split == "three":
+        monkeypatch.setattr(TK, "gemv_nsplit", lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + g + zero)
+    x, args = _indexed_case(gen, M, 2048, 4096 + 16, g, zero, cuda)
+    top_idx = torch.tensor([[4, 1]], device=cuda)  # torch.topk's int64 indices
+    counter = TK.launch_counter("gemv", not zero, indexed=True)
+    for j, base in ((0, 0), (1, 3), (1, 0)):
+        ix = DeviceIndex(top_idx[0, j], base)
+        f = base + (4, 1)[j]
+        before, entries = _build.LAUNCHES[counter], _build.ENTRIES["tt_int4_gemv_indexed"]
+        got = TK.int4_dq_matmul(x, *args, group_size=g, layer_idx=ix, xored=True)
+        assert _build.LAUNCHES[counter] == before + 1
+        assert _build.ENTRIES["tt_int4_gemv_indexed"] == entries + 1
+        host = TK.int4_dq_matmul(x, *args, group_size=g, layer_idx=f, xored=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, host), (j, base)
+        _sqnr_ok(got, TK.int4_dq_matmul_plain(x, *args, group_size=g, layer_idx=ix, xored=True))
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_k1_indexed_graph_replays_read_a_new_index(cuda):
+    """A CUDA graph captured around K1-indexed reads the index at each
+    replay: written between replays, it routes each replay anew."""
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, args = _indexed_case(gen, 1, 4096, 14336, 32, True, cuda, entries=8)
+    idx = torch.zeros(1, dtype=torch.long, device=cuda)
+    call = lambda: TK.int4_dq_matmul(x, *args, group_size=32, layer_idx=DeviceIndex(idx, 0),
+                                     xored=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for e in (3, 7, 0, 5):
+        idx.fill_(e)
+        graph.replay()
+        want = TK.int4_dq_matmul(x, *args, group_size=32, layer_idx=e, xored=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [-1, 6])
+def test_k1_indexed_traps_out_of_range(cuda, f):
+    """An index outside the stack traps in the kernel (no clamp, no host
+    check): the process's next synchronize fails. Run in a child process,
+    whose CUDA context the trap ends."""
+    import subprocess
+    import sys
+
+    code = f"""
+import torch
+from torchao_tpu_torch.kernels import int4_matmul as TK
+from torchao_tpu_torch.utils import DeviceIndex
+wp = torch.zeros((6, 1024, 4096), dtype=torch.uint8, device="cuda")
+s = torch.ones((6, 64, 4096), dtype=torch.bfloat16, device="cuda")
+x = torch.ones((1, 2048), dtype=torch.bfloat16, device="cuda")
+idx = torch.tensor([{f}], device="cuda")
+TK.int4_dq_matmul(x, wp, s, s, group_size=32, layer_idx=DeviceIndex(idx, 0), xored=True)
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(_build._PKG.parent))
+    assert res.returncode != 0 and "NO TRAP" not in res.stdout, res.stdout + res.stderr
+    assert "CUDA" in res.stderr or "cuda" in res.stderr, res.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_k1_llama_instance_sass_is_unchanged(cuda):
+    """The instance every Llama decode launches compiles as it did before
+    K1-indexed: the same opcode counts, registers and no spills."""
+    report, sass = _build.compile_report("int4_matmul.cu")
+    counts = dict(_build.sass_opcodes(sass, K1_LLAMA_INSTANCE))
+    usage = _build.ptxas_usage(report, K1_LLAMA_INSTANCE)
+    print(f"K1 Llama instance: {usage} {counts}")
+    assert counts == K1_LLAMA_SASS
+    assert usage == K1_LLAMA_USAGE

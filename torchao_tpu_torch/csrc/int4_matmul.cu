@@ -12,7 +12,9 @@
 // wp[kp, n] (uint8, stored XORed with 0x80) holding element k = kp in the
 // low nibble and k = kp + K/2 in the high nibble; scale/zero are K-major
 // [K/g, N] bf16. A stacked [L, ...] weight is addressed by the caller with
-// a pointer offset, so no per-layer copy is made.
+// a pointer offset, so no per-layer copy is made; K1-indexed
+// (tt_int4_gemv_indexed) takes the offset's index from device memory instead,
+// the TPU's scalar prefetch (num_scalar_prefetch=1, int4_matmul.py:859, :902).
 //
 // K1, tt_int4_gemv (M <= 32): bound by bytes on an H100 (0.5 B of packed
 // weight per element plus 4 B of bf16 scale + zero per group of g; a
@@ -99,18 +101,37 @@ constexpr int K1_RING = wstream::WARPS * K1_QSTAGES * K1_QSLOT;  // 32 KB
 constexpr int K1_MAX_M = 32;
 constexpr int K1_STUB_MAX_M = 4;
 
+// K1-indexed's index: the flat leading index f = base + *idx of a merged
+// [nflat, ...] stack (a (layer, expert) pair l E + e), idx a device int64 that
+// the kernel reads (torch.topk's output: a CUDA graph replay reads the index
+// that replay's router wrote). Unused (and zero) in the other instances.
+struct K1Index {
+  const long long* idx;
+  long long base, nflat;
+};
+
 // grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes steps
 // [y S / nsplit, (y + 1) S / nsplit) of the S = K/2 / 8 steps; warp w a
 // contiguous eighth of them. ws ([nsplit, M, N] f32) and the tickets (one
-// per strip, zero) as in wstream::finish.
-template <int NT, bool HAS_Z, bool STUB>
+// per strip, zero) as in wstream::finish. INDEXED: wp, sc and zr are the
+// whole merged stacks and fi picks the entry (out of [0, nflat) the kernel
+// traps); the trailing fi is unread by the other instances, so theirs (every
+// Llama launch's) compile as they would without it.
+template <int NT, bool HAS_Z, bool STUB, bool INDEXED>
 __global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
                  float* __restrict__ ws, int* __restrict__ tickets,
-                 __nv_bfloat16* __restrict__ out, int M, int K, int N, int g) {
+                 __nv_bfloat16* __restrict__ out, int M, int K, int N, int g, K1Index fi) {
   constexpr int PF = wstream::PREFETCH, ROWS = wstream::STEP_ROWS, COLS = wstream::COLS;
   extern __shared__ __align__(16) uint8_t k1_smem[];
+  if constexpr (INDEXED) {
+    const long long f = fi.base + *fi.idx;
+    if (f < 0 || f >= fi.nflat) __trap();
+    wp += (size_t)f * (K / 2) * N;
+    sc += (size_t)f * (K / g) * N;
+    if (HAS_Z) zr += (size_t)f * (K / g) * N;
+  }
   const int Kp = K / 2, nGh = Kp / g, spg = g / ROWS;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gq = lane / 4, tq = lane % 4;
   const int steps = Kp / ROWS;
@@ -1358,49 +1379,57 @@ static int k1_smem(int M, int K, int nsplit) {
   return ring > red ? ring : red;
 }
 
-template <int NT, bool HAS_Z, bool STUB>
+template <int NT, bool HAS_Z, bool STUB, bool INDEXED>
 static int launch_k1(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
                      void* tickets, void* out, int M, int K, int N, int g, int nsplit,
-                     cudaStream_t st) {
+                     K1Index fi, cudaStream_t st) {
   static int configured = 0;  // the largest dynamic shared memory asked for so far
   const int smem = k1_smem(M, K, nsplit);
   if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(int4_gemv_kernel<NT, HAS_Z, STUB>,
+    cudaError_t e = cudaFuncSetAttribute(int4_gemv_kernel<NT, HAS_Z, STUB, INDEXED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
   dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
-  int4_gemv_kernel<NT, HAS_Z, STUB><<<grid, wstream::THREADS, smem, st>>>(
+  int4_gemv_kernel<NT, HAS_Z, STUB, INDEXED><<<grid, wstream::THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wp),
       static_cast<const __nv_bfloat16*>(sc), static_cast<const __nv_bfloat16*>(zr),
       static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
-      K, N, g);
+      K, N, g, fi);
   return cudaGetLastError();
 }
 
-template <bool STUB>
+template <bool STUB, bool INDEXED>
 static int launch_gemv(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
                        void* tickets, void* out, int M, int K, int N, int g, int nsplit,
-                       void* stream) {
+                       K1Index fi, void* stream) {
   const int Kp = K / 2;
   if (M < 1 || M > (STUB ? K1_STUB_MAX_M : K1_MAX_M) || Kp % 16 || g < wstream::STEP_ROWS ||
       g % wstream::STEP_ROWS || Kp % g || N % 16 || nsplit < 1 ||
       nsplit > Kp / wstream::STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
-      k1_smem(M, K, nsplit) > wstream::MAX_SMEM)
+      k1_smem(M, K, nsplit) > wstream::MAX_SMEM || (INDEXED && (!fi.idx || fi.nflat < 1)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (STUB)
-    return zr ? launch_k1<1, true, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
-              : launch_k1<1, false, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+    return zr ? launch_k1<1, true, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                nsplit, fi, st)
+              : launch_k1<1, false, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                 nsplit, fi, st);
   if (M <= 8)
-    return zr ? launch_k1<1, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
-              : launch_k1<1, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+    return zr ? launch_k1<1, true, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                   nsplit, fi, st)
+              : launch_k1<1, false, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                    nsplit, fi, st);
   if (M <= 16)
-    return zr ? launch_k1<2, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
-              : launch_k1<2, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
-  return zr ? launch_k1<4, true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st)
-            : launch_k1<4, false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, st);
+    return zr ? launch_k1<2, true, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                   nsplit, fi, st)
+              : launch_k1<2, false, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                    nsplit, fi, st);
+  return zr ? launch_k1<4, true, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                 nsplit, fi, st)
+            : launch_k1<4, false, false, INDEXED>(x, wp, sc, zr, ws, tickets, out, M, K, N, g,
+                                                  nsplit, fi, st);
 }
 
 // K1. x [M, K] bf16, M <= 32; wp [K/2, N] u8; sc, zr [K/g, N] bf16 (layer
@@ -1411,14 +1440,29 @@ static int launch_gemv(const void* x, const void* wp, const void* sc, const void
 TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const void* zr,
                            void* ws, void* tickets, void* out, int M, int K, int N, int g,
                            int nsplit, void* stream) {
-  return launch_gemv<false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, stream);
+  return launch_gemv<false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
+                                   K1Index{}, stream);
+}
+
+// K1-indexed: tt_int4_gemv's arguments with wp [nflat, K/2, N], sc and zr
+// [nflat, K/g, N] whole merged stacks (contiguous), and the entry f = base +
+// *idx read on the device from idx (an int64; the kernel traps where f lies
+// outside [0, nflat)).
+TT_EXPORT int tt_int4_gemv_indexed(const void* x, const void* wp, const void* sc,
+                                   const void* zr, void* ws, void* tickets, void* out,
+                                   const void* idx, long long base, long long nflat, int M,
+                                   int K, int N, int g, int nsplit, void* stream) {
+  return launch_gemv<false, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
+                                  K1Index{static_cast<const long long*>(idx), base, nflat},
+                                  stream);
 }
 
 // K1's stub arm, the ceiling probe's: the same arguments, grid and ring; M <= 4.
 TT_EXPORT int tt_int4_gemv_stub(const void* x, const void* wp, const void* sc, const void* zr,
                                 void* ws, void* tickets, void* out, int M, int K, int N, int g,
                                 int nsplit, void* stream) {
-  return launch_gemv<true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit, stream);
+  return launch_gemv<true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
+                                  K1Index{}, stream);
 }
 
 // P6: x [M, K] bf16, wp [K/2, N] u8 (one layer, 0x80-XORed), qp the qparams_eff

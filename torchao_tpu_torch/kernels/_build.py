@@ -108,6 +108,9 @@ _INT4 = [c_ptr] * 6 + [c_int] * 5 + [c_ptr]
 # M, K, N, (g,) nsplit, stream
 _STREAM_INT4 = [c_ptr] * 7 + [c_int] * 5 + [c_ptr]
 _STREAM_FP6 = [c_ptr] * 7 + [c_int] * 4 + [c_ptr]
+# K1-indexed: the stream's pointers, the index (int64 on the device), base, nflat,
+# M, K, N, g, nsplit, stream
+_STREAM_INT4_INDEXED = [c_ptr] * 8 + [c_i64] * 2 + [c_int] * 5 + [c_ptr]
 # fp8 bytes, out, n, stream
 _CAST = [c_ptr, c_ptr, c_i64, c_ptr]
 # a, b, out, M, N, K, stream
@@ -116,6 +119,7 @@ SIGNATURES = {
     # the zero pointer (4th) may be null: the zero-free form
     "tt_int4_gemv": _STREAM_INT4,
     "tt_int4_gemv_stub": _STREAM_INT4,
+    "tt_int4_gemv_indexed": _STREAM_INT4_INDEXED,
     "tt_int4_group_partial": _STREAM_INT4,
     "tt_int4_group_partial_tiled": _INT4,  # ws may be null (ksplit 1)
     "tt_int4_banded": _STREAM_INT4[:-1] + [c_int, c_ptr],  # and the K-split unit

@@ -46,9 +46,21 @@ z[k//g, n])`` over K-major half-split nibbles (byte k holds k and k + K/2),
 with a stacked ``[L, K/2, N]`` weight addressed by ``layer_idx`` (``wp[l]``
 is a view, so nothing is copied); they differ in where they round, and each
 plain version rounds as its TPU body does (K1/K5's as the XLA route
-``_xla_tiled_int4_linear``). The TPU's scalar-prefetch layer index and its
-stored ``qparams_eff`` have no counterpart: the kernels read ``scale`` and
-``zero`` (see ``qtypes/intx.py`` for why that computes the same numbers).
+``_xla_tiled_int4_linear``). The TPU's stored ``qparams_eff`` has no
+counterpart: the kernels read ``scale`` and ``zero`` (see
+``qtypes/intx.py`` for why that computes the same numbers).
+
+``layer_idx`` is a host int (the wrapper offsets the pointers), or a
+device index (``utils.DeviceIndex``, or an integer tensor of one element):
+the TPU's scalar prefetch (``num_scalar_prefetch=1`` at
+``int4_matmul.py:859`` and ``:902``, a traced ``l·E + e`` in the MoE
+gathered decode). On the card a device index runs **K1-indexed**
+(``tt_int4_gemv_indexed``, counted as ``int4_dq_matmul[_zero_free]_gemv_indexed``):
+K1's kernel reading ``f = base + index`` from device memory over the whole
+contiguous stack, trapping where f lies outside it, so a CUDA graph replays
+with the index each replay finds; M <= 32 only (the other bodies raise). The
+plain versions pick the entry with ``index_select``. Neither reads the index
+on the host.
 
 ``zero=None`` is the zero-free form (z = 0, mid = 8): the symmetric 8da4w
 weight and fp6's A plane. It reaches the kernels as a null pointer.
@@ -69,7 +81,7 @@ import torch
 
 from torchao_tpu_torch.kernels import _build, autotune
 from torchao_tpu_torch.qtypes.intx import _tiled_eff_qparams, qparams_chunk_groups
-from torchao_tpu_torch.utils import cdiv
+from torchao_tpu_torch.utils import DeviceIndex, as_device_index, cdiv
 
 GEMV_MAX_M = 32
 BANDED_MAX_M = 16  # the JAX banded bodies' M limit
@@ -95,6 +107,11 @@ VARIANT_ENV = "TORCHAO_TPU_INT4_VARIANT"
 def _layer(wp, scale, zero, layer_idx):
     if layer_idx is None:
         return wp, scale, zero
+    ix = as_device_index(layer_idx)
+    if ix is not None:  # entry f of the stack, picked on the device
+        sel = ix.flat()
+        pick = lambda t: t.index_select(0, sel)[0]
+        return pick(wp), pick(scale), None if zero is None else pick(zero)
     return wp[layer_idx], scale[layer_idx], None if zero is None else zero[layer_idx]
 
 
@@ -286,10 +303,13 @@ def int4_linear(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
     that the environment, the autotune cache or ``auto`` picks for this
     shape, resolved at its first call and memoized."""
     M, K = x.shape
-    key = (M, wp.shape[-1], K, group_size, layer_idx is not None, x.device.type)
+    indexed = as_device_index(layer_idx) is not None
+    stacked = "device" if indexed else layer_idx is not None
+    key = (M, wp.shape[-1], K, group_size, stacked, x.device.type)
     plan = _CHOICES.get(key)
-    if plan is None:
-        plan = _CHOICES[key] = _choose(x, wp, scale, zero, group_size, mid, layer_idx, xored)
+    if plan is None:  # a device index has one form, K1-indexed: no variant to choose
+        plan = _CHOICES[key] = (_plan(M, K, group_size, "auto") if indexed else
+                                _choose(x, wp, scale, zero, group_size, mid, layer_idx, xored))
     return _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored)
 
 
@@ -317,6 +337,12 @@ def _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored):
     stacked = wp.ndim == 3
     if stacked != (layer_idx is not None):
         raise ValueError("a stacked [L, K/2, N] weight needs layer_idx, and only it")
+    ix = as_device_index(layer_idx)
+    if ix is not None:  # its range is the kernel's to check: the host never reads it
+        t = ix.index
+        if t.device != x.device or t.dtype != torch.int64 or t.numel() != 1:
+            raise TypeError("a device index is one int64 element on x's device")
+        layer_idx = None
     if Kp * 2 != K or scale.shape[-2:] != (K // g, N) or (
             zero is not None and zero.shape != scale.shape):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wp {tuple(wp.shape)}, "
@@ -324,7 +350,7 @@ def _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored):
     if Kp % g or g % GEMV_RUN or Kp % TILED_KP or N % 16:
         raise ValueError(f"unsupported shape: K/2={Kp} must be a multiple of g={g} and "
                          f"{TILED_KP}, g of {GEMV_RUN}, N={N} of 16")
-    if stacked and not 0 <= layer_idx < wp.shape[0]:
+    if stacked and layer_idx is not None and not 0 <= layer_idx < wp.shape[0]:
         raise IndexError(f"layer_idx {layer_idx} out of range for {wp.shape[0]} layers")
     for name, t in (("x", x), ("wp", wp), ("scale", scale), ("zero", zero)):
         if t is not None and t.data_ptr() % 16:
@@ -358,9 +384,15 @@ def launch_entry(body: str, M: int, group_size: int) -> str:
     return {"gemv": "tt_int4_gemv", "tiled": "tt_int4_tiled"}.get(body, "tt_int4_banded")
 
 
-def launch_counter(body: str, zero_free: bool) -> str:
-    """The ``_build.LAUNCHES`` key of ``body``'s launches."""
-    return f"int4_dq_matmul{'_zero_free' if zero_free else ''}_{body}"
+def launch_counter(body: str, zero_free: bool, indexed: bool = False) -> str:
+    """The ``_build.LAUNCHES`` key of ``body``'s launches (K1-indexed's:
+    ``gemv_indexed``)."""
+    return f"int4_dq_matmul{'_zero_free' if zero_free else ''}_{body}" + (
+        "_indexed" if indexed else "")
+
+
+INDEXED_FORMS_ITEM = ("ROADMAP.md Queue A, A7b: the indexed forms of K5, K6, K8, K11 and "
+                      "K12 for gathered experts")
 
 
 def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per_sm: int,
@@ -420,6 +452,12 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     M, K, N = _check_cuda(x, wp, scale, zero, group_size, mid, layer_idx, xored)
+    ix = as_device_index(layer_idx)
+    if ix is not None:
+        if body != "gemv":
+            raise NotImplementedError(f"int4 body {body!r} at M = {M} with a device index has "
+                                      f"no CUDA kernel yet ({INDEXED_FORMS_ITEM})")
+        return _run_indexed(x, wp, scale, zero, group_size, ix, M, K, N)
     wp, scale, zero = _layer(wp, scale, zero, layer_idx)
     zp = 0 if zero is None else zero.data_ptr()  # null: the zero-free form
     lib = _build.library()
@@ -442,18 +480,33 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     return out
 
 
-def _launch_stream(entry, x, ptrs, out, M, K, N, g, stream, unit=STREAM_STEP_ROWS):
-    """Launch a weight-stream form (K1 or its stub arm, K14a, K14b/K14c in
-    units of ``unit`` packed rows): the K split of :func:`gemv_nsplit` (K1)
-    or :func:`k14_nsplit`, the per-device buffers of
-    ``_build.stream_buffers``; allocates nothing."""
+def _run_indexed(x, wp, scale, zero, group_size, ix: DeviceIndex, M, K, N):
+    """K1-indexed: K1's launch over the whole stack ``[nflat, K/2, N]``, the
+    entry ``ix.base + ix.index`` read by the kernel."""
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+            0 if zero is None else zero.data_ptr())
+    _launch_stream("tt_int4_gemv_indexed", x, ptrs, out, M, K, N, group_size,
+                   _build.stream_handle(x.device),
+                   index=(ix.index.data_ptr(), ix.base, wp.shape[0]))
+    _build.LAUNCHES[launch_counter("gemv", zero is None, indexed=True)] += 1
+    _build.ENTRIES["tt_int4_gemv_indexed"] += 1
+    return out
+
+
+def _launch_stream(entry, x, ptrs, out, M, K, N, g, stream, unit=STREAM_STEP_ROWS, index=()):
+    """Launch a weight-stream form (K1, K1-indexed with ``index`` = (pointer,
+    base, entries), K1's stub arm, K14a, K14b/K14c in units of ``unit``
+    packed rows): the K split of :func:`gemv_nsplit` (K1) or
+    :func:`k14_nsplit`, the per-device buffers of ``_build.stream_buffers``;
+    allocates nothing."""
     sms = _build.sm_count(x.device.index or 0)
     k1 = entry.startswith("tt_int4_gemv")
     nsplit = gemv_nsplit(M, K, N, sms) if k1 else k14_nsplit(M, K, N, unit, sms)
     ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
                                         cdiv(N, STREAM_COLS))
     _build.library().launch(entry, *ptrs, None if ws is None else ws.data_ptr(),
-                            tickets.data_ptr(), out.data_ptr(), M, K, N, g, nsplit,
+                            tickets.data_ptr(), out.data_ptr(), *index, M, K, N, g, nsplit,
                             *(() if entry != "tt_int4_banded" else (unit,)), stream)
 
 
@@ -463,7 +516,8 @@ def int4_dq_matmul(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                    variant: str = "auto") -> torch.Tensor:
     """``x [M, K]`` times a K-major packed int4 weight ``wp [(L,) K/2, N]``
     with ``scale``/``zero [(L,) K/g, N]`` (``zero=None``: z = 0); returns
-    ``[M, N]`` in x.dtype, through the body that ``variant`` runs at M."""
+    ``[M, N]`` in x.dtype, through the body that ``variant`` runs at M
+    (with a device ``layer_idx`` on the card: K1-indexed, M <= 32)."""
     plan = _plan(x.shape[0], x.shape[1], group_size, variant)
     return _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored)
 

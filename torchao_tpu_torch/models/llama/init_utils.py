@@ -2,7 +2,8 @@
 
 Port of ``torchao_tpu/models/llama/init_utils.py::init_quantized_params``:
 weights are drawn and quantized ONE piece at a time (one layer of a
-stacked weight, or one out-feature chunk of a 2-D weight, the chunks kept
+stacked weight, whose piece is ``[N, K]``, or ``[E, N, K]`` for an MoE
+model's expert stack, or one out-feature chunk of a 2-D weight, the chunks kept
 lane-aligned: N / chunks a multiple of 128, the JAX package's rule), so
 peak memory stays near the quantized model plus one piece in high precision
 (per-row, per-channel and per-group qparams are the same whichever way a
@@ -45,38 +46,12 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
         "layers.feed_forward.w2": ((L, D, I), I),
         "output.weight": ((V, D), D),
     }
-    handler = get_quantize_handler(config)
-    per_tensor = isinstance(getattr(config, "granularity", None), PerTensor)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-
-    def piece(name, shape, fan_in):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).div_(
-            math.sqrt(fan_in)).to(dtype)
-        return handler(w, config) if filter_fn(name, w) else w
-
-    def make(name):
-        shape, fan_in = shapes[name]
-        if per_tensor and filter_fn(name, torch.empty(shape, dtype=dtype, device="meta")):
-            return piece(name, shape, fan_in)  # the whole leaf: one scale over it
-        if len(shape) == 3:
-            n, piece_shape, stack, join = shape[0], shape[1:], torch.stack, "stack_layers"
-        else:
-            n = 1
-            while (shape[0] * shape[1] // n > _CHUNK_ELEMS and shape[0] % (2 * n) == 0
-                   and (shape[0] // (2 * n)) % 128 == 0):
-                n *= 2
-            piece_shape, stack, join = (shape[0] // n, shape[1]), torch.cat, "concat_out_features"
-        if n == 1 and len(shape) == 2:
-            return piece(name, shape, fan_in)
-        pieces = [piece(name, piece_shape, fan_in) for _ in range(n)]
-        if isinstance(pieces[0], QuantizedArray):
-            return getattr(type(pieces[0]), join)(pieces)
-        return stack(pieces)
-
     if args.tie_word_embeddings:
         shapes.pop("output.weight")
-    leaves = {name: make(name) for name in shapes}
+    leaves = {name: init_leaf(name, *shapes[name], config, filter_fn, gen, dtype)
+              for name in shapes}
     params = {
         "tok_embeddings": {"weight": leaves["tok_embeddings.weight"]},
         "layers": {
@@ -97,6 +72,48 @@ def init_quantized_params(model, config, filter_fn, seed: int = 0):
         params["output"] = {"weight": leaves["output.weight"]}
         return params
     return untie_quantized_head(params, args, config, filter_fn)
+
+
+def _per_tensor(config) -> bool:
+    while config is not None:
+        if isinstance(getattr(config, "granularity", None), PerTensor):
+            return True
+        config = getattr(config, "base_config", None)  # MoEQuantConfig's
+    return False
+
+
+def init_leaf(name: str, shape, fan_in: int, config, filter_fn, gen: torch.Generator,
+              dtype=torch.bfloat16):
+    """One random leaf (normal / sqrt(fan_in), drawn in float32 from ``gen``
+    on its device and cast), quantized by ``config`` where ``filter_fn(name,
+    leaf)`` holds, made a piece at a time: a stacked leaf (3-D ``[L, N, K]``,
+    or 4-D ``[L, E, N, K]`` experts) one layer at a time, then stacked; a
+    2-D one in lane-aligned out-feature chunks of at most ``_CHUNK_ELEMS``
+    elements, then concatenated. A per-tensor config's leaf is drawn whole."""
+    dev = gen.device
+    handler = get_quantize_handler(config)
+
+    def piece(piece_shape):
+        w = torch.randn(piece_shape, generator=gen, device=dev, dtype=torch.float32).div_(
+            math.sqrt(fan_in)).to(dtype)
+        return handler(w, config) if filter_fn(name, w) else w
+
+    if _per_tensor(config) and filter_fn(name, torch.empty(shape, dtype=dtype, device="meta")):
+        return piece(shape)  # the whole leaf: one scale over it
+    if len(shape) >= 3:
+        n, piece_shape, stack, join = shape[0], shape[1:], torch.stack, "stack_layers"
+    else:
+        n = 1
+        while (shape[0] * shape[1] // n > _CHUNK_ELEMS and shape[0] % (2 * n) == 0
+               and (shape[0] // (2 * n)) % 128 == 0):
+            n *= 2
+        piece_shape, stack, join = (shape[0] // n, shape[1]), torch.cat, "concat_out_features"
+    if n == 1 and len(shape) == 2:
+        return piece(shape)
+    pieces = [piece(piece_shape) for _ in range(n)]
+    if isinstance(pieces[0], QuantizedArray):
+        return getattr(type(pieces[0]), join)(pieces)
+    return stack(pieces)
 
 
 def untie_quantized_head(params, args, config, filter_fn=None):

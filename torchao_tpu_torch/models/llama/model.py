@@ -361,23 +361,31 @@ def _attention(x, lw: Dict[str, Any], freqs, cache, pos: torch.Tensor, args: Mod
     return linear(out, lw["wo"], layer_idx=l)
 
 
-def _feed_forward(x, lw: Dict[str, Any], l: int):
-    """SwiGLU MLP with the merged gate+up projection ``w13``. SiLU is
-    written ``h1 * (1 / (1 + exp(-h1)))`` op by op in the working dtype,
+def silu(h: torch.Tensor) -> torch.Tensor:
+    """SiLU written ``h * (1 / (1 + exp(-h)))`` op by op in ``h``'s dtype,
     so a bf16 run rounds after each op as XLA's compiled ``jax.nn.silu``
     does."""
+    return h * (1 / (1 + torch.exp(-h)))
+
+
+def _feed_forward(x, lw: Dict[str, Any], l: int):
+    """SwiGLU MLP with the merged gate+up projection ``w13`` (:func:`silu`)."""
     h1, h3 = linear(x, lw["w13"], layer_idx=l).chunk(2, dim=-1)
-    return linear(h1 * (1 / (1 + torch.exp(-h1))) * h3, lw["w2"], layer_idx=l)
+    return linear(silu(h1) * h3, lw["w2"], layer_idx=l)
 
 
 def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
                         input_pos: Union[int, torch.Tensor], cache, freqs_full: torch.Tensor,
-                        args: ModelArgs, *, head: bool = True):
+                        args: ModelArgs, *, head: bool = True, ffn=None):
     """Full forward over ``tokens [B, T]`` starting at ``input_pos`` (an
     int, or an int32 ``[B]`` tensor of per-slot positions). Returns
     ``(logits [B, T, V], cache)``, or with ``head=False`` the hidden states
     ``[B, T, D]`` before the final norm and the head; the cache (or None)
-    is updated in place."""
+    is updated in place. ``ffn(h, l)`` is layer l's feed-forward block on
+    its normed input (the MoE model's); by default the SwiGLU MLP of
+    ``params["layers"]["feed_forward"]``."""
+    if ffn is None:
+        ffn = lambda h, l: _feed_forward(h, params["layers"]["feed_forward"], l)
     B, T = tokens.shape
     dev = tokens.device
     if isinstance(input_pos, torch.Tensor):
@@ -398,9 +406,7 @@ def transformer_forward(params: Dict[str, Any], tokens: torch.Tensor,
             rms_norm(x, lws["attention_norm"]["weight"][l], args.norm_eps),
             lws["attention"], freqs, cache, pos, args, l, mask,
         )
-        x = x + _feed_forward(
-            rms_norm(x, lws["ffn_norm"]["weight"][l], args.norm_eps), lws["feed_forward"], l
-        )
+        x = x + ffn(rms_norm(x, lws["ffn_norm"]["weight"][l], args.norm_eps), l)
     if not head:
         return x, cache
     x = rms_norm(x, params["norm"]["weight"], args.norm_eps)

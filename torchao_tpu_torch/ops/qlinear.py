@@ -7,8 +7,16 @@ below registered in the JAX package's order (:func:`route_of` names the one
 a weight takes).
 Weight convention is torch's: ``w`` is ``[out_features, in_features]`` and
 ``linear(x, w) = x @ w.T (+ bias)``. A stacked ``[L, N, K]`` weight is
-passed whole with ``layer_idx`` (``qdata[l]`` is a free view in PyTorch,
-so the TPU's scalar-prefetch trick has no counterpart). Each kernel
+passed whole with ``layer_idx``: a host int (``qdata[l]`` is a free view in
+PyTorch), or a device index (``utils.DeviceIndex``, or a one-element integer
+tensor), the TPU's scalar prefetch: the MoE gathered decode's traced
+``l·E + e`` over a merged ``[L·E, N, K]`` expert stack, which must not be read
+on the host (a CUDA graph replays it). With a device index the int4 TILED
+route launches K1-indexed, a plain weight is picked by ``index_select`` and
+multiplied with ``torch.matmul`` (the JAX package's dynamic slice then XLA),
+and every other route raises on a CUDA tensor (``INDEXED_FORMS_ITEM`` names
+the ROADMAP item that brings its indexed form); on the CPU they take the
+stack's entry by ``index_select`` and their plain versions. Each kernel
 wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 version for a CPU tensor.
 
@@ -92,7 +100,7 @@ from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dual_supported,
 )
 from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_rowwise_matmul
-from torchao_tpu_torch.kernels.int4_matmul import int4_linear
+from torchao_tpu_torch.kernels.int4_matmul import INDEXED_FORMS_ITEM, int4_linear
 from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
 from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_available
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
@@ -109,6 +117,7 @@ from torchao_tpu_torch.qtypes.floatx import FloatxArray, Fp6DualArray
 from torchao_tpu_torch.qtypes.intx import IntxArray
 from torchao_tpu_torch.quantization import quant_primitives as qp
 from torchao_tpu_torch.quantization.quant_primitives import ZeroPointDomain
+from torchao_tpu_torch.utils import as_device_index
 
 # ---------------------------------------------------------------------------
 # activation quantizers (registry keys referenced by configs)
@@ -404,7 +413,7 @@ register_qlinear_dispatch("fp6_dual", lambda x, w, l: isinstance(w, Fp6DualArray
                           _rows(lambda: _fp6_dual))
 
 
-def route_of(x: torch.Tensor, w, layer_idx: Optional[int] = None) -> str:
+def route_of(x: torch.Tensor, w, layer_idx=None) -> str:
     """The name of the route :func:`linear` takes for ``(x, w)``:
     ``"plain"`` for an unquantized weight, a registered name, or
     ``"dequantize"`` (the JAX package's XLA route, and any weight on the
@@ -423,17 +432,27 @@ def route_of(x: torch.Tensor, w, layer_idx: Optional[int] = None) -> str:
 
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
-           layer_idx: Optional[int] = None) -> torch.Tensor:
+           layer_idx=None) -> torch.Tensor:
     """``x @ w.T + bias`` for a plain or quantized ``w``; with
-    ``layer_idx``, ``w`` is a STACKED per-layer weight ``[L, out, in]``.
-    A quantized weight takes the first registered route whose check holds
+    ``layer_idx`` (a host int or a device index, see the module docstring),
+    ``w`` is a STACKED per-layer weight ``[L, out, in]``. A quantized weight
+    takes the first registered route whose check holds
     (:func:`register_qlinear_dispatch`)."""
+    ix = as_device_index(layer_idx)
     if not isinstance(w, QuantizedArray):
-        if layer_idx is not None:
+        if ix is not None:
+            w = w.index_select(0, ix.flat())[0]
+        elif layer_idx is not None:
             w = w[layer_idx]
         out = torch.matmul(x, w.T)
         return out + bias if bias is not None else out
     route = route_of(x, w, layer_idx)
+    if ix is not None and route != "int4_weight_only":
+        if x.device.type != "cpu":
+            raise NotImplementedError(f"route {route!r} with a device index has no CUDA "
+                                      f"kernel yet ({INDEXED_FORMS_ITEM})")
+        w, layer_idx = w.index_leading(ix.flat()), 0
+        route = route_of(x, w, layer_idx)
     if route == "dequantize":
         out = _rows(lambda: _dequant_matmul)(x, w, layer_idx)
     else:

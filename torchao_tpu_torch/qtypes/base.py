@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Iterator, Tuple
 
 import torch
@@ -92,6 +93,43 @@ class QuantizedArray:
             if getattr(self, name) is not None
         }
         return dataclasses.replace(self, **updates).unstack_layer()
+
+    def merge_leading(self, n: int = 2) -> "QuantizedArray":
+        """Merge the leading ``n`` stacked axes of every tensor field into
+        one (``[L, E, ...] -> [L·E, ...]``) and fix ``block_size`` and
+        ``logical_shape``, as the JAX package's ``merge_leading``: a view,
+        no copy (``Tensor.view`` raises where one would be needed). It lets
+        a kernel address a (layer, expert) pair as the one flat leading
+        index ``l·E + e``."""
+        updates = {
+            name: getattr(self, name).view((-1,) + tuple(getattr(self, name).shape[n:]))
+            for name in self._tensor_fields
+            if getattr(self, name) is not None
+        }
+        out = dataclasses.replace(self, **updates)
+        meta = {}
+        bs = getattr(self, "block_size", None)
+        if bs is not None and len(bs) > out._leaf_ndim():
+            meta["block_size"] = tuple(bs[n - 1:])
+        ls = getattr(self, "logical_shape", None)
+        if ls is not None and len(ls) > out._leaf_ndim():
+            meta["logical_shape"] = (math.prod(ls[:n]),) + tuple(ls[n:])
+        return dataclasses.replace(out, **meta) if meta else out
+
+    def index_leading(self, sel: torch.Tensor) -> "QuantizedArray":
+        """The leading entries ``sel`` (int64 ``[n]``, on the device) of
+        every tensor field, by ``index_select`` (a copy of those entries),
+        the leading size of ``logical_shape`` set to n: a stacked weight
+        indexed by a device tensor, with no read of the index on the host."""
+        updates = {
+            name: getattr(self, name).index_select(0, sel)
+            for name in self._tensor_fields
+            if getattr(self, name) is not None
+        }
+        ls = getattr(self, "logical_shape", None)
+        if ls:
+            updates["logical_shape"] = (sel.numel(),) + tuple(ls[1:])
+        return dataclasses.replace(self, **updates)
 
     def to(self, device) -> "QuantizedArray":
         updates = {

@@ -72,6 +72,12 @@ class LinearActivationQuantizedArray(QuantizedArray):
     def take_layer(self, l: int) -> "LinearActivationQuantizedArray":
         return self._with(self.original_weight.take_layer(l))
 
+    def merge_leading(self, n: int = 2) -> "LinearActivationQuantizedArray":
+        return self._with(self.original_weight.merge_leading(n))
+
+    def index_leading(self, sel: torch.Tensor) -> "LinearActivationQuantizedArray":
+        return self._with(self.original_weight.index_leading(sel))
+
     def to(self, device) -> "LinearActivationQuantizedArray":
         return self._with(self.original_weight.to(device))
 

@@ -22,6 +22,7 @@ JAX package's, byte for byte:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -183,6 +184,15 @@ class Fp6DualArray(QuantizedArray):
     def take_layer(self, l: int) -> "Fp6DualArray":
         return self._with(self.a_plane.take_layer(l), self.b_plane.take_layer(l),
                           self.logical_shape[1:])
+
+    def merge_leading(self, n: int = 2) -> "Fp6DualArray":
+        ls = self.logical_shape
+        return self._with(self.a_plane.merge_leading(n), self.b_plane.merge_leading(n),
+                          (math.prod(ls[:n]),) + tuple(ls[n:]))
+
+    def index_leading(self, sel: torch.Tensor) -> "Fp6DualArray":
+        return self._with(self.a_plane.index_leading(sel), self.b_plane.index_leading(sel),
+                          (sel.numel(),) + tuple(self.logical_shape[1:]))
 
     def to(self, device) -> "Fp6DualArray":
         return self._with(self.a_plane.to(device), self.b_plane.to(device), self.logical_shape)

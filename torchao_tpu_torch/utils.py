@@ -2,11 +2,13 @@
 
 Port of ``torchao_tpu/utils.py`` (``cdiv``, ``round_up_to_multiple``,
 ``find_multiple``, ``get_model_size_in_bytes``, ``benchmark_fn``) plus
-``resolve_device``, the one place that decides where an entry point runs.
+``resolve_device``, the one place that decides where an entry point runs,
+and :class:`DeviceIndex`, a stacked weight's index held in device memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import time
 from typing import Callable, Optional, Union
@@ -25,6 +27,34 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceIndex:
+    """The leading index ``base + index`` of a stacked weight, with
+    ``index`` ONE integer element in device memory (e.g. a view of
+    ``torch.topk``'s indices) and ``base`` a host int: the JAX package's
+    traced ``layer_idx`` (a scalar prefetch on the TPU). Whatever takes one
+    reads it on the device, never on the host, so a CUDA graph that captured
+    the call reads the value each replay finds there."""
+
+    index: torch.Tensor
+    base: int = 0
+
+    def flat(self) -> torch.Tensor:
+        """``[1]`` int64 ``base + index``, computed on the index's device."""
+        return self.index.reshape(1).to(torch.long) + self.base
+
+
+def as_device_index(layer_idx) -> Optional[DeviceIndex]:
+    """``layer_idx`` as a :class:`DeviceIndex` where it lies in device
+    memory (a ``DeviceIndex``, or an integer tensor of one element, base 0);
+    None for a host int or None."""
+    if isinstance(layer_idx, DeviceIndex):
+        return layer_idx
+    if isinstance(layer_idx, torch.Tensor):
+        return DeviceIndex(layer_idx)
+    return None
 
 
 def compute_error(x: torch.Tensor, y: torch.Tensor) -> float:
