@@ -152,29 +152,47 @@ Phases (each fails loudly; nothing is caught):
    computes the function, and 0 launches (no main path runs them;
    ``probe_launches`` holds the probe's own count).
 
-7. the section ``mixtral-8x7b-int4wo-32`` (after the Llama model of the
-   phases before is freed): Mixtral-8x7B at full width and depth (32
-   layers, 8 experts top-2, random weights from a seeded generator),
-   ``MoEQuantConfig(Int4WeightOnlyConfig(32))`` on ``moe_linear_filter``'s
-   leaves (the gate bf16), ``moe_mode="auto"`` on the int8 split-flat cache:
-   K1-indexed (the routed experts' linears, the flat index l·E + e read on
-   the card) at w1, w3 and w2 against its plain version and bit for bit
-   against K1 at the host offset of the same (layer, expert), timed a step
-   (192 launches) beside its bound, its plain version and a bf16
-   ``torch.matmul`` on the pre-dequantized expert; K1 and K5 at the
-   attention's and the head's shapes; then prefill 128 + decode 128 through
-   the prefill graph and the decode graph (launches asserted: a decode
-   replay K1-indexed 192, K1 65, K2′ + K3 32; a prefill K5 65, K4 int8 32),
+7. the Mixtral sections (``MOE_SECTIONS``, after the Llama model of the
+   phases before is freed): Mixtral-8x7B at full width (8 experts top-2,
+   random weights from a seeded generator), ``MoEQuantConfig(<recipe>)`` on
+   ``moe_linear_filter``'s leaves (the gate bf16), ``moe_mode="auto"`` on the
+   int8 split-flat cache; ``mixtral-8x7b-int4wo-32`` and
+   ``mixtral-8x7b-int8wo`` at full depth (32 layers), then int8dq,
+   float8wo, float8dq-row, 8da4w-32 and int4wo-32-hqq with the depth cut to
+   ``MOE_LAYERS`` (2) to keep the script in its time limit. In each: the
+   experts' indexed form (K1-, K6-, K7-, K8- or zero-free K1-indexed: the
+   routed experts' linears, the flat index l·E + e read on the card) at w1,
+   w3 and w2, at layer 0 and the last layer, against its plain version and
+   bit for bit against its own launch at the host offset of the same
+   (layer, expert), and at an entry whose offset in the largest weight plane
+   passes 2^31 bytes (the last layer's, or a grown stack holding the same
+   entry), one kernel a call, timed a step beside its bound, its plain
+   version, the launch at the host offset and a bf16 ``torch.matmul`` on the
+   pre-dequantized expert; at full depth also the recipe's gemv and tiled
+   forms at the attention's and the head's shapes; then prefill 128 +
+   decode 128 through the prefill graph and the decode graph (launches
+   asserted, ``_want_moe``: a decode replay 6·L indexed launches, the
+   attention's and the head's 2·L + 1 on the recipe's gemv, K2′ + K3 L; a
+   prefill the tiled forms and K4 int8 L, the experts dense in torch ops),
    the decode's tokens equal to the eager loop's bit for bit, the eager
    run's routed experts covering more than 2 experts in some layer; the
-   modes against dense in bf16 (SQNR >= 30 dB): each layer's FFN on one
-   input (gathered at T = 1, ragged at T = 128; layers 0, 16, 31), and on
-   a 2-layer view a ragged prefill and 8 decode steps gathered, the logits
-   over the tokens routed alike in every layer (``check_moe_modes``); and
-   ``ServingEngine`` on the model (2 slots, prompts of
-   16 and 8 tokens, 4 new each, greedy, dense mode at B = 2), its graph streams equal to
-   its eager ones. Its ``e2e`` entry holds ttft, tok/s, model and active GB a
-   token, peak GB and the section's seconds.
+   modes against dense in bf16 (``check_moe_modes``: each layer's FFN on one
+   input, gathered at T = 1 and ragged at T = 128, and on a 2-layer view a
+   ragged prefill and 8 decode steps gathered, the logits over the tokens
+   routed alike in every layer; >= 30 dB, or where the recipe quantizes
+   activations, for the gathered FFN and both modes' logits, its own bound:
+   25 dB for int8 per token, 20 for e4m3 per row); at full depth
+   ``ServingEngine`` on the model (2 slots, prompts of 16 and 8 tokens, 4
+   new each, greedy, dense mode at B = 2), its graph streams equal to its
+   eager ones. Each ``e2e`` entry holds ttft, tok/s, model and active GB a
+   token, peak GB, the depth and the section's seconds. Then K11- and
+   K12-indexed, which no main path runs (the JAX package does not quantize
+   fp6 experts), held the same way at the experts' shapes on fp6 stacks of
+   two entries (rows with 0 launches), and each indexed form (K1, K6 at
+   entries 6 and -1, K7, K8, K11, K12) asked for an entry outside a
+   6-entry stack in a child process of its own, started before the
+   Mixtral sections: each must trap (its CUDA context lost, a non-zero
+   exit).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -372,6 +390,16 @@ KERNELS = {  # name (launch counter) -> (source, the TPU kernel it replaces)
     "fp8_rowwise_matmul_tiled": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:79"),
     "fp6_dual_matmul": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:428"),
     "fp6_dq_matmul": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:189"),
+    # the indexed forms: the scalar prefetch of each pallas_call (int8_matmul.py:245 and
+    # :93, fp8_matmul.py:207, fp6_matmul.py:416 and :161), read where the kernel reads it
+    "int8wo_mixed_matmul_gemv_indexed": (_QMM, "torchao_tpu/kernels/int8_matmul.py:255"),
+    "int8_scaled_matmul_gemv_indexed": (_QMM, "torchao_tpu/kernels/int8_matmul.py:104"),
+    "fp8_mixed_matmul_gemv_indexed": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp8_mixed_matmul_e4m3_gemv_indexed": (_QMM, "torchao_tpu/kernels/fp8_matmul.py:218"),
+    "fp6_dual_matmul_indexed": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:428"),
+    "fp6_dq_matmul_indexed": (_FP6, "torchao_tpu/kernels/fp6_matmul.py:189"),
+    "int4_dq_matmul_zero_free_gemv_indexed": ("torchao_tpu_torch/csrc/int4_matmul.cu",
+                                              "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_zero_free_gemv": ("torchao_tpu_torch/csrc/int4_matmul.cu",
                                       "torchao_tpu/kernels/int4_matmul.py:877"),
     "int4_dq_matmul_zero_free_tiled": ("torchao_tpu_torch/csrc/int4_matmul.cu",
@@ -2707,59 +2735,195 @@ MIXTRAL_SECTION = f"mixtral-8x7b-int4wo-{GROUP}"
 MIXTRAL_KV = "int8"  # the int8 split-flat cache (the JAX package's int8_smajor)
 BF16_GATHERED_DB = 30.0  # gathered / ragged against dense, bf16 (tests/test_torch_mixtral.py)
 MIXTRAL_SERVE_PROMPTS, MIXTRAL_SERVE_NEW = (16, 8), 4
+MOE_LAYERS = 2  # the depth of the recipes' sections beyond int4wo-32 and int8wo (full width)
+OFFSET_BYTES = 1 << 31  # each indexed form is checked at an entry whose offset passes this
 
 
-def _want_mixtral(L):
-    """A decode replay: each layer's 2 routed experts x (w1, w3, w2) on
-    K1-indexed, wqkv and wo (and the head) on K1, one K2′ + K3 launch; a
-    prefill: K5 and K4 int8, the experts dense in torch ops."""
-    return {"int4_dq_matmul_gemv_indexed": 6 * L * DECODE, "int4_dq_matmul_gemv": (2 * L + 1) * DECODE,
-            "smajor_decode_write_attention_int8": L * DECODE, "int4_dq_matmul_tiled": 2 * L + 1,
-            "quantized_kv_decode_attention_int8": L}
+@dataclasses.dataclass(frozen=True)
+class MoESection:
+    """One Mixtral-8x7B configuration: its experts' recipe, depth (None: all
+    32 layers), the counter of its experts' indexed form and that form's
+    check (``call(x, w, layer)`` as ``check_shapes`` takes it, on the stack
+    ``stack(w)``; bit for bit against its plain version if ``exact``; its x
+    made by ``make_x``), the other linears' launches a decode step and a
+    prefill (``step(L)``, ``prefill(L)``), the gathered-against-dense bound
+    ``modes_db`` (bf16 logits and FFNs) and whether the serving engine runs."""
+
+    config: object
+    layers: object
+    indexed: str
+    call: object
+    step: object
+    prefill: object
+    exact: bool = False
+    make_x: object = None
+    stack: object = lambda w: w
+    peak: float = BF16_FLOPS
+    modes_db: float = BF16_GATHERED_DB
+    serve: bool = False
 
 
-def check_k1_indexed(params, args, gen):
-    """K1-indexed on the merged expert stacks of w1, w3 and w2: at two
-    (layer, expert) pairs of a router's top-2 each (layer 0 with its first
-    expert, the last layer with its second), against its plain version at
-    the same device index (SQNR >= TOL_SQNR_DB) and bit for bit against K1
-    launched at the host offset of that pair; one kernel a call. Timed a
-    step: 2·L launches of each weight."""
+def _linears(counter, heads=1):
+    """The attention's two linears a layer, and the head's ``heads``, on ``counter``."""
+    return lambda L: {counter: 2 * L + heads}
+
+
+# The dense mode (the JAX package's, and the prefill's) dequantizes the experts and
+# leaves their activations in bf16; the gathered decode quantizes them where the recipe
+# does, so its distance to dense is the activations' quantization, and in the logits
+# the next layers' quantized activations turn any rounding difference of the modes into
+# code steps: int8 per token (int8dq, 8da4w) and e4m3 per row (float8dq-row) set their
+# own bounds (check_moe_modes)
+INT8_ACT_MODES_DB, E4M3_ACT_MODES_DB = 25.0, 20.0
+MOE_SECTIONS = {
+    MIXTRAL_SECTION: MoESection(
+        Int4WeightOnlyConfig(GROUP), None, "int4_dq_matmul_gemv_indexed", _int4_call,
+        _linears("int4_dq_matmul_gemv"), _linears("int4_dq_matmul_tiled"), serve=True),
+    "mixtral-8x7b-int8wo": MoESection(
+        Int8WeightOnlyConfig(), None, "int8wo_mixed_matmul_gemv_indexed", _int8wo_call,
+        _linears("int8wo_mixed_matmul_gemv"), _linears("int8wo_mixed_matmul_tiled"), serve=True),
+    "mixtral-8x7b-int8dq": MoESection(
+        Int8DynamicActivationInt8WeightConfig(), MOE_LAYERS, "int8_scaled_matmul_gemv_indexed",
+        _int8dq_call, _linears("int8_scaled_matmul_gemv"), _linears("int8_scaled_matmul_tiled"),
+        exact=True, peak=INT8_FP8_OPS, modes_db=INT8_ACT_MODES_DB),
+    # the float8 heads: float8wo's in plain torch (the JAX package's XLA route), K9 for
+    # float8dq-row's
+    "mixtral-8x7b-float8wo": MoESection(
+        Float8WeightOnlyConfig(), MOE_LAYERS, "fp8_mixed_matmul_gemv_indexed", _fp8_call,
+        _linears("fp8_mixed_matmul_gemv", 0), _linears("fp8_mixed_matmul_tiled", 0)),
+    "mixtral-8x7b-float8dq-row": MoESection(
+        Float8DynamicActivationFloat8WeightConfig(granularity=PerRow()), MOE_LAYERS,
+        "fp8_mixed_matmul_e4m3_gemv_indexed", _fp8_call,
+        lambda L: {"fp8_mixed_matmul_e4m3_gemv": 2 * L, "fp8_rowwise_matmul_gemv": 1},
+        lambda L: {"fp8_mixed_matmul_e4m3_tiled": 2 * L, "fp8_rowwise_matmul_tiled": 1},
+        peak=INT8_FP8_OPS, modes_db=E4M3_ACT_MODES_DB),
+    f"mixtral-8x7b-8da4w-{GROUP}": MoESection(
+        Int8DynamicActivationInt4WeightConfig(group_size=GROUP), MOE_LAYERS,
+        "int4_dq_matmul_zero_free_gemv_indexed", _int4_call,
+        _linears("int4_dq_matmul_zero_free_gemv"), _linears("int4_dq_matmul_zero_free_tiled"),
+        make_x=_centred, stack=lambda w: w.original_weight, modes_db=INT8_ACT_MODES_DB),
+    f"mixtral-8x7b-int4wo-{GROUP}-hqq": MoESection(
+        config_from_recipe(f"int4wo-{GROUP}-hqq"), MOE_LAYERS, "int4_dq_matmul_gemv_indexed",
+        _int4_call, _linears("int4_dq_matmul_gemv"), _linears("int4_dq_matmul_tiled")),
+}
+# left out of the MoE path, by the JAX package's own limits (tests/test_torch_mixtral_recipes.py):
+# fp6 and fp6-packed (its fp6 packing does not take a 4-D expert leaf) and float8dq-tensor
+# (its dense mode, the prefill, cannot split one scale over a stacked leaf). K11- and
+# K12-indexed are held at the experts' shapes without a main path (fp6_indexed_phase)
+
+
+def _want_moe(sec, L):
+    """A decode replay: each layer's 2 routed experts x (w1, w3, w2) on the
+    indexed form, the attention's linears (and the head) on the recipe's
+    gemv, one K2′ + K3 launch a layer; a prefill: the recipe's tiled form and
+    K4 int8, the experts dense in torch ops."""
+    want = collections.Counter({sec.indexed: 6 * L * DECODE,
+                                "smajor_decode_write_attention_int8": L * DECODE,
+                                "quantized_kv_decode_attention_int8": L})
+    for k, v in sec.step(L).items():
+        want[k] += v * DECODE
+    for k, v in sec.prefill(L).items():
+        want[k] += v
+    return {k: v for k, v in want.items() if v}
+
+
+def _planes(w):
+    """The stacked tensors of a quantized array (its tensor fields of two
+    dimensions or more), nested arrays included."""
+    out = []
+    for f in dataclasses.fields(w):
+        v = getattr(w, f.name)
+        if isinstance(v, QuantizedArray):
+            out += _planes(v)
+        elif isinstance(v, torch.Tensor) and v.ndim >= 2:
+            out.append(v)
+    return out
+
+
+def _grown(w, f, F):
+    """``w`` with its entry ``f`` copied to entry ``F`` of ``F + 1``-entry
+    stacks (the other entries left uninitialized; a scale broadcast over
+    the stack stays broadcast): the indexed forms' offsets past 2^31."""
+    n = w.shape[0]
+    updates = {}
+    for fld in dataclasses.fields(w):
+        v = getattr(w, fld.name)
+        if isinstance(v, QuantizedArray):
+            updates[fld.name] = _grown(v, f, F)
+        elif isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == n and v.stride(0):
+            big = torch.empty((F + 1, *v.shape[1:]), dtype=v.dtype, device=v.device)
+            big[F] = v[f]
+            updates[fld.name] = big
+        elif isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == n:
+            updates[fld.name] = v[:1].expand(F + 1, *v.shape[1:])
+    ls = getattr(w, "logical_shape", None)
+    if ls:
+        updates["logical_shape"] = (F + 1,) + tuple(ls[1:])
+    return dataclasses.replace(w, **updates)
+
+
+def check_indexed(name, stacks, call, gen, args, exact=False, make_x=None, peak=BF16_FLOPS,
+                  pairs=None, count=None, work=None):
+    """An indexed form on the merged expert stacks ``stacks`` ((weight name,
+    [L·E, N, K] stack)): at two (layer, expert) pairs of a router's top-2
+    (layer 0 with its first expert, the last layer with its second; or
+    ``pairs`` of flat entries), against its plain version at the same device
+    index (SQNR >= TOL_SQNR_DB, or bit for bit if ``exact``) and bit for bit
+    against the form's own launch at the host offset of that entry; one
+    kernel a call; where the last pair's offset in the largest weight plane
+    stays below 2^31, also at an entry past it of a grown stack holding the
+    same entry. Timed a step (``count``, by default 2·L, launches of each
+    weight) beside its plain version, the launch at the host offset and a
+    bf16 ``torch.matmul`` on the pre-dequantized expert."""
     E, L = args.num_experts, args.n_layer
-    moe = params["layers"]["block_sparse_moe"]
-    t = Tally("int4_dq_matmul_gemv_indexed",
-              f"one decode step at M=1: w1 x{2 * L}, w3 x{2 * L}, w2 x{2 * L} "
-              f"(top-{args.num_activated_experts} of {E} experts, {L} layers)")
+    count = 2 * L if count is None else count
+    t = Tally(name, work or ("one decode step at M=1: "
+                             + ", ".join(f"{w} x{count}" for w, _ in stacks)
+                             + f" (top-{args.num_activated_experts} of {E} experts, {L} layers)"),
+              peak)
     top_idx = torch.topk(torch.rand((1, E), generator=gen, device="cuda"), 2).indices
-    for wname in ("w1", "w3", "w2"):
-        w = mixtral._merge_expert_axis(moe[wname])
+    if pairs is None:
+        pairs = [(DeviceIndex(top_idx[0, j], l * E), l * E + int(top_idx[0, j]))
+                 for l, j in ((0, 0), (L - 1, 1))]  # the host offset is read here only
+    t.extra["nonindexed_ms"] = 0.0
+    for wname, w in stacks:
         N, K = w.shape[-2:]
         x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
-        ops = (x, w.qdata, w.scale, w.zero_point)
-        kw = dict(group_size=GROUP, xored=True)
-        for l, j in ((0, 0), (L - 1, 1)):
-            ix = DeviceIndex(top_idx[0, j], l * E)
-            f = l * E + int(top_idx[0, j])  # the comparison's host offset, read here only
-            kernel = lambda: int4_dq_matmul(*ops, layer_idx=ix, **kw)
-            plain = lambda: int4_dq_matmul_plain(*ops, layer_idx=ix, **kw)
+        if make_x is not None:
+            x = make_x(x)
+        for ix, f in pairs:
+            kernel, plain, nbytes, flops = call(x, w, ix)
+            host = call(x, w, f)[0]
             got, want = kernel(), plain()
-            err = compare(f"int4_dq_matmul_gemv_indexed {wname} f={f} M=1 N={N} K={K}", got, want)
-            compare(f"  against K1 at the host offset f={f}", got,
-                    int4_dq_matmul(*ops, layer_idx=f, **kw), exact=True)
-            sqnr = compute_error(want, got)
-            t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), sqnr)
+            err = compare(f"{name} {wname} f={f} M=1 N={N} K={K}", got, want, exact=exact)
+            compare(f"  against its launch at the host offset f={f}", got, host(), exact=True)
+            if not exact:
+                t.extra["sqnr_db"] = min(t.extra.get("sqnr_db", math.inf), compute_error(want, got))
             if (nodes := kernels_per_call(kernel)) != (1, 1):
-                raise AssertionError(f"K1-indexed {wname}: a call is {nodes} (kernels, nodes)")
-        t.extra["bit_exact_vs_host_offset"] = True
+                raise AssertionError(f"{name} {wname}: a call is {nodes} (kernels, graph nodes)")
+        plane = max(p[0].numel() * p.element_size() for p in _planes(w))
+        if f * plane <= OFFSET_BYTES:
+            F = OFFSET_BYTES // plane + 1
+            big = _grown(w, f, F)
+            got = call(x, big, DeviceIndex(torch.tensor([F], device="cuda"), 0))[0]()
+            compare(f"  at entry {F} of a grown stack ({F * plane} bytes in)", got, host(),
+                    exact=True)
+            del big
+            f_past = F
+        else:
+            f_past = f
+        t.extra["past_2_31_entry_bytes"] = max(t.extra.get("past_2_31_entry_bytes", 0),
+                                              f_past * plane)
         wd = w.take_layer(f).dequantize(torch.bfloat16).T.contiguous()  # [K, N], pre-dequantized
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        ms, plain_ms, host_ms = time_ms(kernel), time_ms(plain), time_ms(host)
         lib_ms = time_ms(lambda: torch.matmul(x, wd))
-        nbytes = K // 2 * N + 2 * (K // GROUP) * N * 2 + K * 2 + N * 2
-        b, by = bound(nbytes, 2 * N * K)
-        log(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b:.4f} "
-            f"({by})")
-        t.add(2 * L, ms, plain_ms, nbytes, 2 * N * K, err, lib_ms)
+        b, by = bound(nbytes, flops, peak)
+        log(f"    ms={ms:.4f} nonindexed_ms={host_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b:.4f} ({by})")
+        t.add(count, ms, plain_ms, nbytes, flops, err, lib_ms)
+        t.extra["nonindexed_ms"] += count * host_ms
         del wd, got, want
+    t.extra["bit_exact_vs_host_offset"] = True
     return t
 
 
@@ -2805,8 +2969,12 @@ MODE_STEPS = 8  # decode steps of the gathered-against-dense logits check
 MODE_LAYERS = 2  # the depth of the model's view that the logits checks run
 
 
-def check_moe_modes(model, params, gen):
-    """The MoE modes against ``dense`` in bf16 (SQNR >= BF16_GATHERED_DB):
+def check_moe_modes(model, params, gen, modes_db=BF16_GATHERED_DB):
+    """The MoE modes against ``dense`` in bf16 (SQNR >= BF16_GATHERED_DB; a
+    recipe that quantizes activations sets ``modes_db`` for the gathered
+    FFN, which quantizes what dense leaves in bf16, and for the logits of
+    both modes, where the next layers' quantized activations turn the modes'
+    rounding differences into code steps):
 
     - at full depth, each layer's FFN on one input (layers 0, L/2 and
       L - 1): ``gathered`` (K1-indexed) at T = 1 and ``ragged`` at T =
@@ -2828,7 +2996,7 @@ def check_moe_modes(model, params, gen):
     L, D, V = args.n_layer, args.dim, args.vocab_size
     moe = params["layers"]["block_sparse_moe"]
     res, fails = {}, []
-    for l in (0, L // 2, L - 1):
+    for l in sorted({0, L // 2, L - 1}):
         for mode, T in (("gathered", 1), ("ragged", PROMPT)):
             x = torch.randn((1, T, D), generator=gen, device="cuda").bfloat16()
             got = (mixtral._moe_ffn_gathered(x, moe, args, l) if mode == "gathered"
@@ -2836,7 +3004,8 @@ def check_moe_modes(model, params, gen):
             db = compute_error(mixtral._moe_ffn(x, moe, args, l, "dense"), got)
             res[f"ffn_{mode}_vs_dense_db_layer{l}"] = db
             log(f"  layer {l} FFN, {mode} (T={T}) vs dense: {db:.2f} dB")
-            fails += [] if db >= BF16_GATHERED_DB else [f"layer {l} {mode}"]
+            fails += [] if db >= (modes_db if mode == "gathered" else BF16_GATHERED_DB) else [
+                f"layer {l} {mode}"]
     view = mixtral.MoETransformer(dataclasses.replace(args, n_layer=MODE_LAYERS), model.dtype,
                                   "cuda", moe_mode="auto")
     vparams = first_layers(params, MODE_LAYERS)
@@ -2873,9 +3042,9 @@ def check_moe_modes(model, params, gen):
     log(f"  logits ({MODE_LAYERS} layers), gathered decode steps vs dense: "
         f"{res.get('gathered_vs_dense_db', math.nan):.2f} dB over the {len(pairs)} of "
         f"{MODE_STEPS} steps routed alike")
-    if res["ragged_vs_dense_db"] < BF16_GATHERED_DB or 4 * res["ragged_tokens_routed_alike"] < 3 * PROMPT:
+    if res["ragged_vs_dense_db"] < modes_db or 4 * res["ragged_tokens_routed_alike"] < 3 * PROMPT:
         fails.append("ragged logits")
-    if 4 * len(pairs) < 3 * MODE_STEPS or res["gathered_vs_dense_db"] < BF16_GATHERED_DB:
+    if 4 * len(pairs) < 3 * MODE_STEPS or res["gathered_vs_dense_db"] < modes_db:
         fails.append("gathered logits")
     if fails:
         raise AssertionError(f"the MoE modes disagree: {fails}")
@@ -2915,31 +3084,42 @@ def mixtral_serving_check(model, params):
     return e2e
 
 
-def mixtral_section(gen):
-    """Section 7 of the module docstring. Returns (kernel rows, e2e)."""
+def moe_section(gen, name):
+    """One section of ``MOE_SECTIONS`` (module docstring, 7). Returns
+    (kernel rows, e2e)."""
+    sec = MOE_SECTIONS[name]
     t_start = time.perf_counter()
-    log(f"== {MIXTRAL}, {MIXTRAL_SECTION}: MoEQuantConfig(Int4WeightOnlyConfig({GROUP})) on "
-        f"moe_linear_filter, moe_mode auto, KV cache {MIXTRAL_KV} split-flat: random weights")
-    model = mixtral.MoETransformer.from_name(MIXTRAL, torch.bfloat16, "cuda", moe_mode="auto")
-    params = mixtral.init_quantized_moe(model, MoEQuantConfig(Int4WeightOnlyConfig(GROUP)),
+    args = mixtral.MoEModelArgs(**mixtral.moe_configs[MIXTRAL])
+    if sec.layers is not None:
+        args = dataclasses.replace(args, n_layer=sec.layers)
+    L = args.n_layer
+    depth = "" if sec.layers is None else f", depth cut to {L} of 32 layers (MOE_LAYERS)"
+    log(f"== {MIXTRAL}, {name}: MoEQuantConfig({type(sec.config).__name__}) on moe_linear_filter, "
+        f"moe_mode auto, KV cache {MIXTRAL_KV} split-flat{depth}: random weights")
+    model = mixtral.MoETransformer(args, torch.bfloat16, "cuda", moe_mode="auto")
+    params = mixtral.init_quantized_moe(model, MoEQuantConfig(sec.config),
                                         mixtral.moe_linear_filter, seed=0)
     torch.cuda.synchronize()
-    args, L = model.args, model.args.n_layer
     init_s = time.perf_counter() - t_start
     model_gb = get_model_size_in_bytes(params) / 1e9
     active_gb = mixtral.active_bytes_per_token(params, args) / 1e9
-    if not isinstance(params["layers"]["block_sparse_moe"]["w1"], IntxArray) or isinstance(
-            params["layers"]["block_sparse_moe"]["gate"], QuantizedArray):
-        raise AssertionError("the experts must be int4 and the gate bf16")
+    moe = params["layers"]["block_sparse_moe"]
+    if not isinstance(moe["w1"], QuantizedArray) or isinstance(moe["gate"], QuantizedArray):
+        raise AssertionError("the experts must be quantized and the gate bf16")
     log(f"  init + quantize {init_s:.1f} s; model {model_gb:.3f} GB, active {active_gb:.3f} GB "
         f"a token; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
 
     log("  -- kernels against their plain versions (main-path shapes)")
-    cases = [("wqkv", params["layers"]["attention"]["wqkv"], 0, L),
-             ("wo", params["layers"]["attention"]["wo"], 0, L),
-             ("output", params["output"]["weight"], None, 1)]
-    tallies = [check_k1_indexed(params, args, gen)] + [
-        check_shapes(f"int4_dq_matmul_{form}", cases, M, _int4_call, gen) for form, M in FORMS]
+    stacks = [(n, sec.stack(mixtral._merge_expert_axis(moe[n]))) for n in ("w1", "w3", "w2")]
+    tallies = [check_indexed(sec.indexed, stacks, sec.call, gen, args, sec.exact, sec.make_x,
+                             sec.peak)]
+    if sec.layers is None:  # the attention's and the head's forms (the Llama sections' shapes)
+        lw = params["layers"]["attention"]
+        cases = [("wqkv", lw["wqkv"], 0, L), ("wo", lw["wo"], 0, L),
+                 ("output", params["output"]["weight"], None, 1)]
+        tallies += [check_shapes(next(iter(forms(1))), cases, M, sec.call, gen, sec.peak)
+                    for forms, M in ((sec.step, 1), (sec.prefill, PROMPT))]
+    del stacks
     torch.cuda.empty_cache()
 
     log(f"  -- main path: prefill {PROMPT}, decode {DECODE}, batch 1, top-k {TOP_K}, "
@@ -2961,7 +3141,7 @@ def mixtral_section(gen):
         f"prefill_capture_s={res['prefill_capture_s']:.3f} model_GB={res['model_size_GB']:.3f} "
         f"peak_GB={peak_gb:.3f}")
     log(f"  launches: {json.dumps(counts, sort_keys=True)}")
-    want = _want_mixtral(L)
+    want = _want_moe(sec, L)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     log(f"  a decode replay: {json.dumps({k: v // DECODE for k, v in counts.items() if v >= DECODE})}; "
@@ -2977,26 +3157,118 @@ def mixtral_section(gen):
         raise AssertionError("no layer routed to more than its top-k experts: the graph's "
                              "replays would not show that they read a new index")
     log(f"  {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    modes = check_moe_modes(model, params, gen)
+    modes = check_moe_modes(model, params, gen, sec.modes_db)
     torch.cuda.empty_cache()
-    serve = mixtral_serving_check(model, params)
-    e2e = {"config": MIXTRAL_SECTION, "model": MIXTRAL, "kv_cache": MIXTRAL_KV,
+    e2e = {"config": name, "model": MIXTRAL, "layers": L, "kv_cache": MIXTRAL_KV,
            "ttft_ms": res["ttft_ms"], "tok_s": res["tokens_per_s"], "decode_s": res["decode_s"],
            "capture_s": res["capture_s"], "prefill_capture_s": res["prefill_capture_s"],
            "model_GB": model_gb, "active_GB_per_token": active_gb, "peak_GB": peak_gb,
            "active_GBps": active_gb * res["tokens_per_s"], "eager_tok_s": eager_tok_s,
-           "experts_routed_per_layer": routed, "init_s": init_s, **modes, "serving": serve}
+           "experts_routed_per_layer": routed, "init_s": init_s, **modes}
+    if sec.serve:
+        e2e["serving"] = mixtral_serving_check(model, params)
     rows = []
     for t in tallies:
         if not counts.get(t.name):
             raise AssertionError(f"{t.name} was not launched on the Mixtral main path")
-        rows.append({**t.row(counts[t.name]), "section": MIXTRAL_SECTION})
+        rows.append({**t.row(counts[t.name]), "section": name})
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     e2e["section_s"] = time.perf_counter() - t_start
     log(f"  section seconds {e2e['section_s']:.1f}")
     return rows, e2e
+
+
+def fp6_indexed_phase(gen):
+    """K11- and K12-indexed, which no main path runs (the JAX package does
+    not quantize fp6 experts): at the experts' shapes (w1 / w3 [14336,
+    4096], w2 [4096, 14336]) on two-entry stacks made by the port's fp6
+    handlers, as ``check_indexed`` holds the others (entry 1 by a device
+    index, and past 2^31 on a grown stack); rows with 0 launches, timed one
+    call at each shape."""
+    from torchao_tpu_torch.quantization.transform_module import get_quantize_handler
+
+    log("== K11- and K12-indexed at Mixtral's expert shapes (no main path)")
+    cfgs = (("fp6_dual_matmul_indexed", FPXWeightOnlyConfig(ebits=3, mbits=2), _fp6_dual_call),
+            ("fp6_dq_matmul_indexed", FPXWeightOnlyConfig(ebits=3, mbits=2, runtime="packed"),
+             _fp6_packed_call))
+    args = dataclasses.replace(mixtral.MoEModelArgs(**mixtral.moe_configs[MIXTRAL]), n_layer=1)
+    rows = []
+    for name, cfg, call in cfgs:
+        stacks = []
+        for wname, (N, K) in (("w1", (args.intermediate_size, args.dim)),
+                              ("w2", (args.dim, args.intermediate_size))):
+            w = (torch.randn((2, N, K), generator=gen, device="cuda") / K ** 0.5).bfloat16()
+            stacks.append((wname, get_quantize_handler(cfg)(w, cfg)))
+            del w
+        pairs = [(DeviceIndex(torch.ones(1, dtype=torch.long, device="cuda"), 0), 1)]
+        t = check_indexed(name, stacks, call, gen, args, pairs=pairs, count=1,
+                          work="one call at each expert shape (w1, w2), M=1: no main path")
+        rows.append({**t.row(0), "section": "fp6-indexed"})
+        del stacks
+        torch.cuda.empty_cache()
+    return rows
+
+
+# A child process that asks an indexed form for entry f of a 6-entry stack: out of
+# range, the kernel traps, the child's CUDA context is lost and it exits non-zero
+_TRAP_CHILD = r"""
+import sys, torch
+from torchao_tpu_torch.kernels.fp6_matmul import fp6_dq_matmul, fp6_dual_matmul
+from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul
+from torchao_tpu_torch.kernels.int4_matmul import int4_dq_matmul
+from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
+from torchao_tpu_torch.utils import DeviceIndex
+form, f = sys.argv[1], int(sys.argv[2])
+n, N, K, d = 6, 256, 1024, "cuda"
+ix = DeviceIndex(torch.tensor([f], device=d), 0)
+x = torch.ones((1, K), dtype=torch.bfloat16, device=d)
+u8 = lambda *s: torch.zeros(s, dtype=torch.uint8, device=d)
+i8 = torch.zeros((n, N, K), dtype=torch.int8, device=d)
+s = torch.ones((n, N), dtype=torch.bfloat16, device=d)
+if form == "K1":
+    int4_dq_matmul(x, u8(n, K // 2, N), torch.ones((n, K // 32, N), dtype=torch.bfloat16,
+                   device=d), None, group_size=32, layer_idx=ix, xored=True)
+elif form == "K6":
+    int8wo_mixed_matmul(x, i8, s, layer_idx=ix)
+elif form == "K7":
+    int8_scaled_matmul(x.to(torch.int8), i8, s[0, :1], s, layer_idx=ix)
+elif form == "K8":
+    fp8_mixed_matmul(x, i8.to(torch.float8_e4m3fn), s.float(), layer_idx=ix)
+elif form == "K11":
+    fp6_dual_matmul(x, u8(n, K // 2, N), i8, s, layer_idx=ix)
+elif form == "K12":
+    fp6_dq_matmul(x, u8(n, K // 2, N), u8(n, K // 4, N), s, layer_idx=ix)
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+TRAP_CASES = (("K1", 6), ("K6", 6), ("K6", -1), ("K7", 6), ("K8", 6), ("K11", 6), ("K12", 6))
+
+
+def start_trap_checks():
+    """One child process for each of ``TRAP_CASES`` (an indexed form asked
+    for an entry outside its stack), all started together, each in this
+    script's directory (the library is built: they only load it)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [(form, f, subprocess.Popen([sys.executable, "-c", _TRAP_CHILD, form, str(f)],
+                                       cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True))
+            for form, f in TRAP_CASES]
+
+
+def finish_trap_checks(children):
+    """Each child must have failed in CUDA, before printing ``NO TRAP``."""
+    out = {}
+    for form, f, p in children:
+        stdout, stderr = p.communicate(timeout=600)
+        trapped = p.returncode != 0 and "NO TRAP" not in stdout and "CUDA" in stderr.upper()
+        log(f"  {form}-indexed at entry {f} of 6: rc={p.returncode} "
+            f"{'trapped' if trapped else 'DID NOT TRAP'}; {stderr.strip().splitlines()[-1][:160]}")
+        if not trapped:
+            raise AssertionError(f"{form}-indexed did not trap at entry {f}: {stdout}{stderr[-2000:]}")
+        out[f"{form}@{f}"] = p.returncode
+    return out
 
 
 def main() -> int:
@@ -3053,10 +3325,16 @@ def main() -> int:
     log(f"  ceiling phase done; total {time.perf_counter() - t_start:.1f} s")
     rows += probe_phase()
     log(f"  probe phase done; total {time.perf_counter() - t_start:.1f} s")
-    r, e = mixtral_section(gen)
-    rows += r
-    e2e.append(e)
-    log(f"  Mixtral section done; total {time.perf_counter() - t_start:.1f} s")
+    traps = start_trap_checks()
+    for name in MOE_SECTIONS:
+        r, e = moe_section(gen, name)
+        rows += r
+        e2e.append(e)
+        log(f"  {name} done; total {time.perf_counter() - t_start:.1f} s")
+    rows += fp6_indexed_phase(gen)
+    log("== the indexed forms out of range (child processes)")
+    e2e.append({"config": "indexed-traps", **finish_trap_checks(traps)})
+    log(f"  indexed phases done; total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": rows}))

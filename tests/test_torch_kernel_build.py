@@ -12,6 +12,7 @@ path's shapes. Run them there with ``python -m pytest tests/test_torch_kernel_bu
 """
 
 import dataclasses
+import functools
 import re
 
 import pytest
@@ -1298,6 +1299,29 @@ def test_sass_opcodes_by_whole_mnemonic():
 # ------------------------------------------ tensor-core redesigns on a card --
 
 TOL_K14A_TILED_DB = 65.0  # separates K14a's exact-nibble rounding from K5's (~51 dB)
+def test_sass_instances_key_each_template_instance():
+    """``_build.sass_instances`` keys each function of ``cuobjdump -sass``
+    by its template and template arguments, whatever the file-local
+    namespace (its hash differs between two trees), and keeps its
+    instruction texts without addresses or encodings."""
+    sass = """
+		Function : _ZN43_GLOBAL__N__c50f98a0_10_qmatmul_cu_725fc4ff12gemv1_kernelILi0ELi1ELb0EEEvPKv11ScaledIndex
+        /*0000*/                   LDC R1, c[0x0][0x28] ;             /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 BRA 0x80 ;                         /* 0x000000000000794c */
+		Function : _ZN47_GLOBAL__N__29432684_14_int4_matmul_cu_d38beb2d16int4_gemv_kernelILi1ELb1ELb0ELb1EEEvPK
+        /*0000*/                   EXIT ;                             /* 0x000000000000794d */
+		Function : _ZN43_GLOBAL__N__7a1c5f38e_10_qmatmul_cu_725fc4ff12gemv1_kernelILi3ELi4ELb1EEEvPKv
+        /*0000*/                   NOP ;                              /* 0x0000000000007918 */
+		Function : tt_helper_without_template
+        /*0000*/                   RET.REL.NODEC R20 0x0 ;
+"""
+    got = _build.sass_instances(sass)
+    # the third name's hash spells "38" before an identifier of 38 characters
+    assert got == {("gemv1_kernel", "Li0ELi1ELb0E"): ["LDC R1, c[0x0][0x28]", "@!P0 BRA 0x80"],
+                   ("int4_gemv_kernel", "Li1ELb1ELb0ELb1E"): ["EXIT"],
+                   ("gemv1_kernel", "Li3ELi4ELb1E"): ["NOP"]}
+
+
 # K9 tiled: e4m3 mma.sync with f32 accumulators and no promotion, over K = 4096
 TOL_K9_TILED_DB = 60.0
 
@@ -2154,3 +2178,283 @@ def test_k1_llama_instance_sass_is_unchanged(cuda):
     print(f"K1 Llama instance: {usage} {counts}")
     assert counts == K1_LLAMA_SASS
     assert usage == K1_LLAMA_USAGE
+
+
+
+# ---------------------------------- K6-, K7-, K8-, K11-, K12-indexed on a card --
+
+# the indexed forms of the one-launch gemv (K6, K7, K8) and of K11 and K12:
+# (the launch counter of the indexed call, its C entry)
+INDEXED_FORMS = {
+    "int8wo": ("int8wo_mixed_matmul_gemv_indexed", "tt_qmm_gemv_indexed"),
+    "int8dq": ("int8_scaled_matmul_gemv_indexed", "tt_qmm_gemv_indexed"),
+    "fp8_bf16x": ("fp8_mixed_matmul_gemv_indexed", "tt_fp8_mixed_gemv_indexed"),
+    "fp8_e4m3x": ("fp8_mixed_matmul_e4m3_gemv_indexed", "tt_fp8_mixed_gemv_indexed"),
+    "fp8_per_tensor": ("fp8_mixed_matmul_e4m3_gemv_indexed", "tt_fp8_mixed_gemv_indexed"),
+    "fp6_dual": ("fp6_dual_matmul_indexed", "tt_fp6_dual_gemv_indexed"),
+    "fp6_packed": ("fp6_dq_matmul_indexed", "tt_fp6_gemv_indexed"),
+}
+
+
+def _indexed_operands(form, gen, entries, M, N, K, dev):
+    """(kernel, plain, args, exact) of ``form`` on a random stack of
+    ``entries``: ``kernel(*args, layer_idx=l)`` at a host int or a device
+    index; its stacked operands are the args after the first with two
+    dimensions or more (a per-tensor scale: one scale broadcast to the
+    entries, stride 0). ``exact``: the kernel equals its plain version bit
+    for bit (K7); else within ``INDEXED_PLAIN_DB[form]``."""
+    if form in ("fp6_dual", "fp6_packed"):
+        packed, dual = _fp6_weight(gen, entries, N, K, dev)
+        x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+        if form == "fp6_packed":
+            return (fp6_dq_matmul, fp6_dq_matmul_plain,
+                    (x, packed.qdata, packed.qdata2, packed.scale), False)
+        return (fp6_dual_matmul, fp6_dual_matmul_plain,
+                (x, dual.a_plane.qdata, dual.b_plane.qdata, dual.a_plane.scale[..., 0, :]), False)
+    if form.startswith("int8"):
+        x, w = _qmm_operands(gen, entries, M, N, K, torch.bfloat16, torch.int8, dev)
+        ws = (torch.rand((entries, N), generator=gen, device=dev) * 0.02 + 0.001).bfloat16()
+        if form == "int8wo":
+            return int8wo_mixed_matmul, int8wo_mixed_matmul_plain, (x, w, ws), False
+        xq, _ = _qmm_operands(gen, entries, M, N, K, torch.int8, torch.int8, dev)
+        xs = (torch.rand((M,), generator=gen, device=dev) * 0.05 + 0.001).bfloat16()
+        return int8_scaled_matmul, int8_scaled_matmul_plain, (xq, w, xs, ws), True
+    x, _, _, xs = _fp8_gemv_operands(gen, "bf16" if form == "fp8_bf16x" else "e4m3", M, N, K,
+                                     dev)
+    w = (torch.randn((entries, N, K), generator=gen, device=dev) * 50).to(torch.float8_e4m3fn)
+    ws = torch.rand((entries, N), generator=gen, device=dev) * 0.01 + 0.001
+    if form == "fp8_per_tensor":  # one scale over the stack, broadcast to its entries
+        ws = ws[:1, :1].expand(entries, 1)
+    return fp8_mixed_matmul, fp8_mixed_matmul_plain, (x, w, ws, xs), False
+
+
+# the non-indexed forms' bounds against their plain versions (K6 and K8 gemv 60 dB,
+# K11 40 dB, K12 35 dB: the tests above)
+INDEXED_PLAIN_DB = {"fp6_dual": 40.0, "fp6_packed": 35.0}
+
+
+def _at(fn, args, l):
+    return fn(*args, layer_idx=l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "three"])
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("form", list(INDEXED_FORMS))
+def test_indexed_form_matches_plain_and_the_host_offset_launch(cuda, monkeypatch, form, M,
+                                                               split):
+    """Each indexed form at ``f = base + index`` read on the card: bit for bit
+    its own launch at the host int f (the same kernel on the same entry),
+    and its plain version at the same device index (bit for bit for K7,
+    else the non-indexed form's SQNR bound); one launch of its C entry a call, counted
+    under its own name; the tickets left at zero."""
+    from torchao_tpu_torch.kernels import _qmm
+    from torchao_tpu_torch.kernels import fp6_matmul as F6
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    if split == "three":
+        for mod, fn in ((_qmm, "gemv1_nsplit"), (F6, "dual_nsplit"), (F6, "fp6_nsplit")):
+            monkeypatch.setattr(mod, fn, lambda *a: 3)
+    gen = torch.Generator(device=cuda).manual_seed(M + len(form))
+    kernel, plain, args, exact = _indexed_operands(form, gen, 6, M, 4096 + 128, 2048, cuda)
+    counter, entry = INDEXED_FORMS[form]
+    top_idx = torch.tensor([[4, 1]], device=cuda)  # torch.topk's int64 indices
+    for j, base in ((0, 0), (1, 3), (1, 0)):
+        ix = DeviceIndex(top_idx[0, j], base)
+        f = base + (4, 1)[j]
+        before = _build.LAUNCHES[counter], _build.ENTRIES[entry]
+        got = _at(kernel, args, ix)
+        if entry in ("tt_qmm_gemv_indexed", "tt_fp8_mixed_gemv_indexed"):
+            assert _build.ENTRIES[entry] == before[1] + 1
+        assert _build.LAUNCHES[counter] == before[0] + 1
+        host = _at(kernel, args, f)
+        torch.cuda.synchronize()
+        assert torch.equal(got, host), (form, j, base)
+        if exact:
+            assert torch.equal(got, _at(plain, args, ix)), (form, j, base)
+        else:
+            _sqnr_ok(got, _at(plain, args, ix), INDEXED_PLAIN_DB.get(form, 60.0))
+    assert _stream_tickets_are_zero(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(INDEXED_FORMS))
+def test_indexed_form_graph_replays_read_a_new_index(cuda, form):
+    """A CUDA graph captured around an indexed form reads the index at each
+    replay: written between replays, it routes each replay anew; one kernel
+    a call."""
+    from torchao_tpu_torch.profiler import kernels_per_call
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    kernel, _, args, _ = _indexed_operands(form, gen, 8, 1, 4096, 2048, cuda)
+    idx = torch.zeros(1, dtype=torch.long, device=cuda)
+    run = lambda: _at(kernel, args, DeviceIndex(idx, 0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    assert kernels_per_call(run) == (1, 1)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for e in (3, 7, 0, 5):
+        idx.fill_(e)
+        graph.replay()
+        want = _at(kernel, args, e)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (form, e)
+
+
+_TRAP_CODE = """
+import sys, torch
+sys.path.insert(0, "tests")
+from torchao_tpu_torch.utils import DeviceIndex
+import test_torch_kernel_build as T
+gen = torch.Generator(device="cuda").manual_seed(0)
+kernel, _, args, _ = T._indexed_operands({form!r}, gen, 6, 1, 4096, 2048, torch.device("cuda"))
+kernel(*args, layer_idx=DeviceIndex(torch.tensor([{f}], device="cuda"), 0))
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [-1, 6])
+@pytest.mark.parametrize("form", list(INDEXED_FORMS))
+def test_indexed_form_traps_out_of_range(cuda, form, f):
+    """An index outside the stack traps in the kernel (no clamp, no host
+    check): the process's next synchronize fails. Run in a child process,
+    whose CUDA context the trap ends."""
+    import subprocess
+    import sys
+
+    res = subprocess.run([sys.executable, "-c", _TRAP_CODE.format(form=form, f=f)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(_build._PKG.parent))
+    assert res.returncode != 0 and "NO TRAP" not in res.stdout, res.stdout + res.stderr
+    assert "CUDA" in res.stderr or "cuda" in res.stderr, res.stderr[-2000:]
+
+
+def _grown(t, f):
+    """``t``'s entry 1 placed at entry ``f`` of an ``f + 1``-entry stack, the
+    other entries left uninitialized (a broadcast scale stays broadcast)."""
+    if t.stride(0) == 0:
+        return t[:1].expand(f + 1, *t.shape[1:])
+    big = torch.empty((f + 1, *t.shape[1:]), dtype=t.dtype, device=t.device)
+    big[f] = t[1]
+    return big
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(INDEXED_FORMS))
+def test_indexed_form_past_2_31_bytes(cuda, form):
+    """The entry's offset in 64 bits: at an entry whose byte offset passes
+    2^31 in every weight plane (Mixtral's w2 shape, the rest of the stack
+    uninitialized), an indexed form equals its launch at the host offset of
+    a two-entry stack holding the same entry, bit for bit."""
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    N, K = 4096, 14336
+    plane = {"fp6_packed": K // 4 * N, "fp6_dual": K // 2 * N}.get(form, N * K)
+    f = (1 << 31) // plane + 1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kernel, _, args, _ = _indexed_operands(form, gen, 2, 1, N, K, cuda)
+    want = _at(kernel, args, 1)
+    big = args[:1] + tuple(_grown(t, f) if t is not None and t.ndim >= 2 else t
+                           for t in args[1:])
+    got = _at(kernel, big, DeviceIndex(torch.tensor([f], device=cuda), 0))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), form
+
+
+# The decode instances (M = 1) of the templates that took an INDEXED parameter in
+# the indexed forms' PR: their SASS counted by opcode and their (registers, spill
+# bytes) as nvcc 12.8 compiled them for sm_90a (H100) before; compiled after, each
+# instance's SASS text was the same instruction for instruction
+# (``_build.compare_sass`` against the parent's tree)
+INDEXED_TEMPLATE_INSTANCES = [
+    # K6, M = 1
+    ("qmatmul.cu", "gemv1_kernelILi0ELi1ELb0E", (63, 0), {
+        "ATOMG": 1, "BAR": 3, "BRA": 24, "BSSY": 3, "BSYNC": 3, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 9, "ERRBAR": 2, "EXIT": 5, "F2FP": 2, "F2I": 3, "FADD": 113,
+        "FFMA": 64, "FMUL": 4, "HFMA2": 4, "I2F": 3, "IADD3": 86, "IMAD": 129, "ISETP": 49,
+        "LDC": 15, "LDG": 43, "LDS": 3, "LEA": 32, "LOP3": 23, "MEMBAR": 2, "MOV": 9, "MUFU":
+        3, "NOP": 11, "PLOP3": 3, "PRMT": 72, "RET": 1, "S2R": 2, "S2UR": 3, "SEL": 11, "SHF":
+        25, "SHFL": 20, "STG": 4, "STS": 5, "UIADD3": 7, "UIMAD": 4, "ULDC": 16, "ULEA": 2,
+        "UMOV": 4, "USHF": 10, "VIADD": 13
+    }),
+    # K7, M = 1
+    ("qmatmul.cu", "gemv1_kernelILi1ELi1ELb0E", (58, 0), {
+        "ATOMG": 1, "BAR": 3, "BRA": 29, "BSSY": 4, "BSYNC": 4, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 24, "ERRBAR": 2, "EXIT": 5, "F2FP": 2, "F2I": 3, "FMUL": 4,
+        "I2F": 3, "I2FP": 2, "IADD3": 108, "IDP": 48, "IMAD": 184, "ISETP": 56, "LDC": 15,
+        "LDG": 52, "LDS": 3, "LEA": 31, "LOP3": 10, "MEMBAR": 2, "MOV": 2, "MUFU": 3, "NOP":
+        13, "PLOP3": 3, "RET": 1, "S2R": 8, "S2UR": 2, "SEL": 11, "SHF": 15, "SHFL": 20,
+        "STG": 4, "STS": 5, "UIADD3": 6, "UIMAD": 7, "ULDC": 24, "ULEA": 2, "UMOV": 4, "USHF":
+        13, "VIADD": 24
+    }),
+    # K8, bf16 x, M = 1
+    ("qmatmul.cu", "gemv1_kernelILi2ELi1ELb0E", (56, 0), {
+        "ATOMG": 1, "BAR": 3, "BRA": 24, "BSSY": 3, "BSYNC": 3, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 8, "ERRBAR": 2, "EXIT": 5, "F2FP": 34, "F2I": 3, "FADD": 49,
+        "FFMA": 64, "FMUL": 4, "HADD2": 64, "HFMA2": 6, "I2F": 3, "IADD3": 90, "IMAD": 114,
+        "ISETP": 49, "LDC": 15, "LDG": 43, "LDS": 3, "LEA": 33, "LOP3": 7, "MEMBAR": 2, "MOV":
+        15, "MUFU": 3, "NOP": 15, "PLOP3": 3, "PRMT": 8, "RET": 1, "S2R": 2, "S2UR": 3, "SEL":
+        11, "SHF": 42, "SHFL": 20, "STG": 4, "STS": 5, "UIADD3": 7, "UIMAD": 4, "ULDC": 16,
+        "ULEA": 2, "UMOV": 4, "USHF": 10, "VIADD": 11
+    }),
+    # K8, e4m3 x, M = 1
+    ("qmatmul.cu", "gemv1_kernelILi3ELi1ELb0E", (64, 0), {
+        "ATOMG": 1, "BAR": 3, "BRA": 24, "BSSY": 3, "BSYNC": 3, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 9, "ERRBAR": 2, "EXIT": 5, "F2FP": 42, "F2I": 3, "FADD": 49,
+        "FFMA": 64, "FMUL": 4, "HADD2": 80, "HFMA2": 5, "I2F": 3, "IADD3": 103, "IMAD": 112,
+        "ISETP": 49, "LDC": 10, "LDG": 42, "LDS": 3, "LEA": 33, "LOP3": 7, "MEMBAR": 2, "MOV":
+        16, "MUFU": 3, "NOP": 10, "PLOP3": 3, "RET": 1, "S2R": 2, "S2UR": 3, "SEL": 11, "SHF":
+        41, "SHFL": 20, "STG": 4, "STS": 5, "UIADD3": 7, "UIMAD": 4, "ULDC": 17, "ULEA": 2,
+        "UMOV": 4, "USHF": 11, "VIADD": 9
+    }),
+    # K11, M = 1
+    ("fp6_matmul.cu", "fp6_dual_kernelILi1ELi1ELb0E", (128, 72), {
+        "ATOMG": 1, "BAR": 5, "BRA": 46, "BSSY": 18, "BSYNC": 18, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 72, "DEPBAR": 1, "ENDCOLLECTIVE": 80, "ERRBAR": 2, "EXIT": 4,
+        "F2FP": 4, "F2I": 7, "FADD": 500, "FFMA": 256, "FLO": 1, "FMUL": 35, "HADD2": 32,
+        "HMMA": 8, "I2F": 7, "IABS": 11, "IADD3": 174, "IMAD": 390, "ISETP": 118, "LDC": 59,
+        "LDG": 67, "LDL": 7, "LDS": 57, "LEA": 99, "LOP3": 130, "MEMBAR": 2, "MOV": 201,
+        "MUFU": 7, "NOP": 15, "PLOP3": 3, "POPC": 2, "PRMT": 336, "RET": 1, "S2R": 12, "S2UR":
+        19, "SEL": 12, "SHF": 84, "SHFL": 161, "STG": 8, "STL": 7, "STS": 54, "UIADD3": 12,
+        "ULDC": 24, "ULEA": 13, "UMOV": 24, "USHF": 2, "VIADD": 31, "VOTEU": 1, "WARPSYNC": 82
+    }),
+    # K12, M = 1
+    ("fp6_matmul.cu", "fp6_packed_kernelILi1ELb0E", (114, 0), {
+        "ATOMG": 1, "BAR": 5, "BRA": 52, "BSSY": 22, "BSYNC": 22, "CALL": 2, "CCTL": 2,
+        "CGAERRBAR": 2, "CS2R": 44, "DEPBAR": 1, "ERRBAR": 2, "EXIT": 4, "F2FP": 7, "F2I": 10,
+        "FADD": 103, "FLO": 1, "FMUL": 4, "HMMA": 16, "HMUL2": 64, "I2F": 10, "IABS": 16,
+        "IADD3": 87, "IMAD": 470, "ISETP": 95, "LDC": 27, "LDG": 59, "LDS": 77, "LEA": 93,
+        "LOP3": 99, "MEMBAR": 2, "MOV": 4, "MUFU": 10, "NOP": 10, "PLOP3": 3, "POPC": 2,
+        "PRMT": 176, "RET": 1, "S2R": 14, "S2UR": 8, "SEL": 13, "SHF": 144, "SHFL": 1, "STG":
+        11, "STS": 29, "UIADD3": 6, "ULDC": 26, "ULEA": 7, "UMOV": 8, "VIADD": 61, "VOTEU": 1,
+        "WARPSYNC": 2
+    }),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled(src):
+    return _build.compile_report(src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,instance,usage,opcodes", INDEXED_TEMPLATE_INSTANCES,
+                         ids=[i[1] for i in INDEXED_TEMPLATE_INSTANCES])
+def test_indexed_templates_leave_the_decode_instances_unchanged(cuda, src, instance, usage,
+                                                                opcodes):
+    """The instances every Llama decode launches compile as they did before
+    their templates took INDEXED: the same opcode counts, registers and
+    spills."""
+    report, sass = _compiled(src)
+    counts = dict(_build.sass_opcodes(sass, instance))
+    print(f"{instance}: {_build.ptxas_usage(report, instance)} {counts}")
+    assert counts == opcodes
+    assert _build.ptxas_usage(report, instance) == usage

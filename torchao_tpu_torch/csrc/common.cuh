@@ -12,6 +12,33 @@
 
 #define TT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// The indexed forms' index (K1, K6, K7, K8, K11, K12 at a device index): the
+// flat leading index f = base + *idx of a merged [nflat, ...] stack (a (layer,
+// expert) pair l E + e), idx a device int64 that the kernel reads (torch.topk's
+// output: a CUDA graph replay reads the index that replay's router wrote).
+// Unused (and zero) in the other instances, which take it as a trailing
+// argument they never read, so they compile as they would without it.
+struct FlatIndex {
+  const long long* idx;
+  long long base, nflat;
+};
+
+// An index with where the entry's per-row scales lie: scale_step elements
+// between entries (N per row, 1 per entry, 0 for one scale over the stack, or a
+// view's stride).
+struct ScaledIndex {
+  FlatIndex fi;
+  long long scale_step;
+};
+
+// f = base + *idx, read before the first weight load; out of [0, nflat) the
+// kernel traps (no clamp: a wrong index must not read another expert).
+__device__ __forceinline__ long long flat_entry(const FlatIndex& fi) {
+  const long long f = fi.base + *fi.idx;
+  if (f < 0 || f >= fi.nflat) __trap();
+  return f;
+}
+
 // Offset-binary nibble -> float (q - 8), exactly: place the byte into the
 // mantissa of 2^23 (0x4B0000xx) and subtract 2^23 + 8. `v4` holds four
 // bytes whose values are 0..15; `j` picks the byte.

@@ -93,13 +93,25 @@ constexpr int DUAL_CH = 16;                                  // k per lane per B
 // eighth, K1's map) and the B chunks [y C / nsplit, (y + 1) C / nsplit) of
 // the C = K / 16 (warp w rows 16 w .. of the block's 128, lane l every 32nd
 // chunk). MT: the rows of x the B loop holds at once (1, or 4 at M > 1).
-template <int NT, int MT>
+// INDEXED (K11-indexed, tt_fp6_dual_gemv_indexed; the scalar prefetch of
+// fp6_matmul.py:416): wa and wb are the whole merged stacks, s32 nflat runs
+// of N scales fi.scale_step elements apart (the A plane's group-0 scales: a
+// strided view), and fi picks one entry for both planes before the first load
+// (out of [0, nflat) the kernel traps); the trailing fi is unread by the other
+// instances.
+template <int NT, int MT, bool INDEXED>
 __global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 fp6_dual_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wa,
                 const int8_t* __restrict__ wb, const __nv_bfloat16* __restrict__ s32,
                 float* __restrict__ ws, int* __restrict__ tickets,
-                __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+                __nv_bfloat16* __restrict__ out, int M, int K, int N, ScaledIndex fi) {
   constexpr int PF = wstream::PREFETCH, ROWS = wstream::STEP_ROWS;
+  if constexpr (INDEXED) {  // one f for the A plane's stream and the B plane's loop
+    const long long f = flat_entry(fi.fi);
+    wa += (size_t)f * (size_t)(K / 2) * (size_t)N;
+    wb += (size_t)f * (size_t)N * (size_t)K;
+    s32 += (size_t)(f * fi.scale_step);
+  }
   extern __shared__ __align__(16) uint8_t d_smem[];
   __shared__ float accb[DUAL_MAX_M][wstream::COLS];  // the B plane's sums, times 16
   const int Kp = K / 2;
@@ -277,14 +289,22 @@ struct Fp6Step {
 // grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes the steps
 // [y S / nsplit, (y + 1) S / nsplit) of the S = K/4 / 8; warp w a contiguous
 // eighth of them. ws ([nsplit, M, N] f32) and the tickets (one per strip,
-// zero) as in wstream::finish.
-template <int NT>
+// zero) as in wstream::finish. INDEXED (K12-indexed, tt_fp6_gemv_indexed; the
+// scalar prefetch of fp6_matmul.py:161): s4, s2 and scale are the whole merged
+// stacks and fi picks the entry, as K11-indexed's.
+template <int NT, bool INDEXED>
 __global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 fp6_packed_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ s4,
                   const uint8_t* __restrict__ s2, const __nv_bfloat16* __restrict__ scale,
                   float* __restrict__ ws, int* __restrict__ tickets,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N, FlatIndex fi) {
   constexpr int ROWS = FP6_STEP_ROWS;
+  if constexpr (INDEXED) {
+    const long long f = flat_entry(fi);
+    s4 += (size_t)f * (size_t)(K / 2) * (size_t)N;
+    s2 += (size_t)f * (size_t)(K / 4) * (size_t)N;
+    scale += (size_t)f * (size_t)N;
+  }
   extern __shared__ __align__(16) uint8_t p_smem[];
   const int Q = K / 4;
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
@@ -378,25 +398,42 @@ static int dual_smem(int M, int K, int nsplit) {
   return x > red ? x : red;
 }
 
-template <int NT, int MT>
+template <int NT, int MT, bool INDEXED>
 static int launch_dual(const void* x, const void* wa, const void* wb, const void* s32, void* ws,
-                       void* tickets, void* out, int M, int K, int N, int nsplit,
+                       void* tickets, void* out, int M, int K, int N, int nsplit, ScaledIndex fi,
                        cudaStream_t st) {
   static int configured = 0;  // the largest dynamic shared memory asked for so far
   const int smem = dual_smem(M, K, nsplit);
   if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(fp6_dual_kernel<NT, MT>,
+    cudaError_t e = cudaFuncSetAttribute(fp6_dual_kernel<NT, MT, INDEXED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
   dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
-  fp6_dual_kernel<NT, MT><<<grid, wstream::THREADS, smem, st>>>(
+  fp6_dual_kernel<NT, MT, INDEXED><<<grid, wstream::THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wa),
       static_cast<const int8_t*>(wb), static_cast<const __nv_bfloat16*>(s32),
       static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
-      K, N);
+      K, N, fi);
   return cudaGetLastError();
+}
+
+template <bool INDEXED>
+static int launch_dual_m(const void* x, const void* wa, const void* wb, const void* s32,
+                         void* ws, void* tickets, void* out, int M, int K, int N, int nsplit,
+                         ScaledIndex fi, void* stream) {
+  if (M < 1 || M > DUAL_MAX_M || (K / 2) % 16 || N % 16 || nsplit < 1 ||
+      nsplit > K / 2 / wstream::STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
+      dual_smem(M, K, nsplit) > wstream::MAX_SMEM ||
+      (INDEXED && (!fi.fi.idx || fi.fi.nflat < 1 || fi.scale_step < 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M == 1)
+    return launch_dual<1, 1, INDEXED>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, fi, st);
+  if (M <= 8)
+    return launch_dual<1, 4, INDEXED>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, fi, st);
+  return launch_dual<2, 4, INDEXED>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, fi, st);
 }
 
 // K11. x [M, K] bf16, M <= 16; wa [K/2, N] u8; wb [N, K] int8; s32 [N] bf16
@@ -407,14 +444,22 @@ static int launch_dual(const void* x, const void* wa, const void* wb, const void
 TT_EXPORT int tt_fp6_dual_gemv(const void* x, const void* wa, const void* wb, const void* s32,
                                void* ws, void* tickets, void* out, int M, int K, int N,
                                int nsplit, void* stream) {
-  if (M < 1 || M > DUAL_MAX_M || (K / 2) % 16 || N % 16 || nsplit < 1 ||
-      nsplit > K / 2 / wstream::STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
-      dual_smem(M, K, nsplit) > wstream::MAX_SMEM)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M == 1) return launch_dual<1, 1>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, st);
-  if (M <= 8) return launch_dual<1, 4>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, st);
-  return launch_dual<2, 4>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit, st);
+  return launch_dual_m<false>(x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit,
+                              ScaledIndex{}, stream);
+}
+
+// K11-indexed: tt_fp6_dual_gemv's arguments with wa [nflat, K/2, N] and wb
+// [nflat, N, K] whole merged stacks (contiguous), s32 nflat runs of N scales
+// s32_step elements apart, and the entry f = base + *idx read on the device
+// from idx (an int64; the kernel traps where f lies outside [0, nflat)).
+TT_EXPORT int tt_fp6_dual_gemv_indexed(const void* x, const void* wa, const void* wb,
+                                       const void* s32, void* ws, void* tickets, void* out,
+                                       const void* idx, long long base, long long nflat,
+                                       long long s32_step, int M, int K, int N, int nsplit,
+                                       void* stream) {
+  return launch_dual_m<true>(
+      x, wa, wb, s32, ws, tickets, out, M, K, N, nsplit,
+      ScaledIndex{FlatIndex{static_cast<const long long*>(idx), base, nflat}, s32_step}, stream);
 }
 
 // K12's shared memory: the split's two arrays of x pairs, or (after the
@@ -426,25 +471,39 @@ static int fp6_smem(int M, int K, int nsplit) {
   return x > red ? x : red;
 }
 
-template <int NT>
+template <int NT, bool INDEXED>
 static int launch_fp6(const void* x, const void* s4, const void* s2, const void* scale, void* ws,
-                      void* tickets, void* out, int M, int K, int N, int nsplit,
+                      void* tickets, void* out, int M, int K, int N, int nsplit, FlatIndex fi,
                       cudaStream_t st) {
   static int configured = 0;  // the largest dynamic shared memory asked for so far
   const int smem = fp6_smem(M, K, nsplit);
   if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(fp6_packed_kernel<NT>,
+    cudaError_t e = cudaFuncSetAttribute(fp6_packed_kernel<NT, INDEXED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
   dim3 grid((N + wstream::COLS - 1) / wstream::COLS, nsplit);
-  fp6_packed_kernel<NT><<<grid, wstream::THREADS, smem, st>>>(
+  fp6_packed_kernel<NT, INDEXED><<<grid, wstream::THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(s4),
       static_cast<const uint8_t*>(s2), static_cast<const __nv_bfloat16*>(scale),
       static_cast<float*>(ws), static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M,
-      K, N);
+      K, N, fi);
   return cudaGetLastError();
+}
+
+template <bool INDEXED>
+static int launch_fp6_m(const void* x, const void* s4, const void* s2, const void* scale,
+                        void* ws, void* tickets, void* out, int M, int K, int N, int nsplit,
+                        FlatIndex fi, void* stream) {
+  if (M < 1 || M > FP6_MAX_M || K % (4 * FP6_STEP_ROWS) || N % 16 || nsplit < 1 ||
+      nsplit > K / 4 / FP6_STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
+      fp6_smem(M, K, nsplit) > wstream::MAX_SMEM || (INDEXED && (!fi.idx || fi.nflat < 1)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 8)
+    return launch_fp6<1, INDEXED>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, fi, st);
+  return launch_fp6<2, INDEXED>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, fi, st);
 }
 
 // K12. x [M, K] bf16, M <= 16; s4 [K/2, N] u8; s2 [K/4, N] u8; scale [N] bf16
@@ -455,11 +514,18 @@ static int launch_fp6(const void* x, const void* s4, const void* s2, const void*
 TT_EXPORT int tt_fp6_gemv(const void* x, const void* s4, const void* s2, const void* scale,
                           void* ws, void* tickets, void* out, int M, int K, int N, int nsplit,
                           void* stream) {
-  if (M < 1 || M > FP6_MAX_M || K % (4 * FP6_STEP_ROWS) || N % 16 || nsplit < 1 ||
-      nsplit > K / 4 / FP6_STEP_ROWS || !tickets || (nsplit > 1 && !ws) ||
-      fp6_smem(M, K, nsplit) > wstream::MAX_SMEM)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch_fp6<1>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, st);
-  return launch_fp6<2>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, st);
+  return launch_fp6_m<false>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit, FlatIndex{},
+                             stream);
+}
+
+// K12-indexed: tt_fp6_gemv's arguments with s4 [nflat, K/2, N], s2 [nflat, K/4,
+// N] and scale [nflat, N] whole merged stacks (contiguous), and the entry f =
+// base + *idx read on the device from idx (an int64; the kernel traps where f
+// lies outside [0, nflat)).
+TT_EXPORT int tt_fp6_gemv_indexed(const void* x, const void* s4, const void* s2,
+                                  const void* scale, void* ws, void* tickets, void* out,
+                                  const void* idx, long long base, long long nflat, int M, int K,
+                                  int N, int nsplit, void* stream) {
+  return launch_fp6_m<true>(x, s4, s2, scale, ws, tickets, out, M, K, N, nsplit,
+                            FlatIndex{static_cast<const long long*>(idx), base, nflat}, stream);
 }

@@ -101,15 +101,6 @@ constexpr int K1_RING = wstream::WARPS * K1_QSTAGES * K1_QSLOT;  // 32 KB
 constexpr int K1_MAX_M = 32;
 constexpr int K1_STUB_MAX_M = 4;
 
-// K1-indexed's index: the flat leading index f = base + *idx of a merged
-// [nflat, ...] stack (a (layer, expert) pair l E + e), idx a device int64 that
-// the kernel reads (torch.topk's output: a CUDA graph replay reads the index
-// that replay's router wrote). Unused (and zero) in the other instances.
-struct K1Index {
-  const long long* idx;
-  long long base, nflat;
-};
-
 // grid: (ceil(N / 128), nsplit); block: 8 warps. Split y takes steps
 // [y S / nsplit, (y + 1) S / nsplit) of the S = K/2 / 8 steps; warp w a
 // contiguous eighth of them. ws ([nsplit, M, N] f32) and the tickets (one
@@ -122,12 +113,11 @@ __global__ void __launch_bounds__(wstream::THREADS, NT == 1 ? 2 : 1)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
                  const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zr,
                  float* __restrict__ ws, int* __restrict__ tickets,
-                 __nv_bfloat16* __restrict__ out, int M, int K, int N, int g, K1Index fi) {
+                 __nv_bfloat16* __restrict__ out, int M, int K, int N, int g, FlatIndex fi) {
   constexpr int PF = wstream::PREFETCH, ROWS = wstream::STEP_ROWS, COLS = wstream::COLS;
   extern __shared__ __align__(16) uint8_t k1_smem[];
   if constexpr (INDEXED) {
-    const long long f = fi.base + *fi.idx;
-    if (f < 0 || f >= fi.nflat) __trap();
+    const long long f = flat_entry(fi);  // K1-indexed (common.cuh's FlatIndex)
     wp += (size_t)f * (K / 2) * N;
     sc += (size_t)f * (K / g) * N;
     if (HAS_Z) zr += (size_t)f * (K / g) * N;
@@ -1382,7 +1372,7 @@ static int k1_smem(int M, int K, int nsplit) {
 template <int NT, bool HAS_Z, bool STUB, bool INDEXED>
 static int launch_k1(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
                      void* tickets, void* out, int M, int K, int N, int g, int nsplit,
-                     K1Index fi, cudaStream_t st) {
+                     FlatIndex fi, cudaStream_t st) {
   static int configured = 0;  // the largest dynamic shared memory asked for so far
   const int smem = k1_smem(M, K, nsplit);
   if (smem > configured) {
@@ -1403,7 +1393,7 @@ static int launch_k1(const void* x, const void* wp, const void* sc, const void* 
 template <bool STUB, bool INDEXED>
 static int launch_gemv(const void* x, const void* wp, const void* sc, const void* zr, void* ws,
                        void* tickets, void* out, int M, int K, int N, int g, int nsplit,
-                       K1Index fi, void* stream) {
+                       FlatIndex fi, void* stream) {
   const int Kp = K / 2;
   if (M < 1 || M > (STUB ? K1_STUB_MAX_M : K1_MAX_M) || Kp % 16 || g < wstream::STEP_ROWS ||
       g % wstream::STEP_ROWS || Kp % g || N % 16 || nsplit < 1 ||
@@ -1441,7 +1431,7 @@ TT_EXPORT int tt_int4_gemv(const void* x, const void* wp, const void* sc, const 
                            void* ws, void* tickets, void* out, int M, int K, int N, int g,
                            int nsplit, void* stream) {
   return launch_gemv<false, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
-                                   K1Index{}, stream);
+                                   FlatIndex{}, stream);
 }
 
 // K1-indexed: tt_int4_gemv's arguments with wp [nflat, K/2, N], sc and zr
@@ -1453,7 +1443,7 @@ TT_EXPORT int tt_int4_gemv_indexed(const void* x, const void* wp, const void* sc
                                    const void* idx, long long base, long long nflat, int M,
                                    int K, int N, int g, int nsplit, void* stream) {
   return launch_gemv<false, true>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
-                                  K1Index{static_cast<const long long*>(idx), base, nflat},
+                                  FlatIndex{static_cast<const long long*>(idx), base, nflat},
                                   stream);
 }
 
@@ -1462,7 +1452,7 @@ TT_EXPORT int tt_int4_gemv_stub(const void* x, const void* wp, const void* sc, c
                                 void* ws, void* tickets, void* out, int M, int K, int N, int g,
                                 int nsplit, void* stream) {
   return launch_gemv<true, false>(x, wp, sc, zr, ws, tickets, out, M, K, N, g, nsplit,
-                                  K1Index{}, stream);
+                                  FlatIndex{}, stream);
 }
 
 // P6: x [M, K] bf16, wp [K/2, N] u8 (one layer, 0x80-XORed), qp the qparams_eff

@@ -233,6 +233,15 @@ __global__ void qmm_reduce_kernel(const Acc* __restrict__ work, const void* __re
 // grid: (ceil(N / G1_ROWS), nsplit, ceil(M / MT)). Split y takes the
 // 16-k chunks [y C / nsplit, (y + 1) C / nsplit) of the C = K / 16; lane l
 // every 32nd of them.
+// INDEXED (K6-, K7- and K8-indexed: tt_qmm_gemv_indexed,
+// tt_fp8_mixed_gemv_indexed; the scalar prefetch of int8_matmul.py:245 and
+// :93 and of fp8_matmul.py:207): w and wsc are the whole merged stacks
+// [nflat, N, K] and [nflat] of scale runs qi.scale_step elements apart (N per
+// row, 1 per layer, 0 for one scale over the stack), and qi picks the entry
+// before the first weight load (out of [0, nflat) the kernel traps); its byte
+// offset, up to nflat N K, is computed in 64 bits. The trailing qi is unread
+// by the other instances, so they compile as they would without it.
+
 constexpr int G1_RPW = 4;                             // weight rows per warp
 constexpr int G1_ROWS = G1_RPW * GV_THREADS / 32;     // 32 weight rows per block
 constexpr int G1_BLOCKS = 2;                          // blocks an SM (the launch bounds)
@@ -246,13 +255,18 @@ __device__ __forceinline__ int dot16_s8(const uint4& x, const uint4& w, int a) {
   return __dp4a((int)x.w, (int)w.w, a);
 }
 
-template <int KIND, int MT>
+template <int KIND, int MT, bool INDEXED>
 __global__ void __launch_bounds__(GV_THREADS, G1_BLOCKS)
 gemv1_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ w,
              const void* __restrict__ xs, int xs_kind, const void* __restrict__ wsc,
              int ws_kind, int ws_stride, void* __restrict__ work, int* __restrict__ tickets,
-             __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+             __nv_bfloat16* __restrict__ out, int M, int K, int N, ScaledIndex qi) {
   using Tr = Traits<KIND>;
+  if constexpr (INDEXED) {
+    const long long f = flat_entry(qi.fi);
+    w += (size_t)f * (size_t)N * (size_t)K;  // one byte a weight element
+    wsc = static_cast<const uint8_t*>(wsc) + (size_t)(f * qi.scale_step) * (ws_kind == 1 ? 2 : 4);
+  }
   using Acc = typename Tr::Acc;
   constexpr int XB = Tr::kXBytes, RPW = G1_RPW;
   __shared__ Acc part[MT][G1_ROWS];
@@ -757,28 +771,46 @@ int launch_rowwise_gemv(const void* x, const void* w, const void* xs, const void
   return cudaGetLastError();
 }
 
-template <int KIND, int MT>
+template <int KIND, int MT, bool INDEXED>
 int launch_gemv1_mt(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
                     int ws_kind, int ws_stride, void* work, void* tickets, void* out, int M,
-                    int K, int N, int nsplit, cudaStream_t st) {
+                    int K, int N, int nsplit, ScaledIndex qi, cudaStream_t st) {
   dim3 grid((N + G1_ROWS - 1) / G1_ROWS, nsplit, (M + MT - 1) / MT);
-  gemv1_kernel<KIND, MT><<<grid, GV_THREADS, 0, st>>>(
+  gemv1_kernel<KIND, MT, INDEXED><<<grid, GV_THREADS, 0, st>>>(
       x, static_cast<const uint8_t*>(w), xs, xs_kind, ws, ws_kind, ws_stride, work,
-      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M, K, N);
+      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(out), M, K, N, qi);
   return cudaGetLastError();
 }
 
-template <int KIND>
+template <int KIND, bool INDEXED = false>
 int launch_gemv1(const void* x, const void* w, const void* xs, int xs_kind, const void* ws,
                  int ws_kind, int ws_stride, void* work, void* tickets, void* out, int M, int K,
-                 int N, int nsplit, cudaStream_t st) {
+                 int N, int nsplit, cudaStream_t st, ScaledIndex qi = ScaledIndex{}) {
   if (M < 1 || M > 32 || K % K_UNIT || nsplit < 1 || nsplit > K / CH || !tickets ||
-      (nsplit > 1 && !work))
+      (nsplit > 1 && !work) || (INDEXED && (!qi.fi.idx || qi.fi.nflat < 1 || qi.scale_step < 0)))
     return cudaErrorInvalidValue;
-  return M == 1 ? launch_gemv1_mt<KIND, 1>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work,
-                                           tickets, out, M, K, N, nsplit, st)
-                : launch_gemv1_mt<KIND, G1_MT>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work,
-                                               tickets, out, M, K, N, nsplit, st);
+  return M == 1 ? launch_gemv1_mt<KIND, 1, INDEXED>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
+                                                    work, tickets, out, M, K, N, nsplit, qi, st)
+                : launch_gemv1_mt<KIND, G1_MT, INDEXED>(x, w, xs, xs_kind, ws, ws_kind, ws_stride,
+                                                        work, tickets, out, M, K, N, nsplit, qi,
+                                                        st);
+}
+
+// the indexed forms' kinds: K6, K7 (tt_qmm_gemv_indexed) or K8 (tt_fp8_mixed_gemv_indexed)
+template <int KIND_A, int KIND_B>
+int launch_gemv1_indexed(int kind, const void* x, const void* w, const void* xs, int xs_kind,
+                         const void* ws, int ws_kind, int ws_stride, void* work, void* tickets,
+                         void* out, const void* idx, long long base, long long nflat,
+                         long long ws_step, int M, int K, int N, int nsplit, void* stream) {
+  const ScaledIndex qi{FlatIndex{static_cast<const long long*>(idx), base, nflat}, ws_step};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == KIND_A)
+    return launch_gemv1<KIND_A, true>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                      out, M, K, N, nsplit, st, qi);
+  if (kind == KIND_B)
+    return launch_gemv1<KIND_B, true>(x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets,
+                                      out, M, K, N, nsplit, st, qi);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -804,6 +836,20 @@ TT_EXPORT int tt_qmm_gemv(int kind, const void* x, const void* w, const void* xs
   }
 }
 
+// K6- and K7-indexed: tt_qmm_gemv's arguments with w [nflat, N, K] and ws
+// (nflat runs of ws_step elements: N per row, 1 per layer, 0 one scale) the
+// whole merged stacks, contiguous, and the entry f = base + *idx read on the
+// device from idx (an int64; the kernel traps where f lies outside [0, nflat)).
+TT_EXPORT int tt_qmm_gemv_indexed(int kind, const void* x, const void* w, const void* xs,
+                                  int xs_kind, const void* ws, int ws_kind, int ws_stride,
+                                  void* work, void* tickets, void* out, const void* idx,
+                                  long long base, long long nflat, long long ws_step, int M,
+                                  int K, int N, int nsplit, void* stream) {
+  return launch_gemv1_indexed<K6_BF16_I8, K7_I8_I8>(kind, x, w, xs, xs_kind, ws, ws_kind,
+                                                    ws_stride, work, tickets, out, idx, base,
+                                                    nflat, ws_step, M, K, N, nsplit, stream);
+}
+
 // K8's gemv, the same kernel and arguments: kind 2 (bf16 x) or 3 (e4m3 x),
 // w e4m3.
 TT_EXPORT int tt_fp8_mixed_gemv(int kind, const void* x, const void* w, const void* xs,
@@ -820,6 +866,18 @@ TT_EXPORT int tt_fp8_mixed_gemv(int kind, const void* x, const void* w, const vo
                                         out, M, K, N, nsplit, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K8-indexed: tt_fp8_mixed_gemv's arguments with tt_qmm_gemv_indexed's stacks
+// and index.
+TT_EXPORT int tt_fp8_mixed_gemv_indexed(int kind, const void* x, const void* w, const void* xs,
+                                        int xs_kind, const void* ws, int ws_kind, int ws_stride,
+                                        void* work, void* tickets, void* out, const void* idx,
+                                        long long base, long long nflat, long long ws_step,
+                                        int M, int K, int N, int nsplit, void* stream) {
+  return launch_gemv1_indexed<K8_BF16_E4M3, K8_E4M3_E4M3>(
+      kind, x, w, xs, xs_kind, ws, ws_kind, ws_stride, work, tickets, out, idx, base, nflat,
+      ws_step, M, K, N, nsplit, stream);
 }
 
 // The tensor-core kernels (M > 32), with the arguments of tt_qmm_gemv: kind

@@ -6,7 +6,10 @@ float8dq-row: e4m3 x), K14a (int4 ``group_partial``), K14c / K14b
 with the L2 flushed (CUDA events, median), and print one JSON line: per
 form the ms of one decode step's launches (32 of each layer weight, and
 the head where the recipe quantizes it), its bytes and GB/s, each shape's
-time and SQNR against the plain version.
+time and SQNR against the plain version. The indexed forms of K6, K7, K8
+(bf16 x), K1, K11 and K12 are timed at Mixtral-8x7B's expert shapes (a decode
+step's 64 launches of each of w1, w3, w2), each beside the same kernel
+launched at the host offset of the same entry of the stack.
 
     python -m torchao_tpu_torch.gemv_timing [--reps 25] [--sweep 1,2,3,4,6,8]
 
@@ -38,6 +41,10 @@ import torch
 SHAPES = (("wqkv", 6144, 4096, 32), ("wo", 4096, 4096, 32), ("w13", 28672, 4096, 32),
           ("w2", 4096, 14336, 32))
 HEAD = ("output", 128256, 4096, 1)  # fp6-packed and int4wo quantize the head (K12, K14)
+# Mixtral-8x7B's experts: (name, N, K, launches per gathered decode step: 2 of 8 experts,
+# 32 layers, w1 and w3 one shape)
+EXPERT_SHAPES = (("w13", 14336, 4096, 128), ("w2", 4096, 14336, 64))
+EXPERT_ENTRY = 3  # the entry of a 4-entry stack the indexed forms read
 
 
 def _fp6_case(gen, N, K):
@@ -168,6 +175,53 @@ def _p2_case(gen, N, K):
             lambda: tuple(P2.manual_dma_plain(x, w) for w in (w1, w2)), nbytes, (P2, ""))
 
 
+def _indexed_case(gen, N, K, kernel, indexed):
+    """An indexed form (``indexed``) or the same kernel at the host offset
+    ``EXPERT_ENTRY`` of a 4-entry stack, at M = 1: ``kernel`` K6, K7, K8
+    (bf16 x), K1 (g = 32), K11 or K12."""
+    from torchao_tpu_torch.kernels import fp6_matmul as F
+    from torchao_tpu_torch.kernels import fp8_matmul as F8
+    from torchao_tpu_torch.kernels import int4_matmul as TK
+    from torchao_tpu_torch.kernels import int8_matmul as I8
+    from torchao_tpu_torch.utils import DeviceIndex
+
+    L, dev = 4, "cuda"
+    u8 = lambda *shape: torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8, device=dev)
+    scale = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 0.02 + 0.001).bfloat16()
+    x = torch.randn((1, K), generator=gen, device=dev).bfloat16()
+    if kernel in ("K6", "K7"):
+        w = torch.randint(-127, 128, (L, N, K), generator=gen, device=dev).to(torch.int8)
+        if kernel == "K6":
+            fns = (I8.int8wo_mixed_matmul, I8.int8wo_mixed_matmul_plain)
+            args, nx = (x, w, scale(L, N)), 2 * K
+        else:
+            x_q = torch.randint(-127, 128, (1, K), generator=gen, device=dev).to(torch.int8)
+            fns = (I8.int8_scaled_matmul, I8.int8_scaled_matmul_plain)
+            args, nx = (x_q, w, scale(1), scale(L, N)), K + 2
+        nbytes, kw = N * K + 2 * N + nx + 2 * N, {}
+    elif kernel == "K8":
+        w = (torch.randn((L, N, K), generator=gen, device=dev) * 50).to(torch.float8_e4m3fn)
+        fns = (F8.fp8_mixed_matmul, F8.fp8_mixed_matmul_plain)
+        args, nbytes, kw = (x, w, scale(L, N).float()), N * K + 4 * N + 2 * K + 2 * N, {}
+    elif kernel == "K1":
+        fns = (TK.int4_dq_matmul, TK.int4_dq_matmul_plain)
+        args = (x, u8(L, K // 2, N), scale(L, K // 32, N), scale(L, K // 32, N))
+        nbytes = K // 2 * N + 2 * (K // 32) * N * 2 + 2 * K + 2 * N
+        kw = dict(group_size=32, xored=True)
+    elif kernel == "K11":
+        fns = (F.fp6_dual_matmul, F.fp6_dual_matmul_plain)
+        wb = torch.randint(-56, 57, (L, N, K), generator=gen, device=dev).to(torch.int8)
+        args = (x, u8(L, K // 2, N), wb, scale(L, N))
+        nbytes, kw = K // 2 * N + N * K + 2 * N + 2 * K + 2 * N, {}
+    else:
+        fns = (F.fp6_dq_matmul, F.fp6_dq_matmul_plain)
+        args = (x, u8(L, K // 2, N), u8(L, K // 4, N), scale(L, N))
+        nbytes, kw = K // 2 * N + K // 4 * N + 2 * N + 2 * K + 2 * N, {}
+    kw["layer_idx"] = (DeviceIndex(torch.full((1,), EXPERT_ENTRY, device=dev), 0) if indexed
+                       else EXPERT_ENTRY)
+    return (lambda: fns[0](*args, **kw), lambda: fns[1](*args, **kw), nbytes, (None, ""))
+
+
 LAYOUT_ENV = "TORCHAO_TPU_QPARAMS_LAYOUT"
 FORMS = {
     "K12 fp6-packed": (lambda g, N, K: _fp6_case(g, N, K), SHAPES + (HEAD,)),
@@ -188,6 +242,10 @@ FORMS = {
     "P6 eff4 ring": (lambda g, N, K: _p6_case(g, N, K, False), SHAPES + (HEAD,)),
     "P6 m1 ring": (lambda g, N, K: _p6_case(g, N, K, True), SHAPES + (HEAD,)),
     "P2 manual-DMA pair": (_p2_case, (("pair", 10240, 4096, 1),)),
+    # the indexed forms at Mixtral's expert shapes, each beside its host-offset launch
+    **{f"{k}{'-indexed' if ix else ' at a host offset'} (experts)": (
+        lambda g, N, K, k=k, ix=ix: _indexed_case(g, N, K, k, ix), EXPERT_SHAPES)
+       for k in ("K6", "K7", "K8", "K1", "K11", "K12") for ix in (True, False)},
 }
 
 

@@ -111,6 +111,8 @@ _STREAM_FP6 = [c_ptr] * 7 + [c_int] * 4 + [c_ptr]
 # K1-indexed: the stream's pointers, the index (int64 on the device), base, nflat,
 # M, K, N, g, nsplit, stream
 _STREAM_INT4_INDEXED = [c_ptr] * 8 + [c_i64] * 2 + [c_int] * 5 + [c_ptr]
+# K12-indexed: the same, without g; K11-indexed: and the scales' step between entries
+_STREAM_FP6_INDEXED = [c_ptr] * 8 + [c_i64] * 2 + [c_int] * 4 + [c_ptr]
 # fp8 bytes, out, n, stream
 _CAST = [c_ptr, c_ptr, c_i64, c_ptr]
 # a, b, out, M, N, K, stream
@@ -160,6 +162,10 @@ SIGNATURES = {
     # nsplit, stream
     "tt_qmm_gemv": _QMM + [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
     "tt_fp8_mixed_gemv": _QMM + [c_ptr] * 3 + [c_int] * 4 + [c_ptr],
+    # K6/K7-, K8-indexed: the gemv's pointers, the index (int64 on the device), base,
+    # nflat, the scale's step between entries, M, K, N, nsplit, stream
+    "tt_qmm_gemv_indexed": _QMM + [c_ptr] * 4 + [c_i64] * 3 + [c_int] * 4 + [c_ptr],
+    "tt_fp8_mixed_gemv_indexed": _QMM + [c_ptr] * 4 + [c_i64] * 3 + [c_int] * 4 + [c_ptr],
     # the tensor-core bodies take the gemv's arguments (work may be null: one split)
     "tt_qmm_mma_bf16": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
     "tt_qmm_mma_e4m3": _QMM + [c_ptr] * 2 + [c_int] * 4 + [c_ptr],
@@ -167,6 +173,8 @@ SIGNATURES = {
     "tt_fp8_rowwise_gemv": _GEMV6,
     "tt_fp6_dual_gemv": _STREAM_FP6,
     "tt_fp6_gemv": _STREAM_FP6,
+    "tt_fp6_dual_gemv_indexed": [c_ptr] * 8 + [c_i64] * 3 + [c_int] * 4 + [c_ptr],
+    "tt_fp6_gemv_indexed": _STREAM_FP6_INDEXED,
     # x, wp, xs, xs_kind, ws, ws_kind, (work, (tickets,)) out, out_f32, M, K, N, g,
     # (ksplit,) stream
     "tt_w4a8_gemv": [c_ptr] * 3 + [c_int, c_ptr, c_int] + [c_ptr] * 3 + [c_int] * 6 + [c_ptr],
@@ -331,6 +339,63 @@ def compile_report(name: str):
     return r.stdout + r.stderr, sass
 
 
+def sass_instances(sass: str) -> dict:
+    """Each kernel template instance of ``cuobjdump -sass`` output:
+    ``{(kernel, its mangled template arguments): instruction texts}``, the
+    file-local namespace dropped (its hash differs between two trees of one
+    file)."""
+    import re
+
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = block.split("\n", 1)[0]
+        # the mangled <length><identifier> of the template, its arguments after it: the
+        # last such match (a namespace hash's digits may spell a length that fits too)
+        m = next((m for m in reversed(list(re.finditer(
+            r"(?=(\d+)(\w+?_kernel)I((?:L[ib]\d+E)+)E)", fname)))
+                  if int(m.group(1)) == len(m.group(2))), None)
+        if m:
+            out[(m.group(2), m.group(3))] = [
+                re.sub(r"\s+", " ", t).strip()
+                for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block)]
+    return out
+
+
+def compare_sass(other_csrc, names) -> dict:
+    """Compile ``csrc/<name>`` of this tree and of ``other_csrc`` (another
+    tree's csrc, e.g. a parent's ``git archive``) with the library's flags
+    and compare every kernel instance instruction for instruction:
+    ``{"name:kernel<args>": "same" | "differs (...)" | "new" | "indexed"}``.
+    An instance here whose last template argument is a bool the other tree
+    lacks is matched with INDEXED false (``...Lb0E``) and marked
+    ``indexed`` with it true (needs ``nvcc`` and ``cuobjdump``)."""
+    out = {}
+    for name in names:
+        here = sass_instances(_compiled_sass(CSRC, name))
+        there = sass_instances(_compiled_sass(Path(other_csrc), name))
+        for (kernel, targs), ins in sorted(here.items()):
+            key, status = (kernel, targs), "new"
+            if key not in there and targs[-4:] in ("Lb0E", "Lb1E") and (kernel, targs[:-4]) in there:
+                key, status = (kernel, targs[:-4]), "indexed" if targs.endswith("Lb1E") else "new"
+            if status != "indexed" and key in there:
+                other = there[key]
+                status = "same" if other == ins else (
+                    f"differs ({sum(a != b for a, b in zip(other, ins))} of {len(ins)} "
+                    f"instructions, {len(other)} there)")
+            out[f"{name}:{kernel}<{targs}>"] = status
+    return out
+
+
+def _compiled_sass(csrc: Path, name: str) -> str:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "k.o"
+        subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(csrc / name), "-o",
+                        str(obj)], check=True, capture_output=True, text=True)
+        return subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(obj)],
+                              check=True, capture_output=True, text=True).stdout
+
+
 def ptxas_usage(report: str, kernel: str):
     """``(registers, spill bytes)`` ptxas reports for the first function
     whose mangled name holds ``kernel``."""
@@ -415,9 +480,13 @@ def sass_loop_report(name: str, kernel: str, opcode: str = "") -> str:
 if __name__ == "__main__":
     # python -m torchao_tpu_torch.kernels._build int4_matmul.cu qmatmul.cu [other/dir/x.cu]
     # python -m torchao_tpu_torch.kernels._build --sass fp6_matmul.cu fp6_packed_kernel [HMMA]
+    # python -m torchao_tpu_torch.kernels._build --compare-sass OTHER/csrc qmatmul.cu ...
     import sys
 
     if sys.argv[1:2] == ["--sass"]:
         print(sass_loop_report(*sys.argv[2:5]))
+    elif sys.argv[1:2] == ["--compare-sass"]:
+        for k, v in compare_sass(sys.argv[2], sys.argv[3:]).items():
+            print(k, v)
     else:
         print(ptxas_report(sys.argv[1:] or [p.name for p in _sources()[0]]))

@@ -26,6 +26,19 @@ it equals the plain version bit for bit). Each wrapper
 counts its launches in ``_build.LAUNCHES`` under ``<name>_gemv`` or
 ``<name>_tiled``; a tiled launch and a one-launch gemv launch also count
 their C entry in ``_build.ENTRIES``.
+
+A stacked weight is addressed by a host ``layer_idx`` (a view: the caller
+offsets the pointers) or by a device index (``utils.DeviceIndex``, the TPU's
+scalar prefetch, a traced ``l·E + e`` in the MoE gathered decode). With a
+device index, K6, K7 and K8 at M ≤ 32 run their **indexed** gemv
+(``tt_qmm_gemv_indexed``, ``tt_fp8_mixed_gemv_indexed``, counted as
+``<name>_gemv_indexed``): the one-launch gemv over the whole merged stack,
+reading ``f = base + index`` on the card (a trap outside the stack), so a
+CUDA graph replays with the index each replay finds, and equal bit for bit
+to the gemv at the host offset f. Above M = 32 the entry is picked on the
+card by ``index_select`` (a copy of one entry: no path runs a tensor-core
+body at a device index) and the tiled body runs on it. The plain versions
+pick the entry with ``index_select``. Nothing reads the index on the host.
 """
 
 from __future__ import annotations
@@ -37,7 +50,7 @@ import torch
 
 from torchao_tpu_torch.kernels import _build
 from torchao_tpu_torch.kernels.int4_matmul import STREAM_WARPS, stream_nsplit
-from torchao_tpu_torch.utils import cdiv
+from torchao_tpu_torch.utils import DeviceIndex, as_device_index, cdiv
 
 GEMV_MAX_M = 32
 K_STEP = 32          # k per step of the tiled bodies and unit of their K split (csrc TK,
@@ -63,10 +76,15 @@ _W_DTYPE = {K6_BF16_I8: torch.int8, K7_I8_I8: torch.int8,
 _SCALE_KIND = {torch.bfloat16: 1, torch.float32: 2}
 
 
-def layer(layer_idx: Optional[int], *ts):
-    """Layer ``layer_idx`` of each stacked tensor (views), or the tensors."""
+def layer(layer_idx, *ts):
+    """Layer ``layer_idx`` of each stacked tensor (views), or the tensors;
+    at a device index, its entry picked on the device (``index_select``)."""
     if layer_idx is None:
         return ts
+    ix = as_device_index(layer_idx)
+    if ix is not None:
+        sel = ix.flat()
+        return tuple(t.index_select(0, sel)[0] for t in ts)
     for t in ts:
         if t.ndim < 1 or not 0 <= layer_idx < t.shape[0]:
             raise IndexError(f"layer_idx {layer_idx} out of range for {tuple(t.shape)}")
@@ -116,15 +134,17 @@ def gemv1_strips(M: int, N: int) -> int:
 
 
 def launch_gemv1(entry: str, args, x: torch.Tensor, out: torch.Tensor, M: int, K: int,
-                 N: int) -> None:
+                 N: int, index=()) -> None:
     """Launch the one-launch gemv ``entry`` with its leading ``args`` (the
-    operands and scales): the split of :func:`gemv1_nsplit`, the per-device
-    buffers of ``_build.stream_buffers``; allocates nothing."""
+    operands and scales; an indexed entry's ``index``: the index's pointer,
+    base, entries and the scale's step between entries): the split of
+    :func:`gemv1_nsplit`, the per-device buffers of
+    ``_build.stream_buffers``; allocates nothing."""
     nsplit = gemv1_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
     work, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
                                           gemv1_strips(M, N))
     _build.library().launch(entry, *args, None if work is None else work.data_ptr(),
-                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
+                            tickets.data_ptr(), out.data_ptr(), *index, M, K, N, nsplit,
                             _build.stream_handle(x.device))
 
 
@@ -140,11 +160,84 @@ def _scale_arg(s: Optional[torch.Tensor], sizes, what: str):
     return s.data_ptr(), _SCALE_KIND[s.dtype], int(s.numel() != 1)
 
 
+def check_index(ix: DeviceIndex, x: torch.Tensor, name: str) -> None:
+    """A device index is one int64 element on x's device (its range is the
+    kernel's to check: the host never reads it)."""
+    t = ix.index
+    if t.device != x.device or t.dtype != torch.int64 or t.numel() != 1:
+        raise TypeError(f"{name}: a device index is one int64 element on x's device")
+
+
 def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
         x_scale: Optional[torch.Tensor], w_scale: torch.Tensor,
-        out_dtype: torch.dtype) -> torch.Tensor:
+        out_dtype: torch.dtype, index: Optional[DeviceIndex] = None) -> torch.Tensor:
     """Launch kernel ``kind`` on CUDA tensors ``x [M, K]``, ``w [N, K]``
-    (one layer: a view of a stacked weight is fine if contiguous)."""
+    (one layer: a view of a stacked weight is fine if contiguous). With
+    ``index``, ``w [nflat, N, K]`` and ``w_scale [nflat, 1 or N]`` are whole
+    merged stacks (the scale's entries may be one broadcast scale, stride
+    0) and the entry is ``index``'s (module docstring)."""
+    if index is not None:
+        check_index(index, x, name)
+        if x.shape[0] > GEMV_MAX_M or kind == K9_E4M3_ROW:
+            w, w_scale = layer(index, w, w_scale)
+        else:
+            return _qmm_indexed(name, kind, x, w, x_scale, w_scale, out_dtype, index)
+    M, K = x.shape
+    N = w.shape[0]
+    args = _checked_args(name, kind, x, w, x_scale, w_scale, out_dtype)
+    lib = _build.library()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    stream = _build.stream_handle(x.device)
+    if M <= GEMV_MAX_M and kind != K9_E4M3_ROW:
+        entry = gemv1_entry(kind)
+        launch_gemv1(entry, args, x, out, M, K, N)
+        _build.LAUNCHES[f"{name}_gemv"] += 1
+        _build.ENTRIES[entry] += 1
+    elif M <= GEMV_MAX_M:
+        chunks = K // _CHUNK
+        ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
+        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
+                           device=x.device)
+        k9 = (args[1], args[2], args[3], args[5])  # x, w, xs, ws
+        lib.launch("tt_fp8_rowwise_gemv", *k9, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                   stream)
+        _build.LAUNCHES[f"{name}_gemv"] += 1
+    else:
+        entry = tiled_entry(kind)
+        ksplit = tiled_ksplit(M, K, N, _build.sm_count(x.device.index or 0),
+                              MMA_BLOCKS_PER_SM[entry])
+        acc = torch.int32 if kind == K7_I8_I8 else torch.float32
+        work = torch.empty((ksplit, M, N), dtype=acc, device=x.device) if ksplit > 1 else None
+        lib.launch(entry, *args, 0 if work is None else work.data_ptr(), out.data_ptr(), M, K,
+                   N, ksplit, stream)
+        _build.LAUNCHES[f"{name}_tiled"] += 1
+        _build.ENTRIES[entry] += 1
+    return out
+
+
+def _qmm_indexed(name, kind, x, w, x_scale, w_scale, out_dtype, ix: DeviceIndex):
+    """The indexed gemv over the stacks ``w [nflat, N, K]`` and ``w_scale
+    [nflat, n]`` (n = 1 or N; entries ``w_scale.stride(0)`` elements apart,
+    0 for one scale broadcast over the stack)."""
+    if w.ndim != 3 or w_scale.ndim != 2 or w_scale.shape[0] != w.shape[0]:
+        raise ValueError(f"{name}: a device index takes stacks w [nflat, N, K] and w_scale "
+                         f"[nflat, n], got {tuple(w.shape)} and {tuple(w_scale.shape)}")
+    args = _checked_args(name, kind, x, w[0], x_scale, w_scale[0], out_dtype)
+    M, K = x.shape
+    N = w.shape[1]
+    entry = f"{gemv1_entry(kind)}_indexed"
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    launch_gemv1(entry, args, x, out, M, K, N,
+                 index=(ix.index.data_ptr(), ix.base, w.shape[0], w_scale.stride(0)))
+    _build.LAUNCHES[f"{name}_gemv_indexed"] += 1
+    _build.ENTRIES[entry] += 1
+    return out
+
+
+def _checked_args(name, kind, x, w, x_scale, w_scale, out_dtype):
+    """The leading C arguments of kind ``kind`` (kind, x, w, xs, its kind,
+    ws, its kind, its stride) on ``x [M, K]``, one entry ``w [N, K]`` and
+    its ``w_scale``, after the checks."""
     M, K = x.shape
     N = w.shape[0]
     checks = (
@@ -167,33 +260,4 @@ def qmm(name: str, kind: int, x: torch.Tensor, w: torch.Tensor,
     if kind == K9_E4M3_ROW:
         if xs[1] != 2 or ws[1] != 2 or w_scale.numel() != N:
             raise ValueError(f"{name}: x_scale [M] and w_scale [N] must be f32")
-        args = (x.data_ptr(), w.data_ptr(), xs[0], ws[0])
-    else:
-        args = (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)
-    lib = _build.library()
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    stream = _build.stream_handle(x.device)
-    if M <= GEMV_MAX_M and kind != K9_E4M3_ROW:
-        entry = gemv1_entry(kind)
-        launch_gemv1(entry, args, x, out, M, K, N)
-        _build.LAUNCHES[f"{name}_gemv"] += 1
-        _build.ENTRIES[entry] += 1
-    elif M <= GEMV_MAX_M:
-        chunks = K // _CHUNK
-        ksplit = max(1, min(chunks // 32, cdiv(_TARGET_BLOCKS, cdiv(N, _GEMV_ROWS))))
-        work = torch.empty((ksplit, M, N) if ksplit > 1 else (1,), dtype=torch.float32,
-                           device=x.device)
-        lib.launch("tt_fp8_rowwise_gemv", *args, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
-                   stream)
-        _build.LAUNCHES[f"{name}_gemv"] += 1
-    else:
-        entry = tiled_entry(kind)
-        ksplit = tiled_ksplit(M, K, N, _build.sm_count(x.device.index or 0),
-                              MMA_BLOCKS_PER_SM[entry])
-        acc = torch.int32 if kind == K7_I8_I8 else torch.float32
-        work = torch.empty((ksplit, M, N), dtype=acc, device=x.device) if ksplit > 1 else None
-        lib.launch(entry, kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws,
-                   0 if work is None else work.data_ptr(), out.data_ptr(), M, K, N, ksplit, stream)
-        _build.LAUNCHES[f"{name}_tiled"] += 1
-        _build.ENTRIES[entry] += 1
-    return out
+    return (kind, x.data_ptr(), w.data_ptr(), *xs[:2], *ws)

@@ -27,27 +27,33 @@ dtype:
 :func:`pack_fp6_kmajor` is the port's copy of the JAX package's packing of
 6-bit codes into those two shards. ``*_supported`` are the JAX package's
 guards (``fp6_dual_matmul_available``, ``fp6_dq_matmul_available``) on
-shapes. A stacked weight is addressed by ``layer_idx`` (a view: nothing is
-copied). A CUDA tensor launches the kernel (or raises); only a CPU tensor
-takes the plain version, which also takes float32 x (the kernels take bf16).
+shapes. A stacked weight is addressed by ``layer_idx``: a host int (a view:
+nothing is copied), or a device index (``utils.DeviceIndex``, the scalar
+prefetch at ``fp6_matmul.py:416`` and ``:161``), which runs **K11-indexed**
+(``tt_fp6_dual_gemv_indexed``, counted as ``fp6_dual_matmul_indexed``: both
+planes at one entry) or **K12-indexed** (``tt_fp6_gemv_indexed``, counted as
+``fp6_dq_matmul_indexed``): the kernel over the whole merged stacks, reading
+``f = base + index`` on the card (a trap outside the stack), bit for bit the
+kernel at the host offset f; the plain versions pick the entry with
+``index_select``. A CUDA tensor launches the kernel (or raises); only a CPU
+tensor takes the plain version, which also takes float32 x (the kernels take
+bf16).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
-
 import torch
 
 from torchao_tpu_torch.kernels import _build
-from torchao_tpu_torch.kernels._qmm import layer
+from torchao_tpu_torch.kernels._qmm import check_index, layer
 from torchao_tpu_torch.kernels.int4_matmul import (
     STREAM_COLS,
     STREAM_STEP_ROWS,
     STREAM_X_BYTES,
     stream_nsplit,
 )
-from torchao_tpu_torch.utils import cdiv
+from torchao_tpu_torch.utils import as_device_index, cdiv
 
 GEMV_MAX_M = 16
 DUAL_B_ROWS = 16     # K11: rows of B per warp of its SIMT B loop (csrc DUAL_B_ROWS)
@@ -159,33 +165,54 @@ def _check(name, x, tensors, dtypes):
         raise ValueError(f"{name}: x must be contiguous and 16-byte aligned")
 
 
+def _entries(name, x, layer_idx, *ts):
+    """Host int: each stacked tensor's layer (views), and no index
+    arguments; device index: the whole stacks, checked to be stacks of one
+    size, and the indexed entry's arguments (pointer, base, entries)."""
+    ix = as_device_index(layer_idx)
+    if ix is None:
+        return layer(layer_idx, *ts), ()
+    check_index(ix, x, name)
+    if len({t.shape[0] for t in ts}) != 1 or any(t.ndim < 2 for t in ts):
+        raise ValueError(f"{name}: a device index takes stacks of one leading size, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    return ts, (ix.index.data_ptr(), ix.base, ts[0].shape[0])
+
+
 def fp6_dual_matmul(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor, s32: torch.Tensor, *,
-                    layer_idx: Optional[int] = None) -> torch.Tensor:
+                    layer_idx=None) -> torch.Tensor:
     """``x [M, K]`` times the dual-plane fp6 weight: A ``[(L,) K/2, N]`` u8,
-    B ``[(L,) N, K]`` int8, ``s32 [(L,) N]``; returns ``[M, N]``."""
+    B ``[(L,) N, K]`` int8, ``s32 [(L,) N]``; returns ``[M, N]``.
+    ``layer_idx``: a host int or a device index (module docstring)."""
     if x.device.type == "cpu":
         return fp6_dual_matmul_plain(x, wa, wb, s32, layer_idx=layer_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    wa, wb, s32 = layer(layer_idx, wa, wb, s32)
+    (wa, wb, s32), index = _entries("fp6_dual_matmul", x, layer_idx, wa, wb, s32)
+    one = (wa[0], wb[0], s32[0]) if index else (wa, wb, s32)  # an entry, for the checks
     M, K = x.shape
-    Kp, N = wa.shape
-    if wb.shape != (N, K) or Kp * 2 != K or s32.numel() != N:
+    Kp, N = one[0].shape
+    if one[1].shape != (N, K) or Kp * 2 != K or one[2].numel() != N:
         raise ValueError(f"fp6_dual_matmul: shape mismatch x {tuple(x.shape)}, "
                          f"A {tuple(wa.shape)}, B {tuple(wb.shape)}, s32 {tuple(s32.shape)}")
     if not fp6_dual_supported(M, K, N):
         raise ValueError(f"fp6_dual_matmul: unsupported shape M={M}, K={K}, N={N}")
-    _check("fp6_dual_matmul", x, (("A", wa), ("B", wb), ("s32", s32)),
+    # the planes whole, the scales an entry at a time (the A plane's group-0 scales of a
+    # stack are a strided view: K11-indexed steps s32.stride(0) between entries)
+    _check("fp6_dual_matmul", x, (("A", wa), ("B", wb), ("s32", one[2])),
            (torch.uint8, torch.int8, torch.bfloat16))
+    if index:
+        index += (s32.stride(0),)
     nsplit = dual_nsplit(M, K, N, _build.sm_count(x.device.index or 0))
     ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
                                         cdiv(N, STREAM_COLS))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _build.library().launch("tt_fp6_dual_gemv", x.data_ptr(), wa.data_ptr(), wb.data_ptr(),
+    entry = "tt_fp6_dual_gemv_indexed" if index else "tt_fp6_dual_gemv"
+    _build.library().launch(entry, x.data_ptr(), wa.data_ptr(), wb.data_ptr(),
                             s32.data_ptr(), None if ws is None else ws.data_ptr(),
-                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
+                            tickets.data_ptr(), out.data_ptr(), *index, M, K, N, nsplit,
                             _build.stream_handle(x.device))
-    _build.LAUNCHES["fp6_dual_matmul"] += 1
+    _build.LAUNCHES["fp6_dual_matmul_indexed" if index else "fp6_dual_matmul"] += 1
     return out
 
 
@@ -217,17 +244,19 @@ def fp6_dq_matmul_plain(x, s4, s2, scale, *, layer_idx=None):
 
 
 def fp6_dq_matmul(x: torch.Tensor, s4: torch.Tensor, s2: torch.Tensor, scale: torch.Tensor, *,
-                  layer_idx: Optional[int] = None) -> torch.Tensor:
+                  layer_idx=None) -> torch.Tensor:
     """``x [M, K]`` times the packed fp6 weight: s4 ``[(L,) K/2, N]``, s2
-    ``[(L,) K/4, N]`` u8, ``scale [(L,) N]``; returns ``[M, N]``."""
+    ``[(L,) K/4, N]`` u8, ``scale [(L,) N]``; returns ``[M, N]``.
+    ``layer_idx``: a host int or a device index (module docstring)."""
     if x.device.type == "cpu":
         return fp6_dq_matmul_plain(x, s4, s2, scale, layer_idx=layer_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    s4, s2, scale = layer(layer_idx, s4, s2, scale)
+    (s4, s2, scale), index = _entries("fp6_dq_matmul", x, layer_idx, s4, s2, scale)
+    one = (s4[0], s2[0], scale[0]) if index else (s4, s2, scale)  # an entry, for the checks
     M, K = x.shape
     N = s4.shape[-1]
-    if s4.shape != (K // 2, N) or s2.shape != (K // 4, N) or scale.numel() != N:
+    if one[0].shape != (K // 2, N) or one[1].shape != (K // 4, N) or one[2].numel() != N:
         raise ValueError(f"fp6_dq_matmul: shape mismatch x {tuple(x.shape)}, s4 "
                          f"{tuple(s4.shape)}, s2 {tuple(s2.shape)}, scale {tuple(scale.shape)}")
     if not fp6_dq_supported(M, K, N):
@@ -238,9 +267,10 @@ def fp6_dq_matmul(x: torch.Tensor, s4: torch.Tensor, s2: torch.Tensor, scale: to
     ws, tickets = _build.stream_buffers(x.device, nsplit * M * N if nsplit > 1 else 0,
                                         cdiv(N, STREAM_COLS))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _build.library().launch("tt_fp6_gemv", x.data_ptr(), s4.data_ptr(), s2.data_ptr(),
+    entry = "tt_fp6_gemv_indexed" if index else "tt_fp6_gemv"
+    _build.library().launch(entry, x.data_ptr(), s4.data_ptr(), s2.data_ptr(),
                             scale.data_ptr(), None if ws is None else ws.data_ptr(),
-                            tickets.data_ptr(), out.data_ptr(), M, K, N, nsplit,
+                            tickets.data_ptr(), out.data_ptr(), *index, M, K, N, nsplit,
                             _build.stream_handle(x.device))
-    _build.LAUNCHES["fp6_dq_matmul"] += 1
+    _build.LAUNCHES["fp6_dq_matmul_indexed" if index else "fp6_dq_matmul"] += 1
     return out

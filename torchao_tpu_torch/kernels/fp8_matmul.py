@@ -25,8 +25,14 @@ Port of two functions of ``torchao_tpu/kernels/fp8_matmul.py`` (CUDA source
   kernel it shares with K8 (``tt_qmm_mma_e4m3``), bound by bytes; counted
   as ``fp8_rowwise_matmul_{gemv,tiled}``.
 
-A CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
-plain version.
+K8's stacked weight is addressed by ``layer_idx``: a host int (a view), or a
+device index (``utils.DeviceIndex``, the scalar prefetch at
+``fp8_matmul.py:207``): at M ≤ 32 **K8-indexed** (``tt_fp8_mixed_gemv_indexed``,
+counted as ``fp8_mixed_matmul[_e4m3]_gemv_indexed``) reads the entry on the
+card from the whole merged stack, its weight scales per row, per entry, or
+one broadcast over the stack (float8dq-tensor: stride 0); see
+``kernels/_qmm.py``. A CUDA tensor launches the kernel (or raises); only a
+CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Optional
 import torch
 
 from torchao_tpu_torch.kernels import _qmm
+from torchao_tpu_torch.utils import as_device_index
 
 
 def fp8_mixed_matmul_plain(x, w_q, w_scale, x_scale=None, out_dtype=torch.bfloat16, *,
@@ -52,14 +59,20 @@ def fp8_mixed_matmul_plain(x, w_q, w_scale, x_scale=None, out_dtype=torch.bfloat
 
 def fp8_mixed_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                      x_scale: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16, *,
-                     layer_idx: Optional[int] = None) -> torch.Tensor:
+                     layer_idx=None) -> torch.Tensor:
     """``x [M, K]`` (bf16, or e4m3 with ``x_scale [M]``) times ``w_q [(L,)
-    N, K]`` e4m3; returns ``[M, N]`` in ``out_dtype``."""
+    N, K]`` e4m3; returns ``[M, N]`` in ``out_dtype``. ``layer_idx``: a
+    host int or a device index (module docstring)."""
     if x.device.type == "cpu":
         return fp8_mixed_matmul_plain(x, w_q, w_scale, x_scale, out_dtype, layer_idx=layer_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    ix = as_device_index(layer_idx)
+    if ix is None:
+        w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+        w_scale = w_scale.reshape(-1)
+    else:  # the stack's scales [L, n]: per row (n = N), per entry or broadcast (n = 1)
+        w_scale = w_scale.reshape(w_scale.shape[0], -1)
     M = x.shape[0]
     if x.dtype == torch.float8_e4m3fn:
         if x_scale is None:
@@ -67,12 +80,12 @@ def fp8_mixed_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         xs = x_scale.reshape(-1)
         if xs.numel() == 1 and M > 1:  # one scale for the tensor
             xs = xs.expand(M).contiguous()
-        return _qmm.qmm("fp8_mixed_matmul_e4m3", _qmm.K8_E4M3_E4M3, x, w_q, xs,
-                        w_scale.reshape(-1), out_dtype)
+        return _qmm.qmm("fp8_mixed_matmul_e4m3", _qmm.K8_E4M3_E4M3, x, w_q, xs, w_scale,
+                        out_dtype, index=ix)
     if x_scale is not None:
         raise ValueError("fp8_mixed_matmul: bf16 x takes no x_scale")
-    return _qmm.qmm("fp8_mixed_matmul", _qmm.K8_BF16_E4M3, x, w_q, None, w_scale.reshape(-1),
-                    out_dtype)
+    return _qmm.qmm("fp8_mixed_matmul", _qmm.K8_BF16_E4M3, x, w_q, None, w_scale, out_dtype,
+                    index=ix)
 
 
 def fp8_rowwise_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):

@@ -58,7 +58,8 @@ gathered decode). On the card a device index runs **K1-indexed**
 (``tt_int4_gemv_indexed``, counted as ``int4_dq_matmul[_zero_free]_gemv_indexed``):
 K1's kernel reading ``f = base + index`` from device memory over the whole
 contiguous stack, trapping where f lies outside it, so a CUDA graph replays
-with the index each replay finds; M <= 32 only (the other bodies raise). The
+with the index each replay finds; M <= 32 only (the other bodies raise:
+``INDEXED_FORMS_ITEM``). The
 plain versions pick the entry with ``index_select``. Neither reads the index
 on the host.
 
@@ -391,8 +392,10 @@ def launch_counter(body: str, zero_free: bool, indexed: bool = False) -> str:
         "_indexed" if indexed else "")
 
 
-INDEXED_FORMS_ITEM = ("ROADMAP.md Queue A, A7b: the indexed forms of K5, K6, K8, K11 and "
-                      "K12 for gathered experts")
+# K5 has no indexed form: no path runs it at a device index (the gathered MoE
+# decode has one row; the prefill and B > 1 steps run the dense mode)
+INDEXED_FORMS_ITEM = ("no path runs K5 at a device index; a grouped int4 kernel over the "
+                      "routed rows is ROADMAP.md Queue B2's, after the benchmark")
 
 
 def stream_nsplit(strips: int, units: int, unit_steps: int, sms: int, blocks_per_sm: int,
@@ -455,8 +458,8 @@ def _run(plan, x, wp, scale, zero, group_size, mid, layer_idx, xored):
     ix = as_device_index(layer_idx)
     if ix is not None:
         if body != "gemv":
-            raise NotImplementedError(f"int4 body {body!r} at M = {M} with a device index has "
-                                      f"no CUDA kernel yet ({INDEXED_FORMS_ITEM})")
+            raise NotImplementedError(f"int4 body {body!r} at M = {M} has no indexed form "
+                                      f"({INDEXED_FORMS_ITEM})")
         return _run_indexed(x, wp, scale, zero, group_size, ix, M, K, N)
     wp, scale, zero = _layer(wp, scale, zero, layer_idx)
     zp = 0 if zero is None else zero.data_ptr()  # null: the zero-free form

@@ -24,18 +24,22 @@ source ``csrc/qmatmul.cu``, launched through ``kernels/_qmm.py``):
   :func:`int8_scaled_matmul_plain`. Counted as
   ``int8_scaled_matmul_{gemv,tiled}``.
 
-A stacked weight is addressed by ``layer_idx`` (``w_q[l]`` is a view: no
-copy). A CUDA tensor launches the kernel (or raises); only a CPU tensor
-takes the plain version.
+A stacked weight is addressed by ``layer_idx``: a host int (``w_q[l]`` is a
+view: no copy), or a device index (``utils.DeviceIndex``, the scalar
+prefetch at ``int8_matmul.py:245`` and ``:93``): at M ≤ 32 **K6-indexed** and
+**K7-indexed** (``tt_qmm_gemv_indexed``, counted as
+``int8wo_mixed_matmul_gemv_indexed`` and ``int8_scaled_matmul_gemv_indexed``)
+read the entry on the card from the whole merged stack (``kernels/_qmm.py``).
+A CUDA tensor launches the kernel (or raises); only a CPU tensor takes the
+plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from torchao_tpu_torch.kernels import _qmm
+from torchao_tpu_torch.utils import as_device_index
 
 
 def int8wo_mixed_matmul_plain(x, w_q, w_scale, *, layer_idx=None):
@@ -47,15 +51,19 @@ def int8wo_mixed_matmul_plain(x, w_q, w_scale, *, layer_idx=None):
 
 
 def int8wo_mixed_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
-                        layer_idx: Optional[int] = None) -> torch.Tensor:
+                        layer_idx=None) -> torch.Tensor:
     """``x [M, K]`` times ``w_q [(L,) N, K]`` int8 with ``w_scale [(L,) N]``;
-    returns ``[M, N]`` in x.dtype."""
+    returns ``[M, N]`` in x.dtype. ``layer_idx``: a host int or a device
+    index (module docstring)."""
     if x.device.type == "cpu":
         return int8wo_mixed_matmul_plain(x, w_q, w_scale, layer_idx=layer_idx)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
-    return _qmm.qmm("int8wo_mixed_matmul", _qmm.K6_BF16_I8, x, w_q, None, w_scale, x.dtype)
+    ix = as_device_index(layer_idx)
+    if ix is None:
+        w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    return _qmm.qmm("int8wo_mixed_matmul", _qmm.K6_BF16_I8, x, w_q, None, w_scale, x.dtype,
+                    index=ix)
 
 
 def int8_scaled_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16, *,
@@ -71,14 +79,17 @@ def int8_scaled_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat1
 
 def int8_scaled_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                        w_scale: torch.Tensor, out_dtype=torch.bfloat16, *,
-                       layer_idx: Optional[int] = None) -> torch.Tensor:
+                       layer_idx=None) -> torch.Tensor:
     """``x_q [M, K]`` int8 with ``x_scale [M]`` times ``w_q [(L,) N, K]``
-    int8 with ``w_scale [(L,) N]``; returns ``[M, N]`` in ``out_dtype``."""
+    int8 with ``w_scale [(L,) N]``; returns ``[M, N]`` in ``out_dtype``.
+    ``layer_idx``: a host int or a device index (module docstring)."""
     if x_q.device.type == "cpu":
         return int8_scaled_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype,
                                         layer_idx=layer_idx)
     if x_q.device.type != "cuda":
         raise ValueError(f"unsupported device {x_q.device}")
-    w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
+    ix = as_device_index(layer_idx)
+    if ix is None:
+        w_q, w_scale = _qmm.layer(layer_idx, w_q, w_scale)
     return _qmm.qmm("int8_scaled_matmul", _qmm.K7_I8_I8, x_q, w_q, x_scale.reshape(-1),
-                    w_scale, out_dtype)
+                    w_scale, out_dtype, index=ix)

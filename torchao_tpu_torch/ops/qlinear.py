@@ -11,14 +11,17 @@ passed whole with ``layer_idx``: a host int (``qdata[l]`` is a free view in
 PyTorch), or a device index (``utils.DeviceIndex``, or a one-element integer
 tensor), the TPU's scalar prefetch: the MoE gathered decode's traced
 ``l·E + e`` over a merged ``[L·E, N, K]`` expert stack, which must not be read
-on the host (a CUDA graph replays it). With a device index the int4 TILED
-route launches K1-indexed, a plain weight is picked by ``index_select`` and
-multiplied with ``torch.matmul`` (the JAX package's dynamic slice then XLA),
-and every other route raises on a CUDA tensor (``INDEXED_FORMS_ITEM`` names
-the ROADMAP item that brings its indexed form); on the CPU they take the
-stack's entry by ``index_select`` and their plain versions. Each kernel
-wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-version for a CPU tensor.
+on the host (a CUDA graph replays it). With a device index, the routes of
+``INDEXED_ENTRIES`` (those the JAX package's ``_stacked_linear`` sends to a
+scalar-prefetch kernel: int4 TILED, 8da4w, int8wo, int8dq's symmetric forms,
+the float8 stacks, fp6 dual and packed) take the whole stack and launch
+their kernel's indexed form, which reads the index on the card; every other
+route (uintx, int4dq-4, asymmetric int8dq, w4a8, the dequantize route, a
+plain weight) takes the entry by ``index_select`` on the card (the JAX
+package's ``take_layer``, a dynamic slice) and then its unstacked form. On the
+CPU the same routes run their plain versions, which pick the entry by
+``index_select``. Each kernel wrapper launches its CUDA kernel for a CUDA
+tensor and runs its plain version for a CPU tensor.
 
 - int4 TILED_NIBBLES (FLOAT zero-point domain, zero-free, or HQQ's INT
   domain through its float-equivalent zero ``zero_float``) →
@@ -100,7 +103,7 @@ from torchao_tpu_torch.kernels.fp6_matmul import (
     fp6_dual_supported,
 )
 from torchao_tpu_torch.kernels.fp8_matmul import fp8_mixed_matmul, fp8_rowwise_matmul
-from torchao_tpu_torch.kernels.int4_matmul import INDEXED_FORMS_ITEM, int4_linear
+from torchao_tpu_torch.kernels.int4_matmul import int4_linear
 from torchao_tpu_torch.kernels.int8_matmul import int8_scaled_matmul, int8wo_mixed_matmul
 from torchao_tpu_torch.kernels.w4a8_matmul import w4a8_dq_matmul, w4a8_dq_matmul_available
 from torchao_tpu_torch.qtypes.base import PackingFormat, QuantizedArray
@@ -286,7 +289,10 @@ def _fp6_packed(x2, w: FloatxArray, layer_idx):
 
 def _dequant_matmul(x2, w, layer_idx):
     """The JAX package's XLA route: dequantize (one layer of a stacked
-    weight), then ``torch.matmul``."""
+    weight, at a device index picked on the device), then ``torch.matmul``."""
+    ix = as_device_index(layer_idx)
+    if ix is not None:
+        w, layer_idx = w.index_leading(ix.flat()), 0
     if layer_idx is not None:
         w = w.take_layer(layer_idx)
     return torch.matmul(x2, w.dequantize(x2.dtype).T)
@@ -413,6 +419,29 @@ register_qlinear_dispatch("fp6_dual", lambda x, w, l: isinstance(w, Fp6DualArray
                           _rows(lambda: _fp6_dual))
 
 
+# The routes that take a device index whole, and the C entry each launches
+# there at a decode row (M = 1): the JAX package's ``_stacked_linear``
+# (``torchao_tpu/ops/qlinear.py:125-257``), whose scalar-prefetch kernels
+# these indexed forms are. Any other route takes the indexed entry first
+# (``index_leading``, the JAX package's ``take_layer``) and runs unstacked.
+INDEXED_ENTRIES = {
+    "int8_dyn_act_int8_weight": "tt_qmm_gemv_indexed",  # K7 (K6 for _noop_decode at T = 1)
+    "8da4w_centered_int4": "tt_int4_gemv_indexed",      # K1, zero-free
+    "int8_weight_only": "tt_qmm_gemv_indexed",          # K6
+    "int4_weight_only": "tt_int4_gemv_indexed",         # K1
+    "fp8_weight": "tt_fp8_mixed_gemv_indexed",          # K8
+    "fpx_weight": "tt_fp6_gemv_indexed",                # K12
+    "fp6_dual": "tt_fp6_dual_gemv_indexed",             # K11
+}
+
+
+def _indexed_route(x, w, layer_idx) -> Optional[str]:
+    """The route a stacked ``w`` takes whole at a device index (a key of
+    ``INDEXED_ENTRIES``), or None where the entry must be taken first."""
+    name = next((name for name, check, _ in _DISPATCH if check(x, w, layer_idx)), None)
+    return name if name in INDEXED_ENTRIES else None
+
+
 def route_of(x: torch.Tensor, w, layer_idx=None) -> str:
     """The name of the route :func:`linear` takes for ``(x, w)``:
     ``"plain"`` for an unquantized weight, a registered name, or
@@ -446,13 +475,9 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
             w = w[layer_idx]
         out = torch.matmul(x, w.T)
         return out + bias if bias is not None else out
+    if ix is not None and _indexed_route(x, w, layer_idx) is None:
+        w, layer_idx = w.index_leading(ix.flat()).take_layer(0), None  # the dynamic slice
     route = route_of(x, w, layer_idx)
-    if ix is not None and route != "int4_weight_only":
-        if x.device.type != "cpu":
-            raise NotImplementedError(f"route {route!r} with a device index has no CUDA "
-                                      f"kernel yet ({INDEXED_FORMS_ITEM})")
-        w, layer_idx = w.index_leading(ix.flat()), 0
-        route = route_of(x, w, layer_idx)
     if route == "dequantize":
         out = _rows(lambda: _dequant_matmul)(x, w, layer_idx)
     else:
